@@ -1,0 +1,124 @@
+"""Scene ingestion of the PyTorch port against the JAX package.
+
+The port carries a jax-free numpy copy of scene compilation and BVH
+packing; every leaf it builds must equal the JAX package's
+CompiledScene.as_pytree(pack_pallas=True) in shape, dtype and value, bit
+for bit. The JAX side here loads the committed native/libtbbvh.so, the
+port compiles native/bvh_builder.cpp with the same flags: equal packed
+tables show the two builds give the same trees.
+"""
+
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tracerboy_tpu.scene.compile import load_scene as jax_load_scene
+from tracerboy_tpu_torch.scene.compile import (
+    from_jax_pytree,
+    load_scene as torch_load_scene,
+)
+
+torch.set_num_threads(2)
+
+SCENES = ["shadertoy:cornell", "shadertoy"]
+FILM = (32, 24)
+
+
+def _jax_leaves(name):
+    tree = jax_load_scene(name, film_size=FILM).as_pytree(pack_pallas=True)
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _assert_same_leaves(ref, got, path=""):
+    assert set(ref) == set(got), (path, set(ref) ^ set(got))
+    for k in ref:
+        if isinstance(ref[k], dict):
+            _assert_same_leaves(ref[k], got[k], f"{path}{k}.")
+            continue
+        a = np.asarray(ref[k])
+        b = got[k]
+        b = b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+        assert a.dtype == b.dtype, (path + k, a.dtype, b.dtype)
+        assert a.shape == b.shape, (path + k, a.shape, b.shape)
+        assert a.tobytes() == b.tobytes(), f"{path}{k} differs"
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_ingestion_matches_jax_bit_for_bit(name):
+    ref = _jax_leaves(name)
+    port = torch_load_scene(name, film_size=FILM)
+    _assert_same_leaves(ref, port.as_numpy())
+    _assert_same_leaves(ref, port.as_tensors("cpu"))
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_from_jax_pytree_gives_the_ports_tensors(name):
+    ref = _jax_leaves(name)
+    carried = from_jax_pytree(ref, "cpu")
+    _assert_same_leaves(ref, carried)
+    assert carried["pk_nodes"].dtype == torch.int32
+    assert carried["tri_shadow_opaque"].dtype == torch.bool
+
+
+def test_benchmark_scene_takes_the_kernel_path():
+    """The benchmark scene is above the brute-force cutoff; cornell is
+    below it."""
+    from tracerboy_tpu_torch.renderer import Renderer
+
+    big = torch_load_scene("shadertoy", film_size=FILM)
+    small = torch_load_scene("shadertoy:cornell", film_size=FILM)
+    assert big.tri_v0.shape[0] > 2048
+    assert Renderer._pick_traversal(big) == "kernel"
+    assert Renderer._pick_traversal(small) == "brute"
+
+
+@pytest.mark.parametrize("path", ["scene.pbrt", "mesh.obj", "cache.npz"])
+def test_unported_scene_files_raise(path):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        torch_load_scene(path)
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, tracerboy_tpu_torch\n"
+            "from tracerboy_tpu_torch.trace import wavefront, traverse\n"
+            "from tracerboy_tpu_torch.post import pipeline\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m == 'jax' or m.startswith('jax.')\n"
+            "             or m.startswith('tracerboy_tpu.')\n"
+            "             or m == 'tracerboy_tpu')\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("feature", ["instance", "volume", "light", "sphere",
+                                     "curve", "image_texture"])
+def test_unported_scene_features_raise(feature):
+    """What the procedural scenes never reach is refused, not dropped."""
+    from tracerboy_tpu_torch.scene import types as ir
+    from tracerboy_tpu_torch.scene.compile import compile_scene
+    from tracerboy_tpu_torch.scene.procedural import _cornell_scene
+
+    s = _cornell_scene()
+    if feature == "instance":
+        s.instances.append(ir.InstanceIR(object_name="x"))
+    elif feature == "volume":
+        s.volume = object()
+    elif feature == "light":
+        s.lights.append(ir.InfiniteLightIR())
+    elif feature == "sphere":
+        s.shapes.append(ir.SphereIR(material="wall"))
+    elif feature == "curve":
+        s.shapes.append(ir.CurveIR(material="wall"))
+    else:
+        s.textures["img"] = ir.TextureIR(name="img", type="imagemap",
+                                         filename="wood.png")
+        s.materials["wall"].map_kd = "img"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        compile_scene(s)

@@ -1,0 +1,231 @@
+"""Renderer: the progressive rendering driver (tracerboy_tpu/renderer.py).
+
+Owns the scene tensors and the accumulation state, and steps the
+wavefront integrator. Progressive semantics match the JAX package:
+
+- the colour accumulator stores (sum of radiance * filter weight, sum of
+  filter weight); display divides rgb by alpha;
+- a secondary "jittered" accumulator receives each sample (or batch)
+  with probability 1/2, for the convergence estimate;
+- world-position AOVs ping-pong between even and odd samples.
+
+Unbiased mode only; sharding, realtime, denoise and adaptive sampling
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from tracerboy_tpu_torch.core import rng as tbrng
+from tracerboy_tpu_torch.post.pipeline import post_process
+from tracerboy_tpu_torch.scene.compile import CompiledScene, load_scene
+from tracerboy_tpu_torch.trace.wavefront import (
+    WaveConfig,
+    make_blue_noise_params,
+    render_wave,
+    render_wave_batch,
+    render_wave_merged,
+)
+from tracerboy_tpu_torch.utils.config import (
+    OutputSettings,
+    RenderMode,
+    default_output_settings,
+)
+
+BRUTE_FORCE_MAX_TRIS = 2048
+MERGED_WAVE_LANES = 8_388_608   # lane cap of one merged wave
+MERGED_WAVE_MAX_K = 48          # samples per merged wave
+
+
+@dataclass
+class RenderState:
+    """Persistent accumulation state (tensors on the render device)."""
+
+    accum: torch.Tensor            # (H, W, 4): rgb * weight, weight
+    accum_jittered: torch.Tensor   # (H, W, 4)
+    world_pos: list                # two (H, W, 4) ping-pong buffers
+    spp: int = 0
+
+
+class Renderer:
+    def __init__(self, scene, settings: OutputSettings | None = None,
+                 film_size: tuple | None = None, seed: int = 0,
+                 device="cuda"):
+        """scene: a CompiledScene or a name for load_scene ("shadertoy",
+        "shadertoy:cornell")."""
+        if isinstance(scene, str):
+            scene = load_scene(scene, film_size=film_size)
+        if not isinstance(scene, CompiledScene):
+            raise TypeError(f"scene must be a CompiledScene or a name, got "
+                            f"{type(scene).__name__}")
+        self.compiled = scene
+        self.device = torch.device(device)
+        self.seed = int(seed)
+        self.settings = settings or default_output_settings()
+        if self.settings.render_mode != RenderMode.UNBIASED:
+            raise NotImplementedError(
+                "realtime mode is not ported yet (ROADMAP.md, Queue 1)")
+        if self.settings.performance_settings.enable_adaptive_sampling:
+            raise NotImplementedError(
+                "adaptive sampling is not ported yet (ROADMAP.md, Queue 1)")
+        self.width = scene.film_width
+        self.height = scene.film_height
+        if film_size is not None:
+            self.width, self.height = film_size
+        self.traversal = self._pick_traversal(scene)
+        self.scene = scene.as_tensors(self.device)
+        self.pixel_ids = torch.arange(self.width * self.height,
+                                      dtype=torch.int64, device=self.device)
+        self._bn_cache = None
+        self.rays_traced = 0     # closest-hit + shadow rays, all calls
+        self.state = self.make_state()
+        self._start_time = time.time()
+
+    @staticmethod
+    def _pick_traversal(scene: CompiledScene) -> str:
+        """Brute force for tiny scenes (no traversal beats testing every
+        triangle there), the traversal kernels otherwise."""
+        if scene.tri_v0.shape[0] <= BRUTE_FORCE_MAX_TRIS:
+            return "brute"
+        return "kernel"
+
+    def make_state(self) -> RenderState:
+        def zeros():
+            return torch.zeros((self.height, self.width, 4),
+                               dtype=torch.float32, device=self.device)
+
+        return RenderState(accum=zeros(), accum_jittered=zeros(),
+                           world_pos=[zeros(), zeros()], spp=0)
+
+    def wave_config(self) -> WaveConfig:
+        s = self.settings
+        perf = s.performance_settings
+        mats = self.compiled.materials
+        ttype = self.compiled.tex_records["ttype"]
+        if s.camera_settings.filter_splat:
+            raise NotImplementedError(
+                "filter_splat is not ported yet (ROADMAP.md, Queue 1)")
+        return WaveConfig(
+            width=self.width,
+            height=self.height,
+            max_bounces=min(perf.max_bounces, 32),
+            num_lights=self.compiled.num_lights,
+            enable_nee=perf.enable_next_event_estimation,
+            enable_ris=perf.enable_sampling_importance_resampling,
+            filter_type=int(s.camera_settings.filter_type),
+            filter_width=s.camera_settings.filter_width,
+            use_blue_noise=perf.use_blue_noise,
+            sampler=perf.sampler,
+            has_env=self.compiled.has_env,
+            env_nee=bool(
+                self.compiled.has_env
+                and perf.environment_nee != "off"
+                and (perf.environment_nee == "on"
+                     or (self.compiled.num_lights == 0
+                         and perf.enable_next_event_estimation))
+            ),
+            has_mix=bool((mats["flags"] & 0x8).any()),
+            has_textures=bool(
+                (mats["albedo_tex"] >= 0).any()
+                | (mats["emissive_tex"] >= 0).any()
+                | (mats["specular_tex"] >= 0).any()),
+            has_emissive_tex=bool((mats["emissive_tex"] >= 0).any()),
+            has_specular_tex=bool((mats["specular_tex"] >= 0).any()),
+            has_image_tex=bool((ttype == 0).any()),
+            has_scale_tex=bool((ttype == 2).any()),
+            has_alpha=bool((mats["alpha_tex"] >= 0).any()),
+            has_normal_maps=bool(perf.enable_normal_maps
+                                 and (mats["normal_tex"] >= 0).any()),
+            transparent_shadows=perf.transparent_shadows,
+            traversal=self.traversal,
+        )
+
+    def frame_params(self) -> dict:
+        s = self.settings
+        p = dict(
+            dof_focus=float(np.float32(s.camera_settings.dof_focus_distance)),
+            dof_aperture=float(
+                np.float32(s.camera_settings.dof_aperture_width)),
+            firefly_clamp=float(np.float32(s.fireflies_clamp)),
+            seed=self.seed,
+        )
+        if s.performance_settings.use_blue_noise:
+            if self._bn_cache is None:
+                self._bn_cache = make_blue_noise_params(
+                    self.scene, self.pixel_ids, self.width)
+            p["bn"] = self._bn_cache
+        return p
+
+    # -- stepping --------------------------------------------------------
+    def render_sample(self, n: int = 1):
+        """Trace n progressive samples, accumulating into state. On the
+        packed backends n > 1 merges up to k samples into one wave of k*N
+        lanes; brute force loops over single-sample waves."""
+        cfg = self.wave_config()
+        params = self.frame_params()
+        ids = self.pixel_ids
+        if n > 1 and cfg.traversal != "brute":
+            k_max = max(1, min(MERGED_WAVE_MAX_K,
+                               MERGED_WAVE_LANES // max(ids.shape[0], 1)))
+            done = 0
+            while done < n:
+                kk = min(n - done, k_max)
+                if kk == 1:
+                    out = render_wave(self.scene, params, ids,
+                                      self.state.spp, cfg)
+                else:
+                    out = render_wave_merged(self.scene, params, ids,
+                                             self.state.spp, kk, cfg)
+                self._accumulate(out, samples=kk)
+                done += kk
+        elif n > 1:
+            out = render_wave_batch(self.scene, params, ids,
+                                    self.state.spp, n, cfg)
+            self._accumulate(out, samples=n)
+        else:
+            out = render_wave(self.scene, params, ids, self.state.spp, cfg)
+            self._accumulate(out)
+        return self.state
+
+    def _accumulate(self, out, samples: int = 1):
+        h, w = self.height, self.width
+        sample = torch.cat([out["radiance"].reshape(h, w, 3),
+                            out["filter_weight"].reshape(h, w, 1)], dim=-1)
+        st = self.state
+        st.accum = st.accum + sample
+        # Jittered accumulator: first sample/batch always, then a
+        # per-pixel coin flip (RayGenCommon.h:719-727).
+        coin = tbrng.uniform(self.pixel_ids, st.spp, 0,
+                             tbrng.STREAM_ACCUM_JITTER).reshape(h, w)
+        take = coin < 0.5 if st.spp != 0 else torch.ones_like(coin,
+                                                              dtype=bool)
+        st.accum_jittered = torch.where(take[..., None],
+                                        st.accum_jittered + sample,
+                                        st.accum_jittered)
+        st.world_pos[st.spp % 2] = torch.cat(
+            [out["world_pos"].reshape(h, w, 3),
+             out["neighbor_dist"].reshape(h, w, 1)], dim=-1)
+        st.spp += samples
+        self.rays_traced += int(out["rays_traced"])
+
+    # -- readout ---------------------------------------------------------
+    def current_image(self) -> np.ndarray:
+        """The display image (H, W, 3) float32 in [0, 1], on the host."""
+        return post_process(self.state.accum,
+                            self.settings).cpu().numpy()
+
+    def render(self, spp: int | None = None) -> np.ndarray:
+        """Trace to the sample target (or the time limit) and return the
+        display image."""
+        target = spp or self.settings.performance_settings.sample_target
+        limit = self.settings.debug_settings.time_limit_seconds
+        while self.state.spp < target:
+            self.render_sample()
+            if limit > 0 and (time.time() - self._start_time) > limit:
+                break
+        return self.current_image()

@@ -1,0 +1,419 @@
+"""Scene compiler: SceneIR -> CompiledScene -> dict of torch tensors.
+
+A jax-free numpy copy of tracerboy_tpu/scene/compile.py (the JAX package
+imports jax on any import, and the machine with the card has none). It
+builds the same leaves, bit for bit, as the JAX package's
+CompiledScene.as_pytree(pack_pallas=True): world-space triangles in BVH
+order, fused attribute rows, material / texture / light tables, blue
+noise, and the packed BVH tables of the traversal kernels (a main BVH and
+a shadow BVH over non-light triangles), with attribute rows in packed
+order for kernel hit ids.
+
+What the procedural scenes never reach raises NotImplementedError:
+instances, spheres and curves, volumes, non-area lights, image files,
+and scene files (PBRT, OBJ, .npz caches).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from tracerboy_tpu_torch.accel.native import build_bvh_native
+from tracerboy_tpu_torch.scene import types as ir
+from tracerboy_tpu_torch.scene.materials import (
+    LIGHT_FLAG,
+    MaterialTable,
+    convert_material,
+)
+from tracerboy_tpu_torch.scene.textures import TextureAllocator
+from tracerboy_tpu_torch.trace.camera import Camera
+
+LEAF_SIZE = 4
+
+
+@dataclass
+class CompiledScene:
+    """Host-side compiled scene; `as_tensors()` moves it to a device.
+
+    All triangle-indexed arrays are in BVH order and padded to a multiple
+    of the BVH leaf size with copies of a leaf's last triangle.
+    """
+
+    tri_v0: np.ndarray
+    tri_v1: np.ndarray
+    tri_v2: np.ndarray
+    tri_n0: np.ndarray
+    tri_n1: np.ndarray
+    tri_n2: np.ndarray
+    tri_uv0: np.ndarray
+    tri_uv1: np.ndarray
+    tri_uv2: np.ndarray
+    tri_material: np.ndarray     # (T_padded,) int32
+    num_tris: int
+    bvh_lo: np.ndarray
+    bvh_hi: np.ndarray
+    bvh_children: np.ndarray
+    leaf_size: int
+    materials: dict
+    tex_images: np.ndarray
+    tex_sizes: np.ndarray
+    tex_records: dict
+    lights: dict                 # SoA: p0..p2, n0..n2, color, area,
+                                 # ltype, direction
+    num_lights: int
+    env_map: np.ndarray          # (H, W, 3) float32 (black 1x1 if none)
+    env_transform: np.ndarray    # (3, 3)
+    env_color_scale: np.ndarray  # (3,)
+    has_env: bool
+    camera: Camera
+    film_width: int
+    film_height: int
+    sampler_spp: int
+    max_depth: int
+    blue_noise0: np.ndarray      # (256, 256, 4) in [0,1)
+    blue_noise1: np.ndarray
+
+    # Instancing and volumes are not ported (compile_scene raises).
+    has_instances = False
+    has_volume = False
+
+    def as_numpy(self) -> dict:
+        """The leaves of the JAX package's as_pytree(pack_pallas=True),
+        as numpy arrays with the dtypes JAX gives them."""
+        tri9 = np.concatenate(
+            [self.tri_v0, self.tri_v1, self.tri_v2], axis=1
+        ).astype(np.float32)
+        # Per-triangle tangent from the UV parameterization (flat frame).
+        e1 = self.tri_v1 - self.tri_v0
+        e2 = self.tri_v2 - self.tri_v0
+        d1 = self.tri_uv1 - self.tri_uv0
+        d2 = self.tri_uv2 - self.tri_uv0
+        det = d1[:, 0] * d2[:, 1] - d1[:, 1] * d2[:, 0]
+        bad = np.abs(det) < 1e-12
+        tan = e1 * d2[:, 1:2] - e2 * d1[:, 1:2]
+        tan = np.where(
+            bad[:, None], e1, tan / np.where(bad, 1.0, det)[:, None]
+        )
+        tan = tan / np.maximum(
+            np.linalg.norm(tan, axis=1, keepdims=True), 1e-12
+        )
+        tri_attr_t = np.concatenate(
+            [
+                self.tri_n0.T, self.tri_n1.T, self.tri_n2.T,   # 0:9
+                self.tri_uv0.T, self.tri_uv1.T, self.tri_uv2.T,  # 9:15
+                self.tri_material[None, :].astype(np.float32),   # 15
+                tan.T,                                           # 16:19
+            ],
+            axis=0,
+        ).astype(np.float32)
+        tri_attr_rows = np.ascontiguousarray(tri_attr_t.T)   # (T, 19)
+
+        env_flat = self.env_map.reshape(-1, 3).astype(np.float32)
+        # Bilinear quad rows: row i = the 2x2 texel neighbourhood of
+        # texel i (x+1 wrapped, y+1 clamped), 12 floats.
+        eh, ew = self.env_map.shape[0], self.env_map.shape[1]
+        x1 = (np.arange(ew) + 1) % ew
+        y1 = np.minimum(np.arange(eh) + 1, eh - 1)
+        em = self.env_map.astype(np.float32)
+        env_quad = np.concatenate(
+            [em, em[:, x1], em[y1], em[y1][:, x1]], axis=2
+        ).reshape(-1, 12)
+
+        leaves = dict(
+            **self.packed_tables(tri_attr_rows),
+            tri9=tri9,
+            tri_attr_t=tri_attr_t,
+            tri_attr_rows=tri_attr_rows,
+            env_quad=env_quad,
+            env_r=env_flat[:, 0], env_g=env_flat[:, 1],
+            env_b=env_flat[:, 2],
+            blue0_t=self.blue_noise0.reshape(-1, 4).T.copy(),
+            blue1_t=self.blue_noise1.reshape(-1, 4).T.copy(),
+            world_lo=np.minimum(
+                np.minimum(self.tri_v0, self.tri_v1), self.tri_v2
+            ).min(axis=0).astype(np.float32),
+            world_hi=np.maximum(
+                np.maximum(self.tri_v0, self.tri_v1), self.tri_v2
+            ).max(axis=0).astype(np.float32),
+            tri_v0=self.tri_v0, tri_v1=self.tri_v1, tri_v2=self.tri_v2,
+            tri_n0=self.tri_n0, tri_n1=self.tri_n1, tri_n2=self.tri_n2,
+            tri_uv0=self.tri_uv0, tri_uv1=self.tri_uv1,
+            tri_uv2=self.tri_uv2,
+            tri_material=self.tri_material,
+            # Shadow rays ignore emissive (light) geometry (the
+            # reference's IsLight pass-through in shadow feelers).
+            tri_shadow_opaque=(
+                (self.materials["flags"][self.tri_material] & LIGHT_FLAG)
+                == 0
+            ),
+            bvh_lo=self.bvh_lo, bvh_hi=self.bvh_hi,
+            bvh_children=self.bvh_children,
+            materials=dict(self.materials),
+            tex_images=self.tex_images, tex_sizes=self.tex_sizes,
+            tex_records=dict(self.tex_records),
+            lights=dict(self.lights),
+            env_map=self.env_map, env_transform=self.env_transform,
+            env_color_scale=self.env_color_scale,
+            blue_noise0=self.blue_noise0, blue_noise1=self.blue_noise1,
+            camera=self.camera.as_numpy(),
+        )
+        return _canonical(leaves)
+
+    def as_tensors(self, device="cuda") -> dict:
+        """The scene leaves as torch tensors on `device`."""
+        return from_jax_pytree(self.as_numpy(), device)
+
+    def packed_tables(self, tri_attr_rows) -> dict:
+        """Packed tables of the traversal kernels: a leaf-8 BVH over the
+        scene triangles and a second one over non-light triangles for
+        shadow rays, plus attribute rows in PACKED triangle order, so
+        per-hit fetches need no packed->scene remap."""
+        from tracerboy_tpu_torch.accel.pack import pack_scene
+
+        pk, _ = pack_scene(self.tri_v0, self.tri_v1, self.tri_v2)
+        opaque = (self.materials["flags"][self.tri_material]
+                  & LIGHT_FLAG) == 0
+        so_idx = np.where(opaque)[0]
+        if len(so_idx) == 0:
+            so_idx = np.arange(1)
+        pk_sh, _ = pack_scene(
+            self.tri_v0[so_idx], self.tri_v1[so_idx], self.tri_v2[so_idx]
+        )
+        T = tri_attr_rows.shape[0]
+        order = np.clip(pk["tri_map"], 0, T - 1)
+        sh_order = np.clip(so_idx[pk_sh["tri_map"]], 0, T - 1)
+        return dict(
+            pk_nodes=pk["nodes"],
+            pk_tris_bw=pk["tris_bw"],
+            pk_tri_map=pk["tri_map"],
+            pk_sh_nodes=pk_sh["nodes"],
+            pk_sh_tris_bw=pk_sh["tris_bw"],
+            pk_sh_tri_map=so_idx.astype(np.int32)[pk_sh["tri_map"]],
+            pk_attr_rows=tri_attr_rows[order],
+            pk_sh_attr_rows=tri_attr_rows[sh_order],
+        )
+
+
+def _canonical(x):
+    """numpy leaves with JAX's default dtypes (no 64-bit types)."""
+    if isinstance(x, dict):
+        return {k: _canonical(v) for k, v in x.items()}
+    a = np.asarray(x)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    elif a.dtype == np.int64:
+        a = a.astype(np.int32)
+    elif a.dtype == np.uint64:
+        a = a.astype(np.uint32)
+    return a
+
+
+def from_jax_pytree(d: dict, device="cuda") -> dict:
+    """Scene tensors from a dict of numpy arrays: either as_numpy() of the
+    port's CompiledScene, or np.asarray of every leaf of the JAX package's
+    CompiledScene.as_pytree(pack_pallas=True). Nested dicts (materials,
+    lights, tex_records, camera) stay nested."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out[k] = from_jax_pytree(v, device)
+        elif isinstance(v, (list, tuple)):
+            raise NotImplementedError(
+                f"scene leaf {k!r}: instanced scenes are not ported yet "
+                "(ROADMAP.md, Queue 1: trace/instanced.py)")
+        else:
+            a = np.array(_canonical(v), order="C", copy=True)
+            out[k] = torch.from_numpy(a).to(device)
+    return out
+
+
+def _transform_mesh(mesh: ir.TriangleMeshIR):
+    """Bake the mesh transform: world-space verts, inverse-transpose
+    normals."""
+    M = mesh.transform
+    pos = mesh.positions @ M[:3, :3].T + M[:3, 3]
+    if mesh.normals is not None and len(mesh.normals) == len(mesh.positions):
+        it = np.linalg.inv(M[:3, :3]).T
+        nrm = mesh.normals @ it.T
+        ln = np.linalg.norm(nrm, axis=1, keepdims=True)
+        nrm = nrm / np.maximum(ln, 1e-12)
+    else:
+        nrm = None
+    return pos.astype(np.float32), nrm
+
+
+def _shape_to_tris(shape, scene, table, tex_alloc, material_lookup):
+    """One triangle mesh -> (tri_pos (t,3,3), tri_nrm, tri_uv, mat_id,
+    emission) in world space. The procedural scenes are triangle meshes;
+    pbrt spheres and curves come only from scene files."""
+    if not isinstance(shape, ir.TriangleMeshIR):
+        raise NotImplementedError(
+            f"{type(shape).__name__} shapes are not ported yet (ROADMAP.md, "
+            "Queue 1: image and scene-file ingestion)")
+    emission = getattr(shape, "emission", None)
+    mat_ir = scene.materials.get(shape.material)
+    alpha_tex = getattr(shape, "alpha_texture", None)
+    mat_id = convert_material(
+        mat_ir, emission if emission is not None else (0, 0, 0),
+        table, tex_alloc, material_lookup, alpha_texture=alpha_tex,
+    )
+    pos, nrm = _transform_mesh(shape)
+    idx, uv = shape.indices, shape.uvs
+    tri_pos = pos[idx]
+    if nrm is not None and len(nrm) == len(pos):
+        tri_nrm = nrm[idx]
+    else:
+        e1 = tri_pos[:, 1] - tri_pos[:, 0]
+        e2 = tri_pos[:, 2] - tri_pos[:, 0]
+        fn = np.cross(e1, e2)
+        fn /= np.maximum(np.linalg.norm(fn, axis=1, keepdims=True), 1e-12)
+        tri_nrm = np.repeat(fn[:, None, :], 3, axis=1)
+    if shape.reverse_orientation:
+        tri_nrm = -tri_nrm
+    if uv is not None:
+        tri_uv = uv[idx]
+    else:
+        tri_uv = np.zeros((len(idx), 3, 2), np.float32)
+    return (tri_pos.astype(np.float32), tri_nrm.astype(np.float32),
+            tri_uv.astype(np.float32), mat_id, emission)
+
+
+def _light_record(p0, p1, p2, n, color, area):
+    """One area-light triangle (ltype 0)."""
+    return dict(
+        p0=p0, p1=p1, p2=p2, n0=n[0], n1=n[1], n2=n[2],
+        color=np.asarray(color, np.float32), area=float(area), ltype=0,
+        direction=np.zeros(3, np.float32),
+    )
+
+
+def compile_scene(scene: ir.SceneIR, leaf_size: int = LEAF_SIZE,
+                  film_size: tuple | None = None) -> CompiledScene:
+    """Flatten a SceneIR into BVH-ordered triangle tables (the JAX
+    package's compile_scene with instancing "flatten")."""
+    if scene.instances:
+        raise NotImplementedError(
+            "instanced scenes are not ported yet (ROADMAP.md, Queue 1: "
+            "trace/instanced.py)")
+    if getattr(scene, "volume", None) is not None:
+        raise NotImplementedError(
+            "volumes are not ported yet (ROADMAP.md, Queue 1: "
+            "shade/volumetric.py)")
+    if scene.lights:
+        raise NotImplementedError(
+            "non-area lights (infinite, distant, point) come only from "
+            "scene files and are not ported yet (ROADMAP.md, Queue 1: image "
+            "and scene-file ingestion)")
+    table = MaterialTable()
+    tex_alloc = TextureAllocator(scene.base_dir, scene.textures)
+
+    def material_lookup(name):
+        return scene.materials.get(name)
+
+    v_chunks, n_chunks, uv_chunks, mat_chunks = [], [], [], []
+    light_records = []
+    for shape in scene.shapes:
+        tri_pos, tri_nrm, tri_uv, mat_id, emission = _shape_to_tris(
+            shape, scene, table, tex_alloc, material_lookup)
+        v_chunks.append(tri_pos)
+        n_chunks.append(tri_nrm)
+        uv_chunks.append(tri_uv)
+        mat_chunks.append(np.full(len(tri_pos), mat_id, np.int32))
+        if emission is not None and np.mean(emission) > 0:
+            for k in range(len(tri_pos)):
+                p0, p1, p2 = tri_pos[k]
+                area = 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0))
+                light_records.append(_light_record(
+                    p0, p1, p2, tri_nrm[k], emission, area))
+    if not v_chunks:
+        raise ValueError("scene contains no supported geometry")
+
+    tri_pos = np.concatenate(v_chunks)     # (T, 3, 3)
+    tri_nrm = np.concatenate(n_chunks)
+    tri_uv = np.concatenate(uv_chunks)
+    tri_mat = np.concatenate(mat_chunks)
+    T = tri_pos.shape[0]
+
+    bvh = build_bvh_native(
+        tri_pos[:, 0], tri_pos[:, 1], tri_pos[:, 2], leaf_size=leaf_size
+    )
+    order = bvh.tri_order
+    tri_pos = tri_pos[order]
+    tri_nrm = tri_nrm[order]
+    tri_uv = tri_uv[order]
+    tri_mat = tri_mat[order]
+
+    L = max(len(light_records), 1)
+    lights = dict(
+        p0=np.zeros((L, 3), np.float32), p1=np.zeros((L, 3), np.float32),
+        p2=np.zeros((L, 3), np.float32), n0=np.zeros((L, 3), np.float32),
+        n1=np.zeros((L, 3), np.float32), n2=np.zeros((L, 3), np.float32),
+        color=np.zeros((L, 3), np.float32), area=np.zeros(L, np.float32),
+        ltype=np.zeros(L, np.int32), direction=np.zeros((L, 3), np.float32),
+    )
+    for i, r in enumerate(light_records):
+        for k in ("p0", "p1", "p2", "n0", "n1", "n2", "color", "direction"):
+            lights[k][i] = r[k]
+        lights["area"][i] = r["area"]
+        lights["ltype"][i] = r["ltype"]
+
+    tex_images, tex_sizes, tex_records = tex_alloc.to_arrays()
+    blue0, blue1 = _load_blue_noise()
+
+    width = scene.film.xresolution
+    height = scene.film.yresolution
+    if film_size is not None:
+        width, height = film_size
+    return CompiledScene(
+        tri_v0=tri_pos[:, 0], tri_v1=tri_pos[:, 1], tri_v2=tri_pos[:, 2],
+        tri_n0=tri_nrm[:, 0], tri_n1=tri_nrm[:, 1], tri_n2=tri_nrm[:, 2],
+        tri_uv0=tri_uv[:, 0], tri_uv1=tri_uv[:, 1], tri_uv2=tri_uv[:, 2],
+        tri_material=tri_mat, num_tris=T,
+        bvh_lo=bvh.bounds_lo, bvh_hi=bvh.bounds_hi,
+        bvh_children=bvh.children, leaf_size=leaf_size,
+        materials=table.to_soa(),
+        tex_images=tex_images, tex_sizes=tex_sizes, tex_records=tex_records,
+        lights=lights, num_lights=len(light_records),
+        # No environment: black; procedural scenes set theirs afterwards.
+        env_map=np.zeros((1, 1, 3), np.float32),
+        env_transform=np.eye(3, dtype=np.float32),
+        env_color_scale=np.ones(3, np.float32), has_env=False,
+        camera=Camera.from_pbrt(scene.camera, width, height),
+        film_width=width, film_height=height,
+        sampler_spp=scene.sampler.pixel_samples,
+        max_depth=scene.integrator.max_depth,
+        blue_noise0=blue0, blue_noise1=blue1,
+    )
+
+
+def _load_blue_noise():
+    """The 256x256 RGBA blue-noise pair. The reference's LDR_RGBA_0/1
+    textures are image files, which the port does not read yet; it takes
+    the JAX package's fallback, seeded white noise, which is also what
+    the JAX package loads where those files are absent."""
+    rng = np.random.default_rng(0xB1E)
+    return (
+        rng.random((256, 256, 4)).astype(np.float32),
+        rng.random((256, 256, 4)).astype(np.float32),
+    )
+
+
+def load_scene(path: str, film_size=None) -> CompiledScene:
+    """Compile a scene by name: "shadertoy" / "shadertoy:<name>" selects
+    a built-in procedural scene (scene/procedural.py)."""
+    if path == "shadertoy" or path.startswith("shadertoy:"):
+        from tracerboy_tpu_torch.scene.procedural import shadertoy_scene
+
+        name = path.split(":", 1)[1] if ":" in path else "benchmark"
+        return shadertoy_scene(name, film_size=film_size)
+    if path.endswith(".npz"):
+        raise NotImplementedError(
+            f"{path}: .npz scene caches are not ported yet (ROADMAP.md, "
+            "Queue 1: image and scene-file ingestion)")
+    raise NotImplementedError(
+        f"{path}: PBRT/PLY/OBJ scene files are not ported yet (ROADMAP.md, "
+        "Queue 1: image and scene-file ingestion)")
+

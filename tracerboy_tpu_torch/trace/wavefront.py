@@ -1,0 +1,629 @@
+"""Wavefront path-tracing integrator (tracerboy_tpu/trace/wavefront.py).
+
+The reference's megakernel bounce loop (TracerBoy/kernel.glsl:1277-1776)
+and its PathTrace epilogue (kernel.glsl:1805-1925) as a flat ray pool
+that advances through uniform stages per bounce: russian roulette ->
+closest hit -> miss/env record -> material fetch -> NEE with a shadow
+any-hit wave -> BSDF sample -> throughput update, with lane masks in
+place of branches. Subsurface media (the wax sphere) are a per-ray state
+machine inside the same bounce loop.
+
+Every stage mirrors its JAX counterpart line for line, so a wave can be
+held against the JAX package's wave on the same inputs. Bounce 0 and the
+later bounces run in one Python loop; intermediates of a bounce are
+freed when it ends, so a 7.4M-lane merged wave stays a few GB.
+
+Traversal backends (WaveConfig.traversal):
+  "brute"  - every triangle, scene-order ids (trace/intersect.py);
+  "kernel" - the CUDA traversal kernels (their plain twins for CPU
+             tensors), packed ids (trace/traverse.py);
+  "twin"   - the plain twins on any device (kernel parity runs).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from tracerboy_tpu_torch.core import rng as tbrng
+from tracerboy_tpu_torch.core import vec3 as v3
+from tracerboy_tpu_torch.core.vec3 import V3
+from tracerboy_tpu_torch.scene.materials import (
+    HAIR_FLAG,
+    LIGHT_FLAG,
+    METALLIC_FLAG,
+    NO_SPECULAR_FLAG,
+    SINGLE_SIDED_FLAG,
+    SUBSURFACE_SCATTER_FLAG,
+)
+from tracerboy_tpu_torch.shade import bsdf
+from tracerboy_tpu_torch.shade.env import sample_environment_quad_soa
+from tracerboy_tpu_torch.shade.nee import sample_one_light_soa
+from tracerboy_tpu_torch.shade.surface import fetch_material_soa
+from tracerboy_tpu_torch.trace import traverse
+from tracerboy_tpu_torch.trace.camera import generate_primary_rays_soa
+from tracerboy_tpu_torch.trace.intersect import (
+    BIG,
+    brute_force_anyhit_soa,
+    brute_force_closest_soa,
+)
+
+EPSILON = 1e-4
+MIN_BOUNCES_BEFORE_RR = 2  # kernel.glsl:1276-1277
+PACKED_BACKENDS = ("kernel", "twin")
+
+
+@dataclass(frozen=True)
+class WaveConfig:
+    """Static integrator configuration (the JAX package's WaveConfig).
+
+    Russian roulette and energy-based lobe selection are always on, as
+    the JAX renderer runs them. The fields after `has_scale_tex` name
+    features of the JAX integrator that the port does not have yet;
+    render_wave raises NotImplementedError when one is switched on."""
+
+    width: int
+    height: int
+    max_bounces: int = 6
+    num_lights: int = 0
+    enable_nee: bool = True
+    enable_ris: bool = False
+    filter_type: int = 0
+    filter_width: float = 1.0
+    use_blue_noise: bool = True
+    sampler: str = "pcg"
+    has_env: bool = True
+    traversal: str = "kernel"
+    has_mix: bool = True
+    has_textures: bool = True
+    has_emissive_tex: bool = True
+    has_specular_tex: bool = True
+    has_image_tex: bool = True
+    has_scale_tex: bool = True
+    # Not ported yet:
+    filter_splat: bool = False
+    decouple_albedo: bool = False
+    env_nee: bool = False
+    split_early: int = -1
+    has_alpha: bool = False
+    transparent_shadows: bool = False
+    has_normal_maps: bool = False
+    want_heatmap: bool = False
+    has_instances: bool = False
+    has_volume: bool = False
+    binned_bounces: bool = False
+
+
+_UNPORTED = {
+    "filter_splat": "ROADMAP.md, Queue 1: render_wave_merged splat fold",
+    "decouple_albedo": "ROADMAP.md, Queue 1: realtime mode",
+    "env_nee": "ROADMAP.md, Queue 1: environment NEE",
+    "has_alpha": "ROADMAP.md, Queue 1: alpha re-fire",
+    "transparent_shadows": "ROADMAP.md, Queue 1: transparent shadows",
+    "has_normal_maps": "ROADMAP.md, Queue 1: normal maps",
+    "want_heatmap": "ROADMAP.md, Queue 2: kernel stats option",
+    "has_instances": "ROADMAP.md, Queue 1: trace/instanced.py",
+    "has_volume": "ROADMAP.md, Queue 1: shade/volumetric.py",
+    "binned_bounces": "ROADMAP.md, Queue 1: trace/binned.py",
+}
+
+
+def _check_supported(cfg: WaveConfig, params: dict):
+    for name, item in _UNPORTED.items():
+        if getattr(cfg, name):
+            raise NotImplementedError(f"WaveConfig.{name}: not ported yet "
+                                      f"({item})")
+    if cfg.split_early >= 0:
+        raise NotImplementedError("WaveConfig.split_early: not ported yet "
+                                  "(ROADMAP.md, Queue 1: split planes)")
+    for key in ("active_mask", "fixed_pixel_offset", "selected_pixel"):
+        if params.get(key) is not None:
+            raise NotImplementedError(f"params[{key!r}]: not ported yet "
+                                      "(ROADMAP.md, Queue 1: renderer core)")
+    if cfg.traversal not in ("brute",) + PACKED_BACKENDS:
+        raise ValueError(f"unknown traversal backend {cfg.traversal!r}")
+
+
+def _closest(scene, o, d, t_max, cfg):
+    """One closest-hit wave: (t, tri id, u, v)."""
+    if cfg.traversal == "brute":
+        return brute_force_closest_soa(o, d, scene["tri9"], t_max)
+    fn = (traverse.closest_hit if cfg.traversal == "kernel"
+          else traverse.closest_hit_plain)
+    return fn(v3.to_rows(o), v3.to_rows(d), t_max.contiguous(),
+              scene["pk_nodes"], scene["pk_tris_bw"])
+
+
+def _occluded(scene, o, d, t_max, cfg):
+    """One shadow wave. The packed backends traverse the shadow BVH,
+    which holds no light triangles; brute force masks them out."""
+    if cfg.traversal == "brute":
+        return brute_force_anyhit_soa(o, d, scene["tri9"], t_max,
+                                      tri_opaque=scene["tri_shadow_opaque"])
+    fn = (traverse.any_hit if cfg.traversal == "kernel"
+          else traverse.anyhit_plain)
+    return fn(v3.to_rows(o), v3.to_rows(d), t_max.contiguous(),
+              scene["pk_sh_nodes"], scene["pk_sh_tris_bw"])
+
+
+def make_blue_noise_params(scene, pixel_ids, width: int):
+    """The 6 static per-pixel blue-noise values (only their
+    Cranley-Patterson rotation depends on the sample index)."""
+    px = pixel_ids % width
+    py = torch.div(pixel_ids, width, rounding_mode="floor")
+    idx = (py % 256) * 256 + (px % 256)
+    b0 = scene["blue0_t"]
+    b1 = scene["blue1_t"]
+    return (b0[0][idx], b0[1][idx], b0[2][idx], b0[3][idx],
+            b1[2][idx], b1[3][idx])
+
+
+def _zero3(z):
+    return V3(z, z, z)
+
+
+def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig):
+    """Trace one sample for each pixel id.
+
+    Returns radiance (N, 3) times the filter weight, filter_weight (N,),
+    rays_traced, and the first hit's world_pos (N, 3) and neighbor_dist
+    (N,), the distance to the hit of the next pixel's centre ray, which
+    the renderer keeps as its world-position buffer.
+
+    scene: scene tensors (CompiledScene.as_tensors()).
+    params: dict(dof_focus, dof_aperture, firefly_clamp, seed) as python
+      numbers, and optionally "bn" (make_blue_noise_params).
+    pixel_ids: (N,) int64 flat pixel indices.
+    sample_index: python int, or (N,) int64 per-lane sample indices.
+    """
+    _check_supported(cfg, params)
+    dev = pixel_ids.device
+    N = pixel_ids.shape[0]
+    lane = pixel_ids
+    seed = int(params.get("seed", 0))
+    if not isinstance(sample_index, torch.Tensor):
+        sample_index = int(sample_index)
+    f32 = dict(dtype=torch.float32, device=dev)
+    zero = torch.zeros(N, **f32)
+    one = torch.ones(N, **f32)
+    vzero3 = _zero3(zero)
+    no = torch.zeros(N, dtype=torch.bool, device=dev)
+
+    def hash2(bounce, stream):
+        return tbrng.uniform2_soa(lane, sample_index, bounce, stream, seed,
+                                  cfg.sampler)
+
+    def hash1(bounce, stream):
+        return tbrng.uniform(lane, sample_index, bounce, stream, seed,
+                             cfg.sampler)
+
+    if cfg.use_blue_noise and cfg.sampler != "sobol":
+        bn = params.get("bn")
+        if bn is None:
+            bn = make_blue_noise_params(scene, pixel_ids, cfg.width)
+        shift = tbrng.halton23(torch.as_tensor(sample_index, device=dev))
+
+        def rot(u, k):
+            return torch.remainder(u + shift[..., k], 1.0)
+
+        jit_u, jit_v = rot(bn[0], 0), rot(bn[1], 1)
+        blue_dir = (rot(bn[2], 0), rot(bn[3], 1))
+        dof_u, dof_v = rot(bn[4], 0), rot(bn[5], 1)
+    else:
+        jit_u, jit_v = hash2(0, tbrng.STREAM_PRIMARY_JITTER)
+        dof_u, dof_v = hash2(0, tbrng.STREAM_DOF)
+        blue_dir = hash2(0, tbrng.STREAM_SECONDARY_DIR)
+
+    # Pixel filter weight (kernel.glsl:1843-1868).
+    off_u = (jit_u - 0.5) * cfg.filter_width
+    off_v = (jit_v - 0.5) * cfg.filter_width
+    if cfg.filter_type == 1:    # triangle
+        fw = torch.clamp_min(torch.maximum(0.5 - torch.abs(off_u),
+                                           0.5 - torch.abs(off_v)), 0.0)
+    elif cfg.filter_type == 2:  # gaussian
+        sigma = 0.8
+        edge = torch.exp(torch.tensor(-0.5 / (sigma * sigma), **f32))
+        gu = torch.clamp_min(
+            torch.exp(-0.5 * (2 * off_u / sigma) ** 2) - edge, 0.0)
+        gv = torch.clamp_min(
+            torch.exp(-0.5 * (2 * off_v / sigma) ** 2) - edge, 0.0)
+        fw = gu * gv
+    else:
+        fw = one
+
+    cam = scene["camera"]
+    origin, direction = generate_primary_rays_soa(
+        cam, cfg.width, cfg.height, pixel_ids, jit_u, jit_v,
+        dof_focus_distance=params.get("dof_focus", 0.0),
+        dof_aperture_width=params.get("dof_aperture", 0.0),
+        dof_u=dof_u, dof_v=dof_v, filter_width=cfg.filter_width,
+    )
+    n_origin, n_direction = generate_primary_rays_soa(
+        cam, cfg.width, cfg.height, pixel_ids + 1, jit_u, jit_v,
+        filter_width=cfg.filter_width,
+    )
+
+    env_h, env_w = scene["env_map"].shape[0], scene["env_map"].shape[1]
+    # Packed backends return PACKED ids: fetch from packed-order rows.
+    attr_key = ("pk_attr_rows" if cfg.traversal in PACKED_BACKENDS
+                else "tri_attr_rows")
+    attr_table = scene[attr_key]
+    T_padded = attr_table.shape[0]
+
+    s = dict(
+        origin=origin,
+        direction=direction,
+        throughput=V3(one, one, one),
+        radiance=vzero3,
+        alive=torch.ones(N, dtype=torch.bool, device=dev),
+        prev_perfect_specular=no,
+        inside=no,
+        med_absorption=vzero3,
+        med_scattering=vzero3,
+        med_ior=one,
+        rays_traced=torch.zeros((), dtype=torch.int64, device=dev),
+        world_pos=vzero3,
+        neighbor_dist=zero,
+    )
+    if cfg.has_env:
+        # Lazy environment: a miss records its throughput; one env fetch
+        # runs after the bounce loop.
+        s["env_throughput"] = vzero3
+
+    for i in range(cfg.max_bounces):
+        alive = s["alive"]
+
+        # --- russian roulette (kernel.glsl:1288-1301) -------------------
+        if i >= MIN_BOUNCES_BEFORE_RR:
+            p = torch.clamp(v3.max_c(s["throughput"]), EPSILON, 1.0)
+            r = hash1(i, tbrng.STREAM_RUSSIAN_ROULETTE)
+            killed = alive & (r >= p)
+            survived = alive & ~killed
+            alive = survived
+            s["throughput"] = s["throughput"] * torch.where(
+                survived, 1.0 / p, 1.0)
+
+        alive = alive & v3.any_gt(s["throughput"], EPSILON)
+        s["rays_traced"] = s["rays_traced"] + alive.sum()
+
+        # --- traversal ---------------------------------------------------
+        t_max = torch.where(alive, BIG, 0.0)
+        t, tri, u, v = _closest(
+            scene, s["origin"], s["direction"], t_max, cfg)
+        del t_max
+
+        miss = alive & (tri < 0)
+
+        # --- miss: environment, recorded lazily ---------------------------
+        if cfg.has_env:
+            s["env_throughput"] = v3.where(miss, s["throughput"],
+                                           s["env_throughput"])
+        alive = alive & ~miss
+
+        # --- hit attributes ----------------------------------------------
+        tric = torch.clamp(tri.to(torch.int64), 0, T_padded - 1)
+        rows = attr_table[tric]                       # (N, 19)
+        a = [rows[:, j] for j in range(16)]
+        del rows
+        w_b = 1.0 - u - v
+        sh_normal = v3.normalize(V3(
+            a[0] * w_b + a[3] * u + a[6] * v,
+            a[1] * w_b + a[4] * u + a[7] * v,
+            a[2] * w_b + a[5] * u + a[8] * v,
+        ))
+        uv_u = a[9] * w_b + a[11] * u + a[13] * v
+        uv_v = a[10] * w_b + a[12] * u + a[14] * v
+        mat_id = torch.round(a[15]).to(torch.int64)
+        del a, w_b
+
+        hit_point = s["origin"] + s["direction"] * t
+
+        ray_dot_n = v3.dot(sh_normal, s["direction"])
+        backside = ray_dot_n > 0.0
+        mat = fetch_material_soa(
+            scene, mat_id, uv_u, uv_v, backside, lane, sample_index, i,
+            seed, has_mix=cfg.has_mix, has_textures=cfg.has_textures,
+            has_emissive_tex=cfg.has_emissive_tex,
+            has_specular_tex=cfg.has_specular_tex,
+            has_image_tex=cfg.has_image_tex,
+            has_scale_tex=cfg.has_scale_tex,
+        )
+        flags = mat["flags"]
+        normal = v3.where(backside, -sh_normal, sh_normal)
+        detail_normal = normal
+        ray_dot_n = torch.where(backside, -ray_dot_n, ray_dot_n)
+
+        cur_ior = torch.where(backside, mat["ior"], bsdf.AIR_IOR)
+        new_ior = torch.where(backside, bsdf.AIR_IOR, mat["ior"])
+
+        # ===== medium transport (kernel.glsl:1591-1691) ==================
+        in_medium = alive & s["inside"]
+        mean_scat = v3.mean_c(s["med_scattering"])
+        no_scatter = mean_scat < EPSILON
+        dist_per_scatter = 1.0 / torch.clamp_min(mean_scat, 1e-12)
+        r_fly = hash1(i, tbrng.STREAM_SSS)
+        travel = torch.clamp_min(
+            -torch.log(torch.clamp_min(r_fly, 1e-12)), 0.1
+        ) * dist_per_scatter
+        travel = torch.where(no_scatter, BIG, travel)
+        scatter_event = in_medium & (travel < t) & ~no_scatter
+        seg = torch.minimum(travel, t)
+        beer = v3.exp(-1.0 * s["med_absorption"] * seg)
+        s["throughput"] = v3.where(in_medium, s["throughput"] * beer,
+                                   s["throughput"])
+        med_escaped = s["inside"] & miss
+        s["throughput"] = v3.where(med_escaped, vzero3, s["throughput"])
+
+        r_s0, r_s1 = hash2(i, tbrng.STREAM_SSS + 1)
+        scat_dir = bsdf.sample_uniform_sphere_soa(r_s0, r_s1)
+        exit_dir, tir = bsdf.refract_or_reflect_soa(
+            s["direction"], normal,
+            cur_ior / torch.clamp_min(new_ior, 1e-6), ray_dot_n,
+        )
+        # Rough refraction: pow-lobe perturbation of the exit direction.
+        r_l0, r_l1 = hash2(i, tbrng.STREAM_ROUGH_REFRACT)
+        lobe_dir, lobe_pdf = bsdf.sample_pow_lobe_soa(
+            exit_dir, mat["roughness"], r_l0, r_l1)
+        rough_boundary = mat["roughness"] >= 0.05
+        exit_dir = v3.where(rough_boundary, lobe_dir, exit_dir)
+        med_exit = in_medium & ~scatter_event
+        s["throughput"] = v3.where(
+            med_exit & rough_boundary & (lobe_pdf < EPSILON),
+            vzero3, s["throughput"])
+        new_inside = torch.where(
+            scatter_event, True,
+            torch.where(med_exit & ~tir, False, s["inside"]))
+        med_dir = v3.where(scatter_event, scat_dir, exit_dir)
+        med_org = v3.where(
+            scatter_event,
+            s["origin"] + s["direction"] * seg,
+            hit_point + v3.where(tir, normal * EPSILON, normal * -EPSILON),
+        )
+        del scat_dir, exit_dir, lobe_dir, lobe_pdf, travel, seg, beer
+
+        # ===== surface shading ===========================================
+        shading = alive & ~s["inside"]
+        is_light = (flags & LIGHT_FLAG) != 0
+        allows_spec = (flags & NO_SPECULAR_FLAG) == 0
+        is_metal = ((flags & METALLIC_FLAG) != 0) | ((flags & HAIR_FLAG) != 0)
+        is_sss = (flags & SUBSURFACE_SCATTER_FLAG) != 0
+        single_sided = (flags & SINGLE_SIDED_FLAG) != 0
+
+        r_spec = hash1(i, tbrng.STREAM_SPECULAR_SELECT)
+        # Lobe probability by each lobe's expected energy at this
+        # incidence; dielectric/SSS media keep the reference's 50/50.
+        refl0 = mat["specular_coef"]
+        f_i = refl0 + (1.0 - refl0) * torch.pow(
+            1.0 - torch.abs(ray_dot_n), 5.0)
+        alb = mat["albedo"]
+        alb_avg = (alb.x + alb.y + alb.z) * (1.0 / 3.0)
+        p_spec = torch.clamp(
+            f_i / torch.clamp_min(f_i + (1.0 - f_i) * alb_avg, 1e-6),
+            0.05, 0.95)
+        p_spec = torch.where(is_sss, 0.5, p_spec)
+        del refl0, f_i, alb, alb_avg
+        spec_ray = allows_spec & (is_metal | (r_spec < p_spec))
+        perfect_spec = spec_ray & (mat["roughness"] < 0.05)
+
+        if i == 0 or not cfg.enable_nee:
+            add_emissive = shading
+        else:
+            add_emissive = shading & (s["prev_perfect_specular"] | ~is_light)
+        s["radiance"] = v3.where(
+            add_emissive, s["radiance"] + s["throughput"] * mat["emissive"],
+            s["radiance"])
+
+        # --- first-hit world position (RayGenCommon.h:524-654) -----------
+        if i == 0:
+            s["world_pos"] = v3.where(shading, hit_point, s["world_pos"])
+            n_hit = n_origin + n_direction * t
+            s["neighbor_dist"] = torch.where(
+                shading, v3.length(n_hit - hit_point), s["neighbor_dist"])
+            del n_origin, n_direction, n_hit
+
+        # --- NEE (kernel.glsl:1435-1517) ----------------------------------
+        if cfg.enable_nee and cfg.num_lights > 0:
+            ls = sample_one_light_soa(
+                scene["lights"], cfg.num_lights, hit_point, lane,
+                sample_index, i, use_ris=cfg.enable_ris, seed=seed,
+                sampler=cfg.sampler,
+            )
+            facing = v3.dot(ls["direction"], ls["normal"]) < 0.0
+            do_nee = (shading & ~perfect_spec & ~is_light
+                      & (ls["pdf"] > EPSILON) & facing)
+            s["rays_traced"] = s["rays_traced"] + do_nee.sum()
+            sh_org = hit_point + normal * EPSILON
+            sh_tmax = torch.where(do_nee, ls["distance"] * (1.0 - 1e-3),
+                                  0.0)
+            occluded = _occluded(scene, sh_org, ls["direction"], sh_tmax,
+                                 cfg)
+            surf_w = bsdf.diffuse_brdf_soa(ls["direction"], detail_normal)
+            light_mult = (
+                ls["attenuation"] * surf_w
+                * torch.abs(v3.dot(ls["normal"], ls["direction"]))
+                / torch.clamp_min(ls["pdf"], 1e-12)
+            )
+            add = do_nee & ~occluded
+            contrib = s["throughput"] * mat["albedo"] * ls["color"]
+            s["radiance"] = v3.where(
+                add, s["radiance"] + contrib * light_mult, s["radiance"])
+            del ls, sh_org, sh_tmax, occluded, contrib, light_mult
+
+        died_on_light = shading & is_light
+
+        # --- BSDF sampling -------------------------------------------------
+        if i == 0:
+            r_u, r_v = blue_dir
+        else:
+            r_u, r_v = hash2(i, tbrng.STREAM_SECONDARY_DIR)
+
+        spec_dir = bsdf.sample_ggx_reflection_soa(
+            s["direction"], detail_normal, mat["roughness"], r_u, r_v)
+        diff_dir, _ = bsdf.sample_cosine_hemisphere_soa(detail_normal,
+                                                        r_u, r_v)
+        sss_dir, sss_tir = bsdf.refract_or_reflect_soa(
+            s["direction"], normal,
+            cur_ior / torch.clamp_min(new_ior, 1e-6), ray_dot_n,
+        )
+        # Rough refraction on medium entry too (kernel.glsl:1535-1556).
+        entry_lobe, entry_pdf = bsdf.sample_pow_lobe_soa(
+            sss_dir, mat["roughness"], r_l0, r_l1)
+        sss_dir = v3.where(rough_boundary, entry_lobe, sss_dir)
+
+        surf_sss = shading & is_sss & ~spec_ray
+        s["throughput"] = v3.where(
+            surf_sss & rough_boundary & (entry_pdf < EPSILON),
+            vzero3, s["throughput"])
+        new_dir = v3.where(spec_ray, spec_dir,
+                           v3.where(is_sss, sss_dir, diff_dir))
+        del spec_dir, diff_dir, entry_lobe, entry_pdf
+
+        entering = surf_sss & ~single_sided & ~sss_tir
+        new_inside2 = torch.where(shading, entering, new_inside)
+        s["med_absorption"] = v3.where(entering, mat["absorption"],
+                                       s["med_absorption"])
+        s["med_scattering"] = v3.where(entering, mat["scattering"],
+                                       s["med_scattering"])
+        s["med_ior"] = torch.where(entering, mat["ior"], s["med_ior"])
+
+        # --- throughput update (kernel.glsl:1699-1772) --------------------
+        prev_dir = s["direction"]
+        diffuse_pdf = v3.dot(new_dir, detail_normal) / bsdf.PI
+        half = bsdf.half_vector_safe_soa(-prev_dir, new_dir, detail_normal)
+        spec_pdf = bsdf.ggx_reflection_pdf_soa(detail_normal, new_dir, half,
+                                               mat["roughness"])
+        # One-sample MIS over the two lobes (kernel.glsl:1708-1710).
+        pdf = torch.where(
+            allows_spec,
+            torch.where(is_metal, spec_pdf,
+                        p_spec * spec_pdf + (1.0 - p_spec) * diffuse_pdf),
+            diffuse_pdf,
+        )
+        inv_pdf = 1.0 / torch.clamp_min(pdf, 1e-8)
+
+        albedo = mat["albedo"]
+        spec_w = bsdf.specular_weight_soa(prev_dir, new_dir, normal,
+                                          detail_normal, mat["roughness"])
+        cos_sat = torch.clamp(v3.dot(new_dir, normal), 0.0, 1.0)
+        metal_mult = albedo * (spec_w * cos_sat)
+
+        refl_coef = mat["specular_coef"]
+        fresnel = refl_coef + (1.0 - refl_coef) * torch.pow(
+            torch.abs(1.0 - v3.dot(-prev_dir, half)), 5.0)
+        diffuse_multiplier = (
+            (28.0 / (23.0 * bsdf.PI))
+            * (1.0 - refl_coef)
+            * (1.0 - torch.pow(1.0 - 0.5 * v3.dot(-prev_dir, normal), 5.0))
+            * (1.0 - torch.pow(1.0 - 0.5 * v3.dot(new_dir, normal), 5.0))
+        )
+        plastic_mult = V3(
+            (albedo.x * diffuse_multiplier + fresnel * spec_w) * cos_sat,
+            (albedo.y * diffuse_multiplier + fresnel * spec_w) * cos_sat,
+            (albedo.z * diffuse_multiplier + fresnel * spec_w) * cos_sat,
+        )
+        lambert_mult = albedo * bsdf.diffuse_brdf_soa(new_dir, detail_normal)
+        surface_mult = v3.where(
+            is_metal, metal_mult,
+            v3.where(allows_spec, plastic_mult, lambert_mult))
+        surface_mult = v3.where(surf_sss, V3(one, one, one), surface_mult)
+        surface_scale = torch.where(surf_sss, 1.0, inv_pdf)
+
+        apply_surface = shading & ~died_on_light
+        s["throughput"] = v3.where(
+            apply_surface, s["throughput"] * surface_mult * surface_scale,
+            s["throughput"])
+
+        # --- commit new ray state ----------------------------------------
+        new_origin = v3.where(
+            surf_sss,
+            hit_point + v3.where(sss_tir, normal * EPSILON,
+                                 normal * -EPSILON),
+            hit_point + normal * EPSILON,
+        )
+        s["origin"] = v3.where(
+            in_medium, med_org,
+            v3.where(shading, new_origin, s["origin"]))
+        s["direction"] = v3.where(
+            in_medium, med_dir,
+            v3.where(shading, new_dir, s["direction"]))
+        s["inside"] = torch.where(
+            in_medium, new_inside,
+            torch.where(shading, new_inside2, s["inside"]))
+        s["prev_perfect_specular"] = torch.where(
+            shading, perfect_spec, s["prev_perfect_specular"])
+        s["alive"] = alive & ~died_on_light & ~med_escaped
+        del mat, hit_point, normal, new_dir, new_origin, med_org, med_dir
+
+    radiance = s["radiance"]
+    if cfg.has_env:
+        # Deferred environment fetch; env_throughput is zero for lanes
+        # that never missed.
+        missed = v3.any_gt(s["env_throughput"], 0.0)
+        env = sample_environment_quad_soa(
+            s["direction"], scene["env_quad"], env_h, env_w,
+            scene["env_transform"], scene["env_color_scale"],
+            gather_mask=missed,
+        )
+        radiance = radiance + s["env_throughput"] * env
+    clamp = float(params.get("firefly_clamp", 0.0))
+    if clamp >= EPSILON:
+        radiance = V3(torch.clamp_max(radiance.x, clamp),
+                      torch.clamp_max(radiance.y, clamp),
+                      torch.clamp_max(radiance.z, clamp))
+    radiance = v3.where(v3.isnan_any(radiance), vzero3, radiance)
+
+    return dict(
+        radiance=v3.to_rows(radiance * fw),
+        filter_weight=fw,
+        rays_traced=s["rays_traced"],
+        world_pos=v3.to_rows(s["world_pos"]),
+        neighbor_dist=s["neighbor_dist"],
+    )
+
+
+def render_wave_merged(scene, params, pixel_ids, base_sample: int, k: int,
+                       cfg: WaveConfig):
+    """Trace k samples per pixel in ONE wave of k*N lanes (per-lane sample
+    indices base_sample + j); returns per-pixel summed radiance and
+    filter weight, total rays_traced, and the first sample's world_pos
+    and neighbor_dist."""
+    N = pixel_ids.shape[0]
+    dev = pixel_ids.device
+    tiled = pixel_ids.repeat(k)
+    sidx = int(base_sample) + torch.arange(
+        k, dtype=torch.int64, device=dev).repeat_interleave(N)
+    p2 = dict(params)
+    if p2.get("bn") is not None:
+        p2["bn"] = tuple(b.repeat(k) for b in p2["bn"])
+    out = render_wave(scene, p2, tiled, sidx, cfg)
+
+    def fold(a):
+        return a.reshape((k, N) + tuple(a.shape[1:])).sum(0)
+
+    return dict(
+        radiance=fold(out["radiance"]),
+        filter_weight=fold(out["filter_weight"]),
+        rays_traced=out["rays_traced"],
+        world_pos=out["world_pos"][:N],
+        neighbor_dist=out["neighbor_dist"][:N],
+    )
+
+
+def render_wave_batch(scene, params, pixel_ids, base_sample: int, k: int,
+                      cfg: WaveConfig):
+    """Trace k samples per pixel as k waves of N lanes; returns summed
+    radiance, filter weight and rays_traced, and the LAST sample's
+    world_pos and neighbor_dist."""
+    acc = None
+    for j in range(k):
+        out = render_wave(scene, params, pixel_ids, int(base_sample) + j,
+                          cfg)
+        if acc is None:
+            acc = out
+            continue
+        for key in ("radiance", "filter_weight", "rays_traced"):
+            acc[key] = acc[key] + out[key]
+        acc["world_pos"] = out["world_pos"]
+        acc["neighbor_dist"] = out["neighbor_dist"]
+    return acc

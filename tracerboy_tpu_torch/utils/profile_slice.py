@@ -1,0 +1,178 @@
+"""Time and profile the slice on one CUDA device.
+
+    python -m tracerboy_tpu_torch.utils.profile_slice [--out DIR]
+
+"shadertoy" at 1280x720: after a warm-up render_sample(1) and
+render_sample(8), REPS timed calls of each (host clock around work that ends
+in torch.cuda.synchronize(); median, quartiles, min, max), the peak
+memory of an 8-sample wave, the time of current_image(), and one
+torch.profiler trace of each call. From a trace's device events it
+reports the device span (first kernel start to last kernel end), the
+busy time (union of kernel intervals), the idle share of the span, the
+busy time by kernel class, and each traversal kernel launch in order
+(closest hit and any hit alternate, one pair per bounce). Then
+"shadertoy:cornell" at 512x512 on the brute-force path.
+
+Prints the card's name and power limit, then one JSON object; writes the
+JSON and the Chrome traces into --out (default build/profile/).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from tracerboy_tpu_torch import Renderer
+from tracerboy_tpu_torch.trace import traverse
+from tracerboy_tpu_torch.utils.build import REPO_ROOT
+
+KERNEL_CLASSES = (
+    ("traversal", ("traverse_kernel",)),
+    ("gather_scatter", ("index", "gather", "scatter")),
+    ("cat_stack", ("cat", "stack")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ("reduce", ("reduce",)),
+)
+REPS = 10
+
+
+def _timed(fn, reps):
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def _quartiles(xs):
+    return dict(n=len(xs), median=float(np.median(xs)),
+                q1=float(np.percentile(xs, 25)),
+                q3=float(np.percentile(xs, 75)),
+                min=float(min(xs)), max=float(max(xs)))
+
+
+def _classify(name):
+    name = name.lower()   # e.g. CatArrayBatchedCopy
+    for label, keys in KERNEL_CLASSES:
+        if any(k in name for k in keys):
+            return label
+    return "other"
+
+
+def _device_summary(prof):
+    """Span, busy time, idle share and per-class time (ms) of the device
+    events of one profile."""
+    evs = [e for e in prof.events()
+           if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    if not evs:
+        return dict(n_device_events=0)
+    iv = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, cur_s, cur_e = 0.0, iv[0][0], iv[0][1]
+    for s, e in iv[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = max(e for _, e in iv) - iv[0][0]
+    by_class: dict = {}
+    for e in evs:
+        k = _classify(e.name)
+        by_class[k] = by_class.get(k, 0.0) + (e.time_range.end
+                                              - e.time_range.start) / 1e3
+    trav = sorted((e.time_range.start, e.name, e.time_range.end
+                   - e.time_range.start) for e in evs
+                  if "traverse_kernel" in e.name)
+    return dict(
+        n_device_events=len(evs), span_ms=span / 1e3, busy_ms=busy / 1e3,
+        idle_share=1.0 - busy / span if span > 0 else 0.0,
+        by_class_ms=by_class,
+        traversal_launches_ms=[
+            ("any_hit" if "true" in name else "closest_hit", d / 1e3)
+            for _, name, d in trav],
+    )
+
+
+def _card():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", type=Path,
+                    default=REPO_ROOT / "build" / "profile")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_slice needs a CUDA device")
+    args.out.mkdir(parents=True, exist_ok=True)
+    card = _card()
+    print(card)
+    traverse.build_kernels()
+
+    res = dict(card=card)
+    r = Renderer("shadertoy", film_size=(1280, 720), device="cuda")
+    r.render_sample(1)
+    r.render_sample(8)
+    cell = {}
+    for n in (1, 8):
+        rays0 = r.rays_traced
+        ts = _timed(lambda: r.render_sample(n), REPS)
+        rays = (r.rays_traced - rays0) / REPS
+        med = float(np.median(ts))
+        cell[f"render_sample_{n}_s"] = _quartiles(ts)
+        cell[f"render_sample_{n}_rays"] = rays
+        cell[f"render_sample_{n}_ms_per_sample"] = med / n * 1e3
+        cell[f"render_sample_{n}_mrays_s"] = rays / med / 1e6
+    torch.cuda.reset_peak_memory_stats()
+    r.render_sample(8)
+    torch.cuda.synchronize()
+    cell["peak_gib_render_sample_8"] = (torch.cuda.max_memory_allocated()
+                                        / 2**30)
+    cell["current_image_s"] = _quartiles(_timed(r.current_image, 5))
+    res["shadertoy_1280x720"] = cell
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for n in (8, 1):
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            r.render_sample(n)
+            torch.cuda.synchronize()
+        summary = _device_summary(prof)
+        summary["wall_ms_profiled"] = (time.perf_counter() - w0) * 1e3
+        res[f"profile_render_sample_{n}"] = summary
+        prof.export_chrome_trace(str(args.out / f"trace_render_sample_{n}"
+                                     ".json"))
+    del r
+
+    c = Renderer("shadertoy:cornell", film_size=(512, 512), device="cuda")
+    c.render_sample(1)
+    rays0 = c.rays_traced
+    ts = _timed(lambda: c.render_sample(1), 5)
+    res["cornell_512x512"] = dict(
+        render_sample_1_s=_quartiles(ts),
+        mrays_s=(c.rays_traced - rays0) / 5 / float(np.median(ts)) / 1e6)
+    res["card_after"] = _card()
+
+    text = json.dumps(res, indent=1)
+    (args.out / "profile_slice.json").write_text(text)
+    print(text)
+
+
+if __name__ == "__main__":
+    main()
