@@ -17,7 +17,7 @@ import torch
 
 from tracerboy_tpu import Renderer as JaxRenderer
 from tracerboy_tpu_torch import OutputSettings, RenderMode, Renderer
-from tracerboy_tpu_torch.trace import traverse
+from tracerboy_tpu_torch.trace import kernels
 
 torch.set_num_threads(2)
 
@@ -60,12 +60,12 @@ def test_kernel_path_reaches_the_traversal_once_per_bounce():
     r = Renderer("shadertoy", film_size=(16, 12), device="cpu")
     bounces = r.wave_config().max_bounces
     for n in (1, 3):   # a single wave, then one merged wave of 3 samples
-        traverse.reset_counters()
+        kernels.reset_counters()
         r.render_sample(n)
         for key in ("closest", "anyhit"):
-            assert 1 <= traverse.TWIN_CALLS[key] <= bounces, (
-                key, traverse.TWIN_CALLS)
-        assert traverse.LAUNCHES == {"closest": 0, "anyhit": 0}
+            assert 1 <= kernels.TWIN_CALLS[key] <= bounces, (
+                key, kernels.TWIN_CALLS)
+        assert kernels.LAUNCHES == dict.fromkeys(kernels.LAUNCHES, 0)
 
 
 def test_twin_backend_equals_kernel_backend_on_cpu():
@@ -169,3 +169,28 @@ def test_profile_summary_unions_device_intervals():
                                 "cat_stack": pytest.approx(0.1)}
     assert s["traversal_launches_ms"] == [("closest_hit", 0.2),
                                           ("any_hit", 0.1)]
+
+
+def test_profile_summary_separates_the_opt_in_kernels():
+    """The cut path's emit kernel and the binned path's selection and
+    dense kernels are classes of their own, not traversal."""
+    from types import SimpleNamespace as NS
+
+    from tracerboy_tpu_torch.utils.profile_slice import _device_summary
+
+    def ev(name, start, end):
+        return NS(name=name, device_type="DeviceType.CUDA",
+                  time_range=NS(start=start, end=end))
+
+    prof = NS(events=lambda: [
+        ev("(anonymous namespace)::emit_kernel(...)", 0.0, 100.0),
+        ev("void traverse_kernel<false>(...)", 100.0, 300.0),
+        ev("(anonymous namespace)::select_kernel(...)", 300.0, 600.0),
+        ev("(anonymous namespace)::dense_kernel(...)", 600.0, 1000.0),
+    ])
+    s = _device_summary(prof)
+    assert s["by_class_ms"] == {"emit": pytest.approx(0.1),
+                                "traversal": pytest.approx(0.2),
+                                "select": pytest.approx(0.3),
+                                "dense": pytest.approx(0.4)}
+    assert s["traversal_launches_ms"] == [("closest_hit", 0.2)]

@@ -55,6 +55,24 @@ def test_ingestion_matches_jax_bit_for_bit(name):
     _assert_same_leaves(ref, port.as_tensors("cpu"))
 
 
+@pytest.mark.parametrize("name,env", [
+    ("shadertoy", {"TB_CUT": "1", "TB_BINNED": "1"}),
+    ("shadertoy", {"TB_CUT": "1", "TB_CUT_TRIS": "2048"}),
+    ("shadertoy:cornell", {"TB_CUT": "1", "TB_BINNED": "1"}),
+])
+def test_opt_in_tables_match_jax_bit_for_bit(monkeypatch, name, env):
+    """The cut tables (above 2048 triangles) and the binned tables, built
+    when the environment asks for them, as the JAX package gates them."""
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    ref = _jax_leaves(name)
+    got = torch_load_scene(name, film_size=FILM).as_numpy()
+    _assert_same_leaves(ref, got)
+    big = name == "shadertoy"
+    assert ("pk_cut_top" in got) == big and ("pk_sh_cut_roots" in got) == big
+    assert ("bn_mot" in got) == ("TB_BINNED" in env)
+
+
 @pytest.mark.parametrize("name", SCENES)
 def test_from_jax_pytree_gives_the_ports_tensors(name):
     ref = _jax_leaves(name)
@@ -84,7 +102,8 @@ def test_unported_scene_files_raise(path):
 
 def test_import_leaves_jax_out():
     code = ("import sys, tracerboy_tpu_torch\n"
-            "from tracerboy_tpu_torch.trace import wavefront, traverse\n"
+            "from tracerboy_tpu_torch.trace import (wavefront, traverse,\n"
+            "                                       cut, binned)\n"
             "from tracerboy_tpu_torch.post import pipeline\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith('jax.')\n"

@@ -12,6 +12,10 @@ tables:
 - tris_bw (C, 128) float32: one row per 8-triangle cluster, 12
   Baldwin-Weber floats per triangle ([n|-d], [g1|h1], [g2|h2]).
 - tri_map (C*8,) int32: packed triangle id -> input triangle index.
+- tris (C, 128) float32, only when asked for (raw_rows=True): the raw
+  rows of pack_scene_for_pallas's "tris", 8 triangles of 9 floats
+  (v0, v1, v2), from which the binned backend packs its tables
+  (trace/binned.py::pack_scene_binned).
 """
 
 from __future__ import annotations
@@ -24,19 +28,20 @@ LEAF = 8          # triangles per cluster row
 BIG = 1e30
 
 
-def pack_scene(tri_v0, tri_v1, tri_v2):
+def pack_scene(tri_v0, tri_v1, tri_v2, raw_rows: bool = False):
     """Build and pack the leaf-8 BVH over scene-order triangles.
-    Returns (dict(nodes, tris_bw, tri_map), WideBVH)."""
+    Returns (dict(nodes, tris_bw, tri_map[, tris]), WideBVH)."""
     from tracerboy_tpu_torch.accel.native import build_bvh_native
 
     v0 = np.asarray(tri_v0, np.float32)
     v1 = np.asarray(tri_v1, np.float32)
     v2 = np.asarray(tri_v2, np.float32)
     bvh = build_bvh_native(v0, v1, v2, leaf_size=LEAF)
-    return pack_bvh(bvh, v0, v1, v2), bvh
+    return pack_bvh(bvh, v0, v1, v2, raw_rows=raw_rows), bvh
 
 
-def pack_bvh(bvh: WideBVH, tri_v0, tri_v1, tri_v2) -> dict:
+def pack_bvh(bvh: WideBVH, tri_v0, tri_v1, tri_v2,
+             raw_rows: bool = False) -> dict:
     """Pack a WideBVH (leaf_size == 8) + original-order triangles."""
     if bvh.leaf_size != LEAF:
         raise ValueError(f"packing needs leaf_size {LEAF}, "
@@ -64,8 +69,12 @@ def pack_bvh(bvh: WideBVH, tri_v0, tri_v1, tri_v2) -> dict:
                  w2.astype(np.float64))                 # (C*LEAF, 3, 4)
     bw_table = np.zeros((C, 128), np.float32)
     bw_table[:, : LEAF * 12] = bw.reshape(C, LEAF * 12)
-    return dict(nodes=rows, tris_bw=bw_table,
-                tri_map=order.astype(np.int32))
+    out = dict(nodes=rows, tris_bw=bw_table, tri_map=order.astype(np.int32))
+    if raw_rows:
+        tri = np.concatenate([w0, w1, w2], axis=1).astype(np.float32)
+        out["tris"] = np.zeros((C, 128), np.float32)
+        out["tris"][:, : LEAF * 9] = tri.reshape(C, LEAF * 9)
+    return out
 
 
 def bw_rows(v0, v1, v2):

@@ -15,6 +15,7 @@ are not ported yet.
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 
@@ -25,6 +26,7 @@ from tracerboy_tpu_torch.core import rng as tbrng
 from tracerboy_tpu_torch.post.pipeline import post_process
 from tracerboy_tpu_torch.scene.compile import CompiledScene, load_scene
 from tracerboy_tpu_torch.trace.wavefront import (
+    PACKED_BACKENDS,
     WaveConfig,
     make_blue_noise_params,
     render_wave,
@@ -143,7 +145,27 @@ class Renderer:
                                  and (mats["normal_tex"] >= 0).any()),
             transparent_shadows=perf.transparent_shadows,
             traversal=self.traversal,
+            cut=self._use_cut(),
+            cut_k=int(os.environ.get("TB_CUT_K", "8")),
+            binned_bounces=self._use_binned(),
         )
+
+    def _use_cut(self) -> bool:
+        """The binned-subtree path (trace/cut.py) for every closest-hit
+        and shadow wave: opt-in with TB_CUT=1, as in the JAX package, on
+        the packed backends of a scene compiled with its tables."""
+        return (os.environ.get("TB_CUT") == "1"
+                and self.traversal in PACKED_BACKENDS
+                and "pk_cut_top" in self.scene)
+
+    def _use_binned(self) -> bool:
+        """The binned-cluster backend (trace/binned.py) for the bounce
+        waves: opt-in with TB_BINNED=1, as in the JAX package
+        (Renderer._use_binned there), on the packed backends of a scene
+        compiled with its tables."""
+        return (os.environ.get("TB_BINNED") == "1"
+                and self.traversal in PACKED_BACKENDS
+                and "bn_nodes" in self.scene)
 
     def frame_params(self) -> dict:
         s = self.settings

@@ -16,6 +16,7 @@ and scene files (PBRT, OBJ, .npz caches).
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -170,22 +171,33 @@ class CompiledScene:
         """Packed tables of the traversal kernels: a leaf-8 BVH over the
         scene triangles and a second one over non-light triangles for
         shadow rays, plus attribute rows in PACKED triangle order, so
-        per-hit fetches need no packed->scene remap."""
+        per-hit fetches need no packed->scene remap.
+
+        The opt-in backends' tables, as the JAX package gates them (read
+        from the environment here, at compile time):
+        - TB_CUT=1 and more than 2048 triangles: the cut tables of both
+          BVHs (pk_cut_top / pk_cut_roots, pk_sh_cut_top /
+          pk_sh_cut_roots; trace/cut.py), subtrees of at most TB_CUT_TRIS
+          triangles (512, or 2048 above 300k triangles);
+        - TB_BINNED=1: the binned tables bn_nodes / bn_mot / bn_base
+          (trace/binned.py), from the main BVH's 9-float rows."""
         from tracerboy_tpu_torch.accel.pack import pack_scene
 
-        pk, _ = pack_scene(self.tri_v0, self.tri_v1, self.tri_v2)
+        binned = os.environ.get("TB_BINNED") == "1"
+        pk, bvh = pack_scene(self.tri_v0, self.tri_v1, self.tri_v2,
+                             raw_rows=binned)
         opaque = (self.materials["flags"][self.tri_material]
                   & LIGHT_FLAG) == 0
         so_idx = np.where(opaque)[0]
         if len(so_idx) == 0:
             so_idx = np.arange(1)
-        pk_sh, _ = pack_scene(
+        pk_sh, bvh_sh = pack_scene(
             self.tri_v0[so_idx], self.tri_v1[so_idx], self.tri_v2[so_idx]
         )
         T = tri_attr_rows.shape[0]
         order = np.clip(pk["tri_map"], 0, T - 1)
         sh_order = np.clip(so_idx[pk_sh["tri_map"]], 0, T - 1)
-        return dict(
+        out = dict(
             pk_nodes=pk["nodes"],
             pk_tris_bw=pk["tris_bw"],
             pk_tri_map=pk["tri_map"],
@@ -195,6 +207,22 @@ class CompiledScene:
             pk_attr_rows=tri_attr_rows[order],
             pk_sh_attr_rows=tri_attr_rows[sh_order],
         )
+        T_tris = self.tri_v0.shape[0]
+        if T_tris > 2048 and os.environ.get("TB_CUT") == "1":
+            from tracerboy_tpu_torch.trace.cut import build_cut
+
+            cut_tris = int(os.environ.get(
+                "TB_CUT_TRIS", 512 if T_tris <= 300_000 else 2048))
+            for prefix, p, b in (("pk_", pk, bvh), ("pk_sh_", pk_sh, bvh_sh)):
+                cut = build_cut(p["nodes"], b.children, b.leaf_size,
+                                cut_tris)
+                out[prefix + "cut_top"] = cut["top_nodes"]
+                out[prefix + "cut_roots"] = cut["roots"]
+        if binned:
+            from tracerboy_tpu_torch.trace.binned import pack_scene_binned
+
+            out.update(pack_scene_binned(pk["tris"]))
+        return out
 
 
 def _canonical(x):

@@ -27,140 +27,86 @@ Contract (both kernels and both twins):
   so ids are compared only where t differs; at a tie, hit_attributes
   re-tests the kernel's pick.
 
+Per-ray roots (optional, int32 (N,)): ray i starts at roots[i] instead
+of node 0 -- a node id >= 0, whose children are tested as usual, or a
+leaf cluster -root-1, whose 8 triangles are tested with no box test (the
+TPU kernels' packet_roots option; phase 2 of trace/cut.py). The twins
+restrict each ray to the clusters under its root, from a host-side map of
+each node to the clusters of its subtree.
+
 The wrappers take the twin only for CPU tensors; on a CUDA tensor they
-launch the kernel or raise. LAUNCHES counts kernel launches and
-TWIN_CALLS counts calls that went to the twins.
+launch the kernel or raise. They count under "closest" and "anyhit" in
+trace/kernels.py's LAUNCHES and TWIN_CALLS.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-from tracerboy_tpu_torch.utils.build import (
-    REPO_ROOT,
-    build_shared_library,
-    nvcc_path,
-)
+from tracerboy_tpu_torch.accel.bvh import INVALID
+from tracerboy_tpu_torch.trace import kernels
 
 LEAF = 8
 BIG = 1e30
-_SOURCE = REPO_ROOT / "tracerboy_tpu_torch" / "csrc" / "bvh_traverse.cu"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-]
-
-LAUNCHES = {"closest": 0, "anyhit": 0}
-TWIN_CALLS = {"closest": 0, "anyhit": 0}
-_overflow: dict = {}
+_SOURCE = kernels.CSRC / "bvh_traverse.cu"
+kernels.register("closest", "anyhit")
 _lib = None
-
-
-def reset_counters():
-    """Zero the launch and twin-call counts and every overflow counter."""
-    for d in (LAUNCHES, TWIN_CALLS):
-        for k in d:
-            d[k] = 0
-    for buf in _overflow.values():
-        buf.zero_()
-
-
-def stack_overflows() -> int:
-    """Pushes dropped because a ray's stack was full, summed over the
-    devices that ran a kernel since the last reset (should be 0)."""
-    return sum(int(buf.item()) for buf in _overflow.values())
 
 
 def build_kernels():
     """Build (or reuse) and load the traversal kernels' library."""
     global _lib
     if _lib is None:
-        path = build_shared_library("tbtraverse", [_SOURCE],
-                                    [nvcc_path(), *NVCC_FLAGS])
-        lib = ctypes.CDLL(str(path))
-        p = ctypes.c_void_p
-        lib.tb_closest_hit.restype = ctypes.c_int
-        lib.tb_closest_hit.argtypes = [p, p, p, p, p, ctypes.c_int,
-                                       p, p, p, p, p, p]
-        lib.tb_any_hit.restype = ctypes.c_int
-        lib.tb_any_hit.argtypes = [p, p, p, p, p, ctypes.c_int, p, p, p]
-        _lib = lib
+        p, i = ctypes.c_void_p, ctypes.c_int
+        _lib = kernels.load_library("tbtraverse", _SOURCE, {
+            "tb_closest_hit": [p, p, p, p, p, p, i, p, p, p, p, p, p],
+            "tb_any_hit": [p, p, p, p, p, p, i, p, p, p],
+        })
     return _lib
 
 
-def _check(o, d, t_max, nodes, tris_bw):
-    n = o.shape[0]
-    for name, x, shape, dtype in (
-        ("o", o, (n, 3), torch.float32),
-        ("d", d, (n, 3), torch.float32),
-        ("t_max", t_max, (n,), torch.float32),
-        ("nodes", nodes, (nodes.shape[0], 128), torch.int32),
-        ("tris_bw", tris_bw, (tris_bw.shape[0], 128), torch.float32),
-    ):
-        if tuple(x.shape) != shape or x.dtype != dtype:
-            raise ValueError(f"{name}: expected {shape} {dtype}, got "
-                             f"{tuple(x.shape)} {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x.device != o.device:
-            raise ValueError(f"{name} is on {x.device}, o on {o.device}")
-    if o.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {o.device}")
-    if n >= 2**31:
-        raise ValueError("too many rays for one launch")
+def _check(o, d, t_max, nodes, tris_bw, roots):
+    specs = [*kernels.ray_specs(o, d, t_max),
+             ("nodes", nodes, (nodes.shape[0], 128), torch.int32),
+             ("tris_bw", tris_bw, (tris_bw.shape[0], 128), torch.float32)]
+    if roots is not None:
+        specs.append(("roots", roots, (o.shape[0],), torch.int32))
+    kernels.check_inputs(o, *specs)
 
 
-def _overflow_buffer(device):
-    buf = _overflow.get(device)
-    if buf is None:
-        buf = torch.zeros((), dtype=torch.int32, device=device)
-        _overflow[device] = buf
-    return buf
-
-
-def _launch(fn_name, device, *args):
-    lib = build_kernels()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn_name)(
-            *[a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in args],
-            _overflow_buffer(device).data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"{fn_name}: CUDA launch failed with error {rc}")
-
-
-def closest_hit(o, d, t_max, nodes, tris_bw):
-    """Closest hit in (1e-5, t_max). o, d: (N, 3) f32; t_max: (N,) f32.
-    Returns (t, packed tri id int32, u, v)."""
-    _check(o, d, t_max, nodes, tris_bw)
+def closest_hit(o, d, t_max, nodes, tris_bw, roots=None):
+    """Closest hit in (1e-5, t_max). o, d: (N, 3) f32; t_max: (N,) f32;
+    roots: optional (N,) int32 per-ray roots. Returns (t, packed tri id
+    int32, u, v)."""
+    _check(o, d, t_max, nodes, tris_bw, roots)
     if o.device.type == "cpu":
-        TWIN_CALLS["closest"] += 1
-        return closest_hit_plain(o, d, t_max, nodes, tris_bw)
+        kernels.TWIN_CALLS["closest"] += 1
+        return closest_hit_plain(o, d, t_max, nodes, tris_bw, roots)
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
     u = torch.empty(n, dtype=torch.float32, device=o.device)
     v = torch.empty(n, dtype=torch.float32, device=o.device)
-    _launch("tb_closest_hit", o.device, o, d, t_max, nodes, tris_bw, n,
-            t, tri, u, v)
-    LAUNCHES["closest"] += 1
+    kernels.launch(build_kernels(), "tb_closest_hit", o.device, o, d, t_max,
+                   nodes, tris_bw, roots, n, t, tri, u, v)
+    kernels.LAUNCHES["closest"] += 1
     return t, tri, u, v
 
 
-def any_hit(o, d, t_max, nodes, tris_bw):
+def any_hit(o, d, t_max, nodes, tris_bw, roots=None):
     """Occlusion by any triangle in (1e-5, t_max). Returns (N,) bool."""
-    _check(o, d, t_max, nodes, tris_bw)
+    _check(o, d, t_max, nodes, tris_bw, roots)
     if o.device.type == "cpu":
-        TWIN_CALLS["anyhit"] += 1
-        return anyhit_plain(o, d, t_max, nodes, tris_bw)
+        kernels.TWIN_CALLS["anyhit"] += 1
+        return anyhit_plain(o, d, t_max, nodes, tris_bw, roots)
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
-    _launch("tb_any_hit", o.device, o, d, t_max, nodes, tris_bw, n, occ)
-    LAUNCHES["anyhit"] += 1
+    kernels.launch(build_kernels(), "tb_any_hit", o.device, o, d, t_max,
+                   nodes, tris_bw, roots, n, occ)
+    kernels.LAUNCHES["anyhit"] += 1
     return occ
 
 
@@ -173,7 +119,7 @@ def any_hit(o, d, t_max, nodes, tris_bw):
 PAIR_BUDGET = 1 << 22   # (ray, cluster) slab tests per chunk
 
 
-def _cluster_boxes(nodes, n_clusters):
+def cluster_boxes(nodes, n_clusters):
     """Per-cluster (lo, hi), each (C, 3), from the leaf slots of the
     node rows; clusters no node references get an empty box."""
     W = nodes.shape[0]
@@ -190,27 +136,37 @@ def _cluster_boxes(nodes, n_clusters):
     return lo, hi
 
 
-def _fix(v):
+def fix_dir(v):
     eps = 1e-12
     return torch.where(torch.abs(v) < eps,
                        torch.where(v < 0, -eps, eps).to(v.dtype), v)
 
 
+def box_entry(o, inv, lo, hi):
+    """(t_near, t_far) of rays (o, inv = 1 / fixed d, (..., 3)) against
+    boxes (lo, hi, (..., 3)), broadcast, in the kernels' order."""
+    t0 = [(lo[..., k] - o[..., k]) * inv[..., k] for k in range(3)]
+    t1 = [(hi[..., k] - o[..., k]) * inv[..., k] for k in range(3)]
+    t_near = torch.maximum(
+        torch.maximum(torch.minimum(t0[0], t1[0]),
+                      torch.minimum(t0[1], t1[1])),
+        torch.minimum(t0[2], t1[2]))
+    t_far = torch.minimum(
+        torch.minimum(torch.maximum(t0[0], t1[0]),
+                      torch.maximum(t0[1], t1[1])),
+        torch.maximum(t0[2], t1[2]))
+    return t_near, t_far
+
+
+def _box_hit(o, inv, tmax, lo, hi):
+    t_near, t_far = box_entry(o, inv, lo, hi)
+    return (t_far >= torch.clamp_min(t_near, 0.0)) & (t_near < tmax)
+
+
 def _pairs(o, inv, tmax, lo, hi):
     """(ray, cluster) index pairs whose box the ray enters in t_max."""
-    t0x = (lo[None, :, 0] - o[:, None, 0]) * inv[:, None, 0]
-    t0y = (lo[None, :, 1] - o[:, None, 1]) * inv[:, None, 1]
-    t0z = (lo[None, :, 2] - o[:, None, 2]) * inv[:, None, 2]
-    t1x = (hi[None, :, 0] - o[:, None, 0]) * inv[:, None, 0]
-    t1y = (hi[None, :, 1] - o[:, None, 1]) * inv[:, None, 1]
-    t1z = (hi[None, :, 2] - o[:, None, 2]) * inv[:, None, 2]
-    t_near = torch.maximum(
-        torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
-        torch.minimum(t0z, t1z))
-    t_far = torch.minimum(
-        torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
-        torch.maximum(t0z, t1z))
-    hit = (t_far >= torch.clamp_min(t_near, 0.0)) & (t_near < tmax[:, None])
+    hit = _box_hit(o[:, None], inv[:, None], tmax[:, None], lo[None],
+                   hi[None])
     return hit.nonzero(as_tuple=True)
 
 
@@ -242,13 +198,13 @@ def _chunks(o, d, t_max, nodes, tris_bw):
     """Yield per chunk of live rays: (ray ids, pair ray index into the
     chunk, pair cluster, t, u, v, ok & t < t_max), all pairs (P, 8)."""
     C = tris_bw.shape[0]
-    lo, hi = _cluster_boxes(nodes, C)
+    lo, hi = cluster_boxes(nodes, C)
     live = (t_max > 0).nonzero(as_tuple=True)[0]
     step = max(1, PAIR_BUDGET // max(C, 1))
     for s in range(0, live.shape[0], step):
         ids = live[s:s + step]
         oc, dc, tc = o[ids], d[ids], t_max[ids]
-        inv = 1.0 / _fix(dc)
+        inv = 1.0 / fix_dir(dc)
         ri, ci = _pairs(oc, inv, tc, lo, hi)
         if ri.numel() == 0:
             continue
@@ -257,7 +213,77 @@ def _chunks(o, d, t_max, nodes, tris_bw):
         yield ids, ri, ci, t, u, v, ok
 
 
-def closest_hit_plain(o, d, t_max, nodes, tris_bw):
+def subtree_clusters(nodes):
+    """Host-side map of every node to the clusters of its subtree: the
+    clusters in depth-first order (perm) and each node's range
+    [start, end) in it. Returns three int64 numpy arrays."""
+    ch = nodes[:, 48:56].cpu().numpy().astype(np.int64)
+    start = np.zeros(ch.shape[0], np.int64)
+    end = np.zeros(ch.shape[0], np.int64)
+    perm: list = []
+
+    def visit(n):     # recursion depth = tree depth
+        start[n] = len(perm)
+        for c in ch[n]:
+            if c == INVALID:
+                continue
+            if c < 0:
+                perm.append(-1 - c)
+            else:
+                visit(c)
+        end[n] = len(perm)
+
+    visit(0)
+    return np.asarray(perm, np.int64), start, end
+
+
+def _root_chunks(o, d, t_max, nodes, tris_bw, roots):
+    """_chunks for per-ray roots: each live ray is paired with the
+    clusters under its root (box-tested) or with its root cluster (not
+    box-tested), in chunks of at most PAIR_BUDGET pairs."""
+    dev = o.device
+    C = tris_bw.shape[0]
+    lo, hi = cluster_boxes(nodes, C)
+    perm, start, end = (torch.from_numpy(a).to(dev)
+                        for a in subtree_clusters(nodes))
+    live = (t_max > 0).nonzero(as_tuple=True)[0]
+    r = roots[live].to(torch.int64)
+    is_node = r >= 0
+    node = torch.clamp_min(r, 0)
+    first = torch.where(is_node, start[node], 0)
+    count = torch.where(is_node, end[node] - start[node], 1)
+    cum = torch.cumsum(count, 0).cpu().numpy()
+    s = 0
+    while s < live.shape[0]:
+        base = cum[s - 1] if s else 0
+        e = max(s + 1, int(np.searchsorted(cum, base + PAIR_BUDGET,
+                                           side="right")))
+        ids = live[s:e]
+        n_c = count[s:e]
+        ri = torch.repeat_interleave(torch.arange(e - s, device=dev), n_c)
+        offs = (torch.arange(ri.shape[0], device=dev)
+                - torch.repeat_interleave(torch.cumsum(n_c, 0) - n_c, n_c))
+        nd = is_node[s:e][ri]
+        ci = torch.where(nd, perm[torch.where(nd, first[s:e][ri] + offs, 0)],
+                         -r[s:e][ri] - 1)
+        oc, dc, tc = o[ids][ri], d[ids][ri], t_max[ids][ri]
+        keep = ~nd | _box_hit(oc, 1.0 / fix_dir(dc), tc, lo[ci], hi[ci])
+        ri, ci, oc, dc, tc = ri[keep], ci[keep], oc[keep], dc[keep], tc[keep]
+        s = e
+        if ri.numel() == 0:
+            continue
+        t, u, v, ok = _bw_tests(oc, dc, tris_bw[ci])
+        ok = ok & (t < tc[:, None])
+        yield ids, ri, ci, t, u, v, ok
+
+
+def _pair_chunks(o, d, t_max, nodes, tris_bw, roots):
+    if roots is None:
+        return _chunks(o, d, t_max, nodes, tris_bw)
+    return _root_chunks(o, d, t_max, nodes, tris_bw, roots)
+
+
+def closest_hit_plain(o, d, t_max, nodes, tris_bw, roots=None):
     """Plain PyTorch closest hit over the packed tables (same contract as
     closest_hit; ties go to the lowest packed id)."""
     n = o.shape[0]
@@ -267,7 +293,8 @@ def closest_hit_plain(o, d, t_max, nodes, tris_bw):
     u_best = torch.zeros(n, dtype=torch.float32, device=dev)
     v_best = torch.zeros(n, dtype=torch.float32, device=dev)
     k8 = torch.arange(LEAF, device=dev)
-    for ids, ri, ci, t, u, v, ok in _chunks(o, d, t_max, nodes, tris_bw):
+    for ids, ri, ci, t, u, v, ok in _pair_chunks(o, d, t_max, nodes,
+                                                 tris_bw, roots):
         pid = (ci[:, None] * LEAF + k8[None, :])[ok]
         rr = ri[:, None].expand_as(ok)[ok]
         tt, uu, vv = t[ok], u[ok], v[ok]
@@ -299,9 +326,10 @@ def hit_attributes(o, d, tri, tris_bw):
     return tuple(x.gather(1, k)[:, 0] for x in (t, u, v))
 
 
-def anyhit_plain(o, d, t_max, nodes, tris_bw):
+def anyhit_plain(o, d, t_max, nodes, tris_bw, roots=None):
     """Plain PyTorch occlusion over the packed tables."""
     occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
-    for ids, ri, _, _, _, _, ok in _chunks(o, d, t_max, nodes, tris_bw):
+    for ids, ri, _, _, _, _, ok in _pair_chunks(o, d, t_max, nodes,
+                                                tris_bw, roots):
         occ[ids[ri[ok.any(dim=1)]]] = True
     return occ

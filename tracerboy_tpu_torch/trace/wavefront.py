@@ -18,6 +18,12 @@ Traversal backends (WaveConfig.traversal):
   "kernel" - the CUDA traversal kernels (their plain twins for CPU
              tensors), packed ids (trace/traverse.py);
   "twin"   - the plain twins on any device (kernel parity runs).
+On the packed backends two opt-in paths replace the whole-tree kernels,
+as in the JAX package: WaveConfig.cut sends every closest-hit and shadow
+wave through the binned-subtree pipeline (trace/cut.py), and
+WaveConfig.binned_bounces sends the closest-hit waves after the primary
+one through the binned-cluster backend (trace/binned.py); with both,
+binned takes the bounces and cut the primary and shadow waves.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from tracerboy_tpu_torch.shade import bsdf
 from tracerboy_tpu_torch.shade.env import sample_environment_quad_soa
 from tracerboy_tpu_torch.shade.nee import sample_one_light_soa
 from tracerboy_tpu_torch.shade.surface import fetch_material_soa
-from tracerboy_tpu_torch.trace import traverse
+from tracerboy_tpu_torch.trace import binned, cut, traverse
 from tracerboy_tpu_torch.trace.camera import generate_primary_rays_soa
 from tracerboy_tpu_torch.trace.intersect import (
     BIG,
@@ -81,6 +87,9 @@ class WaveConfig:
     has_specular_tex: bool = True
     has_image_tex: bool = True
     has_scale_tex: bool = True
+    cut: bool = False
+    cut_k: int = 8
+    binned_bounces: bool = False
     # Not ported yet:
     filter_splat: bool = False
     decouple_albedo: bool = False
@@ -92,7 +101,6 @@ class WaveConfig:
     want_heatmap: bool = False
     has_instances: bool = False
     has_volume: bool = False
-    binned_bounces: bool = False
 
 
 _UNPORTED = {
@@ -105,7 +113,6 @@ _UNPORTED = {
     "want_heatmap": "ROADMAP.md, Queue 2: kernel stats option",
     "has_instances": "ROADMAP.md, Queue 1: trace/instanced.py",
     "has_volume": "ROADMAP.md, Queue 1: shade/volumetric.py",
-    "binned_bounces": "ROADMAP.md, Queue 1: trace/binned.py",
 }
 
 
@@ -125,14 +132,21 @@ def _check_supported(cfg: WaveConfig, params: dict):
         raise ValueError(f"unknown traversal backend {cfg.traversal!r}")
 
 
-def _closest(scene, o, d, t_max, cfg):
+def _closest(scene, o, d, t_max, cfg, primary=False):
     """One closest-hit wave: (t, tri id, u, v)."""
     if cfg.traversal == "brute":
         return brute_force_closest_soa(o, d, scene["tri9"], t_max)
-    fn = (traverse.closest_hit if cfg.traversal == "kernel"
-          else traverse.closest_hit_plain)
-    return fn(v3.to_rows(o), v3.to_rows(d), t_max.contiguous(),
-              scene["pk_nodes"], scene["pk_tris_bw"])
+    plain = cfg.traversal == "twin"
+    rays = (v3.to_rows(o), v3.to_rows(d), t_max.contiguous())
+    if cfg.binned_bounces and not primary:
+        return binned.binned_closest(scene, *rays, plain=plain)
+    tables = (scene["pk_nodes"], scene["pk_tris_bw"])
+    if cfg.cut:
+        return cut.traverse_binned2(*rays, *tables, scene["pk_cut_top"],
+                                    scene["pk_cut_roots"], K=cfg.cut_k,
+                                    plain=plain)
+    fn = traverse.closest_hit_plain if plain else traverse.closest_hit
+    return fn(*rays, *tables)
 
 
 def _occluded(scene, o, d, t_max, cfg):
@@ -141,10 +155,15 @@ def _occluded(scene, o, d, t_max, cfg):
     if cfg.traversal == "brute":
         return brute_force_anyhit_soa(o, d, scene["tri9"], t_max,
                                       tri_opaque=scene["tri_shadow_opaque"])
-    fn = (traverse.any_hit if cfg.traversal == "kernel"
-          else traverse.anyhit_plain)
-    return fn(v3.to_rows(o), v3.to_rows(d), t_max.contiguous(),
-              scene["pk_sh_nodes"], scene["pk_sh_tris_bw"])
+    plain = cfg.traversal == "twin"
+    rays = (v3.to_rows(o), v3.to_rows(d), t_max.contiguous())
+    tables = (scene["pk_sh_nodes"], scene["pk_sh_tris_bw"])
+    if cfg.cut:
+        return cut.anyhit_binned2(*rays, *tables, scene["pk_sh_cut_top"],
+                                  scene["pk_sh_cut_roots"], K=cfg.cut_k,
+                                  plain=plain)
+    fn = traverse.anyhit_plain if plain else traverse.any_hit
+    return fn(*rays, *tables)
 
 
 def make_blue_noise_params(scene, pixel_ids, width: int):
@@ -290,7 +309,7 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig):
         # --- traversal ---------------------------------------------------
         t_max = torch.where(alive, BIG, 0.0)
         t, tri, u, v = _closest(
-            scene, s["origin"], s["direction"], t_max, cfg)
+            scene, s["origin"], s["direction"], t_max, cfg, primary=i == 0)
         del t_max
 
         miss = alive & (tri < 0)

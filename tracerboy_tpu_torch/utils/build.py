@@ -3,9 +3,9 @@
 Both the CUDA kernels (csrc/*.cu, nvcc) and the host BVH builder
 (native/bvh_builder.cpp, g++) are compiled into BUILD_DIR, a directory
 that .gitignore lists, and loaded with ctypes. The library name carries a
-hash of the command line and of every source's bytes, so an edited source
-rebuilds and an unchanged one is reused. A failed build raises with the
-compiler's output; nothing falls back.
+hash of the command line and of every source's and header's bytes, so an
+edited source rebuilds and an unchanged one is reused. A failed build
+raises with the compiler's output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -20,14 +20,15 @@ REPO_ROOT = Path(__file__).resolve().parents[2]
 BUILD_DIR = REPO_ROOT / "build" / "tracerboy_tpu_torch"
 
 
-def build_shared_library(name: str, sources, command) -> Path:
+def build_shared_library(name: str, sources, command, headers=()) -> Path:
     """Compile `sources` with `command` (compiler and flags, without -o)
-    into BUILD_DIR/lib<name>-<hash>.so and return its path."""
+    into BUILD_DIR/lib<name>-<hash>.so and return its path. `headers` are
+    the files the sources include: they enter the hash, not the command."""
     sources = [Path(s) for s in sources]
     digest = hashlib.sha256()
     for part in command:
         digest.update(part.encode() + b"\0")
-    for src in sources:
+    for src in [*sources, *map(Path, headers)]:
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():

@@ -2,15 +2,19 @@
 
     python -m tracerboy_tpu_torch.utils.profile_slice [--out DIR]
 
-"shadertoy" at 1280x720: after a warm-up render_sample(1) and
+"shadertoy" at 1280x720 (on the path the environment selects: TB_CUT=1
+and/or TB_BINNED=1 profile the cut or binned slice): after a warm-up
+render_sample(1) and
 render_sample(8), REPS timed calls of each (host clock around work that ends
 in torch.cuda.synchronize(); median, quartiles, min, max), the peak
 memory of an 8-sample wave, the time of current_image(), and one
 torch.profiler trace of each call. From a trace's device events it
 reports the device span (first kernel start to last kernel end), the
 busy time (union of kernel intervals), the idle share of the span, the
-busy time by kernel class, and each traversal kernel launch in order
-(closest hit and any hit alternate, one pair per bounce). Then
+busy time by kernel class (the cut path's emit kernel and the binned
+path's selection and dense kernels each a class of their own), and each
+traversal kernel launch in order (closest hit and any hit alternate, one
+pair per bounce on the default path). Then
 "shadertoy:cornell" at 512x512 on the brute-force path.
 
 Prints the card's name and power limit, then one JSON object; writes the
@@ -29,11 +33,14 @@ import numpy as np
 import torch
 
 from tracerboy_tpu_torch import Renderer
-from tracerboy_tpu_torch.trace import traverse
+from tracerboy_tpu_torch.trace import binned, cut, traverse
 from tracerboy_tpu_torch.utils.build import REPO_ROOT
 
 KERNEL_CLASSES = (
     ("traversal", ("traverse_kernel",)),
+    ("emit", ("emit_kernel",)),
+    ("select", ("select_kernel",)),
+    ("dense", ("dense_kernel",)),
     ("gather_scatter", ("index", "gather", "scatter")),
     ("cat_stack", ("cat", "stack")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
@@ -120,7 +127,8 @@ def main(argv=None):
     args.out.mkdir(parents=True, exist_ok=True)
     card = _card()
     print(card)
-    traverse.build_kernels()
+    for module in (traverse, cut, binned):
+        module.build_kernels()
 
     res = dict(card=card)
     r = Renderer("shadertoy", film_size=(1280, 720), device="cuda")
