@@ -12,25 +12,44 @@ Phases, each fatal on failure:
      primary, half random with finite and zero t_max), closest hit on
      the main BVH and any hit on the shadow BVH, within TOLERANCE; then
      both timed with CUDA events on a full 921,600-ray wave;
-  5. the same for the opt-in paths' kernels on the scene compiled with
+  5. the stats kernel (closest hit with per-ray traversal counts, the
+     HEATMAP view's primary wave) on the 65,536 rays and the 921,600-ray
+     primary wave: hits bit-equal to the stats-free kernel's, counts
+     equal to its twin's (each mismatching ray listed), no stack
+     overflow; timed beside the stats-free kernel and the twin;
+  6. the same for the opt-in paths' kernels on the scene compiled with
      the cut and binned tables (TB_CUT=1, TB_BINNED=1): emit (cut phase
      1), closest and any hit with per-ray roots (cut phase 2), selection
      and dense pairs (binned), on the 65,536 rays and on the 921,600-ray
      primary and shadow waves, each timed beside its twin;
-  6. the slice: Renderer("shadertoy", (1280, 720)) render_sample(1),
+  7. the slice: Renderer("shadertoy", (1280, 720)) render_sample(1),
      render_sample(8), current_image(), which must launch both kernels
      and overflow no stack; then "shadertoy:cornell" at 512x512, 4 spp,
      on the brute-force path; then the same render_sample(1) and (8) with
-     TB_CUT=1 and again with TB_BINNED=1, each of which must launch its
-     new kernels and overflow no stack;
-  7. path parity: one renderer's 2-sample merged wave at 128x72 on the
+     TB_CUT=1 (and a HEATMAP render_sample(1), whose primary wave must
+     still take the stats kernel) and again with TB_BINNED=1, each of
+     which must launch its new kernels and overflow no stack;
+  8. the first-hit AOV slice at 1280x720: render_sample(1) and
+     current_image() in every OutputType (and render_sample(8) in LIT
+     and HEATMAP), a finite image in [0, 1] each; HEATMAP launches the
+     stats kernel once per wave (the primary) and the stats-free kernel
+     for the bounces, the other views never the stats kernel; then
+     select_pixel, visualize_selected_ray_path (one wave) and
+     convergence_error;
+  9. the denoiser: the OIDN UNet with the committed rt_ldr_ft.npz
+     weights on the slice's resolved 1280x720 image through the Reinhard
+     transfer, in bfloat16 and in float32 (finite, (720, 1280, 3); ms per
+     call and the bf16-vs-f32 max |d|);
+ 10. path parity: one renderer's 2-sample merged wave at 128x72 on the
      kernel path against the twin path, and the cut and the binned path
      against the default kernel path, with the CPU tests' tolerance;
-  8. a JSON line of the five kernels (launches from the run of the path
-     each serves, error statistics, ms against plain_ms), then the
+ 11. a JSON line of the six kernels (launches from the run of the path
+     each serves, error statistics, ms against plain_ms, the bound the
+     card could reach on the same inputs and what sets it), then the
      result line {"ok": true, "device": {...}} last.
 
-Imports nothing of JAX or the JAX package.
+Imports nothing of JAX or the JAX package (the UNet weights are a data
+file read by path).
 """
 
 from __future__ import annotations
@@ -41,6 +60,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 
@@ -68,6 +88,26 @@ TOLERANCE = dict(hit_mismatch_frac=1e-4, t_rel=1e-6, uv_abs=1e-6,
 OPT_IN = ("TB_CUT", "TB_BINNED", "TB_CUT_K", "TB_CUT_TRIS")
 # Path parity: the CPU tests' bound between the port and the JAX package.
 PARITY = dict(pixel_atol=1e-3, pixel_frac=0.99, mean_rel=1e-4)
+# Stats kernel: counting changes nothing of the walk, so its hits equal
+# the stats-free kernel's bit for bit; its twin repeats the walk, so the
+# counts differ only where a slab test rounds otherwise.
+STATS_TOLERANCE = dict(count_mismatch_frac=1e-4, overflows=0)
+UNET_WEIGHTS = (Path(__file__).resolve().parent / "tracerboy_tpu" / "ml"
+                / "weights" / "rt_ldr_ft.npz")
+# The bound of a kernel: the larger of its bytes (each ray input read
+# once, each table row these rays need read once, each output written
+# once) over the H100 SXM's 3.35 TB/s and its float32 operations over 67
+# TFLOP/s (no tensor cores). The rows: those the walk reads (node rows it
+# expands, cluster rows it tests; traverse.walk_footprint and
+# emit_walk), for the selection the coarse rows on the paths from the
+# root to its slots, for dense pairs the clusters of its pairs. The
+# operations per step, counted from csrc/bvh_common.cuh: a ray's set-up
+# (3 fix_dir, 3 reciprocals), one child's slab test with its entry test,
+# one Baldwin-Weber triangle test.
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+RAY_OPS, SLAB_OPS, TRI_OPS = 12, 25, 49
+CLUSTER_TRIS = 128     # triangles a dense pair tests (trace/binned.py)
 
 
 def fail(msg):
@@ -102,6 +142,92 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_once(fn):
+    """(fn(), its ms by CUDA events): one call, no warm-up."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def row_bytes(table, rows) -> int:
+    """Bytes of the rows of table marked in the bool mask rows."""
+    return int(rows.sum()) * table[0].numel() * table.element_size()
+
+
+def slot_path_rows(nodes, slot_c):
+    """Bool mask of the coarse node rows on the paths from the root to the
+    parents of the selected clusters (slot_c >= 0): the rows the
+    selection must read to reach its slots."""
+    import torch
+
+    from tracerboy_tpu_torch.accel.bvh import INVALID
+
+    W = nodes.shape[0]
+    cid = nodes[:, 48:56].to(torch.int64)
+    owner = torch.arange(W, device=nodes.device)[:, None].expand_as(cid)
+    parent = torch.full((W,), -1, dtype=torch.int64, device=nodes.device)
+    inner = (cid >= 0) & (cid != INVALID)
+    parent[cid[inner]] = owner[inner]
+    leaf = cid < 0
+    cl_parent = torch.full((int((-cid[leaf] - 1).max()) + 1,), -1,
+                           dtype=torch.int64, device=nodes.device)
+    cl_parent[-cid[leaf] - 1] = owner[leaf]
+    seen = torch.zeros(W, dtype=torch.bool, device=nodes.device)
+    cur = torch.unique(cl_parent[slot_c[slot_c >= 0].long()])
+    while cur.numel():
+        seen[cur] = True
+        cur = parent[cur]
+        cur = torch.unique(cur[cur >= 0])
+        cur = cur[~seen[cur]]
+    return seen
+
+
+def bound(n_bytes, ops):
+    """(bound_ms, bound_by): the larger of n_bytes over the memory rate
+    and ops float32 operations over the float32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = ops / F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_keys(n_bytes, ops) -> dict:
+    """The kernels line's bound keys; no single PyTorch call computes a
+    BVH traversal, so library_ms is null."""
+    ms, by = bound(n_bytes, ops)
+    return dict(bound_ms=ms, bound_by=by, bytes=int(n_bytes), ops=float(ops),
+                library_ms=None)
+
+
+def walk_ops(live, pops, clusters, nodes) -> float:
+    """Float32 operations of a stack walk over a node table: each live
+    ray's set-up, the slab tests of each popped node's children (the
+    table's mean count of valid child slots), the 8 triangle tests of
+    each leaf cluster."""
+    from tracerboy_tpu_torch.accel.bvh import INVALID
+
+    children = float((nodes[:, 48:56] != INVALID).sum()) / nodes.shape[0]
+    return (live * RAY_OPS + pops * children * SLAB_OPS
+            + clusters * 8 * TRI_OPS)
+
+
+def check_image(name, img):
+    shape = (FULL_WAVE[1], FULL_WAVE[0], 3)
+    if img.shape != shape:
+        fail(f"{name}: image shape {img.shape}, expected {shape}")
+    if not (np.isfinite(img).all() and img.min() >= 0 and img.max() <= 1):
+        fail(f"{name}: image is not finite within [0, 1]")
 
 
 def primary_rays(scene, width, height, pixel_ids, rng):
@@ -225,8 +351,9 @@ def check_closest(o, d, tables, k, p):
 def check_anyhit(k, p):
     occ_k, occ_p = k.cpu().numpy(), p.cpu().numpy()
     mism = int((occ_k != occ_p).sum())
+    # max_abs_err: |occlusion difference| (0 or 1) over the rays.
     stats = dict(rays=int(occ_k.shape[0]), occluded=int(occ_k.sum()),
-                 occ_mismatch=mism)
+                 occ_mismatch=mism, max_abs_err=float(mism > 0))
     return mism <= TOLERANCE["occ_mismatch_frac"] * occ_k.shape[0], stats
 
 
@@ -271,14 +398,113 @@ def build_kernels():
             f.result()
 
 
+def stats_phase(tables, sets):
+    """The stats kernel on each (label, (o, d, t_max)) of sets against
+    the stats-free kernel (t, tri, u, v bit for bit) and its twin (the
+    hits and the counts, each mismatching ray listed), with no stack
+    overflow; on the last set the kernels are timed beside the twin's
+    comparison call. Returns (statistics by label, times)."""
+    import torch
+
+    from tracerboy_tpu_torch.trace import kernels, traverse
+
+    kernels.reset_counters()
+    stats, times, ok_all = {}, {}, True
+    for label, (o, d, tm) in sets:
+        k = traverse.closest_hit_stats(o, d, tm, *tables)
+        free = traverse.closest_hit(o, d, tm, *tables)
+        p, plain_ms = timed_once(lambda: traverse.closest_hit_stats_plain(
+            o, d, tm, *tables))
+        n = o.shape[0]
+        both = (k[1] >= 0) & (p[1] >= 0)
+        cnt_k, cnt_p = torch.stack(k[4:], 1), torch.stack(p[4:], 1)
+        mism = (cnt_k != cnt_p).any(1).nonzero(as_tuple=True)[0]
+        errs = [(k[j][both] - p[j][both]).abs() for j in (0, 2, 3)]
+        errs.append((cnt_k - cnt_p).abs().to(torch.float32))
+        st = dict(
+            rays=n, live=int((tm > 0).sum()), hits=int((k[1] >= 0).sum()),
+            pops=int(k[4].sum()), clusters=int(k[5].sum()),
+            max_pops=int(k[4].max()), max_clusters=int(k[5].max()),
+            hits_equal_stats_free=all(torch.equal(a, b)
+                                      for a, b in zip(k[:4], free)),
+            hits_equal_twin=all(torch.equal(a, b)
+                                for a, b in zip(k[:4], p[:4])),
+            count_mismatch=int(mism.numel()),
+            max_abs_err=max(float(e.max()) if e.numel() else 0.0
+                            for e in errs))
+        if mism.numel():
+            rows = torch.cat([mism[:200, None].to(torch.int32),
+                              cnt_k[mism[:200]], cnt_p[mism[:200]]], 1)
+            st["mismatches"] = [
+                dict(ray=r[0], pops_kernel=r[1], clusters_kernel=r[2],
+                     pops_twin=r[3], clusters_twin=r[4])
+                for r in rows.cpu().tolist()]
+        stats[label] = st
+        print(f"stats kernel vs twin, {label}:", json.dumps(st))
+        ok_all &= (st["hits_equal_stats_free"] and st["count_mismatch"]
+                   <= STATS_TOLERANCE["count_mismatch_frac"] * n)
+        times[f"{label}_plain_ms"] = plain_ms
+    overflows = kernels.stack_overflows()
+    o, d, tm = sets[-1][1]
+    times.update(
+        stats_ms=cuda_ms(lambda: traverse.closest_hit_stats(o, d, tm,
+                                                            *tables), 20),
+        stats_free_ms=cuda_ms(lambda: traverse.closest_hit(o, d, tm,
+                                                           *tables), 20),
+        stack_overflows=overflows)
+    print("timing stats kernel:", json.dumps(times))
+    if overflows > STATS_TOLERANCE["overflows"]:
+        fail(f"stats phase: {overflows} traversal stack overflows")
+    if not ok_all:
+        fail(f"the stats kernel disagrees beyond {STATS_TOLERANCE}")
+    return stats, times
+
+
+def emit_walk(o, d, tm, top, chunk=1 << 16):
+    """(ray, node) pairs of the emit walk over these rays (the root of
+    every live ray and each inner child a ray enters within t_max; the
+    walk culls by t_max only), by the emit twin's slab test, and the bool
+    mask of the top rows it reads."""
+    import torch
+
+    from tracerboy_tpu_torch.accel.bvh import INVALID
+    from tracerboy_tpu_torch.trace import traverse
+
+    W = top.shape[0]
+    cid = top[:, 48:56].to(torch.int64)
+    b = top[:, :48].contiguous().view(torch.float32).reshape(W, 6, 8)
+    lo, hi = b[:, 0:3].permute(0, 2, 1), b[:, 3:6].permute(0, 2, 1)
+    inv = 1.0 / traverse.fix_dir(d)
+    visits = 0
+    rows = torch.zeros(W, dtype=torch.bool, device=top.device)
+    for s in range(0, o.shape[0], chunk):
+        fr = (tm[s:s + chunk] > 0).nonzero(as_tuple=True)[0] + s
+        fn = torch.zeros_like(fr)
+        while fr.numel():
+            visits += fr.numel()
+            rows[fn] = True
+            t_near, t_far = traverse.box_entry(o[fr][:, None],
+                                               inv[fr][:, None], lo[fn],
+                                               hi[fn])
+            c = cid[fn]
+            enter = ((c >= 0) & (c != INVALID)
+                     & (t_far >= torch.clamp_min(t_near, 0.0))
+                     & (t_near < tm[fr][:, None]))
+            ri, si = enter.nonzero(as_tuple=True)
+            fr, fn = fr[ri], c[ri, si]
+    return visits, rows
+
+
 def check_emit(k, p):
     """Emit kernel ids against the twin's: rays whose sorted subtree sets
     differ, and rays whose slot order differs."""
     n = k.shape[0]
     set_mism = int((k.sort(1).values != p.sort(1).values).any(1).sum())
+    # max_abs_err: 1 if any ray's subtree set differs, else 0.
     stats = dict(rays=n, with_emits=int((k >= 0).any(1).sum()),
                  set_mismatch=set_mism,
-                 order_mismatch=int((k != p).any(1).sum()))
+                 order_mismatch=int((k != p).any(1).sum()),
+                 max_abs_err=float(set_mism > 0))
     return set_mism <= TOLERANCE["emit_set_mismatch_frac"] * n, stats
 
 
@@ -428,6 +654,10 @@ def opt_in_kernel_phase(scene, compare, primary, shadow):
             ok, stats[f"dense_{label}"] = check_dense(dk, dp)
             ok_all &= ok
         if label == "primary":
+            visits, top_rows = emit_walk(o, d, tm, top)
+            dense_cl = torch.zeros(dense_tables[0].shape[0], dtype=torch.bool,
+                                   device=o.device)
+            dense_cl[dpairs[3].long()] = True
             times.update(
                 emit_ms=cuda_ms(lambda: cut.emit_cuts(o, d, tm, top, S, K),
                                 20),
@@ -447,7 +677,23 @@ def opt_in_kernel_phase(scene, compare, primary, shadow):
                     *dpairs, *dense_tables), 20),
                 dense_plain_ms=cuda_ms(lambda: binned.dense_pairs_plain(
                     *dpairs, *dense_tables), 1, warmup=0),
-                dense_pairs=int(dpairs[3].shape[0]))
+                dense_pairs=int(dpairs[3].shape[0]),
+                primary_live=int((tm > 0).sum()),
+                emit_node_visits=visits,
+                emit_rows=int(top_rows.sum()),
+                select_rows=int(slot_path_rows(nodes, sk[1]).sum()),
+                dense_clusters=int(dense_cl.sum()),
+                # inputs + the rows they need + outputs: (N, K) ids;
+                # slot_t, slot_c (N, KSEL) and dropped; (t, tri, u, v) per
+                # pair
+                emit_bytes=nbytes(o, d, tm) + row_bytes(top, top_rows)
+                + 4 * K * o.shape[0],
+                select_bytes=nbytes(o, d, tm)
+                + row_bytes(nodes, slot_path_rows(nodes, sk[1]))
+                + (8 * binned.KSEL + 4) * o.shape[0],
+                dense_bytes=nbytes(*dpairs)
+                + row_bytes(dense_tables[0], dense_cl)
+                + 4 * int(dense_cl.sum()) + 16 * dpairs[3].shape[0])
         if label == "shadow":
             times.update(
                 anyhit_roots_ms=cuda_ms(lambda: traverse.any_hit(
@@ -463,11 +709,13 @@ def opt_in_kernel_phase(scene, compare, primary, shadow):
     return stats, times
 
 
-def render_slice(torch, Renderer, name, env, required):
+def render_slice(torch, Renderer, name, env, required, heatmap=False):
     """Renderer("shadertoy", (1280, 720)) under the opt-in variables env:
     render_sample(1), render_sample(8), current_image(), with the launch
     counts set to 0 just before and read just after. Every kernel in
-    `required` must launch, and no stack may overflow."""
+    `required` must launch, and no stack may overflow. With heatmap, one
+    more render_sample(1) in the HEATMAP view, whose primary wave must
+    take the stats kernel once."""
     from tracerboy_tpu_torch.trace import binned, cut, kernels
 
     set_opt_in(**env)
@@ -500,10 +748,7 @@ def render_slice(torch, Renderer, name, env, required):
         fail(f"{name}: accumulator is not finite")
     if not mean > 0:
         fail(f"{name}: accumulator mean {mean} is not positive")
-    if img.shape != (FULL_WAVE[1], FULL_WAVE[0], 3):
-        fail(f"{name}: image shape {img.shape}")
-    if not (np.isfinite(img).all() and img.min() >= 0 and img.max() <= 1):
-        fail(f"{name}: image is not finite within [0, 1]")
+    check_image(name, img)
     missing = [k for k in required if launches[k] <= 0]
     if missing:
         fail(f"{name}: the slice did not launch {missing}: {launches}")
@@ -525,6 +770,23 @@ def render_slice(torch, Renderer, name, env, required):
         results["binned_fallback_share"] = (
             int(binned.STATS["fallback_rays"])
             / max(int(binned.STATS["rays"]), 1))
+    if heatmap:
+        from dataclasses import replace
+
+        from tracerboy_tpu_torch import OutputType
+
+        r.settings = replace(r.settings, output_type=OutputType.HEATMAP)
+        kernels.reset_counters()
+        r.render_sample(1)
+        check_image(f"{name} HEATMAP", r.current_image())
+        torch.cuda.synchronize()
+        hl = dict(kernels.LAUNCHES)
+        if hl["closest_stats"] != 1 or any(hl[k] <= 0 for k in required):
+            fail(f"{name} HEATMAP: launches {hl}, expected closest_stats 1 "
+                 f"and {required}")
+        if kernels.stack_overflows():
+            fail(f"{name} HEATMAP: traversal stack overflows")
+        results["heatmap_launches"] = hl
     print(f"render shadertoy 1280x720 {name}:", json.dumps(results))
     del r
     set_opt_in()
@@ -551,6 +813,121 @@ def cornell_phase(torch, Renderer):
     print("render cornell 512x512 4 spp (brute):", json.dumps(dict(
         accum_mean=cmean, s_per_sample=(t1 - t0) / 4,
         mrays_s=c.rays_traced / (t1 - t0) / 1e6)))
+
+
+def aov_slice_phase(torch, Renderer):
+    """The first-hit AOV slice on one renderer at 1280x720: every
+    OutputType's render_sample(1) (and (8) in LIT and HEATMAP) and
+    current_image(), with the launch counts set to 0 just before each
+    render and read just after; then pixel inspection and the ray-path
+    overlay in LIT. Returns (renderer, results, stats kernel launches of
+    the HEATMAP renders)."""
+    from dataclasses import replace
+
+    from tracerboy_tpu_torch import OutputType
+    from tracerboy_tpu_torch.trace import kernels
+
+    set_opt_in()
+    r = Renderer("shadertoy", film_size=FULL_WAVE, device="cuda")
+    bounces = r.wave_config().max_bounces
+    results, heat_launches = {}, 0
+    for view in OutputType:
+        r.settings = replace(r.settings, output_type=view)
+        heat = view == OutputType.HEATMAP
+        eight = view in (OutputType.LIT, OutputType.HEATMAP)
+        for n in (1, 8) if eight else (1,):
+            kernels.reset_counters()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.render_sample(n)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            check_image(f"{view.name} {n} spp", r.current_image())
+            # Either call traces one wave at this film size (8 samples
+            # merge into one 7.4M-lane wave): one closest hit per bounce,
+            # the primary's through the stats kernel in HEATMAP.
+            want = dict(closest_stats=int(heat),
+                        closest=bounces - int(heat))
+            got = {k: launches[k] for k in want}
+            if got != want:
+                fail(f"{view.name} render_sample({n}): launches {got}, "
+                     f"expected {want}")
+            heat_launches += launches["closest_stats"]
+            results[f"{view.name}_{n}"] = dict(
+                s_per_sample=dt / n, peak_gib=peak,
+                closest_stats=launches["closest_stats"],
+                closest=launches["closest"], anyhit=launches["anyhit"])
+    if kernels.stack_overflows():
+        fail("AOV slice: traversal stack overflows")
+
+    r.settings = replace(r.settings, output_type=OutputType.LIT)
+    x, y = FULL_WAVE[0] // 2, FULL_WAVE[1] // 2
+    sel = r.select_pixel(x, y)
+    if set(sel) != {"material_id", "depth", "albedo", "normal",
+                    "world_pos"} or not all(
+            np.isfinite(sel[k]).all()
+            for k in ("depth", "albedo", "normal", "world_pos")):
+        fail(f"select_pixel({x}, {y}) malformed: {sel}")
+    kernels.reset_counters()
+    overlay = r.visualize_selected_ray_path(x, y)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    if (launches["closest"], launches["closest_stats"]) != (bounces, 0):
+        fail(f"visualize_selected_ray_path: launches {launches}, expected "
+             f"one wave")
+    check_image("visualize_selected_ray_path", overlay)
+    drawn = int((overlay != r.current_image()).any(-1).sum())
+    if drawn == 0:
+        fail("visualize_selected_ray_path drew no path")
+    err = r.convergence_error()
+    if not (np.isfinite(err) and err >= 0):
+        fail(f"convergence_error {err}")
+    results["inspection"] = dict(
+        pixel=[x, y], material_id=sel["material_id"],
+        depth=sel["depth"], overlay_pixels_drawn=drawn,
+        convergence_error=err, spp=r.state.spp)
+    print("AOV slice shadertoy 1280x720:", json.dumps(results))
+    return r, results, heat_launches
+
+
+def denoise_phase(torch, lin):
+    """The OIDN UNet with the committed fine-tuned weights on the linear
+    image lin (H, W, 3) through the Reinhard transfer, in bfloat16 and in
+    float32: finite outputs of lin's shape, warm ms per call (CUDA
+    events) and the bf16-vs-f32 max |d| in the network's [0, 1] space and
+    in linear radiance."""
+    from tracerboy_tpu_torch.ml.finetune import (
+        load_params_npz,
+        reinhard_fwd,
+        reinhard_inv,
+    )
+    from tracerboy_tpu_torch.ml.oidn import denoise_image
+
+    enc = reinhard_fwd(lin)
+    dens, res = {}, dict(shape=list(lin.shape))
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        net = load_params_npz(str(UNET_WEIGHTS), dtype).to(lin.device)
+        den = denoise_image(net, enc)
+        out = reinhard_inv(den)
+        torch.cuda.synchronize()
+        if tuple(out.shape) != tuple(lin.shape):
+            fail(f"denoise {name}: shape {tuple(out.shape)}")
+        if not (bool(torch.isfinite(out).all()) and float(out.min()) >= 0):
+            fail(f"denoise {name}: output not finite and non-negative")
+        res[f"{name}_ms"] = cuda_ms(lambda: denoise_image(net, enc), 5,
+                                    warmup=2)
+        dens[name] = (den, out)
+        del net
+    res["bf16_vs_f32_max_abs"] = float(
+        (dens["bf16"][0] - dens["f32"][0]).abs().max())
+    res["bf16_vs_f32_max_abs_linear"] = float(
+        (dens["bf16"][1] - dens["f32"][1]).abs().max())
+    res["input_vs_f32_mean_abs"] = float((dens["f32"][0] - enc).abs().mean())
+    print("denoise 1280x720 (rt_ldr_ft.npz, Reinhard):", json.dumps(res))
+    return res
 
 
 def parity_phase(torch, Renderer):
@@ -662,23 +1039,67 @@ def main() -> int:
             o, d, tm, *main_t), 2),
     )
     print("timing 921,600-ray waves and 65,536 rays:", json.dumps(times))
-    del full_k, full_p, sh_k, sh_p, ck, cp, ak, ap, hits
+
+    # --- the stats kernel vs the stats-free kernel and its twin -----------
+    st_stats, st_times = stats_phase(main_t, (("compare", (o, d, tm)),
+                                              ("primary", (po, pd, ptm))))
+    # The rows each walk reads, and the any-hit walk's pops and clusters
+    # (the stats twin's walk, in the any-hit kernel's mode).
+    pri_rows = traverse.walk_footprint(po, pd, ptm, *main_t)[:2]
+    sh_walk = traverse.walk_footprint(so, sd, stm, *shadow_t, any_hit=True)
+    n_pri = po.shape[0]
+    pri_tables = (row_bytes(main_t[0], pri_rows[0])
+                  + row_bytes(main_t[1], pri_rows[1]))
+    walk_rows = dict(
+        primary_node_rows=int(pri_rows[0].sum()),
+        primary_cluster_rows=int(pri_rows[1].sum()),
+        shadow_node_rows=int(sh_walk[0].sum()),
+        shadow_cluster_rows=int(sh_walk[1].sum()),
+        shadow_pops=int(sh_walk[2].sum()),
+        shadow_clusters=int(sh_walk[3].sum()))
+    print("rows read by the walks:", json.dumps(walk_rows))
+    walk_bytes = dict(
+        closest=nbytes(po, pd, ptm) + pri_tables + 16 * n_pri,
+        stats=nbytes(po, pd, ptm) + pri_tables + 24 * n_pri,
+        anyhit=nbytes(so, sd, stm) + row_bytes(shadow_t[0], sh_walk[0])
+        + row_bytes(shadow_t[1], sh_walk[1]) + so.shape[0])
+    pri = st_stats["primary"]
+    closest_ops = walk_ops(pri["live"], pri["pops"], pri["clusters"],
+                           main_t[0])
+    anyhit_ops = walk_ops(int((stm > 0).sum()), walk_rows["shadow_pops"],
+                          walk_rows["shadow_clusters"], shadow_t[0])
+    del full_k, full_p, sh_k, sh_p, sh_walk, pri_rows, ck, cp, ak, ap, hits
 
     # --- the opt-in paths' kernels vs their twins ---------------------------
     opt_stats, opt_times = opt_in_kernel_phase(
         scene, (o, d, tm), (po, pd, ptm), (so, sd, stm))
+    # The selection walk's least work: each live ray's set-up and the
+    # slab tests of the coarse root's children (the walk is not counted).
+    select_ops = walk_ops(opt_times["primary_live"], opt_times["primary_live"],
+                          0, scene["bn_nodes"])
+    emit_ops = walk_ops(opt_times["primary_live"],
+                        opt_times["emit_node_visits"], 0,
+                        scene["pk_cut_top"])
+    dense_ops = opt_times["dense_pairs"] * (RAY_OPS
+                                            + CLUSTER_TRIS * TRI_OPS)
     del scene, o, d, tm, po, pd, ptm, so, sd, stm
 
     # --- the slice: default, cut and binned paths ---------------------------
     _, launches = render_slice(torch, Renderer, "default", {},
                                ("closest", "anyhit"))
     cornell_phase(torch, Renderer)
-    _, cut_launches = render_slice(torch, Renderer, "TB_CUT=1",
-                                   {"TB_CUT": "1"},
-                                   ("emit", "closest", "anyhit"))
+    cut_res, cut_launches = render_slice(torch, Renderer, "TB_CUT=1",
+                                         {"TB_CUT": "1"},
+                                         ("emit", "closest", "anyhit"),
+                                         heatmap=True)
     _, bn_launches = render_slice(torch, Renderer, "TB_BINNED=1",
                                   {"TB_BINNED": "1"},
                                   ("select", "dense", "closest", "anyhit"))
+
+    # --- the first-hit AOV slice and the denoiser ---------------------------
+    r, _, heat_launches = aov_slice_phase(torch, Renderer)
+    denoise_phase(torch, r.resolve_radiance())
+    del r
 
     # --- path parity ------------------------------------------------------
     parity_phase(torch, Renderer)
@@ -705,15 +1126,33 @@ def main() -> int:
                  s["id_mismatch_outside_ties"]
                  for s in [st_c, st_c2, *roots_c]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
+             **bound_keys(walk_bytes["closest"], closest_ops),
              roots_ms=opt_times["closest_roots_ms"],
              roots_plain_ms=opt_times["closest_roots_plain_ms"]),
+        dict(name="closest_hit_stats", route="cuda", source=trav,
+             replaces="tracerboy_tpu/trace/pallas_traverse2.py:754 "
+                      "(stats=True)",
+             launches=heat_launches + cut_res["heatmap_launches"][
+                 "closest_stats"],
+             launches_by_path={"default": heat_launches,
+                               "cut": cut_res["heatmap_launches"][
+                                   "closest_stats"]},
+             max_abs_err=max(s["max_abs_err"] for s in st_stats.values()),
+             count_mismatch=sum(s["count_mismatch"]
+                                for s in st_stats.values()),
+             ms=st_times["stats_ms"], plain_ms=st_times["primary_plain_ms"],
+             stats_free_ms=st_times["stats_free_ms"],
+             **bound_keys(walk_bytes["stats"], closest_ops)),
         dict(name="any_hit", route="cuda", source=trav,
              replaces="tracerboy_tpu/trace/pallas_traverse2.py:869",
              launches=launches["anyhit"],
              launches_by_path=by_path("anyhit"),
              occ_mismatch=sum(s["occ_mismatch"]
                               for s in [st_a, st_a2, *roots_a]),
+             max_abs_err=max(s["max_abs_err"]
+                             for s in [st_a, st_a2, *roots_a]),
              ms=times["anyhit_ms"], plain_ms=times["anyhit_plain_ms"],
+             **bound_keys(walk_bytes["anyhit"], anyhit_ops),
              roots_ms=opt_times["anyhit_roots_ms"],
              roots_plain_ms=opt_times["anyhit_roots_plain_ms"]),
         dict(name="emit_cuts", route="cuda",
@@ -722,7 +1161,9 @@ def main() -> int:
              launches=cut_launches["emit"],
              set_mismatch=sum(s["set_mismatch"] for s in emits),
              order_mismatch=sum(s["order_mismatch"] for s in emits),
-             ms=opt_times["emit_ms"], plain_ms=opt_times["emit_plain_ms"]),
+             max_abs_err=max(s["max_abs_err"] for s in emits),
+             ms=opt_times["emit_ms"], plain_ms=opt_times["emit_plain_ms"],
+             **bound_keys(opt_times["emit_bytes"], emit_ops)),
         dict(name="select_clusters", route="cuda", source=bsrc,
              replaces="tracerboy_tpu/trace/binned.py:363",
              launches=bn_launches["select"],
@@ -733,7 +1174,8 @@ def main() -> int:
              dropped_violations=sum(
                  opt_stats[k]["dropped_violations"]
                  for k in ("select_compare", "select_primary")),
-             ms=opt_times["select_ms"], plain_ms=opt_times["select_plain_ms"]),
+             ms=opt_times["select_ms"], plain_ms=opt_times["select_plain_ms"],
+             **bound_keys(opt_times["select_bytes"], select_ops)),
         dict(name="dense_pairs", route="cuda", source=bsrc,
              replaces="tracerboy_tpu/trace/binned.py:554",
              launches=bn_launches["dense"],
@@ -744,7 +1186,8 @@ def main() -> int:
              id_mismatch_outside_ties=sum(
                  opt_stats[k]["id_mismatch_outside_ties"]
                  for k in ("dense_compare", "dense_primary")),
-             ms=opt_times["dense_ms"], plain_ms=opt_times["dense_plain_ms"]),
+             ms=opt_times["dense_ms"], plain_ms=opt_times["dense_plain_ms"],
+             **bound_keys(opt_times["dense_bytes"], dense_ops)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

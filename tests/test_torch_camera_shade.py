@@ -125,6 +125,11 @@ def _ray_diagnosis(jo, to, port):
         lines.append(f"origin {k}: port again max|d| {np.abs(t2 - t).max()}, "
                      f"max|port - f64| {np.abs(t - e).max()}, "
                      f"max|jax - f64| {np.abs(j - e).max()}")
+        # torch splits a vectorised math call over its threads in chunks
+        # of 2048 lanes: does the error sit in one chunk?
+        off = np.abs(t - e) > 1e-6
+        lines.append(f"origin {k}: lanes off by > 1e-6 per 2048-lane chunk "
+                     f"{[int(c.sum()) for c in np.split(off, len(off) // 2048)]}")
     return "\n".join(lines + [torch.__config__.parallel_info()])
 
 

@@ -90,6 +90,7 @@ def test_twin_backend_equals_kernel_backend_on_cpu():
 @pytest.mark.parametrize("what", ["realtime", "adaptive", "output_type"])
 def test_unported_settings_raise(what):
     from tracerboy_tpu_torch.utils.config import (
+        CameraSettings,
         OutputType,
         PerformanceSettings,
     )
@@ -100,7 +101,9 @@ def test_unported_settings_raise(what):
         s = OutputSettings(performance_settings=PerformanceSettings(
             enable_adaptive_sampling=True))
     else:
-        s = OutputSettings(output_type=OutputType.ALBEDO)
+        # The debug views are ported; a view over the splat fold is not.
+        s = OutputSettings(output_type=OutputType.ALBEDO,
+                           camera_settings=CameraSettings(filter_splat=True))
     with pytest.raises(NotImplementedError, match="not ported"):
         r = Renderer("shadertoy:cornell", settings=s, film_size=(8, 8),
                      device="cpu")

@@ -33,6 +33,20 @@
 // FMA and every value rounds as in the plain PyTorch twin
 // (closest_hit_plain / anyhit_plain), which evaluates the same expressions
 // in the same order.
+//
+// Traversal cost (the TPU kernel's stats=True variant, which feeds the
+// heatmap AOV): traverse_kernel<false, true>, launched by
+// tb_closest_hit_stats, also writes two int32 counts per ray. The TPU
+// counters are per 2048-ray packet and count batched leaf drains; here
+// they are per ray, as the reference's TraverseFunction.hlsli:46-47 keeps
+// them:
+//   pops     = nodes the ray pops and expands (a node root counts; a
+//              popped node that the pop-time cull skips does not);
+//   clusters = leaf clusters whose 8 triangles the ray tests (a leaf root
+//              counts).
+// A dead lane (t_max <= 0) gives 0 and 0. The counters live in registers
+// and change nothing of the walk, so (t, tri, u, v) equal the stats-free
+// kernel's bit for bit; the stats-free instantiation compiles as before.
 
 #include "bvh_common.cuh"
 
@@ -64,7 +78,7 @@ __device__ __forceinline__ void test_cluster(const float* __restrict__ tris,
   }
 }
 
-template <bool kAnyHit>
+template <bool kAnyHit, bool kStats = false>
 __global__ void __launch_bounds__(kThreads)
 traverse_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
                 const float* __restrict__ t_max,
@@ -74,7 +88,9 @@ traverse_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
                 float* __restrict__ t_out, int32_t* __restrict__ tri_out,
                 float* __restrict__ u_out, float* __restrict__ v_out,
                 bool* __restrict__ occ_out,
-                unsigned int* __restrict__ overflow) {
+                unsigned int* __restrict__ overflow,
+                int32_t* __restrict__ pops_out,
+                int32_t* __restrict__ clusters_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   const Ray ray = load_ray(orig, dir, t_max, i);
@@ -83,6 +99,7 @@ traverse_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
   int32_t best_tri = -1;
   float best_u = 0.f, best_v = 0.f;
   bool occluded = false;
+  int32_t pops = 0, clusters = 0;
 
   int32_t stack[kStackDepth];
   float stack_t[kStackDepth];
@@ -97,11 +114,13 @@ traverse_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
     } else {
       test_cluster<kAnyHit>(tris, -root - 1, ray, best, best_tri, best_u,
                             best_v, occluded);
+      if (kStats) ++clusters;
     }
   }
   while (sp > 0 && !(kAnyHit && occluded)) {
     --sp;
     if (!kAnyHit && !(stack_t[sp] < best)) continue;
+    if (kStats) ++pops;
     const int32_t* __restrict__ row = nodes + static_cast<size_t>(stack[sp]) * kRow;
     int32_t push_id[8];
     float push_t[8];
@@ -129,6 +148,7 @@ traverse_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
       }
       test_cluster<kAnyHit>(tris, -cid - 1, ray, best, best_tri, best_u,
                             best_v, occluded);
+      if (kStats) ++clusters;
       if (kAnyHit && occluded) break;
     }
     if (kAnyHit && occluded) break;
@@ -151,6 +171,10 @@ traverse_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
     u_out[i] = best_u;
     v_out[i] = best_v;
   }
+  if (kStats) {
+    pops_out[i] = pops;
+    clusters_out[i] = clusters;
+  }
 }
 
 }  // namespace
@@ -166,7 +190,25 @@ extern "C" int tb_closest_hit(const float* orig, const float* dir,
     traverse_kernel<false>
         <<<blocks_for(n_rays), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
             orig, dir, t_max, nodes, tris, roots, n_rays, t_out, tri_out,
-            u_out, v_out, nullptr, overflow);
+            u_out, v_out, nullptr, overflow, nullptr, nullptr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Closest hit from node 0 with the per-ray traversal cost (pops_out,
+// clusters_out: int32 per ray).
+extern "C" int tb_closest_hit_stats(const float* orig, const float* dir,
+                                    const float* t_max, const int32_t* nodes,
+                                    const float* tris, int n_rays,
+                                    float* t_out, int32_t* tri_out,
+                                    float* u_out, float* v_out,
+                                    int32_t* pops_out, int32_t* clusters_out,
+                                    unsigned int* overflow, void* stream) {
+  if (n_rays > 0) {
+    traverse_kernel<false, true>
+        <<<blocks_for(n_rays), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+            orig, dir, t_max, nodes, tris, nullptr, n_rays, t_out, tri_out,
+            u_out, v_out, nullptr, overflow, pops_out, clusters_out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -180,7 +222,7 @@ extern "C" int tb_any_hit(const float* orig, const float* dir,
     traverse_kernel<true>
         <<<blocks_for(n_rays), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
             orig, dir, t_max, nodes, tris, roots, n_rays, nullptr, nullptr,
-            nullptr, nullptr, occ_out, overflow);
+            nullptr, nullptr, occ_out, overflow, nullptr, nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,10 +7,12 @@ wavefront integrator. Progressive semantics match the JAX package:
   filter weight); display divides rgb by alpha;
 - a secondary "jittered" accumulator receives each sample (or batch)
   with probability 1/2, for the convergence estimate;
-- world-position AOVs ping-pong between even and odd samples.
+- world-position AOVs ping-pong between even and odd samples;
+- the last wave's first-hit AOVs feed the debug views of
+  current_image(), pixel inspection and the aux-guided denoiser.
 
-Unbiased mode only; sharding, realtime, denoise and adaptive sampling
-are not ported yet.
+Unbiased mode only; sharding, realtime and adaptive sampling are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import numpy as np
 import torch
 
 from tracerboy_tpu_torch.core import rng as tbrng
-from tracerboy_tpu_torch.post.pipeline import post_process
+from tracerboy_tpu_torch.core.tonemap import _luma
+from tracerboy_tpu_torch.post.pipeline import post_process, resolve_accumulator
 from tracerboy_tpu_torch.scene.compile import CompiledScene, load_scene
 from tracerboy_tpu_torch.trace.wavefront import (
     PACKED_BACKENDS,
@@ -35,6 +38,7 @@ from tracerboy_tpu_torch.trace.wavefront import (
 )
 from tracerboy_tpu_torch.utils.config import (
     OutputSettings,
+    OutputType,
     RenderMode,
     default_output_settings,
 )
@@ -85,6 +89,7 @@ class Renderer:
                                       dtype=torch.int64, device=self.device)
         self._bn_cache = None
         self.rays_traced = 0     # closest-hit + shadow rays, all calls
+        self._last_aovs = None   # the last accumulated wave's output
         self.state = self.make_state()
         self._start_time = time.time()
 
@@ -144,6 +149,7 @@ class Renderer:
             has_normal_maps=bool(perf.enable_normal_maps
                                  and (mats["normal_tex"] >= 0).any()),
             transparent_shadows=perf.transparent_shadows,
+            want_heatmap=(s.output_type == OutputType.HEATMAP),
             traversal=self.traversal,
             cut=self._use_cut(),
             cut_k=int(os.environ.get("TB_CUT_K", "8")),
@@ -191,7 +197,8 @@ class Renderer:
         cfg = self.wave_config()
         params = self.frame_params()
         ids = self.pixel_ids
-        if n > 1 and cfg.traversal != "brute":
+        if (n > 1 and cfg.traversal != "brute"
+                and params.get("selected_pixel") is None):
             k_max = max(1, min(MERGED_WAVE_MAX_K,
                                MERGED_WAVE_LANES // max(ids.shape[0], 1)))
             done = 0
@@ -234,12 +241,113 @@ class Renderer:
              out["neighbor_dist"].reshape(h, w, 1)], dim=-1)
         st.spp += samples
         self.rays_traced += int(out["rays_traced"])
+        self._last_aovs = out
 
     # -- readout ---------------------------------------------------------
+    def resolve_radiance(self) -> torch.Tensor:
+        """Mean radiance image (H, W, 3) from the weighted accumulator."""
+        return resolve_accumulator(self.state.accum)
+
     def current_image(self) -> np.ndarray:
-        """The display image (H, W, 3) float32 in [0, 1], on the host."""
-        return post_process(self.state.accum,
-                            self.settings).cpu().numpy()
+        """The display image (H, W, 3) float32 in [0, 1], on the host: the
+        lit image, or the debug view settings.output_type selects."""
+        aovs = self._last_aovs
+        if aovs is not None:
+            aovs = dict(aovs, variance=self._estimate_gap()[..., 0])
+        return post_process(self.state.accum, self.settings, aovs=aovs,
+                            width=self.width,
+                            height=self.height).cpu().numpy()
+
+    def _estimate_gap(self):
+        """(H, W, 1) |main - jittered| luminance of the two accumulator
+        estimates (the VarianceUtil metric): the variance view and the
+        convergence error."""
+        la = _luma(self.resolve_radiance())
+        lj = _luma(resolve_accumulator(self.state.accum_jittered))
+        return torch.abs(la - lj)
+
+    def convergence_error(self) -> float:
+        """Mean |main - jittered| luminance difference of the two
+        accumulator estimates (the adaptive-sampling convergence
+        metric)."""
+        return float(torch.mean(self._estimate_gap()))
+
+    def select_pixel(self, x: int, y: int) -> dict:
+        """The last wave's first-hit AOVs at pixel (x, y) (the reference's
+        SelectPixel round trip); {} before the first sample."""
+        aovs = self._last_aovs
+        if aovs is None:
+            return {}
+        idx = y * self.width + x
+        return dict(
+            material_id=int(aovs["material"][idx]),
+            depth=float(aovs["depth"][idx]),
+            albedo=aovs["albedo"][idx].cpu().numpy(),
+            normal=aovs["normal"][idx].cpu().numpy(),
+            world_pos=aovs["world_pos"][idx].cpu().numpy(),
+        )
+
+    def get_material(self, material_id: int) -> dict:
+        """Every field of one material record, as numpy."""
+        return {k: np.asarray(v[material_id])
+                for k, v in self.compiled.materials.items()}
+
+    def visualize_selected_ray_path(self, x: int, y: int,
+                                    spp: int = 1) -> np.ndarray:
+        """Trace one wave that records pixel (x, y)'s bounce path,
+        accumulate it, and return the display image with the path drawn
+        on it (the reference's VisualizeRays view). spp is not read: one
+        wave is traced, as in the JAX package."""
+        from tracerboy_tpu_torch.post.visualize import overlay_ray_path
+
+        params = self.frame_params()
+        params["selected_pixel"] = y * self.width + x
+        out = render_wave(self.scene, params, self.pixel_ids, self.state.spp,
+                          self.wave_config())
+        self._accumulate(out)
+        cam = {k: v.cpu().numpy() for k, v in self.scene["camera"].items()}
+        return overlay_ray_path(self.current_image(),
+                                out["viz_rays"].cpu().numpy(), cam,
+                                self.width, self.height)
+
+    def denoise(self, model: str = "rt_ldr", transfer: str = "reinhard",
+                archive: str | None = None) -> np.ndarray:
+        """OIDN-denoised linear radiance (H, W, 3), on the host.
+
+        model: "rt_ldr" or "rt_ldr_alb_nrm" (aux-guided: the last wave's
+        albedo and normal AOVs, or one AOV sample rendered on demand when
+        none is kept). transfer: "reinhard" runs the network on the
+        invertible x / (1 + x) curve and maps back; "clip" denoises
+        clip(x, 0, 1), as the reference does its tonemapped output.
+        archive: the path of the model's OIDN weights (the reference's
+        {model}.tza), a deployment setting; the repository ships none."""
+        from tracerboy_tpu_torch.ml.finetune import reinhard_fwd, reinhard_inv
+        from tracerboy_tpu_torch.ml.oidn import denoise_image, load_oidn
+
+        if archive is None:
+            raise ValueError(f"Renderer.denoise needs archive=, the path of "
+                             f"{model}.tza")
+        lin = torch.clamp_min(self.resolve_radiance(), 0.0)
+        if transfer == "reinhard":
+            enc = reinhard_fwd(lin)
+        else:
+            enc = torch.clamp(lin, 0.0, 1.0) ** (1 / 2.2)
+        kw = {}
+        if model == "rt_ldr_alb_nrm":
+            aovs = self._last_aovs
+            if aovs is None or "albedo" not in aovs:
+                aovs = render_wave(self.scene, self.frame_params(),
+                                   self.pixel_ids, self.state.spp,
+                                   self.wave_config())
+            h, w = self.height, self.width
+            kw = dict(albedo=torch.clamp(aovs["albedo"].reshape(h, w, 3),
+                                         0.0, 1.0),
+                      normal=aovs["normal"].reshape(h, w, 3))
+        net = load_oidn(archive).to(self.device)
+        den = denoise_image(net, enc, **kw)
+        if transfer == "reinhard":
+            return reinhard_inv(den).cpu().numpy()
+        return (torch.clamp(den, 0.0, 1.0) ** 2.2).cpu().numpy()
 
     def render(self, spp: int | None = None) -> np.ndarray:
         """Trace to the sample target (or the time limit) and return the

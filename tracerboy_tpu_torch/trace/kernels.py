@@ -11,7 +11,11 @@
   registers; reset_counters() zeroes them and the overflow counters;
 - bin_pairs and nearest_of are the pair glue of the cut (trace/cut.py)
   and binned (trace/binned.py) backends: expand a per-ray id table into
-  (ray, id) pairs sorted by id, and take each ray's nearest pair hit.
+  (ray, id) pairs sorted by id, and take each ray's nearest pair hit;
+- ptxas_usage compiles every kernel source with the same flags plus
+  -Xptxas -v and returns ptxas's registers, stack and spills per kernel:
+
+      python -m tracerboy_tpu_torch.trace.kernels
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import ctypes
 import torch
 
 from tracerboy_tpu_torch.utils.build import (
+    BUILD_DIR,
     REPO_ROOT,
     build_shared_library,
     nvcc_path,
@@ -59,6 +64,11 @@ def stack_overflows() -> int:
     """Pushes dropped because a ray's stack was full, summed over the
     devices that ran a kernel since the last reset (should be 0)."""
     return sum(int(buf.item()) for buf in _overflow.values())
+
+
+def add_overflows(device, count: int):
+    """Count pushes a plain twin dropped, as a kernel counts its own."""
+    _overflow_buffer(device).add_(count)
 
 
 def load_library(name, source, signatures):
@@ -144,3 +154,28 @@ def nearest_of(pos, n, k, hits):
         buf[pos] = val
     slot = torch.argmin(bufs[0].reshape(n, k), dim=1, keepdim=True)
     return tuple(x.reshape(n, k).gather(1, slot)[:, 0] for x in bufs)
+
+
+def ptxas_usage() -> dict:
+    """{source name: ptxas's resource lines} of every csrc/*.cu, built
+    with NVCC_FLAGS and -Xptxas -v into BUILD_DIR/ptxas."""
+    import subprocess
+
+    out_dir = BUILD_DIR / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    report = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        res = subprocess.run(
+            [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(out_dir / f"{src.stem}.so"), str(src)],
+            capture_output=True, text=True, check=True)
+        report[src.name] = [
+            line.strip() for line in (res.stdout + res.stderr).splitlines()
+            if "ptxas info" in line or "stack frame" in line]
+    return report
+
+
+if __name__ == "__main__":
+    for name, lines in ptxas_usage().items():
+        print(name)
+        print("\n".join(lines))

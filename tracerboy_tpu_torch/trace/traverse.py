@@ -34,9 +34,22 @@ TPU kernels' packet_roots option; phase 2 of trace/cut.py). The twins
 restrict each ray to the clusters under its root, from a host-side map of
 each node to the clusters of its subtree.
 
+Traversal cost (closest_hit_stats, the TPU kernel's stats=True variant,
+for the heatmap AOV): the closest hit from node 0 plus two int32 counts
+per ray, pops (nodes popped and expanded; a node the pop-time cull skips
+does not count) and clusters (leaf clusters whose triangles were tested);
+0 and 0 on a dead lane. They count the kernel's own walk, so its twin,
+closest_hit_stats_plain, repeats that walk step for step: a per-ray stack
+(STACK_DEPTH entries), the same slab test, children pushed sorted by
+descending entry t (a later child goes below an equal one), the cull
+!(entry t < best) at pop, leaf clusters tested as they are met. The
+exhaustive twin closest_hit_plain stays the twin of the stats-free
+kernel. walk_footprint runs the same walk (or the any-hit kernel's) to
+mark the node and cluster rows it reads, for a kernel's bound.
+
 The wrappers take the twin only for CPU tensors; on a CUDA tensor they
-launch the kernel or raise. They count under "closest" and "anyhit" in
-trace/kernels.py's LAUNCHES and TWIN_CALLS.
+launch the kernel or raise. They count under "closest", "closest_stats"
+and "anyhit" in trace/kernels.py's LAUNCHES and TWIN_CALLS.
 """
 
 from __future__ import annotations
@@ -51,8 +64,9 @@ from tracerboy_tpu_torch.trace import kernels
 
 LEAF = 8
 BIG = 1e30
+STACK_DEPTH = 96    # kStackDepth of csrc/bvh_common.cuh
 _SOURCE = kernels.CSRC / "bvh_traverse.cu"
-kernels.register("closest", "anyhit")
+kernels.register("closest", "closest_stats", "anyhit")
 _lib = None
 
 
@@ -63,6 +77,8 @@ def build_kernels():
         p, i = ctypes.c_void_p, ctypes.c_int
         _lib = kernels.load_library("tbtraverse", _SOURCE, {
             "tb_closest_hit": [p, p, p, p, p, p, i, p, p, p, p, p, p],
+            "tb_closest_hit_stats": [p, p, p, p, p, i, p, p, p, p, p, p, p,
+                                     p],
             "tb_any_hit": [p, p, p, p, p, p, i, p, p, p],
         })
     return _lib
@@ -94,6 +110,24 @@ def closest_hit(o, d, t_max, nodes, tris_bw, roots=None):
                    nodes, tris_bw, roots, n, t, tri, u, v)
     kernels.LAUNCHES["closest"] += 1
     return t, tri, u, v
+
+
+def closest_hit_stats(o, d, t_max, nodes, tris_bw):
+    """closest_hit from node 0 with the per-ray traversal cost. Returns
+    (t, packed tri id, u, v, pops, clusters), the counts int32 (N,)."""
+    _check(o, d, t_max, nodes, tris_bw, None)
+    if o.device.type == "cpu":
+        kernels.TWIN_CALLS["closest_stats"] += 1
+        return closest_hit_stats_plain(o, d, t_max, nodes, tris_bw)
+    n = o.shape[0]
+    f32 = dict(dtype=torch.float32, device=o.device)
+    i32 = dict(dtype=torch.int32, device=o.device)
+    t, u, v = (torch.empty(n, **f32) for _ in range(3))
+    tri, pops, clusters = (torch.empty(n, **i32) for _ in range(3))
+    kernels.launch(build_kernels(), "tb_closest_hit_stats", o.device, o, d,
+                   t_max, nodes, tris_bw, n, t, tri, u, v, pops, clusters)
+    kernels.LAUNCHES["closest_stats"] += 1
+    return t, tri, u, v, pops, clusters
 
 
 def any_hit(o, d, t_max, nodes, tris_bw, roots=None):
@@ -333,3 +367,132 @@ def anyhit_plain(o, d, t_max, nodes, tris_bw, roots=None):
                                                 tris_bw, roots):
         occ[ids[ri[ok.any(dim=1)]]] = True
     return occ
+
+
+# ----------------------------------------------------------------------------
+# Plain twin of the stats kernel: the kernel's own stack walk, one step per
+# pop, in lock step over the rays that still have a stack.
+
+def _test_leaf(o, d, tris_bw, rays, cl, best, best_tri, best_u, best_v):
+    """The 8 triangles of cluster cl[j] against ray rays[j], in order, as
+    test_cluster does: the first triangle at the least t below best wins."""
+    t, u, v, ok = _bw_tests(o[rays], d[rays], tris_bw[cl])
+    t = torch.where(ok & (t < best[rays][:, None]), t, float("inf"))
+    k = torch.argmin(t, dim=1, keepdim=True)
+    tk = t.gather(1, k)[:, 0]
+    upd = tk < float("inf")
+    r = rays[upd]
+    best[r] = tk[upd]
+    best_tri[r] = (cl[upd] * LEAF + k[upd, 0]).to(torch.int32)
+    best_u[r] = u.gather(1, k)[upd, 0]
+    best_v[r] = v.gather(1, k)[upd, 0]
+
+
+def closest_hit_stats_plain(o, d, t_max, nodes, tris_bw):
+    """Plain PyTorch twin of closest_hit_stats (same outputs, same
+    counts). A push past STACK_DEPTH entries is dropped and counted in
+    kernels.stack_overflows(), as the kernel does."""
+    return _stack_walk(o, d, t_max, nodes, tris_bw)
+
+
+def walk_footprint(o, d, t_max, nodes, tris_bw, any_hit=False):
+    """What the closest-hit kernel's walk of these rays reads, or with
+    any_hit the any-hit kernel's (which culls by t_max only and stops a
+    ray at its first hit): (node_rows (W,) bool, cluster_rows (C,) bool,
+    pops (N,) int32, clusters (N,) int32). A node row is read when a ray
+    pops and expands it, a cluster row when a ray tests its triangles.
+    The stats twin's walk; a kernel's bound counts each such row once."""
+    seen = (torch.zeros(nodes.shape[0], dtype=torch.bool, device=o.device),
+            torch.zeros(tris_bw.shape[0], dtype=torch.bool, device=o.device))
+    out = _stack_walk(o, d, t_max, nodes, tris_bw, any_hit, seen)
+    return (*seen, out[4], out[5])
+
+
+def _stack_walk(o, d, t_max, nodes, tris_bw, any_hit=False, seen=None):
+    """The kernels' stack walk in lock step (closest_hit_stats_plain);
+    any_hit and seen as in walk_footprint."""
+    n = o.shape[0]
+    dev = o.device
+    best = t_max.clone()
+    best_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros(n, dtype=torch.float32, device=dev)
+    best_v = torch.zeros(n, dtype=torch.float32, device=dev)
+    pops = torch.zeros(n, dtype=torch.int32, device=dev)
+    clusters = torch.zeros(n, dtype=torch.int32, device=dev)
+    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int32, device=dev)
+    stack_t = torch.full((n, STACK_DEPTH), -BIG, dtype=torch.float32,
+                         device=dev)
+    sp = (t_max > 0).to(torch.int64)       # node 0 on every live stack
+    inv = 1.0 / fix_dir(d)
+    box = nodes[:, :48].contiguous().view(torch.float32)
+    child = nodes[:, 48:56]
+    slot = torch.arange(LEAF, device=dev)[None, :]
+    overflow = 0
+    while True:
+        act = (sp > 0).nonzero(as_tuple=True)[0]
+        if act.numel() == 0:
+            break
+        sp[act] -= 1
+        top = sp[act]
+        keep = stack_t[act, top] < best[act]     # the pop-time cull
+        r, node = act[keep], stack[act, top][keep].to(torch.int64)
+        if r.numel() == 0:
+            continue
+        pops[r] += 1
+        if seen is not None:
+            seen[0][node] = True
+        b, cid = box[node], child[node]
+        o_r, inv_r = o[r], inv[r]
+        push_t = torch.zeros((r.shape[0], LEAF), dtype=torch.float32,
+                             device=dev)
+        push_id = torch.zeros((r.shape[0], LEAF), dtype=torch.int32,
+                              device=dev)
+        n_push = torch.zeros(r.shape[0], dtype=torch.int64, device=dev)
+        for c in range(LEAF):
+            t_near, t_far = box_entry(o_r, inv_r, b[:, c:24:8],
+                                      b[:, 24 + c::8])
+            enter = ((cid[:, c] != INVALID)
+                     & (t_far >= torch.clamp_min(t_near, 0.0))
+                     & (t_near < best[r]))
+            if any_hit:     # an occluded ray tests no further child
+                enter &= best_tri[r] < 0
+            inner = enter & (cid[:, c] >= 0)
+            # Sorted insertion by descending t_near: the new child goes
+            # below every entry with t >= its own (the kernel shifts
+            # while push_t[k - 1] < t_near).
+            filled = slot < n_push[:, None]
+            pos = ((push_t >= t_near[:, None]) & filled).sum(1, keepdim=True)
+            shift = inner[:, None] & (slot > pos) & (slot <= n_push[:, None])
+            put = inner[:, None] & (slot == pos)
+            prev_t = torch.cat([push_t[:, :1], push_t[:, :-1]], 1)
+            prev_id = torch.cat([push_id[:, :1], push_id[:, :-1]], 1)
+            push_t = torch.where(put, t_near[:, None],
+                                 torch.where(shift, prev_t, push_t))
+            push_id = torch.where(put, cid[:, c:c + 1],
+                                  torch.where(shift, prev_id, push_id))
+            n_push += inner
+            leaf = (enter & (cid[:, c] < 0)).nonzero(as_tuple=True)[0]
+            if leaf.numel():
+                rays = r[leaf]
+                cl = -cid[leaf, c].to(torch.int64) - 1
+                _test_leaf(o, d, tris_bw, rays, cl, best, best_tri, best_u,
+                           best_v)
+                clusters[rays] += 1
+                if seen is not None:
+                    seen[1][cl] = True
+        if any_hit:         # an occluded ray pushes nothing and stops
+            done = best_tri[r] >= 0
+            n_push = torch.where(done, 0, n_push)
+            sp[r[done]] = 0
+        for k in range(LEAF):
+            want = k < n_push
+            room = want & (sp[r] < STACK_DEPTH)
+            overflow += int((want & ~room).sum())
+            rr = r[room]
+            stack[rr, sp[rr]] = push_id[room, k]
+            stack_t[rr, sp[rr]] = push_t[room, k]
+            sp[rr] += 1
+    if overflow:
+        kernels.add_overflows(dev, overflow)
+    t = torch.where(best_tri < 0, BIG, best)
+    return t, best_tri, best_u, best_v, pops, clusters

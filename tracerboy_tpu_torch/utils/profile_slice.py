@@ -14,7 +14,8 @@ busy time (union of kernel intervals), the idle share of the span, the
 busy time by kernel class (the cut path's emit kernel and the binned
 path's selection and dense kernels each a class of their own), and each
 traversal kernel launch in order (closest hit and any hit alternate, one
-pair per bounce on the default path). Then
+pair per bounce on the default path; the HEATMAP view's primary wave is
+closest_hit_stats). Then
 "shadertoy:cornell" at 512x512 on the brute-force path.
 
 Prints the card's name and power limit, then one JSON object; writes the
@@ -75,6 +76,13 @@ def _classify(name):
     return "other"
 
 
+def _traversal_kind(name):
+    """traverse_kernel<kAnyHit, kStats> instantiation -> wrapper name."""
+    if "<true" in name:
+        return "any_hit"
+    return "closest_hit_stats" if ", true>" in name else "closest_hit"
+
+
 def _device_summary(prof):
     """Span, busy time, idle share and per-class time (ms) of the device
     events of one profile."""
@@ -104,9 +112,8 @@ def _device_summary(prof):
         n_device_events=len(evs), span_ms=span / 1e3, busy_ms=busy / 1e3,
         idle_share=1.0 - busy / span if span > 0 else 0.0,
         by_class_ms=by_class,
-        traversal_launches_ms=[
-            ("any_hit" if "true" in name else "closest_hit", d / 1e3)
-            for _, name, d in trav],
+        traversal_launches_ms=[(_traversal_kind(name), d / 1e3)
+                               for _, name, d in trav],
     )
 
 
