@@ -43,7 +43,26 @@ Phases, each fatal on failure:
  10. path parity: one renderer's 2-sample merged wave at 128x72 on the
      kernel path against the twin path, and the cut and the binned path
      against the default kernel path, with the CPU tests' tolerance;
- 11. a JSON line of the six kernels (launches from the run of the path
+ 11. the first-generation ("v1") closest-hit kernel against its plain
+     version on the 65,536 rays and the 921,600-ray primary wave (within
+     TOLERANCE, ids outside ties, no stack overflow, the tree's stack need
+     inside the kernel's stack), timed beside the closest-hit kernel of
+     the waves on the same rays; the rays on which the two kernels differ
+     (another triangle test: never a failure) are counted;
+ 12. the traversal study (tracerboy_tpu_torch.utils.bench_traverse) at
+     921,600 rays on "shadertoy": primary, bounce and shadow rays, in the
+     given order and sorted oct-org, through v1, the closest-hit and the
+     any-hit kernel; it must launch the v1 kernel and overflow no stack;
+ 13. RealTime mode at 1280x720: 16 frames of render_realtime_frame_fused
+     with a move_camera after the tenth, then 4 of render_realtime_frame
+     with a move after the second; every image finite in [0, 1]; the
+     share of pixels with a valid history, the live pixel share under the
+     adaptive mask, ms per frame and its split into trace and post by
+     CUDA events; both traversal kernels must launch; then
+     trace_decoupled(8) and the demodulation identity at full width (a
+     wave without russian roulette: albedo * D + (I - D) + E against the
+     plain wave's radiance, within IDENTITY);
+ 14. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it), then the
      result line {"ok": true, "device": {...}} last.
@@ -107,6 +126,20 @@ UNET_WEIGHTS = (Path(__file__).resolve().parent / "tracerboy_tpu" / "ml"
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 RAY_OPS, SLAB_OPS, TRI_OPS = 12, 25, 49
+# One Moller-Trumbore test of csrc/bvh_traverse_v1.cu (mt_test and the
+# t < best of its caller): two edges 6, d x e2 9, det 5, |det| > eps and
+# the reciprocal 3, o - v0 3, u 6, tv x e1 9, v 6, t 6, the five
+# acceptance comparisons with u + v 6.
+MT_OPS = 59
+# The demodulation identity on a wave without russian roulette: the two
+# traces take the same paths, so the composite differs from the plain
+# radiance by float32 rounding of the split sums only.
+IDENTITY = dict(pixel_atol=1e-3, pixel_frac=0.999)
+STUDY_ARGS = ["--scene", "shadertoy", "--rays", str(1280 * 720), "--sets",
+              "primary,bounce,shadow", "--sort", "none,oct-org",
+              "--variants", "v1,v2,v2any", "--runs", "10", "--stats"]
+RT_FUSED_FRAMES, RT_MOVE_AFTER, RT_PLAIN_FRAMES = 16, 10, 4
+RT_MOVE = dict(forward=0.15, strafe=0.05, yaw=0.02, pitch=-0.01)
 CLUSTER_TRIS = 128     # triangles a dense pair tests (trace/binned.py)
 
 
@@ -210,16 +243,16 @@ def bound_keys(n_bytes, ops) -> dict:
                 library_ms=None)
 
 
-def walk_ops(live, pops, clusters, nodes) -> float:
+def walk_ops(live, pops, clusters, nodes, tri_ops=TRI_OPS) -> float:
     """Float32 operations of a stack walk over a node table: each live
     ray's set-up, the slab tests of each popped node's children (the
     table's mean count of valid child slots), the 8 triangle tests of
-    each leaf cluster."""
+    each leaf cluster at tri_ops each."""
     from tracerboy_tpu_torch.accel.bvh import INVALID
 
     children = float((nodes[:, 48:56] != INVALID).sum()) / nodes.shape[0]
     return (live * RAY_OPS + pops * children * SLAB_OPS
-            + clusters * 8 * TRI_OPS)
+            + clusters * 8 * tri_ops)
 
 
 def check_image(name, img):
@@ -299,18 +332,20 @@ def outside_tie_records(o, d, nodes, tris_bw, k, p, rays):
     return [{key: cols[key][i] for key in cols} for i in range(len(rays))]
 
 
-def check_closest(o, d, tables, k, p):
+def check_closest(o, d, tables, k, p, hit_attributes=None):
     """Kernel outputs k against twin outputs p, each (t, tri, u, v), on
-    tables (nodes, tris_bw). Where both hit the same id, t, u and v are
-    compared; where the ids differ, the kernel's triangle is re-tested
-    (traverse.hit_attributes): it is a tie if it is hit at the twin's t,
-    and then its u, v are compared with the re-test's. Up to 4 id
-    mismatches outside ties are listed with their box entry t."""
+    tables (nodes, triangle rows). Where both hit the same id, t, u and v
+    are compared; where the ids differ, the kernel's triangle is re-tested
+    (hit_attributes, by default traverse.hit_attributes on Baldwin-Weber
+    rows): it is a tie if it is hit at the twin's t, and then its u, v are
+    compared with the re-test's. Up to 4 id mismatches outside ties are
+    listed with their box entry t."""
     import torch
 
     from tracerboy_tpu_torch.trace import traverse
 
     nodes, tris_bw = tables
+    hit_attributes = hit_attributes or traverse.hit_attributes
     t_k, tri_k, u_k, v_k = (x.cpu().numpy() for x in k)
     t_p, tri_p, u_p, v_p = (x.cpu().numpy() for x in p)
     hit_k, hit_p = tri_k >= 0, tri_p >= 0
@@ -318,7 +353,7 @@ def check_closest(o, d, tables, k, p):
     same = both & (tri_k == tri_p)
     diff = np.flatnonzero(both & (tri_k != tri_p))
     sel = torch.from_numpy(diff).to(o.device)
-    t_r, u_r, v_r = (x.cpu().numpy() for x in traverse.hit_attributes(
+    t_r, u_r, v_r = (x.cpu().numpy() for x in hit_attributes(
         o[sel], d[sel], k[1][sel], tris_bw))
     tie = (t_r == t_k[diff]) & (t_k[diff] == t_p[diff])
     rel = np.abs(t_k[both] - t_p[both]) / np.maximum(np.abs(t_p[both]),
@@ -389,12 +424,12 @@ def set_opt_in(**env):
 
 
 def build_kernels():
-    """Build the three kernel libraries at once, one nvcc each."""
-    from tracerboy_tpu_torch.trace import binned, cut, traverse
+    """Build the four kernel libraries at once, one nvcc each."""
+    from tracerboy_tpu_torch.trace import binned, cut, traverse, traverse_v1
 
-    with ThreadPoolExecutor(3) as ex:
-        for f in [ex.submit(m.build_kernels) for m in (traverse, cut,
-                                                       binned)]:
+    modules = (traverse, cut, binned, traverse_v1)
+    with ThreadPoolExecutor(len(modules)) as ex:
+        for f in [ex.submit(m.build_kernels) for m in modules]:
             f.result()
 
 
@@ -968,6 +1003,225 @@ def parity_phase(torch, Renderer):
                  f"{stats}")
 
 
+def v1_phase(cs, scene, compare, primary):
+    """The first-generation closest-hit kernel against its plain version
+    on the compare rays and the primary wave, over the raw 9-float rows
+    packed from the scene's triangles (the node table must be the
+    scene's); timed beside the closest-hit kernel of the waves on the same
+    rays. Returns (statistics by label, times, bound keys)."""
+    import torch
+
+    from tracerboy_tpu_torch.accel.pack import pack_scene
+    from tracerboy_tpu_torch.trace import kernels, traverse, traverse_v1
+    from tracerboy_tpu_torch.utils.bench_traverse import differ_outside_ties
+
+    pk, _ = pack_scene(cs.tri_v0, cs.tri_v1, cs.tri_v2, raw_rows=True)
+    nodes = scene["pk_nodes"]
+    if not torch.equal(torch.from_numpy(pk["nodes"]).to(nodes.device), nodes):
+        fail("v1: the repacked node table is not the scene's")
+    tris = torch.from_numpy(pk["tris"]).to(nodes.device)
+    need = traverse_v1.stack_need(nodes)
+    if need > traverse_v1.STACK_DEPTH:
+        fail(f"v1: the tree can ask for {need} stack entries, the kernel "
+             f"has {traverse_v1.STACK_DEPTH}")
+    stats, times, ok_all = {}, dict(stack_need=need), True
+    for label, (o, d, tm) in (("compare", compare), ("primary", primary)):
+        kernels.reset_counters()
+        k = traverse_v1.closest_hit_v1(o, d, tm, nodes, tris)
+        overflows = kernels.stack_overflows()      # the kernel's alone
+        p, plain_ms = timed_once(lambda: traverse_v1.closest_hit_v1_plain(
+            o, d, tm, nodes, tris))
+        ok, st = check_closest(o, d, (nodes, tris), k, p,
+                               traverse_v1.hit_attributes_v1)
+        st["stack_overflows"] = overflows
+        # Another triangle test than the waves' kernel: counted, no failure.
+        st["differs_from_closest_hit"] = differ_outside_ties(
+            k, traverse.closest_hit(o, d, tm, nodes, scene["pk_tris_bw"]))
+        stats[label] = st
+        times[f"{label}_plain_ms"] = plain_ms
+        ok_all &= ok and overflows == 0
+        print(f"v1 closest kernel vs plain, {label}:", json.dumps(st))
+    o, d, tm = primary
+    node_rows, cluster_rows, pops, clusters = traverse_v1.walk_footprint_v1(
+        o, d, tm, nodes, tris)
+    live = int((tm > 0).sum())
+    times.update(
+        v1_ms=cuda_ms(lambda: traverse_v1.closest_hit_v1(o, d, tm, nodes,
+                                                         tris), 20),
+        closest_ms=cuda_ms(lambda: traverse.closest_hit(
+            o, d, tm, nodes, scene["pk_tris_bw"]), 20),
+        node_rows=int(node_rows.sum()), cluster_rows=int(cluster_rows.sum()),
+        pops=int(pops.sum()), clusters=int(clusters.sum()),
+        max_pops=int(pops.max()), max_clusters=int(clusters.max()))
+    print("timing v1 kernel, 921,600-ray primary wave:", json.dumps(times))
+    if not ok_all:
+        fail(f"the v1 kernel disagrees with its plain version beyond "
+             f"{TOLERANCE}, or overflowed its stack")
+    n_bytes = (nbytes(o, d, tm) + row_bytes(nodes, node_rows)
+               + row_bytes(tris, cluster_rows) + 16 * o.shape[0])
+    ops = walk_ops(live, times["pops"], times["clusters"], nodes, MT_OPS)
+    return stats, times, bound_keys(n_bytes, ops)
+
+
+def study_phase():
+    """The traversal study entry point at 921,600 rays, in this process
+    so that its launches are counted: set to 0 just before, read just
+    after. The v1, closest-hit and any-hit kernels must all launch, and
+    no stack may overflow. Returns (results, launches)."""
+    from tracerboy_tpu_torch.trace import kernels
+    from tracerboy_tpu_torch.utils import bench_traverse
+
+    kernels.reset_counters()
+    results = bench_traverse.main(STUDY_ARGS)
+    launches = dict(kernels.LAUNCHES)
+    overflows = kernels.stack_overflows()
+    missing = [k for k in ("closest_v1", "closest", "anyhit")
+               if launches[k] <= 0]
+    if missing:
+        fail(f"the traversal study did not launch {missing}: {launches}")
+    if overflows:
+        fail(f"the traversal study: {overflows} traversal stack overflows")
+    for key, res in results.items():
+        if isinstance(res, dict) and "ms" in res and not (
+                np.isfinite(res["ms"]) and res["ms"] > 0
+                and res.get("hits", 1) > 0):
+            fail(f"the traversal study: {key} gave {res}")
+    print("traversal study launches:", json.dumps(launches))
+    return results, launches
+
+
+def realtime_phase(torch, Renderer):
+    """RealTime mode on "shadertoy" at 1280x720: the fused entry point
+    with a camera move part-way, then render_realtime_frame with another;
+    then the demodulated batch trace and the demodulation identity.
+    Returns (results, launches of the frames)."""
+    from dataclasses import replace
+
+    from tracerboy_tpu_torch import OutputSettings, RenderMode
+    from tracerboy_tpu_torch.post.realtime import composite_albedo
+    from tracerboy_tpu_torch.renderer import _demod_ratio
+    from tracerboy_tpu_torch.trace import kernels
+    from tracerboy_tpu_torch.trace.wavefront import render_wave
+
+    set_opt_in()
+    w, h = FULL_WAVE
+    r = Renderer("shadertoy", film_size=FULL_WAVE, device="cuda",
+                 settings=OutputSettings(render_mode=RenderMode.REAL_TIME))
+    if r.traversal != "kernel" or not r.wave_config().decouple_albedo:
+        fail(f"RealTime: traversal {r.traversal}, decouple_albedo "
+             f"{r.wave_config().decouple_albedo}")
+    r.time_realtime_stages = True
+    kernels.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+
+    def frame(fn, label, history):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = fn(as_numpy=False)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ev = r.rt_stage_events
+        check_image(label, img.cpu().numpy())
+        return dict(ms=ms, trace_ms=ev[0].elapsed_time(ev[1]),
+                    post_ms=ev[1].elapsed_time(ev[2]),
+                    # a history sample count above 1: the pixel blended a
+                    # valid history tap this frame
+                    valid_history=float(
+                        (history()["moments"][..., 2] > 1.5).float().mean()))
+
+    fused = []
+    for i in range(RT_FUSED_FRAMES):
+        if i == RT_MOVE_AFTER:
+            r.move_camera(**RT_MOVE)
+        rec = frame(r.render_realtime_frame_fused, f"RealTime fused {i}",
+                    lambda: r._rt_hist_fused)
+        rec["live_share"] = int(r._rt_live_pixels) / (w * h)
+        fused.append(rec)
+    plain = []
+    for i in range(RT_PLAIN_FRAMES):
+        if i == RT_PLAIN_FRAMES // 2:
+            r.move_camera(**RT_MOVE)
+        plain.append(frame(r.render_realtime_frame, f"RealTime frame {i}",
+                           lambda: r._rt_history))
+    launches = dict(kernels.LAUNCHES)
+    overflows = kernels.stack_overflows()
+    if launches["closest"] <= 0 or launches["anyhit"] <= 0:
+        fail(f"RealTime: the frames did not launch both kernels: {launches}")
+    if overflows:
+        fail(f"RealTime: {overflows} traversal stack overflows")
+
+    def quartiles(recs, key):
+        v = np.asarray([x[key] for x in recs])
+        return dict(median=float(np.median(v)),
+                    q1=float(np.percentile(v, 25)),
+                    q3=float(np.percentile(v, 75)), n=int(v.size))
+
+    steady = fused[2:RT_MOVE_AFTER] + fused[RT_MOVE_AFTER + 1:]
+    results = dict(
+        frames=dict(fused=RT_FUSED_FRAMES, plain=RT_PLAIN_FRAMES),
+        fused_ms=quartiles(steady, "ms"),
+        fused_trace_ms=quartiles(steady, "trace_ms"),
+        fused_post_ms=quartiles(steady, "post_ms"),
+        first_frame_ms=fused[0]["ms"],
+        plain_ms=quartiles(plain[1:], "ms"),
+        valid_history_before_move=fused[RT_MOVE_AFTER - 1]["valid_history"],
+        # The fused entry point restarts on a move (its frame 0 ignores
+        # the history), so the history is valid again one frame later.
+        valid_history_on_move=fused[RT_MOVE_AFTER]["valid_history"],
+        valid_history_after_move=fused[-1]["valid_history"],
+        # render_realtime_frame keeps its history across the move and
+        # reprojects it through the previous camera.
+        plain_valid_history_on_move=plain[RT_PLAIN_FRAMES // 2][
+            "valid_history"],
+        live_share_by_frame=[x["live_share"] for x in fused],
+        governor_pad=r._governor.pad,
+        launches=launches, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    for key in ("valid_history_before_move", "valid_history_after_move",
+                "plain_valid_history_on_move"):
+        if not results[key] > 0:
+            fail(f"RealTime: {key} is {results[key]}")
+
+    # The batch form: 8 demodulated samples in one merged wave.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = r.trace_decoupled(8)
+    torch.cuda.synchronize()
+    results["trace_decoupled_8_ms_per_sample"] = (
+        (time.perf_counter() - t0) / 8 * 1e3)
+    fw = torch.clamp_min(acc["fw"], 1e-8)[:, None]
+    illum, illum_d = acc["radiance"] / fw, acc["radiance_d"] / fw
+    comp = composite_albedo(
+        torch.clamp(acc["albedo"] / 8, 0.0, 1.0),
+        _demod_ratio(illum_d, illum), illum, acc["emissive"] / 8)
+    if not (bool(torch.isfinite(comp).all()) and float(comp.min()) >= 0
+            and float(comp.mean()) > 0
+            and bool((illum_d <= illum * (1 + 1e-5) + 1e-6).all())):
+        fail("trace_decoupled(8): planes not finite, or D above I")
+    results["decoupled_composite_mean"] = float(comp.mean())
+
+    # The identity, per sample, on a wave without russian roulette.
+    cfg = replace(r.wave_config(), use_russian_roulette=False,
+                  decouple_albedo=False)
+    params = r.frame_params()
+    ref = render_wave(r.scene, params, r.pixel_ids, 1, cfg)["radiance"]
+    dw = render_wave(r.scene, params, r.pixel_ids, 1,
+                     replace(cfg, decouple_albedo=True))
+    got = composite_albedo(
+        dw["albedo"], _demod_ratio(dw["radiance_d"], dw["radiance"]),
+        dw["radiance"], dw["emissive"] * dw["filter_weight"][:, None])
+    err = (got - ref).abs()
+    close = float((err <= IDENTITY["pixel_atol"] * (1 + ref.abs()))
+                  .all(-1).float().mean())
+    results["identity"] = dict(pixels_within=close,
+                               max_abs_err=float(err.max()),
+                               mean_radiance=float(ref.mean()))
+    print("RealTime shadertoy 1280x720:", json.dumps(results))
+    if close < IDENTITY["pixel_frac"]:
+        fail(f"demodulation identity outside {IDENTITY}: "
+             f"{results['identity']}")
+    return results, launches
+
+
 def main() -> int:
     print(card_line())
     import torch
@@ -989,7 +1243,8 @@ def main() -> int:
     rng = np.random.default_rng(20261016)
     # Compiled with the opt-in tables too; the default tables are the same.
     set_opt_in(TB_CUT="1", TB_BINNED="1")
-    scene = load_scene("shadertoy", film_size=FULL_WAVE).as_tensors("cuda")
+    cs = load_scene("shadertoy", film_size=FULL_WAVE)
+    scene = cs.as_tensors("cuda")
     set_opt_in()
     main_t = (scene["pk_nodes"], scene["pk_tris_bw"])
     shadow_t = (scene["pk_sh_nodes"], scene["pk_sh_tris_bw"])
@@ -1070,6 +1325,10 @@ def main() -> int:
                           walk_rows["shadow_clusters"], shadow_t[0])
     del full_k, full_p, sh_k, sh_p, sh_walk, pri_rows, ck, cp, ak, ap, hits
 
+    # --- the v1 kernel vs its plain version ---------------------------------
+    v1_stats, v1_times, v1_bound = v1_phase(cs, scene, (o, d, tm),
+                                            (po, pd, ptm))
+
     # --- the opt-in paths' kernels vs their twins ---------------------------
     opt_stats, opt_times = opt_in_kernel_phase(
         scene, (o, d, tm), (po, pd, ptm), (so, sd, stm))
@@ -1082,7 +1341,7 @@ def main() -> int:
                         scene["pk_cut_top"])
     dense_ops = opt_times["dense_pairs"] * (RAY_OPS
                                             + CLUSTER_TRIS * TRI_OPS)
-    del scene, o, d, tm, po, pd, ptm, so, sd, stm
+    del scene, cs, o, d, tm, po, pd, ptm, so, sd, stm
 
     # --- the slice: default, cut and binned paths ---------------------------
     _, launches = render_slice(torch, Renderer, "default", {},
@@ -1104,9 +1363,14 @@ def main() -> int:
     # --- path parity ------------------------------------------------------
     parity_phase(torch, Renderer)
 
+    # --- the traversal study and RealTime mode ------------------------------
+    _, study_launches = study_phase()
+    _, rt_launches = realtime_phase(torch, Renderer)
+
     def by_path(key):
         return {"default": launches[key], "cut": cut_launches[key],
-                "binned": bn_launches[key]}
+                "binned": bn_launches[key], "study": study_launches[key],
+                "realtime": rt_launches[key]}
 
     trav = "tracerboy_tpu_torch/csrc/bvh_traverse.cu"
     bsrc = "tracerboy_tpu_torch/csrc/binned.cu"
@@ -1188,6 +1452,19 @@ def main() -> int:
                  for k in ("dense_compare", "dense_primary")),
              ms=opt_times["dense_ms"], plain_ms=opt_times["dense_plain_ms"],
              **bound_keys(opt_times["dense_bytes"], dense_ops)),
+        dict(name="closest_hit_v1", route="cuda",
+             source="tracerboy_tpu_torch/csrc/bvh_traverse_v1.cu",
+             replaces="tracerboy_tpu/trace/pallas_traverse.py:299",
+             launches=study_launches["closest_v1"],
+             max_abs_err=max(s["max_abs_err"] for s in v1_stats.values()),
+             id_mismatch_outside_ties=sum(
+                 s["id_mismatch_outside_ties"] for s in v1_stats.values()),
+             stack_overflows=sum(s["stack_overflows"]
+                                 for s in v1_stats.values()),
+             differs_from_closest_hit=v1_stats["primary"][
+                 "differs_from_closest_hit"],
+             ms=v1_times["v1_ms"], plain_ms=v1_times["primary_plain_ms"],
+             closest_hit_ms=v1_times["closest_ms"], **v1_bound),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

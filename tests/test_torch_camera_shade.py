@@ -113,11 +113,19 @@ def _ray_diagnosis(jo, to, port):
     its values and which side lies nearer a float64 evaluation."""
     import ctypes
 
+    before = _thread_switches()
     again = port(torch.float32)[0]
+    after = _thread_switches()
     exact = port(torch.float64)[0]
     lines = [f"threads {torch.get_num_threads()}, cpu capability "
              f"{torch.backends.cpu.get_cpu_capability()}, fegetround "
-             f"{ctypes.CDLL('libm.so.6').fegetround():#x}"]
+             f"{ctypes.CDLL('libm.so.6').fegetround():#x}",
+             _mkl_state(),
+             # The threads that woke inside the repeated call: those whose
+             # context-switch counts moved while it ran.
+             f"OS threads {len(after)}, of them "
+             f"{sum(after[t] != before.get(t) for t in after)} switched "
+             f"context inside the repeated call"]
     for k in "xyz":
         j = np.asarray(getattr(jo, k), np.float64)
         t, t2, e = (np.asarray(getattr(v, k), np.float64)
@@ -131,6 +139,44 @@ def _ray_diagnosis(jo, to, port):
         lines.append(f"origin {k}: lanes off by > 1e-6 per 2048-lane chunk "
                      f"{[int(c.sum()) for c in np.split(off, len(off) // 2048)]}")
     return "\n".join(lines + [torch.__config__.parallel_info()])
+
+
+def _mkl_state() -> str:
+    """MKL's VML mode (accuracy in the low 4 bits: 1 LA, 2 HA, 3 EP),
+    mkl_get_dynamic() and its thread limit, read from the MKL that torch
+    links (mkl_serv_get_dynamic is the function behind mkl_get_dynamic)."""
+    import ctypes
+    import os
+
+    lib = ctypes.CDLL(os.path.join(os.path.dirname(torch.__file__), "lib",
+                                   "libtorch_cpu.so"))
+
+    def call(name):
+        fn = getattr(lib, name, None)
+        return "not exported" if fn is None else fn()
+
+    mode = call("vmlGetMode")
+    return (f"MKL VML mode {mode:#x}" if isinstance(mode, int)
+            else f"MKL VML mode {mode}") + (
+        f", mkl_get_dynamic {call('mkl_serv_get_dynamic')}, "
+        f"mkl_get_max_threads {call('mkl_serv_get_max_threads')}")
+
+
+def _thread_switches() -> dict:
+    """{thread id: (voluntary, involuntary) context switches} of this
+    process's threads."""
+    import os
+
+    out = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/status") as f:
+                fields = dict(line.split(":", 1) for line in f if ":" in line)
+        except OSError:
+            continue
+        out[tid] = (int(fields["voluntary_ctxt_switches"]),
+                    int(fields["nonvoluntary_ctxt_switches"]))
+    return out
 
 
 # The process-wide states that test_dof_rays_ignore_process_state sets

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from tracerboy_tpu import Renderer as JaxRenderer
-from tracerboy_tpu_torch import OutputSettings, RenderMode, Renderer
+from tracerboy_tpu_torch import OutputSettings, Renderer
 from tracerboy_tpu_torch.trace import kernels
 
 torch.set_num_threads(2)
@@ -87,7 +87,7 @@ def test_twin_backend_equals_kernel_backend_on_cpu():
                        out["filter_weight"])
 
 
-@pytest.mark.parametrize("what", ["realtime", "adaptive", "output_type"])
+@pytest.mark.parametrize("what", ["adaptive", "output_type"])
 def test_unported_settings_raise(what):
     from tracerboy_tpu_torch.utils.config import (
         CameraSettings,
@@ -95,9 +95,7 @@ def test_unported_settings_raise(what):
         PerformanceSettings,
     )
 
-    if what == "realtime":
-        s = OutputSettings(render_mode=RenderMode.REAL_TIME)
-    elif what == "adaptive":
+    if what == "adaptive":
         s = OutputSettings(performance_settings=PerformanceSettings(
             enable_adaptive_sampling=True))
     else:

@@ -1,9 +1,13 @@
-"""Brute-force closest-hit and any-hit over every triangle: the backend for
-small scenes (tracerboy_tpu/trace/intersect.py: brute_force_closest_soa,
-brute_force_anyhit_soa).
+"""Ray-primitive intersection (tracerboy_tpu/trace/intersect.py).
 
-Moller-Trumbore, two-sided, one triangle at a time over the whole wave,
-so hit ids are in scene (BVH) order and fetch from tri_attr_rows.
+- brute_force_closest_soa, brute_force_anyhit_soa: closest hit and any hit
+  over every triangle, the backend for small scenes. Moller-Trumbore,
+  two-sided, one triangle at a time over the whole wave, so hit ids are
+  in scene (BVH) order and fetch from tri_attr_rows.
+- ray_triangle, ray_triangle_watertight (with ray_shear) and ray_aabb: the
+  row-layout tests over (..., 3) tensors that broadcast rays against
+  triangles or boxes; the wide traversal (trace/traverse.py
+  traverse_wide) is built from ray_aabb and ray_triangle.
 """
 
 from __future__ import annotations
@@ -80,3 +84,102 @@ def brute_force_anyhit_soa(o, d, tris, t_max, tri_opaque=None):
         tt, _, _, ok = _mt(o, d, tr)
         occ = occ | (ok & (tt < t_max))
     return occ
+
+
+def _cross(a, b):
+    ax, ay, az = a[..., 0], a[..., 1], a[..., 2]
+    bx, by, bz = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([ay * bz - az * by, az * bx - ax * bz,
+                        ax * by - ay * bx], dim=-1)
+
+
+def _dot(a, b):
+    p = a * b
+    return p[..., 0] + p[..., 1] + p[..., 2]
+
+
+def ray_triangle(orig, direc, v0, v1, v2, t_max=None):
+    """Moller-Trumbore, two-sided. orig, direc: (..., 3); v0, v1, v2:
+    (..., 3), broadcast against the rays. Returns (t, u, v, hit), t = 1e30
+    where missed."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    pvec = _cross(direc, e2)
+    det = _dot(e1, pvec)
+    good = torch.abs(det) > TRI_EPS
+    inv_det = torch.where(good, 1.0 / det, 0.0)
+    tvec = orig - v0
+    u = _dot(tvec, pvec) * inv_det
+    qvec = _cross(tvec, e1)
+    v = _dot(direc, qvec) * inv_det
+    t = _dot(e2, qvec) * inv_det
+    hit = good & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 1e-5)
+    if t_max is not None:
+        hit = hit & (t < t_max)
+    return torch.where(hit, t, BIG), u, v, hit
+
+
+def ray_shear(direc):
+    """Shear constants of the watertight test for ray directions
+    (..., 3): the dominant axis kz, kx and ky cycled after it (swapped
+    where d[kz] < 0, to keep the winding), and the shear that maps the ray
+    to +z. Returns (kx, ky, kz, sx, sy, sz), k* int64, s* float."""
+    ax, ay, az = (torch.abs(direc[..., k]) for k in range(3))
+    kz = torch.where((az >= ax) & (az >= ay), 2,
+                     torch.where(ay >= ax, 1, 0))
+    kx = (kz + 1) % 3
+    ky = (kx + 1) % 3
+
+    def take(k):
+        return torch.gather(direc, -1, k[..., None])[..., 0]
+
+    dz = take(kz)
+    swap = dz < 0.0
+    kx, ky = torch.where(swap, ky, kx), torch.where(swap, kx, ky)
+    dx, dy = take(kx), take(ky)
+    safe = torch.where(dz == 0.0, 1e-30, dz)
+    return kx, ky, kz, dx / safe, dy / safe, 1.0 / safe
+
+
+def ray_triangle_watertight(orig, direc, v0, v1, v2, t_max=None):
+    """Watertight Woop/Benthin/Wald test, two-sided: the triangle is
+    sheared into ray space and the three 2D edge functions decide, so two
+    triangles that share an edge compute that edge's function exactly
+    negated and no ray slips between them. Same arguments and results as
+    ray_triangle; u weights v1 and v weights v2."""
+    kx, ky, kz, sx, sy, sz = ray_shear(direc)
+
+    def shear(p):
+        rel = torch.broadcast_tensors(p, orig)[0] - orig
+        shape = rel.shape[:-1]
+        px, py, pz = (torch.gather(rel, -1, k.expand(shape)[..., None])[..., 0]
+                      for k in (kx, ky, kz))
+        return px - sx * pz, py - sy * pz, pz
+
+    ax_, ay_, az_ = shear(v0)
+    bx_, by_, bz_ = shear(v1)
+    cx_, cy_, cz_ = shear(v2)
+    u = cx_ * by_ - cy_ * bx_
+    v = ax_ * cy_ - ay_ * cx_
+    w = bx_ * ay_ - by_ * ax_
+    det = u + v + w
+    same_sign = (((u >= 0.0) & (v >= 0.0) & (w >= 0.0))
+                 | ((u <= 0.0) & (v <= 0.0) & (w <= 0.0)))
+    inv_det = torch.where(det != 0.0, 1.0 / det, 0.0)
+    t = (u * az_ + v * bz_ + w * cz_) * sz * inv_det
+    hit = same_sign & (det != 0.0) & (t > 1e-5)
+    if t_max is not None:
+        hit = hit & (t < t_max)
+    return torch.where(hit, t, BIG), v * inv_det, w * inv_det, hit
+
+
+def ray_aabb(orig, inv_dir, lo, hi, t_max):
+    """Slab test. orig, inv_dir: (..., 3); lo, hi broadcast against them.
+    Returns (t_near, hit): entered at t_near >= 0, or the ray starts
+    inside."""
+    t0 = (lo - orig) * inv_dir
+    t1 = (hi - orig) * inv_dir
+    t_near = torch.minimum(t0, t1).amax(dim=-1)
+    t_far = torch.maximum(t0, t1).amin(dim=-1)
+    hit = (t_far >= torch.clamp_min(t_near, 0.0)) & (t_near < t_max)
+    return t_near, hit

@@ -496,3 +496,103 @@ def _stack_walk(o, d, t_max, nodes, tris_bw, any_hit=False, seen=None):
         kernels.add_overflows(dev, overflow)
     t = torch.where(best_tri < 0, BIG, best)
     return t, best_tri, best_u, best_v, pops, clusters
+
+
+# ----------------------------------------------------------------------------
+# The wide traversal: the lock-step walk of the unpacked 8-wide BVH
+# (tracerboy_tpu/trace/traverse.py traverse_wide), plain PyTorch. The
+# portable oracle (WaveConfig.traversal "wide", Renderer's TB_TRAVERSAL=jnp)
+# and the traversal study's per-ray need.
+
+WIDE_STACK_DEPTH = 48
+
+
+def traverse_wide(orig, direc, t_max, bounds_lo, bounds_hi, children,
+                  tri_v0, tri_v1, tri_v2, leaf_size: int,
+                  max_steps: int = 100_000, any_hit: bool = False,
+                  tri_mask=None):
+    """Closest-hit (or any-hit) traversal of the 8-wide BVH bounds_lo,
+    bounds_hi (W, 8, 3), children (W, 8) int32 over leaf clusters of
+    leaf_size consecutive triangles tri_v0/1/2 (C * leaf_size, 3). All
+    rays advance in lock step through their own (N, 48) stacks; inner
+    children are pushed in slot order (a push past the stack is dropped),
+    leaf clusters are tested slot by slot by Moller-Trumbore
+    (intersect.ray_triangle) with tri_mask (T,) bool leaving triangles
+    out. Returns (t, tri index into the triangle arrays or -1, u, v,
+    cost): t = 1e30 on a miss, cost the ray's box tests (8 a pop) plus
+    triangle tests (leaf_size a cluster). With any_hit, the (N,) bool
+    occlusion mask instead."""
+    from tracerboy_tpu_torch.trace.intersect import ray_aabb, ray_triangle
+
+    N = orig.shape[0]
+    dev = orig.device
+    K = leaf_size
+    W = children.shape[0]
+    rows = torch.arange(N, device=dev)
+    inv_dir = 1.0 / fix_dir(direc)
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
+    stack = torch.zeros((N, WIDE_STACK_DEPTH), dtype=torch.int32, device=dev)
+    sp = torch.ones(N, dtype=torch.int64, device=dev)   # root at slot 0
+    t_best = t_max.expand(N).clone()
+    tri_best = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    u_best = torch.zeros(N, dtype=torch.float32, device=dev)
+    v_best = torch.zeros(N, dtype=torch.float32, device=dev)
+    occluded = torch.zeros(N, dtype=torch.bool, device=dev)
+    box_tests = torch.zeros(N, dtype=torch.float32, device=dev)
+    tri_tests = torch.zeros(N, dtype=torch.float32, device=dev)
+    ks = torch.arange(K, device=dev)[None, :]
+    for _ in range(max_steps):
+        live = sp > 0
+        if any_hit:
+            live = live & ~occluded
+        if not bool(live.any()):
+            break
+        spm1 = torch.clamp_min(sp - 1, 0)
+        node = stack[rows, spm1].to(torch.int64)
+        sp = torch.where(live, spm1, sp)
+        node_c = torch.clamp(node, 0, W - 1)
+        ch = children[node_c]
+        _, box_hit = ray_aabb(orig[:, None, :], inv_dir[:, None, :],
+                              bounds_lo[node_c], bounds_hi[node_c],
+                              t_best[:, None])
+        valid = box_hit & (ch != INVALID) & live[:, None]
+        is_leaf = valid & (ch < 0)
+        is_inner = valid & (ch >= 0)
+        box_tests = box_tests + torch.where(live, 8.0, 0.0)
+        tri_tests = tri_tests + is_leaf.sum(1).to(torch.float32) * K
+
+        # Push the inner children in slot order; slots past the stack drop.
+        slot_pos = sp[:, None] + torch.cumsum(is_inner, 1) - 1
+        put = is_inner & (slot_pos < WIDE_STACK_DEPTH)
+        r8 = rows[:, None].expand(N, 8)
+        stack[r8[put], slot_pos[put]] = ch[put]
+        sp = torch.clamp_max(sp + is_inner.sum(1), WIDE_STACK_DEPTH)
+
+        # Leaf clusters slot by slot, over the rays that hold one there (a
+        # ray without one changes nothing, so it is left out of the test).
+        for sl in range(8):
+            r = is_leaf[:, sl].nonzero(as_tuple=True)[0]
+            if r.numel() == 0:
+                continue
+            cluster = (-ch[r, sl] - 1).to(torch.int64)
+            tri_ids = cluster[:, None] * K + ks
+            t, uu, vv, hit = ray_triangle(
+                orig[r, None, :], direc[r, None, :], tri_v0[tri_ids],
+                tri_v1[tri_ids], tri_v2[tri_ids], t_max=t_best[r, None])
+            if tri_mask is not None:
+                hit = hit & tri_mask[tri_ids]
+            t = torch.where(hit, t, BIG)
+            k_best = torch.argmin(t, dim=1, keepdim=True)
+            t_k = t.gather(1, k_best)[:, 0]
+            better = t_k < t_best[r]
+            rb, kb = r[better], k_best[better]
+            t_best[rb] = t_k[better]
+            tri_best[rb] = tri_ids[better].gather(1, kb)[:, 0].to(torch.int32)
+            u_best[rb] = uu[better].gather(1, kb)[:, 0]
+            v_best[rb] = vv[better].gather(1, kb)[:, 0]
+            occluded[r] |= (t < BIG).any(1)
+    if any_hit:
+        return occluded
+    miss = tri_best < 0
+    return (torch.where(miss, BIG, t_best), tri_best, u_best, v_best,
+            box_tests + tri_tests)

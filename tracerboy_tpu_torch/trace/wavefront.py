@@ -17,7 +17,10 @@ Traversal backends (WaveConfig.traversal):
   "brute"  - every triangle, scene-order ids (trace/intersect.py);
   "kernel" - the CUDA traversal kernels (their plain twins for CPU
              tensors), packed ids (trace/traverse.py);
-  "twin"   - the plain twins on any device (kernel parity runs).
+  "twin"   - the plain twins on any device (kernel parity runs);
+  "wide"   - the lock-step walk of the scene's own 8-wide BVH in plain
+             torch (traverse.traverse_wide), scene-order ids: the
+             portable oracle, the JAX package's "jnp" backend.
 On the packed backends two opt-in paths replace the whole-tree kernels,
 as in the JAX package: WaveConfig.cut sends every closest-hit and shadow
 wave through the binned-subtree pipeline (trace/cut.py), and
@@ -34,6 +37,13 @@ distance and the traversal-cost heatmap, plus the selected pixel's
 (max_bounces, 8) path record viz_rays. They are kept for the first
 aov_lanes lanes only, so a k-sample merged wave carries them for one
 sample, not for k.
+
+WaveConfig.decouple_albedo (RealTime mode, the demodulated denoise) traces
+two radiance planes: "radiance" with the first hit's albedo taken as
+white and without the first hit's emission and the primary misses'
+environment (those ride the emissive AOV), and "radiance_d", the share of
+it that the first hit's albedo modulates, so that
+albedo * D + (I - D) + E is the plain radiance of the sample.
 """
 
 from __future__ import annotations
@@ -74,9 +84,10 @@ PACKED_BACKENDS = ("kernel", "twin")
 class WaveConfig:
     """Static integrator configuration (the JAX package's WaveConfig).
 
-    Russian roulette and energy-based lobe selection are always on, as
-    the JAX renderer runs them. The fields after `has_scale_tex` name
-    features of the JAX integrator that the port does not have yet;
+    Energy-based lobe selection is always on, as the JAX renderer runs
+    it; russian roulette can be switched off (the demodulation identity
+    is exact per sample only without it). The fields after "Not ported
+    yet" name features of the JAX integrator that the port does not have;
     render_wave raises NotImplementedError when one is switched on."""
 
     width: int
@@ -101,9 +112,11 @@ class WaveConfig:
     cut_k: int = 8
     binned_bounces: bool = False
     want_heatmap: bool = False
+    decouple_albedo: bool = False
+    leaf_size: int = 4          # of the scene's own BVH ("wide" backend)
+    use_russian_roulette: bool = True
     # Not ported yet:
     filter_splat: bool = False
-    decouple_albedo: bool = False
     env_nee: bool = False
     split_early: int = -1
     has_alpha: bool = False
@@ -115,7 +128,6 @@ class WaveConfig:
 
 _UNPORTED = {
     "filter_splat": "ROADMAP.md, Queue 1: render_wave_merged splat fold",
-    "decouple_albedo": "ROADMAP.md, Queue 1: realtime mode",
     "env_nee": "ROADMAP.md, Queue 1: environment NEE",
     "has_alpha": "ROADMAP.md, Queue 1: alpha re-fire",
     "transparent_shadows": "ROADMAP.md, Queue 1: transparent shadows",
@@ -133,11 +145,7 @@ def _check_supported(cfg: WaveConfig, params: dict):
     if cfg.split_early >= 0:
         raise NotImplementedError("WaveConfig.split_early: not ported yet "
                                   "(ROADMAP.md, Queue 1: split planes)")
-    for key in ("active_mask", "fixed_pixel_offset"):
-        if params.get(key) is not None:
-            raise NotImplementedError(f"params[{key!r}]: not ported yet "
-                                      "(ROADMAP.md, Queue 1: renderer core)")
-    if cfg.traversal not in ("brute",) + PACKED_BACKENDS:
+    if cfg.traversal not in ("brute", "wide") + PACKED_BACKENDS:
         raise ValueError(f"unknown traversal backend {cfg.traversal!r}")
 
 
@@ -154,6 +162,12 @@ def _closest(scene, o, d, t_max, cfg, primary=False, cost_lanes=0):
             cost = torch.full((cost_lanes,), float(scene["tri9"].shape[0]),
                               dtype=torch.float32, device=t_max.device)
         return (*hits, cost)
+    if cfg.traversal == "wide":
+        t, tri, u, v, cost = traverse.traverse_wide(
+            v3.to_rows(o), v3.to_rows(d), t_max, scene["bvh_lo"],
+            scene["bvh_hi"], scene["bvh_children"], scene["tri_v0"],
+            scene["tri_v1"], scene["tri_v2"], leaf_size=cfg.leaf_size)
+        return t, tri, u, v, cost[:cost_lanes] if cost_lanes else None
     plain = cfg.traversal == "twin"
     rays = (v3.to_rows(o), v3.to_rows(d), t_max.contiguous())
     tables = (scene["pk_nodes"], scene["pk_tris_bw"])
@@ -186,6 +200,12 @@ def _occluded(scene, o, d, t_max, cfg):
     if cfg.traversal == "brute":
         return brute_force_anyhit_soa(o, d, scene["tri9"], t_max,
                                       tri_opaque=scene["tri_shadow_opaque"])
+    if cfg.traversal == "wide":
+        return traverse.traverse_wide(
+            v3.to_rows(o), v3.to_rows(d), t_max, scene["bvh_lo"],
+            scene["bvh_hi"], scene["bvh_children"], scene["tri_v0"],
+            scene["tri_v1"], scene["tri_v2"], leaf_size=cfg.leaf_size,
+            any_hit=True, tri_mask=scene["tri_shadow_opaque"])
     plain = cfg.traversal == "twin"
     rays = (v3.to_rows(o), v3.to_rows(d), t_max.contiguous())
     tables = (scene["pk_sh_nodes"], scene["pk_sh_tris_bw"])
@@ -219,25 +239,30 @@ def _head(v: V3, n: int) -> V3:
 
 AOV_KEYS = ("albedo", "normal", "world_pos", "depth", "emissive",
             "material", "diffuse_contrib", "neighbor_dist", "heatmap")
+FOLDED_AOVS = ("albedo", "normal", "emissive", "diffuse_contrib")
 
 
 def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
                 aov_lanes: int | None = None):
     """Trace one sample for each pixel id.
 
-    Returns radiance (N, 3) times the filter weight, filter_weight (N,),
-    rays_traced, and the first hit's world_pos (A, 3) and neighbor_dist
-    (A,), the distance to the hit of the next pixel's centre ray, which
-    the renderer keeps as its world-position buffer, the other first-hit
-    AOVs of AOV_KEYS, each (A, ...), and viz_rays (max_bounces, 8): per bounce the selected pixel's ray origin,
-    hit point, t and a count of 1 (zeros without params["selected_pixel"]
-    or where that lane is no longer alive). A = aov_lanes (default N): the
-    AOVs of the first A lanes.
+    Returns radiance (N, 3) times the filter weight (and radiance_d with
+    cfg.decouple_albedo), filter_weight (N,), rays_traced, and the first
+    hit's world_pos (A, 3) and neighbor_dist (A,), the distance to the hit
+    of the next pixel's centre ray, which the renderer keeps as its
+    world-position buffer, the other first-hit AOVs of AOV_KEYS, each
+    (A, ...), and viz_rays (max_bounces, 8): per bounce the selected
+    pixel's ray origin, hit point, t and a count of 1 (zeros without
+    params["selected_pixel"] or where that lane is no longer alive).
+    A = aov_lanes (default N): the AOVs of the first A lanes.
 
     scene: scene tensors (CompiledScene.as_tensors()).
     params: dict(dof_focus, dof_aperture, firefly_clamp, seed) as python
-      numbers, and optionally "bn" (make_blue_noise_params) and
-      "selected_pixel" (a flat pixel index).
+      numbers, and optionally "bn" (make_blue_noise_params),
+      "selected_pixel" (a flat pixel index), "fixed_pixel_offset" (two
+      numbers in [0, 1): every lane's sub-pixel jitter, RealTime mode's
+      per-frame Halton offset) and "active_mask" ((N,) bool: a lane
+      outside it traces nothing and returns filter weight 0).
     pixel_ids: (N,) int64 flat pixel indices.
     sample_index: python int, or (N,) int64 per-lane sample indices.
     """
@@ -280,6 +305,12 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
         dof_u, dof_v = hash2(0, tbrng.STREAM_DOF)
         blue_dir = hash2(0, tbrng.STREAM_SECONDARY_DIR)
 
+    fixed = params.get("fixed_pixel_offset")
+    if fixed is not None:
+        fixed = torch.as_tensor(fixed, **f32)
+        jit_u = fixed[0].expand(N)
+        jit_v = fixed[1].expand(N)
+
     # Pixel filter weight (kernel.glsl:1843-1868).
     off_u = (jit_u - 0.5) * cfg.filter_width
     off_v = (jit_v - 0.5) * cfg.filter_width
@@ -312,7 +343,7 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
     env_h, env_w = scene["env_map"].shape[0], scene["env_map"].shape[1]
     # Packed backends return PACKED ids: fetch from packed-order rows.
     attr_key = ("pk_attr_rows" if cfg.traversal in PACKED_BACKENDS
-                else "tri_attr_rows")
+                else "tri_attr_rows")   # brute force and wide: scene order
     attr_table = scene[attr_key]
     T_padded = attr_table.shape[0]
 
@@ -321,7 +352,9 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
         direction=direction,
         throughput=V3(one, one, one),
         radiance=vzero3,
-        alive=torch.ones(N, dtype=torch.bool, device=dev),
+        alive=(torch.ones(N, dtype=torch.bool, device=dev)
+               if params.get("active_mask") is None
+               else params["active_mask"].clone()),
         prev_perfect_specular=no,
         inside=no,
         med_absorption=vzero3,
@@ -344,12 +377,20 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
     )
     first_miss = None
     selected = params.get("selected_pixel")
+    if cfg.decouple_albedo:
+        # rad_d: the share of each radiance contribution that the first
+        # hit's albedo modulates; dc_w: the lane's first-vertex diffuse
+        # fraction (plastic dm / (dm + fs), metal and lambert 1,
+        # subsurface and never shaded 0).
+        s["rad_d"] = vzero3
+        s["dc_w"] = zero
+        first_miss_all = no
 
     for i in range(cfg.max_bounces):
         alive = s["alive"]
 
         # --- russian roulette (kernel.glsl:1288-1301) -------------------
-        if i >= MIN_BOUNCES_BEFORE_RR:
+        if cfg.use_russian_roulette and i >= MIN_BOUNCES_BEFORE_RR:
             p = torch.clamp(v3.max_c(s["throughput"]), EPSILON, 1.0)
             r = hash1(i, tbrng.STREAM_RUSSIAN_ROULETTE)
             killed = alive & (r >= p)
@@ -376,6 +417,8 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
                                            s["env_throughput"])
             if i == 0:
                 first_miss = miss[:na]
+                if cfg.decouple_albedo:
+                    first_miss_all = miss
         alive = alive & ~miss
 
         # --- hit attributes ----------------------------------------------
@@ -487,6 +530,15 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
             add_emissive = shading
         else:
             add_emissive = shading & (s["prev_perfect_specular"] | ~is_light)
+        if cfg.decouple_albedo:
+            # The first hit's emission rides the emissive AOV only, so
+            # the composite does not count it twice.
+            if i == 0:
+                add_emissive = no
+            s["rad_d"] = v3.where(
+                add_emissive,
+                s["rad_d"] + s["throughput"] * mat["emissive"] * s["dc_w"],
+                s["rad_d"])
         s["radiance"] = v3.where(
             add_emissive, s["radiance"] + s["throughput"] * mat["emissive"],
             s["radiance"])
@@ -543,9 +595,20 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
                 / torch.clamp_min(ls["pdf"], 1e-12)
             )
             add = do_nee & ~occluded
-            contrib = s["throughput"] * mat["albedo"] * ls["color"]
+            nee_albedo = mat["albedo"]
+            if cfg.decouple_albedo and i == 0:
+                # The first vertex's direct light is diffuse-weighted: its
+                # albedo factor is what the composite applies again.
+                nee_albedo = v3.where(shading, V3(one, one, one), nee_albedo)
+            contrib = s["throughput"] * nee_albedo * ls["color"]
             s["radiance"] = v3.where(
                 add, s["radiance"] + contrib * light_mult, s["radiance"])
+            if cfg.decouple_albedo:
+                w_nee = torch.where(shading, 1.0, s["dc_w"]) if i == 0 \
+                    else s["dc_w"]
+                s["rad_d"] = v3.where(
+                    add, s["rad_d"] + contrib * light_mult * w_nee,
+                    s["rad_d"])
             del ls, sh_org, sh_tmax, occluded, contrib, light_mult
 
         died_on_light = shading & is_light
@@ -601,6 +664,8 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
         inv_pdf = 1.0 / torch.clamp_min(pdf, 1e-8)
 
         albedo = mat["albedo"]
+        if cfg.decouple_albedo and i == 0:
+            albedo = V3(one, one, one)
         spec_w = bsdf.specular_weight_soa(prev_dir, new_dir, normal,
                                           detail_normal, mat["roughness"])
         cos_sat = torch.clamp(v3.dot(new_dir, normal), 0.0, 1.0)
@@ -623,14 +688,19 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
         if i == 0:
             # The first vertex's albedo-modulated share of the plastic
             # lobe pair, dm / (dm + fs) (wavefront.py:1526-1531).
-            dm = diffuse_multiplier[:na]
             dc = torch.clamp(
-                (albedo.x[:na] * dm) / torch.clamp_min(
-                    dm + fresnel[:na] * spec_w[:na], 1e-8), 0.0, 1.0)
+                (albedo.x * diffuse_multiplier) / torch.clamp_min(
+                    diffuse_multiplier + fresnel * spec_w, 1e-8), 0.0, 1.0)
             aov["diffuse_contrib"] = torch.where(
-                first & allows_spec[:na] & ~is_metal[:na], dc,
+                first & allows_spec[:na] & ~is_metal[:na], dc[:na],
                 aov["diffuse_contrib"])
-            del dm, dc
+            if cfg.decouple_albedo:
+                phi = torch.where(
+                    surf_sss, 0.0,
+                    torch.where(is_metal | ~allows_spec, 1.0, dc))
+                s["dc_w"] = torch.where(shading, phi, s["dc_w"])
+                del phi
+            del dc
         lambert_mult = albedo * bsdf.diffuse_brdf_soa(new_dir, detail_normal)
         surface_mult = v3.where(
             is_metal, metal_mult,
@@ -675,7 +745,14 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
             gather_mask=missed,
         )
         env_contrib = s["env_throughput"] * env
-        radiance = radiance + env_contrib
+        if cfg.decouple_albedo:
+            # A primary miss's environment rides the emissive AOV only;
+            # later escapes carry the lane's diffuse fraction into D.
+            live_env = v3.where(first_miss_all, vzero3, env_contrib)
+            radiance = radiance + live_env
+            s["rad_d"] = s["rad_d"] + live_env * s["dc_w"]
+        else:
+            radiance = radiance + env_contrib
         if first_miss is not None:
             aov["emissive"] = v3.where(first_miss, _head(env_contrib, na),
                                        aov["emissive"])
@@ -685,24 +762,32 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
                       torch.clamp_max(radiance.y, clamp),
                       torch.clamp_max(radiance.z, clamp))
     radiance = v3.where(v3.isnan_any(radiance), vzero3, radiance)
+    if params.get("active_mask") is not None:
+        fw = torch.where(params["active_mask"], fw, 0.0)
 
     out = dict(
         radiance=v3.to_rows(radiance * fw),
         filter_weight=fw,
         rays_traced=s["rays_traced"],
     )
+    if cfg.decouple_albedo:
+        rad_d = v3.where(v3.isnan_any(s["rad_d"]), vzero3, s["rad_d"])
+        out["radiance_d"] = v3.to_rows(rad_d * fw)
     for key, val in aov.items():
         out[key] = v3.to_rows(val) if isinstance(val, V3) else val
     return out
 
 
 def render_wave_merged(scene, params, pixel_ids, base_sample: int, k: int,
-                       cfg: WaveConfig):
+                       cfg: WaveConfig, fold_aovs: bool = False):
     """Trace k samples per pixel in ONE wave of k*N lanes (per-lane sample
-    indices base_sample + j); returns per-pixel summed radiance and
-    filter weight, total rays_traced, and the first sample's AOVs
-    (AOV_KEYS and viz_rays). A merged wave cannot record the selected
-    pixel's path (its lane would be recorded k times)."""
+    indices base_sample + j); returns per-pixel summed radiance (and
+    radiance_d) and filter weight, total rays_traced, and the first
+    sample's AOVs (AOV_KEYS and viz_rays). With fold_aovs the albedo,
+    normal, emissive and diffuse_contrib planes are summed over the k
+    samples instead (the caller divides by the sample count for the
+    anti-aliased mean). A merged wave cannot record the selected pixel's
+    path (its lane would be recorded k times)."""
     if params.get("selected_pixel") is not None:
         raise ValueError(
             "merged waves cannot record the selected pixel's ray path")
@@ -714,7 +799,10 @@ def render_wave_merged(scene, params, pixel_ids, base_sample: int, k: int,
     p2 = dict(params)
     if p2.get("bn") is not None:
         p2["bn"] = tuple(b.repeat(k) for b in p2["bn"])
-    out = render_wave(scene, p2, tiled, sidx, cfg, aov_lanes=N)
+    if p2.get("active_mask") is not None:
+        p2["active_mask"] = p2["active_mask"].repeat(k)
+    out = render_wave(scene, p2, tiled, sidx, cfg,
+                      aov_lanes=k * N if fold_aovs else N)
 
     def fold(a):
         return a.reshape((k, N) + tuple(a.shape[1:])).sum(0)
@@ -724,8 +812,14 @@ def render_wave_merged(scene, params, pixel_ids, base_sample: int, k: int,
         filter_weight=fold(out["filter_weight"]),
         rays_traced=out["rays_traced"],
     )
-    for key in AOV_KEYS + ("viz_rays",):
-        result[key] = out[key]
+    if cfg.decouple_albedo:
+        result["radiance_d"] = fold(out["radiance_d"])
+    for key in AOV_KEYS:
+        if fold_aovs and key in FOLDED_AOVS:
+            result[key] = fold(out[key])
+        else:
+            result[key] = out[key][:N]
+    result["viz_rays"] = out["viz_rays"]
     return result
 
 
@@ -740,7 +834,8 @@ def render_wave_batch(scene, params, pixel_ids, base_sample: int, k: int,
                           cfg)
         out.pop("viz_rays", None)
         if acc is not None:
-            for key in ("radiance", "filter_weight", "rays_traced"):
+            for key in ("radiance", "filter_weight", "rays_traced") + (
+                    ("radiance_d",) if cfg.decouple_albedo else ()):
                 out[key] = acc[key] + out[key]
         acc = out
     return acc

@@ -16,7 +16,11 @@ path's selection and dense kernels each a class of their own), and each
 traversal kernel launch in order (closest hit and any hit alternate, one
 pair per bounce on the default path; the HEATMAP view's primary wave is
 closest_hit_stats). Then
-"shadertoy:cornell" at 512x512 on the brute-force path.
+"shadertoy:cornell" at 512x512 on the brute-force path, and RealTime mode
+on "shadertoy" at 1280x720: REPS timed frames of
+render_realtime_frame_fused after three warm-up frames, and the same
+device summary of one more frame (a 1-spp demodulated wave and the post
+chain).
 
 Prints the card's name and power limit, then one JSON object; writes the
 JSON and the Chrome traces into --out (default build/profile/).
@@ -33,7 +37,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tracerboy_tpu_torch import Renderer
+from tracerboy_tpu_torch import OutputSettings, RenderMode, Renderer
 from tracerboy_tpu_torch.trace import binned, cut, traverse
 from tracerboy_tpu_torch.utils.build import REPO_ROOT
 
@@ -182,6 +186,20 @@ def main(argv=None):
     res["cornell_512x512"] = dict(
         render_sample_1_s=_quartiles(ts),
         mrays_s=(c.rays_traced - rays0) / 5 / float(np.median(ts)) / 1e6)
+    del c
+
+    rt = Renderer("shadertoy", film_size=(1280, 720), device="cuda",
+                  settings=OutputSettings(render_mode=RenderMode.REAL_TIME))
+    for _ in range(3):
+        rt.render_realtime_frame_fused()
+    ts = _timed(rt.render_realtime_frame_fused, REPS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rt.render_realtime_frame_fused()
+        torch.cuda.synchronize()
+    res["realtime_1280x720"] = dict(frame_s=_quartiles(ts),
+                                    profile_frame=_device_summary(prof))
+    prof.export_chrome_trace(str(args.out / "trace_realtime_frame.json"))
     res["card_after"] = _card()
 
     text = json.dumps(res, indent=1)
