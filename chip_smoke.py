@@ -11,12 +11,21 @@ Phases, each fatal on failure:
   4. kernel vs plain twin on "shadertoy" at 1280x720: 65,536 rays (half
      primary, half random with finite and zero t_max), closest hit on
      the main BVH and any hit on the shadow BVH, within TOLERANCE; then
-     both timed with CUDA events on a full 921,600-ray wave;
+     both timed with CUDA events on a full 921,600-ray wave; then both
+     against their twins, and timed, on rays in no order at full width:
+     the 921,600 bounce and shadow rays of the traversal study's
+     make_ray_sets; then the walk the two kernels run
+     (traverse.octet_walk, plain PyTorch) beside the serial walk of the
+     stats kernel on the primary and the unordered rays: its hits against
+     the kernels', its pops, cluster tests and stack entries held beside
+     the serial walk's (the boxes the octet order enters in excess);
   5. the stats kernel (closest hit with per-ray traversal counts, the
      HEATMAP view's primary wave) on the 65,536 rays and the 921,600-ray
-     primary wave: hits bit-equal to the stats-free kernel's, counts
-     equal to its twin's (each mismatching ray listed), no stack
-     overflow; timed beside the stats-free kernel and the twin;
+     primary wave: hits equal to the stats-free kernel's by that kernel's
+     own tie rule (t equal; id, u, v equal outside ties; the two walk in
+     different orders), counts equal to its twin's (each mismatching ray
+     listed), no stack overflow; timed beside the stats-free kernel and
+     the twin;
   6. the same for the opt-in paths' kernels on the scene compiled with
      the cut and binned tables (TB_CUT=1, TB_BINNED=1): emit (cut phase
      1), closest and any hit with per-ray roots (cut phase 2), selection
@@ -28,7 +37,9 @@ Phases, each fatal on failure:
      on the brute-force path; then the same render_sample(1) and (8) with
      TB_CUT=1 (and a HEATMAP render_sample(1), whose primary wave must
      still take the stats kernel) and again with TB_BINNED=1, each of
-     which must launch its new kernels and overflow no stack;
+     which must launch its new kernels and overflow no stack; then the
+     closest-hit and any-hit launches of one more 8-sample wave of the
+     default path, recorded and timed one by one (ms per bounce);
   8. the first-hit AOV slice at 1280x720: render_sample(1) and
      current_image() in every OutputType (and render_sample(8) in LIT
      and HEATMAP), a finite image in [0, 1] each; HEATMAP launches the
@@ -107,9 +118,11 @@ TOLERANCE = dict(hit_mismatch_frac=1e-4, t_rel=1e-6, uv_abs=1e-6,
 OPT_IN = ("TB_CUT", "TB_BINNED", "TB_CUT_K", "TB_CUT_TRIS")
 # Path parity: the CPU tests' bound between the port and the JAX package.
 PARITY = dict(pixel_atol=1e-3, pixel_frac=0.99, mean_rel=1e-4)
-# Stats kernel: counting changes nothing of the walk, so its hits equal
-# the stats-free kernel's bit for bit; its twin repeats the walk, so the
-# counts differ only where a slab test rounds otherwise.
+# Stats kernel: it keeps the serial walk, the stats-free kernel walks in
+# another order, so the two are held together as a kernel and its twin
+# are (TOLERANCE; ids outside ties); the stats twin repeats the stats
+# kernel's walk, so the counts differ only where a slab test rounds
+# otherwise.
 STATS_TOLERANCE = dict(count_mismatch_frac=1e-4, overflows=0)
 UNET_WEIGHTS = (Path(__file__).resolve().parent / "tracerboy_tpu" / "ml"
                 / "weights" / "rt_ldr_ft.npz")
@@ -433,12 +446,131 @@ def build_kernels():
             f.result()
 
 
+def study_rays(cs, device):
+    """The 921,600 bounce and shadow rays of the traversal study
+    (bench_traverse.make_ray_sets, default_rng(7)): surface points in no
+    order, toward random directions and toward one light."""
+    import torch
+
+    from tracerboy_tpu_torch.utils.bench_traverse import make_ray_sets
+
+    w, h = FULL_WAVE
+    sets = make_ray_sets(cs, w * h, np.random.default_rng(7))
+    return {name: tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                        for x in sets[name])
+            for name in ("bounce", "shadow")}
+
+
+def unordered_phase(main_t, shadow_t, rays):
+    """Closest hit on the study's bounce rays and any hit on its shadow
+    rays, 921,600 each in no order, against the twins and timed. Returns
+    (closest statistics, any-hit statistics, times)."""
+    from tracerboy_tpu_torch.trace import kernels, traverse
+
+    kernels.reset_counters()
+    bo, so = rays["bounce"], rays["shadow"]
+    ok_c, st_c = check_closest(
+        bo[0], bo[1], main_t, traverse.closest_hit(*bo, *main_t),
+        traverse.closest_hit_plain(*bo, *main_t))
+    ok_a, st_a = check_anyhit(traverse.any_hit(*so, *shadow_t),
+                              traverse.anyhit_plain(*so, *shadow_t))
+    overflows = kernels.stack_overflows()
+    times = dict(
+        closest_ms=cuda_ms(lambda: traverse.closest_hit(*bo, *main_t), 20),
+        closest_plain_ms=cuda_ms(lambda: traverse.closest_hit_plain(
+            *bo, *main_t), 1, warmup=0),
+        anyhit_ms=cuda_ms(lambda: traverse.any_hit(*so, *shadow_t), 20),
+        anyhit_plain_ms=cuda_ms(lambda: traverse.anyhit_plain(
+            *so, *shadow_t), 1, warmup=0),
+        stack_overflows=overflows)
+    print("unordered closest kernel vs twin:", json.dumps(st_c))
+    print("unordered anyhit kernel vs twin:", json.dumps(st_a))
+    print("timing 921,600 unordered rays:", json.dumps(times))
+    if not (ok_c and ok_a) or overflows:
+        fail(f"kernel disagrees with its twin on unordered rays beyond "
+             f"{TOLERANCE}, or overflowed a stack")
+    return st_c, st_a, times
+
+
+def walks_phase(sets):
+    """The walk the closest-hit and any-hit kernels run (octet_walk, plain
+    PyTorch) on each (label, rays, tables, any_hit) of sets: its hits
+    against the kernel's (the same walk: t, id, u, v or the occlusion,
+    within TOLERANCE), and its pops, cluster tests and stack entries held
+    beside the serial walk's (walk_footprint)."""
+    import torch
+
+    from tracerboy_tpu_torch.trace import traverse
+
+    ok_all = True
+    for label, (o, d, tm), tables, any_hit in sets:
+        w = traverse.octet_walk(o, d, tm, *tables, any_hit=any_hit)
+        serial = traverse.walk_footprint(o, d, tm, *tables, any_hit=any_hit)
+        if any_hit:
+            k = traverse.any_hit(o, d, tm, *tables)
+            differ = int((k != (w[1] >= 0)).sum())
+            ok = differ <= TOLERANCE["occ_mismatch_frac"] * o.shape[0]
+        else:
+            k = traverse.closest_hit(o, d, tm, *tables)
+            differ = int(((k[0] != w[0]) | (k[1] != w[1]) | (k[2] != w[2])
+                          | (k[3] != w[3])).sum())
+            ok = differ <= TOLERANCE["hit_mismatch_frac"] * o.shape[0]
+        live = int((tm > 0).sum())
+        st = dict(
+            rays=int(o.shape[0]), live=live,
+            rays_differing_from_kernel=differ,
+            octet=dict(pops=int(w[4].sum()), clusters=int(w[5].sum()),
+                       max_held=int(w[6].max())),
+            serial=dict(pops=int(serial[2].sum()),
+                        clusters=int(serial[3].sum())),
+            stack_need=traverse.stack_need(tables[0]))
+        st["excess_pops_share"] = (st["octet"]["pops"]
+                                   / max(st["serial"]["pops"], 1) - 1)
+        st["excess_clusters_share"] = (st["octet"]["clusters"]
+                                       / max(st["serial"]["clusters"], 1) - 1)
+        print(f"octet walk beside the serial walk, {label}:", json.dumps(st))
+        ok_all &= ok and st["octet"]["max_held"] <= st["stack_need"]
+        del w, serial, k
+        torch.cuda.empty_cache()
+    if not ok_all:
+        fail("the octet walk disagrees with the kernels, or holds more "
+             "stack entries than stack_need allows")
+
+
+def wave_bounce_phase():
+    """The closest-hit and any-hit launches of one 8-sample wave of the
+    default path at 1280x720 (7,372,800 lanes), recorded by
+    bench_traverse.record_wave_rays and timed one by one: ms per bounce
+    and the sums."""
+    import torch
+
+    from tracerboy_tpu_torch.trace import traverse
+    from tracerboy_tpu_torch.utils.bench_traverse import record_wave_rays
+
+    set_opt_in()
+    calls = record_wave_rays("shadertoy", FULL_WAVE, 8, torch.device("cuda"))
+    rows = []
+    for kind, o, d, tm, nodes, tris in calls:
+        fn = traverse.closest_hit if kind == "closest" else traverse.any_hit
+        rows.append(dict(kind=kind, lanes=int(o.shape[0]),
+                         live=int((tm > 0).sum()),
+                         ms=cuda_ms(lambda: fn(o, d, tm, nodes, tris), 5)))
+    res = dict(launches=rows,
+               closest_ms=sum(r["ms"] for r in rows if r["kind"] == "closest"),
+               anyhit_ms=sum(r["ms"] for r in rows if r["kind"] == "shadow"))
+    print("traversal per bounce of one 8-spp wave:", json.dumps(res))
+    if not rows or not all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in rows):
+        fail(f"wave bounce times malformed: {res}")
+    return res
+
+
 def stats_phase(tables, sets):
     """The stats kernel on each (label, (o, d, t_max)) of sets against
-    the stats-free kernel (t, tri, u, v bit for bit) and its twin (the
-    hits and the counts, each mismatching ray listed), with no stack
-    overflow; on the last set the kernels are timed beside the twin's
-    comparison call. Returns (statistics by label, times)."""
+    the stats-free kernel (another walk order: compared as a kernel with
+    its twin, ids outside ties, within TOLERANCE) and its twin (the hits
+    and the counts, each mismatching ray listed), with no stack overflow;
+    on the last set the kernels are timed beside the twin's comparison
+    call. Returns (statistics by label, times)."""
     import torch
 
     from tracerboy_tpu_torch.trace import kernels, traverse
@@ -460,8 +592,6 @@ def stats_phase(tables, sets):
             rays=n, live=int((tm > 0).sum()), hits=int((k[1] >= 0).sum()),
             pops=int(k[4].sum()), clusters=int(k[5].sum()),
             max_pops=int(k[4].max()), max_clusters=int(k[5].max()),
-            hits_equal_stats_free=all(torch.equal(a, b)
-                                      for a, b in zip(k[:4], free)),
             hits_equal_twin=all(torch.equal(a, b)
                                 for a, b in zip(k[:4], p[:4])),
             count_mismatch=int(mism.numel()),
@@ -474,9 +604,11 @@ def stats_phase(tables, sets):
                 dict(ray=r[0], pops_kernel=r[1], clusters_kernel=r[2],
                      pops_twin=r[3], clusters_twin=r[4])
                 for r in rows.cpu().tolist()]
+        ok_free, st["vs_stats_free"] = check_closest(o, d, tables, free,
+                                                     k[:4])
         stats[label] = st
         print(f"stats kernel vs twin, {label}:", json.dumps(st))
-        ok_all &= (st["hits_equal_stats_free"] and st["count_mismatch"]
+        ok_all &= (ok_free and st["count_mismatch"]
                    <= STATS_TOLERANCE["count_mismatch_frac"] * n)
         times[f"{label}_plain_ms"] = plain_ms
     overflows = kernels.stack_overflows()
@@ -1020,7 +1152,7 @@ def v1_phase(cs, scene, compare, primary):
     if not torch.equal(torch.from_numpy(pk["nodes"]).to(nodes.device), nodes):
         fail("v1: the repacked node table is not the scene's")
     tris = torch.from_numpy(pk["tris"]).to(nodes.device)
-    need = traverse_v1.stack_need(nodes)
+    need = traverse.stack_need(nodes)
     if need > traverse_v1.STACK_DEPTH:
         fail(f"v1: the tree can ask for {need} stack entries, the kernel "
              f"has {traverse_v1.STACK_DEPTH}")
@@ -1295,6 +1427,15 @@ def main() -> int:
     )
     print("timing 921,600-ray waves and 65,536 rays:", json.dumps(times))
 
+    # --- rays in no order, and the kernels' walk beside the serial walk ----
+    unordered = study_rays(cs, "cuda")
+    un_c, un_a, un_times = unordered_phase(main_t, shadow_t, unordered)
+    walks_phase((("primary", (po, pd, ptm), main_t, False),
+                 ("primary shadow", (so, sd, stm), shadow_t, True),
+                 ("unordered bounce", unordered["bounce"], main_t, False),
+                 ("unordered shadow", unordered["shadow"], shadow_t, True)))
+    del unordered
+
     # --- the stats kernel vs the stats-free kernel and its twin -----------
     st_stats, st_times = stats_phase(main_t, (("compare", (o, d, tm)),
                                               ("primary", (po, pd, ptm))))
@@ -1355,6 +1496,8 @@ def main() -> int:
                                   {"TB_BINNED": "1"},
                                   ("select", "dense", "closest", "anyhit"))
 
+    wave_bounce_phase()
+
     # --- the first-hit AOV slice and the denoiser ---------------------------
     r, _, heat_launches = aov_slice_phase(torch, Renderer)
     denoise_phase(torch, r.resolve_radiance())
@@ -1384,12 +1527,15 @@ def main() -> int:
              replaces="tracerboy_tpu/trace/pallas_traverse2.py:754",
              launches=launches["closest"],
              launches_by_path=by_path("closest"),
-             max_abs_err=max([st_c["max_abs_err"], st_c2["max_abs_err"]]
+             max_abs_err=max([st_c["max_abs_err"], st_c2["max_abs_err"],
+                              un_c["max_abs_err"]]
                              + [s["max_abs_err"] for s in roots_c]),
              id_mismatch_outside_ties=sum(
                  s["id_mismatch_outside_ties"]
-                 for s in [st_c, st_c2, *roots_c]),
+                 for s in [st_c, st_c2, un_c, *roots_c]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
+             unordered_ms=un_times["closest_ms"],
+             unordered_plain_ms=un_times["closest_plain_ms"],
              **bound_keys(walk_bytes["closest"], closest_ops),
              roots_ms=opt_times["closest_roots_ms"],
              roots_plain_ms=opt_times["closest_roots_plain_ms"]),
@@ -1412,10 +1558,12 @@ def main() -> int:
              launches=launches["anyhit"],
              launches_by_path=by_path("anyhit"),
              occ_mismatch=sum(s["occ_mismatch"]
-                              for s in [st_a, st_a2, *roots_a]),
+                              for s in [st_a, st_a2, un_a, *roots_a]),
              max_abs_err=max(s["max_abs_err"]
-                             for s in [st_a, st_a2, *roots_a]),
+                             for s in [st_a, st_a2, un_a, *roots_a]),
              ms=times["anyhit_ms"], plain_ms=times["anyhit_plain_ms"],
+             unordered_ms=un_times["anyhit_ms"],
+             unordered_plain_ms=un_times["anyhit_plain_ms"],
              **bound_keys(walk_bytes["anyhit"], anyhit_ops),
              roots_ms=opt_times["anyhit_roots_ms"],
              roots_plain_ms=opt_times["anyhit_roots_plain_ms"]),

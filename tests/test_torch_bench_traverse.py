@@ -11,6 +11,9 @@ scripts/bench_traverse.py.
   closest-hit variants must be equal on these rays (checked against each
   other, all walks of the same triangles), and v1 must have been called
   through its wrapper.
+- The `wave` ray set on the CPU at a 16x12 film: one launch recorded per
+  bounce and kind, with the lanes of the wave, each timed in each order;
+  the sorted rays give the same hits; the wrappers are put back.
 - differ_outside_ties and time_runs on hand-made inputs.
 """
 
@@ -133,6 +136,68 @@ def test_dead_rays_and_unknown_variant(capsys):
     with pytest.raises(SystemExit):
         study.main(["--scene", "shadertoy:cornell", "--device", "cpu",
                     "--variants", "v2ns"])
+
+
+def test_wave_ray_set_on_the_cpu(capsys):
+    from tracerboy_tpu_torch.trace import traverse
+
+    wrappers = traverse.closest_hit, traverse.any_hit
+    res = study.main(["--scene", "shadertoy", "--rays", "64", "--sets",
+                      "wave", "--sort", "none,oct-org", "--runs", "1",
+                      "--device", "cpu", "--wave-film", "16x12",
+                      "--wave-spp", "2"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1]) == res
+    assert (traverse.closest_hit, traverse.any_hit) == wrappers
+    n_closest = res["shadertoy/wave/total_closest/none"]["launches"]
+    n_shadow = res["shadertoy/wave/total_shadow/none"]["launches"]
+    assert n_closest >= 2 and n_shadow >= 1
+    for kind, count, vname in (("closest", n_closest, "v2"),
+                               ("shadow", n_shadow, "v2any")):
+        sums = dict(none=0.0, reorder=0.0)
+        sums["oct-org"] = 0.0
+        for i in range(count):
+            plain = res[f"shadertoy/wave/{kind}_{i}/none/{vname}"]
+            ordered = res[f"shadertoy/wave/{kind}_{i}/oct-org/{vname}"]
+            # One merged wave of 2 samples: every launch has its lanes.
+            assert plain["live"] == ordered["live"] <= 16 * 12 * 2
+            assert plain["mrays_s"] > 0 and plain["n"] == 1
+            sums["none"] += plain["ms"]
+            sums["oct-org"] += ordered["ms"]
+            sums["reorder"] += res[
+                f"shadertoy/wave/{kind}_{i}/oct-org/reorder"]["ms"]
+            assert f"shadertoy/wave/{kind}_{i}/none/reorder" not in res
+        assert res["shadertoy/wave/closest_0/none/v2"]["live"] == 16 * 12 * 2
+        total = res[f"shadertoy/wave/total_{kind}/oct-org"]
+        assert total["kernel_ms"] == pytest.approx(sums["oct-org"])
+        assert total["reorder_ms"] == pytest.approx(sums["reorder"])
+        assert res[f"shadertoy/wave/total_{kind}/none"][
+            "kernel_ms"] == pytest.approx(sums["none"])
+
+
+def test_recorded_wave_rays_are_the_waves():
+    """record_wave_rays hands back what the wave gave the wrappers: the
+    primary launch holds camera rays of every lane, later launches have
+    dead lanes, and sorted or not the rays hit the same."""
+    from tracerboy_tpu_torch.trace import traverse
+
+    calls = study.record_wave_rays("shadertoy", (16, 12), 2,
+                                   torch.device("cpu"))
+    kinds = [c[0] for c in calls]
+    assert kinds[0] == "closest" and set(kinds) == {"closest", "shadow"}
+    _, o, d, tm, nodes, tris = calls[0]
+    assert o.shape == (16 * 12 * 2, 3) and bool((tm > 0).all())
+    assert any(bool((c[3] <= 0).any()) for c in calls[1:])
+    kind, o, d, tm, nodes, tris = calls[2]
+    assert kind == "closest"
+    cs = load_scene("shadertoy", film_size=(16, 12))
+    lo, hi = cs.tri_v0.min(0), cs.tri_v0.max(0)
+    perm = torch.from_numpy(study.coherence_sort(
+        o.numpy(), d.numpy(), lo, hi, "oct-org", tm=tm.numpy()))
+    a = traverse.closest_hit(o, d, tm, nodes, tris)
+    b = traverse.closest_hit(o[perm].contiguous(), d[perm].contiguous(),
+                             tm[perm].contiguous(), nodes, tris)
+    assert torch.equal(a[0][perm], b[0]) and int((a[1] >= 0).sum()) > 0
 
 
 def test_differ_outside_ties():

@@ -155,9 +155,11 @@ def test_profile_summary_unions_device_intervals():
                   time_range=NS(start=start, end=end))
 
     prof = NS(events=lambda: [
-        ev("void traverse_kernel<true>(...)", 500.0, 600.0),
+        ev("void (anonymous namespace)::octet_kernel<true>(...)", 500.0,
+           600.0),
         ev("void at::native::vectorized_elementwise_kernel", 0.0, 300.0),
-        ev("void traverse_kernel<false>(...)", 200.0, 400.0),
+        ev("void (anonymous namespace)::octet_kernel<false>(...)", 200.0,
+           400.0),
         ev("void at::native::CatArrayBatchedCopy", 900.0, 1000.0),
         ev("aten::add", 0.0, 2000.0, dev="DeviceType.CPU"),
     ])
@@ -170,6 +172,29 @@ def test_profile_summary_unions_device_intervals():
                                 "cat_stack": pytest.approx(0.1)}
     assert s["traversal_launches_ms"] == [("closest_hit", 0.2),
                                           ("any_hit", 0.1)]
+    assert s["traversal_by_bounce_ms"] == [[0.2, 0.1]]
+
+
+def test_profile_summary_pairs_traversal_launches_by_bounce():
+    """A closest hit (or the stats kernel on a HEATMAP primary wave) opens
+    a bounce; the any hits up to the next one are its shadow waves."""
+    from tracerboy_tpu_torch.utils.profile_slice import (
+        _by_bounce,
+        _traversal_kind,
+    )
+
+    names = ["(anonymous namespace)::traverse_stats_kernel(float const*)",
+             "void (anonymous namespace)::octet_kernel<true>(float const*)",
+             "void (anonymous namespace)::octet_kernel<(bool)0>(float const*)",
+             "void (anonymous namespace)::octet_kernel<false>(float const*)",
+             "void (anonymous namespace)::octet_kernel<true>(float const*)",
+             "void (anonymous namespace)::octet_kernel<(bool)1>(float*)"]
+    kinds = [_traversal_kind(n) for n in names]
+    assert kinds == ["closest_hit_stats", "any_hit", "closest_hit",
+                     "closest_hit", "any_hit", "any_hit"]
+    rows = _by_bounce(list(zip(kinds, [1.0, 2.0, 3.0, 4.0, 5.0, 6.0])))
+    assert rows == [[1.0, 2.0], [3.0, 0.0], [4.0, 11.0]]
+    assert _by_bounce([("any_hit", 1.0)]) == []
 
 
 def test_profile_summary_separates_the_opt_in_kernels():
@@ -185,7 +210,8 @@ def test_profile_summary_separates_the_opt_in_kernels():
 
     prof = NS(events=lambda: [
         ev("(anonymous namespace)::emit_kernel(...)", 0.0, 100.0),
-        ev("void traverse_kernel<false>(...)", 100.0, 300.0),
+        ev("void (anonymous namespace)::octet_kernel<false>(...)", 100.0,
+           300.0),
         ev("(anonymous namespace)::select_kernel(...)", 300.0, 600.0),
         ev("(anonymous namespace)::dense_kernel(...)", 600.0, 1000.0),
     ])

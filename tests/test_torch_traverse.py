@@ -283,22 +283,24 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_tris", [37, 2000, 20_000])
-def test_kernels_match_twins_on_the_card(cuda_device, n_tris):
-    rng = np.random.default_rng(99 + n_tris)
-    v0, v1, v2 = make_scene(rng, n_tris)
-    pk, _ = pack_scene(v0, v1, v2)
-    nodes = _t(pk["nodes"]).to(cuda_device)
-    tris = _t(pk["tris_bw"]).to(cuda_device)
-    o, d = make_rays(rng, N_RAYS)
-    tm = _mixed_tmax(rng, N_RAYS)
-    o, d, tm = (_t(x).to(cuda_device) for x in (o, d, tm))
+def mixed_roots(rng, nodes, n):
+    """Per-ray roots: a third node 0, a third another node, a third a leaf
+    cluster (negative)."""
+    ch = nodes[:, 48:56].cpu().numpy()
+    leaves = ch[ch < 0]
+    roots = np.zeros(n, np.int32)
+    kind = rng.integers(0, 3, n)
+    roots[kind == 1] = rng.integers(0, nodes.shape[0], int((kind == 1).sum()))
+    roots[kind == 2] = rng.choice(leaves, int((kind == 2).sum()))
+    return roots
+
+
+def _assert_kernels_match_twins(o, d, tm, nodes, tris, roots=None):
     kernels.reset_counters()
-    k = traverse.closest_hit(o, d, tm, nodes, tris)
-    p = traverse.closest_hit_plain(o, d, tm, nodes, tris)
-    occ_k = traverse.any_hit(o, d, tm, nodes, tris)
-    occ_p = traverse.anyhit_plain(o, d, tm, nodes, tris)
+    k = traverse.closest_hit(o, d, tm, nodes, tris, roots)
+    p = traverse.closest_hit_plain(o, d, tm, nodes, tris, roots)
+    occ_k = traverse.any_hit(o, d, tm, nodes, tris, roots)
+    occ_p = traverse.anyhit_plain(o, d, tm, nodes, tris, roots)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == dict(dict.fromkeys(kernels.LAUNCHES, 0),
                                      closest=1, anyhit=1)
@@ -320,3 +322,33 @@ def test_kernels_match_twins_on_the_card(cuda_device, n_tris):
     assert torch.equal(u_r, k[2][diff])
     assert torch.equal(v_r, k[3][diff])
     assert torch.equal(occ_k, occ_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["whole_tree", "rooted", "ray_counts"])
+@pytest.mark.parametrize("n_tris", [37, 2000, 20_000])
+def test_kernels_match_twins_on_the_card(cuda_device, n_tris, case):
+    """Random rays in no order (make_rays), from node 0 or from per-ray
+    node and leaf roots, and ray counts that fill no octet, warp or block
+    (0, 1, 7, 33, 129) with and without roots."""
+    rng = np.random.default_rng(99 + n_tris)
+    v0, v1, v2 = make_scene(rng, n_tris)
+    pk, _ = pack_scene(v0, v1, v2)
+    nodes = _t(pk["nodes"]).to(cuda_device)
+    tris = _t(pk["tris_bw"]).to(cuda_device)
+    o, d = make_rays(rng, N_RAYS)
+    tm = _mixed_tmax(rng, N_RAYS)
+    if case != "whole_tree":
+        tm[5] = np.nan      # dead, like t_max <= 0
+    roots = _t(mixed_roots(rng, nodes, N_RAYS)).to(cuda_device)
+    o, d, tm = (_t(x).to(cuda_device) for x in (o, d, tm))
+    if case == "whole_tree":
+        _assert_kernels_match_twins(o, d, tm, nodes, tris)
+    elif case == "rooted":
+        _assert_kernels_match_twins(o, d, tm, nodes, tris, roots)
+    else:
+        for n in (0, 1, 7, 33, 129):
+            sub = [x[:n].contiguous() for x in (o, d, tm)]
+            _assert_kernels_match_twins(*sub, nodes, tris)
+            _assert_kernels_match_twins(*sub, nodes, tris,
+                                        roots[:n].contiguous())

@@ -239,7 +239,7 @@ def test_stack_need_covers_the_trees():
     rng = np.random.default_rng(8)
     for n_tris in (8, 2000, 20_000):
         pk, _ = pack_scene(*make_scene(rng, n_tris), raw_rows=True)
-        need = traverse_v1.stack_need(_t(pk["nodes"]))
+        need = traverse.stack_need(_t(pk["nodes"]))
         assert 8 <= need <= traverse_v1.STACK_DEPTH, (n_tris, need)
 
 

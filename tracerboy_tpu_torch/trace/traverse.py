@@ -3,8 +3,23 @@ their plain PyTorch twins.
 
 The counterpart of tracerboy_tpu/trace/pallas_traverse2.py
 (traverse_packets2, anyhit_packets2). The kernels live in
-csrc/bvh_traverse.cu, one thread per ray; they are built with nvcc for
-sm_90a at first use (utils/build.py) and called through ctypes.
+csrc/bvh_traverse.cu; they are built with nvcc for sm_90a at first use
+(utils/build.py) and called through ctypes.
+
+Thread map of closest_hit and any_hit: one ray per group of 8 lanes (an
+octet), four rays a warp. Lane c tests child c of a popped node and
+triangle c of a leaf cluster; entered inner children are pushed ranked
+by entry t (the nearest on top; at equal t the higher slot on top), then
+the entered leaves are tested nearest first. Each octet keeps its stack
+in shared memory, stack_need(nodes) entries of it (7 a tree level plus
+one: a pop frees one entry and pushes at most 8), at most
+MAX_STACK_ENTRIES; a push past it is dropped and counted in
+kernels.stack_overflows(). The blocks are persistent: an octet draws its
+next 8 rays (a ticket) from a device counter that the wrapper zeroes, and
+dead lanes get their miss at the draw. The four octets of a warp step
+through one loop together, so their shuffles and ballots name the full
+warp. octet_walk is that walk in plain PyTorch, for the tests and for
+counting what it does; it is not the kernels' twin.
 
 Tables (accel/pack.py):
 - nodes (W, 128) int32: lanes 0-47 the 8 child boxes as f32 bits,
@@ -38,14 +53,17 @@ Traversal cost (closest_hit_stats, the TPU kernel's stats=True variant,
 for the heatmap AOV): the closest hit from node 0 plus two int32 counts
 per ray, pops (nodes popped and expanded; a node the pop-time cull skips
 does not count) and clusters (leaf clusters whose triangles were tested);
-0 and 0 on a dead lane. They count the kernel's own walk, so its twin,
-closest_hit_stats_plain, repeats that walk step for step: a per-ray stack
+0 and 0 on a dead lane. The counts are those of the serial walk, which
+the stats kernel keeps, one thread per ray, and its twin,
+closest_hit_stats_plain, repeats step for step: a per-ray stack
 (STACK_DEPTH entries), the same slab test, children pushed sorted by
 descending entry t (a later child goes below an equal one), the cull
-!(entry t < best) at pop, leaf clusters tested as they are met. The
-exhaustive twin closest_hit_plain stays the twin of the stats-free
-kernel. walk_footprint runs the same walk (or the any-hit kernel's) to
-mark the node and cluster rows it reads, for a kernel's bound.
+!(entry t < best) at pop, leaf clusters tested as they are met, in slot
+order. Its t equals closest_hit's; at equal t the two walk orders may
+keep different triangles. The exhaustive twin closest_hit_plain stays
+the twin of the stats-free kernel. walk_footprint runs the serial walk
+(or its any-hit form) to mark the node and cluster rows it reads, for a
+kernel's bound: the least work, whatever walk implements it.
 
 The wrappers take the twin only for CPU tensors; on a CUDA tensor they
 launch the kernel or raise. They count under "closest", "closest_stats"
@@ -55,6 +73,7 @@ and "anyhit" in trace/kernels.py's LAUNCHES and TWIN_CALLS.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import numpy as np
 import torch
@@ -64,7 +83,10 @@ from tracerboy_tpu_torch.trace import kernels
 
 LEAF = 8
 BIG = 1e30
-STACK_DEPTH = 96    # kStackDepth of csrc/bvh_common.cuh
+STACK_DEPTH = 96    # kStackDepth of csrc/bvh_common.cuh: the stats walk
+# A block's 16 octet stacks of (id, t) entries fit the 48 KB of shared
+# memory a launch gets without opting in to more.
+MAX_STACK_ENTRIES = 384
 _SOURCE = kernels.CSRC / "bvh_traverse.cu"
 kernels.register("closest", "closest_stats", "anyhit")
 _lib = None
@@ -76,10 +98,10 @@ def build_kernels():
     if _lib is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         _lib = kernels.load_library("tbtraverse", _SOURCE, {
-            "tb_closest_hit": [p, p, p, p, p, p, i, p, p, p, p, p, p],
+            "tb_closest_hit": [p, p, p, p, p, p, i, i, p, p, p, p, p, p, p],
             "tb_closest_hit_stats": [p, p, p, p, p, i, p, p, p, p, p, p, p,
                                      p],
-            "tb_any_hit": [p, p, p, p, p, p, i, p, p, p],
+            "tb_any_hit": [p, p, p, p, p, p, i, i, p, p, p, p],
         })
     return _lib
 
@@ -91,6 +113,40 @@ def _check(o, d, t_max, nodes, tris_bw, roots):
     if roots is not None:
         specs.append(("roots", roots, (o.shape[0],), torch.int32))
     kernels.check_inputs(o, *specs)
+    if tris_bw.data_ptr() % 16:
+        raise ValueError("tris_bw must be 16-byte aligned")
+
+
+def stack_need(nodes) -> int:
+    """The most stack entries a walk can hold on this tree: 7 per level (a
+    popped node pushes up to 8 children and the next pop takes one) and
+    one."""
+    ch = nodes[:, 48:56].cpu().numpy().astype(np.int64)
+    depth, level = 0, np.zeros(1, np.int64)
+    while level.size:
+        depth += 1
+        kids = ch[level].reshape(-1)
+        level = kids[(kids >= 0) & (kids != INVALID)]
+    return 7 * depth + 1
+
+
+_stack_entries: dict = {}   # id(nodes) -> (weak reference, stack_need)
+
+
+def stack_entries(nodes) -> int:
+    """stack_need(nodes), kept per node table (it reads the table on the
+    host); raises if the octet stacks would not fit a block."""
+    known = _stack_entries.get(id(nodes))
+    if known is None or known[0]() is not nodes:
+        for key in [k for k, (ref, _) in _stack_entries.items()
+                    if ref() is None]:
+            del _stack_entries[key]
+        known = (weakref.ref(nodes), stack_need(nodes))
+        _stack_entries[id(nodes)] = known
+    if known[1] > MAX_STACK_ENTRIES:
+        raise ValueError(f"the tree can ask for {known[1]} stack entries; "
+                         f"the kernels hold {MAX_STACK_ENTRIES}")
+    return known[1]
 
 
 def closest_hit(o, d, t_max, nodes, tris_bw, roots=None):
@@ -106,8 +162,11 @@ def closest_hit(o, d, t_max, nodes, tris_bw, roots=None):
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
     u = torch.empty(n, dtype=torch.float32, device=o.device)
     v = torch.empty(n, dtype=torch.float32, device=o.device)
+    # The zeroed counter from which the persistent blocks draw their rays.
+    next_ray = torch.zeros(1, dtype=torch.int32, device=o.device)
     kernels.launch(build_kernels(), "tb_closest_hit", o.device, o, d, t_max,
-                   nodes, tris_bw, roots, n, t, tri, u, v)
+                   nodes, tris_bw, roots, n, stack_entries(nodes), t, tri, u,
+                   v, next_ray)
     kernels.LAUNCHES["closest"] += 1
     return t, tri, u, v
 
@@ -138,8 +197,10 @@ def any_hit(o, d, t_max, nodes, tris_bw, roots=None):
         return anyhit_plain(o, d, t_max, nodes, tris_bw, roots)
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
+    next_ray = torch.zeros(1, dtype=torch.int32, device=o.device)
     kernels.launch(build_kernels(), "tb_any_hit", o.device, o, d, t_max,
-                   nodes, tris_bw, roots, n, occ)
+                   nodes, tris_bw, roots, n, stack_entries(nodes), occ,
+                   next_ray)
     kernels.LAUNCHES["anyhit"] += 1
     return occ
 
@@ -496,6 +557,123 @@ def _stack_walk(o, d, t_max, nodes, tris_bw, any_hit=False, seen=None):
         kernels.add_overflows(dev, overflow)
     t = torch.where(best_tri < 0, BIG, best)
     return t, best_tri, best_u, best_v, pops, clusters
+
+
+# ----------------------------------------------------------------------------
+# The octet kernels' walk in plain PyTorch, in lock step over the rays that
+# still have a stack. Not the kernels' twin (that stays closest_hit_plain /
+# anyhit_plain): it shows on a CPU that the walk order of csrc/bvh_traverse.cu
+# gives the contract's outputs, and counts what that walk does.
+
+def octet_walk(o, d, t_max, nodes, tris_bw, roots=None, any_hit=False,
+               stack_size=None, seen=None):
+    """The walk of the closest-hit kernel, or with any_hit of the any-hit
+    kernel, step for step: a popped node is culled by !(entry t < best)
+    (closest hit); its 8 children are tested against the best hit as it
+    stands at the pop (t_max for any hit); the entered inner children go
+    to stack[sp + rank], rank = the entered inner children with a larger
+    entry t, or an equal one and a lower slot; then the entered leaves
+    are tested nearest first (at equal t the lower slot first), each
+    culled again by entry t < best (closest hit); an occluded ray stops
+    (any hit). roots as in closest_hit. stack_size: the entries of each
+    ray's stack (default stack_need(nodes)); a push past it is dropped and
+    counted in kernels.stack_overflows(). seen: a pair of bool masks
+    (W,), (C,) in which the node rows expanded and the cluster rows
+    tested are marked.
+
+    Returns (t, tri, u, v, pops, clusters, held): the closest hit as
+    closest_hit returns it (with any_hit, tri >= 0 says occluded and t,
+    u, v are the hit that ended the ray), and per ray int32 the nodes
+    expanded, the clusters tested and the most stack entries held."""
+    n = o.shape[0]
+    dev = o.device
+    size = stack_need(nodes) if stack_size is None else stack_size
+    best = t_max.clone()
+    best_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros(n, dtype=torch.float32, device=dev)
+    best_v = torch.zeros(n, dtype=torch.float32, device=dev)
+    pops = torch.zeros(n, dtype=torch.int32, device=dev)
+    clusters = torch.zeros(n, dtype=torch.int32, device=dev)
+    held = torch.zeros(n, dtype=torch.int32, device=dev)
+    stack = torch.zeros((n, size), dtype=torch.int32, device=dev)
+    stack_t = torch.full((n, size), -BIG, dtype=torch.float32, device=dev)
+    inv = 1.0 / fix_dir(d)
+    box = nodes[:, :48].contiguous().view(torch.float32)
+    child = nodes[:, 48:56]
+    slot = torch.arange(LEAF, device=dev)
+    lower = slot[None, :] < slot[:, None]      # [c, j]: slot j below slot c
+
+    def test(rays, cl):
+        _test_leaf(o, d, tris_bw, rays, cl, best, best_tri, best_u, best_v)
+        clusters[rays] += 1
+        if seen is not None:
+            seen[1][cl] = True
+
+    live = t_max > 0
+    root = (torch.zeros(n, dtype=torch.int64, device=dev) if roots is None
+            else roots.to(torch.int64))
+    stack[:, 0] = torch.clamp_min(root, 0).to(torch.int32)
+    sp = (live & (root >= 0)).to(torch.int64)
+    held[:] = sp.to(torch.int32)
+    leaf_root = (live & (root < 0)).nonzero(as_tuple=True)[0]
+    if leaf_root.numel():
+        test(leaf_root, -root[leaf_root] - 1)
+    overflow = 0
+    while True:
+        act = (sp > 0).nonzero(as_tuple=True)[0]
+        if act.numel() == 0:
+            break
+        sp[act] -= 1
+        top = sp[act]
+        if any_hit:
+            r, node = act, stack[act, top].to(torch.int64)
+        else:
+            keep = stack_t[act, top] < best[act]     # the pop-time cull
+            r, node = act[keep], stack[act, top][keep].to(torch.int64)
+            if r.numel() == 0:
+                continue
+        pops[r] += 1
+        if seen is not None:
+            seen[0][node] = True
+        b = box[node].reshape(-1, 6, LEAF)
+        cid = child[node]
+        t_near, t_far = box_entry(o[r][:, None], inv[r][:, None],
+                                  b[:, 0:3].permute(0, 2, 1),
+                                  b[:, 3:6].permute(0, 2, 1))
+        cap = t_max[r] if any_hit else best[r]
+        enter = ((cid != INVALID) & (t_far >= torch.clamp_min(t_near, 0.0))
+                 & (t_near < cap[:, None]))
+        inner, leaf = enter & (cid >= 0), enter & (cid < 0)
+        mine, other = t_near[:, :, None], t_near[:, None, :]
+        tie_low = (other == mine) & lower[None]
+        rank = (inner[:, None, :] & ((other > mine) | tie_low)).sum(2)
+        leaf_rank = (leaf[:, None, :] & ((other < mine) | tie_low)).sum(2)
+        pos = sp[r][:, None] + rank
+        put = inner & (pos < size)
+        overflow += int((inner & ~put).sum())
+        rr = r[:, None].expand_as(put)[put]
+        stack[rr, pos[put]] = cid[put]
+        stack_t[rr, pos[put]] = t_near[put]
+        sp[r] = torch.clamp_max(sp[r] + inner.sum(1), size)
+        held[r] = torch.maximum(held[r], sp[r].to(torch.int32))
+        for q in range(LEAF):
+            pick = leaf & (leaf_rank == q)
+            has = pick.any(1)
+            if not bool(has.any()):
+                break
+            c = pick[has].to(torch.int8).argmax(1, keepdim=True)
+            rays = r[has]
+            entry = t_near[has].gather(1, c)[:, 0]
+            go = (best_tri[rays] < 0) if any_hit else (entry < best[rays])
+            cl = -cid[has].gather(1, c)[:, 0].to(torch.int64) - 1
+            if bool(go.any()):
+                test(rays[go], cl[go])
+        if any_hit:         # an occluded ray stops
+            sp[r[best_tri[r] >= 0]] = 0
+    if overflow:
+        kernels.add_overflows(dev, overflow)
+    t = torch.where(best_tri < 0, BIG, best)
+    return t, best_tri, best_u, best_v, pops, clusters, held
 
 
 # ----------------------------------------------------------------------------

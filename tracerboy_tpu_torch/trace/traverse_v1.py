@@ -30,8 +30,8 @@ Contract (kernel and plain version):
 - returns t (1e30 on a miss, whatever t_max was), the packed triangle id
   cluster * 8 + k (-1 on a miss) and u, v (0 on a miss);
 - a push past STACK_DEPTH entries is dropped, as on the TPU, and counted
-  in kernels.stack_overflows(); stack_need(nodes) is what a tree can ask
-  for (7 entries per level and one).
+  in kernels.stack_overflows(); traverse.stack_need(nodes) is what a tree
+  can ask for (7 entries per level and one).
 
 The plain version repeats the kernel's walk in lock step over the rays
 that still have a stack, with the same float32 expressions in the same
@@ -47,7 +47,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from tracerboy_tpu_torch.accel.bvh import INVALID
@@ -95,19 +94,6 @@ def closest_hit_v1(o, d, t_max, nodes, tris):
                    t_max, nodes, tris, n, t, tri, u, v)
     kernels.LAUNCHES["closest_v1"] += 1
     return t, tri, u, v
-
-
-def stack_need(nodes) -> int:
-    """The most stack entries the unordered walk can hold on this tree:
-    7 per level (a popped node pushes up to 8 children and the next pop
-    takes one) and one."""
-    ch = nodes[:, 48:56].cpu().numpy().astype(np.int64)
-    depth, level = 0, np.zeros(1, np.int64)
-    while level.size:
-        depth += 1
-        kids = ch[level].reshape(-1)
-        level = kids[(kids >= 0) & (kids != INVALID)]
-    return 7 * depth + 1
 
 
 def mt_tests(o, d, rows):

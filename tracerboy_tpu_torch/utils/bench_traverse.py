@@ -4,6 +4,7 @@ each other on three ray sets under several ray orders.
     python -m tracerboy_tpu_torch.utils.bench_traverse --scene shadertoy \
         --rays 921600 [--sets primary,bounce,shadow] [--sort none,oct-org]
         [--variants v1,v2,v2any] [--runs 10] [--stats] [--dead-frac 0.3]
+        [--wave-film 1280x720] [--wave-spp 8]
 
 The counterpart of the JAX package's scripts/bench_traverse.py. Ray sets
 (make_ray_sets, numpy, default_rng(7), the script's own):
@@ -12,7 +13,15 @@ The counterpart of the JAX package's scripts/bench_traverse.py. Ray sets
 - bounce:  random surface points, random directions in the hemisphere of
   the surface normal (incoherent);
 - shadow:  the same points toward one light, t_max capped at the light;
-- dead:    the primary rays with t_max = 0 (the fixed cost of a launch).
+- dead:    the primary rays with t_max = 0 (the fixed cost of a launch);
+- wave:    the closest-hit and shadow rays of every bounce of one real
+           render_sample(--wave-spp) at --wave-film, dead lanes and all,
+           recorded here by wrapping closest_hit and any_hit while a
+           Renderer renders (record_wave_rays). Each recorded launch is
+           timed again on the tables it was given, through v2 (closest hit)
+           or v2any (shadow), in each ray order, with the reorder beside it
+           and the sums over the wave last: whether sorting pays inside
+           the wave.
 Ray orders (coherence_sort, numpy, the script's own): none, oct-org,
 oct-org-compact, org-oct, org-dir, dir-org.
 Variants:
@@ -216,6 +225,100 @@ def differ_outside_ties(a, b) -> dict:
                 ties=int(tie.sum()))
 
 
+def record_wave_rays(scene, film, spp, device):
+    """The traversal launches of one render_sample(spp) of
+    Renderer(scene, film) on the default path, in launch order:
+    [(kind, o, d, t_max, nodes, tris_bw)], kind "closest" or "shadow".
+    closest_hit and any_hit of trace/traverse.py are wrapped while the
+    renderer runs, and put back."""
+    from tracerboy_tpu_torch import Renderer
+    from tracerboy_tpu_torch.trace import traverse
+
+    calls = []
+    real = traverse.closest_hit, traverse.any_hit
+
+    def recorder(kind, fn):
+        def wrapped(o, d, t_max, nodes, tris_bw, roots=None):
+            if roots is None:
+                calls.append((kind, o.clone(), d.clone(), t_max.clone(),
+                              nodes, tris_bw))
+            return fn(o, d, t_max, nodes, tris_bw, roots)
+        return wrapped
+
+    r = Renderer(scene, film_size=film, device=str(device))
+    r.render_sample(spp)        # warm up; nothing recorded
+    traverse.closest_hit = recorder("closest", real[0])
+    traverse.any_hit = recorder("shadow", real[1])
+    try:
+        r.render_sample(spp)
+    finally:
+        traverse.closest_hit, traverse.any_hit = real
+    return calls
+
+
+def wave_study(args, device, card, lo, hi, results):
+    """The `wave` ray set: every recorded launch in every ray order."""
+    from tracerboy_tpu_torch.trace import traverse
+
+    film = tuple(int(x) for x in args.wave_film.split("x"))
+    calls = record_wave_rays(args.scene, film, args.wave_spp, device)
+    seen = dict(closest=0, shadow=0)
+    totals: dict = {}
+    for kind, o, d, tm, nodes, tris_bw in calls:
+        label = f"{kind}_{seen[kind]}"
+        seen[kind] += 1
+        fn, vname = ((traverse.closest_hit, "v2") if kind == "closest"
+                     else (traverse.any_hit, "v2any"))
+        o_np, d_np, tm_np = (x.cpu().numpy() for x in (o, d, tm))
+        n = o.shape[0]
+        for sort_mode in args.sort.split(","):
+            prefix = f"{args.scene}/wave/{label}/{sort_mode}"
+            parts = dict(kernel=0.0, reorder=0.0)
+            if sort_mode == "none":
+                rays = (o, d, tm)
+            else:
+                key = torch.from_numpy(_sort_key(
+                    o_np, d_np, lo, hi, sort_mode, tm_np).astype(np.int64)
+                ).to(device)
+                order = torch.argsort(key, stable=True)
+                rays = tuple(x[order].contiguous() for x in (o, d, tm))
+                res = _summary(time_runs(
+                    lambda: _reorder(key, (o, d, tm)), args.runs, device), n)
+                results[f"{prefix}/reorder"] = res
+                parts["reorder"] = res["ms"]
+            res = _summary(time_runs(lambda: fn(*rays, nodes, tris_bw),
+                                     args.runs, device), n)
+            res["live"] = int((tm > 0).sum())
+            results[f"{prefix}/{vname}"] = res
+            parts["kernel"] = res["ms"]
+            print(f"{card} | {prefix}/{vname}: {res['ms']:.3f} ms "
+                  f"({res['q1']:.3f} .. {res['q3']:.3f}, n={res['n']}), "
+                  f"reorder {parts['reorder']:.3f} ms, {n} lanes, "
+                  f"{res['live']} live")
+            tot = totals.setdefault((kind, sort_mode),
+                                    dict(kernel=0.0, reorder=0.0))
+            for k, v in parts.items():
+                tot[k] += v
+    for (kind, sort_mode), tot in totals.items():
+        key = f"{args.scene}/wave/total_{kind}/{sort_mode}"
+        results[key] = dict(kernel_ms=tot["kernel"],
+                            reorder_ms=tot["reorder"],
+                            launches=seen[kind])
+        print(f"{card} | {key}: kernels {tot['kernel']:.3f} ms + reorder "
+              f"{tot['reorder']:.3f} ms over {seen[kind]} launches")
+
+
+def _reorder(key, src):
+    """What a ray order costs on the device beside the kernel: the sort of
+    the keys, the gather of the rays, the scatter of four outputs back."""
+    order = torch.argsort(key, stable=True)
+    rays = [x[order] for x in src]
+    out = [torch.empty_like(rays[2]) for _ in range(4)]
+    for buf in out:
+        buf[order] = rays[2]
+    return out
+
+
 def build_variants(names, packed, wide_tables):
     """{name: fn(o, d, t_max) -> the variant's full result}."""
     from tracerboy_tpu_torch.trace import traverse, traverse_v1
@@ -254,6 +357,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--dead-frac", type=float, default=0.0,
                     help="kill this share of the rays (t_max = 0); compare "
                          "the orders oct-org and oct-org-compact")
+    ap.add_argument("--wave-film", default="1280x720",
+                    help="film of the render the `wave` set records")
+    ap.add_argument("--wave-spp", type=int, default=8)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.runs < 1:
@@ -293,6 +399,9 @@ def main(argv=None) -> dict:
     results: dict = dict(device=card, scene=args.scene, rays=args.rays,
                          runs=args.runs)
     for set_name in args.sets.split(","):
+        if set_name == "wave":
+            wave_study(args, device, card, lo, hi, results)
+            continue
         for sort_mode in args.sort.split(","):
             o, d, tm = sets[set_name]
             if args.dead_frac > 0:
@@ -307,17 +416,8 @@ def main(argv=None) -> dict:
                 key = dev(_sort_key(o, d, lo, hi, sort_mode, tm)
                           .astype(np.int64))
                 src = (dev(o), dev(d), dev(tm))
-
-                def reorder():
-                    order = torch.argsort(key, stable=True)
-                    rays = [x[order] for x in src]
-                    out = [torch.empty_like(rays[2]) for _ in range(4)]
-                    for buf in out:
-                        buf[order] = rays[2]
-                    return out
-
-                res = _summary(time_runs(reorder, args.runs, device),
-                               args.rays)
+                res = _summary(time_runs(lambda: _reorder(key, src),
+                                         args.runs, device), args.rays)
                 results[f"{prefix}/reorder"] = res
                 print(f"{card} | {prefix}/reorder: {res['ms']:.3f} ms "
                       f"({res['q1']:.3f} .. {res['q3']:.3f}, n={res['n']})")

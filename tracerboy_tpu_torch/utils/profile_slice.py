@@ -12,10 +12,11 @@ torch.profiler trace of each call. From a trace's device events it
 reports the device span (first kernel start to last kernel end), the
 busy time (union of kernel intervals), the idle share of the span, the
 busy time by kernel class (the cut path's emit kernel and the binned
-path's selection and dense kernels each a class of their own), and each
+path's selection and dense kernels each a class of their own), each
 traversal kernel launch in order (closest hit and any hit alternate, one
 pair per bounce on the default path; the HEATMAP view's primary wave is
-closest_hit_stats). Then
+closest_hit_stats) and, printed as lines after the card's name, the
+closest-hit and any-hit time of each bounce with their sums. Then
 "shadertoy:cornell" at 512x512 on the brute-force path, and RealTime mode
 on "shadertoy" at 1280x720: REPS timed frames of
 render_realtime_frame_fused after three warm-up frames, and the same
@@ -42,7 +43,7 @@ from tracerboy_tpu_torch.trace import binned, cut, traverse
 from tracerboy_tpu_torch.utils.build import REPO_ROOT
 
 KERNEL_CLASSES = (
-    ("traversal", ("traverse_kernel",)),
+    ("traversal", ("octet_kernel", "traverse_")),
     ("emit", ("emit_kernel",)),
     ("select", ("select_kernel",)),
     ("dense", ("dense_kernel",)),
@@ -81,10 +82,26 @@ def _classify(name):
 
 
 def _traversal_kind(name):
-    """traverse_kernel<kAnyHit, kStats> instantiation -> wrapper name."""
-    if "<true" in name:
-        return "any_hit"
-    return "closest_hit_stats" if ", true>" in name else "closest_hit"
+    """A kernel of csrc/bvh_traverse.cu (octet_kernel<kAnyHit>,
+    traverse_stats_kernel) -> its wrapper's name."""
+    if "stats" in name:
+        return "closest_hit_stats"
+    any_hit = any(k in name for k in ("<true", "<(bool)1"))
+    return "any_hit" if any_hit else "closest_hit"
+
+
+def _by_bounce(launches):
+    """The traversal launches of one wave, in launch order, as rows
+    [closest-hit ms, any-hit ms] per bounce: a closest hit (or the stats
+    kernel) opens a bounce, the any hits up to the next one are its
+    shadow waves."""
+    rows = []
+    for kind, ms in launches:
+        if kind != "any_hit":
+            rows.append([ms, 0.0])
+        elif rows:
+            rows[-1][1] += ms
+    return rows
 
 
 def _device_summary(prof):
@@ -111,13 +128,14 @@ def _device_summary(prof):
                                               - e.time_range.start) / 1e3
     trav = sorted((e.time_range.start, e.name, e.time_range.end
                    - e.time_range.start) for e in evs
-                  if "traverse_kernel" in e.name)
+                  if _classify(e.name) == "traversal")
+    launches = [(_traversal_kind(name), d / 1e3) for _, name, d in trav]
     return dict(
         n_device_events=len(evs), span_ms=span / 1e3, busy_ms=busy / 1e3,
         idle_share=1.0 - busy / span if span > 0 else 0.0,
         by_class_ms=by_class,
-        traversal_launches_ms=[(_traversal_kind(name), d / 1e3)
-                               for _, name, d in trav],
+        traversal_launches_ms=launches,
+        traversal_by_bounce_ms=_by_bounce(launches),
     )
 
 
@@ -174,6 +192,13 @@ def main(argv=None):
             torch.cuda.synchronize()
         summary = _device_summary(prof)
         summary["wall_ms_profiled"] = (time.perf_counter() - w0) * 1e3
+        rows = summary.get("traversal_by_bounce_ms", [])
+        for b, (closest_ms, any_ms) in enumerate(rows):
+            print(f"{card} | render_sample({n}) bounce {b}: closest hit "
+                  f"{closest_ms:.3f} ms, any hit {any_ms:.3f} ms")
+        print(f"{card} | render_sample({n}) traversal: closest hit "
+              f"{sum(r[0] for r in rows):.3f} ms, any hit "
+              f"{sum(r[1] for r in rows):.3f} ms over {len(rows)} bounces")
         res[f"profile_render_sample_{n}"] = summary
         prof.export_chrome_trace(str(args.out / f"trace_render_sample_{n}"
                                      ".json"))
