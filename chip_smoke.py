@@ -30,7 +30,10 @@ Phases, each fatal on failure:
      the cut and binned tables (TB_CUT=1, TB_BINNED=1): emit (cut phase
      1), closest and any hit with per-ray roots (cut phase 2), selection
      and dense pairs (binned), on the 65,536 rays and on the 921,600-ray
-     primary and shadow waves, each timed beside its twin;
+     primary and shadow waves, each timed beside its twin; then selection
+     and dense pairs on every launch of one TB_BINNED=1 render_sample(1)
+     at 1280x720 (the bounce waves, the only rays the binned path gives
+     them), each against its plain version and timed, with the sums;
   7. the slice: Renderer("shadertoy", (1280, 720)) render_sample(1),
      render_sample(8), current_image(), which must launch both kernels
      and overflow no stack; then "shadertoy:cornell" at 512x512, 4 spp,
@@ -129,16 +132,13 @@ UNET_WEIGHTS = (Path(__file__).resolve().parent / "tracerboy_tpu" / "ml"
 # The bound of a kernel: the larger of its bytes (each ray input read
 # once, each table row these rays need read once, each output written
 # once) over the H100 SXM's 3.35 TB/s and its float32 operations over 67
-# TFLOP/s (no tensor cores). The rows: those the walk reads (node rows it
-# expands, cluster rows it tests; traverse.walk_footprint and
-# emit_walk), for the selection the coarse rows on the paths from the
-# root to its slots, for dense pairs the clusters of its pairs. The
-# operations per step, counted from csrc/bvh_common.cuh: a ray's set-up
-# (3 fix_dir, 3 reciprocals), one child's slab test with its entry test,
-# one Baldwin-Weber triangle test.
-HBM_BYTES_S = 3.35e12
-F32_OPS_S = 67e12
-RAY_OPS, SLAB_OPS, TRI_OPS = 12, 25, 49
+# TFLOP/s (no tensor cores): bound, walk_ops, select_bound, dense_bound
+# and slot_path_rows of tracerboy_tpu_torch/utils/bench_traverse.py, which
+# give the rates and the operations per step. The rows: those the walk
+# reads (node rows it expands, cluster rows it tests;
+# traverse.walk_footprint and emit_walk), for the selection the coarse
+# rows on the paths from the root to its slots, for dense pairs the
+# clusters of its pairs.
 # One Moller-Trumbore test of csrc/bvh_traverse_v1.cu (mt_test and the
 # t < best of its caller): two edges 6, d x e2 9, det 5, |det| > eps and
 # the reciprocal 3, o - v0 3, u 6, tv x e1 9, v 6, t 6, the five
@@ -153,7 +153,6 @@ STUDY_ARGS = ["--scene", "shadertoy", "--rays", str(1280 * 720), "--sets",
               "--variants", "v1,v2,v2any", "--runs", "10", "--stats"]
 RT_FUSED_FRAMES, RT_MOVE_AFTER, RT_PLAIN_FRAMES = 16, 10, 4
 RT_MOVE = dict(forward=0.15, strafe=0.05, yaw=0.02, pitch=-0.01)
-CLUSTER_TRIS = 128     # triangles a dense pair tests (trace/binned.py)
 
 
 def fail(msg):
@@ -212,60 +211,14 @@ def row_bytes(table, rows) -> int:
     return int(rows.sum()) * table[0].numel() * table.element_size()
 
 
-def slot_path_rows(nodes, slot_c):
-    """Bool mask of the coarse node rows on the paths from the root to the
-    parents of the selected clusters (slot_c >= 0): the rows the
-    selection must read to reach its slots."""
-    import torch
-
-    from tracerboy_tpu_torch.accel.bvh import INVALID
-
-    W = nodes.shape[0]
-    cid = nodes[:, 48:56].to(torch.int64)
-    owner = torch.arange(W, device=nodes.device)[:, None].expand_as(cid)
-    parent = torch.full((W,), -1, dtype=torch.int64, device=nodes.device)
-    inner = (cid >= 0) & (cid != INVALID)
-    parent[cid[inner]] = owner[inner]
-    leaf = cid < 0
-    cl_parent = torch.full((int((-cid[leaf] - 1).max()) + 1,), -1,
-                           dtype=torch.int64, device=nodes.device)
-    cl_parent[-cid[leaf] - 1] = owner[leaf]
-    seen = torch.zeros(W, dtype=torch.bool, device=nodes.device)
-    cur = torch.unique(cl_parent[slot_c[slot_c >= 0].long()])
-    while cur.numel():
-        seen[cur] = True
-        cur = parent[cur]
-        cur = torch.unique(cur[cur >= 0])
-        cur = cur[~seen[cur]]
-    return seen
-
-
-def bound(n_bytes, ops):
-    """(bound_ms, bound_by): the larger of n_bytes over the memory rate
-    and ops float32 operations over the float32 rate."""
-    t_bytes = n_bytes / HBM_BYTES_S * 1e3
-    t_ops = ops / F32_OPS_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def bound_keys(n_bytes, ops) -> dict:
     """The kernels line's bound keys; no single PyTorch call computes a
     BVH traversal, so library_ms is null."""
+    from tracerboy_tpu_torch.utils.bench_traverse import bound
+
     ms, by = bound(n_bytes, ops)
     return dict(bound_ms=ms, bound_by=by, bytes=int(n_bytes), ops=float(ops),
                 library_ms=None)
-
-
-def walk_ops(live, pops, clusters, nodes, tri_ops=TRI_OPS) -> float:
-    """Float32 operations of a stack walk over a node table: each live
-    ray's set-up, the slab tests of each popped node's children (the
-    table's mean count of valid child slots), the 8 triangle tests of
-    each leaf cluster at tri_ops each."""
-    from tracerboy_tpu_torch.accel.bvh import INVALID
-
-    children = float((nodes[:, 48:56] != INVALID).sum()) / nodes.shape[0]
-    return (live * RAY_OPS + pops * children * SLAB_OPS
-            + clusters * 8 * tri_ops)
 
 
 def check_image(name, img):
@@ -767,6 +720,11 @@ def opt_in_kernel_phase(scene, compare, primary, shadow):
     import torch
 
     from tracerboy_tpu_torch.trace import binned, cut, kernels, traverse
+    from tracerboy_tpu_torch.utils.bench_traverse import (
+        dense_bound,
+        select_bound,
+        slot_path_rows,
+    )
 
     K = 8
     main_t = (scene["pk_nodes"], scene["pk_tris_bw"])
@@ -822,9 +780,8 @@ def opt_in_kernel_phase(scene, compare, primary, shadow):
             ok_all &= ok
         if label == "primary":
             visits, top_rows = emit_walk(o, d, tm, top)
-            dense_cl = torch.zeros(dense_tables[0].shape[0], dtype=torch.bool,
-                                   device=o.device)
-            dense_cl[dpairs[3].long()] = True
+            select_cost = select_bound(o, d, tm, nodes, sk[1])
+            dense_cost = dense_bound(*dpairs, dense_tables[0])
             times.update(
                 emit_ms=cuda_ms(lambda: cut.emit_cuts(o, d, tm, top, S, K),
                                 20),
@@ -849,18 +806,12 @@ def opt_in_kernel_phase(scene, compare, primary, shadow):
                 emit_node_visits=visits,
                 emit_rows=int(top_rows.sum()),
                 select_rows=int(slot_path_rows(nodes, sk[1]).sum()),
-                dense_clusters=int(dense_cl.sum()),
-                # inputs + the rows they need + outputs: (N, K) ids;
-                # slot_t, slot_c (N, KSEL) and dropped; (t, tri, u, v) per
-                # pair
+                dense_clusters=int(torch.unique(dpairs[3]).numel()),
+                # inputs + the rows they need + outputs: (N, K) ids
                 emit_bytes=nbytes(o, d, tm) + row_bytes(top, top_rows)
                 + 4 * K * o.shape[0],
-                select_bytes=nbytes(o, d, tm)
-                + row_bytes(nodes, slot_path_rows(nodes, sk[1]))
-                + (8 * binned.KSEL + 4) * o.shape[0],
-                dense_bytes=nbytes(*dpairs)
-                + row_bytes(dense_tables[0], dense_cl)
-                + 4 * int(dense_cl.sum()) + 16 * dpairs[3].shape[0])
+                select_bytes=select_cost[0], select_ops=select_cost[1],
+                dense_bytes=dense_cost[0], dense_ops=dense_cost[1])
         if label == "shadow":
             times.update(
                 anyhit_roots_ms=cuda_ms(lambda: traverse.any_hit(
@@ -874,6 +825,68 @@ def opt_in_kernel_phase(scene, compare, primary, shadow):
     if not ok_all:
         fail(f"an opt-in kernel disagrees with its twin beyond {TOLERANCE}")
     return stats, times
+
+
+def binned_bounce_phase():
+    """The selection and dense kernels against their plain versions on the
+    launches of one TB_BINNED=1 render_sample(1) at 1280x720 (its bounce
+    waves; bench_traverse.record_binned_launches), each compared with
+    check_select / check_dense and timed (CUDA events), beside its bound.
+    Returns (statistics by launch, sums: ms, plain ms, bound ms, launches
+    of each kernel)."""
+    import torch
+
+    from tracerboy_tpu_torch.trace import binned, kernels
+    from tracerboy_tpu_torch.utils.bench_traverse import (
+        bound,
+        dense_bound,
+        record_binned_launches,
+        select_bound,
+    )
+
+    set_opt_in()
+    calls = record_binned_launches("shadertoy", FULL_WAVE, 1,
+                                   torch.device("cuda"))
+    stats, ok_all = {}, True
+    sums = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, launches=0)
+            for k in ("select", "dense")}
+    seen = dict(select=0, dense=0)
+    for kind, call in calls:
+        label = f"{kind}_{seen[kind]}"
+        seen[kind] += 1
+        kernels.reset_counters()
+        if kind == "select":
+            o, d, tm, nodes = call
+            got = binned.select_clusters(*call)
+            want, plain_ms = timed_once(
+                lambda: binned.select_clusters_plain(*call))
+            ok, st = check_select(o, d, tm, nodes, got, want)
+            st["stack_overflows"] = kernels.stack_overflows()
+            ok &= st["stack_overflows"] == 0
+            ms = cuda_ms(lambda: binned.select_clusters(*call), 10)
+            cost = select_bound(o, d, tm, nodes, got[1])
+            st.update(lanes=int(o.shape[0]), live=int((tm > 0).sum()))
+        else:
+            got = binned.dense_pairs(*call)
+            want, plain_ms = timed_once(
+                lambda: binned.dense_pairs_plain(*call))
+            ok, st = check_dense(got, want)
+            ms = cuda_ms(lambda: binned.dense_pairs(*call), 10)
+            cost = dense_bound(*call[:5])
+        st.update(ms=ms, plain_ms=plain_ms, bound_ms=bound(*cost)[0])
+        stats[label] = st
+        ok_all &= ok
+        for k in ("ms", "plain_ms", "bound_ms"):
+            sums[kind][k] += st[k]
+        sums[kind]["launches"] += 1
+        print(f"binned bounce launch {label} kernel vs plain:", json.dumps(st))
+    print("binned bounce launches of render_sample(1):", json.dumps(sums))
+    if not all(sums[k]["launches"] > 0 for k in sums):
+        fail(f"the binned render launched no bounce selection or dense: {sums}")
+    if not ok_all:
+        fail(f"a binned kernel disagrees with its plain version on the bounce "
+             f"launches beyond {TOLERANCE}, or overflowed its stack")
+    return stats, sums
 
 
 def render_slice(torch, Renderer, name, env, required, heatmap=False):
@@ -1145,7 +1158,10 @@ def v1_phase(cs, scene, compare, primary):
 
     from tracerboy_tpu_torch.accel.pack import pack_scene
     from tracerboy_tpu_torch.trace import kernels, traverse, traverse_v1
-    from tracerboy_tpu_torch.utils.bench_traverse import differ_outside_ties
+    from tracerboy_tpu_torch.utils.bench_traverse import (
+        differ_outside_ties,
+        walk_ops,
+    )
 
     pk, _ = pack_scene(cs.tri_v0, cs.tri_v1, cs.tri_v2, raw_rows=True)
     nodes = scene["pk_nodes"]
@@ -1365,6 +1381,7 @@ def main() -> int:
     from tracerboy_tpu_torch import Renderer
     from tracerboy_tpu_torch.scene.compile import load_scene
     from tracerboy_tpu_torch.trace import traverse
+    from tracerboy_tpu_torch.utils.bench_traverse import walk_ops
 
     set_opt_in()
     t0 = time.perf_counter()
@@ -1473,15 +1490,16 @@ def main() -> int:
     # --- the opt-in paths' kernels vs their twins ---------------------------
     opt_stats, opt_times = opt_in_kernel_phase(
         scene, (o, d, tm), (po, pd, ptm), (so, sd, stm))
-    # The selection walk's least work: each live ray's set-up and the
-    # slab tests of the coarse root's children (the walk is not counted).
-    select_ops = walk_ops(opt_times["primary_live"], opt_times["primary_live"],
-                          0, scene["bn_nodes"])
+    bounce_stats, bounce_sums = binned_bounce_phase()
+    bn_select = [opt_stats["select_compare"], opt_stats["select_primary"],
+                 *(v for k, v in bounce_stats.items()
+                   if k.startswith("select"))]
+    bn_dense = [opt_stats["dense_compare"], opt_stats["dense_primary"],
+                *(v for k, v in bounce_stats.items()
+                  if k.startswith("dense"))]
     emit_ops = walk_ops(opt_times["primary_live"],
                         opt_times["emit_node_visits"], 0,
                         scene["pk_cut_top"])
-    dense_ops = opt_times["dense_pairs"] * (RAY_OPS
-                                            + CLUSTER_TRIS * TRI_OPS)
     del scene, cs, o, d, tm, po, pd, ptm, so, sd, stm
 
     # --- the slice: default, cut and binned paths ---------------------------
@@ -1579,27 +1597,31 @@ def main() -> int:
         dict(name="select_clusters", route="cuda", source=bsrc,
              replaces="tracerboy_tpu/trace/binned.py:363",
              launches=bn_launches["select"],
-             max_abs_err=max(opt_stats[k]["max_abs_err"]
-                             for k in ("select_compare", "select_primary")),
-             set_mismatch=sum(opt_stats[k]["set_mismatch"]
-                              for k in ("select_compare", "select_primary")),
-             dropped_violations=sum(
-                 opt_stats[k]["dropped_violations"]
-                 for k in ("select_compare", "select_primary")),
+             max_abs_err=max(s["max_abs_err"] for s in bn_select),
+             set_mismatch=sum(s["set_mismatch"] for s in bn_select),
+             ties=sum(s["ties"] for s in bn_select),
+             dropped_violations=sum(s["dropped_violations"]
+                                    for s in bn_select),
              ms=opt_times["select_ms"], plain_ms=opt_times["select_plain_ms"],
-             **bound_keys(opt_times["select_bytes"], select_ops)),
+             **bound_keys(opt_times["select_bytes"], opt_times["select_ops"]),
+             bounce_ms=bounce_sums["select"]["ms"],
+             bounce_plain_ms=bounce_sums["select"]["plain_ms"],
+             bounce_bound_ms=bounce_sums["select"]["bound_ms"],
+             bounce_launches=bounce_sums["select"]["launches"]),
         dict(name="dense_pairs", route="cuda", source=bsrc,
              replaces="tracerboy_tpu/trace/binned.py:554",
              launches=bn_launches["dense"],
-             max_abs_err=max(opt_stats[k]["max_abs_err"]
-                             for k in ("dense_compare", "dense_primary")),
-             max_rel_t_err=max(opt_stats[k]["max_rel_t_err"]
-                               for k in ("dense_compare", "dense_primary")),
-             id_mismatch_outside_ties=sum(
-                 opt_stats[k]["id_mismatch_outside_ties"]
-                 for k in ("dense_compare", "dense_primary")),
+             max_abs_err=max(s["max_abs_err"] for s in bn_dense),
+             max_rel_t_err=max(s["max_rel_t_err"] for s in bn_dense),
+             hit_mismatch=sum(s["hit_mismatch"] for s in bn_dense),
+             id_mismatch_outside_ties=sum(s["id_mismatch_outside_ties"]
+                                          for s in bn_dense),
              ms=opt_times["dense_ms"], plain_ms=opt_times["dense_plain_ms"],
-             **bound_keys(opt_times["dense_bytes"], dense_ops)),
+             **bound_keys(opt_times["dense_bytes"], opt_times["dense_ops"]),
+             bounce_ms=bounce_sums["dense"]["ms"],
+             bounce_plain_ms=bounce_sums["dense"]["plain_ms"],
+             bounce_bound_ms=bounce_sums["dense"]["bound_ms"],
+             bounce_launches=bounce_sums["dense"]["launches"]),
         dict(name="closest_hit_v1", route="cuda",
              source="tracerboy_tpu_torch/csrc/bvh_traverse_v1.cu",
              replaces="tracerboy_tpu/trace/pallas_traverse.py:299",

@@ -14,11 +14,18 @@ scripts/bench_traverse.py.
 - The `wave` ray set on the CPU at a 16x12 film: one launch recorded per
   bounce and kind, with the lanes of the wave, each timed in each order;
   the sorted rays give the same hits; the wrappers are put back.
+- The `binned-wave` set on the CPU at a 16x12 film: the five selections
+  and ten dense launches of one TB_BINNED=1 render_sample(2), each with
+  its bound, run lengths and row stages (each stage passes no more rows
+  than the one before, per pair-row and per warp-row, and a warp-row
+  passes wherever one of its pair-rows does); the wrappers and TB_BINNED
+  are put back.
 - differ_outside_ties and time_runs on hand-made inputs.
 """
 
 import importlib.util
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -173,6 +180,40 @@ def test_wave_ray_set_on_the_cpu(capsys):
         assert total["reorder_ms"] == pytest.approx(sums["reorder"])
         assert res[f"shadertoy/wave/total_{kind}/none"][
             "kernel_ms"] == pytest.approx(sums["none"])
+
+
+def test_binned_wave_set_on_the_cpu(capsys, monkeypatch):
+    from tracerboy_tpu_torch.trace import binned
+
+    monkeypatch.delenv("TB_BINNED", raising=False)
+    real = binned.select_clusters, binned.dense_pairs
+    kernels.reset_counters()
+    res = study.main(["--scene", "shadertoy", "--rays", "64", "--sets",
+                      "binned-wave", "--runs", "1", "--device", "cpu",
+                      "--wave-film", "16x12", "--wave-spp", "2",
+                      "--variants", "v2"])
+    assert (binned.select_clusters, binned.dense_pairs) == real
+    assert "TB_BINNED" not in os.environ
+    assert kernels.TWIN_CALLS["select"] > 0 and kernels.TWIN_CALLS["dense"] > 0
+    key = "shadertoy/binned-wave"
+    assert res[f"{key}/total_select"]["launches"] == 5
+    assert res[f"{key}/total_dense"]["launches"] == 10
+    first = res[f"{key}/select_0"]
+    assert first["lanes"] == 16 * 12 * 2 and 0 < first["live"] <= first["lanes"]
+    for i in range(10):
+        r = res[f"{key}/dense_{i}"]
+        if not r["pairs"]:          # a late bounce with no pair at 16x12
+            continue
+        assert r["bound_ms"] > 0
+        assert r["ops"] == r["pairs"] * (12 + 128 * 49)
+        assert 1 <= r["run_min"] <= r["run_mean"] <= r["run_max"]
+        stages = list(r["stages"].values())
+        for per_pair, per_warp in stages:
+            assert 0.0 <= per_pair <= per_warp <= 1.0
+        for a, b in zip(stages, stages[1:]):
+            assert b[0] <= a[0] and b[1] <= a[1]
+    out = capsys.readouterr().out
+    assert "binned-wave/total_dense" in out and "rows in" in out
 
 
 def test_recorded_wave_rays_are_the_waves():

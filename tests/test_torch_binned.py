@@ -26,7 +26,9 @@ computed once per module.
   division where the traversal multiplies by 1/B (measured 9.7e-7
   absolute at t = 0.0137).
 - Under the `cuda` marker (skipped without a card): the selection and
-  dense kernels against their twins; run them on the card with
+  dense kernels against their twins on random rays and on bounce-like
+  rays in no order with dead lanes, and dense on pair lists with runs of
+  every length; run them on the card with
       python -m pytest --noconftest -m cuda tests/test_torch_binned.py
 """
 
@@ -289,12 +291,50 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def bounce_rays(rng, tris, n_rays):
+    """Rays in no order that leave random points of the triangles into the
+    hemisphere of each triangle's normal, as a wave's bounce rays do; a
+    fifth of them dead (t_max 0, one NaN), some capped."""
+    v0, v1, v2 = tris
+    ti = rng.integers(0, v0.shape[0], n_rays)
+    b = rng.random((n_rays, 2)).astype(np.float32)
+    b = np.where(b.sum(1, keepdims=True) > 1, 1 - b, b)
+    p = (v0[ti] * (1 - b.sum(1, keepdims=True)) + v1[ti] * b[:, :1]
+         + v2[ti] * b[:, 1:])
+    n = np.cross(v1[ti] - v0[ti], v2[ti] - v0[ti])
+    n /= np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-12)
+    d = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d = np.where((d * n).sum(1, keepdims=True) < 0, -d, d)
+    tm = np.full(n_rays, 1e30, np.float32)
+    tm[::5] = 0.0
+    tm[1] = np.nan
+    tm[3::7] = (1.0 + rng.random(len(tm[3::7])) * 5.0).astype(np.float32)
+    return ((p + n * 1e-4).astype(np.float32), d.astype(np.float32), tm)
+
+
+def run_shape_pairs(rng, o, d, tm, n_cl):
+    """A pair list sorted by cluster with runs of 1 pair, runs longer
+    than a block of 128 pairs and blocks spanning many runs, over the
+    given rays (cycled)."""
+    lengths = np.array([1, 700, 1, 1, 2, 3, 1, 5, 1, 1, 40, 129, 1, 7, 55,
+                        1, 256, 2, 1])
+    cl = np.sort(rng.choice(n_cl, len(lengths), replace=False))
+    cl = np.repeat(cl.astype(np.int32), lengths)
+    ray = np.arange(cl.shape[0]) % o.shape[0]
+    return o[ray], d[ray], tm[ray], torch.from_numpy(cl).to(o.device)
+
+
 @pytest.mark.cuda
-def test_binned_kernels_match_twins_on_the_card(cuda_device):
+@pytest.mark.parametrize("rays", ["random", "bounce"])
+def test_binned_kernels_match_twins_on_the_card(cuda_device, rays):
     dev = cuda_device
     rng = np.random.default_rng(77)
     tris = make_scene(rng, 20_000)
-    o, d, tm = (_t(x).to(dev) for x in make_rays(rng, 8192))
+    if rays == "random":
+        o, d, tm = (_t(x).to(dev) for x in make_rays(rng, 8192))
+    else:
+        o, d, tm = (_t(x).to(dev) for x in bounce_rays(rng, tris, 8191))
     _, scene = port_tables(*tris)
     scene = {k: v.to(dev) for k, v in scene.items()}
     kernels.reset_counters()
@@ -302,27 +342,32 @@ def test_binned_kernels_match_twins_on_the_card(cuda_device):
     pt, pc, pdr = binned.select_clusters_plain(o, d, tm, scene["bn_nodes"])
     torch.cuda.synchronize()
     assert kernels.stack_overflows() == 0
+    # Slots nearest first, as the twin's: equal entry t slot by slot, and
+    # the same sets but where two clusters tie at the K-th entry t.
+    assert torch.equal(st, pt)
     ks, ps = sc.sort(1).values, pc.sort(1).values
-    # Slot sets equal but where two clusters tie at the K-th entry t.
     kth = torch.where((pc >= 0).all(1), pt.max(1).values, 1e30)
     diff = (ks != ps).any(1)
     assert ((pdr == kth) | ~diff).all()
+    dead = ~(tm > 0)
+    assert (sc[dead] == -1).all() and (dr[dead] == 1e30).all()
     entry = _entries(o, d, tm, scene["bn_nodes"])
     outside = entry.clone()
     rows = torch.arange(o.shape[0], device=dev)[:, None].expand_as(sc)
     outside[rows[sc >= 0], sc[sc >= 0].long()] = 1e30
     kth_k = torch.where((sc >= 0).all(1), st.max(1).values, 1e30)
     assert (kth_k <= dr).all() and (dr <= outside.min(1).values).all()
-    po, pd, pcap, cl = _sorted_pairs(o, d, tm, sc)
-    k = binned.dense_pairs(po, pd, pcap, cl, scene["bn_mot"],
-                           scene["bn_base"])
-    p = binned.dense_pairs_plain(po, pd, pcap, cl, scene["bn_mot"],
-                                 scene["bn_base"])
-    for x, y in zip(k, p):
-        assert torch.equal(x, y)
+    n_cl = scene["bn_mot"].shape[0]
+    for pairs in (_sorted_pairs(o, d, tm, sc),
+                  run_shape_pairs(rng, o, d, tm, n_cl)):
+        k = binned.dense_pairs(*pairs, scene["bn_mot"], scene["bn_base"])
+        p = binned.dense_pairs_plain(*pairs, scene["bn_mot"],
+                                     scene["bn_base"])
+        for x, y in zip(k, p):
+            assert torch.equal(x, y)
     got = binned.binned_closest(scene, o, d, tm)
     want = traverse.closest_hit(o, d, tm, scene["pk_nodes"],
                                 scene["pk_tris_bw"])
     torch.cuda.synchronize()
     assert torch.equal(got[1] >= 0, want[1] >= 0)
-    assert kernels.LAUNCHES["select"] == 2 and kernels.LAUNCHES["dense"] >= 3
+    assert kernels.LAUNCHES["select"] == 2 and kernels.LAUNCHES["dense"] >= 4

@@ -15,7 +15,8 @@ package and the whole-tree traversal.
   dropped, and its binned_closest returns a miss on every ray. That is
   a fault of the reference (ROADMAP.md Queue 3), pinned here: the test
   fails once the reference finds these hits.
-- Under the `cuda` marker: the same scene through the kernels.
+- Under the `cuda` marker: the same scenes through the kernels, and
+  bounce-like rays in no order (dead lanes included) through the slabs.
 """
 
 import numpy as np
@@ -25,6 +26,7 @@ import torch
 from test_torch_binned import (
     _t,
     assert_matches_jax,
+    bounce_rays,
     jax_scene,
     make_scene,
     port_tables,
@@ -169,4 +171,18 @@ def test_fallback_scenes_on_the_card(cuda_device):
                                 scene["pk_tris_bw"])
     torch.cuda.synchronize()
     assert torch.equal(got[1] >= 0, want[1] >= 0)
-    assert kernels.LAUNCHES["select"] == 3 and kernels.stack_overflows() == 0
+    # Bounce-like rays in no order through the slabs, dead lanes included:
+    # the slots equal the twin's (nearest first), dead lanes empty.
+    o, d, tm = (_t(x).to(dev) for x in bounce_rays(
+        np.random.default_rng(5), tris, 4099))
+    st, sc, dr = binned.select_clusters(o, d, tm, scene["bn_nodes"])
+    pt, pc, pdr = binned.select_clusters_plain(o, d, tm, scene["bn_nodes"])
+    differ = (sc.sort(1).values != pc.sort(1).values).any(1)
+    assert torch.equal(st, pt) and (~differ | (pdr == pt[:, -1])).all()
+    assert (sc[~(tm > 0)] == -1).all()
+    got = binned.binned_closest(scene, o, d, tm)
+    want = traverse.closest_hit(o, d, tm, scene["pk_nodes"],
+                                scene["pk_tris_bw"])
+    torch.cuda.synchronize()
+    assert torch.equal(got[1] >= 0, want[1] >= 0)
+    assert kernels.LAUNCHES["select"] == 5 and kernels.stack_overflows() == 0

@@ -45,7 +45,7 @@ from tracerboy_tpu_torch.trace import kernels, traverse
 torch.set_num_threads(2)
 
 f32 = np.float32
-N_RAYS = 2048
+N_RAYS = 1024
 
 
 def _random_tables(seed, n_tris, copies=1):

@@ -1,19 +1,22 @@
-// A host stand-in for the CUDA device API that csrc/bvh_traverse.cu's
-// octet kernels use, so that g++ can compile the kernel source and a test
-// can run it without a card. Every thread of a block is a host thread;
-// every warp collective (shuffle, ballot, vote, __syncwarp) is a barrier of
-// the warp's 32 threads around an exchange through the warp's 32 slots.
-// That is a faithful model of a kernel whose collectives are all reached
-// by all 32 lanes and name the full warp, which is how those kernels are
-// written. Host launch code (guarded by __CUDACC__ in the source) is not
-// compiled.
+// A host stand-in for the CUDA device API that the port's kernel sources
+// use (csrc/bvh_traverse.cu's octet kernels, csrc/binned.cu), so that g++
+// can compile a kernel source and a test can run it without a card. Every
+// thread of a block is a host thread; every warp collective (shuffle,
+// ballot, vote, __syncwarp) is a barrier of the warp's 32 threads around an
+// exchange through the warp's 32 slots. That is a faithful model of a
+// kernel whose collectives are all reached by all 32 lanes and name the
+// full warp, which is how those kernels are written. The barrier sleeps on
+// a condition variable: a waiting thread takes no CPU. Shared memory is
+// whatever array the runner defines under the kernel's extern __shared__
+// name (one block runs at a time). Host launch code (guarded by __CUDACC__
+// in the sources) is not compiled.
 #pragma once
 
-#include <pthread.h>
-
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstring>
+#include <mutex>
 
 #define __global__
 #define __device__
@@ -31,12 +34,40 @@ struct float4 {
 struct int2 {
   int x, y;
 };
+struct int4 {
+  int x, y, z, w;
+};
+
+// A barrier of `count` threads that sleeps while it waits.
+class ShimBarrier {
+ public:
+  explicit ShimBarrier(int count) : count_(count) {}
+  void wait() {
+    std::unique_lock<std::mutex> lock(mutex_);
+    const unsigned generation = generation_;
+    if (++waiting_ == count_) {
+      waiting_ = 0;
+      ++generation_;
+      cv_.notify_all();
+    } else {
+      cv_.wait(lock, [&] { return generation_ != generation; });
+    }
+  }
+
+ private:
+  std::mutex mutex_;
+  std::condition_variable cv_;
+  const int count_;
+  int waiting_ = 0;
+  unsigned generation_ = 0;
+};
+
 struct WarpSlots {
-  pthread_barrier_t barrier;
+  ShimBarrier barrier{32};
   uint32_t slot[32];
 };
 
-extern thread_local Dim3 threadIdx, blockIdx, blockDim;
+extern thread_local Dim3 threadIdx, blockIdx, blockDim, gridDim;
 extern thread_local WarpSlots* shim_warp;
 extern thread_local int shim_lane;
 
@@ -49,6 +80,10 @@ inline To shim_bits(From v) {
 }
 
 inline int2 make_int2(int x, int y) { return int2{x, y}; }
+inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
 inline float4 __ldg(const float4* p) { return *p; }
 inline float __int_as_float(int v) { return shim_bits<float>(v); }
 inline int __float_as_int(float v) { return shim_bits<int>(v); }
@@ -62,7 +97,7 @@ inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
 
-inline void shim_barrier() { pthread_barrier_wait(&shim_warp->barrier); }
+inline void shim_barrier() { shim_warp->barrier.wait(); }
 
 // Every lane posts `mine`, then reads lane `from`'s word.
 inline uint32_t shim_exchange(uint32_t mine, int from) {
@@ -94,5 +129,12 @@ template <typename T>
 inline T __shfl_xor_sync(unsigned, T v, int lane_mask, int width = 32) {
   const int from =
       (shim_lane & ~(width - 1)) | ((shim_lane ^ lane_mask) & (width - 1));
+  return shim_bits<T>(shim_exchange(shim_bits<uint32_t>(v), from));
+}
+template <typename T>
+inline T __shfl_up_sync(unsigned, T v, unsigned delta, int width = 32) {
+  const int from = (shim_lane & (width - 1)) >= static_cast<int>(delta)
+                       ? shim_lane - static_cast<int>(delta)
+                       : shim_lane;
   return shim_bits<T>(shim_exchange(shim_bits<uint32_t>(v), from));
 }

@@ -7,7 +7,7 @@
 #include <thread>
 #include <vector>
 
-thread_local Dim3 threadIdx, blockIdx, blockDim;
+thread_local Dim3 threadIdx, blockIdx, blockDim, gridDim;
 thread_local WarpSlots* shim_warp;
 thread_local int shim_lane;
 
@@ -26,7 +26,6 @@ void run(const float* o, const float* d, const float* t_max,
          bool* occ, unsigned* next_ray, unsigned* overflow, int blocks) {
   for (int b = 0; b < blocks; ++b) {
     std::vector<WarpSlots> warps(kOctThreads / 32);
-    for (auto& w : warps) pthread_barrier_init(&w.barrier, nullptr, 32);
     std::vector<std::thread> threads;
     for (int x = 0; x < kOctThreads; ++x) {
       threads.emplace_back([&, x] {
@@ -41,7 +40,6 @@ void run(const float* o, const float* d, const float* t_max,
       });
     }
     for (auto& th : threads) th.join();
-    for (auto& w : warps) pthread_barrier_destroy(&w.barrier);
   }
 }
 

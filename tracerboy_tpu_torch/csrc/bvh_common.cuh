@@ -22,6 +22,7 @@ constexpr float kBaryEps = 1e-5f;
 constexpr float kBaryHi = static_cast<float>(1.0 + 1e-5);
 constexpr float kTMin = 1e-5f;
 constexpr float kDetEps = 1e-12f;
+constexpr unsigned int kFull = 0xffffffffu;   // a full-warp mask
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, inv_x, inv_y, inv_z, t_max;

@@ -141,7 +141,6 @@ constexpr int kOctet = 8;          // lanes a ray
 constexpr int kOctThreads = 128;   // 4 warps: 16 rays in flight a block
 constexpr int kOctets = kOctThreads / kOctet;
 constexpr int kBlocksPerSM = 12;   // 1,536 resident threads an SM
-constexpr unsigned int kFull = 0xffffffffu;
 constexpr unsigned int kNoHit = 0x7f800000u;   // +infinity's bits
 
 // The 8 bits of a warp ballot that belong to the octet whose first lane is

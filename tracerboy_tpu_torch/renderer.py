@@ -293,11 +293,12 @@ class Renderer:
     def render_sample(self, n: int = 1):
         """Trace n progressive samples, accumulating into state. On the
         packed backends n > 1 merges up to k samples into one wave of k*N
-        lanes; brute force loops over single-sample waves."""
+        lanes; brute force and the wide backend batch single-sample waves
+        (so the AOVs are the last sample's, as in the JAX package)."""
         cfg = self.wave_config()
         params = self.frame_params()
         ids = self.pixel_ids
-        if (n > 1 and cfg.traversal != "brute"
+        if (n > 1 and cfg.traversal in PACKED_BACKENDS
                 and params.get("selected_pixel") is None):
             k_max = max(1, min(MERGED_WAVE_MAX_K,
                                MERGED_WAVE_LANES // max(ids.shape[0], 1)))

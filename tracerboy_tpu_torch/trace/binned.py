@@ -37,8 +37,11 @@ slots it evicts and the leaves it rejects within one node. See
 csrc/binned.cu and ROADMAP.md Queue 3.
 
 select_clusters and dense_pairs launch their CUDA kernels
-(csrc/binned.cu) on CUDA tensors and take their plain twins on CPU
-tensors; binned_closest takes the twins throughout with plain=True.
+(csrc/binned.cu, whose header gives their design) on CUDA tensors and
+take their plain twins on CPU tensors; binned_closest takes the twins
+throughout with plain=True. The selection kernel's slots come out nearest
+first, as the twin's; its stack holds traverse.stack_need(bn_nodes)
+entries a ray, and a push past it is counted in kernels.stack_overflows().
 STATS counts live rays and fallback rays (device tensors, read with
 int()).
 """
@@ -143,7 +146,7 @@ def build_kernels():
     if _lib is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         _lib = kernels.load_library("tbbinned", _SOURCE, {
-            "tb_select_clusters": [p, p, p, p, i, p, p, p, p, p],
+            "tb_select_clusters": [p, p, p, p, i, i, p, p, p, p, p, p],
             "tb_dense_pairs": [p, p, p, p, p, p, i, p, p, p, p, p],
         })
     return _lib
@@ -163,12 +166,16 @@ def select_clusters(o, d, t_max, nodes):
     if o.device.type == "cpu":
         kernels.TWIN_CALLS["select"] += 1
         return select_clusters_plain(o, d, t_max, nodes)
+    # At most traverse.MAX_STACK_ENTRIES (else it raises): 48 KB a block.
+    entries = traverse.stack_entries(nodes)
     n = o.shape[0]
     slot_t = torch.empty((n, KSEL), dtype=torch.float32, device=o.device)
     slot_c = torch.empty((n, KSEL), dtype=torch.int32, device=o.device)
     dropped = torch.empty(n, dtype=torch.float32, device=o.device)
+    next_ray = torch.zeros(1, dtype=torch.int32, device=o.device)
     kernels.launch(build_kernels(), "tb_select_clusters", o.device, o, d,
-                   t_max, nodes, n, slot_t, slot_c, dropped)
+                   t_max, nodes, n, entries, slot_t, slot_c, dropped,
+                   next_ray)
     kernels.LAUNCHES["select"] += 1
     return slot_t, slot_c, dropped
 

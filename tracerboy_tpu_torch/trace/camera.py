@@ -121,10 +121,13 @@ def generate_primary_rays_soa(
 
     if dof_u is not None and float(dof_focus_distance) > 0.0:
         focus = origin + direction * dof_focus_distance
-        rr = torch.sqrt(dof_u) * dof_aperture_width
-        theta = dof_v * 2.0 * np.pi
-        cr = torch.cos(theta) * rr
-        sr = torch.sin(theta) * rr
+        # The lens offset in float64, rounded once to the rays' dtype: the
+        # host's vectorised float32 sin / cos were seen off by 2e-4
+        # relative on some runs, float64 on every device is not.
+        rr = torch.sqrt(dof_u.double()) * float(dof_aperture_width)
+        theta = dof_v.double() * (2.0 * np.pi)
+        cr = (torch.cos(theta) * rr).to(dof_u.dtype)
+        sr = (torch.sin(theta) * rr).to(dof_u.dtype)
         new_o = v3.V3(
             origin.x + right.x * cr + upv.x * sr,
             origin.y + right.y * cr + upv.y * sr,

@@ -22,6 +22,14 @@ The counterpart of the JAX package's scripts/bench_traverse.py. Ray sets
            or v2any (shadow), in each ray order, with the reorder beside it
            and the sums over the wave last: whether sorting pays inside
            the wave.
+- binned-wave: the launches of the binned backend's two kernels in one
+           TB_BINNED=1 render_sample(--wave-spp) at --wave-film (its
+           bounce waves; record_binned_launches): per selection its lanes,
+           live rays, ms and bound; per dense launch its pairs, distinct
+           clusters, run lengths, ms, bound and the share of pair-rows that
+           pass each stage of the triangle test (dense_row_stages), per
+           pair and per group of 32 neighbouring pairs (a warp); the sums
+           last. --sort does not apply.
 Ray orders (coherence_sort, numpy, the script's own): none, oct-org,
 oct-org-compact, org-oct, org-dir, dir-org.
 Variants:
@@ -32,6 +40,18 @@ Variants:
 - wide:  the lock-step traversal in plain torch (traverse_wide).
 The tables are packed here from the scene's triangles (pack_scene with
 raw_rows=True), as the script packs its own.
+
+Bounds (bound, walk_ops, select_bound, dense_bound; chip_smoke.py uses
+the same): the larger of the bytes a kernel must move (each ray input read
+once, each table row its rays need read once, each output written once)
+over the H100 SXM's 3.35 TB/s and its float32 operations over 67 TFLOP/s
+(no tensor cores). The operations per step, counted from
+csrc/bvh_common.cuh: a ray's set-up 12 (3 fix_dir, 3 reciprocals), one
+child's slab test with its entry test 25, one Baldwin-Weber triangle test
+49. The selection counts each live ray's set-up and the root's slab tests
+and the coarse rows on the paths from the root to its slots; a dense pair
+its set-up and 128 triangle tests, whatever a kernel skips, and the rows of
+its pairs' clusters.
 
 Each variant is warmed up, then timed --runs times with CUDA events (one
 launch per event pair); a line gives the median, the quartiles, Mrays/s at
@@ -64,6 +84,11 @@ import torch
 SORT_MODES = ("none", "oct-org", "oct-org-compact", "org-oct", "org-dir",
               "dir-org")
 TIE_REL = 1e-5
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+RAY_OPS, SLAB_OPS, TRI_OPS = 12, 25, 49
+CLUSTER_TRIS = 128     # triangles a dense pair tests (trace/binned.py)
+WARP = 32
 
 
 def make_ray_sets(cs, n_rays, rng):
@@ -256,6 +281,248 @@ def record_wave_rays(scene, film, spp, device):
     return calls
 
 
+def bound(n_bytes, ops):
+    """(bound_ms, bound_by): the larger of n_bytes over the memory rate
+    and ops float32 operations over the float32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    t_ops = ops / F32_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def walk_ops(live, pops, clusters, nodes, tri_ops=TRI_OPS) -> float:
+    """Float32 operations of a stack walk over a node table: each live
+    ray's set-up, the slab tests of each popped node's children (the
+    table's mean count of valid child slots), the 8 triangle tests of
+    each leaf cluster at tri_ops each."""
+    from tracerboy_tpu_torch.accel.bvh import INVALID
+
+    children = float((nodes[:, 48:56] != INVALID).sum()) / nodes.shape[0]
+    return (live * RAY_OPS + pops * children * SLAB_OPS
+            + clusters * 8 * tri_ops)
+
+
+def slot_path_rows(nodes, slot_c):
+    """Bool mask of the coarse node rows on the paths from the root to the
+    parents of the selected clusters (slot_c >= 0): the rows the
+    selection must read to reach its slots."""
+    from tracerboy_tpu_torch.accel.bvh import INVALID
+
+    W = nodes.shape[0]
+    cid = nodes[:, 48:56].to(torch.int64)
+    owner = torch.arange(W, device=nodes.device)[:, None].expand_as(cid)
+    parent = torch.full((W,), -1, dtype=torch.int64, device=nodes.device)
+    inner = (cid >= 0) & (cid != INVALID)
+    parent[cid[inner]] = owner[inner]
+    leaf = cid < 0
+    cl_parent = torch.full((int((-cid[leaf] - 1).max()) + 1,), -1,
+                           dtype=torch.int64, device=nodes.device)
+    cl_parent[-cid[leaf] - 1] = owner[leaf]
+    seen = torch.zeros(W, dtype=torch.bool, device=nodes.device)
+    cur = torch.unique(cl_parent[slot_c[slot_c >= 0].long()])
+    while cur.numel():
+        seen[cur] = True
+        cur = parent[cur]
+        cur = torch.unique(cur[cur >= 0])
+        cur = cur[~seen[cur]]
+    return seen
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def select_bound(o, d, tm, nodes, slot_c):
+    """(bytes, operations) of one selection: rays in, the coarse rows on
+    the paths to its slots, slot_t, slot_c and dropped out; each live
+    ray's set-up and the slab tests of the root's children."""
+    rows = int(slot_path_rows(nodes, slot_c).sum())
+    live = int((tm > 0).sum())
+    n_bytes = (_nbytes(o, d, tm) + rows * nodes[0].numel() * 4
+               + (8 * slot_c.shape[1] + 4) * o.shape[0])
+    return n_bytes, walk_ops(live, live, 0, nodes)
+
+
+def dense_bound(o, d, cap, cluster, mot):
+    """(bytes, operations) of one dense launch: pairs in, the rows and
+    base of their distinct clusters, (t, tri, u, v) out; each pair's
+    set-up and 128 triangle tests."""
+    n_cl = int(torch.unique(cluster).numel())
+    m = cluster.shape[0]
+    n_bytes = (_nbytes(o, d, cap, cluster) + n_cl * mot[0].numel() * 4
+               + 4 * n_cl + 16 * m)
+    return n_bytes, m * (RAY_OPS + CLUSTER_TRIS * TRI_OPS)
+
+
+def dense_row_stages(o, d, cap, cluster, mot, chunk: int = 1 << 16):
+    """How many of a dense launch's pair-rows pass each stage of the
+    triangle test, in dense_pairs_plain's arithmetic: `facing` |B| >=
+    1e-12 and -A, B of one sign (t > 0), `t` 1e-5 < t < min(cap, the
+    nearest hit of the rows before it), `u` u >= -1e-5, `hit` accepted
+    (v >= -1e-5, u + v <= 1 + 1e-5) below the nearer hit. Each stage
+    counted per pair-row and per (warp, row): a row of a group of 32
+    neighbouring pairs where any pair of the group is still in.
+    Returns {stage: [per pair-row, per warp-row]} counts and the totals."""
+    from tracerboy_tpu_torch.trace.binned import BIG
+
+    stages = ("facing", "t", "u", "hit")
+    counts = {k: [0, 0] for k in stages}
+    m = cluster.shape[0]
+    chunk -= chunk % WARP
+    for s in range(0, m, chunk):
+        cl = cluster[s:s + chunk].long()
+        a, g, h = (mot[cl, k * CLUSTER_TRIS:(k + 1) * CLUSTER_TRIS]
+                   for k in range(3))
+        ox, oy, oz = (o[s:s + chunk, k:k + 1] for k in range(3))
+        dx, dy, dz = (d[s:s + chunk, k:k + 1] for k in range(3))
+        A = a[..., 0] * ox + a[..., 1] * oy + a[..., 2] * oz + a[..., 3]
+        B = a[..., 0] * dx + a[..., 1] * dy + a[..., 2] * dz
+        facing = (A * B < 0) & (B.abs() >= 1e-12)
+        t = -A / torch.where(B.abs() < 1e-12, 1e-12, B)
+        u = ((g[..., 0] * ox + g[..., 1] * oy + g[..., 2] * oz + g[..., 3])
+             + t * (g[..., 0] * dx + g[..., 1] * dy + g[..., 2] * dz))
+        v = ((h[..., 0] * ox + h[..., 1] * oy + h[..., 2] * oz + h[..., 3])
+             + t * (h[..., 0] * dx + h[..., 1] * dy + h[..., 2] * dz))
+        ok = ((t > 1e-5) & (u >= -1e-5) & (v >= -1e-5)
+              & (u + v <= 1.0 + 1e-5) & (B.abs() >= 1e-12)
+              & (t < cap[s:s + chunk, None]))
+        # The nearest accepted hit of the rows before each row.
+        near = torch.cummin(torch.where(ok, t, BIG), dim=1).values
+        before = torch.cat([torch.full_like(near[:, :1], BIG),
+                            near[:, :-1]], dim=1)
+        lim = torch.minimum(before, cap[s:s + chunk, None])
+        in_t = facing & (t > 1e-5) & (t < lim)
+        in_u = in_t & (u >= -1e-5)
+        passed = dict(facing=facing, t=in_t, u=in_u, hit=ok & (t < before))
+        n = cl.shape[0]
+        pad = -n % WARP
+        for k, x in passed.items():
+            counts[k][0] += int(x.sum())
+            xw = torch.cat([x, x.new_zeros((pad, x.shape[1]))]) if pad else x
+            counts[k][1] += int(xw.reshape(-1, WARP, x.shape[1]).any(1).sum())
+    warps = -(-m // WARP)
+    return dict(counts=counts, pair_rows=m * CLUSTER_TRIS,
+                warp_rows=warps * CLUSTER_TRIS)
+
+
+def record_binned_launches(scene, film, spp, device):
+    """The selection and dense launches of one TB_BINNED=1
+    render_sample(spp) of Renderer(scene, film), in launch order:
+    [("select", (o, d, t_max, nodes)) or ("dense", (o, d, cap, cluster,
+    mot, base))]. select_clusters and dense_pairs of trace/binned.py are
+    wrapped while the renderer runs, and put back; TB_BINNED is restored."""
+    import os
+
+    from tracerboy_tpu_torch import Renderer
+    from tracerboy_tpu_torch.trace import binned
+
+    calls = []
+    real = binned.select_clusters, binned.dense_pairs
+
+    def select(o, d, t_max, nodes):
+        calls.append(("select", (o.clone(), d.clone(), t_max.clone(), nodes)))
+        return real[0](o, d, t_max, nodes)
+
+    def dense(*args):
+        calls.append(("dense", args))
+        return real[1](*args)
+
+    before = os.environ.get("TB_BINNED")
+    os.environ["TB_BINNED"] = "1"
+    try:
+        r = Renderer(scene, film_size=film, device=str(device))
+        r.render_sample(spp)        # warm up; nothing recorded
+        binned.select_clusters, binned.dense_pairs = select, dense
+        try:
+            r.render_sample(spp)
+        finally:
+            binned.select_clusters, binned.dense_pairs = real
+    finally:
+        if before is None:
+            del os.environ["TB_BINNED"]
+        else:
+            os.environ["TB_BINNED"] = before
+    return calls
+
+
+def binned_wave_study(args, device, card, results):
+    """The `binned-wave` set: each recorded selection and dense launch
+    timed again (CUDA events, --runs each), beside its bound; the dense
+    launches' run lengths and row stages."""
+    from tracerboy_tpu_torch.trace import binned
+
+    film = tuple(int(x) for x in args.wave_film.split("x"))
+    calls = record_binned_launches(args.scene, film, args.wave_spp, device)
+    seen = dict(select=0, dense=0)
+    totals = {k: dict(ms=0.0, bound_ms=0.0, launches=0) for k in seen}
+    stage_sum: dict = {}
+    for kind, call in calls:
+        label = f"{kind}_{seen[kind]}"
+        seen[kind] += 1
+        if kind == "select":
+            o, d, tm, nodes = call
+            out = binned.select_clusters(o, d, tm, nodes)
+            res = _summary(time_runs(lambda: binned.select_clusters(*call),
+                                     args.runs, device), o.shape[0])
+            n_bytes, ops = select_bound(o, d, tm, nodes, out[1])
+            res.update(lanes=int(o.shape[0]), live=int((tm > 0).sum()),
+                       slots=int((out[1] >= 0).sum()))
+            what = (f"{res['lanes']} lanes, {res['live']} live, "
+                    f"{res['slots']} slots filled")
+        else:
+            o, d, cap, cl, mot, base = call
+            res = _summary(time_runs(lambda: binned.dense_pairs(*call),
+                                     args.runs, device), o.shape[0])
+            n_bytes, ops = dense_bound(o, d, cap, cl, mot)
+            runs = torch.unique_consecutive(cl, return_counts=True)[1]
+            if not runs.numel():
+                runs = torch.zeros(1, dtype=torch.int64)
+            rows = dense_row_stages(o, d, cap, cl, mot)
+            for k, (per_row, per_warp) in rows["counts"].items():
+                acc = stage_sum.setdefault(k, [0, 0])
+                acc[0] += per_row
+                acc[1] += per_warp
+            stage_sum["pair_rows"] = (stage_sum.get("pair_rows", 0)
+                                      + rows["pair_rows"])
+            stage_sum["warp_rows"] = (stage_sum.get("warp_rows", 0)
+                                      + rows["warp_rows"])
+            res.update(pairs=int(cl.shape[0]), clusters=int(runs.numel()),
+                       run_mean=float(runs.float().mean()),
+                       run_min=int(runs.min()), run_max=int(runs.max()),
+                       runs_under_32=int((runs < 32).sum()),
+                       stages={k: [v[0] / max(rows["pair_rows"], 1),
+                                   v[1] / max(rows["warp_rows"], 1)]
+                               for k, v in rows["counts"].items()})
+            what = (f"{res['pairs']} pairs, {res['clusters']} clusters, runs "
+                    f"{res['run_min']} .. {res['run_max']} (mean "
+                    f"{res['run_mean']:.0f}, {res['runs_under_32']} under "
+                    f"32), rows in (pair / warp) " + ", ".join(
+                        f"{k} {a:.3f} / {b:.3f}"
+                        for k, (a, b) in res["stages"].items()))
+        res["bound_ms"], res["bound_by"] = bound(n_bytes, ops)
+        res.update(bytes=int(n_bytes), ops=float(ops))
+        results[f"{args.scene}/binned-wave/{label}"] = res
+        tot = totals[kind]
+        tot["ms"] += res["ms"]
+        tot["bound_ms"] += res["bound_ms"]
+        tot["launches"] += 1
+        print(f"{card} | {args.scene}/binned-wave/{label}: {res['ms']:.3f} ms "
+              f"({res['q1']:.3f} .. {res['q3']:.3f}, n={res['n']}), bound "
+              f"{res['bound_ms']:.4f} ms ({res['bound_by']}); {what}")
+    for kind, tot in totals.items():
+        results[f"{args.scene}/binned-wave/total_{kind}"] = tot
+        print(f"{card} | {args.scene}/binned-wave/total_{kind}: "
+              f"{tot['ms']:.3f} ms over {tot['launches']} launches, bound "
+              f"{tot['bound_ms']:.4f} ms")
+    if stage_sum:
+        share = {k: [v[0] / stage_sum["pair_rows"],
+                     v[1] / stage_sum["warp_rows"]]
+                 for k, v in stage_sum.items() if isinstance(v, list)}
+        results[f"{args.scene}/binned-wave/dense_row_stages"] = share
+        print(f"{card} | {args.scene}/binned-wave/dense_row_stages (pair / "
+              f"warp): " + ", ".join(f"{k} {a:.3f} / {b:.3f}"
+                                     for k, (a, b) in share.items()))
+
+
 def wave_study(args, device, card, lo, hi, results):
     """The `wave` ray set: every recorded launch in every ray order."""
     from tracerboy_tpu_torch.trace import traverse
@@ -401,6 +668,9 @@ def main(argv=None) -> dict:
     for set_name in args.sets.split(","):
         if set_name == "wave":
             wave_study(args, device, card, lo, hi, results)
+            continue
+        if set_name == "binned-wave":
+            binned_wave_study(args, device, card, results)
             continue
         for sort_mode in args.sort.split(","):
             o, d, tm = sets[set_name]
