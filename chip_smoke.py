@@ -20,12 +20,13 @@ Phases, each fatal on failure:
      the kernels', its pops, cluster tests and stack entries held beside
      the serial walk's (the boxes the octet order enters in excess);
   5. the stats kernel (closest hit with per-ray traversal counts, the
-     HEATMAP view's primary wave) on the 65,536 rays and the 921,600-ray
-     primary wave: hits equal to the stats-free kernel's by that kernel's
-     own tie rule (t equal; id, u, v equal outside ties; the two walk in
-     different orders), counts equal to its twin's (each mismatching ray
-     listed), no stack overflow; timed beside the stats-free kernel and
-     the twin;
+     HEATMAP view's primary wave) on the 65,536 rays, the 921,600-ray
+     primary wave and the study's 921,600 bounce rays in no order: hits
+     equal to the stats-free kernel's by that kernel's own tie rule (t
+     equal; id, u, v equal outside ties; the two walk in different
+     orders), counts equal to its twin's (each mismatching ray listed),
+     no stack overflow; timed beside the stats-free kernel and the twin
+     on the primary wave and on the unordered rays;
   6. the same for the opt-in paths' kernels on the scene compiled with
      the cut and binned tables (TB_CUT=1, TB_BINNED=1): emit (cut phase
      1), closest and any hit with per-ray roots (cut phase 2), selection
@@ -58,11 +59,13 @@ Phases, each fatal on failure:
      kernel path against the twin path, and the cut and the binned path
      against the default kernel path, with the CPU tests' tolerance;
  11. the first-generation ("v1") closest-hit kernel against its plain
-     version on the 65,536 rays and the 921,600-ray primary wave (within
-     TOLERANCE, ids outside ties, no stack overflow, the tree's stack need
-     inside the kernel's stack), timed beside the closest-hit kernel of
-     the waves on the same rays; the rays on which the two kernels differ
-     (another triangle test: never a failure) are counted;
+     version on the 65,536 rays, the 921,600-ray primary wave and the
+     study's 921,600 bounce rays in no order (within TOLERANCE, ids
+     outside ties, no stack overflow, the tree's stack need inside the
+     kernel's stack), timed beside the closest-hit kernel of the waves on
+     the primary wave and on the unordered rays; the rays on which the two
+     kernels differ (another triangle test: never a failure) are
+     counted;
  12. the traversal study (tracerboy_tpu_torch.utils.bench_traverse) at
      921,600 rays on "shadertoy": primary, bounce and shadow rays, in the
      given order and sorted oct-org, through v1, the closest-hit and the
@@ -139,11 +142,6 @@ UNET_WEIGHTS = (Path(__file__).resolve().parent / "tracerboy_tpu" / "ml"
 # traverse.walk_footprint and emit_walk), for the selection the coarse
 # rows on the paths from the root to its slots, for dense pairs the
 # clusters of its pairs.
-# One Moller-Trumbore test of csrc/bvh_traverse_v1.cu (mt_test and the
-# t < best of its caller): two edges 6, d x e2 9, det 5, |det| > eps and
-# the reciprocal 3, o - v0 3, u 6, tv x e1 9, v 6, t 6, the five
-# acceptance comparisons with u + v 6.
-MT_OPS = 59
 # The demodulation identity on a wave without russian roulette: the two
 # traces take the same paths, so the composite differs from the plain
 # radiance by float32 rounding of the split sums only.
@@ -517,13 +515,14 @@ def wave_bounce_phase():
     return res
 
 
-def stats_phase(tables, sets):
+def stats_phase(tables, sets, timed):
     """The stats kernel on each (label, (o, d, t_max)) of sets against
     the stats-free kernel (another walk order: compared as a kernel with
     its twin, ids outside ties, within TOLERANCE) and its twin (the hits
     and the counts, each mismatching ray listed), with no stack overflow;
-    on the last set the kernels are timed beside the twin's comparison
-    call. Returns (statistics by label, times)."""
+    on each set named in timed (a dict label: key prefix) the kernels are
+    timed beside the twin's comparison call ({prefix}_ms,
+    {prefix}_free_ms). Returns (statistics by label, times)."""
     import torch
 
     from tracerboy_tpu_torch.trace import kernels, traverse
@@ -565,13 +564,14 @@ def stats_phase(tables, sets):
                    <= STATS_TOLERANCE["count_mismatch_frac"] * n)
         times[f"{label}_plain_ms"] = plain_ms
     overflows = kernels.stack_overflows()
-    o, d, tm = sets[-1][1]
-    times.update(
-        stats_ms=cuda_ms(lambda: traverse.closest_hit_stats(o, d, tm,
-                                                            *tables), 20),
-        stats_free_ms=cuda_ms(lambda: traverse.closest_hit(o, d, tm,
-                                                           *tables), 20),
-        stack_overflows=overflows)
+    for label, (o, d, tm) in sets:
+        if label not in timed:
+            continue
+        times[f"{timed[label]}_ms"] = cuda_ms(
+            lambda: traverse.closest_hit_stats(o, d, tm, *tables), 20)
+        times[f"{timed[label]}_free_ms"] = cuda_ms(
+            lambda: traverse.closest_hit(o, d, tm, *tables), 20)
+    times["stack_overflows"] = overflows
     print("timing stats kernel:", json.dumps(times))
     if overflows > STATS_TOLERANCE["overflows"]:
         fail(f"stats phase: {overflows} traversal stack overflows")
@@ -1148,17 +1148,19 @@ def parity_phase(torch, Renderer):
                  f"{stats}")
 
 
-def v1_phase(cs, scene, compare, primary):
+def v1_phase(cs, scene, compare, primary, unordered):
     """The first-generation closest-hit kernel against its plain version
-    on the compare rays and the primary wave, over the raw 9-float rows
-    packed from the scene's triangles (the node table must be the
-    scene's); timed beside the closest-hit kernel of the waves on the same
-    rays. Returns (statistics by label, times, bound keys)."""
+    on the compare rays, the primary wave and the unordered bounce rays,
+    over the raw 9-float rows packed from the scene's triangles (the node
+    table must be the scene's); timed beside the closest-hit kernel of the
+    waves on the primary wave and the unordered rays. Returns (statistics
+    by label, times, bound keys of the primary wave)."""
     import torch
 
     from tracerboy_tpu_torch.accel.pack import pack_scene
     from tracerboy_tpu_torch.trace import kernels, traverse, traverse_v1
     from tracerboy_tpu_torch.utils.bench_traverse import (
+        MT_OPS,
         differ_outside_ties,
         walk_ops,
     )
@@ -1173,7 +1175,8 @@ def v1_phase(cs, scene, compare, primary):
         fail(f"v1: the tree can ask for {need} stack entries, the kernel "
              f"has {traverse_v1.STACK_DEPTH}")
     stats, times, ok_all = {}, dict(stack_need=need), True
-    for label, (o, d, tm) in (("compare", compare), ("primary", primary)):
+    for label, (o, d, tm) in (("compare", compare), ("primary", primary),
+                              ("unordered", unordered)):
         kernels.reset_counters()
         k = traverse_v1.closest_hit_v1(o, d, tm, nodes, tris)
         overflows = kernels.stack_overflows()      # the kernel's alone
@@ -1189,6 +1192,12 @@ def v1_phase(cs, scene, compare, primary):
         times[f"{label}_plain_ms"] = plain_ms
         ok_all &= ok and overflows == 0
         print(f"v1 closest kernel vs plain, {label}:", json.dumps(st))
+    uo, ud, utm = unordered
+    times.update(
+        unordered_ms=cuda_ms(lambda: traverse_v1.closest_hit_v1(
+            uo, ud, utm, nodes, tris), 20),
+        unordered_closest_ms=cuda_ms(lambda: traverse.closest_hit(
+            uo, ud, utm, nodes, scene["pk_tris_bw"]), 20))
     o, d, tm = primary
     node_rows, cluster_rows, pops, clusters = traverse_v1.walk_footprint_v1(
         o, d, tm, nodes, tris)
@@ -1201,7 +1210,8 @@ def v1_phase(cs, scene, compare, primary):
         node_rows=int(node_rows.sum()), cluster_rows=int(cluster_rows.sum()),
         pops=int(pops.sum()), clusters=int(clusters.sum()),
         max_pops=int(pops.max()), max_clusters=int(clusters.max()))
-    print("timing v1 kernel, 921,600-ray primary wave:", json.dumps(times))
+    print("timing v1 kernel, 921,600-ray primary wave and unordered rays:",
+          json.dumps(times))
     if not ok_all:
         fail(f"the v1 kernel disagrees with its plain version beyond "
              f"{TOLERANCE}, or overflowed its stack")
@@ -1451,11 +1461,14 @@ def main() -> int:
                  ("primary shadow", (so, sd, stm), shadow_t, True),
                  ("unordered bounce", unordered["bounce"], main_t, False),
                  ("unordered shadow", unordered["shadow"], shadow_t, True)))
+    un_bounce = unordered["bounce"]
     del unordered
 
     # --- the stats kernel vs the stats-free kernel and its twin -----------
-    st_stats, st_times = stats_phase(main_t, (("compare", (o, d, tm)),
-                                              ("primary", (po, pd, ptm))))
+    st_stats, st_times = stats_phase(
+        main_t, (("compare", (o, d, tm)), ("primary", (po, pd, ptm)),
+                 ("unordered bounce", un_bounce)),
+        dict(primary="stats", **{"unordered bounce": "unordered"}))
     # The rows each walk reads, and the any-hit walk's pops and clusters
     # (the stats twin's walk, in the any-hit kernel's mode).
     pri_rows = traverse.walk_footprint(po, pd, ptm, *main_t)[:2]
@@ -1485,7 +1498,8 @@ def main() -> int:
 
     # --- the v1 kernel vs its plain version ---------------------------------
     v1_stats, v1_times, v1_bound = v1_phase(cs, scene, (o, d, tm),
-                                            (po, pd, ptm))
+                                            (po, pd, ptm), un_bounce)
+    del un_bounce
 
     # --- the opt-in paths' kernels vs their twins ---------------------------
     opt_stats, opt_times = opt_in_kernel_phase(
@@ -1570,6 +1584,9 @@ def main() -> int:
                                 for s in st_stats.values()),
              ms=st_times["stats_ms"], plain_ms=st_times["primary_plain_ms"],
              stats_free_ms=st_times["stats_free_ms"],
+             unordered_ms=st_times["unordered_ms"],
+             unordered_plain_ms=st_times["unordered bounce_plain_ms"],
+             unordered_free_ms=st_times["unordered_free_ms"],
              **bound_keys(walk_bytes["stats"], closest_ops)),
         dict(name="any_hit", route="cuda", source=trav,
              replaces="tracerboy_tpu/trace/pallas_traverse2.py:869",
@@ -1634,7 +1651,11 @@ def main() -> int:
              differs_from_closest_hit=v1_stats["primary"][
                  "differs_from_closest_hit"],
              ms=v1_times["v1_ms"], plain_ms=v1_times["primary_plain_ms"],
-             closest_hit_ms=v1_times["closest_ms"], **v1_bound),
+             closest_hit_ms=v1_times["closest_ms"],
+             unordered_ms=v1_times["unordered_ms"],
+             unordered_plain_ms=v1_times["unordered_plain_ms"],
+             unordered_closest_hit_ms=v1_times["unordered_closest_ms"],
+             **v1_bound),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

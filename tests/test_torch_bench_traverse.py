@@ -20,6 +20,12 @@ scripts/bench_traverse.py.
   than the one before, per pair-row and per warp-row, and a warp-row
   passes wherever one of its pair-rows does); the wrappers and TB_BINNED
   are put back.
+- The `heatmap-wave` set and --stats timing on the CPU at a 16x12 film:
+  the stats kernel's two launches of a HEATMAP render_sample(1) and
+  render_sample(2), whose lanes are the view's primary waves (16 x 12
+  and 16 x 12 x 2, the rays the stats wrapper was given), each with its
+  time and bound, and the sum; the `stats` line of a ray set with its
+  time, quartiles, Mrays/s and bound; v1's bound; the wrapper put back.
 - differ_outside_ties and time_runs on hand-made inputs.
 """
 
@@ -214,6 +220,56 @@ def test_binned_wave_set_on_the_cpu(capsys, monkeypatch):
             assert b[0] <= a[0] and b[1] <= a[1]
     out = capsys.readouterr().out
     assert "binned-wave/total_dense" in out and "rows in" in out
+
+
+def test_heatmap_wave_set_and_stats_timing_on_the_cpu(capsys):
+    from tracerboy_tpu_torch.trace import traverse
+
+    real = traverse.closest_hit_stats
+    kernels.reset_counters()
+    res = study.main(["--scene", "shadertoy", "--rays", "64", "--sets",
+                      "heatmap-wave,primary", "--sort", "none", "--runs",
+                      "2", "--device", "cpu", "--wave-film", "16x12",
+                      "--wave-spp", "2", "--variants", "v1", "--stats"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1]) == res
+    assert traverse.closest_hit_stats is real
+    assert kernels.TWIN_CALLS["closest_stats"] > 0
+    key = "shadertoy/heatmap-wave"
+    launches = [res[f"{key}/stats_{i}"] for i in range(2)]
+    assert f"{key}/stats_2" not in res
+    # One primary wave a render_sample: every pixel of each sample.
+    assert [r["lanes"] for r in launches] == [16 * 12, 16 * 12 * 2]
+    for r in launches:
+        assert r["live"] == r["lanes"] and r["n"] == 2
+        assert r["q1"] <= r["ms"] <= r["q3"] and r["mrays_s"] > 0
+        assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
+    total = res[f"{key}/total"]
+    assert total["launches"] == 2 and total["lanes"] == 16 * 12 * 3
+    assert total["ms"] == pytest.approx(sum(r["ms"] for r in launches))
+    st = res["shadertoy/primary/none/stats"]
+    assert st["n"] == 2 and st["q1"] <= st["ms"] <= st["q3"]
+    assert st["mrays_s"] > 0 and st["bound_ms"] > 0 and st["live"] == 64
+    v1 = res["shadertoy/primary/none/v1"]
+    assert v1["bound_ms"] > 0 and v1["ops"] > 0
+    assert any(ln.startswith(res["device"]) and f"{key}/stats_1" in ln
+               for ln in lines)
+
+
+def test_recorded_stats_launches_are_the_heatmap_waves():
+    """record_stats_launches hands back what the HEATMAP wave gave the
+    stats wrapper: camera rays of every lane, and the same hits again."""
+    from tracerboy_tpu_torch.trace import traverse
+
+    calls = study.record_stats_launches("shadertoy", (16, 12), (1, 2),
+                                        torch.device("cpu"))
+    assert [c[0].shape[0] for c in calls] == [16 * 12, 16 * 12 * 2]
+    o, d, tm, nodes, tris = calls[1]
+    assert bool((tm > 0).all())
+    # A pinhole camera: every ray of a sample leaves the same point.
+    assert torch.equal(o[:1].expand(16 * 12, 3), o[:16 * 12])
+    out = traverse.closest_hit_stats(o, d, tm, nodes, tris)
+    assert int((out[1] >= 0).sum()) > 0 and bool((out[4] >= 1).all())
 
 
 def test_recorded_wave_rays_are_the_waves():

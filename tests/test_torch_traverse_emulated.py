@@ -1,6 +1,7 @@
-"""The CUDA source of the port's closest-hit and any-hit kernels
-(tracerboy_tpu_torch/csrc/bvh_traverse.cu, octet_kernel) compiled with g++
-and run on host threads, without a card.
+"""The CUDA source of the port's closest-hit, any-hit and traversal-cost
+(stats) kernels (tracerboy_tpu_torch/csrc/bvh_traverse.cu: octet_kernel,
+traverse_stats_kernel) compiled with g++ and run on host threads, without
+a card.
 
 tests/torch_cuda_shim/cuda_runtime.h stands in for the CUDA device API:
 every thread of a block is a host thread and every warp collective a
@@ -17,7 +18,12 @@ ray counts that fill no ticket, octet, warp or block, from one block and
 from several; no stack overflows; every ray gets an output. The twins
 closest_hit_plain / anyhit_plain are held to the walk elsewhere
 (tests/test_torch_traverse_octet.py), and to the kernels on the card
-(the `cuda` tests of tests/test_torch_traverse.py).
+(the `cuda` tests of tests/test_torch_traverse.py). The stats kernel
+(traverse_stats_kernel: a thread per ray in persistent warps) equals
+closest_hit_stats_plain bit for bit in all six outputs (t, id, u, v,
+pops, clusters) on the same cases without roots, and on rays whose
+stacks outgrow its shared-memory window (kTop = 8 entries), so its spill
+to local memory runs.
 
 This says nothing of what nvcc makes of the source, nor of time.
 """
@@ -87,7 +93,20 @@ def emulated():
                          ptr(state[:1]), ptr(state[1:]), blocks)
         return occ, int(state[1])
 
-    return closest, anyhit
+    def stats(o, d, tm, nodes, tris, blocks=1):
+        n = o.shape[0]
+        t = np.full(n, np.nan, np.float32)
+        u, v = t.copy(), t.copy()
+        tri, pops, clusters = (np.full(n, -7, np.int32) for _ in range(3))
+        state = np.zeros(2, np.uint32)
+        depth = min(traverse.stack_need(_t(nodes)), traverse.STACK_DEPTH)
+        lib.shim_closest_hit_stats(
+            ptr(o), ptr(d), ptr(tm), ptr(nodes), ptr(tris), n, depth,
+            ptr(t), ptr(tri), ptr(u), ptr(v), ptr(pops), ptr(clusters),
+            ptr(state[:1]), ptr(state[1:]), blocks)
+        return (t, tri, u, v, pops, clusters), int(state[1])
+
+    return closest, anyhit, stats
 
 
 CASES = {
@@ -114,7 +133,7 @@ def test_kernel_source_equals_the_octet_walk(emulated, case):
     if dead and n > 5:
         tm[5] = np.nan
     roots = mixed_roots(rng, _t(nodes), n) if rooted else None
-    closest, anyhit = emulated
+    closest, anyhit, _ = emulated
     (t, tri, u, v), overflow = closest(o, d, tm, nodes, tris, roots, blocks)
     occ, overflow_any = anyhit(o, d, tm, nodes, tris, roots, blocks)
     args = (_t(o), _t(d), _t(tm), _t(nodes), _t(tris),
@@ -128,3 +147,40 @@ def test_kernel_source_equals_the_octet_walk(emulated, case):
     assert overflow == overflow_any == 0
     if n >= 150:
         assert (tri >= 0).any() and not want_occ.all()
+
+
+# name: (triangles, rays, dead lanes, blocks): the cases above without
+# roots, and deep stacks: 20,000 triangles 3 units wide in a 10-unit
+# cloud, whose boxes overlap so much that a ray enters most children.
+STATS_CASES = {name: (n_tris, n, dead, blocks)
+               for name, (n_tris, n, rooted, dead, blocks) in CASES.items()
+               if not rooted}
+STATS_CASES["deep_stacks"] = (20_000, 64, False, 1)
+
+
+@pytest.mark.parametrize("case", list(STATS_CASES))
+def test_stats_kernel_source_equals_its_twin(emulated, case):
+    n_tris, n, dead, blocks = STATS_CASES[case]
+    rng = np.random.default_rng(11 + n_tris + n)
+    size = 3.0 if case == "deep_stacks" else 0.4
+    pk, _ = pack_scene(*make_scene(rng, n_tris, size=size))
+    nodes, tris = pk["nodes"], pk["tris_bw"]
+    o, d = make_rays(rng, n)
+    tm = _mixed_tmax(rng, n) if dead else np.full(n, 1e30, np.float32)
+    if dead and n > 5:
+        tm[5] = np.nan
+    got, overflow = emulated[2](o, d, tm, nodes, tris, blocks)
+    want = traverse.closest_hit_stats_plain(_t(o), _t(d), _t(tm), _t(nodes),
+                                            _t(tris))
+    for a, b, name in zip(got, want, "t tri u v pops clusters".split()):
+        np.testing.assert_array_equal(a, b.numpy(), err_msg=name)
+    assert overflow == 0
+    if case == "deep_stacks":
+        # The serial walk's stacks outgrow the kernel's shared-memory
+        # window of kTop = 8 entries.
+        held = torch.zeros(n, dtype=torch.int64)
+        traverse._stack_walk(_t(o), _t(d), _t(tm), _t(nodes), _t(tris),
+                             held=held)
+        assert int(held.max()) > 8
+    if n >= 150:
+        assert (got[1] >= 0).any() and (got[4] > 1).any()

@@ -17,7 +17,9 @@ here:
   anyhit_plain's);
 - under the `cuda` marker (skipped without a card): the CUDA kernel
   against the twin (hits and counts equal) and the stats-free kernel (t
-  equal; ids, u, v equal outside ties) -- run on the card with
+  equal; ids, u, v equal outside ties), on random scenes and on the
+  traversal study's 921,600 bounce rays in no order -- run on the card
+  with
       python -m pytest --noconftest -m cuda tests/test_torch_traverse_stats.py
   This module imports no JAX.
 """
@@ -245,13 +247,18 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_tris", [37, 2000, 20_000])
+@pytest.mark.parametrize("n_tris", [37, 2000, 20_000, "study_bounce"])
 def test_stats_kernel_matches_its_twin_on_the_card(cuda_device, n_tris):
-    rng, nodes, tris = _random_tables(77 + n_tris, n_tris)
-    nodes, tris = nodes.to(cuda_device), tris.to(cuda_device)
-    o, d = make_rays(rng, 2048)
-    tm = _mixed_tmax(rng, 2048)
-    o, d, tm = (_t(x).to(cuda_device) for x in (o, d, tm))
+    if n_tris == "study_bounce":
+        from test_torch_traverse_v1 import study_bounce_set
+
+        o, d, tm, nodes, _, tris = study_bounce_set(cuda_device)
+    else:
+        rng, nodes, tris = _random_tables(77 + n_tris, n_tris)
+        nodes, tris = nodes.to(cuda_device), tris.to(cuda_device)
+        o, d = make_rays(rng, 2048)
+        tm = _mixed_tmax(rng, 2048)
+        o, d, tm = (_t(x).to(cuda_device) for x in (o, d, tm))
     kernels.reset_counters()
     k = traverse.closest_hit_stats(o, d, tm, nodes, tris)
     free = traverse.closest_hit(o, d, tm, nodes, tris)

@@ -24,7 +24,8 @@ kernel (closest_hit_plain) accepts, so that difference is on record; the
 stack a tree can ask for.
 
 Under the `cuda` marker (skipped without a card): the CUDA kernel against
-the plain version, which must agree exactly. Run it on the card with
+the plain version, which must agree exactly, on random scenes and on the
+traversal study's 921,600 bounce rays in no order. Run it on the card with
     python -m pytest --noconftest -m cuda tests/test_torch_traverse_v1.py
 This module imports JAX only inside the tests that compare with it.
 """
@@ -259,15 +260,32 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def study_bounce_set(device):
+    """The traversal study's 921,600 bounce rays in no order on the packed
+    "shadertoy" tables (bench_traverse.make_ray_sets, default_rng(7)):
+    (o, d, t_max, nodes, raw tris, tris_bw) on device."""
+    from tracerboy_tpu_torch.scene.compile import load_scene
+    from tracerboy_tpu_torch.utils.bench_traverse import make_ray_sets
+
+    cs = load_scene("shadertoy", film_size=(64, 64))
+    pk, _ = pack_scene(cs.tri_v0, cs.tri_v1, cs.tri_v2, raw_rows=True)
+    rays = make_ray_sets(cs, 1280 * 720, np.random.default_rng(7))["bounce"]
+    return tuple(_t(np.ascontiguousarray(x)).to(device) for x in
+                 (*rays, pk["nodes"], pk["tris"], pk["tris_bw"]))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_tris", [37, 2000, 20_000])
+@pytest.mark.parametrize("n_tris", [37, 2000, 20_000, "study_bounce"])
 def test_kernel_matches_plain_on_the_card(cuda_device, n_tris):
-    rng = np.random.default_rng(77 + n_tris)
-    pk, _ = pack_scene(*make_scene(rng, n_tris), raw_rows=True)
-    o, d = make_rays(rng, 65_536)
-    tm = _mixed_tmax(rng, 65_536)
-    args = tuple(_t(x).to(cuda_device)
-                 for x in (o, d, tm, pk["nodes"], pk["tris"]))
+    if n_tris == "study_bounce":
+        args = study_bounce_set(cuda_device)[:5]
+    else:
+        rng = np.random.default_rng(77 + n_tris)
+        pk, _ = pack_scene(*make_scene(rng, n_tris), raw_rows=True)
+        o, d = make_rays(rng, 65_536)
+        tm = _mixed_tmax(rng, 65_536)
+        args = tuple(_t(x).to(cuda_device)
+                     for x in (o, d, tm, pk["nodes"], pk["tris"]))
     kernels.reset_counters()
     k = traverse_v1.closest_hit_v1(*args)
     assert kernels.LAUNCHES["closest_v1"] == 1

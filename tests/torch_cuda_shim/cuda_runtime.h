@@ -1,15 +1,17 @@
 // A host stand-in for the CUDA device API that the port's kernel sources
-// use (csrc/bvh_traverse.cu's octet kernels, csrc/binned.cu), so that g++
+// use (csrc/bvh_traverse.cu, bvh_traverse_v1.cu, binned.cu), so that g++
 // can compile a kernel source and a test can run it without a card. Every
 // thread of a block is a host thread; every warp collective (shuffle,
 // ballot, vote, __syncwarp) is a barrier of the warp's 32 threads around an
 // exchange through the warp's 32 slots. That is a faithful model of a
 // kernel whose collectives are all reached by all 32 lanes and name the
 // full warp, which is how those kernels are written. The barrier sleeps on
-// a condition variable: a waiting thread takes no CPU. Shared memory is
-// whatever array the runner defines under the kernel's extern __shared__
-// name (one block runs at a time). Host launch code (guarded by __CUDACC__
-// in the sources) is not compiled.
+// a condition variable: a waiting thread takes no CPU. Dynamic shared
+// memory is whatever array the runner defines under the kernel's extern
+// __shared__ name (one block runs at a time); a static __shared__ array
+// becomes an array of each host thread, a faithful model only where each
+// thread touches its own part of it (the stats kernel's stack window).
+// Host launch code (guarded by __CUDACC__ in the sources) is not compiled.
 #pragma once
 
 #include <cmath>
@@ -85,6 +87,7 @@ inline float4 make_float4(float x, float y, float z, float w) {
   return float4{x, y, z, w};
 }
 inline float4 __ldg(const float4* p) { return *p; }
+inline int4 __ldg(const int4* p) { return *p; }
 inline float __int_as_float(int v) { return shim_bits<float>(v); }
 inline int __float_as_int(float v) { return shim_bits<int>(v); }
 inline unsigned __float_as_uint(float v) { return shim_bits<unsigned>(v); }

@@ -112,8 +112,6 @@
 
 #include "bvh_common.cuh"
 
-#include <algorithm>
-
 using namespace tb;
 
 namespace {
@@ -121,17 +119,9 @@ namespace {
 constexpr int kSelectK = 16;     // trace/binned.py KSEL
 constexpr int kCluster = 128;    // triangles per cluster
 constexpr int kClusterRows = 3 * kCluster;
-constexpr int kOctet = 8;          // lanes a selection ray
 constexpr int kSelThreads = 128;   // 16 rays in flight a block
 constexpr int kSelOctets = kSelThreads / kOctet;
 constexpr int kDenseThreads = 128;
-
-// The 8 bits of a warp ballot that belong to the octet whose first lane is
-// `shift`.
-__device__ __forceinline__ unsigned int octet_bits(unsigned int ballot,
-                                                   int shift) {
-  return (ballot >> shift) & 0xffu;
-}
 
 // The selection (see the file's header): a ray per octet; ticket b is the
 // rays 8 b .. 8 b + 7.
@@ -387,26 +377,11 @@ extern "C" int tb_select_clusters(
     const int32_t* nodes, int n_rays, int stack_entries, float* slot_t,
     int32_t* slot_c, float* dropped, unsigned int* next_ray,
     unsigned int* overflow, void* stream) {
-  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t shared =
-      static_cast<size_t>(stack_entries) * kSelOctets * sizeof(int2);
-  int device = 0, sms = 0, blocks_per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks_per_sm, select_kernel, kSelThreads, shared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (blocks_per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int rays_per_block = kSelOctets * kOctet;
-  const int blocks = std::min(sms * blocks_per_sm,
-                              (n_rays + rays_per_block - 1) / rays_per_block);
-  select_kernel<<<blocks, kSelThreads, shared,
-                  static_cast<cudaStream_t>(stream)>>>(
-      orig, dir, t_max, nodes, n_rays, stack_entries, slot_t, slot_c, dropped,
-      next_ray, overflow);
-  return static_cast<int>(cudaGetLastError());
+  return launch_persistent(
+      select_kernel, kSelThreads,
+      static_cast<size_t>(stack_entries) * kSelOctets * sizeof(int2), n_rays,
+      kSelOctets * kOctet, stream, orig, dir, t_max, nodes, n_rays,
+      stack_entries, slot_t, slot_c, dropped, next_ray, overflow);
 }
 
 extern "C" int tb_dense_pairs(const float* orig, const float* dir,

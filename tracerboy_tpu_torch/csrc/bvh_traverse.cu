@@ -1,7 +1,7 @@
 // Closest-hit and any-hit traversal of the packed 8-wide BVH for Hopper
 // (sm_90a): one ray per group of 8 lanes (an octet), four rays a warp,
 // persistent blocks. Beside them, the traversal-cost (stats) kernel, one
-// thread per ray.
+// thread per ray in persistent warps.
 //
 // Replaces: tracerboy_tpu/trace/pallas_traverse2.py: traverse_packets2 and
 // anyhit_packets2 (both built by _make_kernel, with _node_children and
@@ -115,40 +115,66 @@
 // different triangles (the first found against the lowest id).
 //
 // Traversal cost (the TPU kernel's stats=True variant, which feeds the
-// heatmap AOV): traverse_stats_kernel, launched by tb_closest_hit_stats,
-// keeps the thread-per-ray walk, whose steps define its two int32 counts
-// per ray (its twin closest_hit_stats_plain repeats that walk). The TPU
-// counters are per 2048-ray packet and count batched leaf drains; here
-// they are per ray, as the reference's TraverseFunction.hlsli:46-47 keeps
-// them:
-//   pops     = nodes the ray pops and expands (a node root counts; a
-//              popped node that the pop-time cull skips does not);
-//   clusters = leaf clusters whose 8 triangles the ray tests (a leaf root
-//              counts).
+// heatmap AOV): the closest hit from node 0 with two int32 counts per ray.
+// The TPU counters are per 2048-ray packet and count batched leaf drains;
+// here they are per ray, as the reference's TraverseFunction.hlsli:46-47
+// keeps them, and they are the counts of the serial walk (its twin
+// closest_hit_stats_plain repeats that walk step for step): a per-ray
+// stack of (id, entry t), children pushed sorted by descending entry t (a
+// later slot above an equal one), the cull !(entry t < best) at the pop,
+// leaf clusters tested as they are met, in slot order, each child culled
+// against the best hit as it stands at its slot:
+//   pops     = nodes the ray pops and expands (a popped node that the
+//              pop-time cull skips does not count);
+//   clusters = leaf clusters whose 8 triangles the ray tests.
 // A dead lane (t_max <= 0) gives 0 and 0. Its hits equal the octet
 // kernel's in t; at equal t the two walk orders may keep different
 // triangles.
+//
+// The one launch a render gives it is the HEATMAP view's primary wave
+// (trace/wavefront.py), in raster order, where a thread per ray walks
+// faster than octets (0.07 against 0.10 ns a ray-step, PERF.md). So
+// traverse_stats_kernel (tb_closest_hit_stats) keeps a thread per ray and
+// drops what held the first one back:
+// - Persistent warps. A warp draws 32 rays in a row (one lane's atomicAdd,
+//   broadcast), in index order, so the raster coherence of the wave is
+//   kept, and draws again when its 32 are done: no block waits for its
+//   slowest warp. A dead lane writes its miss at once.
+// - The stack, (id, entry t) in one int2 array: its top kTop = 8 entries
+//   in shared memory (a window of the stack, entry k in slot k % kTop of
+//   the thread's column, so the lanes of a warp hit distinct banks), the
+//   entries below it in local memory, moved there only when a push would
+//   overflow the window. The wrapper sizes the stack by
+//   traverse.stack_need, at most kStackDepth (the twin's STACK_DEPTH); a
+//   push past it is dropped and counted in *overflow.
+// - Inner children are inserted into the window as they come, sorted by
+//   entry t: no staging arrays, which the first kernel kept in local
+//   memory (they were indexed at run time). Ranking them in registers
+//   instead took 100 registers a thread.
+// - 16-byte loads: a node's children four at a time (7 int4 a group), a
+//   cluster's triangle rows three float4 each.
+// - 10 blocks of 128 an SM, at most 48 registers a thread. Occupancy is
+//   what this walk lives on: on the card above, the two launches of a
+//   HEATMAP render_sample(1) and render_sample(8) took 2.269 ms at 10
+//   blocks an SM against the first kernel's 2.527 ms, 2.368 at 12 (40
+//   registers, 200 B spilled) and 2.593 at 8 (64 registers); a 16-entry
+//   window 1.6% more than an 8-entry one (less L1 left).
+// The same serial walk on octets (octet_kernel with leaves in slot order,
+// each culled again at its turn; it pushes children the serial walk culls
+// at their slot, which are culled at their pop and not counted, so the
+// outputs and counts were the same) took 4.09 ms on those two launches,
+// and 1.27 ms against the thread per ray's 3.27 on 921,600 bounce rays in
+// no order, which no render gives this kernel.
 
 #include "bvh_common.cuh"
-
-#include <algorithm>
 
 using namespace tb;
 
 namespace {
 
-constexpr int kOctet = 8;          // lanes a ray
-constexpr int kOctThreads = 128;   // 4 warps: 16 rays in flight a block
-constexpr int kOctets = kOctThreads / kOctet;
-constexpr int kBlocksPerSM = 12;   // 1,536 resident threads an SM
-constexpr unsigned int kNoHit = 0x7f800000u;   // +infinity's bits
-
-// The 8 bits of a warp ballot that belong to the octet whose first lane is
-// `shift`.
-__device__ __forceinline__ unsigned int octet_bits(unsigned int ballot,
-                                                   int shift) {
-  return (ballot >> shift) & 0xffu;
-}
+constexpr int kStatsThreads = 128;   // 4 persistent warps a block
+constexpr int kTop = 8;   // stack entries a ray keeps in shared memory
+constexpr int kStatsBlocksPerSM = 10;   // at most 48 registers a thread
 
 // Shared memory: kOctets stacks of stack_entries entries, an int32 id (any
 // hit) or an (id, entry t) pair (closest hit) each.
@@ -178,10 +204,7 @@ octet_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
   int2* stack = reinterpret_cast<int2*>(smem) + oct * stack_entries;
   const unsigned int n = static_cast<unsigned int>(n_rays);
 
-  // The octet's ticket (ray j of it is first + 4 j; todo: its live rays
-  // not yet walked) and the ray it walks.
-  unsigned int first = 0u, todo = 0u;
-  bool drained = false;      // the counter is past the rays
+  Ticket tk;                 // the octet's rays
   bool walking = false;
   Ray ray;
   int i = 0, sp = 0;
@@ -191,47 +214,28 @@ octet_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
   bool occluded = false;
 
   for (;;) {
-    // 1. An octet whose ticket is used up draws the next one. Ticket b
-    // stands for the 8 rays 32 (b / 4) + b % 4 + 4 j, j = 0..7: four
-    // tickets in a row interleave over 32 rays in a row, so the octets of a
-    // warp, which mostly draw together, walk neighbouring rays. Lane j looks
-    // at the ticket's ray j: dead lanes (t_max <= 0, or NaN) get their miss
-    // here, 8 at a time, and are never walked.
-    const bool idle = !walking && todo == 0u && !drained;
-    if (__any_sync(kFull, idle)) {
-      unsigned int ticket = 0u;
-      if (idle && sub == 0) ticket = atomicAdd(next_ray, 1u);
-      ticket = __shfl_sync(kFull, ticket, 0, kOctet);
-      bool live = false;
-      if (idle) {
-        first = (ticket >> 2) * 32u + (ticket & 3u);
-        drained = (ticket >> 2) * 32u >= n;
-        const unsigned int mine = first + 4u * sub;
-        if (!drained && mine < n) {
-          live = t_max[mine] > 0.f;
-          if (!live) {
-            if (kAnyHit) {
-              occ_out[mine] = false;
-            } else {
-              t_out[mine] = kBig;
-              tri_out[mine] = -1;
-              u_out[mine] = 0.f;
-              v_out[mine] = 0.f;
-            }
-          }
-        }
-      }
-      const unsigned int lives = octet_bits(__ballot_sync(kFull, live), shift);
-      if (idle) todo = lives;
-    }
+    // 1. An octet whose ticket is used up draws the next one; its dead
+    // rays get their miss here, 8 at a time, and are never walked.
+    const bool idle = !walking && tk.todo == 0u && !tk.drained;
+    draw_ticket(tk, idle, sub, shift, t_max, n, next_ray,
+                [&](unsigned int mine) {
+                  if (kAnyHit) {
+                    occ_out[mine] = false;
+                  } else {
+                    t_out[mine] = kBig;
+                    tri_out[mine] = -1;
+                    u_out[mine] = 0.f;
+                    v_out[mine] = 0.f;
+                  }
+                });
     // The counter only grows: once a draw is past the rays, so is every
     // later one.
-    if (__all_sync(kFull, drained && !walking && todo == 0u)) return;
+    if (__all_sync(kFull, tk.drained && !walking && tk.todo == 0u)) return;
 
     // 2. An octet without a ray starts the next live ray of its ticket.
-    if (!walking && todo != 0u) {
-      i = static_cast<int>(first) + 4 * (__ffs(todo) - 1);
-      todo &= todo - 1u;
+    if (!walking && tk.todo != 0u) {
+      i = static_cast<int>(tk.first) + 4 * (__ffs(tk.todo) - 1);
+      tk.todo &= tk.todo - 1u;
       ray = load_ray(orig, dir, t_max, i);
       best = ray.t_max;
       best_tri = -1;
@@ -398,17 +402,22 @@ octet_kernel(const float* __restrict__ orig, const float* __restrict__ dir,
   }
 }
 
-// The 8 triangles of one cluster against the ray, in order: the first
-// triangle at the least t below best wins.
+// The 8 triangles of one cluster against the ray, in order (three 16-byte
+// loads each): the first triangle at the least t below best wins.
 __device__ __forceinline__ void test_cluster(const float* __restrict__ tris,
                                              int32_t cluster, const Ray& ray,
                                              float& best, int32_t& best_tri,
                                              float& best_u, float& best_v) {
-  const float* __restrict__ trow = tris + static_cast<size_t>(cluster) * kRow;
+  const float4* __restrict__ trow = reinterpret_cast<const float4*>(
+      tris + static_cast<size_t>(cluster) * kRow);
 #pragma unroll
   for (int k = 0; k < kLeaf; ++k) {
+    const float4 a = __ldg(trow + 3 * k), b = __ldg(trow + 3 * k + 1),
+                 c = __ldg(trow + 3 * k + 2);
+    const float r[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                         b.z, b.w, c.x, c.y, c.z, c.w};
     float t, u, v;
-    if (bw_test(trow + 12 * k, ray, t, u, v) && t < best) {
+    if (bw_test(r, ray, t, u, v) && t < best) {
       best = t;
       best_tri = cluster * kLeaf + k;
       best_u = u;
@@ -417,87 +426,111 @@ __device__ __forceinline__ void test_cluster(const float* __restrict__ tris,
   }
 }
 
-// Closest hit from node 0 with the per-ray traversal cost: one thread per
-// ray, a kStackDepth-entry stack in local memory, children pushed sorted
-// by descending entry t (a later child above an equal one), the cull
-// !(entry t < best) at the pop, leaf clusters tested as they are met.
-__global__ void __launch_bounds__(kThreads)
+// Component j (a compile-time constant once unrolled) of an int4.
+__device__ __forceinline__ int32_t part(const int4& q, int j) {
+  return j == 0 ? q.x : j == 1 ? q.y : j == 2 ? q.z : q.w;
+}
+
+// The stats walk, one thread per ray, in persistent warps (see the
+// header). Warps draw 32 rays in a row from *next_ray.
+__global__ void __launch_bounds__(kStatsThreads, kStatsBlocksPerSM)
 traverse_stats_kernel(const float* __restrict__ orig,
                       const float* __restrict__ dir,
                       const float* __restrict__ t_max,
                       const int32_t* __restrict__ nodes,
                       const float* __restrict__ tris, int n_rays,
-                      float* __restrict__ t_out, int32_t* __restrict__ tri_out,
+                      int stack_entries, float* __restrict__ t_out,
+                      int32_t* __restrict__ tri_out,
                       float* __restrict__ u_out, float* __restrict__ v_out,
-                      unsigned int* __restrict__ overflow,
                       int32_t* __restrict__ pops_out,
-                      int32_t* __restrict__ clusters_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray ray = load_ray(orig, dir, t_max, i);
-
-  float best = ray.t_max;
-  int32_t best_tri = -1;
-  float best_u = 0.f, best_v = 0.f;
-  int32_t pops = 0, clusters = 0;
-
-  int32_t stack[kStackDepth];
-  float stack_t[kStackDepth];
-  int sp = 0;
-  // Dead lanes (t_max <= 0, or NaN) return a miss at once.
-  if (ray.t_max > 0.f) {
-    stack[0] = 0;
-    stack_t[0] = -kBig;
-    sp = 1;
-  }
-  while (sp > 0) {
-    --sp;
-    if (!(stack_t[sp] < best)) continue;
-    ++pops;
-    const int32_t* __restrict__ row = nodes + static_cast<size_t>(stack[sp]) * kRow;
-    int32_t push_id[8];
-    float push_t[8];
-    int n_push = 0;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int32_t cid = row[48 + c];
-      if (cid == kInvalid) continue;
-      float t_near, t_far;
-      child_slab(row, c, ray, t_near, t_far);
-      if (!(t_far >= fmaxf(t_near, 0.f) && t_near < best)) continue;
-      if (cid >= 0) {
-        // Insert sorted by descending t_near: the nearest child is pushed
-        // last and pops first.
-        int k = n_push++;
-        while (k > 0 && push_t[k - 1] < t_near) {
-          push_t[k] = push_t[k - 1];
-          push_id[k] = push_id[k - 1];
-          --k;
-        }
-        push_t[k] = t_near;
-        push_id[k] = cid;
-        continue;
-      }
-      test_cluster(tris, -cid - 1, ray, best, best_tri, best_u, best_v);
-      ++clusters;
+                      int32_t* __restrict__ clusters_out,
+                      unsigned int* __restrict__ next_ray,
+                      unsigned int* __restrict__ overflow) {
+  // The stack's window: entry k of thread x in top[k % kTop][x], so the
+  // lanes of a warp hit distinct banks whatever their depths.
+  __shared__ int2 top[kTop][kStatsThreads];
+  int2 deep[kStackDepth];    // the entries below the window
+  const int x = threadIdx.x;
+  const unsigned int n = static_cast<unsigned int>(n_rays);
+  for (;;) {
+    unsigned int ticket = 0u;
+    if ((x & 31) == 0) ticket = atomicAdd(next_ray, 1u);
+    ticket = __shfl_sync(kFull, ticket, 0);
+    if (ticket * 32u >= n) return;
+    const unsigned int i = ticket * 32u + (x & 31);
+    if (i >= n) continue;
+    const Ray ray = load_ray(orig, dir, t_max, static_cast<int>(i));
+    float best = ray.t_max, best_u = 0.f, best_v = 0.f;
+    int32_t best_tri = -1, pops = 0, clusters = 0;
+    // The stack holds entries [0, sp): [low, sp) in the window, [0, low)
+    // in deep. A dead lane (t_max <= 0, or NaN) starts empty: a miss.
+    int sp = 0, low = 0;
+    if (ray.t_max > 0.f) {
+      top[0][x] = make_int2(0, __float_as_int(-kBig));
+      sp = 1;
     }
-    for (int k = 0; k < n_push; ++k) {
-      if (sp < kStackDepth) {
-        stack[sp] = push_id[k];
-        stack_t[sp] = push_t[k];
-        ++sp;
+    while (sp > 0) {
+      --sp;
+      int2 e;
+      if (sp < low) {
+        e = deep[sp];
+        low = sp;
       } else {
-        atomicAdd(overflow, 1u);
+        e = top[sp & (kTop - 1)][x];
       }
+      if (!(__int_as_float(e.y) < best)) continue;   // the pop-time cull
+      ++pops;
+      const int4* __restrict__ row =
+          reinterpret_cast<const int4*>(nodes + static_cast<size_t>(e.x) * kRow);
+      // The node's entered inner children go to entries sp .. end - 1,
+      // sorted by descending entry t as they come (a later child above
+      // an equal one), so the nearest pops first. Children four at a
+      // time: lox of children 4g..4g+3 is int4 g of the row, loy int4
+      // 2 + g, .. hiz 10 + g, the ids 12 + g.
+      int end = sp;
+#pragma unroll
+      for (int c = 0; c < kLeaf; ++c) {
+        const int g = c / 4, j = c % 4;
+        const int32_t cid = part(__ldg(row + 12 + g), j);
+        if (cid == kInvalid) continue;
+        float t_near, t_far;
+        box_slab(part(__ldg(row + g), j), part(__ldg(row + 2 + g), j),
+                 part(__ldg(row + 4 + g), j), part(__ldg(row + 6 + g), j),
+                 part(__ldg(row + 8 + g), j), part(__ldg(row + 10 + g), j),
+                 ray, t_near, t_far);
+        if (!(t_far >= fmaxf(t_near, 0.f) && t_near < best)) continue;
+        if (cid < 0) {
+          test_cluster(tris, -cid - 1, ray, best, best_tri, best_u, best_v);
+          ++clusters;
+          continue;
+        }
+        if (end + 1 - low > kTop) {   // make room in the window
+          deep[low] = top[low & (kTop - 1)][x];
+          ++low;
+        }
+        int k = end++;
+        for (; k > sp; --k) {
+          const int2 below = top[(k - 1) & (kTop - 1)][x];
+          if (!(__int_as_float(below.y) < t_near)) break;
+          top[k & (kTop - 1)][x] = below;
+        }
+        top[k & (kTop - 1)][x] = make_int2(cid, __float_as_int(t_near));
+      }
+      // Entries past the stack are dropped (the nearest: the serial walk
+      // pushes farthest first) and counted.
+      if (end > stack_entries) {
+        atomicAdd(overflow, static_cast<unsigned int>(end - stack_entries));
+        end = stack_entries;
+      }
+      sp = end;
     }
+    t_out[i] = best_tri < 0 ? kBig : best;
+    tri_out[i] = best_tri;
+    u_out[i] = best_u;
+    v_out[i] = best_v;
+    pops_out[i] = pops;
+    clusters_out[i] = clusters;
   }
-
-  t_out[i] = best_tri < 0 ? kBig : best;
-  tri_out[i] = best_tri;
-  u_out[i] = best_u;
-  v_out[i] = best_v;
-  pops_out[i] = pops;
-  clusters_out[i] = clusters;
 }
 
 }  // namespace
@@ -508,36 +541,8 @@ traverse_stats_kernel(const float* __restrict__ orig,
 
 namespace {
 
-// Launch octet_kernel<kAnyHit> on as many blocks as the card holds at
-// once (fewer where the rays do not fill them).
-template <bool kAnyHit>
-int launch_octets(const float* orig, const float* dir, const float* t_max,
-                  const int32_t* nodes, const float* tris,
-                  const int32_t* roots, int n_rays, int stack_entries,
-                  float* t_out, int32_t* tri_out, float* u_out, float* v_out,
-                  bool* occ_out, unsigned int* next_ray,
-                  unsigned int* overflow, void* stream) {
-  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t shared = static_cast<size_t>(kOctets) * stack_entries *
-                        (kAnyHit ? sizeof(int32_t)
-                                 : sizeof(int32_t) + sizeof(float));
-  int device = 0, sms = 0, blocks_per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks_per_sm, octet_kernel<kAnyHit>, kOctThreads, shared);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (blocks_per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int rays_per_block = kOctets * kOctet;
-  const int blocks = std::min(sms * blocks_per_sm,
-                              (n_rays + rays_per_block - 1) / rays_per_block);
-  octet_kernel<kAnyHit>
-      <<<blocks, kOctThreads, shared, static_cast<cudaStream_t>(stream)>>>(
-          orig, dir, t_max, nodes, tris, roots, n_rays, stack_entries, t_out,
-          tri_out, u_out, v_out, occ_out, next_ray, overflow);
-  return static_cast<int>(cudaGetLastError());
+size_t octet_shared(int stack_entries, size_t entry) {
+  return static_cast<size_t>(kOctets) * stack_entries * entry;
 }
 
 }  // namespace
@@ -552,27 +557,31 @@ extern "C" int tb_closest_hit(const float* orig, const float* dir,
                               int32_t* tri_out, float* u_out, float* v_out,
                               unsigned int* next_ray, unsigned int* overflow,
                               void* stream) {
-  return launch_octets<false>(orig, dir, t_max, nodes, tris, roots, n_rays,
-                              stack_entries, t_out, tri_out, u_out, v_out,
-                              nullptr, next_ray, overflow, stream);
+  return launch_persistent(
+      octet_kernel<false>, kOctThreads,
+      octet_shared(stack_entries, sizeof(int2)), n_rays, kOctThreads, stream,
+      orig, dir, t_max, nodes, tris, roots, n_rays, stack_entries, t_out,
+      tri_out, u_out, v_out, nullptr, next_ray, overflow);
 }
 
 // Closest hit from node 0 with the per-ray traversal cost (pops_out,
-// clusters_out: int32 per ray).
+// clusters_out: int32 per ray), a thread per ray. stack_entries: at most
+// kStackDepth.
 extern "C" int tb_closest_hit_stats(const float* orig, const float* dir,
                                     const float* t_max, const int32_t* nodes,
                                     const float* tris, int n_rays,
-                                    float* t_out, int32_t* tri_out,
-                                    float* u_out, float* v_out,
-                                    int32_t* pops_out, int32_t* clusters_out,
+                                    int stack_entries, float* t_out,
+                                    int32_t* tri_out, float* u_out,
+                                    float* v_out, int32_t* pops_out,
+                                    int32_t* clusters_out,
+                                    unsigned int* next_ray,
                                     unsigned int* overflow, void* stream) {
-  if (n_rays > 0) {
-    traverse_stats_kernel
-        <<<blocks_for(n_rays), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-            orig, dir, t_max, nodes, tris, n_rays, t_out, tri_out, u_out,
-            v_out, overflow, pops_out, clusters_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (stack_entries > kStackDepth)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_persistent(traverse_stats_kernel, kStatsThreads, 0, n_rays,
+                           kStatsThreads, stream, orig, dir, t_max, nodes,
+                           tris, n_rays, stack_entries, t_out, tri_out, u_out,
+                           v_out, pops_out, clusters_out, next_ray, overflow);
 }
 
 extern "C" int tb_any_hit(const float* orig, const float* dir,
@@ -581,9 +590,11 @@ extern "C" int tb_any_hit(const float* orig, const float* dir,
                           int stack_entries, bool* occ_out,
                           unsigned int* next_ray, unsigned int* overflow,
                           void* stream) {
-  return launch_octets<true>(orig, dir, t_max, nodes, tris, roots, n_rays,
-                             stack_entries, nullptr, nullptr, nullptr, nullptr,
-                             occ_out, next_ray, overflow, stream);
+  return launch_persistent(
+      octet_kernel<true>, kOctThreads,
+      octet_shared(stack_entries, sizeof(int32_t)), n_rays, kOctThreads,
+      stream, orig, dir, t_max, nodes, tris, roots, n_rays, stack_entries,
+      nullptr, nullptr, nullptr, nullptr, occ_out, next_ray, overflow);
 }
 
 #endif  // __CUDACC__

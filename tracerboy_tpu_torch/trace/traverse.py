@@ -54,16 +54,20 @@ for the heatmap AOV): the closest hit from node 0 plus two int32 counts
 per ray, pops (nodes popped and expanded; a node the pop-time cull skips
 does not count) and clusters (leaf clusters whose triangles were tested);
 0 and 0 on a dead lane. The counts are those of the serial walk, which
-the stats kernel keeps, one thread per ray, and its twin,
-closest_hit_stats_plain, repeats step for step: a per-ray stack
-(STACK_DEPTH entries), the same slab test, children pushed sorted by
-descending entry t (a later child goes below an equal one), the cull
-!(entry t < best) at pop, leaf clusters tested as they are met, in slot
-order. Its t equals closest_hit's; at equal t the two walk orders may
-keep different triangles. The exhaustive twin closest_hit_plain stays
-the twin of the stats-free kernel. walk_footprint runs the serial walk
-(or its any-hit form) to mark the node and cluster rows it reads, for a
-kernel's bound: the least work, whatever walk implements it.
+the stats kernel keeps and its twin, closest_hit_stats_plain, repeats
+step for step: a per-ray stack (stack_need entries, at most
+STACK_DEPTH), the same slab test, children pushed sorted by descending
+entry t (a later child goes above an equal one), the cull !(entry t <
+best) at pop, leaf clusters tested as they are met, in slot order. The
+kernel walks one ray per thread in persistent warps that draw 32 rays in
+a row from a counter the wrapper zeroes, with the top of each stack in
+shared memory (its one launch a render is the HEATMAP view's
+raster-ordered primary wave, where a thread per ray beats octets). Its t
+equals closest_hit's; at equal t the two walk orders may keep different
+triangles. The exhaustive twin closest_hit_plain stays the twin of the
+stats-free kernel. walk_footprint runs the serial walk (or its any-hit
+form) to mark the node and cluster rows it reads, for a kernel's bound:
+the least work, whatever walk implements it.
 
 The wrappers take the twin only for CPU tensors; on a CUDA tensor they
 launch the kernel or raise. They count under "closest", "closest_stats"
@@ -99,8 +103,8 @@ def build_kernels():
         p, i = ctypes.c_void_p, ctypes.c_int
         _lib = kernels.load_library("tbtraverse", _SOURCE, {
             "tb_closest_hit": [p, p, p, p, p, p, i, i, p, p, p, p, p, p, p],
-            "tb_closest_hit_stats": [p, p, p, p, p, i, p, p, p, p, p, p, p,
-                                     p],
+            "tb_closest_hit_stats": [p, p, p, p, p, i, i, p, p, p, p, p, p,
+                                     p, p, p],
             "tb_any_hit": [p, p, p, p, p, p, i, i, p, p, p, p],
         })
     return _lib
@@ -133,9 +137,11 @@ def stack_need(nodes) -> int:
 _stack_entries: dict = {}   # id(nodes) -> (weak reference, stack_need)
 
 
-def stack_entries(nodes) -> int:
+def stack_entries(nodes, depth=None) -> int:
     """stack_need(nodes), kept per node table (it reads the table on the
-    host); raises if the octet stacks would not fit a block."""
+    host). With depth, the stack of a walk that drops pushes past depth
+    entries: at most depth. Without, raises if the octet stacks would not
+    fit a block."""
     known = _stack_entries.get(id(nodes))
     if known is None or known[0]() is not nodes:
         for key in [k for k, (ref, _) in _stack_entries.items()
@@ -143,6 +149,8 @@ def stack_entries(nodes) -> int:
             del _stack_entries[key]
         known = (weakref.ref(nodes), stack_need(nodes))
         _stack_entries[id(nodes)] = known
+    if depth is not None:
+        return min(known[1], depth)
     if known[1] > MAX_STACK_ENTRIES:
         raise ValueError(f"the tree can ask for {known[1]} stack entries; "
                          f"the kernels hold {MAX_STACK_ENTRIES}")
@@ -183,8 +191,11 @@ def closest_hit_stats(o, d, t_max, nodes, tris_bw):
     i32 = dict(dtype=torch.int32, device=o.device)
     t, u, v = (torch.empty(n, **f32) for _ in range(3))
     tri, pops, clusters = (torch.empty(n, **i32) for _ in range(3))
+    # The zeroed counter from which the persistent warps draw their rays.
+    next_ray = torch.zeros(1, **i32)
     kernels.launch(build_kernels(), "tb_closest_hit_stats", o.device, o, d,
-                   t_max, nodes, tris_bw, n, t, tri, u, v, pops, clusters)
+                   t_max, nodes, tris_bw, n, stack_entries(nodes, STACK_DEPTH),
+                   t, tri, u, v, pops, clusters, next_ray)
     kernels.LAUNCHES["closest_stats"] += 1
     return t, tri, u, v, pops, clusters
 
@@ -469,9 +480,11 @@ def walk_footprint(o, d, t_max, nodes, tris_bw, any_hit=False):
     return (*seen, out[4], out[5])
 
 
-def _stack_walk(o, d, t_max, nodes, tris_bw, any_hit=False, seen=None):
+def _stack_walk(o, d, t_max, nodes, tris_bw, any_hit=False, seen=None,
+                held=None):
     """The kernels' stack walk in lock step (closest_hit_stats_plain);
-    any_hit and seen as in walk_footprint."""
+    any_hit and seen as in walk_footprint; held, an int64 (N,) tensor,
+    takes the most entries each ray's stack held."""
     n = o.shape[0]
     dev = o.device
     best = t_max.clone()
@@ -518,9 +531,8 @@ def _stack_walk(o, d, t_max, nodes, tris_bw, any_hit=False, seen=None):
             if any_hit:     # an occluded ray tests no further child
                 enter &= best_tri[r] < 0
             inner = enter & (cid[:, c] >= 0)
-            # Sorted insertion by descending t_near: the new child goes
-            # below every entry with t >= its own (the kernel shifts
-            # while push_t[k - 1] < t_near).
+            # Sorted insertion by descending t_near: the new child is
+            # pushed after, so above, every entry with t >= its own.
             filled = slot < n_push[:, None]
             pos = ((push_t >= t_near[:, None]) & filled).sum(1, keepdim=True)
             shift = inner[:, None] & (slot > pos) & (slot <= n_push[:, None])
@@ -553,6 +565,8 @@ def _stack_walk(o, d, t_max, nodes, tris_bw, any_hit=False, seen=None):
             stack[rr, sp[rr]] = push_id[room, k]
             stack_t[rr, sp[rr]] = push_t[room, k]
             sp[rr] += 1
+        if held is not None:
+            torch.maximum(held, sp, out=held)
     if overflow:
         kernels.add_overflows(dev, overflow)
     t = torch.where(best_tri < 0, BIG, best)

@@ -2,8 +2,11 @@
 CUDA kernel and its plain PyTorch version.
 
 The counterpart of tracerboy_tpu/trace/pallas_traverse.py
-(traverse_packets). The kernel lives in csrc/bvh_traverse_v1.cu, one
-thread per ray; it is built with nvcc for sm_90a at first use
+(traverse_packets). The kernel lives in csrc/bvh_traverse_v1.cu: the
+serial walk below on the octet schedule of the closest-hit kernel (a ray
+per 8 lanes, lane c testing child c and triangle c, an id stack per octet
+in shared memory, persistent blocks drawing rays from a counter the
+wrapper zeroes). It is built with nvcc for sm_90a at first use
 (utils/build.py) and called through ctypes. No wave of the renderer takes
 it; the traversal study (utils/bench_traverse.py) times it beside the
 second-generation kernels of trace/traverse.py.
@@ -31,12 +34,13 @@ Contract (kernel and plain version):
   cluster * 8 + k (-1 on a miss) and u, v (0 on a miss);
 - a push past STACK_DEPTH entries is dropped, as on the TPU, and counted
   in kernels.stack_overflows(); traverse.stack_need(nodes) is what a tree
-  can ask for (7 entries per level and one).
+  can ask for (7 entries per level and one), and the kernel's stack holds
+  that many, at most STACK_DEPTH.
 
 The plain version repeats the kernel's walk in lock step over the rays
 that still have a stack, with the same float32 expressions in the same
-order (the kernel is built with --fmad=false), so the two agree exactly
-but for rays where a slab test rounds otherwise.
+order (the kernel is built with --fmad=false), so the two agree bit for
+bit.
 
 The wrapper takes the plain version only for CPU tensors; on a CUDA
 tensor it launches the kernel or raises. It counts under "closest_v1" in
@@ -51,7 +55,13 @@ import torch
 
 from tracerboy_tpu_torch.accel.bvh import INVALID
 from tracerboy_tpu_torch.trace import kernels
-from tracerboy_tpu_torch.trace.traverse import BIG, LEAF, box_entry, fix_dir
+from tracerboy_tpu_torch.trace.traverse import (
+    BIG,
+    LEAF,
+    box_entry,
+    fix_dir,
+    stack_entries,
+)
 
 STACK_DEPTH = 96    # kStackDepthV1 of csrc/bvh_traverse_v1.cu
 DET_EPS = 1e-9
@@ -66,7 +76,8 @@ def build_kernels():
     if _lib is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         _lib = kernels.load_library("tbtraverse_v1", _SOURCE, {
-            "tb_closest_hit_v1": [p, p, p, p, p, i, p, p, p, p, p, p],
+            "tb_closest_hit_v1": [p, p, p, p, p, i, i, p, p, p, p, p, p,
+                                  p],
         })
     return _lib
 
@@ -90,8 +101,11 @@ def closest_hit_v1(o, d, t_max, nodes, tris):
     t, u, v = (torch.empty(n, dtype=torch.float32, device=o.device)
                for _ in range(3))
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
+    # The zeroed counter from which the persistent blocks draw their rays.
+    next_ray = torch.zeros(1, dtype=torch.int32, device=o.device)
     kernels.launch(build_kernels(), "tb_closest_hit_v1", o.device, o, d,
-                   t_max, nodes, tris, n, t, tri, u, v)
+                   t_max, nodes, tris, n,
+                   stack_entries(nodes, STACK_DEPTH), t, tri, u, v, next_ray)
     kernels.LAUNCHES["closest_v1"] += 1
     return t, tri, u, v
 

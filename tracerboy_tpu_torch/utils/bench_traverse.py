@@ -30,6 +30,12 @@ The counterpart of the JAX package's scripts/bench_traverse.py. Ray sets
            pass each stage of the triangle test (dense_row_stages), per
            pair and per group of 32 neighbouring pairs (a warp); the sums
            last. --sort does not apply.
+- heatmap-wave: the launches of the stats kernel (closest_hit_stats) in
+           one HEATMAP render_sample(1) and one render_sample(--wave-spp)
+           at --wave-film (record_stats_launches): the view's primary waves,
+           the only launches a render gives that kernel; each timed again
+           beside its bound, with its lanes and live rays, and the sum
+           last. --sort does not apply.
 Ray orders (coherence_sort, numpy, the script's own): none, oct-org,
 oct-org-compact, org-oct, org-dir, dir-org.
 Variants:
@@ -62,8 +68,11 @@ the scatter of four outputs back. Where v1 and v2 both ran, a line counts
 the rays on which they differ outside ties: the hit sets, and hits of
 different triangles at different t (beyond 1e-5 relative). The two use
 different triangle tests (Moller-Trumbore with |det| > 1e-9 against
-Baldwin-Weber), so a small count is expected and is no fault. --stats
-prints kernel v2's per-ray pops and leaf clusters (closest_hit_stats)
+Baldwin-Weber), so a small count is expected and is no fault. The v1
+line carries its bound (walk_bound over walk_footprint_v1, MT_OPS a
+triangle test). --stats times the stats kernel (closest_hit_stats) on
+each set like a variant (a `stats` line: ms, quartiles, Mrays/s, its
+bound over walk_footprint) and prints its per-ray pops and leaf clusters
 beside the wide traversal's per-ray need (box and triangle tests). The
 last line is one JSON object of all results.
 
@@ -87,6 +96,11 @@ TIE_REL = 1e-5
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 RAY_OPS, SLAB_OPS, TRI_OPS = 12, 25, 49
+# One Moller-Trumbore test of csrc/bvh_traverse_v1.cu (mt_test and the
+# t < best of its caller): two edges 6, d x e2 9, det 5, |det| > eps and
+# the reciprocal 3, o - v0 3, u 6, tv x e1 9, v 6, t 6, the five
+# acceptance comparisons with u + v 6.
+MT_OPS = 59
 CLUSTER_TRIS = 128     # triangles a dense pair tests (trace/binned.py)
 WARP = 32
 
@@ -301,6 +315,22 @@ def walk_ops(live, pops, clusters, nodes, tri_ops=TRI_OPS) -> float:
             + clusters * 8 * tri_ops)
 
 
+def walk_bound(o, d, tm, nodes, tris, footprint, out_bytes,
+               tri_ops=TRI_OPS):
+    """(bound_ms, bound_by, bytes, ops) of a stack walk of these rays:
+    the rays in, the node and cluster rows the walk reads (footprint:
+    traverse.walk_footprint or traverse_v1.walk_footprint_v1), out_bytes
+    a ray out; each live ray's set-up, its pops' slab tests and its
+    clusters' triangle tests at tri_ops each."""
+    node_rows, cluster_rows, pops, clusters = footprint(o, d, tm, nodes, tris)
+    n_bytes = (_nbytes(o, d, tm) + int(node_rows.sum()) * 4 * nodes.shape[1]
+               + int(cluster_rows.sum()) * 4 * tris.shape[1]
+               + out_bytes * o.shape[0])
+    ops = walk_ops(int((tm > 0).sum()), int(pops.sum()),
+                   int(clusters.sum()), nodes, tri_ops)
+    return (*bound(n_bytes, ops), int(n_bytes), float(ops))
+
+
 def slot_path_rows(nodes, slot_c):
     """Bool mask of the coarse node rows on the paths from the root to the
     parents of the selected clusters (slot_c >= 0): the rows the
@@ -442,6 +472,67 @@ def record_binned_launches(scene, film, spp, device):
         else:
             os.environ["TB_BINNED"] = before
     return calls
+
+
+def record_stats_launches(scene, film, spps, device):
+    """The stats-kernel launches of a HEATMAP Renderer(scene, film): one
+    render_sample(n) for each n of spps, in order: [(o, d, t_max, nodes,
+    tris_bw)]. closest_hit_stats of trace/traverse.py is wrapped while
+    the renderer runs, and put back."""
+    import dataclasses
+
+    from tracerboy_tpu_torch import OutputType, Renderer
+    from tracerboy_tpu_torch.trace import traverse
+
+    calls = []
+    real = traverse.closest_hit_stats
+
+    def wrapped(o, d, t_max, nodes, tris_bw):
+        calls.append((o.clone(), d.clone(), t_max.clone(), nodes, tris_bw))
+        return real(o, d, t_max, nodes, tris_bw)
+
+    r = Renderer(scene, film_size=film, device=str(device))
+    r.settings = dataclasses.replace(r.settings,
+                                     output_type=OutputType.HEATMAP)
+    r.render_sample(1)          # warm up; nothing recorded
+    traverse.closest_hit_stats = wrapped
+    try:
+        for n in spps:
+            r.render_sample(n)
+    finally:
+        traverse.closest_hit_stats = real
+    return calls
+
+
+def heatmap_wave_study(args, device, card, results):
+    """The `heatmap-wave` set: each recorded stats launch timed again
+    (CUDA events, --runs each) beside its bound."""
+    from tracerboy_tpu_torch.trace import traverse
+
+    film = tuple(int(x) for x in args.wave_film.split("x"))
+    calls = record_stats_launches(args.scene, film, (1, args.wave_spp),
+                                  device)
+    total = dict(ms=0.0, bound_ms=0.0, launches=0, lanes=0)
+    for i, call in enumerate(calls):
+        o, d, tm, nodes, tris_bw = call
+        res = _summary(time_runs(lambda: traverse.closest_hit_stats(*call),
+                                 args.runs, device), o.shape[0])
+        res["bound_ms"], res["bound_by"], res["bytes"], res["ops"] = \
+            walk_bound(o, d, tm, nodes, tris_bw, traverse.walk_footprint, 24)
+        res.update(lanes=int(o.shape[0]), live=int((tm > 0).sum()))
+        results[f"{args.scene}/heatmap-wave/stats_{i}"] = res
+        for k in ("ms", "bound_ms", "lanes"):
+            total[k] += res[k]
+        total["launches"] += 1
+        print(f"{card} | {args.scene}/heatmap-wave/stats_{i}: "
+              f"{res['ms']:.3f} ms ({res['q1']:.3f} .. {res['q3']:.3f}, "
+              f"n={res['n']}) = {res['mrays_s']:.1f} Mrays/s, bound "
+              f"{res['bound_ms']:.4f} ms ({res['bound_by']}); "
+              f"{res['lanes']} lanes, {res['live']} live")
+    results[f"{args.scene}/heatmap-wave/total"] = total
+    print(f"{card} | {args.scene}/heatmap-wave/total: {total['ms']:.3f} ms "
+          f"over {total['launches']} launches, bound "
+          f"{total['bound_ms']:.4f} ms")
 
 
 def binned_wave_study(args, device, card, results):
@@ -634,7 +725,7 @@ def main(argv=None) -> dict:
 
     from tracerboy_tpu_torch.accel.pack import pack_scene
     from tracerboy_tpu_torch.scene.compile import load_scene
-    from tracerboy_tpu_torch.trace import traverse
+    from tracerboy_tpu_torch.trace import traverse, traverse_v1
 
     device = torch.device(args.device)
     card = card_line(device)
@@ -672,6 +763,9 @@ def main(argv=None) -> dict:
         if set_name == "binned-wave":
             binned_wave_study(args, device, card, results)
             continue
+        if set_name == "heatmap-wave":
+            heatmap_wave_study(args, device, card, results)
+            continue
         for sort_mode in args.sort.split(","):
             o, d, tm = sets[set_name]
             if args.dead_frac > 0:
@@ -693,12 +787,18 @@ def main(argv=None) -> dict:
                       f"({res['q1']:.3f} .. {res['q3']:.3f}, n={res['n']})")
 
             if args.stats:
-                st = traverse.closest_hit_stats(ot, dt, tmt, packed["nodes"],
-                                                packed["tris_bw"])
+                tables = (packed["nodes"], packed["tris_bw"])
+                st = traverse.closest_hit_stats(ot, dt, tmt, *tables)
                 cost = traverse.traverse_wide(ot, dt, tmt, *wide_tables)[4]
                 live = tmt > 0
                 pops, clusters = (x[live].to(torch.float32) for x in st[4:])
-                res = dict(live=int(live.sum()),
+                res = _summary(time_runs(
+                    lambda: traverse.closest_hit_stats(ot, dt, tmt, *tables),
+                    args.runs, device), args.rays)
+                res["bound_ms"], res["bound_by"], res["bytes"], \
+                    res["ops"] = walk_bound(ot, dt, tmt, *tables,
+                                            traverse.walk_footprint, 24)
+                res.update(live=int(live.sum()),
                            pops_mean=float(pops.mean()),
                            pops_max=float(pops.max()),
                            clusters_mean=float(clusters.mean()),
@@ -707,6 +807,10 @@ def main(argv=None) -> dict:
                                           * 8),
                            need_wide=float(cost[live].mean()))
                 results[f"{prefix}/stats"] = res
+                print(f"{card} | {prefix}/stats: {res['ms']:.3f} ms "
+                      f"({res['q1']:.3f} .. {res['q3']:.3f}, n={res['n']}) "
+                      f"= {res['mrays_s']:.1f} Mrays/s, bound "
+                      f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
                 print(f"{card} | {prefix}: v2 pops/ray mean "
                       f"{res['pops_mean']:.2f} max {res['pops_max']:.0f}, "
                       f"clusters/ray mean {res['clusters_mean']:.2f} max "
@@ -726,10 +830,19 @@ def main(argv=None) -> dict:
                     time_runs(lambda: fn(ot, dt, tmt), args.runs, device),
                     args.rays)
                 res["hits"] = nhit
+                bound_text = ""
+                if vname == "v1":
+                    res["bound_ms"], res["bound_by"], res["bytes"], \
+                        res["ops"] = walk_bound(
+                            ot, dt, tmt, packed["nodes"], packed["tris"],
+                            traverse_v1.walk_footprint_v1, 16, MT_OPS)
+                    bound_text = (f", bound {res['bound_ms']:.4f} ms "
+                                  f"({res['bound_by']})")
                 results[f"{prefix}/{vname}"] = res
                 print(f"{card} | {prefix}/{vname}: {res['ms']:.3f} ms "
                       f"({res['q1']:.3f} .. {res['q3']:.3f}, n={res['n']}) "
-                      f"= {res['mrays_s']:.1f} Mrays/s  (hits {nhit})")
+                      f"= {res['mrays_s']:.1f} Mrays/s  (hits {nhit})"
+                      f"{bound_text}")
             if "v1" in outs and "v2" in outs:
                 res = differ_outside_ties(outs["v1"], outs["v2"])
                 results[f"{prefix}/v1_vs_v2"] = res
