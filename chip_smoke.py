@@ -34,7 +34,11 @@ Phases, each fatal on failure:
      primary and shadow waves, each timed beside its twin; then selection
      and dense pairs on every launch of one TB_BINNED=1 render_sample(1)
      at 1280x720 (the bounce waves, the only rays the binned path gives
-     them), each against its plain version and timed, with the sums;
+     them), each against its plain version and timed, with the sums; then
+     the emit kernel on every launch of one TB_CUT=1 render_sample(1) at
+     1280x720 (one before each closest-hit and each shadow wave), each
+     equal to its plain version bit for bit and timed, with the sums, and
+     on a cut table too large for its shared memory (TB_CUT_TRIS=64);
   7. the slice: Renderer("shadertoy", (1280, 720)) render_sample(1),
      render_sample(8), current_image(), which must launch both kernels
      and overflow no stack; then "shadertoy:cornell" at 512x512, 4 spp,
@@ -135,13 +139,14 @@ UNET_WEIGHTS = (Path(__file__).resolve().parent / "tracerboy_tpu" / "ml"
 # The bound of a kernel: the larger of its bytes (each ray input read
 # once, each table row these rays need read once, each output written
 # once) over the H100 SXM's 3.35 TB/s and its float32 operations over 67
-# TFLOP/s (no tensor cores): bound, walk_ops, select_bound, dense_bound
-# and slot_path_rows of tracerboy_tpu_torch/utils/bench_traverse.py, which
-# give the rates and the operations per step. The rows: those the walk
-# reads (node rows it expands, cluster rows it tests;
-# traverse.walk_footprint and emit_walk), for the selection the coarse
-# rows on the paths from the root to its slots, for dense pairs the
-# clusters of its pairs.
+# TFLOP/s (no tensor cores): bound, walk_ops, select_bound, dense_bound,
+# emit_bound and slot_path_rows of
+# tracerboy_tpu_torch/utils/bench_traverse.py, which give the rates and
+# the operations per step. The rows: those the walk reads (node rows it
+# expands, cluster rows it tests; traverse.walk_footprint and
+# bench_traverse.emit_walk), for the selection the coarse rows on the
+# paths from the root to its slots, for dense pairs the clusters of its
+# pairs.
 # The demodulation identity on a wave without russian roulette: the two
 # traces take the same paths, so the composite differs from the plain
 # radiance by float32 rounding of the split sums only.
@@ -580,41 +585,6 @@ def stats_phase(tables, sets, timed):
     return stats, times
 
 
-def emit_walk(o, d, tm, top, chunk=1 << 16):
-    """(ray, node) pairs of the emit walk over these rays (the root of
-    every live ray and each inner child a ray enters within t_max; the
-    walk culls by t_max only), by the emit twin's slab test, and the bool
-    mask of the top rows it reads."""
-    import torch
-
-    from tracerboy_tpu_torch.accel.bvh import INVALID
-    from tracerboy_tpu_torch.trace import traverse
-
-    W = top.shape[0]
-    cid = top[:, 48:56].to(torch.int64)
-    b = top[:, :48].contiguous().view(torch.float32).reshape(W, 6, 8)
-    lo, hi = b[:, 0:3].permute(0, 2, 1), b[:, 3:6].permute(0, 2, 1)
-    inv = 1.0 / traverse.fix_dir(d)
-    visits = 0
-    rows = torch.zeros(W, dtype=torch.bool, device=top.device)
-    for s in range(0, o.shape[0], chunk):
-        fr = (tm[s:s + chunk] > 0).nonzero(as_tuple=True)[0] + s
-        fn = torch.zeros_like(fr)
-        while fr.numel():
-            visits += fr.numel()
-            rows[fn] = True
-            t_near, t_far = traverse.box_entry(o[fr][:, None],
-                                               inv[fr][:, None], lo[fn],
-                                               hi[fn])
-            c = cid[fn]
-            enter = ((c >= 0) & (c != INVALID)
-                     & (t_far >= torch.clamp_min(t_near, 0.0))
-                     & (t_near < tm[fr][:, None]))
-            ri, si = enter.nonzero(as_tuple=True)
-            fr, fn = fr[ri], c[ri, si]
-    return visits, rows
-
-
 def check_emit(k, p):
     """Emit kernel ids against the twin's: rays whose sorted subtree sets
     differ, and rays whose slot order differs."""
@@ -722,6 +692,7 @@ def opt_in_kernel_phase(scene, compare, primary, shadow):
     from tracerboy_tpu_torch.trace import binned, cut, kernels, traverse
     from tracerboy_tpu_torch.utils.bench_traverse import (
         dense_bound,
+        emit_bound,
         select_bound,
         slot_path_rows,
     )
@@ -779,7 +750,7 @@ def opt_in_kernel_phase(scene, compare, primary, shadow):
             ok, stats[f"dense_{label}"] = check_dense(dk, dp)
             ok_all &= ok
         if label == "primary":
-            visits, top_rows = emit_walk(o, d, tm, top)
+            emit_cost = emit_bound(o, d, tm, top, K)
             select_cost = select_bound(o, d, tm, nodes, sk[1])
             dense_cost = dense_bound(*dpairs, dense_tables[0])
             times.update(
@@ -803,13 +774,11 @@ def opt_in_kernel_phase(scene, compare, primary, shadow):
                     *dpairs, *dense_tables), 1, warmup=0),
                 dense_pairs=int(dpairs[3].shape[0]),
                 primary_live=int((tm > 0).sum()),
-                emit_node_visits=visits,
-                emit_rows=int(top_rows.sum()),
+                emit_node_visits=emit_cost[2]["visits"],
+                emit_rows=emit_cost[2]["rows"],
                 select_rows=int(slot_path_rows(nodes, sk[1]).sum()),
                 dense_clusters=int(torch.unique(dpairs[3]).numel()),
-                # inputs + the rows they need + outputs: (N, K) ids
-                emit_bytes=nbytes(o, d, tm) + row_bytes(top, top_rows)
-                + 4 * K * o.shape[0],
+                emit_bytes=emit_cost[0], emit_ops=emit_cost[1],
                 select_bytes=select_cost[0], select_ops=select_cost[1],
                 dense_bytes=dense_cost[0], dense_ops=dense_cost[1])
         if label == "shadow":
@@ -886,6 +855,89 @@ def binned_bounce_phase():
     if not ok_all:
         fail(f"a binned kernel disagrees with its plain version on the bounce "
              f"launches beyond {TOLERANCE}, or overflowed its stack")
+    return stats, sums
+
+
+def cut_bounce_phase():
+    """The emit kernel against its plain version on every launch of one
+    TB_CUT=1 render_sample(1) at 1280x720 (one before each closest-hit and
+    each shadow wave; bench_traverse.record_cut_launches): the id tables
+    equal bit for bit (no set and no order mismatch) and no stack
+    overflow, each launch timed (CUDA events) beside its bound
+    (bench_traverse.emit_bound). Then a cut table too large for the
+    kernel's shared memory (TB_CUT_TRIS=64, read in place by the same
+    walk) on the first closest-hit and shadow launches' rays, equal bit for
+    bit too. Returns (statistics by launch, sums: ms, plain ms, bound ms,
+    launches, and the large table's rows and ms)."""
+    import torch
+
+    from tracerboy_tpu_torch.scene.compile import load_scene
+    from tracerboy_tpu_torch.trace import cut, kernels
+    from tracerboy_tpu_torch.utils.bench_traverse import (
+        bound,
+        emit_bound,
+        record_cut_launches,
+    )
+
+    set_opt_in()
+    calls = record_cut_launches("shadertoy", FULL_WAVE, 1,
+                                torch.device("cuda"))
+    stats, ok_all = {}, True
+    sums = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, launches=0)
+    seen = dict(main=0, shadow=0)
+    firsts = {}
+    for table, _, call in calls:
+        label = f"{table}_{seen[table]}"
+        seen[table] += 1
+        firsts.setdefault(table, call)
+        kernels.reset_counters()
+        got = cut.emit_cuts(*call)
+        want, plain_ms = timed_once(lambda: cut.emit_cuts_plain(*call))
+        _, st = check_emit(got, want)
+        st["stack_overflows"] = kernels.stack_overflows()
+        ok_all &= (st["set_mismatch"] == 0 and st["order_mismatch"] == 0
+                   and st["stack_overflows"] == 0)
+        o, d, tm, top, _, K = call
+        st.update(lanes=int(o.shape[0]), live=int((tm > 0).sum()),
+                  ms=cuda_ms(lambda: cut.emit_cuts(*call), 10),
+                  plain_ms=plain_ms,
+                  bound_ms=bound(*emit_bound(o, d, tm, top, K)[:2])[0])
+        stats[label] = st
+        for k in ("ms", "plain_ms", "bound_ms"):
+            sums[k] += st[k]
+        sums["launches"] += 1
+        print(f"cut bounce launch {label} kernel vs plain:", json.dumps(st))
+
+    # A table above the shared-memory budget: the same walk, in place.
+    set_opt_in(TB_CUT="1", TB_CUT_TRIS="64")
+    big = load_scene("shadertoy", film_size=FULL_WAVE).as_tensors("cuda")
+    set_opt_in()
+    sums.update(over_budget_rows=0, over_budget_ms=0.0)
+    for table, prefix in (("main", "pk_"), ("shadow", "pk_sh_")):
+        top = big[prefix + "cut_top"]
+        o, d, tm, _, _, K = firsts[table]
+        S = int(big[prefix + "cut_roots"].shape[0]) - 1
+        rows = int(cut.compact_rows(top)[0].shape[0])
+        kernels.reset_counters()
+        got = cut.emit_cuts(o, d, tm, top, S, K)
+        _, st = check_emit(got, cut.emit_cuts_plain(o, d, tm, top, S, K))
+        st.update(stack_overflows=kernels.stack_overflows(), rows=rows,
+                  staged=rows * cut.CUT_ROW * 4 <= cut.STAGED_BYTES,
+                  ms=cuda_ms(lambda: cut.emit_cuts(o, d, tm, top, S, K), 10))
+        ok_all &= (st["set_mismatch"] == 0 and st["order_mismatch"] == 0
+                   and st["stack_overflows"] == 0 and not st["staged"])
+        stats[f"over_budget_{table}"] = st
+        sums["over_budget_rows"] = max(sums["over_budget_rows"], rows)
+        sums["over_budget_ms"] += st["ms"]
+        print(f"cut table above the budget, {table} (TB_CUT_TRIS=64) "
+              f"kernel vs plain:", json.dumps(st))
+    print("cut bounce launches of render_sample(1):", json.dumps(sums))
+    if sums["launches"] == 0 or seen["shadow"] == 0:
+        fail(f"the cut render launched no emit on both tables: {seen}")
+    if not ok_all:
+        fail("the emit kernel differs from its plain version on a launch "
+             "of the cut render or on the table above the budget, or "
+             "overflowed its stack")
     return stats, sums
 
 
@@ -1505,15 +1557,13 @@ def main() -> int:
     opt_stats, opt_times = opt_in_kernel_phase(
         scene, (o, d, tm), (po, pd, ptm), (so, sd, stm))
     bounce_stats, bounce_sums = binned_bounce_phase()
+    cut_stats, cut_sums = cut_bounce_phase()
     bn_select = [opt_stats["select_compare"], opt_stats["select_primary"],
                  *(v for k, v in bounce_stats.items()
                    if k.startswith("select"))]
     bn_dense = [opt_stats["dense_compare"], opt_stats["dense_primary"],
                 *(v for k, v in bounce_stats.items()
                   if k.startswith("dense"))]
-    emit_ops = walk_ops(opt_times["primary_live"],
-                        opt_times["emit_node_visits"], 0,
-                        scene["pk_cut_top"])
     del scene, cs, o, d, tm, po, pd, ptm, so, sd, stm
 
     # --- the slice: default, cut and binned paths ---------------------------
@@ -1553,7 +1603,8 @@ def main() -> int:
                if k.startswith("closest_roots")]
     roots_a = [v for k, v in opt_stats.items()
                if k.startswith("anyhit_roots")]
-    emits = [v for k, v in opt_stats.items() if k.startswith("emit")]
+    emits = [*(v for k, v in opt_stats.items() if k.startswith("emit")),
+             *cut_stats.values()]
     print(json.dumps({"kernels": [
         dict(name="closest_hit", route="cuda", source=trav,
              replaces="tracerboy_tpu/trace/pallas_traverse2.py:754",
@@ -1610,7 +1661,12 @@ def main() -> int:
              order_mismatch=sum(s["order_mismatch"] for s in emits),
              max_abs_err=max(s["max_abs_err"] for s in emits),
              ms=opt_times["emit_ms"], plain_ms=opt_times["emit_plain_ms"],
-             **bound_keys(opt_times["emit_bytes"], emit_ops)),
+             **bound_keys(opt_times["emit_bytes"], opt_times["emit_ops"]),
+             bounce_ms=cut_sums["ms"], bounce_plain_ms=cut_sums["plain_ms"],
+             bounce_bound_ms=cut_sums["bound_ms"],
+             bounce_launches=cut_sums["launches"],
+             over_budget_rows=cut_sums["over_budget_rows"],
+             over_budget_ms=cut_sums["over_budget_ms"]),
         dict(name="select_clusters", route="cuda", source=bsrc,
              replaces="tracerboy_tpu/trace/binned.py:363",
              launches=bn_launches["select"],

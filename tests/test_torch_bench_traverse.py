@@ -26,7 +26,17 @@ scripts/bench_traverse.py.
   and 16 x 12 x 2, the rays the stats wrapper was given), each with its
   time and bound, and the sum; the `stats` line of a ray set with its
   time, quartiles, Mrays/s and bound; v1's bound; the wrapper put back.
-- differ_outside_ties and time_runs on hand-made inputs.
+- The `cut-wave` set on the CPU at a 16x12 film: the emit launches of a
+  TB_CUT=1 render_sample(1) and render_sample(2), two a bounce (the main
+  table before each closest-hit wave, the shadow table before each shadow
+  wave), each with its lanes, live rays, emits, rays over K, time and
+  bound, the sums per table and the total; emit_cuts and TB_CUT are put
+  back. emit_walk, moved here from chip_smoke.py, gives the counts that
+  chip_smoke.py's copy gave on tests/test_torch_cut.py's scene (pinned),
+  equal to a serial walk of each ray, and emits equal to the filled slots
+  of a table wide enough for every ray.
+- differ_outside_ties and time_runs (with and without ahead) on
+  hand-made inputs.
 """
 
 import importlib.util
@@ -311,3 +321,124 @@ def test_time_runs_on_the_cpu():
     ms = study.time_runs(lambda: calls.append(1), 5, torch.device("cpu"),
                          warmup=2)
     assert ms.shape == (5,) and len(calls) == 7 and (ms >= 0).all()
+
+
+def test_cut_wave_set_on_the_cpu(capsys, monkeypatch):
+    from tracerboy_tpu_torch.trace import cut
+
+    monkeypatch.delenv("TB_CUT", raising=False)
+    real = cut.emit_cuts
+    kernels.reset_counters()
+    res = study.main(["--scene", "shadertoy", "--rays", "64", "--sets",
+                      "cut-wave", "--runs", "2", "--device", "cpu",
+                      "--wave-film", "16x12", "--wave-spp", "2",
+                      "--variants", "v2"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1]) == res
+    assert cut.emit_cuts is real and "TB_CUT" not in os.environ
+    assert kernels.TWIN_CALLS["emit"] > 0 and kernels.LAUNCHES["emit"] == 0
+    key = "shadertoy/cut-wave"
+    totals = {t: res[f"{key}/{t}"] for t in ("main", "shadow", "total")}
+    assert totals["main"]["launches"] == totals["shadow"]["launches"] >= 2
+    n = totals["total"]["launches"]
+    assert n == totals["main"]["launches"] + totals["shadow"]["launches"]
+    launches = []
+    for table in ("main", "shadow"):
+        for i in range(totals[table]["launches"]):
+            r = res[f"{key}/{table}_{i}"]
+            launches.append(r)
+            assert r["lanes"] == 16 * 12 * r["spp"] and r["spp"] in (1, 2)
+            assert 0 <= r["live"] <= r["lanes"] and r["n"] == 2
+            assert r["q1"] <= r["ms"] <= r["q3"]
+            assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes",
+                                                          "operations")
+            assert 0 <= r["over_k"] <= r["live"]
+            if r["live"]:
+                assert r["emits_per_live"] > 0 and r["visits_per_live"] >= 1
+    assert f"{key}/main_{totals['main']['launches']}" not in res
+    # The camera wave: every lane live.
+    assert res[f"{key}/main_0"]["live"] == 16 * 12
+    for k in ("ms", "bound_ms", "lanes", "live"):
+        assert totals["total"][k] == pytest.approx(
+            sum(r[k] for r in launches))
+        assert totals["total"][k] == pytest.approx(
+            totals["main"][k] + totals["shadow"][k])
+    assert any(ln.startswith(res["device"]) and f"{key}/shadow_0" in ln
+               for ln in lines)
+
+
+def test_recorded_cut_launches_are_two_a_bounce(monkeypatch):
+    """record_cut_launches hands back what the TB_CUT=1 waves gave
+    emit_cuts: the main table before each closest-hit wave, the shadow
+    table before each shadow wave, in turn, with the lanes of the wave."""
+    from tracerboy_tpu_torch.trace import cut
+
+    monkeypatch.setenv("TB_CUT", "0")
+    calls = study.record_cut_launches("shadertoy", (16, 12), (1, 2),
+                                      torch.device("cpu"))
+    assert os.environ["TB_CUT"] == "0"
+    tables = [c[0] for c in calls]
+    per_render = len(calls) // 2
+    assert per_render >= 2 and per_render % 2 == 0
+    assert tables == ["main", "shadow"] * per_render
+    assert [c[1] for c in calls] == [1] * per_render + [2] * per_render
+    for table, spp, (o, d, tm, top, n_cuts, K) in calls:
+        assert o.shape == (16 * 12 * spp, 3) and K == 8
+        assert top.shape[1] == 128 and 0 < n_cuts < top.shape[0] * 8
+    main_top, shadow_top = calls[0][2][3], calls[1][2][3]
+    assert not torch.equal(main_top[:, 48:56], shadow_top[:, 48:56])
+    assert all(c[2][3] is (main_top if c[0] == "main" else shadow_top)
+               for c in calls)
+    o, d, tm, top, n_cuts, K = calls[0][2]
+    ids = cut.emit_cuts(o, d, tm, top, n_cuts, K)
+    assert bool((tm > 0).all()) and int((ids >= 0).sum()) > 0
+
+
+def test_emit_walk_keeps_chip_smokes_counts():
+    from test_torch_cut import _t, make_rays, make_scene
+    from tracerboy_tpu_torch.accel.bvh import INVALID
+    from tracerboy_tpu_torch.accel.pack import pack_scene
+    from tracerboy_tpu_torch.trace import cut, traverse
+
+    v0, v1, v2 = make_scene()
+    pk, bvh = pack_scene(v0, v1, v2)
+    tc = cut.build_cut(pk["nodes"], bvh.children, bvh.leaf_size, 512)
+    top = _t(tc["top_nodes"])
+    o, d, tm = (_t(x) for x in make_rays())
+    visits, rows, emits = study.emit_walk(o, d, tm, top)
+    # chip_smoke.py's emit_walk gave these on the same inputs.
+    assert (visits, int(rows.sum())) == (2456, 9)
+    # A serial walk of each ray, one node at a time.
+    b = top[:, :48].view(torch.float32).reshape(-1, 6, 8)
+    lo, hi = b[:, 0:3].permute(0, 2, 1), b[:, 3:6].permute(0, 2, 1)
+    serial, seen = 0, set()
+    for i in torch.nonzero(tm > 0)[:, 0].tolist():
+        inv = 1.0 / traverse.fix_dir(d[i:i + 1])
+        stack = [0]
+        while stack:
+            node = stack.pop()
+            serial += 1
+            seen.add(node)
+            t_near, t_far = traverse.box_entry(o[i:i + 1, None],
+                                               inv[:, None], lo[node:node + 1],
+                                               hi[node:node + 1])
+            for c in range(8):
+                cid = int(top[node, 48 + c])
+                if (cid >= 0 and cid != INVALID
+                        and bool(t_far[0, c] >= max(float(t_near[0, c]), 0.0))
+                        and bool(t_near[0, c] < tm[i])):
+                    stack.append(cid)
+    assert serial == visits and seen == set(torch.nonzero(rows)[:, 0].tolist())
+    # Emits: every emit child entered, counted past K too.
+    wide = cut.emit_cuts_plain(o, d, tm, top, tc["n_cuts"], 64)
+    assert (wide[:, -1] == -1).all() and emits == int((wide >= 0).sum())
+
+
+def test_time_runs_ahead_on_the_cpu():
+    """ahead waits on a card only: on the CPU the calls are timed by the
+    host clock as without it."""
+    calls = []
+    ms = study.time_runs(lambda: calls.append(1), 3, torch.device("cpu"),
+                         warmup=1, ahead=True)
+    assert ms.shape == (3,) and len(calls) == 4 and (ms >= 0).all()
+    assert study.AHEAD_CYCLES > 0

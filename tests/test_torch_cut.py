@@ -21,9 +21,14 @@ finite cap. The JAX kernels run in Pallas interpret mode with SUB = 8
   against the port's own whole-tree closest_hit / any_hit, which evaluate
   the same expressions: t and ids equal bit for bit outside ties, u, v to
   1e-6.
+- compact_rows (the emit kernel's table): the rows reachable from the
+  root, renumbered, give the twin's ids bit for bit at every K, and the
+  stack the kernel sizes from them holds every walk.
 - Under the `cuda` marker (skipped without a card): the emit kernel and
-  the rooted traversal kernels against their twins; run them on the card
-  with  python -m pytest --noconftest -m cuda tests/test_torch_cut.py
+  the rooted traversal kernels against their twins, the emit kernel also
+  on every launch of a small TB_CUT=1 render (its bounce and shadow
+  waves) at K = 8 and K = 2, bit for bit; run them on the card with
+  python -m pytest --noconftest -m cuda tests/test_torch_cut.py
 """
 
 import numpy as np
@@ -299,6 +304,30 @@ def test_small_k_overflow_still_exact(tables):
     assert torch.equal(got[0], want[0])
 
 
+def test_compact_rows_keep_the_walk(tables):
+    """The emit kernel's compact table: the rows the walk can reach, root
+    first, inner children renumbered; the twin walking it gives the same
+    ids as on the whole top table."""
+    top, S = tables["top"], tables["cut"]["n_cuts"]
+    rows, entries = cut.compact_rows(top)
+    assert cut.compact_rows(top)[0] is rows           # kept per table
+    assert rows.dtype == torch.int32 and rows.shape[1] == cut.CUT_ROW
+    reach = (top[:, 48:56] >= 0) & (top[:, 48:56] != cut.INVALID)
+    assert 1 < rows.shape[0] <= 1 + int(reach.sum()) < top.shape[0]
+    torch.testing.assert_close(rows[0, :48], top[0, :48], rtol=0, atol=0)
+    ids = rows[:, 48:56]
+    inner = (ids >= 0) & (ids != cut.INVALID)
+    assert (ids[inner] < rows.shape[0]).all()
+    assert sorted(ids[inner].tolist()) == list(range(1, rows.shape[0]))
+    # Emits keep their ids: each cut index once, in the reachable rows.
+    assert sorted(ids[ids < 0].tolist()) == list(range(-S, 0))
+    assert entries == traverse.stack_need(rows) <= cut.STACK_DEPTH
+    o, d, tm = _port_rays()
+    for k in (2, 5, K):
+        assert torch.equal(cut.emit_cuts_plain(o, d, tm, rows, S, k),
+                           cut.emit_cuts_plain(o, d, tm, top, S, k))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -346,3 +375,19 @@ def test_cut_kernels_match_twins_on_the_card(cuda_device):
     assert torch.equal(got[0], want[0])
     assert kernels.stack_overflows() == 0
     assert kernels.LAUNCHES["emit"] >= 3 and kernels.LAUNCHES["closest"] >= 3
+    # Every emit launch of a small TB_CUT=1 render: its bounce and shadow
+    # waves, dead lanes and all, at the wave's K and at K = 2.
+    from tracerboy_tpu_torch.utils.bench_traverse import record_cut_launches
+
+    calls = record_cut_launches("shadertoy", (64, 48), (1, 2), dev)
+    assert {c[0] for c in calls} == {"main", "shadow"}
+    kernels.reset_counters()
+    over = 0
+    for _, _, (o, d, tm, top, S, k) in calls:
+        for kk in (k, 2):
+            ids = cut.emit_cuts(o, d, tm, top, S, kk)
+            assert torch.equal(ids, cut.emit_cuts_plain(o, d, tm, top, S,
+                                                        kk))
+            over += int((ids[:, kk - 1] == S).sum())
+    assert over > 0 and kernels.stack_overflows() == 0
+    assert kernels.LAUNCHES["emit"] == 2 * len(calls)

@@ -1,7 +1,7 @@
 // A host stand-in for the CUDA device API that the port's kernel sources
-// use (csrc/bvh_traverse.cu, bvh_traverse_v1.cu, binned.cu), so that g++
-// can compile a kernel source and a test can run it without a card. Every
-// thread of a block is a host thread; every warp collective (shuffle,
+// use (csrc/bvh_traverse.cu, bvh_traverse_v1.cu, binned.cu, cut_emit.cu),
+// so that g++ can compile a kernel source and a test can run it without a
+// card. Every thread of a block is a host thread; every warp collective (shuffle,
 // ballot, vote, __syncwarp) is a barrier of the warp's 32 threads around an
 // exchange through the warp's 32 slots. That is a faithful model of a
 // kernel whose collectives are all reached by all 32 lanes and name the
@@ -11,6 +11,8 @@
 // __shared__ name (one block runs at a time); a static __shared__ array
 // becomes an array of each host thread, a faithful model only where each
 // thread touches its own part of it (the stats kernel's stack window).
+// __syncthreads is a barrier of the block's threads (shim_block, which a
+// runner that needs it sets for each thread).
 // Host launch code (guarded by __CUDACC__ in the sources) is not compiled.
 #pragma once
 
@@ -72,6 +74,7 @@ struct WarpSlots {
 extern thread_local Dim3 threadIdx, blockIdx, blockDim, gridDim;
 extern thread_local WarpSlots* shim_warp;
 extern thread_local int shim_lane;
+extern thread_local ShimBarrier* shim_block;
 
 template <typename To, typename From>
 inline To shim_bits(From v) {
@@ -99,6 +102,10 @@ inline unsigned min(unsigned a, unsigned b) { return a < b ? a : b; }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
+inline unsigned atomicExch(unsigned* p, unsigned v) {
+  return __atomic_exchange_n(p, v, __ATOMIC_SEQ_CST);
+}
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 
 inline void shim_barrier() { shim_warp->barrier.wait(); }
 
@@ -122,6 +129,7 @@ inline unsigned __ballot_sync(unsigned, bool p) {
 inline bool __any_sync(unsigned m, bool p) { return __ballot_sync(m, p) != 0u; }
 inline bool __all_sync(unsigned m, bool p) { return __ballot_sync(m, p) == ~0u; }
 inline void __syncwarp(unsigned = ~0u) { shim_barrier(); }
+inline void __syncthreads() { shim_block->wait(); }
 
 template <typename T>
 inline T __shfl_sync(unsigned, T v, int src, int width = 32) {

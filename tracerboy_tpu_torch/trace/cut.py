@@ -18,14 +18,17 @@ its own root, and the sort by subtree only keeps warps coherent.
 
 emit_cuts launches the CUDA kernel (csrc/cut_emit.cu) on CUDA tensors and
 takes its plain twin emit_cuts_plain on CPU tensors; traverse_binned2 and
-anyhit_binned2 take the twins throughout with plain=True. STATS counts
-live rays and emit overflows on the path (device tensors, read with
-int()).
+anyhit_binned2 take the twins throughout with plain=True. The kernel walks
+the compact table of compact_rows (the rows reachable from the root, 56
+words each, children renumbered), made on the host at a table's first use
+and kept per table. STATS counts live rays and emit overflows on the path
+(device tensors, read with int()).
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import numpy as np
 import torch
@@ -34,8 +37,14 @@ from tracerboy_tpu_torch.accel.bvh import INVALID
 from tracerboy_tpu_torch.trace import kernels, traverse
 
 _SOURCE = kernels.CSRC / "cut_emit.cu"
+CUT_ROW = 56         # words of a compact row: 48 box words, 8 child ids
+MAX_K = 64           # kMaxK of csrc/cut_emit.cu
+STAGED_BYTES = 32 * 1024   # kStagedBytes: the largest table staged
+STACK_DEPTH = 96     # kStackDepth of csrc/bvh_common.cuh
 kernels.register("emit")
 _lib = None
+_compact: dict = {}  # id(top_nodes) -> (weak reference, rows, entries)
+_counters: dict = {}  # (device, stream) -> the emit kernel's counters
 STATS: dict = {"rays": 0, "overflow_rays": 0}
 
 
@@ -125,8 +134,52 @@ def build_kernels():
     if _lib is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         _lib = kernels.load_library("tbcut", _SOURCE, {
-            "tb_emit_cuts": [p, p, p, p, i, i, i, p, p, p]})
+            "tb_emit_cut_rows": [p, p, p, p, i, i, i, i, i, p, p, p, p]})
     return _lib
+
+
+def ray_counters(device):
+    """The emit kernel's two counters for device's current stream (the
+    next span of rays, the blocks done): zero before a launch, and zeroed
+    again by the launch's last block, so one buffer serves every launch
+    of a stream, in its order."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _counters.get(key)
+    if buf is None:
+        buf = torch.zeros(2, dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
+
+
+def compact_rows(top_nodes):
+    """The emit kernel's table: the rows of top_nodes that the walk can
+    reach from the root (through inner children, ids >= 0), root first in
+    breadth-first order, each cut to its first 56 words (48 box words, 8
+    child ids) with the inner children renumbered to their compact rows;
+    emit ids and INVALID stay. Returns ((R, 56) int32 on top_nodes'
+    device, the stack entries a walk of it can need: traverse.stack_need,
+    at most STACK_DEPTH). Made on the host at a table's first use and kept
+    per table."""
+    known = _compact.get(id(top_nodes))
+    if known is not None and known[0]() is top_nodes:
+        return known[1], known[2]
+    for key in [k for k, (ref, _, _) in _compact.items() if ref() is None]:
+        del _compact[key]
+    top = top_nodes.cpu().numpy()
+    order, index = [0], {0: 0}
+    for n in order:                       # grows as the walk finds rows
+        for c in top[n, 48:56]:
+            if 0 <= c < INVALID and int(c) not in index:
+                index[int(c)] = len(order)
+                order.append(int(c))
+    rows = top[np.asarray(order), :CUT_ROW].copy()
+    ids = rows[:, 48:56]
+    inner = (ids >= 0) & (ids != INVALID)
+    ids[inner] = [index[int(c)] for c in ids[inner]]
+    out = torch.from_numpy(rows).to(top_nodes.device)
+    entries = min(traverse.stack_need(out), STACK_DEPTH)
+    _compact[id(top_nodes)] = (weakref.ref(top_nodes), out, entries)
+    return out, entries
 
 
 def emit_cuts(o, d, t_max, top_nodes, n_cuts: int, K: int = 8):
@@ -141,10 +194,15 @@ def emit_cuts(o, d, t_max, top_nodes, n_cuts: int, K: int = 8):
     if o.device.type == "cpu":
         kernels.TWIN_CALLS["emit"] += 1
         return emit_cuts_plain(o, d, t_max, top_nodes, n_cuts, K)
+    if K > MAX_K:
+        raise ValueError(f"the emit kernel holds at most {MAX_K} ids a ray, "
+                         f"got K = {K}")
+    rows, entries = compact_rows(top_nodes)
     n = o.shape[0]
     ids = torch.empty((n, K), dtype=torch.int32, device=o.device)
-    kernels.launch(build_kernels(), "tb_emit_cuts", o.device, o, d, t_max,
-                   top_nodes, n, K, int(n_cuts), ids)
+    kernels.launch(build_kernels(), "tb_emit_cut_rows", o.device, o, d,
+                   t_max, rows, rows.shape[0], entries, n, K, int(n_cuts),
+                   ids, ray_counters(o.device))
     kernels.LAUNCHES["emit"] += 1
     return ids
 

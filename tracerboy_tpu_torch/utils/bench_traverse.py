@@ -36,6 +36,16 @@ The counterpart of the JAX package's scripts/bench_traverse.py. Ray sets
            the only launches a render gives that kernel; each timed again
            beside its bound, with its lanes and live rays, and the sum
            last. --sort does not apply.
+- cut-wave: the launches of the cut path's emit kernel (trace/cut.py
+           emit_cuts) in one TB_CUT=1 render_sample(1) and one
+           render_sample(--wave-spp) at --wave-film (record_cut_launches):
+           one before every closest-hit wave (the main cut table) and one
+           before every shadow wave (the shadow table). Each timed again
+           on the card alone (time_runs with ahead: a 921,600-lane launch
+           takes the card less time than the host takes to issue it)
+           beside its bound (emit_bound), with its lanes, live rays, emits
+           per live ray and the rays with more than K emits; sums per
+           table and the total last. --sort does not apply.
 Ray orders (coherence_sort, numpy, the script's own): none, oct-org,
 oct-org-compact, org-oct, org-dir, dir-org.
 Variants:
@@ -47,17 +57,19 @@ Variants:
 The tables are packed here from the scene's triangles (pack_scene with
 raw_rows=True), as the script packs its own.
 
-Bounds (bound, walk_ops, select_bound, dense_bound; chip_smoke.py uses
-the same): the larger of the bytes a kernel must move (each ray input read
-once, each table row its rays need read once, each output written once)
-over the H100 SXM's 3.35 TB/s and its float32 operations over 67 TFLOP/s
-(no tensor cores). The operations per step, counted from
+Bounds (bound, walk_ops, select_bound, dense_bound, emit_bound;
+chip_smoke.py uses the same): the larger of the bytes a kernel must move
+(each ray input read once, each table row its rays need read once, each
+output written once) over the H100 SXM's 3.35 TB/s and its float32
+operations over 67 TFLOP/s (no tensor cores). The operations per step, counted from
 csrc/bvh_common.cuh: a ray's set-up 12 (3 fix_dir, 3 reciprocals), one
 child's slab test with its entry test 25, one Baldwin-Weber triangle test
 49. The selection counts each live ray's set-up and the root's slab tests
 and the coarse rows on the paths from the root to its slots; a dense pair
 its set-up and 128 triangle tests, whatever a kernel skips, and the rows of
-its pairs' clusters.
+its pairs' clusters; an emit launch each live ray's set-up, 8 slab tests
+a node visit of its walk (emit_walk), the 56 words of each top row the
+walk reaches, and of the rays only t_max where a lane is dead.
 
 Each variant is warmed up, then timed --runs times with CUDA events (one
 launch per event pair); a line gives the median, the quartiles, Mrays/s at
@@ -103,6 +115,11 @@ RAY_OPS, SLAB_OPS, TRI_OPS = 12, 25, 49
 MT_OPS = 59
 CLUSTER_TRIS = 128     # triangles a dense pair tests (trace/binned.py)
 WARP = 32
+# Words of a cut top row that the emit walk reads: 48 box words, 8 ids.
+EMIT_ROW_WORDS = 56
+# time_runs(ahead=True): clocks the card waits while the host issues the
+# timed calls (about 6 ms at the H100's 1.98 GHz).
+AHEAD_CYCLES = 12_000_000
 
 
 def make_ray_sets(cs, n_rays, rng):
@@ -217,9 +234,14 @@ def card_line(device) -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def time_runs(fn, runs: int, device, warmup: int = 2) -> np.ndarray:
+def time_runs(fn, runs: int, device, warmup: int = 2,
+              ahead: bool = False) -> np.ndarray:
     """ms of each of `runs` calls of fn after `warmup` calls: CUDA events
-    around each call on a card, the host clock on the CPU."""
+    around each call on a card, the host clock on the CPU. A call that
+    takes the card less time than the host takes to issue it measures the
+    host; with ahead, the card first waits AHEAD_CYCLES clocks
+    (torch.cuda._sleep) while the host issues every timed call, so the
+    events bracket the card's time alone."""
     for _ in range(warmup):
         fn()
     if device.type != "cuda":
@@ -229,6 +251,8 @@ def time_runs(fn, runs: int, device, warmup: int = 2) -> np.ndarray:
             fn()
             out.append((time.perf_counter() - t0) * 1e3)
         return np.asarray(out)
+    if ahead:
+        torch.cuda._sleep(AHEAD_CYCLES)
     pairs = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True)) for _ in range(runs)]
     for start, end in pairs:
@@ -472,6 +496,145 @@ def record_binned_launches(scene, film, spp, device):
         else:
             os.environ["TB_BINNED"] = before
     return calls
+
+
+def emit_walk(o, d, tm, top, chunk=1 << 16):
+    """The emit walk over these rays (trace/cut.py emit_cuts; the root of
+    every live ray, then each inner child a ray enters within t_max: the
+    walk culls by t_max only), by the emit twin's slab test. Returns (node
+    visits, the bool mask of the top rows it reads, emits: the emit
+    children entered, K or not)."""
+    from tracerboy_tpu_torch.accel.bvh import INVALID
+    from tracerboy_tpu_torch.trace import traverse
+
+    W = top.shape[0]
+    cid = top[:, 48:56].to(torch.int64)
+    b = top[:, :48].contiguous().view(torch.float32).reshape(W, 6, 8)
+    lo, hi = b[:, 0:3].permute(0, 2, 1), b[:, 3:6].permute(0, 2, 1)
+    inv = 1.0 / traverse.fix_dir(d)
+    visits = emits = 0
+    rows = torch.zeros(W, dtype=torch.bool, device=top.device)
+    for s in range(0, o.shape[0], chunk):
+        fr = (tm[s:s + chunk] > 0).nonzero(as_tuple=True)[0] + s
+        fn = torch.zeros_like(fr)
+        while fr.numel():
+            visits += fr.numel()
+            rows[fn] = True
+            t_near, t_far = traverse.box_entry(o[fr][:, None],
+                                               inv[fr][:, None], lo[fn],
+                                               hi[fn])
+            c = cid[fn]
+            hit = ((c != INVALID) & (t_far >= torch.clamp_min(t_near, 0.0))
+                   & (t_near < tm[fr][:, None]))
+            emits += int((hit & (c < 0)).sum())
+            ri, si = (hit & (c >= 0)).nonzero(as_tuple=True)
+            fr, fn = fr[ri], c[ri, si]
+    return visits, rows, emits
+
+
+def emit_bound(o, d, tm, top, K):
+    """(bytes, operations, walk) of one emit launch: t_max of every lane
+    and o, d of each live one in (a dead lane's ray is not needed), the
+    56 words of every top row the walk reaches, K ids out a lane; each
+    live ray's set-up and 8 slab tests a node visit. walk: dict(visits,
+    rows, emits) of emit_walk."""
+    visits, rows, emits = emit_walk(o, d, tm, top)
+    n_rows = int(rows.sum())
+    live = int((tm > 0).sum())
+    n_bytes = (_nbytes(tm) + 24 * live + n_rows * EMIT_ROW_WORDS * 4
+               + 4 * K * o.shape[0])
+    ops = live * RAY_OPS + visits * 8 * SLAB_OPS
+    return n_bytes, ops, dict(visits=visits, rows=n_rows, emits=emits)
+
+
+def record_cut_launches(scene, film, spp, device):
+    """The emit launches of a TB_CUT=1 Renderer(scene, film): one
+    render_sample(n) for each n of spp (an int or a sequence), after one
+    render_sample of the first as a warm-up, in launch order: [(table, n,
+    (o, d, t_max, top, n_cuts, K))], table "main" (before a closest-hit
+    wave) or "shadow" (before a shadow wave). emit_cuts of trace/cut.py is
+    wrapped while the renderer runs, and put back; TB_CUT is restored."""
+    import os
+
+    from tracerboy_tpu_torch import Renderer
+    from tracerboy_tpu_torch.trace import cut
+
+    spps = (spp,) if isinstance(spp, int) else tuple(spp)
+    calls = []
+    real = cut.emit_cuts
+    before = os.environ.get("TB_CUT")
+    os.environ["TB_CUT"] = "1"
+    try:
+        r = Renderer(scene, film_size=film, device=str(device))
+        main_top = r.scene["pk_cut_top"]
+        n_now = spps[0]
+
+        def wrapped(o, d, t_max, top, n_cuts, K=8):
+            table = "main" if top is main_top else "shadow"
+            calls.append((table, n_now, (o.clone(), d.clone(),
+                                         t_max.clone(), top, n_cuts, K)))
+            return real(o, d, t_max, top, n_cuts, K)
+
+        r.render_sample(spps[0])        # warm up; nothing recorded
+        cut.emit_cuts = wrapped
+        try:
+            for n_now in spps:
+                r.render_sample(n_now)
+        finally:
+            cut.emit_cuts = real
+    finally:
+        if before is None:
+            del os.environ["TB_CUT"]
+        else:
+            os.environ["TB_CUT"] = before
+    return calls
+
+
+def cut_wave_study(args, device, card, results):
+    """The `cut-wave` set: each recorded emit launch timed again (CUDA
+    events, --runs each) beside its bound; sums per table and in all."""
+    from tracerboy_tpu_torch.trace import cut
+
+    film = tuple(int(x) for x in args.wave_film.split("x"))
+    calls = record_cut_launches(args.scene, film, (1, args.wave_spp), device)
+    seen = dict(main=0, shadow=0)
+    totals = {k: dict(ms=0.0, bound_ms=0.0, launches=0, lanes=0, live=0)
+              for k in ("main", "shadow", "total")}
+    for table, spp, call in calls:
+        label = f"{table}_{seen[table]}"
+        seen[table] += 1
+        o, d, tm, top, n_cuts, K = call
+        ids = cut.emit_cuts(*call)
+        res = _summary(time_runs(lambda: cut.emit_cuts(*call), args.runs,
+                                 device, ahead=True), o.shape[0])
+        n_bytes, ops, walk = emit_bound(o, d, tm, top, K)
+        res["bound_ms"], res["bound_by"] = bound(n_bytes, ops)
+        live = int((tm > 0).sum())
+        res.update(spp=spp, lanes=int(o.shape[0]), live=live,
+                   emits_per_live=walk["emits"] / max(live, 1),
+                   visits_per_live=walk["visits"] / max(live, 1),
+                   rows=walk["rows"],
+                   over_k=int((ids[:, K - 1] == n_cuts).sum()),
+                   bytes=int(n_bytes), ops=float(ops))
+        results[f"{args.scene}/cut-wave/{label}"] = res
+        for key in (table, "total"):
+            tot = totals[key]
+            for k in ("ms", "bound_ms", "lanes", "live"):
+                tot[k] += res[k]
+            tot["launches"] += 1
+        print(f"{card} | {args.scene}/cut-wave/{label}: {res['ms']:.4f} ms "
+              f"({res['q1']:.4f} .. {res['q3']:.4f}, n={res['n']}), bound "
+              f"{res['bound_ms']:.4f} ms ({res['bound_by']}); "
+              f"render_sample({spp}), {res['lanes']} lanes, {live} live, "
+              f"{res['emits_per_live']:.2f} emits and "
+              f"{res['visits_per_live']:.2f} node visits a live ray, "
+              f"{res['rows']} top rows, {res['over_k']} rays over K={K}")
+    for key, tot in totals.items():
+        results[f"{args.scene}/cut-wave/{key}"] = tot
+        print(f"{card} | {args.scene}/cut-wave/{key}: {tot['ms']:.4f} ms "
+              f"over {tot['launches']} launches, bound "
+              f"{tot['bound_ms']:.4f} ms; {tot['lanes']} lanes, "
+              f"{tot['live']} live")
 
 
 def record_stats_launches(scene, film, spps, device):
@@ -765,6 +928,9 @@ def main(argv=None) -> dict:
             continue
         if set_name == "heatmap-wave":
             heatmap_wave_study(args, device, card, results)
+            continue
+        if set_name == "cut-wave":
+            cut_wave_study(args, device, card, results)
             continue
         for sort_mode in args.sort.split(","):
             o, d, tm = sets[set_name]

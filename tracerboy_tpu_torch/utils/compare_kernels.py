@@ -1,40 +1,53 @@
-"""Time the v1 closest-hit kernel and the stats kernel of this tree beside
-the same kernels built from another source tree, in turns, on the rays
-each kernel gets, and check that all of them give the same outputs bit
-for bit.
+"""Time the v1 closest-hit kernel, the stats kernel and the cut path's
+emit kernel of this tree beside the same kernels built from other source
+trees, in turns, on the rays each kernel gets, and check that all of them
+give the same outputs bit for bit.
 
     python -m tracerboy_tpu_torch.utils.compare_kernels --parent TREE \
-        [--kernels v1,stats] [--runs 10] [--rays 921600]
-        [--wave-film 1280x720] [--wave-spp 8]
+        [--parent TREE ...] [--kernels v1,stats,emit] [--runs 10]
+        [--rays 921600] [--wave-film 1280x720] [--wave-spp 8]
 
 To compare a parent commit with the working tree on one card, unpack the
 parent into an ignored directory (git archive HEAD | tar -x -C
-build/parent) and pass --parent build/parent.
+build/parent) and pass --parent build/parent. Each further --parent adds
+one more tree to the turns (a candidate kernel, for instance).
 
-The parent's sources (TREE/tracerboy_tpu_torch/csrc/bvh_traverse_v1.cu
-and bvh_traverse.cu, with that tree's headers) are built with this tree's
-nvcc flags under names of their own and called through the C entries of
-the thread-per-ray kernels, which take no ray counter and no stack size:
+A tree's sources (TREE/tracerboy_tpu_torch/csrc/bvh_traverse_v1.cu,
+bvh_traverse.cu and cut_emit.cu, with that tree's headers) are built with
+this tree's nvcc flags under names of their own and called through the C
+entries of the thread-per-ray kernels, which take no ray counter and no
+stack size:
     tb_closest_hit_v1(o, d, t_max, nodes, tris, n, t, tri, u, v,
                       overflow, stream)
     tb_closest_hit_stats(o, d, t_max, nodes, tris, n, t, tri, u, v, pops,
                          clusters, overflow, stream)
-Each kernel runs as the parent's and as this tree's
-(traverse_v1.closest_hit_v1, traverse.closest_hit_stats). Ray sets: the
-traversal study's primary, bounce and shadow rays
+    tb_emit_cuts(o, d, t_max, top, n, K, n_cuts, ids, overflow, stream)
+or, for the emit kernel of a tree that has it, through this tree's entry
+tb_emit_cut_rows (the compact table of cut.compact_rows, the counters of
+cut.ray_counters).
+Each kernel runs as each tree's and as this tree's
+(traverse_v1.closest_hit_v1, traverse.closest_hit_stats, cut.emit_cuts).
+Ray sets: the traversal study's primary, bounce and shadow rays
 (bench_traverse.make_ray_sets, default_rng(7)), each unsorted and sorted
 oct-org, on the study's tables (pack_scene with raw_rows=True); for the
 stats kernel also its `heatmap-wave` launches (record_stats_launches: one
 HEATMAP render_sample(1) and one render_sample(--wave-spp) at
---wave-film), which are the only launches a render gives it.
+--wave-film), which are the only launches a render gives it. The emit
+kernel runs on its `cut-wave` launches (record_cut_launches: one TB_CUT=1
+render_sample(1) and one render_sample(--wave-spp) at --wave-film, on the
+main and shadow cut tables of that render) and on the study's primary and
+bounce rays (main table) and shadow rays (shadow table), unsorted.
 
-Per kernel and set: the tree's outputs against the parent's (rays on
-which any output differs, and 0 stack overflows), then both timed in
-turns (parent, tree, tree, parent), --runs CUDA-event timings a turn; a
-line gives each side's median over its turns, the quartiles and the
-bound (bench_traverse.walk_bound). Sums over the study's six sets
-and over the heatmap-wave launches follow. Prints the card's name and
-power limit first and one JSON object last; exits 1 if any output
+Per kernel and set: the tree's outputs against each other tree's (rays on
+which any output differs, and 0 stack overflows), then all timed in turns
+(trees then this tree, and back: parent, tree, tree, parent for one
+parent), --runs CUDA-event timings a turn (for the emit kernel on the
+card alone: bench_traverse.time_runs with ahead, since a 921,600-lane
+launch takes the card less time than the host takes to issue it); a line
+gives each side's median over its turns, the quartiles and the bound
+(bench_traverse.walk_bound, emit_bound). Sums over the study's six sets, the heatmap-wave launches and
+the cut-wave launches (in all and by table) follow. Prints the card's name
+and power limit first and one JSON object last; exits 1 if any output
 differs or a stack overflowed.
 """
 
@@ -49,39 +62,58 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tracerboy_tpu_torch.trace import kernels, traverse, traverse_v1
+from tracerboy_tpu_torch.trace import cut, kernels, traverse, traverse_v1
 from tracerboy_tpu_torch.utils import bench_traverse as study
 from tracerboy_tpu_torch.utils.build import build_shared_library, nvcc_path
 
 PARENT_ENTRIES = {
-    # kernel: (source, C entry, pointers before n, pointers after n)
-    "v1": ("bvh_traverse_v1.cu", "tb_closest_hit_v1", 5, 6),
-    "stats": ("bvh_traverse.cu", "tb_closest_hit_stats", 5, 8),
+    # kernel: (source, C entry, argument types: p pointer, i int)
+    "v1": ("bvh_traverse_v1.cu", "tb_closest_hit_v1", "pppppi" + "p" * 6),
+    "stats": ("bvh_traverse.cu", "tb_closest_hit_stats", "pppppi" + "p" * 8),
+    "emit": ("cut_emit.cu", "tb_emit_cuts", "ppppiiippp"),
 }
+# The emit entry of a tree that walks the compact table.
+EMIT_ROWS_ENTRY = ("tb_emit_cut_rows", "ppppiiiiipppp")
 
 
 def parent_library(tree: Path, kernel: str):
-    """The parent tree's library of `kernel`, built with this tree's
-    flags; returns (library, C entry name)."""
-    source, entry, before, after = PARENT_ENTRIES[kernel]
+    """A tree's library of `kernel`, built with this tree's flags under a
+    name of its own (the tree's path enters the name's hash through -I);
+    returns (library, C entry name)."""
+    source, entry, types = PARENT_ENTRIES[kernel]
     csrc = tree.resolve() / "tracerboy_tpu_torch" / "csrc"
     flags = [f for f in kernels.NVCC_FLAGS if not f.startswith("-I")]
     path = build_shared_library(
         f"parent_{kernel}", [csrc / source],
         [nvcc_path(), *flags, f"-I{csrc}"], headers=sorted(csrc.glob("*.cuh")))
     lib = ctypes.CDLL(str(path))
-    p = ctypes.c_void_p
-    getattr(lib, entry).restype = ctypes.c_int
-    getattr(lib, entry).argtypes = [p] * before + [ctypes.c_int] + \
-        [p] * after
+    if kernel == "emit" and hasattr(lib, EMIT_ROWS_ENTRY[0]):
+        entry, types = EMIT_ROWS_ENTRY
+    fn = getattr(lib, entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int if c == "i" else ctypes.c_void_p
+                   for c in types]
     return lib, entry
 
 
-def variants(kernel: str, tree: Path):
-    """{name: fn(o, d, t_max, nodes, tris) -> outputs} of one kernel."""
+def tree_function(kernel: str, tree: Path):
+    """fn(o, d, t_max, *tables) -> outputs of `kernel` built from tree."""
     lib, entry = parent_library(tree, kernel)
 
-    def parent(o, d, tm, nodes, tris):
+    def emit(o, d, tm, top, n_cuts, K):
+        n = o.shape[0]
+        ids = torch.empty((n, K), dtype=torch.int32, device=o.device)
+        if entry == EMIT_ROWS_ENTRY[0]:
+            rows, entries = cut.compact_rows(top)
+            kernels.launch(lib, entry, o.device, o, d, tm, rows,
+                           rows.shape[0], entries, n, K, int(n_cuts), ids,
+                           cut.ray_counters(o.device))
+        else:
+            kernels.launch(lib, entry, o.device, o, d, tm, top, n, K,
+                           int(n_cuts), ids)
+        return (ids,)
+
+    def walk(o, d, tm, nodes, tris):
         n = o.shape[0]
         n_out = 4 if kernel == "v1" else 6
         out = [torch.empty(n, dtype=torch.int32 if j in (1, 4, 5)
@@ -90,9 +122,34 @@ def variants(kernel: str, tree: Path):
         kernels.launch(lib, entry, o.device, o, d, tm, nodes, tris, n, *out)
         return tuple(out)
 
-    return dict(parent=parent, tree=(traverse_v1.closest_hit_v1
-                                     if kernel == "v1"
-                                     else traverse.closest_hit_stats))
+    return emit if kernel == "emit" else walk
+
+
+def variants(kernel: str, trees):
+    """{name: fn(o, d, t_max, *tables) -> outputs} of one kernel: each
+    tree's (the first "parent", the others by directory name), then this
+    tree's ("tree")."""
+    fns = {}
+    for j, tree in enumerate(trees):
+        name = "parent" if j == 0 else Path(tree).name
+        fns[name] = tree_function(kernel, Path(tree))
+    fns["tree"] = {"v1": traverse_v1.closest_hit_v1,
+                   "stats": traverse.closest_hit_stats,
+                   "emit": lambda *a: (cut.emit_cuts(*a),)}[kernel]
+    return fns
+
+
+def kernel_bound(kernel, o, d, tm, tables):
+    """(bound ms, bound by) of one launch of `kernel` on these inputs."""
+    if kernel == "v1":
+        return study.walk_bound(o, d, tm, *tables,
+                                traverse_v1.walk_footprint_v1, 16,
+                                study.MT_OPS)[:2]
+    if kernel == "stats":
+        return study.walk_bound(o, d, tm, *tables, traverse.walk_footprint,
+                                24)[:2]
+    top, _, K = tables
+    return study.bound(*study.emit_bound(o, d, tm, top, K)[:2])
 
 
 def compare_set(kernel, fns, label, rays, tables, runs, device, card):
@@ -102,21 +159,17 @@ def compare_set(kernel, fns, label, rays, tables, runs, device, card):
     outs = {name: fn(o, d, tm, *tables) for name, fn in fns.items()}
     overflows = kernels.stack_overflows()
     ref = outs["parent"]
-    differ = {name: int(torch.stack([a != b for a, b in zip(out, ref)])
+    differ = {name: int(torch.stack([(a != b).reshape(a.shape[0], -1)
+                                     .any(1) for a, b in zip(out, ref)])
                         .any(0).sum())
               for name, out in outs.items() if name != "parent"}
     names = list(fns)
     samples: dict = {name: [] for name in names}
     for name in names + names[::-1]:
         samples[name].append(study.time_runs(
-            lambda: fns[name](o, d, tm, *tables), runs, device))
-    if kernel == "v1":
-        bound = study.walk_bound(o, d, tm, *tables,
-                                 traverse_v1.walk_footprint_v1, 16,
-                                 study.MT_OPS)
-    else:
-        bound = study.walk_bound(o, d, tm, *tables, traverse.walk_footprint,
-                                 24)
+            lambda: fns[name](o, d, tm, *tables), runs, device,
+            ahead=kernel == "emit"))
+    bound = kernel_bound(kernel, o, d, tm, tables)
     res = dict(lanes=int(o.shape[0]), live=int((tm > 0).sum()),
                rays_differing_from_parent=differ, stack_overflows=overflows,
                bound_ms=bound[0], bound_by=bound[1])
@@ -136,8 +189,9 @@ def compare_set(kernel, fns, label, rays, tables, runs, device, card):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", type=Path, required=True)
-    ap.add_argument("--kernels", default="v1,stats")
+    ap.add_argument("--parent", type=Path, required=True, action="append",
+                    help="a source tree; repeat for more trees")
+    ap.add_argument("--kernels", default="v1,stats,emit")
     ap.add_argument("--runs", type=int, default=10)
     ap.add_argument("--rays", type=int, default=1280 * 720)
     ap.add_argument("--wave-film", default="1280x720")
@@ -165,7 +219,7 @@ def main(argv=None) -> int:
                 torch.from_numpy(np.ascontiguousarray(x[perm])).to(device)
                 for x in (o, d, tm))
 
-    results: dict = dict(device=card, parent=str(args.parent),
+    results: dict = dict(device=card, parent=[str(t) for t in args.parent],
                          rays=args.rays, runs=args.runs)
     bad = False
     for kernel in args.kernels.split(","):
@@ -174,6 +228,22 @@ def main(argv=None) -> int:
                   else (packed["nodes"], packed["tris_bw"]))
         groups = {"study": [(k, rays, tables)
                             for k, rays in study_sets.items()]}
+        if kernel == "emit":
+            film = tuple(int(x) for x in args.wave_film.split("x"))
+            calls = study.record_cut_launches(
+                "shadertoy", film, (1, args.wave_spp), device)
+            seen = dict(main=0, shadow=0)
+            items, tops = [], {}
+            for table, _, c in calls:
+                items.append((f"cut-wave/{table}_{seen[table]}", c[:3],
+                              c[3:]))
+                seen[table] += 1
+                tops.setdefault(table, c[3:])
+            groups = {"cut-wave": items, "study": [
+                (f"{name}/none/{table}", study_sets[f"{name}/none"],
+                 tops[table])
+                for name, table in (("primary", "main"), ("bounce", "main"),
+                                    ("shadow", "shadow"))]}
         if kernel == "stats":
             film = tuple(int(x) for x in args.wave_film.split("x"))
             calls = study.record_stats_launches(
@@ -194,8 +264,18 @@ def main(argv=None) -> int:
                 total["bound_ms"] += res["bound_ms"]
             results[f"{kernel}/total_{group}"] = total
             print(f"{card} | {kernel}/total_{group} over {len(items)} "
-                  f"launches: " + ", ".join(f"{k} {v:.3f} ms"
+                  f"launches: " + ", ".join(f"{k} {v:.4f} ms"
                                             for k, v in total.items()))
+            if group == "cut-wave":
+                for table in ("main", "shadow"):
+                    part = {name: sum(results[f"{kernel}/{lb}"][name]["ms"]
+                                      for lb, _, _ in items
+                                      if f"/{table}_" in lb)
+                            for name in fns}
+                    results[f"{kernel}/total_{group}_{table}"] = part
+                    print(f"{card} | {kernel}/total_{group}_{table}: "
+                          + ", ".join(f"{k} {v:.4f} ms"
+                                      for k, v in part.items()))
     print(json.dumps(results))
     return 1 if bad else 0
 
