@@ -83,7 +83,22 @@ Phases, each fatal on failure:
      trace_decoupled(8) and the demodulation identity at full width (a
      wave without russian roulette: albedo * D + (I - D) + E against the
      plain wave's radiance, within IDENTITY);
- 14. a JSON line of the seven kernels (launches from the run of the path
+ 14. the command-line renderer (tracerboy_tpu_torch.app.cli.main, in
+     this process) at 1280x720 on a PBRT scene it writes
+     (utils/demo_scene.py: a 256x256-quad height field as a binary PLY,
+     three spheres, a curve, a checkerboard texture, an .hdr sky as the
+     infinite light; a second file Includes it and adds a distant and a
+     point light): the sky alone at 8 spp (environment NEE on by auto),
+     with --env-nee on and 4 env-NEE samples, the lit scene, 8 RealTime
+     frames, and --checkpoint at 4 spp resumed to 8 by a second process;
+     each must write a 1280x720 RGB PNG and finite EXR radiance, launch
+     kernels 1 and 2 and overflow no stack. Every launch of the first
+     run is then held against its plain version and timed beside its
+     bound: each any-hit launch (an env-NEE shadow wave: the scene has
+     no light records) with 0 occlusion mismatches, each closest-hit
+     launch within TOLERANCE, 0 overflows; then the peak memory of
+     render_sample(8) with 1 and with 8 env-NEE samples;
+ 15. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it), then the
      result line {"ok": true, "device": {...}} last.
@@ -1432,6 +1447,293 @@ def realtime_phase(torch, Renderer):
     return results, launches
 
 
+def png_facts(path):
+    """(width, height, colour type, inflated IDAT bytes) of a PNG file,
+    read with zlib and struct only."""
+    import struct
+    import zlib
+
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path}: not a PNG file")
+    pos, idat, ihdr = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != struct.unpack(
+                ">I", data[pos + 8 + n:pos + 12 + n])[0]:
+            fail(f"{path}: CRC of {kind} is wrong")
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    if ihdr is None:
+        fail(f"{path}: no IHDR")
+    return ihdr[0], ihdr[1], ihdr[3], len(zlib.decompress(idat))
+
+
+def check_cli_outputs(name, png, exr):
+    from tracerboy_tpu_torch.core.image_io import read_exr_rgb
+
+    w, h = FULL_WAVE
+    pw, ph, ctype, raw = png_facts(png)
+    if (pw, ph, ctype, raw) != (w, h, 2, h * (1 + 3 * w)):
+        fail(f"CLI {name}: PNG {pw}x{ph} colour type {ctype}, {raw} "
+             f"inflated bytes; expected {w}x{h} RGB, {h * (1 + 3 * w)}")
+    rad = read_exr_rgb(exr)
+    if rad.shape != (h, w, 3) or not np.isfinite(rad).all():
+        fail(f"CLI {name}: EXR radiance {rad.shape}, finite "
+             f"{bool(np.isfinite(rad).all())}")
+    return float(rad.mean())
+
+
+def env_nee_defaults(samples):
+    """A context in which the CLI's settings start from
+    environment_nee_samples = samples (the CLI has no flag for it)."""
+    import contextlib
+    from dataclasses import replace
+
+    from tracerboy_tpu_torch.utils import config
+
+    @contextlib.contextmanager
+    def ctx():
+        real = config.default_output_settings
+
+        def patched():
+            s = real()
+            return s.replace(performance_settings=replace(
+                s.performance_settings, environment_nee_samples=samples))
+
+        config.default_output_settings = patched
+        try:
+            yield
+        finally:
+            config.default_output_settings = real
+
+    return ctx()
+
+
+def cli_launch_check(calls, any_hit):
+    """Each launch (o, d, t_max, nodes, tris_bw) recorded in the CLI's env
+    run through the any-hit kernel (any_hit: the env-NEE shadow waves) or
+    the closest-hit kernel against its plain version (any hit: 0
+    occlusion mismatches; closest hit: check_closest's TOLERANCE), with 0
+    stack overflows; timed (kernel: CUDA events, 5 runs; plain version:
+    one run), beside its bound (bench_traverse.walk_bound of the walk,
+    live rays only, counted in chunks of 2^20 rays)."""
+    import functools
+
+    from tracerboy_tpu_torch.trace import kernels, traverse
+    from tracerboy_tpu_torch.utils.bench_traverse import walk_bound
+
+    label = "env-NEE any-hit" if any_hit else "env-run closest-hit"
+    kernel = traverse.any_hit if any_hit else traverse.closest_hit
+    plain = traverse.anyhit_plain if any_hit else traverse.closest_hit_plain
+    footprint = functools.partial(traverse.walk_footprint, any_hit=any_hit)
+    rows, bad, overflows = [], 0, 0
+    for o, d, tm, nodes, tris in calls:
+        kernels.reset_counters()
+        k = kernel(o, d, tm, nodes, tris)
+        overflows += kernels.stack_overflows()
+        p, plain_ms = timed_once(lambda: plain(o, d, tm, nodes, tris))
+        if any_hit:
+            _, st = check_anyhit(k, p)
+            bad += st["occ_mismatch"] > 0
+        else:
+            ok, st = check_closest(o, d, (nodes, tris), k, p)
+            bad += not ok
+        del k, p
+        b_ms, b_by, n_bytes, ops = walk_bound(
+            o, d, tm, nodes, tris, footprint, 1 if any_hit else 16,
+            chunk=1 << 20, live_rays_only=True)
+        rows.append(dict(
+            st, live=int((tm > 0).sum()),
+            ms=cuda_ms(lambda: kernel(o, d, tm, nodes, tris), 5),
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+            ops=ops))
+    res = dict(launches=len(rows), stack_overflows=overflows,
+               ms=sum(r["ms"] for r in rows),
+               plain_ms=sum(r["plain_ms"] for r in rows),
+               bound_ms=sum(r["bound_ms"] for r in rows),
+               max_abs_err=max((r["max_abs_err"] for r in rows), default=0.0))
+    for key in (("occ_mismatch",) if any_hit else
+                ("hit_mismatch", "id_mismatch_outside_ties", "ties")):
+        res[key] = sum(r[key] for r in rows)
+    res["per_launch"] = rows
+    print(f"{label} launches vs plain:", json.dumps(res))
+    if not rows or bad or overflows:
+        fail(f"{label} launches: {len(rows)} recorded, {bad} disagree "
+             f"with the plain version, {overflows} stack overflows")
+    return res
+
+
+def cli_phase(torch):
+    """cli_runs in a temporary directory that is removed after it."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="tb_cli_") as tmp:
+        return cli_runs(torch, tmp)
+
+
+def cli_runs(torch, tmp):
+    """The command-line renderer, tracerboy_tpu_torch.app.cli.main, in
+    this process at 1280x720 on a PBRT scene written here
+    (utils/demo_scene.py: a 256x256-quad height field as a binary PLY,
+    three spheres, a curve, a checkerboard texture, an .hdr sky as the
+    infinite light; lit.pbrt adds a distant and a point light by
+    Include). Runs: (1) the sky alone, --spp 8 (env NEE on by auto, the
+    closest- and any-hit launches recorded: with no light records each
+    any-hit one is an env-NEE shadow wave); (2) --env-nee on with environment_nee_samples
+    4; (3) the lit scene; (4) --mode realtime --frames 8; (5)
+    --checkpoint at 4 spp, then a second process resuming to 8. Each run
+    must write a 1280x720 RGB PNG and finite EXR radiance, launch the
+    closest- and any-hit kernels and overflow no stack. Then the recorded
+    launches of run (1) against the plain version (cli_launch_check),
+    and the peak memory of
+    render_sample(8) at M = 1 and M = 8. Returns (results, launches of
+    the in-process runs plus the resuming process's)."""
+    from tracerboy_tpu_torch import Renderer
+    from tracerboy_tpu_torch.app import cli
+    from tracerboy_tpu_torch.trace import kernels, traverse
+    from tracerboy_tpu_torch.utils.demo_scene import write_demo_scene
+
+    set_opt_in()
+    env_scene, lit_scene = write_demo_scene(tmp)
+    size = f"{FULL_WAVE[0]}x{FULL_WAVE[1]}"
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    results = {}
+    recorded = {"any_hit": [], "closest_hit": []}
+    real = {key: getattr(traverse, key) for key in recorded}
+
+    def recorder(key):
+        def recording(o, d, t_max, nodes, tris_bw, roots=None):
+            if roots is not None:
+                fail(f"CLI env run: a {key} launch with per-ray roots")
+            recorded[key].append((o.clone(), d.clone(), t_max.clone(),
+                                  nodes, tris_bw))
+            return real[key](o, d, t_max, nodes, tris_bw)
+        return recording
+
+    def run(name, scene, extra, record=False):
+        out = os.path.join(tmp, f"{name}.png")
+        exr = os.path.join(tmp, f"{name}.exr")
+        kernels.reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        last = {}
+        if record:
+            for key in recorded:
+                setattr(traverse, key, recorder(key))
+        try:
+            rc = cli.main([scene, "--size", size, "--out", out, "--hdr-out",
+                           exr, "--quiet", *extra], stats=last)
+        finally:
+            for key, fn in real.items():
+                setattr(traverse, key, fn)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        overflow = kernels.stack_overflows()
+        if rc != 0:
+            fail(f"CLI {name}: exit {rc}")
+        mean = check_cli_outputs(name, out, exr)
+        if launches["closest"] <= 0 or launches["anyhit"] <= 0 or overflow:
+            fail(f"CLI {name}: launches {launches}, {overflow} stack "
+                 f"overflows")
+        for k, v in launches.items():
+            total[k] += v
+        res = dict(seconds=time.perf_counter() - t0,
+                   render_seconds=last["seconds"], spp=last["spp"],
+                   s_per_sample=last["seconds"] / max(last["spp"], 1),
+                   mrays_s=last["rays_traced"] / last["seconds"] / 1e6,
+                   radiance_mean=mean, launches=launches,
+                   stack_overflows=overflow,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   recorded_gib=sum(nbytes(*c[:3]) for calls in
+                                    recorded.values() for c in calls)
+                   / 2**30 if record else 0.0)
+        print(f"CLI {name}:", json.dumps(res))
+        results[name] = res
+        return res
+
+    run("env", env_scene, ["--spp", "8"], record=True)
+    with env_nee_defaults(4):
+        run("env_m4", env_scene, ["--spp", "8", "--env-nee", "on"])
+    run("lit", lit_scene, ["--spp", "8"])
+    run("realtime", env_scene, ["--mode", "realtime", "--frames", "8"])
+    ck = os.path.join(tmp, "ck.npz")
+    run("checkpoint4", env_scene, ["--spp", "4", "--checkpoint", ck])
+    code = ("import json, sys\n"
+            "from tracerboy_tpu_torch.app import cli\n"
+            "from tracerboy_tpu_torch.trace import kernels\n"
+            "run = {}\n"
+            "rc = cli.main(sys.argv[1:], stats=run)\n"
+            "print(json.dumps(dict(rc=rc, launches=kernels.LAUNCHES,\n"
+            "    overflows=kernels.stack_overflows(), run=run)))\n")
+    out8, exr8 = (os.path.join(tmp, "resumed.png"),
+                  os.path.join(tmp, "resumed.exr"))
+    proc = subprocess.run(
+        [sys.executable, "-c", code, env_scene, "--size", size, "--spp", "8",
+         "--checkpoint", ck, "--out", out8, "--hdr-out", exr8],
+        capture_output=True, text=True, timeout=600,
+        cwd=str(Path(__file__).resolve().parent))
+    if proc.returncode != 0:
+        fail(f"CLI resume: exit {proc.returncode}\n{proc.stdout[-3000:]}"
+             f"\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    rep = json.loads(lines[-1])
+    spp = int(np.load(ck)["spp"])
+    if not any("resumed from checkpoint at 4 spp" in ln for ln in lines):
+        fail(f"CLI resume: no resume at 4 spp in {lines[:4]}")
+    if (spp != 8 or rep["run"]["spp"] != 4 or rep["overflows"]
+            or rep["launches"]["closest"] <= 0
+            or rep["launches"]["anyhit"] <= 0):
+        fail(f"CLI resume: checkpoint spp {spp}, process {rep}")
+    check_cli_outputs("resumed", out8, exr8)
+    for k, v in rep["launches"].items():
+        total[k] += v
+    results["resumed"] = dict(checkpoint_spp=spp, launches=rep["launches"],
+                              render_seconds=rep["run"]["seconds"])
+    print("CLI resumed process:", json.dumps(results["resumed"]))
+
+    env_nee = cli_launch_check(recorded.pop("any_hit"), any_hit=True)
+    env_closest = cli_launch_check(recorded.pop("closest_hit"),
+                                   any_hit=False)
+
+    # Peak memory of the 8-sample merged wave (7,372,800 lanes) with M
+    # env-NEE samples: the shadow wave is M x 7,372,800 rays.
+    from dataclasses import replace
+
+    mem = {}
+    for M in (1, 8):
+        r = Renderer(env_scene, film_size=FULL_WAVE, device="cuda")
+        r.settings = r.settings.replace(performance_settings=replace(
+            r.settings.performance_settings, environment_nee_samples=M))
+        cfg = r.wave_config()
+        if not (cfg.env_nee and cfg.env_nee_samples == M
+                and r.traversal == "kernel"):
+            fail(f"env NEE M={M}: wave config {cfg}")
+        r.render_sample(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r.render_sample(8)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        mem[f"M{M}"] = dict(
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            s_per_sample=dt / 8, accum_finite=bool(
+                torch.isfinite(r.state.accum).all()))
+        if not mem[f"M{M}"]["accum_finite"]:
+            fail(f"env NEE M={M}: accumulator not finite")
+        del r
+    print("env NEE render_sample(8) at 1280x720:", json.dumps(mem))
+    results["env_nee_memory"] = mem
+    results["env_nee"] = env_nee
+    results["env_closest"] = env_closest
+    return results, total
+
+
 def main() -> int:
     print(card_line())
     import torch
@@ -1592,10 +1894,14 @@ def main() -> int:
     _, study_launches = study_phase()
     _, rt_launches = realtime_phase(torch, Renderer)
 
+    # --- the command-line renderer on a PBRT scene ----------------------------
+    cli_res, cli_launches = cli_phase(torch)
+    env_nee, env_closest = cli_res["env_nee"], cli_res["env_closest"]
+
     def by_path(key):
         return {"default": launches[key], "cut": cut_launches[key],
                 "binned": bn_launches[key], "study": study_launches[key],
-                "realtime": rt_launches[key]}
+                "realtime": rt_launches[key], "cli": cli_launches[key]}
 
     trav = "tracerboy_tpu_torch/csrc/bvh_traverse.cu"
     bsrc = "tracerboy_tpu_torch/csrc/binned.cu"
@@ -1610,18 +1916,24 @@ def main() -> int:
              replaces="tracerboy_tpu/trace/pallas_traverse2.py:754",
              launches=launches["closest"],
              launches_by_path=by_path("closest"),
-             max_abs_err=max([st_c["max_abs_err"], st_c2["max_abs_err"],
-                              un_c["max_abs_err"]]
-                             + [s["max_abs_err"] for s in roots_c]),
+             max_abs_err=max(s["max_abs_err"] for s in
+                             [st_c, st_c2, un_c, *roots_c, env_closest]),
              id_mismatch_outside_ties=sum(
                  s["id_mismatch_outside_ties"]
-                 for s in [st_c, st_c2, un_c, *roots_c]),
+                 for s in [st_c, st_c2, un_c, *roots_c, env_closest]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
              unordered_ms=un_times["closest_ms"],
              unordered_plain_ms=un_times["closest_plain_ms"],
              **bound_keys(walk_bytes["closest"], closest_ops),
              roots_ms=opt_times["closest_roots_ms"],
-             roots_plain_ms=opt_times["closest_roots_plain_ms"]),
+             roots_plain_ms=opt_times["closest_roots_plain_ms"],
+             cli_env_ms=env_closest["ms"],
+             cli_env_plain_ms=env_closest["plain_ms"],
+             cli_env_bound_ms=env_closest["bound_ms"],
+             cli_env_launches=env_closest["launches"],
+             cli_env_max_abs_err=env_closest["max_abs_err"],
+             cli_env_id_mismatch_outside_ties=env_closest[
+                 "id_mismatch_outside_ties"]),
         dict(name="closest_hit_stats", route="cuda", source=trav,
              replaces="tracerboy_tpu/trace/pallas_traverse2.py:754 "
                       "(stats=True)",
@@ -1652,7 +1964,11 @@ def main() -> int:
              unordered_plain_ms=un_times["anyhit_plain_ms"],
              **bound_keys(walk_bytes["anyhit"], anyhit_ops),
              roots_ms=opt_times["anyhit_roots_ms"],
-             roots_plain_ms=opt_times["anyhit_roots_plain_ms"]),
+             roots_plain_ms=opt_times["anyhit_roots_plain_ms"],
+             env_nee_ms=env_nee["ms"], env_nee_plain_ms=env_nee["plain_ms"],
+             env_nee_bound_ms=env_nee["bound_ms"],
+             env_nee_launches=env_nee["launches"],
+             env_nee_occ_mismatch=env_nee["occ_mismatch"]),
         dict(name="emit_cuts", route="cuda",
              source="tracerboy_tpu_torch/csrc/cut_emit.cu",
              replaces="tracerboy_tpu/trace/pallas_traverse2.py:657",

@@ -35,6 +35,7 @@ scripts/bench_traverse.py.
   chip_smoke.py's copy gave on tests/test_torch_cut.py's scene (pinned),
   equal to a serial walk of each ray, and emits equal to the filled slots
   of a table wide enough for every ray.
+- walk_bound's chunk and live_rays_only options against its whole walk.
 - differ_outside_ties and time_runs (with and without ahead) on
   hand-made inputs.
 """
@@ -432,6 +433,32 @@ def test_emit_walk_keeps_chip_smokes_counts():
     # Emits: every emit child entered, counted past K too.
     wide = cut.emit_cuts_plain(o, d, tm, top, tc["n_cuts"], 64)
     assert (wide[:, -1] == -1).all() and emits == int((wide >= 0).sum())
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_walk_bound_chunks_and_live_rays(any_hit):
+    """walk_bound over chunks of rays equals the walk of all of them at
+    once; live_rays_only leaves out o and d (24 bytes) of each dead lane
+    and nothing else."""
+    import functools
+
+    from test_torch_cut import _t, make_rays, make_scene
+    from tracerboy_tpu_torch.accel.pack import pack_scene
+    from tracerboy_tpu_torch.trace import traverse
+
+    pk, _ = pack_scene(*make_scene())
+    nodes, tris = _t(pk["nodes"]), _t(pk["tris_bw"])
+    o, d, tm = (_t(x) for x in make_rays())
+    walk = functools.partial(traverse.walk_footprint, any_hit=any_hit)
+    whole = study.walk_bound(o, d, tm, nodes, tris, walk, 1)
+    assert study.walk_bound(o, d, tm, nodes, tris, walk, 1,
+                            chunk=97) == whole
+    live = study.walk_bound(o, d, tm, nodes, tris, walk, 1, chunk=97,
+                            live_rays_only=True)
+    dead = int((tm <= 0).sum())
+    assert dead > 0
+    assert live[2] == whole[2] - 24 * dead and live[3] == whole[3]
+    assert live[0] <= whole[0]
 
 
 def test_time_runs_ahead_on_the_cpu():

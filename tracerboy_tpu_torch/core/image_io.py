@@ -1,0 +1,407 @@
+"""Image input/output: PNG, Radiance HDR (.hdr), PFM, and OpenEXR.
+
+Replaces the reference's DirectXTex usage (TracerBoy/TracerBoy.cpp:2204-2227
+loads WIC/HDR/TGA/DDS; D3D12App.cpp:341-364 writes PNG captures). Everything
+here is host-side numpy; results feed the scene compiler which moves arrays to
+device.
+
+A numpy copy of tracerboy_tpu/core/image_io.py that needs no imaging
+library (the port does not depend on PIL): PNG is written by the encoder
+below, and reading PNG/JPG/TGA/BMP is not ported yet.
+
+Formats:
+- PNG: written here (8-bit gray/RGB/RGBA, filter 0, one zlib stream);
+  reading LDR files raises NotImplementedError.
+- Radiance HDR (RGBE, RLE): from the published file format spec.
+- PFM: trivial float format (the reference renames .pfm -> .hdr as a hack;
+  we read it natively).
+- EXR: minimal scanline reader/writer (NONE, ZIP/ZIPS compressed; HALF/FLOAT
+  channels). PIZ-compressed files (the Tungsten goldens) are handled by
+  `read_exr` via the `piz` module.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import zlib
+
+import numpy as np
+
+
+# ----------------------------------------------------------------------------
+# PNG
+
+
+def read_ldr(path: str, gamma_to_linear: bool = False) -> np.ndarray:
+    """LDR files (PNG/JPG/TGA/BMP) need a decoder the port does not have
+    yet."""
+    raise NotImplementedError(
+        f"{path}: reading LDR images (PNG/JPG/TGA/BMP) is not ported yet "
+        "(ROADMAP.md, Queue 1: item 22b, images and other scene files)")
+
+
+_PNG_COLOR_TYPES = {1: 0, 3: 2, 4: 6}   # channels -> gray, RGB, RGBA
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write a float image in [0,1] (H, W), (H, W, 3|4) or uint8 as an
+    8-bit PNG, quantised as the JAX package does (clip, then x*255+0.5
+    truncated): IHDR, one IDAT of filter-0 rows, IEND."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        img = np.clip(img, 0.0, 1.0)
+        img = (img * 255.0 + 0.5).astype(np.uint8)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, c = img.shape
+    if c not in _PNG_COLOR_TYPES:
+        raise ValueError(f"PNG needs 1, 3 or 4 channels, got {c}")
+    rows = np.zeros((h, 1 + w * c), np.uint8)   # filter byte 0 per row
+    rows[:, 1:] = np.ascontiguousarray(img).reshape(h, w * c)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOR_TYPES[c], 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", ihdr))
+        f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(_png_chunk(b"IEND", b""))
+
+
+# ----------------------------------------------------------------------------
+# Radiance HDR (RGBE)
+
+
+def read_hdr(path: str) -> np.ndarray:
+    """Read a Radiance .hdr (RGBE) file to float32 (H, W, 3)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not (data.startswith(b"#?RADIANCE") or data.startswith(b"#?RGBE")):
+        raise ValueError(f"not a Radiance HDR file: {path}")
+    # Header: lines until blank line, then resolution line.
+    pos = 0
+    while True:
+        eol = data.index(b"\n", pos)
+        line = data[pos:eol]
+        pos = eol + 1
+        if line == b"":
+            break
+    eol = data.index(b"\n", pos)
+    res_line = data[pos:eol].decode("ascii").split()
+    pos = eol + 1
+    if res_line[0] != "-Y" or res_line[2] != "+X":
+        raise ValueError(f"unsupported HDR orientation: {res_line}")
+    height, width = int(res_line[1]), int(res_line[3])
+
+    rgbe = np.zeros((height, width, 4), np.uint8)
+    buf = np.frombuffer(data, np.uint8, offset=pos)
+    bp = 0
+    for y in range(height):
+        if width < 8 or width > 0x7FFF or not (
+            buf[bp] == 2 and buf[bp + 1] == 2 and (int(buf[bp + 2]) << 8 | int(buf[bp + 3])) == width
+        ):
+            # Flat (non-RLE) scanline(s): remaining data is raw RGBE.
+            n = (height - y) * width
+            flat = buf[bp : bp + n * 4].reshape(height - y, width, 4)
+            rgbe[y:] = flat
+            bp += n * 4
+            break
+        bp += 4
+        # New-style RLE: each of the 4 components run-length encoded.
+        for c in range(4):
+            x = 0
+            while x < width:
+                count = int(buf[bp])
+                bp += 1
+                if count > 128:  # run
+                    rgbe[y, x : x + count - 128, c] = buf[bp]
+                    bp += 1
+                    x += count - 128
+                else:  # literal
+                    rgbe[y, x : x + count, c] = buf[bp : bp + count]
+                    bp += count
+                    x += count
+    return rgbe_to_float(rgbe)
+
+
+def rgbe_to_float(rgbe: np.ndarray) -> np.ndarray:
+    exp = rgbe[..., 3].astype(np.int32)
+    scale = np.where(exp == 0, 0.0, np.ldexp(1.0, exp - 136)).astype(np.float32)
+    return (rgbe[..., :3].astype(np.float32) + 0.5) * scale[..., None] * np.where(
+        exp[..., None] == 0, 0.0, 1.0
+    )
+
+
+def write_hdr(path: str, img: np.ndarray) -> None:
+    """Write float32 (H, W, 3) as flat (non-RLE) Radiance HDR."""
+    img = np.asarray(img, np.float32)
+    h, w, _ = img.shape
+    maxc = np.max(img, axis=-1)
+    exp = np.zeros((h, w), np.int32)
+    mant = np.zeros((h, w), np.float32)
+    nz = maxc > 1e-32
+    mant[nz], exp[nz] = np.frexp(maxc[nz])
+    scale = np.zeros((h, w), np.float32)
+    scale[nz] = mant[nz] * 256.0 / maxc[nz]
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[..., :3] = np.clip(img * scale[..., None], 0, 255).astype(np.uint8)
+    rgbe[..., 3] = np.where(nz, exp + 128, 0).astype(np.uint8)
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {h} +X {w}\n".encode("ascii"))
+        f.write(rgbe.tobytes())
+
+
+# ----------------------------------------------------------------------------
+# PFM
+
+
+def read_pfm(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        header = f.readline().strip()
+        color = header == b"PF"
+        if header not in (b"PF", b"Pf"):
+            raise ValueError(f"not a PFM file: {path}")
+        dims = f.readline().split()
+        w, h = int(dims[0]), int(dims[1])
+        scale = float(f.readline().strip())
+        dtype = "<f4" if scale < 0 else ">f4"
+        count = w * h * (3 if color else 1)
+        arr = np.frombuffer(f.read(count * 4), dtype).astype(np.float32)
+    shape = (h, w, 3) if color else (h, w)
+    return arr.reshape(shape)[::-1].copy()  # PFM rows are bottom-up
+
+
+def write_pfm(path: str, img: np.ndarray) -> None:
+    img = np.asarray(img, np.float32)
+    color = img.ndim == 3
+    with open(path, "wb") as f:
+        f.write(b"PF\n" if color else b"Pf\n")
+        f.write(f"{img.shape[1]} {img.shape[0]}\n".encode())
+        f.write(b"-1.0\n")
+        f.write(img[::-1].astype("<f4").tobytes())
+
+
+# ----------------------------------------------------------------------------
+# OpenEXR (scanline; NONE/ZIPS/ZIP read+write, PIZ read via piz module)
+
+_EXR_MAGIC = 20000630
+_PT_HALF, _PT_FLOAT = 1, 2
+_COMP_NONE, _COMP_RLE, _COMP_ZIPS, _COMP_ZIP, _COMP_PIZ = 0, 1, 2, 3, 4
+
+
+def _read_exr_header(data):
+    if struct.unpack_from("<i", data, 0)[0] != _EXR_MAGIC:
+        raise ValueError("not an EXR file")
+    pos = 8
+    attrs = {}
+    while data[pos] != 0:
+        j = data.index(b"\0", pos)
+        name = data[pos:j].decode()
+        pos = j + 1
+        j = data.index(b"\0", pos)
+        typ = data[pos:j].decode()
+        pos = j + 1
+        size = struct.unpack_from("<i", data, pos)[0]
+        pos += 4
+        attrs[name] = (typ, data[pos : pos + size])
+        pos += size
+    return attrs, pos + 1
+
+
+def _parse_chlist(raw):
+    chans = []
+    pos = 0
+    while raw[pos] != 0:
+        j = raw.index(b"\0", pos)
+        name = raw[pos:j].decode()
+        pos = j + 1
+        ptype, _flags, xs, ys = struct.unpack_from("<iiii", raw, pos)
+        pos += 16
+        chans.append((name, ptype, xs, ys))
+    return chans
+
+
+def read_exr(path: str) -> dict:
+    """Read a scanline EXR. Returns {channel_name: float32 (H, W)}.
+
+    Supports NONE, ZIPS, ZIP, and PIZ compression with HALF/FLOAT channels —
+    enough for the reference's Tungsten golden renders
+    (PIZ-compressed).
+    """
+    with open(path, "rb") as f:
+        data = f.read()
+    attrs, pos = _read_exr_header(data)
+    chans = _parse_chlist(attrs["channels"][1])
+    comp = attrs["compression"][1][0]
+    x0, y0, x1, y1 = struct.unpack("<iiii", attrs["dataWindow"][1])
+    width, height = x1 - x0 + 1, y1 - y0 + 1
+
+    lines_per_block = {_COMP_NONE: 1, _COMP_ZIPS: 1, _COMP_ZIP: 16, _COMP_PIZ: 32}.get(
+        comp
+    )
+    if lines_per_block is None:
+        raise ValueError(f"unsupported EXR compression: {comp}")
+    nblocks = (height + lines_per_block - 1) // lines_per_block
+    # Skip offset table.
+    pos += nblocks * 8
+
+    out = {
+        name: np.zeros((height, width), np.float32) for name, *_ in chans
+    }
+    bytes_per_px = {_PT_HALF: 2, _PT_FLOAT: 4}
+
+    if comp == _COMP_PIZ:
+        from tracerboy_tpu_torch.core import piz as piz_mod
+
+        return piz_mod.read_piz_blocks(
+            data, pos, chans, width, height, nblocks, lines_per_block
+        )
+
+    for _ in range(nblocks):
+        ystart, dsize = struct.unpack_from("<ii", data, pos)
+        pos += 8
+        raw = data[pos : pos + dsize]
+        pos += dsize
+        nlines = min(lines_per_block, height - (ystart - y0))
+        expected = nlines * width * sum(bytes_per_px[pt] for _, pt, _, _ in chans)
+        if comp in (_COMP_ZIPS, _COMP_ZIP) and dsize < expected:
+            raw = zlib.decompress(raw)
+            raw = _exr_unpredict(np.frombuffer(raw, np.uint8))
+        buf = np.frombuffer(raw, np.uint8)
+        off = 0
+        for line in range(nlines):
+            y = ystart - y0 + line
+            for name, ptype, _, _ in chans:
+                n = width * bytes_per_px[ptype]
+                chunk = buf[off : off + n]
+                off += n
+                if ptype == _PT_HALF:
+                    out[name][y] = chunk.view(np.float16).astype(np.float32)
+                else:
+                    out[name][y] = chunk.view(np.float32)
+    return out
+
+
+def _exr_unpredict(buf: np.ndarray) -> np.ndarray:
+    """Undo EXR's ZIP delta predictor + two-buffer interleave.
+
+    Predictor: out[i] = out[i-1] + in[i] - 128 (mod 256) -> a prefix sum.
+    """
+    deltas = buf.astype(np.int64) - 128
+    deltas[0] = buf[0]
+    out = (np.cumsum(deltas) % 256).astype(np.uint8)
+    # de-interleave: first half -> even positions, second half -> odd
+    result = np.empty_like(out)
+    half = (len(out) + 1) // 2
+    result[0::2] = out[:half]
+    result[1::2] = out[half:]
+    return result
+
+
+def _exr_predict(buf: np.ndarray) -> bytes:
+    """Apply EXR's interleave + delta predictor before ZIP compression."""
+    half = (len(buf) + 1) // 2
+    inter = np.empty_like(buf)
+    inter[:half] = buf[0::2]
+    inter[half:] = buf[1::2]
+    d = inter.astype(np.int32)
+    delta = np.empty_like(d)
+    delta[0] = d[0]
+    delta[1:] = d[1:] - d[:-1] + 128
+    return (delta % 256).astype(np.uint8).tobytes()
+
+
+def write_exr(path: str, channels: dict, compress: bool = True) -> None:
+    """Write float32 channels {name: (H, W)} as a ZIP-compressed HALF EXR.
+
+    Convenience overload: pass an (H, W, 3) array to write R, G, B.
+    """
+    if isinstance(channels, np.ndarray):
+        channels = {
+            "R": channels[..., 0],
+            "G": channels[..., 1],
+            "B": channels[..., 2],
+        }
+    names = sorted(channels)  # EXR requires sorted channel order
+    h, w = next(iter(channels.values())).shape
+    comp = _COMP_ZIP if compress else _COMP_NONE
+    lines_per_block = 16 if compress else 1
+
+    def attr(name, typ, val):
+        return name.encode() + b"\0" + typ.encode() + b"\0" + struct.pack("<i", len(val)) + val
+
+    chlist = b""
+    for n in names:
+        chlist += n.encode() + b"\0" + struct.pack("<iiii", _PT_HALF, 0, 1, 1)
+    chlist += b"\0"
+    box = struct.pack("<iiii", 0, 0, w - 1, h - 1)
+    header = b"".join(
+        [
+            struct.pack("<i", _EXR_MAGIC),
+            struct.pack("<i", 2),  # version 2, scanline
+            attr("channels", "chlist", chlist),
+            attr("compression", "compression", bytes([comp])),
+            attr("dataWindow", "box2i", box),
+            attr("displayWindow", "box2i", box),
+            attr("lineOrder", "lineOrder", b"\0"),
+            attr("pixelAspectRatio", "float", struct.pack("<f", 1.0)),
+            attr("screenWindowCenter", "v2f", struct.pack("<ff", 0.0, 0.0)),
+            attr("screenWindowWidth", "float", struct.pack("<f", 1.0)),
+            b"\0",
+        ]
+    )
+    nblocks = (h + lines_per_block - 1) // lines_per_block
+    blocks = []
+    for b in range(nblocks):
+        y = b * lines_per_block
+        nlines = min(lines_per_block, h - y)
+        lines = []
+        for line in range(nlines):
+            for n in names:
+                lines.append(
+                    np.asarray(channels[n][y + line], np.float32)
+                    .astype(np.float16)
+                    .tobytes()
+                )
+        raw = b"".join(lines)
+        if compress:
+            comp_data = zlib.compress(_exr_predict(np.frombuffer(raw, np.uint8)))
+            if len(comp_data) >= len(raw):
+                comp_data = raw
+        else:
+            comp_data = raw
+        blocks.append((y, comp_data))
+    offset = len(header) + nblocks * 8
+    table = b""
+    for y, bd in blocks:
+        table += struct.pack("<Q", offset)
+        offset += 8 + len(bd)
+    with open(path, "wb") as f:
+        f.write(header)
+        f.write(table)
+        for y, bd in blocks:
+            f.write(struct.pack("<ii", y, len(bd)))
+            f.write(bd)
+
+
+def read_exr_rgb(path: str) -> np.ndarray:
+    """Read an EXR and stack R, G, B channels to (H, W, 3)."""
+    ch = read_exr(path)
+    return np.stack([ch["R"], ch["G"], ch["B"]], axis=-1)
+
+
+def read_texture(path: str, gamma_to_linear_ldr: bool = True) -> np.ndarray:
+    """Dispatch on extension; returns float32 linear (H, W, 3+)."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".hdr":
+        return read_hdr(path)
+    if ext == ".pfm":
+        return read_pfm(path)
+    if ext == ".exr":
+        return read_exr_rgb(path)
+    return read_ldr(path, gamma_to_linear=gamma_to_linear_ldr)

@@ -103,7 +103,7 @@ class Renderer:
                  film_size: tuple | None = None, seed: int = 0,
                  device="cuda"):
         """scene: a CompiledScene or a name for load_scene ("shadertoy",
-        "shadertoy:cornell")."""
+        "shadertoy:cornell", or the path of a .pbrt file)."""
         if isinstance(scene, str):
             scene = load_scene(scene, film_size=film_size)
         if not isinstance(scene, CompiledScene):
@@ -230,6 +230,8 @@ class Renderer:
                      or (self.compiled.num_lights == 0
                          and perf.enable_next_event_estimation))
             ),
+            env_nee_samples=max(1, min(8,
+                                       int(perf.environment_nee_samples))),
             has_mix=bool((mats["flags"] & 0x8).any()),
             has_textures=bool(
                 (mats["albedo_tex"] >= 0).any()
@@ -429,14 +431,7 @@ class Renderer:
         h, w = self.height, self.width
         frame = self.state.spp
         if self._rt_hist_fused is None:
-            def z(c=3):
-                return torch.zeros((h, w, c), dtype=torch.float32,
-                                   device=self.device)
-            self._rt_hist_fused = dict(
-                indirect=z(), moments=z(), final=z(), prev_world_pos=z(4),
-                raw=z(),
-                aovs=dict(albedo=z(), normal=z(), world_pos=z(4),
-                          emissive=z(), diffuse_contrib=z()))
+            self._rt_hist_fused = self.empty_realtime_history()
         history = self._rt_hist_fused
         first = frame == 0
         perf = self.settings.performance_settings
@@ -481,6 +476,19 @@ class Renderer:
         self.rays_traced += int(out["rays_traced"])
         self.state.spp += 1
         return self._rt_finish(display, 1.0, as_numpy)
+
+    def empty_realtime_history(self) -> dict:
+        """The fused RealTime path's history before its first frame:
+        zeros of the shapes the JAX renderer's _rt_hist_fused has."""
+        def z(c=3):
+            return torch.zeros((self.height, self.width, c),
+                               dtype=torch.float32, device=self.device)
+
+        return dict(
+            indirect=z(), moments=z(), final=z(), prev_world_pos=z(4),
+            raw=z(),
+            aovs=dict(albedo=z(), normal=z(), world_pos=z(4), emissive=z(),
+                      diffuse_contrib=z()))
 
     def load_realtime_history(self, history: dict | None,
                               cam_prev: dict | None = None,

@@ -9,21 +9,26 @@ noise, and the packed BVH tables of the traversal kernels (a main BVH and
 a shadow BVH over non-light triangles), with attribute rows in packed
 order for kernel hit ids.
 
-What the procedural scenes never reach raises NotImplementedError:
-instances, spheres and curves, volumes, non-area lights, image files,
-and scene files (PBRT, OBJ, .npz caches).
+load_scene takes the procedural scenes and PBRT files (scene/pbrt_parser.py,
+with PLY meshes, spheres, curves, and infinite, distant and point lights;
+environment maps from .hdr/.pfm/.exr). What the port does not have yet
+raises NotImplementedError naming its ROADMAP.md item: instanced scenes
+(15), volumes (14), image textures and LDR environment maps, OBJ/STL/glTF
+and .pbf files (22b), and .npz scene caches (23), which this load_scene
+neither writes nor reads.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from tracerboy_tpu_torch.accel.native import build_bvh_native
 from tracerboy_tpu_torch.scene import types as ir
+from tracerboy_tpu_torch.scene.curves import tessellate_curve
 from tracerboy_tpu_torch.scene.materials import (
     LIGHT_FLAG,
     MaterialTable,
@@ -251,7 +256,7 @@ def from_jax_pytree(d: dict, device="cuda") -> dict:
         elif isinstance(v, (list, tuple)):
             raise NotImplementedError(
                 f"scene leaf {k!r}: instanced scenes are not ported yet "
-                "(ROADMAP.md, Queue 1: trace/instanced.py)")
+                "(ROADMAP.md, Queue 1: item 15, trace/instanced.py)")
         else:
             a = np.array(_canonical(v), order="C", copy=True)
             out[k] = torch.from_numpy(a).to(device)
@@ -273,14 +278,43 @@ def _transform_mesh(mesh: ir.TriangleMeshIR):
     return pos.astype(np.float32), nrm
 
 
+def _sphere_mesh(radius: float, lat: int = 16, lon: int = 32):
+    """UV-sphere tessellation for pbrt `sphere` shapes."""
+    th = np.linspace(0, np.pi, lat + 1)
+    ph = np.linspace(0, 2 * np.pi, lon, endpoint=False)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    pts = np.stack(
+        [np.sin(T) * np.cos(P), np.sin(T) * np.sin(P), np.cos(T)], axis=-1
+    ).reshape(-1, 3)
+    idx = []
+    for i in range(lat):
+        for j in range(lon):
+            a = i * lon + j
+            b = i * lon + (j + 1) % lon
+            c = (i + 1) * lon + j
+            d = (i + 1) * lon + (j + 1) % lon
+            if i > 0:
+                idx.append((a, b, c))
+            if i < lat - 1:
+                idx.append((b, d, c))
+    pts = pts.astype(np.float32)
+    return pts * radius, np.asarray(idx, np.int32), pts.copy()
+
+
+def _place(pos, nrm0, M):
+    """Object-space points and normals of a sphere or curve mesh into
+    the shape's frame."""
+    pos = (pos @ M[:3, :3].T + M[:3, 3]).astype(np.float32)
+    it = np.linalg.inv(M[:3, :3]).T
+    nrm = nrm0 @ it.T
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-12)
+    return pos, nrm.astype(np.float32)
+
+
 def _shape_to_tris(shape, scene, table, tex_alloc, material_lookup):
-    """One triangle mesh -> (tri_pos (t,3,3), tri_nrm, tri_uv, mat_id,
-    emission) in world space. The procedural scenes are triangle meshes;
-    pbrt spheres and curves come only from scene files."""
-    if not isinstance(shape, ir.TriangleMeshIR):
-        raise NotImplementedError(
-            f"{type(shape).__name__} shapes are not ported yet (ROADMAP.md, "
-            "Queue 1: image and scene-file ingestion)")
+    """One shape -> (tri_pos (t,3,3), tri_nrm, tri_uv, mat_id, emission)
+    in world space; None for a shape type the compiler does not know (the
+    JAX package skips those too)."""
     emission = getattr(shape, "emission", None)
     mat_ir = scene.materials.get(shape.material)
     alpha_tex = getattr(shape, "alpha_texture", None)
@@ -288,8 +322,19 @@ def _shape_to_tris(shape, scene, table, tex_alloc, material_lookup):
         mat_ir, emission if emission is not None else (0, 0, 0),
         table, tex_alloc, material_lookup, alpha_texture=alpha_tex,
     )
-    pos, nrm = _transform_mesh(shape)
-    idx, uv = shape.indices, shape.uvs
+    uv = None
+    if isinstance(shape, ir.TriangleMeshIR):
+        pos, nrm = _transform_mesh(shape)
+        idx, uv = shape.indices, shape.uvs
+    elif isinstance(shape, ir.SphereIR):
+        pos, idx, nrm0 = _sphere_mesh(shape.radius)
+        pos, nrm = _place(pos, nrm0, shape.transform)
+    elif isinstance(shape, ir.CurveIR):
+        pos, idx, nrm0 = tessellate_curve(
+            shape.control_points, shape.width0, shape.width1)
+        pos, nrm = _place(pos, nrm0, shape.transform)
+    else:
+        return None
     tri_pos = pos[idx]
     if nrm is not None and len(nrm) == len(pos):
         tri_nrm = nrm[idx]
@@ -325,16 +370,11 @@ def compile_scene(scene: ir.SceneIR, leaf_size: int = LEAF_SIZE,
     if scene.instances:
         raise NotImplementedError(
             "instanced scenes are not ported yet (ROADMAP.md, Queue 1: "
-            "trace/instanced.py)")
+            "item 15, trace/instanced.py)")
     if getattr(scene, "volume", None) is not None:
         raise NotImplementedError(
-            "volumes are not ported yet (ROADMAP.md, Queue 1: "
+            "volumes are not ported yet (ROADMAP.md, Queue 1: item 14, "
             "shade/volumetric.py)")
-    if scene.lights:
-        raise NotImplementedError(
-            "non-area lights (infinite, distant, point) come only from "
-            "scene files and are not ported yet (ROADMAP.md, Queue 1: image "
-            "and scene-file ingestion)")
     table = MaterialTable()
     tex_alloc = TextureAllocator(scene.base_dir, scene.textures)
 
@@ -344,8 +384,10 @@ def compile_scene(scene: ir.SceneIR, leaf_size: int = LEAF_SIZE,
     v_chunks, n_chunks, uv_chunks, mat_chunks = [], [], [], []
     light_records = []
     for shape in scene.shapes:
-        tri_pos, tri_nrm, tri_uv, mat_id, emission = _shape_to_tris(
-            shape, scene, table, tex_alloc, material_lookup)
+        r = _shape_to_tris(shape, scene, table, tex_alloc, material_lookup)
+        if r is None:
+            continue
+        tri_pos, tri_nrm, tri_uv, mat_id, emission = r
         v_chunks.append(tri_pos)
         n_chunks.append(tri_nrm)
         uv_chunks.append(tri_uv)
@@ -373,6 +415,8 @@ def compile_scene(scene: ir.SceneIR, leaf_size: int = LEAF_SIZE,
     tri_nrm = tri_nrm[order]
     tri_uv = tri_uv[order]
     tri_mat = tri_mat[order]
+
+    env = _non_area_lights(scene, light_records)
 
     L = max(len(light_records), 1)
     lights = dict(
@@ -405,16 +449,79 @@ def compile_scene(scene: ir.SceneIR, leaf_size: int = LEAF_SIZE,
         materials=table.to_soa(),
         tex_images=tex_images, tex_sizes=tex_sizes, tex_records=tex_records,
         lights=lights, num_lights=len(light_records),
-        # No environment: black; procedural scenes set theirs afterwards.
-        env_map=np.zeros((1, 1, 3), np.float32),
-        env_transform=np.eye(3, dtype=np.float32),
-        env_color_scale=np.ones(3, np.float32), has_env=False,
+        # Without an infinite light: black; procedural scenes set theirs
+        # afterwards.
+        **env,
         camera=Camera.from_pbrt(scene.camera, width, height),
         film_width=width, film_height=height,
         sampler_spp=scene.sampler.pixel_samples,
         max_depth=scene.integrator.max_depth,
         blue_noise0=blue0, blue_noise1=blue1,
     )
+
+
+def _non_area_lights(scene: ir.SceneIR, light_records: list) -> dict:
+    """The scene's infinite, distant and point lights, as the JAX
+    compiler converts them: the infinite light becomes the environment
+    (its map, L * scale and the world->env rotation) and is returned as
+    CompiledScene fields; a distant light appends an ltype 1 record and a
+    point light a small two-triangle emissive quad to light_records."""
+    env = dict(env_map=np.zeros((1, 1, 3), np.float32),
+               env_transform=np.eye(3, dtype=np.float32),
+               env_color_scale=np.ones(3, np.float32), has_env=False)
+    for light in scene.lights:
+        if isinstance(light, ir.InfiniteLightIR):
+            env_map = np.ones((1, 1, 3), np.float32)
+            if light.mapname:
+                path = os.path.join(scene.base_dir, light.mapname)
+                if os.path.exists(path):
+                    from tracerboy_tpu_torch.core import image_io
+
+                    env_map = image_io.read_texture(path).astype(np.float32)
+                else:
+                    import warnings
+
+                    warnings.warn(f"env map not found: {path}")
+            scale = light.scale if light.scale is not None else np.ones(3)
+            L = light.L if light.L is not None else np.ones(3)
+            env = dict(
+                env_map=env_map,
+                env_color_scale=(np.asarray(scale) * np.asarray(L)).astype(
+                    np.float32),
+                # World->env rotation; the shader rotates the lookup
+                # direction (RayGenCommon.h:21-27).
+                env_transform=np.linalg.inv(
+                    light.transform[:3, :3]).astype(np.float32),
+                has_env=True,
+            )
+        elif isinstance(light, ir.DistantLightIR):
+            d = light.transform[:3, :3] @ np.asarray(light.direction,
+                                                     np.float64)
+            d = d / np.linalg.norm(d)
+            n = -d.astype(np.float32)
+            light_records.append(dict(
+                p0=np.zeros(3, np.float32), p1=np.zeros(3, np.float32),
+                p2=np.zeros(3, np.float32), n0=n, n1=n, n2=n,
+                color=np.asarray(light.L, np.float32), area=1.0, ltype=1,
+                direction=d.astype(np.float32),
+            ))
+        elif isinstance(light, ir.PointLightIR):
+            # A tiny emissive quad stands in for the point
+            # (AssimpImporter.cpp:141-171).
+            c = (light.transform[:3, :3] @ light.from_point
+                 + light.transform[:3, 3])
+            eps = 0.02
+            quad = np.array([c + [-eps, -eps, 0], c + [eps, -eps, 0],
+                             c + [eps, eps, 0], c + [-eps, eps, 0]],
+                            np.float32)
+            n = np.array([0, 0, -1], np.float32)
+            intensity = np.asarray(light.I, np.float32) / (eps * eps * 2)
+            for a, b, cc in ((0, 1, 2), (0, 2, 3)):
+                area = 0.5 * np.linalg.norm(
+                    np.cross(quad[b] - quad[a], quad[cc] - quad[a]))
+                light_records.append(_light_record(
+                    quad[a], quad[b], quad[cc], (n, n, n), intensity, area))
+    return env
 
 
 def _load_blue_noise():
@@ -430,18 +537,28 @@ def _load_blue_noise():
 
 
 def load_scene(path: str, film_size=None) -> CompiledScene:
-    """Compile a scene by name: "shadertoy" / "shadertoy:<name>" selects
-    a built-in procedural scene (scene/procedural.py)."""
+    """Compile a scene: "shadertoy" / "shadertoy:<name>" selects a
+    built-in procedural scene (scene/procedural.py); a .pbrt file is
+    parsed and compiled at its own film size, which film_size then
+    replaces (the camera does not depend on it). The JAX load_scene's
+    .npz cache is not ported: this one compiles every time."""
     if path == "shadertoy" or path.startswith("shadertoy:"):
         from tracerboy_tpu_torch.scene.procedural import shadertoy_scene
 
         name = path.split(":", 1)[1] if ":" in path else "benchmark"
         return shadertoy_scene(name, film_size=film_size)
-    if path.endswith(".npz"):
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".npz":
         raise NotImplementedError(
             f"{path}: .npz scene caches are not ported yet (ROADMAP.md, "
-            "Queue 1: image and scene-file ingestion)")
-    raise NotImplementedError(
-        f"{path}: PBRT/PLY/OBJ scene files are not ported yet (ROADMAP.md, "
-        "Queue 1: image and scene-file ingestion)")
+            "Queue 1: item 23)")
+    if ext in (".obj", ".stl", ".gltf", ".glb", ".pbf"):
+        raise NotImplementedError(
+            f"{path}: OBJ/STL/glTF and .pbf scene files are not ported yet "
+            "(ROADMAP.md, Queue 1: item 22b, images and other scene files)")
+    from tracerboy_tpu_torch.scene.pbrt_parser import parse_pbrt
 
+    cs = compile_scene(parse_pbrt(path))
+    if film_size is not None:
+        cs = replace(cs, film_width=film_size[0], film_height=film_size[1])
+    return cs

@@ -3,8 +3,7 @@
 A numpy copy of the procedural part of tracerboy_tpu/scene/textures.py
 (the same record layout, so both packages compile the same tables).
 Image files and baked noise textures are not ported yet: they raise
-NotImplementedError (ROADMAP.md, Queue 1: image and scene-file
-ingestion).
+NotImplementedError (ROADMAP.md, Queue 1: item 22b).
 
 TextureData SoA columns:
   ttype: 0=image, 1=checker, 2=scale, 3=constant
@@ -25,8 +24,8 @@ TEX_CONSTANT = 3
 
 GAMMA_FLAG = 0x1
 
-_NOT_PORTED = ("image textures are not ported yet (ROADMAP.md, Queue 1: "
-               "image and scene-file ingestion)")
+_NOT_PORTED = ("image and noise textures are not ported yet (ROADMAP.md, "
+               "Queue 1: item 22b, images and other scene files)")
 
 
 class TextureAllocator:

@@ -1,7 +1,9 @@
 """Environment map lookups (tracerboy_tpu/shade/env.py; the reference's
 lat-long lookup, RayGenCommon.h:21-44): the direction is rotated by the
 environment transform and mapped with u = atan2(y, x) / 2pi (wrapped
-positive), v = acos(z) / pi, then scaled by the environment colour.
+positive), v = acos(z) / pi, then scaled by the environment colour. Three forms of the same lookup:
+rows of directions against the (H, W, 3) map, V3 directions against
+flat channel planes, and V3 directions against the quad-row table.
 """
 
 from __future__ import annotations
@@ -27,6 +29,34 @@ def _lookup_coords(d, env_h, env_w, m):
     x0 = torch.floor(fx).to(torch.int64)
     y0 = torch.floor(fy).to(torch.int64)
     return fx, fy, x0, y0
+
+
+def sample_environment(direction, env_map, env_transform, env_color_scale):
+    """Row layout: (N, 3) directions -> (N, 3) radiance from the (H, W, 3)
+    map, bilinear with wrap in u and clamp in v."""
+    v = direction @ env_transform.T
+    v = v / torch.clamp_min(torch.linalg.norm(v, dim=-1, keepdim=True),
+                            1e-12)
+    p = torch.atan2(v[..., 1], v[..., 0])
+    p = torch.where(p > 0, p, p + 2.0 * math.pi)
+    u = p / (2.0 * math.pi)
+    w = torch.arccos(torch.clamp(v[..., 2], -1.0, 1.0)) / math.pi
+    H, W = env_map.shape[0], env_map.shape[1]
+    fx = u * W - 0.5
+    fy = w * H - 0.5
+    x0 = torch.floor(fx).to(torch.int64)
+    y0 = torch.floor(fy).to(torch.int64)
+    tx = (fx - x0)[..., None]
+    ty = (fy - y0)[..., None]
+    x0w = torch.remainder(x0, W)
+    x1w = torch.remainder(x0 + 1, W)
+    y0c = torch.clamp(y0, 0, H - 1)
+    y1c = torch.clamp(y0 + 1, 0, H - 1)
+    col = (env_map[y0c, x0w] * (1 - tx) * (1 - ty)
+           + env_map[y0c, x1w] * tx * (1 - ty)
+           + env_map[y1c, x0w] * (1 - tx) * ty
+           + env_map[y1c, x1w] * tx * ty)
+    return col * env_color_scale
 
 
 def sample_environment_soa(d, env_r, env_g, env_b, env_h: int, env_w: int,

@@ -4,8 +4,9 @@ The reference's megakernel bounce loop (TracerBoy/kernel.glsl:1277-1776)
 and its PathTrace epilogue (kernel.glsl:1805-1925) as a flat ray pool
 that advances through uniform stages per bounce: russian roulette ->
 closest hit -> miss/env record -> material fetch -> NEE with a shadow
-any-hit wave -> BSDF sample -> throughput update, with lane masks in
-place of branches. Subsurface media (the wax sphere) are a per-ray state
+any-hit wave -> BSDF sample -> environment NEE (WaveConfig.env_nee: M
+directions toward the dome in one shadow wave of M x lanes rays) ->
+throughput update, with lane masks in place of branches. Subsurface media (the wax sphere) are a per-ray state
 machine inside the same bounce loop.
 
 Every stage mirrors its JAX counterpart line for line, so a wave can be
@@ -115,9 +116,13 @@ class WaveConfig:
     decouple_albedo: bool = False
     leaf_size: int = 4          # of the scene's own BVH ("wide" backend)
     use_russian_roulette: bool = True
+    # Environment NEE with balance-heuristic MIS: env_nee_samples (M, at
+    # most 8) cosine directions toward the dome per diffuse-capable
+    # vertex, traced as ONE concatenated shadow wave of M x lanes rays.
+    env_nee: bool = False
+    env_nee_samples: int = 1
     # Not ported yet:
     filter_splat: bool = False
-    env_nee: bool = False
     split_early: int = -1
     has_alpha: bool = False
     transparent_shadows: bool = False
@@ -128,12 +133,11 @@ class WaveConfig:
 
 _UNPORTED = {
     "filter_splat": "ROADMAP.md, Queue 1: render_wave_merged splat fold",
-    "env_nee": "ROADMAP.md, Queue 1: environment NEE",
     "has_alpha": "ROADMAP.md, Queue 1: alpha re-fire",
     "transparent_shadows": "ROADMAP.md, Queue 1: transparent shadows",
     "has_normal_maps": "ROADMAP.md, Queue 1: normal maps",
-    "has_instances": "ROADMAP.md, Queue 1: trace/instanced.py",
-    "has_volume": "ROADMAP.md, Queue 1: shade/volumetric.py",
+    "has_instances": "ROADMAP.md, Queue 1: item 15, trace/instanced.py",
+    "has_volume": "ROADMAP.md, Queue 1: item 14, shade/volumetric.py",
 }
 
 
@@ -145,6 +149,9 @@ def _check_supported(cfg: WaveConfig, params: dict):
     if cfg.split_early >= 0:
         raise NotImplementedError("WaveConfig.split_early: not ported yet "
                                   "(ROADMAP.md, Queue 1: split planes)")
+    if cfg.env_nee and not 1 <= cfg.env_nee_samples <= 8:
+        raise ValueError("env_nee_samples must be 1..8 (the streams "
+                         "STREAM_ENV_NEE_X bound it)")
     if cfg.traversal not in ("brute", "wide") + PACKED_BACKENDS:
         raise ValueError(f"unknown traversal backend {cfg.traversal!r}")
 
@@ -215,6 +222,103 @@ def _occluded(scene, o, d, t_max, cfg):
                                   plain=plain)
     fn = traverse.anyhit_plain if plain else traverse.any_hit
     return fn(*rays, *tables)
+
+
+def _env_nee(scene, cfg, s, i, hash2, env_h, env_w, *, base, shading,
+             hit_point, normal, detail_normal, prev_dir, albedo, roughness,
+             refl_coef, allows_spec, is_metal, p_spec):
+    """Environment NEE at one vertex (tracerboy_tpu/trace/wavefront.py
+    env_nee): M = cfg.env_nee_samples cosine directions about the detail
+    normal, occlusion of all M in ONE concatenated shadow wave, and the
+    full BSDF times the environment, each sample weighted by the
+    multi-sample balance heuristic M p / (M p + p_bsdf) and averaged.
+    Adds to s["radiance"] (and s["rad_d"]) and s["rays_traced"]; returns
+    the lanes that traced at least one env sample (do_env)."""
+    M = cfg.env_nee_samples
+    dirs, pdfs = [], []
+    for j in range(M):
+        stream = (tbrng.STREAM_ENV_NEE if j == 0
+                  else tbrng.STREAM_ENV_NEE_X + 2 * (j - 1))
+        r0, r1 = hash2(i, stream)
+        d_j, p_j = bsdf.sample_cosine_hemisphere_soa(detail_normal, r0, r1)
+        dirs.append(d_j)
+        pdfs.append(p_j)
+    do_envs = [base & (p_j > EPSILON) for p_j in pdfs]
+    do_env = do_envs[0]
+    for d_j in do_envs[1:]:
+        do_env = do_env | d_j
+    s["rays_traced"] = s["rays_traced"] + sum(d_j.sum() for d_j in do_envs)
+    N = hit_point.x.shape[0]
+    org = hit_point + normal * EPSILON
+    occ = _occluded(
+        scene,
+        V3(*(c.repeat(M) for c in org)),
+        V3(*(torch.cat([d_j[k] for d_j in dirs]) for k in range(3))),
+        torch.cat([torch.where(d_j, BIG, 0.0) for d_j in do_envs]), cfg)
+    del org
+
+    zero = torch.zeros_like(hit_point.x)
+    contrib_sum = _zero3(zero)
+    contrib_d_sum = _zero3(zero)
+    add_any = torch.zeros_like(do_env)
+    one_minus_in = 1.0 - torch.pow(1.0 - 0.5 * v3.dot(-prev_dir, normal), 5.0)
+    for j in range(M):
+        env_dir, env_pdf = dirs[j], pdfs[j]
+        # BSDF pdf of the env direction under the throughput update's
+        # mixed-lobe model (the balance denominator mirrors the escape
+        # estimator's pdf).
+        e_half = bsdf.half_vector_safe_soa(-prev_dir, env_dir, detail_normal)
+        e_dpdf = torch.clamp_min(v3.dot(env_dir, detail_normal), 0.0) / bsdf.PI
+        e_spdf = bsdf.ggx_reflection_pdf_soa(detail_normal, env_dir, e_half,
+                                             roughness)
+        e_bsdf_pdf = torch.where(
+            allows_spec,
+            torch.where(is_metal, e_spdf,
+                        p_spec * e_spdf + (1.0 - p_spec) * e_dpdf),
+            e_dpdf)
+        w_env = (M * env_pdf) / torch.clamp_min(M * env_pdf + e_bsdf_pdf,
+                                                1e-12)
+        # The full BSDF at env_dir: metal / plastic / lambert.
+        e_spec_w = bsdf.specular_weight_soa(prev_dir, env_dir, normal,
+                                            detail_normal, roughness)
+        e_cos = torch.clamp(v3.dot(env_dir, normal), 0.0, 1.0)
+        e_fres = refl_coef + (1.0 - refl_coef) * torch.pow(
+            torch.abs(1.0 - v3.dot(-prev_dir, e_half)), 5.0)
+        e_dm = ((28.0 / (23.0 * bsdf.PI)) * (1.0 - refl_coef) * one_minus_in
+                * (1.0 - torch.pow(1.0 - 0.5 * v3.dot(env_dir, normal), 5.0)))
+        fs = e_fres * e_spec_w
+        e_mult = v3.where(
+            is_metal, albedo * (e_spec_w * e_cos),
+            v3.where(allows_spec,
+                     V3((albedo.x * e_dm + fs) * e_cos,
+                        (albedo.y * e_dm + fs) * e_cos,
+                        (albedo.z * e_dm + fs) * e_cos),
+                     albedo * e_dpdf))
+        e_add = do_envs[j] & ~occ[j * N:(j + 1) * N]
+        add_any = add_any | e_add
+        e_env = sample_environment_quad_soa(
+            env_dir, scene["env_quad"], env_h, env_w, scene["env_transform"],
+            scene["env_color_scale"], gather_mask=e_add)
+        e_gain = (w_env * (1.0 / M)) / torch.clamp_min(env_pdf, 1e-12)
+        e_contrib = v3.where(e_add, s["throughput"] * e_mult * e_env * e_gain,
+                             _zero3(zero))
+        contrib_sum = contrib_sum + e_contrib
+        if cfg.decouple_albedo:
+            # The env direction's own diffuse fraction, distinct from the
+            # continuation lobe's.
+            e_phi = torch.where(
+                is_metal | ~allows_spec, 1.0,
+                torch.clamp(e_dm / torch.clamp_min(e_dm + fs, 1e-8),
+                            0.0, 1.0))
+            w_ed = (torch.where(shading, e_phi, s["dc_w"]) if i == 0
+                    else s["dc_w"])
+            contrib_d_sum = contrib_d_sum + e_contrib * w_ed
+    s["radiance"] = v3.where(add_any, s["radiance"] + contrib_sum,
+                             s["radiance"])
+    if cfg.decouple_albedo:
+        s["rad_d"] = v3.where(add_any, s["rad_d"] + contrib_d_sum,
+                              s["rad_d"])
+    return do_env
 
 
 def make_blue_noise_params(scene, pixel_ids, width: int):
@@ -366,6 +470,11 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
         # Lazy environment: a miss records its throughput; one env fetch
         # runs after the bounce loop.
         s["env_throughput"] = vzero3
+        if cfg.env_nee:
+            # The escape's balance weight against the env NEE taken at
+            # the previous vertex; 1 for primary, specular and medium
+            # lanes.
+            s["env_mis_w"] = one
     # First-hit AOVs of the first na lanes, set at bounce 0.
     za = zero[:na]
     aov = dict(
@@ -413,8 +522,11 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
 
         # --- miss: environment, recorded lazily ---------------------------
         if cfg.has_env:
-            s["env_throughput"] = v3.where(miss, s["throughput"],
-                                           s["env_throughput"])
+            rec = s["throughput"]
+            if cfg.env_nee:
+                rec = rec * s["env_mis_w"]
+            s["env_throughput"] = v3.where(miss, rec, s["env_throughput"])
+            del rec
             if i == 0:
                 first_miss = miss[:na]
                 if cfg.decouple_albedo:
@@ -707,6 +819,26 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
             v3.where(allows_spec, plastic_mult, lambert_mult))
         surface_mult = v3.where(surf_sss, V3(one, one, one), surface_mult)
         surface_scale = torch.where(surf_sss, 1.0, inv_pdf)
+
+        if cfg.has_env and cfg.env_nee:
+            do_env = _env_nee(
+                scene, cfg, s, i, hash2, env_h, env_w,
+                base=shading & ~perfect_spec & ~is_light & ~surf_sss,
+                shading=shading, hit_point=hit_point, normal=normal,
+                detail_normal=detail_normal, prev_dir=prev_dir,
+                albedo=albedo, roughness=mat["roughness"],
+                refl_coef=refl_coef, allows_spec=allows_spec,
+                is_metal=is_metal, p_spec=p_spec)
+            # The escape side's weight for this vertex's sampled lobe,
+            # applied if the continuation ray misses; M env samples make
+            # the env technique's density M * q.
+            M = cfg.env_nee_samples
+            w_escape = pdf / torch.clamp_min(
+                pdf + M * torch.clamp_min(diffuse_pdf, 0.0), 1e-12)
+            s["env_mis_w"] = torch.where(
+                do_env, w_escape,
+                torch.where(shading | in_medium, 1.0, s["env_mis_w"]))
+            del do_env, w_escape
 
         apply_surface = shading & ~died_on_light
         s["throughput"] = v3.where(

@@ -340,19 +340,42 @@ def walk_ops(live, pops, clusters, nodes, tri_ops=TRI_OPS) -> float:
 
 
 def walk_bound(o, d, tm, nodes, tris, footprint, out_bytes,
-               tri_ops=TRI_OPS):
+               tri_ops=TRI_OPS, chunk=None, live_rays_only=False):
     """(bound_ms, bound_by, bytes, ops) of a stack walk of these rays:
     the rays in, the node and cluster rows the walk reads (footprint:
-    traverse.walk_footprint or traverse_v1.walk_footprint_v1), out_bytes
-    a ray out; each live ray's set-up, its pops' slab tests and its
-    clusters' triangle tests at tri_ops each."""
-    node_rows, cluster_rows, pops, clusters = footprint(o, d, tm, nodes, tris)
-    n_bytes = (_nbytes(o, d, tm) + int(node_rows.sum()) * 4 * nodes.shape[1]
+    traverse.walk_footprint or traverse_v1.walk_footprint_v1, run over
+    chunks of chunk rays when chunk is given), out_bytes a ray out; each
+    live ray's set-up, its pops' slab tests and its clusters' triangle
+    tests at tri_ops each. With live_rays_only the rays in are
+    ray_bytes's: o and d of the live lanes only."""
+    n = o.shape[0]
+    step = chunk or max(n, 1)
+    node_rows = torch.zeros(nodes.shape[0], dtype=torch.bool,
+                            device=o.device)
+    cluster_rows = torch.zeros(tris.shape[0], dtype=torch.bool,
+                               device=o.device)
+    pops = clusters = 0
+    for s in range(0, n, step):
+        nr, cr, pp, cc = footprint(o[s:s + step], d[s:s + step],
+                                   tm[s:s + step], nodes, tris)
+        node_rows |= nr
+        cluster_rows |= cr
+        pops += int(pp.sum())
+        clusters += int(cc.sum())
+    live = int((tm > 0).sum())
+    rays_in = ray_bytes(tm, live) if live_rays_only else _nbytes(o, d, tm)
+    n_bytes = (rays_in + int(node_rows.sum()) * 4 * nodes.shape[1]
                + int(cluster_rows.sum()) * 4 * tris.shape[1]
-               + out_bytes * o.shape[0])
-    ops = walk_ops(int((tm > 0).sum()), int(pops.sum()),
-                   int(clusters.sum()), nodes, tri_ops)
+               + out_bytes * n)
+    ops = walk_ops(live, pops, clusters, nodes, tri_ops)
     return (*bound(n_bytes, ops), int(n_bytes), float(ops))
+
+
+def ray_bytes(tm, live: int) -> int:
+    """Bytes of the rays a launch must read: t_max of every lane, o and d
+    (24 bytes) of each of the live lanes (a dead lane's ray is not
+    needed)."""
+    return _nbytes(tm) + 24 * live
 
 
 def slot_path_rows(nodes, slot_c):
@@ -541,7 +564,7 @@ def emit_bound(o, d, tm, top, K):
     visits, rows, emits = emit_walk(o, d, tm, top)
     n_rows = int(rows.sum())
     live = int((tm > 0).sum())
-    n_bytes = (_nbytes(tm) + 24 * live + n_rows * EMIT_ROW_WORDS * 4
+    n_bytes = (ray_bytes(tm, live) + n_rows * EMIT_ROW_WORDS * 4
                + 4 * K * o.shape[0])
     ops = live * RAY_OPS + visits * 8 * SLAB_OPS
     return n_bytes, ops, dict(visits=visits, rows=n_rows, emits=emits)
