@@ -98,7 +98,24 @@ Phases, each fatal on failure:
      no light records) with 0 occlusion mismatches, each closest-hit
      launch within TOLERANCE, 0 overflows; then the peak memory of
      render_sample(8) with 1 and with 8 env-NEE samples;
- 15. a JSON line of the seven kernels (launches from the run of the path
+ 15. textured PBRT scenes (utils/demo_scene.py write_textured_scene:
+     150,338 triangles, the height field with an sRGB albedo PNG and a
+     normal map, 8,192 alpha-cut leaf quads sharing an RGBA PNG, a screen
+     cut by a "texture alpha" mask, fbm and marble spheres, a glass
+     sphere, the sky as the only light; textured_lit.pbrt adds a distant
+     light): the load cold and from its .tbcache.npz; four CLI runs at
+     1280x720, 8 spp (textured, lit, lit with --transparent-shadows, and
+     textured with the leaf image's alpha forced to 1), each writing its
+     PNG and finite EXR, launching kernel 1 and never kernel 2, no stack
+     overflow; the canopy band of the first against the opaque run
+     (CUTOUT_BAND_MARGIN); the lit run's first-wave closest-hit launches
+     tagged by kind (main, refire_k, shadow_k) and the transparent run's
+     shadow-BVH rounds (transparent_k), each held against its plain
+     version on at most CHECK_LANES live lanes (TOLERANCE, dead
+     lanes miss, 0 overflows) and timed beside its bound;
+     render_sample(8) through the Renderer and its peak memory; path
+     parity on the textured scene at 128x72; a line of seconds a phase;
+ 16. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it), then the
      result line {"ok": true, "device": {...}} last.
@@ -140,6 +157,10 @@ TOLERANCE = dict(hit_mismatch_frac=1e-4, t_rel=1e-6, uv_abs=1e-6,
                  select_set_mismatch_frac=1e-4,
                  dropped_violations=0, dense_t_rel=1e-6,
                  dense_uv_abs=1e-6)
+# The textured phase holds each recorded launch against its plain version
+# on a seeded draw of at most this many of its live lanes: the plain
+# version walks each ray on its own, so a subset is checked exactly.
+CHECK_LANES = 16_384
 OPT_IN = ("TB_CUT", "TB_BINNED", "TB_CUT_K", "TB_CUT_TRIS")
 # Path parity: the CPU tests' bound between the port and the JAX package.
 PARITY = dict(pixel_atol=1e-3, pixel_frac=0.99, mean_rel=1e-4)
@@ -1177,30 +1198,37 @@ def denoise_phase(torch, lin):
     return res
 
 
-def parity_phase(torch, Renderer):
+def parity_phase(torch, Renderer, scene="shadertoy", film=PARITY_FILM,
+                 label="128x72"):
     """One renderer's 2-sample merged wave (what render_sample(2)
     accumulates) on the kernel path against the twin path, and on the
-    cut and binned paths against the default kernel path."""
+    cut and binned paths against the default kernel path. Returns the
+    kernel launches of the cut and binned waves."""
     from dataclasses import replace
 
+    from tracerboy_tpu_torch.trace import kernels
     from tracerboy_tpu_torch.trace.wavefront import render_wave_merged
 
     set_opt_in(TB_CUT="1", TB_BINNED="1")
-    r = Renderer("shadertoy", film_size=PARITY_FILM, device="cuda")
+    r = Renderer(scene, film_size=film, device="cuda")
     set_opt_in()
     if r.traversal != "kernel":
-        fail(f"shadertoy took the {r.traversal} path, not the kernels")
+        fail(f"{scene} took the {r.traversal} path, not the kernels")
     cfg, params = r.wave_config(), r.frame_params()
     paths = {"kernel": replace(cfg, cut=False, binned_bounces=False)}
     paths["twin"] = replace(paths["kernel"], traversal="twin")
     paths["cut"] = replace(paths["kernel"], cut=True)
     paths["binned"] = replace(paths["kernel"], binned_bounces=True)
-    accs = {}
+    accs, launches = {}, {}
     for path, pcfg in paths.items():
+        kernels.reset_counters()
         out = render_wave_merged(r.scene, params, r.pixel_ids, 0, 2, pcfg)
         accs[path] = torch.cat([out["radiance"],
                                 out["filter_weight"][:, None]],
                                dim=1).cpu().numpy()
+        launches[path] = dict(kernels.LAUNCHES)
+        if kernels.stack_overflows():
+            fail(f"path parity {scene} {path}: stack overflow")
     for path, ref_path in (("kernel", "twin"), ("cut", "kernel"),
                            ("binned", "kernel")):
         ref, got = accs[ref_path], accs[path]
@@ -1208,11 +1236,12 @@ def parity_phase(torch, Renderer):
                  * (1 + np.abs(ref))).all(-1).mean()
         mean_rel = abs(got.mean() - ref.mean()) / abs(ref.mean())
         stats = dict(pixels_within=float(close), mean_rel=float(mean_rel))
-        print(f"path parity {path} vs {ref_path} 128x72 2 spp:",
+        print(f"path parity {path} vs {ref_path} {label} 2 spp:",
               json.dumps(stats))
         if close < PARITY["pixel_frac"] or mean_rel > PARITY["mean_rel"]:
             fail(f"path parity {path} vs {ref_path} outside tolerance: "
                  f"{stats}")
+    return launches
 
 
 def v1_phase(cs, scene, compare, primary, unordered):
@@ -1514,6 +1543,18 @@ def env_nee_defaults(samples):
     return ctx()
 
 
+def live_subset(tm, rng):
+    """The live lanes of a launch (t_max > 0) and a seeded draw of at most
+    CHECK_LANES of them, in lane order (all of them where fewer)."""
+    import torch
+
+    live_idx = torch.nonzero(tm > 0)[:, 0]
+    if live_idx.numel() <= CHECK_LANES:
+        return live_idx, live_idx
+    pick = np.sort(rng.choice(live_idx.numel(), CHECK_LANES, replace=False))
+    return live_idx, live_idx[torch.from_numpy(pick).to(tm.device)]
+
+
 def cli_launch_check(calls, any_hit):
     """Each launch (o, d, t_max, nodes, tris_bw) recorded in the CLI's env
     run through the any-hit kernel (any_hit: the env-NEE shadow waves) or
@@ -1734,6 +1775,299 @@ def cli_runs(torch, tmp):
     return results, total
 
 
+# The alpha-cut canopy must let the sky through: the mean radiance of the
+# top band of the image (rows [0, h/5), the canopy in front of the sky)
+# differs from the run with the leaf image's alpha forced to 1 by more
+# than this share of the opaque run's band mean.
+CUTOUT_BAND_MARGIN = 0.1
+
+
+def tag_closest_launches(nodes_seq, shadow_kind):
+    """Kinds of a wave's closest-hit launches from the tables each walked
+    (the data pointers of its node tables, in launch order): a run of
+    main-BVH launches is the bounce's closest hit ("main") and its alpha
+    re-fires ("refire_k"); a run of shadow-BVH launches is one shadow march
+    (shadow_kind + "_k", round k)."""
+    main = nodes_seq[0]
+    kinds, run = [], 0
+    for i, ptr in enumerate(nodes_seq):
+        same = i > 0 and (ptr == main) == (nodes_seq[i - 1] == main)
+        run = run + 1 if same else 0
+        if ptr == main:
+            kinds.append("main" if run == 0 else f"refire_{run}")
+        else:
+            kinds.append(f"{shadow_kind}_{run}")
+    return kinds
+
+
+def textured_launch_check(calls, kinds, rng):
+    """Each recorded closest-hit launch (o, d, t_max, nodes, tris_bw)
+    through the kernel, held against closest_hit_plain on at most
+    CHECK_LANES of its live lanes (check_closest's TOLERANCE;
+    dead lanes must miss), timed on the card alone (time_runs,
+    ahead=True) beside its bound (bench_traverse.walk_bound of the walk
+    of every lane, live rays only, counted in chunks of 2^20 rays); sums
+    by kind."""
+    from tracerboy_tpu_torch.trace import kernels, traverse
+    from tracerboy_tpu_torch.utils.bench_traverse import (
+        time_runs,
+        walk_bound,
+    )
+
+    by_kind = {}
+    bad = []
+    for (o, d, tm, nodes, tris), kind in zip(calls, kinds):
+        kernels.reset_counters()
+        k = traverse.closest_hit(o, d, tm, nodes, tris)
+        overflows = kernels.stack_overflows()
+        live_idx, sel = live_subset(tm, rng)
+        live = live_idx.numel()
+        p = traverse.closest_hit_plain(o[sel], d[sel], tm[sel], nodes, tris)
+        ok, st = check_closest(o[sel], d[sel], (nodes, tris),
+                               tuple(x[sel] for x in k), p)
+        dead_hits = int((k[1][tm <= 0] >= 0).sum())
+        ms = float(np.median(time_runs(
+            lambda: traverse.closest_hit(o, d, tm, nodes, tris), 5,
+            o.device, ahead=True)))
+        b_ms, b_by, _, _ = walk_bound(
+            o, d, tm, nodes, tris, traverse.walk_footprint, 16,
+            chunk=1 << 20, live_rays_only=True)
+        row = by_kind.setdefault(kind, dict(
+            launches=0, lanes=0, live=0, checked=0, ms=0.0, bound_ms=0.0,
+            bound_by=[], hit_mismatch=0,
+            id_mismatch_outside_ties=0, ties=0, max_rel_t_err=0.0,
+            max_abs_err=0.0, overflows=0, dead_lane_hits=0))
+        row["launches"] += 1
+        row["lanes"] += o.shape[0]
+        row["live"] += live
+        row["checked"] += st["rays"]
+        row["ms"] += ms
+        row["bound_ms"] += b_ms
+        row["bound_by"].append(b_by)
+        for key in ("hit_mismatch", "id_mismatch_outside_ties", "ties"):
+            row[key] += st[key]
+        row["max_rel_t_err"] = max(row["max_rel_t_err"], st["max_rel_t_err"])
+        row["max_abs_err"] = max(row["max_abs_err"], st["max_abs_err"])
+        row["overflows"] += overflows
+        row["dead_lane_hits"] += dead_hits
+        if not ok or overflows or dead_hits:
+            bad.append((kind, st, overflows, dead_hits))
+        del k, p
+    for row in by_kind.values():
+        row["live_share"] = row["live"] / max(row["lanes"], 1)
+    return by_kind, bad
+
+
+def textured_phase(torch, Renderer):
+    """textured_runs in a temporary directory that is removed after it."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="tb_tex_") as tmp:
+        return textured_runs(torch, Renderer, tmp)
+
+
+def textured_runs(torch, Renderer, tmp):
+    """The textured PBRT scene of utils/demo_scene.py (150,338 triangles:
+    the height field with a 1024x1024 sRGB albedo and a 512x512 normal
+    map, 8,192 alpha-cut leaf quads sharing a 512x512 RGBA image, a
+    screen cut by a "texture alpha" mask, an fbm and a marble sphere, a
+    glass sphere, the .hdr sky as the only light; textured_lit.pbrt adds
+    a distant light). Load times cold and from the .tbcache.npz; CLI runs
+    at 1280x720, 8 spp: (1) textured.pbrt (env NEE through the alpha
+    shadow rounds), (2) textured_lit.pbrt (light NEE), (3) the same with
+    --transparent-shadows, (4) textured.pbrt with the leaf image's alpha
+    forced to 1; each must write its PNG and finite EXR, launch the
+    closest-hit kernel (and never the any-hit one: with cutouts every
+    shadow wave is a closest-hit march) and overflow no stack; the
+    canopy band of (1) against (4). The first wave's closest-hit
+    launches of (2), and the shadow-BVH launches of (3)'s first wave,
+    tagged by kind and checked (textured_launch_check). Then
+    Renderer(textured.pbrt, (1280, 720)).render_sample(8), its peak
+    memory, and path parity at 128x72."""
+    from tracerboy_tpu_torch.app import cli
+    from tracerboy_tpu_torch.core import image_io
+    from tracerboy_tpu_torch.scene.compile import load_scene
+    from tracerboy_tpu_torch.trace import kernels, traverse
+    from tracerboy_tpu_torch.trace.wavefront import ALPHA_ROUNDS
+    from tracerboy_tpu_torch.utils.config import default_output_settings
+    from tracerboy_tpu_torch.utils.demo_scene import write_textured_scene
+
+    set_opt_in()
+    results = {}
+    t0 = time.perf_counter()
+    tex_scene, lit_scene = write_textured_scene(tmp)
+    results["write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cs = load_scene(tex_scene)
+    cold = time.perf_counter() - t0
+    cache = tex_scene + ".tbcache.npz"
+    if not os.path.exists(cache):
+        fail(f"textured scene: no cache written at {cache}")
+    t0 = time.perf_counter()
+    again = load_scene(tex_scene)
+    cached = time.perf_counter() - t0
+    if not np.array_equal(cs.tri_v0, again.tri_v0):
+        fail("textured scene: the cached load differs from the compile")
+    results["load"] = dict(cold_s=cold, cached_s=cached,
+                           triangles=int(cs.num_tris),
+                           images=list(cs.tex_images.shape),
+                           cache_mib=os.path.getsize(cache) / 2**20)
+    print("textured scene load:", json.dumps(results["load"]))
+    del cs, again
+
+    # The opaque twin of the scene: the leaf image with alpha 1.
+    leaf = image_io.read_ldr(os.path.join(tmp, "leaf.png"))
+    leaf[..., 3] = 1.0
+    image_io.write_png(os.path.join(tmp, "leaf_opaque.png"), leaf)
+    opaque_scene = os.path.join(tmp, "textured_opaque.pbrt")
+    with open(tex_scene) as f:
+        text = f.read().replace('"leaf.png"', '"leaf_opaque.png"')
+    with open(opaque_scene, "w") as f:
+        f.write(text)
+
+    size = f"{FULL_WAVE[0]}x{FULL_WAVE[1]}"
+    perf = default_output_settings().performance_settings
+    per_bounce = 1 + ALPHA_ROUNDS + (ALPHA_ROUNDS + 1)
+    per_wave = perf.max_bounces * per_bounce
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    real = traverse.closest_hit
+
+    def run(name, scene, extra, record=None):
+        """record: None, "all" (the first wave's launches) or "shadow"
+        (only its shadow-BVH launches); returns (result, recorded calls,
+        their node-table pointers in launch order)."""
+        out = os.path.join(tmp, f"{name}.png")
+        exr = os.path.join(tmp, f"{name}.exr")
+        seq, calls = [], []
+
+        def recording(o, d, t_max, nodes, tris_bw, roots=None):
+            if roots is not None:
+                fail(f"textured {name}: a launch with per-ray roots")
+            if len(seq) < per_wave:
+                seq.append(nodes.data_ptr())
+                if record == "all" or (record == "shadow"
+                                       and nodes.data_ptr() != seq[0]):
+                    calls.append((o.clone(), d.clone(), t_max.clone(),
+                                  nodes, tris_bw))
+                else:
+                    calls.append(None)
+            return real(o, d, t_max, nodes, tris_bw)
+
+        kernels.reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        last = {}
+        if record:
+            traverse.closest_hit = recording
+        try:
+            rc = cli.main([scene, "--size", size, "--spp", "8", "--out", out,
+                           "--hdr-out", exr, "--quiet", *extra], stats=last)
+        finally:
+            traverse.closest_hit = real
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        overflow = kernels.stack_overflows()
+        if rc != 0:
+            fail(f"textured CLI {name}: exit {rc}")
+        mean = check_cli_outputs(f"textured {name}", out, exr)
+        img = image_io.read_ldr(out)
+        check_image(f"textured {name}", img)
+        if launches["closest"] <= 0 or launches["anyhit"] or overflow:
+            fail(f"textured CLI {name}: launches {launches}, {overflow} "
+                 "stack overflows (with cutouts every shadow wave is a "
+                 "closest-hit march: no any-hit launch)")
+        waves = last["spp"] // 4
+        if launches["closest"] != waves * per_wave:
+            fail(f"textured CLI {name}: {launches['closest']} closest-hit "
+                 f"launches, expected {waves} waves x {per_wave}")
+        for k, v in launches.items():
+            total[k] += v
+        rad = image_io.read_exr_rgb(exr)
+        res = dict(seconds=time.perf_counter() - t0,
+                   render_seconds=last["seconds"], spp=last["spp"],
+                   s_per_sample=last["seconds"] / max(last["spp"], 1),
+                   mrays_s=last["rays_traced"] / last["seconds"] / 1e6,
+                   radiance_mean=mean,
+                   band_mean=float(rad[:FULL_WAVE[1] // 5].mean()),
+                   launches=launches, stack_overflows=overflow,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        print(f"textured CLI {name}:", json.dumps(res))
+        results[name] = res
+        return res, calls, seq
+
+    run("textured", tex_scene, [])
+    _, lit_calls, lit_seq = run("lit", lit_scene, [], record="all")
+    _, tr_calls, tr_seq = run("transparent", lit_scene,
+                              ["--transparent-shadows"], record="shadow")
+    run("opaque", opaque_scene, [])
+    band = dict(cutout=results["textured"]["band_mean"],
+                opaque=results["opaque"]["band_mean"])
+    band["rel_diff"] = abs(band["cutout"] - band["opaque"]) / band["opaque"]
+    print("textured canopy band vs opaque leaves:", json.dumps(band))
+    if band["rel_diff"] <= CUTOUT_BAND_MARGIN:
+        fail(f"the alpha-cut canopy does not show the sky: {band}")
+    results["band"] = band
+
+    rng = np.random.default_rng(20261017)
+    kinds = tag_closest_launches(lit_seq, "shadow")
+    tr_kinds = tag_closest_launches(tr_seq, "transparent")
+    calls = [c for c in lit_calls if c is not None]
+    kinds = [k for c, k in zip(lit_calls, kinds) if c is not None]
+    calls += [c for c in tr_calls if c is not None]
+    kinds += [k for c, k in zip(tr_calls, tr_kinds) if c is not None]
+    del lit_calls, tr_calls
+    t0 = time.perf_counter()
+    by_kind, bad = textured_launch_check(calls, kinds, rng)
+    results["check_s"] = time.perf_counter() - t0
+    del calls
+    torch.cuda.empty_cache()
+    print(f"textured closest-hit launches by kind "
+          f"({results['check_s']:.1f} s):", json.dumps(by_kind))
+    if bad:
+        fail(f"textured launches disagree with the plain version: {bad}")
+    checked = sum(r["checked"] for r in by_kind.values())
+    outside = sum(r["id_mismatch_outside_ties"] for r in by_kind.values())
+    if outside > TOLERANCE["id_mismatch_frac"] * checked:
+        fail(f"textured launches: {outside} id mismatches outside ties in "
+             f"{checked} checked lanes")
+    results["kinds"] = by_kind
+
+    # The full merged wave: render_sample(8) through the Renderer.
+    r = Renderer(tex_scene, film_size=FULL_WAVE, device="cuda")
+    cfg = r.wave_config()
+    if not (cfg.has_alpha and cfg.has_normal_maps and cfg.env_nee
+            and r.traversal == "kernel"):
+        fail(f"textured Renderer: wave config {cfg}")
+    r.render_sample(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    t0 = time.perf_counter()
+    r.render_sample(8)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for k, v in launches.items():
+        total[k] += v
+    results["render_sample8"] = dict(
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        s_per_sample=dt / 8, launches=launches,
+        stack_overflows=kernels.stack_overflows())
+    img = r.current_image()
+    img = img.cpu().numpy() if hasattr(img, "cpu") else np.asarray(img)
+    check_image("textured render_sample(8)", img)
+    if (launches["closest"] <= 0 or launches["anyhit"]
+            or kernels.stack_overflows()):
+        fail(f"textured render_sample(8): {results['render_sample8']}")
+    print("textured render_sample(8) at 1280x720:",
+          json.dumps(results["render_sample8"]))
+    del r
+
+    results["parity_launches"] = parity_phase(
+        torch, Renderer, tex_scene, PARITY_FILM, "textured 128x72")
+    return results, total
+
+
 def main() -> int:
     print(card_line())
     import torch
@@ -1748,9 +2082,18 @@ def main() -> int:
     from tracerboy_tpu_torch.utils.bench_traverse import walk_ops
 
     set_opt_in()
+    laps, last_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        """Seconds since the previous lap, kept under name."""
+        now = time.perf_counter()
+        laps[name] = now - last_lap[0]
+        last_lap[0] = now
+
     t0 = time.perf_counter()
     build_kernels()
     print(f"build: kernels ready in {time.perf_counter() - t0:.1f} s")
+    lap("build")
 
     # --- kernel vs twin -------------------------------------------------
     rng = np.random.default_rng(20261016)
@@ -1807,6 +2150,7 @@ def main() -> int:
             o, d, tm, *main_t), 2),
     )
     print("timing 921,600-ray waves and 65,536 rays:", json.dumps(times))
+    lap("kernel_vs_plain")
 
     # --- rays in no order, and the kernels' walk beside the serial walk ----
     unordered = study_rays(cs, "cuda")
@@ -1817,6 +2161,7 @@ def main() -> int:
                  ("unordered shadow", unordered["shadow"], shadow_t, True)))
     un_bounce = unordered["bounce"]
     del unordered
+    lap("unordered_and_walks")
 
     # --- the stats kernel vs the stats-free kernel and its twin -----------
     st_stats, st_times = stats_phase(
@@ -1849,11 +2194,13 @@ def main() -> int:
     anyhit_ops = walk_ops(int((stm > 0).sum()), walk_rows["shadow_pops"],
                           walk_rows["shadow_clusters"], shadow_t[0])
     del full_k, full_p, sh_k, sh_p, sh_walk, pri_rows, ck, cp, ak, ap, hits
+    lap("stats")
 
     # --- the v1 kernel vs its plain version ---------------------------------
     v1_stats, v1_times, v1_bound = v1_phase(cs, scene, (o, d, tm),
                                             (po, pd, ptm), un_bounce)
     del un_bounce
+    lap("v1")
 
     # --- the opt-in paths' kernels vs their twins ---------------------------
     opt_stats, opt_times = opt_in_kernel_phase(
@@ -1867,6 +2214,7 @@ def main() -> int:
                 *(v for k, v in bounce_stats.items()
                   if k.startswith("dense"))]
     del scene, cs, o, d, tm, po, pd, ptm, so, sd, stm
+    lap("opt_in_kernels")
 
     # --- the slice: default, cut and binned paths ---------------------------
     _, launches = render_slice(torch, Renderer, "default", {},
@@ -1881,27 +2229,41 @@ def main() -> int:
                                   ("select", "dense", "closest", "anyhit"))
 
     wave_bounce_phase()
+    lap("slice")
 
     # --- the first-hit AOV slice and the denoiser ---------------------------
     r, _, heat_launches = aov_slice_phase(torch, Renderer)
     denoise_phase(torch, r.resolve_radiance())
     del r
+    lap("aov_and_denoiser")
 
     # --- path parity ------------------------------------------------------
     parity_phase(torch, Renderer)
+    lap("parity")
 
     # --- the traversal study and RealTime mode ------------------------------
     _, study_launches = study_phase()
+    lap("study")
     _, rt_launches = realtime_phase(torch, Renderer)
+    lap("realtime")
 
     # --- the command-line renderer on a PBRT scene ----------------------------
     cli_res, cli_launches = cli_phase(torch)
     env_nee, env_closest = cli_res["env_nee"], cli_res["env_closest"]
+    lap("cli")
+
+    # --- textured PBRT scenes: cutouts, normal maps, transparent shadows ---
+    tex_res, tex_launches = textured_phase(torch, Renderer)
+    tex_kinds = tex_res["kinds"]
+    tex_par = tex_res["parity_launches"]
+    lap("textured")
+    print("phase seconds:", json.dumps(laps))
 
     def by_path(key):
         return {"default": launches[key], "cut": cut_launches[key],
                 "binned": bn_launches[key], "study": study_launches[key],
-                "realtime": rt_launches[key], "cli": cli_launches[key]}
+                "realtime": rt_launches[key], "cli": cli_launches[key],
+                "textured": tex_launches[key]}
 
     trav = "tracerboy_tpu_torch/csrc/bvh_traverse.cu"
     bsrc = "tracerboy_tpu_torch/csrc/binned.cu"
@@ -1917,10 +2279,12 @@ def main() -> int:
              launches=launches["closest"],
              launches_by_path=by_path("closest"),
              max_abs_err=max(s["max_abs_err"] for s in
-                             [st_c, st_c2, un_c, *roots_c, env_closest]),
+                             [st_c, st_c2, un_c, *roots_c, env_closest,
+                              *tex_kinds.values()]),
              id_mismatch_outside_ties=sum(
                  s["id_mismatch_outside_ties"]
-                 for s in [st_c, st_c2, un_c, *roots_c, env_closest]),
+                 for s in [st_c, st_c2, un_c, *roots_c, env_closest,
+                           *tex_kinds.values()]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
              unordered_ms=un_times["closest_ms"],
              unordered_plain_ms=un_times["closest_plain_ms"],
@@ -1933,7 +2297,16 @@ def main() -> int:
              cli_env_launches=env_closest["launches"],
              cli_env_max_abs_err=env_closest["max_abs_err"],
              cli_env_id_mismatch_outside_ties=env_closest[
-                 "id_mismatch_outside_ties"]),
+                 "id_mismatch_outside_ties"],
+             textured_kinds={
+                 kind: {key: row[key] for key in (
+                     "launches", "lanes", "live", "live_share", "checked",
+                     "ms", "bound_ms", "bound_by",
+                     "hit_mismatch", "id_mismatch_outside_ties", "ties",
+                     "max_rel_t_err", "overflows")}
+                 for kind, row in tex_kinds.items()},
+             textured_load=tex_res["load"],
+             textured_render_sample8=tex_res["render_sample8"]),
         dict(name="closest_hit_stats", route="cuda", source=trav,
              replaces="tracerboy_tpu/trace/pallas_traverse2.py:754 "
                       "(stats=True)",
@@ -1982,7 +2355,8 @@ def main() -> int:
              bounce_bound_ms=cut_sums["bound_ms"],
              bounce_launches=cut_sums["launches"],
              over_budget_rows=cut_sums["over_budget_rows"],
-             over_budget_ms=cut_sums["over_budget_ms"]),
+             over_budget_ms=cut_sums["over_budget_ms"],
+             textured_parity_launches=tex_par["cut"]["emit"]),
         dict(name="select_clusters", route="cuda", source=bsrc,
              replaces="tracerboy_tpu/trace/binned.py:363",
              launches=bn_launches["select"],
@@ -1996,7 +2370,8 @@ def main() -> int:
              bounce_ms=bounce_sums["select"]["ms"],
              bounce_plain_ms=bounce_sums["select"]["plain_ms"],
              bounce_bound_ms=bounce_sums["select"]["bound_ms"],
-             bounce_launches=bounce_sums["select"]["launches"]),
+             bounce_launches=bounce_sums["select"]["launches"],
+             textured_parity_launches=tex_par["binned"]["select"]),
         dict(name="dense_pairs", route="cuda", source=bsrc,
              replaces="tracerboy_tpu/trace/binned.py:554",
              launches=bn_launches["dense"],
@@ -2010,7 +2385,8 @@ def main() -> int:
              bounce_ms=bounce_sums["dense"]["ms"],
              bounce_plain_ms=bounce_sums["dense"]["plain_ms"],
              bounce_bound_ms=bounce_sums["dense"]["bound_ms"],
-             bounce_launches=bounce_sums["dense"]["launches"]),
+             bounce_launches=bounce_sums["dense"]["launches"],
+             textured_parity_launches=tex_par["binned"]["dense"]),
         dict(name="closest_hit_v1", route="cuda",
              source="tracerboy_tpu_torch/csrc/bvh_traverse_v1.cu",
              replaces="tracerboy_tpu/trace/pallas_traverse.py:299",

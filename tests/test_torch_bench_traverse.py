@@ -438,8 +438,8 @@ def test_emit_walk_keeps_chip_smokes_counts():
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_walk_bound_chunks_and_live_rays(any_hit):
     """walk_bound over chunks of rays equals the walk of all of them at
-    once; live_rays_only leaves out o and d (24 bytes) of each dead lane
-    and nothing else."""
+    once; live_rays_only, which walks the live lanes alone, leaves out o
+    and d (24 bytes) of each dead lane and nothing else."""
     import functools
 
     from test_torch_cut import _t, make_rays, make_scene

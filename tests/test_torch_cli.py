@@ -180,7 +180,6 @@ def test_denoiser_needs_the_archive(tiny_scene, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--transparent-shadows"], "transparent shadows"),
     (["--volume", "cloud"], "item 14"),
     (["--upscale", "fsr"], "item 19"),
     (["--shard", "tiles"], "item 21"),

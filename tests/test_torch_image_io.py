@@ -204,6 +204,12 @@ def test_piz_blocks_equal_on_seeded_data(seed):
 
 
 def test_ldr_reading_is_refused(tmp_path):
-    tio.write_png(str(tmp_path / "t.png"), np.zeros((2, 2, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="22b"):
-        tio.read_texture(str(tmp_path / "t.png"))
+    """PNG is read now (tests/test_torch_png_read.py); the other LDR
+    formats are still refused, whatever the file is named."""
+    from PIL import Image
+
+    Image.fromarray(np.zeros((2, 2, 3), np.uint8)).save(tmp_path / "t.jpg")
+    (tmp_path / "t.png").write_bytes((tmp_path / "t.jpg").read_bytes())
+    for name in ("t.jpg", "t.png"):
+        with pytest.raises(NotImplementedError, match="22b"):
+            tio.read_texture(str(tmp_path / name))

@@ -288,15 +288,17 @@ def test_unported_pbrt_features_raise(tmp_path, what, item):
         path = write_scene(tmp_path, extra=INSTANCES if what == "instances"
                            else MEDIUM)
     elif what == "png_map":
+        # PNG maps load now (tests/test_torch_textures.py); JPEG does not.
         path = write_scene(tmp_path, lights=("infinite",), mapname="")
-        (tmp_path / "sky.png").write_bytes(b"\x89PNG\r\n\x1a\n")
+        (tmp_path / "sky.jpg").write_bytes(b"\xff\xd8\xff\xe0")
         text = Path(path).read_text().replace(
             'LightSource "infinite"',
-            'LightSource "infinite" "string mapname" [ "sky.png" ]')
+            'LightSource "infinite" "string mapname" [ "sky.jpg" ]')
         Path(path).write_text(text)
     else:
+        (tmp_path / "wood.jpg").write_bytes(b"\xff\xd8\xff\xe0")
         path = write_scene(tmp_path, lights=("distant",), extra="""\
-Texture "wood" "spectrum" "imagemap" "string filename" [ "wood.png" ]
+Texture "wood" "spectrum" "imagemap" "string filename" [ "wood.jpg" ]
 Material "matte" "texture Kd" "wood"
 Shape "sphere" "float radius" [ 0.2 ]
 """)

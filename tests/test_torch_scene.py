@@ -95,7 +95,19 @@ def test_benchmark_scene_takes_the_kernel_path():
 
 
 @pytest.mark.parametrize("path", ["scene.pbf", "mesh.obj", "cache.npz"])
-def test_unported_scene_files_raise(path):
+def test_unported_scene_files_raise(path, tmp_path):
+    """.pbf and OBJ are not ported; a .npz scene loads now, unless it
+    holds a volume (tests/test_torch_scene_cache.py has the rest)."""
+    if path.endswith(".npz"):
+        from tracerboy_tpu_torch.scene.compile import save_compiled
+
+        save_compiled(str(tmp_path / path),
+                      torch_load_scene("shadertoy:cornell", film_size=FILM))
+        with np.load(tmp_path / path) as z:
+            flat = {k: z[k] for k in z.files}
+        flat["vol.g"] = np.asarray(0.0)
+        np.savez(tmp_path / path, **flat)
+        path = str(tmp_path / path)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         torch_load_scene(path)
 
@@ -109,6 +121,7 @@ def test_import_leaves_jax_out():
             "from tracerboy_tpu_torch.scene import pbrt_parser, volume\n"
             "from tracerboy_tpu_torch.core import image_io, piz\n"
             "from tracerboy_tpu_torch.utils import checkpoint, demo_scene\n"
+            "from tracerboy_tpu_torch.scene import compile, textures\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith('jax.')\n"
             "             or m.startswith('tracerboy_tpu.')\n"
@@ -125,9 +138,9 @@ def test_import_leaves_jax_out():
                                      "image_texture"])
 def test_unported_scene_features_raise(feature, tmp_path):
     """What the port does not have yet is refused, not dropped. Spheres,
-    curves and non-area lights compile now (tests/test_torch_pbrt.py);
-    an infinite light whose map is an LDR image still needs an image
-    reader."""
+    curves, non-area lights (tests/test_torch_pbrt.py) and PNG images
+    (tests/test_torch_textures.py) compile now; a JPEG map or texture
+    still needs a decoder the port does not have."""
     from tracerboy_tpu_torch.scene import types as ir
     from tracerboy_tpu_torch.scene.compile import compile_scene
     from tracerboy_tpu_torch.scene.procedural import _cornell_scene
@@ -138,12 +151,14 @@ def test_unported_scene_features_raise(feature, tmp_path):
     elif feature == "volume":
         s.volume = object()
     elif feature == "light":
-        (tmp_path / "sky.png").write_bytes(b"\x89PNG\r\n\x1a\n")
+        (tmp_path / "sky.jpg").write_bytes(b"\xff\xd8\xff\xe0")
         s.base_dir = str(tmp_path)
-        s.lights.append(ir.InfiniteLightIR(mapname="sky.png"))
+        s.lights.append(ir.InfiniteLightIR(mapname="sky.jpg"))
     else:
+        (tmp_path / "wood.jpg").write_bytes(b"\xff\xd8\xff\xe0")
+        s.base_dir = str(tmp_path)
         s.textures["img"] = ir.TextureIR(name="img", type="imagemap",
-                                         filename="wood.png")
+                                         filename="wood.jpg")
         s.materials["wall"].map_kd = "img"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         compile_scene(s)

@@ -26,7 +26,8 @@ import time
 def build_parser():
     p = argparse.ArgumentParser(prog="tracerboy-tpu-torch",
                                 description=__doc__)
-    p.add_argument("scene", help=".pbrt scene file (or shadertoy[:name])")
+    p.add_argument("scene", help=".pbrt scene file, .npz compiled cache "
+                   "or shadertoy[:name]")
     p.add_argument("--out", default="out.png", help="output image path")
     p.add_argument("--spp", type=int, default=None,
                    help="sample target (default: settings/sampler)")
@@ -51,7 +52,9 @@ def build_parser():
     p.add_argument("--ris", action="store_true",
                    help="enable reservoir (RIS) light sampling")
     p.add_argument("--transparent-shadows", action="store_true",
-                   help="not ported yet (raises)")
+                   help="glass attenuates shadow rays by Fresnel "
+                        "transmission instead of hard-occluding "
+                        "(straight-line approximation)")
     p.add_argument("--no-auto-exposure", action="store_true")
     p.add_argument("--exposure", type=float, default=1.0)
     p.add_argument("--firefly-clamp", type=float, default=0.0)
@@ -98,12 +101,11 @@ def build_parser():
 
 # Flags of features the port does not have yet, and their ROADMAP.md item.
 _UNPORTED_FLAGS = (
-    ("transparent_shadows", "--transparent-shadows",
-     "Queue 1: items 7-8, transparent shadows"),
     ("volume", "--volume", "Queue 1: item 14, volumes"),
     ("upscale", "--upscale", "Queue 1: item 19, ml/superres.py, ml/fsr.py"),
     ("devices", "--devices", "Queue 1: item 21, parallel/sharding.py"),
-    ("export_pbf", "--export-pbf", "Queue 1: item 22b, scene/pbf.py"),
+    ("export_pbf", "--export-pbf",
+     "Queue 1: item 22b, the other scene and image files, scene/pbf.py"),
 )
 
 
@@ -133,6 +135,7 @@ def _settings(args):
         enable_sampling_importance_resampling=args.ris,
         environment_nee=args.env_nee,
         sampler=args.sampler,
+        transparent_shadows=args.transparent_shadows,
         **({"max_bounces": args.max_bounces} if args.max_bounces else {}),
     )
     post = dataclasses.replace(

@@ -6,12 +6,15 @@ here is host-side numpy; results feed the scene compiler which moves arrays to
 device.
 
 A numpy copy of tracerboy_tpu/core/image_io.py that needs no imaging
-library (the port does not depend on PIL): PNG is written by the encoder
-below, and reading PNG/JPG/TGA/BMP is not ported yet.
+library (the port does not depend on PIL): PNG is read and written by the
+codec below, on zlib and struct.
 
 Formats:
-- PNG: written here (8-bit gray/RGB/RGBA, filter 0, one zlib stream);
-  reading LDR files raises NotImplementedError.
+- PNG: read by read_png (every colour type and bit depth, palettes,
+  Adam7; row filters undone by csrc/png_unfilter.cpp) and converted as
+  the JAX read_ldr's PIL calls convert it; written by write_png (8-bit
+  gray/RGB/RGBA, filter 0, one zlib stream). JPEG, TGA and BMP raise
+  NotImplementedError.
 - Radiance HDR (RGBE, RLE): from the published file format spec.
 - PFM: trivial float format (the reference renames .pfm -> .hdr as a hack;
   we read it natively).
@@ -34,17 +37,179 @@ import numpy as np
 
 
 def read_ldr(path: str, gamma_to_linear: bool = False) -> np.ndarray:
-    """LDR files (PNG/JPG/TGA/BMP) need a decoder the port does not have
-    yet."""
-    raise NotImplementedError(
-        f"{path}: reading LDR images (PNG/JPG/TGA/BMP) is not ported yet "
-        "(ROADMAP.md, Queue 1: item 22b, images and other scene files)")
+    """Read an LDR image to float32 RGB(A) in [0,1]: the values the JAX
+    read_ldr gets through PIL (grey and palette images become RGB, grey
+    with alpha RGBA, 16-bit samples keep their high byte, 16-bit grey is
+    clipped at 255, a tRNS chunk is ignored). PNG only, recognised by its
+    signature as PIL recognises it."""
+    with open(path, "rb") as f:
+        head = f.read(len(PNG_SIGNATURE))
+    if head != PNG_SIGNATURE:
+        raise NotImplementedError(
+            f"{path}: only PNG is read; JPEG, TGA and BMP are not ported "
+            "yet (ROADMAP.md, Queue 1: item 22b, the other scene and image "
+            "files)")
+    arr = png_to_8bit(*read_png(path)).astype(np.float32) / 255.0
+    if gamma_to_linear:
+        arr = arr.copy()
+        arr[..., :3] = np.power(arr[..., :3], 2.2)
+    return arr
+
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# Colour type -> (samples a pixel, allowed bit depths).
+PNG_FORMATS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
+                3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7 passes: (x0, y0, dx, dy).
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+_unfilter_lib = None
+
+
+def _unfilter(raw: np.ndarray, rows: int, rowbytes: int, bpp: int,
+              path: str) -> np.ndarray:
+    """Undo the row filters of one image or Adam7 pass
+    (csrc/png_unfilter.cpp); (rows, rowbytes) uint8."""
+    global _unfilter_lib
+    if _unfilter_lib is None:
+        import ctypes
+
+        from tracerboy_tpu_torch.utils.build import (
+            REPO_ROOT,
+            build_shared_library,
+        )
+
+        lib = ctypes.CDLL(str(build_shared_library(
+            "tbpng", [REPO_ROOT / "tracerboy_tpu_torch" / "csrc"
+                      / "png_unfilter.cpp"],
+            ["g++", "-O2", "-shared", "-fPIC"])))
+        lib.tb_png_unfilter.restype = ctypes.c_int64
+        lib.tb_png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.c_int64, ctypes.c_int64,
+                                        ctypes.c_int64]
+        _unfilter_lib = lib
+    src = np.ascontiguousarray(raw, np.uint8)
+    out = np.empty((rows, rowbytes), np.uint8)
+    bad = _unfilter_lib.tb_png_unfilter(src.ctypes.data, out.ctypes.data,
+                                        rows, rowbytes, bpp)
+    if bad:
+        raise ValueError(f"{path}: unknown PNG filter type "
+                         f"{int(src[(bad - 1) * (rowbytes + 1)])} in row "
+                         f"{bad - 1}")
+    return out
+
+
+def _png_chunks(data: bytes, path: str):
+    """(type, body) of each chunk up to IEND, CRCs checked."""
+    pos = len(PNG_SIGNATURE)
+    while True:
+        if pos + 8 > len(data):
+            raise ValueError(f"{path}: truncated PNG (no IEND chunk)")
+        n, kind = struct.unpack_from(">I4s", data, pos)
+        if pos + 12 + n > len(data):
+            raise ValueError(f"{path}: truncated PNG ({kind!r} chunk cut "
+                             "short)")
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack_from(">I", data, pos + 8 + n)
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"{path}: bad CRC in the {kind!r} chunk")
+        yield kind, body
+        if kind == b"IEND":
+            return
+        pos += 12 + n
+
+
+def read_png(path: str):
+    """Decode a PNG file to its samples: (samples, colour type, bit depth,
+    palette). samples is (H, W, C) uint8, or uint16 at bit depth 16, the
+    file's own sample values (palette indices for colour type 3); palette
+    is (256, 3) uint8, zero past the PLTE entries (None without PLTE).
+    Refuses a truncated file, a bad CRC or an unknown filter."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError(f"{path}: not a PNG file")
+    ihdr, idat, palette = None, [], None
+    for kind, body in _png_chunks(data, path):
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            n = len(body) // 3
+            palette = np.zeros((256, 3), np.uint8)
+            palette[:n] = np.frombuffer(body, np.uint8, 3 * n).reshape(n, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if ihdr is None:
+        raise ValueError(f"{path}: PNG without an IHDR chunk")
+    w, h, depth, ctype, comp, filt, interlace = ihdr
+    if (ctype not in PNG_FORMATS or depth not in PNG_FORMATS[ctype][1]
+            or comp or filt or interlace > 1 or not w or not h):
+        raise ValueError(f"{path}: unsupported PNG header {ihdr}")
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{path}: palette PNG without a PLTE chunk")
+    chans = PNG_FORMATS[ctype][0]
+    dec = zlib.decompressobj()
+    raw = dec.decompress(b"".join(idat))
+    if not dec.eof:
+        raise ValueError(f"{path}: truncated PNG (image data cut short)")
+    buf = np.frombuffer(raw, np.uint8)
+    bits = depth * chans
+    bpp = max(1, bits // 8)
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    out = np.zeros((h, w, chans), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        pw = (w - x0 + dx - 1) // dx
+        ph = (h - y0 + dy - 1) // dy
+        if pw <= 0 or ph <= 0:
+            continue
+        rowbytes = (pw * bits + 7) // 8
+        size = ph * (rowbytes + 1)
+        if pos + size > buf.size:
+            raise ValueError(f"{path}: truncated PNG (image data cut "
+                             "short)")
+        rows = _unfilter(buf[pos:pos + size], ph, rowbytes, bpp, path)
+        pos += size
+        if depth == 16:
+            s = rows.view(">u2").astype(np.uint16)
+        elif depth == 8:
+            s = rows
+        else:
+            per = 8 // depth
+            shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+            s = ((rows[..., None] >> shifts) & ((1 << depth) - 1)).reshape(
+                ph, rowbytes * per)
+        out[y0::dy, x0::dx] = s[:, :pw * chans].reshape(ph, pw, chans)
+    return out, ctype, depth, palette
+
+
+def png_to_8bit(samples, ctype, depth, palette) -> np.ndarray:
+    """What PIL's Image.open(...).convert("RGB" or "RGBA") gives for a
+    decoded PNG, as (H, W, 3 or 4) uint8: grey (bit depth 1, 2 and 4
+    scaled to 0-255, 16 clipped at 255) and palette images become RGB, grey
+    with alpha RGBA; other 16-bit samples keep their high byte."""
+    if ctype == 3:
+        return palette[samples[..., 0]]
+    if depth == 16:
+        s = (np.minimum(samples, 255) if ctype == 0
+             else samples >> 8).astype(np.uint8)
+    elif depth < 8:
+        s = (samples * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    else:
+        s = samples
+    if ctype == 0:
+        return np.repeat(s, 3, axis=2)
+    if ctype == 4:
+        return s[..., [0, 0, 0, 1]]
+    return s
 
 
 _PNG_COLOR_TYPES = {1: 0, 3: 2, 4: 6}   # channels -> gray, RGB, RGBA
 
 
-def _png_chunk(kind: bytes, data: bytes) -> bytes:
+def png_chunk(kind: bytes, data: bytes) -> bytes:
+    """One PNG chunk: length, type, body and CRC."""
     return (struct.pack(">I", len(data)) + kind + data
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
@@ -66,10 +231,10 @@ def write_png(path: str, img: np.ndarray) -> None:
     rows[:, 1:] = np.ascontiguousarray(img).reshape(h, w * c)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOR_TYPES[c], 0, 0, 0)
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(_png_chunk(b"IHDR", ihdr))
-        f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(_png_chunk(b"IEND", b""))
+        f.write(PNG_SIGNATURE)
+        f.write(png_chunk(b"IHDR", ihdr))
+        f.write(png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(png_chunk(b"IEND", b""))
 
 
 # ----------------------------------------------------------------------------

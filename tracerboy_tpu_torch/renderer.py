@@ -103,7 +103,8 @@ class Renderer:
                  film_size: tuple | None = None, seed: int = 0,
                  device="cuda"):
         """scene: a CompiledScene or a name for load_scene ("shadertoy",
-        "shadertoy:cornell", or the path of a .pbrt file)."""
+        "shadertoy:cornell", the path of a .pbrt file, compiled through
+        its .tbcache.npz cache, or of a compiled .npz scene)."""
         if isinstance(scene, str):
             scene = load_scene(scene, film_size=film_size)
         if not isinstance(scene, CompiledScene):

@@ -9,18 +9,22 @@ noise, and the packed BVH tables of the traversal kernels (a main BVH and
 a shadow BVH over non-light triangles), with attribute rows in packed
 order for kernel hit ids.
 
-load_scene takes the procedural scenes and PBRT files (scene/pbrt_parser.py,
-with PLY meshes, spheres, curves, and infinite, distant and point lights;
-environment maps from .hdr/.pfm/.exr). What the port does not have yet
-raises NotImplementedError naming its ROADMAP.md item: instanced scenes
-(15), volumes (14), image textures and LDR environment maps, OBJ/STL/glTF
-and .pbf files (22b), and .npz scene caches (23), which this load_scene
-neither writes nor reads.
+load_scene takes the procedural scenes, PBRT files (scene/pbrt_parser.py,
+with PLY meshes, spheres, curves, image and noise textures, and infinite,
+distant and point lights; environment maps from .png/.hdr/.pfm/.exr) and
+compiled .npz scenes. It keeps the JAX package's .npz cache: a compiled
+PBRT file is saved as <scene>.tbcache.npz beside it (or under
+$TB_SCENE_CACHE when its directory is read-only) in the JAX file format,
+key for key, so a cache written by either package loads in the other.
+What the port does not have yet raises NotImplementedError naming its
+ROADMAP.md item: instanced scenes (15), volumes (14), OBJ/STL/glTF and
+.pbf files (22b).
 """
 
 from __future__ import annotations
 
 import os
+import zipfile
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -525,10 +529,9 @@ def _non_area_lights(scene: ir.SceneIR, light_records: list) -> dict:
 
 
 def _load_blue_noise():
-    """The 256x256 RGBA blue-noise pair. The reference's LDR_RGBA_0/1
-    textures are image files, which the port does not read yet; it takes
-    the JAX package's fallback, seeded white noise, which is also what
-    the JAX package loads where those files are absent."""
+    """The two 256x256 RGBA noise textures (SURVEY G5). The reference's
+    blue-noise images are not in the repository, so this is the hashed
+    white noise the JAX package falls back to without them."""
     rng = np.random.default_rng(0xB1E)
     return (
         rng.random((256, 256, 4)).astype(np.float32),
@@ -536,29 +539,156 @@ def _load_blue_noise():
     )
 
 
-def load_scene(path: str, film_size=None) -> CompiledScene:
-    """Compile a scene: "shadertoy" / "shadertoy:<name>" selects a
-    built-in procedural scene (scene/procedural.py); a .pbrt file is
-    parsed and compiled at its own film size, which film_size then
-    replaces (the camera does not depend on it). The JAX load_scene's
-    .npz cache is not ported: this one compiles every time."""
+# ----------------------------------------------------------------------------
+# .npz scene cache (the .pbf analog, TracerBoy.cpp:1200-1223), in the JAX
+# package's format
+
+_SCALAR_FIELDS = (
+    "num_tris", "leaf_size", "num_lights", "has_env", "film_width",
+    "film_height", "sampler_spp", "max_depth",
+)
+_ARRAY_FIELDS = (
+    "tri_v0", "tri_v1", "tri_v2", "tri_n0", "tri_n1", "tri_n2",
+    "tri_uv0", "tri_uv1", "tri_uv2", "tri_material", "bvh_lo", "bvh_hi",
+    "bvh_children", "tex_images", "tex_sizes", "env_map",
+    "env_transform", "env_color_scale", "blue_noise0", "blue_noise1",
+)
+
+
+def save_compiled(path: str, cs: CompiledScene) -> None:
+    flat = {name: getattr(cs, name) for name in _ARRAY_FIELDS}
+    for d, prefix in ((cs.materials, "mat."), (cs.tex_records, "tex."),
+                      (cs.lights, "light.")):
+        for k, v in d.items():
+            flat[prefix + k] = v
+    for name in _SCALAR_FIELDS:
+        flat["scalar." + name] = np.asarray(getattr(cs, name))
+    cam = cs.camera
+    flat["cam.position"] = cam.position
+    flat["cam.look_at"] = cam.look_at
+    flat["cam.up"] = cam.up
+    flat["cam.right"] = cam.right
+    flat["cam.scalars"] = np.array([cam.lens_height, cam.focal_distance])
+    np.savez_compressed(path, **flat)
+
+
+def load_compiled(path: str) -> CompiledScene:
+    with np.load(path) as z:
+        if any(k.startswith("vol.") for k in z.files):
+            raise NotImplementedError(
+                f"{path}: a cached scene with a volume; volumes are not "
+                "ported yet (ROADMAP.md, Queue 1: item 14, "
+                "shade/volumetric.py)")
+        mats = {k[4:]: z[k] for k in z.files if k.startswith("mat.")}
+        texr = {k[4:]: z[k] for k in z.files if k.startswith("tex.")}
+        lights = {k[6:]: z[k] for k in z.files if k.startswith("light.")}
+        scal = {n: z["scalar." + n][()] for n in _SCALAR_FIELDS}
+        arrays = {name: z[name] for name in _ARRAY_FIELDS}
+        cam = Camera(
+            position=z["cam.position"], look_at=z["cam.look_at"],
+            up=z["cam.up"], right=z["cam.right"],
+            lens_height=float(z["cam.scalars"][0]),
+            focal_distance=float(z["cam.scalars"][1]),
+        )
+    return CompiledScene(
+        **arrays, num_tris=int(scal["num_tris"]),
+        leaf_size=int(scal["leaf_size"]), materials=mats,
+        tex_records=texr, lights=lights, num_lights=int(scal["num_lights"]),
+        has_env=bool(scal["has_env"]), camera=cam,
+        film_width=int(scal["film_width"]),
+        film_height=int(scal["film_height"]),
+        sampler_spp=int(scal["sampler_spp"]),
+        max_depth=int(scal["max_depth"]),
+    )
+
+
+def load_scene_async(path: str, use_cache: bool = True, film_size=None,
+                     on_progress=None):
+    """Load a scene on a worker thread (the reference's async scene-load
+    thread, D3D12App.cpp:53-68). Returns a Future; poll .done() for the
+    loading screen, .result() for the CompiledScene."""
+    import concurrent.futures
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+
+    def run():
+        if on_progress:
+            on_progress("parsing")
+        cs = load_scene(path, use_cache=use_cache, film_size=film_size)
+        if on_progress:
+            on_progress("done")
+        return cs
+
+    fut = pool.submit(run)
+    pool.shutdown(wait=False)
+    return fut
+
+
+def _cache_path(path: str) -> str:
+    """Where the compiled .npz for `path` lives: `<scene>.tbcache.npz`
+    beside it when the scene directory is writable (the cache travels
+    with the scene, like the reference's .pbf sidecar); otherwise a keyed
+    file under $TB_SCENE_CACHE (default ~/.cache/tracerboy_tpu, the JAX
+    package's), which covers read-only scene checkouts."""
+    scene_dir = os.path.dirname(os.path.abspath(path))
+    if os.access(scene_dir, os.W_OK):
+        return path + ".tbcache.npz"
+    import hashlib
+
+    cache_dir = os.environ.get(
+        "TB_SCENE_CACHE",
+        os.path.join(os.path.expanduser("~"), ".cache", "tracerboy_tpu"))
+    key = hashlib.sha1(os.path.abspath(path).encode()).hexdigest()[:16]
+    return os.path.join(cache_dir, f"{os.path.basename(path)}.{key}.npz")
+
+
+def load_scene(path: str, use_cache: bool = True,
+               film_size=None) -> CompiledScene:
+    """Parse + compile a scene file, with transparent .npz caching.
+
+    The cache stores the scene at its NATIVE film resolution; a film_size
+    override only replaces the film dims on the returned CompiledScene
+    (the camera does not depend on it), so one cached compile serves
+    every render resolution. A cache older than its scene file is
+    compiled again; an unreadable one is ignored.
+
+    "shadertoy" / "shadertoy:<name>" selects a built-in procedural scene
+    (scene/procedural.py); a .npz path is a compiled scene."""
     if path == "shadertoy" or path.startswith("shadertoy:"):
         from tracerboy_tpu_torch.scene.procedural import shadertoy_scene
 
         name = path.split(":", 1)[1] if ":" in path else "benchmark"
         return shadertoy_scene(name, film_size=film_size)
+
+    def with_film(cs):
+        if film_size is not None:
+            cs = replace(cs, film_width=film_size[0],
+                         film_height=film_size[1])
+        return cs
+
     ext = os.path.splitext(path)[1].lower()
     if ext == ".npz":
-        raise NotImplementedError(
-            f"{path}: .npz scene caches are not ported yet (ROADMAP.md, "
-            "Queue 1: item 23)")
+        return with_film(load_compiled(path))
     if ext in (".obj", ".stl", ".gltf", ".glb", ".pbf"):
         raise NotImplementedError(
             f"{path}: OBJ/STL/glTF and .pbf scene files are not ported yet "
-            "(ROADMAP.md, Queue 1: item 22b, images and other scene files)")
+            "(ROADMAP.md, Queue 1: item 22b, the other scene and image "
+            "files)")
+    cache = _cache_path(path)
+    if use_cache and os.path.exists(cache) and (
+            os.path.getmtime(cache) >= os.path.getmtime(path)):
+        try:
+            return with_film(load_compiled(cache))
+        except (OSError, EOFError, ValueError, KeyError,
+                zipfile.BadZipFile):
+            pass        # unreadable cache: compile again
     from tracerboy_tpu_torch.scene.pbrt_parser import parse_pbrt
 
     cs = compile_scene(parse_pbrt(path))
-    if film_size is not None:
-        cs = replace(cs, film_width=film_size[0], film_height=film_size[1])
-    return cs
+    if use_cache:
+        try:
+            os.makedirs(os.path.dirname(cache), exist_ok=True)
+            save_compiled(cache, cs)
+        except OSError:
+            pass        # unwritable cache directory: skip caching
+    return with_film(cs)

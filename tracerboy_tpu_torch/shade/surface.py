@@ -105,6 +105,30 @@ def eval_texture(recs, tex_images, tex_sizes, tex_id, uv,
                        t1 * t2, base)
 
 
+def apply_normal_map(scene, normal_tex, normal, tangent, uv_u, uv_v):
+    """Tangent-space normal-map perturbation (GetDetailNormal,
+    RayGenCommon.h:273-295): tbn = ((0.5-x)*2, (0.5-y)*2, sqrt(1-x2-y2)),
+    z clamped to 0.02 so reflections never go parallel to the surface;
+    the normal itself where the material has no normal map.
+
+    normal/tangent: V3 SoA. Returns the detail normal (V3)."""
+    # Gram-Schmidt: flat per-triangle tangents aren't exactly
+    # perpendicular to the interpolated shading normal.
+    t = v3.normalize(tangent - normal * v3.dot(tangent, normal))
+    b = v3.cross(t, normal)
+    data = eval_texture(
+        scene["tex_records"], scene["tex_images"], scene["tex_sizes"],
+        torch.clamp_min(normal_tex, 0), torch.stack([uv_u, uv_v], dim=-1),
+    )
+    tx = (0.5 - data[..., 0]) * 2.0
+    ty = (0.5 - data[..., 1]) * 2.0
+    tz = torch.sqrt(torch.clamp_min(1.0 - tx * tx - ty * ty, 0.0))
+    detail = v3.normalize(
+        t * tx + b * ty + normal * torch.clamp_min(tz, 0.02)
+    )
+    return v3.where(normal_tex >= 0, detail, normal)
+
+
 def fetch_material_soa(
     scene,
     mat_id,

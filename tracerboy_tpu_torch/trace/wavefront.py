@@ -9,6 +9,15 @@ directions toward the dome in one shadow wave of M x lanes rays) ->
 throughput update, with lane masks in place of branches. Subsurface media (the wax sphere) are a per-ray state
 machine inside the same bounce loop.
 
+Alpha cutouts (WaveConfig.has_alpha) follow the JAX package: no callback
+into traversal, but a re-fire of the whole wave from just past each hit
+whose alpha is under ALPHA_CUTOFF, up to ALPHA_ROUNDS times; with
+cutouts, every shadow wave becomes a closest-hit march over the shadow
+BVH (ALPHA_ROUNDS + 1 rounds) in which only opaque hits occlude.
+WaveConfig.transparent_shadows runs the same march and lets glass pass
+light with a Fresnel factor (_shadow_transmittance). Normal maps
+(has_normal_maps) tilt the detail normal (shade/surface.apply_normal_map).
+
 Every stage mirrors its JAX counterpart line for line, so a wave can be
 held against the JAX package's wave on the same inputs. Bounce 0 and the
 later bounces run in one Python loop; intermediates of a bounce are
@@ -67,7 +76,11 @@ from tracerboy_tpu_torch.scene.materials import (
 from tracerboy_tpu_torch.shade import bsdf
 from tracerboy_tpu_torch.shade.env import sample_environment_quad_soa
 from tracerboy_tpu_torch.shade.nee import sample_one_light_soa
-from tracerboy_tpu_torch.shade.surface import fetch_material_soa
+from tracerboy_tpu_torch.shade.surface import (
+    apply_normal_map,
+    eval_texture,
+    fetch_material_soa,
+)
 from tracerboy_tpu_torch.trace import binned, cut, traverse
 from tracerboy_tpu_torch.trace.camera import generate_primary_rays_soa
 from tracerboy_tpu_torch.trace.intersect import (
@@ -121,21 +134,20 @@ class WaveConfig:
     # vertex, traced as ONE concatenated shadow wave of M x lanes rays.
     env_nee: bool = False
     env_nee_samples: int = 1
+    # Alpha-tested transparency (_closest_dispatch, _occluded_dispatch).
+    has_alpha: bool = False
+    # Transmissive shadow rays (_shadow_transmittance).
+    transparent_shadows: bool = False
+    has_normal_maps: bool = False
     # Not ported yet:
     filter_splat: bool = False
     split_early: int = -1
-    has_alpha: bool = False
-    transparent_shadows: bool = False
-    has_normal_maps: bool = False
     has_instances: bool = False
     has_volume: bool = False
 
 
 _UNPORTED = {
     "filter_splat": "ROADMAP.md, Queue 1: render_wave_merged splat fold",
-    "has_alpha": "ROADMAP.md, Queue 1: alpha re-fire",
-    "transparent_shadows": "ROADMAP.md, Queue 1: transparent shadows",
-    "has_normal_maps": "ROADMAP.md, Queue 1: normal maps",
     "has_instances": "ROADMAP.md, Queue 1: item 15, trace/instanced.py",
     "has_volume": "ROADMAP.md, Queue 1: item 14, shade/volumetric.py",
 }
@@ -156,12 +168,16 @@ def _check_supported(cfg: WaveConfig, params: dict):
         raise ValueError(f"unknown traversal backend {cfg.traversal!r}")
 
 
-def _closest(scene, o, d, t_max, cfg, primary=False, cost_lanes=0):
+def _closest(scene, o, d, t_max, cfg, primary=False, cost_lanes=0,
+             shadow=False):
     """One closest-hit wave: (t, tri id, u, v, cost). cost is the
     heatmap AOV of the first cost_lanes lanes as the JAX package defines
     it: the triangle count on brute force, pops + clusters of the stats
     kernel on the HEATMAP view's primary wave; None for 0 lanes and on
-    the other paths (whose heatmap is 0)."""
+    the other paths (whose heatmap is 0). With shadow the packed
+    backends walk the shadow BVH (ids into pk_sh_attr_rows), under
+    cfg.cut its cut tables, and never the binned backend; brute force
+    and "wide" always intersect the whole scene."""
     if cfg.traversal == "brute":
         hits = brute_force_closest_soa(o, d, scene["tri9"], t_max)
         cost = None
@@ -177,6 +193,16 @@ def _closest(scene, o, d, t_max, cfg, primary=False, cost_lanes=0):
         return t, tri, u, v, cost[:cost_lanes] if cost_lanes else None
     plain = cfg.traversal == "twin"
     rays = (v3.to_rows(o), v3.to_rows(d), t_max.contiguous())
+    if shadow:
+        if cfg.cut:
+            hits = cut.traverse_binned2(
+                *rays, scene["pk_sh_nodes"], scene["pk_sh_tris_bw"],
+                scene["pk_sh_cut_top"], scene["pk_sh_cut_roots"],
+                K=cfg.cut_k, plain=plain)
+        else:
+            fn = traverse.closest_hit_plain if plain else traverse.closest_hit
+            hits = fn(*rays, scene["pk_sh_nodes"], scene["pk_sh_tris_bw"])
+        return (*hits, None)
     tables = (scene["pk_nodes"], scene["pk_tris_bw"])
     if cfg.want_heatmap and primary:
         # Whole-tree stats kernel even with cfg.cut: the JAX package
@@ -199,6 +225,187 @@ def _closest(scene, o, d, t_max, cfg, primary=False, cost_lanes=0):
         fn = traverse.closest_hit_plain if plain else traverse.closest_hit
         hits = fn(*rays, *tables)
     return (*hits, None)
+
+
+ALPHA_CUTOFF = 0.9  # SharedHitGroup.h:163
+# The JAX WaveConfig's alpha_rounds and shadow_glass_rounds, at the values
+# every JAX caller leaves them: re-fires of a closest-hit wave past cut
+# hits, and the extra closest-hit rounds of a transmittance march.
+ALPHA_ROUNDS = 3
+SHADOW_GLASS_ROUNDS = 3
+
+
+def _alpha_at_hit(scene, tri, u, v, attr_key="tri_attr_rows"):
+    """Cutout alpha at a hit; 1.0 where opaque / no alpha texture / miss
+    (the reference's IsValidHit, SharedHitGroup.h:157-179): the
+    material's alpha texture (or the albedo image's alpha channel, bound
+    as a companion record at scene load) sampled at the hit's UV, with
+    the JAX package's expressions in its order. attr_key names the
+    attribute rows of tri's id space (scene order for brute force and
+    "wide", pk_attr_rows / pk_sh_attr_rows for the packed BVHs)."""
+    tbl = scene[attr_key]
+    T = tbl.shape[0]
+    tric = torch.clamp(tri.to(torch.int64), 0, T - 1)
+    r = tbl[:, 9:16][tric]          # the uv and material columns only
+    rows = [r[:, j] for j in range(7)]
+    del r
+    w_b = 1.0 - u - v
+    uv_u = rows[0] * w_b + rows[2] * u + rows[4] * v
+    uv_v = rows[1] * w_b + rows[3] * u + rows[5] * v
+    mid = torch.round(rows[6]).to(torch.int64)
+    del rows, w_b
+    mats = scene["materials"]
+    M = mats["alpha_tex"].shape[0]
+    atex = mats["alpha_tex"][torch.clamp(mid, 0, M - 1)]
+    a = eval_texture(
+        scene["tex_records"], scene["tex_images"], scene["tex_sizes"],
+        torch.clamp_min(atex, 0), torch.stack([uv_u, uv_v], dim=-1),
+    )[..., 0]
+    return torch.where((tri >= 0) & (atex >= 0), a, 1.0)
+
+
+def _closest_dispatch(scene, o, d, t_max, cfg, primary=False,
+                      cost_lanes=0):
+    """Closest hit with alpha-tested transparency (the JAX
+    _closest_dispatch): hits whose alpha is under ALPHA_CUTOFF re-fire
+    the whole wave from just past the hit, up to ALPHA_ROUNDS times;
+    a re-fire is never a primary wave (on the binned path it takes the
+    binned backend). Returns _closest's tuple with t measured from o."""
+    t, tri, u, v, cost = _closest(scene, o, d, t_max, cfg, primary=primary,
+                                  cost_lanes=cost_lanes)
+    if not cfg.has_alpha:
+        return t, tri, u, v, cost
+    attr_key = ("pk_attr_rows" if cfg.traversal in PACKED_BACKENDS
+                else "tri_attr_rows")
+    o_cur = o
+    t_base = torch.zeros_like(t_max)
+    for _ in range(ALPHA_ROUNDS):
+        a = _alpha_at_hit(scene, tri, u, v, attr_key)
+        reject = (tri >= 0) & (a < ALPHA_CUTOFF)
+        del a
+        step = t + 1e-4 + 1e-4 * torch.abs(t)
+        o_cur = v3.where(reject, o_cur + d * step, o_cur)
+        t_base = torch.where(reject, t_base + step, t_base)
+        tm2 = torch.where(reject, torch.clamp_min(t_max - t_base, 0.0), 0.0)
+        del step
+        t2, tri2, u2, v2, c2 = _closest(
+            scene, o_cur, d, tm2, cfg,
+            cost_lanes=0 if cost is None else cost.shape[0])
+        del tm2
+        t = torch.where(reject, t2, t)
+        tri = torch.where(reject, tri2, tri)
+        u = torch.where(reject, u2, u)
+        v = torch.where(reject, v2, v)
+        if cost is not None and c2 is not None:
+            cost = cost + torch.where(reject[:cost.shape[0]], c2, 0.0)
+        del t2, tri2, u2, v2, c2, reject
+    return t + t_base, tri, u, v, cost
+
+
+def _occluded_dispatch(scene, o, d, t_max, cfg):
+    """Shadow-ray occlusion with alpha-tested transparency (the JAX
+    _occluded_dispatch). Without cutouts a pure any-hit wave; with them
+    occlusion needs hit points to sample alpha, so it marches closest
+    hits (over the shadow BVH on the packed backends) for
+    ALPHA_ROUNDS + 1 rounds and only opaque hits occlude; brute force
+    and "wide" treat light triangles as pass-through."""
+    if not cfg.has_alpha:
+        return _occluded(scene, o, d, t_max, cfg)
+    packed = cfg.traversal in PACKED_BACKENDS
+    attr_key = "pk_sh_attr_rows" if packed else "tri_attr_rows"
+    shadow_opaque = scene["tri_shadow_opaque"]
+    occluded = t_max < 0  # all False
+    o_cur = o
+    t_base = torch.zeros_like(t_max)
+    budget = t_max
+    for _ in range(ALPHA_ROUNDS + 1):
+        t, tri, u, v, _ = _closest(scene, o_cur, d, budget, cfg,
+                                   shadow=packed)
+        hit = tri >= 0
+        solid = _alpha_at_hit(scene, tri, u, v, attr_key) >= ALPHA_CUTOFF
+        if not packed:
+            T = shadow_opaque.shape[0]
+            solid = solid & shadow_opaque[
+                torch.clamp(tri.to(torch.int64), 0, T - 1)]
+        occluded = occluded | (hit & solid)
+        reject = hit & ~solid & ~occluded
+        step = t + 1e-4 + 1e-4 * torch.abs(t)
+        o_cur = v3.where(reject, o_cur + d * step, o_cur)
+        t_base = torch.where(reject, t_base + step, t_base)
+        budget = torch.where(reject, torch.clamp_min(t_max - t_base, 0.0),
+                             0.0)
+        del t, tri, u, v, hit, solid, reject, step
+    return occluded
+
+
+def _shadow_transmittance(scene, o, d, t_max, cfg):
+    """Shadow-ray transmittance (the JAX _shadow_transmittance, the
+    reference's parked SHADOW_BOUNCES march, kernel.glsl:1447-1512, made
+    to work): a straight-line closest-hit march in which zero-scatter
+    subsurface surfaces (glass) multiply (1 - Schlick(cos)) per interface
+    and the ray goes on, light geometry and alpha cutouts pass, and
+    anything else stops it at zero; a pass still open after
+    SHADOW_GLASS_ROUNDS + 1 rounds counts as occluded. Returns the
+    transmittance in [0, 1] per lane."""
+    packed = cfg.traversal in PACKED_BACKENDS
+    attr_key = "pk_sh_attr_rows" if packed else "tri_attr_rows"
+    shadow_opaque = scene["tri_shadow_opaque"]
+    mats = scene["materials"]
+    n_mat = mats["flags"].shape[0]
+    tbl = scene[attr_key]
+    T = torch.ones_like(t_max)
+    o_cur = o
+    t_base = torch.zeros_like(t_max)
+    budget = t_max
+    for _ in range(SHADOW_GLASS_ROUNDS + 1):
+        t, tri, u, v, _ = _closest(scene, o_cur, d, budget, cfg,
+                                   shadow=packed)
+        hit = tri >= 0
+        tric = torch.clamp(tri.to(torch.int64), 0, tbl.shape[0] - 1)
+        rows = tbl[:, [0, 1, 2, 15]][tric]   # flat normal, material id
+        mid = torch.clamp(rows[:, 3].to(torch.int64), 0, n_mat - 1)
+        flags = mats["flags"][mid]
+        scat = mats["scattering"][mid].amax(-1)
+        is_glass = ((flags & SUBSURFACE_SCATTER_FLAG) != 0) & (scat < 1e-6)
+        is_light = (flags & LIGHT_FLAG) != 0
+        if not packed:
+            # Brute force and "wide" intersect the full table; lights are
+            # pass-through there too (the IsLight skip).
+            is_light = is_light | ~shadow_opaque[
+                torch.clamp(tri.to(torch.int64), 0,
+                            shadow_opaque.shape[0] - 1)]
+        if cfg.has_alpha:
+            cutout = _alpha_at_hit(scene, tri, u, v, attr_key) < ALPHA_CUTOFF
+        else:
+            cutout = hit & False
+        # Fresnel transmission at the interface (Schlick from the
+        # material IOR; cos against the flat shading normal row).
+        ior = mats["ior"][mid]
+        nrm = V3(rows[:, 0], rows[:, 1], rows[:, 2])
+        cos_i = torch.abs(v3.dot(d, nrm))
+        r0 = torch.square((ior - 1.0) / torch.clamp_min(ior + 1.0, 1e-6))
+        fres = r0 + (1.0 - r0) * torch.pow(1.0 - cos_i, 5.0)
+        passes = hit & (is_glass | is_light | cutout)
+        T = torch.where(hit & is_glass & ~is_light, T * (1.0 - fres), T)
+        T = torch.where(hit & ~passes, 0.0, T)
+        step = t + 1e-4 + 1e-4 * torch.abs(t)
+        cont = passes & (T > 1e-4)
+        o_cur = v3.where(cont, o_cur + d * step, o_cur)
+        t_base = torch.where(cont, t_base + step, t_base)
+        budget = torch.where(cont, torch.clamp_min(t_max - t_base, 0.0), 0.0)
+        del t, tri, u, v, rows, tric, mid, flags, scat, fres, cos_i, step
+    # A surviving pass at the round limit is treated as occluded
+    # (conservative, like the alpha loop's bounded re-fires).
+    return torch.where(budget > 0.0, 0.0, T)
+
+
+def _shadow(scene, o, d, t_max, cfg):
+    """A shadow wave as the NEE stages use it: (occluded, transmittance),
+    transmittance None unless cfg.transparent_shadows."""
+    if cfg.transparent_shadows:
+        trans = _shadow_transmittance(scene, o, d, t_max, cfg)
+        return trans <= 1e-4, trans
+    return _occluded_dispatch(scene, o, d, t_max, cfg), None
 
 
 def _occluded(scene, o, d, t_max, cfg):
@@ -250,7 +457,7 @@ def _env_nee(scene, cfg, s, i, hash2, env_h, env_w, *, base, shading,
     s["rays_traced"] = s["rays_traced"] + sum(d_j.sum() for d_j in do_envs)
     N = hit_point.x.shape[0]
     org = hit_point + normal * EPSILON
-    occ = _occluded(
+    occ, trans = _shadow(
         scene,
         V3(*(c.repeat(M) for c in org)),
         V3(*(torch.cat([d_j[k] for d_j in dirs]) for k in range(3))),
@@ -300,6 +507,8 @@ def _env_nee(scene, cfg, s, i, hash2, env_h, env_w, *, base, shading,
             env_dir, scene["env_quad"], env_h, env_w, scene["env_transform"],
             scene["env_color_scale"], gather_mask=e_add)
         e_gain = (w_env * (1.0 / M)) / torch.clamp_min(env_pdf, 1e-12)
+        if trans is not None:
+            e_gain = e_gain * trans[j * N:(j + 1) * N]
         e_contrib = v3.where(e_add, s["throughput"] * e_mult * e_env * e_gain,
                              _zero3(zero))
         contrib_sum = contrib_sum + e_contrib
@@ -513,7 +722,7 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
 
         # --- traversal ---------------------------------------------------
         t_max = torch.where(alive, BIG, 0.0)
-        t, tri, u, v, cost = _closest(
+        t, tri, u, v, cost = _closest_dispatch(
             scene, s["origin"], s["direction"], t_max, cfg, primary=i == 0,
             cost_lanes=na if i == 0 else 0)
         del t_max
@@ -536,7 +745,7 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
         # --- hit attributes ----------------------------------------------
         tric = torch.clamp(tri.to(torch.int64), 0, T_padded - 1)
         rows = attr_table[tric]                       # (N, 19)
-        a = [rows[:, j] for j in range(16)]
+        a = [rows[:, j] for j in range(19 if cfg.has_normal_maps else 16)]
         del rows
         w_b = 1.0 - u - v
         sh_normal = v3.normalize(V3(
@@ -547,6 +756,7 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
         uv_u = a[9] * w_b + a[11] * u + a[13] * v
         uv_v = a[10] * w_b + a[12] * u + a[14] * v
         mat_id = torch.round(a[15]).to(torch.int64)
+        tangent = V3(*a[16:19]) if cfg.has_normal_maps else None
         del a, w_b
 
         hit_point = s["origin"] + s["direction"] * t
@@ -563,7 +773,12 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
         )
         flags = mat["flags"]
         normal = v3.where(backside, -sh_normal, sh_normal)
-        detail_normal = normal
+        if cfg.has_normal_maps:
+            detail_normal = apply_normal_map(scene, mat["normal_tex"], normal,
+                                             tangent, uv_u, uv_v)
+        else:
+            detail_normal = normal
+        del tangent
         ray_dot_n = torch.where(backside, -ray_dot_n, ray_dot_n)
 
         cur_ior = torch.where(backside, mat["ior"], bsdf.AIR_IOR)
@@ -698,14 +913,16 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
             sh_org = hit_point + normal * EPSILON
             sh_tmax = torch.where(do_nee, ls["distance"] * (1.0 - 1e-3),
                                   0.0)
-            occluded = _occluded(scene, sh_org, ls["direction"], sh_tmax,
-                                 cfg)
+            occluded, sh_trans = _shadow(scene, sh_org, ls["direction"],
+                                         sh_tmax, cfg)
             surf_w = bsdf.diffuse_brdf_soa(ls["direction"], detail_normal)
             light_mult = (
                 ls["attenuation"] * surf_w
                 * torch.abs(v3.dot(ls["normal"], ls["direction"]))
                 / torch.clamp_min(ls["pdf"], 1e-12)
             )
+            if sh_trans is not None:
+                light_mult = light_mult * sh_trans
             add = do_nee & ~occluded
             nee_albedo = mat["albedo"]
             if cfg.decouple_albedo and i == 0:
@@ -721,7 +938,7 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
                 s["rad_d"] = v3.where(
                     add, s["rad_d"] + contrib * light_mult * w_nee,
                     s["rad_d"])
-            del ls, sh_org, sh_tmax, occluded, contrib, light_mult
+            del ls, sh_org, sh_tmax, occluded, sh_trans, contrib, light_mult
 
         died_on_light = shading & is_light
 

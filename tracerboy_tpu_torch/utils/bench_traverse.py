@@ -347,23 +347,27 @@ def walk_bound(o, d, tm, nodes, tris, footprint, out_bytes,
     chunks of chunk rays when chunk is given), out_bytes a ray out; each
     live ray's set-up, its pops' slab tests and its clusters' triangle
     tests at tri_ops each. With live_rays_only the rays in are
-    ray_bytes's: o and d of the live lanes only."""
+    ray_bytes's: o and d of the live lanes only; and since a dead lane
+    (t_max <= 0) walks nothing, only the live rays are walked."""
     n = o.shape[0]
-    step = chunk or max(n, 1)
+    live_lanes = (tm > 0).nonzero(as_tuple=True)[0]
+    live = live_lanes.numel()
+    rays_in = ray_bytes(tm, live) if live_rays_only else _nbytes(o, d, tm)
+    if live_rays_only:
+        o, d, tm = o[live_lanes], d[live_lanes], tm[live_lanes]
+    step = chunk or max(o.shape[0], 1)
     node_rows = torch.zeros(nodes.shape[0], dtype=torch.bool,
                             device=o.device)
     cluster_rows = torch.zeros(tris.shape[0], dtype=torch.bool,
                                device=o.device)
     pops = clusters = 0
-    for s in range(0, n, step):
+    for s in range(0, o.shape[0], step):
         nr, cr, pp, cc = footprint(o[s:s + step], d[s:s + step],
                                    tm[s:s + step], nodes, tris)
         node_rows |= nr
         cluster_rows |= cr
         pops += int(pp.sum())
         clusters += int(cc.sum())
-    live = int((tm > 0).sum())
-    rays_in = ray_bytes(tm, live) if live_rays_only else _nbytes(o, d, tm)
     n_bytes = (rays_in + int(node_rows.sum()) * 4 * nodes.shape[1]
                + int(cluster_rows.sum()) * 4 * tris.shape[1]
                + out_bytes * n)

@@ -1,8 +1,10 @@
 """Time and profile the slice on one CUDA device.
 
     python -m tracerboy_tpu_torch.utils.profile_slice [--out DIR]
+        [--scene SCENE]
 
-"shadertoy" at 1280x720 (on the path the environment selects: TB_CUT=1
+--scene (default "shadertoy"; any name load_scene takes, such as a .pbrt
+file) at 1280x720 (on the path the environment selects: TB_CUT=1
 and/or TB_BINNED=1 profile the cut or binned slice): after a warm-up
 render_sample(1) and
 render_sample(8), REPS timed calls of each (host clock around work that ends
@@ -16,7 +18,9 @@ path's selection and dense kernels each a class of their own), each
 traversal kernel launch in order (closest hit and any hit alternate, one
 pair per bounce on the default path; the HEATMAP view's primary wave is
 closest_hit_stats) and, printed as lines after the card's name, the
-closest-hit and any-hit time of each bounce with their sums. Then
+closest-hit and any-hit time of each bounce with their sums (in a scene
+with alpha cutouts each closest-hit launch, main wave, re-fire or shadow
+round, opens a row of its own: there is no any-hit launch). Then
 "shadertoy:cornell" at 512x512 on the brute-force path, and RealTime mode
 on "shadertoy" at 1280x720: REPS timed frames of
 render_realtime_frame_fused after three warm-up frames, and the same
@@ -150,6 +154,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path,
                     default=REPO_ROOT / "build" / "profile")
+    ap.add_argument("--scene", default="shadertoy",
+                    help="the scene of the first cell (load_scene name)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
@@ -159,8 +165,8 @@ def main(argv=None):
     for module in (traverse, cut, binned):
         module.build_kernels()
 
-    res = dict(card=card)
-    r = Renderer("shadertoy", film_size=(1280, 720), device="cuda")
+    res = dict(card=card, scene=args.scene)
+    r = Renderer(args.scene, film_size=(1280, 720), device="cuda")
     r.render_sample(1)
     r.render_sample(8)
     cell = {}
@@ -179,7 +185,7 @@ def main(argv=None):
     cell["peak_gib_render_sample_8"] = (torch.cuda.max_memory_allocated()
                                         / 2**30)
     cell["current_image_s"] = _quartiles(_timed(r.current_image, 5))
-    res["shadertoy_1280x720"] = cell
+    res["slice_1280x720"] = cell
 
     from torch.profiler import ProfilerActivity, profile
 
