@@ -115,7 +115,20 @@ Phases, each fatal on failure:
      lanes miss, 0 overflows) and timed beside its bound;
      render_sample(8) through the Renderer and its peak memory; path
      parity on the textured scene at 128x72; a line of seconds a phase;
- 16. a JSON line of the seven kernels (launches from the run of the path
+ 16. instanced PBRT scenes (utils/demo_scene.py write_forest_scene:
+     a height field, 64 trees (16,128 triangles, TGA texture) in clusters
+     of overlapping instance boxes, 24 rocks (6,080, BMP texture) and an
+     emissive panel, instanced: 1,178,114 triangles flattened, so the
+     compiler keeps a TLAS): CLI runs at 1280x720, one 4-sample wave, of
+     forest.pbrt (which must compile to a TLAS), of its --export-pbf
+     .pbf (read back flat; its radiance against the TLAS render's under
+     TLAS_PARITY), and of the tree alone as .glb and .obj; every
+     closest-hit launch of the TLAS run tagged (main, and the BLAS
+     launches by pass, round and object), held against the plain
+     version on at most CHECK_LANES live lanes and timed beside its
+     bound; s a sample, Mrays/s, peak memory and geometry bytes of the
+     TLAS and flat renders; a line of seconds a phase;
+ 17. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it), then the
      result line {"ok": true, "device": {...}} last.
@@ -1800,14 +1813,14 @@ def tag_closest_launches(nodes_seq, shadow_kind):
     return kinds
 
 
-def textured_launch_check(calls, kinds, rng):
+def textured_launch_check(calls, kinds, rng, chunk=1 << 20):
     """Each recorded closest-hit launch (o, d, t_max, nodes, tris_bw)
     through the kernel, held against closest_hit_plain on at most
     CHECK_LANES of its live lanes (check_closest's TOLERANCE;
     dead lanes must miss), timed on the card alone (time_runs,
     ahead=True) beside its bound (bench_traverse.walk_bound of the walk
-    of every lane, live rays only, counted in chunks of 2^20 rays); sums
-    by kind."""
+    of every lane, live rays only, counted in chunks of `chunk` rays);
+    sums by kind."""
     from tracerboy_tpu_torch.trace import kernels, traverse
     from tracerboy_tpu_torch.utils.bench_traverse import (
         time_runs,
@@ -1831,7 +1844,7 @@ def textured_launch_check(calls, kinds, rng):
             o.device, ahead=True)))
         b_ms, b_by, _, _ = walk_bound(
             o, d, tm, nodes, tris, traverse.walk_footprint, 16,
-            chunk=1 << 20, live_rays_only=True)
+            chunk=chunk, live_rays_only=True)
         row = by_kind.setdefault(kind, dict(
             launches=0, lanes=0, live=0, checked=0, ms=0.0, bound_ms=0.0,
             bound_by=[], hit_mismatch=0,
@@ -2068,6 +2081,263 @@ def textured_runs(torch, Renderer, tmp):
     return results, total
 
 
+# tests/test_instanced.py's rule for a TLAS render against the flat one.
+TLAS_PARITY = dict(rtol=1e-3, atol=5e-3, share=0.98)
+
+
+def expand_launch(rec):
+    """A recorded launch (lanes, live lane ids, their o, d, t_max, nodes,
+    tris_bw) back at its full width: dead lanes get t_max 0, a zero origin
+    and a unit direction (a dead lane walks nothing)."""
+    import torch
+
+    n, live, o, d, tm, nodes, tris = rec
+    dev = o.device
+    full_o = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    full_d = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    full_t = torch.zeros((n,), dtype=torch.float32, device=dev)
+    full_o[live], full_d[live], full_t[live] = o, d, tm
+    return full_o, full_d, full_t, nodes, tris
+
+
+def tag_instanced_launches(records, scene, names):
+    """Kinds of a TLAS wave's closest-hit launches: "main" on the flat
+    scene's BVH, and each BLAS launch "<pass>_r<round>_<object>": the pass
+    "closest" where its group of launches (one an object a round) follows
+    a main launch (the instanced hit merged into the bounce's closest
+    hit), "occluder" where it does not (the instanced occluders of a
+    shadow wave)."""
+    from tracerboy_tpu_torch.trace import instanced
+
+    objs = {o["packed"]["nodes"].data_ptr(): k
+            for k, o in enumerate(scene["inst_objs"])}
+    n_obj = len(objs)
+    k_eff = min(instanced.KI * instanced.ROUNDS, scene["inst_obj"].shape[0])
+    group = -(-k_eff // instanced.KI) * n_obj
+    kinds, j, pass_kind, prev = [], 0, None, None
+    for rec in records:
+        ptr = rec[5].data_ptr()
+        if ptr not in objs:
+            if ptr != scene["pk_nodes"].data_ptr():
+                fail(f"instanced run: a closest-hit launch on tables "
+                     f"{ptr:#x}, neither the flat BVH nor an object's")
+            kinds.append("main")
+            j, prev = 0, "main"
+            continue
+        if j % group == 0:
+            pass_kind = "closest" if prev == "main" else "occluder"
+        kinds.append(f"{pass_kind}_r{j % group // n_obj}_{names[objs[ptr]]}")
+        j, prev = j + 1, "blas"
+    return kinds
+
+
+def geometry_bytes(scene) -> int:
+    """Bytes of the geometry tables a render holds: every pk_, bn_, tri and
+    bvh leaf and the objects' packed tables (tests/test_instanced.py's
+    count)."""
+    import torch
+
+    total, stack = 0, [v for k, v in scene.items()
+                       if k.startswith(("pk_", "bn_", "tri", "bvh"))
+                       or k == "inst_objs"]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, list):
+            stack.extend(x)
+        elif isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+    return total
+
+
+def instanced_phase(torch):
+    """instanced_runs in a temporary directory that is removed after it."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="tb_inst_") as tmp:
+        return instanced_runs(torch, tmp)
+
+
+def instanced_runs(torch, tmp):
+    """The instanced PBRT scene of utils/demo_scene.py (forest.pbrt: a
+    131,072-triangle height field; 64 instances of a 16,128-triangle tree
+    with a TGA texture in clusters of overlapping boxes, 24 of a
+    6,080-triangle rock with a BMP texture, one emissive panel; 1,178,114
+    triangles flattened, so "auto" keeps a TLAS) and the tree alone as
+    .glb and .obj. CLI runs at 1280x720, 4 spp (one wave): (1) forest.pbrt,
+    which must compile to a TLAS, every closest-hit launch recorded (the
+    live lanes only); (2) --export-pbf, then (3) the .pbf, which reads
+    back flat, its radiance against (1)'s under TLAS_PARITY; (4) tree.glb
+    and (5) tree.obj. Each must write its PNG and finite EXR (the PNGs read
+    back in [0, 1]), launch kernel 1 and overflow no stack. Then (1)'s
+    launches tagged (tag_instanced_launches) and held against the plain
+    version on at most CHECK_LANES live lanes each, timed beside their
+    bound (textured_launch_check). Returns (results, launches)."""
+    from tracerboy_tpu_torch import renderer as renderer_mod
+    from tracerboy_tpu_torch.app import cli
+    from tracerboy_tpu_torch.core import image_io
+    from tracerboy_tpu_torch.trace import kernels, traverse
+    from tracerboy_tpu_torch.utils.demo_scene import (
+        write_forest_scene,
+        write_mesh_scenes,
+    )
+
+    set_opt_in()
+    results = {}
+    t0 = time.perf_counter()
+    forest = write_forest_scene(os.path.join(tmp, "forest"))
+    meshes = write_mesh_scenes(os.path.join(tmp, "meshes"))
+    results["write_s"] = time.perf_counter() - t0
+    with open(forest) as f:
+        names = sorted(line.split('"')[1] for line in f
+                       if line.strip().startswith("ObjectBegin"))
+    size = f"{FULL_WAVE[0]}x{FULL_WAVE[1]}"
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    real_closest = traverse.closest_hit
+    real_init = renderer_mod.Renderer.__init__
+    built = []
+
+    def capturing_init(self, *args, **kwargs):
+        real_init(self, *args, **kwargs)
+        built.append(self)
+
+    def run(name, scene, record=None):
+        out = os.path.join(tmp, f"{name}.png")
+        exr = os.path.join(tmp, f"{name}.exr")
+
+        def recording(o, d, t_max, nodes, tris_bw, roots=None):
+            if roots is not None:
+                fail(f"instanced {name}: a launch with per-ray roots")
+            live = torch.nonzero(t_max > 0)[:, 0]
+            record.append((o.shape[0], live, o[live], d[live], t_max[live],
+                           nodes, tris_bw))
+            return real_closest(o, d, t_max, nodes, tris_bw)
+
+        kernels.reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        built.clear()
+        renderer_mod.Renderer.__init__ = capturing_init
+        if record is not None:
+            traverse.closest_hit = recording
+        last = {}
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main([scene, "--size", size, "--spp", "4", "--out", out,
+                           "--hdr-out", exr, "--quiet"], stats=last)
+        finally:
+            traverse.closest_hit = real_closest
+            renderer_mod.Renderer.__init__ = real_init
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        overflow = kernels.stack_overflows()
+        if rc != 0 or len(built) != 1:
+            fail(f"instanced CLI {name}: exit {rc}, {len(built)} renderers")
+        mean = check_cli_outputs(f"instanced {name}", out, exr)
+        check_image(f"instanced {name}", image_io.read_ldr(out))
+        if launches["closest"] <= 0 or overflow or last["spp"] != 4:
+            fail(f"instanced CLI {name}: launches {launches}, {overflow} "
+                 f"stack overflows, {last['spp']} samples")
+        for k, v in launches.items():
+            total[k] += v
+        r = built[0]
+        res = dict(seconds=time.perf_counter() - t0,
+                   render_seconds=last["seconds"], spp=last["spp"],
+                   s_per_sample=last["seconds"] / last["spp"],
+                   mrays_s=last["rays_traced"] / last["seconds"] / 1e6,
+                   radiance_mean=mean, launches=launches,
+                   stack_overflows=overflow,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   triangles=int(r.compiled.num_tris),
+                   has_instances=bool(r.compiled.has_instances),
+                   geometry_bytes=geometry_bytes(r.scene),
+                   recorded_gib=sum(nbytes(*c[1:5]) for c in record) / 2**30
+                   if record is not None else 0.0)
+        print(f"instanced CLI {name}:", json.dumps(res))
+        results[name] = res
+        return res, r, exr
+
+    records = []
+    tlas, r_tlas, tlas_exr = run("forest", forest, record=records)
+    cfg = r_tlas.wave_config()
+    if not (r_tlas.compiled.has_instances and cfg.has_instances
+            and r_tlas.traversal == "kernel"):
+        fail(f"forest: not a TLAS render ({cfg})")
+    tables = r_tlas.compiled.inst_tables
+    results["forest_scene"] = dict(
+        flat_triangles=int(r_tlas.compiled.num_tris),
+        instances=int(tables["inst_obj"].shape[0]),
+        objects=names,
+        object_rows=[int(o["attrs"].shape[0])
+                     for o in r_tlas.compiled.inst_objects],
+        instanced_triangles_flattened=int(sum(
+            len(r_tlas.compiled.inst_objects[k]["verts"])
+            for k in tables["inst_obj"])))
+    print("forest scene:", json.dumps(results["forest_scene"]))
+    scene_tlas = r_tlas.scene
+    del r_tlas
+
+    pbf = os.path.join(tmp, "forest", "forest.pbf")
+    if cli.main([forest, "--export-pbf", pbf]) != 0 or not os.path.exists(
+            pbf):
+        fail("forest: --export-pbf wrote nothing")
+    flat, r_flat, flat_exr = run("forest_pbf", pbf)
+    if r_flat.compiled.has_instances:
+        fail("forest.pbf: read back with instances (read_pbf flattens)")
+    del r_flat
+    a = image_io.read_exr_rgb(tlas_exr)
+    b = image_io.read_exr_rgb(flat_exr)
+    share = float(np.isclose(a, b, rtol=TLAS_PARITY["rtol"],
+                             atol=TLAS_PARITY["atol"]).mean())
+    results["tlas_vs_pbf"] = dict(
+        close_share=share, tlas_s_per_sample=tlas["s_per_sample"],
+        flat_s_per_sample=flat["s_per_sample"],
+        tlas_mrays_s=tlas["mrays_s"], flat_mrays_s=flat["mrays_s"],
+        tlas_peak_gib=tlas["peak_gib"], flat_peak_gib=flat["peak_gib"],
+        tlas_geometry_bytes=tlas["geometry_bytes"],
+        flat_geometry_bytes=flat["geometry_bytes"],
+        geometry_ratio=tlas["geometry_bytes"] / flat["geometry_bytes"])
+    print("forest TLAS vs .pbf (flat):", json.dumps(results["tlas_vs_pbf"]))
+    if share <= TLAS_PARITY["share"]:
+        fail(f"forest: the TLAS and .pbf renders agree on {share:.4f} of "
+             f"the values, at most {TLAS_PARITY['share']}")
+
+    for kind in ("glb", "obj"):
+        run(f"tree_{kind}", meshes[kind])
+
+    rng = np.random.default_rng(20261018)
+    kinds = tag_instanced_launches(records, scene_tlas, names)
+    t0 = time.perf_counter()
+    # Chunks of 2^22 rays: each launch's live lanes in one walk (its steps,
+    # not its rays, set the walk's time).
+    by_kind, bad = textured_launch_check(
+        (expand_launch(rec) for rec in records), kinds, rng, chunk=1 << 22)
+    results["check_s"] = time.perf_counter() - t0
+    del records, scene_tlas
+    torch.cuda.empty_cache()
+    print(f"forest closest-hit launches by kind "
+          f"({results['check_s']:.1f} s):", json.dumps(by_kind))
+    if bad:
+        fail(f"forest launches disagree with the plain version: {bad}")
+    blas = [row for kind, row in by_kind.items() if kind != "main"]
+    if not blas or "main" not in by_kind:
+        fail(f"forest: launch kinds {sorted(by_kind)}")
+    checked = sum(r["checked"] for r in by_kind.values())
+    outside = sum(r["id_mismatch_outside_ties"] for r in by_kind.values())
+    if outside > TOLERANCE["id_mismatch_frac"] * checked:
+        fail(f"forest launches: {outside} id mismatches outside ties in "
+             f"{checked} checked lanes")
+    results["kinds"] = by_kind
+    results["blas"] = {key: sum(r[key] for r in blas) for key in (
+        "launches", "lanes", "live", "checked", "ms", "bound_ms",
+        "hit_mismatch", "id_mismatch_outside_ties", "ties", "overflows")}
+    results["blas"]["live_share"] = (results["blas"]["live"]
+                                     / max(results["blas"]["lanes"], 1))
+    results["blas"]["max_abs_err"] = max(r["max_abs_err"] for r in blas)
+    print("forest BLAS launches:", json.dumps(results["blas"]))
+    return results, total
+
+
 def main() -> int:
     print(card_line())
     import torch
@@ -2257,13 +2527,19 @@ def main() -> int:
     tex_kinds = tex_res["kinds"]
     tex_par = tex_res["parity_launches"]
     lap("textured")
+
+    # --- instanced PBRT scenes (TLAS/BLAS), .pbf, OBJ/glTF, TGA/BMP --------
+    inst_res, inst_launches = instanced_phase(torch)
+    inst_blas = inst_res["blas"]
+    lap("instanced")
     print("phase seconds:", json.dumps(laps))
 
     def by_path(key):
         return {"default": launches[key], "cut": cut_launches[key],
                 "binned": bn_launches[key], "study": study_launches[key],
                 "realtime": rt_launches[key], "cli": cli_launches[key],
-                "textured": tex_launches[key]}
+                "textured": tex_launches[key],
+                "instanced": inst_launches[key]}
 
     trav = "tracerboy_tpu_torch/csrc/bvh_traverse.cu"
     bsrc = "tracerboy_tpu_torch/csrc/binned.cu"
@@ -2280,11 +2556,13 @@ def main() -> int:
              launches_by_path=by_path("closest"),
              max_abs_err=max(s["max_abs_err"] for s in
                              [st_c, st_c2, un_c, *roots_c, env_closest,
-                              *tex_kinds.values()]),
+                              *tex_kinds.values(),
+                              *inst_res["kinds"].values()]),
              id_mismatch_outside_ties=sum(
                  s["id_mismatch_outside_ties"]
                  for s in [st_c, st_c2, un_c, *roots_c, env_closest,
-                           *tex_kinds.values()]),
+                           *tex_kinds.values(),
+                           *inst_res["kinds"].values()]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
              unordered_ms=un_times["closest_ms"],
              unordered_plain_ms=un_times["closest_plain_ms"],
@@ -2306,7 +2584,22 @@ def main() -> int:
                      "max_rel_t_err", "overflows")}
                  for kind, row in tex_kinds.items()},
              textured_load=tex_res["load"],
-             textured_render_sample8=tex_res["render_sample8"]),
+             textured_render_sample8=tex_res["render_sample8"],
+             blas_launches=inst_blas["launches"], blas_ms=inst_blas["ms"],
+             blas_bound_ms=inst_blas["bound_ms"],
+             blas_live_share=inst_blas["live_share"],
+             blas_checked=inst_blas["checked"],
+             blas_id_mismatch_outside_ties=inst_blas[
+                 "id_mismatch_outside_ties"],
+             blas_ties=inst_blas["ties"],
+             blas_overflows=inst_blas["overflows"],
+             instanced_kinds={
+                 kind: {key: row[key] for key in (
+                     "launches", "lanes", "live", "live_share", "checked",
+                     "ms", "bound_ms", "hit_mismatch",
+                     "id_mismatch_outside_ties", "ties", "overflows")}
+                 for kind, row in inst_res["kinds"].items()},
+             forest=inst_res["tlas_vs_pbf"]),
         dict(name="closest_hit_stats", route="cuda", source=trav,
              replaces="tracerboy_tpu/trace/pallas_traverse2.py:754 "
                       "(stats=True)",

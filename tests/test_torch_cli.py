@@ -184,13 +184,36 @@ def test_denoiser_needs_the_archive(tiny_scene, tmp_path):
     (["--upscale", "fsr"], "item 19"),
     (["--shard", "tiles"], "item 21"),
     (["--devices", "2"], "item 21"),
-    (["--export-pbf", "x.pbf"], "item 22b"),
 ])
 def test_unported_flags_raise(tiny_scene, tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         cli.main([tiny_scene, "--device", "cpu", "--out",
                   str(tmp_path / "o.png"), *flags])
     assert not (tmp_path / "o.png").exists()
+
+
+def test_export_pbf_matches_the_jax_cli(tiny_scene, tmp_path, capsys):
+    """--export-pbf writes the JAX CLI's bytes and exits 0 without a
+    render; the port's CLI renders the .pbf as it renders the scene file
+    (the radiance bound of test_render_matches_the_jax_cli)."""
+    from test_torch_instanced import write
+
+    for i, scene in enumerate((tiny_scene, write(tmp_path, "two_objects"))):
+        port, ref = tmp_path / f"port{i}.pbf", tmp_path / f"jax{i}.pbf"
+        assert cli.main([scene, "--export-pbf", str(port),
+                         "--out", str(tmp_path / "none.png")]) == 0
+        assert f"wrote {port}" in capsys.readouterr().out
+        assert _jax_main([scene, "--export-pbf", str(ref)]) == 0
+        assert port.read_bytes() == ref.read_bytes()
+        assert not (tmp_path / "none.png").exists()
+    port = tmp_path / "port0.pbf"
+    common = ["--spp", "2", "--size", "32x24", "--quiet", "--device", "cpu"]
+    cli.main([tiny_scene, *common, "--out", str(tmp_path / "a.png"),
+              "--hdr-out", str(tmp_path / "a.exr")])
+    cli.main([str(port), *common, "--out", str(tmp_path / "b.png"),
+              "--hdr-out", str(tmp_path / "b.exr")])
+    assert_radiance_close(image_io.read_exr_rgb(str(tmp_path / "b.exr")),
+                          image_io.read_exr_rgb(str(tmp_path / "a.exr")))
 
 
 @pytest.mark.parametrize("first,second", [("jax", "port"), ("port", "jax")])

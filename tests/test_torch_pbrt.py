@@ -281,12 +281,21 @@ def test_missing_env_map_warns_and_shades_white(tmp_path):
 
 
 @pytest.mark.parametrize("what,item", [
-    ("instances", "item 15"), ("medium", "item 14"),
+    ("instances", "22b"), ("medium", "item 14"),
     ("png_map", "22b"), ("image_texture", "22b")])
 def test_unported_pbrt_features_raise(tmp_path, what, item):
-    if what in ("instances", "medium"):
-        path = write_scene(tmp_path, extra=INSTANCES if what == "instances"
-                           else MEDIUM)
+    if what == "instances":
+        # Instances load now (tests/test_torch_instanced.py); a JPEG
+        # texture inside an instanced object does not.
+        (tmp_path / "wood.jpg").write_bytes(b"\xff\xd8\xff\xe0")
+        extra = INSTANCES.replace(
+            'Material "matte" "rgb Kd" [ 0.5 0.5 0.5 ]',
+            'Texture "wood" "spectrum" "imagemap" "string filename" '
+            '[ "wood.jpg" ]\n  Material "matte" "texture Kd" "wood"')
+        assert extra != INSTANCES
+        path = write_scene(tmp_path, extra=extra)
+    elif what == "medium":
+        path = write_scene(tmp_path, extra=MEDIUM)
     elif what == "png_map":
         # PNG maps load now (tests/test_torch_textures.py); JPEG does not.
         path = write_scene(tmp_path, lights=("infinite",), mapname="")

@@ -96,8 +96,27 @@ def test_benchmark_scene_takes_the_kernel_path():
 
 @pytest.mark.parametrize("path", ["scene.pbf", "mesh.obj", "cache.npz"])
 def test_unported_scene_files_raise(path, tmp_path):
-    """.pbf and OBJ are not ported; a .npz scene loads now, unless it
-    holds a volume (tests/test_torch_scene_cache.py has the rest)."""
+    """.pbf, OBJ and .npz scenes load now (tests/test_torch_pbf.py,
+    test_torch_mesh_import.py, test_torch_scene_cache.py); one with a
+    JPEG texture, or a cache that holds a volume, is still refused."""
+    (tmp_path / "wood.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
+    if path.endswith(".obj"):
+        (tmp_path / "m.mtl").write_text("newmtl wood\nmap_Kd wood.jpg\n")
+        (tmp_path / path).write_text(
+            "mtllib m.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\nvt 0 0\nvt 1 0\n"
+            "vt 0 1\nusemtl wood\nf 1/1 2/2 3/3\n")
+        path = str(tmp_path / path)
+    elif path.endswith(".pbf"):
+        from tracerboy_tpu_torch.scene import types as ir
+        from tracerboy_tpu_torch.scene.pbf import write_pbf
+        from tracerboy_tpu_torch.scene.procedural import _cornell_scene
+
+        scene = _cornell_scene()
+        scene.textures["img"] = ir.TextureIR(name="img", type="imagemap",
+                                             filename="wood.jpg")
+        scene.materials["wall"].map_kd = "img"
+        write_pbf(str(tmp_path / path), scene)
+        path = str(tmp_path / path)
     if path.endswith(".npz"):
         from tracerboy_tpu_torch.scene.compile import save_compiled
 
@@ -122,6 +141,8 @@ def test_import_leaves_jax_out():
             "from tracerboy_tpu_torch.core import image_io, piz\n"
             "from tracerboy_tpu_torch.utils import checkpoint, demo_scene\n"
             "from tracerboy_tpu_torch.scene import compile, textures\n"
+            "from tracerboy_tpu_torch.scene import pbf, mesh_import\n"
+            "from tracerboy_tpu_torch.trace import instanced\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith('jax.')\n"
             "             or m.startswith('tracerboy_tpu.')\n"
@@ -147,7 +168,22 @@ def test_unported_scene_features_raise(feature, tmp_path):
 
     s = _cornell_scene()
     if feature == "instance":
+        # Instanced scenes compile now (tests/test_torch_instanced.py);
+        # an instanced object with a JPEG texture does not.
+        (tmp_path / "wood.jpg").write_bytes(b"\xff\xd8\xff\xe0")
+        s.base_dir = str(tmp_path)
+        s.textures["img"] = ir.TextureIR(name="img", type="imagemap",
+                                         filename="wood.jpg")
+        s.materials["inst"] = ir.MaterialIR(name="inst", type="matte",
+                                            map_kd="img")
+        s.objects["x"] = ir.ObjectIR(name="x", shapes=[ir.TriangleMeshIR(
+            indices=np.array([[0, 1, 2]], np.int32),
+            positions=np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]],
+                               np.float32),
+            uvs=np.zeros((3, 2), np.float32), material="inst")])
         s.instances.append(ir.InstanceIR(object_name="x"))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            compile_scene(s, instancing="tlas")
     elif feature == "volume":
         s.volume = object()
     elif feature == "light":

@@ -158,6 +158,24 @@ def test_cache_path_beside_a_writable_scene(tmp_path):
     assert port_compile._cache_path(path) == _cache_of(path)
 
 
+def test_cache_path_keeps_the_reference_checkout_rule(tmp_path,
+                                                      monkeypatch):
+    """With every directory writable, a scene under the reference checkout
+    still caches under $TB_SCENE_CACHE (the JAX rule), and a scene
+    elsewhere beside itself; both packages give the same paths."""
+    monkeypatch.setattr(os, "access", lambda p, mode: True)
+    monkeypatch.setenv("TB_SCENE_CACHE", str(tmp_path / "cache"))
+    ref_scene = os.path.join(port_compile.REFERENCE_CHECKOUT, "Scenes",
+                             "cornell-box", "scene.pbrt")
+    scratch = str(tmp_path / "scene.pbrt")
+    for path in (ref_scene, scratch):
+        assert port_compile._cache_path(path) == jax_compile._cache_path(
+            path)
+    assert port_compile._cache_path(ref_scene).startswith(
+        str(tmp_path / "cache"))
+    assert port_compile._cache_path(scratch) == _cache_of(scratch)
+
+
 def test_volume_cache_is_refused(tmp_path):
     path = write_textured_scene(tmp_path)
     cs = load_scene(path, use_cache=False)

@@ -7,6 +7,7 @@ Usage:
   python -m tracerboy_tpu_torch.app.cli SCENE.pbrt --spp 64 --out out.png
   python -m tracerboy_tpu_torch.app.cli SCENE.pbrt --mode realtime --frames 30
   python -m tracerboy_tpu_torch.app.cli SCENE.pbrt --device cpu --size 32x24
+  python -m tracerboy_tpu_torch.app.cli SCENE.pbrt --export-pbf SCENE.pbf
 
 The flags are the JAX CLI's, plus two of the port's own: --device (the
 renderer's torch device, default cuda; the CPU runs the kernels' plain
@@ -26,8 +27,8 @@ import time
 def build_parser():
     p = argparse.ArgumentParser(prog="tracerboy-tpu-torch",
                                 description=__doc__)
-    p.add_argument("scene", help=".pbrt scene file, .npz compiled cache "
-                   "or shadertoy[:name]")
+    p.add_argument("scene", help=".pbrt, .pbf, .obj, .stl, .gltf or .glb "
+                   "scene file, .npz compiled cache or shadertoy[:name]")
     p.add_argument("--out", default="out.png", help="output image path")
     p.add_argument("--spp", type=int, default=None,
                    help="sample target (default: settings/sampler)")
@@ -92,7 +93,8 @@ def build_parser():
                    help="number of devices for --shard: not ported yet")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--export-pbf", default=None, metavar="OUT.pbf",
-                   help="not ported yet (raises)")
+                   help="serialize the parsed scene as a .pbf binary "
+                        "(the reference's fast-load cache format) and exit")
     p.add_argument("--device", default="cuda",
                    help="torch device of the renderer (cuda or cpu)")
     p.add_argument("--quiet", "-q", action="store_true")
@@ -104,8 +106,6 @@ _UNPORTED_FLAGS = (
     ("volume", "--volume", "Queue 1: item 14, volumes"),
     ("upscale", "--upscale", "Queue 1: item 19, ml/superres.py, ml/fsr.py"),
     ("devices", "--devices", "Queue 1: item 21, parallel/sharding.py"),
-    ("export_pbf", "--export-pbf",
-     "Queue 1: item 22b, the other scene and image files, scene/pbf.py"),
 )
 
 
@@ -172,6 +172,13 @@ def main(argv=None, stats: dict | None = None):
     parser = build_parser()
     args = parser.parse_args(argv)
     _refuse_unported(args)
+    if args.export_pbf:
+        from tracerboy_tpu_torch.scene.pbf import write_pbf
+        from tracerboy_tpu_torch.scene.pbrt_parser import parse_pbrt
+
+        write_pbf(args.export_pbf, parse_pbrt(args.scene))
+        print(f"wrote {args.export_pbf}")
+        return 0
     if args.denoiser != "none" and not args.archive:
         parser.error(f"--denoiser {args.denoiser} needs --archive PATH.tza "
                      "(the model's OIDN weights)")

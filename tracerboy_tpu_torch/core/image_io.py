@@ -13,8 +13,13 @@ Formats:
 - PNG: read by read_png (every colour type and bit depth, palettes,
   Adam7; row filters undone by csrc/png_unfilter.cpp) and converted as
   the JAX read_ldr's PIL calls convert it; written by write_png (8-bit
-  gray/RGB/RGBA, filter 0, one zlib stream). JPEG, TGA and BMP raise
-  NotImplementedError.
+  gray/RGB/RGBA, filter 0, one zlib stream).
+- TGA (read_tga: uncompressed and RLE; 8-bit grey or colour-mapped,
+  24- and 32-bit; either origin) and BMP (read_bmp: 8-bit palette, 24-
+  and 32-bit, bottom-up and top-down, the bit-field layouts PIL reads),
+  converted as PIL converts them; write_tga and write_bmp write the
+  uncompressed files the demo scenes need. Each format is recognised by
+  its header, as PIL recognises it. JPEG raises NotImplementedError.
 - Radiance HDR (RGBE, RLE): from the published file format spec.
 - PFM: trivial float format (the reference renames .pfm -> .hdr as a hack;
   we read it natively).
@@ -39,17 +44,28 @@ import numpy as np
 def read_ldr(path: str, gamma_to_linear: bool = False) -> np.ndarray:
     """Read an LDR image to float32 RGB(A) in [0,1]: the values the JAX
     read_ldr gets through PIL (grey and palette images become RGB, grey
-    with alpha RGBA, 16-bit samples keep their high byte, 16-bit grey is
-    clipped at 255, a tRNS chunk is ignored). PNG only, recognised by its
-    signature as PIL recognises it."""
+    with alpha RGBA; PNG: 16-bit samples keep their high byte, 16-bit
+    grey is clipped at 255, a tRNS chunk is ignored; BMP: 32-bit pixels
+    without an alpha mask lose their fourth byte). PNG, BMP and TGA,
+    recognised by their headers as PIL recognises them."""
     with open(path, "rb") as f:
-        head = f.read(len(PNG_SIGNATURE))
-    if head != PNG_SIGNATURE:
+        data = f.read()
+    if data.startswith(PNG_SIGNATURE):
+        arr = png_to_8bit(*read_png(path))
+    elif data.startswith(b"BM"):
+        arr = read_bmp(data, path)
+    elif data.startswith(b"\xff\xd8\xff"):
         raise NotImplementedError(
-            f"{path}: only PNG is read; JPEG, TGA and BMP are not ported "
-            "yet (ROADMAP.md, Queue 1: item 22b, the other scene and image "
-            "files)")
-    arr = png_to_8bit(*read_png(path)).astype(np.float32) / 255.0
+            f"{path}: JPEG is not ported yet (ROADMAP.md, Queue 1: item "
+            "22b, the other scene and image files: a JPEG decoder)")
+    elif _tga_header(data) is not None:
+        arr = read_tga(data, path)
+    else:
+        raise NotImplementedError(
+            f"{path}: not a PNG, BMP or TGA file; other image formats are "
+            "not ported yet (ROADMAP.md, Queue 1: item 22b, the other "
+            "scene and image files)")
+    arr = arr.astype(np.float32) / 255.0
     if gamma_to_linear:
         arr = arr.copy()
         arr[..., :3] = np.power(arr[..., :3], 2.2)
@@ -218,10 +234,7 @@ def write_png(path: str, img: np.ndarray) -> None:
     """Write a float image in [0,1] (H, W), (H, W, 3|4) or uint8 as an
     8-bit PNG, quantised as the JAX package does (clip, then x*255+0.5
     truncated): IHDR, one IDAT of filter-0 rows, IEND."""
-    img = np.asarray(img)
-    if img.dtype != np.uint8:
-        img = np.clip(img, 0.0, 1.0)
-        img = (img * 255.0 + 0.5).astype(np.uint8)
+    img = _to_uint8(img)
     if img.ndim == 2:
         img = img[..., None]
     h, w, c = img.shape
@@ -235,6 +248,212 @@ def write_png(path: str, img: np.ndarray) -> None:
         f.write(png_chunk(b"IHDR", ihdr))
         f.write(png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
         f.write(png_chunk(b"IEND", b""))
+
+
+# ----------------------------------------------------------------------------
+# TGA and BMP (the readers follow PIL's TgaImagePlugin and BmpImagePlugin)
+
+# (image type & 7, bits a pixel) -> PIL mode of the decoded pixels.
+_TGA_MODES = {(1, 8): "P", (3, 8): "L", (2, 24): "RGB", (2, 32): "RGBA"}
+
+
+def _tga_header(data: bytes):
+    """The header fields of a TGA file, or None where PIL would not take
+    the file for one (TGA has no signature: PIL checks these fields)."""
+    if len(data) < 18:
+        return None
+    cmap_type, image_type, depth = data[1], data[2], data[16]
+    width, height = struct.unpack_from("<HH", data, 12)
+    if (cmap_type not in (0, 1) or width <= 0 or height <= 0
+            or depth not in (1, 8, 16, 24, 32)
+            or image_type not in (1, 2, 3, 9, 10, 11)
+            or data[17] & 0x30 not in (0x00, 0x10, 0x20, 0x30)):
+        return None
+    return dict(id_len=data[0], cmap_type=cmap_type, image_type=image_type,
+                cmap=struct.unpack_from("<HHB", data, 3), width=width,
+                height=height, depth=depth, flags=data[17])
+
+
+def _unsupported(path, what):
+    return NotImplementedError(
+        f"{path}: {what} is not ported yet (ROADMAP.md, Queue 1: item 22b, "
+        "the other scene and image files)")
+
+
+def _tga_rle(data: bytes, pos: int, n_pixels: int, bpp: int, path: str):
+    """The pixel bytes of an RLE TGA: packets of a run (one pixel repeated)
+    or of raw pixels, which may span rows."""
+    out = bytearray()
+    need = n_pixels * bpp
+    while len(out) < need:
+        if pos >= len(data):
+            raise ValueError(f"{path}: truncated RLE TGA data")
+        head = data[pos]
+        count = (head & 0x7F) + 1
+        if head & 0x80:
+            out += data[pos + 1:pos + 1 + bpp] * count
+            pos += 1 + bpp
+        else:
+            out += data[pos + 1:pos + 1 + count * bpp]
+            pos += 1 + count * bpp
+    return bytes(out[:need])
+
+
+def read_tga(data: bytes, path: str = "<tga>") -> np.ndarray:
+    """A TGA file's pixels as PIL gives them after read_ldr's convert:
+    (H, W, 3) uint8, or (H, W, 4) for 32-bit files."""
+    h = _tga_header(data)
+    if h is None:
+        raise ValueError(f"{path}: not a TGA file")
+    mode = _TGA_MODES.get((h["image_type"] & 7, h["depth"]))
+    if mode is None or (mode == "P" and not h["cmap_type"]):
+        raise _unsupported(path, f"TGA image type {h['image_type']} at "
+                           f"{h['depth']} bits a pixel")
+    pos = 18 + h["id_len"]
+    palette = None
+    if h["cmap_type"]:
+        start, size, cdepth = h["cmap"]
+        if cdepth not in (24, 32):
+            raise _unsupported(path, f"a {cdepth}-bit TGA colour map")
+        nb = cdepth // 8
+        entries = np.frombuffer(data, np.uint8, size * nb, pos).reshape(
+            size, nb)
+        pos += size * nb
+        palette = np.zeros((max(256, start + size), 3), np.uint8)
+        palette[start:start + size] = entries[:, 2::-1]       # BGR -> RGB
+    w, ht, bpp = h["width"], h["height"], h["depth"] // 8
+    if h["image_type"] & 8:
+        raw = _tga_rle(data, pos, w * ht, bpp, path)
+    else:
+        raw = data[pos:pos + w * ht * bpp]
+        if len(raw) < w * ht * bpp:
+            raise ValueError(f"{path}: truncated TGA data")
+    px = np.frombuffer(raw, np.uint8).reshape(ht, w, bpp)
+    if not h["flags"] & 0x20:          # origin at the bottom
+        px = px[::-1]
+    if h["flags"] & 0x10:              # origin at the right
+        px = px[:, ::-1]
+    if mode == "P":
+        return palette[px[..., 0]]
+    if mode == "L":
+        return np.repeat(px, 3, axis=2)
+    return np.ascontiguousarray(px[..., [2, 1, 0, 3][:bpp]])   # BGR(A)
+
+
+def write_tga(path: str, img: np.ndarray) -> None:
+    """Write a float image in [0,1] or uint8, (H, W, 3|4), as an
+    uncompressed 24- or 32-bit TGA with its origin at the bottom left."""
+    img = _to_uint8(img)
+    h, w, c = img.shape
+    if c not in (3, 4):
+        raise ValueError(f"TGA needs 3 or 4 channels, got {c}")
+    header = struct.pack("<BBBHHBHHHHBB", 0, 0, 2, 0, 0, 0, 0, 0, w, h,
+                         8 * c, 8 if c == 4 else 0)
+    with open(path, "wb") as f:
+        f.write(header + np.ascontiguousarray(
+            img[::-1][..., [2, 1, 0, 3][:c]]).tobytes())
+
+
+# 32-bit BMP bit-field masks (r, g, b, a) PIL reads -> byte of R, G, B
+# (and A) in the little-endian pixel; all-zero masks read as BGRA.
+_BMP_MASKS32 = {
+    (0xFF0000, 0xFF00, 0xFF, 0x0): (2, 1, 0),
+    (0xFF000000, 0xFF0000, 0xFF00, 0x0): (3, 2, 1),
+    (0xFF000000, 0xFF00, 0xFF, 0x0): (3, 1, 0),
+    (0xFF000000, 0xFF0000, 0xFF00, 0xFF): (3, 2, 1, 0),
+    (0xFF, 0xFF00, 0xFF0000, 0xFF000000): (0, 1, 2, 3),
+    (0xFF0000, 0xFF00, 0xFF, 0xFF000000): (2, 1, 0, 3),
+    (0xFF000000, 0xFF00, 0xFF, 0xFF0000): (3, 1, 0, 2),
+    (0x0, 0x0, 0x0, 0x0): (2, 1, 0, 3),
+}
+
+
+def read_bmp(data: bytes, path: str = "<bmp>") -> np.ndarray:
+    """A BMP file's pixels as PIL gives them after read_ldr's convert:
+    (H, W, 3) uint8, or (H, W, 4) where the bit-field masks carry alpha.
+    8-bit palette, 24- and 32-bit, uncompressed or bit-field, bottom-up
+    or top-down."""
+    if not data.startswith(b"BM") or len(data) < 26:
+        raise ValueError(f"{path}: not a BMP file")
+    offset, hsize = struct.unpack_from("<II", data, 10)
+    head = data[18:14 + hsize]
+    pos = 14 + hsize
+    if hsize == 12:
+        w, ht, _, bits = struct.unpack_from("<HHHH", head, 0)
+        top_down, compression, colors, pad = False, 0, 0, 3
+    elif hsize in (40, 52, 56, 64, 108, 124):
+        top_down = head[7] == 0xFF
+        w, ht = struct.unpack_from("<iI", head, 0)
+        if top_down:
+            ht = 2**32 - ht
+        bits, compression = struct.unpack_from("<HI", head, 10)
+        colors = struct.unpack_from("<I", head, 28)[0]
+        pad = 4
+    else:
+        raise _unsupported(path, f"a BMP header of {hsize} bytes")
+    colors = colors or (1 << bits)
+    if offset == 14 + hsize and bits <= 8:
+        offset += 4 * colors
+    if bits not in (8, 24, 32):
+        raise _unsupported(path, f"a {bits}-bit BMP")
+    order = (2, 1, 0)                  # BGR(X)
+    if compression == 3:               # bit fields
+        if len(head) >= 48:
+            masks = struct.unpack_from("<IIII" if len(head) >= 52
+                                       else "<III", head, 36)
+        else:
+            masks = struct.unpack_from("<III", data, pos)
+        masks = tuple(masks) + (0,) * (4 - len(masks))
+        if bits == 32 and masks in _BMP_MASKS32:
+            order = _BMP_MASKS32[masks]
+        elif not (bits == 24 and masks[:3] == (0xFF0000, 0xFF00, 0xFF)):
+            raise _unsupported(path, f"the BMP bit fields {masks}")
+    elif compression != 0:
+        raise _unsupported(path, f"BMP compression {compression}")
+    stride = ((w * bits + 31) >> 3) & ~3
+    rows = np.frombuffer(data, np.uint8, stride * ht, offset).reshape(
+        ht, stride)
+    if not top_down:
+        rows = rows[::-1]
+    if bits == 8:
+        pal = np.frombuffer(data, np.uint8, pad * colors, pos).reshape(
+            colors, pad)
+        idx = rows[:, :w]
+        ramp = (0, 255) if colors == 2 else range(colors)
+        if all((pal[i, :3] == v).all() for i, v in enumerate(ramp)):
+            return np.repeat(idx[..., None], 3, axis=2)    # grey ramp: L
+        table = np.zeros((256, 3), np.uint8)
+        table[:min(colors, 256)] = pal[:256, 2::-1]
+        return table[idx]
+    px = rows[:, :w * bits // 8].reshape(ht, w, bits // 8)
+    return np.ascontiguousarray(px[..., list(order)])
+
+
+def write_bmp(path: str, img: np.ndarray) -> None:
+    """Write a float image in [0,1] or uint8, (H, W, 3), as a 24-bit
+    bottom-up BMP (what PIL writes for an RGB image)."""
+    img = _to_uint8(img)
+    h, w, c = img.shape
+    if c != 3:
+        raise ValueError(f"BMP needs 3 channels, got {c}")
+    stride = (w * 3 + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = img[::-1][..., ::-1].reshape(h, w * 3)
+    ppm = int(96 * 39.3701 + 0.5)
+    with open(path, "wb") as f:
+        f.write(b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54))
+        f.write(struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size,
+                            ppm, ppm, 0, 0))
+        f.write(rows.tobytes())
+
+
+def _to_uint8(img) -> np.ndarray:
+    """A float image in [0,1] as write_png quantises it (clip, then
+    x*255+0.5 truncated); uint8 as it is."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        img = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    return img
 
 
 # ----------------------------------------------------------------------------

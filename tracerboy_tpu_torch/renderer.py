@@ -25,8 +25,10 @@ kernels above; TB_TRAVERSAL=brute|pallas|jnp overrides it under the JAX
 package's names (pallas = the kernels, jnp = the wide traversal in plain
 torch, the portable oracle).
 
-Sharding, adaptive sampling in Unbiased mode and the splat fold are not
-ported yet.
+TLAS-instanced scenes animate through update_instance_transforms.
+Sharding, adaptive sampling in Unbiased mode, the splat fold and the
+geometry updates that rebuild a BVH on the device (update_geometry,
+update_object_geometry) are not ported yet.
 """
 
 from __future__ import annotations
@@ -145,11 +147,13 @@ class Renderer:
     @staticmethod
     def _pick_traversal(scene: CompiledScene) -> str:
         """Brute force for tiny scenes (no traversal beats testing every
-        triangle there), the traversal kernels otherwise; TB_TRAVERSAL =
-        brute | pallas | jnp overrides it."""
+        triangle there), the traversal kernels otherwise and on every TLAS
+        scene; TB_TRAVERSAL = brute | pallas | jnp overrides it."""
         forced = os.environ.get("TB_TRAVERSAL")
         if forced in TRAVERSAL_NAMES:
             return TRAVERSAL_NAMES[forced]
+        if scene.has_instances:
+            return "kernel"     # the TLAS/BLAS path walks packed BVHs
         if scene.tri_v0.shape[0] <= BRUTE_FORCE_MAX_TRIS:
             return "brute"
         return "kernel"
@@ -243,6 +247,7 @@ class Renderer:
             has_image_tex=bool((ttype == 0).any()),
             has_scale_tex=bool((ttype == 2).any()),
             has_alpha=bool((mats["alpha_tex"] >= 0).any()),
+            has_instances=self.compiled.has_instances,
             has_normal_maps=bool(perf.enable_normal_maps
                                  and (mats["normal_tex"] >= 0).any()),
             transparent_shadows=perf.transparent_shadows,
@@ -271,6 +276,78 @@ class Renderer:
         return (os.environ.get("TB_BINNED") == "1"
                 and self.traversal in PACKED_BACKENDS
                 and "bn_nodes" in self.scene)
+
+    def update_geometry(self, v0, v1, v2, normals=None):
+        """Replace the flat triangles' vertices (the JAX method, with the
+        BVH rebuilt on the device) is not ported yet (ROADMAP.md, Queue 1:
+        item 16, accel/bvh_device.py). TLAS scenes refuse it in both
+        packages: they animate through update_instance_transforms."""
+        if self.compiled.has_instances:
+            raise NotImplementedError(
+                "update_geometry: use update_instance_transforms / "
+                "update_object_geometry on TLAS-instanced scenes")
+        raise NotImplementedError(
+            "update_geometry is not ported yet (ROADMAP.md, Queue 1: item "
+            "16, accel/bvh_device.py)")
+
+    def _refresh_instance_tables(self):
+        """Push the host instance tables to the device and refresh the
+        world bounds over the flat triangles and the instance boxes."""
+        it = self.compiled.inst_tables
+        for k in ("inst_obj", "inst_inv", "inst_lo", "inst_hi"):
+            self.scene[k] = torch.from_numpy(
+                np.ascontiguousarray(it[k])).to(self.device)
+        c = self.compiled
+        flo = np.minimum(np.minimum(c.tri_v0, c.tri_v1), c.tri_v2).min(0)
+        fhi = np.maximum(np.maximum(c.tri_v0, c.tri_v1), c.tri_v2).max(0)
+        for key, v in (
+                ("world_lo", np.minimum(flo, it["inst_lo"].min(0))),
+                ("world_hi", np.maximum(fhi, it["inst_hi"].max(0)))):
+            self.scene[key] = torch.from_numpy(
+                v.astype(np.float32)).to(self.device)
+        self.invalidate_history()
+
+    def update_instance_transforms(self, transforms):
+        """Animate the TLAS: replace every instance's world<-object
+        transform and refit its box (the reference's per-frame top-level
+        rebuild, TracerBoy.cpp:1963-2026). The BLASes are untouched.
+
+        transforms: (I, 4, 4) world<-object matrices in instance order."""
+        if not self.compiled.has_instances:
+            raise ValueError("scene has no TLAS instances")
+        it = self.compiled.inst_tables
+        M = np.asarray(transforms, np.float64)
+        n_inst = it["inst_obj"].shape[0]
+        if M.shape != (n_inst, 4, 4):
+            raise ValueError(
+                f"expected ({n_inst}, 4, 4) transforms, got {M.shape}")
+        objs = self.compiled.inst_objects
+        inv_rows = np.empty((n_inst, 12), np.float32)
+        lo_rows = np.empty((n_inst, 3), np.float32)
+        hi_rows = np.empty((n_inst, 3), np.float32)
+        for i in range(n_inst):
+            inv_rows[i] = np.linalg.inv(M[i])[:3, :4].reshape(12).astype(
+                np.float32)
+            o = objs[int(it["inst_obj"][i])]
+            lo, hi = o["lo"], o["hi"]
+            corners = np.array([[x, y, z] for x in (lo[0], hi[0])
+                                for y in (lo[1], hi[1])
+                                for z in (lo[2], hi[2])])
+            wc = corners @ M[i, :3, :3].T + M[i, :3, 3]
+            lo_rows[i] = wc.min(0)
+            hi_rows[i] = wc.max(0)
+        it["inst_inv"] = inv_rows
+        it["inst_lo"] = lo_rows
+        it["inst_hi"] = hi_rows
+        self._refresh_instance_tables()
+
+    def update_object_geometry(self, obj_index: int, v0, v1, v2):
+        """Deform one instanced object and rebuild its BLAS on the device
+        (the JAX method) is not ported yet: it needs the on-device BVH
+        build (ROADMAP.md, Queue 1: item 16, accel/bvh_device.py)."""
+        raise NotImplementedError(
+            "update_object_geometry is not ported yet (ROADMAP.md, Queue 1: "
+            "item 16, accel/bvh_device.py)")
 
     def frame_params(self, fixed_offset=None) -> dict:
         """The wave's per-frame parameters; fixed_offset: every lane's

@@ -11,14 +11,21 @@ order for kernel hit ids.
 
 load_scene takes the procedural scenes, PBRT files (scene/pbrt_parser.py,
 with PLY meshes, spheres, curves, image and noise textures, and infinite,
-distant and point lights; environment maps from .png/.hdr/.pfm/.exr) and
-compiled .npz scenes. It keeps the JAX package's .npz cache: a compiled
-PBRT file is saved as <scene>.tbcache.npz beside it (or under
-$TB_SCENE_CACHE when its directory is read-only) in the JAX file format,
-key for key, so a cache written by either package loads in the other.
-What the port does not have yet raises NotImplementedError naming its
-ROADMAP.md item: instanced scenes (15), volumes (14), OBJ/STL/glTF and
-.pbf files (22b).
+distant and point lights; environment maps from .png/.hdr/.pfm/.exr),
+OBJ/STL/glTF/.glb meshes (scene/mesh_import.py), the reference's binary
+.pbf scenes (scene/pbf.py) and compiled .npz scenes. It keeps the JAX
+package's .npz cache: a compiled scene file is saved as
+<scene>.tbcache.npz beside it (or under $TB_SCENE_CACHE when its
+directory is read-only or under the reference checkout) in the JAX file
+format, key for key, so a cache written by either package loads in the
+other; TLAS scenes are not cached.
+
+Instanced scenes (ObjectBegin / ObjectInstance) compile as the JAX
+package compiles them (compile_scene's `instancing`): flattened into the
+triangle soup, or as a two-level TLAS/BLAS, one packed BVH per unique
+object and a row of transforms and bounds per instance, traversed by
+trace/instanced.py. Volumes raise NotImplementedError naming their
+ROADMAP.md item (14).
 """
 
 from __future__ import annotations
@@ -42,6 +49,10 @@ from tracerboy_tpu_torch.scene.textures import TextureAllocator
 from tracerboy_tpu_torch.trace.camera import Camera
 
 LEAF_SIZE = 4
+# The reference TracerBoy checkout that SURVEY.md cites: scenes under it
+# cache under $TB_SCENE_CACHE, never beside themselves, as in the JAX
+# package's _cache_path.
+REFERENCE_CHECKOUT = "/root/reference"
 
 
 @dataclass
@@ -85,10 +96,21 @@ class CompiledScene:
     max_depth: int
     blue_noise0: np.ndarray      # (256, 256, 4) in [0,1)
     blue_noise1: np.ndarray
+    # TLAS/BLAS instancing (trace/instanced.py): instanced objects are not
+    # flattened; memory scales with the unique geometry.
+    inst_tables: dict = None     # inst_obj / inst_inv / inst_lo / inst_hi
+    inst_objects: list = None    # per object: packed tables, packed and
+                                 # topology-order attribute rows, vertices,
+                                 # object-space bounds
+    inst_world_lo: np.ndarray = None
+    inst_world_hi: np.ndarray = None
 
-    # Instancing and volumes are not ported (compile_scene raises).
-    has_instances = False
+    # Volumes are not ported (compile_scene raises).
     has_volume = False
+
+    @property
+    def has_instances(self) -> bool:
+        return self.inst_tables is not None
 
     def as_numpy(self) -> dict:
         """The leaves of the JAX package's as_pytree(pack_pallas=True),
@@ -132,8 +154,31 @@ class CompiledScene:
             [em, em[:, x1], em[y1], em[y1][:, x1]], axis=2
         ).reshape(-1, 12)
 
+        packed = self.packed_tables(tri_attr_rows)
+        world_lo = np.minimum(
+            np.minimum(self.tri_v0, self.tri_v1), self.tri_v2).min(axis=0)
+        world_hi = np.maximum(
+            np.maximum(self.tri_v0, self.tri_v1), self.tri_v2).max(axis=0)
+        if self.has_instances:
+            # The objects' packed-order attribute rows follow the flat
+            # scene's: one id space for per-hit fetches (instanced_closest
+            # returns ids offset by each object's base).
+            base = packed["pk_attr_rows"].shape[0]
+            packed["pk_attr_rows"] = np.concatenate(
+                [packed["pk_attr_rows"],
+                 *(o["attrs"] for o in self.inst_objects)])
+            packed.update(self.inst_tables)
+            objs = []
+            for o in self.inst_objects:
+                objs.append(dict(packed=dict(nodes=o["packed"]["nodes"],
+                                             tris_bw=o["packed"]["tris_bw"]),
+                                 base=np.int32(base)))
+                base += o["attrs"].shape[0]
+            packed["inst_objs"] = objs
+            world_lo = np.minimum(world_lo, self.inst_world_lo)
+            world_hi = np.maximum(world_hi, self.inst_world_hi)
         leaves = dict(
-            **self.packed_tables(tri_attr_rows),
+            **packed,
             tri9=tri9,
             tri_attr_t=tri_attr_t,
             tri_attr_rows=tri_attr_rows,
@@ -142,12 +187,8 @@ class CompiledScene:
             env_b=env_flat[:, 2],
             blue0_t=self.blue_noise0.reshape(-1, 4).T.copy(),
             blue1_t=self.blue_noise1.reshape(-1, 4).T.copy(),
-            world_lo=np.minimum(
-                np.minimum(self.tri_v0, self.tri_v1), self.tri_v2
-            ).min(axis=0).astype(np.float32),
-            world_hi=np.maximum(
-                np.maximum(self.tri_v0, self.tri_v1), self.tri_v2
-            ).max(axis=0).astype(np.float32),
+            world_lo=world_lo.astype(np.float32),
+            world_hi=world_hi.astype(np.float32),
             tri_v0=self.tri_v0, tri_v1=self.tri_v1, tri_v2=self.tri_v2,
             tri_n0=self.tri_n0, tri_n1=self.tri_n1, tri_n2=self.tri_n2,
             tri_uv0=self.tri_uv0, tri_uv1=self.tri_uv1,
@@ -238,6 +279,8 @@ def _canonical(x):
     """numpy leaves with JAX's default dtypes (no 64-bit types)."""
     if isinstance(x, dict):
         return {k: _canonical(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_canonical(v) for v in x]
     a = np.asarray(x)
     if a.dtype == np.float64:
         a = a.astype(np.float32)
@@ -252,19 +295,17 @@ def from_jax_pytree(d: dict, device="cuda") -> dict:
     """Scene tensors from a dict of numpy arrays: either as_numpy() of the
     port's CompiledScene, or np.asarray of every leaf of the JAX package's
     CompiledScene.as_pytree(pack_pallas=True). Nested dicts (materials,
-    lights, tex_records, camera) stay nested."""
-    out = {}
-    for k, v in d.items():
+    lights, tex_records, camera) stay nested, and so does a TLAS scene's
+    inst_objs list (one dict of packed tables and base a unique object)."""
+    def convert(v):
         if isinstance(v, dict):
-            out[k] = from_jax_pytree(v, device)
-        elif isinstance(v, (list, tuple)):
-            raise NotImplementedError(
-                f"scene leaf {k!r}: instanced scenes are not ported yet "
-                "(ROADMAP.md, Queue 1: item 15, trace/instanced.py)")
-        else:
-            a = np.array(_canonical(v), order="C", copy=True)
-            out[k] = torch.from_numpy(a).to(device)
-    return out
+            return from_jax_pytree(v, device)
+        if isinstance(v, (list, tuple)):
+            return [convert(x) for x in v]
+        a = np.array(_canonical(v), order="C", copy=True)
+        return torch.from_numpy(a).to(device)
+
+    return {k: convert(v) for k, v in d.items()}
 
 
 def _transform_mesh(mesh: ir.TriangleMeshIR):
@@ -317,8 +358,9 @@ def _place(pos, nrm0, M):
 
 def _shape_to_tris(shape, scene, table, tex_alloc, material_lookup):
     """One shape -> (tri_pos (t,3,3), tri_nrm, tri_uv, mat_id, emission)
-    in world space; None for a shape type the compiler does not know (the
-    JAX package skips those too)."""
+    in the shape's transform frame (world space for flattened shapes,
+    object space for TLAS objects); None for a shape type the compiler
+    does not know (the JAX package skips those too)."""
     emission = getattr(shape, "emission", None)
     mat_ir = scene.materials.get(shape.material)
     alpha_tex = getattr(shape, "alpha_texture", None)
@@ -358,6 +400,26 @@ def _shape_to_tris(shape, scene, table, tex_alloc, material_lookup):
             tri_uv.astype(np.float32), mat_id, emission)
 
 
+def _attr_rows_np(tri_pos, tri_nrm, tri_uv, tri_mat):
+    """(T, 19) attribute rows: normals (9), uvs (6), material (1), tangent
+    (3), the layout of as_numpy's tri_attr tables."""
+    v0, v1, v2 = tri_pos[:, 0], tri_pos[:, 1], tri_pos[:, 2]
+    e1 = v1 - v0
+    e2 = v2 - v0
+    d1 = tri_uv[:, 1] - tri_uv[:, 0]
+    d2 = tri_uv[:, 2] - tri_uv[:, 0]
+    det = d1[:, 0] * d2[:, 1] - d1[:, 1] * d2[:, 0]
+    bad = np.abs(det) < 1e-12
+    tan = e1 * d2[:, 1:2] - e2 * d1[:, 1:2]
+    tan = np.where(bad[:, None], e1, tan / np.where(bad, 1.0, det)[:, None])
+    tan = tan / np.maximum(np.linalg.norm(tan, axis=1, keepdims=True), 1e-12)
+    return np.concatenate(
+        [tri_nrm[:, 0], tri_nrm[:, 1], tri_nrm[:, 2], tri_uv.reshape(-1, 6),
+         tri_mat[:, None].astype(np.float32), tan],
+        axis=1,
+    ).astype(np.float32)
+
+
 def _light_record(p0, p1, p2, n, color, area):
     """One area-light triangle (ltype 0)."""
     return dict(
@@ -367,14 +429,38 @@ def _light_record(p0, p1, p2, n, color, area):
     )
 
 
+def _box_corners(lo, hi):
+    return np.array([[x, y, z] for x in (lo[0], hi[0])
+                     for y in (lo[1], hi[1]) for z in (lo[2], hi[2])])
+
+
+def _flat_instanced_tris(scene: ir.SceneIR) -> int:
+    """Triangles the instances would add to a flattened soup (a sphere or
+    curve counts 2048, the JAX package's estimate)."""
+    total = 0
+    for inst in scene.instances:
+        obj = scene.objects.get(inst.object_name)
+        if obj is None:
+            continue
+        for shp in obj.shapes:
+            if getattr(shp, "indices", None) is not None:
+                total += len(shp.indices)
+            else:
+                total += 2048
+    return total
+
+
 def compile_scene(scene: ir.SceneIR, leaf_size: int = LEAF_SIZE,
-                  film_size: tuple | None = None) -> CompiledScene:
-    """Flatten a SceneIR into BVH-ordered triangle tables (the JAX
-    package's compile_scene with instancing "flatten")."""
-    if scene.instances:
-        raise NotImplementedError(
-            "instanced scenes are not ported yet (ROADMAP.md, Queue 1: "
-            "item 15, trace/instanced.py)")
+                  film_size: tuple | None = None,
+                  instancing: str = "auto") -> CompiledScene:
+    """Compile a SceneIR into BVH-ordered triangle tables (the JAX
+    package's compile_scene).
+
+    instancing: "flatten" composes every instance into the flat triangle
+    soup; "tlas" keeps one BLAS per unique object and a per-instance
+    transform table (TracerBoy.cpp:1305-1410); "auto" takes the TLAS only
+    with at least 16 instances and 1M flattened instanced triangles, the
+    JAX package's rule."""
     if getattr(scene, "volume", None) is not None:
         raise NotImplementedError(
             "volumes are not ported yet (ROADMAP.md, Queue 1: item 14, "
@@ -385,9 +471,21 @@ def compile_scene(scene: ir.SceneIR, leaf_size: int = LEAF_SIZE,
     def material_lookup(name):
         return scene.materials.get(name)
 
+    use_tlas = instancing == "tlas" or (
+        instancing == "auto" and len(scene.instances) >= 16
+        and _flat_instanced_tris(scene) >= 1_000_000)
+
     v_chunks, n_chunks, uv_chunks, mat_chunks = [], [], [], []
     light_records = []
-    for shape in scene.shapes:
+
+    def add_light_records(tri_pos, tri_nrm, emission):
+        for k in range(len(tri_pos)):
+            p0, p1, p2 = tri_pos[k]
+            area = 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0))
+            light_records.append(_light_record(
+                p0, p1, p2, tri_nrm[k], emission, area))
+
+    for shape in scene.shapes if use_tlas else scene.all_shapes():
         r = _shape_to_tris(shape, scene, table, tex_alloc, material_lookup)
         if r is None:
             continue
@@ -397,13 +495,19 @@ def compile_scene(scene: ir.SceneIR, leaf_size: int = LEAF_SIZE,
         uv_chunks.append(tri_uv)
         mat_chunks.append(np.full(len(tri_pos), mat_id, np.int32))
         if emission is not None and np.mean(emission) > 0:
-            for k in range(len(tri_pos)):
-                p0, p1, p2 = tri_pos[k]
-                area = 0.5 * np.linalg.norm(np.cross(p1 - p0, p2 - p0))
-                light_records.append(_light_record(
-                    p0, p1, p2, tri_nrm[k], emission, area))
+            add_light_records(tri_pos, tri_nrm, emission)
+
+    inst = (_compile_instances(scene, table, tex_alloc, material_lookup,
+                               add_light_records)
+            if use_tlas else {})
     if not v_chunks:
-        raise ValueError("scene contains no supported geometry")
+        if not inst:
+            raise ValueError("scene contains no supported geometry")
+        # All geometry is instanced: one degenerate flat triangle.
+        v_chunks = [np.zeros((1, 3, 3), np.float32)]
+        n_chunks = [np.zeros((1, 3, 3), np.float32)]
+        uv_chunks = [np.zeros((1, 3, 2), np.float32)]
+        mat_chunks = [np.zeros(1, np.int32)]
 
     tri_pos = np.concatenate(v_chunks)     # (T, 3, 3)
     tri_nrm = np.concatenate(n_chunks)
@@ -461,6 +565,87 @@ def compile_scene(scene: ir.SceneIR, leaf_size: int = LEAF_SIZE,
         sampler_spp=scene.sampler.pixel_samples,
         max_depth=scene.integrator.max_depth,
         blue_noise0=blue0, blue_noise1=blue1,
+        **inst,
+    )
+
+
+def _compile_instances(scene, table, tex_alloc, material_lookup,
+                       add_light_records) -> dict:
+    """The TLAS/BLAS half of compile_scene (the JAX package's use_tlas
+    branch): world-space light records for the instances' emissive
+    shapes, one packed BLAS with packed-order attribute rows per unique
+    object (objects sorted by name), and a TLAS row per instance: object
+    id, the world->object 3x4 affine, the world box of the object's
+    box. Returns the CompiledScene fields, or {} when no instance names
+    an object with geometry."""
+    import copy
+
+    from tracerboy_tpu_torch.accel.pack import pack_scene
+
+    for inst in scene.instances:
+        obj = scene.objects.get(inst.object_name)
+        if obj is None:
+            continue
+        for shp in obj.shapes:
+            emission = getattr(shp, "emission", None)
+            if emission is None or np.mean(emission) <= 0:
+                continue
+            s2 = copy.copy(shp)
+            s2.transform = inst.transform @ shp.transform
+            r = _shape_to_tris(s2, scene, table, tex_alloc, material_lookup)
+            if r is not None:
+                add_light_records(r[0], r[1], emission)
+
+    names = sorted({i.object_name for i in scene.instances
+                    if i.object_name in scene.objects})
+    objects, obj_index = [], {}
+    for n in names:
+        chunks = [r for r in (
+            _shape_to_tris(shp, scene, table, tex_alloc, material_lookup)
+            for shp in scene.objects[n].shapes) if r is not None]
+        if not chunks:
+            continue
+        tp = np.concatenate([c[0] for c in chunks])
+        tn = np.concatenate([c[1] for c in chunks])
+        tu = np.concatenate([c[2] for c in chunks])
+        tm = np.concatenate([np.full(len(c[0]), c[3], np.int32)
+                             for c in chunks])
+        pk, _ = pack_scene(tp[:, 0], tp[:, 1], tp[:, 2])
+        attrs_topo = _attr_rows_np(tp, tn, tu, tm)
+        obj_index[n] = len(objects)
+        objects.append(dict(
+            packed=dict(nodes=pk["nodes"], tris_bw=pk["tris_bw"]),
+            attrs=attrs_topo[np.clip(pk["tri_map"], 0, len(tp) - 1)],
+            # Topology-order rows, vertices and the object-space box: what
+            # a rebuild of the object's BLAS and a TLAS refit need.
+            attrs_topo=attrs_topo,
+            verts=tp,
+            lo=tp.reshape(-1, 3).min(0),
+            hi=tp.reshape(-1, 3).max(0),
+        ))
+    inst_obj, inst_inv, inst_lo, inst_hi = [], [], [], []
+    for inst in scene.instances:
+        if inst.object_name not in obj_index:
+            continue
+        oi = obj_index[inst.object_name]
+        M = inst.transform
+        inst_obj.append(oi)
+        inst_inv.append(np.linalg.inv(M)[:3, :4].reshape(12).astype(
+            np.float32))
+        wc = (_box_corners(objects[oi]["lo"], objects[oi]["hi"])
+              @ M[:3, :3].T + M[:3, 3])
+        inst_lo.append(wc.min(0).astype(np.float32))
+        inst_hi.append(wc.max(0).astype(np.float32))
+    if not inst_obj:
+        return {}
+    return dict(
+        inst_tables=dict(inst_obj=np.asarray(inst_obj, np.int32),
+                         inst_inv=np.stack(inst_inv),
+                         inst_lo=np.stack(inst_lo),
+                         inst_hi=np.stack(inst_hi)),
+        inst_objects=objects,
+        inst_world_lo=np.stack(inst_lo).min(0),
+        inst_world_hi=np.stack(inst_hi).max(0),
     )
 
 
@@ -626,12 +811,14 @@ def load_scene_async(path: str, use_cache: bool = True, film_size=None,
 
 def _cache_path(path: str) -> str:
     """Where the compiled .npz for `path` lives: `<scene>.tbcache.npz`
-    beside it when the scene directory is writable (the cache travels
-    with the scene, like the reference's .pbf sidecar); otherwise a keyed
-    file under $TB_SCENE_CACHE (default ~/.cache/tracerboy_tpu, the JAX
-    package's), which covers read-only scene checkouts."""
+    beside it when the scene directory is writable and not under the
+    reference checkout (the cache travels with the scene, like the
+    reference's .pbf sidecar); otherwise a keyed file under
+    $TB_SCENE_CACHE (default ~/.cache/tracerboy_tpu, the JAX package's),
+    which covers read-only scene checkouts."""
     scene_dir = os.path.dirname(os.path.abspath(path))
-    if os.access(scene_dir, os.W_OK):
+    if os.access(scene_dir, os.W_OK) and not os.path.abspath(
+            path).startswith(REFERENCE_CHECKOUT):
         return path + ".tbcache.npz"
     import hashlib
 
@@ -653,7 +840,9 @@ def load_scene(path: str, use_cache: bool = True,
     compiled again; an unreadable one is ignored.
 
     "shadertoy" / "shadertoy:<name>" selects a built-in procedural scene
-    (scene/procedural.py); a .npz path is a compiled scene."""
+    (scene/procedural.py); a .npz path is a compiled scene; .obj, .stl,
+    .gltf and .glb are meshes (scene/mesh_import.py), .pbf the reference's
+    binary scene (scene/pbf.py), anything else PBRT text."""
     if path == "shadertoy" or path.startswith("shadertoy:"):
         from tracerboy_tpu_torch.scene.procedural import shadertoy_scene
 
@@ -669,11 +858,6 @@ def load_scene(path: str, use_cache: bool = True,
     ext = os.path.splitext(path)[1].lower()
     if ext == ".npz":
         return with_film(load_compiled(path))
-    if ext in (".obj", ".stl", ".gltf", ".glb", ".pbf"):
-        raise NotImplementedError(
-            f"{path}: OBJ/STL/glTF and .pbf scene files are not ported yet "
-            "(ROADMAP.md, Queue 1: item 22b, the other scene and image "
-            "files)")
     cache = _cache_path(path)
     if use_cache and os.path.exists(cache) and (
             os.path.getmtime(cache) >= os.path.getmtime(path)):
@@ -682,10 +866,22 @@ def load_scene(path: str, use_cache: bool = True,
         except (OSError, EOFError, ValueError, KeyError,
                 zipfile.BadZipFile):
             pass        # unreadable cache: compile again
-    from tracerboy_tpu_torch.scene.pbrt_parser import parse_pbrt
+    if ext in (".obj", ".stl", ".gltf", ".glb"):
+        from tracerboy_tpu_torch.scene.mesh_import import import_mesh_scene
 
-    cs = compile_scene(parse_pbrt(path))
-    if use_cache:
+        scene_ir = import_mesh_scene(path)
+    elif ext == ".pbf":
+        from tracerboy_tpu_torch.scene.pbf import read_pbf
+
+        scene_ir = read_pbf(path)
+    else:
+        from tracerboy_tpu_torch.scene.pbrt_parser import parse_pbrt
+
+        scene_ir = parse_pbrt(path)
+    cs = compile_scene(scene_ir)
+    # TLAS scenes skip the cache: their per-object tables are not part of
+    # the flat-array format.
+    if use_cache and not cs.has_instances:
         try:
             os.makedirs(os.path.dirname(cache), exist_ok=True)
             save_compiled(cache, cs)

@@ -501,7 +501,7 @@ def _stack_walk(o, d, t_max, nodes, tris_bw, any_hit=False, seen=None,
     box = nodes[:, :48].contiguous().view(torch.float32)
     child = nodes[:, 48:56]
     slot = torch.arange(LEAF, device=dev)[None, :]
-    overflow = 0
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
     while True:
         act = (sp > 0).nonzero(as_tuple=True)[0]
         if act.numel() == 0:
@@ -560,13 +560,14 @@ def _stack_walk(o, d, t_max, nodes, tris_bw, any_hit=False, seen=None,
         for k in range(LEAF):
             want = k < n_push
             room = want & (sp[r] < STACK_DEPTH)
-            overflow += int((want & ~room).sum())
+            overflow += (want & ~room).sum()
             rr = r[room]
             stack[rr, sp[rr]] = push_id[room, k]
             stack_t[rr, sp[rr]] = push_t[room, k]
             sp[rr] += 1
         if held is not None:
             torch.maximum(held, sp, out=held)
+    overflow = int(overflow)
     if overflow:
         kernels.add_overflows(dev, overflow)
     t = torch.where(best_tri < 0, BIG, best)

@@ -18,6 +18,12 @@ WaveConfig.transparent_shadows runs the same march and lets glass pass
 light with a Fresnel factor (_shadow_transmittance). Normal maps
 (has_normal_maps) tilt the detail normal (shade/surface.apply_normal_map).
 
+TLAS-instanced scenes (WaveConfig.has_instances, packed backends only)
+merge trace/instanced.py's closest hit into every closest-hit wave (the
+alpha re-fires included), carry the hit instance to shading, which
+rotates the object-space normal into world space, and OR the instanced
+occluders into every shadow wave, as the JAX wave does.
+
 Every stage mirrors its JAX counterpart line for line, so a wave can be
 held against the JAX package's wave on the same inputs. Bounce 0 and the
 later bounces run in one Python loop; intermediates of a bounce are
@@ -83,6 +89,7 @@ from tracerboy_tpu_torch.shade.surface import (
 )
 from tracerboy_tpu_torch.trace import binned, cut, traverse
 from tracerboy_tpu_torch.trace.camera import generate_primary_rays_soa
+from tracerboy_tpu_torch.trace.instanced import instanced_closest
 from tracerboy_tpu_torch.trace.intersect import (
     BIG,
     brute_force_anyhit_soa,
@@ -139,16 +146,16 @@ class WaveConfig:
     # Transmissive shadow rays (_shadow_transmittance).
     transparent_shadows: bool = False
     has_normal_maps: bool = False
+    # TLAS/BLAS instancing (trace/instanced.py).
+    has_instances: bool = False
     # Not ported yet:
     filter_splat: bool = False
     split_early: int = -1
-    has_instances: bool = False
     has_volume: bool = False
 
 
 _UNPORTED = {
     "filter_splat": "ROADMAP.md, Queue 1: render_wave_merged splat fold",
-    "has_instances": "ROADMAP.md, Queue 1: item 15, trace/instanced.py",
     "has_volume": "ROADMAP.md, Queue 1: item 14, shade/volumetric.py",
 }
 
@@ -166,6 +173,9 @@ def _check_supported(cfg: WaveConfig, params: dict):
                          "STREAM_ENV_NEE_X bound it)")
     if cfg.traversal not in ("brute", "wide") + PACKED_BACKENDS:
         raise ValueError(f"unknown traversal backend {cfg.traversal!r}")
+    if cfg.has_instances and cfg.traversal not in PACKED_BACKENDS:
+        raise ValueError("TLAS instancing needs a packed backend (the "
+                         "objects' BVHs are packed tables)")
 
 
 def _closest(scene, o, d, t_max, cfg, primary=False, cost_lanes=0,
@@ -264,17 +274,46 @@ def _alpha_at_hit(scene, tri, u, v, attr_key="tri_attr_rows"):
     return torch.where((tri >= 0) & (atex >= 0), a, 1.0)
 
 
+def _instanced(scene, o, d, t_max, cfg):
+    """trace/instanced.py's closest hit of the rays (V3) against the
+    instanced geometry: (t, tri, u, v, inst)."""
+    return instanced_closest(scene, v3.to_rows(o), v3.to_rows(d),
+                             t_max.contiguous(),
+                             plain=cfg.traversal == "twin")
+
+
+def _closest_once(scene, o, d, t_max, cfg, primary=False, cost_lanes=0):
+    """_closest, and on a TLAS scene the instanced closest hit merged in
+    (the JAX _closest_once): (t, tri, u, v, cost, inst), inst the hit
+    instance (-1 for a flat hit or a miss)."""
+    t, tri, u, v, cost = _closest(scene, o, d, t_max, cfg, primary=primary,
+                                  cost_lanes=cost_lanes)
+    inst = torch.full_like(tri, -1)
+    if cfg.has_instances:
+        t2, tri2, u2, v2, in2 = _instanced(scene, o, d,
+                                           torch.minimum(t_max, t), cfg)
+        take = (tri2 >= 0) & (t2 < t)
+        t = torch.where(take, t2, t)
+        tri = torch.where(take, tri2, tri)
+        u = torch.where(take, u2, u)
+        v = torch.where(take, v2, v)
+        inst = torch.where(take, in2, inst)
+        del t2, tri2, u2, v2, in2, take
+    return t, tri, u, v, cost, inst
+
+
 def _closest_dispatch(scene, o, d, t_max, cfg, primary=False,
                       cost_lanes=0):
     """Closest hit with alpha-tested transparency (the JAX
     _closest_dispatch): hits whose alpha is under ALPHA_CUTOFF re-fire
     the whole wave from just past the hit, up to ALPHA_ROUNDS times;
     a re-fire is never a primary wave (on the binned path it takes the
-    binned backend). Returns _closest's tuple with t measured from o."""
-    t, tri, u, v, cost = _closest(scene, o, d, t_max, cfg, primary=primary,
-                                  cost_lanes=cost_lanes)
+    binned backend). Returns _closest_once's tuple with t measured from
+    o."""
+    t, tri, u, v, cost, inst = _closest_once(
+        scene, o, d, t_max, cfg, primary=primary, cost_lanes=cost_lanes)
     if not cfg.has_alpha:
-        return t, tri, u, v, cost
+        return t, tri, u, v, cost, inst
     attr_key = ("pk_attr_rows" if cfg.traversal in PACKED_BACKENDS
                 else "tri_attr_rows")
     o_cur = o
@@ -288,7 +327,7 @@ def _closest_dispatch(scene, o, d, t_max, cfg, primary=False,
         t_base = torch.where(reject, t_base + step, t_base)
         tm2 = torch.where(reject, torch.clamp_min(t_max - t_base, 0.0), 0.0)
         del step
-        t2, tri2, u2, v2, c2 = _closest(
+        t2, tri2, u2, v2, c2, in2 = _closest_once(
             scene, o_cur, d, tm2, cfg,
             cost_lanes=0 if cost is None else cost.shape[0])
         del tm2
@@ -296,10 +335,20 @@ def _closest_dispatch(scene, o, d, t_max, cfg, primary=False,
         tri = torch.where(reject, tri2, tri)
         u = torch.where(reject, u2, u)
         v = torch.where(reject, v2, v)
+        inst = torch.where(reject, in2, inst)
         if cost is not None and c2 is not None:
             cost = cost + torch.where(reject[:cost.shape[0]], c2, 0.0)
-        del t2, tri2, u2, v2, c2, reject
-    return t + t_base, tri, u, v, cost
+        del t2, tri2, u2, v2, c2, in2, reject
+    return t + t_base, tri, u, v, cost, inst
+
+
+def _instanced_occluders(scene, o, d, t_max, cfg):
+    """Lanes whose shadow ray hits instanced geometry (the JAX wave's
+    instanced occluders: conservative, instanced emissive shapes block
+    too; they are not part of the shadow BVH); None on a flat scene."""
+    if not cfg.has_instances:
+        return None
+    return _instanced(scene, o, d, t_max, cfg)[1] >= 0
 
 
 def _occluded_dispatch(scene, o, d, t_max, cfg):
@@ -308,9 +357,12 @@ def _occluded_dispatch(scene, o, d, t_max, cfg):
     occlusion needs hit points to sample alpha, so it marches closest
     hits (over the shadow BVH on the packed backends) for
     ALPHA_ROUNDS + 1 rounds and only opaque hits occlude; brute force
-    and "wide" treat light triangles as pass-through."""
+    and "wide" treat light triangles as pass-through. On a TLAS scene the
+    instanced occluders are OR-ed in."""
+    occ_inst = _instanced_occluders(scene, o, d, t_max, cfg)
     if not cfg.has_alpha:
-        return _occluded(scene, o, d, t_max, cfg)
+        occ = _occluded(scene, o, d, t_max, cfg)
+        return occ if occ_inst is None else occ | occ_inst
     packed = cfg.traversal in PACKED_BACKENDS
     attr_key = "pk_sh_attr_rows" if packed else "tri_attr_rows"
     shadow_opaque = scene["tri_shadow_opaque"]
@@ -335,7 +387,7 @@ def _occluded_dispatch(scene, o, d, t_max, cfg):
         budget = torch.where(reject, torch.clamp_min(t_max - t_base, 0.0),
                              0.0)
         del t, tri, u, v, hit, solid, reject, step
-    return occluded
+    return occluded if occ_inst is None else occluded | occ_inst
 
 
 def _shadow_transmittance(scene, o, d, t_max, cfg):
@@ -396,7 +448,9 @@ def _shadow_transmittance(scene, o, d, t_max, cfg):
         del t, tri, u, v, rows, tric, mid, flags, scat, fres, cos_i, step
     # A surviving pass at the round limit is treated as occluded
     # (conservative, like the alpha loop's bounded re-fires).
-    return torch.where(budget > 0.0, 0.0, T)
+    T = torch.where(budget > 0.0, 0.0, T)
+    occ_inst = _instanced_occluders(scene, o, d, t_max, cfg)
+    return T if occ_inst is None else torch.where(occ_inst, 0.0, T)
 
 
 def _shadow(scene, o, d, t_max, cfg):
@@ -722,7 +776,7 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
 
         # --- traversal ---------------------------------------------------
         t_max = torch.where(alive, BIG, 0.0)
-        t, tri, u, v, cost = _closest_dispatch(
+        t, tri, u, v, cost, hit_inst = _closest_dispatch(
             scene, s["origin"], s["direction"], t_max, cfg, primary=i == 0,
             cost_lanes=na if i == 0 else 0)
         del t_max
@@ -753,6 +807,21 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
             a[1] * w_b + a[4] * u + a[7] * v,
             a[2] * w_b + a[5] * u + a[8] * v,
         ))
+        if cfg.has_instances:
+            # Instanced hits carry object-space normals: into world space
+            # by (M^-1)^T, the columns of the world->object rows. The
+            # normal-map tangent stays unrotated, as in the JAX wave.
+            inv = scene["inst_inv"][torch.clamp_min(hit_inst, 0).long()]
+            rot = v3.normalize(V3(
+                inv[:, 0] * sh_normal.x + inv[:, 4] * sh_normal.y
+                + inv[:, 8] * sh_normal.z,
+                inv[:, 1] * sh_normal.x + inv[:, 5] * sh_normal.y
+                + inv[:, 9] * sh_normal.z,
+                inv[:, 2] * sh_normal.x + inv[:, 6] * sh_normal.y
+                + inv[:, 10] * sh_normal.z))
+            sh_normal = v3.where(hit_inst >= 0, rot, sh_normal)
+            del inv, rot
+        del hit_inst
         uv_u = a[9] * w_b + a[11] * u + a[13] * v
         uv_v = a[10] * w_b + a[12] * u + a[14] * v
         mat_id = torch.round(a[15]).to(torch.int64)

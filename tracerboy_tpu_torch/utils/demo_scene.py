@@ -21,18 +21,41 @@ and a marble sphere, the glass sphere, and the sky as the only light
 (textured.pbrt, so environment NEE is on); textured_lit.pbrt includes it
 and adds a distant light. It returns the paths of both.
 
-The scenes depend on the arguments only (no random numbers). Run as
-  python -m tracerboy_tpu_torch.utils.demo_scene DIR [textured]
+write_forest_scene(directory, grid, sky, trees, rocks, seed) writes
+forest.pbrt: the height field, and two objects in ObjectBegin blocks, a
+"tree" (tree.ply, 16,128 triangles, textured by tree.tga) and a "rock"
+(rock.ply, 6,080 triangles, textured by the BMP rock.bmp), instanced
+`trees` and `rocks` times, rotated and scaled, the trees in clusters of
+overlapping boxes; one instanced emissive "lantern", a flat panel of 2
+triangles facing down (flat, so that it cannot shadow itself: the TLAS
+path, like the JAX one, lets instanced emitters occlude shadow rays);
+the sky. At the defaults (64 trees, 24 rocks) the instances flatten to
+1,178,114 triangles, so the compiler's "auto" rule keeps them as a
+TLAS. The placement is drawn from `seed`.
+
+write_mesh_scenes(directory) writes the tree alone as tree.obj with
+tree.mtl (map_Kd tree.tga), as a binary tree.stl, and as tree.glb, whose
+baseColorTexture is tree.png beside it.
+
+The other scenes depend on the arguments only (no random numbers). Run as
+  python -m tracerboy_tpu_torch.utils.demo_scene DIR [textured|forest|meshes]
 """
 
 from __future__ import annotations
 
+import json
 import os
+import struct
 import textwrap
 
 import numpy as np
 
-from tracerboy_tpu_torch.core.image_io import write_hdr, write_png
+from tracerboy_tpu_torch.core.image_io import (
+    write_bmp,
+    write_hdr,
+    write_png,
+    write_tga,
+)
 
 EXTENT = 12.0     # the ground spans [-EXTENT, EXTENT] in x and z
 
@@ -328,11 +351,283 @@ def write_textured_scene(directory: str, grid: int = 256,
     return paths[0], paths[1]
 
 
+def _lat_long(lat: int, lon: int, radius_fn):
+    """A closed lat-long surface: vertices at (theta, phi) scaled by
+    radius_fn(unit direction) (N, 3) -> (N, 3) positions; returns (pos,
+    uv, quads) with the seam duplicated for the uvs."""
+    th = np.linspace(0.0, np.pi, lat + 1)
+    ph = np.linspace(0.0, 2 * np.pi, lon + 1)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    unit = np.stack([np.sin(T) * np.cos(P), np.cos(T),
+                     np.sin(T) * np.sin(P)], -1).reshape(-1, 3)
+    pos = radius_fn(unit)
+    uv = np.stack([P / (2 * np.pi), 1.0 - T / np.pi], -1).reshape(-1, 2)
+    i, j = np.meshgrid(np.arange(lat), np.arange(lon), indexing="ij")
+    a = (i * (lon + 1) + j).reshape(-1)
+    quads = np.stack([a, a + 1, a + lon + 2, a + lon + 1], -1)
+    return pos, uv, quads
+
+
+def _vertex_normals(pos, tris):
+    """Area-weighted vertex normals of a triangle list."""
+    fn = np.cross(pos[tris[:, 1]] - pos[tris[:, 0]],
+                  pos[tris[:, 2]] - pos[tris[:, 0]])
+    nrm = np.zeros_like(pos)
+    for k in range(3):
+        np.add.at(nrm, tris[:, k], fn)
+    return nrm / np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True),
+                            1e-12)
+
+
+def tree_mesh():
+    """The tree in object space, base at the origin, 4.1 units tall: a
+    crown of 64 x 124 quads on a lumpy ellipsoid over a 16 x 8 quad
+    trunk; uv v in [0, 0.25) is bark, [0.25, 1] leaves (tree_image).
+    Returns (pos, nrm, uv, tris), 16,128 triangles."""
+    def crown(u):
+        bumps = 1.0 + 0.08 * np.sin(7 * u[:, 0] + 3 * u[:, 1]) * np.cos(
+            5 * u[:, 2] - 2 * u[:, 1])
+        return u * bumps[:, None] * [1.1, 1.5, 1.1] + [0.0, 2.6, 0.0]
+
+    cpos, cuv, cq = _lat_long(64, 124, crown)
+    cuv[:, 1] = 0.25 + 0.75 * cuv[:, 1]
+    ang = np.linspace(0, 2 * np.pi, 17)
+    hgt = np.linspace(0.0, 1.6, 9)
+    A, H = np.meshgrid(ang, hgt, indexing="ij")
+    tpos = np.stack([0.15 * np.cos(A), H, 0.15 * np.sin(A)],
+                    -1).reshape(-1, 3)
+    tuv = np.stack([A / (2 * np.pi), 0.25 * H / 1.6], -1).reshape(-1, 2)
+    i, j = np.meshgrid(np.arange(16), np.arange(8), indexing="ij")
+    a = (i * 9 + j).reshape(-1)
+    tq = np.stack([a, a + 1, a + 10, a + 9], -1) + len(cpos)
+    pos = np.concatenate([cpos, tpos])
+    uv = np.concatenate([cuv, tuv])
+    quads = np.concatenate([cq, tq])
+    tris = np.concatenate([quads[:, [0, 1, 2]], quads[:, [0, 2, 3]]])
+    return (pos.astype(np.float32), _vertex_normals(pos, tris).astype(
+        np.float32), uv.astype(np.float32), tris.astype(np.int32))
+
+
+def rock_mesh():
+    """A lumpy boulder of 40 x 76 quads, radius about 0.6, resting on the
+    origin; returns (pos, nrm, uv, tris), 6,080 triangles."""
+    def lumps(u):
+        r = 0.6 * (1.0 + 0.12 * np.sin(5 * u[:, 0]) * np.sin(4 * u[:, 2])
+                   + 0.06 * np.cos(9 * u[:, 1] + 2 * u[:, 0]))
+        return u * r[:, None] * [1.0, 0.7, 1.0] + [0.0, 0.3, 0.0]
+
+    pos, uv, quads = _lat_long(40, 76, lumps)
+    tris = np.concatenate([quads[:, [0, 1, 2]], quads[:, [0, 2, 3]]])
+    return (pos.astype(np.float32), _vertex_normals(pos, tris).astype(
+        np.float32), uv.astype(np.float32), tris.astype(np.int32))
+
+
+def write_tris_ply(path: str, pos, nrm, uv, tris, comment: str) -> None:
+    """A binary little-endian PLY of triangles with normals and uvs."""
+    keys = ("x", "y", "z", "nx", "ny", "nz", "u", "v")
+    table = np.zeros(len(pos), dtype=[(k, "<f4") for k in keys])
+    for k, col in zip(keys, np.concatenate([pos, nrm, uv], 1).T):
+        table[k] = col
+    faces = np.zeros(len(tris), dtype=[("n", "u1"), ("i", "<i4", (3,))])
+    faces["n"] = 3
+    faces["i"] = tris
+    props = "".join(f"property float {k}\n" for k in keys)
+    header = (f"ply\nformat binary_little_endian 1.0\ncomment {comment}\n"
+              f"element vertex {len(pos)}\n{props}element face {len(tris)}\n"
+              "property list uchar int vertex_indices\nend_header\n")
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii") + table.tobytes() + faces.tobytes())
+
+
+def tree_image(size: int) -> np.ndarray:
+    """The tree's albedo: bark below v = 0.25 (rows of the bottom
+    quarter), leaves above, both striped."""
+    t = (np.arange(size) + 0.5) / size
+    v, u = np.meshgrid(1.0 - t, t, indexing="ij")
+    bark = np.stack([0.35 + 0.08 * np.sin(60 * u), 0.22 + 0.05 * np.sin(
+        60 * u), 0.12 + 0 * u], -1)
+    leaf = np.stack([0.12 + 0.1 * np.sin(40 * u + 30 * v) ** 2,
+                     0.35 + 0.2 * np.cos(25 * u - 40 * v) ** 2,
+                     0.08 + 0 * u], -1)
+    return np.where((v < 0.25)[..., None], bark, leaf).clip(0, 1)
+
+
+def rock_image(size: int) -> np.ndarray:
+    """Granite: grey with dark and light speckles on a slow banding."""
+    t = (np.arange(size) + 0.5) / size
+    y, x = np.meshgrid(t, t, indexing="ij")
+    band = 0.45 + 0.1 * np.sin(9 * x + 4 * np.sin(7 * y))
+    speck = 0.12 * np.sign(np.sin(173 * x) * np.sin(157 * y + 3 * x))
+    g = (band + speck).clip(0, 1)
+    return np.stack([g, 0.95 * g, 0.9 * g], -1)
+
+
+def _instance_block(obj: str, pos, yaw: float, scale) -> str:
+    return (f"AttributeBegin\n"
+            f"  Translate {pos[0]:.4f} {pos[1]:.4f} {pos[2]:.4f}\n"
+            f"  Rotate {yaw:.3f} 0 1 0\n"
+            f"  Scale {scale[0]:.4f} {scale[1]:.4f} {scale[2]:.4f}\n"
+            f'  ObjectInstance "{obj}"\n'
+            f"AttributeEnd\n")
+
+
+def write_forest_scene(directory: str, grid: int = 256,
+                       sky: tuple = (512, 256), trees: int = 64,
+                       rocks: int = 24, seed: int = 11) -> str:
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    write_ground_ply(os.path.join(directory, "ground.ply"), grid)
+    write_hdr(os.path.join(directory, "sky.hdr"), sky_image(*sky))
+    write_tris_ply(os.path.join(directory, "tree.ply"), *tree_mesh(),
+                   "tree")
+    write_tris_ply(os.path.join(directory, "rock.ply"), *rock_mesh(),
+                   "rock")
+    write_tga(os.path.join(directory, "tree.tga"), tree_image(256))
+    write_bmp(os.path.join(directory, "rock.bmp"), rock_image(256))
+    # Trees in clusters of 4 whose crowns overlap, so that rays through a
+    # cluster have more than 4 candidate boxes.
+    blocks = []
+    n_clusters = max(1, trees // 4)
+    centres = np.stack([rng.uniform(-10, 10, n_clusters),
+                        rng.uniform(-10, 4, n_clusters)], -1)
+    for k in range(trees):
+        cx, cz = centres[k % n_clusters] + rng.normal(0, 0.7, 2)
+        s = rng.uniform(0.7, 1.3)
+        blocks.append(_instance_block(
+            "tree", (cx, _height(cx, cz) - 0.05, cz), rng.uniform(0, 360),
+            (s, s * rng.uniform(0.85, 1.2), s)))
+    for _ in range(rocks):
+        cx, cz = rng.uniform(-10, 10), rng.uniform(-10, 6)
+        s = rng.uniform(0.5, 1.2)
+        blocks.append(_instance_block(
+            "rock", (cx, _height(cx, cz) - 0.1, cz), rng.uniform(0, 360),
+            (s * rng.uniform(0.8, 1.3), s, s * rng.uniform(0.8, 1.3))))
+    blocks.append(_instance_block("lantern", (2.0, 2.2, 3.0), 30.0,
+                                  (1, 1, 1)))
+    forest = textwrap.dedent("""\
+        LookAt 0 9 15  0 0 -2  0 1 0
+        Camera "perspective" "float fov" [ 40 ]
+        Film "image" "integer xresolution" [ 1280 ]
+          "integer yresolution" [ 720 ]
+        Sampler "halton" "integer pixelsamples" [ 8 ]
+        Integrator "path" "integer maxdepth" [ 6 ]
+        WorldBegin
+        AttributeBegin
+          Rotate -90 1 0 0
+          LightSource "infinite" "string mapname" [ "sky.hdr" ]
+            "rgb L" [ 1 1 1 ]
+        AttributeEnd
+        Texture "bark" "spectrum" "imagemap" "string filename" [ "tree.tga" ]
+        Texture "granite" "spectrum" "imagemap"
+          "string filename" [ "rock.bmp" ]
+        AttributeBegin
+          Material "matte" "rgb Kd" [ 0.35 0.32 0.22 ]
+          Shape "plymesh" "string filename" [ "ground.ply" ]
+        AttributeEnd
+        ObjectBegin "tree"
+          Material "matte" "texture Kd" "bark"
+          Shape "plymesh" "string filename" [ "tree.ply" ]
+        ObjectEnd
+        ObjectBegin "rock"
+          Material "plastic" "texture Kd" "granite" "float roughness" [ 0.3 ]
+          Shape "plymesh" "string filename" [ "rock.ply" ]
+        ObjectEnd
+        ObjectBegin "lantern"
+          Material "matte" "rgb Kd" [ 0.8 0.8 0.8 ]
+          AreaLightSource "diffuse" "rgb L" [ 40 30 18 ]
+          Shape "trianglemesh" "integer indices" [ 0 1 2  0 2 3 ]
+            "point P" [ -0.3 0 -0.3  0.3 0 -0.3  0.3 0 0.3  -0.3 0 0.3 ]
+        ObjectEnd
+        """) + "".join(blocks) + "WorldEnd\n"
+    path = os.path.join(directory, "forest.pbrt")
+    with open(path, "w") as f:
+        f.write(forest)
+    return path
+
+
+def write_mesh_scenes(directory: str) -> dict:
+    """tree.obj (+ tree.mtl, tree.tga), tree.stl and tree.glb (+ tree.png);
+    returns their paths by format."""
+    os.makedirs(directory, exist_ok=True)
+    pos, nrm, uv, tris = tree_mesh()
+    write_tga(os.path.join(directory, "tree.tga"), tree_image(256))
+    write_png(os.path.join(directory, "tree.png"), tree_image(256))
+    paths = {k: os.path.join(directory, f"tree.{k}")
+             for k in ("obj", "stl", "glb")}
+    with open(os.path.join(directory, "tree.mtl"), "w") as f:
+        f.write("newmtl tree\nKd 1 1 1\nmap_Kd tree.tga\n")
+    lines = ["mtllib tree.mtl", "usemtl tree"]
+    lines += [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in pos]
+    lines += [f"vt {u:.6f} {v:.6f}" for u, v in uv]
+    lines += [f"vn {x:.6f} {y:.6f} {z:.6f}" for x, y, z in nrm]
+    lines += ["f " + " ".join(f"{i}/{i}/{i}" for i in t + 1) for t in tris]
+    with open(paths["obj"], "w") as f:
+        f.write("\n".join(lines) + "\n")
+    # Binary STL: 80-byte header, count, then normal, 3 vertices and an
+    # attribute word a facet.
+    fn = np.cross(pos[tris[:, 1]] - pos[tris[:, 0]],
+                  pos[tris[:, 2]] - pos[tris[:, 0]])
+    fn /= np.maximum(np.linalg.norm(fn, axis=1, keepdims=True), 1e-12)
+    rec = np.zeros(len(tris), dtype=[("n", "<f4", (3,)),
+                                     ("v", "<f4", (3, 3)), ("a", "<u2")])
+    rec["n"] = fn
+    rec["v"] = pos[tris]
+    with open(paths["stl"], "wb") as f:
+        f.write(b"tree".ljust(80, b" ") + struct.pack("<I", len(tris)))
+        f.write(rec.tobytes())
+    _write_glb(paths["glb"], pos, nrm, uv, tris, "tree.png")
+    return paths
+
+
+def _write_glb(path, pos, nrm, uv, tris, image_uri):
+    """A one-mesh binary glTF: positions, normals, TEXCOORD_0 (glTF's v
+    points down) and uint32 indices in the BIN chunk, a material whose
+    baseColorTexture is the image file image_uri."""
+    parts = [pos, nrm, np.stack([uv[:, 0], 1.0 - uv[:, 1]], 1),
+             tris.astype(np.uint32)]
+    blob, views, accessors = b"", [], []
+    for k, a in enumerate(parts):
+        a = np.ascontiguousarray(a)
+        views.append(dict(buffer=0, byteOffset=len(blob),
+                          byteLength=a.nbytes))
+        kind = "SCALAR" if k == 3 else ("VEC2" if k == 2 else "VEC3")
+        acc = dict(bufferView=k, componentType=5125 if k == 3 else 5126,
+                   count=a.size if k == 3 else len(a), type=kind)
+        if k == 0:
+            acc.update(min=a.min(0).tolist(), max=a.max(0).tolist())
+        accessors.append(acc)
+        blob += a.astype(a.dtype.newbyteorder("<")).tobytes()
+    doc = dict(
+        asset=dict(version="2.0"), scene=0, scenes=[dict(nodes=[0])],
+        nodes=[dict(mesh=0)],
+        meshes=[dict(primitives=[dict(
+            attributes=dict(POSITION=0, NORMAL=1, TEXCOORD_0=2),
+            indices=3, material=0)])],
+        materials=[dict(name="tree", pbrMetallicRoughness=dict(
+            baseColorTexture=dict(index=0), metallicFactor=0.0,
+            roughnessFactor=0.8))],
+        textures=[dict(source=0)], images=[dict(uri=image_uri)],
+        buffers=[dict(byteLength=len(blob))], bufferViews=views,
+        accessors=accessors)
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    blob += b"\0" * (-len(blob) % 4)
+    with open(path, "wb") as f:
+        f.write(b"glTF" + struct.pack("<II", 2, 20 + len(js) + len(blob)))
+        f.write(struct.pack("<I", len(js)) + b"JSON" + js)
+        f.write(struct.pack("<I", len(blob)) + b"BIN\0" + blob)
+
+
 if __name__ == "__main__":
     import sys
 
     out = sys.argv[1] if len(sys.argv) > 1 else "demo"
-    if sys.argv[2:] == ["textured"]:
+    kind = sys.argv[2] if len(sys.argv) > 2 else "env"
+    if kind == "textured":
         print(write_textured_scene(out))
+    elif kind == "forest":
+        print(write_forest_scene(out))
+    elif kind == "meshes":
+        print(write_mesh_scenes(out))
     else:
         print(write_demo_scene(out))
