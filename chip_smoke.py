@@ -128,10 +128,32 @@ Phases, each fatal on failure:
      version on at most CHECK_LANES live lanes and timed beside its
      bound; s a sample, Mrays/s, peak memory and geometry bytes of the
      TLAS and flat renders; a line of seconds a phase;
- 17. a JSON line of the seven kernels (launches from the run of the path
+ 17. a heterogeneous volume (volume_phase): the CLI on lit.pbrt at
+     1280x720, --env-nee on, --spp 4 (one merged wave of 3,686,400
+     lanes), --volume a 256^3 cloud over the height field written as a
+     .vdb by the port's write_vdb and read back bit for bit; the image
+     finite in [0, 1]; s a sample, Mrays/s, peak memory, the walk's steps
+     per bounce, the device-time shares of the walk and the shadow
+     marches, and the same command without --volume timed as the
+     control; every closest-hit launch (the walk's segment ends) and
+     every any-hit launch (shadow rays from surface and volume-scatter
+     vertices, and the env-NEE shadow waves) held against its plain
+     version on at most CHECK_LANES live lanes, timed beside its bound:
+     0 id mismatches outside ties, 0 occlusion mismatches, 0 overflows;
+ 18. the estimators on "shadertoy" at 1280x720 (estimators_phase): the
+     tent splat (its border loss within 5% of the expected), the
+     adaptive burst (counts sum to the budget; its residual wave's
+     closest-hit launches held against the plain version as above),
+     adaptive sampling under the mask, split planes that partition the
+     total (an early share strictly inside (0, 1), bit-equal planes at
+     split_early = max_bounces - 1), and a live material edit; s a
+     sample of each;
+ 19. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
-     card could reach on the same inputs and what sets it), then the
-     result line {"ok": true, "device": {...}} last.
+     card could reach on the same inputs and what sets it; kernels 1 and
+     2 also by the volume run's and the adaptive residual wave's
+     launches), then the result line {"ok": true, "device": {...}}
+     last.
 
 Imports nothing of JAX or the JAX package (the UNet weights are a data
 file read by path).
@@ -2338,6 +2360,494 @@ def instanced_runs(torch, tmp):
     return results, total
 
 
+# Grid of the volume phase's cloud: a 256^3 density grid over the height
+# field of utils/demo_scene.py, in the camera's view, at a density scale
+# that gives the .vdb's default coefficients (sigma_s 8, sigma_a 0.5) an
+# optical depth of a few across the box.
+VOLUME_GRID = 256
+VOLUME_BOX = ((-6.0, 1.0, -6.0), (6.0, 4.0, 2.0))
+VOLUME_DENSITY_SCALE = 0.25
+# The splat's border loss against its expected value, relative.
+SPLAT_LOSS_RTOL = 0.05
+
+
+def anyhit_launch_check(calls, rng, chunk=1 << 20):
+    """Each recorded any-hit launch (o, d, t_max, nodes, tris_bw) through
+    the kernel, held against anyhit_plain on at most CHECK_LANES of its
+    live lanes (0 occlusion mismatches; dead lanes unoccluded), timed on
+    the card alone beside its bound (walk_bound, live rays only); sums."""
+    import functools
+
+    from tracerboy_tpu_torch.trace import kernels, traverse
+    from tracerboy_tpu_torch.utils.bench_traverse import (
+        time_runs,
+        walk_bound,
+    )
+
+    tot = dict(launches=0, lanes=0, live=0, checked=0, ms=0.0,
+               plain_ms=0.0, bound_ms=0.0, bound_by=[], occ_mismatch=0,
+               occluded=0, overflows=0, dead_lane_hits=0, max_abs_err=0.0)
+    footprint = functools.partial(traverse.walk_footprint, any_hit=True)
+    for o, d, tm, nodes, tris in calls:
+        kernels.reset_counters()
+        k = traverse.any_hit(o, d, tm, nodes, tris)
+        overflows = kernels.stack_overflows()
+        live_idx, sel = live_subset(tm, rng)
+        p, plain_ms = timed_once(
+            lambda: traverse.anyhit_plain(o[sel], d[sel], tm[sel], nodes,
+                                          tris))
+        _, st = check_anyhit(k[sel], p)
+        ms = float(np.median(time_runs(
+            lambda: traverse.any_hit(o, d, tm, nodes, tris), 5, o.device,
+            ahead=True)))
+        b_ms, b_by, _, _ = walk_bound(o, d, tm, nodes, tris, footprint, 1,
+                                      chunk=chunk, live_rays_only=True)
+        tot["launches"] += 1
+        tot["lanes"] += o.shape[0]
+        tot["live"] += live_idx.numel()
+        tot["checked"] += st["rays"]
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["bound_ms"] += b_ms
+        tot["bound_by"].append(b_by)
+        tot["occ_mismatch"] += st["occ_mismatch"]
+        tot["occluded"] += st["occluded"]
+        tot["overflows"] += overflows
+        tot["dead_lane_hits"] += int(k[tm <= 0].sum())
+        tot["max_abs_err"] = max(tot["max_abs_err"], st["max_abs_err"])
+        del k, p
+    tot["live_share"] = tot["live"] / max(tot["lanes"], 1)
+    return tot
+
+
+def closest_launch_summary(label, calls, rng):
+    """textured_launch_check of recorded closest-hit launches of one kind,
+    its sums; fatal unless every checked lane agrees with the plain
+    version (TOLERANCE, and 0 id mismatches outside ties), dead lanes
+    miss and no stack overflows."""
+    by_kind, bad = textured_launch_check(calls, [label] * len(calls), rng)
+    row = by_kind.get(label)
+    if (bad or row is None or row["id_mismatch_outside_ties"]
+            or row["overflows"] or row["dead_lane_hits"]):
+        fail(f"{label} closest-hit launches: {row}, disagreeing {bad}")
+    return row
+
+
+class CudaSpans:
+    """CUDA-event spans around every call of module attributes (a
+    function that syncs inside still counts the card's idle time between
+    its start and end events)."""
+
+    def __init__(self, torch, targets):
+        self.torch = torch
+        self.targets = targets           # name -> (module, attribute)
+        self.events = {name: [] for name in targets}
+        self.real = {name: getattr(m, a) for name, (m, a) in targets.items()}
+
+    def wrap(self, name):
+        real = self.real[name]
+
+        def spanned(*args, **kwargs):
+            start = self.torch.cuda.Event(enable_timing=True)
+            end = self.torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(*args, **kwargs)
+            end.record()
+            self.events[name].append((start, end))
+            return out
+        return spanned
+
+    def __enter__(self):
+        for name, (m, a) in self.targets.items():
+            setattr(m, a, self.wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, (m, a) in self.targets.items():
+            setattr(m, a, self.real[name])
+
+    def ms(self, name) -> float:
+        self.torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events[name])
+
+
+def volume_phase(torch):
+    """volume_runs in a temporary directory that is removed after it."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="tb_vol_") as tmp:
+        return volume_runs(torch, tmp)
+
+
+def volume_runs(torch, tmp):
+    """A heterogeneous volume through the CLI: utils/demo_scene.py's
+    lit.pbrt (133,970 triangles, the .hdr sky, a distant and a point
+    light) at 1280x720 with --env-nee on and --spp 4 (one merged wave of
+    3,686,400 lanes) and --volume a 256^3 .vdb written here by the port's
+    write_vdb (a procedural cloud over the height field; read back bit
+    for bit). Every closest-hit launch (kernel 1, the walk's segment ends
+    among them) and every any-hit launch (kernel 2: NEE shadow rays from
+    surface and volume-scatter vertices, and the env-NEE shadow wave) of
+    the run is recorded and held against its plain version on at most
+    CHECK_LANES live lanes, timed beside its bound. Prints s a sample,
+    Mrays/s, peak memory, the walk's steps per bounce, the device-time
+    shares of the walk and the marches (CUDA events), and checks the
+    image; then times the same CLI command without --volume (the
+    control: the wave's device time without the medium). Returns
+    (results, launches)."""
+    from tracerboy_tpu_torch import renderer as renderer_mod
+    from tracerboy_tpu_torch.app import cli
+    from tracerboy_tpu_torch.scene.vdb import read_vdb, write_vdb
+    from tracerboy_tpu_torch.scene.volume import procedural_cloud
+    from tracerboy_tpu_torch.trace import kernels, traverse, wavefront
+    from tracerboy_tpu_torch.utils.demo_scene import write_demo_scene
+
+    set_opt_in()
+    results = {}
+    _, lit_scene = write_demo_scene(tmp)
+    vol = procedural_cloud(VOLUME_GRID, seed=12)
+    vol.density *= np.float32(VOLUME_DENSITY_SCALE)
+    vol.lo = np.array(VOLUME_BOX[0], np.float32)
+    vol.hi = np.array(VOLUME_BOX[1], np.float32)
+    path = os.path.join(tmp, "cloud.vdb")
+    t0 = time.perf_counter()
+    write_vdb(path, vol)
+    t1 = time.perf_counter()
+    back = read_vdb(path)
+    t2 = time.perf_counter()
+    if not (np.array_equal(back.density, vol.density)
+            and np.array_equal(back.lo, vol.lo)
+            and np.array_equal(back.hi, vol.hi)):
+        fail("volume: the .vdb does not read back bit for bit")
+    results["vdb"] = dict(grid=list(vol.density.shape),
+                          bytes=os.path.getsize(path), write_s=t1 - t0,
+                          read_s=t2 - t1)
+    print("volume .vdb:", json.dumps(results["vdb"]))
+    del back
+
+    size = f"{FULL_WAVE[0]}x{FULL_WAVE[1]}"
+    recorded = {"any_hit": [], "closest_hit": []}
+    real = {key: getattr(traverse, key) for key in recorded}
+    real_init = renderer_mod.Renderer.__init__
+    built, walk_steps = [], []
+    real_walk = wavefront.delta_track
+
+    def recorder(key):
+        def recording(o, d, t_max, nodes, tris_bw, roots=None):
+            if roots is not None:
+                fail(f"volume run: a {key} launch with per-ray roots")
+            recorded[key].append((o.clone(), d.clone(), t_max.clone(),
+                                  nodes, tris_bw))
+            return real[key](o, d, t_max, nodes, tris_bw)
+        return recording
+
+    def capturing_init(self, *args, **kwargs):
+        real_init(self, *args, **kwargs)
+        built.append(self)
+
+    def counting_walk(scene, o, d, t_lim, active, rng2, steps):
+        """The walk, counting its steps (its calls of rng2)."""
+        walk_steps.append(0)
+
+        def counted(k):
+            walk_steps[-1] += 1
+            return rng2(k)
+        return real_walk(scene, o, d, t_lim, active, counted, steps)
+
+    out = os.path.join(tmp, "volume.png")
+    exr = os.path.join(tmp, "volume.exr")
+    wavefront.delta_track = counting_walk
+    spans = CudaSpans(torch, dict(
+        wave=(renderer_mod, "render_wave_merged"),
+        walk=(wavefront, "delta_track"),
+        march=(wavefront, "transmittance")))
+    kernels.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    last = {}
+    renderer_mod.Renderer.__init__ = capturing_init
+    for key in recorded:
+        setattr(traverse, key, recorder(key))
+    try:
+        with spans:
+            rc = cli.main([lit_scene, "--size", size, "--spp", "4",
+                           "--env-nee", "on", "--volume", path, "--out", out,
+                           "--hdr-out", exr, "--quiet"], stats=last)
+    finally:
+        renderer_mod.Renderer.__init__ = real_init
+        for key, fn in real.items():
+            setattr(traverse, key, fn)
+        wavefront.delta_track = real_walk
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    overflow = kernels.stack_overflows()
+    if rc != 0 or len(built) != 1:
+        fail(f"volume CLI: exit {rc}, {len(built)} renderers")
+    r = built[0]
+    cfg = r.wave_config()
+    if not (cfg.has_volume and cfg.env_nee and cfg.num_lights > 0
+            and r.traversal == "kernel" and last["spp"] == 4):
+        fail(f"volume CLI: wave config {cfg}, {last['spp']} samples")
+    mean = check_cli_outputs("volume", out, exr)
+    check_image("volume", r.current_image())
+    if launches["closest"] <= 0 or launches["anyhit"] <= 0 or overflow:
+        fail(f"volume CLI: launches {launches}, {overflow} overflows")
+    wave_ms = spans.ms("wave")
+    walk_ms, march_ms = spans.ms("walk"), spans.ms("march")
+    results["run"] = dict(
+        render_seconds=last["seconds"], spp=last["spp"],
+        s_per_sample=last["seconds"] / last["spp"],
+        mrays_s=last["rays_traced"] / last["seconds"] / 1e6,
+        radiance_mean=mean, launches=launches, stack_overflows=overflow,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        recorded_gib=sum(nbytes(*c[:3]) for calls in recorded.values()
+                         for c in calls) / 2**30,
+        wave_ms=wave_ms, walk_ms=walk_ms, march_ms=march_ms,
+        walk_share=walk_ms / wave_ms, march_share=march_ms / wave_ms,
+        walk_calls=len(spans.events["walk"]),
+        march_calls=len(spans.events["march"]),
+        walk_steps_per_bounce=walk_steps,
+        vol_oct_gib=nbytes(r.scene["vol_oct"]) / 2**30,
+        vol_majorant=float(r.scene["vol_majorant"]))
+    print("volume CLI lit.pbrt + 256^3 .vdb:", json.dumps(results["run"]))
+    del built, r
+
+    # The control: the same command without the volume, its waves timed
+    # by the same spans.
+    control = CudaSpans(torch, dict(wave=(renderer_mod, "render_wave_merged")))
+    plain = {}
+    out, exr = (os.path.join(tmp, f"control.{e}") for e in ("png", "exr"))
+    with control:
+        rc = cli.main([lit_scene, "--size", size, "--spp", "4",
+                       "--env-nee", "on", "--out", out, "--hdr-out", exr,
+                       "--quiet"], stats=plain)
+    if rc != 0 or plain["spp"] != 4:
+        fail(f"volume control CLI: exit {rc}, {plain['spp']} samples")
+    check_cli_outputs("volume control", out, exr)
+    results["control"] = dict(
+        render_seconds=plain["seconds"],
+        s_per_sample=plain["seconds"] / plain["spp"],
+        wave_ms=control.ms("wave"),
+        waves=len(control.events["wave"]),
+        volume_over_control=wave_ms / control.ms("wave"))
+    print("volume control (the same command without --volume):",
+          json.dumps(results["control"]))
+
+    rng = np.random.default_rng(20261019)
+    t0 = time.perf_counter()
+    results["closest"] = closest_launch_summary(
+        "volume", recorded.pop("closest_hit"), rng)
+    results["anyhit"] = anyhit_launch_check(recorded.pop("any_hit"), rng)
+    results["check_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print("volume closest-hit launches:", json.dumps(results["closest"]))
+    print("volume any-hit launches:", json.dumps(results["anyhit"]))
+    a = results["anyhit"]
+    if (a["launches"] == 0 or a["occ_mismatch"] or a["overflows"]
+            or a["dead_lane_hits"]):
+        fail(f"volume any-hit launches: {a}")
+    return results, launches
+
+
+def estimators_phase(torch, Renderer):
+    """The JAX package's estimators on "shadertoy" at 1280x720 (kernel
+    backend): (1) the tent splat, render_sample(8): finite image, and the
+    folded filter weight sums to 8 N less what the film's border loses,
+    within SPLAT_LOSS_RTOL of its expected value; (2) the adaptive
+    burst render_sample_adaptive(8): the counts sum to the residual
+    budget exactly, and the residual wave's closest-hit launches (lanes
+    that repeat pixels) are held against the plain version on at most
+    CHECK_LANES live lanes and timed beside their bound; (3) adaptive
+    sampling: render_sample(64), which reaches ADAPTIVE_MIN_SPP, then
+    render_sample(8) under the mask: masked-out pixels gain no filter
+    weight; (4) one split_early = 1 merged 8-sample wave, clamp off:
+    0 <= early <= total per channel to float tolerance, the early share
+    of the total strictly between 0 and 1, and a second wave at
+    split_early = max_bounces - 1 whose planes are bit-equal; (5) set_material,
+    then render_sample(1). Seconds a sample of each. Returns (results,
+    launches of the runs, counted from 0 before each)."""
+    from dataclasses import replace
+
+    from tracerboy_tpu_torch import renderer as renderer_mod
+    from tracerboy_tpu_torch.trace import kernels, traverse
+    from tracerboy_tpu_torch.trace.wavefront import render_wave_merged
+
+    set_opt_in()
+    results = {}
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    w, h = FULL_WAVE
+    N = w * h
+
+    def renderer(**perf):
+        r = Renderer("shadertoy", film_size=FULL_WAVE, device="cuda")
+        if perf:
+            r.settings = r.settings.replace(performance_settings=replace(
+                r.settings.performance_settings, **perf))
+        if r.traversal != "kernel":
+            fail(f"estimators: traversal {r.traversal}")
+        return r
+
+    def timed(fn):
+        kernels.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        if kernels.stack_overflows():
+            fail(f"estimators: {kernels.stack_overflows()} overflows")
+        for k, v in launches.items():
+            total[k] += v
+        return out, dt, launches
+
+    # (1) the tent splat.
+    r = renderer()
+    r.settings = r.settings.replace(camera_settings=replace(
+        r.settings.camera_settings, filter_splat=True))
+    if not r.wave_config().filter_splat:
+        fail("estimators: filter_splat is off in the wave config")
+    _, dt, launches = timed(lambda: r.render_sample(8))
+    check_image("splat", r.current_image())
+    fw_sum = float(r.state.accum[..., 3].double().sum())
+    loss = 8 * N - fw_sum
+    # A sample's tent weight past its pixel's outer edge is max(0, 0.5 -
+    # j) for a jitter j uniform in [0, 1): 1/8 on average. Each edge pixel
+    # loses that, a corner 1 - (7/8)^2 = 15/64.
+    expected = 8 * ((2 * (w - 2) + 2 * (h - 2)) / 8.0 + 4 * 15 / 64.0)
+    results["splat"] = dict(s_per_sample=dt / 8, fw_sum=fw_sum,
+                            border_loss=loss, expected_loss=expected,
+                            loss_rel_err=abs(loss - expected) / expected,
+                            launches=launches)
+    print("estimators splat render_sample(8):", json.dumps(results["splat"]))
+    if not abs(loss - expected) <= SPLAT_LOSS_RTOL * expected:
+        fail(f"splat: filter weight {fw_sum} is not 8 N = {8 * N} less the "
+             f"border loss {expected} (within {SPLAT_LOSS_RTOL:.0%})")
+    del r
+
+    # (2) the adaptive burst; the residual wave's launches recorded.
+    r = renderer()
+    real_closest = traverse.closest_hit
+    real_residual = renderer_mod.render_wave
+    residual, in_residual = [], [False]
+
+    def recording(o, d, t_max, nodes, tris_bw, roots=None):
+        if in_residual[0]:
+            residual.append((o.clone(), d.clone(), t_max.clone(), nodes,
+                             tris_bw))
+        return real_closest(o, d, t_max, nodes, tris_bw, roots=roots)
+
+    def residual_wave(*args, **kwargs):
+        in_residual[0] = True
+        try:
+            return real_residual(*args, **kwargs)
+        finally:
+            in_residual[0] = False
+
+    traverse.closest_hit = recording
+    renderer_mod.render_wave = residual_wave
+    try:
+        _, dt, launches = timed(lambda: r.render_sample_adaptive(8))
+    finally:
+        traverse.closest_hit = real_closest
+        renderer_mod.render_wave = real_residual
+    counts = r._last_adaptive_counts
+    budget = (8 - 4) * N
+    check_image("adaptive burst", r.current_image())
+    results["adaptive_burst"] = dict(
+        s_per_sample=dt / 8, budget=budget, counts_sum=int(counts.sum()),
+        max_count=int(counts.max()), pixels_with_residual=int(
+            (counts > 0).sum()), residual_lanes=int(counts.sum()),
+        launches=launches, spp=r.state.spp)
+    if int(counts.sum()) != budget or counts.min() < 0 or r.state.spp != 8:
+        fail(f"adaptive burst: counts sum {counts.sum()} != budget "
+             f"{budget} (or spp {r.state.spp})")
+    del r
+    rng = np.random.default_rng(20261020)
+    results["adaptive_burst"]["closest"] = closest_launch_summary(
+        "adaptive", residual, rng)
+    del residual
+    torch.cuda.empty_cache()
+    print("estimators adaptive burst render_sample_adaptive(8):",
+          json.dumps(results["adaptive_burst"]))
+
+    # (3) adaptive sampling: warm up to ADAPTIVE_MIN_SPP, then a masked
+    # 8-sample wave.
+    r = renderer(enable_adaptive_sampling=True)
+    _, dt64, _ = timed(lambda: r.render_sample(r.ADAPTIVE_MIN_SPP))
+    mask = r.active_pixel_mask()
+    if mask is None:
+        fail("adaptive sampling: no mask at ADAPTIVE_MIN_SPP")
+    fw_before = r.state.accum[..., 3].clone()
+    _, dt8, launches = timed(lambda: r.render_sample(8))
+    gained = (r.state.accum[..., 3] - fw_before).reshape(-1)
+    off_gain = float(gained[~mask].abs().max()) if bool(
+        (~mask).any()) else 0.0
+    check_image("adaptive sampling", r.current_image())
+    results["adaptive_sampling"] = dict(
+        warmup_s_per_sample=dt64 / r.ADAPTIVE_MIN_SPP,
+        s_per_sample=dt8 / 8, live_share=float(mask.float().mean()),
+        masked_out_max_gain=off_gain, launches=launches)
+    print("estimators adaptive sampling render_sample(64) + (8):",
+          json.dumps(results["adaptive_sampling"]))
+    if off_gain != 0.0 or not bool(mask.any()):
+        fail(f"adaptive sampling: masked-out pixels gained filter weight "
+             f"{off_gain} (live share {mask.float().mean()})")
+    del r, fw_before, gained, mask
+
+    # (4) split planes: one merged 8-sample wave, clamp off.
+    r = renderer()
+    cfg = replace(r.wave_config(), split_early=1)
+    params = r.frame_params()
+    if params["firefly_clamp"] != 0.0:
+        fail("split planes: the firefly clamp is on")
+    out, dt, launches = timed(lambda: render_wave_merged(
+        r.scene, params, r.pixel_ids, 0, 8, cfg))
+    tot, early = out["radiance"].double(), out["radiance_early"].double()
+    tol = 1e-5 * tot.abs() + 1e-6
+    below = int((early < -tol).sum())
+    above = int((early > tot + tol).sum())
+    share = float(early.sum() / tot.sum())
+    # At split_early = max_bounces - 1 every contribution is early: the
+    # planes must then be bit-equal (the JAX partition test's rule).
+    last = replace(cfg, split_early=cfg.max_bounces - 1)
+    out_all, _, _ = timed(lambda: render_wave_merged(
+        r.scene, params, r.pixel_ids, 0, 8, last))
+    same = bool(torch.equal(out_all["radiance_early"], out_all["radiance"]))
+    results["split"] = dict(
+        s_per_sample=dt / 8, early_share=share,
+        below_zero=below, above_total=above,
+        finite=bool(torch.isfinite(tot).all()
+                    and torch.isfinite(early).all()), launches=launches,
+        all_early_bit_equal=same)
+    print("estimators split_early=1 8-sample wave:",
+          json.dumps(results["split"]))
+    if (below or above or not results["split"]["finite"]
+            or not 0.0 < share < 1.0 or not same):
+        fail(f"split planes do not partition the total: {results['split']}")
+    del out, out_all, tot, early, tol
+
+    # (5) a live material edit, then one sample.
+    before = r.get_material(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.set_material(0, albedo=np.array([0.9, 0.1, 0.1], np.float32))
+    torch.cuda.synchronize()
+    edit_ms = (time.perf_counter() - t0) * 1e3
+    _, dt, launches = timed(lambda: r.render_sample(1))
+    check_image("set_material", r.current_image())
+    got = r.scene["materials"]["albedo"][0].cpu().numpy()
+    results["set_material"] = dict(
+        edit_ms=edit_ms, s_per_sample=dt, spp=r.state.spp,
+        albedo_before=before["albedo"].tolist(), albedo_after=got.tolist(),
+        launches=launches)
+    print("estimators set_material + render_sample(1):",
+          json.dumps(results["set_material"]))
+    if r.state.spp != 1 or not np.allclose(got, [0.9, 0.1, 0.1]):
+        fail(f"set_material: {results['set_material']}")
+    del r
+    return results, total
+
+
 def main() -> int:
     print(card_line())
     import torch
@@ -2532,6 +3042,14 @@ def main() -> int:
     inst_res, inst_launches = instanced_phase(torch)
     inst_blas = inst_res["blas"]
     lap("instanced")
+
+    # --- a heterogeneous volume (.vdb) through the CLI; the estimators ----
+    vol_res, vol_launches = volume_phase(torch)
+    vol_c, vol_a = vol_res["closest"], vol_res["anyhit"]
+    lap("volume")
+    est_res, est_launches = estimators_phase(torch, Renderer)
+    adap_c = est_res["adaptive_burst"]["closest"]
+    lap("estimators")
     print("phase seconds:", json.dumps(laps))
 
     def by_path(key):
@@ -2539,7 +3057,9 @@ def main() -> int:
                 "binned": bn_launches[key], "study": study_launches[key],
                 "realtime": rt_launches[key], "cli": cli_launches[key],
                 "textured": tex_launches[key],
-                "instanced": inst_launches[key]}
+                "instanced": inst_launches[key],
+                "volume": vol_launches[key],
+                "estimators": est_launches[key]}
 
     trav = "tracerboy_tpu_torch/csrc/bvh_traverse.cu"
     bsrc = "tracerboy_tpu_torch/csrc/binned.cu"
@@ -2557,12 +3077,12 @@ def main() -> int:
              max_abs_err=max(s["max_abs_err"] for s in
                              [st_c, st_c2, un_c, *roots_c, env_closest,
                               *tex_kinds.values(),
-                              *inst_res["kinds"].values()]),
+                              *inst_res["kinds"].values(), vol_c, adap_c]),
              id_mismatch_outside_ties=sum(
                  s["id_mismatch_outside_ties"]
                  for s in [st_c, st_c2, un_c, *roots_c, env_closest,
                            *tex_kinds.values(),
-                           *inst_res["kinds"].values()]),
+                           *inst_res["kinds"].values(), vol_c, adap_c]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
              unordered_ms=un_times["closest_ms"],
              unordered_plain_ms=un_times["closest_plain_ms"],
@@ -2599,7 +3119,18 @@ def main() -> int:
                      "ms", "bound_ms", "hit_mismatch",
                      "id_mismatch_outside_ties", "ties", "overflows")}
                  for kind, row in inst_res["kinds"].items()},
-             forest=inst_res["tlas_vs_pbf"]),
+             forest=inst_res["tlas_vs_pbf"],
+             **{f"{pre}_{key}": row[key]
+                for pre, row in (("volume", vol_c), ("adaptive", adap_c))
+                for key in ("launches", "lanes", "live", "live_share",
+                            "checked", "ms", "bound_ms", "bound_by",
+                            "hit_mismatch", "id_mismatch_outside_ties",
+                            "ties", "max_abs_err", "overflows")},
+             volume_run=vol_res["run"],
+             volume_control=vol_res["control"],
+             estimators={k: {kk: vv for kk, vv in v.items()
+                             if kk != "closest"}
+                         for k, v in est_res.items()}),
         dict(name="closest_hit_stats", route="cuda", source=trav,
              replaces="tracerboy_tpu/trace/pallas_traverse2.py:754 "
                       "(stats=True)",
@@ -2634,7 +3165,11 @@ def main() -> int:
              env_nee_ms=env_nee["ms"], env_nee_plain_ms=env_nee["plain_ms"],
              env_nee_bound_ms=env_nee["bound_ms"],
              env_nee_launches=env_nee["launches"],
-             env_nee_occ_mismatch=env_nee["occ_mismatch"]),
+             env_nee_occ_mismatch=env_nee["occ_mismatch"],
+             **{f"volume_{key}": vol_a[key] for key in (
+                 "launches", "lanes", "live", "live_share", "checked",
+                 "ms", "plain_ms", "bound_ms", "bound_by", "occ_mismatch",
+                 "occluded", "max_abs_err", "overflows")}),
         dict(name="emit_cuts", route="cuda",
              source="tracerboy_tpu_torch/csrc/cut_emit.cu",
              replaces="tracerboy_tpu/trace/pallas_traverse2.py:657",

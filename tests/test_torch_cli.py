@@ -180,7 +180,6 @@ def test_denoiser_needs_the_archive(tiny_scene, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--volume", "cloud"], "item 14"),
     (["--upscale", "fsr"], "item 19"),
     (["--shard", "tiles"], "item 21"),
     (["--devices", "2"], "item 21"),
@@ -190,6 +189,37 @@ def test_unported_flags_raise(tiny_scene, tmp_path, flags, item):
         cli.main([tiny_scene, "--device", "cpu", "--out",
                   str(tmp_path / "o.png"), *flags])
     assert not (tmp_path / "o.png").exists()
+
+
+@pytest.mark.parametrize("kind", ["cloud", "vdb", "vol", "npy"])
+def test_volume_flag_renders(tiny_scene, tmp_path, kind):
+    """--volume attaches a heterogeneous medium, as the JAX CLI's does:
+    the procedural cloud, or a .vdb, .vol or .npy grid (a .npy spans the
+    unit box). The render is finite and the medium changes it."""
+    from tracerboy_tpu_torch.scene import vdb, volume
+
+    arg = "cloud"
+    if kind != "cloud":
+        vol = volume.procedural_cloud(8)
+        arg = str(tmp_path / f"c.{kind}")
+        if kind == "vdb":
+            vdb.write_vdb(arg, vol)
+        elif kind == "vol":
+            volume.write_vol(arg, vol)
+        else:
+            np.save(arg, vol.density)
+
+    def run(name, extra):
+        assert cli.main([tiny_scene, "--device", "cpu", "--spp", "2",
+                         "--quiet", "--out", str(tmp_path / f"{name}.png"),
+                         "--hdr-out", str(tmp_path / f"{name}.exr"),
+                         *extra]) == 0
+        return image_io.read_exr_rgb(str(tmp_path / f"{name}.exr"))
+
+    foggy = run("foggy", ["--volume", arg])
+    clear = run("clear", [])
+    assert foggy.shape == (24, 32, 3) and np.isfinite(foggy).all()
+    assert np.abs(foggy - clear).max() > 1e-3
 
 
 def test_export_pbf_matches_the_jax_cli(tiny_scene, tmp_path, capsys):

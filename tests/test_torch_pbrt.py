@@ -281,8 +281,7 @@ def test_missing_env_map_warns_and_shades_white(tmp_path):
 
 
 @pytest.mark.parametrize("what,item", [
-    ("instances", "22b"), ("medium", "item 14"),
-    ("png_map", "22b"), ("image_texture", "22b")])
+    ("instances", "22b"), ("png_map", "22b"), ("image_texture", "22b")])
 def test_unported_pbrt_features_raise(tmp_path, what, item):
     if what == "instances":
         # Instances load now (tests/test_torch_instanced.py); a JPEG
@@ -294,8 +293,6 @@ def test_unported_pbrt_features_raise(tmp_path, what, item):
             '[ "wood.jpg" ]\n  Material "matte" "texture Kd" "wood"')
         assert extra != INSTANCES
         path = write_scene(tmp_path, extra=extra)
-    elif what == "medium":
-        path = write_scene(tmp_path, extra=MEDIUM)
     elif what == "png_map":
         # PNG maps load now (tests/test_torch_textures.py); JPEG does not.
         path = write_scene(tmp_path, lights=("infinite",), mapname="")
@@ -313,6 +310,22 @@ Shape "sphere" "float radius" [ 0.2 ]
 """)
     with pytest.raises(NotImplementedError, match=item):
         load_scene(path)
+
+
+def test_heterogeneous_medium_compiles_like_jax(tmp_path):
+    """A MakeNamedMedium "heterogeneous" block compiles into the scene's
+    volume (scale folded into sigma_a and sigma_s), every leaf as the JAX
+    package builds it, the volume's stencil table and MIS areas too."""
+    path = write_scene(tmp_path, extra=MEDIUM)
+    got = load_scene(path)
+    assert got.has_volume and got.vol_density.shape == (2, 2, 2)
+    np.testing.assert_array_equal(got.vol_sigma_a,
+                                  np.float32([0.2, 0.2, 0.2]) * 2)
+    assert got.vol_g == pytest.approx(0.3)
+    leaves = got.as_numpy()
+    assert {"vol_oct", "vol_majorant", "tri_area", "pk_tri_area"} <= set(
+        leaves)
+    _assert_same_leaves(_jax_leaves(path), leaves)
 
 
 def test_demo_scene_parses_like_jax(tmp_path):

@@ -262,10 +262,13 @@ def test_update_settings_restarts_accumulation():
     assert r.state.spp == 2                     # post only: kept
     r.update_settings(r.settings.replace(fireflies_clamp=4.0))
     assert r.state.spp == 0 and not r.state.accum.any()
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        r.update_settings(r.settings.replace(
-            performance_settings=PerformanceSettings(
-                enable_adaptive_sampling=True)))
+    # Adaptive sampling is taken; its mask waits for ADAPTIVE_MIN_SPP.
+    r.update_settings(r.settings.replace(
+        performance_settings=PerformanceSettings(
+            enable_adaptive_sampling=True)))
+    assert r.settings.performance_settings.enable_adaptive_sampling
+    r.render_sample(1)
+    assert r.active_pixel_mask() is None and r.state.spp == 1
 
 
 # -- the batch form -----------------------------------------------------------

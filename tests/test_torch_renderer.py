@@ -88,7 +88,11 @@ def test_twin_backend_equals_kernel_backend_on_cpu():
 
 
 @pytest.mark.parametrize("what", ["adaptive", "output_type"])
-def test_unported_settings_raise(what):
+def test_estimator_settings_render(what):
+    """Adaptive sampling and the tent splat (here under a debug view) are
+    taken by the renderer: it renders and shows an image in [0, 1]; the
+    splat's wave is the merged fold, the adaptive one's has no mask
+    before ADAPTIVE_MIN_SPP samples."""
     from tracerboy_tpu_torch.utils.config import (
         CameraSettings,
         OutputType,
@@ -99,14 +103,19 @@ def test_unported_settings_raise(what):
         s = OutputSettings(performance_settings=PerformanceSettings(
             enable_adaptive_sampling=True))
     else:
-        # The debug views are ported; a view over the splat fold is not.
         s = OutputSettings(output_type=OutputType.ALBEDO,
                            camera_settings=CameraSettings(filter_splat=True))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        r = Renderer("shadertoy:cornell", settings=s, film_size=(8, 8),
-                     device="cpu")
-        r.render_sample(1)
-        r.current_image()
+    r = Renderer("shadertoy:cornell", settings=s, film_size=(8, 8),
+                 device="cpu")
+    r.render_sample(1)
+    img = r.current_image()
+    assert img.shape == (8, 8, 3) and 0 <= img.min() and img.max() <= 1
+    if what == "adaptive":
+        assert r.active_pixel_mask() is None and r._live_pixels is None
+    else:
+        assert r.wave_config().filter_splat
+        assert "radiance_splat" in r._last_aovs
+        assert img.any()
 
 
 def test_render_options_match_jax():

@@ -94,11 +94,11 @@ def test_benchmark_scene_takes_the_kernel_path():
     assert Renderer._pick_traversal(small) == "brute"
 
 
-@pytest.mark.parametrize("path", ["scene.pbf", "mesh.obj", "cache.npz"])
+@pytest.mark.parametrize("path", ["scene.pbf", "mesh.obj"])
 def test_unported_scene_files_raise(path, tmp_path):
-    """.pbf, OBJ and .npz scenes load now (tests/test_torch_pbf.py,
-    test_torch_mesh_import.py, test_torch_scene_cache.py); one with a
-    JPEG texture, or a cache that holds a volume, is still refused."""
+    """.pbf and OBJ scenes load now (tests/test_torch_pbf.py,
+    test_torch_mesh_import.py); one with a JPEG texture is still
+    refused."""
     (tmp_path / "wood.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
     if path.endswith(".obj"):
         (tmp_path / "m.mtl").write_text("newmtl wood\nmap_Kd wood.jpg\n")
@@ -117,18 +117,58 @@ def test_unported_scene_files_raise(path, tmp_path):
         scene.materials["wall"].map_kd = "img"
         write_pbf(str(tmp_path / path), scene)
         path = str(tmp_path / path)
-    if path.endswith(".npz"):
-        from tracerboy_tpu_torch.scene.compile import save_compiled
-
-        save_compiled(str(tmp_path / path),
-                      torch_load_scene("shadertoy:cornell", film_size=FILM))
-        with np.load(tmp_path / path) as z:
-            flat = {k: z[k] for k in z.files}
-        flat["vol.g"] = np.asarray(0.0)
-        np.savez(tmp_path / path, **flat)
-        path = str(tmp_path / path)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         torch_load_scene(path)
+
+
+@pytest.mark.parametrize("keys", ["g_only", "full"])
+def test_cache_with_volume_keys_loads(keys, tmp_path):
+    """A compiled .npz with vol.* keys loads as the JAX package's
+    load_compiled reads it: a grid makes a volume scene, a lone vol.g
+    none."""
+    from tracerboy_tpu.scene.compile import load_compiled as jax_load
+    from tracerboy_tpu_torch.scene.compile import save_compiled
+
+    path = tmp_path / "cache.npz"
+    save_compiled(str(path), torch_load_scene("shadertoy:cornell",
+                                              film_size=FILM))
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    flat["vol.g"] = np.asarray(0.25)
+    if keys == "full":
+        flat["vol.density"] = np.arange(8, dtype=np.float32).reshape(2, 2, 2)
+        flat["vol.lo"] = np.zeros(3, np.float32)
+        flat["vol.hi"] = np.ones(3, np.float32)
+        flat["vol.sigma_a"] = np.full(3, 0.5, np.float32)
+        flat["vol.sigma_s"] = np.full(3, 2.0, np.float32)
+    np.savez(path, **flat)
+    got, want = torch_load_scene(str(path)), jax_load(str(path))
+    assert got.has_volume == want.has_volume == (keys == "full")
+    assert got.vol_g == want.vol_g == 0.25
+    if keys == "full":
+        np.testing.assert_array_equal(got.vol_density, want.vol_density)
+        assert got.as_numpy()["vol_oct"].shape == (8, 8)
+
+
+def test_volume_scene_compiles_like_jax():
+    """scene.volume (a PBRT MakeNamedMedium, or Renderer(volume=)) compiles
+    into the JAX package's volume fields and leaves."""
+    from tracerboy_tpu.scene.compile import compile_scene as jax_compile
+    from tracerboy_tpu.scene.procedural import _cornell_scene as jax_cornell
+    from tracerboy_tpu.scene.volume import procedural_cloud as jax_cloud
+    from tracerboy_tpu_torch.scene.compile import compile_scene
+    from tracerboy_tpu_torch.scene.procedural import _cornell_scene
+    from tracerboy_tpu_torch.scene.volume import procedural_cloud
+
+    s, js = _cornell_scene(), jax_cornell()
+    s.volume, js.volume = procedural_cloud(8), jax_cloud(8)
+    got, want = compile_scene(s), jax_compile(js)
+    assert got.has_volume and want.has_volume
+    leaves, ref = got.as_numpy(), want.as_pytree(pack_pallas=True)
+    for key in ("vol_density", "vol_oct", "vol_dims", "vol_majorant",
+                "vol_g", "tri_area", "pk_tri_area"):
+        np.testing.assert_array_equal(leaves[key], np.asarray(ref[key]),
+                                      err_msg=key)
 
 
 def test_import_leaves_jax_out():
@@ -143,6 +183,9 @@ def test_import_leaves_jax_out():
             "from tracerboy_tpu_torch.scene import compile, textures\n"
             "from tracerboy_tpu_torch.scene import pbf, mesh_import\n"
             "from tracerboy_tpu_torch.trace import instanced\n"
+            "from tracerboy_tpu_torch.shade import volumetric\n"
+            "from tracerboy_tpu_torch.scene import vdb\n"
+            "from tracerboy_tpu_torch.core import filters\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith('jax.')\n"
             "             or m.startswith('tracerboy_tpu.')\n"
@@ -155,7 +198,7 @@ def test_import_leaves_jax_out():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-@pytest.mark.parametrize("feature", ["instance", "volume", "light",
+@pytest.mark.parametrize("feature", ["instance", "light",
                                      "image_texture"])
 def test_unported_scene_features_raise(feature, tmp_path):
     """What the port does not have yet is refused, not dropped. Spheres,
@@ -184,8 +227,6 @@ def test_unported_scene_features_raise(feature, tmp_path):
         s.instances.append(ir.InstanceIR(object_name="x"))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             compile_scene(s, instancing="tlas")
-    elif feature == "volume":
-        s.volume = object()
     elif feature == "light":
         (tmp_path / "sky.jpg").write_bytes(b"\xff\xd8\xff\xe0")
         s.base_dir = str(tmp_path)

@@ -176,16 +176,25 @@ def test_cache_path_keeps_the_reference_checkout_rule(tmp_path,
     assert port_compile._cache_path(scratch) == _cache_of(scratch)
 
 
-def test_volume_cache_is_refused(tmp_path):
+def test_volume_cache_loads(tmp_path):
+    """A compiled scene with a volume round-trips through the .npz cache
+    (the vol.* keys), and the JAX package reads the same file."""
+    from dataclasses import replace
+
+    from tracerboy_tpu_torch.scene.volume import procedural_cloud
+
     path = write_textured_scene(tmp_path)
-    cs = load_scene(path, use_cache=False)
+    vol = procedural_cloud(6)
+    cs = replace(load_scene(path, use_cache=False), vol_density=vol.density,
+                 vol_lo=vol.lo, vol_hi=vol.hi, vol_sigma_a=vol.sigma_a,
+                 vol_sigma_s=vol.sigma_s, vol_g=0.5)
     port_compile.save_compiled(str(tmp_path / "v.npz"), cs)
-    with np.load(tmp_path / "v.npz") as z:
-        flat = {k: z[k] for k in z.files}
-    flat["vol.density"] = np.zeros((2, 2, 2), np.float32)
-    np.savez_compressed(tmp_path / "v.npz", **flat)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        load_scene(str(tmp_path / "v.npz"))
+    got = load_scene(str(tmp_path / "v.npz"))
+    assert got.has_volume and got.vol_g == 0.5
+    _assert_same_leaves(cs.as_numpy(), got.as_numpy())
+    ref = jax_compile.load_compiled(str(tmp_path / "v.npz"))
+    np.testing.assert_array_equal(ref.vol_density, vol.density)
+    np.testing.assert_array_equal(ref.vol_sigma_s, vol.sigma_s)
 
 
 def test_unreadable_cache_is_compiled_again(tmp_path):

@@ -76,7 +76,10 @@ def build_parser():
                    help="the OIDN weights of --denoiser's model")
     p.add_argument("--upscale", default=None, choices=["fsr", "superres"],
                    help="not ported yet (raises)")
-    p.add_argument("--volume", default=None, help="not ported yet (raises)")
+    p.add_argument("--volume", default=None,
+                   help="attach a heterogeneous medium: .vdb (OpenVDB "
+                        "FloatGrid), .vol (Mitsuba grid), .npy density, "
+                        "or 'cloud' (procedural test cloud)")
     p.add_argument("--hdr-out", default=None,
                    help="also write linear radiance (.exr/.hdr/.pfm)")
     p.add_argument("--capture-every", type=int, default=0, metavar="N",
@@ -103,7 +106,6 @@ def build_parser():
 
 # Flags of features the port does not have yet, and their ROADMAP.md item.
 _UNPORTED_FLAGS = (
-    ("volume", "--volume", "Queue 1: item 14, volumes"),
     ("upscale", "--upscale", "Queue 1: item 19, ml/superres.py, ml/fsr.py"),
     ("devices", "--devices", "Queue 1: item 21, parallel/sharding.py"),
 )
@@ -203,8 +205,14 @@ def main(argv=None, stats: dict | None = None):
         lambda *a: print(f"[{time.time() - t0:7.1f}s]", *a, flush=True))
 
     log(f"loading {args.scene} ...")
+    vol = None
+    if args.volume:
+        from tracerboy_tpu_torch.scene import volume as vmod
+
+        vol = (vmod.procedural_cloud() if args.volume == "cloud"
+               else vmod.load_volume(args.volume))
     r = Renderer(args.scene, settings=_settings(args), film_size=film,
-                 seed=args.seed, device=args.device)
+                 seed=args.seed, volume=vol, device=args.device)
     log(f"scene ready: {r.compiled.num_tris} tris, "
         f"{r.compiled.num_lights} lights, {r.width}x{r.height}, "
         f"{len(r.compiled.materials['flags'])} materials")

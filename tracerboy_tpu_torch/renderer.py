@@ -25,10 +25,18 @@ kernels above; TB_TRAVERSAL=brute|pallas|jnp overrides it under the JAX
 package's names (pallas = the kernels, jnp = the wide traversal in plain
 torch, the portable oracle).
 
+Unbiased mode takes the JAX package's estimators: the tent splat
+(CameraSettings.filter_splat: merged full-film waves on every backend),
+adaptive sampling (PerformanceSettings.enable_adaptive_sampling: after
+ADAPTIVE_MIN_SPP samples a per-pixel convergence mask), and the adaptive
+burst render_sample_adaptive, which spends a fixed sample budget by the
+pilot's per-pixel variance in one residual wave whose lanes repeat
+pixels. A heterogeneous volume (Renderer(volume=), or the scene's own)
+is delta-tracked by the wave; set_material edits one material live.
+
 TLAS-instanced scenes animate through update_instance_transforms.
-Sharding, adaptive sampling in Unbiased mode, the splat fold and the
-geometry updates that rebuild a BVH on the device (update_geometry,
-update_object_geometry) are not ported yet.
+Sharding and the geometry updates that rebuild a BVH on the device
+(update_geometry, update_object_geometry) are not ported yet.
 """
 
 from __future__ import annotations
@@ -49,9 +57,11 @@ from tracerboy_tpu_torch.post.pipeline import (
 )
 from tracerboy_tpu_torch.scene.compile import (
     CompiledScene,
+    _canonical,
     from_jax_pytree,
     load_scene,
 )
+from tracerboy_tpu_torch.scene.materials import LIGHT_FLAG
 from tracerboy_tpu_torch.trace.wavefront import (
     PACKED_BACKENDS,
     WaveConfig,
@@ -84,12 +94,6 @@ def _demod_ratio(rad_d, rad):
         0.0, 1.0)
 
 
-def _check_settings(settings: OutputSettings):
-    if settings.performance_settings.enable_adaptive_sampling:
-        raise NotImplementedError(
-            "adaptive sampling is not ported yet (ROADMAP.md, Queue 1)")
-
-
 @dataclass
 class RenderState:
     """Persistent accumulation state (tensors on the render device)."""
@@ -103,20 +107,26 @@ class RenderState:
 class Renderer:
     def __init__(self, scene, settings: OutputSettings | None = None,
                  film_size: tuple | None = None, seed: int = 0,
-                 device="cuda"):
+                 volume=None, device="cuda"):
         """scene: a CompiledScene or a name for load_scene ("shadertoy",
         "shadertoy:cornell", the path of a .pbrt file, compiled through
-        its .tbcache.npz cache, or of a compiled .npz scene)."""
+        its .tbcache.npz cache, or of a compiled .npz scene). volume: a
+        VolumeIR (scene/volume.py: load_volume, procedural_cloud) that
+        attaches or replaces the scene's heterogeneous medium."""
         if isinstance(scene, str):
             scene = load_scene(scene, film_size=film_size)
         if not isinstance(scene, CompiledScene):
             raise TypeError(f"scene must be a CompiledScene or a name, got "
                             f"{type(scene).__name__}")
+        if volume is not None:
+            scene = replace(
+                scene, vol_density=volume.density, vol_lo=volume.lo,
+                vol_hi=volume.hi, vol_sigma_a=volume.sigma_a,
+                vol_sigma_s=volume.sigma_s, vol_g=volume.g)
         self.compiled = scene
         self.device = torch.device(device)
         self.seed = int(seed)
         self.settings = settings or default_output_settings()
-        _check_settings(self.settings)
         self.width = scene.film_width
         self.height = scene.film_height
         if film_size is not None:
@@ -172,7 +182,6 @@ class Renderer:
         self._start_time = time.time()
 
     def update_settings(self, new_settings: OutputSettings):
-        _check_settings(new_settings)
         if invalidates_history(self.settings, new_settings):
             self.invalidate_history()
         self.settings = new_settings
@@ -213,9 +222,6 @@ class Renderer:
         mats = self.compiled.materials
         ttype = self.compiled.tex_records["ttype"]
         realtime = s.render_mode == RenderMode.REAL_TIME
-        if s.camera_settings.filter_splat and not realtime:
-            raise NotImplementedError(
-                "filter_splat is not ported yet (ROADMAP.md, Queue 1)")
         return WaveConfig(
             width=self.width,
             height=self.height,
@@ -225,6 +231,8 @@ class Renderer:
             enable_ris=perf.enable_sampling_importance_resampling,
             filter_type=int(s.camera_settings.filter_type),
             filter_width=s.camera_settings.filter_width,
+            filter_splat=bool(s.camera_settings.filter_splat
+                              and not realtime),
             use_blue_noise=perf.use_blue_noise,
             sampler=perf.sampler,
             has_env=self.compiled.has_env,
@@ -248,6 +256,8 @@ class Renderer:
             has_scale_tex=bool((ttype == 2).any()),
             has_alpha=bool((mats["alpha_tex"] >= 0).any()),
             has_instances=self.compiled.has_instances,
+            has_volume=self.compiled.has_volume,
+            volume_light_mis=perf.volume_light_mis,
             has_normal_maps=bool(perf.enable_normal_maps
                                  and (mats["normal_tex"] >= 0).any()),
             transparent_shadows=perf.transparent_shadows,
@@ -369,23 +379,50 @@ class Renderer:
             p["fixed_pixel_offset"] = fixed_offset
         return p
 
+    # -- adaptive sampling (VarianceUtil.h ShouldSkipRay) -----------------
+    ADAPTIVE_MIN_SPP = 64  # the reference starts comparing after many spp
+
+    def active_pixel_mask(self) -> torch.Tensor | None:
+        """Per-pixel convergence mask (H*W,) bool; None when adaptive
+        sampling is off or not warmed up. A pixel goes inactive when the
+        two accumulator estimates agree within min_convergence (relative
+        luma error)."""
+        perf = self.settings.performance_settings
+        if (not perf.enable_adaptive_sampling
+                or self.state.spp < self.ADAPTIVE_MIN_SPP):
+            return None
+        a = self.state.accum
+        j = self.state.accum_jittered
+        la = _luma(a[..., :3] / torch.clamp_min(a[..., 3:4], 1e-8))[..., 0]
+        lj = _luma(j[..., :3] / torch.clamp_min(j[..., 3:4], 1e-8))[..., 0]
+        err = torch.abs(la - lj) / torch.clamp_min(la, 1e-4)
+        return (err > perf.min_convergence).reshape(-1)
+
     # -- stepping --------------------------------------------------------
     def render_sample(self, n: int = 1):
         """Trace n progressive samples, accumulating into state. On the
-        packed backends n > 1 merges up to k samples into one wave of k*N
-        lanes; brute force and the wide backend batch single-sample waves
-        (so the AOVs are the last sample's, as in the JAX package)."""
+        packed backends, and on every backend with the tent splat
+        (filter_splat, k = 1 included), n > 1 merges up to k samples into
+        one wave of k*N lanes; otherwise brute force and the wide backend
+        batch single-sample waves (so the AOVs are the last sample's, as
+        in the JAX package). With adaptive sampling warmed up, pixels
+        outside active_pixel_mask() trace nothing."""
         cfg = self.wave_config()
         params = self.frame_params()
+        mask = self.active_pixel_mask()
+        if mask is not None:
+            params["active_mask"] = mask
+            self._live_pixels = mask
         ids = self.pixel_ids
-        if (n > 1 and cfg.traversal in PACKED_BACKENDS
-                and params.get("selected_pixel") is None):
+        merged = ((cfg.traversal in PACKED_BACKENDS or cfg.filter_splat)
+                  and params.get("selected_pixel") is None)
+        if merged and (n > 1 or cfg.filter_splat):
             k_max = max(1, min(MERGED_WAVE_MAX_K,
                                MERGED_WAVE_LANES // max(ids.shape[0], 1)))
             done = 0
             while done < n:
                 kk = min(n - done, k_max)
-                if kk == 1:
+                if kk == 1 and not cfg.filter_splat:
                     out = render_wave(self.scene, params, ids,
                                       self.state.spp, cfg)
                 else:
@@ -401,6 +438,124 @@ class Renderer:
             out = render_wave(self.scene, params, ids, self.state.spp, cfg)
             self._accumulate(out)
         return self.state
+
+    def render_sample_adaptive(self, spp: int = 8, pilot: int = 0,
+                               exponent: float = 0.5,
+                               max_per_pixel: int = 256):
+        """Variance-guided redistribution of a FIXED budget of spp samples
+        a pixel (the JAX package's adaptive burst). A uniform merged pilot
+        of `pilot` samples (spp // 2 by default) measures each pixel's
+        tonemapped-luma variance; the residual budget is water-filled
+        (_waterfill, float64 on the host) so that the total a pixel gets
+        tracks var**exponent (0.5 is the L2-optimal allocation), and the
+        residual traces as ONE wave whose lanes repeat pixels, sample index
+        spp + occurrence. Each pixel's lanes are summed in a fixed order
+        (occurrence by occurrence), so a run is reproducible bit for bit.
+        The counts of the last call are kept in _last_adaptive_counts."""
+        pilot = pilot or max(1, spp // 2)
+        pilot = min(pilot, spp)
+        h, w = self.height, self.width
+        N = h * w
+        params = self.frame_params()
+        cfg = self.wave_config()
+        out = render_wave_merged(self.scene, params, self.pixel_ids,
+                                 self.state.spp, pilot, cfg, fold_var=True)
+        lum = out["lum"].cpu().numpy().astype(np.float64)
+        lum_sq = out["lum_sq"].cpu().numpy().astype(np.float64)
+        self._accumulate(out, samples=pilot)
+        budget = (spp - pilot) * N
+        if budget <= 0:
+            return self.state
+        var = np.maximum(lum_sq / pilot - (lum / pilot) ** 2, 0.0)
+        # 3x3 box smooth: a pilot of a few samples is itself noisy, and
+        # selecting on raw estimates funnels budget to lucky outliers.
+        v = var.reshape(h, w)
+        vp = np.pad(v, 1, mode="edge")
+        v = sum(vp[dy:dy + h, dx:dx + w]
+                for dy in range(3) for dx in range(3)) / 9.0
+        target = v.reshape(-1) ** exponent
+        counts = self._waterfill(target, pilot, budget, max_per_pixel)
+        self._last_adaptive_counts = counts
+        ids_r = np.repeat(np.arange(N, dtype=np.int64), counts)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(
+            np.int64)
+        occ = np.arange(budget, dtype=np.int64) - starts[ids_r]
+        dev = self.device
+        ids_dev = torch.from_numpy(ids_r).to(dev)
+        sidx = self.state.spp + torch.from_numpy(occ).to(dev)
+        p2 = dict(params)
+        if p2.get("bn") is not None:
+            p2["bn"] = tuple(b[ids_dev] for b in p2["bn"])
+        out_r = render_wave(self.scene, p2, ids_dev, sidx, cfg, aov_lanes=0)
+        del ids_dev, sidx, p2
+        vals = torch.cat([out_r["radiance"], out_r["filter_weight"][:, None]],
+                         dim=-1)
+        self.rays_traced += int(out_r["rays_traced"])
+        del out_r
+        # The segment sum over the repeated pixel ids in a fixed order:
+        # occurrence j of every pixel with more than j lanes at once (the
+        # ids of one level are distinct, so no two writes meet).
+        sample = torch.zeros((N, 4), dtype=torch.float32, device=dev)
+        for j in range(int(counts.max())):
+            pix = np.nonzero(counts > j)[0]
+            lanes = torch.from_numpy(starts[pix] + j).to(dev)
+            pix = torch.from_numpy(pix).to(dev)
+            sample[pix] = sample[pix] + vals[lanes]
+        del vals
+        sample = sample.reshape(h, w, 4)
+        st = self.state
+        st.accum = st.accum + sample
+        coin = tbrng.uniform(self.pixel_ids, st.spp, 0,
+                             tbrng.STREAM_ACCUM_JITTER).reshape(h, w)
+        take = coin < 0.5 if st.spp != 0 else torch.ones_like(
+            coin, dtype=bool)
+        st.accum_jittered = torch.where(take[..., None],
+                                        st.accum_jittered + sample,
+                                        st.accum_jittered)
+        st.spp += spp - pilot
+        return st
+
+    @staticmethod
+    def _waterfill(target, pilot, budget, cap):
+        """Integer allocation m_p >= 0 with sum m_p == budget such that
+        pilot + m_p tracks c*target (water-filling above the pilot floor,
+        capped): bisection on c, largest-remainder rounding. The JAX
+        package's function as it is, float64 numpy, so that the counts
+        are equal."""
+        t = np.asarray(target, np.float64)
+        N = t.shape[0]
+        if not np.isfinite(t).all():
+            t = np.nan_to_num(t)
+        if t.sum() <= 0.0:
+            m = np.full(N, budget // N, np.int64)
+            m[: budget - int(m.sum())] += 1
+            return m
+
+        def alloc(c):
+            return np.minimum(np.maximum(c * t - pilot, 0.0), cap)
+
+        lo, hi = 0.0, 1.0
+        while alloc(hi).sum() < budget and hi < 1e18:
+            hi *= 2.0
+        for _ in range(60):
+            mid = 0.5 * (lo + hi)
+            if alloc(mid).sum() < budget:
+                lo = mid
+            else:
+                hi = mid
+        frac = alloc(hi)
+        m = np.floor(frac).astype(np.int64)
+        short = budget - int(m.sum())
+        if short > 0:
+            rem = frac - m
+            # Deterministic largest-remainder top-up.
+            order = np.argsort(-rem, kind="stable")[:short]
+            m[order] += 1
+        elif short < 0:
+            order = np.argsort(frac - m, kind="stable")
+            gz = order[m[order] > 0][: -short]
+            m[gz] -= 1
+        return m
 
     def _accumulate(self, out, samples: int = 1):
         h, w = self.height, self.width
@@ -591,9 +746,11 @@ class Renderer:
         """Mean radiance image (H, W, 3) from the weighted accumulator."""
         return resolve_accumulator(self.state.accum)
 
-    def current_image(self) -> np.ndarray:
+    def current_image(self, tonemapped: bool = True) -> np.ndarray:
         """The display image (H, W, 3) float32 in [0, 1], on the host: the
-        lit image, or the debug view settings.output_type selects."""
+        lit image, or the debug view settings.output_type selects.
+        tonemapped: taken for the JAX package's signature; as there, the
+        post chain of the settings decides the image either way."""
         aovs = self._last_aovs
         if aovs is not None:
             aovs = dict(aovs, variance=self._estimate_gap()[..., 0])
@@ -646,6 +803,28 @@ class Renderer:
         """Every field of one material record, as numpy."""
         return {k: np.asarray(v[material_id])
                 for k, v in self.compiled.materials.items()}
+
+    def set_material(self, material_id: int, **fields):
+        """Live material editing (the reference's single material-buffer
+        update, TracerBoy.cpp:2592-2604 + 3931-3939): writes the one
+        material row of each edited field on the host and on the device,
+        never re-packing the BVH, and restarts accumulation. Editing
+        `flags` can change which triangles occlude shadow rays, so it also
+        refreshes tri_shadow_opaque (the packed shadow BVH keeps its
+        light exclusion, as in the JAX package)."""
+        mats = self.scene["materials"]
+        for k, v in fields.items():
+            arr = np.asarray(self.compiled.materials[k]).copy()
+            arr[material_id] = v
+            self.compiled.materials[k] = arr
+            mats[k][material_id] = torch.from_numpy(
+                np.array(_canonical(arr[material_id]))).to(self.device)
+        if "flags" in fields:
+            c = self.compiled
+            self.scene["tri_shadow_opaque"] = torch.from_numpy(
+                (c.materials["flags"][c.tri_material] & LIGHT_FLAG) == 0
+            ).to(self.device)
+        self.invalidate_history()
 
     def visualize_selected_ray_path(self, x: int, y: int,
                                     spp: int = 1) -> np.ndarray:

@@ -24,8 +24,12 @@ Instanced scenes (ObjectBegin / ObjectInstance) compile as the JAX
 package compiles them (compile_scene's `instancing`): flattened into the
 triangle soup, or as a two-level TLAS/BLAS, one packed BVH per unique
 object and a row of transforms and bounds per instance, traversed by
-trace/instanced.py. Volumes raise NotImplementedError naming their
-ROADMAP.md item (14).
+trace/instanced.py. A heterogeneous volume (scene.volume: a PBRT
+MakeNamedMedium "heterogeneous", or Renderer(volume=)) rides along as the
+JAX package carries it: the density grid and its box on the compiled
+scene, and for the wave the (D*H*W, 8) trilinear stencil table vol_oct,
+the delta-tracking majorant and the triangle areas of the phase/light
+MIS (shade/volumetric.py).
 """
 
 from __future__ import annotations
@@ -104,13 +108,67 @@ class CompiledScene:
                                  # object-space bounds
     inst_world_lo: np.ndarray = None
     inst_world_hi: np.ndarray = None
-
-    # Volumes are not ported (compile_scene raises).
-    has_volume = False
+    # Heterogeneous volume (reference TracerBoy.cpp:1096-1184: one density
+    # grid + world bounds; shaded by shade/volumetric.py in the wave).
+    vol_density: np.ndarray = None   # (D, H, W) float32; None = no volume
+    vol_lo: np.ndarray = None        # (3,)
+    vol_hi: np.ndarray = None
+    vol_sigma_a: np.ndarray = None   # (3,)
+    vol_sigma_s: np.ndarray = None   # (3,)
+    vol_g: float = 0.0
 
     @property
     def has_instances(self) -> bool:
         return self.inst_tables is not None
+
+    @property
+    def has_volume(self) -> bool:
+        return self.vol_density is not None
+
+    def volume_tables(self, pk_tri_map=None) -> dict:
+        """The volume leaves of the JAX package's as_pytree, for volume
+        scenes only: the (D*H*W, 8) trilinear stencil rows vol_oct (row c
+        holds the 8 corner densities of the trilerp cell anchored at voxel
+        c), the grid and its box, the delta-tracking majorant (max density
+        times the largest channel's extinction, 10% above the true bound
+        so that the null-collision branch keeps a nonzero probability),
+        and the triangle areas of the phase/light MIS in scene order
+        (tri_area) and in the packed order of pk_tri_map (pk_tri_area)."""
+        if not self.has_volume:
+            return {}
+        dd = self.vol_density
+        sig_t = self.vol_sigma_a + self.vol_sigma_s
+        D_, H_, W_ = dd.shape
+        zs = np.minimum(np.arange(D_) + 1, D_ - 1)
+        ys = np.minimum(np.arange(H_) + 1, H_ - 1)
+        xs = np.minimum(np.arange(W_) + 1, W_ - 1)
+        oct_rows = np.stack(
+            [dd, dd[:, :, xs], dd[:, ys], dd[:, ys][:, :, xs],
+             dd[zs], dd[zs][:, :, xs], dd[zs][:, ys],
+             dd[zs][:, ys][:, :, xs]],
+            axis=-1,
+        ).reshape(-1, 8).astype(np.float32)
+        te1 = self.tri_v1 - self.tri_v0
+        te2 = self.tri_v2 - self.tri_v0
+        tri_area = np.maximum(
+            0.5 * np.linalg.norm(np.cross(te1, te2), axis=1), 1e-12
+        ).astype(np.float32)
+        out = dict(tri_area=tri_area)
+        if pk_tri_map is not None:
+            pk_order = np.clip(np.asarray(pk_tri_map), 0,
+                               tri_area.shape[0] - 1)
+            out["pk_tri_area"] = tri_area[pk_order]
+        out.update(
+            vol_density=dd.reshape(-1),
+            vol_oct=oct_rows,
+            vol_dims=np.array(dd.shape, np.int32),
+            vol_lo=self.vol_lo, vol_hi=self.vol_hi,
+            vol_sigma_a=self.vol_sigma_a, vol_sigma_s=self.vol_sigma_s,
+            vol_g=np.float32(self.vol_g),
+            vol_majorant=np.float32(
+                max(float(dd.max()) * float(sig_t.max()), 1e-8) * 1.1),
+        )
+        return out
 
     def as_numpy(self) -> dict:
         """The leaves of the JAX package's as_pytree(pack_pallas=True),
@@ -179,6 +237,7 @@ class CompiledScene:
             world_hi = np.maximum(world_hi, self.inst_world_hi)
         leaves = dict(
             **packed,
+            **self.volume_tables(packed["pk_tri_map"]),
             tri9=tri9,
             tri_attr_t=tri_attr_t,
             tri_attr_rows=tri_attr_rows,
@@ -296,7 +355,9 @@ def from_jax_pytree(d: dict, device="cuda") -> dict:
     port's CompiledScene, or np.asarray of every leaf of the JAX package's
     CompiledScene.as_pytree(pack_pallas=True). Nested dicts (materials,
     lights, tex_records, camera) stay nested, and so does a TLAS scene's
-    inst_objs list (one dict of packed tables and base a unique object)."""
+    inst_objs list (one dict of packed tables and base a unique object).
+    A volume scene also gets vol_shape, the grid's (D, H, W) as python
+    ints, so that the walk and the march read it without a device sync."""
     def convert(v):
         if isinstance(v, dict):
             return from_jax_pytree(v, device)
@@ -305,7 +366,10 @@ def from_jax_pytree(d: dict, device="cuda") -> dict:
         a = np.array(_canonical(v), order="C", copy=True)
         return torch.from_numpy(a).to(device)
 
-    return {k: convert(v) for k, v in d.items()}
+    out = {k: convert(v) for k, v in d.items()}
+    if "vol_dims" in d:
+        out["vol_shape"] = tuple(int(x) for x in np.asarray(d["vol_dims"]))
+    return out
 
 
 def _transform_mesh(mesh: ir.TriangleMeshIR):
@@ -461,10 +525,6 @@ def compile_scene(scene: ir.SceneIR, leaf_size: int = LEAF_SIZE,
     transform table (TracerBoy.cpp:1305-1410); "auto" takes the TLAS only
     with at least 16 instances and 1M flattened instanced triangles, the
     JAX package's rule."""
-    if getattr(scene, "volume", None) is not None:
-        raise NotImplementedError(
-            "volumes are not ported yet (ROADMAP.md, Queue 1: item 14, "
-            "shade/volumetric.py)")
     table = MaterialTable()
     tex_alloc = TextureAllocator(scene.base_dir, scene.textures)
 
@@ -566,6 +626,11 @@ def compile_scene(scene: ir.SceneIR, leaf_size: int = LEAF_SIZE,
         max_depth=scene.integrator.max_depth,
         blue_noise0=blue0, blue_noise1=blue1,
         **inst,
+        **(dict(vol_density=scene.volume.density,
+                vol_lo=scene.volume.lo, vol_hi=scene.volume.hi,
+                vol_sigma_a=scene.volume.sigma_a,
+                vol_sigma_s=scene.volume.sigma_s, vol_g=scene.volume.g)
+           if getattr(scene, "volume", None) is not None else {}),
     )
 
 
@@ -738,6 +803,7 @@ _ARRAY_FIELDS = (
     "bvh_children", "tex_images", "tex_sizes", "env_map",
     "env_transform", "env_color_scale", "blue_noise0", "blue_noise1",
 )
+_VOLUME_FIELDS = ("density", "lo", "hi", "sigma_a", "sigma_s", "g")
 
 
 def save_compiled(path: str, cs: CompiledScene) -> None:
@@ -748,6 +814,9 @@ def save_compiled(path: str, cs: CompiledScene) -> None:
             flat[prefix + k] = v
     for name in _SCALAR_FIELDS:
         flat["scalar." + name] = np.asarray(getattr(cs, name))
+    if cs.has_volume:
+        for name in _VOLUME_FIELDS:
+            flat["vol." + name] = np.asarray(getattr(cs, "vol_" + name))
     cam = cs.camera
     flat["cam.position"] = cam.position
     flat["cam.look_at"] = cam.look_at
@@ -759,11 +828,10 @@ def save_compiled(path: str, cs: CompiledScene) -> None:
 
 def load_compiled(path: str) -> CompiledScene:
     with np.load(path) as z:
-        if any(k.startswith("vol.") for k in z.files):
-            raise NotImplementedError(
-                f"{path}: a cached scene with a volume; volumes are not "
-                "ported yet (ROADMAP.md, Queue 1: item 14, "
-                "shade/volumetric.py)")
+        vol = {"vol_" + n: z["vol." + n] for n in _VOLUME_FIELDS
+               if "vol." + n in z.files}
+        if "vol_g" in vol:
+            vol["vol_g"] = float(vol["vol_g"])
         mats = {k[4:]: z[k] for k in z.files if k.startswith("mat.")}
         texr = {k[4:]: z[k] for k in z.files if k.startswith("tex.")}
         lights = {k[6:]: z[k] for k in z.files if k.startswith("light.")}
@@ -783,7 +851,7 @@ def load_compiled(path: str) -> CompiledScene:
         film_width=int(scal["film_width"]),
         film_height=int(scal["film_height"]),
         sampler_spp=int(scal["sampler_spp"]),
-        max_depth=int(scal["max_depth"]),
+        max_depth=int(scal["max_depth"]), **vol,
     )
 
 

@@ -17,9 +17,8 @@ Sources accepted:
 - raw `.npy` (D, H, W) float arrays (bounds given separately);
 - a procedural test cloud.
 
-A numpy copy of tracerboy_tpu/scene/volume.py: the PBRT parser builds a
-VolumeIR from MakeNamedMedium. OpenVDB files and rendering a volume are
-not ported yet (ROADMAP.md, Queue 1: item 14, volumes).
+A numpy copy of tracerboy_tpu/scene/volume.py; OpenVDB grids are read by
+the port's own copy of the JAX package's reader (scene/vdb.py).
 """
 
 from __future__ import annotations
@@ -176,9 +175,9 @@ def procedural_cloud(n: int = 32, seed: int = 0) -> VolumeIR:
 def load_volume(path: str, lo=None, hi=None) -> VolumeIR:
     """Dispatch on extension (.vdb / .vol / .npy)."""
     if path.endswith(".vdb"):
-        raise NotImplementedError(
-            f"{path}: OpenVDB grids are not ported yet (ROADMAP.md, "
-            "Queue 1: item 14, volumes)")
+        from tracerboy_tpu_torch.scene.vdb import read_vdb
+
+        return read_vdb(path)
     if path.endswith(".vol"):
         return read_vol(path)
     if path.endswith(".npy"):

@@ -18,6 +18,21 @@ WaveConfig.transparent_shadows runs the same march and lets glass pass
 light with a Fresnel factor (_shadow_transmittance). Normal maps
 (has_normal_maps) tilt the detail normal (shade/surface.apply_normal_map).
 
+Heterogeneous volumes (WaveConfig.has_volume; shade/volumetric.py): each
+bounce delta-tracks the segment up to the closest hit (kernel 1 gives its
+end) through the scene's density grid; a real collision preempts the hit
+and the miss, draws a light sample weighted by the Henyey-Greenstein
+phase (balance-weighted against the phase-sampled continuation with
+volume_light_mis), and continues along an HG direction. Every NEE and
+env-NEE shadow segment is attenuated by ratio-marched transmittance.
+
+The estimators of the JAX package ride on the same wave: the tent splat
+(filter_splat: filter weight 1, the jitter planes out, and
+render_wave_merged folds them through splat_fold_tent), split planes
+(split_early: radiance_early holds the contributions recorded at bounce
+i <= split_early) and the per-pixel tonemapped-luma moments of the
+adaptive burst (render_wave_merged(fold_var=True)).
+
 TLAS-instanced scenes (WaveConfig.has_instances, packed backends only)
 merge trace/instanced.py's closest hit into every closest-hit wave (the
 alpha re-fires included), carry the hit instance to shading, which
@@ -87,6 +102,12 @@ from tracerboy_tpu_torch.shade.surface import (
     eval_texture,
     fetch_material_soa,
 )
+from tracerboy_tpu_torch.shade.volumetric import (
+    delta_track,
+    hg_pdf,
+    sample_hg,
+    transmittance,
+)
 from tracerboy_tpu_torch.trace import binned, cut, traverse
 from tracerboy_tpu_torch.trace.camera import generate_primary_rays_soa
 from tracerboy_tpu_torch.trace.instanced import instanced_closest
@@ -107,9 +128,7 @@ class WaveConfig:
 
     Energy-based lobe selection is always on, as the JAX renderer runs
     it; russian roulette can be switched off (the demodulation identity
-    is exact per sample only without it). The fields after "Not ported
-    yet" name features of the JAX integrator that the port does not have;
-    render_wave raises NotImplementedError when one is switched on."""
+    is exact per sample only without it)."""
 
     width: int
     height: int
@@ -148,26 +167,29 @@ class WaveConfig:
     has_normal_maps: bool = False
     # TLAS/BLAS instancing (trace/instanced.py).
     has_instances: bool = False
-    # Not ported yet:
+    # Cross-pixel tent splat: the in-pixel filter weight is 1 and the wave
+    # returns the jitter planes, which render_wave_merged's fold splats
+    # into the 2x2 neighbourhood (splat_fold_tent).
     filter_splat: bool = False
+    # Contribution-depth split: >= 0 adds radiance_early, the
+    # contributions recorded at bounce iterations i <= split_early; the
+    # late plane is radiance - radiance_early of the same samples.
     split_early: int = -1
+    # Heterogeneous volume (shade/volumetric.py): the walk's step cap
+    # (at most 128: the RNG packs the step as (bounce << 7) + step), the
+    # ratio-marching samples of a shadow segment, and phase/light MIS at
+    # volume vertices (False: the NEE-only estimator).
     has_volume: bool = False
-
-
-_UNPORTED = {
-    "filter_splat": "ROADMAP.md, Queue 1: render_wave_merged splat fold",
-    "has_volume": "ROADMAP.md, Queue 1: item 14, shade/volumetric.py",
-}
+    volume_steps: int = 64
+    volume_shadow_steps: int = 8
+    volume_light_mis: bool = True
 
 
 def _check_supported(cfg: WaveConfig, params: dict):
-    for name, item in _UNPORTED.items():
-        if getattr(cfg, name):
-            raise NotImplementedError(f"WaveConfig.{name}: not ported yet "
-                                      f"({item})")
-    if cfg.split_early >= 0:
-        raise NotImplementedError("WaveConfig.split_early: not ported yet "
-                                  "(ROADMAP.md, Queue 1: split planes)")
+    if cfg.has_volume and cfg.volume_steps > 128:
+        raise ValueError(
+            f"volume_steps={cfg.volume_steps} > 128 would alias per-bounce "
+            "volume RNG streams")
     if cfg.env_nee and not 1 <= cfg.env_nee_samples <= 8:
         raise ValueError("env_nee_samples must be 1..8 (the streams "
                          "STREAM_ENV_NEE_X bound it)")
@@ -485,16 +507,18 @@ def _occluded(scene, o, d, t_max, cfg):
     return fn(*rays, *tables)
 
 
-def _env_nee(scene, cfg, s, i, hash2, env_h, env_w, *, base, shading,
-             hit_point, normal, detail_normal, prev_dir, albedo, roughness,
-             refl_coef, allows_spec, is_metal, p_spec):
+def _env_nee(scene, cfg, s, i, hash1, hash2, env_h, env_w, *, base,
+             shading, hit_point, normal, detail_normal, prev_dir, albedo,
+             roughness, refl_coef, allows_spec, is_metal, p_spec):
     """Environment NEE at one vertex (tracerboy_tpu/trace/wavefront.py
     env_nee): M = cfg.env_nee_samples cosine directions about the detail
     normal, occlusion of all M in ONE concatenated shadow wave, and the
     full BSDF times the environment, each sample weighted by the
-    multi-sample balance heuristic M p / (M p + p_bsdf) and averaged.
-    Adds to s["radiance"] (and s["rad_d"]) and s["rays_traced"]; returns
-    the lanes that traced at least one env sample (do_env)."""
+    multi-sample balance heuristic M p / (M p + p_bsdf) and averaged; in
+    a volume scene each sample's segment is attenuated by the
+    ratio-marched transmittance. Adds to s["radiance"] (and s["rad_d"],
+    s["rad_early"]) and s["rays_traced"]; returns the lanes that traced
+    at least one env sample (do_env)."""
     M = cfg.env_nee_samples
     dirs, pdfs = [], []
     for j in range(M):
@@ -516,7 +540,6 @@ def _env_nee(scene, cfg, s, i, hash2, env_h, env_w, *, base, shading,
         V3(*(c.repeat(M) for c in org)),
         V3(*(torch.cat([d_j[k] for d_j in dirs]) for k in range(3))),
         torch.cat([torch.where(d_j, BIG, 0.0) for d_j in do_envs]), cfg)
-    del org
 
     zero = torch.zeros_like(hit_point.x)
     contrib_sum = _zero3(zero)
@@ -563,8 +586,16 @@ def _env_nee(scene, cfg, s, i, hash2, env_h, env_w, *, base, shading,
         e_gain = (w_env * (1.0 / M)) / torch.clamp_min(env_pdf, 1e-12)
         if trans is not None:
             e_gain = e_gain * trans[j * N:(j + 1) * N]
-        e_contrib = v3.where(e_add, s["throughput"] * e_mult * e_env * e_gain,
-                             _zero3(zero))
+        e_contrib = s["throughput"] * e_mult * e_env * e_gain
+        if cfg.has_volume:
+            # The opaque-BVH occlusion test alone would add the full env
+            # radiance through the medium: attenuate the env shadow
+            # segment as NEE does.
+            e_contrib = e_contrib * transmittance(
+                scene, org, env_dir, torch.where(do_envs[j], BIG, 0.0),
+                do_envs[j], hash1(i, tbrng.STREAM_ENV_NEE_SHADOW),
+                cfg.volume_shadow_steps)
+        e_contrib = v3.where(e_add, e_contrib, _zero3(zero))
         contrib_sum = contrib_sum + e_contrib
         if cfg.decouple_albedo:
             # The env direction's own diffuse fraction, distinct from the
@@ -578,6 +609,9 @@ def _env_nee(scene, cfg, s, i, hash2, env_h, env_w, *, base, shading,
             contrib_d_sum = contrib_d_sum + e_contrib * w_ed
     s["radiance"] = v3.where(add_any, s["radiance"] + contrib_sum,
                              s["radiance"])
+    if i <= cfg.split_early:
+        s["rad_early"] = v3.where(add_any, s["rad_early"] + contrib_sum,
+                                  s["rad_early"])
     if cfg.decouple_albedo:
         s["rad_d"] = v3.where(add_any, s["rad_d"] + contrib_d_sum,
                               s["rad_d"])
@@ -614,7 +648,9 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
     """Trace one sample for each pixel id.
 
     Returns radiance (N, 3) times the filter weight (and radiance_d with
-    cfg.decouple_albedo), filter_weight (N,), rays_traced, and the first
+    cfg.decouple_albedo, radiance_early with cfg.split_early >= 0, the
+    jitter planes jit_u, jit_v (N,) with cfg.filter_splat), filter_weight
+    (N,), rays_traced, and the first
     hit's world_pos (A, 3) and neighbor_dist (A,), the distance to the hit
     of the next pixel's centre ray, which the renderer keeps as its
     world-position buffer, the other first-hit AOVs of AOV_KEYS, each
@@ -681,7 +717,9 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
     # Pixel filter weight (kernel.glsl:1843-1868).
     off_u = (jit_u - 0.5) * cfg.filter_width
     off_v = (jit_v - 0.5) * cfg.filter_width
-    if cfg.filter_type == 1:    # triangle
+    if cfg.filter_splat:        # weights applied at the splat fold
+        fw = one
+    elif cfg.filter_type == 1:  # triangle
         fw = torch.clamp_min(torch.maximum(0.5 - torch.abs(off_u),
                                            0.5 - torch.abs(off_v)), 0.0)
     elif cfg.filter_type == 2:  # gaussian
@@ -729,6 +767,14 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
         med_ior=one,
         rays_traced=torch.zeros((), dtype=torch.int64, device=dev),
     )
+    if cfg.split_early >= 0:
+        s["rad_early"] = vzero3
+        if cfg.has_env:
+            s["miss_early"] = no
+    if cfg.has_volume:
+        # Phase pdf of the previous vertex's HG continuation (0: that
+        # vertex was no volume scatter), for the phase/light MIS pair.
+        s["prev_phase_pdf"] = zero
     if cfg.has_env:
         # Lazy environment: a miss records its throughput; one env fetch
         # runs after the bounce loop.
@@ -781,7 +827,28 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
             cost_lanes=na if i == 0 else 0)
         del t_max
 
-        miss = alive & (tri < 0)
+        # --- heterogeneous volume: delta-tracked medium interaction -----
+        # A real collision preempts both the surface hit and the miss.
+        if cfg.has_volume:
+            def vrng2(k, i=i):
+                ub = (i << 7) + k   # at most 128 walk steps a bounce
+                return (hash1(ub, tbrng.STREAM_VOLUME),
+                        hash1(ub, tbrng.STREAM_VOLUME + 1))
+
+            t_seg = torch.where(tri >= 0, t, BIG)
+            vol_scatter, t_vsc, vol_w = delta_track(
+                scene, s["origin"], s["direction"], t_seg,
+                alive & ~s["inside"], vrng2, cfg.volume_steps)
+            del t_seg
+            s["throughput"] = s["throughput"] * vol_w
+            vol_point = s["origin"] + s["direction"] * t_vsc
+            vh_u, vh_v = hash2(i, tbrng.STREAM_VOLUME + 2)
+            vol_dir = sample_hg(s["direction"], scene["vol_g"], vh_u, vh_v)
+            del vol_w, t_vsc, vh_u, vh_v
+            miss = alive & (tri < 0) & ~vol_scatter
+        else:
+            vol_scatter = None
+            miss = alive & (tri < 0)
 
         # --- miss: environment, recorded lazily ---------------------------
         if cfg.has_env:
@@ -790,6 +857,8 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
                 rec = rec * s["env_mis_w"]
             s["env_throughput"] = v3.where(miss, rec, s["env_throughput"])
             del rec
+            if i <= cfg.split_early:
+                s["miss_early"] = s["miss_early"] | miss
             if i == 0:
                 first_miss = miss[:na]
                 if cfg.decouple_albedo:
@@ -900,6 +969,8 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
 
         # ===== surface shading ===========================================
         shading = alive & ~s["inside"]
+        if cfg.has_volume:
+            shading = shading & ~vol_scatter
         is_light = (flags & LIGHT_FLAG) != 0
         allows_spec = (flags & NO_SPECULAR_FLAG) == 0
         is_metal = ((flags & METALLIC_FLAG) != 0) | ((flags & HAIR_FLAG) != 0)
@@ -938,6 +1009,41 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
         s["radiance"] = v3.where(
             add_emissive, s["radiance"] + s["throughput"] * mat["emissive"],
             s["radiance"])
+        if i <= cfg.split_early:
+            s["rad_early"] = v3.where(
+                add_emissive,
+                s["rad_early"] + s["throughput"] * mat["emissive"],
+                s["rad_early"])
+        if (cfg.has_volume and cfg.volume_light_mis and cfg.enable_nee
+                and cfg.num_lights > 0 and i > 0):
+            # Phase/light MIS, phase side: a lane whose previous vertex
+            # was a volume scatter hit a light that the NEE-only
+            # convention drops. Add it balance-weighted against the
+            # solid-angle pdf NEE had for this light point,
+            # t^2 / (num_lights * tri_area * cos) (light records are per
+            # triangle). Flat-scene ids only: instanced emitters keep the
+            # NEE-only convention (tri_a == tric).
+            area = scene["pk_tri_area" if cfg.traversal in PACKED_BACKENDS
+                         else "tri_area"]
+            tri_a = torch.clamp(tric, 0, area.shape[0] - 1)
+            a_hit = area[tri_a]
+            p_ph = s["prev_phase_pdf"]
+            p_lw_hit = (t * t) / torch.clamp_min(
+                cfg.num_lights * a_hit * torch.abs(ray_dot_n), 1e-9)
+            w_ph = p_ph / torch.clamp_min(p_ph + p_lw_hit, 1e-12)
+            vol_emis = (shading & is_light & ~s["prev_perfect_specular"]
+                        & (p_ph > 0.0) & (ray_dot_n < 0.0) & (tri_a == tric))
+            vol_add = s["throughput"] * mat["emissive"] * w_ph
+            s["radiance"] = v3.where(vol_emis, s["radiance"] + vol_add,
+                                     s["radiance"])
+            if i <= cfg.split_early:
+                s["rad_early"] = v3.where(vol_emis, s["rad_early"] + vol_add,
+                                          s["rad_early"])
+            if cfg.decouple_albedo:
+                s["rad_d"] = v3.where(vol_emis,
+                                      s["rad_d"] + vol_add * s["dc_w"],
+                                      s["rad_d"])
+            del area, tri_a, a_hit, p_ph, p_lw_hit, w_ph, vol_emis, vol_add
 
         # --- first-hit AOVs (RayGenCommon.h:524-654) ----------------------
         if i == 0:
@@ -970,21 +1076,47 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
 
         # --- NEE (kernel.glsl:1435-1517) ----------------------------------
         if cfg.enable_nee and cfg.num_lights > 0:
+            nee_org = hit_point
+            if cfg.has_volume:
+                nee_org = v3.where(vol_scatter, vol_point, nee_org)
             ls = sample_one_light_soa(
-                scene["lights"], cfg.num_lights, hit_point, lane,
+                scene["lights"], cfg.num_lights, nee_org, lane,
                 sample_index, i, use_ris=cfg.enable_ris, seed=seed,
                 sampler=cfg.sampler,
             )
+            del nee_org
             facing = v3.dot(ls["direction"], ls["normal"]) < 0.0
             do_nee = (shading & ~perfect_spec & ~is_light
                       & (ls["pdf"] > EPSILON) & facing)
+            if cfg.has_volume:
+                # Volume scatter vertices draw a light sample too,
+                # weighted by the HG phase instead of a BRDF.
+                do_nee = do_nee | (vol_scatter & (ls["pdf"] > EPSILON)
+                                   & facing)
             s["rays_traced"] = s["rays_traced"] + do_nee.sum()
             sh_org = hit_point + normal * EPSILON
+            if cfg.has_volume:
+                sh_org = v3.where(vol_scatter, vol_point, sh_org)
             sh_tmax = torch.where(do_nee, ls["distance"] * (1.0 - 1e-3),
                                   0.0)
             occluded, sh_trans = _shadow(scene, sh_org, ls["direction"],
                                          sh_tmax, cfg)
             surf_w = bsdf.diffuse_brdf_soa(ls["direction"], detail_normal)
+            if cfg.has_volume:
+                # The HG phase value at the volume vertex is also the pdf
+                # of the phase-sampled competitor, so the balance weight
+                # against it is exact; p_L in solid angle (directional
+                # lights, distance 1e9, drive the weight to 1).
+                phase_val = hg_pdf(v3.dot(s["direction"], ls["direction"]),
+                                   scene["vol_g"])
+                cos_light = torch.abs(v3.dot(ls["normal"], ls["direction"]))
+                p_lw = (ls["pdf"] * ls["distance"] ** 2
+                        / torch.clamp_min(cos_light, 1e-6))
+                w_vol_nee = (p_lw / torch.clamp_min(p_lw + phase_val, 1e-12)
+                             if cfg.volume_light_mis else 1.0)
+                surf_w = torch.where(vol_scatter, phase_val * w_vol_nee,
+                                     surf_w)
+                del phase_val, cos_light, p_lw, w_vol_nee
             light_mult = (
                 ls["attenuation"] * surf_w
                 * torch.abs(v3.dot(ls["normal"], ls["direction"]))
@@ -998,9 +1130,25 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
                 # The first vertex's direct light is diffuse-weighted: its
                 # albedo factor is what the composite applies again.
                 nee_albedo = v3.where(shading, V3(one, one, one), nee_albedo)
+            if cfg.has_volume:
+                # A volume vertex has no albedo (it rides in the walk's
+                # weight).
+                nee_albedo = v3.where(vol_scatter, V3(one, one, one),
+                                      nee_albedo)
             contrib = s["throughput"] * nee_albedo * ls["color"]
+            if cfg.has_volume:
+                # Every shadow segment through the volume is attenuated
+                # by the jittered ratio march.
+                contrib = contrib * transmittance(
+                    scene, sh_org, ls["direction"], sh_tmax, do_nee,
+                    hash1(i, tbrng.STREAM_VOLUME_SHADOW),
+                    cfg.volume_shadow_steps)
             s["radiance"] = v3.where(
                 add, s["radiance"] + contrib * light_mult, s["radiance"])
+            if i <= cfg.split_early:
+                s["rad_early"] = v3.where(
+                    add, s["rad_early"] + contrib * light_mult,
+                    s["rad_early"])
             if cfg.decouple_albedo:
                 w_nee = torch.where(shading, 1.0, s["dc_w"]) if i == 0 \
                     else s["dc_w"]
@@ -1108,7 +1256,7 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
 
         if cfg.has_env and cfg.env_nee:
             do_env = _env_nee(
-                scene, cfg, s, i, hash2, env_h, env_w,
+                scene, cfg, s, i, hash1, hash2, env_h, env_w,
                 base=shading & ~perfect_spec & ~is_light & ~surf_sss,
                 shading=shading, hit_point=hit_point, normal=normal,
                 detail_normal=detail_normal, prev_dir=prev_dir,
@@ -1121,9 +1269,12 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
             M = cfg.env_nee_samples
             w_escape = pdf / torch.clamp_min(
                 pdf + M * torch.clamp_min(diffuse_pdf, 0.0), 1e-12)
+            reset = shading | in_medium
+            if cfg.has_volume:
+                reset = reset | vol_scatter
             s["env_mis_w"] = torch.where(
                 do_env, w_escape,
-                torch.where(shading | in_medium, 1.0, s["env_mis_w"]))
+                torch.where(reset, 1.0, s["env_mis_w"]))
             del do_env, w_escape
 
         apply_surface = shading & ~died_on_light
@@ -1149,6 +1300,22 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
             torch.where(shading, new_inside2, s["inside"]))
         s["prev_perfect_specular"] = torch.where(
             shading, perfect_spec, s["prev_perfect_specular"])
+        if cfg.has_volume:
+            # Volume scatter: continue from the collision point along the
+            # HG direction (pdf == phase, weight 1: the albedo is in the
+            # walk's weight). Record the continuation's phase pdf
+            # (s["direction"] still holds the incoming direction of a
+            # volume lane) for the MIS pair at the next emissive hit.
+            s["prev_phase_pdf"] = torch.where(
+                vol_scatter,
+                hg_pdf(v3.dot(s["direction"], vol_dir), scene["vol_g"]),
+                0.0)
+            s["origin"] = v3.where(vol_scatter, vol_point, s["origin"])
+            s["direction"] = v3.where(vol_scatter, vol_dir, s["direction"])
+            s["prev_perfect_specular"] = torch.where(
+                vol_scatter, False, s["prev_perfect_specular"])
+            del vol_point, vol_dir
+        del vol_scatter
         s["alive"] = alive & ~died_on_light & ~med_escaped
         del mat, hit_point, normal, new_dir, new_origin, med_org, med_dir
 
@@ -1174,12 +1341,19 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
         if first_miss is not None:
             aov["emissive"] = v3.where(first_miss, _head(env_contrib, na),
                                        aov["emissive"])
+        if cfg.split_early >= 0:
+            s["rad_early"] = s["rad_early"] + v3.where(
+                s["miss_early"], env_contrib, vzero3)
     clamp = float(params.get("firefly_clamp", 0.0))
-    if clamp >= EPSILON:
-        radiance = V3(torch.clamp_max(radiance.x, clamp),
-                      torch.clamp_max(radiance.y, clamp),
-                      torch.clamp_max(radiance.z, clamp))
-    radiance = v3.where(v3.isnan_any(radiance), vzero3, radiance)
+
+    def clamp_nan(rad):
+        if clamp >= EPSILON:
+            rad = V3(torch.clamp_max(rad.x, clamp),
+                     torch.clamp_max(rad.y, clamp),
+                     torch.clamp_max(rad.z, clamp))
+        return v3.where(v3.isnan_any(rad), vzero3, rad)
+
+    radiance = clamp_nan(radiance)
     if params.get("active_mask") is not None:
         fw = torch.where(params["active_mask"], fw, 0.0)
 
@@ -1188,6 +1362,13 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
         filter_weight=fw,
         rays_traced=s["rays_traced"],
     )
+    if cfg.filter_splat:
+        out["jit_u"] = jit_u
+        out["jit_v"] = jit_v
+    if cfg.split_early >= 0:
+        # The total's clamp and NaN policy, so that early + late stays
+        # an exact partition with the firefly clamp off.
+        out["radiance_early"] = v3.to_rows(clamp_nan(s["rad_early"]) * fw)
     if cfg.decouple_albedo:
         rad_d = v3.where(v3.isnan_any(s["rad_d"]), vzero3, s["rad_d"])
         out["radiance_d"] = v3.to_rows(rad_d * fw)
@@ -1196,20 +1377,64 @@ def render_wave(scene, params, pixel_ids, sample_index, cfg: WaveConfig,
     return out
 
 
+def splat_fold_tent(rad_r, rad_g, rad_b, jit_u, jit_v, W: int, H: int,
+                    k: int):
+    """Fold a k-merged full-film wave into per-pixel sums through a
+    partition-of-unity TENT reconstruction splat (pbrt's triangle filter
+    at radius 1): the sample at film position (x + ju, y + jv) contributes
+    weight (1-|dx+0.5-ju|)+ * (1-|dy+0.5-jv|)+ to pixel (x+dx, y+dy),
+    exactly the 2x2 nearest pixel centres, weights summing to 1 (border
+    losses normalise out through the accumulated filter weight). Nine
+    shifted adds of (k, H, W) planes in the JAX package's order: dy outer,
+    dx inner, the sum over k before the shift. Returns (r, g, b, fw),
+    each (H*W,)."""
+    def img(a):
+        return a.reshape(k, H, W)
+
+    ju, jv = img(jit_u), img(jit_v)
+    planes = [img(rad_r), img(rad_g), img(rad_b)]
+    acc = [torch.zeros((H, W), dtype=torch.float32, device=ju.device)
+           for _ in range(4)]
+    for dy in (-1, 0, 1):
+        wy = torch.clamp_min(1.0 - torch.abs(dy + 0.5 - jv), 0.0)
+        for dx in (-1, 0, 1):
+            w = wy * torch.clamp_min(1.0 - torch.abs(dx + 0.5 - ju), 0.0)
+            srcs = [(w * p).sum(0) for p in planes] + [w.sum(0)]
+            for i, src in enumerate(srcs):
+                pad = torch.nn.functional.pad(src, (1, 1, 1, 1))
+                acc[i] = acc[i] + pad[1 - dy:1 - dy + H, 1 - dx:1 - dx + W]
+    return tuple(a.reshape(-1) for a in acc)
+
+
 def render_wave_merged(scene, params, pixel_ids, base_sample: int, k: int,
-                       cfg: WaveConfig, fold_aovs: bool = False):
+                       cfg: WaveConfig, fold_aovs: bool = False,
+                       fold_var: bool = False):
     """Trace k samples per pixel in ONE wave of k*N lanes (per-lane sample
     indices base_sample + j); returns per-pixel summed radiance (and
-    radiance_d) and filter weight, total rays_traced, and the first
-    sample's AOVs (AOV_KEYS and viz_rays). With fold_aovs the albedo,
-    normal, emissive and diffuse_contrib planes are summed over the k
-    samples instead (the caller divides by the sample count for the
+    radiance_d, radiance_early) and filter weight, total rays_traced, and
+    the first sample's AOVs (AOV_KEYS and viz_rays). With fold_aovs the
+    albedo, normal, emissive and diffuse_contrib planes are summed over
+    the k samples instead (the caller divides by the sample count for the
     anti-aliased mean). A merged wave cannot record the selected pixel's
-    path (its lane would be recorded k times)."""
+    path (its lane would be recorded k times).
+
+    cfg.filter_splat (a full-film wave, no decouple_albedo) folds the
+    radiance through splat_fold_tent into radiance_splat (N, 3) and the
+    filter weight; radiance stays the box fold of the samples, the plane
+    the JAX package's renderer accumulates under the tent weight.
+    fold_var adds lum and lum_sq, the per-pixel sums of each sample's
+    tonemapped luma and its square (the adaptive burst's pilot
+    statistic)."""
     if params.get("selected_pixel") is not None:
         raise ValueError(
             "merged waves cannot record the selected pixel's ray path")
     N = pixel_ids.shape[0]
+    if cfg.filter_splat:
+        if N != cfg.width * cfg.height:
+            raise ValueError("filter_splat needs a full-film wave "
+                             "(pixel_ids = arange)")
+        if cfg.decouple_albedo:
+            raise ValueError("filter_splat + demodulated planes unsupported")
     dev = pixel_ids.device
     tiled = pixel_ids.repeat(k)
     sidx = int(base_sample) + torch.arange(
@@ -1230,6 +1455,25 @@ def render_wave_merged(scene, params, pixel_ids, base_sample: int, k: int,
         filter_weight=fold(out["filter_weight"]),
         rays_traced=out["rays_traced"],
     )
+    if cfg.filter_splat:
+        rad = out["radiance"]
+        rr, gg, bb, fw = splat_fold_tent(
+            rad[:, 0], rad[:, 1], rad[:, 2], out["jit_u"], out["jit_v"],
+            cfg.width, cfg.height, k)
+        result["radiance_splat"] = torch.stack([rr, gg, bb], dim=-1)
+        result["filter_weight"] = fw
+    if cfg.split_early >= 0:
+        result["radiance_early"] = fold(out["radiance_early"])
+    if fold_var:
+        # Per-pixel moments of the per-sample tonemapped luma (the
+        # fidelity gates score in that domain).
+        rad = out["radiance"]
+        fw1 = torch.clamp_min(out["filter_weight"], 1e-8)
+        lin = (0.2126 * rad[:, 0] + 0.7152 * rad[:, 1]
+               + 0.0722 * rad[:, 2]) / fw1
+        tl = torch.pow(torch.clamp(lin, 0.0, 1.0), 1.0 / 2.2)
+        result["lum"] = fold(tl)
+        result["lum_sq"] = fold(tl * tl)
     if cfg.decouple_albedo:
         result["radiance_d"] = fold(out["radiance_d"])
     for key in AOV_KEYS:
@@ -1244,16 +1488,19 @@ def render_wave_merged(scene, params, pixel_ids, base_sample: int, k: int,
 def render_wave_batch(scene, params, pixel_ids, base_sample: int, k: int,
                       cfg: WaveConfig):
     """Trace k samples per pixel as k waves of N lanes; returns summed
-    radiance, filter weight and rays_traced, and the LAST sample's AOVs
-    (no viz_rays, as in the JAX package)."""
+    radiance, filter weight and rays_traced (and radiance_d,
+    radiance_early), and the LAST sample's AOVs (no viz_rays, as in the
+    JAX package)."""
     acc = None
+    summed = ("radiance", "filter_weight", "rays_traced") + (
+        ("radiance_d",) if cfg.decouple_albedo else ()) + (
+        ("radiance_early",) if cfg.split_early >= 0 else ())
     for j in range(k):
         out = render_wave(scene, params, pixel_ids, int(base_sample) + j,
                           cfg)
         out.pop("viz_rays", None)
         if acc is not None:
-            for key in ("radiance", "filter_weight", "rays_traced") + (
-                    ("radiance_d",) if cfg.decouple_albedo else ()):
+            for key in summed:
                 out[key] = acc[key] + out[key]
         acc = out
     return acc
