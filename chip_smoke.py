@@ -88,7 +88,7 @@ Phases, each fatal on failure:
      (utils/demo_scene.py: a 256x256-quad height field as a binary PLY,
      three spheres, a curve, a checkerboard texture, an .hdr sky as the
      infinite light; a second file Includes it and adds a distant and a
-     point light): the sky alone at 8 spp (environment NEE on by auto),
+     point light): the sky alone at 4 spp (environment NEE on by auto),
      with --env-nee on and 4 env-NEE samples, the lit scene, 8 RealTime
      frames, and --checkpoint at 4 spp resumed to 8 by a second process;
      each must write a 1280x720 RGB PNG and finite EXR radiance, launch
@@ -148,12 +148,30 @@ Phases, each fatal on failure:
      total (an early share strictly inside (0, 1), bit-equal planes at
      split_early = max_bounces - 1), and a live material edit; s a
      sample of each;
- 19. a JSON line of the seven kernels (launches from the run of the path
+ 19. animated geometry (animation_phase), reusing the CLI phase's
+     env.pbrt and the instanced phase's forest renderer: on "shadertoy"
+     at 1280x720 update_geometry with the load-time vertices, rebuilt on
+     the card (accel/bvh_device.py; no host builder may run), validate_bvh
+     of the card's build with 0 violations, every closest- and any-hit
+     launch of one render_sample(1) held against its plain version on at
+     most CHECK_LANES live lanes (0 id mismatches outside ties, 0
+     occlusion mismatches, 0 overflows), render_sample(8) against the
+     host-built tables' (PARITY), a HEATMAP render through the stats
+     kernel, the launches of one build (torch.profiler) and the rebuild's
+     split (main build, shadow build, packs, update_geometry, the host
+     stack_need read); 8 RealTime frames of a mesh deformed by a sine
+     field before each, every image finite in [0, 1], ms a frame against
+     static frames; env.pbrt's rebuild timed; update_object_geometry on
+     the forest's tree, timed, and the BLAS launches of one render after
+     it held against the plain version; app/viewer.py's turntable (three
+     1280x720 PNGs of env.pbrt) and ViewerController on the card (w, m,
+     o, p, a click, ] on the clicked material);
+ 20. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
-     2 also by the volume run's and the adaptive residual wave's
-     launches), then the result line {"ok": true, "device": {...}}
-     last.
+     2 also by the volume run's, the adaptive residual wave's and the
+     animation phase's launches), then the result line {"ok": true,
+     "device": {...}} last.
 
 Imports nothing of JAX or the JAX package (the UNet weights are a data
 file read by path).
@@ -165,6 +183,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1644,12 +1663,11 @@ def cli_launch_check(calls, any_hit):
     return res
 
 
-def cli_phase(torch):
-    """cli_runs in a temporary directory that is removed after it."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory(prefix="tb_cli_") as tmp:
-        return cli_runs(torch, tmp)
+def cli_phase(torch, work):
+    """cli_runs in work/cli (the animation phase reuses its env.pbrt)."""
+    tmp = os.path.join(work, "cli")
+    os.makedirs(tmp)
+    return cli_runs(torch, tmp)
 
 
 def cli_runs(torch, tmp):
@@ -1658,7 +1676,7 @@ def cli_runs(torch, tmp):
     (utils/demo_scene.py: a 256x256-quad height field as a binary PLY,
     three spheres, a curve, a checkerboard texture, an .hdr sky as the
     infinite light; lit.pbrt adds a distant and a point light by
-    Include). Runs: (1) the sky alone, --spp 8 (env NEE on by auto, the
+    Include). Runs: (1) the sky alone, --spp 4 (env NEE on by auto, the
     closest- and any-hit launches recorded: with no light records each
     any-hit one is an env-NEE shadow wave); (2) --env-nee on with environment_nee_samples
     4; (3) the lit scene; (4) --mode realtime --frames 8; (5)
@@ -1732,7 +1750,7 @@ def cli_runs(torch, tmp):
         results[name] = res
         return res
 
-    run("env", env_scene, ["--spp", "8"], record=True)
+    run("env", env_scene, ["--spp", "4"], record=True)
     with env_nee_defaults(4):
         run("env_m4", env_scene, ["--spp", "8", "--env-nee", "on"])
     run("lit", lit_scene, ["--spp", "8"])
@@ -1807,6 +1825,7 @@ def cli_runs(torch, tmp):
     results["env_nee_memory"] = mem
     results["env_nee"] = env_nee
     results["env_closest"] = env_closest
+    results["env_scene"] = env_scene
     return results, total
 
 
@@ -1835,14 +1854,14 @@ def tag_closest_launches(nodes_seq, shadow_kind):
     return kinds
 
 
-def textured_launch_check(calls, kinds, rng, chunk=1 << 20):
+def textured_launch_check(calls, kinds, rng, chunk=1 << 20, measure=True):
     """Each recorded closest-hit launch (o, d, t_max, nodes, tris_bw)
     through the kernel, held against closest_hit_plain on at most
     CHECK_LANES of its live lanes (check_closest's TOLERANCE;
-    dead lanes must miss), timed on the card alone (time_runs,
-    ahead=True) beside its bound (bench_traverse.walk_bound of the walk
-    of every lane, live rays only, counted in chunks of `chunk` rays);
-    sums by kind."""
+    dead lanes must miss), and with measure timed on the card alone
+    (time_runs, ahead=True) beside its bound (bench_traverse.walk_bound
+    of the walk of every lane, live rays only, counted in chunks of
+    `chunk` rays); sums by kind."""
     from tracerboy_tpu_torch.trace import kernels, traverse
     from tracerboy_tpu_torch.utils.bench_traverse import (
         time_runs,
@@ -1861,12 +1880,14 @@ def textured_launch_check(calls, kinds, rng, chunk=1 << 20):
         ok, st = check_closest(o[sel], d[sel], (nodes, tris),
                                tuple(x[sel] for x in k), p)
         dead_hits = int((k[1][tm <= 0] >= 0).sum())
-        ms = float(np.median(time_runs(
-            lambda: traverse.closest_hit(o, d, tm, nodes, tris), 5,
-            o.device, ahead=True)))
-        b_ms, b_by, _, _ = walk_bound(
-            o, d, tm, nodes, tris, traverse.walk_footprint, 16,
-            chunk=chunk, live_rays_only=True)
+        ms, b_ms, b_by = 0.0, 0.0, "not measured"
+        if measure:
+            ms = float(np.median(time_runs(
+                lambda: traverse.closest_hit(o, d, tm, nodes, tris), 5,
+                o.device, ahead=True)))
+            b_ms, b_by, _, _ = walk_bound(
+                o, d, tm, nodes, tris, traverse.walk_footprint, 16,
+                chunk=chunk, live_rays_only=True)
         row = by_kind.setdefault(kind, dict(
             launches=0, lanes=0, live=0, checked=0, ms=0.0, bound_ms=0.0,
             bound_by=[], hit_mismatch=0,
@@ -2173,12 +2194,11 @@ def geometry_bytes(scene) -> int:
     return total
 
 
-def instanced_phase(torch):
-    """instanced_runs in a temporary directory that is removed after it."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory(prefix="tb_inst_") as tmp:
-        return instanced_runs(torch, tmp)
+def instanced_phase(torch, work):
+    """instanced_runs in work/instanced."""
+    tmp = os.path.join(work, "instanced")
+    os.makedirs(tmp)
+    return instanced_runs(torch, tmp)
 
 
 def instanced_runs(torch, tmp):
@@ -2195,7 +2215,8 @@ def instanced_runs(torch, tmp):
     back in [0, 1]), launch kernel 1 and overflow no stack. Then (1)'s
     launches tagged (tag_instanced_launches) and held against the plain
     version on at most CHECK_LANES live lanes each, timed beside their
-    bound (textured_launch_check). Returns (results, launches)."""
+    bound (textured_launch_check). Returns (results, launches); results
+    ["forest"] holds the TLAS renderer and its object names."""
     from tracerboy_tpu_torch import renderer as renderer_mod
     from tracerboy_tpu_torch.app import cli
     from tracerboy_tpu_torch.core import image_io
@@ -2297,6 +2318,8 @@ def instanced_runs(torch, tmp):
             for k in tables["inst_obj"])))
     print("forest scene:", json.dumps(results["forest_scene"]))
     scene_tlas = r_tlas.scene
+    # The TLAS renderer and its object names, for the animation phase.
+    results["forest"] = (r_tlas, names)
     del r_tlas
 
     pbf = os.path.join(tmp, "forest", "forest.pbf")
@@ -2848,6 +2871,496 @@ def estimators_phase(torch, Renderer):
     return results, total
 
 
+# Animated geometry (animation_phase): the RealTime frames of a deforming
+# mesh (each after a static one) and the sine field's amplitude, a share
+# of the scene's extent.
+ANIM_FRAMES, ANIM_SHARE = 8, 0.01
+TURNTABLE_FRAMES = 3
+
+
+def sine_field(torch, v0, v1, v2, phase, share=ANIM_SHARE):
+    """Each vertex moved by a smooth sine field of `share` of the scene's
+    extent, on the card (a function of position: shared vertices stay
+    shared)."""
+    lo = torch.minimum(torch.minimum(v0, v1), v2).amin(0)
+    hi = torch.maximum(torch.maximum(v0, v1), v2).amax(0)
+    ext = (hi - lo).max()
+    k = 4.0 * np.pi / ext
+
+    def move(p):
+        return p + share * ext * torch.sin(k * p[:, [1, 2, 0]] + phase)
+
+    return move(v0), move(v1), move(v2)
+
+
+def build_launches(torch, fn):
+    """torch.profiler of one call of fn: the kernel launches it issues
+    (the CUDA runtime's launch calls), the device events (kernels, copies
+    and fills), the host waits on the card (stream synchronisations and
+    blocking copies), the device's busy time (the union of its events)
+    and its span (first start to last end)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = prof.events()
+    dev = sorted((e for e in evs if str(getattr(
+        e, "device_type", "")).endswith("CUDA")),
+        key=lambda e: e.time_range.start)
+    busy, end = 0.0, float("-inf")
+    for e in dev:
+        if e.time_range.end > end:
+            busy += e.time_range.end - max(e.time_range.start, end)
+            end = e.time_range.end
+    return dict(
+        kernel_launches=sum(e.name.startswith(("cudaLaunchKernel",
+                                               "cuLaunchKernel"))
+                            for e in evs),
+        device_events=len(dev),
+        copies_and_fills=sum(("Memcpy" in e.name) or ("Memset" in e.name)
+                             for e in dev),
+        host_waits=sum(e.name in ("cudaStreamSynchronize", "cudaMemcpy")
+                       for e in evs),
+        device_busy_ms=busy / 1e3,
+        device_span_ms=(dev[-1].time_range.end - dev[0].time_range.start)
+        / 1e3 if dev else 0.0)
+
+
+def rebuild_times(torch, r, v, runs=3):
+    """The rebuild of update_geometry on vertices v, split into the main
+    BVH's build, the shadow BVH's build and the two packs, then
+    update_geometry itself and the host stack_need read of its two new
+    node tables (the kernels' first launch on a table reads it): each the
+    host's wall clock from a synchronised start to a synchronised end,
+    the latency a frame waits (the card waits on the host's launches
+    here; build_launches gives its busy time). Medians of `runs`."""
+    from tracerboy_tpu_torch.accel import bvh_device as bd
+    from tracerboy_tpu_torch.trace import traverse
+
+    def wall(fn):
+        out = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+
+    so = r._shadow_idx
+    sh = tuple(x[so] for x in v)
+    built = bd.build_bvh_device(*v)
+    built_sh = bd.build_bvh_device(*sh)
+    res = dict(
+        main_build_ms=wall(lambda: bd.build_bvh_device(*v)),
+        shadow_build_ms=wall(lambda: bd.build_bvh_device(*sh)),
+        pack_ms=wall(lambda: (bd.pack_for_pallas_device(built, *v),
+                              bd.pack_for_pallas_device(built_sh, *sh))))
+    walls, stacks = [], []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.update_geometry(*v)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        need = (traverse.stack_entries(r.scene["pk_nodes"]),
+                traverse.stack_entries(r.scene["pk_sh_nodes"]))
+        t2 = time.perf_counter()
+        walls.append((t1 - t0) * 1e3)
+        stacks.append((t2 - t1) * 1e3)
+    res.update(update_geometry_ms=float(np.median(walls)),
+               stack_need_read_ms=float(np.median(stacks)),
+               stack_need=dict(main=need[0], shadow=need[1]),
+               num_wide=dict(main=int(built["num_wide"]),
+                             shadow=int(built_sh["num_wide"])),
+               triangles=dict(main=int(v[0].shape[0]),
+                              shadow=int(so.shape[0])))
+    res["stack_need_share"] = res["stack_need_read_ms"] / (
+        res["update_geometry_ms"] + res["stack_need_read_ms"])
+    return res
+
+
+def animation_phase(torch, Renderer, env_scene, forest):
+    """Animated geometry: the on-device LBVH rebuild (accel/bvh_device.py)
+    feeding kernels 1 and 2. (a) "shadertoy" at 1280x720: update_geometry
+    with the load-time vertices on the kernel path, no host builder
+    allowed to run; the new tables on the card; validate_bvh of the card's
+    build (to_host_widebvh): 0 violations; every closest- and any-hit
+    launch of one render_sample(1) held against its plain version on at
+    most CHECK_LANES live lanes (0 id mismatches outside ties, 0 occlusion
+    mismatches, 0 overflows); the render_sample(8) image against the same
+    scene's render on the host-built tables (PARITY); a HEATMAP
+    render_sample(1) through the stats kernel with no overflow; the
+    launches of one rebuild (torch.profiler) and its split
+    (rebuild_times). (b) ANIM_FRAMES RealTime frames, the vertices moved
+    by sine_field before each render_realtime_frame_fused: each image
+    finite in [0, 1]; ms per animated frame (rebuild, stack_need read,
+    frame) against a static frame before each. (c) env.pbrt's rebuild
+    timed the same way, a HEATMAP render after it. (d) forest (the
+    instanced phase's renderer and object names): update_object_geometry
+    on the tree, timed; the tree's BLAS launches of one render_sample(1)
+    after it, tagged and held against the plain version (unmeasured: the
+    instanced phase times such launches). (e)
+    viewer.main's turntable of TURNTABLE_FRAMES 1280x720 PNGs of env.pbrt,
+    then ViewerController on the card: w, m, a fused frame, m, o,
+    render_sample(1), p, a click, ] on the clicked material. Returns
+    (results, launches of the driven runs, counted from 0 before each)."""
+    from tracerboy_tpu_torch import OutputSettings, RenderMode
+    from tracerboy_tpu_torch.accel import bvh_device as bd
+    from tracerboy_tpu_torch.accel import native, pack
+    from tracerboy_tpu_torch.accel.validate import validate_bvh
+    from tracerboy_tpu_torch.app import viewer
+    from tracerboy_tpu_torch.core import image_io
+    from tracerboy_tpu_torch.scene.compile import from_jax_pytree
+    from tracerboy_tpu_torch.trace import kernels, traverse
+    from tracerboy_tpu_torch.utils.config import OutputType
+
+    set_opt_in()
+    results = {}
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    rng = np.random.default_rng(20261021)
+
+    def driven(label, fn, stats=False):
+        """fn() with the counts from 0; its launches added to the phase's
+        total; fatal on a stack overflow."""
+        kernels.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        if kernels.stack_overflows():
+            fail(f"animation {label}: {kernels.stack_overflows()} stack "
+                 f"overflows")
+        for k, v in launches.items():
+            total[k] += v
+        return out, dt, launches
+
+    def no_host_build(*args, **kwargs):
+        fail("animation: a host BVH builder ran during update_geometry")
+
+    seconds, last = {}, [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        seconds[part] = now - last[0]
+        last[0] = now
+
+    # (a) the identity rebuild on "shadertoy".
+    r = Renderer("shadertoy", film_size=FULL_WAVE, device="cuda")
+    if r.traversal != "kernel":
+        fail(f"animation: traversal {r.traversal}")
+    sc = r.scene
+    v = tuple(sc[k].clone() for k in ("tri_v0", "tri_v1", "tri_v2"))
+    host_need = (traverse.stack_need(sc["pk_nodes"]),
+                 traverse.stack_need(sc["pk_sh_nodes"]))
+    real_build = (native.build_bvh_native, pack.pack_scene)
+    native.build_bvh_native = pack.pack_scene = no_host_build
+    try:
+        r.update_geometry(*v)
+        torch.cuda.synchronize()
+    finally:
+        native.build_bvh_native, pack.pack_scene = real_build
+    keys = ("pk_nodes", "pk_tris_bw", "pk_tri_map", "pk_attr_rows",
+            "pk_sh_nodes", "pk_sh_tris_bw", "pk_sh_tri_map",
+            "pk_sh_attr_rows", "tri9", "tri_attr_rows", "tri_attr_t")
+    off_card = [k for k in keys if r.scene[k].device.type != "cuda"]
+    if off_card:
+        fail(f"animation: tables off the card after the rebuild: {off_card}")
+    built = bd.build_bvh_device(*v)
+    dev_nodes = r.scene["pk_nodes"]
+    if not torch.equal(bd.pack_for_pallas_device(built, *v)["nodes"],
+                       dev_nodes):
+        fail("animation: the renderer's rebuilt nodes are not the build's")
+    vh = [x.cpu().numpy() for x in v]
+    t0 = time.perf_counter()
+    violations = validate_bvh(bd.to_host_widebvh(built, vh[0].shape[0]),
+                              *vh)
+    results["validate"] = dict(
+        violations=len(violations), first=violations[:3],
+        num_wide=int(built["num_wide"]), rows=int(dev_nodes.shape[0]),
+        seconds=time.perf_counter() - t0,
+        stack_need_host_tree=dict(main=host_need[0], shadow=host_need[1]),
+        stack_need_device_tree=dict(
+            main=traverse.stack_need(dev_nodes),
+            shadow=traverse.stack_need(r.scene["pk_sh_nodes"])))
+    print("animation shadertoy identity rebuild:",
+          json.dumps(results["validate"]))
+    if violations:
+        fail(f"animation: validate_bvh of the card's build: {violations[:5]}")
+    del built
+
+    recorded = {"closest_hit": [], "any_hit": []}
+    real = {key: getattr(traverse, key) for key in recorded}
+
+    def recorder(key):
+        def recording(o, d, t_max, nodes, tris_bw, roots=None):
+            if roots is not None:
+                fail(f"animation: a {key} launch with per-ray roots")
+            recorded[key].append((o.clone(), d.clone(), t_max.clone(),
+                                  nodes, tris_bw))
+            return real[key](o, d, t_max, nodes, tris_bw)
+        return recording
+
+    for key in recorded:
+        setattr(traverse, key, recorder(key))
+    try:
+        _, dt1, launches1 = driven("render_sample(1)",
+                                   lambda: r.render_sample(1))
+    finally:
+        for key, fn in real.items():
+            setattr(traverse, key, fn)
+    if launches1["closest"] <= 0 or launches1["anyhit"] <= 0:
+        fail(f"animation render_sample(1): launches {launches1}")
+    r.invalidate_history()
+    _, dt8, _ = driven("render_sample(8)", lambda: r.render_sample(8))
+    img_dev = r.state.accum.cpu().numpy()
+    check_image("animation rebuilt", r.current_image())
+    # The same scene (the update's flat normals) on the host-built tables.
+    host = from_jax_pytree(r.compiled.packed_tables(
+        r.scene["tri_attr_rows"].cpu().numpy()), "cuda")
+    saved = {k: r.scene[k] for k in host}
+    r.scene.update(host)
+    r.invalidate_history()
+    _, dt8h, _ = driven("render_sample(8) host tables",
+                        lambda: r.render_sample(8))
+    img_host = r.state.accum.cpu().numpy()
+    r.scene.update(saved)
+    r.invalidate_history()
+    close = float((np.abs(img_dev - img_host) <= PARITY["pixel_atol"]
+                   * (1 + np.abs(img_host))).all(-1).mean())
+    mean_rel = abs(img_dev.mean() - img_host.mean()) / abs(img_host.mean())
+    results["parity"] = dict(pixels_within=close, mean_rel=float(mean_rel),
+                             s_per_sample=dt8 / 8,
+                             host_tables_s_per_sample=dt8h / 8,
+                             render_sample_1_s=dt1)
+    print("animation render_sample(8), device-built vs host-built tables:",
+          json.dumps(results["parity"]))
+    if close < PARITY["pixel_frac"] or mean_rel > PARITY["mean_rel"]:
+        fail(f"animation: device-built tables outside {PARITY}: "
+             f"{results['parity']}")
+    del saved, host, img_dev, img_host
+
+    def heatmap(rr, label):
+        rr.settings = rr.settings.replace(output_type=OutputType.HEATMAP)
+        rr.invalidate_history()
+        _, _, hl = driven(f"{label} HEATMAP", lambda: rr.render_sample(1))
+        check_image(f"animation {label} HEATMAP", rr.current_image())
+        rr.settings = rr.settings.replace(output_type=OutputType.LIT)
+        if hl["closest_stats"] != 1:
+            fail(f"animation {label} HEATMAP: launches {hl}")
+        return dict(launches=hl, stack_depth=traverse.STACK_DEPTH,
+                    stack_need=traverse.stack_need(rr.scene["pk_nodes"]))
+
+    results["heatmap_shadertoy"] = heatmap(r, "shadertoy")
+    results["launches_per_build"] = build_launches(
+        torch, lambda: bd.build_bvh_device(*v))
+    results["launches_per_update"] = build_launches(
+        torch, lambda: r.update_geometry(*v))
+    results["rebuild_shadertoy"] = rebuild_times(torch, r, v)
+    lap("a")
+    print("animation shadertoy rebuild:", json.dumps(
+        {k: results[k] for k in ("heatmap_shadertoy", "launches_per_build",
+                                 "launches_per_update",
+                                 "rebuild_shadertoy")}))
+
+    # (e, part) the viewer's controller on this renderer, on the card.
+    captures = []
+    ctl = viewer.ViewerController(r, capture_writer=captures.append)
+    pos = r.compiled.camera.position.copy()
+    did = [ctl.on_key("w"), ctl.on_key("m")]
+    frame_img, _, _ = driven("controller RealTime frame",
+                             lambda: r.render_realtime_frame_fused(
+                                 as_numpy=True))
+    check_image("controller RealTime frame", frame_img)
+    did += [ctl.on_key("m"), ctl.on_key("o")]
+    driven("controller render_sample(1)", lambda: r.render_sample(1))
+    did.append(ctl.on_key("p"))
+    info = ctl.on_click(FULL_WAVE[0] // 2, FULL_WAVE[1] // 2)
+    if not info:
+        fail("animation viewer controller: the click selected nothing")
+    alb = np.array(r.get_material(ctl.selected_mat)["albedo"])
+    did.append(ctl.on_key("]"))
+    alb_after = np.array(r.get_material(ctl.selected_mat)["albedo"])
+    results["controller"] = dict(
+        keys=did, moved=float(np.linalg.norm(r.compiled.camera.position
+                                             - pos)),
+        output_type=r.settings.output_type.name, captures=len(captures),
+        material=info["material_id"],
+        albedo=[alb.tolist(), alb_after.tolist()])
+    print("animation viewer controller:", json.dumps(results["controller"]))
+    if (did != ["camera", "mode", "mode", "aov", "capture", "material"]
+            or not results["controller"]["moved"] > 0 or len(captures) != 1
+            or not np.allclose(alb_after, np.clip(alb * 1.25, 0, 1),
+                               atol=1e-6)):
+        fail(f"animation viewer controller: {results['controller']}")
+    check_image("animation viewer capture", captures[0])
+    del ctl, captures, r
+
+    # The recorded launches of (a)'s render_sample(1) against the plain
+    # versions.
+    t0 = time.perf_counter()
+    closest = closest_launch_summary("animation", recorded.pop(
+        "closest_hit"), rng)
+    anyhit = anyhit_launch_check(recorded.pop("any_hit"), rng)
+    results["check_s"] = time.perf_counter() - t0
+    print("animation closest-hit launches vs plain:", json.dumps(closest))
+    print("animation any-hit launches vs plain:", json.dumps(anyhit))
+    if (not anyhit["launches"] or anyhit["occ_mismatch"]
+            or anyhit["overflows"] or anyhit["dead_lane_hits"]):
+        fail(f"animation any-hit launches: {anyhit}")
+    results["closest"], results["anyhit"] = closest, anyhit
+    torch.cuda.empty_cache()
+    lap("a_controller_and_checks")
+
+    # (b) RealTime frames of the deforming mesh.
+    rt = Renderer("shadertoy", film_size=FULL_WAVE, device="cuda",
+                  settings=OutputSettings(render_mode=RenderMode.REAL_TIME))
+    base = tuple(rt.scene[k].clone() for k in ("tri_v0", "tri_v1",
+                                               "tri_v2"))
+
+    def rt_frame(label):
+        img, dt, _ = driven(label, lambda: rt.render_realtime_frame_fused(
+            as_numpy=False))
+        check_image(label, img.cpu().numpy())
+        return dt * 1e3
+
+    for i in range(2):
+        rt_frame(f"animation static warm-up {i}")
+    # A static frame before each animated one, so that both run at the
+    # same point of the governor's and the adaptive mask's warm-up.
+    static, frames = [], []
+    for f in range(ANIM_FRAMES):
+        static.append(rt_frame(f"animation static {f}"))
+        moved = sine_field(torch, *base, phase=0.5 + 0.7 * f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.update_geometry(*moved)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        traverse.stack_entries(rt.scene["pk_nodes"])
+        traverse.stack_entries(rt.scene["pk_sh_nodes"])
+        t2 = time.perf_counter()
+        frame_ms = rt_frame(f"animation frame {f}")
+        frames.append(dict(update_ms=(t1 - t0) * 1e3,
+                           stack_need_ms=(t2 - t1) * 1e3,
+                           frame_ms=frame_ms,
+                           total_ms=(t2 - t0) * 1e3 + frame_ms))
+    med = {k: float(np.median([x[k] for x in frames])) for k in frames[0]}
+    results["realtime"] = dict(
+        frames=ANIM_FRAMES, static_frame_ms=float(np.median(static)),
+        animated=med, per_frame=frames,
+        rebuild_share_of_animated_frame=(med["update_ms"]
+                                         + med["stack_need_ms"])
+        / med["total_ms"])
+    print(f"animation RealTime {FULL_WAVE[0]}x{FULL_WAVE[1]}, "
+          f"{ANIM_FRAMES} deforming frames:",
+          json.dumps(results["realtime"]))
+    del rt, base
+    torch.cuda.empty_cache()
+    lap("b")
+
+    # (c) env.pbrt: the second point on the triangle axis.
+    re = Renderer(env_scene, film_size=FULL_WAVE, device="cuda")
+    if re.traversal != "kernel":
+        fail(f"animation env: traversal {re.traversal}")
+    ve = sine_field(torch, *(re.scene[k] for k in ("tri_v0", "tri_v1",
+                                                   "tri_v2")), phase=0.5)
+    re.update_geometry(*ve)
+    results["rebuild_env"] = rebuild_times(torch, re, ve)
+    results["heatmap_env"] = heatmap(re, "env")
+    results["launches_per_build_env"] = build_launches(
+        torch, lambda: bd.build_bvh_device(*ve))
+    print("animation env.pbrt rebuild:", json.dumps(
+        {k: results[k] for k in ("rebuild_env", "heatmap_env",
+                                 "launches_per_build_env")}))
+    del re, ve
+    lap("c")
+
+    # (d) the forest's tree: one object's BLAS rebuilt on the card.
+    rf, names = forest
+    obj = names.index("tree")
+    verts = torch.from_numpy(rf.compiled.inst_objects[obj]["verts"]).cuda()
+    walls = []
+    for f in range(3):
+        vo = sine_field(torch, verts[:, 0], verts[:, 1], verts[:, 2],
+                        phase=0.5 + f)
+        _, dt, _ = driven("update_object_geometry",
+                          lambda: rf.update_object_geometry(obj, *vo))
+        walls.append(dt * 1e3)
+    real_closest = traverse.closest_hit
+    records = []
+
+    def recording(o, d, t_max, nodes, tris_bw, roots=None):
+        live = torch.nonzero(t_max > 0)[:, 0]
+        records.append((o.shape[0], live, o[live], d[live], t_max[live],
+                        nodes, tris_bw))
+        return real_closest(o, d, t_max, nodes, tris_bw, roots=roots)
+
+    traverse.closest_hit = recording
+    try:
+        _, dtf, fl = driven("forest render_sample(1)",
+                            lambda: rf.render_sample(1))
+    finally:
+        traverse.closest_hit = real_closest
+    check_image("animation forest", rf.current_image())
+    # The rebuilt object's BLAS launches (the tree's) against the plain
+    # version (the instanced phase times such launches beside their bound).
+    kinds = tag_instanced_launches(records, rf.scene, names)
+    tree = [(rec, kind) for rec, kind in zip(records, kinds)
+            if kind.endswith("_tree")]
+    del records
+    by_kind, bad = textured_launch_check(
+        (expand_launch(rec) for rec, _ in tree), [k for _, k in tree], rng,
+        measure=False)
+    del tree
+    blas = list(by_kind.values())
+    if bad or not blas:
+        fail(f"animation forest tree launches: kinds {sorted(by_kind)}, "
+             f"disagreeing {bad}")
+    results["forest"] = dict(
+        tree_triangles=int(verts.shape[0]),
+        update_object_geometry_ms=walls,
+        render_sample_1_s=dtf, launches=fl,
+        blas={key: sum(row[key] for row in blas) for key in (
+            "launches", "lanes", "live", "checked", "hit_mismatch",
+            "id_mismatch_outside_ties", "ties", "overflows")})
+    results["forest"]["blas"]["max_abs_err"] = max(
+        row["max_abs_err"] for row in blas)
+    results["forest"]["blas"]["live_share"] = (
+        results["forest"]["blas"]["live"]
+        / max(results["forest"]["blas"]["lanes"], 1))
+    print("animation forest tree rebuild:", json.dumps(results["forest"]))
+    if results["forest"]["blas"]["id_mismatch_outside_ties"]:
+        fail(f"animation forest BLAS launches: {results['forest']}")
+    del rf, verts
+    torch.cuda.empty_cache()
+    lap("d")
+
+    # (e) the viewer's headless turntable on env.pbrt.
+    out_dir = os.path.join(os.path.dirname(env_scene), "turntable")
+    _, dtt, _ = driven("turntable", lambda: viewer.main([
+        env_scene, "--turntable", str(TURNTABLE_FRAMES), "--size",
+        f"{FULL_WAVE[0]}x{FULL_WAVE[1]}", "--spp", "1", "--out-dir",
+        out_dir]))
+    pngs = sorted(os.listdir(out_dir))
+    if len(pngs) != TURNTABLE_FRAMES:
+        fail(f"turntable: {pngs}")
+    for name in pngs:
+        check_image(f"turntable {name}",
+                    image_io.read_ldr(os.path.join(out_dir, name)))
+    results["turntable"] = dict(pngs=pngs, seconds=dtt)
+    print("animation turntable:", json.dumps(results["turntable"]))
+    lap("e")
+    results["seconds"] = seconds
+    print("animation parts, seconds:", json.dumps(seconds))
+    return results, total
+
+
 def main() -> int:
     print(card_line())
     import torch
@@ -3028,7 +3541,10 @@ def main() -> int:
     lap("realtime")
 
     # --- the command-line renderer on a PBRT scene ----------------------------
-    cli_res, cli_launches = cli_phase(torch)
+    # Scenes the CLI and instanced phases write, which the animation phase
+    # reuses; removed before the result line.
+    work = tempfile.TemporaryDirectory(prefix="tb_smoke_")
+    cli_res, cli_launches = cli_phase(torch, work.name)
     env_nee, env_closest = cli_res["env_nee"], cli_res["env_closest"]
     lap("cli")
 
@@ -3039,7 +3555,7 @@ def main() -> int:
     lap("textured")
 
     # --- instanced PBRT scenes (TLAS/BLAS), .pbf, OBJ/glTF, TGA/BMP --------
-    inst_res, inst_launches = instanced_phase(torch)
+    inst_res, inst_launches = instanced_phase(torch, work.name)
     inst_blas = inst_res["blas"]
     lap("instanced")
 
@@ -3050,6 +3566,14 @@ def main() -> int:
     est_res, est_launches = estimators_phase(torch, Renderer)
     adap_c = est_res["adaptive_burst"]["closest"]
     lap("estimators")
+
+    # --- animated geometry: the on-device rebuild; the viewer -------------
+    anim_res, anim_launches = animation_phase(
+        torch, Renderer, cli_res["env_scene"], inst_res.pop("forest"))
+    anim_c, anim_a = anim_res["closest"], anim_res["anyhit"]
+    anim_blas = anim_res["forest"]["blas"]
+    work.cleanup()
+    lap("animation")
     print("phase seconds:", json.dumps(laps))
 
     def by_path(key):
@@ -3059,7 +3583,8 @@ def main() -> int:
                 "textured": tex_launches[key],
                 "instanced": inst_launches[key],
                 "volume": vol_launches[key],
-                "estimators": est_launches[key]}
+                "estimators": est_launches[key],
+                "animation": anim_launches[key]}
 
     trav = "tracerboy_tpu_torch/csrc/bvh_traverse.cu"
     bsrc = "tracerboy_tpu_torch/csrc/binned.cu"
@@ -3077,12 +3602,14 @@ def main() -> int:
              max_abs_err=max(s["max_abs_err"] for s in
                              [st_c, st_c2, un_c, *roots_c, env_closest,
                               *tex_kinds.values(),
-                              *inst_res["kinds"].values(), vol_c, adap_c]),
+                              *inst_res["kinds"].values(), vol_c, adap_c,
+                              anim_c, anim_blas]),
              id_mismatch_outside_ties=sum(
                  s["id_mismatch_outside_ties"]
                  for s in [st_c, st_c2, un_c, *roots_c, env_closest,
                            *tex_kinds.values(),
-                           *inst_res["kinds"].values(), vol_c, adap_c]),
+                           *inst_res["kinds"].values(), vol_c, adap_c,
+                           anim_c, anim_blas]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
              unordered_ms=un_times["closest_ms"],
              unordered_plain_ms=un_times["closest_plain_ms"],
@@ -3121,11 +3648,16 @@ def main() -> int:
                  for kind, row in inst_res["kinds"].items()},
              forest=inst_res["tlas_vs_pbf"],
              **{f"{pre}_{key}": row[key]
-                for pre, row in (("volume", vol_c), ("adaptive", adap_c))
+                for pre, row in (("volume", vol_c), ("adaptive", adap_c),
+                                 ("animation", anim_c))
                 for key in ("launches", "lanes", "live", "live_share",
                             "checked", "ms", "bound_ms", "bound_by",
                             "hit_mismatch", "id_mismatch_outside_ties",
                             "ties", "max_abs_err", "overflows")},
+             **{f"animation_blas_{key}": anim_blas[key] for key in (
+                 "launches", "lanes", "live", "live_share", "checked",
+                 "hit_mismatch", "id_mismatch_outside_ties", "ties",
+                 "max_abs_err", "overflows")},
              volume_run=vol_res["run"],
              volume_control=vol_res["control"],
              estimators={k: {kk: vv for kk, vv in v.items()
@@ -3135,10 +3667,11 @@ def main() -> int:
              replaces="tracerboy_tpu/trace/pallas_traverse2.py:754 "
                       "(stats=True)",
              launches=heat_launches + cut_res["heatmap_launches"][
-                 "closest_stats"],
+                 "closest_stats"] + anim_launches["closest_stats"],
              launches_by_path={"default": heat_launches,
                                "cut": cut_res["heatmap_launches"][
-                                   "closest_stats"]},
+                                   "closest_stats"],
+                               "animation": anim_launches["closest_stats"]},
              max_abs_err=max(s["max_abs_err"] for s in st_stats.values()),
              count_mismatch=sum(s["count_mismatch"]
                                 for s in st_stats.values()),
@@ -3153,9 +3686,11 @@ def main() -> int:
              launches=launches["anyhit"],
              launches_by_path=by_path("anyhit"),
              occ_mismatch=sum(s["occ_mismatch"]
-                              for s in [st_a, st_a2, un_a, *roots_a]),
+                              for s in [st_a, st_a2, un_a, *roots_a,
+                                        anim_a]),
              max_abs_err=max(s["max_abs_err"]
-                             for s in [st_a, st_a2, un_a, *roots_a]),
+                             for s in [st_a, st_a2, un_a, *roots_a,
+                                       anim_a]),
              ms=times["anyhit_ms"], plain_ms=times["anyhit_plain_ms"],
              unordered_ms=un_times["anyhit_ms"],
              unordered_plain_ms=un_times["anyhit_plain_ms"],
@@ -3166,7 +3701,9 @@ def main() -> int:
              env_nee_bound_ms=env_nee["bound_ms"],
              env_nee_launches=env_nee["launches"],
              env_nee_occ_mismatch=env_nee["occ_mismatch"],
-             **{f"volume_{key}": vol_a[key] for key in (
+             **{f"{pre}_{key}": row[key]
+                for pre, row in (("volume", vol_a), ("animation", anim_a))
+                for key in (
                  "launches", "lanes", "live", "live_share", "checked",
                  "ms", "plain_ms", "bound_ms", "bound_by", "occ_mismatch",
                  "occluded", "max_abs_err", "overflows")}),

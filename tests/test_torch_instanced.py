@@ -346,9 +346,17 @@ def test_update_instance_transforms_matches_jax(two_objects):
         assert_same(np.asarray(jr.scene_pytree[k]), r.scene[k], k)
     with pytest.raises(ValueError, match="transforms"):
         r.update_instance_transforms(M[:-1])
-    with pytest.raises(NotImplementedError, match="item 16"):
-        r.update_object_geometry(0, *cs.inst_objects[0]["verts"].transpose(
-            1, 0, 2))
+    # The object's BLAS rebuilt in place (accel/bvh_device.py): the same
+    # instance boxes as the JAX method's refit.
+    verts = cs.inst_objects[0]["verts"].transpose(1, 0, 2).copy()
+    jr.update_object_geometry(0, *verts)
+    r.render_sample(1)
+    r.update_object_geometry(0, *verts)
+    assert r.state.spp == 0
+    for k in ("inst_lo", "inst_hi", "world_lo", "world_hi"):
+        assert_same(np.asarray(jr.scene_pytree[k]), r.scene[k], k)
+    assert_same(np.asarray(jr.scene_pytree["inst_objs"][0]["packed"][
+        "nodes"]), r.scene["inst_objs"][0]["packed"]["nodes"])
     with pytest.raises(NotImplementedError, match="update_instance"):
         r.update_geometry(cs.tri_v0, cs.tri_v1, cs.tri_v2)
 

@@ -34,9 +34,11 @@ pilot's per-pixel variance in one residual wave whose lanes repeat
 pixels. A heterogeneous volume (Renderer(volume=), or the scene's own)
 is delta-tracked by the wave; set_material edits one material live.
 
-TLAS-instanced scenes animate through update_instance_transforms.
-Sharding and the geometry updates that rebuild a BVH on the device
-(update_geometry, update_object_geometry) are not ported yet.
+Animated geometry: update_geometry moves the flat scene's triangles and
+rebuilds both packed BVHs on the render device (accel/bvh_device.py, the
+reference's per-change GPU LBVH rebuild); TLAS-instanced scenes animate
+through update_instance_transforms and update_object_geometry (one
+object's BLAS rebuilt on the device). Sharding is not ported yet.
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from tracerboy_tpu_torch.post.pipeline import (
 )
 from tracerboy_tpu_torch.scene.compile import (
     CompiledScene,
+    _box_corners,
     _canonical,
     from_jax_pytree,
     load_scene,
@@ -92,6 +95,32 @@ def _demod_ratio(rad_d, rad):
     return torch.clamp(
         torch.where(rad > 1e-12, rad_d / torch.clamp_min(rad, 1e-12), 1.0),
         0.0, 1.0)
+
+
+def flat_attr_rows(v0, v1, v2, uv0, uv1, uv2, material, normals=None):
+    """(T, 19) attribute rows of moved triangles, the layout of
+    CompiledScene.as_numpy: the flat normal three times (normals, or the
+    normalised cross(e1, e2)), the three UVs, the material id and the UV
+    tangent (the compile-time formula)."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    if normals is None:
+        n = torch.linalg.cross(e1, e2)
+        n = n / torch.clamp(torch.linalg.vector_norm(n, dim=1, keepdim=True),
+                            min=1e-12)
+    else:
+        n = torch.as_tensor(normals, dtype=torch.float32).to(v0.device)
+    d1 = uv1 - uv0
+    d2 = uv2 - uv0
+    det = d1[:, 0] * d2[:, 1] - d1[:, 1] * d2[:, 0]
+    bad = torch.abs(det) < 1e-12
+    tan = e1 * d2[:, 1:2] - e2 * d1[:, 1:2]
+    tan = torch.where(bad[:, None], e1,
+                      tan / torch.where(bad, 1.0, det)[:, None])
+    tan = tan / torch.clamp(torch.linalg.vector_norm(tan, dim=1,
+                                                     keepdim=True), min=1e-12)
+    return torch.cat([n, n, n, uv0, uv1, uv2,
+                      material[:, None].to(torch.float32), tan], 1)
 
 
 @dataclass
@@ -136,6 +165,7 @@ class Renderer:
         self.pixel_ids = torch.arange(self.width * self.height,
                                       dtype=torch.int64, device=self.device)
         self._bn_cache = None
+        self._shadow_idx = None  # the shadow BVH triangles of update_geometry
         self.rays_traced = 0     # closest-hit + shadow rays, all calls
         self._last_aovs = None   # the last accumulated wave's output
         # RealTime mode: the temporal history of each entry point, the
@@ -288,17 +318,90 @@ class Renderer:
                 and "bn_nodes" in self.scene)
 
     def update_geometry(self, v0, v1, v2, normals=None):
-        """Replace the flat triangles' vertices (the JAX method, with the
-        BVH rebuilt on the device) is not ported yet (ROADMAP.md, Queue 1:
-        item 16, accel/bvh_device.py). TLAS scenes refuse it in both
-        packages: they animate through update_instance_transforms."""
+        """Move the scene's triangles and rebuild its BVHs on the render
+        device (the JAX method; the reference's per-change GPU LBVH
+        rebuild, GpuBVH2Builder.cpp:167-280). Refreshes the vertex tables,
+        the flat normals and UV tangents, tri9, the attribute rows and the
+        world bounds; on the packed backends also both BVHs' packed tables
+        (accel/bvh_device.py: no host builder, no host copy of the
+        vertices), the shadow BVH over the non-light triangles of the
+        first update. Then restarts accumulation. Triangle count, UVs and
+        materials stay.
+
+        v0, v1, v2: (T, 3) in the scene's triangle order; normals: (T, 3)
+        flat normals, by default the normalised cross(e1, e2).
+
+        As in the JAX package, the light records, tri_area and pk_tri_area
+        keep their load-time values (NEE samples emitters where they were
+        loaded; ROADMAP.md Queue 3), and the host-side CompiledScene keeps
+        the load-time geometry. Refused: TLAS scenes (as in the JAX
+        package), the wide backend (as the JAX jnp oracle refuses), and
+        scenes compiled with cut or binned tables, which a rebuild would
+        leave describing the old tree (the JAX method walks them stale;
+        ROADMAP.md Queue 3)."""
         if self.compiled.has_instances:
             raise NotImplementedError(
                 "update_geometry: use update_instance_transforms / "
                 "update_object_geometry on TLAS-instanced scenes")
-        raise NotImplementedError(
-            "update_geometry is not ported yet (ROADMAP.md, Queue 1: item "
-            "16, accel/bvh_device.py)")
+        if self.traversal == "wide":
+            raise NotImplementedError(
+                "update_geometry: the wide backend keeps its host build, as "
+                "the JAX jnp oracle does; use the brute or kernel backend")
+        stale = [k for k in ("pk_cut_top", "pk_sh_cut_top", "bn_nodes")
+                 if k in self.scene]
+        if stale:
+            raise NotImplementedError(
+                f"update_geometry: the scene carries {stale}, compiled with "
+                "TB_CUT=1 / TB_BINNED=1 from the load-time tree, which a "
+                "rebuild does not refresh (ROADMAP.md Queue 3: "
+                "update_geometry leaves the cut and binned tables of the "
+                "load-time tree)")
+        sc = self.scene
+        T = sc["tri_v0"].shape[0]
+        v0, v1, v2 = (torch.as_tensor(v, dtype=torch.float32).to(self.device)
+                      for v in (v0, v1, v2))
+        if v0.shape != (T, 3):
+            raise ValueError(f"update_geometry keeps topology: expected "
+                             f"({T}, 3), got {tuple(v0.shape)}")
+        attr_rows = flat_attr_rows(
+            v0, v1, v2, sc["tri_uv0"], sc["tri_uv1"], sc["tri_uv2"],
+            sc["tri_material"], normals)
+        n = attr_rows[:, 0:3]
+        sc.update(
+            tri_v0=v0, tri_v1=v1, tri_v2=v2, tri_n0=n, tri_n1=n, tri_n2=n,
+            tri9=torch.cat([v0, v1, v2], 1),
+            tri_attr_rows=attr_rows,
+            tri_attr_t=attr_rows.T.contiguous(),
+            world_lo=torch.minimum(torch.minimum(v0, v1), v2).amin(0),
+            world_hi=torch.maximum(torch.maximum(v0, v1), v2).amax(0))
+        if self.traversal in PACKED_BACKENDS:
+            from tracerboy_tpu_torch.accel.bvh_device import (
+                build_bvh_device,
+                pack_for_pallas_device,
+            )
+
+            pk = pack_for_pallas_device(build_bvh_device(v0, v1, v2), v0,
+                                        v1, v2)
+            order = torch.clamp(pk["tri_map"], 0, T - 1).long()
+            sc.update(pk_nodes=pk["nodes"], pk_tris_bw=pk["tris_bw"],
+                      pk_tri_map=pk["tri_map"],
+                      pk_attr_rows=attr_rows[order])
+            # The shadow BVH over the opaque triangles of the first update
+            # (the JAX method's _shadow_idx, kept from then on).
+            if self._shadow_idx is None:
+                self._shadow_idx = torch.from_numpy(
+                    self.compiled.shadow_tri_ids()).to(self.device)
+            so = self._shadow_idx
+            s0, s1, s2 = v0[so], v1[so], v2[so]
+            pk_sh = pack_for_pallas_device(build_bvh_device(s0, s1, s2), s0,
+                                           s1, s2)
+            sh_order = so[torch.clamp(pk_sh["tri_map"], 0,
+                                      so.shape[0] - 1).long()]
+            sc.update(pk_sh_nodes=pk_sh["nodes"],
+                      pk_sh_tris_bw=pk_sh["tris_bw"],
+                      pk_sh_tri_map=sh_order.to(torch.int32),
+                      pk_sh_attr_rows=attr_rows[sh_order])
+        self.invalidate_history()
 
     def _refresh_instance_tables(self):
         """Push the host instance tables to the device and refresh the
@@ -352,12 +455,68 @@ class Renderer:
         self._refresh_instance_tables()
 
     def update_object_geometry(self, obj_index: int, v0, v1, v2):
-        """Deform one instanced object and rebuild its BLAS on the device
-        (the JAX method) is not ported yet: it needs the on-device BVH
-        build (ROADMAP.md, Queue 1: item 16, accel/bvh_device.py)."""
-        raise NotImplementedError(
-            "update_object_geometry is not ported yet (ROADMAP.md, Queue 1: "
-            "item 16, accel/bvh_device.py)")
+        """Deform one instanced object and rebuild its BLAS on the render
+        device (the JAX method; the reference's per-object bottom-level
+        rebuild, TracerBoy.cpp:1963-2026). Topology, UVs and materials
+        stay; the flat normals and UV tangents are derived again into the
+        object's packed-order rows of pk_attr_rows, and the boxes of the
+        object's instances are refit on the host from its new bounds.
+
+        v0, v1, v2: (T, 3) object-space vertices in the object's triangle
+        order."""
+        if not self.compiled.has_instances:
+            raise ValueError("scene has no TLAS instances")
+        from tracerboy_tpu_torch.accel.bvh_device import (
+            build_bvh_device,
+            pack_for_pallas_device,
+        )
+
+        obj = self.compiled.inst_objects[obj_index]
+        topo = obj["attrs_topo"]
+        T = topo.shape[0]
+        v0, v1, v2 = (torch.as_tensor(v, dtype=torch.float32).to(self.device)
+                      for v in (v0, v1, v2))
+        if v0.shape != (T, 3):
+            raise ValueError(f"update_object_geometry keeps topology: "
+                             f"expected ({T}, 3), got {tuple(v0.shape)}")
+        pk = pack_for_pallas_device(build_bvh_device(v0, v1, v2), v0, v1, v2)
+        P = int(obj["attrs"].shape[0])
+        if pk["tri_map"].shape[0] > P:
+            raise ValueError("device pack emitted more triangle rows than "
+                             "the compile-time layout reserved")
+        topo_t = torch.from_numpy(np.ascontiguousarray(topo)).to(self.device)
+        rows = flat_attr_rows(v0, v1, v2, topo_t[:, 9:11], topo_t[:, 11:13],
+                              topo_t[:, 13:15], topo_t[:, 15])
+        rows = rows[torch.clamp(pk["tri_map"], 0, T - 1).long()]
+        if rows.shape[0] < P:
+            # The host pack's order runs past T; device ids stay below T,
+            # so the tail is never fetched: pad with the last row to keep
+            # the bases of later objects.
+            rows = torch.cat([rows, rows[-1:].expand(P - rows.shape[0], 19)])
+        entry = self.scene["inst_objs"][obj_index]
+        entry["packed"]["nodes"] = pk["nodes"]
+        entry["packed"]["tris_bw"] = pk["tris_bw"]
+        base = int(entry["base"])
+        self.scene["pk_attr_rows"][base:base + P] = rows
+        # TLAS refit of the object's instances, on the host (the tables
+        # are small and the transforms live there).
+        v0h, v1h, v2h = (v.cpu().numpy() for v in (v0, v1, v2))
+        obj["lo"] = np.minimum(np.minimum(v0h, v1h), v2h).min(0)
+        obj["hi"] = np.maximum(np.maximum(v0h, v1h), v2h).max(0)
+        obj["verts"] = np.stack([v0h, v1h, v2h], axis=1)
+        it = self.compiled.inst_tables
+        lo_t = np.asarray(it["inst_lo"]).copy()
+        hi_t = np.asarray(it["inst_hi"]).copy()
+        corners = _box_corners(obj["lo"], obj["hi"])
+        for i in np.flatnonzero(np.asarray(it["inst_obj"]) == obj_index):
+            inv = np.asarray(it["inst_inv"][i], np.float64).reshape(3, 4)
+            M = np.linalg.inv(np.vstack([inv, [0.0, 0.0, 0.0, 1.0]]))
+            wc = corners @ M[:3, :3].T + M[:3, 3]
+            lo_t[i] = wc.min(0)
+            hi_t[i] = wc.max(0)
+        it["inst_lo"] = lo_t
+        it["inst_hi"] = hi_t
+        self._refresh_instance_tables()
 
     def frame_params(self, fixed_offset=None) -> dict:
         """The wave's per-frame parameters; fixed_offset: every lane's

@@ -276,6 +276,15 @@ class CompiledScene:
         """The scene leaves as torch tensors on `device`."""
         return from_jax_pytree(self.as_numpy(), device)
 
+    def shadow_tri_ids(self) -> np.ndarray:
+        """Scene-order ids of the triangles the shadow BVH holds: the
+        non-light ones (shadow rays pass light geometry, the reference's
+        IsLight skip), or triangle 0 where every triangle is a light."""
+        opaque = (self.materials["flags"][self.tri_material]
+                  & LIGHT_FLAG) == 0
+        ids = np.flatnonzero(opaque)
+        return ids if len(ids) else np.arange(1)
+
     def packed_tables(self, tri_attr_rows) -> dict:
         """Packed tables of the traversal kernels: a leaf-8 BVH over the
         scene triangles and a second one over non-light triangles for
@@ -295,11 +304,7 @@ class CompiledScene:
         binned = os.environ.get("TB_BINNED") == "1"
         pk, bvh = pack_scene(self.tri_v0, self.tri_v1, self.tri_v2,
                              raw_rows=binned)
-        opaque = (self.materials["flags"][self.tri_material]
-                  & LIGHT_FLAG) == 0
-        so_idx = np.where(opaque)[0]
-        if len(so_idx) == 0:
-            so_idx = np.arange(1)
+        so_idx = self.shadow_tri_ids()
         pk_sh, bvh_sh = pack_scene(
             self.tri_v0[so_idx], self.tri_v1[so_idx], self.tri_v2[so_idx]
         )
