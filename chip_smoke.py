@@ -88,7 +88,7 @@ Phases, each fatal on failure:
      (utils/demo_scene.py: a 256x256-quad height field as a binary PLY,
      three spheres, a curve, a checkerboard texture, an .hdr sky as the
      infinite light; a second file Includes it and adds a distant and a
-     point light): the sky alone at 4 spp (environment NEE on by auto),
+     point light): the sky alone at 8 spp (environment NEE on by auto),
      with --env-nee on and 4 env-NEE samples, the lit scene, 8 RealTime
      frames, and --checkpoint at 4 spp resumed to 8 by a second process;
      each must write a 1280x720 RGB PNG and finite EXR radiance, launch
@@ -1676,7 +1676,7 @@ def cli_runs(torch, tmp):
     (utils/demo_scene.py: a 256x256-quad height field as a binary PLY,
     three spheres, a curve, a checkerboard texture, an .hdr sky as the
     infinite light; lit.pbrt adds a distant and a point light by
-    Include). Runs: (1) the sky alone, --spp 4 (env NEE on by auto, the
+    Include). Runs: (1) the sky alone, --spp 8 (env NEE on by auto, the
     closest- and any-hit launches recorded: with no light records each
     any-hit one is an env-NEE shadow wave); (2) --env-nee on with environment_nee_samples
     4; (3) the lit scene; (4) --mode realtime --frames 8; (5)
@@ -1750,7 +1750,7 @@ def cli_runs(torch, tmp):
         results[name] = res
         return res
 
-    run("env", env_scene, ["--spp", "4"], record=True)
+    run("env", env_scene, ["--spp", "8"], record=True)
     with env_nee_defaults(4):
         run("env_m4", env_scene, ["--spp", "8", "--env-nee", "on"])
     run("lit", lit_scene, ["--spp", "8"])

@@ -235,3 +235,77 @@ def test_to_host_widebvh_reads_num_wide():
     assert bvh.num_nodes == int(built["num_wide"]) < built["children"].shape[0]
     assert bvh.num_clusters == 88 and bvh.num_tris == 700
     assert bvh.tri_order.dtype == np.int64
+
+
+def _slots(bvh, leaf):
+    """(node, slot) of every leaf (or inner) child, in order."""
+    ch = bvh.children
+    kind = (ch < 0) & (ch != int(port.INVALID)) if leaf else ch >= 0
+    return [tuple(int(i) for i in ws) for ws in np.argwhere(kind)]
+
+
+def _shrink(bvh, leaf):
+    w, s = _slots(bvh, leaf)[0]
+    bvh.bounds_hi[w, s] = (bvh.bounds_lo[w, s] + bvh.bounds_hi[w, s]) / 2
+
+
+def _set_child(bvh, leaf, value):
+    w, s = _slots(bvh, leaf)[1]
+    bvh.children[w, s] = value(bvh)
+
+
+def _share_child(bvh):
+    """A second slot points at the first inner slot's child."""
+    (w0, s0), (w1, s1) = _slots(bvh, False)[:2]
+    bvh.children[w1, s1] = bvh.children[w0, s0]
+
+
+def _repeat_cluster(bvh):
+    (w0, s0), (w1, s1) = _slots(bvh, True)[:2]
+    bvh.children[w1, s1] = bvh.children[w0, s0]
+
+
+# Each fault, and a violation message that names it.
+CORRUPTIONS = {
+    "shrink_leaf_box": (lambda b: _shrink(b, True), "leaf cluster"),
+    "shrink_inner_box": (lambda b: _shrink(b, False), "inner child"),
+    "drop_leaf": (lambda b: _set_child(b, True, lambda b: port.INVALID),
+                  "unreachable leaf clusters"),
+    "drop_inner": (lambda b: _set_child(b, False, lambda b: port.INVALID),
+                   "orphan wide nodes"),
+    "shared_child": (_share_child, "nodes with multiple parents"),
+    "repeated_cluster": (_repeat_cluster,
+                         "clusters referenced more than once"),
+    "child_out_of_range": (
+        lambda b: _set_child(b, False, lambda b: b.num_nodes),
+        "out of range"),
+    "cluster_out_of_range": (
+        lambda b: _set_child(b, True, lambda b: -b.num_clusters - 1),
+        "out of range"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(CORRUPTIONS))
+def test_validate_finds_what_jax_finds(fault):
+    """validate_bvh, a copy of the JAX module, held against it on a tree
+    that the device build made and a fault then broke: both report the
+    same violations, and they name the fault."""
+    import dataclasses
+
+    from tracerboy_tpu.accel.bvh import WideBVH as JaxWideBVH
+    from tracerboy_tpu.accel.validate import validate_bvh as jax_validate
+
+    v = random_soup(np.random.default_rng(21), 2000)
+    built, _ = port_build(v)
+    bvh = port.to_host_widebvh(built, v[0].shape[0])
+    assert validate_bvh(bvh, *v) == []
+    assert len(_slots(bvh, False)) >= 2 and len(_slots(bvh, True)) >= 2
+    broken = dataclasses.replace(
+        bvh, bounds_lo=bvh.bounds_lo.copy(), bounds_hi=bvh.bounds_hi.copy(),
+        children=bvh.children.copy())
+    corrupt, names = CORRUPTIONS[fault]
+    corrupt(broken)
+    got = validate_bvh(broken, *v)
+    want = jax_validate(JaxWideBVH(**dataclasses.asdict(broken)), *v)
+    assert got == want
+    assert got and any(names in e for e in got), got

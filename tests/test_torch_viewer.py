@@ -5,10 +5,17 @@ ViewerController; tests/test_utils.py's FrameStats and scope) on the
 procedural cornell box, on the CPU. The JAX tests load a reference scene
 that is not in the repository and skip here; these run.
 
+TestParityWithJax holds the port's ViewerController and run_turntable
+against the JAX package's on the same scene: the same keys leave the same
+camera, settings, panel and material rows, and the same history restarts;
+the turntable visits the same cameras. Neither renders (the turntable's
+render is stubbed), so no JAX wave compiles.
+
 f5 (the JAX viewer's shader reload, Renderer.recompile_shaders, not ported
 by design) is an unhandled key in the port.
 """
 
+import dataclasses
 import json
 import os
 
@@ -129,6 +136,127 @@ class TestViewerController:
         ctl = _controller()
         assert ctl.on_key("tab") == "panel"
         assert ctl.panel.visible
+
+
+def _jax_renderer(size=(16, 16)):
+    from tracerboy_tpu.renderer import Renderer as JaxRenderer
+
+    return JaxRenderer(SCENE, film_size=size)
+
+
+def _camera(r):
+    cam = r.compiled.camera
+    return np.stack([cam.position, cam.look_at, cam.right, cam.up])
+
+
+def _count_restarts(r):
+    """Wrap r.invalidate_history to count the history restarts."""
+    calls = []
+    inner = r.invalidate_history
+
+    def counted():
+        calls.append(1)
+        inner()
+
+    r.invalidate_history = counted
+    return calls
+
+
+def _view(ctl, restarts):
+    r = ctl.renderer
+    return dict(
+        camera=_camera(r), settings=dataclasses.asdict(r.settings),
+        materials={k: np.asarray(v) for k, v in r.compiled.materials.items()},
+        panel=(ctl.panel.visible, ctl.panel.row, ctl.panel.text()),
+        selected=ctl.selected_mat, restarts=len(restarts))
+
+
+def _assert_same_view(got, want, step):
+    np.testing.assert_array_equal(got["camera"], want["camera"],
+                                  err_msg=step)
+    assert got["settings"] == want["settings"], step
+    assert sorted(got["materials"]) == sorted(want["materials"]), step
+    for k, v in want["materials"].items():
+        np.testing.assert_array_equal(got["materials"][k], v,
+                                      err_msg=f"{step}: material {k}")
+    for k in ("panel", "selected", "restarts"):
+        assert got[k] == want[k], (step, k, got[k], want[k])
+
+
+# Every key the port handles except f5 (JAX only) and p (writes the
+# rendered image): camera moves and looks, both mode toggles, the AOV
+# cycle past its wrap, and each of the panel's nine rows turned both ways.
+PANEL_KEYS = ["tab"] + ["right", "right", "left", "down"] * 9 + [
+    "up", "up", "right", "left", "left", "zz", "tab"]
+VIEW_KEYS = (["w", "a", "s", "d", "q", "e", "left", "right", "up", "down",
+              "w", "w", "left", "up", "m", "m", "m"] + ["o"] * 7
+             + PANEL_KEYS + ["right", "zz", "s", "m"])
+
+
+class TestParityWithJax:
+    def test_keys_leave_the_jax_viewers_state(self):
+        from tracerboy_tpu.app import viewer as jax_viewer
+
+        jctl = jax_viewer.ViewerController(_jax_renderer())
+        ctl = _controller()
+        jn, n = _count_restarts(jctl.renderer), _count_restarts(ctl.renderer)
+        _assert_same_view(_view(ctl, n), _view(jctl, jn), "start")
+        for i, key in enumerate(VIEW_KEYS):
+            assert ctl.on_key(key) == jctl.on_key(key), (i, key)
+            _assert_same_view(_view(ctl, n), _view(jctl, jn), f"{i}: {key}")
+        assert len(n) > 20
+
+    def test_bracket_edits_match_jax(self):
+        """'[' and ']' on each material of the box (the click only picks
+        the id, so it is set directly)."""
+        from tracerboy_tpu.app import viewer as jax_viewer
+
+        jctl = jax_viewer.ViewerController(_jax_renderer())
+        ctl = _controller()
+        jn, n = _count_restarts(jctl.renderer), _count_restarts(ctl.renderer)
+        assert ctl.on_key("]") == jctl.on_key("]") == ""
+        n_mats = len(ctl.renderer.compiled.materials["albedo"])
+        assert n_mats >= 3
+        peak = 0.0
+        for mid in range(n_mats):
+            ctl.selected_mat = jctl.selected_mat = mid
+            for key in ("]", "]", "]", "[", "]", "[", "["):
+                assert ctl.on_key(key) == jctl.on_key(key) == "material"
+                _assert_same_view(_view(ctl, n), _view(jctl, jn),
+                                  f"material {mid}: {key}")
+                peak = max(peak, float(np.max(ctl.renderer.get_material(
+                    mid)["albedo"])))
+        assert peak == 1.0   # the clip at 1 was reached
+        albedo = ctl.renderer.compiled.materials["albedo"]
+        # The device table follows the host rows.
+        np.testing.assert_array_equal(
+            ctl.renderer.scene["materials"]["albedo"].numpy(),
+            np.asarray(albedo))
+
+    def test_turntable_visits_the_jax_cameras(self, tmp_path):
+        from tracerboy_tpu.app import viewer as jax_viewer
+
+        frames, spp = 5, 3
+        seen = {}
+        for name, mod, r in (("jax", jax_viewer, _jax_renderer((8, 6))),
+                             ("port", viewer, _renderer((8, 6)))):
+            calls = seen[name] = []
+            r.render_sample = (lambda s, r=r, calls=calls:
+                               calls.append((s, _camera(r))))
+            r.current_image = (lambda r=r:
+                               np.zeros((r.height, r.width, 3), np.float32))
+            mod.run_turntable(r, frames, str(tmp_path / name), spp=spp)
+            calls.append((None, _camera(r)))
+            assert sorted(os.listdir(tmp_path / name)) == [
+                f"frame_{f:04d}.png" for f in range(frames)]
+        assert len(seen["port"]) == frames + 1
+        for f, ((sj, cj), (sp, cp)) in enumerate(zip(seen["jax"],
+                                                     seen["port"])):
+            assert sp == sj, f
+            np.testing.assert_array_equal(cp, cj, err_msg=f"frame {f}")
+        # The orbit moved the camera at every frame.
+        cams = np.stack([c for _, c in seen["port"]])
+        assert (np.abs(np.diff(cams[:, 0], axis=0)).max(axis=1) > 0).all()
 
 
 def test_turntable_writes_frames(tmp_path, capsys):
