@@ -166,12 +166,28 @@ Phases, each fatal on failure:
      it held against the plain version; app/viewer.py's turntable (three
      1280x720 PNGs of env.pbrt) and ViewerController on the card (w, m,
      o, p, a click, ] on the clicked material);
- 20. a JSON line of the seven kernels (launches from the run of the path
+ 20. the ML extras (ml_phase): ml/finetune.py's make_dataset on
+     "shadertoy" at 512x320 (4 orbit views, a 64-spp target and two
+     8-spp inputs each; every closest-hit and any-hit launch of its
+     renders held against the plain version on at most CHECK_LANES live
+     lanes: TOLERANCE, each id mismatch outside ties one whose box the
+     kernel culled by its slab arithmetic (the box's entry t not below
+     the kernel's hit), 0 occlusion mismatches, dead lanes miss, 0
+     overflows; s a sample); finetune from the committed
+     rt_ldr_ft.npz, 200 Adam steps of batch 4 at full frame (every loss
+     and the holdout L2 before and after finite; ms a step by CUDA-event
+     spans, peak memory), its .npz read back by load_params_npz and
+     denoising the held-out frame to a finite image; fsr_upscale and
+     upscale2x (a seeded random weights.bin) of a 1280x720 render to
+     2560x1440, timed (FSR NaN exactly on the reference's 0/0 plateaus,
+     ROADMAP.md Queue 3, in [0, 1] elsewhere); the CLI's --upscale fsr
+     on lit.pbrt at 640x360, a 1280x720 PNG;
+ 21. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
-     2 also by the volume run's, the adaptive residual wave's and the
-     animation phase's launches), then the result line {"ok": true,
-     "device": {...}} last.
+     2 also by the volume run's, the adaptive residual wave's, the
+     animation phase's and the ML dataset's launches), then the result
+     line {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX or the JAX package (the UNet weights are a data
 file read by path).
@@ -3361,6 +3377,306 @@ def animation_phase(torch, Renderer, env_scene, forest):
     return results, total
 
 
+# The ML extras (ml_phase): the fine-tune's dataset, training and the
+# upscalers, sized to stay cheap.
+ML_DATASET = dict(film=(512, 320), n_views=4, input_spp=8, target_spp=64,
+                  inputs_per_view=2)
+ML_TRAIN = dict(steps=200, batch=4, lr=1e-4, holdout_views=1)
+ML_CLI_SIZE = (640, 360)
+
+
+def write_superres_weights(path, seed):
+    """A weights.bin of the super-resolution network (int32 count, then
+    per tensor u32 name length, name, u32 float count, float32 data):
+    He-scaled random kernels, BatchNorm scale and shift on the ReLU
+    layers but conv_up1/conv."""
+    import struct
+
+    from tracerboy_tpu_torch.ml.superres import _LAYERS
+
+    rng = np.random.default_rng(seed)
+    tensors = {}
+    for name, k, cin, cout, relu, _up in _LAYERS:
+        gain = 1.0 if relu else 0.3
+        tensors[f"{name}/weights"] = (
+            rng.normal(size=k * k * cin * cout) * gain
+            * np.sqrt(2.0 / (k * k * cin))).astype(np.float32)
+        if relu and name != "conv_up1/conv":
+            tensors[f"{name}/BatchNorm/scale"] = rng.uniform(
+                0.5, 1.5, cout).astype(np.float32)
+            tensors[f"{name}/BatchNorm/shift"] = (
+                rng.normal(size=cout) * 0.05).astype(np.float32)
+    blob = bytearray(struct.pack("<i", len(tensors)))
+    for name, arr in tensors.items():
+        blob += struct.pack("<I", len(name)) + name.encode("ascii")
+        blob += struct.pack("<I", arr.size) + arr.astype("<f4").tobytes()
+    Path(path).write_bytes(bytes(blob))
+
+
+def ml_phase(torch):
+    """ml_runs in a temporary directory that is removed after it."""
+    with tempfile.TemporaryDirectory(prefix="tb_ml_") as tmp:
+        return ml_runs(torch, tmp)
+
+
+def ml_runs(torch, tmp):
+    """The ML extras on the card. (a) make_dataset on "shadertoy" at
+    512x320 (4 orbit views, each a 64-spp target and two 8-spp inputs):
+    every closest-hit and any-hit launch of its renders recorded, each
+    held against its plain version on at most CHECK_LANES live lanes
+    (TOLERANCE, every id mismatch outside ties explained by the kernel's
+    box cull, 0 occlusion mismatches, dead lanes miss, 0 overflows); s a
+    sample. (b) finetune from the committed
+    rt_ldr_ft.npz, 200 steps of batch 4 at full frame, lr 1e-4: every
+    loss and the holdout L2 before and after finite; ms a training step
+    (CUDA-event spans of train_step, steps 10-199) and peak memory; the
+    written .npz loads back through load_params_npz and denoises the
+    held-out frame to a finite image. (c) fsr_upscale and upscale2x (a
+    seeded random weights.bin) of the slice's 1280x720 image to
+    2560x1440, with their ms; FSR's output is NaN exactly where the
+    reference's RCAS divides 0 by 0 (a pixel and its four neighbours
+    all exactly 1: ROADMAP.md Queue 3) and in [0, 1] elsewhere. (d) the
+    CLI on lit.pbrt at 640x360, 2 spp, --upscale fsr: a 1280x720 PNG.
+    Returns (results, launches of (a))."""
+    from tracerboy_tpu_torch import Renderer
+    from tracerboy_tpu_torch.app import cli
+    from tracerboy_tpu_torch.ml import finetune as ft
+    from tracerboy_tpu_torch.ml import fsr, superres
+    from tracerboy_tpu_torch.ml.oidn import denoise_image
+    from tracerboy_tpu_torch.trace import kernels, traverse
+    from tracerboy_tpu_torch.utils.demo_scene import write_demo_scene
+
+    set_opt_in()
+    results = {}
+    rng = np.random.default_rng(20261020)
+
+    # (a) the dataset's renders, their launches recorded on a subset.
+    recorded = {"closest_hit": [], "any_hit": []}
+    real = {key: getattr(traverse, key) for key in recorded}
+    dead_hits = [0]
+
+    def recorder(key):
+        def recording(o, d, t_max, nodes, tris_bw, roots=None):
+            if roots is not None:
+                fail(f"ml dataset: a {key} launch with per-ray roots")
+            out = real[key](o, d, t_max, nodes, tris_bw)
+            live_idx, sel = live_subset(t_max, rng)
+            dead = t_max <= 0
+            if key == "closest_hit":
+                dead_hits[0] += int((out[1][dead] >= 0).sum())
+                k = tuple(x[sel] for x in out)
+            else:
+                dead_hits[0] += int(out[dead].sum())
+                k = out[sel]
+            recorded[key].append(dict(
+                o=o[sel], d=d[sel], tm=t_max[sel], k=k, nodes=nodes,
+                tris=tris_bw, lanes=o.shape[0], live=live_idx.numel()))
+            return out
+        return recording
+
+    data = os.path.join(tmp, "pairs.npz")
+    ds = ML_DATASET
+    samples = ds["n_views"] * (ds["target_spp"]
+                               + ds["inputs_per_view"] * ds["input_spp"])
+    logs = []
+    kernels.reset_counters()
+    for key in recorded:
+        setattr(traverse, key, recorder(key))
+    try:
+        t0 = time.perf_counter()
+        ft.make_dataset("shadertoy", data, seed=1, progress=logs.append,
+                        **ds)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        for key, fn in real.items():
+            setattr(traverse, key, fn)
+    launches = dict(kernels.LAUNCHES)
+    overflows = kernels.stack_overflows()
+    if launches.get("closest", 0) <= 0 or launches.get("anyhit", 0) <= 0:
+        fail(f"ml dataset: launches {launches}")
+    with np.load(data) as z:
+        shapes = {key: (list(z[key].shape), str(z[key].dtype))
+                  for key in z.files}
+        finite = all(np.isfinite(z[key]).all() for key in ("inp", "tgt"))
+        tgt_mean = float(z["tgt"].astype(np.float32).mean())
+    n_pairs = ds["n_views"] * ds["inputs_per_view"]
+    film_hw = [ds["film"][1], ds["film"][0], 3]
+    want = ([n_pairs, *film_hw], "float16")
+    if shapes["inp"] != want or shapes["tgt"] != want or not finite:
+        fail(f"ml dataset: arrays {shapes}, finite {finite}")
+    closest = dict(launches=0, lanes=0, live=0, checked=0, hit_mismatch=0,
+                   id_mismatch_outside_ties=0, ties=0, max_rel_t_err=0.0,
+                   max_abs_err=0.0, outside_ties=[])
+    anyhit = dict(launches=0, lanes=0, live=0, checked=0, occ_mismatch=0,
+                  occluded=0, max_abs_err=0.0)
+    bad = 0
+    t1 = time.perf_counter()
+    for rec in recorded["closest_hit"]:
+        p = traverse.closest_hit_plain(rec["o"], rec["d"], rec["tm"],
+                                       rec["nodes"], rec["tris"])
+        ok, st = check_closest(rec["o"], rec["d"], (rec["nodes"],
+                                                    rec["tris"]), rec["k"], p)
+        # An id mismatch outside ties is explained when the kernel culled
+        # the twin's box by its own slab arithmetic: the box's entry t not
+        # below the kernel's hit (check_closest lists up to 4 a launch).
+        listed = st.get("outside_ties", [])
+        explained = [r for r in listed
+                     if r["box_t_near_twin"] >= r["t_kernel"]]
+        closest["outside_ties"] += listed
+        bad += (not ok or len(explained) != st["id_mismatch_outside_ties"])
+        closest["launches"] += 1
+        for key in ("lanes", "live"):
+            closest[key] += rec[key]
+        closest["checked"] += st["rays"]
+        for key in ("hit_mismatch", "id_mismatch_outside_ties", "ties"):
+            closest[key] += st[key]
+        for key in ("max_rel_t_err", "max_abs_err"):
+            closest[key] = max(closest[key], st[key])
+    for rec in recorded["any_hit"]:
+        p = traverse.anyhit_plain(rec["o"], rec["d"], rec["tm"],
+                                  rec["nodes"], rec["tris"])
+        _, st = check_anyhit(rec["k"], p)
+        bad += st["occ_mismatch"] > 0
+        anyhit["launches"] += 1
+        for key in ("lanes", "live"):
+            anyhit[key] += rec[key]
+        anyhit["checked"] += st["rays"]
+        for key in ("occ_mismatch", "occluded"):
+            anyhit[key] += st[key]
+        anyhit["max_abs_err"] = max(anyhit["max_abs_err"], st["max_abs_err"])
+    for row in (closest, anyhit):
+        row["live_share"] = row["live"] / max(row["lanes"], 1)
+        row["overflows"] = overflows
+    results["dataset"] = dict(
+        seconds=seconds, samples=samples, s_per_sample=seconds / samples,
+        launches=launches, stack_overflows=overflows,
+        dead_lane_hits=dead_hits[0], arrays=shapes, tgt_mean=tgt_mean,
+        check_s=time.perf_counter() - t1)
+    results["closest"], results["anyhit"] = closest, anyhit
+    print("ml dataset (make_dataset shadertoy 512x320, 4 views):",
+          json.dumps(results["dataset"]))
+    closest["outside_ties_explained"] = sum(
+        r["box_t_near_twin"] >= r["t_kernel"]
+        for r in closest["outside_ties"])
+    print("ml dataset closest-hit launches:", json.dumps(closest))
+    print("ml dataset any-hit launches:", json.dumps(anyhit))
+    if (bad or overflows or dead_hits[0] or closest["launches"]
+            != launches["closest"] or anyhit["launches"]
+            != launches["anyhit"]):
+        fail(f"ml dataset launches: {bad} disagree with the plain version, "
+             f"{overflows} overflows, {dead_hits[0]} dead-lane hits")
+    del recorded
+
+    # (b) the fine-tune from the committed weights, each step spanned.
+    init = ft.load_params_npz(str(UNET_WEIGHTS)).to("cuda")
+    out_npz = os.path.join(tmp, "ft.npz")
+    real_step, step_losses, step_events = ft.train_step, [], []
+
+    def spanned_step(*args):
+        """train_step between two CUDA events; its loss kept on the card."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = real_step(*args)
+        end.record()
+        step_events.append((start, end))
+        step_losses.append(loss)
+        return loss
+
+    logs = []
+    torch.cuda.reset_peak_memory_stats()
+    ft.train_step = spanned_step
+    try:
+        t0 = time.perf_counter()
+        h0, h1 = ft.finetune(data, out_npz, init_tza=init, seed=0,
+                             log_every=50, progress=logs.append, **ML_TRAIN)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        ft.train_step = real_step
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack(step_losses).cpu().tolist()
+    step_ms = [s.elapsed_time(e) for s, e in step_events]
+    if not (len(losses) == ML_TRAIN["steps"] == len(step_ms)
+            and np.isfinite(losses).all() and np.isfinite([h0, h1]).all()):
+        fail(f"ml fine-tune: {len(losses)} losses, {len(step_ms)} steps, "
+             f"finite {np.isfinite(losses).all()}, holdout {h0} -> {h1}")
+    with np.load(data) as z:
+        hold = z["view"] >= z["view"].max() + 1 - ML_TRAIN["holdout_views"]
+        x = ft._net_space(z["inp"][hold][:1], z["expo"][hold][:1], "cuda")[0]
+    net = ft.load_params_npz(out_npz).to("cuda")
+    den = denoise_image(net, x)
+    torch.cuda.synchronize()
+    if den.shape != x.shape or not bool(torch.isfinite(den).all()):
+        fail(f"ml fine-tune: the reloaded weights denoise to {den.shape}, "
+             f"finite {bool(torch.isfinite(den).all())}")
+    results["finetune"] = dict(
+        steps=len(losses), batch=ML_TRAIN["batch"], lr=ML_TRAIN["lr"],
+        holdout_before=h0, holdout_after=h1, loss_first=losses[0],
+        loss_last=losses[-1], loss_mean_first10=float(np.mean(losses[:10])),
+        loss_mean_last10=float(np.mean(losses[-10:])),
+        step_ms_median=float(np.median(step_ms[10:])),
+        step_ms_quartiles=[float(q) for q in
+                           np.percentile(step_ms[10:], [25, 75])],
+        step_ms_first=step_ms[0], seconds=train_s, peak_gib=peak,
+        reload_denoise_mean=float(den.mean()))
+    print("ml fine-tune (rt_ldr_ft.npz, 200 steps):",
+          json.dumps(results["finetune"]))
+    del init, net, den, x
+
+    # (c) the upscalers on the slice's 1280x720 image.
+    r = Renderer("shadertoy", film_size=FULL_WAVE, device="cuda")
+    r.render_sample(8)
+    img = torch.from_numpy(r.current_image()).to("cuda")
+    del r
+    out_hw = (2 * FULL_WAVE[1], 2 * FULL_WAVE[0], 3)
+    up = fsr.fsr_upscale(img)
+    easu = torch.clamp(fsr.easu_upscale(img, *out_hw[:2]), 0.0, 1.0)
+    one = easu == 1.0
+    plateau = (one & one.roll(1, 0) & one.roll(-1, 0) & one.roll(1, 1)
+               & one.roll(-1, 1))
+    nan = torch.isnan(up)
+    ok = (tuple(up.shape) == out_hw and bool(torch.equal(nan, plateau))
+          and float(up[~nan].min()) >= 0 and float(up[~nan].max()) <= 1)
+    results["fsr"] = dict(
+        shape=list(up.shape), undefined_plateau_values=int(plateau.sum()),
+        ms=cuda_ms(lambda: fsr.fsr_upscale(img), 10))
+    if not ok:
+        fail(f"ml FSR: {results['fsr']}, NaN {int(nan.sum())} against "
+             f"{int(plateau.sum())} plateau values")
+    weights = os.path.join(tmp, "weights.bin")
+    write_superres_weights(weights, seed=7)
+    sr = superres.load_superres(weights).to("cuda")
+    up2 = superres.upscale2x(sr, img)
+    torch.cuda.synchronize()
+    results["superres"] = dict(
+        shape=list(up2.shape), mean=float(up2.mean()),
+        ms=cuda_ms(lambda: superres.upscale2x(sr, img), 5))
+    if (tuple(up2.shape) != out_hw or not bool(torch.isfinite(up2).all())
+            or float(up2.min()) < 0 or float(up2.max()) > 1):
+        fail(f"ml superres: {results['superres']}")
+    print("ml upscalers (1280x720 -> 2560x1440):",
+          json.dumps({k: results[k] for k in ("fsr", "superres")}))
+    del up, up2, easu, sr, img
+
+    # (d) the CLI's --upscale fsr.
+    _, lit_scene = write_demo_scene(tmp)
+    png = os.path.join(tmp, "upscaled.png")
+    t0 = time.perf_counter()
+    rc = cli.main([lit_scene, "--size", "x".join(map(str, ML_CLI_SIZE)),
+                   "--spp", "2", "--upscale", "fsr", "--out", png,
+                   "--quiet"])
+    w, h, ctype, _ = png_facts(png)
+    results["cli"] = dict(rc=rc, png=[w, h], colour_type=ctype,
+                          seconds=time.perf_counter() - t0)
+    print("ml CLI lit.pbrt 640x360 --upscale fsr:", json.dumps(results["cli"]))
+    if rc != 0 or (w, h) != (2 * ML_CLI_SIZE[0], 2 * ML_CLI_SIZE[1]):
+        fail(f"ml CLI --upscale fsr: {results['cli']}")
+    torch.cuda.empty_cache()
+    return results, launches
+
+
 def main() -> int:
     print(card_line())
     import torch
@@ -3574,6 +3890,11 @@ def main() -> int:
     anim_blas = anim_res["forest"]["blas"]
     work.cleanup()
     lap("animation")
+
+    # --- the ML extras: the fine-tune's dataset and training, upscalers ---
+    ml_res, ml_launches = ml_phase(torch)
+    ml_c, ml_a = ml_res["closest"], ml_res["anyhit"]
+    lap("ml")
     print("phase seconds:", json.dumps(laps))
 
     def by_path(key):
@@ -3584,7 +3905,7 @@ def main() -> int:
                 "instanced": inst_launches[key],
                 "volume": vol_launches[key],
                 "estimators": est_launches[key],
-                "animation": anim_launches[key]}
+                "animation": anim_launches[key], "ml": ml_launches[key]}
 
     trav = "tracerboy_tpu_torch/csrc/bvh_traverse.cu"
     bsrc = "tracerboy_tpu_torch/csrc/binned.cu"
@@ -3603,13 +3924,13 @@ def main() -> int:
                              [st_c, st_c2, un_c, *roots_c, env_closest,
                               *tex_kinds.values(),
                               *inst_res["kinds"].values(), vol_c, adap_c,
-                              anim_c, anim_blas]),
+                              anim_c, anim_blas, ml_c]),
              id_mismatch_outside_ties=sum(
                  s["id_mismatch_outside_ties"]
                  for s in [st_c, st_c2, un_c, *roots_c, env_closest,
                            *tex_kinds.values(),
                            *inst_res["kinds"].values(), vol_c, adap_c,
-                           anim_c, anim_blas]),
+                           anim_c, anim_blas, ml_c]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
              unordered_ms=un_times["closest_ms"],
              unordered_plain_ms=un_times["closest_plain_ms"],
@@ -3658,6 +3979,10 @@ def main() -> int:
                  "launches", "lanes", "live", "live_share", "checked",
                  "hit_mismatch", "id_mismatch_outside_ties", "ties",
                  "max_abs_err", "overflows")},
+             **{f"ml_{key}": ml_c[key] for key in (
+                 "launches", "lanes", "live", "live_share", "checked",
+                 "hit_mismatch", "id_mismatch_outside_ties", "ties",
+                 "max_rel_t_err", "max_abs_err", "overflows")},
              volume_run=vol_res["run"],
              volume_control=vol_res["control"],
              estimators={k: {kk: vv for kk, vv in v.items()
@@ -3687,10 +4012,10 @@ def main() -> int:
              launches_by_path=by_path("anyhit"),
              occ_mismatch=sum(s["occ_mismatch"]
                               for s in [st_a, st_a2, un_a, *roots_a,
-                                        anim_a]),
+                                        anim_a, ml_a]),
              max_abs_err=max(s["max_abs_err"]
                              for s in [st_a, st_a2, un_a, *roots_a,
-                                       anim_a]),
+                                       anim_a, ml_a]),
              ms=times["anyhit_ms"], plain_ms=times["anyhit_plain_ms"],
              unordered_ms=un_times["anyhit_ms"],
              unordered_plain_ms=un_times["anyhit_plain_ms"],
@@ -3706,7 +4031,10 @@ def main() -> int:
                 for key in (
                  "launches", "lanes", "live", "live_share", "checked",
                  "ms", "plain_ms", "bound_ms", "bound_by", "occ_mismatch",
-                 "occluded", "max_abs_err", "overflows")}),
+                 "occluded", "max_abs_err", "overflows")},
+             **{f"ml_{key}": ml_a[key] for key in (
+                 "launches", "lanes", "live", "live_share", "checked",
+                 "occ_mismatch", "occluded", "max_abs_err", "overflows")}),
         dict(name="emit_cuts", route="cuda",
              source="tracerboy_tpu_torch/csrc/cut_emit.cu",
              replaces="tracerboy_tpu/trace/pallas_traverse2.py:657",

@@ -179,8 +179,65 @@ def test_denoiser_needs_the_archive(tiny_scene, tmp_path):
     assert e.value.code == 2
 
 
+def test_upscale_fsr_matches_the_jax_cli(tiny_scene, tmp_path):
+    """--upscale fsr: a 2x PNG (48x64 from 32x24) equal to the JAX CLI's
+    within 2/255 on >= 99% of pixels."""
+    common = [tiny_scene, "--spp", "1", "--upscale", "fsr", "--quiet"]
+    assert _jax_main([*common, "--out", str(tmp_path / "j.png")]) == 0
+    assert cli.main([*common, "--out", str(tmp_path / "t.png"),
+                     "--device", "cpu"]) == 0
+    img = _read_png(tmp_path / "t.png")
+    assert img.shape == (48, 64, 3)
+    assert_images_close(img, _read_png(tmp_path / "j.png"))
+
+
+def test_upscale_superres_matches_the_jax_cli(tiny_scene, tmp_path,
+                                              monkeypatch):
+    """--upscale superres with a seeded random weights.bin read by both
+    CLIs (tests/test_torch_upscale.py's writer)."""
+    import tracerboy_tpu.ml.superres as jax_superres
+    from test_torch_upscale import write_weights_bin
+
+    from tracerboy_tpu_torch.ml import superres
+
+    weights = str(tmp_path / "weights.bin")
+    write_weights_bin(weights, seed=4)
+    real = jax_superres.load_superres
+    monkeypatch.setattr(jax_superres, "load_superres",
+                        lambda path: real(weights))
+    monkeypatch.setattr(superres, "WEIGHTS_BIN", weights)
+    common = [tiny_scene, "--spp", "1", "--upscale", "superres", "--quiet"]
+    assert _jax_main([*common, "--out", str(tmp_path / "j.png")]) == 0
+    assert cli.main([*common, "--out", str(tmp_path / "t.png"),
+                     "--device", "cpu"]) == 0
+    img = _read_png(tmp_path / "t.png")
+    assert img.shape == (48, 64, 3)
+    assert_images_close(img, _read_png(tmp_path / "j.png"))
+
+
+def test_upscale_superres_needs_its_weights(tiny_scene, tmp_path,
+                                            monkeypatch, capsys):
+    """Without weights.bin --upscale superres stops with exit 2 before
+    any render, naming the file; it never falls back to FSR."""
+    from tracerboy_tpu_torch import renderer as renderer_mod
+    from tracerboy_tpu_torch.ml import superres
+
+    missing = str(tmp_path / "absent" / "weights.bin")
+    monkeypatch.setattr(superres, "WEIGHTS_BIN", missing)
+
+    def no_render(*args, **kwargs):
+        raise AssertionError("rendered without the weights")
+
+    monkeypatch.setattr(renderer_mod.Renderer, "__init__", no_render)
+    with pytest.raises(SystemExit) as e:
+        cli.main([tiny_scene, "--upscale", "superres", "--device", "cpu",
+                  "--out", str(tmp_path / "o.png")])
+    assert e.value.code == 2
+    assert missing in capsys.readouterr().err
+    assert not (tmp_path / "o.png").exists()
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--upscale", "fsr"], "item 19"),
     (["--shard", "tiles"], "item 21"),
     (["--devices", "2"], "item 21"),
 ])

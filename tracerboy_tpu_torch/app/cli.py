@@ -12,8 +12,10 @@ Usage:
 The flags are the JAX CLI's, plus two of the port's own: --device (the
 renderer's torch device, default cuda; the CPU runs the kernels' plain
 versions) and --archive (the .tza weights --denoiser oidn* needs: the
-repository ships none). The flags of features the port does not have
-yet raise NotImplementedError naming their ROADMAP.md item.
+repository ships none). --upscale superres reads the reference's
+weights.bin where the JAX CLI does (ml/superres.py WEIGHTS_BIN) and
+stops before rendering without it. The flags of features the port does
+not have yet raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ def build_parser():
     p.add_argument("--archive", default=None, metavar="PATH.tza",
                    help="the OIDN weights of --denoiser's model")
     p.add_argument("--upscale", default=None, choices=["fsr", "superres"],
-                   help="not ported yet (raises)")
+                   help="2x upscale the output")
     p.add_argument("--volume", default=None,
                    help="attach a heterogeneous medium: .vdb (OpenVDB "
                         "FloatGrid), .vol (Mitsuba grid), .npy density, "
@@ -106,7 +108,6 @@ def build_parser():
 
 # Flags of features the port does not have yet, and their ROADMAP.md item.
 _UNPORTED_FLAGS = (
-    ("upscale", "--upscale", "Queue 1: item 19, ml/superres.py, ml/fsr.py"),
     ("devices", "--devices", "Queue 1: item 21, parallel/sharding.py"),
 )
 
@@ -184,6 +185,12 @@ def main(argv=None, stats: dict | None = None):
     if args.denoiser != "none" and not args.archive:
         parser.error(f"--denoiser {args.denoiser} needs --archive PATH.tza "
                      "(the model's OIDN weights)")
+    if args.upscale == "superres":
+        from tracerboy_tpu_torch.ml import superres
+
+        if not os.path.exists(superres.WEIGHTS_BIN):
+            parser.error(f"--upscale superres needs {superres.WEIGHTS_BIN} "
+                         "(the super-resolution network's weights.bin)")
 
     import numpy as np
     import torch
@@ -273,6 +280,20 @@ def main(argv=None, stats: dict | None = None):
             ps.enable_gamma_correction, ps.enable_auto_exposure,
         ).cpu().numpy()
         log(f"denoised (OIDN UNet, {model}, {transfer} transfer)")
+
+    if args.upscale:
+        from tracerboy_tpu_torch.ml import superres
+        from tracerboy_tpu_torch.ml.fsr import fsr_upscale
+
+        x = torch.as_tensor(img, device=r.device)
+        if args.upscale == "fsr":
+            x = fsr_upscale(x)
+            log("upscaled 2x (FSR-style EASU+RCAS)")
+        else:
+            net = superres.load_superres(superres.WEIGHTS_BIN).to(r.device)
+            x = superres.upscale2x(net, x)
+            log("upscaled 2x (super-resolution CNN)")
+        img = x.cpu().numpy()
 
     image_io.write_png(args.out, img)
     log(f"wrote {args.out}")
