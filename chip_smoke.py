@@ -182,15 +182,34 @@ Phases, each fatal on failure:
      2560x1440, timed (FSR NaN exactly on the reference's 0/0 plateaus,
      ROADMAP.md Queue 3, in [0, 1] elsewhere); the CLI's --upscale fsr
      on lit.pbrt at 640x360, a 1280x720 PNG;
- 21. a JSON line of the seven kernels (launches from the run of the path
+ 21. tile and sample sharding (sharding_phase) on "shadertoy" at
+     1280x720: Renderer(shard="tiles") render_sample(1) twice and
+     shard="spp" render_sample(2) on the default mesh (every card), then
+     on the mesh ["cuda:0", "cuda:0"] tiles at 1280x720 (pad 0) and
+     1279x719 (pad 1) and spp render_sample(4) (two merged waves): each
+     tiled accumulator equal (torch.equal) to an unsharded renderer's
+     after as many render_sample(1) calls, each spp accumulator to the
+     unsharded sum of the same waves in mesh order; every kernel-1 and
+     kernel-2 launch of those runs held against its plain version as in
+     20; make_mesh of one card more than the machine has raising; the
+     CLI with --shard spp --devices 1 on env.pbrt at 640x360; ms a
+     sample of the unsharded, tiled and spp runs (host time);
+ 22. the port's JPEG decoder (jpeg_phase): every fixture of
+     tests/data/jpeg decoded to the sha256 of PIL's array in its
+     manifest; the 1024x1024 progressive 4:2:0 albedo's decode timed on
+     the host; the CLI on textured_lit.pbrt with that JPEG as its albedo,
+     1280x720, 2 spp, a finite image, its closest-hit launches held
+     against the plain version by kind (main, re-fire, shadow-BVH);
+ 23. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
      2 also by the volume run's, the adaptive residual wave's, the
-     animation phase's and the ML dataset's launches), then the result
-     line {"ok": true, "device": {...}} last.
+     animation phase's, the ML dataset's, the sharded runs' and the JPEG
+     scene's launches), then the result line {"ok": true, "device":
+     {...}} last.
 
-Imports nothing of JAX or the JAX package (the UNet weights are a data
-file read by path).
+Imports nothing of JAX or the JAX package (the UNet weights and the JPEG
+fixtures are data files read by path).
 """
 
 from __future__ import annotations
@@ -1960,7 +1979,7 @@ def textured_runs(torch, Renderer, tmp):
     from tracerboy_tpu_torch.core import image_io
     from tracerboy_tpu_torch.scene.compile import load_scene
     from tracerboy_tpu_torch.trace import kernels, traverse
-    from tracerboy_tpu_torch.trace.wavefront import ALPHA_ROUNDS
+    from tracerboy_tpu_torch.trace.wavefront import WaveConfig
     from tracerboy_tpu_torch.utils.config import default_output_settings
     from tracerboy_tpu_torch.utils.demo_scene import write_textured_scene
 
@@ -1999,7 +2018,8 @@ def textured_runs(torch, Renderer, tmp):
 
     size = f"{FULL_WAVE[0]}x{FULL_WAVE[1]}"
     perf = default_output_settings().performance_settings
-    per_bounce = 1 + ALPHA_ROUNDS + (ALPHA_ROUNDS + 1)
+    rounds = WaveConfig(width=1, height=1).alpha_rounds
+    per_bounce = 1 + rounds + (rounds + 1)
     per_wave = perf.max_bounces * per_bounce
     total = dict.fromkeys(kernels.LAUNCHES, 0)
     real = traverse.closest_hit
@@ -3413,6 +3433,123 @@ def write_superres_weights(path, seed):
     Path(path).write_bytes(bytes(blob))
 
 
+class LaunchRecorder:
+    """While active (a with block), every closest_hit (kernel 1) and
+    any_hit (kernel 2) launch goes through the kernel and keeps a seeded
+    draw of at most CHECK_LANES of its live lanes (live_subset) with the
+    kernel's outputs there, and counts hits on dead lanes; check() then
+    holds each launch against its plain version."""
+
+    KEYS = ("closest_hit", "any_hit")
+
+    def __init__(self, label, rng):
+        self.label, self.rng = label, rng
+        self.recorded = {key: [] for key in self.KEYS}
+        self.dead_hits = 0
+
+    def __enter__(self):
+        from tracerboy_tpu_torch.trace import traverse
+
+        self.real = {key: getattr(traverse, key) for key in self.KEYS}
+        for key in self.KEYS:
+            setattr(traverse, key, self._recorder(key))
+        return self
+
+    def __exit__(self, *exc):
+        from tracerboy_tpu_torch.trace import traverse
+
+        for key, fn in self.real.items():
+            setattr(traverse, key, fn)
+        return False
+
+    def _recorder(self, key):
+        def recording(o, d, t_max, nodes, tris_bw, roots=None):
+            if roots is not None:
+                fail(f"{self.label}: a {key} launch with per-ray roots")
+            out = self.real[key](o, d, t_max, nodes, tris_bw)
+            live_idx, sel = live_subset(t_max, self.rng)
+            dead = t_max <= 0
+            if key == "closest_hit":
+                self.dead_hits += int((out[1][dead] >= 0).sum())
+                k = tuple(x[sel] for x in out)
+            else:
+                self.dead_hits += int(out[dead].sum())
+                k = out[sel]
+            self.recorded[key].append(dict(
+                o=o[sel], d=d[sel], tm=t_max[sel], k=k, nodes=nodes,
+                tris=tris_bw, lanes=o.shape[0], live=live_idx.numel()))
+            return out
+        return recording
+
+    def check(self, launches, overflows):
+        """Each recorded launch against its plain version: check_closest's
+        TOLERANCE with every id mismatch outside ties explained by the
+        kernel's box cull, 0 occlusion mismatches, no hit on a dead lane,
+        0 stack overflows, and as many recorded launches as the counters
+        (launches) saw. Returns the (closest, anyhit) sums; fails
+        otherwise."""
+        from tracerboy_tpu_torch.trace import traverse
+
+        closest = dict(launches=0, lanes=0, live=0, checked=0,
+                       hit_mismatch=0, id_mismatch_outside_ties=0, ties=0,
+                       max_rel_t_err=0.0, max_abs_err=0.0, outside_ties=[])
+        anyhit = dict(launches=0, lanes=0, live=0, checked=0,
+                      occ_mismatch=0, occluded=0, max_abs_err=0.0)
+        bad = 0
+        for rec in self.recorded["closest_hit"]:
+            p = traverse.closest_hit_plain(rec["o"], rec["d"], rec["tm"],
+                                           rec["nodes"], rec["tris"])
+            ok, st = check_closest(rec["o"], rec["d"],
+                                   (rec["nodes"], rec["tris"]), rec["k"], p)
+            # An id mismatch outside ties is explained when the kernel
+            # culled the twin's box by its own slab arithmetic: the box's
+            # entry t not below the kernel's hit (check_closest lists up
+            # to 4 a launch).
+            listed = st.get("outside_ties", [])
+            explained = [r for r in listed
+                         if r["box_t_near_twin"] >= r["t_kernel"]]
+            closest["outside_ties"] += listed
+            bad += (not ok
+                    or len(explained) != st["id_mismatch_outside_ties"])
+            closest["launches"] += 1
+            for key in ("lanes", "live"):
+                closest[key] += rec[key]
+            closest["checked"] += st["rays"]
+            for key in ("hit_mismatch", "id_mismatch_outside_ties", "ties"):
+                closest[key] += st[key]
+            for key in ("max_rel_t_err", "max_abs_err"):
+                closest[key] = max(closest[key], st[key])
+        for rec in self.recorded["any_hit"]:
+            p = traverse.anyhit_plain(rec["o"], rec["d"], rec["tm"],
+                                      rec["nodes"], rec["tris"])
+            _, st = check_anyhit(rec["k"], p)
+            bad += st["occ_mismatch"] > 0
+            anyhit["launches"] += 1
+            for key in ("lanes", "live"):
+                anyhit[key] += rec[key]
+            anyhit["checked"] += st["rays"]
+            for key in ("occ_mismatch", "occluded"):
+                anyhit[key] += st[key]
+            anyhit["max_abs_err"] = max(anyhit["max_abs_err"],
+                                        st["max_abs_err"])
+        self.recorded = {key: [] for key in self.KEYS}
+        for row in (closest, anyhit):
+            row["live_share"] = row["live"] / max(row["lanes"], 1)
+            row["overflows"] = overflows
+        closest["outside_ties_explained"] = sum(
+            r["box_t_near_twin"] >= r["t_kernel"]
+            for r in closest["outside_ties"])
+        print(f"{self.label} closest-hit launches:", json.dumps(closest))
+        print(f"{self.label} any-hit launches:", json.dumps(anyhit))
+        if (bad or overflows or self.dead_hits
+                or closest["launches"] != launches.get("closest", 0)
+                or anyhit["launches"] != launches.get("anyhit", 0)):
+            fail(f"{self.label} launches: {bad} disagree with the plain "
+                 f"version, {overflows} overflows, {self.dead_hits} "
+                 f"dead-lane hits, counters {launches}")
+        return closest, anyhit
+
+
 def ml_phase(torch):
     """ml_runs in a temporary directory that is removed after it."""
     with tempfile.TemporaryDirectory(prefix="tb_ml_") as tmp:
@@ -3443,7 +3580,7 @@ def ml_runs(torch, tmp):
     from tracerboy_tpu_torch.ml import finetune as ft
     from tracerboy_tpu_torch.ml import fsr, superres
     from tracerboy_tpu_torch.ml.oidn import denoise_image
-    from tracerboy_tpu_torch.trace import kernels, traverse
+    from tracerboy_tpu_torch.trace import kernels
     from tracerboy_tpu_torch.utils.demo_scene import write_demo_scene
 
     set_opt_in()
@@ -3451,46 +3588,18 @@ def ml_runs(torch, tmp):
     rng = np.random.default_rng(20261020)
 
     # (a) the dataset's renders, their launches recorded on a subset.
-    recorded = {"closest_hit": [], "any_hit": []}
-    real = {key: getattr(traverse, key) for key in recorded}
-    dead_hits = [0]
-
-    def recorder(key):
-        def recording(o, d, t_max, nodes, tris_bw, roots=None):
-            if roots is not None:
-                fail(f"ml dataset: a {key} launch with per-ray roots")
-            out = real[key](o, d, t_max, nodes, tris_bw)
-            live_idx, sel = live_subset(t_max, rng)
-            dead = t_max <= 0
-            if key == "closest_hit":
-                dead_hits[0] += int((out[1][dead] >= 0).sum())
-                k = tuple(x[sel] for x in out)
-            else:
-                dead_hits[0] += int(out[dead].sum())
-                k = out[sel]
-            recorded[key].append(dict(
-                o=o[sel], d=d[sel], tm=t_max[sel], k=k, nodes=nodes,
-                tris=tris_bw, lanes=o.shape[0], live=live_idx.numel()))
-            return out
-        return recording
-
     data = os.path.join(tmp, "pairs.npz")
     ds = ML_DATASET
     samples = ds["n_views"] * (ds["target_spp"]
                                + ds["inputs_per_view"] * ds["input_spp"])
     logs = []
     kernels.reset_counters()
-    for key in recorded:
-        setattr(traverse, key, recorder(key))
-    try:
+    with LaunchRecorder("ml dataset", rng) as recorder:
         t0 = time.perf_counter()
         ft.make_dataset("shadertoy", data, seed=1, progress=logs.append,
                         **ds)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    finally:
-        for key, fn in real.items():
-            setattr(traverse, key, fn)
     launches = dict(kernels.LAUNCHES)
     overflows = kernels.stack_overflows()
     if launches.get("closest", 0) <= 0 or launches.get("anyhit", 0) <= 0:
@@ -3505,68 +3614,16 @@ def ml_runs(torch, tmp):
     want = ([n_pairs, *film_hw], "float16")
     if shapes["inp"] != want or shapes["tgt"] != want or not finite:
         fail(f"ml dataset: arrays {shapes}, finite {finite}")
-    closest = dict(launches=0, lanes=0, live=0, checked=0, hit_mismatch=0,
-                   id_mismatch_outside_ties=0, ties=0, max_rel_t_err=0.0,
-                   max_abs_err=0.0, outside_ties=[])
-    anyhit = dict(launches=0, lanes=0, live=0, checked=0, occ_mismatch=0,
-                  occluded=0, max_abs_err=0.0)
-    bad = 0
     t1 = time.perf_counter()
-    for rec in recorded["closest_hit"]:
-        p = traverse.closest_hit_plain(rec["o"], rec["d"], rec["tm"],
-                                       rec["nodes"], rec["tris"])
-        ok, st = check_closest(rec["o"], rec["d"], (rec["nodes"],
-                                                    rec["tris"]), rec["k"], p)
-        # An id mismatch outside ties is explained when the kernel culled
-        # the twin's box by its own slab arithmetic: the box's entry t not
-        # below the kernel's hit (check_closest lists up to 4 a launch).
-        listed = st.get("outside_ties", [])
-        explained = [r for r in listed
-                     if r["box_t_near_twin"] >= r["t_kernel"]]
-        closest["outside_ties"] += listed
-        bad += (not ok or len(explained) != st["id_mismatch_outside_ties"])
-        closest["launches"] += 1
-        for key in ("lanes", "live"):
-            closest[key] += rec[key]
-        closest["checked"] += st["rays"]
-        for key in ("hit_mismatch", "id_mismatch_outside_ties", "ties"):
-            closest[key] += st[key]
-        for key in ("max_rel_t_err", "max_abs_err"):
-            closest[key] = max(closest[key], st[key])
-    for rec in recorded["any_hit"]:
-        p = traverse.anyhit_plain(rec["o"], rec["d"], rec["tm"],
-                                  rec["nodes"], rec["tris"])
-        _, st = check_anyhit(rec["k"], p)
-        bad += st["occ_mismatch"] > 0
-        anyhit["launches"] += 1
-        for key in ("lanes", "live"):
-            anyhit[key] += rec[key]
-        anyhit["checked"] += st["rays"]
-        for key in ("occ_mismatch", "occluded"):
-            anyhit[key] += st[key]
-        anyhit["max_abs_err"] = max(anyhit["max_abs_err"], st["max_abs_err"])
-    for row in (closest, anyhit):
-        row["live_share"] = row["live"] / max(row["lanes"], 1)
-        row["overflows"] = overflows
+    closest, anyhit = recorder.check(launches, overflows)
     results["dataset"] = dict(
         seconds=seconds, samples=samples, s_per_sample=seconds / samples,
         launches=launches, stack_overflows=overflows,
-        dead_lane_hits=dead_hits[0], arrays=shapes, tgt_mean=tgt_mean,
+        dead_lane_hits=recorder.dead_hits, arrays=shapes, tgt_mean=tgt_mean,
         check_s=time.perf_counter() - t1)
     results["closest"], results["anyhit"] = closest, anyhit
     print("ml dataset (make_dataset shadertoy 512x320, 4 views):",
           json.dumps(results["dataset"]))
-    closest["outside_ties_explained"] = sum(
-        r["box_t_near_twin"] >= r["t_kernel"]
-        for r in closest["outside_ties"])
-    print("ml dataset closest-hit launches:", json.dumps(closest))
-    print("ml dataset any-hit launches:", json.dumps(anyhit))
-    if (bad or overflows or dead_hits[0] or closest["launches"]
-            != launches["closest"] or anyhit["launches"]
-            != launches["anyhit"]):
-        fail(f"ml dataset launches: {bad} disagree with the plain version, "
-             f"{overflows} overflows, {dead_hits[0]} dead-lane hits")
-    del recorded
 
     # (b) the fine-tune from the committed weights, each step spanned.
     init = ft.load_params_npz(str(UNET_WEIGHTS)).to("cuda")
@@ -3673,6 +3730,327 @@ def ml_runs(torch, tmp):
     print("ml CLI lit.pbrt 640x360 --upscale fsr:", json.dumps(results["cli"]))
     if rc != 0 or (w, h) != (2 * ML_CLI_SIZE[0], 2 * ML_CLI_SIZE[1]):
         fail(f"ml CLI --upscale fsr: {results['cli']}")
+    torch.cuda.empty_cache()
+    return results, launches
+
+
+SHARD_ODD_FILM = (1279, 719)   # (N + pad) % 2 == 0 with pad 1
+JPEG_DIR = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
+
+
+def spp_reference(r, D, n):
+    """The accumulator sample of Renderer(shard="spp") on a mesh of D
+    entries for render_sample(n) from spp 0, traced unsharded on r: entry
+    i's waves (one merged wave of spd = ceil(n / D) samples at base i *
+    spd while that fits, else spd single-sample waves), summed in mesh
+    order."""
+    import torch
+
+    from tracerboy_tpu_torch.renderer import MERGED_WAVE_LANES
+    from tracerboy_tpu_torch.trace.wavefront import (
+        render_wave,
+        render_wave_merged,
+    )
+
+    cfg, params, ids = r.wave_config(), r.frame_params(), r.pixel_ids
+    spd = -(-n // D)
+    merged = spd > 1 and spd * ids.shape[0] <= MERGED_WAVE_LANES
+    total = None
+    for i in range(D):
+        if merged:
+            outs = [render_wave_merged(r.scene, params, ids, i * spd, spd,
+                                       cfg)]
+        else:
+            outs = [render_wave(r.scene, params, ids, i * spd + k, cfg)
+                    for k in range(spd)]
+        for out in outs:
+            part = torch.cat([out["radiance"],
+                              out["filter_weight"][:, None]], 1)
+            total = part if total is None else total + part
+    return total.reshape(r.height, r.width, 4)
+
+
+def sharding_phase(torch, Renderer, env_scene):
+    """Tile and sample sharding (parallel/sharding.py) on the card, the
+    "shadertoy" scene (43,792 triangles, the packed backend). (a) The
+    default mesh (every card): shard="tiles" render_sample(1) twice, then
+    shard="spp" render_sample(2). (b) The mesh ["cuda:0", "cuda:0"]
+    (two entries on one card, each with its own replica of the scene):
+    tiles at 1280x720 (pad 0) and at 1279x719 (pad 1), render_sample(1)
+    each; spp render_sample(4) (2 samples an entry, one merged wave
+    each). Every tiled accumulator must equal (torch.equal) an unsharded
+    renderer's after as many render_sample(1) calls on the same card,
+    and every spp accumulator the unsharded sum of the same waves in mesh
+    order (spp_reference). Every kernel-1 and kernel-2 launch of (a) and
+    (b) is recorded and held against its plain version (LaunchRecorder).
+    make_mesh asked for one card more than the machine has must raise.
+    (c) The CLI on the CLI phase's env.pbrt at 640x360, 4 spp, --shard
+    spp --devices 1. (d) ms a sample of the unsharded, tiled and spp
+    render_sample at 1280x720 (host time, synchronised; on one card the
+    host cost of the split, not a speed-up). Returns (results, launches
+    of (a) and (b))."""
+    from tracerboy_tpu_torch.app import cli
+    from tracerboy_tpu_torch.parallel.sharding import make_mesh
+    from tracerboy_tpu_torch.scene.compile import load_scene
+    from tracerboy_tpu_torch.trace import kernels
+
+    set_opt_in()
+    results = {}
+    rng = np.random.default_rng(20261021)
+    cs = load_scene("shadertoy", film_size=FULL_WAVE)
+    n_cards = torch.cuda.device_count()
+    try:
+        make_mesh(n_devices=n_cards + 1)
+    except ValueError as e:
+        results["too_many_cards"] = str(e)
+    else:
+        fail(f"sharding: make_mesh({n_cards + 1}) did not raise with "
+             f"{n_cards} cards")
+
+    # The unsharded references, traced before the recorded runs.
+    ref = Renderer(cs, film_size=FULL_WAVE, device="cuda")
+    ref.render_sample(1)
+    want_tiles = [ref.state.accum.clone()]
+    ref.render_sample(1)
+    want_tiles.append(ref.state.accum.clone())
+    ref_odd = Renderer(cs, film_size=SHARD_ODD_FILM, device="cuda")
+    ref_odd.render_sample(1)
+    want_odd = ref_odd.state.accum
+    want_spp = {D: spp_reference(ref, D, n) for D, n in
+                ((n_cards, 2), (2, 4))}
+    del ref_odd
+    pair = make_mesh(devices=["cuda:0", "cuda:0"])
+    runs = []
+
+    def run(name, r, n, want):
+        """r.render_sample(n), then its accumulator against want and its
+        sample count against the spp step's rounding (n up to a multiple
+        of the mesh)."""
+        before = r.state.spp
+        r.render_sample(n)
+        step = -(-n // r.mesh.size) * r.mesh.size if r.shard == "spp" else n
+        runs.append(dict(run=name, mesh=r.mesh.size, spp=r.state.spp,
+                         equal=bool(r.state.spp == before + step
+                                    and torch.equal(r.state.accum, want))))
+
+    kernels.reset_counters()
+    with LaunchRecorder("sharding", rng) as recorder:
+        r = Renderer(cs, film_size=FULL_WAVE, device="cuda", shard="tiles")
+        run("tiles default mesh, 1 sample", r, 1, want_tiles[0])
+        run("tiles default mesh, 2 samples", r, 1, want_tiles[1])
+        r = Renderer(cs, film_size=FULL_WAVE, device="cuda", shard="spp")
+        run("spp default mesh, render_sample(2)", r, 2, want_spp[n_cards])
+        for film, want in ((FULL_WAVE, want_tiles[0]),
+                           (SHARD_ODD_FILM, want_odd)):
+            r = Renderer(cs, film_size=film, device="cuda", shard="tiles",
+                         mesh=pair)
+            run(f"tiles cuda:0 x2 {film[0]}x{film[1]} pad "
+                f"{(-film[0] * film[1]) % 2}", r, 1, want)
+        r = Renderer(cs, film_size=FULL_WAVE, device="cuda", shard="spp",
+                     mesh=pair)
+        run("spp cuda:0 x2, render_sample(4)", r, 4, want_spp[2])
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    overflows = kernels.stack_overflows()
+    del r, want_tiles, want_odd, want_spp
+    results["runs"] = runs
+    print("sharding runs against the unsharded waves:", json.dumps(runs))
+    if not all(row["equal"] for row in runs):
+        fail(f"sharding: a sharded accumulator differs from the unsharded "
+             f"one: {runs}")
+    if launches.get("closest", 0) <= 0 or launches.get("anyhit", 0) <= 0:
+        fail(f"sharding: launches {launches}")
+    t0 = time.perf_counter()
+    results["closest"], results["anyhit"] = recorder.check(launches,
+                                                           overflows)
+    results["check_s"] = time.perf_counter() - t0
+    results["launches"] = launches
+
+    # (c) the CLI, --shard spp --devices 1.
+    png = os.path.join(os.path.dirname(env_scene), "sharded.png")
+    t0 = time.perf_counter()
+    stats = {}
+    rc = cli.main([env_scene, "--size", "640x360", "--spp", "4", "--shard",
+                   "spp", "--devices", "1", "--out", png, "--quiet"],
+                  stats=stats)
+    w, h, ctype, _ = png_facts(png)
+    results["cli"] = dict(rc=rc, png=[w, h], spp=stats.get("spp"),
+                          seconds=time.perf_counter() - t0)
+    print("sharding CLI env.pbrt 640x360 --shard spp --devices 1:",
+          json.dumps(results["cli"]))
+    if rc != 0 or (w, h) != (640, 360) or stats.get("spp") != 4:
+        fail(f"sharding CLI: {results['cli']}")
+
+    # (d) host time a sample, each after a warm-up call.
+    def ms_a_sample(r, n, reps=3):
+        r.render_sample(n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            r.render_sample(n)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / (reps * n)
+
+    timing = dict(card=card_line(), unsharded_ms=ms_a_sample(
+        Renderer(cs, film_size=FULL_WAVE, device="cuda"), 1))
+    for name, kw, n in (("tiles", {}, 1), ("spp", {}, 2),
+                        ("tiles_pair", dict(mesh=pair), 1),
+                        ("spp_pair", dict(mesh=pair), 4)):
+        shard = name.split("_")[0]
+        timing[f"{name}_ms"] = ms_a_sample(
+            Renderer(cs, film_size=FULL_WAVE, device="cuda", shard=shard,
+                     **kw), n)
+    results["ms_a_sample"] = timing
+    print("sharding ms a sample at 1280x720:", json.dumps(timing))
+    torch.cuda.empty_cache()
+    return results, launches
+
+
+def jpeg_phase(torch):
+    """jpeg_runs in a temporary directory that is removed after it."""
+    with tempfile.TemporaryDirectory(prefix="tb_jpeg_") as tmp:
+        return jpeg_runs(torch, tmp)
+
+
+def host_cpu() -> str:
+    """The host CPU's model name from /proc/cpuinfo, else its vendor,
+    family and model numbers, else the machine type."""
+    import platform
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    if fields.get("model name"):
+        return fields["model name"]
+    if fields.get("vendor_id"):
+        return (f"{fields['vendor_id']} family {fields.get('cpu family')} "
+                f"model {fields.get('model')}")
+    return platform.machine() or "unknown"
+
+
+def jpeg_runs(torch, tmp):
+    """The port's JPEG decoder (core/jpeg.py, csrc/jpeg_decode.cpp, g++ at
+    first use) on the card's machine, which has no PIL. (a) Every
+    committed fixture of tests/data/jpeg decoded, its shape, dtype and
+    sha256 equal to manifest.json's (PIL's arrays, written by
+    tests/make_jpeg_fixtures.py). (b) The 1024x1024 progressive 4:2:0
+    albedo's decode, 5 runs, host seconds, with the host's CPU. (c) The
+    CLI on utils/demo_scene's textured_lit.pbrt with its albedo pointed
+    at that JPEG, 1280x720, 2 spp: a finite image; the first wave's
+    closest-hit launches (there is no any-hit launch with cutouts) tagged
+    main / refire_k / shadow_k and held against the plain version by kind
+    (textured_launch_check). Returns (results, launches of (c))."""
+    import hashlib
+    import shutil
+
+    from tracerboy_tpu_torch.app import cli
+    from tracerboy_tpu_torch.core import image_io
+    from tracerboy_tpu_torch.core.jpeg import read_jpeg
+    from tracerboy_tpu_torch.trace import kernels, traverse
+    from tracerboy_tpu_torch.trace.wavefront import WaveConfig
+    from tracerboy_tpu_torch.utils.config import default_output_settings
+    from tracerboy_tpu_torch.utils.demo_scene import write_textured_scene
+
+    set_opt_in()
+    results = {}
+    with open(JPEG_DIR / "manifest.json") as f:
+        manifest = json.load(f)
+    rows, bad = {}, []
+    for name, entry in sorted(manifest["files"].items()):
+        arr = read_jpeg(str(JPEG_DIR / name))
+        digest = hashlib.sha256(np.ascontiguousarray(arr).tobytes())
+        got = dict(shape=list(arr.shape), dtype=str(arr.dtype),
+                   sha256=digest.hexdigest())
+        rows[name] = got["sha256"] == entry["sha256"]
+        if got != entry:
+            bad.append((name, got, entry))
+    results["fixtures"] = rows
+    print("jpeg fixtures against PIL's hashes:", json.dumps(rows))
+    if bad or not rows:
+        fail(f"jpeg: decoded fixtures differ from the manifest: {bad}")
+    albedo = JPEG_DIR / "albedo_1024.jpg"
+    secs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        read_jpeg(str(albedo))
+        secs.append(time.perf_counter() - t0)
+    results["decode_1024"] = dict(seconds=secs, median_s=float(
+        np.median(secs)), bytes=albedo.stat().st_size, cpu=host_cpu(),
+        cpu_count=os.cpu_count())
+    print("jpeg decode 1024x1024 progressive 4:2:0 (host):",
+          json.dumps(results["decode_1024"]))
+
+    # (c) the textured scene with a JPEG albedo through the CLI.
+    tex_scene, lit_scene = write_textured_scene(tmp)
+    shutil.copy(albedo, os.path.join(tmp, "albedo.jpg"))
+    with open(tex_scene) as f:
+        text = f.read()
+    if '"albedo.png"' not in text:
+        fail("jpeg: the textured scene names no albedo.png")
+    with open(tex_scene, "w") as f:
+        f.write(text.replace('"albedo.png"', '"albedo.jpg"'))
+    rounds = WaveConfig(width=1, height=1).alpha_rounds
+    per_wave = (default_output_settings().performance_settings.max_bounces
+                * (1 + rounds + (rounds + 1)))
+    real = traverse.closest_hit
+    seq, calls = [], []
+
+    def recording(o, d, t_max, nodes, tris_bw, roots=None):
+        if roots is not None:
+            fail("jpeg CLI: a launch with per-ray roots")
+        if len(seq) < per_wave:
+            seq.append(nodes.data_ptr())
+            calls.append((o.clone(), d.clone(), t_max.clone(), nodes,
+                          tris_bw))
+        return real(o, d, t_max, nodes, tris_bw)
+
+    out = os.path.join(tmp, "jpeg_lit.png")
+    exr = os.path.join(tmp, "jpeg_lit.exr")
+    stats = {}
+    kernels.reset_counters()
+    traverse.closest_hit = recording
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main([lit_scene, "--size", "x".join(map(str, FULL_WAVE)),
+                       "--spp", "2", "--out", out, "--hdr-out", exr,
+                       "--quiet"], stats=stats)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        traverse.closest_hit = real
+    launches = dict(kernels.LAUNCHES)
+    overflows = kernels.stack_overflows()
+    if rc != 0:
+        fail(f"jpeg CLI: exit {rc}")
+    mean = check_cli_outputs("jpeg textured_lit", out, exr)
+    check_image("jpeg textured_lit", image_io.read_ldr(out))
+    if (launches["closest"] != per_wave or launches["anyhit"] or overflows
+            or len(calls) != per_wave):
+        fail(f"jpeg CLI: launches {launches}, {len(calls)} recorded, "
+             f"{overflows} overflows; expected one wave of {per_wave}")
+    kinds = tag_closest_launches(seq, "shadow")
+    by_kind, bad = textured_launch_check(
+        calls, kinds, np.random.default_rng(20261022), measure=False)
+    del calls
+    results["cli"] = dict(rc=rc, seconds=seconds, spp=stats.get("spp"),
+                          s_per_sample=stats["seconds"] / stats["spp"],
+                          radiance_mean=mean, launches=launches)
+    results["kinds"] = by_kind
+    print("jpeg CLI textured_lit.pbrt (JPEG albedo) 1280x720 2 spp:",
+          json.dumps(results["cli"]))
+    print("jpeg CLI closest-hit launches by kind:", json.dumps(by_kind))
+    checked = sum(r["checked"] for r in by_kind.values())
+    outside = sum(r["id_mismatch_outside_ties"] for r in by_kind.values())
+    if bad or outside > TOLERANCE["id_mismatch_frac"] * checked:
+        fail(f"jpeg launches disagree with the plain version: {bad}, "
+             f"{outside} id mismatches outside ties in {checked} lanes")
+    if not {"main", "refire_1", "shadow_0"} <= set(by_kind):
+        fail(f"jpeg CLI: launch kinds {sorted(by_kind)}")
     torch.cuda.empty_cache()
     return results, launches
 
@@ -3888,13 +4266,22 @@ def main() -> int:
         torch, Renderer, cli_res["env_scene"], inst_res.pop("forest"))
     anim_c, anim_a = anim_res["closest"], anim_res["anyhit"]
     anim_blas = anim_res["forest"]["blas"]
-    work.cleanup()
     lap("animation")
 
     # --- the ML extras: the fine-tune's dataset and training, upscalers ---
     ml_res, ml_launches = ml_phase(torch)
     ml_c, ml_a = ml_res["closest"], ml_res["anyhit"]
     lap("ml")
+
+    # --- tile and sample sharding; the port's JPEG decoder ----------------
+    shard_res, shard_launches = sharding_phase(torch, Renderer,
+                                               cli_res["env_scene"])
+    shard_c, shard_a = shard_res["closest"], shard_res["anyhit"]
+    work.cleanup()
+    lap("sharding")
+    jpeg_res, jpeg_launches = jpeg_phase(torch)
+    jpeg_kinds = jpeg_res["kinds"]
+    lap("jpeg")
     print("phase seconds:", json.dumps(laps))
 
     def by_path(key):
@@ -3905,7 +4292,9 @@ def main() -> int:
                 "instanced": inst_launches[key],
                 "volume": vol_launches[key],
                 "estimators": est_launches[key],
-                "animation": anim_launches[key], "ml": ml_launches[key]}
+                "animation": anim_launches[key], "ml": ml_launches[key],
+                "sharding": shard_launches[key],
+                "jpeg": jpeg_launches[key]}
 
     trav = "tracerboy_tpu_torch/csrc/bvh_traverse.cu"
     bsrc = "tracerboy_tpu_torch/csrc/binned.cu"
@@ -3924,13 +4313,15 @@ def main() -> int:
                              [st_c, st_c2, un_c, *roots_c, env_closest,
                               *tex_kinds.values(),
                               *inst_res["kinds"].values(), vol_c, adap_c,
-                              anim_c, anim_blas, ml_c]),
+                              anim_c, anim_blas, ml_c, shard_c,
+                              *jpeg_kinds.values()]),
              id_mismatch_outside_ties=sum(
                  s["id_mismatch_outside_ties"]
                  for s in [st_c, st_c2, un_c, *roots_c, env_closest,
                            *tex_kinds.values(),
                            *inst_res["kinds"].values(), vol_c, adap_c,
-                           anim_c, anim_blas, ml_c]),
+                           anim_c, anim_blas, ml_c, shard_c,
+                           *jpeg_kinds.values()]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
              unordered_ms=un_times["closest_ms"],
              unordered_plain_ms=un_times["closest_plain_ms"],
@@ -3979,10 +4370,21 @@ def main() -> int:
                  "launches", "lanes", "live", "live_share", "checked",
                  "hit_mismatch", "id_mismatch_outside_ties", "ties",
                  "max_abs_err", "overflows")},
-             **{f"ml_{key}": ml_c[key] for key in (
+             **{f"{pre}_{key}": row[key]
+                for pre, row in (("ml", ml_c), ("sharding", shard_c))
+                for key in (
                  "launches", "lanes", "live", "live_share", "checked",
                  "hit_mismatch", "id_mismatch_outside_ties", "ties",
                  "max_rel_t_err", "max_abs_err", "overflows")},
+             jpeg_kinds={
+                 kind: {key: row[key] for key in (
+                     "launches", "lanes", "live", "live_share", "checked",
+                     "hit_mismatch", "id_mismatch_outside_ties", "ties",
+                     "max_rel_t_err", "overflows")}
+                 for kind, row in jpeg_kinds.items()},
+             sharding_runs=shard_res["runs"],
+             sharding_ms_a_sample=shard_res["ms_a_sample"],
+             jpeg_decode_1024=jpeg_res["decode_1024"],
              volume_run=vol_res["run"],
              volume_control=vol_res["control"],
              estimators={k: {kk: vv for kk, vv in v.items()
@@ -4012,10 +4414,10 @@ def main() -> int:
              launches_by_path=by_path("anyhit"),
              occ_mismatch=sum(s["occ_mismatch"]
                               for s in [st_a, st_a2, un_a, *roots_a,
-                                        anim_a, ml_a]),
+                                        anim_a, ml_a, shard_a]),
              max_abs_err=max(s["max_abs_err"]
                              for s in [st_a, st_a2, un_a, *roots_a,
-                                       anim_a, ml_a]),
+                                       anim_a, ml_a, shard_a]),
              ms=times["anyhit_ms"], plain_ms=times["anyhit_plain_ms"],
              unordered_ms=un_times["anyhit_ms"],
              unordered_plain_ms=un_times["anyhit_plain_ms"],
@@ -4032,7 +4434,9 @@ def main() -> int:
                  "launches", "lanes", "live", "live_share", "checked",
                  "ms", "plain_ms", "bound_ms", "bound_by", "occ_mismatch",
                  "occluded", "max_abs_err", "overflows")},
-             **{f"ml_{key}": ml_a[key] for key in (
+             **{f"{pre}_{key}": row[key]
+                for pre, row in (("ml", ml_a), ("sharding", shard_a))
+                for key in (
                  "launches", "lanes", "live", "live_share", "checked",
                  "occ_mismatch", "occluded", "max_abs_err", "overflows")}),
         dict(name="emit_cuts", route="cuda",

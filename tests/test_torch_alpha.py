@@ -464,13 +464,13 @@ def test_leaf_field_twin_backend_matches_jax_jnp(tmp_path, monkeypatch):
         monkeypatch.setattr(traverse, name, counting)
     r.render_sample(2)
     # render_sample(2) is one merged wave: per bounce one main closest hit
-    # and ALPHA_ROUNDS re-fires over the main BVH, and a shadow march of
-    # ALPHA_ROUNDS + 1 closest hits over the shadow BVH; no any-hit.
+    # and cfg.alpha_rounds re-fires over the main BVH, and a shadow march of
+    # cfg.alpha_rounds + 1 closest hits over the shadow BVH; no any-hit.
     main = [n for k, n in tables if n is r.scene["pk_nodes"]]
     shadow = [n for k, n in tables if n is r.scene["pk_sh_nodes"]]
     assert all(k == "closest_hit_plain" for k, _ in tables)
-    assert len(main) == cfg.max_bounces * (1 + wf.ALPHA_ROUNDS)
-    assert len(shadow) == cfg.max_bounces * (wf.ALPHA_ROUNDS + 1)
+    assert len(main) == cfg.max_bounces * (1 + cfg.alpha_rounds)
+    assert len(shadow) == cfg.max_bounces * (cfg.alpha_rounds + 1)
     assert_close(r.state.accum.numpy(), np.asarray(ref.state.accum))
 
 
@@ -588,7 +588,7 @@ def test_realtime_frames_take_the_alpha_path(tmp_path):
     kernels.reset_counters()
     frame = r.render_realtime_frame()
     assert frame.shape == (12, 16, 3) and np.isfinite(frame).all()
-    per_wave = cfg.max_bounces * (2 + 2 * wf.ALPHA_ROUNDS)
+    per_wave = cfg.max_bounces * (2 + 2 * cfg.alpha_rounds)
     assert kernels.TWIN_CALLS["closest"] == per_wave
     assert kernels.TWIN_CALLS["anyhit"] == 0
     fused = r.render_realtime_frame_fused()

@@ -237,15 +237,50 @@ def test_upscale_superres_needs_its_weights(tiny_scene, tmp_path,
     assert not (tmp_path / "o.png").exists()
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--shard", "tiles"], "item 21"),
-    (["--devices", "2"], "item 21"),
+@pytest.mark.parametrize("flags", [
+    ["--shard", "tiles", "--devices", "2"],
+    ["--shard", "spp", "--devices", "2"],
+    ["--devices", "2"],
 ])
-def test_unported_flags_raise(tiny_scene, tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        cli.main([tiny_scene, "--device", "cpu", "--out",
-                  str(tmp_path / "o.png"), *flags])
-    assert not (tmp_path / "o.png").exists()
+def test_unported_flags_raise(tiny_scene, tmp_path, flags):
+    """--shard tiles|spp over --devices 2 (the port's mesh: the CPU
+    twice; the JAX CLI's: 2 of the 8 virtual CPU devices) renders as the
+    JAX CLI does; --devices without --shard is accepted and ignored, as
+    there."""
+    common = [tiny_scene, "--spp", "4", "--size", "32x24", "--quiet",
+              *flags]
+    assert _jax_main([*common, "--out", str(tmp_path / "j.png"),
+                      "--hdr-out", str(tmp_path / "j.exr")]) == 0
+    stats = {}
+    assert cli.main([*common, "--out", str(tmp_path / "t.png"), "--hdr-out",
+                     str(tmp_path / "t.exr"), "--device", "cpu"],
+                    stats=stats) == 0
+    assert stats["spp"] == 4
+    assert_images_close(_read_png(tmp_path / "t.png"),
+                        _read_png(tmp_path / "j.png"))
+    rad = image_io.read_exr_rgb(str(tmp_path / "t.exr"))
+    assert np.isfinite(rad).all()
+    assert_radiance_close(rad, image_io.read_exr_rgb(str(tmp_path / "j.exr")))
+
+
+def test_shard_logs_its_mesh_and_resumes(tiny_scene, tmp_path, capsys):
+    """The JAX CLI's log line names the axis and the mesh size; a sharded
+    run checkpoints and resumes to the uninterrupted run's radiance."""
+    ck = str(tmp_path / "ck.npz")
+    common = [tiny_scene, "--shard", "spp", "--devices", "2", "--device",
+              "cpu", "--checkpoint", ck, "--checkpoint-every", "2"]
+    assert cli.main([*common, "--spp", "2", "--out",
+                     str(tmp_path / "a.png")]) == 0
+    assert "sharding: spp over 2 devices" in capsys.readouterr().out
+    assert cli.main([*common, "--spp", "4", "--out", str(tmp_path / "b.png"),
+                     "--hdr-out", str(tmp_path / "b.exr")]) == 0
+    assert "resumed from checkpoint at 2 spp" in capsys.readouterr().out
+    assert cli.main([tiny_scene, "--shard", "spp", "--devices", "2",
+                     "--device", "cpu", "--spp", "4", "--quiet", "--out",
+                     str(tmp_path / "c.png"), "--hdr-out",
+                     str(tmp_path / "c.exr")]) == 0
+    assert np.array_equal(image_io.read_exr_rgb(str(tmp_path / "b.exr")),
+                          image_io.read_exr_rgb(str(tmp_path / "c.exr")))
 
 
 @pytest.mark.parametrize("kind", ["cloud", "vdb", "vol", "npy"])

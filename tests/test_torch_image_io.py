@@ -204,12 +204,22 @@ def test_piz_blocks_equal_on_seeded_data(seed):
 
 
 def test_ldr_reading_is_refused(tmp_path):
-    """PNG is read now (tests/test_torch_png_read.py); the other LDR
-    formats are still refused, whatever the file is named."""
+    """A real JPEG reads as the JAX read_texture reads it through PIL,
+    whether it is named .jpg or .png (both packages go by the file's
+    signature); a 4-byte fake JPEG raises OSError in both."""
     from PIL import Image
 
-    Image.fromarray(np.zeros((2, 2, 3), np.uint8)).save(tmp_path / "t.jpg")
+    from tracerboy_tpu.core.image_io import read_texture as jax_read_texture
+
+    img = np.random.default_rng(0).integers(0, 256, (13, 17, 3), np.uint8)
+    Image.fromarray(img).save(tmp_path / "t.jpg", quality=90)
     (tmp_path / "t.png").write_bytes((tmp_path / "t.jpg").read_bytes())
     for name in ("t.jpg", "t.png"):
-        with pytest.raises(NotImplementedError, match="22b"):
-            tio.read_texture(str(tmp_path / name))
+        path = str(tmp_path / name)
+        got = tio.read_texture(path)
+        assert got.shape == (13, 17, 3)
+        assert np.array_equal(got, jax_read_texture(path))
+    (tmp_path / "f.jpg").write_bytes(b"\xff\xd8\xff\xe0")
+    for read in (tio.read_texture, jax_read_texture):
+        with pytest.raises(OSError):
+            read(str(tmp_path / "f.jpg"))

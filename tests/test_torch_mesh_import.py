@@ -128,9 +128,12 @@ def test_gltf_render_matches_jax(tmp_path):
 
 
 def test_gltf_jpeg_texture_still_raises(tmp_path):
-    """A glTF whose baseColorTexture is a JPEG: the port has no JPEG
-    decoder yet (ROADMAP.md item 22b)."""
+    """A glTF whose baseColorTexture is a JPEG compiles as the JAX
+    load_scene compiles it, leaves bit for bit; with a 4-byte fake JPEG
+    both packages raise OSError."""
     import json
+
+    from PIL import Image
 
     path = gltf_quad(tmp_path, False)
     doc = json.loads(open(path).read())
@@ -141,6 +144,13 @@ def test_gltf_jpeg_texture_still_raises(tmp_path):
     doc["images"] = [{"uri": "wood.jpg"}]
     with open(path, "w") as f:
         json.dump(doc, f)
+    wood = np.random.default_rng(1).integers(0, 256, (24, 40, 3), np.uint8)
+    Image.fromarray(wood).save(tmp_path / "wood.jpg", quality=85)
+    got = load_scene(path, use_cache=False)
+    assert_same(jax_tree(jax_load_scene(path, use_cache=False)),
+                got.as_numpy())
+    assert got.tex_images.shape[0] > 0
     (tmp_path / "wood.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
-    with pytest.raises(NotImplementedError, match="item 22b"):
-        load_scene(path, use_cache=False)
+    for load in (load_scene, jax_load_scene):
+        with pytest.raises(OSError):
+            load(path, use_cache=False)

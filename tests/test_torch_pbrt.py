@@ -283,10 +283,16 @@ def test_missing_env_map_warns_and_shades_white(tmp_path):
 @pytest.mark.parametrize("what,item", [
     ("instances", "22b"), ("png_map", "22b"), ("image_texture", "22b")])
 def test_unported_pbrt_features_raise(tmp_path, what, item):
+    """A JPEG imagemap inside an instanced object, a JPEG `infinite`
+    mapname and a JPEG imagemap load as the JAX load_scene loads them,
+    compiled leaves bit for bit; a 4-byte fake JPEG in their place raises
+    OSError in both packages."""
+    from PIL import Image
+
+    from test_torch_instanced import assert_same, jax_tree
+
+    name = "sky.jpg" if what == "png_map" else "wood.jpg"
     if what == "instances":
-        # Instances load now (tests/test_torch_instanced.py); a JPEG
-        # texture inside an instanced object does not.
-        (tmp_path / "wood.jpg").write_bytes(b"\xff\xd8\xff\xe0")
         extra = INSTANCES.replace(
             'Material "matte" "rgb Kd" [ 0.5 0.5 0.5 ]',
             'Texture "wood" "spectrum" "imagemap" "string filename" '
@@ -294,22 +300,26 @@ def test_unported_pbrt_features_raise(tmp_path, what, item):
         assert extra != INSTANCES
         path = write_scene(tmp_path, extra=extra)
     elif what == "png_map":
-        # PNG maps load now (tests/test_torch_textures.py); JPEG does not.
         path = write_scene(tmp_path, lights=("infinite",), mapname="")
-        (tmp_path / "sky.jpg").write_bytes(b"\xff\xd8\xff\xe0")
         text = Path(path).read_text().replace(
             'LightSource "infinite"',
             'LightSource "infinite" "string mapname" [ "sky.jpg" ]')
         Path(path).write_text(text)
     else:
-        (tmp_path / "wood.jpg").write_bytes(b"\xff\xd8\xff\xe0")
         path = write_scene(tmp_path, lights=("distant",), extra="""\
 Texture "wood" "spectrum" "imagemap" "string filename" [ "wood.jpg" ]
 Material "matte" "texture Kd" "wood"
 Shape "sphere" "float radius" [ 0.2 ]
 """)
-    with pytest.raises(NotImplementedError, match=item):
-        load_scene(path)
+    img = np.random.default_rng(2).integers(0, 256, (16, 32, 3), np.uint8)
+    Image.fromarray(img).save(tmp_path / name, quality=80)
+    got = load_scene(path, use_cache=False)
+    assert_same(jax_tree(jax_load_scene(path, use_cache=False)),
+                got.as_numpy())
+    (tmp_path / name).write_bytes(b"\xff\xd8\xff\xe0")
+    for load in (load_scene, jax_load_scene):
+        with pytest.raises(OSError):
+            load(path, use_cache=False)
 
 
 def test_heterogeneous_medium_compiles_like_jax(tmp_path):

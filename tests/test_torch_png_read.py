@@ -5,7 +5,7 @@ and without tRNS), RGB, RGBA and I;16, and on files built with zlib by
 tests/png_encode.encode_png: 16-bit RGB and RGBA, grey and palette images
 at bit depths 1, 2 and 4, each row filter alone and all five mixed, and
 Adam7. A truncated file, a bad CRC and an unknown filter are refused;
-JPEG still raises NotImplementedError. The port's side loads no PIL.
+JPEG is read by core/jpeg.py. The port's side loads no PIL.
 """
 
 import sys
@@ -166,10 +166,13 @@ def test_unknown_filter_is_refused(tmp_path):
 
 
 def test_jpeg_still_raises(tmp_path):
+    """A JPEG beside the PNGs reads as the JAX read_ldr reads it
+    (core/jpeg.py; tests/test_torch_jpeg.py covers the decoder)."""
+    from tracerboy_tpu.core.image_io import read_ldr as jax_read_ldr
+
     p = tmp_path / "x.jpg"
     Image.fromarray(RGBA[..., :3]).save(p)
-    with pytest.raises(NotImplementedError, match="item 22b"):
-        image_io.read_ldr(str(p))
+    assert np.array_equal(image_io.read_ldr(str(p)), jax_read_ldr(str(p)))
 
 
 def test_texture_dispatch_reads_png(tmp_path):

@@ -94,12 +94,21 @@ def test_benchmark_scene_takes_the_kernel_path():
     assert Renderer._pick_traversal(small) == "brute"
 
 
+def _write_jpeg(path, seed):
+    from PIL import Image
+
+    img = np.random.default_rng(seed).integers(0, 256, (16, 24, 3), np.uint8)
+    Image.fromarray(img).save(path, quality=85)
+
+
 @pytest.mark.parametrize("path", ["scene.pbf", "mesh.obj"])
 def test_unported_scene_files_raise(path, tmp_path):
-    """.pbf and OBJ scenes load now (tests/test_torch_pbf.py,
-    test_torch_mesh_import.py); one with a JPEG texture is still
-    refused."""
-    (tmp_path / "wood.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
+    """A .pbf scene and an OBJ whose MTL names a JPEG texture load as the
+    JAX load_scene loads them, compiled leaves bit for bit; with a 4-byte
+    fake JPEG both packages raise OSError."""
+    from test_torch_instanced import assert_same, jax_tree
+
+    _write_jpeg(tmp_path / "wood.jpg", 3)
     if path.endswith(".obj"):
         (tmp_path / "m.mtl").write_text("newmtl wood\nmap_Kd wood.jpg\n")
         (tmp_path / path).write_text(
@@ -117,8 +126,13 @@ def test_unported_scene_files_raise(path, tmp_path):
         scene.materials["wall"].map_kd = "img"
         write_pbf(str(tmp_path / path), scene)
         path = str(tmp_path / path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch_load_scene(path)
+    got = torch_load_scene(path, use_cache=False)
+    assert_same(jax_tree(jax_load_scene(path, use_cache=False)),
+                got.as_numpy())
+    (tmp_path / "wood.jpg").write_bytes(b"\xff\xd8\xff\xe0" + bytes(64))
+    for load in (torch_load_scene, jax_load_scene):
+        with pytest.raises(OSError):
+            load(path, use_cache=False)
 
 
 @pytest.mark.parametrize("keys", ["g_only", "full"])
@@ -201,22 +215,28 @@ def test_import_leaves_jax_out():
 @pytest.mark.parametrize("feature", ["instance", "light",
                                      "image_texture"])
 def test_unported_scene_features_raise(feature, tmp_path):
-    """What the port does not have yet is refused, not dropped. Spheres,
-    curves, non-area lights (tests/test_torch_pbrt.py) and PNG images
-    (tests/test_torch_textures.py) compile now; a JPEG map or texture
-    still needs a decoder the port does not have."""
+    """compile_scene of the cornell scene with a JPEG texture on an
+    instanced object, a JPEG environment map, or a JPEG image texture
+    gives the JAX compile_scene's leaves bit for bit; with a 4-byte fake
+    JPEG both packages raise OSError."""
+    from tracerboy_tpu.scene import procedural as jax_procedural
+    from tracerboy_tpu.scene import types as jax_ir
+    from tracerboy_tpu.scene.compile import compile_scene as jax_compile
+    from tracerboy_tpu_torch.scene import procedural
     from tracerboy_tpu_torch.scene import types as ir
     from tracerboy_tpu_torch.scene.compile import compile_scene
-    from tracerboy_tpu_torch.scene.procedural import _cornell_scene
+    from test_torch_instanced import assert_same, jax_tree
 
-    s = _cornell_scene()
-    if feature == "instance":
-        # Instanced scenes compile now (tests/test_torch_instanced.py);
-        # an instanced object with a JPEG texture does not.
-        (tmp_path / "wood.jpg").write_bytes(b"\xff\xd8\xff\xe0")
+    def build(ir, s):
         s.base_dir = str(tmp_path)
+        if feature == "light":
+            s.lights.append(ir.InfiniteLightIR(mapname="sky.jpg"))
+            return s
         s.textures["img"] = ir.TextureIR(name="img", type="imagemap",
                                          filename="wood.jpg")
+        if feature == "image_texture":
+            s.materials["wall"].map_kd = "img"
+            return s
         s.materials["inst"] = ir.MaterialIR(name="inst", type="matte",
                                             map_kd="img")
         s.objects["x"] = ir.ObjectIR(name="x", shapes=[ir.TriangleMeshIR(
@@ -225,17 +245,16 @@ def test_unported_scene_features_raise(feature, tmp_path):
                                np.float32),
             uvs=np.zeros((3, 2), np.float32), material="inst")])
         s.instances.append(ir.InstanceIR(object_name="x"))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            compile_scene(s, instancing="tlas")
-    elif feature == "light":
-        (tmp_path / "sky.jpg").write_bytes(b"\xff\xd8\xff\xe0")
-        s.base_dir = str(tmp_path)
-        s.lights.append(ir.InfiniteLightIR(mapname="sky.jpg"))
-    else:
-        (tmp_path / "wood.jpg").write_bytes(b"\xff\xd8\xff\xe0")
-        s.base_dir = str(tmp_path)
-        s.textures["img"] = ir.TextureIR(name="img", type="imagemap",
-                                         filename="wood.jpg")
-        s.materials["wall"].map_kd = "img"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        compile_scene(s)
+        return s
+
+    name = "sky.jpg" if feature == "light" else "wood.jpg"
+    _write_jpeg(tmp_path / name, 4)
+    kw = {"instancing": "tlas"} if feature == "instance" else {}
+    got = compile_scene(build(ir, procedural._cornell_scene()), **kw)
+    ref = jax_compile(build(jax_ir, jax_procedural._cornell_scene()), **kw)
+    assert_same(jax_tree(ref), got.as_numpy())
+    (tmp_path / name).write_bytes(b"\xff\xd8\xff\xe0")
+    with pytest.raises(OSError):
+        compile_scene(build(ir, procedural._cornell_scene()), **kw)
+    with pytest.raises(OSError):
+        jax_compile(build(jax_ir, jax_procedural._cornell_scene()), **kw)

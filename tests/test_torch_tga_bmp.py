@@ -133,8 +133,9 @@ def test_gamma_and_texture_dispatch(tmp_path):
 
 
 def test_formats_are_known_by_their_headers(tmp_path):
-    """A TGA named .png and a BMP named .tga decode by content; JPEG and
-    an unknown file raise NotImplementedError naming item 22b."""
+    """A TGA named .png, a BMP named .tga and a JPEG named .bmp decode by
+    content as the JAX read_ldr decodes them; an unknown file raises
+    NotImplementedError naming item 22b."""
     tga = tmp_path / "is_tga.png"
     pil_image("RGB").save(tmp_path / "x.tga")
     tga.write_bytes((tmp_path / "x.tga").read_bytes())
@@ -143,8 +144,10 @@ def test_formats_are_known_by_their_headers(tmp_path):
     pil_image("RGB").save(tmp_path / "x.bmp")
     bmp.write_bytes((tmp_path / "x.bmp").read_bytes())
     same_as_jax(bmp)
+    jpg = tmp_path / "is_jpeg.bmp"
     Image.fromarray(RGBA[..., :3]).save(tmp_path / "x.jpg")
+    jpg.write_bytes((tmp_path / "x.jpg").read_bytes())
+    same_as_jax(jpg)
     (tmp_path / "gif.bin").write_bytes(b"GIF89a" + bytes(40))
-    for name in ("x.jpg", "gif.bin"):
-        with pytest.raises(NotImplementedError, match="item 22b"):
-            tio.read_ldr(str(tmp_path / name))
+    with pytest.raises(NotImplementedError, match="item 22b"):
+        tio.read_ldr(str(tmp_path / "gif.bin"))

@@ -14,8 +14,10 @@ renderer's torch device, default cuda; the CPU runs the kernels' plain
 versions) and --archive (the .tza weights --denoiser oidn* needs: the
 repository ships none). --upscale superres reads the reference's
 weights.bin where the JAX CLI does (ml/superres.py WEIGHTS_BIN) and
-stops before rendering without it. The flags of features the port does
-not have yet raise NotImplementedError naming their ROADMAP.md item.
+stops before rendering without it. --shard tiles|spp with --devices N
+splits the render over a mesh (parallel/sharding.py): on --device cuda
+the first N cards (default: all), on --device cpu the CPU N times
+(default 1).
 """
 
 from __future__ import annotations
@@ -92,10 +94,13 @@ def build_parser():
                    help="checkpoint every N samples")
     p.add_argument("--shard", default="none",
                    choices=["none", "tiles", "spp"],
-                   help="multi-device scaling: not ported yet (raises "
-                        "unless none)")
+                   help="multi-device scaling axis over the mesh: tiles = "
+                        "pixel pool split across the mesh; spp = every "
+                        "mesh entry traces different sample indices, the "
+                        "accumulators summed in mesh order")
     p.add_argument("--devices", type=int, default=None,
-                   help="number of devices for --shard: not ported yet")
+                   help="number of devices for --shard (default: all "
+                        "cards; on --device cpu, 1)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--export-pbf", default=None, metavar="OUT.pbf",
                    help="serialize the parsed scene as a .pbf binary "
@@ -105,22 +110,6 @@ def build_parser():
     p.add_argument("--quiet", "-q", action="store_true")
     return p
 
-
-# Flags of features the port does not have yet, and their ROADMAP.md item.
-_UNPORTED_FLAGS = (
-    ("devices", "--devices", "Queue 1: item 21, parallel/sharding.py"),
-)
-
-
-def _refuse_unported(args):
-    for attr, flag, item in _UNPORTED_FLAGS:
-        if getattr(args, attr) not in (None, False):
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md, {item})")
-    if args.shard != "none":
-        raise NotImplementedError(
-            "--shard is not ported yet (ROADMAP.md, Queue 1: item 21, "
-            "parallel/sharding.py)")
 
 
 def _settings(args):
@@ -174,7 +163,6 @@ def main(argv=None, stats: dict | None = None):
     seconds a sample and Mrays/s."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    _refuse_unported(args)
     if args.export_pbf:
         from tracerboy_tpu_torch.scene.pbf import write_pbf
         from tracerboy_tpu_torch.scene.pbrt_parser import parse_pbrt
@@ -218,11 +206,15 @@ def main(argv=None, stats: dict | None = None):
 
         vol = (vmod.procedural_cloud() if args.volume == "cloud"
                else vmod.load_volume(args.volume))
+    shard = None if args.shard == "none" else args.shard
     r = Renderer(args.scene, settings=_settings(args), film_size=film,
-                 seed=args.seed, volume=vol, device=args.device)
+                 seed=args.seed, volume=vol, device=args.device, shard=shard,
+                 n_devices=args.devices)
     log(f"scene ready: {r.compiled.num_tris} tris, "
         f"{r.compiled.num_lights} lights, {r.width}x{r.height}, "
         f"{len(r.compiled.materials['flags'])} materials")
+    if shard:
+        log(f"sharding: {shard} over {r.mesh.size} devices")
 
     if args.checkpoint and load_render_checkpoint(args.checkpoint, r):
         log(f"resumed from checkpoint at {r.state.spp} spp")

@@ -19,7 +19,9 @@ Formats:
   and 32-bit, bottom-up and top-down, the bit-field layouts PIL reads),
   converted as PIL converts them; write_tga and write_bmp write the
   uncompressed files the demo scenes need. Each format is recognised by
-  its header, as PIL recognises it. JPEG raises NotImplementedError.
+  its header, as PIL recognises it.
+- JPEG: read by core/jpeg.py (csrc/jpeg_decode.cpp), PIL's pixels bit
+  for bit.
 - Radiance HDR (RGBE, RLE): from the published file format spec.
 - PFM: trivial float format (the reference renames .pfm -> .hdr as a hack;
   we read it natively).
@@ -46,8 +48,9 @@ def read_ldr(path: str, gamma_to_linear: bool = False) -> np.ndarray:
     read_ldr gets through PIL (grey and palette images become RGB, grey
     with alpha RGBA; PNG: 16-bit samples keep their high byte, 16-bit
     grey is clipped at 255, a tRNS chunk is ignored; BMP: 32-bit pixels
-    without an alpha mask lose their fourth byte). PNG, BMP and TGA,
-    recognised by their headers as PIL recognises them."""
+    without an alpha mask lose their fourth byte; JPEG: core/jpeg.py,
+    grey replicated to RGB). PNG, BMP, TGA and JPEG, recognised by their
+    headers as PIL recognises them."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(PNG_SIGNATURE):
@@ -55,14 +58,14 @@ def read_ldr(path: str, gamma_to_linear: bool = False) -> np.ndarray:
     elif data.startswith(b"BM"):
         arr = read_bmp(data, path)
     elif data.startswith(b"\xff\xd8\xff"):
-        raise NotImplementedError(
-            f"{path}: JPEG is not ported yet (ROADMAP.md, Queue 1: item "
-            "22b, the other scene and image files: a JPEG decoder)")
+        from tracerboy_tpu_torch.core.jpeg import decode_jpeg
+
+        arr = decode_jpeg(data, path)
     elif _tga_header(data) is not None:
         arr = read_tga(data, path)
     else:
         raise NotImplementedError(
-            f"{path}: not a PNG, BMP or TGA file; other image formats are "
+            f"{path}: not a PNG, BMP, TGA or JPEG file; other image formats are "
             "not ported yet (ROADMAP.md, Queue 1: item 22b, the other "
             "scene and image files)")
     arr = arr.astype(np.float32) / 255.0

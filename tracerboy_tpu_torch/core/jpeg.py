@@ -1,0 +1,328 @@
+"""The port's JPEG decoder: the pixels PIL returns for a JPEG file (on
+libjpeg-turbo, default decompression settings), bit for bit, without an
+imaging library.
+
+Markers are parsed here; entropy decoding, the islow inverse DCT, fancy
+chroma upsampling and the YCbCr conversion run in csrc/jpeg_decode.cpp
+(g++ at first use, ctypes), whose header lists where libjpeg's integer
+arithmetic is easy to lose.
+
+Read: baseline and extended sequential and progressive Huffman files of
+8-bit samples, 1 component (grey) or 3 (YCbCr or RGB, chosen by the JFIF,
+Adobe and component-id rules of libjpeg's default_decompress_parms), any
+integral sampling factors, restart intervals. EXIF orientation is not
+applied (PIL's Image.open does not apply it). The variants that texture
+tools do not write raise NotImplementedError naming their ROADMAP.md item:
+4-component CMYK/YCCK, arithmetic coding, 12-bit samples, lossless and
+hierarchical files, progressive files whose scans leave one of the first
+10 coefficients incomplete (libjpeg smooths those blocks, jdcoefct.c),
+and coefficients beyond the 16-bit range of the SIMD IDCT PIL runs (no
+8-bit encoder writes them; csrc/jpeg_decode.cpp kMaxDequant). Truncated or
+corrupt data raises OSError, as PIL's load does.
+"""
+
+from __future__ import annotations
+
+import re
+import struct
+
+import numpy as np
+
+UNSUPPORTED = ("ROADMAP.md, Queue 1: JPEG: the variants texture tools do "
+               "not write")
+# The zigzag scan order: index k of a DQT table is natural index
+# ZIGZAG[k] (row-major within the 8x8 block).
+ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+# The entropy-coded segment ends at the first marker that is not a
+# stuffed 0xFF00 or a restart marker (fill bytes 0xFF may precede it).
+_SEGMENT_END = re.compile(rb"\xff+[^\x00\xd0-\xd7\xff]")
+_SOF_NAMES = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
+              0xC7: "hierarchical", 0xC9: "arithmetic-coded",
+              0xCA: "arithmetic-coded", 0xCB: "arithmetic-coded",
+              0xCD: "arithmetic-coded hierarchical",
+              0xCE: "arithmetic-coded hierarchical",
+              0xCF: "arithmetic-coded hierarchical"}
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        import ctypes
+
+        from tracerboy_tpu_torch.utils.build import (
+            REPO_ROOT,
+            build_shared_library,
+        )
+
+        lib = ctypes.CDLL(str(build_shared_library(
+            "tbjpeg", [REPO_ROOT / "tracerboy_tpu_torch" / "csrc"
+                       / "jpeg_decode.cpp"],
+            ["g++", "-O2", "-shared", "-fPIC"])))
+        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        lib.tb_jpeg_scan.restype = i64
+        lib.tb_jpeg_scan.argtypes = [p, i64, p, i64, p, p, p, i64, i64, i64,
+                                     i64, i64, i64, i64, i64, p]
+        lib.tb_jpeg_pixels.restype = i64
+        lib.tb_jpeg_pixels.argtypes = [p, i64, p, p, i64, i64, i64, p, p]
+        _lib = lib
+    return _lib
+
+
+def _unsupported(path, what):
+    return NotImplementedError(f"{path}: {what} JPEG is not read by the "
+                               f"port ({UNSUPPORTED})")
+
+
+def _corrupt(path, what):
+    return OSError(f"{path}: corrupt JPEG data: {what}")
+
+
+class _Frame:
+    """SOF: the image size and each component's id, sampling factors and
+    quantisation table; the coefficient arrays of every component."""
+
+    def __init__(self, seg, progressive, path):
+        if len(seg) < 6:
+            raise _corrupt(path, "short SOF segment")
+        prec, self.H, self.W, nc = struct.unpack_from(">BHHB", seg)
+        if prec != 8:
+            raise _unsupported(path, f"{prec}-bit")
+        if nc == 4:
+            raise _unsupported(path, "4-component (CMYK/YCCK)")
+        if nc not in (1, 3):
+            raise _unsupported(path, f"{nc}-component")
+        if self.W == 0 or self.H == 0 or len(seg) < 6 + 3 * nc:
+            raise _corrupt(path, "bad SOF segment")
+        self.progressive = progressive
+        self.ids, self.hv, self.tq = [], [], []
+        for c in range(nc):
+            cid, hv, tq = seg[6 + 3 * c:9 + 3 * c]
+            h, v = hv >> 4, hv & 15
+            if not (1 <= h <= 4 and 1 <= v <= 4) or tq > 3:
+                raise _corrupt(path, "bad sampling factors or table id")
+            self.ids.append(cid)
+            self.hv.append((h, v))
+            self.tq.append(tq)
+        self.hmax = max(h for h, _ in self.hv)
+        self.vmax = max(v for _, v in self.hv)
+        self.mcus_per_row = -(-self.W // (8 * self.hmax))
+        self.mcu_rows = -(-self.H // (8 * self.vmax))
+        # Per component: element offset, blocks a row of its array, width
+        # and height in blocks, h, v, downsampled width and height
+        # (jdinput.c initial_setup).
+        self.geom = []
+        off = 0
+        for h, v in self.hv:
+            dw = -(-self.W * h // self.hmax)
+            dh = -(-self.H * v // self.vmax)
+            bw, bh = self.mcus_per_row * h, self.mcu_rows * v
+            self.geom.append([off, bw, -(-dw // 8), -(-dh // 8), h, v, dw,
+                              dh])
+            off += bw * bh * 64
+        self.coef = np.zeros(off, np.int16)
+        self.quant = [None] * nc    # latched at the component's first scan
+        # jdphuff.c coef_bits: per component and coefficient, the Al still
+        # to refine (-1: never seen, 0: complete).
+        self.coef_bits = np.full((nc, 64), -1, np.int64)
+
+
+def _scan(frame, seg, data, pos, qt, ht, restart, path):
+    """Decode the scan whose SOS header is seg and whose entropy-coded
+    segment starts at data[pos]; returns the position of the marker that
+    ends it."""
+    import ctypes
+
+    ns = seg[0] if seg else 0
+    if not 1 <= ns <= 4 or len(seg) < 4 + 2 * ns:
+        raise _corrupt(path, "bad SOS segment")
+    comps, slots = [], []
+    for j in range(ns):
+        cid, tt = seg[1 + 2 * j:3 + 2 * j]
+        if cid not in frame.ids:
+            raise _corrupt(path, f"scan names an unknown component {cid}")
+        if tt >> 4 > 3 or tt & 15 > 3:
+            raise _corrupt(path, "bad Huffman table selector")
+        comps.append(frame.ids.index(cid))
+        slots.append(tt)
+    ss, se, a = seg[1 + 2 * ns:4 + 2 * ns]
+    ah, al = a >> 4, a & 15
+    if frame.progressive:    # jdphuff.c start_pass_phuff's checks
+        bad = (se != 0) if ss == 0 else (ss > se or se > 63 or ns != 1)
+        if (ah != 0 and al != ah - 1) or al > 13 or bad:
+            raise _corrupt(path, "bad progression parameters")
+        for c in comps:
+            frame.coef_bits[c, ss:se + 1] = al
+    if ns > 1 and sum(frame.hv[c][0] * frame.hv[c][1] for c in comps) > 10:
+        raise _corrupt(path, "MCU of more than 10 blocks")
+    for c in comps:           # jdinput.c latch_quant_tables
+        if frame.quant[c] is None:
+            if frame.tq[c] not in qt:
+                raise _corrupt(path, "undefined quantisation table")
+            frame.quant[c] = qt[frame.tq[c]].copy()
+    m = _SEGMENT_END.search(data, pos)
+    end = m.start() if m else len(data)
+    tables = np.zeros((8, 273), np.uint8)
+    present = np.zeros(8, np.uint8)
+    for slot, (bits, vals) in ht.items():
+        tables[slot, 1:17] = bits
+        tables[slot, 17:17 + len(vals)] = np.frombuffer(vals, np.uint8)
+        present[slot] = 1
+    # Per component: offset, blocks a row of its array, h, v, width and
+    # height in blocks, table slots. A non-interleaved scan covers the
+    # component's own blocks, one an MCU.
+    geom = np.array([[g[0], g[1], g[4], g[5], g[2], g[3], slots[j]]
+                     for j, g in enumerate(frame.geom[c] for c in comps)],
+                    np.int64)
+    seg_bytes = np.frombuffer(data, np.uint8, end - pos, pos)
+    msg = ctypes.create_string_buffer(256)
+    if _library().tb_jpeg_scan(
+            seg_bytes.ctypes.data, end - pos, frame.coef.ctypes.data, ns,
+            geom.ctypes.data, tables.ctypes.data, present.ctypes.data,
+            frame.mcus_per_row, frame.mcu_rows, ss, se, ah, al,
+            int(frame.progressive), restart, msg):
+        raise _corrupt(path, msg.value.decode())
+    return end
+
+
+def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """Decode a JPEG file's bytes to (H, W, 3) uint8 RGB: what
+    np.asarray(Image.open(path).convert("RGB")) gives (a grey file is
+    replicated to RGB)."""
+    import ctypes
+
+    if not data.startswith(b"\xff\xd8"):
+        raise _corrupt(path, "no SOI marker")
+    pos = 2
+    frame = None
+    qt, ht = {}, {}
+    restart = 0
+    jfif = False
+    adobe = None
+    scans = 0
+    while True:
+        if pos >= len(data) or data[pos] != 0xFF:
+            raise _corrupt(path, "truncated file or missing marker")
+        while pos < len(data) and data[pos] == 0xFF:
+            pos += 1
+        if pos >= len(data):
+            raise _corrupt(path, "truncated file")
+        code = data[pos]
+        pos += 1
+        if code == 0xD9:      # EOI
+            break
+        if 0xD0 <= code <= 0xD7 or code == 0x01:
+            continue          # stray RSTn / TEM: no segment
+        if pos + 2 > len(data):
+            raise _corrupt(path, "truncated marker segment")
+        (n,) = struct.unpack_from(">H", data, pos)
+        seg = data[pos + 2:pos + n]
+        if n < 2 or len(seg) != n - 2:
+            raise _corrupt(path, "truncated marker segment")
+        pos += n
+        if code in (0xC0, 0xC1, 0xC2):
+            if frame is not None:
+                raise _corrupt(path, "more than one frame")
+            frame = _Frame(seg, code == 0xC2, path)
+        elif code in _SOF_NAMES or code == 0xCC:
+            raise _unsupported(path, _SOF_NAMES.get(code, "arithmetic-coded"))
+        elif code == 0xDB:    # DQT
+            i = 0
+            while i < len(seg):
+                pq, tq = seg[i] >> 4, seg[i] & 15
+                size = 128 if pq else 64
+                if tq > 3 or i + 1 + size > len(seg):
+                    raise _corrupt(path, "bad DQT segment")
+                vals = np.frombuffer(seg, ">u2" if pq else np.uint8, 64,
+                                     i + 1).astype(np.uint16)
+                q = np.zeros(64, np.uint16)
+                q[ZIGZAG] = vals
+                qt[tq] = q
+                i += 1 + size
+        elif code == 0xC4:    # DHT
+            i = 0
+            while i < len(seg):
+                if i + 17 > len(seg):
+                    raise _corrupt(path, "bad DHT segment")
+                tc, th = seg[i] >> 4, seg[i] & 15
+                bits = np.frombuffer(seg, np.uint8, 16, i + 1)
+                count = int(bits.sum())
+                if tc > 1 or th > 3 or count > 256 or (
+                        i + 17 + count > len(seg)):
+                    raise _corrupt(path, "bad DHT segment")
+                ht[tc * 4 + th] = (bits.copy(),
+                                   seg[i + 17:i + 17 + count])
+                i += 17 + count
+        elif code == 0xDD:    # DRI
+            if len(seg) < 2:
+                raise _corrupt(path, "bad DRI segment")
+            (restart,) = struct.unpack_from(">H", seg)
+        elif code == 0xE0:    # jdmarker.c examine_app0
+            jfif = jfif or (len(seg) >= 14 and seg[:5] == b"JFIF\0")
+        elif code == 0xEE:    # examine_app14
+            if len(seg) >= 12 and seg[:5] == b"Adobe":
+                adobe = seg[11]
+        elif code == 0xDA:    # SOS
+            if frame is None:
+                raise _corrupt(path, "scan before the frame header")
+            pos = _scan(frame, seg, data, pos, qt, ht, restart, path)
+            scans += 1
+        elif code == 0xDC:
+            raise _unsupported(path, "DNL-sized")
+    if frame is None or scans == 0:
+        raise _corrupt(path, "no image data")
+    nc = len(frame.ids)
+    if frame.progressive:
+        _check_no_smoothing(frame, path)
+    for c in range(nc):       # a component no scan named reads as zeros
+        if frame.quant[c] is None:
+            frame.quant[c] = qt.get(frame.tq[c], np.zeros(64, np.uint16))
+    if nc == 1:
+        color = 0
+    elif jfif:                # jdapimin.c default_decompress_parms
+        color = 1
+    elif adobe is not None:
+        color = 2 if adobe == 0 else 1
+    else:
+        color = 2 if frame.ids == [82, 71, 66] else 1
+    out = np.empty((frame.H, frame.W, 3), np.uint8)
+    geom = np.array(frame.geom, np.int64)
+    quant = np.ascontiguousarray(np.stack(frame.quant), np.uint16)
+    msg = ctypes.create_string_buffer(256)
+    err = _library().tb_jpeg_pixels(
+        frame.coef.ctypes.data, nc, geom.ctypes.data, quant.ctypes.data,
+        frame.W, frame.H, color, out.ctypes.data, msg)
+    if err == 1:
+        raise _corrupt(path, msg.value.decode())
+    if err:
+        raise _unsupported(path, msg.value.decode())
+    return out
+
+
+def _check_no_smoothing(frame, path):
+    """jdcoefct.c smoothing_ok: libjpeg smooths the blocks of a
+    progressive file (at its final output pass) when every component's DC
+    is at least partly known, some coefficient 1-9 is incomplete, and no
+    quantiser of the first 10 coefficients is zero. That filter is not
+    ported."""
+    first10 = ZIGZAG[:10]
+    if (frame.coef_bits[:, 0] < 0).any():
+        return
+    for c in range(len(frame.ids)):
+        q = frame.quant[c]
+        if q is None or (q[first10] == 0).any():
+            return
+    if (frame.coef_bits[:, 1:10] != 0).any():
+        raise _unsupported(path, "progressive (with coefficients 0-9 left "
+                           "incomplete, which libjpeg block-smooths)")
+
+
+def read_jpeg(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 RGB of a JPEG file (decode_jpeg)."""
+    with open(path, "rb") as f:
+        return decode_jpeg(f.read(), path)

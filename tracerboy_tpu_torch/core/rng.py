@@ -110,6 +110,14 @@ def uniform(lane_id, sample_index, bounce, stream, seed=0, sampler="pcg"):
                         sampler)[0]
 
 
+def uniform2(lane_id, sample_index, bounce, stream, seed=0, sampler="pcg"):
+    """Two decorrelated uniforms per lane in the row layout, (N, 2): the
+    JAX package's cross-check form of uniform2_soa."""
+    u, v = uniform2_soa(lane_id, sample_index, bounce, stream, seed,
+                        sampler)
+    return torch.stack([u, v], dim=-1)
+
+
 # ----------------------------------------------------------------------------
 # Owen-scrambled Sobol (0,2)-sequences, padded across streams (Burley,
 # "Practical Hash-based Owen Scrambling", JCGT 2020).
@@ -195,3 +203,29 @@ def halton(base: int, i, iters: int = 20):
 def halton23(i):
     """(Halton base 2, Halton base 3) pair, shape (..., 2)."""
     return torch.stack([halton(2, i), halton(3, i)], dim=-1)
+
+
+def apply_lds_rotation(noise, frame_index):
+    """Cranley-Patterson rotation, frac(noise + Halton23(frame)): how the
+    reference turns static blue-noise textures into a progressive
+    sequence (RayGenCommon.h:77-80). noise: (..., 2)."""
+    shift = halton23(torch.as_tensor(frame_index, device=noise.device))
+    return torch.remainder(noise + shift, 1.0)
+
+
+def blue_noise_streams(blue0, blue1, px, py, frame_index):
+    """The 4 blue-noise 2D streams of pixels (px, py) at frame_index
+    (RayGenCommon.h:102-122): blue0/blue1 are (256, 256, 4) float32
+    textures in [0, 1) (the reference's LDR_RGBA_0/1). Returns a dict of
+    (N, 2) tensors. The wave takes the same values from
+    wavefront.make_blue_noise_params and rotates them itself."""
+    ix = torch.remainder(px, 256).to(torch.int64)
+    iy = torch.remainder(py, 256).to(torch.int64)
+    t0 = blue0[iy, ix]
+    t1 = blue1[iy, ix]
+    return {
+        "primary_jitter": apply_lds_rotation(t0[..., 0:2], frame_index),
+        "secondary_dir": apply_lds_rotation(t0[..., 2:4], frame_index),
+        "area_light": apply_lds_rotation(t1[..., 0:2], frame_index),
+        "dof": apply_lds_rotation(t1[..., 2:4], frame_index),
+    }

@@ -38,7 +38,14 @@ Animated geometry: update_geometry moves the flat scene's triangles and
 rebuilds both packed BVHs on the render device (accel/bvh_device.py, the
 reference's per-change GPU LBVH rebuild); TLAS-instanced scenes animate
 through update_instance_transforms and update_object_geometry (one
-object's BLAS rebuilt on the device). Sharding is not ported yet.
+object's BLAS rebuilt on the device).
+
+Multi-device scaling (Renderer(shard=), parallel/sharding.py): "tiles"
+splits the pixel pool over a mesh of devices, "spp" gives every mesh
+entry its own sample indices and sums the accumulators in mesh order.
+Each entry after the first renders on its own replica of the scene
+tensors; every method that edits the scene bumps a version, and the
+sharded paths refresh stale replicas before they trace.
 """
 
 from __future__ import annotations
@@ -136,12 +143,22 @@ class RenderState:
 class Renderer:
     def __init__(self, scene, settings: OutputSettings | None = None,
                  film_size: tuple | None = None, seed: int = 0,
-                 volume=None, device="cuda"):
+                 volume=None, device="cuda", shard: str | None = None,
+                 mesh=None, n_devices: int | None = None):
         """scene: a CompiledScene or a name for load_scene ("shadertoy",
         "shadertoy:cornell", the path of a .pbrt file, compiled through
         its .tbcache.npz cache, or of a compiled .npz scene). volume: a
         VolumeIR (scene/volume.py: load_volume, procedural_cloud) that
-        attaches or replaces the scene's heterogeneous medium."""
+        attaches or replaces the scene's heterogeneous medium.
+
+        shard: the multi-device axis of render_sample, as in the JAX
+        package: None (one device), "tiles" (the pixel pool split over the
+        mesh) or "spp" (every mesh entry traces the full image at its own
+        sample indices; the accumulators are summed in mesh order). mesh:
+        a parallel.sharding.Mesh; by default make_mesh(n_devices) of the
+        `device` argument's type (the first n_devices cards, or all; on
+        the CPU n_devices entries of it, 1 by default). With shard, the
+        renderer's device is the mesh's first."""
         if isinstance(scene, str):
             scene = load_scene(scene, film_size=film_size)
         if not isinstance(scene, CompiledScene):
@@ -153,6 +170,17 @@ class Renderer:
                 vol_hi=volume.hi, vol_sigma_a=volume.sigma_a,
                 vol_sigma_s=volume.sigma_s, vol_g=volume.g)
         self.compiled = scene
+        if shard not in (None, "tiles", "spp"):
+            raise ValueError(f"shard must be None|'tiles'|'spp': {shard}")
+        self.shard = shard
+        self.mesh = mesh
+        if shard is not None and mesh is None:
+            from tracerboy_tpu_torch.parallel.sharding import make_mesh
+
+            self.mesh = make_mesh(n_devices,
+                                  device_type=torch.device(device).type)
+        if shard is not None:
+            device = self.mesh.devices[0]
         self.device = torch.device(device)
         self.seed = int(seed)
         self.settings = settings or default_output_settings()
@@ -165,6 +193,13 @@ class Renderer:
         self.pixel_ids = torch.arange(self.width * self.height,
                                       dtype=torch.int64, device=self.device)
         self._bn_cache = None
+        # Sharding: the scene's version (bumped by every method that edits
+        # self.scene), the mesh entries' replicas with the version they
+        # copy, the tiled pool and its blue-noise pre-gather.
+        self._scene_version = 0
+        self._replicas = None
+        self._tiled_pixels = None
+        self._bn_cache_tiled = None
         self._shadow_idx = None  # the shadow BVH triangles of update_geometry
         self.rays_traced = 0     # closest-hit + shadow rays, all calls
         self._last_aovs = None   # the last accumulated wave's output
@@ -244,6 +279,7 @@ class Renderer:
             cam.up = (up / np.linalg.norm(up)).astype(np.float32)
         cam.look_at = (cam.position + view).astype(np.float32)
         self.scene["camera"] = from_jax_pytree(cam.as_numpy(), self.device)
+        self._scene_version += 1
         self.invalidate_history()
 
     def wave_config(self) -> WaveConfig:
@@ -401,6 +437,7 @@ class Renderer:
                       pk_sh_tris_bw=pk_sh["tris_bw"],
                       pk_sh_tri_map=sh_order.to(torch.int32),
                       pk_sh_attr_rows=attr_rows[sh_order])
+        self._scene_version += 1
         self.invalidate_history()
 
     def _refresh_instance_tables(self):
@@ -418,6 +455,7 @@ class Renderer:
                 ("world_hi", np.maximum(fhi, it["inst_hi"].max(0)))):
             self.scene[key] = torch.from_numpy(
                 v.astype(np.float32)).to(self.device)
+        self._scene_version += 1
         self.invalidate_history()
 
     def update_instance_transforms(self, transforms):
@@ -498,6 +536,7 @@ class Renderer:
         entry["packed"]["tris_bw"] = pk["tris_bw"]
         base = int(entry["base"])
         self.scene["pk_attr_rows"][base:base + P] = rows
+        self._scene_version += 1
         # TLAS refit of the object's instances, on the host (the tables
         # are small and the transforms live there).
         v0h, v1h, v2h = (v.cpu().numpy() for v in (v0, v1, v2))
@@ -565,7 +604,12 @@ class Renderer:
         one wave of k*N lanes; otherwise brute force and the wide backend
         batch single-sample waves (so the AOVs are the last sample's, as
         in the JAX package). With adaptive sampling warmed up, pixels
-        outside active_pixel_mask() trace nothing."""
+        outside active_pixel_mask() trace nothing. A sharded renderer
+        dispatches to _render_sample_spp_sharded or _render_sample_tiled."""
+        if self.shard == "spp":
+            return self._render_sample_spp_sharded(n)
+        if self.shard == "tiles":
+            return self._render_sample_tiled(n)
         cfg = self.wave_config()
         params = self.frame_params()
         mask = self.active_pixel_mask()
@@ -610,7 +654,12 @@ class Renderer:
         residual traces as ONE wave whose lanes repeat pixels, sample index
         spp + occurrence. Each pixel's lanes are summed in a fixed order
         (occurrence by occurrence), so a run is reproducible bit for bit.
-        The counts of the last call are kept in _last_adaptive_counts."""
+        The counts of the last call are kept in _last_adaptive_counts.
+        A sharded renderer refuses it, as in the JAX package."""
+        if self.shard is not None:
+            raise NotImplementedError(
+                "adaptive burst is single-chip; shard the spp loop "
+                "outside it")
         pilot = pilot or max(1, spp // 2)
         pilot = min(pilot, spp)
         h, w = self.height, self.width
@@ -715,6 +764,93 @@ class Renderer:
             gz = order[m[order] > 0][: -short]
             m[gz] -= 1
         return m
+
+    # -- multi-device paths (parallel/sharding.py) -----------------------
+    def _mesh_scenes(self) -> list:
+        """The scene of each mesh entry: self.scene for the first, a
+        replica for every other (a clone where the device repeats),
+        copied again whenever the scene's version moved since."""
+        from tracerboy_tpu_torch.parallel.sharding import replicate
+
+        if self._replicas is None or self._replicas[0] != self._scene_version:
+            self._replicas = (self._scene_version, [self.scene] + [
+                replicate(self.scene, d) for d in self.mesh.devices[1:]])
+        return self._replicas[1]
+
+    def _render_sample_spp_sharded(self, n: int):
+        """n progressive samples sharded over the mesh by sample index:
+        n rounds UP to a multiple of the mesh size, each of the D entries
+        tracing spd = ceil(n / D) samples (one merged wave on the packed
+        backends while spd * N <= MERGED_WAVE_LANES). The jittered
+        accumulator takes the whole batch under one coin, as the JAX
+        package's does."""
+        from tracerboy_tpu_torch.parallel.sharding import render_spp_sharded
+
+        cfg = self.wave_config()
+        D = self.mesh.size
+        spd = -(-n // D)
+        params = self.frame_params()
+        mask = self.active_pixel_mask()
+        if mask is not None:
+            params["active_mask"] = mask
+            self._live_pixels = mask
+        ids = self.pixel_ids
+        use_merged = (cfg.traversal in PACKED_BACKENDS and spd > 1
+                      and spd * ids.shape[0] <= MERGED_WAVE_LANES)
+        rad, fw, rays = render_spp_sharded(
+            self.mesh, self._mesh_scenes(), params, ids, self.state.spp, cfg,
+            samples_per_device=spd, use_merged=use_merged)
+        h, w = self.height, self.width
+        sample = torch.cat([rad.reshape(h, w, 3), fw.reshape(h, w, 1)], -1)
+        st = self.state
+        st.accum = st.accum + sample
+        coin = tbrng.uniform(self.pixel_ids, st.spp, 0,
+                             tbrng.STREAM_ACCUM_JITTER).reshape(h, w)
+        take = coin < 0.5 if st.spp != 0 else torch.ones_like(
+            coin, dtype=bool)
+        st.accum_jittered = torch.where(take[..., None],
+                                        st.accum_jittered + sample,
+                                        st.accum_jittered)
+        st.spp += spd * D
+        self.rays_traced += int(rays)
+        return st
+
+    def _render_sample_tiled(self, n: int):
+        """n progressive samples with the pixel pool split over the mesh
+        (shard_pixels pads it to a multiple of the mesh size): n waves of
+        one sample, each sliced back to the film's N lanes and
+        accumulated as an unsharded wave is."""
+        from tracerboy_tpu_torch.parallel.sharding import (
+            render_wave_tiled,
+            shard_pixels,
+        )
+
+        cfg = self.wave_config()
+        h, w = self.height, self.width
+        N = w * h
+        if self._tiled_pixels is None:
+            self._tiled_pixels = shard_pixels(self.mesh, w, h)
+        pixel_ids, pad = self._tiled_pixels
+        params = self.frame_params()
+        if "bn" in params:
+            # The blue-noise pre-gather over the padded pool's lanes.
+            if self._bn_cache_tiled is None:
+                self._bn_cache_tiled = make_blue_noise_params(
+                    self.scene, pixel_ids, w)
+            params["bn"] = self._bn_cache_tiled
+        mask = self.active_pixel_mask()
+        if mask is not None:
+            self._live_pixels = mask
+            params["active_mask"] = torch.cat([mask, mask.new_zeros(pad)])
+        n_lanes = N + pad
+        for _ in range(n):
+            out = render_wave_tiled(self.mesh, self._mesh_scenes(), params,
+                                    pixel_ids, self.state.spp, cfg)
+            out = {k: (v[:N] if k != "viz_rays" and v.ndim >= 1
+                       and v.shape[0] == n_lanes else v)
+                   for k, v in out.items()}
+            self._accumulate(out)
+        return self.state
 
     def _accumulate(self, out, samples: int = 1):
         h, w = self.height, self.width
@@ -983,6 +1119,7 @@ class Renderer:
             self.scene["tri_shadow_opaque"] = torch.from_numpy(
                 (c.materials["flags"][c.tri_material] & LIGHT_FLAG) == 0
             ).to(self.device)
+        self._scene_version += 1
         self.invalidate_history()
 
     def visualize_selected_ray_path(self, x: int, y: int,

@@ -126,3 +126,16 @@ def sample_one_light_soa(lights, num_lights: int, position, lane_id,
     out = finalize(row, sel[0], sel[1], sel[2], ris_pdf)
     out["pdf"] = torch.where(wsum <= 0.0, 0.0, out["pdf"])
     return out
+
+
+def sample_one_light(lights, num_lights: int, position, lane_id,
+                     sample_index, bounce, use_ris: bool = False, seed=0,
+                     sampler="pcg"):
+    """The light sample in the row layout (the JAX package's cross-check
+    form of sample_one_light_soa): position (N, 3); returns (N, 3)
+    direction, color, normal and (N,) pdf, attenuation, distance."""
+    pos = v3.V3(position[:, 0], position[:, 1], position[:, 2])
+    out = sample_one_light_soa(lights, num_lights, pos, lane_id,
+                               sample_index, bounce, use_ris, seed, sampler)
+    return {k: v3.to_rows(v) if isinstance(v, v3.V3) else v
+            for k, v in out.items()}

@@ -129,6 +129,23 @@ def apply_normal_map(scene, normal_tex, normal, tangent, uv_u, uv_v):
     return v3.where(normal_tex >= 0, detail, normal)
 
 
+def _resolve_mix(mats, mat_id, lane_id, sample_index, bounce, seed,
+                 has_mix):
+    """The material row of each hit: mat_id clamped to the table, a mix
+    material resolved one level by its coin (RayGenCommon.h:308-319)."""
+    M = mats["flags"].shape[0]
+    mid = torch.clamp(mat_id.to(torch.int64), 0, M - 1)
+    if has_mix:
+        is_mix = (mats["flags"][mid] & MIX_FLAG) != 0
+        packed = mats["albedo"][mid]     # (mat0, mat1, amount)
+        r = tbrng.uniform(lane_id, sample_index, bounce,
+                          tbrng.STREAM_MIX, seed)
+        mix_id = torch.where(r < packed[:, 2], packed[:, 0],
+                             packed[:, 1]).to(torch.int64)
+        mid = torch.where(is_mix, torch.clamp(mix_id, 0, M - 1), mid)
+    return mid
+
+
 def fetch_material_soa(
     scene,
     mat_id,
@@ -152,17 +169,8 @@ def fetch_material_soa(
     specular, one-sided emission and the SSS conversion; the has_* flags
     are scene facts that skip paths no material can reach."""
     mats = scene["materials"]
-    M = mats["flags"].shape[0]
-    mid = torch.clamp(mat_id.to(torch.int64), 0, M - 1)
-
-    if has_mix:
-        is_mix = (mats["flags"][mid] & MIX_FLAG) != 0
-        packed = mats["albedo"][mid]     # (mat0, mat1, amount)
-        r = tbrng.uniform(lane_id, sample_index, bounce,
-                          tbrng.STREAM_MIX, seed)
-        mix_id = torch.where(r < packed[:, 2], packed[:, 0],
-                             packed[:, 1]).to(torch.int64)
-        mid = torch.where(is_mix, torch.clamp(mix_id, 0, M - 1), mid)
+    mid = _resolve_mix(mats, mat_id, lane_id, sample_index, bounce, seed,
+                       has_mix)
 
     def col3(name):
         a = mats[name][mid]
@@ -224,3 +232,21 @@ def fetch_material_soa(
         absorption=absorption, scattering=scattering,
         specular_coef=specular_coef, flags=flags, normal_tex=normal_tex,
     )
+
+
+def fetch_material(scene, mat_id, uv, backside, lane_id, sample_index,
+                   bounce, seed=0, has_mix: bool = True,
+                   has_textures: bool = True):
+    """The material record in the row layout (the JAX package's
+    cross-check form of fetch_material_soa): uv (N, 2); returns (N, 3)
+    albedo, emissive, absorption, scattering and (N,) ior, roughness,
+    specular_coef, flags, normal_tex, alpha_tex."""
+    out = fetch_material_soa(scene, mat_id, uv[:, 0], uv[:, 1], backside,
+                             lane_id, sample_index, bounce, seed,
+                             has_mix=has_mix, has_textures=has_textures)
+    out = {k: v3.to_rows(v) if isinstance(v, v3.V3) else v
+           for k, v in out.items()}
+    mats = scene["materials"]
+    out["alpha_tex"] = mats["alpha_tex"][_resolve_mix(
+        mats, mat_id, lane_id, sample_index, bounce, seed, has_mix)]
+    return out

@@ -135,3 +135,20 @@ def generate_primary_rays_soa(
         )
         origin, direction = new_o, v3.normalize(focus - new_o)
     return origin, direction
+
+
+def generate_primary_rays(cam: dict, width: int, height: int,
+                          pixel_ids: torch.Tensor, jitter,
+                          dof_focus_distance=0.0, dof_aperture_width=0.0,
+                          dof_jitter=None, filter_width: float = 1.0):
+    """Primary rays in the row layout (the JAX package's cross-check form
+    of generate_primary_rays_soa): jitter (N, 2) AA jitter in [0, 1)^2,
+    dof_jitter (N, 2) or None. Returns (origin (N, 3), direction
+    (N, 3))."""
+    dof_u = dof_v = None
+    if dof_jitter is not None:
+        dof_u, dof_v = dof_jitter[:, 0], dof_jitter[:, 1]
+    o, d = generate_primary_rays_soa(
+        cam, width, height, pixel_ids, jitter[:, 0], jitter[:, 1],
+        dof_focus_distance, dof_aperture_width, dof_u, dof_v, filter_width)
+    return v3.to_rows(o), v3.to_rows(d)

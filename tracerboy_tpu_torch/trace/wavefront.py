@@ -11,9 +11,9 @@ machine inside the same bounce loop.
 
 Alpha cutouts (WaveConfig.has_alpha) follow the JAX package: no callback
 into traversal, but a re-fire of the whole wave from just past each hit
-whose alpha is under ALPHA_CUTOFF, up to ALPHA_ROUNDS times; with
-cutouts, every shadow wave becomes a closest-hit march over the shadow
-BVH (ALPHA_ROUNDS + 1 rounds) in which only opaque hits occlude.
+whose alpha is under ALPHA_CUTOFF, up to WaveConfig.alpha_rounds times;
+with cutouts, every shadow wave becomes a closest-hit march over the
+shadow BVH (alpha_rounds + 1 rounds) in which only opaque hits occlude.
 WaveConfig.transparent_shadows runs the same march and lets glass pass
 light with a Fresnel factor (_shadow_transmittance). Normal maps
 (has_normal_maps) tilt the detail normal (shade/surface.apply_normal_map).
@@ -160,10 +160,14 @@ class WaveConfig:
     # vertex, traced as ONE concatenated shadow wave of M x lanes rays.
     env_nee: bool = False
     env_nee_samples: int = 1
-    # Alpha-tested transparency (_closest_dispatch, _occluded_dispatch).
+    # Alpha-tested transparency (_closest_dispatch, _occluded_dispatch):
+    # re-fires of a closest-hit wave past cut hits.
     has_alpha: bool = False
-    # Transmissive shadow rays (_shadow_transmittance).
+    alpha_rounds: int = 3
+    # Transmissive shadow rays (_shadow_transmittance): the extra
+    # closest-hit rounds of a transmittance march.
     transparent_shadows: bool = False
+    shadow_glass_rounds: int = 3
     has_normal_maps: bool = False
     # TLAS/BLAS instancing (trace/instanced.py).
     has_instances: bool = False
@@ -260,11 +264,6 @@ def _closest(scene, o, d, t_max, cfg, primary=False, cost_lanes=0,
 
 
 ALPHA_CUTOFF = 0.9  # SharedHitGroup.h:163
-# The JAX WaveConfig's alpha_rounds and shadow_glass_rounds, at the values
-# every JAX caller leaves them: re-fires of a closest-hit wave past cut
-# hits, and the extra closest-hit rounds of a transmittance march.
-ALPHA_ROUNDS = 3
-SHADOW_GLASS_ROUNDS = 3
 
 
 def _alpha_at_hit(scene, tri, u, v, attr_key="tri_attr_rows"):
@@ -328,7 +327,7 @@ def _closest_dispatch(scene, o, d, t_max, cfg, primary=False,
                       cost_lanes=0):
     """Closest hit with alpha-tested transparency (the JAX
     _closest_dispatch): hits whose alpha is under ALPHA_CUTOFF re-fire
-    the whole wave from just past the hit, up to ALPHA_ROUNDS times;
+    the whole wave from just past the hit, up to cfg.alpha_rounds times;
     a re-fire is never a primary wave (on the binned path it takes the
     binned backend). Returns _closest_once's tuple with t measured from
     o."""
@@ -340,7 +339,7 @@ def _closest_dispatch(scene, o, d, t_max, cfg, primary=False,
                 else "tri_attr_rows")
     o_cur = o
     t_base = torch.zeros_like(t_max)
-    for _ in range(ALPHA_ROUNDS):
+    for _ in range(cfg.alpha_rounds):
         a = _alpha_at_hit(scene, tri, u, v, attr_key)
         reject = (tri >= 0) & (a < ALPHA_CUTOFF)
         del a
@@ -378,7 +377,7 @@ def _occluded_dispatch(scene, o, d, t_max, cfg):
     _occluded_dispatch). Without cutouts a pure any-hit wave; with them
     occlusion needs hit points to sample alpha, so it marches closest
     hits (over the shadow BVH on the packed backends) for
-    ALPHA_ROUNDS + 1 rounds and only opaque hits occlude; brute force
+    cfg.alpha_rounds + 1 rounds and only opaque hits occlude; brute force
     and "wide" treat light triangles as pass-through. On a TLAS scene the
     instanced occluders are OR-ed in."""
     occ_inst = _instanced_occluders(scene, o, d, t_max, cfg)
@@ -392,7 +391,7 @@ def _occluded_dispatch(scene, o, d, t_max, cfg):
     o_cur = o
     t_base = torch.zeros_like(t_max)
     budget = t_max
-    for _ in range(ALPHA_ROUNDS + 1):
+    for _ in range(cfg.alpha_rounds + 1):
         t, tri, u, v, _ = _closest(scene, o_cur, d, budget, cfg,
                                    shadow=packed)
         hit = tri >= 0
@@ -419,7 +418,7 @@ def _shadow_transmittance(scene, o, d, t_max, cfg):
     subsurface surfaces (glass) multiply (1 - Schlick(cos)) per interface
     and the ray goes on, light geometry and alpha cutouts pass, and
     anything else stops it at zero; a pass still open after
-    SHADOW_GLASS_ROUNDS + 1 rounds counts as occluded. Returns the
+    cfg.shadow_glass_rounds + 1 rounds counts as occluded. Returns the
     transmittance in [0, 1] per lane."""
     packed = cfg.traversal in PACKED_BACKENDS
     attr_key = "pk_sh_attr_rows" if packed else "tri_attr_rows"
@@ -431,7 +430,7 @@ def _shadow_transmittance(scene, o, d, t_max, cfg):
     o_cur = o
     t_base = torch.zeros_like(t_max)
     budget = t_max
-    for _ in range(SHADOW_GLASS_ROUNDS + 1):
+    for _ in range(cfg.shadow_glass_rounds + 1):
         t, tri, u, v, _ = _closest(scene, o_cur, d, budget, cfg,
                                    shadow=packed)
         hit = tri >= 0
@@ -1408,7 +1407,7 @@ def splat_fold_tent(rad_r, rad_g, rad_b, jit_u, jit_v, W: int, H: int,
 
 def render_wave_merged(scene, params, pixel_ids, base_sample: int, k: int,
                        cfg: WaveConfig, fold_aovs: bool = False,
-                       fold_var: bool = False):
+                       fold_var: bool = False, aovs: bool = True):
     """Trace k samples per pixel in ONE wave of k*N lanes (per-lane sample
     indices base_sample + j); returns per-pixel summed radiance (and
     radiance_d, radiance_early) and filter weight, total rays_traced, and
@@ -1424,7 +1423,8 @@ def render_wave_merged(scene, params, pixel_ids, base_sample: int, k: int,
     the JAX package's renderer accumulates under the tent weight.
     fold_var adds lum and lum_sq, the per-pixel sums of each sample's
     tonemapped luma and its square (the adaptive burst's pilot
-    statistic)."""
+    statistic). aovs=False builds no AOV lanes (the AOV outputs are
+    empty), as the sample-sharded step wants."""
     if params.get("selected_pixel") is not None:
         raise ValueError(
             "merged waves cannot record the selected pixel's ray path")
@@ -1445,7 +1445,7 @@ def render_wave_merged(scene, params, pixel_ids, base_sample: int, k: int,
     if p2.get("active_mask") is not None:
         p2["active_mask"] = p2["active_mask"].repeat(k)
     out = render_wave(scene, p2, tiled, sidx, cfg,
-                      aov_lanes=k * N if fold_aovs else N)
+                      aov_lanes=0 if not aovs else k * N if fold_aovs else N)
 
     def fold(a):
         return a.reshape((k, N) + tuple(a.shape[1:])).sum(0)
