@@ -200,16 +200,22 @@ Phases, each fatal on failure:
      the host; the CLI on textured_lit.pbrt with that JPEG as its albedo,
      1280x720, 2 spp, a finite image, its closest-hit launches held
      against the plain version by kind (main, re-fire, shadow-BVH);
- 23. a JSON line of the seven kernels (launches from the run of the path
+ 23. the port's DDS reader and TGA/BMP variant readers (dds_phase):
+     every fixture of tests/data/dds (DDS of every format PIL reads, the
+     TGA and BMP variants) decoded to the sha256 of PIL's array in its
+     manifest; the 512x512 BC7 albedo's decode timed on the host; the CLI
+     on textured_lit.pbrt with that BC7 albedo and a DXT1 leaf whose
+     cutouts are BC1's 1-bit alpha, 1280x720, 2 spp, as in 22;
+ 24. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
      2 also by the volume run's, the adaptive residual wave's, the
      animation phase's, the ML dataset's, the sharded runs' and the JPEG
-     scene's launches), then the result line {"ok": true, "device":
-     {...}} last.
+     and DDS scenes' launches), then the result line {"ok": true,
+     "device": {...}} last.
 
 Imports nothing of JAX or the JAX package (the UNet weights and the JPEG
-fixtures are data files read by path).
+and DDS fixtures are data files read by path).
 """
 
 from __future__ import annotations
@@ -3736,6 +3742,7 @@ def ml_runs(torch, tmp):
 
 SHARD_ODD_FILM = (1279, 719)   # (N + pad) % 2 == 0 with pad 1
 JPEG_DIR = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
+DDS_DIR = Path(__file__).resolve().parent / "tests" / "data" / "dds"
 
 
 def spp_reference(r, D, n):
@@ -3912,6 +3919,12 @@ def jpeg_phase(torch):
         return jpeg_runs(torch, tmp)
 
 
+def dds_phase(torch):
+    """dds_runs in a temporary directory that is removed after it."""
+    with tempfile.TemporaryDirectory(prefix="tb_dds_") as tmp:
+        return dds_runs(torch, tmp)
+
+
 def host_cpu() -> str:
     """The host CPU's model name from /proc/cpuinfo, else its vendor,
     family and model numbers, else the machine type."""
@@ -3933,67 +3946,64 @@ def host_cpu() -> str:
     return platform.machine() or "unknown"
 
 
-def jpeg_runs(torch, tmp):
-    """The port's JPEG decoder (core/jpeg.py, csrc/jpeg_decode.cpp, g++ at
-    first use) on the card's machine, which has no PIL. (a) Every
-    committed fixture of tests/data/jpeg decoded, its shape, dtype and
-    sha256 equal to manifest.json's (PIL's arrays, written by
-    tests/make_jpeg_fixtures.py). (b) The 1024x1024 progressive 4:2:0
-    albedo's decode, 5 runs, host seconds, with the host's CPU. (c) The
-    CLI on utils/demo_scene's textured_lit.pbrt with its albedo pointed
-    at that JPEG, 1280x720, 2 spp: a finite image; the first wave's
-    closest-hit launches (there is no any-hit launch with cutouts) tagged
-    main / refire_k / shadow_k and held against the plain version by kind
-    (textured_launch_check). Returns (results, launches of (c))."""
+def fixture_hashes(label, directory, decode):
+    """Every file of directory/manifest.json decoded by decode(path): its
+    shape, dtype and sha256 must equal the manifest's (PIL's arrays; the
+    card's machine has no PIL). Returns {name: equal}."""
     import hashlib
-    import shutil
 
-    from tracerboy_tpu_torch.app import cli
-    from tracerboy_tpu_torch.core import image_io
-    from tracerboy_tpu_torch.core.jpeg import read_jpeg
-    from tracerboy_tpu_torch.trace import kernels, traverse
-    from tracerboy_tpu_torch.trace.wavefront import WaveConfig
-    from tracerboy_tpu_torch.utils.config import default_output_settings
-    from tracerboy_tpu_torch.utils.demo_scene import write_textured_scene
-
-    set_opt_in()
-    results = {}
-    with open(JPEG_DIR / "manifest.json") as f:
+    with open(directory / "manifest.json") as f:
         manifest = json.load(f)
     rows, bad = {}, []
     for name, entry in sorted(manifest["files"].items()):
-        arr = read_jpeg(str(JPEG_DIR / name))
+        arr = decode(str(directory / name))
         digest = hashlib.sha256(np.ascontiguousarray(arr).tobytes())
         got = dict(shape=list(arr.shape), dtype=str(arr.dtype),
                    sha256=digest.hexdigest())
         rows[name] = got["sha256"] == entry["sha256"]
         if got != entry:
             bad.append((name, got, entry))
-    results["fixtures"] = rows
-    print("jpeg fixtures against PIL's hashes:", json.dumps(rows))
+    print(f"{label} fixtures against PIL's hashes:", json.dumps(rows))
     if bad or not rows:
-        fail(f"jpeg: decoded fixtures differ from the manifest: {bad}")
-    albedo = JPEG_DIR / "albedo_1024.jpg"
-    secs = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        read_jpeg(str(albedo))
-        secs.append(time.perf_counter() - t0)
-    results["decode_1024"] = dict(seconds=secs, median_s=float(
-        np.median(secs)), bytes=albedo.stat().st_size, cpu=host_cpu(),
-        cpu_count=os.cpu_count())
-    print("jpeg decode 1024x1024 progressive 4:2:0 (host):",
-          json.dumps(results["decode_1024"]))
+        fail(f"{label}: decoded fixtures differ from the manifest: {bad}")
+    return rows
 
-    # (c) the textured scene with a JPEG albedo through the CLI.
+
+def host_decode(decode, path, runs=5) -> dict:
+    """Host seconds of decode(path), `runs` times, with the host's CPU."""
+    secs = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        decode(str(path))
+        secs.append(time.perf_counter() - t0)
+    return dict(seconds=secs, median_s=float(np.median(secs)),
+                bytes=path.stat().st_size, cpu=host_cpu(),
+                cpu_count=os.cpu_count())
+
+
+def textured_swap_cli(torch, tmp, label, swaps):
+    """The CLI on utils/demo_scene's textured_lit.pbrt with its image
+    textures swapped for other files (demo_scene.retexture), 1280x720,
+    2 spp: a finite image; one wave of closest-hit launches and no
+    any-hit launch (cutouts make every shadow wave a closest-hit march),
+    the wave's launches tagged main / refire_k / shadow_k and held
+    against the plain version by kind (textured_launch_check). Returns
+    (results, launches)."""
+    from tracerboy_tpu_torch.app import cli
+    from tracerboy_tpu_torch.core import image_io
+    from tracerboy_tpu_torch.trace import kernels, traverse
+    from tracerboy_tpu_torch.trace.wavefront import WaveConfig
+    from tracerboy_tpu_torch.utils.config import default_output_settings
+    from tracerboy_tpu_torch.utils.demo_scene import (
+        retexture,
+        write_textured_scene,
+    )
+
     tex_scene, lit_scene = write_textured_scene(tmp)
-    shutil.copy(albedo, os.path.join(tmp, "albedo.jpg"))
-    with open(tex_scene) as f:
-        text = f.read()
-    if '"albedo.png"' not in text:
-        fail("jpeg: the textured scene names no albedo.png")
-    with open(tex_scene, "w") as f:
-        f.write(text.replace('"albedo.png"', '"albedo.jpg"'))
+    try:
+        retexture(tex_scene, swaps)
+    except ValueError as e:
+        fail(f"{label}: {e}")
     rounds = WaveConfig(width=1, height=1).alpha_rounds
     per_wave = (default_output_settings().performance_settings.max_bounces
                 * (1 + rounds + (rounds + 1)))
@@ -4002,15 +4012,15 @@ def jpeg_runs(torch, tmp):
 
     def recording(o, d, t_max, nodes, tris_bw, roots=None):
         if roots is not None:
-            fail("jpeg CLI: a launch with per-ray roots")
+            fail(f"{label} CLI: a launch with per-ray roots")
         if len(seq) < per_wave:
             seq.append(nodes.data_ptr())
             calls.append((o.clone(), d.clone(), t_max.clone(), nodes,
                           tris_bw))
         return real(o, d, t_max, nodes, tris_bw)
 
-    out = os.path.join(tmp, "jpeg_lit.png")
-    exr = os.path.join(tmp, "jpeg_lit.exr")
+    out = os.path.join(tmp, f"{label}_lit.png")
+    exr = os.path.join(tmp, f"{label}_lit.exr")
     stats = {}
     kernels.reset_counters()
     traverse.closest_hit = recording
@@ -4026,32 +4036,84 @@ def jpeg_runs(torch, tmp):
     launches = dict(kernels.LAUNCHES)
     overflows = kernels.stack_overflows()
     if rc != 0:
-        fail(f"jpeg CLI: exit {rc}")
-    mean = check_cli_outputs("jpeg textured_lit", out, exr)
-    check_image("jpeg textured_lit", image_io.read_ldr(out))
+        fail(f"{label} CLI: exit {rc}")
+    mean = check_cli_outputs(f"{label} textured_lit", out, exr)
+    check_image(f"{label} textured_lit", image_io.read_ldr(out))
     if (launches["closest"] != per_wave or launches["anyhit"] or overflows
             or len(calls) != per_wave):
-        fail(f"jpeg CLI: launches {launches}, {len(calls)} recorded, "
+        fail(f"{label} CLI: launches {launches}, {len(calls)} recorded, "
              f"{overflows} overflows; expected one wave of {per_wave}")
     kinds = tag_closest_launches(seq, "shadow")
     by_kind, bad = textured_launch_check(
         calls, kinds, np.random.default_rng(20261022), measure=False)
     del calls
-    results["cli"] = dict(rc=rc, seconds=seconds, spp=stats.get("spp"),
-                          s_per_sample=stats["seconds"] / stats["spp"],
-                          radiance_mean=mean, launches=launches)
-    results["kinds"] = by_kind
-    print("jpeg CLI textured_lit.pbrt (JPEG albedo) 1280x720 2 spp:",
-          json.dumps(results["cli"]))
-    print("jpeg CLI closest-hit launches by kind:", json.dumps(by_kind))
+    results = dict(cli=dict(rc=rc, seconds=seconds, spp=stats.get("spp"),
+                            s_per_sample=stats["seconds"] / stats["spp"],
+                            radiance_mean=mean, launches=launches),
+                   kinds=by_kind)
+    print(f"{label} CLI textured_lit.pbrt ({', '.join(swaps)} swapped) "
+          "1280x720 2 spp:", json.dumps(results["cli"]))
+    print(f"{label} CLI closest-hit launches by kind:", json.dumps(by_kind))
     checked = sum(r["checked"] for r in by_kind.values())
     outside = sum(r["id_mismatch_outside_ties"] for r in by_kind.values())
     if bad or outside > TOLERANCE["id_mismatch_frac"] * checked:
-        fail(f"jpeg launches disagree with the plain version: {bad}, "
+        fail(f"{label} launches disagree with the plain version: {bad}, "
              f"{outside} id mismatches outside ties in {checked} lanes")
     if not {"main", "refire_1", "shadow_0"} <= set(by_kind):
-        fail(f"jpeg CLI: launch kinds {sorted(by_kind)}")
+        fail(f"{label} CLI: launch kinds {sorted(by_kind)}")
     torch.cuda.empty_cache()
+    return results, launches
+
+
+def jpeg_runs(torch, tmp):
+    """The port's JPEG decoder (core/jpeg.py, csrc/jpeg_decode.cpp, g++ at
+    first use) on the card's machine, which has no PIL. (a) Every
+    committed fixture of tests/data/jpeg decoded, its shape, dtype and
+    sha256 equal to manifest.json's (PIL's arrays, written by
+    tests/make_jpeg_fixtures.py). (b) The 1024x1024 progressive 4:2:0
+    albedo's decode, 5 runs, host seconds, with the host's CPU. (c) The
+    CLI on utils/demo_scene's textured_lit.pbrt with its albedo pointed
+    at that JPEG (textured_swap_cli). Returns (results, launches of
+    (c))."""
+    from tracerboy_tpu_torch.core.jpeg import read_jpeg
+
+    set_opt_in()
+    results = {"fixtures": fixture_hashes("jpeg", JPEG_DIR, read_jpeg)}
+    albedo = JPEG_DIR / "albedo_1024.jpg"
+    results["decode_1024"] = host_decode(read_jpeg, albedo)
+    print("jpeg decode 1024x1024 progressive 4:2:0 (host):",
+          json.dumps(results["decode_1024"]))
+    cli_res, launches = textured_swap_cli(torch, tmp, "jpeg",
+                                          {"albedo.png": str(albedo)})
+    results.update(cli_res)
+    return results, launches
+
+
+def dds_runs(torch, tmp):
+    """The port's DDS reader (core/dds.py, csrc/dds_decode.cpp, g++ at
+    first use) and TGA/BMP variant readers on the card's machine, which
+    has no PIL. (a) Every committed fixture of tests/data/dds (DDS of
+    every format, the TGA and BMP variants) decoded by
+    image_io.decode_ldr, its shape, dtype and sha256 equal to
+    manifest.json's (written by tests/make_dds_fixtures.py). (b) The
+    512x512 BC7 albedo's decode, 5 runs, host seconds, with the host's CPU
+    and the card line. (c) The CLI on textured_lit.pbrt with its albedo
+    the BC7 DDS and its leaf a DXT1 DDS whose cutouts are BC1's 1-bit
+    alpha, so the alpha re-fires of kernel 1 run on the new decoder's
+    texels (textured_swap_cli). Returns (results, launches of (c))."""
+    from tracerboy_tpu_torch.core.image_io import decode_ldr
+
+    set_opt_in()
+    results = {"fixtures": fixture_hashes("dds", DDS_DIR, decode_ldr)}
+    albedo = DDS_DIR / "albedo_bc7.dds"
+    results["decode_512_bc7"] = dict(host_decode(decode_ldr, albedo),
+                                     card=card_line())
+    print("dds decode 512x512 BC7 (host):",
+          json.dumps(results["decode_512_bc7"]))
+    cli_res, launches = textured_swap_cli(
+        torch, tmp, "dds", {"albedo.png": str(albedo),
+                            "leaf.png": str(DDS_DIR / "leaf_dxt1.dds")})
+    results.update(cli_res)
     return results, launches
 
 
@@ -4282,6 +4344,9 @@ def main() -> int:
     jpeg_res, jpeg_launches = jpeg_phase(torch)
     jpeg_kinds = jpeg_res["kinds"]
     lap("jpeg")
+    dds_res, dds_launches = dds_phase(torch)
+    dds_kinds = dds_res["kinds"]
+    lap("dds")
     print("phase seconds:", json.dumps(laps))
 
     def by_path(key):
@@ -4294,7 +4359,7 @@ def main() -> int:
                 "estimators": est_launches[key],
                 "animation": anim_launches[key], "ml": ml_launches[key],
                 "sharding": shard_launches[key],
-                "jpeg": jpeg_launches[key]}
+                "jpeg": jpeg_launches[key], "dds": dds_launches[key]}
 
     trav = "tracerboy_tpu_torch/csrc/bvh_traverse.cu"
     bsrc = "tracerboy_tpu_torch/csrc/binned.cu"
@@ -4314,14 +4379,14 @@ def main() -> int:
                               *tex_kinds.values(),
                               *inst_res["kinds"].values(), vol_c, adap_c,
                               anim_c, anim_blas, ml_c, shard_c,
-                              *jpeg_kinds.values()]),
+                              *jpeg_kinds.values(), *dds_kinds.values()]),
              id_mismatch_outside_ties=sum(
                  s["id_mismatch_outside_ties"]
                  for s in [st_c, st_c2, un_c, *roots_c, env_closest,
                            *tex_kinds.values(),
                            *inst_res["kinds"].values(), vol_c, adap_c,
                            anim_c, anim_blas, ml_c, shard_c,
-                           *jpeg_kinds.values()]),
+                           *jpeg_kinds.values(), *dds_kinds.values()]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
              unordered_ms=un_times["closest_ms"],
              unordered_plain_ms=un_times["closest_plain_ms"],
@@ -4376,15 +4441,17 @@ def main() -> int:
                  "launches", "lanes", "live", "live_share", "checked",
                  "hit_mismatch", "id_mismatch_outside_ties", "ties",
                  "max_rel_t_err", "max_abs_err", "overflows")},
-             jpeg_kinds={
+             **{f"{pre}_kinds": {
                  kind: {key: row[key] for key in (
                      "launches", "lanes", "live", "live_share", "checked",
                      "hit_mismatch", "id_mismatch_outside_ties", "ties",
                      "max_rel_t_err", "overflows")}
-                 for kind, row in jpeg_kinds.items()},
+                 for kind, row in kinds.items()}
+                for pre, kinds in (("jpeg", jpeg_kinds), ("dds", dds_kinds))},
              sharding_runs=shard_res["runs"],
              sharding_ms_a_sample=shard_res["ms_a_sample"],
              jpeg_decode_1024=jpeg_res["decode_1024"],
+             dds_decode_512_bc7=dds_res["decode_512_bc7"],
              volume_run=vol_res["run"],
              volume_control=vol_res["control"],
              estimators={k: {kk: vv for kk, vv in v.items()

@@ -3,13 +3,17 @@
 The source is the JAX package's own native/bvh_builder.cpp, compiled with
 the same g++ flags, so both packages build bit-identical trees and packed
 tables. The library goes into the port's build directory (utils/build.py),
-never into native/. If g++ fails, this raises: another builder would give
-another tree, and with it other packed triangle ids.
+never into native/. If g++ fails, build_bvh_native raises: another builder
+would give another tree, and with it other packed triangle ids.
+build_bvh_auto falls back to accel/bvh.build_bvh only where the JAX
+package's does: under TB_BVH=python, or when the library does not build
+or load (native_available).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 
@@ -85,3 +89,23 @@ def build_bvh_native(v0, v1, v2, leaf_size: int = 4) -> WideBVH:
         world_hi=np.maximum(np.maximum(v0, v1), v2).max(axis=0),
         num_clusters=C,
     )
+
+
+def native_available() -> bool:
+    """Whether the native builder builds and loads here."""
+    try:
+        _load()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
+def build_bvh_auto(v0, v1, v2, leaf_size: int = 4) -> WideBVH:
+    """The native SAH builder where it is available, else (or under
+    TB_BVH=python) accel/bvh.build_bvh's LBVH, as the JAX package's
+    build_bvh_auto chooses."""
+    if os.environ.get("TB_BVH") != "python" and native_available():
+        return build_bvh_native(v0, v1, v2, leaf_size)
+    from tracerboy_tpu_torch.accel.bvh import build_bvh
+
+    return build_bvh(v0, v1, v2, leaf_size)

@@ -14,12 +14,16 @@ Formats:
   Adam7; row filters undone by csrc/png_unfilter.cpp) and converted as
   the JAX read_ldr's PIL calls convert it; written by write_png (8-bit
   gray/RGB/RGBA, filter 0, one zlib stream).
-- TGA (read_tga: uncompressed and RLE; 8-bit grey or colour-mapped,
-  24- and 32-bit; either origin) and BMP (read_bmp: 8-bit palette, 24-
-  and 32-bit, bottom-up and top-down, the bit-field layouts PIL reads),
-  converted as PIL converts them; write_tga and write_bmp write the
-  uncompressed files the demo scenes need. Each format is recognised by
-  its header, as PIL recognises it.
+- TGA (read_tga: uncompressed and RLE; colour-mapped with 16- and
+  24-bit maps, grey at 1, 8 and 16 bits, colour at 16, 24 and 32 bits;
+  either origin) and BMP (read_bmp: OS/2 to V5 headers; 1-, 4- and
+  8-bit palettes, 16-bit 555/565, 24- and 32-bit; the bit-field layouts
+  PIL reads; RLE8 and RLE4; bottom-up and top-down), converted as PIL
+  converts them, PIL's quirks included; write_tga and write_bmp write
+  the uncompressed files the demo scenes need. Each format is
+  recognised by its header, as PIL recognises it.
+- DDS: read by core/dds.py (BC1-BC7 blocks by csrc/dds_decode.cpp),
+  PIL's pixels bit for bit.
 - JPEG: read by core/jpeg.py (csrc/jpeg_decode.cpp), PIL's pixels bit
   for bit.
 - Radiance HDR (RGBE, RLE): from the published file format spec.
@@ -45,37 +49,48 @@ import numpy as np
 
 def read_ldr(path: str, gamma_to_linear: bool = False) -> np.ndarray:
     """Read an LDR image to float32 RGB(A) in [0,1]: the values the JAX
-    read_ldr gets through PIL (grey and palette images become RGB, grey
-    with alpha RGBA; PNG: 16-bit samples keep their high byte, 16-bit
-    grey is clipped at 255, a tRNS chunk is ignored; BMP: 32-bit pixels
-    without an alpha mask lose their fourth byte; JPEG: core/jpeg.py,
-    grey replicated to RGB). PNG, BMP, TGA and JPEG, recognised by their
-    headers as PIL recognises them."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data.startswith(PNG_SIGNATURE):
-        arr = png_to_8bit(*read_png(path))
-    elif data.startswith(b"BM"):
-        arr = read_bmp(data, path)
-    elif data.startswith(b"\xff\xd8\xff"):
-        from tracerboy_tpu_torch.core.jpeg import decode_jpeg
-
-        arr = decode_jpeg(data, path)
-    elif _tga_header(data) is not None:
-        arr = read_tga(data, path)
-    else:
-        raise NotImplementedError(
-            f"{path}: not a PNG, BMP, TGA or JPEG file; other image formats are "
-            "not ported yet (ROADMAP.md, Queue 1: item 22b, the other "
-            "scene and image files)")
-    arr = arr.astype(np.float32) / 255.0
+    read_ldr gets through PIL (decode_ldr / 255; with gamma_to_linear the
+    colour channels raised to 2.2)."""
+    arr = decode_ldr(path).astype(np.float32) / 255.0
     if gamma_to_linear:
         arr = arr.copy()
         arr[..., :3] = np.power(arr[..., :3], 2.2)
     return arr
 
 
+def decode_ldr(path: str) -> np.ndarray:
+    """An LDR image file's pixels as (H, W, 3|4) uint8, as the JAX
+    read_ldr gets them from PIL before its / 255 (grey and palette images
+    become RGB, grey with alpha RGBA; PNG: 16-bit samples keep their high
+    byte, 16-bit grey is clipped at 255, a tRNS chunk is ignored; BMP:
+    32-bit pixels without an alpha mask lose their fourth byte; JPEG:
+    core/jpeg.py, grey replicated to RGB; DDS: core/dds.py). PNG, BMP,
+    JPEG, DDS and TGA, recognised by their headers as PIL recognises them
+    (TGA, which has no signature, last)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(PNG_SIGNATURE):
+        return png_to_8bit(*read_png(path))
+    if data.startswith(b"BM"):
+        return read_bmp(data, path)
+    if data.startswith(b"\xff\xd8\xff"):
+        from tracerboy_tpu_torch.core.jpeg import decode_jpeg
+
+        return decode_jpeg(data, path)
+    if data.startswith(DDS_MAGIC):
+        from tracerboy_tpu_torch.core.dds import read_dds
+
+        return read_dds(data, path)
+    if _tga_header(data) is not None:
+        return read_tga(data, path)
+    raise NotImplementedError(
+        f"{path}: not a PNG, BMP, JPEG, DDS or TGA file; TIFF, GIF, WebP and "
+        "PIL's other formats are not ported (ROADMAP.md, Queue 1: item 22b, "
+        "the image formats no scene of the repository uses)")
+
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+DDS_MAGIC = b"DDS "
 # Colour type -> (samples a pixel, allowed bit depths).
 PNG_FORMATS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
                 3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
@@ -256,8 +271,83 @@ def write_png(path: str, img: np.ndarray) -> None:
 # ----------------------------------------------------------------------------
 # TGA and BMP (the readers follow PIL's TgaImagePlugin and BmpImagePlugin)
 
-# (image type & 7, bits a pixel) -> PIL mode of the decoded pixels.
-_TGA_MODES = {(1, 8): "P", (3, 8): "L", (2, 24): "RGB", (2, 32): "RGBA"}
+# Bits a pixel of each PIL raw mode the TGA and BMP readers unpack.
+_RAW_BITS = {"1": 1, "P;1": 1, "P;4": 4, "P": 8, "L": 8, "LA": 16,
+             "BGR;15": 16, "BGR;16": 16, "BGRA;15Z": 16, "BGR": 24,
+             "BGRX": 32, "XBGR": 32, "BGXR": 32, "ABGR": 32, "RGBA": 32,
+             "BGRA": 32, "BGAR": 32}
+
+
+def unpack_raw(rows: np.ndarray, width: int, rawmode: str) -> np.ndarray:
+    """PIL's unpacker for `rawmode` on (H, rowbytes) uint8 rows: (H, W, C)
+    uint8 in the image's mode: bi-level 0/255 ("1"), indices (P), L, LA,
+    RGB or RGBA. 5- and 6-bit fields scale as v * 255 // 31 (// 63); the
+    1-bit alpha of BGRA;15Z is inverted (set bit: alpha 0)."""
+    bits = _RAW_BITS[rawmode]
+    if bits < 8:
+        shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
+        v = (rows[..., None] >> shifts) & ((1 << bits) - 1)
+        v = v.reshape(rows.shape[0], -1)[:, :width, None]
+        return v * np.uint8(255) if rawmode == "1" else v
+    px = rows[:, :width * bits // 8].reshape(rows.shape[0], width, bits // 8)
+    if bits == 16 and ";" in rawmode:
+        v = px[..., 0].astype(np.int32) | (px[..., 1].astype(np.int32) << 8)
+        g_bits = 6 if rawmode == "BGR;16" else 5
+        r = (v >> (5 + g_bits)) & 31
+        g = (v >> 5) & ((1 << g_bits) - 1)
+        chans = [r * 255 // 31, g * 255 // ((1 << g_bits) - 1),
+                 (v & 31) * 255 // 31]
+        if rawmode == "BGRA;15Z":
+            chans.append(np.where(v >> 15, 0, 255))
+        return np.stack(chans, -1).astype(np.uint8)
+    if rawmode in ("P", "L", "LA"):
+        return np.ascontiguousarray(px)
+    order = [rawmode.index(c) for c in ("RGBA" if "A" in rawmode else "RGB")]
+    return np.ascontiguousarray(px[..., order])
+
+
+def as_read_ldr(px: np.ndarray, mode: str, palette=None) -> np.ndarray:
+    """Pixels in a PIL mode as the JAX read_ldr converts them: "1", L and
+    P (through the (256, 3+) palette) to RGB, LA and PA to RGBA."""
+    if mode in ("1", "L"):
+        return np.repeat(px, 3, axis=2)
+    if mode == "LA":
+        return np.ascontiguousarray(px[..., [0, 0, 0, 1]])
+    if mode == "P":
+        return np.ascontiguousarray(palette[px[..., 0], :3])
+    if mode == "PA":
+        return np.concatenate([palette[px[..., 0], :3], px[..., 1:]], -1)
+    return np.ascontiguousarray(px)
+
+
+def _raw_rows(data: bytes, offset: int, rows: int, stride: int, width: int,
+              rawmode: str, path: str) -> np.ndarray:
+    """`rows` rows of `stride` bytes at `offset`, as PIL's raw decoder
+    takes them (a stride shorter than the raw mode's row is refused)."""
+    if stride < (width * _RAW_BITS[rawmode] + 7) // 8:
+        raise ValueError(f"{path}: cannot decode image data (rows of "
+                         f"{stride} bytes for {width} {rawmode} pixels)")
+    if len(data) < offset + rows * stride:
+        raise ValueError(f"{path}: image file is truncated")
+    return np.frombuffer(data, np.uint8, rows * stride, offset).reshape(
+        rows, stride)
+
+
+def _palette(entries: np.ndarray, first: int = 0) -> np.ndarray:
+    """A (256, 3) RGB table with `entries` (n, 3+) from index `first`,
+    black past them."""
+    table = np.zeros((256, 3), np.uint8)
+    n = max(0, min(len(entries), 256 - first))
+    table[first:first + n] = entries[:n, :3]
+    return table
+
+
+# (image type & 7, bits a pixel) -> PIL's raw mode (TgaImagePlugin.MODES),
+# and colour-map bits -> the raw mode of its entries. PIL takes a 32-bit
+# map in the header but cannot load its palette.
+_TGA_RAWMODES = {(1, 8): "P", (3, 1): "1", (3, 8): "L", (3, 16): "LA",
+                 (2, 16): "BGRA;15Z", (2, 24): "BGR", (2, 32): "BGRA"}
+_TGA_MAP_RAWMODES = {16: "BGRA;15Z", 24: "BGR"}
 
 
 def _tga_header(data: bytes):
@@ -270,77 +360,100 @@ def _tga_header(data: bytes):
     if (cmap_type not in (0, 1) or width <= 0 or height <= 0
             or depth not in (1, 8, 16, 24, 32)
             or image_type not in (1, 2, 3, 9, 10, 11)
-            or data[17] & 0x30 not in (0x00, 0x10, 0x20, 0x30)):
+            or data[17] & 0x30 not in (0x00, 0x10, 0x20, 0x30)
+            or (cmap_type and data[7] not in (16, 24, 32))):
         return None
     return dict(id_len=data[0], cmap_type=cmap_type, image_type=image_type,
                 cmap=struct.unpack_from("<HHB", data, 3), width=width,
                 height=height, depth=depth, flags=data[17])
 
 
-def _unsupported(path, what):
-    return NotImplementedError(
-        f"{path}: {what} is not ported yet (ROADMAP.md, Queue 1: item 22b, "
-        "the other scene and image files)")
-
-
-def _tga_rle(data: bytes, pos: int, n_pixels: int, bpp: int, path: str):
-    """The pixel bytes of an RLE TGA: packets of a run (one pixel repeated)
-    or of raw pixels, which may span rows."""
+def _tga_rle(data: bytes, pos: int, rows: int, rowbytes: int, unit: int,
+             path: str) -> bytes:
+    """The rows of an RLE TGA as PIL's TgaRleDecode reads them: packets of
+    a run (one pixel of `unit` bytes repeated) or of raw pixels. Raw
+    packets may run on into the next row; a run that would cross the end
+    of its row is refused, as PIL refuses it."""
     out = bytearray()
-    need = n_pixels * bpp
+    need = rows * rowbytes
     while len(out) < need:
         if pos >= len(data):
-            raise ValueError(f"{path}: truncated RLE TGA data")
+            raise ValueError(f"{path}: image file is truncated (RLE TGA)")
         head = data[pos]
-        count = (head & 0x7F) + 1
+        n = unit * ((head & 0x7F) + 1)
         if head & 0x80:
-            out += data[pos + 1:pos + 1 + bpp] * count
-            pos += 1 + bpp
+            if pos + 1 + unit > len(data):
+                raise ValueError(f"{path}: image file is truncated (RLE TGA)")
+            if len(out) % rowbytes + n > rowbytes:
+                raise ValueError(f"{path}: buffer overrun when reading "
+                                 "image file (an RLE TGA run crosses a row)")
+            out += data[pos + 1:pos + 1 + unit] * (n // unit)
+            pos += 1 + unit
         else:
-            out += data[pos + 1:pos + 1 + count * bpp]
-            pos += 1 + count * bpp
+            if pos + 1 + n > len(data):
+                raise ValueError(f"{path}: image file is truncated (RLE TGA)")
+            out += data[pos + 1:pos + 1 + n]
+            pos += 1 + n
     return bytes(out[:need])
 
 
 def read_tga(data: bytes, path: str = "<tga>") -> np.ndarray:
     """A TGA file's pixels as PIL gives them after read_ldr's convert:
-    (H, W, 3) uint8, or (H, W, 4) for 32-bit files."""
+    (H, W, 3) uint8, or (H, W, 4) for 16-bit (the attribute bit as an
+    inverted alpha) and 32-bit colour and 16-bit grey with alpha.
+    Uncompressed and RLE; colour-mapped (16- and 24-bit maps: PIL cannot
+    load a 32-bit one), grey at 1, 8 and 16 bits, colour at 16, 24 and 32
+    bits; any origin. Where PIL refuses a file, ValueError."""
     h = _tga_header(data)
     if h is None:
         raise ValueError(f"{path}: not a TGA file")
-    mode = _TGA_MODES.get((h["image_type"] & 7, h["depth"]))
-    if mode is None or (mode == "P" and not h["cmap_type"]):
-        raise _unsupported(path, f"TGA image type {h['image_type']} at "
-                           f"{h['depth']} bits a pixel")
+    itype, depth = h["image_type"], h["depth"]
+    if itype in (3, 11):
+        mode = {1: "1", 16: "LA"}.get(depth, "L")
+    elif itype in (1, 9):
+        mode = "P" if h["cmap_type"] else "L"
+    else:
+        mode = "RGB" if depth == 24 else "RGBA"
+    rawmode = _TGA_RAWMODES.get((itype & 7, depth))
+    if rawmode is None:
+        raise ValueError(f"{path}: cannot load this image (TGA image type "
+                         f"{itype} at {depth} bits a pixel)")
     pos = 18 + h["id_len"]
     palette = None
     if h["cmap_type"]:
         start, size, cdepth = h["cmap"]
-        if cdepth not in (24, 32):
-            raise _unsupported(path, f"a {cdepth}-bit TGA colour map")
+        if mode in ("1", "RGB", "RGBA"):
+            raise ValueError(f"{path}: unrecognized image mode (a colour "
+                             f"map on a {mode} TGA)")
+        if cdepth not in _TGA_MAP_RAWMODES:
+            raise ValueError(f"{path}: unrecognized raw mode (a "
+                             f"{cdepth}-bit TGA colour map)")
+        if start + size > 256:
+            raise ValueError(f"{path}: invalid palette size ({start} + "
+                             f"{size} TGA colour map entries)")
         nb = cdepth // 8
-        entries = np.frombuffer(data, np.uint8, size * nb, pos).reshape(
-            size, nb)
+        entries = np.frombuffer(data, np.uint8, size * nb, pos)
         pos += size * nb
-        palette = np.zeros((max(256, start + size), 3), np.uint8)
-        palette[start:start + size] = entries[:, 2::-1]       # BGR -> RGB
-    w, ht, bpp = h["width"], h["height"], h["depth"] // 8
-    if h["image_type"] & 8:
-        raw = _tga_rle(data, pos, w * ht, bpp, path)
+        palette = _palette(unpack_raw(entries.reshape(1, -1), size,
+                                      _TGA_MAP_RAWMODES[cdepth])[0], start)
+        mode = "P" + mode[1:]          # PIL's putpalette: L -> P, LA -> PA
+    elif rawmode == "P":
+        raise ValueError(f"{path}: unknown raw mode for given image mode "
+                         "(a colour-mapped TGA without a colour map)")
+    w, ht = h["width"], h["height"]
+    rowbytes = (w * depth + 7) // 8
+    if itype & 8:
+        rows = np.frombuffer(_tga_rle(data, pos, ht, rowbytes,
+                                      (depth + 7) // 8, path),
+                             np.uint8).reshape(ht, rowbytes)
     else:
-        raw = data[pos:pos + w * ht * bpp]
-        if len(raw) < w * ht * bpp:
-            raise ValueError(f"{path}: truncated TGA data")
-    px = np.frombuffer(raw, np.uint8).reshape(ht, w, bpp)
+        rows = _raw_rows(data, pos, ht, rowbytes, w, rawmode, path)
     if not h["flags"] & 0x20:          # origin at the bottom
-        px = px[::-1]
+        rows = rows[::-1]
+    px = unpack_raw(rows, w, rawmode)
     if h["flags"] & 0x10:              # origin at the right
         px = px[:, ::-1]
-    if mode == "P":
-        return palette[px[..., 0]]
-    if mode == "L":
-        return np.repeat(px, 3, axis=2)
-    return np.ascontiguousarray(px[..., [2, 1, 0, 3][:bpp]])   # BGR(A)
+    return as_read_ldr(px, mode, palette)
 
 
 def write_tga(path: str, img: np.ndarray) -> None:
@@ -357,79 +470,174 @@ def write_tga(path: str, img: np.ndarray) -> None:
             img[::-1][..., [2, 1, 0, 3][:c]]).tobytes())
 
 
-# 32-bit BMP bit-field masks (r, g, b, a) PIL reads -> byte of R, G, B
-# (and A) in the little-endian pixel; all-zero masks read as BGRA.
-_BMP_MASKS32 = {
-    (0xFF0000, 0xFF00, 0xFF, 0x0): (2, 1, 0),
-    (0xFF000000, 0xFF0000, 0xFF00, 0x0): (3, 2, 1),
-    (0xFF000000, 0xFF00, 0xFF, 0x0): (3, 1, 0),
-    (0xFF000000, 0xFF0000, 0xFF00, 0xFF): (3, 2, 1, 0),
-    (0xFF, 0xFF00, 0xFF0000, 0xFF000000): (0, 1, 2, 3),
-    (0xFF0000, 0xFF00, 0xFF, 0xFF000000): (2, 1, 0, 3),
-    (0xFF000000, 0xFF00, 0xFF, 0xFF0000): (3, 1, 0, 2),
-    (0x0, 0x0, 0x0, 0x0): (2, 1, 0, 3),
+# BMP bits a pixel -> PIL's mode and raw mode (BmpImagePlugin.BIT2MODE),
+# and the bit-field layouts PIL reads: (bits, masks) -> raw mode. 32-bit
+# layouts match on (r, g, b, a) masks, 16- and 24-bit on (r, g, b).
+_BMP_BITS = {1: ("P", "P;1"), 4: ("P", "P;4"), 8: ("P", "P"),
+             16: ("RGB", "BGR;15"), 24: ("RGB", "BGR"), 32: ("RGB", "BGRX")}
+_BMP_FIELDS = {
+    (32, (0xFF0000, 0xFF00, 0xFF, 0x0)): "BGRX",
+    (32, (0xFF000000, 0xFF0000, 0xFF00, 0x0)): "XBGR",
+    (32, (0xFF000000, 0xFF00, 0xFF, 0x0)): "BGXR",
+    (32, (0xFF000000, 0xFF0000, 0xFF00, 0xFF)): "ABGR",
+    (32, (0xFF, 0xFF00, 0xFF0000, 0xFF000000)): "RGBA",
+    (32, (0xFF0000, 0xFF00, 0xFF, 0xFF000000)): "BGRA",
+    (32, (0xFF000000, 0xFF00, 0xFF, 0xFF0000)): "BGAR",
+    (32, (0x0, 0x0, 0x0, 0x0)): "BGRA",
+    (24, (0xFF0000, 0xFF00, 0xFF)): "BGR",
+    (16, (0xF800, 0x7E0, 0x1F)): "BGR;16",
+    (16, (0x7C00, 0x3E0, 0x1F)): "BGR;15",
 }
+_BMP_HEADER_SIZES = (12, 40, 52, 56, 64, 108, 124)
+
+
+def _bmp_rle(data: bytes, pos: int, width: int, height: int,
+             rle4: bool) -> bytes:
+    """The pixel indices of an RLE8 or RLE4 BMP as PIL's BmpRleDecoder
+    reads them, row after row in file order. As there: an encoded run is
+    cut at the end of its row, an absolute run is not; an RLE4 absolute
+    run of an odd count drops its last pixel; a delta escape reads four
+    bytes and takes the last two as (right, up); absolute runs align to
+    an even file offset; reading stops at the end of the bitmap, the
+    end of the data or once width x height indices are there."""
+    data_out = bytearray()
+    x = 0
+    need = width * height
+    while len(data_out) < need:
+        if pos + 2 > len(data):
+            break
+        count, byte = data[pos], data[pos + 1]
+        pos += 2
+        if count:
+            if x + count > width:
+                count = max(0, width - x)
+            if rle4:
+                pair = bytes((byte >> 4, byte & 0x0F))
+                data_out += (pair * ((count + 1) // 2))[:count]
+            else:
+                data_out += bytes((byte,)) * count
+            x += count
+        elif byte == 0:                                # end of line
+            data_out += bytes(-len(data_out) % width)
+            x = 0
+        elif byte == 1:                                # end of bitmap
+            break
+        elif byte == 2:                                # delta
+            if pos + 2 > len(data):
+                break
+            if pos + 4 > len(data):
+                raise ValueError("not enough values to unpack in an RLE "
+                                 "BMP delta")
+            right, up = data[pos + 2], data[pos + 3]
+            pos += 4
+            data_out += bytes(right + up * width)
+            x = len(data_out) % width
+        else:                                          # absolute run
+            n = byte // 2 if rle4 else byte
+            run = data[pos:pos + n]
+            pos += len(run)
+            if rle4:
+                data_out += bytes(v for b in run for v in (b >> 4, b & 0x0F))
+            else:
+                data_out += run
+            if len(run) < n:
+                break
+            x += byte
+            pos += pos % 2
+    return bytes(data_out)
 
 
 def read_bmp(data: bytes, path: str = "<bmp>") -> np.ndarray:
     """A BMP file's pixels as PIL gives them after read_ldr's convert:
     (H, W, 3) uint8, or (H, W, 4) where the bit-field masks carry alpha.
-    8-bit palette, 24- and 32-bit, uncompressed or bit-field, bottom-up
-    or top-down."""
+    OS/2 (12-byte) to V5 headers; 1-, 4- and 8-bit palettes (a grey ramp
+    reads as L, a black-and-white pair as bi-level), 16-bit 555 and 565,
+    24- and 32-bit, the bit-field layouts PIL reads, RLE8 and RLE4;
+    bottom-up or top-down."""
     if not data.startswith(b"BM") or len(data) < 26:
         raise ValueError(f"{path}: not a BMP file")
     offset, hsize = struct.unpack_from("<II", data, 10)
+    if hsize not in _BMP_HEADER_SIZES:
+        raise ValueError(f"{path}: Unsupported BMP header type ({hsize})")
     head = data[18:14 + hsize]
+    if len(head) < hsize - 4:
+        raise ValueError(f"{path}: Truncated File Read (BMP header)")
     pos = 14 + hsize
+    direction = -1                     # bottom-up
     if hsize == 12:
         w, ht, _, bits = struct.unpack_from("<HHHH", head, 0)
-        top_down, compression, colors, pad = False, 0, 0, 3
-    elif hsize in (40, 52, 56, 64, 108, 124):
-        top_down = head[7] == 0xFF
+        compression, colors, pad = 0, 0, 3
+    else:
+        if head[7] == 0xFF:
+            direction = 1
         w, ht = struct.unpack_from("<iI", head, 0)
-        if top_down:
+        if direction == 1:
             ht = 2**32 - ht
         bits, compression = struct.unpack_from("<HI", head, 10)
         colors = struct.unpack_from("<I", head, 28)[0]
         pad = 4
-    else:
-        raise _unsupported(path, f"a BMP header of {hsize} bytes")
     colors = colors or (1 << bits)
     if offset == 14 + hsize and bits <= 8:
         offset += 4 * colors
-    if bits not in (8, 24, 32):
-        raise _unsupported(path, f"a {bits}-bit BMP")
-    order = (2, 1, 0)                  # BGR(X)
+    if bits not in _BMP_BITS:
+        raise ValueError(f"{path}: Unsupported BMP pixel depth ({bits})")
+    mode, rawmode = _BMP_BITS[bits]
     if compression == 3:               # bit fields
         if len(head) >= 48:
             masks = struct.unpack_from("<IIII" if len(head) >= 52
                                        else "<III", head, 36)
         else:
             masks = struct.unpack_from("<III", data, pos)
+            pos += 12
         masks = tuple(masks) + (0,) * (4 - len(masks))
-        if bits == 32 and masks in _BMP_MASKS32:
-            order = _BMP_MASKS32[masks]
-        elif not (bits == 24 and masks[:3] == (0xFF0000, 0xFF00, 0xFF)):
-            raise _unsupported(path, f"the BMP bit fields {masks}")
-    elif compression != 0:
-        raise _unsupported(path, f"BMP compression {compression}")
-    stride = ((w * bits + 31) >> 3) & ~3
-    rows = np.frombuffer(data, np.uint8, stride * ht, offset).reshape(
-        ht, stride)
-    if not top_down:
-        rows = rows[::-1]
-    if bits == 8:
-        pal = np.frombuffer(data, np.uint8, pad * colors, pos).reshape(
-            colors, pad)
-        idx = rows[:, :w]
+        key = (bits, masks if bits == 32 else masks[:3])
+        if key not in _BMP_FIELDS:
+            raise ValueError(f"{path}: Unsupported BMP bitfields layout "
+                             f"({bits} bits, masks {masks})")
+        rawmode = _BMP_FIELDS[key]
+        if "A" in rawmode:
+            mode = "RGBA"
+    elif compression not in (0, 1, 2):
+        raise ValueError(f"{path}: Unsupported BMP compression "
+                         f"({compression})")
+    palette = None
+    if mode == "P":
+        if not 0 < colors <= 65536:
+            raise ValueError(f"{path}: Unsupported BMP Palette size "
+                             f"({colors})")
+        pal = data[pos:pos + pad * colors]
         ramp = (0, 255) if colors == 2 else range(colors)
-        if all((pal[i, :3] == v).all() for i, v in enumerate(ramp)):
-            return np.repeat(idx[..., None], 3, axis=2)    # grey ramp: L
-        table = np.zeros((256, 3), np.uint8)
-        table[:min(colors, 256)] = pal[:256, 2::-1]
-        return table[idx]
-    px = rows[:, :w * bits // 8].reshape(ht, w, bits // 8)
-    return np.ascontiguousarray(px[..., list(order)])
+        if all(pal[i * pad:i * pad + 3] == bytes((v & 255,)) * 3
+               for i, v in enumerate(ramp)):
+            mode = rawmode = "1" if colors == 2 else "L"
+        else:
+            entries = np.frombuffer(pal, np.uint8, len(pal) // pad * pad)
+            palette = _palette(entries.reshape(-1, pad)[:, 2::-1])
+    if compression in (1, 2):          # RLE8, RLE4
+        if mode not in ("P", "L"):
+            raise ValueError(f"{path}: unknown raw mode for given image "
+                             f"mode (an RLE BMP of mode {mode})")
+        idx = _bmp_rle(data, offset, w, ht, compression == 2)
+        if len(idx) < w * ht:
+            raise ValueError(f"{path}: not enough image data (RLE BMP)")
+        rows = np.frombuffer(idx, np.uint8, w * ht).reshape(ht, w)
+        rawmode = "P" if mode == "P" else "L"
+    elif rawmode == "L" and bits < 8:
+        # A grey ramp under 1- or 4-bit pixels: PIL maps the file and
+        # reads a byte a pixel, w bytes at each row's start (zeros past
+        # the end of the file).
+        stride = ((w * bits + 31) >> 3) & ~3
+        if len(data) < offset + ht * stride:
+            raise ValueError(f"{path}: buffer is not large enough")
+        buf = np.frombuffer(data + bytes(w), np.uint8)
+        rows = np.stack([buf[offset + i * stride:offset + i * stride + w]
+                         for i in range(ht)])
+    else:
+        stride = ((w * bits + 31) >> 3) & ~3
+        rows = _raw_rows(data, offset, ht, stride, w, rawmode, path)
+    if direction == -1:
+        rows = rows[::-1]
+    return as_read_ldr(unpack_raw(rows, w, rawmode), mode, palette)
 
 
 def write_bmp(path: str, img: np.ndarray) -> None:

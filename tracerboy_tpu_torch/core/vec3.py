@@ -56,6 +56,16 @@ def to_rows(v: V3) -> torch.Tensor:
     return torch.stack([v.x, v.y, v.z], dim=-1)
 
 
+def splat(c) -> V3:
+    """A constant 3-vector (a sequence) as float32 scalar components."""
+    return V3(*(torch.tensor(c[i], dtype=torch.float32) for i in range(3)))
+
+
+def full_like(ref: V3, value: float) -> V3:
+    return V3(torch.full_like(ref.x, value), torch.full_like(ref.y, value),
+              torch.full_like(ref.z, value))
+
+
 def dot(a: V3, b: V3) -> torch.Tensor:
     return a.x * b.x + a.y * b.y + a.z * b.z
 
@@ -90,6 +100,10 @@ def reflect(v: V3, n: V3) -> V3:
     return V3(v.x - d * n.x, v.y - d * n.y, v.z - d * n.z)
 
 
+def min_c(v: V3) -> torch.Tensor:
+    return torch.minimum(torch.minimum(v.x, v.y), v.z)
+
+
 def max_c(v: V3) -> torch.Tensor:
     return torch.maximum(torch.maximum(v.x, v.y), v.z)
 
@@ -100,6 +114,14 @@ def mean_c(v: V3) -> torch.Tensor:
 
 def any_gt(v: V3, t) -> torch.Tensor:
     return (v.x > t) | (v.y > t) | (v.z > t)
+
+
+def all_lt(v: V3, t) -> torch.Tensor:
+    return (v.x < t) & (v.y < t) & (v.z < t)
+
+
+def luminance(v: V3) -> torch.Tensor:
+    return 0.2126 * v.x + 0.7152 * v.y + 0.0722 * v.z
 
 
 def exp(v: V3) -> V3:

@@ -1,5 +1,7 @@
 """BSDF sampling routines and reflectance weights on SoA planes
-(the *_soa functions of tracerboy_tpu/shade/bsdf.py).
+(the *_soa functions of tracerboy_tpu/shade/bsdf.py), and their row-layout
+forms on (..., 3) tensors (the functions without the suffix, which no
+path of the renderer calls: host-side and test code).
 
 The reference's shading math (TracerBoy/kernel.glsl): GGX NDF (466-478),
 cosine-weighted diffuse sampling (1025-1046), GGX importance sampling by
@@ -15,6 +17,13 @@ import math
 import torch
 
 from tracerboy_tpu_torch.core import vec3 as v3
+from tracerboy_tpu_torch.core.mathutil import (
+    dot,
+    normalize,
+    reflect,
+    reorient_around_normal,
+    spherical_to_dir,
+)
 
 PI = math.pi
 MIN_ROUGHNESS = 0.04
@@ -145,3 +154,117 @@ def artist_albedo_to_absorption_soa(color, mfp):
     ay, sy = one(color.y, mfp.y)
     az, sz = one(color.z, mfp.z)
     return v3.V3(ax, ay, az), v3.V3(sx, sy, sz)
+
+
+# ----------------------------------------------------------------------------
+# Row layout: (..., 3) tensors, scalars and (...,) tensors broadcast.
+
+
+def fresnel_factor(current_ior, new_ior, normal, ray_direction):
+    """Dielectric Schlick Fresnel from an IOR pair (kernel.glsl:441-451)."""
+    r0 = ((current_ior - new_ior) / (current_ior + new_ior)) ** 2
+    return r0 + (1.0 - r0) * torch.pow(
+        torch.clamp(1.0 - dot(normal, -ray_direction), 0.0, 1.0), 5.0)
+
+
+def ggx_ndf(normal, half_vector, roughness_squared):
+    """GGX/Trowbridge-Reitz D (kernel.glsl:466-478)."""
+    a2sq = torch.clamp_min(roughness_squared, MIN_ROUGHNESS_SQUARED)
+    a2 = a2sq * a2sq
+    ndoth = dot(normal, half_vector)
+    denom = PI * torch.square(ndoth * ndoth * (a2 - 1.0) + 1.0)
+    return a2 / torch.clamp_min(denom, 1e-12)
+
+
+def diffuse_brdf(light_dir, normal):
+    """Lambert with the cosine folded in (kernel.glsl:541-546)."""
+    return torch.clamp_min(dot(light_dir, normal), 0.0) / PI
+
+
+def half_vector_safe(a, b, normal):
+    """normalize(a + b), or the normal for opposite vectors
+    (kernel.glsl:1258-1268)."""
+    opposite = dot(a, b) <= (-1.0 + EPSILON)
+    return torch.where(opposite[..., None], normal, normalize(a + b))
+
+
+def sample_cosine_hemisphere(normal, r0, r1):
+    """Cosine-weighted direction about `normal`; returns (dir, pdf)
+    (kernel.glsl:1025-1046)."""
+    r = torch.sqrt(r0)
+    theta = 2.0 * PI * r1
+    y = torch.sqrt(torch.clamp_min(1.0 - r0, EPSILON))
+    local = torch.stack([r * torch.cos(theta), y, r * torch.sin(theta)], -1)
+    return reorient_around_normal(local, normal), y / PI
+
+
+def sample_ggx_reflection(incoming, normal, roughness, r0, r1):
+    """A GGX microfacet normal, and `incoming` (toward the surface)
+    reflected about it (kernel.glsl:1066-1083)."""
+    rough = torch.clamp_min(roughness, MIN_ROUGHNESS)
+    a = rough * rough
+    a2 = a * a
+    theta = 2.0 * PI * r1
+    phi = torch.arccos(torch.sqrt(
+        torch.clamp((1.0 - r0) / ((a2 - 1.0) * r0 + 1.0), 0.0, 1.0)))
+    m = reorient_around_normal(spherical_to_dir(phi, theta), normal)
+    return reflect(incoming, m)
+
+
+def ggx_reflection_pdf(normal, outgoing, half_vector, roughness):
+    """pdf of sample_ggx_reflection in outgoing solid angle
+    (kernel.glsl:1085-1097)."""
+    rough = torch.clamp_min(roughness, MIN_ROUGHNESS)
+    a = rough * rough
+    a2 = a * a
+    cos_t = torch.abs(dot(normal, half_vector))
+    e = (a2 - 1.0) * cos_t * cos_t + 1.0
+    d = a2 / (PI * e * e)
+    pdf = d * cos_t / (
+        4.0 * torch.clamp_min(torch.abs(dot(outgoing, half_vector)), 1e-8))
+    return torch.where(e > 0.0, pdf, LARGE_NUMBER)
+
+
+def sample_pow_lobe(axis, roughness, r0, r1):
+    """The pow lobe about `axis` of rough refraction; returns (dir, pdf)
+    (kernel.glsl:1048-1064)."""
+    lobe = torch.pow(1.0 - roughness, 5.0) * 1000.0
+    theta = 2.0 * PI * r1
+    phi = torch.arccos(torch.pow(torch.clamp_min(r0, 1e-12),
+                                 1.0 / (lobe + 1.0)))
+    pdf = (lobe + 1.0) * torch.pow(torch.cos(phi), lobe) / (2.0 * PI)
+    return reorient_around_normal(spherical_to_dir(phi, theta), axis), pdf
+
+
+def sample_uniform_sphere(r0, r1):
+    """Uniform sphere direction; returns (dir, pdf) (the isotropic phase
+    function)."""
+    z = 1.0 - 2.0 * r0
+    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    theta = 2.0 * PI * r1
+    d = torch.stack([r * torch.cos(theta), z, r * torch.sin(theta)], -1)
+    return d, torch.full_like(r0, 1.0 / (4.0 * PI))
+
+
+def specular_weight(prev_dir, new_dir, normal, detail_normal, roughness):
+    """D / (4 |v.h| max(|v.n|, |l.n|)) after a specular bounce
+    (kernel.glsl:1734-1738, 1750-1755)."""
+    half = half_vector_safe(-prev_dir, new_dir, normal)
+    rough_sq = torch.clamp_min(roughness * roughness, MIN_ROUGHNESS_SQUARED)
+    d = ggx_ndf(detail_normal, half, rough_sq)
+    denom = 4.0 * torch.clamp_min(torch.abs(dot(-prev_dir, half)), 1e-8) \
+        * torch.clamp_min(torch.maximum(torch.abs(dot(-prev_dir, normal)),
+                                        torch.abs(dot(new_dir, normal))),
+                          1e-8)
+    return d / denom
+
+
+def artist_albedo_to_absorption(color, mfp):
+    """Burley's practical subsurface parameterization
+    (kernel.glsl:1224-1234); returns (absorption, scattering)."""
+    alpha = 1.0 - torch.exp(-5.09406 * color + 2.61188 * color * color
+                            - 4.31805 * color ** 3)
+    s = 1.9 - color + 3.5 * (color - 0.8) * (color - 0.8)
+    transmission = 1.0 / torch.clamp_min(s * mfp, 1e-8)
+    scattering = transmission * alpha
+    return transmission - scattering, scattering

@@ -21,11 +21,13 @@ per-ray stack walk:
 
 Triangle ids are offset by each object's base into the combined attribute
 rows (the flat scene's pk_attr_rows, then each object's; the scene
-compiler builds them).
+compiler builds them). pack_instanced is the JAX package's standalone
+table builder, which no path of the scene compiler calls.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from tracerboy_tpu_torch.trace import traverse
@@ -36,6 +38,54 @@ ROUNDS = 3      # rounds (KI * ROUNDS overlapped instances a ray)
 # Rays x instances of one chunk of the cull: each (chunk, I, 3) float32
 # temporary of _slab holds 4 * 3 * CULL_ELEMS bytes (400 MB).
 CULL_ELEMS = 1 << 25
+
+
+def pack_instanced(objects, instances, convert_mesh, pack_object):
+    """TLAS/BLAS tables from object-space triangle soups.
+
+    objects: name -> (v0, v1, v2, attr_rows) in object space;
+    instances: (object name, 4x4 world <- object transform) pairs;
+    pack_object: (v0, v1, v2) -> (packed dict with "tri_map", ...);
+    convert_mesh is not used (the signature of the JAX package's).
+    Returns (tables of CPU tensors inst_obj (I,) int32, inst_inv (I, 12)
+    world -> object affine rows, inst_lo / inst_hi (I, 3) world boxes;
+    meta with obj_names, obj_packed, obj_base; the packed objects'
+    attribute rows concatenated, (R, 19) float32 without objects)."""
+    names = sorted({n for n, _ in instances if n in objects})
+    obj_packed, obj_base, attr_chunks = {}, {}, []
+    base = 0
+    for n in names:
+        v0, v1, v2, attrs = objects[n]
+        pk, _ = pack_object(v0, v1, v2)
+        order = np.asarray(pk["tri_map"])
+        obj_packed[n] = pk
+        obj_base[n] = base
+        attr_chunks.append(attrs[np.clip(order, 0, attrs.shape[0] - 1)])
+        base += order.shape[0]
+    inst_obj, inst_inv, inst_lo, inst_hi = [], [], [], []
+    for n, m in instances:
+        if n not in obj_packed:
+            continue
+        v0, v1, v2, _ = objects[n]
+        inst_obj.append(names.index(n))
+        inst_inv.append(np.linalg.inv(m)[:3, :4].reshape(12).astype(
+            np.float32))
+        lo = np.minimum(np.minimum(v0, v1), v2).min(0)
+        hi = np.maximum(np.maximum(v0, v1), v2).max(0)
+        corners = np.array([[x, y, z] for x in (lo[0], hi[0])
+                            for y in (lo[1], hi[1]) for z in (lo[2], hi[2])])
+        world = corners @ m[:3, :3].T + m[:3, 3]
+        inst_lo.append(world.min(0).astype(np.float32))
+        inst_hi.append(world.max(0).astype(np.float32))
+    tables = dict(
+        inst_obj=torch.from_numpy(np.asarray(inst_obj, np.int32)),
+        inst_inv=torch.from_numpy(np.stack(inst_inv)),
+        inst_lo=torch.from_numpy(np.stack(inst_lo)),
+        inst_hi=torch.from_numpy(np.stack(inst_hi)),
+    )
+    meta = dict(obj_names=names, obj_packed=obj_packed, obj_base=obj_base)
+    return tables, meta, (np.concatenate(attr_chunks) if attr_chunks
+                          else np.zeros((0, 19), np.float32))
 
 
 def _slab(o, d, lo, hi):

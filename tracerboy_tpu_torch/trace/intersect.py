@@ -8,6 +8,8 @@
   row-layout tests over (..., 3) tensors that broadcast rays against
   triangles or boxes; the wide traversal (trace/traverse.py
   traverse_wide) is built from ray_aabb and ray_triangle.
+- brute_force_closest, brute_force_anyhit: the (N, T) broadcast oracles of
+  the traversal tests, on (N, 3) rays and (T, 3) vertices.
 """
 
 from __future__ import annotations
@@ -171,6 +173,29 @@ def ray_triangle_watertight(orig, direc, v0, v1, v2, t_max=None):
     if t_max is not None:
         hit = hit & (t < t_max)
     return torch.where(hit, t, BIG), v * inv_det, w * inv_det, hit
+
+
+def brute_force_closest(orig, direc, v0, v1, v2, t_max=None,
+                        watertight=False):
+    """Closest hit of each of N rays over all T triangles by an (N, T)
+    broadcast: (t, triangle index or -1, u, v). The oracle of the
+    traversal tests (watertight: the Woop/Benthin/Wald test)."""
+    tri_test = ray_triangle_watertight if watertight else ray_triangle
+    t, u, v, _ = tri_test(
+        orig[:, None, :], direc[:, None, :], v0[None], v1[None], v2[None],
+        t_max=None if t_max is None else t_max[:, None])
+    best = torch.argmin(t, dim=1)
+    n = torch.arange(t.shape[0], device=t.device)
+    t_best = t[n, best]
+    return (t_best, torch.where(t_best < BIG, best, -1), u[n, best],
+            v[n, best])
+
+
+def brute_force_anyhit(orig, direc, v0, v1, v2, t_max):
+    """Whether each ray hits any triangle before t_max (shadow rays)."""
+    hit = ray_triangle(orig[:, None, :], direc[:, None, :], v0[None],
+                       v1[None], v2[None], t_max=t_max[:, None])[3]
+    return torch.any(hit, dim=1)
 
 
 def ray_aabb(orig, inv_dir, lo, hi, t_max):

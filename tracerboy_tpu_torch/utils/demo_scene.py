@@ -19,7 +19,9 @@ about half of whose texels have alpha 0 (the albedo-alpha companion
 path), a screen cut by an explicit "texture alpha" greyscale mask, an fbm
 and a marble sphere, the glass sphere, and the sky as the only light
 (textured.pbrt, so environment NEE is on); textured_lit.pbrt includes it
-and adds a distant light. It returns the paths of both.
+and adds a distant light. It returns the paths of both. retexture(scene,
+swaps) points such a scene's image textures at other files (a JPEG or
+DDS albedo, a DXT1 leaf).
 
 write_forest_scene(directory, grid, sky, trees, rocks, seed) writes
 forest.pbrt: the height field, and two objects in ObjectBegin blocks, a
@@ -270,6 +272,25 @@ def write_leaves_ply(path: str, count: int) -> int:
                                u=uvs[:, 0], v=uvs[:, 1]),
                     quads, f"leaf canopy, {len(cx)} quads")
     return 2 * len(cx)
+
+
+def retexture(scene: str, swaps: dict) -> None:
+    """Point a scene file's image textures at other files: `swaps` maps a
+    file name the scene names (e.g. "albedo.png") to the path of the file
+    to use instead, which is copied beside the scene under its own base
+    name. Raises ValueError if the scene does not name one of them."""
+    import shutil
+
+    with open(scene) as f:
+        text = f.read()
+    for old, new in swaps.items():
+        if f'"{old}"' not in text:
+            raise ValueError(f"{scene} names no {old}")
+        name = os.path.basename(new)
+        shutil.copy(new, os.path.join(os.path.dirname(scene), name))
+        text = text.replace(f'"{old}"', f'"{name}"')
+    with open(scene, "w") as f:
+        f.write(text)
 
 
 def write_textured_scene(directory: str, grid: int = 256,
