@@ -206,12 +206,19 @@ Phases, each fatal on failure:
      manifest; the 512x512 BC7 albedo's decode timed on the host; the CLI
      on textured_lit.pbrt with that BC7 albedo and a DXT1 leaf whose
      cutouts are BC1's 1-bit alpha, 1280x720, 2 spp, as in 22;
- 24. a JSON line of the seven kernels (launches from the run of the path
+ 24. the port's TIFF, GIF and ICO readers (tiff_phase): every fixture
+     of tests/data/tiff (TIFF layouts, GIFs, ICOs, the TIFF scene's
+     textures) decoded to the sha256 of PIL's array in its manifest; a
+     1024x1024 RGB TIFF written with LZW and Predictor 2, and with
+     Deflate, read back equal and its decode timed on the host; the CLI
+     on textured_lit.pbrt with the tiled Deflate TIFF albedo and the RGBA
+     LZW TIFF leaf whose alpha makes the cutouts, as in 22;
+ 25. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
      2 also by the volume run's, the adaptive residual wave's, the
-     animation phase's, the ML dataset's, the sharded runs' and the JPEG
-     and DDS scenes' launches), then the result line {"ok": true,
+     animation phase's, the ML dataset's, the sharded runs' and the JPEG,
+     DDS and TIFF scenes' launches), then the result line {"ok": true,
      "device": {...}} last.
 
 Imports nothing of JAX or the JAX package (the UNet weights and the JPEG
@@ -3743,6 +3750,7 @@ def ml_runs(torch, tmp):
 SHARD_ODD_FILM = (1279, 719)   # (N + pad) % 2 == 0 with pad 1
 JPEG_DIR = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
 DDS_DIR = Path(__file__).resolve().parent / "tests" / "data" / "dds"
+TIFF_DIR = Path(__file__).resolve().parent / "tests" / "data" / "tiff"
 
 
 def spp_reference(r, D, n):
@@ -3923,6 +3931,12 @@ def dds_phase(torch):
     """dds_runs in a temporary directory that is removed after it."""
     with tempfile.TemporaryDirectory(prefix="tb_dds_") as tmp:
         return dds_runs(torch, tmp)
+
+
+def tiff_phase(torch):
+    """tiff_runs in a temporary directory that is removed after it."""
+    with tempfile.TemporaryDirectory(prefix="tb_tiff_") as tmp:
+        return tiff_runs(torch, tmp)
 
 
 def host_cpu() -> str:
@@ -4113,6 +4127,45 @@ def dds_runs(torch, tmp):
     cli_res, launches = textured_swap_cli(
         torch, tmp, "dds", {"albedo.png": str(albedo),
                             "leaf.png": str(DDS_DIR / "leaf_dxt1.dds")})
+    results.update(cli_res)
+    return results, launches
+
+
+def tiff_runs(torch, tmp):
+    """The port's TIFF, GIF and ICO readers (core/tiff.py, core/gif.py,
+    core/ico.py, csrc/lzw_codecs.cpp, g++ at first use) on the card's
+    machine, which has no PIL. (a) Every committed fixture of
+    tests/data/tiff decoded by image_io.decode_ldr, its shape, dtype and
+    sha256 equal to manifest.json's (written by
+    tests/make_tiff_fixtures.py). (b) utils/demo_scene's 1024x1024 albedo
+    written by core/tiff.write_tiff as an RGB TIFF with LZW and Predictor
+    2, and with Deflate and Predictor 2; each read back equal to the
+    pixels written, its decode 5 runs, host seconds, with the host's CPU
+    and the card line. (c) The CLI on textured_lit.pbrt with its albedo
+    the tiled Deflate TIFF fixture and its leaf the RGBA LZW TIFF fixture
+    whose unassociated alpha makes the cutouts, so the alpha re-fires of
+    kernel 1 run on the TIFF reader's texels (textured_swap_cli).
+    Returns (results, launches of (c))."""
+    from tracerboy_tpu_torch.core.image_io import _to_uint8, decode_ldr
+    from tracerboy_tpu_torch.core.tiff import write_tiff
+    from tracerboy_tpu_torch.utils.demo_scene import albedo_image
+
+    set_opt_in()
+    results = {"fixtures": fixture_hashes("tiff", TIFF_DIR, decode_ldr)}
+    pixels = _to_uint8(albedo_image(1024))
+    for compression in ("lzw", "deflate"):
+        path = Path(tmp) / f"albedo_1024_{compression}.tif"
+        write_tiff(str(path), pixels, compression)
+        if not np.array_equal(decode_ldr(str(path)), pixels):
+            fail(f"tiff: the 1024x1024 {compression} TIFF does not read "
+                 "back as written")
+        key = f"decode_1024_{compression}"
+        results[key] = dict(host_decode(decode_ldr, path), card=card_line())
+        print(f"tiff decode 1024x1024 RGB {compression} predictor 2 "
+              "(host):", json.dumps(results[key]))
+    cli_res, launches = textured_swap_cli(
+        torch, tmp, "tiff", {"albedo.png": str(TIFF_DIR / "albedo.tif"),
+                             "leaf.png": str(TIFF_DIR / "leaf.tif")})
     results.update(cli_res)
     return results, launches
 
@@ -4347,6 +4400,9 @@ def main() -> int:
     dds_res, dds_launches = dds_phase(torch)
     dds_kinds = dds_res["kinds"]
     lap("dds")
+    tiff_res, tiff_launches = tiff_phase(torch)
+    tiff_kinds = tiff_res["kinds"]
+    lap("tiff")
     print("phase seconds:", json.dumps(laps))
 
     def by_path(key):
@@ -4359,7 +4415,8 @@ def main() -> int:
                 "estimators": est_launches[key],
                 "animation": anim_launches[key], "ml": ml_launches[key],
                 "sharding": shard_launches[key],
-                "jpeg": jpeg_launches[key], "dds": dds_launches[key]}
+                "jpeg": jpeg_launches[key], "dds": dds_launches[key],
+                "tiff": tiff_launches[key]}
 
     trav = "tracerboy_tpu_torch/csrc/bvh_traverse.cu"
     bsrc = "tracerboy_tpu_torch/csrc/binned.cu"
@@ -4379,14 +4436,16 @@ def main() -> int:
                               *tex_kinds.values(),
                               *inst_res["kinds"].values(), vol_c, adap_c,
                               anim_c, anim_blas, ml_c, shard_c,
-                              *jpeg_kinds.values(), *dds_kinds.values()]),
+                              *jpeg_kinds.values(), *dds_kinds.values(),
+                              *tiff_kinds.values()]),
              id_mismatch_outside_ties=sum(
                  s["id_mismatch_outside_ties"]
                  for s in [st_c, st_c2, un_c, *roots_c, env_closest,
                            *tex_kinds.values(),
                            *inst_res["kinds"].values(), vol_c, adap_c,
                            anim_c, anim_blas, ml_c, shard_c,
-                           *jpeg_kinds.values(), *dds_kinds.values()]),
+                           *jpeg_kinds.values(), *dds_kinds.values(),
+                           *tiff_kinds.values()]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
              unordered_ms=un_times["closest_ms"],
              unordered_plain_ms=un_times["closest_plain_ms"],
@@ -4447,11 +4506,14 @@ def main() -> int:
                      "hit_mismatch", "id_mismatch_outside_ties", "ties",
                      "max_rel_t_err", "overflows")}
                  for kind, row in kinds.items()}
-                for pre, kinds in (("jpeg", jpeg_kinds), ("dds", dds_kinds))},
+                for pre, kinds in (("jpeg", jpeg_kinds), ("dds", dds_kinds),
+                                   ("tiff", tiff_kinds))},
              sharding_runs=shard_res["runs"],
              sharding_ms_a_sample=shard_res["ms_a_sample"],
              jpeg_decode_1024=jpeg_res["decode_1024"],
              dds_decode_512_bc7=dds_res["decode_512_bc7"],
+             tiff_decode_1024_lzw=tiff_res["decode_1024_lzw"],
+             tiff_decode_1024_deflate=tiff_res["decode_1024_deflate"],
              volume_run=vol_res["run"],
              volume_control=vol_res["control"],
              estimators={k: {kk: vv for kk, vv in v.items()

@@ -277,8 +277,8 @@ def test_bmp_rle_quirks(tmp_path, case):
 
 
 def test_refusal_names_what_is_not_ported(tmp_path):
-    """A format PIL reads that the port does not (GIF) raises
+    """A format PIL reads that the port does not (PPM) raises
     NotImplementedError naming its ROADMAP item."""
-    (tmp_path / "g.gif").write_bytes(b"GIF89a" + bytes(40))
-    with pytest.raises(NotImplementedError, match="GIF.*item 22b"):
-        image_io.read_ldr(str(tmp_path / "g.gif"))
+    (tmp_path / "g.ppm").write_bytes(b"P6 4 4 255\n" + bytes(48))
+    with pytest.raises(NotImplementedError, match="PPM.*item 22b"):
+        image_io.read_ldr(str(tmp_path / "g.ppm"))

@@ -24,6 +24,13 @@ Formats:
   recognised by its header, as PIL recognises it.
 - DDS: read by core/dds.py (BC1-BC7 blocks by csrc/dds_decode.cpp),
   PIL's pixels bit for bit.
+- TIFF (core/tiff.py: classic and BigTIFF, none/LZW/Deflate/PackBits,
+  predictors 2 and 3, strips and tiles, planar 1 and 2, grey at 1-16
+  bits and float, RGB(A) at 8 and 16 bits, palette, CMYK), GIF
+  (core/gif.py: the first frame) and ICO (core/ico.py: PNG and BMP
+  entries), their LZW, PackBits and predictor loops in
+  csrc/lzw_codecs.cpp; PIL's pixels bit for bit. With PNG, BMP, JPEG
+  and DDS these are the formats the reference reads through WIC.
 - JPEG: read by core/jpeg.py (csrc/jpeg_decode.cpp), PIL's pixels bit
   for bit.
 - Radiance HDR (RGBE, RLE): from the published file format spec.
@@ -64,13 +71,17 @@ def decode_ldr(path: str) -> np.ndarray:
     become RGB, grey with alpha RGBA; PNG: 16-bit samples keep their high
     byte, 16-bit grey is clipped at 255, a tRNS chunk is ignored; BMP:
     32-bit pixels without an alpha mask lose their fourth byte; JPEG:
-    core/jpeg.py, grey replicated to RGB; DDS: core/dds.py). PNG, BMP,
-    JPEG, DDS and TGA, recognised by their headers as PIL recognises them
+    core/jpeg.py, grey replicated to RGB; DDS: core/dds.py; TIFF:
+    core/tiff.py, the first image, 16-bit grey clipped at 255, float
+    clipped and truncated, CMYK converted; GIF: core/gif.py, the first
+    frame, its transparency dropped; ICO: core/ico.py, the largest entry,
+    a DIB's AND mask or fourth byte as alpha). PNG, BMP, JPEG, DDS, TIFF,
+    GIF, ICO and TGA, recognised by their headers as PIL recognises them
     (TGA, which has no signature, last)."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(PNG_SIGNATURE):
-        return png_to_8bit(*read_png(path))
+        return png_to_8bit(*decode_png(data, path))
     if data.startswith(b"BM"):
         return read_bmp(data, path)
     if data.startswith(b"\xff\xd8\xff"):
@@ -81,12 +92,34 @@ def decode_ldr(path: str) -> np.ndarray:
         from tracerboy_tpu_torch.core.dds import read_dds
 
         return read_dds(data, path)
+    from tracerboy_tpu_torch.core import gif, ico, tiff
+
+    if tiff.is_tiff(data):
+        return tiff.read_tiff(data, path)
+    if gif.is_gif(data):
+        return gif.read_gif(data, path)
+    unidentified = None
+    if ico.is_ico(data):
+        try:
+            return ico.read_ico(data, path)
+        except UnidentifiedImageError as e:   # PIL tries TGA next
+            unidentified = e
     if _tga_header(data) is not None:
         return read_tga(data, path)
+    if unidentified is not None:
+        raise unidentified
     raise NotImplementedError(
-        f"{path}: not a PNG, BMP, JPEG, DDS or TGA file; TIFF, GIF, WebP and "
-        "PIL's other formats are not ported (ROADMAP.md, Queue 1: item 22b, "
-        "the image formats no scene of the repository uses)")
+        f"{path}: not a PNG, BMP, JPEG, DDS, TIFF, GIF, ICO or TGA file; "
+        "WebP, PSD, PPM and PIL's other formats are not ported "
+        "(ROADMAP.md, Queue 1: item 22b, the image formats neither the "
+        "reference nor texture tools use)")
+
+
+class UnidentifiedImageError(NotImplementedError):
+    """A file whose header names a format that its reader then cannot
+    identify (where PIL's plugin raises SyntaxError, IndexError, TypeError
+    or struct.error): PIL passes such a file on to the formats it tries
+    later, and raises UnidentifiedImageError where none takes it."""
 
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -161,7 +194,11 @@ def read_png(path: str):
     is (256, 3) uint8, zero past the PLTE entries (None without PLTE).
     Refuses a truncated file, a bad CRC or an unknown filter."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<png>"):
+    """read_png on a PNG's bytes (data past its IEND chunk is ignored)."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     ihdr, idat, palette = None, [], None
@@ -547,13 +584,16 @@ def _bmp_rle(data: bytes, pos: int, width: int, height: int,
     return bytes(data_out)
 
 
-def read_bmp(data: bytes, path: str = "<bmp>") -> np.ndarray:
+def read_bmp(data: bytes, path: str = "<bmp>",
+             mapped: bool = True) -> np.ndarray:
     """A BMP file's pixels as PIL gives them after read_ldr's convert:
     (H, W, 3) uint8, or (H, W, 4) where the bit-field masks carry alpha.
     OS/2 (12-byte) to V5 headers; 1-, 4- and 8-bit palettes (a grey ramp
     reads as L, a black-and-white pair as bi-level), 16-bit 555 and 565,
     24- and 32-bit, the bit-field layouts PIL reads, RLE8 and RLE4;
-    bottom-up or top-down."""
+    bottom-up or top-down. mapped: PIL memory-maps the pixels (a file
+    opened by its path); False for a bitmap inside another file (an ICO
+    entry), which PIL's raw decoder reads instead."""
     if not data.startswith(b"BM") or len(data) < 26:
         raise ValueError(f"{path}: not a BMP file")
     offset, hsize = struct.unpack_from("<II", data, 10)
@@ -623,10 +663,14 @@ def read_bmp(data: bytes, path: str = "<bmp>") -> np.ndarray:
         rows = np.frombuffer(idx, np.uint8, w * ht).reshape(ht, w)
         rawmode = "P" if mode == "P" else "L"
     elif rawmode == "L" and bits < 8:
-        # A grey ramp under 1- or 4-bit pixels: PIL maps the file and
-        # reads a byte a pixel, w bytes at each row's start (zeros past
-        # the end of the file).
+        # A grey ramp under 1- or 4-bit pixels: PIL reads a byte a pixel,
+        # w bytes at each row's start: from the mapped file (zeros past
+        # its end), or through the raw decoder, which refuses rows wider
+        # than the stride.
         stride = ((w * bits + 31) >> 3) & ~3
+        if not mapped and stride < w:
+            raise ValueError(f"{path}: codec configuration error when "
+                             "reading image file")
         if len(data) < offset + ht * stride:
             raise ValueError(f"{path}: buffer is not large enough")
         buf = np.frombuffer(data + bytes(w), np.uint8)

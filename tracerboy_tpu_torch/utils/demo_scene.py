@@ -21,7 +21,9 @@ and a marble sphere, the glass sphere, and the sky as the only light
 (textured.pbrt, so environment NEE is on); textured_lit.pbrt includes it
 and adds a distant light. It returns the paths of both. retexture(scene,
 swaps) points such a scene's image textures at other files (a JPEG or
-DDS albedo, a DXT1 leaf).
+DDS albedo, a DXT1 leaf); write_tiff_textures(directory) writes the
+albedo as a tiled Deflate TIFF and the leaf as an RGBA LZW TIFF with
+unassociated alpha, and returns the swaps that put them in.
 
 write_forest_scene(directory, grid, sky, trees, rocks, seed) writes
 forest.pbrt: the height field, and two objects in ObjectBegin blocks, a
@@ -40,7 +42,9 @@ tree.mtl (map_Kd tree.tga), as a binary tree.stl, and as tree.glb, whose
 baseColorTexture is tree.png beside it.
 
 The other scenes depend on the arguments only (no random numbers). Run as
-  python -m tracerboy_tpu_torch.utils.demo_scene DIR [textured|forest|meshes]
+  python -m tracerboy_tpu_torch.utils.demo_scene DIR [KIND]
+with KIND textured, tiff (the textured scene with its albedo and leaf
+swapped for TIFFs), forest or meshes.
 """
 
 from __future__ import annotations
@@ -291,6 +295,24 @@ def retexture(scene: str, swaps: dict) -> None:
         text = text.replace(f'"{old}"', f'"{name}"')
     with open(scene, "w") as f:
         f.write(text)
+
+
+def write_tiff_textures(directory: str) -> dict:
+    """The textured scene's albedo and leaf as TIFFs (core/tiff.write_tiff)
+    in `directory`: albedo.tif, 1024x1024 RGB in 160x160 Deflate tiles
+    with Predictor 2 (the edge tiles cropped), and leaf.tif, 512x512 RGBA
+    in LZW strips with Predictor 2 and unassociated alpha (ExtraSamples
+    2), whose alpha makes the cutouts. Returns the retexture swaps
+    {"albedo.png": ..., "leaf.png": ...}."""
+    from tracerboy_tpu_torch.core.tiff import write_tiff
+
+    os.makedirs(directory, exist_ok=True)
+    paths = {"albedo.png": os.path.join(directory, "albedo.tif"),
+             "leaf.png": os.path.join(directory, "leaf.tif")}
+    write_tiff(paths["albedo.png"], albedo_image(1024), "deflate",
+               tile=(160, 160))
+    write_tiff(paths["leaf.png"], leaf_image(512), "lzw")
+    return paths
 
 
 def write_textured_scene(directory: str, grid: int = 256,
@@ -646,6 +668,10 @@ if __name__ == "__main__":
     kind = sys.argv[2] if len(sys.argv) > 2 else "env"
     if kind == "textured":
         print(write_textured_scene(out))
+    elif kind == "tiff":
+        scenes = write_textured_scene(out)
+        retexture(scenes[0], write_tiff_textures(os.path.join(out, "tif")))
+        print(scenes)
     elif kind == "forest":
         print(write_forest_scene(out))
     elif kind == "meshes":
