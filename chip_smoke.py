@@ -213,13 +213,20 @@ Phases, each fatal on failure:
      Deflate, read back equal and its decode timed on the host; the CLI
      on textured_lit.pbrt with the tiled Deflate TIFF albedo and the RGBA
      LZW TIFF leaf whose alpha makes the cutouts, as in 22;
- 25. a JSON line of the seven kernels (launches from the run of the path
+ 25. the port's WebP, QOI, PNM and PSD readers (webp_phase): every
+     fixture of tests/data/webp (WebP layouts, animations, QOI, PNM, PSD,
+     the WebP scene's textures) decoded to the sha256 of PIL's array in
+     its manifest; the 1024x1024 albedo's host decode as a lossy WebP, a
+     lossless WebP and a QOI written by core/qoi.write_qoi (read back
+     equal); the CLI on textured_lit.pbrt with the lossy WebP albedo and
+     the VP8X + ALPH WebP leaf whose alpha makes the cutouts, as in 22;
+ 26. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
      2 also by the volume run's, the adaptive residual wave's, the
      animation phase's, the ML dataset's, the sharded runs' and the JPEG,
-     DDS and TIFF scenes' launches), then the result line {"ok": true,
-     "device": {...}} last.
+     DDS, TIFF and WebP scenes' launches), then the result line {"ok":
+     true, "device": {...}} last.
 
 Imports nothing of JAX or the JAX package (the UNet weights and the JPEG
 and DDS fixtures are data files read by path).
@@ -3751,6 +3758,7 @@ SHARD_ODD_FILM = (1279, 719)   # (N + pad) % 2 == 0 with pad 1
 JPEG_DIR = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
 DDS_DIR = Path(__file__).resolve().parent / "tests" / "data" / "dds"
 TIFF_DIR = Path(__file__).resolve().parent / "tests" / "data" / "tiff"
+WEBP_DIR = Path(__file__).resolve().parent / "tests" / "data" / "webp"
 
 
 def spp_reference(r, D, n):
@@ -3937,6 +3945,12 @@ def tiff_phase(torch):
     """tiff_runs in a temporary directory that is removed after it."""
     with tempfile.TemporaryDirectory(prefix="tb_tiff_") as tmp:
         return tiff_runs(torch, tmp)
+
+
+def webp_phase(torch):
+    """webp_runs in a temporary directory that is removed after it."""
+    with tempfile.TemporaryDirectory(prefix="tb_webp_") as tmp:
+        return webp_runs(torch, tmp)
 
 
 def host_cpu() -> str:
@@ -4166,6 +4180,50 @@ def tiff_runs(torch, tmp):
     cli_res, launches = textured_swap_cli(
         torch, tmp, "tiff", {"albedo.png": str(TIFF_DIR / "albedo.tif"),
                              "leaf.png": str(TIFF_DIR / "leaf.tif")})
+    results.update(cli_res)
+    return results, launches
+
+
+def webp_runs(torch, tmp):
+    """The port's WebP, QOI, PNM and PSD readers (core/webp.py, core/qoi.py,
+    core/pnm.py, core/psd.py; csrc/webp_decode.cpp and
+    csrc/lzw_codecs.cpp, g++ at first use) on the card's machine, which
+    has no PIL. (a) Every committed fixture of tests/data/webp decoded by
+    image_io.decode_ldr, its shape, dtype and sha256 equal to
+    manifest.json's (written by tests/make_webp_fixtures.py). (b)
+    utils/demo_scene's 1024x1024 albedo decoded as the lossy (quality 90)
+    and the lossless WebP fixtures, and as a QOI written by
+    core/qoi.write_qoi, read back equal to the pixels written; each
+    decode 5 runs, host seconds, with the host's CPU and the card line.
+    (c) The CLI on textured_lit.pbrt with its albedo the lossy WebP and
+    its leaf the VP8X + ALPH WebP whose lossless-coded, gradient-filtered
+    alpha makes the cutouts, so the alpha re-fires of kernel 1 run on the
+    WebP reader's texels (textured_swap_cli). Returns (results, launches
+    of (c))."""
+    from tracerboy_tpu_torch.core.image_io import _to_uint8, decode_ldr
+    from tracerboy_tpu_torch.core.qoi import write_qoi
+    from tracerboy_tpu_torch.utils.demo_scene import albedo_image
+
+    set_opt_in()
+    results = {"fixtures": fixture_hashes("webp", WEBP_DIR, decode_ldr)}
+    pixels = _to_uint8(albedo_image(1024))
+    qoi_path = Path(tmp) / "albedo_1024.qoi"
+    write_qoi(str(qoi_path), pixels)
+    card = card_line()
+    for key, path in (("lossy", WEBP_DIR / "albedo.webp"),
+                      ("lossless", WEBP_DIR / "albedo_lossless.webp"),
+                      ("qoi", qoi_path)):
+        if key != "lossy" and not np.array_equal(decode_ldr(str(path)),
+                                                 pixels):
+            fail(f"webp: the 1024x1024 {key} albedo does not read back as "
+                 "written")
+        results[f"decode_1024_{key}"] = dict(host_decode(decode_ldr, path),
+                                             card=card)
+        print(f"webp decode 1024x1024 {key} (host):",
+              json.dumps(results[f"decode_1024_{key}"]))
+    cli_res, launches = textured_swap_cli(
+        torch, tmp, "webp", {"albedo.png": str(WEBP_DIR / "albedo.webp"),
+                             "leaf.png": str(WEBP_DIR / "leaf.webp")})
     results.update(cli_res)
     return results, launches
 
@@ -4403,6 +4461,9 @@ def main() -> int:
     tiff_res, tiff_launches = tiff_phase(torch)
     tiff_kinds = tiff_res["kinds"]
     lap("tiff")
+    webp_res, webp_launches = webp_phase(torch)
+    webp_kinds = webp_res["kinds"]
+    lap("webp")
     print("phase seconds:", json.dumps(laps))
 
     def by_path(key):
@@ -4416,7 +4477,7 @@ def main() -> int:
                 "animation": anim_launches[key], "ml": ml_launches[key],
                 "sharding": shard_launches[key],
                 "jpeg": jpeg_launches[key], "dds": dds_launches[key],
-                "tiff": tiff_launches[key]}
+                "tiff": tiff_launches[key], "webp": webp_launches[key]}
 
     trav = "tracerboy_tpu_torch/csrc/bvh_traverse.cu"
     bsrc = "tracerboy_tpu_torch/csrc/binned.cu"
@@ -4437,7 +4498,8 @@ def main() -> int:
                               *inst_res["kinds"].values(), vol_c, adap_c,
                               anim_c, anim_blas, ml_c, shard_c,
                               *jpeg_kinds.values(), *dds_kinds.values(),
-                              *tiff_kinds.values()]),
+                              *tiff_kinds.values(),
+                              *webp_kinds.values()]),
              id_mismatch_outside_ties=sum(
                  s["id_mismatch_outside_ties"]
                  for s in [st_c, st_c2, un_c, *roots_c, env_closest,
@@ -4445,7 +4507,8 @@ def main() -> int:
                            *inst_res["kinds"].values(), vol_c, adap_c,
                            anim_c, anim_blas, ml_c, shard_c,
                            *jpeg_kinds.values(), *dds_kinds.values(),
-                           *tiff_kinds.values()]),
+                           *tiff_kinds.values(),
+                           *webp_kinds.values()]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
              unordered_ms=un_times["closest_ms"],
              unordered_plain_ms=un_times["closest_plain_ms"],
@@ -4507,13 +4570,16 @@ def main() -> int:
                      "max_rel_t_err", "overflows")}
                  for kind, row in kinds.items()}
                 for pre, kinds in (("jpeg", jpeg_kinds), ("dds", dds_kinds),
-                                   ("tiff", tiff_kinds))},
+                                   ("tiff", tiff_kinds),
+                                   ("webp", webp_kinds))},
              sharding_runs=shard_res["runs"],
              sharding_ms_a_sample=shard_res["ms_a_sample"],
              jpeg_decode_1024=jpeg_res["decode_1024"],
              dds_decode_512_bc7=dds_res["decode_512_bc7"],
              tiff_decode_1024_lzw=tiff_res["decode_1024_lzw"],
              tiff_decode_1024_deflate=tiff_res["decode_1024_deflate"],
+             **{f"webp_decode_1024_{key}": webp_res[f"decode_1024_{key}"]
+                for key in ("lossy", "lossless", "qoi")},
              volume_run=vol_res["run"],
              volume_control=vol_res["control"],
              estimators={k: {kk: vv for kk, vv in v.items()

@@ -148,6 +148,7 @@ def test_formats_are_known_by_their_headers(tmp_path):
     Image.fromarray(RGBA[..., :3]).save(tmp_path / "x.jpg")
     jpg.write_bytes((tmp_path / "x.jpg").read_bytes())
     same_as_jax(jpg)
-    (tmp_path / "ppm.bin").write_bytes(b"P6 4 4 255\n" + bytes(48))
+    pil_image("RGB").save(tmp_path / "x.sgi")
+    (tmp_path / "sgi.bin").write_bytes((tmp_path / "x.sgi").read_bytes())
     with pytest.raises(NotImplementedError, match="item 22b"):
-        tio.read_ldr(str(tmp_path / "ppm.bin"))
+        tio.read_ldr(str(tmp_path / "sgi.bin"))

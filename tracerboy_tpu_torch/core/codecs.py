@@ -1,18 +1,23 @@
-"""The shared library of the TIFF and GIF readers' byte-serial loops
-(csrc/lzw_codecs.cpp: TIFF LZW decode and encode, PackBits, the TIFF
-predictors, GIF LZW), built with g++ at first use into the port's build
-directory and loaded through ctypes. core/tiff.py and core/gif.py both
-call library().
+"""The shared libraries of the image readers' byte-serial loops, built
+with g++ at first use into the port's build directory and loaded through
+ctypes:
+- library(): csrc/lzw_codecs.cpp (TIFF LZW decode and encode, libtiff's
+  PackBits, the TIFF predictors, GIF LZW, PIL's row-wise PackBits), for
+  core/tiff.py, core/gif.py and core/psd.py;
+- webp_library(): csrc/webp_decode.cpp (VP8L, VP8, the ALPH plane, QOI
+  decode and encode),
+  for core/webp.py and core/qoi.py.
 """
 
 from __future__ import annotations
 
-_lib = None
+_libs: dict = {}
+
+_CSRC = ("tracerboy_tpu_torch", "csrc")
 
 
-def library():
-    global _lib
-    if _lib is None:
+def _load(name, source, headers, functions):
+    if name not in _libs:
         import ctypes
 
         from tracerboy_tpu_torch.utils.build import (
@@ -20,19 +25,38 @@ def library():
             build_shared_library,
         )
 
+        csrc = REPO_ROOT.joinpath(*_CSRC)
         lib = ctypes.CDLL(str(build_shared_library(
-            "tbcodecs", [REPO_ROOT / "tracerboy_tpu_torch" / "csrc"
-                         / "lzw_codecs.cpp"],
-            ["g++", "-O2", "-shared", "-fPIC"])))
-        p, i64 = ctypes.c_void_p, ctypes.c_int64
-        for name, args in (
-                ("tb_tiff_lzw_decode", [p, i64, p, i64]),
-                ("tb_tiff_lzw_encode", [p, i64, p]),
-                ("tb_packbits_decode", [p, i64, p, i64]),
-                ("tb_tiff_unpredict", [p, i64, i64, i64, i64, i64]),
-                ("tb_gif_decode", [p, i64, p, i64, i64, i64, i64, i64])):
-            fn = getattr(lib, name)
-            fn.restype = i64
+            name, [csrc / source], ["g++", "-O2", "-shared", "-fPIC"],
+            headers=[csrc / h for h in headers])))
+        for fn_name, args in functions:
+            fn = getattr(lib, fn_name)
+            fn.restype = ctypes.c_int64
             fn.argtypes = args
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]
+
+
+def library():
+    import ctypes
+
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    return _load("tbcodecs", "lzw_codecs.cpp", (), (
+        ("tb_tiff_lzw_decode", [p, i64, p, i64]),
+        ("tb_tiff_lzw_encode", [p, i64, p]),
+        ("tb_packbits_decode", [p, i64, p, i64]),
+        ("tb_tiff_unpredict", [p, i64, i64, i64, i64, i64]),
+        ("tb_gif_decode", [p, i64, p, i64, i64, i64, i64, i64]),
+        ("tb_pil_packbits_rows", [p, i64, p, i64, i64])))
+
+
+def webp_library():
+    import ctypes
+
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    return _load("tbwebp", "webp_decode.cpp", ("webp_vp8_tables.inc",), (
+        ("tb_webp_vp8l_decode", [p, i64, i64, i64, p]),
+        ("tb_webp_vp8_decode", [p, i64, i64, i64, p]),
+        ("tb_webp_alpha_decode", [p, i64, i64, i64, p]),
+        ("tb_qoi_decode", [p, i64, i64, i64, p]),
+        ("tb_qoi_encode", [p, i64, i64, i64, i64, p])))

@@ -33,6 +33,11 @@ Formats:
   and DDS these are the formats the reference reads through WIC.
 - JPEG: read by core/jpeg.py (csrc/jpeg_decode.cpp), PIL's pixels bit
   for bit.
+- WebP (core/webp.py: simple and extended files, VP8, VP8L, ALPH, an
+  animation's first frame) and QOI (core/qoi.py), their loops in
+  csrc/webp_decode.cpp; PNM (core/pnm.py: P1-P6, Pf, PIL's own headers)
+  and PSD (core/psd.py: the merged image, raw or PackBits); PIL's pixels
+  bit for bit. pbrt-v4 reads QOI, PNM and PSD too.
 - Radiance HDR (RGBE, RLE): from the published file format spec.
 - PFM: trivial float format (the reference renames .pfm -> .hdr as a hack;
   we read it natively).
@@ -75,9 +80,14 @@ def decode_ldr(path: str) -> np.ndarray:
     core/tiff.py, the first image, 16-bit grey clipped at 255, float
     clipped and truncated, CMYK converted; GIF: core/gif.py, the first
     frame, its transparency dropped; ICO: core/ico.py, the largest entry,
-    a DIB's AND mask or fourth byte as alpha). PNG, BMP, JPEG, DDS, TIFF,
-    GIF, ICO and TGA, recognised by their headers as PIL recognises them
-    (TGA, which has no signature, last)."""
+    a DIB's AND mask or fourth byte as alpha; PNM: core/pnm.py, 16-bit
+    grey clipped at 255; PSD: core/psd.py, the merged image; QOI:
+    core/qoi.py; WebP: core/webp.py, an animation's first frame on its
+    canvas). PNG, BMP, JPEG, PNM, DDS, ICO, PSD, QOI, TGA, TIFF, GIF and
+    WebP, recognised by their headers in PIL's order (its preinit
+    plugins first; TGA, which has no signature, after the signed formats
+    it could be mistaken for); a header a reader then cannot identify
+    passes the file on, as PIL's SyntaxError does."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(PNG_SIGNATURE):
@@ -88,31 +98,55 @@ def decode_ldr(path: str) -> np.ndarray:
         from tracerboy_tpu_torch.core.jpeg import decode_jpeg
 
         return decode_jpeg(data, path)
-    if data.startswith(DDS_MAGIC):
-        from tracerboy_tpu_torch.core.dds import read_dds
+    from tracerboy_tpu_torch.core import (
+        dds,
+        gif,
+        ico,
+        pnm,
+        psd,
+        qoi,
+        tiff,
+        webp,
+    )
 
-        return read_dds(data, path)
-    from tracerboy_tpu_torch.core import gif, ico, tiff
-
-    if tiff.is_tiff(data):
-        return tiff.read_tiff(data, path)
-    if gif.is_gif(data):
-        return gif.read_gif(data, path)
     unidentified = None
-    if ico.is_ico(data):
-        try:
-            return ico.read_ico(data, path)
-        except UnidentifiedImageError as e:   # PIL tries TGA next
-            unidentified = e
-    if _tga_header(data) is not None:
-        return read_tga(data, path)
+    readers = ((pnm.is_pnm, pnm.read_pnm),
+               (lambda d: d.startswith(DDS_MAGIC), dds.read_dds),
+               (ico.is_ico, ico.read_ico), (psd.is_psd, psd.read_psd),
+               (qoi.is_qoi, qoi.read_qoi), (_tga_header, read_tga),
+               (tiff.is_tiff, tiff.read_tiff), (gif.is_gif, gif.read_gif),
+               (webp.is_webp, webp.read_webp))
+    for accepts, read in readers:
+        if accepts(data):
+            try:
+                return read(data, path)
+            except UnidentifiedImageError as e:   # PIL tries the next
+                unidentified = unidentified or e
     if unidentified is not None:
         raise unidentified
     raise NotImplementedError(
-        f"{path}: not a PNG, BMP, JPEG, DDS, TIFF, GIF, ICO or TGA file; "
-        "WebP, PSD, PPM and PIL's other formats are not ported "
-        "(ROADMAP.md, Queue 1: item 22b, the image formats neither the "
-        "reference nor texture tools use)")
+        f"{path}: not a PNG, BMP, JPEG, PNM, DDS, ICO, PSD, QOI, TGA, "
+        "TIFF, GIF or WebP file; AVIF, JPEG 2000 and PIL's small formats "
+        "(SGI, PCX, DCX, CUR, ICNS, BLP, FTEX, IM, MSP, SUN, XBM, XPM, "
+        "...) are not ported (ROADMAP.md, Queue 1: item 22b, the image "
+        "formats neither the reference nor texture tools use)")
+
+
+# PIL's Image.MAX_IMAGE_PIXELS: Image.open refuses twice as many.
+MAX_IMAGE_PIXELS = int(1024 * 1024 * 1024 // 4 // 3)
+
+
+def check_image_size(width: int, height: int, path: str) -> None:
+    """Image.open's checks after a plugin's header: a side that is not
+    positive is not identified (ImageFile's SyntaxError: PIL tries its
+    other plugins), more than twice MAX_IMAGE_PIXELS is refused
+    (DecompressionBombError, ValueError here)."""
+    if width <= 0 or height <= 0:
+        raise UnidentifiedImageError(f"{path}: cannot identify image file "
+                                     f"(size {width}x{height})")
+    if width * height > 2 * MAX_IMAGE_PIXELS:
+        raise ValueError(f"{path}: {width}x{height} pixels is more than "
+                         "PIL opens (decompression bomb)")
 
 
 class UnidentifiedImageError(NotImplementedError):

@@ -1,8 +1,8 @@
-// The byte-serial loops of the port's TIFF and GIF readers
-// (core/tiff.py, core/gif.py, loaded by core/codecs.py): TIFF LZW
-// (decode and encode; the encoder writes the demo scenes' TIFFs and the
-// tests' LZW fixtures), PackBits, the TIFF predictors' undifferencing,
-// and GIF LZW into a frame's rows.
+// The byte-serial loops of the port's TIFF, GIF and PSD readers
+// (core/tiff.py, core/gif.py, core/psd.py, loaded by core/codecs.py):
+// TIFF LZW (decode and encode; the encoder writes the demo scenes' TIFFs
+// and the tests' LZW fixtures), PackBits (libtiff's and Pillow's), the
+// TIFF predictors' undifferencing, and GIF LZW into a frame's rows.
 // Host code, compiled with g++ at first use into the port's build
 // directory (utils/build.py) and called through ctypes; numpy does the
 // rest (containers, byte order, unpacking).
@@ -29,6 +29,10 @@
 //   up to 12, the width grown when the entry added is 2^n - 1, no entry
 //   past 4095, interlaced rows in four passes; only the frame's last
 //   row ends the data without error.
+// - tb_pil_packbits_rows: Pillow's PackBitsDecode.c (PSD channels): the
+//   packets decoded row by row, a packet that overflows a row cut at the
+//   row's end, 0x80 a no-op; data that ends before the last row is an
+//   error (PIL's "image file is truncated").
 
 #include <cstdint>
 #include <cstring>
@@ -362,6 +366,39 @@ extern "C" int64_t tb_gif_decode(const uint8_t* src, int64_t n, uint8_t* img,
       if (++x >= xsize) {
         if (!newline()) return 0;
       }
+    }
+  }
+}
+
+// Returns the input bytes used, or -1 when the data ends before the
+// last of `rows` rows of `rowbytes` bytes is complete.
+extern "C" int64_t tb_pil_packbits_rows(const uint8_t* src, int64_t n,
+                                        uint8_t* dst, int64_t rows,
+                                        int64_t rowbytes) {
+  int64_t ip = 0, x = 0, y = 0;
+  uint8_t* row = dst;
+  while (true) {
+    if (n - ip < 1) return -1;
+    const uint8_t c = src[ip];
+    if (c & 0x80) {
+      if (c == 0x80) {
+        ++ip;
+        continue;
+      }
+      if (n - ip < 2) return -1;
+      for (int cnt = 257 - c; cnt > 0 && x < rowbytes; --cnt)
+        row[x++] = src[ip + 1];
+      ip += 2;
+    } else {
+      const int64_t m = int64_t(c) + 2;
+      if (n - ip < m) return -1;
+      for (int64_t i = 1; i < m && x < rowbytes; ++i) row[x++] = src[ip + i];
+      ip += m;
+    }
+    if (x >= rowbytes) {
+      x = 0;
+      row += rowbytes;
+      if (++y >= rows) return ip;
     }
   }
 }
