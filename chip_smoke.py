@@ -220,13 +220,21 @@ Phases, each fatal on failure:
      lossless WebP and a QOI written by core/qoi.write_qoi (read back
      equal); the CLI on textured_lit.pbrt with the lossy WebP albedo and
      the VP8X + ALPH WebP leaf whose alpha makes the cutouts, as in 22;
- 26. a JSON line of the seven kernels (launches from the run of the path
+ 26. the port's JPEG 2000 reader (j2k_phase): every fixture of
+     tests/data/j2k (PIL-written codestreams and JP2 files of every save
+     option, the box and marker variants, rewritten packets and
+     code-block styles, the scene's textures) decoded to the sha256 of
+     PIL's array in its manifest; the 1024x1024 albedo's host decode as
+     a lossless 5/3 JP2 (read back equal) and as a 9/7 JP2; the CLI on
+     textured_lit.pbrt with the 9/7 JP2 albedo and the RGBA raw
+     codestream leaf whose lossless alpha makes the cutouts, as in 22;
+ 27. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
      2 also by the volume run's, the adaptive residual wave's, the
      animation phase's, the ML dataset's, the sharded runs' and the JPEG,
-     DDS, TIFF and WebP scenes' launches), then the result line {"ok":
-     true, "device": {...}} last.
+     DDS, TIFF, WebP and JPEG 2000 scenes' launches), then the result
+     line {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX or the JAX package (the UNet weights and the JPEG
 and DDS fixtures are data files read by path).
@@ -3759,6 +3767,7 @@ JPEG_DIR = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
 DDS_DIR = Path(__file__).resolve().parent / "tests" / "data" / "dds"
 TIFF_DIR = Path(__file__).resolve().parent / "tests" / "data" / "tiff"
 WEBP_DIR = Path(__file__).resolve().parent / "tests" / "data" / "webp"
+J2K_DIR = Path(__file__).resolve().parent / "tests" / "data" / "j2k"
 
 
 def spp_reference(r, D, n):
@@ -3951,6 +3960,12 @@ def webp_phase(torch):
     """webp_runs in a temporary directory that is removed after it."""
     with tempfile.TemporaryDirectory(prefix="tb_webp_") as tmp:
         return webp_runs(torch, tmp)
+
+
+def j2k_phase(torch):
+    """j2k_runs in a temporary directory that is removed after it."""
+    with tempfile.TemporaryDirectory(prefix="tb_j2k_") as tmp:
+        return j2k_runs(torch, tmp)
 
 
 def host_cpu() -> str:
@@ -4228,6 +4243,44 @@ def webp_runs(torch, tmp):
     return results, launches
 
 
+def j2k_runs(torch, tmp):
+    """The port's JPEG 2000 reader (core/jpeg2000.py, csrc/j2k_decode.cpp,
+    g++ at first use) on the card's machine, which has no PIL and no
+    OpenJPEG. (a) Every committed fixture of tests/data/j2k decoded by
+    image_io.decode_ldr, its shape, dtype and sha256 equal to
+    manifest.json's (written by tests/make_j2k_fixtures.py). (b)
+    utils/demo_scene's 1024x1024 albedo decoded as the lossless 5/3 JP2
+    fixture, read back equal to the pixels written, and as the 9/7 JP2
+    fixture (38 dB); each decode 5 runs, host seconds, with the host's CPU
+    and the card line. (c) The CLI on textured_lit.pbrt with its albedo
+    the 9/7 JP2 and its leaf the RGBA raw codestream (.j2k) whose
+    losslessly coded alpha makes the cutouts, so the alpha re-fires of
+    kernel 1 run on the JPEG 2000 reader's texels (textured_swap_cli).
+    Returns (results, launches of (c))."""
+    from tracerboy_tpu_torch.core.image_io import _to_uint8, decode_ldr
+    from tracerboy_tpu_torch.utils.demo_scene import albedo_image
+
+    set_opt_in()
+    results = {"fixtures": fixture_hashes("j2k", J2K_DIR, decode_ldr)}
+    pixels = _to_uint8(albedo_image(1024))
+    card = card_line()
+    for key, path in (("lossless", J2K_DIR / "albedo_lossless.jp2"),
+                      ("97", J2K_DIR / "albedo.jp2")):
+        if key == "lossless" and not np.array_equal(decode_ldr(str(path)),
+                                                    pixels):
+            fail("j2k: the 1024x1024 lossless albedo does not read back as "
+                 "written")
+        results[f"decode_1024_{key}"] = dict(host_decode(decode_ldr, path),
+                                             card=card)
+        print(f"j2k decode 1024x1024 {key} (host):",
+              json.dumps(results[f"decode_1024_{key}"]))
+    cli_res, launches = textured_swap_cli(
+        torch, tmp, "j2k", {"albedo.png": str(J2K_DIR / "albedo.jp2"),
+                            "leaf.png": str(J2K_DIR / "leaf.j2k")})
+    results.update(cli_res)
+    return results, launches
+
+
 def main() -> int:
     print(card_line())
     import torch
@@ -4464,6 +4517,9 @@ def main() -> int:
     webp_res, webp_launches = webp_phase(torch)
     webp_kinds = webp_res["kinds"]
     lap("webp")
+    j2k_res, j2k_launches = j2k_phase(torch)
+    j2k_kinds = j2k_res["kinds"]
+    lap("j2k")
     print("phase seconds:", json.dumps(laps))
 
     def by_path(key):
@@ -4477,7 +4533,8 @@ def main() -> int:
                 "animation": anim_launches[key], "ml": ml_launches[key],
                 "sharding": shard_launches[key],
                 "jpeg": jpeg_launches[key], "dds": dds_launches[key],
-                "tiff": tiff_launches[key], "webp": webp_launches[key]}
+                "tiff": tiff_launches[key], "webp": webp_launches[key],
+                "j2k": j2k_launches[key]}
 
     trav = "tracerboy_tpu_torch/csrc/bvh_traverse.cu"
     bsrc = "tracerboy_tpu_torch/csrc/binned.cu"
@@ -4499,7 +4556,7 @@ def main() -> int:
                               anim_c, anim_blas, ml_c, shard_c,
                               *jpeg_kinds.values(), *dds_kinds.values(),
                               *tiff_kinds.values(),
-                              *webp_kinds.values()]),
+                              *webp_kinds.values(), *j2k_kinds.values()]),
              id_mismatch_outside_ties=sum(
                  s["id_mismatch_outside_ties"]
                  for s in [st_c, st_c2, un_c, *roots_c, env_closest,
@@ -4508,7 +4565,7 @@ def main() -> int:
                            anim_c, anim_blas, ml_c, shard_c,
                            *jpeg_kinds.values(), *dds_kinds.values(),
                            *tiff_kinds.values(),
-                           *webp_kinds.values()]),
+                           *webp_kinds.values(), *j2k_kinds.values()]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
              unordered_ms=un_times["closest_ms"],
              unordered_plain_ms=un_times["closest_plain_ms"],
@@ -4571,7 +4628,8 @@ def main() -> int:
                  for kind, row in kinds.items()}
                 for pre, kinds in (("jpeg", jpeg_kinds), ("dds", dds_kinds),
                                    ("tiff", tiff_kinds),
-                                   ("webp", webp_kinds))},
+                                   ("webp", webp_kinds),
+                                   ("j2k", j2k_kinds))},
              sharding_runs=shard_res["runs"],
              sharding_ms_a_sample=shard_res["ms_a_sample"],
              jpeg_decode_1024=jpeg_res["decode_1024"],
@@ -4580,6 +4638,8 @@ def main() -> int:
              tiff_decode_1024_deflate=tiff_res["decode_1024_deflate"],
              **{f"webp_decode_1024_{key}": webp_res[f"decode_1024_{key}"]
                 for key in ("lossy", "lossless", "qoi")},
+             **{f"j2k_decode_1024_{key}": j2k_res[f"decode_1024_{key}"]
+                for key in ("lossless", "97")},
              volume_run=vol_res["run"],
              volume_control=vol_res["control"],
              estimators={k: {kk: vv for kk, vv in v.items()

@@ -15,11 +15,12 @@ and 15), ALPH chunks of both methods under every filter, animations
 whose first frame lies inside a larger canvas, truncated files and
 corrupted bitstreams. Where PIL refuses a file the port raises:
 ValueError where PIL raises OSError, ValueError, EOFError, KeyError or
-IndexError, NotImplementedError where PIL cannot identify it. AVIF and
-JPEG 2000 files, which PIL reads, still raise NotImplementedError naming
-ROADMAP item 22b. A PBRT scene whose albedo and leaf are WebPs and whose
-environment map is a QOI compiles in both packages to the same leaves,
-bit for bit.
+IndexError, NotImplementedError where PIL cannot identify it. AVIF files,
+which PIL reads, still raise NotImplementedError naming ROADMAP item 22b;
+JPEG 2000 files read as the JAX read_ldr reads them (core/jpeg2000.py,
+tests/test_torch_jpeg2000.py). A PBRT scene whose albedo and leaf are
+WebPs and whose environment map is a QOI compiles in both packages to the
+same leaves, bit for bit.
 """
 
 import io
@@ -335,17 +336,20 @@ def test_alpha_stream_cut_short(scratch, seed, quality, alpha_quality,
 
 
 def test_unported_formats_name_item_22b(tmp_path):
-    """AVIF and JPEG 2000, which PIL reads (the JAX read_ldr renders
-    them), are not ported: NotImplementedError naming ROADMAP item
-    22b."""
+    """AVIF, which PIL reads (the JAX read_ldr renders it), is not ported:
+    NotImplementedError naming ROADMAP item 22b. JPEG 2000, which PIL
+    reads too, now reads as the JAX read_ldr reads it."""
     img = Image.fromarray(sample_image(np.random.default_rng(13), 16, 16)[
         ..., :3])
-    for ext, fmt in ((".avif", "AVIF"), (".jp2", "JPEG2000")):
-        path = tmp_path / f"x{ext}"
-        img.save(path, fmt)
-        assert jax_read_ldr(path).shape == (16, 16, 3)
-        with pytest.raises(NotImplementedError, match=ITEM):
-            image_io.read_ldr(str(path))
+    path = tmp_path / "x.avif"
+    img.save(path, "AVIF")
+    assert jax_read_ldr(path).shape == (16, 16, 3)
+    with pytest.raises(NotImplementedError, match=ITEM):
+        image_io.read_ldr(str(path))
+    path = tmp_path / "x.jp2"
+    img.save(path, "JPEG2000")
+    assert jax_read_ldr(path).shape == (16, 16, 3)
+    assert np.array_equal(image_io.read_ldr(str(path)), jax_read_ldr(path))
 
 
 def test_webp_is_known_by_its_header(tmp_path):

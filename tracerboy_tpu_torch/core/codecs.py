@@ -6,7 +6,11 @@ ctypes:
   core/tiff.py, core/gif.py and core/psd.py;
 - webp_library(): csrc/webp_decode.cpp (VP8L, VP8, the ALPH plane, QOI
   decode and encode),
-  for core/webp.py and core/qoi.py.
+  for core/webp.py and core/qoi.py;
+- j2k_library(): csrc/j2k_decode.cpp (a JPEG 2000 tile's packets, tier 1,
+  wavelets, colour transform and DC shift), for core/jpeg2000.py, with
+  -ffp-contract=off: no fused multiply-add may change a 9/7 or ICT
+  result.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ _libs: dict = {}
 _CSRC = ("tracerboy_tpu_torch", "csrc")
 
 
-def _load(name, source, headers, functions):
+def _load(name, source, headers, functions, flags=()):
     if name not in _libs:
         import ctypes
 
@@ -27,7 +31,8 @@ def _load(name, source, headers, functions):
 
         csrc = REPO_ROOT.joinpath(*_CSRC)
         lib = ctypes.CDLL(str(build_shared_library(
-            name, [csrc / source], ["g++", "-O2", "-shared", "-fPIC"],
+            name, [csrc / source],
+            ["g++", "-O2", "-shared", "-fPIC", *flags],
             headers=[csrc / h for h in headers])))
         for fn_name, args in functions:
             fn = getattr(lib, fn_name)
@@ -60,3 +65,12 @@ def webp_library():
         ("tb_webp_alpha_decode", [p, i64, i64, i64, p]),
         ("tb_qoi_decode", [p, i64, i64, i64, p]),
         ("tb_qoi_encode", [p, i64, i64, i64, i64, p])))
+
+
+def j2k_library():
+    import ctypes
+
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    return _load("tbj2k", "j2k_decode.cpp", (), (
+        ("tb_j2k_decode_tile", [p, i64, p, i64, p, i64, p, p, p, i64,
+                                i64]),), flags=("-ffp-contract=off",))

@@ -38,6 +38,10 @@ Formats:
   csrc/webp_decode.cpp; PNM (core/pnm.py: P1-P6, Pf, PIL's own headers)
   and PSD (core/psd.py: the merged image, raw or PackBits); PIL's pixels
   bit for bit. pbrt-v4 reads QOI, PNM and PSD too.
+- JPEG 2000 (core/jpeg2000.py: JP2 files and raw codestreams, the 5/3
+  and 9/7 wavelets, every progression order, tiles, layers, precincts,
+  palettes; csrc/j2k_decode.cpp decodes the tiles), PIL's pixels bit for
+  bit as OpenJPEG and Pillow's decoder give them.
 - Radiance HDR (RGBE, RLE): from the published file format spec.
 - PFM: trivial float format (the reference renames .pfm -> .hdr as a hack;
   we read it natively).
@@ -80,11 +84,13 @@ def decode_ldr(path: str) -> np.ndarray:
     core/tiff.py, the first image, 16-bit grey clipped at 255, float
     clipped and truncated, CMYK converted; GIF: core/gif.py, the first
     frame, its transparency dropped; ICO: core/ico.py, the largest entry,
-    a DIB's AND mask or fourth byte as alpha; PNM: core/pnm.py, 16-bit
-    grey clipped at 255; PSD: core/psd.py, the merged image; QOI:
-    core/qoi.py; WebP: core/webp.py, an animation's first frame on its
-    canvas). PNG, BMP, JPEG, PNM, DDS, ICO, PSD, QOI, TGA, TIFF, GIF and
-    WebP, recognised by their headers in PIL's order (its preinit
+    a DIB's AND mask or fourth byte as alpha; JPEG 2000: core/jpeg2000.py,
+    16-bit grey clipped at 255, a palette expanded, CMYK converted; PNM:
+    core/pnm.py, 16-bit grey clipped at 255; PSD: core/psd.py, the merged
+    image; QOI: core/qoi.py; WebP: core/webp.py, an animation's first
+    frame on its canvas). PNG, BMP, JPEG, PNM, DDS, ICO, JPEG 2000, PSD,
+    QOI, TGA, TIFF, GIF and WebP, recognised by their headers in PIL's
+    order (its preinit
     plugins first; TGA, which has no signature, after the signed formats
     it could be mistaken for); a header a reader then cannot identify
     passes the file on, as PIL's SyntaxError does."""
@@ -102,6 +108,7 @@ def decode_ldr(path: str) -> np.ndarray:
         dds,
         gif,
         ico,
+        jpeg2000,
         pnm,
         psd,
         qoi,
@@ -112,7 +119,9 @@ def decode_ldr(path: str) -> np.ndarray:
     unidentified = None
     readers = ((pnm.is_pnm, pnm.read_pnm),
                (lambda d: d.startswith(DDS_MAGIC), dds.read_dds),
-               (ico.is_ico, ico.read_ico), (psd.is_psd, psd.read_psd),
+               (ico.is_ico, ico.read_ico),
+               (jpeg2000.is_jpeg2000, jpeg2000.read_jpeg2000),
+               (psd.is_psd, psd.read_psd),
                (qoi.is_qoi, qoi.read_qoi), (_tga_header, read_tga),
                (tiff.is_tiff, tiff.read_tiff), (gif.is_gif, gif.read_gif),
                (webp.is_webp, webp.read_webp))
@@ -125,8 +134,8 @@ def decode_ldr(path: str) -> np.ndarray:
     if unidentified is not None:
         raise unidentified
     raise NotImplementedError(
-        f"{path}: not a PNG, BMP, JPEG, PNM, DDS, ICO, PSD, QOI, TGA, "
-        "TIFF, GIF or WebP file; AVIF, JPEG 2000 and PIL's small formats "
+        f"{path}: not a PNG, BMP, JPEG, PNM, DDS, ICO, JPEG 2000, PSD, QOI, "
+        "TGA, TIFF, GIF or WebP file; AVIF and PIL's small formats "
         "(SGI, PCX, DCX, CUR, ICNS, BLP, FTEX, IM, MSP, SUN, XBM, XPM, "
         "...) are not ported (ROADMAP.md, Queue 1: item 22b, the image "
         "formats neither the reference nor texture tools use)")
