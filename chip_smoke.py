@@ -207,12 +207,15 @@ Phases, each fatal on failure:
      on textured_lit.pbrt with that BC7 albedo and a DXT1 leaf whose
      cutouts are BC1's 1-bit alpha, 1280x720, 2 spp, as in 22;
  24. the port's TIFF, GIF and ICO readers (tiff_phase): every fixture
-     of tests/data/tiff (TIFF layouts, GIFs, ICOs, the TIFF scene's
+     of tests/data/tiff (TIFF layouts, JPEG, YCbCr, CIELab, CCITT,
+     Zstandard, LZMA, ThunderScan, GIFs, ICOs, the TIFF scenes'
      textures) decoded to the sha256 of PIL's array in its manifest; a
      1024x1024 RGB TIFF written with LZW and Predictor 2, and with
-     Deflate, read back equal and its decode timed on the host; the CLI
-     on textured_lit.pbrt with the tiled Deflate TIFF albedo and the RGBA
-     LZW TIFF leaf whose alpha makes the cutouts, as in 22;
+     Deflate, read back equal and its decode timed on the host, and the
+     committed GDAL-style 1024x1024 albedos (JPEG YCbCr 4:2:0 tiles,
+     Zstandard) timed the same way; the CLI on textured_lit.pbrt with the
+     JPEG-YCbCr TIFF albedo and the RGBA Zstandard TIFF leaf whose alpha
+     makes the cutouts, as in 22;
  25. the port's WebP, QOI, PNM and PSD readers (webp_phase): every
      fixture of tests/data/webp (WebP layouts, animations, QOI, PNM, PSD,
      the WebP scene's textures) decoded to the sha256 of PIL's array in
@@ -4162,19 +4165,23 @@ def dds_runs(torch, tmp):
 
 def tiff_runs(torch, tmp):
     """The port's TIFF, GIF and ICO readers (core/tiff.py, core/gif.py,
-    core/ico.py, csrc/lzw_codecs.cpp, g++ at first use) on the card's
-    machine, which has no PIL. (a) Every committed fixture of
-    tests/data/tiff decoded by image_io.decode_ldr, its shape, dtype and
-    sha256 equal to manifest.json's (written by
-    tests/make_tiff_fixtures.py). (b) utils/demo_scene's 1024x1024 albedo
-    written by core/tiff.write_tiff as an RGB TIFF with LZW and Predictor
-    2, and with Deflate and Predictor 2; each read back equal to the
-    pixels written, its decode 5 runs, host seconds, with the host's CPU
-    and the card line. (c) The CLI on textured_lit.pbrt with its albedo
-    the tiled Deflate TIFF fixture and its leaf the RGBA LZW TIFF fixture
-    whose unassociated alpha makes the cutouts, so the alpha re-fires of
-    kernel 1 run on the TIFF reader's texels (textured_swap_cli).
-    Returns (results, launches of (c))."""
+    core/ico.py, csrc/lzw_codecs.cpp and csrc/tiff_codecs.cpp, g++ at
+    first use; JPEG-in-TIFF through core/jpeg.py, LZMA through the
+    standard library) on the card's machine, which has no PIL. (a) Every
+    committed fixture of tests/data/tiff decoded by image_io.decode_ldr,
+    its shape, dtype and sha256 equal to manifest.json's (written by
+    tests/make_tiff_fixtures.py; JPEG, YCbCr, CIELab, CCITT, Zstandard,
+    LZMA, ThunderScan and old-style LZW among them). (b)
+    utils/demo_scene's 1024x1024 albedo written by core/tiff.write_tiff
+    as an RGB TIFF with LZW and Predictor 2, and with Deflate and
+    Predictor 2, each read back equal to the pixels written; then the
+    committed GDAL-style albedos, JPEG YCbCr 4:2:0 in 256x256 tiles with
+    JPEGTables and Zstandard with Predictor 2; each decode 5 runs, host
+    seconds, with the host's CPU and the card line. (c) The CLI on
+    textured_lit.pbrt with its albedo the JPEG-YCbCr TIFF and its leaf
+    the RGBA Zstandard TIFF whose unassociated alpha makes the cutouts,
+    so the alpha re-fires of kernel 1 run on the TIFF reader's texels
+    (textured_swap_cli). Returns (results, launches of (c))."""
     from tracerboy_tpu_torch.core.image_io import _to_uint8, decode_ldr
     from tracerboy_tpu_torch.core.tiff import write_tiff
     from tracerboy_tpu_torch.utils.demo_scene import albedo_image
@@ -4192,9 +4199,18 @@ def tiff_runs(torch, tmp):
         results[key] = dict(host_decode(decode_ldr, path), card=card_line())
         print(f"tiff decode 1024x1024 RGB {compression} predictor 2 "
               "(host):", json.dumps(results[key]))
+    for name, what in (("albedo_jpeg_ycbcr.tif",
+                        "JPEG quality 90 YCbCr 4:2:0 256x256 tiles"),
+                       ("albedo_zstd.tif", "Zstandard predictor 2")):
+        key = f"decode_1024_{name[7:-4]}"
+        results[key] = dict(host_decode(decode_ldr, TIFF_DIR / name),
+                            card=card_line())
+        print(f"tiff decode 1024x1024 {what} (host):",
+              json.dumps(results[key]))
     cli_res, launches = textured_swap_cli(
-        torch, tmp, "tiff", {"albedo.png": str(TIFF_DIR / "albedo.tif"),
-                             "leaf.png": str(TIFF_DIR / "leaf.tif")})
+        torch, tmp, "tiff",
+        {"albedo.png": str(TIFF_DIR / "albedo_jpeg_ycbcr.tif"),
+         "leaf.png": str(TIFF_DIR / "leaf_zstd.tif")})
     results.update(cli_res)
     return results, launches
 
@@ -4636,6 +4652,8 @@ def main() -> int:
              dds_decode_512_bc7=dds_res["decode_512_bc7"],
              tiff_decode_1024_lzw=tiff_res["decode_1024_lzw"],
              tiff_decode_1024_deflate=tiff_res["decode_1024_deflate"],
+             tiff_decode_1024_jpeg_ycbcr=tiff_res["decode_1024_jpeg_ycbcr"],
+             tiff_decode_1024_zstd=tiff_res["decode_1024_zstd"],
              **{f"webp_decode_1024_{key}": webp_res[f"decode_1024_{key}"]
                 for key in ("lossy", "lossless", "qoi")},
              **{f"j2k_decode_1024_{key}": j2k_res[f"decode_1024_{key}"]

@@ -5,29 +5,41 @@ manifest.
 
 Writes into tests/data/tiff/ (or OUT_DIR) a small file of each layout the
 port's readers (core/tiff.py, core/gif.py, core/ico.py,
-csrc/lzw_codecs.cpp) take:
+csrc/lzw_codecs.cpp, csrc/tiff_codecs.cpp) take:
 - TIFF written by PIL (strips: none, LZW, Deflate and PackBits over RGB,
-  RGBA, L, 1-bit, I;16, F, CMYK, P and LA) and by tests/tiff_encode.py
-  (the layouts PIL's writer cannot: tiles with cropped edges, planar 2,
+  RGBA, L, 1-bit, I;16, F, CMYK, P and LA; LZMA and Zstandard over the
+  same, with and without Predictor 2; JPEG from RGB, L and YCbCr at two
+  qualities; modified Huffman, Group 3 with T4Options 0, 1, 4 and 5 and
+  Group 4 at an odd width; CIELab) and by tests/tiff_encode.py (the
+  layouts PIL's writer cannot: tiles with cropped edges, planar 2,
   big-endian files, BigTIFF, Predictor 2 at 8 and 16 bits, Predictor 3,
   associated alpha at 8 and 16 bits, 16-bit colour maps, FillOrder 2,
   2- and 4-bit grey at both photometrics, 16-bit RGB and CMYK, float
-  with PIL's big-endian quirk);
+  with PIL's big-endian quirk; JPEG in strips and cropped tiles at
+  4:4:4, 4:2:2 and 4:2:0 with and without JPEGTables, YCbCr under LZW
+  and Deflate at every subsampling libtiff converts, LZMA and Zstandard
+  in tiles and planes, Zstandard frames of raw and RLE blocks with a
+  checksum, CCITT with FillOrder 2 and damaged, old-style LZW,
+  ThunderScan, RLE-word, files without StripByteCounts);
 - GIF written by PIL (global table, interlaced) and by tiff_encode (a
   local table, a frame smaller than the screen at an offset over a
   transparent fill, a grey-ramp table read as L, interlaced rows);
 - ICO written by PIL (PNG entries of three sizes) and by tiff_encode
   (BMP entries at 1, 4, 8, 24 and 32 bits a pixel with AND masks);
-- the TIFF scene's textures, utils/demo_scene.write_tiff_textures: the
-  1024x1024 albedo in 160x160 Deflate tiles and the 512x512 RGBA LZW
-  leaf whose alpha makes the cutouts.
+- the TIFF scenes' textures: utils/demo_scene.write_tiff_textures' 1024x1024
+  albedo in 160x160 Deflate tiles and 512x512 RGBA LZW leaf, and the
+  GDAL-style ones (gdal_textures): the albedo as GDAL writes
+  COMPRESS=JPEG PHOTOMETRIC=YCBCR (quality 90, 4:2:0, 256x256 tiles,
+  JPEGTables) and, with the leaf, as Zstandard with Predictor 2.
 manifest.json holds, for each file, the shape, dtype and sha256 of
 np.asarray of what the JAX read_ldr decodes through PIL (Image.open,
 converted to RGB or RGBA as read_ldr converts it), and PIL's version.
 The machine with the card has no PIL: chip_smoke.py and
 tests/test_torch_tiff_cuda.py hold the port against the manifest there;
-tests/test_torch_tiff.py and tests/test_torch_gif_ico.py hold the
-manifest against PIL.
+tests/test_torch_tiff.py, tests/test_torch_tiff_codecs.py and
+tests/test_torch_gif_ico.py hold the manifest against PIL. PIL's TIFF
+writer can leave libtiff broken after a refused save, so every PIL save
+here is one PIL accepts.
 """
 
 from __future__ import annotations
@@ -43,11 +55,30 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 from make_dds_fixtures import array_digest, pil_pixels  # noqa: E402
-from tiff_encode import dib, gif_file, ico_file, tiff_file  # noqa: E402
+from tiff_encode import (  # noqa: E402
+    _REVERSE,
+    LONG,
+    RATIONAL,
+    SHORT,
+    compress,
+    dib,
+    gif_file,
+    ico_file,
+    jpeg_tiff,
+    lzw_compat,
+    mh_rows,
+    thunderscan,
+    tiff_file,
+    ycbcr_segment,
+    zstd_frame,
+)
 
 FIXTURE_DIR = os.path.join(HERE, "data", "tiff")
 ALBEDO = "albedo.tif"
 LEAF = "leaf.tif"
+ALBEDO_JPEG = "albedo_jpeg_ycbcr.tif"
+ALBEDO_ZSTD = "albedo_zstd.tif"
+LEAF_ZSTD = "leaf_zstd.tif"
 W, H = 37, 21            # odd sizes: partial tiles, padded sub-byte rows
 
 
@@ -165,6 +196,208 @@ def own_tiffs(rng) -> dict:
     return out
 
 
+def _pil_save(im, **save) -> bytes:
+    buf = io.BytesIO()
+    im.save(buf, "TIFF", **save)
+    return buf.getvalue()
+
+
+def pil_codec_tiffs(rng) -> dict:
+    """LZMA, Zstandard, JPEG, CCITT and CIELab files from PIL's writer."""
+    from PIL import Image
+
+    out = {}
+    img = rng.integers(0, 256, (H, W, 4), dtype=np.uint8)
+    img[4:13, 2:31] = img[5, 9]
+    for mode in ("RGB", "RGBA", "L", "1", "P", "CMYK", "LA", "I;16", "F"):
+        im = Image.fromarray(img).convert(mode)
+        for comp in ("lzma", "zstd"):
+            tag = mode.lower().replace(";", "")
+            out[f"pil_{tag}_{comp}.tif"] = _pil_save(im, compression=comp)
+            if mode in ("RGB", "RGBA", "L", "I;16", "F"):
+                out[f"pil_{tag}_{comp}_pred2.tif"] = _pil_save(
+                    im, compression=comp, tiffinfo={317: 2})
+    rgb = Image.fromarray(img[..., :3])
+    for mode in ("RGB", "L", "YCbCr"):
+        for q in (50, 90):
+            out[f"pil_{mode.lower()}_jpeg_q{q}.tif"] = _pil_save(
+                rgb.convert(mode), compression="jpeg", quality=q)
+    bw = Image.fromarray(rng.random((29, 53)) > 0.4)
+    out["pil_1_ccitt_mh.tif"] = _pil_save(bw, compression="tiff_ccitt")
+    out["pil_1_group4.tif"] = _pil_save(bw, compression="group4")
+    for t4 in (0, 1, 4, 5):
+        out[f"pil_1_group3_t4_{t4}.tif"] = _pil_save(
+            bw, compression="group3", tiffinfo={292: t4})
+    lab = Image.frombytes("LAB", (W, H), img[..., :3].tobytes())
+    out["pil_lab_raw.tif"] = _pil_save(lab)
+    out["pil_lab_lzw.tif"] = _pil_save(lab, compression="tiff_lzw")
+    return out
+
+
+def _strip(data: bytes) -> bytes:
+    """The one strip of a PIL-written TIFF."""
+    from PIL import Image
+
+    with Image.open(io.BytesIO(data)) as im:
+        off, cnt = im.tag_v2[273][0], im.tag_v2[279][0]
+    return data[off:off + cnt]
+
+
+def codec_tiffs(rng) -> dict:
+    """The GDAL and fax layouts PIL's writer cannot write."""
+    from PIL import Image
+
+    out = {}
+    img = rng.integers(0, 256, (45, 53, 3), dtype=np.uint8)
+    img[10:30, 5:40] = (200, 30, 90)
+    for sub, name in ((0, "444"), (1, "422"), (2, "420")):
+        for tables in (True, False):
+            t = "tables" if tables else "full"
+            out[f"jpeg_ycbcr_{name}_{t}_strips.tif"] = jpeg_tiff(
+                img, photometric=6, subsampling=sub, tables=tables,
+                rows_per_strip=16)
+            out[f"jpeg_ycbcr_{name}_{t}_tiles.tif"] = jpeg_tiff(
+                img, photometric=6, subsampling=sub, tables=tables,
+                tile=(16, 32))
+    out["jpeg_ycbcr_420_no_sampling_tag.tif"] = jpeg_tiff(
+        img, photometric=6, subsampling=2, sampling_tag=False,
+        rows_per_strip=16)
+    out["jpeg_ycbcr_420_full_last_strip.tif"] = jpeg_tiff(
+        img, photometric=6, subsampling=2, rows_per_strip=16,
+        full_last_strip=True)
+    out["jpeg_rgb_ycc_stream.tif"] = jpeg_tiff(
+        img, photometric=2, subsampling=0, rows_per_strip=16)
+    out["jpeg_rgb_keep_rgb_tiles.tif"] = jpeg_tiff(
+        img, photometric=2, subsampling=0, keep_rgb=True, tile=(32, 16))
+    out["jpeg_grey_strips.tif"] = jpeg_tiff(img[..., 1], photometric=1,
+                                            subsampling=0, rows_per_strip=8)
+    hgt, wid = 21, 37
+    rbw = [15, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240, 1]
+    coeffs = [2126, 10000, 7152, 10000, 722, 10000]
+    for k, (hs, vs) in enumerate(((1, 1), (2, 1), (2, 2), (4, 1), (4, 2),
+                                  (4, 4), (1, 2))):
+        rps = {1: 5, 2: 6, 4: 8}[vs]
+        comp = (5, 8)[k % 2]
+        y = rng.integers(0, 256, (hgt, wid), dtype=np.uint8)
+        segs = []
+        for y0 in range(0, hgt, rps):
+            r = min(rps, hgt - y0)
+            chroma = rng.integers(0, 256, (2, -(-r // vs), -(-wid // hs)))
+            segs.append(compress(ycbcr_segment(y[y0:y0 + r], *chroma, hs, vs),
+                                 comp))
+        for with_rbw in (False, True):
+            tags = [(530, SHORT, [hs, vs])]
+            if with_rbw:
+                tags += [(529, RATIONAL, coeffs), (532, RATIONAL, rbw)]
+            name = f"ycbcr_{hs}x{vs}_{'lzw' if comp == 5 else 'deflate'}"
+            out[f"{name}{'_rbw' if with_rbw else ''}.tif"] = tiff_file(
+                np.zeros((hgt, wid, 3), np.uint8), bits=8, photometric=6,
+                compression=comp, rows_per_strip=rps, segments=segs,
+                tags=tags)
+    segs = []
+    for _ in range(6):
+        y = rng.integers(0, 256, (16, 16), dtype=np.uint8)
+        segs.append(compress(ycbcr_segment(
+            y, *rng.integers(0, 256, (2, 8, 8)), 2, 2), 5))
+    # 4x4 in tiles cropped at the right, Predictor 2 over libtiff's rows:
+    # the 4x4 routine's 10-byte skew and the predictor's row size.
+    out["ycbcr_4x4_lzw_tiles_pred2.tif"] = tiff_file(
+        rng.integers(0, 256, (hgt, wid, 3), dtype=np.uint8), bits=8,
+        photometric=6, compression=5, predictor=2, tile=(16, 16),
+        tags=[(530, SHORT, [4, 4])])
+    out["ycbcr_2x2_lzw_tiles.tif"] = tiff_file(
+        np.zeros((hgt, wid, 3), np.uint8), bits=8, photometric=6,
+        compression=5, tile=(16, 16), segments=segs,
+        tags=[(530, SHORT, [2, 2])])
+    # Uncompressed: PIL's raw mode RGBX reads 4 bytes a pixel, here from
+    # the samples and the IFD after them.
+    out["ycbcr_raw_rgbx.tif"] = tiff_file(
+        rng.integers(0, 256, (5, 6, 3), dtype=np.uint8), bits=8,
+        photometric=6, tags=[(530, SHORT, [1, 1])])
+    rgb = rng.integers(0, 256, (hgt, wid, 3), dtype=np.uint8)
+    rgb[3:15, 4:30] = rgb[4, 4]
+    for comp, name in ((34925, "lzma"), (50000, "zstd")):
+        out[f"{name}_tiles_pred2.tif"] = tiff_file(
+            rgb, bits=8, photometric=2, compression=comp, predictor=2,
+            tile=(16, 16))
+        out[f"{name}_planar.tif"] = tiff_file(
+            rgb, bits=8, photometric=2, compression=comp, planar=2,
+            rows_per_strip=8)
+    raw = rgb.tobytes()
+    out["zstd_raw_rle_blocks_checksum.tif"] = tiff_file(
+        rgb, bits=8, photometric=2, compression=50000,
+        segments=[zstd_frame(raw, block=700)])
+    flat = np.full_like(rgb, 77)
+    flat[10:] = rgb[10:]
+    out["zstd_rle_blocks_no_size.tif"] = tiff_file(
+        flat, bits=8, photometric=2, compression=50000,
+        segments=[zstd_frame(flat.tobytes(), block=37 * 3,
+                             content_size=False)])
+    bits = rng.random((29, 53)) > 0.4
+    bw = Image.fromarray(~bits)
+    for comp, code, t4 in (("group4", 4, None), ("group3", 3, 5),
+                           ("group3_1d", 3, 4)):
+        info = {"tiffinfo": {292: t4}} if t4 is not None else {}
+        strip = _strip(_pil_save(bw, compression=comp[:6], **info))
+        tags = [(292, LONG, t4)] if t4 is not None else []
+        if comp != "group3_1d":
+            out[f"{comp}_fillorder2.tif"] = tiff_file(
+                bits.astype(np.uint8), bits=1, photometric=1,
+                compression=code, fill_order=2, tags=tags,
+                segments=[_REVERSE[np.frombuffer(strip, np.uint8)]
+                          .tobytes()])
+        if comp == "group3":
+            continue     # damage can end a 2D strip early: see tiff.py
+        bad = bytearray(strip)
+        for at in (len(bad) // 3, len(bad) // 2):
+            bad[at] ^= 0x5A
+        out[f"{comp}_damaged.tif"] = tiff_file(
+            bits.astype(np.uint8), bits=1, photometric=0, compression=code,
+            tags=tags, segments=[bytes(bad)])
+    out["ccitt_rlew.tif"] = tiff_file(
+        bits.astype(np.uint8), bits=1, photometric=0, compression=32771,
+        rows_per_strip=10, segments=[mh_rows(bits[y:y + 10], True)
+                                     for y in range(0, 29, 10)])
+    out["lzw_old_style.tif"] = tiff_file(
+        rgb, bits=8, photometric=2, compression=5, rows_per_strip=8,
+        segments=[lzw_compat(rgb[y:y + 8].tobytes())
+                  for y in range(0, hgt, 8)])
+    grey4 = rng.integers(0, 16, (hgt, wid), dtype=np.uint8)
+    grey4[5:12, 3:30] = 9
+    for pm in (0, 1):
+        out[f"thunderscan_pm{pm}.tif"] = tiff_file(
+            grey4, bits=4, photometric=pm, compression=32809,
+            rows_per_strip=8, segments=[thunderscan(grey4[y:y + 8], y)
+                                        for y in range(0, hgt, 8)])
+    for comp, name in ((5, "lzw"), (8, "deflate")):
+        out[f"no_bytecounts_{name}.tif"] = tiff_file(
+            rgb, bits=8, photometric=2, compression=comp, drop=(279,))
+    return out
+
+
+def gdal_textures() -> dict:
+    """The GDAL-style TIFF scene's textures from utils/demo_scene's images:
+    the 1024x1024 albedo as COMPRESS=JPEG PHOTOMETRIC=YCBCR (quality 90,
+    4:2:0, 256x256 tiles, JPEGTables) and as Zstandard with Predictor 2,
+    and the 512x512 RGBA leaf (unassociated alpha) as Zstandard with
+    Predictor 2, both by PIL's writer."""
+    from PIL import Image
+
+    from tracerboy_tpu_torch.core.image_io import _to_uint8
+    from tracerboy_tpu_torch.utils.demo_scene import albedo_image, leaf_image
+
+    albedo = _to_uint8(albedo_image(1024))
+    leaf = _to_uint8(leaf_image(512))
+    return {
+        ALBEDO_JPEG: jpeg_tiff(albedo, photometric=6, quality=90,
+                               subsampling=2, tile=(256, 256)),
+        ALBEDO_ZSTD: _pil_save(Image.fromarray(albedo), compression="zstd",
+                               tiffinfo={317: 2}),
+        LEAF_ZSTD: _pil_save(Image.fromarray(leaf), compression="zstd",
+                             tiffinfo={317: 2}),
+    }
+
+
 def gifs(rng) -> dict:
     from PIL import Image
 
@@ -245,6 +478,9 @@ def main(out_dir: str = FIXTURE_DIR) -> dict:
     rng = np.random.default_rng(20261018)
     files = {**pil_tiffs(rng), **own_tiffs(rng), **gifs(rng), **icos(rng),
              **scene_textures(out_dir)}
+    codec_rng = np.random.default_rng(20261020)
+    files.update({**pil_codec_tiffs(codec_rng), **codec_tiffs(codec_rng),
+                  **gdal_textures()})
     manifest = {"pil": PIL.__version__, "files": {}}
     for name, data in files.items():
         path = os.path.join(out_dir, name)

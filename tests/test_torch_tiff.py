@@ -7,16 +7,20 @@ read_ldr's float32, with and without gamma_to_linear).
 The committed fixtures (tests/data/tiff, written by
 tests/make_tiff_fixtures.py) are held against PIL and their manifest.
 Hypothesis sweeps every (byte order, photometric, sample format, fill
-order, bits, extra samples) key of PIL's OPEN_INFO but YCbCr and CIELab,
-under every compression the port reads, strips and tiles, planar 1 and
-2, every predictor, classic and BigTIFF headers, at 1x1 to 40x30 with
-random samples (floats with NaN, infinities and negatives). Where PIL
-refuses a file the port raises: ValueError where PIL raises OSError,
-ValueError, EOFError or KeyError, NotImplementedError where PIL cannot
-identify it. The layouts PIL reads and the port leaves out raise
-NotImplementedError naming ROADMAP item 22c. A PBRT scene whose image
+order, bits, extra samples) key of PIL's OPEN_INFO (YCbCr and CIELab
+too: YCbCr without a YCbCrSubsampling tag is 2x2 in libtiff's RGBA
+route), under every compression the port reads and tiff_encode writes
+here, strips and tiles, planar 1 and 2, every predictor, classic and
+BigTIFF headers, at 1x1 to 40x30 with random samples (floats with NaN,
+infinities and negatives). Where PIL refuses a file the port raises:
+ValueError where PIL raises OSError, ValueError, EOFError or KeyError,
+NotImplementedError where PIL cannot identify it. The layouts that moved
+out of ROADMAP item 22c (JPEG, CCITT, YCbCr, CIELab, no StripByteCounts)
+read as the JAX read_ldr; those PIL reads and the port still leaves out
+raise NotImplementedError naming item 22c. A PBRT scene whose image
 textures and environment map are TIFFs compiles in both packages to the
-same leaves, bit for bit.
+same leaves, bit for bit. The codecs of item 22c have their own sweeps
+in tests/test_torch_tiff_codecs.py.
 """
 
 import io
@@ -32,7 +36,7 @@ from PIL import Image, UnidentifiedImageError
 
 from make_dds_fixtures import array_digest, pil_pixels
 from make_tiff_fixtures import ALBEDO, FIXTURE_DIR, LEAF
-from tiff_encode import tiff_file
+from tiff_encode import FLOAT, jpeg_stream, tiff_file
 from tracerboy_tpu_torch.core import image_io, tiff
 
 torch.set_num_threads(2)
@@ -40,8 +44,8 @@ torch.set_num_threads(2)
 with open(os.path.join(FIXTURE_DIR, "manifest.json")) as f:
     MANIFEST = json.load(f)
 TIFF_FIXTURES = sorted(n for n in MANIFEST["files"] if n.endswith(".tif"))
-# PIL's mode keys the port reads: all but YCbCr (6) and CIELab (8).
-KEYS = sorted((k for k in tiff.OPEN_INFO if k[1] not in (6, 8)), key=repr)
+# PIL's mode keys, YCbCr (6) and CIELab (8) among them.
+KEYS = sorted(tiff.OPEN_INFO, key=repr)
 ITEM = "item 22c"
 
 
@@ -116,7 +120,7 @@ def test_manifest_matches_the_files():
     """Every fixture (TIFF, GIF, ICO) is in the manifest, and PIL's decode
     of each has the recorded shape, dtype and sha256 (so the card's
     machine, which has no PIL, checks the port against PIL's arrays);
-    the port's own decode too. The committed data stays under 400 KiB."""
+    the port's own decode too. The committed data stays under 1.5 MiB."""
     names = set(os.listdir(FIXTURE_DIR)) - {"manifest.json"}
     assert names == set(MANIFEST["files"])
     for name, entry in MANIFEST["files"].items():
@@ -125,7 +129,7 @@ def test_manifest_matches_the_files():
         assert array_digest(image_io.decode_ldr(path)) == entry, name
     total = sum(os.path.getsize(os.path.join(FIXTURE_DIR, n))
                 for n in os.listdir(FIXTURE_DIR))
-    assert total < 400 << 10
+    assert total < 1536 << 10
 
 
 def test_open_info_is_pils():
@@ -223,7 +227,7 @@ def _pil_written(mode, **save):
     return buf.getvalue()
 
 
-def _left_out():
+def _former_left_out():
     rng = np.random.default_rng(4)
     rgb = rng.integers(0, 256, (16, 24, 3), dtype=np.uint8)
     return {
@@ -235,10 +239,31 @@ def _left_out():
         "cielab": _pil_written("LAB"),
         "no_bytecounts": tiff_file(rgb, bits=8, photometric=2,
                                    compression=5, drop=(279,)),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_former_left_out()))
+def test_former_left_out_layouts_read_as_jax(tmp_path, case):
+    """Layouts ROADMAP item 22c listed until the port read them: equal to
+    the JAX read_ldr (CIELab as RGBA, as read_ldr converts PIL's LAB)."""
+    got = assert_as_jax(tmp_path / "f.tif", _former_left_out()[case])
+    assert got is not None and got.shape[-1] == (4 if case == "cielab"
+                                                 else 3)
+
+
+def _left_out():
+    rng = np.random.default_rng(4)
+    rgb = rng.integers(0, 256, (16, 24, 3), dtype=np.uint8)
+    return {
         "planar_px_tiles": tiff_file(
             rng.integers(0, 256, (16, 24, 2), dtype=np.uint8), bits=8,
             photometric=3, extra=(0,), compression=5, planar=2,
             tile=(16, 16), colormap=rng.integers(0, 65536, (3, 256))),
+        "old_style_jpeg": tiff_file(
+            rgb, bits=8, photometric=6, compression=6,
+            segments=[jpeg_stream(rgb, 90, 2)], tags=[(530, 3, [2, 2])]),
+        "float_typed_tag": tiff_file(rgb, bits=8, photometric=2,
+                                     tags=[(317, FLOAT, [1.0])]),
     }
 
 

@@ -2,7 +2,8 @@
 no PIL: every fixture of tests/data/tiff decodes to the shape, dtype and
 sha256 of PIL's array in its manifest (tests/make_tiff_fixtures.py wrote
 both), and the textured demo scene with the tiled Deflate TIFF albedo and
-the RGBA LZW TIFF leaf, whose alpha makes the cutouts, renders on the
+the RGBA LZW TIFF leaf, whose alpha makes the cutouts, and again with
+the GDAL-style JPEG-YCbCr albedo and RGBA Zstandard leaf, renders on the
 card with every closest-hit launch of kernel 1 (main waves, alpha
 re-fires, shadow-BVH rounds) held against its plain version: hits equal,
 t to 1e-6 relative, ids equal but on at most 1e-4 of the hit lanes
@@ -52,6 +53,22 @@ def test_fixture_hash_matches_pil(cuda_device, name):
 @pytest.mark.cuda
 def test_tiff_scene_launches_equal_their_plain_version(cuda_device, tmp_path,
                                                       monkeypatch):
+    _scene_launches(tmp_path, monkeypatch, {
+        "albedo.png": os.path.join(FIXTURES, "albedo.tif"),
+        "leaf.png": os.path.join(FIXTURES, "leaf.tif")})
+
+
+@pytest.mark.cuda
+def test_gdal_tiff_scene_launches_equal_their_plain_version(
+        cuda_device, tmp_path, monkeypatch):
+    """The GDAL-style textures: the albedo a JPEG YCbCr 4:2:0 TIFF in
+    256x256 tiles, the leaf an RGBA Zstandard TIFF with Predictor 2."""
+    _scene_launches(tmp_path, monkeypatch, {
+        "albedo.png": os.path.join(FIXTURES, "albedo_jpeg_ycbcr.tif"),
+        "leaf.png": os.path.join(FIXTURES, "leaf_zstd.tif")})
+
+
+def _scene_launches(tmp_path, monkeypatch, swaps):
     from tracerboy_tpu_torch import Renderer
     from tracerboy_tpu_torch.trace import kernels, traverse
     from tracerboy_tpu_torch.utils.demo_scene import (
@@ -62,8 +79,7 @@ def test_tiff_scene_launches_equal_their_plain_version(cuda_device, tmp_path,
     tex, lit = write_textured_scene(str(tmp_path), grid=64, sky=(64, 32),
                                     leaves=512, albedo=8, normal=64,
                                     leaf=8)
-    retexture(tex, {"albedo.png": os.path.join(FIXTURES, "albedo.tif"),
-                    "leaf.png": os.path.join(FIXTURES, "leaf.tif")})
+    retexture(tex, swaps)
     calls = []
     real = traverse.closest_hit
 

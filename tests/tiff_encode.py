@@ -9,7 +9,15 @@ libtiff reverses the raw strip before decoding it), associated alpha,
 16-bit colour maps, every bit depth at either photometric; LZW by the
 port's encoder (core/tiff.lzw_encode, whose output PIL decodes to the
 same pixels: PIL and the JAX read_ldr decide what is right), Deflate by
-zlib, PackBits by its own encoder.
+zlib, PackBits by its own encoder, LZMA by the standard library's lzma
+(.xz), Zstandard by the libzstd that Pillow's wheel carries (ctypes) or
+by zstd_frame, a writer of raw and RLE blocks.
+The layouts of GDAL's and the fax tools' writers: JPEG-in-TIFF from
+PIL's JPEG encoder (jpeg_tiff: strips or tiles, 4:4:4, 4:2:2, 4:2:0,
+each segment a whole datastream or an abbreviated one after a
+JPEGTables stream), subsampled YCbCr blocks (ycbcr_segment), old-style
+LZW (lzw_compat), ThunderScan (thunderscan) and modified Huffman rows
+(mh_rows, byte- or word-aligned).
 GIFs: global and local colour tables, interlaced rows, a first frame
 smaller than the screen at an offset, a graphic control extension with
 a transparent index. ICOs: directories of PNG and BMP (DIB) payloads at
@@ -18,6 +26,8 @@ a transparent index. ICOs: directories of PNG and BMP (DIB) payloads at
 
 from __future__ import annotations
 
+import lzma
+import os
 import struct
 import zlib
 
@@ -32,8 +42,10 @@ FILLORDER, STRIPOFFSETS, SPP, ROWSPERSTRIP, STRIPBYTECOUNTS = (266, 273, 277,
 PLANAR, PREDICTOR, COLORMAP = 284, 317, 320
 TILEWIDTH, TILELENGTH, TILEOFFSETS, TILEBYTECOUNTS = 322, 323, 324, 325
 EXTRASAMPLES, SAMPLEFORMAT = 338, 339
-SHORT, LONG, LONG8 = 3, 4, 16
-_TYPE_FMT = {SHORT: "H", LONG: "L", LONG8: "Q"}
+SHORT, LONG, RATIONAL, LONG8 = 3, 4, 5, 16
+UNDEFINED, FLOAT = 7, 11
+_TYPE_FMT = {SHORT: "H", LONG: "L", RATIONAL: "L", LONG8: "Q",
+             UNDEFINED: "B", FLOAT: "f"}
 
 _REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)], np.uint8)
 
@@ -73,7 +85,381 @@ def compress(data: bytes, compression: int) -> bytes:
         return zlib.compress(data, 6)
     if compression == 32773:
         return packbits(data)
+    if compression == 34925:
+        return lzma.compress(data, format=lzma.FORMAT_XZ)
+    if compression == 50000:
+        return zstd_compress(data)
     raise ValueError(f"no encoder for compression {compression}")
+
+
+_zstd = None
+
+
+def zstd_compress(data: bytes, level: int = 3, checksum: bool = False,
+                  content_size: bool = True) -> bytes:
+    """A Zstandard frame by the libzstd of Pillow's wheel (ctypes)."""
+    global _zstd
+    if _zstd is None:
+        import ctypes
+        import glob
+
+        import PIL
+
+        libs = glob.glob(os.path.join(os.path.dirname(os.path.dirname(
+            PIL.__file__)), "pillow.libs", "libzstd*"))
+        if not libs:
+            raise RuntimeError("no libzstd beside PIL")
+        lib = ctypes.CDLL(libs[0])
+        lib.ZSTD_createCCtx.restype = ctypes.c_void_p
+        lib.ZSTD_freeCCtx.argtypes = [ctypes.c_void_p]
+        lib.ZSTD_CCtx_setParameter.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                               ctypes.c_int]
+        lib.ZSTD_compress2.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.c_size_t, ctypes.c_void_p,
+                                       ctypes.c_size_t]
+        lib.ZSTD_compress2.restype = ctypes.c_size_t
+        lib.ZSTD_isError.argtypes = [ctypes.c_size_t]
+        _zstd = lib
+    import ctypes
+
+    cctx = _zstd.ZSTD_createCCtx()
+    try:
+        for param, value in ((100, level), (200, int(content_size)),
+                             (201, int(checksum))):
+            _zstd.ZSTD_CCtx_setParameter(cctx, param, value)
+        out = ctypes.create_string_buffer(2 * len(data) + 1024)
+        n = _zstd.ZSTD_compress2(cctx, out, len(out), data, len(data))
+        if _zstd.ZSTD_isError(n):
+            raise RuntimeError("ZSTD_compress2 failed")
+        return out.raw[:n]
+    finally:
+        _zstd.ZSTD_freeCCtx(cctx)
+
+
+_P1, _P2, _P3 = 0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F, 0x165667B19E3779F9
+_P4, _P5, _M64 = 0x85EBCA77C2B2AE63, 0x27D4EB2F165667C5, (1 << 64) - 1
+
+
+def xxh64(data: bytes) -> int:
+    """XXH64 with seed 0 (a Zstandard frame's content checksum is its low
+    32 bits)."""
+    def rotl(x, r):
+        return ((x << r) | (x >> (64 - r))) & _M64
+
+    def rnd(acc, lane):
+        return rotl((acc + lane * _P2) & _M64, 31) * _P1 & _M64
+
+    n, i = len(data), 0
+    if n >= 32:
+        v = [(_P1 + _P2) & _M64, _P2, 0, (-_P1) & _M64]
+        while i + 32 <= n:
+            for k in range(4):
+                v[k] = rnd(v[k], int.from_bytes(data[i + 8 * k:i + 8 * k + 8],
+                                                "little"))
+            i += 32
+        h = (rotl(v[0], 1) + rotl(v[1], 7) + rotl(v[2], 12)
+             + rotl(v[3], 18)) & _M64
+        for x in v:
+            h = ((h ^ rnd(0, x)) * _P1 + _P4) & _M64
+    else:
+        h = _P5
+    h = (h + n) & _M64
+    while i + 8 <= n:
+        h ^= rnd(0, int.from_bytes(data[i:i + 8], "little"))
+        h = (rotl(h, 27) * _P1 + _P4) & _M64
+        i += 8
+    if i + 4 <= n:
+        h ^= int.from_bytes(data[i:i + 4], "little") * _P1 & _M64
+        h = (rotl(h, 23) * _P2 + _P3) & _M64
+        i += 4
+    while i < n:
+        h ^= data[i] * _P5 & _M64
+        h = rotl(h, 11) * _P1 & _M64
+        i += 1
+    h ^= h >> 33
+    h = h * _P2 & _M64
+    h ^= h >> 29
+    h = h * _P3 & _M64
+    return h ^ (h >> 32)
+
+
+def zstd_frame(data: bytes, block: int = 1000, rle: bool = True,
+               checksum: bool = True, dict_id: int = 0,
+               content_size: bool = True) -> bytes:
+    """A Zstandard frame of raw blocks of `block` bytes, a run of one byte
+    value as an RLE block (rle), with the content size, the XXH64
+    checksum and a dictionary ID as asked."""
+    did = (0 if not dict_id else 1 if dict_id < 256 else 2
+           if dict_id < 65536 else 3)
+    fcs = 3 if content_size else 0
+    out = bytearray(struct.pack("<I", 0xFD2FB528))
+    out.append(fcs << 6 | int(checksum) << 2 | did)
+    out.append(17 << 3)                  # window 2^27
+    out += dict_id.to_bytes({0: 0, 1: 1, 2: 2, 3: 4}[did], "little")
+    if content_size:
+        out += struct.pack("<Q", len(data))
+    pos = 0
+    while True:
+        chunk = data[pos:pos + block]
+        last = pos + block >= len(data)
+        if rle and chunk and chunk == chunk[:1] * len(chunk):
+            out += struct.pack("<I", (len(chunk) << 3) | 2 | last)[:3]
+            out += chunk[:1]
+        else:
+            out += struct.pack("<I", (len(chunk) << 3) | last)[:3] + chunk
+        pos += block
+        if last:
+            break
+    if checksum:
+        out += struct.pack("<I", xxh64(data) & 0xFFFFFFFF)
+    return bytes(out)
+
+
+def lzw_compat(data: bytes) -> bytes:
+    """Old-style TIFF LZW (4.2BSD compress's codes): a clear code first,
+    codes LSB first, the width raised once the next free code passes 2^n
+    (no early change), a clear code when the table is full, the end code
+    last. The leading clear code makes the stream start 0x00 with the
+    low bit of the second byte set, which is how libtiff tells it."""
+    out = bytearray()
+    acc = nacc = 0
+
+    def put(code, width):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += width
+        while nacc >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nacc -= 8
+
+    width, table, nxt = 9, {}, 258
+    put(256, width)
+    prefix = None
+    for b in data:
+        key = (prefix, b)
+        if prefix is not None and key in table:
+            prefix = table[key]
+            continue
+        if prefix is not None:
+            put(prefix, width)
+            table[key] = nxt
+            nxt += 1
+            if nxt > (1 << width) and width < 12:
+                width += 1
+            if nxt >= 4093:
+                put(256, width)
+                table, nxt, width = {}, 258, 9
+        prefix = b
+    if prefix is not None:
+        put(prefix, width)
+    put(257, width)
+    if nacc:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def thunderscan(pixels: np.ndarray, seed: int = 0) -> bytes:
+    """ThunderScan 4-bit rows (pixels (H, W) in 0-15): each pixel as a raw
+    code, a 2-bit or 3-bit delta pair or triple, or a run of the last
+    pixel that ends before the row's end (libtiff writes no other), chosen
+    at random so every code appears."""
+    rng = np.random.default_rng(seed)
+    out = bytearray()
+    two = {0: 0, 1: 1, -1: 3}
+    three = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+    for row in pixels:
+        last, i, w = 0, 0, len(row)
+        while i < w:
+            v = int(row[i])
+            run = 0
+            while i + run < w and int(row[i + run]) == last and run < 63:
+                run += 1
+            choice = rng.integers(0, 4)
+            if run >= 2 and choice == 0 and i + run < w:
+                out.append(run)
+                i += run
+                continue
+            d = [int(row[j]) for j in range(i, min(i + 3, w))]
+            steps, prev = [], last
+            for x in d:
+                steps.append(x - prev)
+                prev = x
+            if (choice == 1 and len(steps) == 3
+                    and all(s in two for s in steps)):
+                out.append(0x40 | two[steps[0]] << 4 | two[steps[1]] << 2
+                           | two[steps[2]])
+                i, last = i + 3, d[2]
+                continue
+            if (choice == 2 and len(steps) >= 2
+                    and all(s in three for s in steps[:2])):
+                out.append(0x80 | three[steps[0]] << 3 | three[steps[1]])
+                i, last = i + 2, d[1]
+                continue
+            out.append(0xC0 | v)
+            i, last = i + 1, v
+    return bytes(out)
+
+
+# T.4 run-length codes: (bits as a string, run) for white and black.
+_WHITE_TERM = ("00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 "
+               "00111 01000 001000 000011 110100 110101 101010 101011 "
+               "0100111 0001100 0001000 0010111 0000011 0000100 0101000 "
+               "0101011 0010011 0100100 0011000 00000010 00000011 00011010 "
+               "00011011 00010010 00010011 00010100 00010101 00010110 "
+               "00010111 00101000 00101001 00101010 00101011 00101100 "
+               "00101101 00000100 00000101 00001010 00001011 01010010 "
+               "01010011 01010100 01010101 00100100 00100101 01011000 "
+               "01011001 01011010 01011011 01001010 01001011 00110010 "
+               "00110011 00110100").split()
+_WHITE_MAKEUP = ("11011 10010 010111 0110111 00110110 00110111 01100100 "
+                 "01100101 01101000 01100111 011001100 011001101 011010010 "
+                 "011010011 011010100 011010101 011010110 011010111 "
+                 "011011000 011011001 011011010 011011011 010011000 "
+                 "010011001 010011010 011000 010011011").split()
+_BLACK_TERM = ("0000110111 010 11 10 011 0011 0010 00011 000101 000100 "
+               "0000100 0000101 0000111 00000100 00000111 000011000 "
+               "0000010111 0000011000 0000001000 00001100111 00001101000 "
+               "00001101100 00000110111 00000101000 00000010111 "
+               "00000011000 000011001010 000011001011 000011001100 "
+               "000011001101 000001101000 000001101001 000001101010 "
+               "000001101011 000011010010 000011010011 000011010100 "
+               "000011010101 000011010110 000011010111 000001101100 "
+               "000001101101 000011011010 000011011011 000001010100 "
+               "000001010101 000001010110 000001010111 000001100100 "
+               "000001100101 000001010010 000001010011 000000100100 "
+               "000000110111 000000111000 000000100111 000000101000 "
+               "000001011000 000001011001 000000101011 000000101100 "
+               "000001011010 000001100110 000001100111").split()
+_BLACK_MAKEUP = ("0000001111 000011001000 000011001001 000001011011 "
+                 "000000110011 000000110100 000000110101 0000001101100 "
+                 "0000001101101 0000001001010 0000001001011 0000001001100 "
+                 "0000001001101 0000001110010 0000001110011 0000001110100 "
+                 "0000001110101 0000001110110 0000001110111 0000001010010 "
+                 "0000001010011 0000001010100 0000001010101 0000001011010 "
+                 "0000001011011 0000001100100 0000001100101").split()
+
+
+def _mh_run(run: int, black: bool) -> str:
+    term, makeup = ((_BLACK_TERM, _BLACK_MAKEUP) if black
+                    else (_WHITE_TERM, _WHITE_MAKEUP))
+    code = ""
+    while run >= 64:
+        m = min(run // 64, 27)
+        code += makeup[m - 1]
+        run -= 64 * m
+    return code + term[run]
+
+
+def mh_rows(bits: np.ndarray, word_align: bool = False) -> bytes:
+    """Modified Huffman (compression 2, or 32771 with word_align): each
+    row's runs (white first, 1 = black) as T.4 codes, the row padded to
+    a byte (a 16-bit word)."""
+    out = bytearray()
+    for row in np.asarray(bits, bool):
+        code, x, black = "", 0, False
+        while x < len(row):
+            r = 0
+            while x + r < len(row) and bool(row[x + r]) == black:
+                r += 1
+            code += _mh_run(r, black)
+            x += r
+            black = not black
+        if black is False and x == len(row) and code == "":
+            code = _mh_run(0, False)
+        align = 16 if word_align else 8
+        code += "0" * (-len(code) % align)
+        out += int(code, 2).to_bytes(len(code) // 8, "big") if code else b""
+    return bytes(out)
+
+
+def ycbcr_segment(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, h: int,
+                  v: int) -> bytes:
+    """A strip or tile of subsampled YCbCr as TIFF stores it: for each
+    h x v block (rows of blocks, padded with zeros at the edges) its luma
+    row by row, then one Cb and one Cr. y is (rows, width); cb and cr are
+    (ceil(rows / v), ceil(width / h))."""
+    rows, width = y.shape
+    by, bx = -(-rows // v), -(-width // h)
+    pad = np.zeros((by * v, bx * h), np.uint8)
+    pad[:rows, :width] = y
+    blocks = pad.reshape(by, v, bx, h).transpose(0, 2, 1, 3).reshape(
+        by, bx, v * h)
+    return np.concatenate([blocks, cb[..., None].astype(np.uint8),
+                           cr[..., None].astype(np.uint8)], -1).tobytes()
+
+
+def jpeg_stream(pixels: np.ndarray, quality: int, subsampling: int,
+                keep_rgb: bool = False) -> bytes:
+    """PIL's JPEG encoder on (H, W, 3) or (H, W) uint8."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(pixels).save(buf, "JPEG", quality=quality,
+                                 subsampling=subsampling, keep_rgb=keep_rgb)
+    return buf.getvalue()
+
+
+def split_tables(stream: bytes) -> tuple[bytes, bytes]:
+    """A datastream as (tables-only stream, abbreviated stream): its DQT
+    and DHT segments between SOI and EOI, and the stream without them."""
+    tables, image = bytearray(b"\xff\xd8"), bytearray(b"\xff\xd8")
+    pos = 2
+    while pos < len(stream):
+        code = stream[pos + 1]
+        n = struct.unpack_from(">H", stream, pos + 2)[0]
+        seg = stream[pos:pos + 2 + n]
+        (tables if code in (0xDB, 0xC4) else image).extend(seg)
+        pos += 2 + n
+        if code == 0xDA:
+            image += stream[pos:]
+            break
+    return bytes(tables + b"\xff\xd9"), bytes(image)
+
+
+def jpeg_tiff(pixels: np.ndarray, *, photometric: int, quality: int = 90,
+              subsampling: int = 2, tile=None, rows_per_strip=None,
+              tables: bool = True, keep_rgb: bool = False,
+              sampling_tag: bool = True, full_last_strip: bool = False,
+              **kw) -> bytes:
+    """A JPEG-compressed TIFF (compression 7) of (H, W, 3) or (H, W)
+    pixels: each strip or tile (edge tiles padded by replication, the
+    last strip as many rows as are left unless full_last_strip) a JPEG
+    from PIL's encoder; with `tables`, their DQT and DHT moved into one
+    JPEGTables (every segment's tables the same, as PIL's encoder writes
+    them for one quality); photometric 6 carries YCbCrSubsampling (h, v)
+    of the encoder's luma unless sampling_tag is false."""
+    if pixels.ndim == 2:
+        pixels = pixels[..., None]
+    hgt, wid, spp = pixels.shape
+    if tile is None:
+        rps = rows_per_strip or hgt
+        regions = [(0, y, wid, rps if full_last_strip else min(rps, hgt - y))
+                   for y in range(0, hgt, rps)]
+    else:
+        regions = [(x, y, tile[0], tile[1]) for y in range(0, hgt, tile[1])
+                   for x in range(0, wid, tile[0])]
+    segments, table = [], None
+    for x, y, rw, rh in regions:
+        block = np.pad(pixels[y:y + rh, x:x + rw],
+                       ((0, max(0, y + rh - hgt)), (0, max(0, x + rw - wid)),
+                        (0, 0)), mode="edge")
+        stream = jpeg_stream(block[..., 0] if spp == 1 else block, quality,
+                             subsampling, keep_rgb)
+        if tables:
+            table, stream = split_tables(stream)
+        segments.append(stream)
+    extra_tags = list(kw.pop("tags", ()))
+    if table is not None:
+        extra_tags.append((347, UNDEFINED, list(table)))
+    if photometric == 6 and sampling_tag:
+        extra_tags.append((530, SHORT, [{0: 1, 1: 2, 2: 2}[subsampling],
+                                        {0: 1, 1: 1, 2: 2}[subsampling]]))
+    return tiff_file(pixels, bits=8, photometric=photometric, compression=7,
+                     tile=tile, rows_per_strip=rows_per_strip,
+                     segments=segments, tags=extra_tags, **kw)
 
 
 # ----------------------------------------------------------------------------
@@ -127,8 +513,9 @@ def predict_float(samples: np.ndarray, stride: int) -> np.ndarray:
 
 def _entry(tag, typ, values, endian):
     values = list(values) if isinstance(values, (list, tuple)) else [values]
+    count = len(values) // 2 if typ == RATIONAL else len(values)
     return tag, typ, struct.pack(f"{endian}{len(values)}{_TYPE_FMT[typ]}",
-                                 *values), len(values)
+                                 *values), count
 
 
 def tiff_file(samples: np.ndarray, *, bits: int, photometric: int,
@@ -138,13 +525,16 @@ def tiff_file(samples: np.ndarray, *, bits: int, photometric: int,
               rows_per_strip: int | None = None, planar: int = 1,
               fill_order: int = 1, colormap: np.ndarray | None = None,
               truncate: int = 0, ifd_first: bool = False, drop=(),
-              tags=()) -> bytes:
+              tags=(), segments=None) -> bytes:
     """One IFD over (H, W, S) samples (or (H, W)): strips of
     `rows_per_strip` rows (default all) or `tile` = (tw, th) tiles, each
-    compressed alone; colormap (3, 2**bits) uint16; truncate drops that many bytes off the end of the last strip or tile; the IFD
-    goes after the data, or before it with ifd_first (so cutting the
-    file cuts the data); `drop` lists tags to leave out and `tags` adds
-    (tag, type, values) entries."""
+    compressed alone; colormap (3, 2**bits) uint16; truncate drops that
+    many bytes off the end of the last strip or tile; the IFD goes after
+    the data, or before it with ifd_first (so cutting the file cuts the
+    data); `drop` lists tags to leave out and `tags` adds (tag, type,
+    values) entries (RATIONAL values as numerator, denominator pairs).
+    segments: the stored bytes of every strip or tile, as given (samples
+    then only give the image's shape)."""
     if samples.ndim == 2:
         samples = samples[..., None]
     h, w, spp = samples.shape
@@ -159,7 +549,7 @@ def tiff_file(samples: np.ndarray, *, bits: int, photometric: int,
         tw, th = tile
         regions = [(x, y, tw, th) for y in range(0, h, th)
                    for x in range(0, w, tw)]
-    for plane in planes:
+    for plane in planes if segments is None else ():
         c = plane.shape[2]
         for x, y, rw, rh in regions:
             block = np.zeros((rh, rw, c), plane.dtype)
@@ -176,6 +566,8 @@ def tiff_file(samples: np.ndarray, *, bits: int, photometric: int,
             if fill_order == 2:
                 data = _REVERSE[np.frombuffer(data, np.uint8)].tobytes()
             chunks.append(data)
+    if segments is not None:
+        chunks = [bytes(c) for c in segments]
     if truncate:
         chunks[-1] = chunks[-1][:-truncate]
     head = 16 if bigtiff else 8

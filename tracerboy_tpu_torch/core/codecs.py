@@ -1,9 +1,13 @@
 """The shared libraries of the image readers' byte-serial loops, built
 with g++ at first use into the port's build directory and loaded through
 ctypes:
-- library(): csrc/lzw_codecs.cpp (TIFF LZW decode and encode, libtiff's
-  PackBits, the TIFF predictors, GIF LZW, PIL's row-wise PackBits), for
-  core/tiff.py, core/gif.py and core/psd.py;
+- library(): csrc/lzw_codecs.cpp (TIFF LZW decode, old-style too, and
+  encode, libtiff's PackBits, the TIFF predictors, GIF LZW, PIL's
+  row-wise PackBits), for core/tiff.py, core/gif.py and core/psd.py;
+- tiff_library(): csrc/tiff_codecs.cpp (Zstandard, CCITT fax,
+  ThunderScan, libtiff's YCbCr route, Pillow's LAB conversion), for
+  core/tiff.py, with -ffp-contract=off: the LAB conversion repeats
+  littleCMS's float steps;
 - webp_library(): csrc/webp_decode.cpp (VP8L, VP8, the ALPH plane, QOI
   decode and encode),
   for core/webp.py and core/qoi.py;
@@ -48,11 +52,26 @@ def library():
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     return _load("tbcodecs", "lzw_codecs.cpp", (), (
         ("tb_tiff_lzw_decode", [p, i64, p, i64]),
+        ("tb_tiff_lzw_decode_compat", [p, i64, p, i64]),
         ("tb_tiff_lzw_encode", [p, i64, p]),
         ("tb_packbits_decode", [p, i64, p, i64]),
         ("tb_tiff_unpredict", [p, i64, i64, i64, i64, i64]),
         ("tb_gif_decode", [p, i64, p, i64, i64, i64, i64, i64]),
         ("tb_pil_packbits_rows", [p, i64, p, i64, i64])))
+
+
+def tiff_library():
+    import ctypes
+
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    return _load("tbtiff", "tiff_codecs.cpp", (), (
+        ("tb_zstd_decode", [p, i64, p, i64]),
+        ("tb_fax_decode", [p, i64, p, i64, i64, i64, i64]),
+        ("tb_thunder_decode", [p, i64, p, i64, i64]),
+        ("tb_lab_to_rgb", [p, i64, p]),
+        ("tb_ycbcr_to_rgb", [p, i64, i64, i64, i64, i64, i64, p, p, p,
+                             i64])),
+        flags=("-ffp-contract=off",))
 
 
 def webp_library():

@@ -25,12 +25,13 @@ Formats:
 - DDS: read by core/dds.py (BC1-BC7 blocks by csrc/dds_decode.cpp),
   PIL's pixels bit for bit.
 - TIFF (core/tiff.py: classic and BigTIFF, none/LZW/Deflate/PackBits,
-  predictors 2 and 3, strips and tiles, planar 1 and 2, grey at 1-16
-  bits and float, RGB(A) at 8 and 16 bits, palette, CMYK), GIF
-  (core/gif.py: the first frame) and ICO (core/ico.py: PNG and BMP
-  entries), their LZW, PackBits and predictor loops in
-  csrc/lzw_codecs.cpp; PIL's pixels bit for bit. With PNG, BMP, JPEG
-  and DDS these are the formats the reference reads through WIC.
+  JPEG, Zstandard, LZMA, CCITT, ThunderScan, predictors 2 and 3, strips
+  and tiles, planar 1 and 2, grey at 1-16 bits and float, RGB(A) at 8
+  and 16 bits, palette, CMYK, YCbCr, CIELab), GIF (core/gif.py: the
+  first frame) and ICO (core/ico.py: PNG and BMP entries), their loops
+  in csrc/lzw_codecs.cpp and csrc/tiff_codecs.cpp; PIL's pixels bit for
+  bit. With PNG, BMP, JPEG and DDS these are the formats the reference
+  reads through WIC.
 - JPEG: read by core/jpeg.py (csrc/jpeg_decode.cpp), PIL's pixels bit
   for bit.
 - WebP (core/webp.py: simple and extended files, VP8, VP8L, ALPH, an
@@ -82,7 +83,7 @@ def decode_ldr(path: str) -> np.ndarray:
     32-bit pixels without an alpha mask lose their fourth byte; JPEG:
     core/jpeg.py, grey replicated to RGB; DDS: core/dds.py; TIFF:
     core/tiff.py, the first image, 16-bit grey clipped at 255, float
-    clipped and truncated, CMYK converted; GIF: core/gif.py, the first
+    clipped and truncated, CMYK converted, CIELab to RGBA; GIF: core/gif.py, the first
     frame, its transparency dropped; ICO: core/ico.py, the largest entry,
     a DIB's AND mask or fourth byte as alpha; JPEG 2000: core/jpeg2000.py,
     16-bit grey clipped at 255, a palette expanded, CMYK converted; PNM:

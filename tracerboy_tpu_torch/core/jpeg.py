@@ -7,6 +7,12 @@ chroma upsampling and the YCbCr conversion run in csrc/jpeg_decode.cpp
 (g++ at first use, ctypes), whose header lists where libjpeg's integer
 arithmetic is easy to lose.
 
+Inside a TIFF (core/tiff.py: compression 7) each strip or tile is its
+own datastream, read after the JPEGTables tables-only stream through one
+JpegTables (libjpeg's decompressor keeps its quantisation and Huffman
+tables from one datastream to the next), and libtiff, not the markers,
+chooses the colour transform (decode_jpeg's `color`).
+
 Read: baseline and extended sequential and progressive Huffman files of
 8-bit samples, 1 component (grey) or 3 (YCbCr or RGB, chosen by the JFIF,
 Adobe and component-id rules of libjpeg's default_decompress_parms), any
@@ -190,21 +196,24 @@ def _scan(frame, seg, data, pos, qt, ht, restart, path):
     return end
 
 
-def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
-    """Decode a JPEG file's bytes to (H, W, 3) uint8 RGB: what
-    np.asarray(Image.open(path).convert("RGB")) gives (a grey file is
-    replicated to RGB)."""
-    import ctypes
+class JpegTables:
+    """The quantisation and Huffman tables a libjpeg decompressor holds
+    between datastreams: {slot: table} as each DQT and DHT defines them."""
 
-    if not data.startswith(b"\xff\xd8"):
-        raise _corrupt(path, "no SOI marker")
-    pos = 2
-    frame = None
-    qt, ht = {}, {}
-    restart = 0
-    jfif = False
-    adobe = None
-    scans = 0
+    def __init__(self):
+        self.qt, self.ht = {}, {}
+
+
+# Messages of tb_jpeg_scan for damaged entropy-coded data: libjpeg warns
+# and substitutes zeros there (jdhuff.c), where the rest are fatal.
+ENTROPY_DAMAGE = ("entropy-coded data ends early", "bad Huffman code",
+                  "missing restart marker")
+
+
+def _next_marker(data, pos, path):
+    """The marker at data[pos] (fill bytes skipped, stray RSTn and TEM
+    passed over): (code, its segment, the position after it); EOI has an
+    empty segment."""
     while True:
         if pos >= len(data) or data[pos] != 0xFF:
             raise _corrupt(path, "truncated file or missing marker")
@@ -215,7 +224,7 @@ def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
         code = data[pos]
         pos += 1
         if code == 0xD9:      # EOI
-            break
+            return code, b"", pos
         if 0xD0 <= code <= 0xD7 or code == 0x01:
             continue          # stray RSTn / TEM: no segment
         if pos + 2 > len(data):
@@ -224,7 +233,103 @@ def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
         seg = data[pos + 2:pos + n]
         if n < 2 or len(seg) != n - 2:
             raise _corrupt(path, "truncated marker segment")
-        pos += n
+        return code, seg, pos + n
+
+
+def _segments(data, path):
+    """(marker, segment) of every marker up to the first SOS or EOI."""
+    if not data.startswith(b"\xff\xd8"):
+        raise _corrupt(path, "no SOI marker")
+    pos = 2
+    while True:
+        code, seg, pos = _next_marker(data, pos, path)
+        yield code, seg
+        if code in (0xD9, 0xDA):
+            return
+
+
+def frame_header(data: bytes, path: str = "<bytes>"):
+    """The first frame header of a datastream: (precision, height, width,
+    [(component id, h, v)]), or None when there is none before the first
+    scan or EOI."""
+    for code, seg in _segments(data, path):
+        if 0xC0 <= code <= 0xCF and code not in (0xC4, 0xC8, 0xCC):
+            if len(seg) < 6:
+                raise _corrupt(path, "short SOF segment")
+            prec, h, w, nc = struct.unpack_from(">BHHB", seg)
+            if len(seg) < 6 + 3 * nc:
+                raise _corrupt(path, "bad SOF segment")
+            return prec, h, w, [(seg[6 + 3 * c], seg[7 + 3 * c] >> 4,
+                                 seg[7 + 3 * c] & 15) for c in range(nc)]
+    return None
+
+
+def read_tables(data: bytes, tables: JpegTables, path: str = "<bytes>"):
+    """Load a tables-only datastream (a TIFF's JPEGTables: SOI, DQT and
+    DHT segments, EOI) into `tables`; a frame or scan in it is an error,
+    as libjpeg's jpeg_read_header(require_image=FALSE) answers it."""
+    for code, seg in _segments(data, path):
+        if code == 0xDA or (0xC0 <= code <= 0xCF
+                               and code not in (0xC4, 0xC8, 0xCC)):
+            raise _corrupt(path, "JPEGTables holds an image")
+        if code == 0xDB:
+            _read_dqt(seg, tables.qt, path)
+        elif code == 0xC4:
+            _read_dht(seg, tables.ht, path)
+
+
+def _read_dqt(seg, qt, path):
+    i = 0
+    while i < len(seg):
+        pq, tq = seg[i] >> 4, seg[i] & 15
+        size = 128 if pq else 64
+        if tq > 3 or i + 1 + size > len(seg):
+            raise _corrupt(path, "bad DQT segment")
+        vals = np.frombuffer(seg, ">u2" if pq else np.uint8, 64,
+                             i + 1).astype(np.uint16)
+        q = np.zeros(64, np.uint16)
+        q[ZIGZAG] = vals
+        qt[tq] = q
+        i += 1 + size
+
+
+def _read_dht(seg, ht, path):
+    i = 0
+    while i < len(seg):
+        if i + 17 > len(seg):
+            raise _corrupt(path, "bad DHT segment")
+        tc, th = seg[i] >> 4, seg[i] & 15
+        bits = np.frombuffer(seg, np.uint8, 16, i + 1)
+        count = int(bits.sum())
+        if tc > 1 or th > 3 or count > 256 or (i + 17 + count > len(seg)):
+            raise _corrupt(path, "bad DHT segment")
+        ht[tc * 4 + th] = (bits.copy(), seg[i + 17:i + 17 + count])
+        i += 17 + count
+
+
+def decode_jpeg(data: bytes, path: str = "<bytes>", tables=None,
+                color=None) -> np.ndarray:
+    """Decode a JPEG file's bytes to (H, W, 3) uint8 RGB: what
+    np.asarray(Image.open(path).convert("RGB")) gives (a grey file is
+    replicated to RGB). tables: a JpegTables the datastream reads its
+    tables from and leaves its own in; color: the transform to apply
+    whatever the markers say (0 grey, 1 YCbCr to RGB, 2 none)."""
+    import ctypes
+
+    if not data.startswith(b"\xff\xd8"):
+        raise _corrupt(path, "no SOI marker")
+    pos = 2
+    frame = None
+    tables = tables if tables is not None else JpegTables()
+    qt, ht = tables.qt, tables.ht
+    restart = 0
+    jfif = False
+    adobe = None
+    scans = 0
+    while True:
+        code, seg, pos = _next_marker(data, pos, path)
+        if code == 0xD9:      # EOI
+            break
         if code in (0xC0, 0xC1, 0xC2):
             if frame is not None:
                 raise _corrupt(path, "more than one frame")
@@ -232,32 +337,9 @@ def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
         elif code in _SOF_NAMES or code == 0xCC:
             raise _unsupported(path, _SOF_NAMES.get(code, "arithmetic-coded"))
         elif code == 0xDB:    # DQT
-            i = 0
-            while i < len(seg):
-                pq, tq = seg[i] >> 4, seg[i] & 15
-                size = 128 if pq else 64
-                if tq > 3 or i + 1 + size > len(seg):
-                    raise _corrupt(path, "bad DQT segment")
-                vals = np.frombuffer(seg, ">u2" if pq else np.uint8, 64,
-                                     i + 1).astype(np.uint16)
-                q = np.zeros(64, np.uint16)
-                q[ZIGZAG] = vals
-                qt[tq] = q
-                i += 1 + size
+            _read_dqt(seg, qt, path)
         elif code == 0xC4:    # DHT
-            i = 0
-            while i < len(seg):
-                if i + 17 > len(seg):
-                    raise _corrupt(path, "bad DHT segment")
-                tc, th = seg[i] >> 4, seg[i] & 15
-                bits = np.frombuffer(seg, np.uint8, 16, i + 1)
-                count = int(bits.sum())
-                if tc > 1 or th > 3 or count > 256 or (
-                        i + 17 + count > len(seg)):
-                    raise _corrupt(path, "bad DHT segment")
-                ht[tc * 4 + th] = (bits.copy(),
-                                   seg[i + 17:i + 17 + count])
-                i += 17 + count
+            _read_dht(seg, ht, path)
         elif code == 0xDD:    # DRI
             if len(seg) < 2:
                 raise _corrupt(path, "bad DRI segment")
@@ -282,14 +364,15 @@ def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
     for c in range(nc):       # a component no scan named reads as zeros
         if frame.quant[c] is None:
             frame.quant[c] = qt.get(frame.tq[c], np.zeros(64, np.uint16))
-    if nc == 1:
-        color = 0
-    elif jfif:                # jdapimin.c default_decompress_parms
-        color = 1
-    elif adobe is not None:
-        color = 2 if adobe == 0 else 1
-    else:
-        color = 2 if frame.ids == [82, 71, 66] else 1
+    if color is None:         # jdapimin.c default_decompress_parms
+        if nc == 1:
+            color = 0
+        elif jfif:
+            color = 1
+        elif adobe is not None:
+            color = 2 if adobe == 0 else 1
+        else:
+            color = 2 if frame.ids == [82, 71, 66] else 1
     out = np.empty((frame.H, frame.W, 3), np.uint8)
     geom = np.array(frame.geom, np.int64)
     quant = np.ascontiguousarray(np.stack(frame.quant), np.uint16)

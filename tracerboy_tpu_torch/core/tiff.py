@@ -4,13 +4,18 @@ every other compression to libtiff 4.7), bit for bit, without an
 imaging library; and write_tiff, the writer of the demo scenes' TIFF
 textures.
 
-TracerBoy loads its textures through WIC, whose codecs include TIFF.
-The header and the first IFD (PIL's frame 0) are parsed here, with PIL's
-rules: OPEN_INFO maps (byte order, photometric, sample format, fill
-order, bits, extra samples) to PIL's mode and raw mode, exactly as
-TiffImagePlugin.OPEN_INFO does. The byte-serial loops (LZW, PackBits,
-the predictors) are csrc/lzw_codecs.cpp (g++ at first use, ctypes);
-Deflate is zlib's.
+TracerBoy loads its textures through WIC, whose codecs include TIFF;
+GDAL's GeoTIFF and COG writers add JPEG (YCbCr), Zstandard, LZMA and
+CCITT. The header and the first IFD (PIL's frame 0) are parsed here,
+with PIL's rules: OPEN_INFO maps (byte order, photometric, sample
+format, fill order, bits, extra samples) to PIL's mode and raw mode,
+exactly as TiffImagePlugin.OPEN_INFO does. The byte-serial loops are
+C++: LZW (new- and old-style), PackBits and the predictors in
+csrc/lzw_codecs.cpp; Zstandard, CCITT, ThunderScan, libtiff's YCbCr
+conversion and Pillow's CIELab conversion in csrc/tiff_codecs.cpp; JPEG
+in core/jpeg.py and csrc/jpeg_decode.cpp (all g++ at first use,
+ctypes). Deflate is zlib's and LZMA the standard library's lzma (the
+.xz container libtiff's lzma_stream_decoder reads).
 
 Two decoders, as in PIL:
 - Uncompressed files: PIL's raw decoder over its tile list. Strip and
@@ -18,40 +23,65 @@ Two decoders, as in PIL:
   predictor is ignored, FillOrder 2 is the raw mode's bit reversal, and
   with PlanarConfiguration 2 each plane is read with one letter of the
   raw mode (so 16-bit planes are read as 8-bit ones, and a raw mode
-  whose letter has no unpacker is refused), as PIL does.
-- LZW, Deflate (8 and 32946) and PackBits: libtiff's decode of each
-  strip or tile (byte counts honoured, the raw bytes bit-reversed for
-  FillOrder 2, Predictor 2 and 3 undone for LZW and Deflate only,
-  16- and 32-bit samples swapped to native little-endian order), then
-  PIL's unpacker of the raw mode with its libtiff fixes (";16B"/";16L"
-  and "I;16" read as native; other big-endian raw modes read the native
-  samples as big-endian, so a big-endian float file decodes to PIL's
-  swapped values). PlanarConfiguration 2 with several bands copies plane
-  i into byte i of PIL's 4-byte pixel (so an LA file loses its alpha;
-  RGBA with associated or unspecified alpha is then unpremultiplied),
-  and a strip's row must be the unpacker's row in size, as Pillow's
-  TiffDecode.c checks.
+  whose letter has no unpacker is refused), as PIL does. YCbCr is read
+  with its raw mode RGBX, 4 bytes a pixel, without conversion.
+- Every compression: libtiff's decode of each strip or tile (byte counts
+  honoured, or estimated as libtiff's EstimateStripByteCounts does for
+  a single strip, or one a plane; the raw bytes bit-reversed for
+  FillOrder 2; Predictor 2 and 3 undone for LZW, Deflate, LZMA and
+  Zstandard; 16- and 32-bit samples swapped to native little-endian
+  order), then PIL's unpacker of the raw mode with its libtiff fixes
+  (";16B"/";16L" and "I;16" read as native; other big-endian raw modes
+  read the native samples as big-endian, so a big-endian float file
+  decodes to PIL's swapped values). PlanarConfiguration 2 with several
+  bands copies plane i into byte i of PIL's 4-byte pixel (so an LA file
+  loses its alpha; RGBA with associated or unspecified alpha is then
+  unpremultiplied), and a strip's row must be the unpacker's row in
+  size, as Pillow's TiffDecode.c checks. Per compression:
+  - JPEG (7): each strip or tile a datastream after the JPEGTables
+    tables, its size, component count and sampling factors checked as
+    tif_jpeg.c's JPEGPreDecode checks them; YCbCr in one plane decoded
+    to RGB (Pillow's JPEGCOLORMODE_RGB, raw mode RGB), any other
+    photometric with no colour transform at all, whatever the markers
+    say; the YCbCrSubsampling a stream must match is the tag's, or
+    without the tag the first strip's (JPEGFixupTagsSubsampling);
+  - YCbCr under any other compression: libtiff's TIFFRGBAImage, as
+    Pillow's _decodeAsRGBA calls it (one strip or row of tiles a call,
+    the read errors of a decode ignored: the part decoded before the
+    error, zeros after it);
+  - CCITT modified Huffman (2), Group 3 (3: T4Options 1D or 2D, fill
+    bits) and Group 4 (4): tif_fax3.c, bad codes and short rows padded
+    as libtiff pads them; a Group 4 strip that ends early keeps its
+    decoded rows, the rest zero bits;
+  - ThunderScan (32809, 4-bit), Zstandard (50000), LZMA (34925).
 Orientation 2-8 transposes the image, as PIL's exif_transpose does.
 
 read_ldr's conversion follows PIL's convert to RGB or RGBA: "1", L and
 P (through the colour map's high bytes) to RGB; I;16 clipped at 255;
 I clipped to 0-255; F with NaN as 0, clipped, truncated; CMYK by
 Convert.c's cmyk2rgb; LA and PA to RGBA; associated alpha (RGBa)
-unpremultiplied by the unpacker, v * 255 // a.
+unpremultiplied by the unpacker, v * 255 // a; LAB (CIELab, a and b
+signed) to RGBA through littleCMS's Lab to sRGB transform, alpha 255.
 
 Refused:
 - what PIL refuses, with PIL's error: ValueError where PIL raises
-  OSError or ValueError (a truncated strip, a broken LZW or Deflate
-  stream, an unsupported predictor, a planar raw mode without an
-  unpacker), NotImplementedError where PIL cannot identify the file (an
-  unknown compression or mode key, a missing dimension or data
-  organisation, a big-endian BigTIFF, which PIL reads as a classic
-  header);
+  OSError or ValueError (a truncated strip, a broken stream, an
+  unsupported predictor, a planar raw mode without an unpacker,
+  WebP-compressed data, which this libtiff is built without, and SGI
+  LogLuv, whose decoder refuses every photometric PIL opens),
+  NotImplementedError where PIL cannot identify the file (an unknown
+  compression or mode key, a missing dimension or data organisation, a
+  big-endian BigTIFF, which PIL reads as a classic header);
 - the layouts PIL reads but this port leaves out, NotImplementedError
-  naming ROADMAP.md Queue 1 item 22c: JPEG-in-TIFF (6, 7), CCITT
-  (2, 3, 4, 32771), ThunderScan, SGI LogLuv, LZMA, Zstandard and WebP
-  compressions, YCbCr and CIELab photometrics, old-style LZW, compressed
-  files without StripByteCounts, and tags of non-integer types.
+  naming ROADMAP.md Queue 1 item 22c: old-style JPEG (6), JPEG in
+  planes, a JPEG stream smaller than its strip or tile, libjpeg's
+  recovery from damaged entropy-coded data, YCbCr or CIELab in planes,
+  tiled ThunderScan, the palette with an extra sample in planar tiles,
+  tags of non-integer types; and the files whose pixels libtiff leaves
+  to memory it never wrote (a Group 3 or 4 strip that ends before its
+  last row, a ThunderScan run that ends a row, a damaged YCbCr tile
+  after the first of its row) or fails by a rule not ported (a 2D
+  Group 3 strip that ends early).
 """
 
 from __future__ import annotations
@@ -61,7 +91,7 @@ import zlib
 
 import numpy as np
 
-from tracerboy_tpu_torch.core.codecs import library
+from tracerboy_tpu_torch.core.codecs import library, tiff_library
 from tracerboy_tpu_torch.core.image_io import UnidentifiedImageError
 
 II, MM = b"II", b"MM"
@@ -135,14 +165,23 @@ OPEN_INFO.update({
 })
 MAX_SAMPLESPERPIXEL = max(len(k[4]) for k in OPEN_INFO)
 
-# PIL's COMPRESSION_INFO codes: those this port reads, and those left out.
-COMPRESSIONS = {1: "raw", 5: "lzw", 8: "deflate", 32946: "deflate",
-                32773: "packbits"}
-LEFT_OUT = {2: "CCITT modified Huffman", 3: "CCITT Group 3",
-            4: "CCITT Group 4", 6: "old-style JPEG", 7: "JPEG",
-            32771: "CCITT RLE-word", 32809: "ThunderScan",
-            34676: "SGI LogLuv", 34677: "SGI LogLuv 24", 34925: "LZMA",
-            50000: "Zstandard", 50001: "WebP"}
+# PIL's COMPRESSION_INFO codes: those this port reads, those PIL opens
+# but libtiff here fails to decode (with libtiff's message), and those
+# left out.
+COMPRESSIONS = {1: "raw", 2: "ccitt_rle", 3: "group3", 4: "group4",
+                5: "lzw", 7: "jpeg", 8: "deflate", 32946: "deflate",
+                32771: "ccitt_rlew", 32773: "packbits",
+                32809: "thunderscan", 34925: "lzma", 50000: "zstd"}
+FAILS_IN_LIBTIFF = {
+    34676: "LogLuvSetupDecode: Inappropriate photometric interpretation "
+           "for SGILog compression",
+    34677: "LogLuvSetupDecode: Inappropriate photometric interpretation "
+           "for SGILog compression",
+    50001: "WEBP compression support is not configured"}
+LEFT_OUT = {6: "old-style JPEG"}
+# Compressions whose codec carries libtiff's predictor.
+_PREDICTED = {"lzw", "deflate", "lzma", "zstd"}
+_FAX = {"ccitt_rle": 2, "ccitt_rlew": 32771, "group3": 3, "group4": 4}
 
 # IFD entry types: struct letter and unit size (PIL's _load_dispatch).
 _TYPES = {1: ("B", 1), 2: ("s", 1), 3: ("H", 2), 4: ("L", 4), 5: ("LL", 8),
@@ -150,15 +189,17 @@ _TYPES = {1: ("B", 1), 2: ("s", 1), 3: ("H", 2), 4: ("L", 4), 5: ("LL", 8),
           10: ("ll", 8), 11: ("f", 4), 12: ("d", 8), 13: ("L", 4),
           16: ("Q", 8)}
 _INT_TYPES = (3, 4, 6, 8, 9, 13, 16)
+_FLOAT_TYPES = (5, 10, 11, 12)
 # Tags whose PIL value is a single element (TiffTags length 1).
-_SINGLE = {256, 257, 259, 262, 266, 274, 277, 278, 284, 317, 322, 323}
+_SINGLE = {256, 257, 259, 262, 266, 274, 277, 278, 284, 292, 293, 317,
+           322, 323}
 # Orientation -> the numpy transpose of PIL's exif_transpose.
 _ORIENT = {2: lambda a: a[:, ::-1], 3: lambda a: a[::-1, ::-1],
            4: lambda a: a[::-1], 5: lambda a: a.swapaxes(0, 1),
            6: lambda a: np.rot90(a, -1), 7: lambda a: np.rot90(a, 2).swapaxes(
                0, 1), 8: lambda a: np.rot90(a, 1)}
 # Modes PIL stores in 4 bytes a pixel (LA as L, L, L, A; PA as P, -, -, A).
-_SLOT_MODES = {"RGB", "RGBA", "CMYK", "LA", "PA"}
+_SLOT_MODES = {"RGB", "RGBA", "CMYK", "LA", "PA", "LAB"}
 _BITFLIP = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
                     np.uint8)
 
@@ -222,6 +263,24 @@ def read_ifd(data: bytes, path: str = "<tiff>"):
     except struct.error:
         pass                               # PIL: Corrupt EXIF data
     return prefix, tags
+
+
+def _float_tag(tags, tag, default, path="<tiff>"):
+    """A tag libtiff reads as floats (YCbCrCoefficients,
+    ReferenceBlackWhite): rationals as (float)(num / den), 0 for a zero
+    denominator; integers as they are. float32 values."""
+    if tag not in tags:
+        return np.array(default, np.float32)
+    typ, values = tags[tag]
+    if typ in (5, 10):
+        out = [np.float32(n / d) if d else np.float32(0)
+               for n, d in zip(values[::2], values[1::2])]
+    elif typ in _INT_TYPES or typ in (11, 12):
+        out = [np.float32(v) for v in values]
+    else:
+        raise NotImplementedError(f"{path}: TIFF tag {tag} of type {typ} "
+                                  f"({ITEM})")
+    return np.array(out, np.float32)
 
 
 def _tag(tags, tag, default=None, path="<tiff>"):
@@ -356,6 +415,8 @@ def unpack(rawmode: str, rows: np.ndarray, width: int):
         return np.concatenate([rgb, hi[..., 3:4]], -1), (0, 1, 2, 3)
     if base in ("RGB", "RGBX", "RGBXX", "RGBXXX"):
         return np.ascontiguousarray(hi[..., :3]), (0, 1, 2)
+    if base == "LAB":                    # a and b signed in the file
+        return hi[..., :3] ^ np.array([0, 128, 128], np.uint8), (0, 1, 2)
     if base in ("RGBA", "RGBAX", "RGBAXX", "CMYK", "CMYKX", "CMYKXX"):
         return np.ascontiguousarray(hi[..., :4]), (0, 1, 2, 3)
     if base == "LA":
@@ -376,6 +437,7 @@ _PLANE_UNPACKERS = {"1": {"1": None}, "L": {"L": None}, "P": {"P": None},
                     "I": {"I": None}, "F": {"F": None},
                     "RGB": {"R": 0, "G": 1, "B": 2},
                     "RGBA": {"R": 0, "G": 1, "B": 2, "A": 3},
+                    "LAB": {"L": 0, "A": 1, "B": 2},
                     "CMYK": {"C": 0, "M": 1, "Y": 2, "K": 3}}
 
 
@@ -505,61 +567,258 @@ def _decode_raw(data, img, mode, rawmode, planar, bps, bps_count, offsets,
     return img
 
 
-def _inflate(raw: bytes, need: int, path: str) -> bytes:
+def _feed(d, raw, need, error):
+    """The output of decompressor d (zlib's or lzma's) on raw, fed a
+    byte at a time so that it stops where the stream met an error (or
+    need bytes)."""
+    out = bytearray()
+    for i in range(len(raw)):
+        try:
+            out += d.decompress(raw[i:i + 1], need - len(out))
+        except error:
+            break
+        if len(out) >= need or d.eof:
+            break
+    return bytes(out)
+
+
+def _inflate(raw: bytes, need: int, path: str, lenient=False) -> bytes:
+    """zlib's inflate of up to `need` bytes; lenient: what it inflated
+    before an error instead of the error."""
     d = zlib.decompressobj()
+    if lenient:
+        return _feed(d, raw, need, zlib.error)
     try:
-        out = d.decompress(raw, need)
+        return d.decompress(raw, need)
     except zlib.error as e:
         raise ValueError(f"{path}: decoder error -2 (ZIPDecode: {e})") \
             from None
-    return out
 
 
-def _decompress(raw: bytes, kind: str, need: int, path: str) -> np.ndarray:
+def _unxz(raw: bytes, need: int, path: str, lenient=False) -> bytes:
+    """libtiff's LZMADecode: one .xz stream, decoded until `need` bytes
+    (liblzma's checks run as far as that reaches); lenient as _inflate."""
+    import lzma
+
+    d = lzma.LZMADecompressor(format=lzma.FORMAT_XZ)
+    if lenient:
+        return _feed(d, raw, need, lzma.LZMAError)
+    try:
+        return d.decompress(raw, need)
+    except lzma.LZMAError as e:
+        raise ValueError(f"{path}: decoder error -2 (LZMADecode: {e})") \
+            from None
+
+
+class _Segment:
+    """What a strip or tile's decoder needs beyond its bytes: its rows and
+    pixel width, the CCITT options (RLE-word: the parity of its file
+    offset), the JPEG state and whether it is the last strip."""
+
+    def __init__(self, rows, width, options=0, jpeg=None, last=False):
+        self.rows, self.width, self.options = rows, width, options
+        self.jpeg, self.last = jpeg, last
+        self.failed = False              # a lenient decode met an error
+
+
+def _decompress(raw: bytes, kind: str, need: int, path: str,
+                seg: _Segment, lenient=False) -> np.ndarray:
     """One strip or tile as libtiff decodes it: exactly `need` bytes, or
-    ValueError (PIL's "decoder error -2")."""
-    if kind == "deflate":
-        out = _inflate(raw, need, path)
-        if len(out) < need:
-            raise ValueError(f"{path}: decoder error -2 (ZIPDecode: not "
-                             "enough data)")
-        return np.frombuffer(out, np.uint8).copy()
+    ValueError (PIL's "decoder error -2"). lenient (TIFFRGBAImage, which
+    ignores read errors): the bytes decoded before an error, zeros
+    after them, and seg.failed set."""
     src = np.frombuffer(raw, np.uint8)
     out = np.zeros(max(need, 1), np.uint8)
+    if kind in ("deflate", "lzma"):
+        got = (_inflate if kind == "deflate" else _unxz)(raw, need, path,
+                                                         lenient)
+        out[:len(got)] = np.frombuffer(got, np.uint8)
+        if len(got) < need:
+            if not lenient:
+                raise ValueError(f"{path}: decoder error -2 ({kind}: not "
+                                 "enough data)")
+            seg.failed = True
+        return out[:need]
+    if kind == "jpeg":
+        return _jpeg_segment(raw, need, path, seg)
     if kind == "lzw":
-        if len(raw) >= 2 and raw[0] == 0 and raw[1] & 1:
-            raise NotImplementedError(f"{path}: old-style LZW ({ITEM})")
-        got = library().tb_tiff_lzw_decode(src.ctypes.data, src.size,
-                                            out.ctypes.data, need)
-        if got < 0:
+        old = len(raw) >= 2 and raw[0] == 0 and raw[1] & 1
+        fn = (library().tb_tiff_lzw_decode_compat if old
+              else library().tb_tiff_lzw_decode)
+        got = fn(src.ctypes.data, src.size, out.ctypes.data, need)
+        if got < 0 and not lenient:
             raise ValueError(f"{path}: decoder error -2 (LZWDecode: "
                              "corrupted LZW table)")
+    elif kind == "zstd":
+        got = tiff_library().tb_zstd_decode(src.ctypes.data, src.size,
+                                            out.ctypes.data, need)
+    elif kind in _FAX:
+        got = tiff_library().tb_fax_decode(
+            src.ctypes.data, src.size, out.ctypes.data, seg.rows, seg.width,
+            _FAX[kind], seg.options)
+        if got == -3:
+            raise NotImplementedError(
+                f"{path}: a 2D Group 3 strip that ends early, which libtiff "
+                f"fails or fills from an uninitialised buffer ({ITEM})")
+        if 0 <= got < seg.rows:
+            raise NotImplementedError(
+                f"{path}: a fax strip that ends before its last row, whose "
+                f"remaining rows PIL takes from an uninitialised buffer "
+                f"({ITEM})")
+        if got >= 0:
+            got = need
+        elif not lenient:
+            raise ValueError(f"{path}: decoder error -2 (Fax3Decode: "
+                             "premature end of data)")
+    elif kind == "thunderscan":
+        got = tiff_library().tb_thunder_decode(
+            src.ctypes.data, src.size, out.ctypes.data, seg.rows, seg.width)
+        if got == -3:
+            raise NotImplementedError(
+                f"{path}: a ThunderScan run that ends a row, which libtiff "
+                f"leaves unwritten ({ITEM})")
+        got = need if got >= 0 else -1
     else:
         got = library().tb_packbits_decode(src.ctypes.data, src.size,
                                             out.ctypes.data, need)
     if got < need:
-        raise ValueError(f"{path}: decoder error -2 ({kind}: not enough "
-                         "data)")
+        if not lenient:
+            raise ValueError(f"{path}: decoder error -2 ({kind}: not "
+                             "enough data)")
+        seg.failed = True
     return out[:need]
+
+
+class _JpegState:
+    """tif_jpeg.c's decoder state across a file's strips or tiles: the
+    tables (JPEGTables, then each datastream's), the colour rule and the
+    sampling factors the first component must have."""
+
+    def __init__(self, tags, photo, spp, bits, path):
+        from tracerboy_tpu_torch.core import jpeg
+
+        self.tables = jpeg.JpegTables()
+        if 347 in tags:
+            table_bytes = tags[347][1][0]
+            try:
+                jpeg.read_tables(table_bytes, self.tables, path)
+            except OSError as e:
+                raise ValueError(f"{path}: decoder error -2 (Bogus "
+                                 f"JPEGTables field: {e})") from None
+        self.ycbcr = photo == 6
+        self.spp, self.bits = spp, bits
+        self.sampling = None
+        if self.ycbcr and 530 in tags:
+            self.sampling = tuple(_tag(tags, 530, path=path))[:2]
+        if not self.ycbcr:
+            self.sampling = (1, 1)
+
+
+def _jpeg_segment(raw, need, path, seg):
+    """One strip or tile of a JPEG-in-TIFF (JPEGPreDecode, JPEGDecode):
+    `need` bytes of rows of seg.width pixels."""
+    from tracerboy_tpu_torch.core import jpeg
+
+    st, seg_w, seg_h = seg.jpeg, seg.width, seg.rows
+    try:
+        head = jpeg.frame_header(raw, path)
+        if head is None:
+            raise ValueError(f"{path}: decoder error -2 (JPEG datastream "
+                             "without a frame)")
+        prec, h, w, comps = head
+        if prec != st.bits and prec in (8, 12):
+            raise ValueError(f"{path}: decoder error -2 (Improper JPEG data "
+                             "precision)")
+        if w < seg_w or h < seg_h:
+            raise NotImplementedError(
+                f"{path}: a JPEG stream of {w}x{h} in a {seg_w}x{seg_h} "
+                f"strip or tile ({ITEM})")
+        if w > seg_w or (h > seg_h and not seg.last):
+            raise ValueError(f"{path}: decoder error -2 (JPEG strip/tile "
+                             "size exceeds expected dimensions)")
+        if len(comps) != st.spp:
+            raise ValueError(f"{path}: decoder error -2 (Improper JPEG "
+                             "component count)")
+        if st.sampling is None:          # JPEGFixupTagsSubsampling
+            hs, vs = comps[0][1:]
+            st.sampling = ((hs, vs) if hs in (1, 2, 4) and vs in (1, 2, 4)
+                           else (2, 2))
+        if (comps[0][1:] != st.sampling
+                or any(c[1:] != (1, 1) for c in comps[1:])):
+            raise ValueError(f"{path}: decoder error -2 (Improper JPEG "
+                             "sampling factors)")
+        color = 1 if st.ycbcr else 0 if len(comps) == 1 else 2
+        pixels = jpeg.decode_jpeg(raw, path, tables=st.tables, color=color)
+    except OSError as e:
+        if any(m in str(e) for m in jpeg.ENTROPY_DAMAGE):
+            raise NotImplementedError(
+                f"{path}: damaged JPEG data, which libjpeg patches ({e}; "
+                f"{ITEM})") from None
+        raise ValueError(f"{path}: decoder error -2 ({e})") from None
+    pixels = pixels[:seg_h, :, :1] if len(comps) == 1 else pixels[:seg_h]
+    return np.ascontiguousarray(pixels).reshape(-1)[:need]
+
+
+def _estimate_counts(data, prefix, tags, offsets, planar, spp, path):
+    """libtiff's EstimateStripByteCounts for a compressed file without
+    StripByteCounts (TIFFReadDirectory allows it for one strip, or one
+    strip a plane): the file less its header, IFD and the values stored
+    outside it, split among the planes; the last strip cut at the end of
+    the file."""
+    need_strips = spp if planar == 2 else 1
+    if len(offsets) != need_strips:
+        raise ValueError(f"{path}: TIFF directory is missing required "
+                         "StripByteCounts (PIL: OSError)")
+    big = data[2] == 43
+    e = "<" if prefix == II else ">"
+    first = struct.unpack_from(e + ("Q" if big else "L"), data,
+                               8 if big else 4)[0]
+    count = struct.unpack_from(e + ("Q" if big else "H"), data, first)[0]
+    space = (16 + 8 + count * 20 + 8) if big else (8 + 2 + count * 12 + 4)
+    entry = 20 if big else 12
+    for i in range(count):
+        pos = first + (8 if big else 2) + i * entry
+        typ, n = struct.unpack_from(e + ("HQ" if big else "HL"), data,
+                                    pos + 2)
+        width = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4,
+                 10: 8, 11: 4, 12: 8, 13: 4, 16: 8, 17: 8, 18: 8}.get(typ)
+        if width is None:
+            raise ValueError(f"{path}: cannot determine size of unknown tag "
+                             f"type {typ}")
+        size = width * n
+        space += 0 if size <= (8 if big else 4) else size
+    filesize = len(data)
+    space = filesize if filesize < space else filesize - space
+    if planar == 2:
+        space //= spp
+    counts = [space] * len(offsets)
+    if offsets[-1] + counts[-1] > filesize:
+        counts[-1] = max(filesize - offsets[-1], 0)
+    return counts
 
 
 def _decode_libtiff(data, img, mode, rawmode, kind, prefix, planar, spp,
                     bits, fill_order, predictor, sample_format, extra,
-                    offsets, counts, w, h, xsize, ysize, tiled, path):
+                    offsets, counts, w, h, xsize, ysize, tiled, path,
+                    tags, photo):
     """libtiff's decode of every strip or tile, then Pillow's TiffDecode.c
     (_decodeStrip, _decodeTile) unpacking into img."""
     if counts is None:
-        raise NotImplementedError(f"{path}: compressed TIFF without "
-                                  f"StripByteCounts ({ITEM})")
+        counts = _estimate_counts(data, prefix, tags, offsets, planar, spp,
+                                  path)
     bands = {"LA": 2, "PA": 2, "RGB": 3, "RGBA": 4, "CMYK": 4}.get(mode, 1)
+    if mode == "LAB" and planar == 2:
+        raise NotImplementedError(f"{path}: CIELab in planes ({ITEM})")
     planes = 1
     if planar == 2 and bands > 1:
+        if kind == "jpeg":
+            raise NotImplementedError(f"{path}: JPEG in planes ({ITEM})")
         if bits not in (8, 16):
             raise ValueError(f"{path}: decoder error -2 (planar {bits}-bit "
                              "samples)")
         planes = bands
-    if kind == "packbits":
-        predictor = 1                    # PackBits has no predictor
+    if kind not in _PREDICTED:
+        predictor = 1                    # the codec has no predictor
     if predictor != 1:
         ok = ((predictor == 2 and bits in (8, 16, 32))
               or (predictor == 3 and sample_format == 3
@@ -568,6 +827,18 @@ def _decode_libtiff(data, img, mode, rawmode, kind, prefix, planar, spp,
             raise ValueError(f"{path}: decoder error -2 (PredictorSetup: "
                              f"predictor {predictor} with {bits}-bit "
                              "samples)")
+    if kind in _FAX and bits != 1:
+        raise ValueError(f"{path}: decoder error -2 (Bits/sample must be 1 "
+                         "for Group 3/4 encoding/decoding)")
+    if kind == "thunderscan":
+        if bits != 4:
+            raise ValueError(f"{path}: decoder error -2 (Wrong "
+                             "bitspersample value, Thunder decoder only "
+                             "supports 4bits per sample)")
+        if tiled:
+            raise NotImplementedError(f"{path}: tiled ThunderScan ({ITEM})")
+    jpeg_state = (_JpegState(tags, photo, spp, bits, path)
+                  if kind == "jpeg" else None)
     rawbits = _raw_bits(rawmode)
     sample_planes = spp if planar == 2 else 1
     per_pixel = bits * (1 if planar == 2 else spp)
@@ -588,6 +859,7 @@ def _decode_libtiff(data, img, mode, rawmode, kind, prefix, planar, spp,
         raise ValueError(f"{path}: decoder error -2 (too few strips or "
                          "tiles)")
     stride = spp if planar == 1 else 1
+    options = _tag(tags, 292 if kind == "group3" else 293, 0, path)
     # Predictor 3 weaves its byte planes straight into native order.
     swap = prefix == MM and bits in (16, 32) and predictor != 3
     for ty in range(down):
@@ -605,7 +877,10 @@ def _decode_libtiff(data, img, mode, rawmode, kind, prefix, planar, spp,
                 if fill_order == 2:
                     raw = _BITFLIP[np.frombuffer(raw, np.uint8)].tobytes()
                 need = rows * row_bytes
-                buf = _decompress(raw, kind, need, path)
+                seg = _Segment(rows, w, off & 1 if kind == "ccitt_rlew"
+                               else options, jpeg_state,
+                               not tiled and ty == down - 1)
+                buf = _decompress(raw, kind, need, path, seg)
                 if swap:                 # to native order, before Predictor 2
                     buf = buf.view(f">u{bits // 8}").astype(
                         f"<u{bits // 8}").view(np.uint8)
@@ -637,12 +912,105 @@ def _decode_libtiff(data, img, mode, rawmode, kind, prefix, planar, spp,
         img[..., :3] = _unpremultiply(img[..., :3], img[..., 3])
 
 
+def _decode_ycbcr_rgba(data, img, kind, prefix, tags, planar, predictor,
+                       offsets, counts, w, h, xsize, ysize, tiled, path):
+    """libtiff's TIFFRGBAImage over a YCbCr file, as Pillow's
+    _decodeAsRGBA drives it: one TIFFRGBAImageGet a strip (or a row of
+    tiles), each strip or tile decoded into a zeroed buffer whose read
+    errors are ignored (TIFFRGBAImageBegin's stop-on-error is off), then
+    tif_getimage.c's putcontig8bitYCbCr*tile."""
+    if planar == 2:
+        raise NotImplementedError(f"{path}: YCbCr in planes ({ITEM})")
+    if counts is None:
+        counts = _estimate_counts(data, prefix, tags, offsets, planar, 3,
+                                  path)
+    hs, vs = (tuple(_tag(tags, 530, path=path)) + (2, 2))[:2] \
+        if 530 in tags else (2, 2)
+    if (hs << 4 | vs) not in (0x44, 0x42, 0x41, 0x22, 0x21, 0x12, 0x11):
+        raise ValueError(f"{path}: decoder error -2 (TIFFRGBAImage can not "
+                         f"handle YCbCr subsampling {hs}x{vs})")
+    coeffs = _float_tag(tags, 529, (0.299, 0.587, 0.114), path)
+    rbw = _float_tag(tags, 532, (0, 255, 128, 255, 128, 255), path)
+    if (len(coeffs) < 3 or len(rbw) < 6 or np.isnan(coeffs).any()
+            or coeffs[1] == 0):
+        raise ValueError(f"{path}: decoder error -2 (Invalid values for "
+                         "YCbCrCoefficients tag)")
+    if kind not in _PREDICTED:
+        predictor = 1
+    if predictor not in (1, 2):
+        raise ValueError(f"{path}: decoder error -2 (PredictorSetup: "
+                         f"predictor {predictor} with 8-bit samples)")
+    block = hs * vs + 2
+
+    def size(width, nrows):              # TIFFVStripSize of YCbCr
+        return -(-nrows // vs) * -(-width // hs) * block
+
+    rgb = np.zeros((ysize, xsize, 3), np.uint8)
+    coeffs = np.ascontiguousarray(coeffs[:3])
+    rbw = np.ascontiguousarray(rbw[:6])
+
+    def put(buf, data_w, out_w, out_h, y0, x0):
+        tiff_library().tb_ycbcr_to_rgb(
+            buf.ctypes.data, buf.size, data_w, out_w, out_h, hs, vs,
+            coeffs.ctypes.data, rbw.ctypes.data,
+            rgb.ctypes.data + 3 * (y0 * xsize + x0), xsize)
+
+    def read(i, need, reused, rowsize):
+        """A strip or tile into a zeroed buffer, as far as it decodes, then
+        Predictor 2 undone over rows of `rowsize` bytes (libtiff's
+        PredictorDecodeTile: a decode that fails, or a size that is no
+        multiple of the row, leaves the bytes as decoded; horAcc8 leaves
+        a row whose size is no multiple of 3). A tile whose decode fails
+        after the first of its row is refused: libtiff decodes it into
+        the buffer the tile before it left."""
+        if i >= len(offsets) or i >= len(counts):
+            raise ValueError(f"{path}: decoder error -2 (too few strips or "
+                             "tiles)")
+        off, cnt = offsets[i], counts[i]
+        if off + cnt > len(data) or cnt == 0:
+            raise ValueError(f"{path}: decoder error -2 (read error on "
+                             f"strip {i})")
+        seg = _Segment(0, 0)
+        buf = _decompress(data[off:off + cnt], kind, need, path, seg,
+                          lenient=True)
+        if predictor == 2 and not seg.failed and not need % rowsize:
+            buf = np.ascontiguousarray(buf)
+            library().tb_tiff_unpredict(buf.ctypes.data, need // rowsize,
+                                        rowsize, 2, 8, 3)
+        if seg.failed and reused:
+            raise NotImplementedError(
+                f"{path}: a damaged YCbCr tile after the first of its row "
+                f"({ITEM})")
+        return buf
+
+    if not tiled:
+        rps = min(h, ysize) if h else ysize
+        samplingrow = -(-xsize // hs) * block
+        scanline = samplingrow // vs
+        for k, y in enumerate(range(0, ysize, rps)):
+            rows = min(rps, ysize - y)
+            rows_sub = -(-rows // vs) * vs
+            need = min(size(xsize, rows), rows_sub * scanline)
+            buf = np.zeros(max(size(xsize, rps), 1), np.uint8)
+            buf[:need] = read(k, need, False, scanline)
+            put(buf, xsize, xsize, rows, y, 0)
+    else:
+        across = -(-xsize // w)
+        for ty, y in enumerate(range(0, ysize, h)):
+            for tx, x in enumerate(range(0, xsize, w)):
+                need = size(w, h)
+                buf = read(ty * across + tx, need, tx > 0, w * 3)
+                put(buf, w, min(w, xsize - x), min(h, ysize - y), y, x)
+    img[..., :3] = rgb
+
+
 def decode_tiff(data: bytes, path: str = "<tiff>"):
     """A TIFF file's first image as PIL decodes it: (pixels, mode,
     palette). pixels is (H, W) for the one-band modes ("1" as 0/255, L,
     P, I;16 and I;16B as uint16, I as int32, F as float32) and (H, W, 4)
-    uint8 in PIL's byte slots for RGB, RGBA, CMYK, LA (L, L, L, A) and PA
-    (P, -, -, A); palette the (256, 3) RGB table of a P or PA image."""
+    uint8 in PIL's byte slots for RGB, RGBA, CMYK, LA (L, L, L, A), PA
+    (P, -, -, A) and LAB (L, a, b as PIL holds them: offset by 128);
+    palette the (256, 3) RGB table of a P or PA image."""
     if not is_tiff(data):
         raise ValueError(f"{path}: not a TIFF file")
     prefix, tags = read_ifd(data, path)
@@ -653,10 +1021,10 @@ def decode_tiff(data: bytes, path: str = "<tiff>"):
     if code in LEFT_OUT:
         raise NotImplementedError(f"{path}: {LEFT_OUT[code]}-compressed TIFF "
                                   f"({ITEM})")
-    if code not in COMPRESSIONS:
+    if code not in COMPRESSIONS and code not in FAILS_IN_LIBTIFF:
         raise UnidentifiedImageError(f"{path}: cannot identify image file "
                                      f"(unknown TIFF compression {code})")
-    kind = COMPRESSIONS[code]
+    kind = COMPRESSIONS.get(code)
     planar = _tag(tags, 284, 1, path)
     photo = _tag(tags, 262, 0, path)
     fill_order = _tag(tags, 266, 1, path)
@@ -672,7 +1040,7 @@ def decode_tiff(data: bytes, path: str = "<tiff>"):
     extra = _tag(tags, 338, (), path)
     bps_count = (3 if photo in (2, 6, 8) else 4 if photo == 5 else 1) + len(
         extra)
-    spp = _tag(tags, 277, 1, path)
+    spp = _tag(tags, 277, 3 if code == 6 and photo in (2, 6) else 1, path)
     if spp > MAX_SAMPLESPERPIXEL:
         raise UnidentifiedImageError(f"{path}: cannot identify image file "
                                      "(invalid value for samples per pixel)")
@@ -688,14 +1056,16 @@ def decode_tiff(data: bytes, path: str = "<tiff>"):
         raise UnidentifiedImageError(f"{path}: cannot identify image file "
                                      f"(unknown pixel mode {key})")
     mode, rawmode = OPEN_INFO[key]
-    if photo in (6, 8):
-        space = "YCbCr" if photo == 6 else "CIELab"
-        raise NotImplementedError(f"{path}: {space} TIFF ({ITEM})")
     offsets, counts, w, h, tiled = _layout(tags, xsize, ysize, path)
+    if code in FAILS_IN_LIBTIFF:
+        raise ValueError(f"{path}: decoder error -2 "
+                         f"({FAILS_IN_LIBTIFF[code]})")
     if kind != "raw":
         if fill_order == 2:
             mode, rawmode = OPEN_INFO[key[:3] + (1,) + key[4:]]
-        if rawmode == "I;16":
+        if photo == 6 and kind == "jpeg" and planar == 1:
+            rawmode = "RGB"
+        elif rawmode == "I;16":
             rawmode = "I;16N"
         elif rawmode.endswith((";16B", ";16L")):
             rawmode = rawmode[:-1] + "N"
@@ -712,15 +1082,22 @@ def decode_tiff(data: bytes, path: str = "<tiff>"):
         palette[:m] = cmap[:3 * n].reshape(3, n).T[:m]
     img = _new_image(mode, ysize, xsize)
     orientation = _tag(tags, 274, 1, path)
+    predictor = _tag(tags, 317, 1, path)
     if kind == "raw":
         img = _decode_raw(data, img, mode, rawmode, planar, bps, bps_count,
                           offsets, w, h, xsize, ysize,
                           orientation in (5, 6, 7, 8), path)
+    elif photo == 6 and not (kind == "jpeg" and planar == 1):
+        if spp != 3:
+            raise ValueError(f"{path}: decoder error -2 (TIFFRGBAImage: "
+                             f"{spp} colour channels for YCbCr)")
+        _decode_ycbcr_rgba(data, img, kind, prefix, tags, planar, predictor,
+                           offsets, counts, w, h, xsize, ysize, tiled, path)
     else:
         _decode_libtiff(data, img, mode, rawmode, kind, prefix, planar, spp,
-                        bps[0], fill_order, _tag(tags, 317, 1, path),
-                        sample_format[0], extra, offsets, counts, w, h,
-                        xsize, ysize, tiled, path)
+                        bps[0], fill_order, predictor, sample_format[0],
+                        extra, offsets, counts, w, h, xsize, ysize, tiled,
+                        path, tags, photo)
     if orientation in _ORIENT:
         img = np.ascontiguousarray(_ORIENT[orientation](img))
     return img, mode, palette
@@ -750,6 +1127,12 @@ def to_read_ldr(img: np.ndarray, mode: str, palette) -> np.ndarray:
         return np.ascontiguousarray(img[..., [0, 0, 0, 3]])
     if mode == "PA":
         return np.concatenate([palette[img[..., 0]], img[..., 3:]], -1)
+    if mode == "LAB":
+        lab = np.ascontiguousarray(img[..., :3])
+        rgb = np.empty_like(lab)
+        tiff_library().tb_lab_to_rgb(lab.ctypes.data, lab.size // 3,
+                                     rgb.ctypes.data)
+        return np.concatenate([rgb, np.full_like(rgb[..., :1], 255)], -1)
     if mode == "CMYK":
         c = img.astype(np.int32)
         nk = 255 - c[..., 3:]

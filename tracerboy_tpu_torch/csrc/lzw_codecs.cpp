@@ -18,6 +18,12 @@
 //   is an error; a string longer than the room left is cut; a stream
 //   that ends (end code, or no bits left) before `need` bytes is an
 //   error, as libtiff's "Not enough data" is.
+// - tb_tiff_lzw_decode_compat: libtiff's LZWDecodeCompat, for streams
+//   whose first byte is 0 and whose second has its low bit set (old-style
+//   codes, as 4.x detects them): codes LSB first, the width grown once
+//   the next free entry passes 2^n - 1 (no early change), no sentinel at
+//   a full table (an entry past libtiff's CSIZE is an error); otherwise
+//   as tb_tiff_lzw_decode.
 // - tb_packbits_decode: libtiff's PackBitsDecode (tif_packbits.c): -128
 //   is a no-op, runs and literals are cut to the room left, a literal
 //   short of input ends the strip; short output is an error.
@@ -113,6 +119,84 @@ extern "C" int64_t tb_tiff_lzw_decode(const uint8_t* src, int64_t n,
       int64_t len = e.length;
       int64_t c = code;
       if (len > need - op) {      // cut: the first need - op bytes
+        while (c >= 0 && tab[c].length > need - op) c = tab[c].next;
+        len = need - op;
+      }
+      int64_t w = op + len;
+      while (c >= 0 && w > op) {
+        dst[--w] = tab[c].value;
+        c = tab[c].next;
+      }
+      op += len;
+    } else {
+      dst[op++] = uint8_t(code);
+    }
+  }
+  return op;
+}
+
+// libtiff's LZWDecodeCompat (see the head of this file). Returns as
+// tb_tiff_lzw_decode.
+extern "C" int64_t tb_tiff_lzw_decode_compat(const uint8_t* src, int64_t n,
+                                             uint8_t* dst, int64_t need) {
+  std::vector<LzwEntry> tab(kLzwCsize);
+  for (int i = 0; i < 256; ++i) tab[i] = {-1, 1, uint8_t(i), uint8_t(i)};
+  for (int i = 256; i < kLzwCsize; ++i) tab[i] = {-1, 0, 0, 0};
+  int64_t free_ent = -1;                // libtiff: dec_codetab - 1
+  int nbits = 9;
+  int64_t maxcode = (1 << nbits) - 2;   // LZWPreDecode's, until a clear
+  int64_t oldcode = 0;
+  int64_t ip = 0;
+  uint64_t acc = 0;                     // LSB first
+  int nacc = 0;
+  int64_t bitsleft = n * 8;
+  int64_t op = 0;
+  auto get = [&](int width) -> int {
+    if (bitsleft < width) return kLzwEoi;   // not terminated
+    while (nacc < width) {
+      acc |= uint64_t(src[ip++]) << nacc;
+      nacc += 8;
+    }
+    const int code = int(acc & ((1u << width) - 1));
+    acc >>= width;
+    nacc -= width;
+    bitsleft -= width;
+    return code;
+  };
+  while (op < need) {
+    int code = get(nbits);
+    if (code == kLzwEoi) break;
+    if (code == kLzwClear) {
+      do {
+        for (int i = kLzwFirst; i < kLzwCsize; ++i) tab[i] = {-1, 0, 0, 0};
+        free_ent = kLzwFirst;
+        nbits = 9;
+        maxcode = (1 << nbits) - 1;
+        code = get(nbits);
+      } while (code == kLzwClear);
+      if (code == kLzwEoi) break;
+      if (code > kLzwClear) return -1;
+      dst[op++] = uint8_t(code);
+      oldcode = code;
+      continue;
+    }
+    if (free_ent < 0 || free_ent >= kLzwCsize) return -1;
+    LzwEntry& fe = tab[free_ent];
+    fe.next = int32_t(oldcode);
+    fe.firstchar = tab[oldcode].firstchar;
+    fe.length = tab[oldcode].length + 1;
+    fe.value = code < free_ent ? tab[code].firstchar : fe.firstchar;
+    if (++free_ent > maxcode) {
+      if (++nbits > 12) nbits = 12;
+      maxcode = (1 << nbits) - 1;
+    }
+    oldcode = code;
+    if (code >= 256) {
+      const LzwEntry& e = tab[code];
+      if (e.length == 0) return -2;
+      int64_t len = e.length;
+      int64_t c = code;
+      if (len > need - op) {
         while (c >= 0 && tab[c].length > need - op) c = tab[c].next;
         len = need - op;
       }
