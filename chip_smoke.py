@@ -231,13 +231,21 @@ Phases, each fatal on failure:
      a lossless 5/3 JP2 (read back equal) and as a 9/7 JP2; the CLI on
      textured_lit.pbrt with the 9/7 JP2 albedo and the RGBA raw
      codestream leaf whose lossless alpha makes the cutouts, as in 22;
- 27. a JSON line of the seven kernels (launches from the run of the path
+ 27. the port's AVIF reader (avif_phase): every fixture of
+     tests/data/avif (Pillow's AVIF of every save option with aom's
+     in-loop filters off, aom's tool switches, the box rewrites, the
+     scene's textures) decoded to the sha256 of PIL's array in its
+     manifest; the 1024x1024 albedo's host decode as a 4:2:0 AVIF and as
+     a 4:4:4 AVIF coded lossless (the Walsh-Hadamard path); the CLI on
+     textured_lit.pbrt with the 4:2:0 AVIF albedo and the RGBA AVIF leaf
+     whose alpha item makes the cutouts, as in 22;
+ 28. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
      2 also by the volume run's, the adaptive residual wave's, the
      animation phase's, the ML dataset's, the sharded runs' and the JPEG,
-     DDS, TIFF, WebP and JPEG 2000 scenes' launches), then the result
-     line {"ok": true, "device": {...}} last.
+     DDS, TIFF, WebP, JPEG 2000 and AVIF scenes' launches), then the
+     result line {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX or the JAX package (the UNet weights and the JPEG
 and DDS fixtures are data files read by path).
@@ -3771,6 +3779,7 @@ DDS_DIR = Path(__file__).resolve().parent / "tests" / "data" / "dds"
 TIFF_DIR = Path(__file__).resolve().parent / "tests" / "data" / "tiff"
 WEBP_DIR = Path(__file__).resolve().parent / "tests" / "data" / "webp"
 J2K_DIR = Path(__file__).resolve().parent / "tests" / "data" / "j2k"
+AVIF_DIR = Path(__file__).resolve().parent / "tests" / "data" / "avif"
 
 
 def spp_reference(r, D, n):
@@ -3969,6 +3978,12 @@ def j2k_phase(torch):
     """j2k_runs in a temporary directory that is removed after it."""
     with tempfile.TemporaryDirectory(prefix="tb_j2k_") as tmp:
         return j2k_runs(torch, tmp)
+
+
+def avif_phase(torch):
+    """avif_runs in a temporary directory that is removed after it."""
+    with tempfile.TemporaryDirectory(prefix="tb_avif_") as tmp:
+        return avif_runs(torch, tmp)
 
 
 def host_cpu() -> str:
@@ -4297,6 +4312,37 @@ def j2k_runs(torch, tmp):
     return results, launches
 
 
+def avif_runs(torch, tmp):
+    """The port's AVIF reader (core/avif.py, csrc/av1_decode.cpp, g++ at
+    first use) on the card's machine, which has no PIL, no libavif and no
+    AV1 library. (a) Every committed fixture of tests/data/avif decoded
+    by image_io.decode_ldr, its shape, dtype and sha256 equal to
+    manifest.json's (written by tests/make_avif_fixtures.py). (b)
+    utils/demo_scene's 1024x1024 albedo decoded as the 4:2:0 AVIF fixture
+    and as the 4:4:4 one coded lossless (the Walsh-Hadamard path); each
+    decode 5 runs, host seconds, with the host's CPU and the card line.
+    (c) The CLI on textured_lit.pbrt with its albedo the 4:2:0 AVIF and
+    its leaf the RGBA AVIF whose alpha item makes the cutouts, so the
+    alpha re-fires of kernel 1 run on the AVIF reader's texels
+    (textured_swap_cli). Returns (results, launches of (c))."""
+    from tracerboy_tpu_torch.core.image_io import decode_ldr
+
+    set_opt_in()
+    results = {"fixtures": fixture_hashes("avif", AVIF_DIR, decode_ldr)}
+    card = card_line()
+    for key, path in (("420", AVIF_DIR / "albedo.avif"),
+                      ("lossless", AVIF_DIR / "albedo_lossless.avif")):
+        results[f"decode_1024_{key}"] = dict(host_decode(decode_ldr, path),
+                                             card=card)
+        print(f"avif decode 1024x1024 {key} (host):",
+              json.dumps(results[f"decode_1024_{key}"]))
+    cli_res, launches = textured_swap_cli(
+        torch, tmp, "avif", {"albedo.png": str(AVIF_DIR / "albedo.avif"),
+                             "leaf.png": str(AVIF_DIR / "leaf.avif")})
+    results.update(cli_res)
+    return results, launches
+
+
 def main() -> int:
     print(card_line())
     import torch
@@ -4536,6 +4582,9 @@ def main() -> int:
     j2k_res, j2k_launches = j2k_phase(torch)
     j2k_kinds = j2k_res["kinds"]
     lap("j2k")
+    avif_res, avif_launches = avif_phase(torch)
+    avif_kinds = avif_res["kinds"]
+    lap("avif")
     print("phase seconds:", json.dumps(laps))
 
     def by_path(key):
@@ -4550,7 +4599,7 @@ def main() -> int:
                 "sharding": shard_launches[key],
                 "jpeg": jpeg_launches[key], "dds": dds_launches[key],
                 "tiff": tiff_launches[key], "webp": webp_launches[key],
-                "j2k": j2k_launches[key]}
+                "j2k": j2k_launches[key], "avif": avif_launches[key]}
 
     trav = "tracerboy_tpu_torch/csrc/bvh_traverse.cu"
     bsrc = "tracerboy_tpu_torch/csrc/binned.cu"
@@ -4572,7 +4621,8 @@ def main() -> int:
                               anim_c, anim_blas, ml_c, shard_c,
                               *jpeg_kinds.values(), *dds_kinds.values(),
                               *tiff_kinds.values(),
-                              *webp_kinds.values(), *j2k_kinds.values()]),
+                              *webp_kinds.values(), *j2k_kinds.values(),
+                              *avif_kinds.values()]),
              id_mismatch_outside_ties=sum(
                  s["id_mismatch_outside_ties"]
                  for s in [st_c, st_c2, un_c, *roots_c, env_closest,
@@ -4581,7 +4631,8 @@ def main() -> int:
                            anim_c, anim_blas, ml_c, shard_c,
                            *jpeg_kinds.values(), *dds_kinds.values(),
                            *tiff_kinds.values(),
-                           *webp_kinds.values(), *j2k_kinds.values()]),
+                           *webp_kinds.values(), *j2k_kinds.values(),
+                           *avif_kinds.values()]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
              unordered_ms=un_times["closest_ms"],
              unordered_plain_ms=un_times["closest_plain_ms"],
@@ -4645,7 +4696,8 @@ def main() -> int:
                 for pre, kinds in (("jpeg", jpeg_kinds), ("dds", dds_kinds),
                                    ("tiff", tiff_kinds),
                                    ("webp", webp_kinds),
-                                   ("j2k", j2k_kinds))},
+                                   ("j2k", j2k_kinds),
+                                   ("avif", avif_kinds))},
              sharding_runs=shard_res["runs"],
              sharding_ms_a_sample=shard_res["ms_a_sample"],
              jpeg_decode_1024=jpeg_res["decode_1024"],
@@ -4658,6 +4710,8 @@ def main() -> int:
                 for key in ("lossy", "lossless", "qoi")},
              **{f"j2k_decode_1024_{key}": j2k_res[f"decode_1024_{key}"]
                 for key in ("lossless", "97")},
+             **{f"avif_decode_1024_{key}": avif_res[f"decode_1024_{key}"]
+                for key in ("420", "lossless")},
              volume_run=vol_res["run"],
              volume_control=vol_res["control"],
              estimators={k: {kk: vv for kk, vv in v.items()

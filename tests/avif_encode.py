@@ -1,0 +1,218 @@
+"""AVIF files for the port's AVIF reader's tests: Pillow's encoder (aom
+3.12 through libavif 1.3) with the in-loop filters off, and rewrites of
+the HEIF box tree where Pillow has no option: the colr nclx values, a
+colr box dropped, the items' data moved into an idat box (iloc
+construction method 1), iloc versions and field sizes, the ftyp's
+brands, a 64-bit box size. No AV1 stream is written here: every frame
+is aom's.
+"""
+
+from __future__ import annotations
+
+import io
+import struct
+
+import numpy as np
+
+# The in-loop filters off (deblocking, CDEF, loop restoration), and intra
+# block copy, which aom turns on by itself for screen-like content.
+FILTERS_OFF = {"enable-cdef": "0", "enable-restoration": "0",
+               "loopfilter-control": "0", "enable-intrabc": "0"}
+
+
+def pil_avif(img, advanced=None, **kw) -> bytes:
+    """Pillow's AVIF of img (a PIL image or an array) with the filters
+    off; advanced adds aom options, kw Pillow's own."""
+    from PIL import Image
+
+    if isinstance(img, np.ndarray):
+        img = Image.fromarray(img)
+    adv = dict(FILTERS_OFF)
+    adv.update(advanced or {})
+    out = io.BytesIO()
+    img.save(out, "AVIF", advanced=adv, **kw)
+    return out.getvalue()
+
+
+def pil_default(img, **kw) -> bytes:
+    """Pillow's AVIF with aom's defaults (the in-loop filters on)."""
+    from PIL import Image
+
+    if isinstance(img, np.ndarray):
+        img = Image.fromarray(img)
+    out = io.BytesIO()
+    img.save(out, "AVIF", **kw)
+    return out.getvalue()
+
+
+def box(typ: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + typ + payload
+
+
+def full_box(typ: bytes, version: int, flags: int, payload: bytes) -> bytes:
+    return box(typ, bytes([version]) + flags.to_bytes(3, "big") + payload)
+
+
+def boxes(data: bytes, start: int = 0, end: int | None = None):
+    """[(type, payload start, payload end)] of the boxes in data."""
+    end = len(data) if end is None else end
+    out, off = [], start
+    while off + 8 <= end:
+        size, typ = struct.unpack(">I4s", data[off:off + 8])
+        hdr = 8
+        if size == 1:
+            size = struct.unpack(">Q", data[off + 8:off + 16])[0]
+            hdr = 16
+        elif size == 0:
+            size = end - off
+        out.append((typ, off + hdr, off + size))
+        off += size
+    return out
+
+
+def _top(data: bytes) -> dict:
+    return {t: (s, e) for t, s, e in boxes(data)}
+
+
+def set_nclx(data: bytes, cp=None, tc=None, mc=None, full=None) -> bytes:
+    """The colour item's colr nclx values rewritten in place."""
+    d = bytearray(data)
+    i = d.find(b"colrnclx")
+    assert i >= 0, "no nclx colr box"
+    p = i + 8
+    for k, v in enumerate((cp, tc, mc)):
+        if v is not None:
+            d[p + 2 * k:p + 2 * k + 2] = struct.pack(">H", v)
+    if full is not None:
+        d[p + 6] = 0x80 if full else 0
+    return bytes(d)
+
+
+def drop_colr(data: bytes) -> bytes:
+    """Every colr property renamed free (an unknown property libavif
+    skips): CICP and range then come from the AV1 sequence header."""
+    return data.replace(b"colrnclx", b"freenclx").replace(b"colrprof",
+                                                          b"freeprof")
+
+
+def set_brands(data: bytes, major: bytes, compatible) -> bytes:
+    """The ftyp rewritten with these brands (the file's offsets kept by
+    moving the first box after it only where the size is unchanged)."""
+    t = _top(data)
+    s, e = t[b"ftyp"]
+    new = box(b"ftyp", major + b"\0\0\0\0" + b"".join(compatible))
+    old = data[s - 8:e]
+    assert len(new) == len(old), "the ftyp must keep its size"
+    return data[:s - 8] + new + data[e:]
+
+
+def _meta_parts(data: bytes):
+    """(ftyp bytes, [(type, payload)] of the meta's children, {item:
+    payload bytes}, the iloc's item order, trailing top-level boxes other
+    than mdat)."""
+    t = boxes(data)
+    ftyp = next(data[s - 8:e] for typ, s, e in t if typ == b"ftyp")
+    ms, me = next((s, e) for typ, s, e in t if typ == b"meta")
+    children = [(typ, data[s:e]) for typ, s, e in boxes(data, ms + 4, me)]
+    iloc = next(p for typ, p in children if typ == b"iloc")
+    idat = next((p for typ, p in children if typ == b"idat"), b"")
+    items, order = _read_iloc(iloc, data, idat)
+    rest = [data[s - 8:e] for typ, s, e in t
+            if typ not in (b"ftyp", b"meta", b"mdat")]
+    return ftyp, children, items, order, rest
+
+
+def _read_iloc(p: bytes, data: bytes, idat: bytes):
+    v = p[0]
+    pos = 4
+    osz, lsz = p[pos] >> 4, p[pos] & 15
+    bsz, isz = p[pos + 1] >> 4, (p[pos + 1] & 15) if v else 0
+    pos += 2
+
+    def rd(n):
+        nonlocal pos
+        x = int.from_bytes(p[pos:pos + n], "big") if n else 0
+        pos += n
+        return x
+
+    items, order = {}, []
+    for _ in range(rd(2 if v < 2 else 4)):
+        iid = rd(2 if v < 2 else 4)
+        method = rd(2) & 15 if v in (1, 2) else 0
+        rd(2)
+        base = rd(bsz)
+        parts = []
+        for _ in range(rd(2)):
+            rd(isz)
+            off, ln = base + rd(osz), rd(lsz)
+            src = idat if method == 1 else data
+            parts.append(src[off:off + ln])
+        items[iid] = b"".join(parts)
+        order.append(iid)
+    return items, order
+
+
+def relocate(data: bytes, idat: bool = False, version: int = 0,
+             offset_size: int = 4, length_size: int = 4,
+             base_offset_size: int = 0, split: int = 1,
+             big_mdat: bool = False) -> bytes:
+    """The file rebuilt with its items' data placed anew: in an idat box
+    (construction method 1, iloc version 1 or 2) or an mdat after the
+    meta; the iloc written at this version and with these field sizes;
+    each item's data in `split` extents; the mdat's size as a 64-bit
+    largesize where big_mdat."""
+    ftyp, children, items, order, rest = _meta_parts(data)
+    if idat and version == 0:
+        version = 1
+    count = 2 if version < 2 else 4
+
+    def iloc(offsets):
+        out = bytes([offset_size << 4 | length_size,
+                     base_offset_size << 4])
+        out += len(order).to_bytes(count, "big")
+        for iid in order:
+            out += iid.to_bytes(count, "big")
+            if version in (1, 2):
+                out += (1 if idat else 0).to_bytes(2, "big")
+            out += b"\0\0" + (0).to_bytes(base_offset_size, "big")
+            exts = offsets[iid]
+            out += len(exts).to_bytes(2, "big")
+            for off, ln in exts:
+                out += off.to_bytes(offset_size, "big")
+                out += ln.to_bytes(length_size, "big")
+        return full_box(b"iloc", version, 0, out)
+
+    def pieces(payload):
+        step = -(-len(payload) // split)
+        return [payload[k:k + step] for k in range(0, len(payload), step)]
+
+    def build(base):
+        offsets, pos, blob = {}, base, b""
+        for iid in order:
+            exts = []
+            for piece in pieces(items[iid]):
+                exts.append((pos, len(piece)))
+                pos += len(piece)
+                blob += piece
+            offsets[iid] = exts
+        kids = b""
+        for typ, payload in children:
+            if typ == b"iloc":
+                kids += iloc(offsets)
+            elif typ == b"idat":
+                continue
+            else:
+                kids += box(typ, payload)
+        if idat:
+            kids += box(b"idat", blob)
+        return full_box(b"meta", 0, 0, kids), blob
+
+    meta, blob = build(0)
+    if idat:
+        return ftyp + meta + b"".join(rest)
+    hdr = 16 if big_mdat else 8
+    base = len(ftyp) + len(meta) + sum(map(len, rest)) + hdr
+    meta, blob = build(base)
+    mdat = (struct.pack(">I4sQ", 1, b"mdat", 16 + len(blob)) if big_mdat
+            else struct.pack(">I4s", 8 + len(blob), b"mdat")) + blob
+    return ftyp + meta + b"".join(rest) + mdat

@@ -1,0 +1,261 @@
+"""Write the AVIF fixtures of the port's reader and their manifest.
+
+    PYTHONPATH=. python tests/make_avif_fixtures.py [OUT_DIR]
+
+Writes into tests/data/avif/ (or OUT_DIR) a small file of each layout the
+port's reader (core/avif.py, csrc/av1_decode.cpp) takes, every AV1 frame
+aom's through Pillow with the in-loop filters off
+(tests/avif_encode.FILTERS_OFF):
+- Pillow's save options: speeds 0-10; qualities 0-100 and lossless;
+  4:2:0, 4:2:2, 4:4:4 and 4:0:0 at full and limited range; sizes 1x1,
+  1x37, 37x1, odd sizes and sizes past one 128x128 superblock; tiles
+  (tile_rows, tile_cols, autotiling); RGBA, premultiplied alpha, an
+  animation (RGB and RGBA: the first frame), an ICC profile, EXIF
+  orientation;
+- aom's options: 64x64 and 128x128 superblocks; each intra tool switched
+  off alone (filter intra, CfL, smooth, Paeth, angle deltas, directional
+  and diagonal modes, the intra edge filter, 64-point transforms,
+  rectangular, AB and 1:4 partitions, flipped and identity transforms),
+  the reduced transform set, partition size limits, CDF update modes;
+  quantizer matrices, the delta q modes, the adaptive quantisation modes
+  (which aom does not turn into segmentation on a key frame) and chroma
+  delta q; screen content with palettes;
+- tests/avif_encode.py's rewrites: the colr nclx matrix (BT.709, BT.2020,
+  unspecified, identity at 4:4:4, chroma-derived), its range flag, no
+  colr box, the items' data in an idat (construction method 1), iloc
+  versions 1 and 2 with 8-byte fields and split extents, a 64-bit mdat
+  size, a mif1 major brand naming avif among its compatible brands;
+- the AVIF scene's textures: utils/demo_scene's 1024x1024 albedo as a
+  4:2:0 AVIF and as a 4:4:4 AVIF coded lossless (the Walsh-Hadamard
+  path), and its 512x512 leaf as an RGBA AVIF whose alpha makes the
+  cutouts.
+manifest.json holds, for each file, the shape, dtype and sha256 of
+np.asarray of what the JAX read_ldr decodes through PIL, and the
+versions of Pillow, libavif, dav1d and aom. The machine with the card
+has no PIL: chip_smoke.py and tests/test_torch_avif_cuda.py hold the port
+against the manifest there; tests/test_torch_avif.py holds the manifest
+against PIL.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
+
+import avif_encode as ae  # noqa: E402
+from make_dds_fixtures import array_digest, pil_pixels  # noqa: E402
+
+FIXTURE_DIR = os.path.join(HERE, "data", "avif")
+ALBEDO, ALBEDO_LOSSLESS, LEAF = ("albedo.avif", "albedo_lossless.avif",
+                                 "leaf.avif")
+TOOLS_OFF = ("enable-filter-intra", "enable-cfl-intra", "enable-smooth-intra",
+             "enable-paeth-intra", "enable-angle-delta",
+             "enable-directional-intra", "enable-diagonal-intra",
+             "enable-intra-edge-filter", "enable-tx64",
+             "enable-rect-partitions", "enable-ab-partitions",
+             "enable-1to4-partitions", "enable-flip-idtx")
+
+
+def sample(rng, h: int, w: int, channels: int = 3) -> np.ndarray:
+    """Smooth colour fields with noise, a bright band and a dark bar, so
+    that every intra mode has something to predict; an alpha ramp as the
+    fourth channel."""
+    from PIL import Image
+
+    base = rng.integers(0, 256, (h // 8 + 2, w // 8 + 2, 3)).astype(np.uint8)
+    img = np.asarray(Image.fromarray(base).resize((w, h), Image.BICUBIC),
+                     np.float32)
+    img = img + rng.normal(0, 10, (h, w, 3))
+    img[h // 3:h // 2, :, 0] += 70
+    img[:, w // 4:w // 4 + 3, 1] -= 80
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    if channels == 4:
+        yy, xx = np.mgrid[0:h, 0:w]
+        alpha = ((xx * 37 + yy * 11) % 256).astype(np.uint8)
+        img = np.concatenate([img, alpha[..., None]], -1)
+    return img
+
+
+def screen(rng, h: int, w: int) -> np.ndarray:
+    """Flat rectangles of six colours on white: screen content."""
+    img = np.full((h, w, 3), 255, np.uint8)
+    colours = rng.integers(0, 256, (6, 3))
+    for _ in range(30):
+        y, x = rng.integers(0, h), rng.integers(0, w)
+        img[y:y + rng.integers(2, 20), x:x + rng.integers(2, 40)] = \
+            colours[rng.integers(0, 6)]
+    return img
+
+
+def pil_files(rng) -> dict:
+    """Files Pillow writes: its save options and aom's."""
+    from PIL import Image, ImageCms
+
+    out = {}
+    save = ae.pil_avif
+    img = sample(rng, 40, 48)
+    for speed in range(11):
+        out[f"speed_{speed}.avif"] = save(img, quality=60, speed=speed)
+    for q in (0, 10, 25, 50, 75, 90, 100):
+        out[f"quality_{q}.avif"] = save(img, quality=q, speed=6)
+    # Quality 100 codes the frame lossless (base_q_idx 0: the
+    # Walsh-Hadamard transform); the RGB to YUV step before it is not.
+    out["lossless.avif"] = save(img, quality=100, speed=6,
+                                subsampling="4:4:4")
+    out["lossless_aom.avif"] = save(img, speed=6, subsampling="4:4:4",
+                                    advanced={"lossless": "1"})
+    for sub in ("4:2:0", "4:2:2", "4:4:4", "4:0:0"):
+        for rng_ in ("full", "limited"):
+            tag = sub.replace(":", "")
+            out[f"sub_{tag}_{rng_}.avif"] = save(
+                sample(rng, 21, 35), quality=70, speed=6, subsampling=sub,
+                range=rng_)
+    for h, w in ((1, 1), (1, 37), (37, 1), (2, 3), (65, 33), (130, 141),
+                 (9, 200)):
+        out[f"size_{w}x{h}.avif"] = save(sample(rng, h, w), quality=70,
+                                         speed=6)
+    big = sample(rng, 200, 260)
+    out["tiles_2x2.avif"] = save(big, quality=50, speed=8, tile_rows=1,
+                                 tile_cols=1)
+    out["tiles_4x4.avif"] = save(big, quality=50, speed=8, tile_rows=2,
+                                 tile_cols=2)
+    out["autotiling.avif"] = save(big, quality=50, speed=8, autotiling=True)
+    for sb in ("64", "128"):
+        out[f"sb_{sb}.avif"] = save(big, quality=50, speed=4,
+                                    advanced={"sb-size": sb})
+    mid = sample(rng, 72, 96)
+    for tool in TOOLS_OFF:
+        out[f"off_{tool[7:]}.avif"] = save(mid, quality=55, speed=4,
+                                           advanced={tool: "0"})
+    for name, adv in (
+            ("reduced_tx_set", {"reduced-tx-type-set": "1"}),
+            ("partition_16_32", {"min-partition-size": "16",
+                                 "max-partition-size": "32"}),
+            ("cdf_update_0", {"cdf-update-mode": "0"}),
+            ("cdf_update_2", {"cdf-update-mode": "2"}),
+            ("qm", {"enable-qm": "1"}),
+            ("qm_all_levels", {"enable-qm": "1", "qm-min": "0",
+                               "qm-max": "15"}),
+            ("deltaq_1", {"deltaq-mode": "1"}),
+            ("deltaq_2", {"deltaq-mode": "2"}),
+            ("deltaq_3", {"deltaq-mode": "3"}),
+            ("aq_1", {"aq-mode": "1"}), ("aq_2", {"aq-mode": "2"}),
+            ("aq_3", {"aq-mode": "3"}),
+            ("chroma_deltaq", {"enable-chroma-deltaq": "1",
+                               "deltaq-mode": "3"})):
+        out[f"{name}.avif"] = save(big if name[:2] in ("aq", "de", "ch")
+                                   else mid, quality=45, speed=4,
+                                   advanced=adv)
+    scr = screen(rng, 64, 96)
+    out["screen_palette.avif"] = save(
+        scr, quality=60, speed=4,
+        advanced={"tune-content": "screen", "enable-palette": "1"})
+    out["palette.avif"] = save(scr, quality=60, speed=4,
+                               advanced={"enable-palette": "1"})
+    out["palette_444.avif"] = save(scr, quality=60, speed=4,
+                                   subsampling="4:4:4",
+                                   advanced={"enable-palette": "1"})
+    rgba = sample(rng, 30, 44, 4)
+    out["rgba.avif"] = save(rgba, quality=70, speed=6)
+    out["rgba_premultiplied.avif"] = save(rgba, quality=70, speed=6,
+                                          alpha_premultiplied=True)
+    out["rgba_444_limited.avif"] = save(rgba, quality=70, speed=6,
+                                        subsampling="4:4:4", range="limited")
+    out["gray_alpha.avif"] = save(rgba, quality=70, speed=6,
+                                  subsampling="4:0:0", range="limited")
+    frames = [Image.fromarray(sample(rng, 24, 32)) for _ in range(3)]
+    out["animation.avif"] = save(frames[0], quality=60, speed=6,
+                                 append_images=frames[1:])
+    frames = [Image.fromarray(sample(rng, 24, 32, 4)) for _ in range(2)]
+    out["animation_rgba.avif"] = save(frames[0], quality=60, speed=6,
+                                      append_images=frames[1:])
+    out["animation_premultiplied.avif"] = save(
+        frames[0], quality=60, speed=6, append_images=frames[1:],
+        alpha_premultiplied=True)
+    icc = ImageCms.ImageCmsProfile(ImageCms.createProfile("sRGB")).tobytes()
+    out["icc.avif"] = save(img, quality=60, speed=6, icc_profile=icc)
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    out["exif_orientation.avif"] = save(img, quality=60, speed=6,
+                                        exif=exif.tobytes())
+    return out
+
+
+def box_files(rng) -> dict:
+    """tests/avif_encode.py's rewrites of Pillow's files."""
+    out = {}
+    save = ae.pil_avif
+    img = sample(rng, 27, 38)
+    f420 = save(img, quality=70, speed=6)
+    f444 = save(img, quality=70, speed=6, subsampling="4:4:4")
+    for mc, full in ((1, 1), (1, 0), (9, 1), (9, 0), (2, 1), (5, 0)):
+        out[f"nclx_mc{mc}_{'full' if full else 'limited'}.avif"] = \
+            ae.set_nclx(f420, mc=mc, full=full)
+    out["nclx_identity.avif"] = ae.set_nclx(f444, mc=0, full=1)
+    out["nclx_identity_limited.avif"] = ae.set_nclx(f444, mc=0, full=0)
+    for cp in (1, 5, 9):
+        out[f"nclx_mc12_cp{cp}.avif"] = ae.set_nclx(f420, cp=cp, mc=12)
+    out["no_colr.avif"] = ae.drop_colr(save(img, quality=70, speed=6,
+                                            range="limited"))
+    rgba = save(sample(rng, 19, 23, 4), quality=70, speed=6)
+    out["idat.avif"] = ae.relocate(f420, idat=True)
+    out["idat_rgba.avif"] = ae.relocate(rgba, idat=True, version=2)
+    out["iloc_v1_split.avif"] = ae.relocate(rgba, version=1, split=3,
+                                            offset_size=8, length_size=8,
+                                            base_offset_size=4)
+    out["iloc_v2.avif"] = ae.relocate(f420, version=2, offset_size=8)
+    out["mdat_largesize.avif"] = ae.relocate(f420, big_mdat=True)
+    out["brand_mif1.avif"] = ae.set_brands(f420, b"mif1",
+                                           [b"avif", b"mif1", b"miaf",
+                                            b"MA1B"])
+    return out
+
+
+def scene_textures() -> dict:
+    """The AVIF scene's albedo (4:2:0 and lossless 4:4:4) and leaf."""
+    from tracerboy_tpu_torch.core.image_io import _to_uint8
+    from tracerboy_tpu_torch.utils.demo_scene import albedo_image, leaf_image
+
+    albedo = _to_uint8(albedo_image(1024))
+    leaf = _to_uint8(leaf_image(512))
+    return {ALBEDO: ae.pil_avif(albedo, quality=80, speed=6),
+            ALBEDO_LOSSLESS: ae.pil_avif(albedo, quality=100, speed=6,
+                                         subsampling="4:4:4"),
+            LEAF: ae.pil_avif(leaf, quality=90, speed=6)}
+
+
+def versions() -> dict:
+    import PIL
+    from PIL import _avif, features
+
+    codecs = dict(part.split(":", 1) for part in
+                  _avif.codec_versions().split(", "))
+    return {"pil": PIL.__version__, "libavif": features.version("avif"),
+            "dav1d": codecs.get("dav1d [dec]"),
+            "aom": codecs.get("aom [enc]")}
+
+
+def main(out_dir: str = FIXTURE_DIR) -> dict:
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(20261021)
+    files = {**pil_files(rng), **box_files(rng), **scene_textures()}
+    manifest = {**versions(), "files": {}}
+    for name, data in files.items():
+        path = os.path.join(out_dir, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        manifest["files"][name] = array_digest(pil_pixels(path))
+    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+        f.write("\n")
+    return manifest
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:])

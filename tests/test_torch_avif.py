@@ -1,0 +1,447 @@
+"""The port's AVIF reader (core/avif.py, csrc/av1_decode.cpp, through
+core/image_io.read_ldr) against the JAX package's read_ldr, which reads
+AVIF through PIL and so through libavif and dav1d: every case must be
+equal bit for bit (np.array_equal of read_ldr's float32, with and
+without gamma_to_linear).
+
+The committed fixtures (tests/data/avif, written by
+tests/make_avif_fixtures.py) are held against PIL and their manifest,
+and each is checked to have its in-loop filters off (the headers alone
+decide it) and, together, to use every block tool of the decoder.
+Hypothesis sweeps random images and animations through Pillow's encoder
+(subsampling, range, speed, quality, alpha, tool switches, all with the
+filters off),
+truncated files and replaced bytes. Where PIL refuses a file the port
+raises: ValueError where PIL raises OSError, ValueError, SyntaxError,
+RuntimeError or AssertionError, NotImplementedError where PIL cannot
+identify it. Files that need what this part of the port leaves out (an
+in-loop filter, intra block copy) raise NotImplementedError naming
+ROADMAP item 22b, AVIF part 2. The AV1 tables in csrc/av1_tables.inc
+equal those of the libraries present (tests/make_av1_tables.py
+--check). A PBRT scene whose albedo is an AVIF and whose leaf an RGBA
+AVIF compiles in both packages to the same leaves, bit for bit.
+"""
+
+import json
+import os
+import struct
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import assume, given, settings
+from hypothesis import strategies as st
+from PIL import Image, UnidentifiedImageError
+
+import avif_encode as ae
+from make_avif_fixtures import (
+    ALBEDO,
+    ALBEDO_LOSSLESS,
+    FIXTURE_DIR,
+    LEAF,
+    TOOLS_OFF,
+    sample,
+    screen,
+)
+from make_dds_fixtures import array_digest, pil_pixels
+from tracerboy_tpu_torch.core import avif, image_io
+
+torch.set_num_threads(2)
+
+with open(os.path.join(FIXTURE_DIR, "manifest.json")) as f:
+    MANIFEST = json.load(f)
+FIXTURES = sorted(MANIFEST["files"])
+ITEM = "item 22b, AVIF part 2"
+
+
+@pytest.fixture(scope="module")
+def scratch(tmp_path_factory):
+    return tmp_path_factory.mktemp("avif")
+
+
+def jax_read_ldr(path, **kw):
+    from tracerboy_tpu.core.image_io import read_ldr
+
+    return read_ldr(str(path), **kw)
+
+
+def assert_as_jax(path, data: bytes, lenient=False):
+    """Write `data` to `path` and read it with read_ldr in both packages:
+    equal float32 images (returns the port's), or the matching refusal
+    (returns None): NotImplementedError where PIL cannot identify the
+    file, ValueError where it raises otherwise. With lenient (the
+    truncated and corrupted files), the port raises, or reads as PIL
+    reads: a refusal of either kind where PIL refuses, and where PIL
+    reads a damaged file (libavif and dav1d read past some damage, an
+    ispe that disagrees with the frame among it) the port may refuse it
+    with ValueError."""
+    path.write_bytes(data)
+    either = (ValueError, NotImplementedError)
+    try:
+        ref = jax_read_ldr(path)
+    except (NotImplementedError, UnidentifiedImageError):
+        with pytest.raises(either if lenient else NotImplementedError):
+            image_io.read_ldr(str(path))
+        return None
+    except (OSError, ValueError, SyntaxError, RuntimeError, AssertionError,
+            ZeroDivisionError):
+        with pytest.raises(either if lenient else ValueError):
+            image_io.read_ldr(str(path))
+        return None
+    try:
+        got = image_io.read_ldr(str(path))
+    except ValueError:
+        if lenient:
+            return None
+        raise
+    assert got.dtype == np.float32 and got.shape == ref.shape
+    assert np.array_equal(got, ref), (
+        np.abs(got - ref).max() * 255, (got != ref).mean())
+    return got
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_fixture_reads_as_the_jax_read_ldr(name):
+    path = os.path.join(FIXTURE_DIR, name)
+    got = image_io.read_ldr(path)
+    assert got.dtype == np.float32
+    assert np.array_equal(got, jax_read_ldr(path))
+    assert np.array_equal(image_io.read_ldr(path, gamma_to_linear=True),
+                          jax_read_ldr(path, gamma_to_linear=True))
+
+
+def test_manifest_matches_the_files():
+    """Every fixture is in the manifest, and PIL's decode of each has the
+    recorded shape, dtype and sha256 (so the card's machine, which has no
+    PIL, checks the port against PIL's arrays); the port's own decode
+    too. The manifest names the Pillow, libavif, dav1d and aom that
+    wrote it; the directory stays under 1.5 MiB."""
+    from make_avif_fixtures import versions
+
+    names = set(os.listdir(FIXTURE_DIR)) - {"manifest.json"}
+    assert names == set(MANIFEST["files"])
+    assert {k: MANIFEST[k] for k in versions()} == versions()
+    for name, entry in MANIFEST["files"].items():
+        path = os.path.join(FIXTURE_DIR, name)
+        assert array_digest(pil_pixels(path)) == entry, name
+        assert array_digest(image_io.decode_ldr(path)) == entry, name
+    total = sum(os.path.getsize(os.path.join(FIXTURE_DIR, n))
+                for n in os.listdir(FIXTURE_DIR))
+    assert total < 1.5 * 2**20
+
+
+def test_fixtures_have_the_filters_off_and_cover_the_decoder():
+    """The headers alone (up to the first frame header) find every
+    fixture's in-loop filters off; together the fixtures use every block
+    tool of csrc/av1_decode.cpp but segmentation (aom writes none on a key
+    frame), every header flag, all four subsamplings, tiles, both
+    superblock sizes and a frame coded lossless."""
+    tools, flags, layouts = set(), set(), set()
+    lossless = tiles = sb128 = 0
+    for name in FIXTURES:
+        data = open(os.path.join(FIXTURE_DIR, name), "rb").read()
+        avif.frame_info(data, name, headers_only=True)
+        info = avif.frame_info(data, name)
+        tools |= info["tools"]
+        flags |= info["flags"]
+        layouts.add((info["mono"], *info["subsampling"]))
+        lossless += info["lossless"]
+        tiles += info["tiles"] > 1
+        sb128 += info["sb128"]
+    assert tools == set(avif.TOOLS) - {"segments"}
+    assert flags >= set(avif.HEADER_FLAGS) - {"segmentation", "delta_lf"}
+    assert layouts == {(False, 1, 1), (False, 1, 0), (False, 0, 0),
+                       (True, 1, 1)}
+    assert lossless >= 2 and tiles >= 3 and 0 < sb128 < len(FIXTURES)
+
+
+def test_scene_textures_are_what_the_scene_needs():
+    """The 1024x1024 albedo as a 4:2:0 AVIF and as a 4:4:4 AVIF coded
+    lossless (the Walsh-Hadamard path); the 512x512 leaf an RGBA AVIF
+    whose alpha cuts about half the texels."""
+    for name, sub, lossless in ((ALBEDO, (1, 1), False),
+                                (ALBEDO_LOSSLESS, (0, 0), True)):
+        data = open(os.path.join(FIXTURE_DIR, name), "rb").read()
+        info = avif.frame_info(data)
+        assert info["size"] == (1024, 1024)
+        assert info["subsampling"] == sub and info["lossless"] == lossless
+    leaf = image_io.decode_ldr(os.path.join(FIXTURE_DIR, LEAF))
+    assert leaf.shape == (512, 512, 4)
+    assert 0.3 < (leaf[..., 3] == 0).mean() < 0.7
+
+
+SUBSAMPLINGS = ("4:2:0", "4:2:2", "4:4:4", "4:0:0")
+
+
+@settings(max_examples=25, deadline=None, derandomize=True)
+@given(seed=st.integers(0, 2**31 - 1), w=st.integers(1, 90),
+       h=st.integers(1, 70), sub=st.sampled_from(SUBSAMPLINGS),
+       full=st.booleans(), speed=st.integers(2, 10),
+       quality=st.integers(0, 100), rgba=st.booleans(),
+       premultiplied=st.booleans(), animated=st.booleans(),
+       tool=st.sampled_from((None, *TOOLS_OFF)),
+       extra=st.sampled_from((None, ("enable-qm", "1"),
+                              ("deltaq-mode", "3"), ("sb-size", "128"),
+                              ("reduced-tx-type-set", "1"),
+                              ("enable-palette", "1"))))
+def test_pil_encoder_sweep(scratch, seed, w, h, sub, full, speed, quality,
+                           rgba, premultiplied, animated, tool, extra):
+    rng = np.random.default_rng(seed)
+    img = sample(rng, h, w, 4 if rgba else 3)
+    adv = dict([extra] if extra else [])
+    if tool:
+        adv[tool] = "0"
+    more = [Image.fromarray(sample(rng, h, w, 4 if rgba else 3))]
+    data = ae.pil_avif(img, quality=quality, speed=speed, subsampling=sub,
+                       range="full" if full else "limited",
+                       alpha_premultiplied=premultiplied, advanced=adv,
+                       append_images=more if animated else [])
+    assert assert_as_jax(scratch / "s.avif", data) is not None
+
+
+@settings(max_examples=30, deadline=None, derandomize=True)
+@given(seed=st.integers(0, 2**31 - 1), source=st.integers(0, 3),
+       cut=st.integers(1, 3000))
+def test_truncated_files(scratch, seed, source, cut):
+    """A file cut anywhere: libavif cannot identify a file whose ftyp or
+    meta (or moov) is cut short, and fails the decode of an item whose
+    data is; the port raises as PIL raises."""
+    rng = np.random.default_rng(seed)
+    data = _sources(rng)[source]
+    assert_as_jax(scratch / "t.avif", data[:max(len(data) - cut, 1)],
+                  lenient=True)
+
+
+@settings(max_examples=40, deadline=None, derandomize=True)
+@given(seed=st.integers(0, 2**31 - 1), source=st.integers(0, 3),
+       flips=st.integers(1, 3))
+def test_corrupt_files(scratch, seed, source, flips):
+    """Random bytes replaced, in the box tree or the AV1 data: what
+    libavif refuses the port refuses, what dav1d decodes the port decodes
+    alike (or refuses, where the stream breaks a rule of the AV1
+    specification)."""
+    rng = np.random.default_rng(seed)
+    data = bytearray(_sources(rng)[source])
+    for _ in range(flips):
+        data[int(rng.integers(0, len(data)))] = int(rng.integers(0, 256))
+    data = bytes(data)
+    try:
+        size = avif._parse(data)[2]
+        assume(size[0] * size[1] < 1 << 22)    # no decompression bombs
+    except Exception:
+        pass
+    assume(not _refused_by_design(data))
+    assert_as_jax(scratch / "x.avif", data, lenient=True)
+
+
+def _sources(rng):
+    return [ae.pil_avif(sample(rng, 19, 27), quality=60, speed=8),
+            ae.pil_avif(sample(rng, 17, 23, 4), quality=60, speed=8,
+                        subsampling="4:4:4"),
+            ae.relocate(ae.pil_avif(sample(rng, 16, 16), quality=60,
+                                    speed=8), idat=True),
+            ae.pil_avif(sample(rng, 12, 20), quality=60, speed=8,
+                        append_images=[Image.fromarray(sample(rng, 12,
+                                                              20))])]
+
+
+def _refused_by_design(data: bytes) -> bool:
+    """A replaced byte that made the frame ask for a feature part 1
+    leaves out (an in-loop filter, say), which the port refuses by
+    design where dav1d decodes it."""
+    try:
+        avif.read_avif(data)
+    except NotImplementedError as e:
+        return ITEM in str(e)
+    except ValueError:
+        pass
+    return False
+
+
+def _refused():
+    """Files PIL reads whose features the port leaves to part 2."""
+    img = sample(np.random.default_rng(7), 64, 64)
+    scr = screen(np.random.default_rng(5), 128, 160)
+    return {
+        "default_save": ae.pil_default(img, quality=50),
+        "deblocking_only": ae.pil_avif(img, quality=30, advanced={
+            "loopfilter-control": "1"}),
+        "cdef_only": ae.pil_avif(img, quality=20, advanced={
+            "enable-cdef": "1"}),
+        "restoration_only": ae.pil_avif(img, quality=20, speed=4, advanced={
+            "enable-restoration": "1"}),
+        "intrabc": ae.pil_avif(scr, quality=40, speed=6, advanced={
+            "tune-content": "screen", "enable-intrabc": "1",
+            "enable-palette": "1"}),
+        "matrix_fcc": ae.set_nclx(ae.pil_avif(img), mc=4),
+        "matrix_ycgco": ae.set_nclx(ae.pil_avif(img), mc=8, full=1),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_refused()))
+def test_refused_features_name_avif_part_2(tmp_path, case):
+    """Pillow's default save (deblocking and CDEF on), each in-loop
+    filter on alone, intra block copy, and matrix coefficients libavif
+    converts in its own float path: PIL reads each file, the port raises
+    NotImplementedError naming ROADMAP item 22b, AVIF part 2, from the
+    headers."""
+    data = _refused()[case]
+    path = tmp_path / "r.avif"
+    path.write_bytes(data)
+    assert jax_read_ldr(path).shape[:2] in ((64, 64), (128, 160))
+    with pytest.raises(NotImplementedError, match=ITEM):
+        image_io.read_ldr(str(path))
+
+
+def _containers():
+    """Box-tree variants and what libavif makes of them."""
+    base = ae.pil_avif(sample(np.random.default_rng(11), 13, 17),
+                       quality=60, speed=8)
+    rgba = ae.pil_avif(sample(np.random.default_rng(12), 13, 17, 4),
+                       quality=60, speed=8)
+    meta = base.index(b"meta") + 4
+
+    def rename(data, old, new, count=1):
+        return data.replace(old, new, count)
+
+    out = {
+        "mif1_without_avif": ae.set_brands(base, b"mif1",
+                                           [b"mif1", b"mif1", b"miaf",
+                                            b"MA1B"]),
+        "msf1_major": ae.set_brands(base, b"msf1",
+                                    [b"avif", b"mif1", b"miaf", b"MA1B"]),
+        "no_pixi": rename(base, b"pixi", b"pixz"),
+        "no_ispe": rename(base, b"ispe", b"ispz"),
+        "no_av1c": rename(base, b"av1C", b"av1Z"),
+        "hdlr_not_first": rename(base, b"hdlr", b"hdlz"),
+        "handler_vide": rename(base, b"pict", b"vide"),
+        "no_pitm": rename(base, b"pitm", b"pitz"),
+        "no_meta": rename(base, b"meta", b"metz"),
+        "no_colr": ae.drop_colr(base),
+        "alpha_urn_unknown": rename(rgba, b"auxiliary:alpha",
+                                    b"auxiliary:depth"),
+        "alpha_no_auxl": rename(rgba, b"auxl", b"auxz"),
+        "primary_type_hvc1": rename(base, b"av01Color", b"hvc1Color"),
+        "ipma_index_past_ipco": _poke(base, base.index(b"ipma") + 17, 0x7F),
+        "iloc_extent_past_eof": base[:base.index(b"mdat") + 20],
+        "meta_cut": base[:meta + 40],
+        "two_ftyp": base[:base.index(b"meta") - 4] + base[:24]
+        + base[base.index(b"meta") - 4:],
+        "iinf_count_wrong": _poke(base, base.index(b"iinf") + 9, 3),
+        "infe_version_1": _poke(base, base.index(b"infe") + 4, 1),
+        "iloc_version_3": _poke(base, base.index(b"iloc") + 4, 3),
+        "essential_unknown_property": rename(
+            _poke(base, base.index(b"ipma") + 16, 0x80 | base[
+                base.index(b"ipma") + 16]), b"pixi", b"pixz"),
+    }
+    return out
+
+
+def _poke(data: bytes, pos: int, value: int) -> bytes:
+    return data[:pos] + bytes([value]) + data[pos + 1:]
+
+
+@pytest.mark.parametrize("case", sorted(_containers()))
+def test_box_trees_as_libavif_reads_them(scratch, case):
+    """libavif's box rules (the brands, the meta's hdlr, the mandatory
+    av1C, ispe and pixi, pitm, iloc and iinf versions and counts,
+    property indices, essential properties, the alpha item's auxl and
+    URN, item data past the end of the file, the frame against ispe) and
+    PIL's mapping of its errors: the port reads or refuses as PIL does."""
+    assert_as_jax(scratch / f"{case}.avif", _containers()[case])
+
+
+def test_avif_is_known_by_its_header(tmp_path):
+    """An AVIF named .png reads as AVIF (PIL's _accept: ftyp at offset 4
+    and a major brand avif, avis, mif1 or msf1; AVIF is PIL's first
+    plugin); other brands are not it."""
+    data = open(os.path.join(FIXTURE_DIR, LEAF), "rb").read()
+    (tmp_path / "a.png").write_bytes(data)
+    assert np.array_equal(image_io.read_ldr(str(tmp_path / "a.png")),
+                          jax_read_ldr(tmp_path / "a.png"))
+    assert avif.is_avif(data)
+    for brand in (b"avis", b"mif1", b"msf1"):
+        assert avif.is_avif(data[:8] + brand + data[12:])
+    assert not avif.is_avif(data[:8] + b"heic" + data[12:])
+    assert not avif.is_avif(b"\0\0\0\x18ftyq" + data[8:])
+
+
+def test_yuv_to_rgb_is_libyuvs_on_every_value(tmp_path):
+    """Flat frames over the whole Y range and the chroma corners, at both
+    ranges and the three libyuv matrices and identity: the port's RGB is
+    PIL's on every value (libyuv's fixed point, not a float formula)."""
+    ys = np.repeat(np.arange(256, dtype=np.uint8), 4)
+    img = np.stack([ys, np.roll(ys, 85), np.roll(ys, 170)], -1)
+    img = np.tile(img[None], (8, 1, 1))
+    for sub in ("4:4:4", "4:0:0"):
+        data = ae.pil_avif(img, quality=100, speed=8, subsampling=sub)
+        for mc in (0, 1, 6, 9):
+            if mc == 0 and sub != "4:4:4":
+                continue
+            for full in (0, 1):
+                assert_as_jax(tmp_path / "y.avif",
+                              ae.set_nclx(data, mc=mc, full=full))
+
+
+def test_unpremultiply_is_libyuvs(tmp_path):
+    """Premultiplied alpha at every value, colours past their alpha
+    included (what a lossy encode gives): libyuv's ARGBUnattenuate as its
+    SIMD rows compute it, 16-bit products saturated as signed."""
+    rng = np.random.default_rng(21)
+    img = rng.integers(0, 256, (16, 256, 4)).astype(np.uint8)
+    img[..., 3] = np.arange(256)[None]
+    img[8:, :, 3] %= 4
+    for sub in ("4:4:4", "4:2:0"):
+        data = ae.pil_avif(img, quality=100, speed=8, subsampling=sub,
+                           alpha_premultiplied=True)
+        assert assert_as_jax(tmp_path / "p.avif", data) is not None
+
+
+def test_av1_tables_equal_the_libraries():
+    """csrc/av1_tables.inc is what tests/make_av1_tables.py reads out of
+    Pillow's libavif (aom 3.12.1's and dav1d 1.5.1's copies), and no
+    system AV1 library present lays a table out alike with other values
+    (--check; a library absent is reported and skipped)."""
+    import make_av1_tables
+
+    if make_av1_tables.wheel_path() is None:
+        pytest.skip("Pillow's wheel libavif is not installed")
+    assert make_av1_tables.main(["--check"]) == 0
+
+
+def test_avif_textured_scene_compiles_as_jax(tmp_path):
+    """utils/demo_scene's textured scene (small) with its albedo the 4:2:0
+    AVIF fixture and its leaf the RGBA AVIF whose alpha item makes the
+    cutouts: the PBRT scene compiles in both packages to the same leaves,
+    bit for bit (the textures' texels and the leaf's alpha companion
+    among them). No wave is compiled."""
+    from test_torch_instanced import assert_same, jax_compile, jax_tree
+    from tracerboy_tpu_torch.scene.compile import compile_scene
+    from tracerboy_tpu_torch.scene.pbrt_parser import parse_pbrt
+    from tracerboy_tpu_torch.utils.demo_scene import (
+        retexture,
+        write_textured_scene,
+    )
+
+    tex, lit = write_textured_scene(str(tmp_path), grid=8, sky=(16, 8),
+                                    leaves=8, albedo=8, normal=8, leaf=8)
+    retexture(tex, {"albedo.png": os.path.join(FIXTURE_DIR, ALBEDO),
+                    "leaf.png": os.path.join(FIXTURE_DIR, LEAF)})
+    got = compile_scene(parse_pbrt(lit))
+    assert_same(jax_tree(jax_compile(lit)), got.as_numpy())
+
+
+def test_ispe_and_frame_sizes(scratch):
+    """An ispe that disagrees with the AV1 frame: libavif hands Pillow the
+    frame's pixels and Pillow lays them out at the ispe's size (what it
+    returns is the frame's bytes at the wrong stride, past them whatever
+    memory follows); the port refuses the file (ValueError)."""
+    base = ae.pil_avif(sample(np.random.default_rng(4), 12, 16), speed=8)
+    i = base.index(b"ispe") + 8
+    for w, h in ((16, 11), (15, 12), (32, 24)):
+        data = base[:i] + struct.pack(">II", w, h) + base[i + 8:]
+        path = scratch / "i.avif"
+        path.write_bytes(data)
+        assert jax_read_ldr(path).shape[:2] == (h, w)
+        with pytest.raises(ValueError, match="the frame is 16x12"):
+            image_io.read_ldr(str(path))

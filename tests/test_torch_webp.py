@@ -15,9 +15,11 @@ and 15), ALPH chunks of both methods under every filter, animations
 whose first frame lies inside a larger canvas, truncated files and
 corrupted bitstreams. Where PIL refuses a file the port raises:
 ValueError where PIL raises OSError, ValueError, EOFError, KeyError or
-IndexError, NotImplementedError where PIL cannot identify it. AVIF files,
-which PIL reads, still raise NotImplementedError naming ROADMAP item 22b;
-JPEG 2000 files read as the JAX read_ldr reads them (core/jpeg2000.py,
+IndexError, NotImplementedError where PIL cannot identify it. AVIF files
+whose AV1 frame uses an in-loop filter (Pillow's default save), which PIL
+reads, raise NotImplementedError naming ROADMAP item 22b; AVIF files with
+the filters off (core/avif.py, tests/test_torch_avif.py) and JPEG 2000
+files read as the JAX read_ldr reads them (core/jpeg2000.py,
 tests/test_torch_jpeg2000.py). A PBRT scene whose albedo and leaf are
 WebPs and whose environment map is a QOI compiles in both packages to the
 same leaves, bit for bit.
@@ -336,9 +338,11 @@ def test_alpha_stream_cut_short(scratch, seed, quality, alpha_quality,
 
 
 def test_unported_formats_name_item_22b(tmp_path):
-    """AVIF, which PIL reads (the JAX read_ldr renders it), is not ported:
-    NotImplementedError naming ROADMAP item 22b. JPEG 2000, which PIL
-    reads too, now reads as the JAX read_ldr reads it."""
+    """AVIF with aom's in-loop filters on (Pillow's default save), which
+    PIL reads (the JAX read_ldr renders it), is not ported yet:
+    NotImplementedError naming ROADMAP item 22b. AVIF with the filters off
+    and JPEG 2000, which PIL reads too, read as the JAX read_ldr reads
+    them."""
     img = Image.fromarray(sample_image(np.random.default_rng(13), 16, 16)[
         ..., :3])
     path = tmp_path / "x.avif"
@@ -346,6 +350,10 @@ def test_unported_formats_name_item_22b(tmp_path):
     assert jax_read_ldr(path).shape == (16, 16, 3)
     with pytest.raises(NotImplementedError, match=ITEM):
         image_io.read_ldr(str(path))
+    img.save(path, "AVIF", advanced={"enable-cdef": "0",
+                                     "enable-restoration": "0",
+                                     "loopfilter-control": "0"})
+    assert np.array_equal(image_io.read_ldr(str(path)), jax_read_ldr(path))
     path = tmp_path / "x.jp2"
     img.save(path, "JPEG2000")
     assert jax_read_ldr(path).shape == (16, 16, 3)

@@ -1,0 +1,811 @@
+"""The port's AVIF reader: the pixels PIL returns (Pillow 12.1, which reads
+AVIF through libavif 1.3 and dav1d 1.5), bit for bit, without an imaging
+library or an AV1 library.
+
+AVIF is the texture format web asset stores and browsers ship beside
+WebP; the JAX package reads it through PIL. Three layers, each as its
+original does it:
+- PIL's plugin (AvifImagePlugin.py): _accept (an ftyp box at offset 4
+  whose major brand is avif, avis, mif1 or msf1); the mode is RGBA where
+  libavif finds an alpha item or track, else RGB. What libavif's parse
+  refuses with a file-type, box-parse, truncation or no-content error
+  PIL cannot identify (its SyntaxError: UnidentifiedImageError here);
+  what fails later PIL raises (ValueError here).
+- libavif 1.3 (read.c): the box tree as avifParse and avifDecoderReset
+  walk it: top-level boxes until the ftyp, and the meta (brand avif) or
+  moov (brand avis) the brands ask for, are read; the ftyp must name avif
+  or avis among its brands; the meta's first child is an hdlr of type
+  pict; pitm, iloc (versions 0-2, construction methods 0 and 1 with
+  idat), iinf (infe versions 2 and 3), iref (auxl, prem, thmb, cdsc,
+  dimg), iprp with ipco and ipma; the colour item is the primary item,
+  which needs av1C, ispe and pixi (libavif's default strict flags); the
+  alpha item is the av01 item with an auxl reference to it and an auxC
+  of urn:mpeg:mpegB:cicp:systems:auxiliary:alpha (or the HEVC URN).
+  With major brand avis the first sample of the first av01 track is the
+  frame, and the alpha is the track whose auxl tref names it. Colour
+  primaries, transfer and matrix come from the colr nclx property, and
+  the range from its full_range_flag; without one, from the AV1 sequence
+  header. irot, imir and clap do not move pixels (PIL reports
+  orientation in info). A grid or overlay item, and the features below,
+  raise NotImplementedError. Each rule of libavif's that the parser
+  repeats was read off PIL's answers to one-byte edits of every box;
+  the moov box is checked as far as a first frame needs it, so a
+  damaged track box that libavif refuses may still be read here.
+- the AV1 frame: csrc/av1_decode.cpp, which decodes an intra frame with
+  its in-loop filters off and converts YUV to RGB(A) as libavif hands it
+  to libyuv (bilinear chroma upsampling, libyuv's fixed-point matrices,
+  libyuv's un-premultiply where a prem reference marks the alpha).
+
+Refused with NotImplementedError naming ROADMAP item 22b, AVIF part 2,
+where PIL reads the file: any in-loop filter (deblocking, CDEF, loop
+restoration), superres, intra block copy, high bit depth, film grain, a
+frame that is not a shown key frame, grid and iovl items, and the matrix
+coefficients libavif converts without libyuv (4 FCC, 7 SMPTE 240M, 8
+YCgCo, 12 with primaries other than BT.709, BT.601 or BT.2020, and 15 to
+254). The matrices libavif refuses (3, 10, 11, 13, 14, 255; identity
+unless 4:4:4; YCgCo at limited range) raise ValueError, as PIL raises.
+So does an ispe that disagrees with the AV1 frame, where Pillow lays
+the frame's pixels out at the ispe's size and returns what lies past
+them.
+"""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+from tracerboy_tpu_torch.core.codecs import av1_library
+from tracerboy_tpu_torch.core.image_io import (
+    UnidentifiedImageError,
+    check_image_size,
+)
+
+ITEM = ("ROADMAP.md, Queue 1: item 22b, AVIF part 2 (in-loop filters and "
+        "the other AVIF features part 1 leaves out)")
+BRANDS = (b"avif", b"avis", b"mif1", b"msf1")
+ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
+              b"urn:mpeg:hevc:2015:auxid:1")
+# libavif's limits (avifDecoderCreate): 16384 x 16384 pixels, 32768 a side.
+SIZE_LIMIT = 16384 * 16384
+DIMENSION_LIMIT = 32768
+
+
+def is_avif(data: bytes) -> bool:
+    """PIL's _accept (AvifImagePlugin.py)."""
+    return data[4:8] == b"ftyp" and data[8:12] in BRANDS
+
+
+class _Unidentified(Exception):
+    """libavif's parse failed with an error Pillow maps to SyntaxError."""
+
+
+class _Failed(Exception):
+    """libavif or Pillow failed later (RuntimeError or SyntaxError at
+    load): PIL raises."""
+
+
+def _boxes(data: bytes, start: int, end: int, top: bool = False):
+    """(type, body start, body end) of the boxes in data[start:end], as
+    avifROStreamReadBoxHeader reads them: a size under the header's, or
+    past the end (inside a box), fails the parse."""
+    off = start
+    while off < end:
+        if end - off < 8:
+            raise _Unidentified("box header past the end")
+        size, typ = struct.unpack(">I4s", data[off:off + 8])
+        hdr = 8
+        if size == 1:
+            if end - off < 16:
+                raise _Unidentified("box header past the end")
+            size = struct.unpack(">Q", data[off + 8:off + 16])[0]
+            hdr = 16
+        elif size == 0:
+            if not top:
+                raise _Unidentified("box of size 0")
+            size = end - off
+        if typ == b"uuid":
+            hdr += 16
+        if size < hdr:
+            raise _Unidentified("box smaller than its header")
+        if not top and off + size > end:
+            raise _Unidentified("box past its parent")
+        yield typ, off + hdr, off + size
+        off += size
+
+
+class _Reader:
+    """A big-endian reader over one box's body; reads past the end fail
+    the parse."""
+
+    def __init__(self, data: bytes, start: int, end: int):
+        self.data, self.pos, self.end = data, start, end
+
+    def take(self, n: int) -> bytes:
+        if self.pos + n > self.end:
+            raise _Unidentified("box body too short")
+        b = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return b
+
+    def u(self, n: int) -> int:
+        return int.from_bytes(self.take(n), "big") if n else 0
+
+    def full(self, versions) -> tuple[int, int]:
+        v, flags = self.u(1), self.u(3)
+        if v not in versions:
+            raise _Unidentified(f"unsupported box version {v}")
+        return v, flags
+
+    def string(self) -> bytes:
+        i = self.data.find(b"\0", self.pos, self.end)
+        if i < 0:
+            raise _Unidentified("unterminated string")
+        s = self.data[self.pos:i]
+        self.pos = i + 1
+        return s
+
+
+class _Item:
+    def __init__(self, iid: int):
+        self.id = iid
+        self.type = b""
+        self.props: list[tuple[bytes, int, int, bool]] = []
+        self.extents = None          # (construction method, [(off, len)])
+        self.aux_for = None          # auxl target
+        self.prem_by: list[int] = []
+        self.unsupported_essential = False
+
+
+def _parse_meta(data: bytes, start: int, end: int):
+    r = _Reader(data, start, end)
+    r.full((0,))
+    items: dict[int, _Item] = {}
+    props: list[tuple[bytes, int, int]] = []
+    primary = None
+    idat = None
+    seen = set()
+
+    def item(iid):
+        if iid not in items:
+            items[iid] = _Item(iid)
+        return items[iid]
+
+    first = True
+    for typ, s, e in _boxes(data, r.pos, end):
+        if first and typ != b"hdlr":
+            raise _Unidentified("the meta box does not start with an hdlr")
+        first = False
+        if typ in seen and typ in (b"hdlr", b"iloc", b"pitm", b"idat",
+                                   b"iprp", b"iinf", b"iref"):
+            raise _Unidentified(f"two {typ.decode()} boxes")
+        seen.add(typ)
+        b = _Reader(data, s, e)
+        if typ == b"hdlr":
+            if _hdlr(data, s, e) != b"pict":
+                raise _Unidentified("the meta's handler is not pict")
+        elif typ == b"pitm":
+            v, _ = b.full((0, 1))
+            primary = b.u(2 if v == 0 else 4)
+        elif typ == b"idat":
+            idat = (s, e)
+        elif typ == b"iloc":
+            v, _ = b.full((0, 1, 2))
+            x = b.u(1)
+            osz, lsz = x >> 4, x & 15
+            x = b.u(1)
+            bsz, isz = x >> 4, (x & 15) if v in (1, 2) else 0
+            if any(n not in (0, 4, 8) for n in (osz, lsz, bsz, isz)):
+                raise _Unidentified("iloc field size")
+            count = b.u(2 if v < 2 else 4)
+            for _ in range(count):
+                iid = b.u(2 if v < 2 else 4)
+                if iid == 0:
+                    raise _Unidentified("iloc item ID 0")
+                it = item(iid)
+                if it.extents is not None:
+                    raise _Unidentified("an item located twice")
+                method = b.u(2) if v in (1, 2) else 0
+                if method not in (0, 1):
+                    raise _Unidentified("iloc construction method 2")
+                b.u(2)                                  # data_reference
+                base = b.u(bsz)
+                exts = []
+                for _ in range(b.u(2)):
+                    b.u(isz)
+                    off = base + b.u(osz)
+                    exts.append((off, b.u(lsz)))
+                it.extents = (method, exts)
+        elif typ == b"iinf":
+            v, _ = b.full((0, 1))
+            count = b.u(2 if v == 0 else 4)
+            entries = _boxes(data, b.pos, e)
+            for _ in range(count):      # the first `count` boxes only
+                t2, s2, e2 = next(entries, (None, 0, 0))
+                if t2 is None:
+                    raise _Unidentified("iinf holds fewer entries")
+                if t2 != b"infe":
+                    raise _Unidentified("a box other than infe in iinf")
+                c = _Reader(data, s2, e2)
+                iv, flags = c.u(1), c.u(3)
+                if iv not in (2, 3):
+                    raise _Unidentified("infe version")
+                iid = c.u(2 if iv == 2 else 4)
+                if iid == 0:
+                    raise _Unidentified("infe item ID 0")
+                it = item(iid)
+                c.u(2)
+                it.type = c.take(4)
+                c.string()
+        elif typ == b"iref":
+            v, _ = b.u(1), b.u(3)
+            if v > 1:                   # libavif skips other versions
+                continue
+            n = 2 if v == 0 else 4
+            while b.pos < e:            # fields read on past an entry's
+                start = b.pos           # size, not to its end
+                size = b.u(4)
+                t2 = b.take(4)
+                if size < 8 or start + size > e:
+                    raise _Unidentified("iref entry size")
+                src = b.u(n)
+                dsts = [b.u(n) for _ in range(b.u(2))]
+                if src == 0 or 0 in dsts:
+                    raise _Unidentified("iref item ID 0")
+                if t2 == b"auxl" and dsts:
+                    item(src).aux_for = dsts[0]
+                elif t2 == b"prem":
+                    item(src).prem_by += dsts
+        elif typ == b"iprp":
+            for t2, s2, e2 in _boxes(data, s, e):
+                if t2 == b"ipco":
+                    props = list(_boxes(data, s2, e2))
+                    for t3, s3, e3 in props:
+                        _check_property(data, t3, s3, e3)
+                elif t2 == b"ipma":
+                    c = _Reader(data, s2, e2)
+                    v2, flags = c.full((0, 1))
+                    for _ in range(c.u(4)):
+                        it = item(c.u(2 if v2 == 0 else 4))
+                        if it.props:
+                            raise _Unidentified("an item in two ipma")
+                        for _ in range(c.u(1)):
+                            x = c.u(2 if flags & 1 else 1)
+                            ess = bool(x >> (15 if flags & 1 else 7))
+                            idx = x & (0x7FFF if flags & 1 else 0x7F)
+                            if idx == 0:
+                                if ess:
+                                    raise _Unidentified("essential index 0")
+                                continue
+                            if idx > len(props):
+                                raise _Unidentified("property index")
+                            t3, s3, e3 = props[idx - 1]
+                            it.props.append((t3, s3, e3, ess))
+                            if ess and t3 not in _ESSENTIAL_OK:
+                                it.unsupported_essential = True
+    return items, primary, idat
+
+
+def _check_property(data: bytes, typ: bytes, s: int, e: int) -> None:
+    """What libavif's ipco parse refuses in a property, whatever item it
+    belongs to."""
+    r = _Reader(data, s, e)
+    if typ in (b"ispe", b"pixi", b"auxC"):
+        r.full((0,))
+    if typ == b"av1C" and r.u(1) != 0x81:
+        raise _Unidentified("av1C marker or version")
+    if typ == b"colr":
+        _nclx([(typ, s, e)], data)
+
+
+# Properties libavif may see marked essential (avifParseItemProperty...).
+_ESSENTIAL_OK = (b"av1C", b"ispe", b"pixi", b"colr", b"auxC", b"clap",
+                 b"irot", b"imir", b"pasp", b"a1op", b"lsel")
+
+
+def _prop(item: _Item, typ: bytes):
+    for t, s, e, _ in item.props:
+        if t == typ:
+            return s, e
+    return None
+
+
+def _item_props(data: bytes, item: _Item, depth_check: bool = True) -> dict:
+    """ispe, pixi and nclx of an item, as avifDecoderItemValidateProperties
+    wants them."""
+    out = {}
+    ispe = _prop(item, b"ispe")
+    if ispe is None:
+        raise _Unidentified(f"item {item.id} has no ispe")
+    r = _Reader(data, *ispe)
+    r.full((0,))
+    out["size"] = (r.u(4), r.u(4))
+    av1c = _prop(item, b"av1C")
+    out["av1C"] = av1c is not None
+    if av1c is None:
+        return out
+    r = _Reader(data, *av1c)
+    if r.u(1) != 0x81:
+        raise _Unidentified("av1C marker or version")
+    r.u(1)
+    x = r.u(1)
+    depth = 12 if x & 0x60 == 0x60 else 10 if x & 0x40 else 8
+    pixi = _prop(item, b"pixi")
+    if pixi is not None:
+        r = _Reader(data, *pixi)
+        r.full((0,))
+        n = r.u(1)
+        if n == 0 or n > 4:
+            raise _Failed("pixi plane count")
+        depths = [r.u(1) for _ in range(n)]
+        if len(set(depths)) > 1:
+            raise _Failed("pixi depths differ")
+        if depth_check and depths[0] != depth:
+            raise _Unidentified("pixi depth differs from av1C's")
+        out["pixi_planes"] = n
+    out["mono"] = bool(x & 0x10)
+    nclx = _nclx(((t, s, e) for t, s, e, _ in item.props), data)
+    if nclx is not None:
+        out["nclx"] = nclx
+    return out
+
+
+def _nclx(props, data: bytes):
+    """(primaries, transfer, matrix, full range) of the first colr nclx
+    among (type, start, end) boxes, or None."""
+    for t, s, e in props:
+        if t == b"colr" and e - s >= 4 and data[s:s + 4] == b"nclx":
+            if e - s < 11:
+                raise _Unidentified("short nclx")
+            cp, tc, mc = struct.unpack(">HHH", data[s + 4:s + 10])
+            if data[s + 10] & 0x7F:
+                raise _Unidentified("nclx reserved bits")
+            return cp, tc, mc, data[s + 10] >> 7
+    return None
+
+
+def _item_data(data: bytes, item: _Item, idat) -> bytes:
+    """The item's bytes. Items larger than the file are refused in the
+    parse, extents past its end in the decode (as libavif)."""
+    if item.extents is None:
+        raise _Failed(f"item {item.id} has no location")
+    method, exts = item.extents
+    if sum(n for _, n in exts) > len(data):
+        raise _Unidentified("an item larger than the file")
+    if method == 1:
+        if idat is None:
+            raise _Failed("construction method 1 without an idat")
+        base, end = idat
+    else:
+        base, end = 0, len(data)
+    parts = []
+    for off, length in exts:
+        if base + off + length > end:
+            raise _Failed("item data past the end of the file")
+        parts.append(data[base + off:base + off + length])
+    if not sum(map(len, parts)):
+        raise _Failed("missing or empty image item")
+    return b"".join(parts)
+
+
+def _hdlr(data: bytes, s: int, e: int) -> bytes:
+    """An hdlr box's handler type, as libavif parses it."""
+    r = _Reader(data, s, e)
+    r.full((0,))
+    if r.u(4) != 0:
+        raise _Unidentified("hdlr pre_defined is not 0")
+    handler = r.take(4)
+    r.take(12)
+    r.string()
+    return handler
+
+
+def _parse_tracks(data: bytes, start: int, end: int):
+    """[(track id, handler, aux for, first sample's (offset, size),
+    (width, height), av01, nclx, timescale, prem track ids)] of a moov
+    box, with libavif's checks of
+    the boxes it reads (avifParseTrackBox and its children)."""
+    tracks = []
+    for typ, s, e in _boxes(data, start, end):
+        if typ != b"trak":
+            continue
+        tid, handler, aux_for, size, av01 = 0, b"", 0, (0, 0), False
+        nclx, prem = None, []
+        timescale = 0
+        chunk_offsets, sizes, stsc = [], [], []
+        for t2, s2, e2 in _boxes(data, s, e):
+            r = _Reader(data, s2, e2)
+            if t2 == b"tkhd":
+                v, _ = r.full((0, 1))
+                r.take(8 if v == 0 else 16)
+                tid = r.u(4)
+                r.take(4 + (4 if v == 0 else 8) + 52)
+                size = (r.u(4) >> 16, r.u(4) >> 16)
+            elif t2 == b"tref":
+                for t3, s3, e3 in _boxes(data, s2, e2):
+                    ids = [int.from_bytes(data[k:k + 4], "big")
+                           for k in range(s3, e3 - 3, 4)]
+                    if t3 == b"auxl" and ids:
+                        aux_for = ids[0]
+                    elif t3 == b"prem":
+                        prem += ids
+            elif t2 == b"edts":
+                kids = list(_boxes(data, s2, e2))
+                if not kids or kids[0][0] != b"elst":
+                    raise _Unidentified("edts without elst")
+                r = _Reader(data, kids[0][1], kids[0][2])
+                v, _ = r.full((0, 1))
+                if r.u(4) != 1:
+                    raise _Unidentified("elst entry count")
+                if r.u(8 if v else 4) == 0:
+                    raise _Unidentified("elst segment duration 0")
+                r.take(12 if v else 8)
+                if r.pos != r.end:
+                    raise _Unidentified("elst size")
+            elif t2 == b"mdia":
+                for t3, s3, e3 in _boxes(data, s2, e2):
+                    r = _Reader(data, s3, e3)
+                    if t3 == b"mdhd":
+                        v, _ = r.full((0, 1))
+                        r.take(16 if v else 8)
+                        timescale = r.u(4)
+                    elif t3 == b"hdlr":
+                        handler = _hdlr(data, s3, e3)
+                    elif t3 == b"minf":
+                        for t4, s4, e4 in _boxes(data, s3, e3):
+                            if t4 != b"stbl":
+                                continue
+                            for t5, s5, e5 in _boxes(data, s4, e4):
+                                r = _Reader(data, s5, e5)
+                                if t5 == b"stsd":
+                                    r.full((0, 1))
+                                    count = r.u(4)
+                                    entries = _boxes(data, r.pos, e5)
+                                    for _ in range(count):
+                                        t6, s6, e6 = next(entries,
+                                                          (None, 0, 0))
+                                        if t6 is None:
+                                            raise _Unidentified("stsd")
+                                        if t6 != b"av01" or av01:
+                                            continue
+                                        av01 = True
+                                        # VisualSampleEntry: 78 bytes,
+                                        # then its boxes.
+                                        if e6 - s6 < 78:
+                                            raise _Unidentified("stsd entry")
+                                        props = list(_boxes(data, s6 + 78,
+                                                            e6))
+                                        for t7, s7, e7 in props:
+                                            _check_property(data, t7, s7, e7)
+                                        if not any(p[0] == b"av1C"
+                                                   for p in props):
+                                            raise _Unidentified(
+                                                "an av01 entry without av1C")
+                                        nclx = _nclx(props, data)
+                                elif t5 in (b"stco", b"co64"):
+                                    r.full((0,))
+                                    n = 4 if t5 == b"stco" else 8
+                                    chunk_offsets = [r.u(n)
+                                                     for _ in range(r.u(4))]
+                                elif t5 == b"stsz":
+                                    r.full((0,))
+                                    fixed, count = r.u(4), r.u(4)
+                                    sizes = ([fixed] * count if fixed else
+                                             [r.u(4) for _ in range(count)])
+                                elif t5 == b"stsc":
+                                    r.full((0,))
+                                    stsc = [(r.u(4), r.u(4), r.u(4))
+                                            for _ in range(r.u(4))]
+                                    firsts = [f for f, _, _ in stsc]
+                                    if firsts and (firsts[0] != 1 or any(
+                                            b <= a for a, b in
+                                            zip(firsts, firsts[1:]))):
+                                        raise _Unidentified("stsc")
+                                elif t5 in (b"stss", b"stts"):
+                                    r.full((0,))
+                                    count = r.u(4)
+                                    r.take(count * (4 if t5 == b"stss"
+                                                    else 8))
+        first = None
+        samples = _samples(chunk_offsets, sizes, stsc)
+        declared = sum(next((n for f, n, _ in reversed(stsc) if f <= c), 0)
+                       for c in range(1, len(chunk_offsets) + 1))
+        if av01 and declared != len(sizes):
+            raise _Unidentified("stsc and stsz disagree")
+        for off, n in samples:
+            if n == 0 or off + n > len(data):
+                raise _Unidentified("a sample past the end of the file")
+        if samples:
+            first = samples[0]
+        tracks.append((tid, handler, aux_for, first, size, av01, nclx,
+                       timescale, prem))
+    return tracks
+
+
+def _samples(chunk_offsets, sizes, stsc):
+    """[(offset, size)] of a track's samples from its stco/co64, stsz and
+    stsc (chunks numbered from 1, each run of chunks holding
+    samples_per_chunk samples back to back)."""
+    out, k = [], 0
+    for c, off in enumerate(chunk_offsets, 1):
+        per = 0
+        for first, n, _ in stsc:
+            if first <= c:
+                per = n
+        for _ in range(per):
+            if k >= len(sizes):
+                return out
+            out.append((off, sizes[k]))
+            off += sizes[k]
+            k += 1
+    return out
+
+
+def _parse(data: bytes):
+    """The colour and alpha AV1 payloads and what the conversion needs:
+    (color bytes, alpha bytes or None, size, nclx or None, premultiplied).
+    """
+    ftyp = meta = moov = None
+    need_meta = need_moov = False
+    for typ, s, e in _boxes(data, 0, len(data), top=True):
+        if typ in (b"ftyp", b"meta", b"moov") and e > len(data):
+            raise _Unidentified("truncated box")
+        if typ == b"ftyp":
+            if ftyp is not None:
+                raise _Unidentified("two ftyp boxes")
+            if e - s < 8 or (e - s - 8) % 4:
+                raise _Unidentified("ftyp size")
+            brands = [data[s:s + 4]] + [data[k:k + 4]
+                                        for k in range(s + 8, e, 4)]
+            if b"avif" not in brands and b"avis" not in brands:
+                raise _Unidentified("ftyp names neither avif nor avis")
+            ftyp = data[s:s + 4]
+            need_meta = b"avif" in brands
+            need_moov = b"avis" in brands
+        elif typ == b"meta":
+            if meta is not None:
+                raise _Unidentified("two meta boxes")
+            meta = _parse_meta(data, s, e)
+        elif typ == b"moov":
+            if moov is not None:
+                raise _Unidentified("two moov boxes")
+            moov = _parse_tracks(data, s, e)
+        if (ftyp is not None and (not need_meta or meta is not None)
+                and (not need_moov or moov is not None)):
+            break
+        if e > len(data):
+            raise _Unidentified("box past the end of the file")
+    else:
+        if ftyp is None:
+            raise _Unidentified("no ftyp box")
+        if (need_meta and meta is None) or (need_moov and moov is None):
+            raise _Unidentified("the brands' meta or moov box is missing")
+    use_tracks = ftyp == b"avis" or (ftyp != b"avif" and moov)
+    if use_tracks and moov is not None:
+        if meta is not None:    # libavif checks the primary item's
+            _from_items(data, meta, props_only=True)    # properties too
+        return _from_tracks(data, moov)
+    if meta is None:
+        raise _Unidentified("no meta box")
+    return _from_items(data, meta)
+
+
+def _from_items(data: bytes, meta, props_only: bool = False):
+    items, primary, idat = meta
+    if primary is None or primary not in items or not items[primary].type:
+        if props_only:
+            return None
+        raise _Failed("missing or empty image item")
+    color = items[primary]
+    if props_only:
+        if color.type == b"av01":
+            _item_props(data, color, depth_check=False)
+        return None
+    if color.type in (b"grid", b"iovl"):
+        raise NotImplementedError(f"a {color.type.decode()} item: {ITEM}")
+    if color.type != b"av01" or color.unsupported_essential:
+        raise _Failed("missing or empty image item")
+    cp = _item_props(data, color)
+    if not cp["av1C"]:
+        raise _Failed("missing or empty image item")
+    alpha = None
+    for it in items.values():
+        if it.aux_for != primary or it.type not in (b"av01", b"grid"):
+            continue
+        if (it.type == b"av01" and (_prop(it, b"av1C") is None
+                                    or not it.extents
+                                    or not sum(n for _, n in it.extents[1]))):
+            continue                    # libavif sees no alpha
+        auxc = _prop(it, b"auxC")
+        if auxc is None:
+            continue
+        r = _Reader(data, *auxc)
+        r.full((0,))
+        if r.string() not in ALPHA_URNS:
+            continue
+        if it.type == b"grid":
+            raise NotImplementedError(f"a grid alpha item: {ITEM}")
+        alpha = it
+        break
+    alpha_data = None
+    if alpha is not None:
+        _item_props(data, alpha)
+        alpha_data = _item_data(data, alpha, idat)
+    prem = alpha is not None and alpha.id in color.prem_by
+    return (_item_data(data, color, idat), alpha_data, cp["size"],
+            cp.get("nclx"), prem)
+
+
+def _from_tracks(data: bytes, tracks):
+    color = next((t for t in tracks if t[0] and t[5] and not t[2]), None)
+    if color is None or color[3] is None:
+        raise _Unidentified("no AV1 track")
+    if color[7] == 0:                   # Pillow divides by it
+        raise _Failed("a track timescale of 0")
+    alpha = next((t for t in tracks if t[0] and t[5] and t[2] == color[0]
+                  and t[3] is not None), None)
+
+    def sample(t):
+        off, size = t[3]
+        if off + size > len(data):
+            raise _Failed("sample past the end of the file")
+        return data[off:off + size]
+
+    return (sample(color), sample(alpha) if alpha else None, color[4],
+            color[6], alpha is not None and alpha[0] in color[8])
+
+
+_ERRORS = {-1: "corrupt AV1 data", -2: "unsupported", -3: "buffer"}
+
+
+def _decode_av1(lib, payload: bytes, path: str):
+    import ctypes
+
+    info = np.zeros(16, np.int64)
+    msg = ctypes.create_string_buffer(256)
+    rc = lib.tb_av1_decode(payload, len(payload), None, 0,
+                           info.ctypes.data, msg, 256)
+    if rc == 0:
+        w, h, mono, ssx, ssy = (int(v) for v in info[:5])
+        cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
+        n = w * h + (0 if mono else 2 * cw * ch)
+        buf = np.zeros(n, np.uint8)
+        rc = lib.tb_av1_decode(payload, len(payload), buf.ctypes.data, n,
+                               info.ctypes.data, msg, 256)
+    if rc == -2:
+        raise NotImplementedError(f"{path}: {msg.value.decode()}: {ITEM}")
+    if rc:
+        raise _Failed(f"{msg.value.decode()} ({_ERRORS.get(rc, rc)})")
+    planes = [buf[:w * h].reshape(h, w)]
+    if not mono:
+        planes += [buf[w * h:w * h + cw * ch].reshape(ch, cw),
+                   buf[w * h + cw * ch:].reshape(ch, cw)]
+    return planes, info
+
+
+def _matrix(cp: int, mc: int, full: int, mono: bool, alpha: bool,
+            ssx: int, ssy: int):
+    """csrc's conversion kind for libavif's choice (0 BT.601, 1 BT.709,
+    2 BT.2020, 3 identity). 4:0:0 without alpha goes through libyuv's
+    I400ToARGB, whose constants are BT.2020's whatever the matrix."""
+    if mc in (3, 10, 11, 13, 14, 255) or (mc == 8 and not full):
+        raise _Failed(f"libavif cannot convert matrix coefficients {mc}")
+    if mono and not alpha:
+        return 2
+    if mc == 0 and mono:
+        return 0
+    if mc == 0:
+        if ssx or ssy:
+            raise _Failed("identity matrix coefficients need 4:4:4")
+        return 3
+    if mc in (2, 5, 6):
+        return 0
+    if mc == 1:
+        return 1
+    if mc == 9:
+        return 2
+    if mc == 12 and cp in (1, 2):
+        return 1
+    if mc == 12 and cp in (5, 6):
+        return 0
+    if mc == 12 and cp == 9:
+        return 2
+    raise NotImplementedError(
+        f"matrix coefficients {mc} (primaries {cp}), which libavif converts "
+        f"without libyuv: {ITEM}")
+
+
+def read_avif(data: bytes, path: str = "<avif>") -> np.ndarray:
+    """The (H, W, 3|4) uint8 pixels PIL gives for an AVIF file."""
+    try:
+        color, alpha, size, nclx, prem = _parse(data)
+    except _Unidentified as e:
+        raise UnidentifiedImageError(f"{path}: cannot identify image file "
+                                     f"({e})") from None
+    except _Failed as e:
+        raise ValueError(f"{path}: {e}") from None
+    w, h = size
+    if w * h > SIZE_LIMIT or w > DIMENSION_LIMIT or h > DIMENSION_LIMIT:
+        raise UnidentifiedImageError(f"{path}: {w}x{h} is past libavif's "
+                                     "limits")
+    check_image_size(w, h, path)
+    lib = av1_library()
+    try:
+        planes, info = _decode_av1(lib, color, path)
+        a_planes = None
+        if alpha is not None:
+            a_planes, _ = _decode_av1(lib, alpha, path)
+        fw, fh, mono, ssx, ssy, seq_full, cp, tc, mc = (int(v)
+                                                        for v in info[:9])
+        if (fw, fh) != (w, h):
+            raise _Failed(f"the frame is {fw}x{fh}, the item {w}x{h}")
+        if a_planes is not None and a_planes[0].shape != (h, w):
+            raise _Failed("the alpha frame's size differs")
+        full = seq_full
+        if nclx is not None:
+            cp, tc, mc, full = nclx
+        kind = _matrix(cp, mc, full, bool(mono), a_planes is not None, ssx,
+                       ssy)
+    except _Failed as e:
+        raise ValueError(f"{path}: {e}") from None
+    channels = 4 if a_planes is not None else 3
+    out = np.empty((h, w, channels), np.uint8)
+    u = v = None
+    if not mono:
+        u, v = (np.ascontiguousarray(p) for p in planes[1:])
+    y = np.ascontiguousarray(planes[0])
+    a = np.ascontiguousarray(a_planes[0]) if a_planes is not None else None
+    rc = lib.tb_avif_to_rgb(
+        y.ctypes.data, None if u is None else u.ctypes.data,
+        None if v is None else v.ctypes.data, w, h, ssx, ssy, kind, full,
+        None if a is None else a.ctypes.data, int(prem), out.ctypes.data)
+    if rc:
+        raise ValueError(f"{path}: libavif cannot convert this YUV layout")
+    return out
+
+
+# info[15]'s bits (csrc/av1_decode.cpp's kTool*) and info[14]'s.
+TOOLS = ("palette", "filter_intra", "cfl", "angle_delta", "tx64", "tx1d",
+         "wht", "directional", "smooth", "paeth", "edge_upsample",
+         "edge_filter", "adst", "segments", "delta_q", "qm",
+         "ext_partition")
+HEADER_FLAGS = ("qm", "segmentation", "delta_q", "screen_content",
+                "delta_lf", "reduced_tx_set", "tx_mode_select",
+                "disable_cdf_update")
+
+
+def frame_info(data: bytes, path: str = "<avif>",
+               headers_only: bool = False) -> dict:
+    """What the colour frame's headers say and (unless headers_only,
+    which reads the OBUs up to the first frame header, the in-loop
+    filter and feature checks included) which block tools its decode
+    used."""
+    try:
+        color = _parse(data)[0]
+    except (_Unidentified, _Failed) as e:
+        raise ValueError(f"{path}: {e}") from None
+    import ctypes
+
+    lib = av1_library()
+    if headers_only:
+        info = np.zeros(16, np.int64)
+        msg = ctypes.create_string_buffer(256)
+        rc = lib.tb_av1_decode(color, len(color), None, 0, info.ctypes.data,
+                               msg, 256)
+        if rc == -2:
+            raise NotImplementedError(f"{path}: {msg.value.decode()}: {ITEM}")
+        if rc:
+            raise ValueError(f"{path}: {msg.value.decode()}")
+    else:
+        try:
+            info = _decode_av1(lib, color, path)[1]
+        except _Failed as e:
+            raise ValueError(f"{path}: {e}") from None
+    return {"size": (int(info[0]), int(info[1])), "mono": bool(info[2]),
+            "subsampling": (int(info[3]), int(info[4])),
+            "full_range": bool(info[5]), "cicp": tuple(map(int, info[6:9])),
+            "lossless": bool(info[11]), "tiles": int(info[12]),
+            "sb128": bool(info[13]),
+            "flags": {f for k, f in enumerate(HEADER_FLAGS)
+                      if info[14] >> k & 1},
+            "tools": {t for k, t in enumerate(TOOLS) if info[15] >> k & 1}}

@@ -14,7 +14,10 @@ ctypes:
 - j2k_library(): csrc/j2k_decode.cpp (a JPEG 2000 tile's packets, tier 1,
   wavelets, colour transform and DC shift), for core/jpeg2000.py, with
   -ffp-contract=off: no fused multiply-add may change a 9/7 or ICT
-  result.
+  result;
+- av1_library(): csrc/av1_decode.cpp (an AV1 intra frame's OBUs to its
+  planes, with csrc/av1_tables.inc, and libavif's YUV-to-RGB), for
+  core/avif.py.
 """
 
 from __future__ import annotations
@@ -93,3 +96,13 @@ def j2k_library():
     return _load("tbj2k", "j2k_decode.cpp", (), (
         ("tb_j2k_decode_tile", [p, i64, p, i64, p, i64, p, p, p, i64,
                                 i64]),), flags=("-ffp-contract=off",))
+
+
+def av1_library():
+    import ctypes
+
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    return _load("tbav1", "av1_decode.cpp", ("av1_tables.inc",), (
+        ("tb_av1_decode", [p, i64, p, i64, p, ctypes.c_char_p, i64]),
+        ("tb_avif_to_rgb", [p, p, p, i64, i64, i64, i64, i64, i64, p, i64,
+                            p])))

@@ -43,6 +43,12 @@ Formats:
   and 9/7 wavelets, every progression order, tiles, layers, precincts,
   palettes; csrc/j2k_decode.cpp decodes the tiles), PIL's pixels bit for
   bit as OpenJPEG and Pillow's decoder give them.
+- AVIF (core/avif.py: the HEIF box tree as libavif walks it, alpha and
+  premultiplied alpha, an animation's first frame; csrc/av1_decode.cpp
+  decodes the AV1 intra frame with its in-loop filters off and converts
+  YUV to RGB as libavif and libyuv do), PIL's pixels bit for bit as
+  dav1d and libavif give them; the in-loop filters and the rest of AVIF
+  part 2 raise NotImplementedError (ROADMAP item 22b).
 - Radiance HDR (RGBE, RLE): from the published file format spec.
 - PFM: trivial float format (the reference renames .pfm -> .hdr as a hack;
   we read it natively).
@@ -89,14 +95,23 @@ def decode_ldr(path: str) -> np.ndarray:
     16-bit grey clipped at 255, a palette expanded, CMYK converted; PNM:
     core/pnm.py, 16-bit grey clipped at 255; PSD: core/psd.py, the merged
     image; QOI: core/qoi.py; WebP: core/webp.py, an animation's first
-    frame on its canvas). PNG, BMP, JPEG, PNM, DDS, ICO, JPEG 2000, PSD,
-    QOI, TGA, TIFF, GIF and WebP, recognised by their headers in PIL's
-    order (its preinit
+    frame on its canvas; AVIF: core/avif.py, an animation's first frame,
+    alpha un-premultiplied). AVIF, PNG, BMP, JPEG, PNM, DDS, ICO, JPEG
+    2000, PSD, QOI, TGA, TIFF, GIF and WebP, recognised by their headers
+    in PIL's order (AVIF, its first plugin; its preinit
     plugins first; TGA, which has no signature, after the signed formats
     it could be mistaken for); a header a reader then cannot identify
     passes the file on, as PIL's SyntaxError does."""
     with open(path, "rb") as f:
         data = f.read()
+    from tracerboy_tpu_torch.core import avif
+
+    unidentified = None
+    if avif.is_avif(data):      # PIL's first plugin
+        try:
+            return avif.read_avif(data, path)
+        except UnidentifiedImageError as e:   # PIL tries the next
+            unidentified = e
     if data.startswith(PNG_SIGNATURE):
         return png_to_8bit(*decode_png(data, path))
     if data.startswith(b"BM"):
@@ -117,7 +132,6 @@ def decode_ldr(path: str) -> np.ndarray:
         webp,
     )
 
-    unidentified = None
     readers = ((pnm.is_pnm, pnm.read_pnm),
                (lambda d: d.startswith(DDS_MAGIC), dds.read_dds),
                (ico.is_ico, ico.read_ico),
@@ -135,8 +149,8 @@ def decode_ldr(path: str) -> np.ndarray:
     if unidentified is not None:
         raise unidentified
     raise NotImplementedError(
-        f"{path}: not a PNG, BMP, JPEG, PNM, DDS, ICO, JPEG 2000, PSD, QOI, "
-        "TGA, TIFF, GIF or WebP file; AVIF and PIL's small formats "
+        f"{path}: not an AVIF, PNG, BMP, JPEG, PNM, DDS, ICO, JPEG 2000, "
+        "PSD, QOI, TGA, TIFF, GIF or WebP file; PIL's small formats "
         "(SGI, PCX, DCX, CUR, ICNS, BLP, FTEX, IM, MSP, SUN, XBM, XPM, "
         "...) are not ported (ROADMAP.md, Queue 1: item 22b, the image "
         "formats neither the reference nor texture tools use)")

@@ -1,0 +1,2976 @@
+// The AV1 decoder of the port's AVIF reader (core/avif.py): one intra frame
+// from its OBUs to 8-bit Y, U and V planes, and the YUV-to-RGB(A) step that
+// gives Pillow's pixels. Host code, compiled with g++ at first use into the
+// port's build directory (core/codecs.av1_library) and called through
+// ctypes. The constant tables (default CDFs, quantizer lookups, matrices,
+// weights, scans) are in av1_tables.inc, read out of the AV1 libraries by
+// tests/make_av1_tables.py.
+//
+// The decoding process is the AV1 specification's (version 1.0.0 with
+// errata 1), section by section: the OBU syntax (5.3-5.12), the symbol
+// decoder (8.2), block decoding (5.11, 6.10) and prediction,
+// reconstruction and the inverse transforms (7.11.2, 7.12, 7.13). It is
+// normative, so a decoder that follows it gives dav1d's samples bit for
+// bit. The 1D inverse DCT is written as its recursive butterfly (the even
+// half a DCT of half the size, the odd half's rotations and Hadamard
+// stages in libaom's order, av1_inv_txfm1d.c), which is the
+// specification's flow graph; every Hadamard output is clamped to 16
+// bits, as libaom and dav1d clamp their 8-bit intermediates.
+//
+// What this part of the port leaves out raises (kUnsupported, with the
+// feature named): any in-loop filter (loop_filter_level[0] or [1] not 0,
+// CDEF strengths not all 0 where CDEF is enabled and the frame not coded
+// lossless, a plane's lr_type not RESTORE_NONE), superres, intra block
+// copy, film grain, high bit depth, and a frame that is not a shown key
+// frame. These are checked in the headers before any block is decoded.
+//
+// Departures from the specification: none in the decoding. A sequence
+// with several operating points decodes operating point 0, as libavif
+// asks dav1d to (all layers); OBUs outside it are dropped. What a damaged
+// stream does follows dav1d 1.5, which Pillow's libavif decodes with:
+// obu_forbidden_bit, tile list and reserved OBUs are ignored; a
+// sequence header or frame header OBU must hold its trailing one bit; an
+// operating_point_idc naming layers of one kind only, and identity
+// matrix coefficients without 4:4:4, are refused; a tile whose symbol
+// decoder reads more than 14 bits past its data is refused (SymbolMaxBits
+// < -14, dav1d's check after each superblock row); and after the frame,
+// the OBU headers up to the next frame are still read (an OBU past the
+// data, or a sequence header that changes, fails the decode).
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <vector>
+
+namespace {
+
+#include "av1_tables.inc"
+
+enum { kOk = 0, kCorrupt = -1, kUnsupported = -2, kSmall = -3 };
+// The tools a frame's blocks use, reported in info[15] for the tests'
+// coverage checks.
+enum {
+  kToolPalette = 1, kToolFilterIntra = 2, kToolCfl = 4, kToolAngleDelta = 8,
+  kToolTx64 = 16, kTool1D = 32, kToolWht = 64, kToolDirectional = 128,
+  kToolSmooth = 256, kToolPaeth = 512, kToolUpsample = 1024,
+  kToolEdgeFilter = 2048, kToolAdst = 4096, kToolSegments = 8192,
+  kToolDeltaQ = 16384, kToolQm = 32768, kToolExtPartition = 65536
+};
+
+struct Error {
+  int code;
+  const char* what;
+};
+
+[[noreturn]] void corrupt(const char* what) { throw Error{kCorrupt, what}; }
+[[noreturn]] void unsupported(const char* what) {
+  throw Error{kUnsupported, what};
+}
+
+inline int imin(int a, int b) { return a < b ? a : b; }
+inline int imax(int a, int b) { return a > b ? a : b; }
+inline int clip3(int lo, int hi, int x) { return x < lo ? lo : x > hi ? hi : x; }
+inline int floor_log2(uint32_t x) { return 31 - __builtin_clz(x); }
+inline int ceil_log2(int x) {
+  if (x < 2) return 0;
+  int i = 1, p = 2;
+  while (p < x) { i++; p <<= 1; }
+  return i;
+}
+inline int round2(int64_t x, int n) {
+  if (n == 0) return (int)x;
+  return (int)((x + ((int64_t)1 << (n - 1))) >> n);
+}
+inline int round2signed(int64_t x, int n) {
+  return x >= 0 ? round2(x, n) : -round2(-x, n);
+}
+
+// ---------------------------------------------------------------------------
+// Block and transform sizes.
+
+enum {
+  BLOCK_4X4, BLOCK_4X8, BLOCK_8X4, BLOCK_8X8, BLOCK_8X16, BLOCK_16X8,
+  BLOCK_16X16, BLOCK_16X32, BLOCK_32X16, BLOCK_32X32, BLOCK_32X64,
+  BLOCK_64X32, BLOCK_64X64, BLOCK_64X128, BLOCK_128X64, BLOCK_128X128,
+  BLOCK_4X16, BLOCK_16X4, BLOCK_8X32, BLOCK_32X8, BLOCK_16X64, BLOCK_64X16,
+  BLOCK_SIZES, BLOCK_INVALID = 255
+};
+const uint8_t kNum4x4W[BLOCK_SIZES] = {1, 1, 2, 2, 2, 4, 4, 4, 8, 8, 8,
+                                       16, 16, 16, 32, 32, 1, 4, 2, 8, 4, 16};
+const uint8_t kNum4x4H[BLOCK_SIZES] = {1, 2, 1, 2, 4, 2, 4, 8, 4, 8, 16,
+                                       8, 16, 32, 16, 32, 4, 1, 8, 2, 16, 4};
+const uint8_t kMiWLog2[BLOCK_SIZES] = {0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3,
+                                       4, 4, 4, 5, 5, 0, 2, 1, 3, 2, 4};
+const uint8_t kMiHLog2[BLOCK_SIZES] = {0, 1, 0, 1, 2, 1, 2, 3, 2, 3, 4,
+                                       3, 4, 5, 4, 5, 2, 0, 3, 1, 4, 2};
+const uint8_t kMaxTxDepth[BLOCK_SIZES] = {0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4,
+                                          4, 4, 4, 4, 4, 2, 2, 3, 3, 4, 4};
+
+int block_of(int w4, int h4) {  // block size of w4 x h4 4x4 units
+  for (int b = 0; b < BLOCK_SIZES; b++)
+    if (kNum4x4W[b] == w4 && kNum4x4H[b] == h4) return b;
+  return BLOCK_INVALID;
+}
+
+enum {
+  TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_64X64, TX_4X8, TX_8X4, TX_8X16,
+  TX_16X8, TX_16X32, TX_32X16, TX_32X64, TX_64X32, TX_4X16, TX_16X4,
+  TX_8X32, TX_32X8, TX_16X64, TX_64X16, TX_SIZES_ALL
+};
+const uint8_t kTxW[TX_SIZES_ALL] = {4, 8, 16, 32, 64, 4, 8, 8, 16, 16,
+                                    32, 32, 64, 4, 16, 8, 32, 16, 64};
+const uint8_t kTxH[TX_SIZES_ALL] = {4, 8, 16, 32, 64, 8, 4, 16, 8, 32,
+                                    16, 64, 32, 16, 4, 32, 8, 64, 16};
+const uint8_t kTxWLog2[TX_SIZES_ALL] = {2, 3, 4, 5, 6, 2, 3, 3, 4, 4,
+                                        5, 5, 6, 2, 4, 3, 5, 4, 6};
+const uint8_t kTxHLog2[TX_SIZES_ALL] = {2, 3, 4, 5, 6, 3, 2, 4, 3, 5,
+                                        4, 6, 5, 4, 2, 5, 3, 6, 4};
+const uint8_t kTxSqr[TX_SIZES_ALL] = {0, 1, 2, 3, 4, 0, 0, 1, 1, 2,
+                                      2, 3, 3, 0, 0, 1, 1, 2, 2};
+const uint8_t kTxSqrUp[TX_SIZES_ALL] = {0, 1, 2, 3, 4, 1, 1, 2, 2, 3,
+                                        3, 4, 4, 2, 2, 3, 3, 4, 4};
+const uint8_t kSplitTx[TX_SIZES_ALL] = {
+    TX_4X4, TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_4X4, TX_4X4,
+    TX_8X8, TX_8X8, TX_16X16, TX_16X16, TX_32X32, TX_32X32, TX_4X8,
+    TX_8X4, TX_8X16, TX_16X8, TX_16X32, TX_32X16};
+const uint8_t kAdjustedTx[TX_SIZES_ALL] = {
+    TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_32X32, TX_4X8, TX_8X4,
+    TX_8X16, TX_16X8, TX_16X32, TX_32X16, TX_32X32, TX_32X32, TX_4X16,
+    TX_16X4, TX_8X32, TX_32X8, TX_16X32, TX_32X16};
+const uint8_t kRowShift[TX_SIZES_ALL] = {0, 1, 2, 2, 2, 0, 0, 1, 1, 1,
+                                         1, 1, 1, 1, 1, 2, 2, 2, 2};
+// Offsets of the (adjusted) sizes in a 3344-byte quantizer matrix.
+const int16_t kQmOffset[TX_SIZES_ALL] = {
+    0, 16, 80, 336, 336, 1360, 1392, 1424, 1552, 1680, 2192, 336, 336,
+    2704, 2768, 2832, 3088, 1680, 2192};
+
+int tx_of(int w, int h) {
+  for (int t = 0; t < TX_SIZES_ALL; t++)
+    if (kTxW[t] == w && kTxH[t] == h) return t;
+  return -1;
+}
+int max_tx_rect(int bsize) {
+  return tx_of(imin(64, 4 * kNum4x4W[bsize]), imin(64, 4 * kNum4x4H[bsize]));
+}
+
+enum {
+  DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST,
+  FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST, IDTX, V_DCT, H_DCT,
+  V_ADST, H_ADST, V_FLIPADST, H_FLIPADST
+};
+enum { DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED,
+       D203_PRED, D67_PRED, SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED,
+       PAETH_PRED, UV_CFL_PRED };
+const uint8_t kIntraModeContext[13] = {0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1, 2, 0};
+const uint8_t kModeToAngle[13] = {0, 90, 180, 45, 135, 113, 157, 203, 67,
+                                  0, 0, 0, 0};
+const uint8_t kModeToTxfm[14] = {DCT_DCT, ADST_DCT, DCT_ADST, DCT_DCT,
+                                 ADST_ADST, ADST_DCT, DCT_ADST, DCT_ADST,
+                                 ADST_DCT, ADST_ADST, ADST_DCT, DCT_ADST,
+                                 ADST_ADST, DCT_DCT};
+const uint8_t kTxInv1[7] = {IDTX, DCT_DCT, V_DCT, H_DCT, ADST_ADST,
+                            ADST_DCT, DCT_ADST};
+const uint8_t kTxInv2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
+const uint8_t kFilterIntraModeToDir[5] = {DC_PRED, V_PRED, H_PRED, D157_PRED,
+                                          DC_PRED};
+const uint8_t kSegFeatureBits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
+const uint8_t kSegFeatureSigned[8] = {1, 1, 1, 1, 1, 0, 0, 0};
+const int kSegFeatureMax[8] = {255, 63, 63, 63, 63, 7, 0, 0};
+const uint8_t kPaletteColorContext[9] = {255, 255, 0, 255, 255, 4, 3, 2, 1};
+const int8_t kSigRefDiffOffset[3][5][2] = {
+    {{0, 1}, {1, 0}, {1, 1}, {0, 2}, {2, 0}},
+    {{0, 1}, {1, 0}, {0, 2}, {0, 3}, {0, 4}},
+    {{0, 1}, {1, 0}, {2, 0}, {3, 0}, {4, 0}}};
+const int8_t kMagRefOffset[3][3][2] = {{{0, 1}, {1, 0}, {1, 1}},
+                                       {{0, 1}, {1, 0}, {0, 2}},
+                                       {{0, 1}, {1, 0}, {2, 0}}};
+const uint8_t kIntraEdgeKernel[3][5] = {
+    {0, 4, 8, 4, 0}, {0, 5, 6, 5, 0}, {2, 4, 4, 4, 2}};
+enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
+enum { PARTITION_NONE, PARTITION_HORZ, PARTITION_VERT, PARTITION_SPLIT,
+       PARTITION_HORZ_A, PARTITION_HORZ_B, PARTITION_VERT_A,
+       PARTITION_VERT_B, PARTITION_HORZ_4, PARTITION_VERT_4 };
+
+int tx_class(int t) {
+  if (t == V_DCT || t == V_ADST || t == V_FLIPADST) return TX_CLASS_VERT;
+  if (t == H_DCT || t == H_ADST || t == H_FLIPADST) return TX_CLASS_HORIZ;
+  return TX_CLASS_2D;
+}
+
+int subsampled_size(int bsize, int ssx, int ssy) {
+  int w = 4 * kNum4x4W[bsize], h = 4 * kNum4x4H[bsize];
+  return block_of(imax(4, w >> ssx) / 4, imax(4, h >> ssy) / 4);
+}
+
+int partition_subsize(int p, int bsize) {
+  int w4 = kNum4x4W[bsize], h4 = kNum4x4H[bsize];
+  switch (p) {
+    case PARTITION_NONE: return bsize;
+    case PARTITION_HORZ: case PARTITION_HORZ_A: case PARTITION_HORZ_B:
+      return block_of(w4, h4 / 2);
+    case PARTITION_VERT: case PARTITION_VERT_A: case PARTITION_VERT_B:
+      return block_of(w4 / 2, h4);
+    case PARTITION_SPLIT: return block_of(w4 / 2, h4 / 2);
+    case PARTITION_HORZ_4: return block_of(w4, h4 / 4);
+    case PARTITION_VERT_4: return block_of(w4 / 4, h4);
+  }
+  return BLOCK_INVALID;
+}
+
+// ---------------------------------------------------------------------------
+// Bit reader for headers, and the symbol decoder (8.2).
+
+struct BitReader {
+  const uint8_t* d;
+  size_t n;
+  size_t pos = 0;  // in bits
+  BitReader(const uint8_t* d_, size_t n_) : d(d_), n(n_) {}
+  uint32_t f(int k) {
+    uint32_t x = 0;
+    for (int i = 0; i < k; i++) {
+      if (pos >= 8 * n) corrupt("header past the end of its OBU");
+      x = (x << 1) | ((d[pos >> 3] >> (7 - (pos & 7))) & 1);
+      pos++;
+    }
+    return x;
+  }
+  int su(int k) {
+    int v = (int)f(k), m = 1 << (k - 1);
+    return (v & m) ? v - 2 * m : v;
+  }
+  uint32_t uvlc() {
+    int lz = 0;
+    while (!f(1)) {
+      if (++lz >= 32) corrupt("uvlc");
+    }
+    return lz ? f(lz) + ((1u << lz) - 1) : 0;
+  }
+  uint32_t ns(uint32_t nv) {
+    int w = floor_log2(nv) + 1;
+    uint32_t m = (1u << w) - nv, v = f(w - 1);
+    if (v < m) return v;
+    return (v << 1) - m + f(1);
+  }
+  uint64_t leb128() {
+    uint64_t v = 0;
+    for (int i = 0; i < 8; i++) {
+      uint32_t b = f(8);
+      v |= (uint64_t)(b & 0x7f) << (7 * i);
+      if (!(b & 0x80)) return v;
+    }
+    return v;
+  }
+  void byte_align() { pos = (pos + 7) & ~(size_t)7; }
+};
+
+struct SymbolDecoder {
+  const uint8_t* buf = nullptr;
+  size_t size = 0, bitpos = 0;
+  uint32_t value = 0, range = 0;
+  int64_t max_bits = 0;
+  bool no_update = false;
+
+  uint32_t bits(int k) {
+    uint32_t x = 0;
+    for (int i = 0; i < k; i++, bitpos++) {
+      uint32_t b = bitpos < 8 * size
+                       ? (buf[bitpos >> 3] >> (7 - (bitpos & 7))) & 1
+                       : 0;
+      x = (x << 1) | b;
+    }
+    return x;
+  }
+  void init(const uint8_t* d, size_t sz, bool disable_update) {
+    if (sz < 1) corrupt("empty tile");
+    buf = d;
+    size = sz;
+    bitpos = 0;
+    no_update = disable_update;
+    int nb = (int)std::min<size_t>(8 * sz, 15);
+    uint32_t b = bits(nb);
+    value = ((1u << 15) - 1) ^ (b << (15 - nb));
+    range = 1u << 15;
+    max_bits = 8 * (int64_t)sz - 15;
+  }
+  int symbol(uint16_t* cdf, int n) {
+    uint32_t cur = range, prev;
+    int s = -1;
+    do {
+      s++;
+      prev = cur;
+      uint32_t f = (1u << 15) - cdf[s];
+      cur = ((range >> 8) * (f >> 6) >> 1) + 4 * (uint32_t)(n - s - 1);
+    } while (value < cur);
+    range = prev - cur;
+    value -= cur;
+    int b = 15 - floor_log2(range);
+    range <<= b;
+    int nb = (int)std::min<int64_t>(b, std::max<int64_t>(0, max_bits));
+    uint32_t nd = bits(nb) << (b - nb);
+    value = nd ^ (((value + 1) << b) - 1);
+    max_bits -= b;
+    if (!no_update) {
+      int rate = 3 + (cdf[n] > 15) + (cdf[n] > 31) + imin(floor_log2(n), 2);
+      uint32_t tmp = 0;
+      for (int i = 0; i < n - 1; i++) {
+        tmp = (i == s) ? (1u << 15) : tmp;
+        if (tmp < cdf[i])
+          cdf[i] -= (uint16_t)((cdf[i] - tmp) >> rate);
+        else
+          cdf[i] += (uint16_t)((tmp - cdf[i]) >> rate);
+      }
+      cdf[n] += (cdf[n] < 32);
+    }
+    return s;
+  }
+  int boolean() {
+    uint16_t cdf[3] = {1 << 14, 1 << 15, 0};
+    bool saved = no_update;
+    no_update = true;
+    int b = symbol(cdf, 2);
+    no_update = saved;
+    return b;
+  }
+  int literal(int n) {
+    int x = 0;
+    for (int i = 0; i < n; i++) x = 2 * x + boolean();
+    return x;
+  }
+  int ns(int nv) {
+    int w = floor_log2(nv) + 1;
+    int m = (1 << w) - nv, v = literal(w - 1);
+    if (v < m) return v;
+    return (v << 1) - m + literal(1);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The CDFs a tile adapts.
+
+struct Cdfs {
+  uint16_t y_mode[5][5][14];
+  uint16_t uv_nocfl[13][14];
+  uint16_t uv_cfl[13][15];
+  uint16_t part8[4][5], part16[4][11], part32[4][11], part64[4][11],
+      part128[4][9];
+  uint16_t skip[3][3];
+  uint16_t segment_id[3][9];
+  uint16_t delta_q[5], delta_lf[5], delta_lf_multi[4][5];
+  uint16_t cfl_sign[9], cfl_alpha[6][17];
+  uint16_t pal_y_mode[7][3][3], pal_uv_mode[2][3];
+  uint16_t pal_y_size[7][8], pal_uv_size[7][8];
+  uint16_t pal_color[2][7][5][9];
+  uint16_t filter_intra[22][3], filter_intra_mode[6];
+  uint16_t angle_delta[8][8];
+  uint16_t tx8[3][3], tx16[3][4], tx32[3][4], tx64[3][4];
+  uint16_t tx_set1[2][13][8], tx_set2[3][13][6];
+  uint16_t txb_skip[5][13][3];
+  uint16_t eob16[2][2][6], eob32[2][2][7], eob64[2][2][8],
+      eob128[2][2][9], eob256[2][2][10], eob512[2][11], eob1024[2][12];
+  uint16_t eob_extra[5][2][9][3];
+  uint16_t dc_sign[2][3][3];
+  uint16_t base_eob[5][2][4][4];
+  uint16_t base[5][2][42][5];
+  uint16_t br[5][2][21][5];
+
+  void init(int base_q_idx) {
+#define CP(dst, src) \
+  static_assert(sizeof(dst) == sizeof(src), #src); \
+  memcpy(dst, src, sizeof(dst))
+    CP(y_mode, Default_Intra_Frame_Y_Mode_Cdf);
+    CP(uv_nocfl, Default_Uv_Mode_Cfl_Not_Allowed_Cdf);
+    CP(uv_cfl, Default_Uv_Mode_Cfl_Allowed_Cdf);
+    CP(part8, Default_Partition_W8_Cdf);
+    CP(part16, Default_Partition_W16_Cdf);
+    CP(part32, Default_Partition_W32_Cdf);
+    CP(part64, Default_Partition_W64_Cdf);
+    CP(part128, Default_Partition_W128_Cdf);
+    CP(skip, Default_Skip_Cdf);
+    CP(segment_id, Default_Segment_Id_Cdf);
+    CP(delta_q, Default_Delta_Q_Cdf[0]);
+    CP(delta_lf, Default_Delta_Lf_Cdf[0]);
+    CP(delta_lf_multi, Default_Delta_Lf_Multi_Cdf);
+    CP(cfl_sign, Default_Cfl_Sign_Cdf[0]);
+    CP(cfl_alpha, Default_Cfl_Alpha_Cdf);
+    CP(pal_y_mode, Default_Palette_Y_Mode_Cdf);
+    CP(pal_uv_mode, Default_Palette_Uv_Mode_Cdf);
+    CP(pal_y_size, Default_Palette_Y_Size_Cdf);
+    CP(pal_uv_size, Default_Palette_Uv_Size_Cdf);
+    CP(filter_intra, Default_Filter_Intra_Cdfs);
+    CP(filter_intra_mode, Default_Filter_Intra_Mode_Cdf[0]);
+    CP(angle_delta, Default_Angle_Delta_Cdf);
+    CP(tx8, Default_Tx_8x8_Cdf);
+    CP(tx16, Default_Tx_16x16_Cdf);
+    CP(tx32, Default_Tx_32x32_Cdf);
+    CP(tx64, Default_Tx_64x64_Cdf);
+    CP(tx_set1, Default_Intra_Tx_Type_Set1_Cdf);
+    CP(tx_set2, Default_Intra_Tx_Type_Set2_Cdf);
+    memset(pal_color, 0, sizeof(pal_color));
+    const uint16_t* ys[7] = {
+        &Default_Palette_Size_2_Y_Color_Cdf[0][0],
+        &Default_Palette_Size_3_Y_Color_Cdf[0][0],
+        &Default_Palette_Size_4_Y_Color_Cdf[0][0],
+        &Default_Palette_Size_5_Y_Color_Cdf[0][0],
+        &Default_Palette_Size_6_Y_Color_Cdf[0][0],
+        &Default_Palette_Size_7_Y_Color_Cdf[0][0],
+        &Default_Palette_Size_8_Y_Color_Cdf[0][0]};
+    const uint16_t* uvs[7] = {
+        &Default_Palette_Size_2_Uv_Color_Cdf[0][0],
+        &Default_Palette_Size_3_Uv_Color_Cdf[0][0],
+        &Default_Palette_Size_4_Uv_Color_Cdf[0][0],
+        &Default_Palette_Size_5_Uv_Color_Cdf[0][0],
+        &Default_Palette_Size_6_Uv_Color_Cdf[0][0],
+        &Default_Palette_Size_7_Uv_Color_Cdf[0][0],
+        &Default_Palette_Size_8_Uv_Color_Cdf[0][0]};
+    for (int s = 0; s < 7; s++)
+      for (int c = 0; c < 5; c++) {
+        memcpy(pal_color[0][s][c], ys[s] + c * (s + 3), 2 * (s + 3));
+        memcpy(pal_color[1][s][c], uvs[s] + c * (s + 3), 2 * (s + 3));
+      }
+    int q = base_q_idx <= 20 ? 0 : base_q_idx <= 60 ? 1
+            : base_q_idx <= 120 ? 2 : 3;
+    CP(txb_skip, Default_Txb_Skip_Cdf[q]);
+    CP(eob16, Default_Eob_Pt_16_Cdf[q]);
+    CP(eob32, Default_Eob_Pt_32_Cdf[q]);
+    CP(eob64, Default_Eob_Pt_64_Cdf[q]);
+    CP(eob128, Default_Eob_Pt_128_Cdf[q]);
+    CP(eob256, Default_Eob_Pt_256_Cdf[q]);
+    CP(eob512, Default_Eob_Pt_512_Cdf[q]);
+    CP(eob1024, Default_Eob_Pt_1024_Cdf[q]);
+    CP(eob_extra, Default_Eob_Extra_Cdf[q]);
+    CP(dc_sign, Default_Dc_Sign_Cdf[q]);
+    CP(base_eob, Default_Coeff_Base_Eob_Cdf[q]);
+    CP(base, Default_Coeff_Base_Cdf[q]);
+    CP(br, Default_Coeff_Br_Cdf[q]);
+#undef CP
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Inverse transforms (7.13.2).
+
+const int32_t kCos128[65] = {
+    4096, 4095, 4091, 4085, 4076, 4065, 4052, 4036, 4017, 3996, 3973,
+    3948, 3920, 3889, 3857, 3822, 3784, 3745, 3703, 3659, 3612, 3564,
+    3513, 3461, 3406, 3349, 3290, 3229, 3166, 3102, 3035, 2967, 2896,
+    2824, 2751, 2675, 2598, 2520, 2440, 2359, 2276, 2191, 2106, 2019,
+    1931, 1842, 1751, 1660, 1567, 1474, 1380, 1285, 1189, 1092, 995,
+    897, 799, 700, 601, 501, 401, 301, 201, 101, 0};
+const int32_t kSinPi[5] = {0, 1321, 2482, 3344, 3803};
+
+inline int32_t r12(int64_t x) { return (int32_t)((x + 2048) >> 12); }
+inline int32_t c16(int64_t x) {
+  return (int32_t)(x < -32768 ? -32768 : x > 32767 ? 32767 : x);
+}
+int brev(int nbits, int x) {
+  int r = 0;
+  for (int i = 0; i < nbits; i++) r |= ((x >> i) & 1) << (nbits - 1 - i);
+  return r;
+}
+
+// The DCT of the permuted x[0..N): the even half a DCT of N / 2, the odd
+// half's stages, then the final butterflies.
+void idct_core(int32_t* x, int N, int n) {
+  if (N == 2) {
+    int64_t a = x[0], b = x[1];
+    x[0] = r12(kCos128[32] * a + kCos128[32] * b);
+    x[1] = r12(kCos128[32] * a - kCos128[32] * b);
+    return;
+  }
+  int M = N / 2;
+  idct_core(x, M, n - 1);
+  int32_t* o = x + M;
+  for (int i = 0; i < M / 2; i++) {
+    int k = brev(n, M + i), th = 64 - k * 64 / N;
+    int64_t a = o[i], b = o[M - 1 - i];
+    o[i] = r12(kCos128[th] * a - kCos128[64 - th] * b);
+    o[M - 1 - i] = r12(kCos128[64 - th] * a + kCos128[th] * b);
+  }
+  if (M >= 4) {
+    for (int B = 2; B <= M / 2; B *= 2) {
+      for (int q = 0; q < M / B; q++)
+        for (int t = 0; t < B / 2; t++) {
+          int ia = q * B + t, ib = q * B + B - 1 - t;
+          int64_t a = o[ia], b = o[ib];
+          if (q % 2 == 0) {
+            o[ia] = c16(a + b);
+            o[ib] = c16(a - b);
+          } else {
+            o[ia] = c16(b - a);
+            o[ib] = c16(a + b);
+          }
+        }
+      if (B < M / 2) {
+        int Q = M / (2 * B), lq = floor_log2(2 * Q);
+        for (int q = 0; q < Q / 2; q++) {
+          int k = brev(lq, Q + q), th = 64 - k * 64 / (2 * Q);
+          int64_t cs = kCos128[th], sn = kCos128[64 - th];
+          for (int t = 0; t < B; t++) {
+            int p = 2 * B * q + B / 2 + t, m = M - 1 - p;
+            int64_t a = o[p], b = o[m];
+            if (t < B / 2) {
+              o[p] = r12(-sn * a + cs * b);
+              o[m] = r12(cs * a + sn * b);
+            } else {
+              o[p] = r12(-cs * a - sn * b);
+              o[m] = r12(-sn * a + cs * b);
+            }
+          }
+        }
+      }
+    }
+    for (int p = M / 4; p < M / 2; p++) {
+      int m = M - 1 - p;
+      int64_t a = o[p], b = o[m];
+      o[p] = r12(-kCos128[32] * a + kCos128[32] * b);
+      o[m] = r12(kCos128[32] * a + kCos128[32] * b);
+    }
+  }
+  for (int i = 0; i < M; i++) {
+    int64_t e = x[i], d = x[N - 1 - i];
+    x[i] = c16(e + d);
+    x[N - 1 - i] = c16(e - d);
+  }
+}
+
+void idct(int32_t* x, int n) {
+  int N = 1 << n;
+  int32_t t[64];
+  for (int i = 0; i < N; i++) t[i] = x[brev(n, i)];
+  idct_core(t, N, n);
+  memcpy(x, t, N * sizeof(int32_t));
+}
+
+void iadst4(int32_t* x) {
+  int64_t x0 = x[0], x1 = x[1], x2 = x[2], x3 = x[3];
+  int64_t s0 = kSinPi[1] * x0, s1 = kSinPi[2] * x0, s2 = kSinPi[3] * x1,
+          s3 = kSinPi[4] * x2, s4 = kSinPi[1] * x2, s5 = kSinPi[2] * x3,
+          s6 = kSinPi[4] * x3;
+  int64_t a7 = x0 - x2, b7 = a7 + x3;
+  s0 = s0 + s3;
+  s1 = s1 - s4;
+  s3 = s2;
+  s2 = kSinPi[3] * b7;
+  s0 = s0 + s5;
+  s1 = s1 - s6;
+  int64_t y0 = s0 + s3, y1 = s1 + s3, y2 = s2, y3 = s0 + s1 - s3;
+  x[0] = r12(y0);
+  x[1] = r12(y1);
+  x[2] = r12(y2);
+  x[3] = r12(y3);
+}
+
+inline int32_t hb(int w0, int64_t a, int w1, int64_t b) {
+  return r12(w0 * a + w1 * b);
+}
+#define CS(i) kCos128[i]
+
+void iadst8(int32_t* x) {
+  int32_t b[8], s[8];
+  s[0] = x[7]; s[1] = x[0]; s[2] = x[5]; s[3] = x[2];
+  s[4] = x[3]; s[5] = x[4]; s[6] = x[1]; s[7] = x[6];
+  b[0] = hb(CS(4), s[0], CS(60), s[1]);
+  b[1] = hb(CS(60), s[0], -CS(4), s[1]);
+  b[2] = hb(CS(20), s[2], CS(44), s[3]);
+  b[3] = hb(CS(44), s[2], -CS(20), s[3]);
+  b[4] = hb(CS(36), s[4], CS(28), s[5]);
+  b[5] = hb(CS(28), s[4], -CS(36), s[5]);
+  b[6] = hb(CS(52), s[6], CS(12), s[7]);
+  b[7] = hb(CS(12), s[6], -CS(52), s[7]);
+  for (int i = 0; i < 4; i++) {
+    s[i] = c16((int64_t)b[i] + b[i + 4]);
+    s[i + 4] = c16((int64_t)b[i] - b[i + 4]);
+  }
+  b[0] = s[0]; b[1] = s[1]; b[2] = s[2]; b[3] = s[3];
+  b[4] = hb(CS(16), s[4], CS(48), s[5]);
+  b[5] = hb(CS(48), s[4], -CS(16), s[5]);
+  b[6] = hb(-CS(48), s[6], CS(16), s[7]);
+  b[7] = hb(CS(16), s[6], CS(48), s[7]);
+  s[0] = c16((int64_t)b[0] + b[2]); s[1] = c16((int64_t)b[1] + b[3]);
+  s[2] = c16((int64_t)b[0] - b[2]); s[3] = c16((int64_t)b[1] - b[3]);
+  s[4] = c16((int64_t)b[4] + b[6]); s[5] = c16((int64_t)b[5] + b[7]);
+  s[6] = c16((int64_t)b[4] - b[6]); s[7] = c16((int64_t)b[5] - b[7]);
+  b[0] = s[0]; b[1] = s[1]; b[4] = s[4]; b[5] = s[5];
+  b[2] = hb(CS(32), s[2], CS(32), s[3]);
+  b[3] = hb(CS(32), s[2], -CS(32), s[3]);
+  b[6] = hb(CS(32), s[6], CS(32), s[7]);
+  b[7] = hb(CS(32), s[6], -CS(32), s[7]);
+  x[0] = b[0]; x[1] = -b[4]; x[2] = b[6]; x[3] = -b[2];
+  x[4] = b[3]; x[5] = -b[7]; x[6] = b[5]; x[7] = -b[1];
+}
+
+void iadst16(int32_t* x) {
+  int32_t b[16], s[16];
+  static const int perm[16] = {15, 0, 13, 2, 11, 4, 9, 6,
+                               7, 8, 5, 10, 3, 12, 1, 14};
+  for (int i = 0; i < 16; i++) s[i] = x[perm[i]];
+  for (int i = 0; i < 8; i++) {
+    int c = 2 + 8 * i, d = 64 - c;  // (2,62), (10,54), ... (58,6)
+    b[2 * i] = hb(CS(c), s[2 * i], CS(d), s[2 * i + 1]);
+    b[2 * i + 1] = hb(CS(d), s[2 * i], -CS(c), s[2 * i + 1]);
+  }
+  for (int i = 0; i < 8; i++) {
+    s[i] = c16((int64_t)b[i] + b[i + 8]);
+    s[i + 8] = c16((int64_t)b[i] - b[i + 8]);
+  }
+  for (int i = 0; i < 8; i++) b[i] = s[i];
+  b[8] = hb(CS(8), s[8], CS(56), s[9]);
+  b[9] = hb(CS(56), s[8], -CS(8), s[9]);
+  b[10] = hb(CS(40), s[10], CS(24), s[11]);
+  b[11] = hb(CS(24), s[10], -CS(40), s[11]);
+  b[12] = hb(-CS(56), s[12], CS(8), s[13]);
+  b[13] = hb(CS(8), s[12], CS(56), s[13]);
+  b[14] = hb(-CS(24), s[14], CS(40), s[15]);
+  b[15] = hb(CS(40), s[14], CS(24), s[15]);
+  for (int g = 0; g < 16; g += 8)
+    for (int i = 0; i < 4; i++) {
+      s[g + i] = c16((int64_t)b[g + i] + b[g + i + 4]);
+      s[g + i + 4] = c16((int64_t)b[g + i] - b[g + i + 4]);
+    }
+  for (int g = 0; g < 16; g += 8) {
+    b[g + 0] = s[g + 0]; b[g + 1] = s[g + 1];
+    b[g + 2] = s[g + 2]; b[g + 3] = s[g + 3];
+    b[g + 4] = hb(CS(16), s[g + 4], CS(48), s[g + 5]);
+    b[g + 5] = hb(CS(48), s[g + 4], -CS(16), s[g + 5]);
+    b[g + 6] = hb(-CS(48), s[g + 6], CS(16), s[g + 7]);
+    b[g + 7] = hb(CS(16), s[g + 6], CS(48), s[g + 7]);
+  }
+  for (int g = 0; g < 16; g += 4) {
+    s[g + 0] = c16((int64_t)b[g + 0] + b[g + 2]);
+    s[g + 1] = c16((int64_t)b[g + 1] + b[g + 3]);
+    s[g + 2] = c16((int64_t)b[g + 0] - b[g + 2]);
+    s[g + 3] = c16((int64_t)b[g + 1] - b[g + 3]);
+  }
+  for (int g = 0; g < 16; g += 4) {
+    b[g + 0] = s[g + 0];
+    b[g + 1] = s[g + 1];
+    b[g + 2] = hb(CS(32), s[g + 2], CS(32), s[g + 3]);
+    b[g + 3] = hb(CS(32), s[g + 2], -CS(32), s[g + 3]);
+  }
+  static const int op[16] = {0, 8, 12, 4, 6, 14, 10, 2,
+                             3, 11, 15, 7, 5, 13, 9, 1};
+  for (int i = 0; i < 16; i++) x[i] = (i & 1) ? -b[op[i]] : b[op[i]];
+}
+#undef CS
+
+void iidentity(int32_t* x, int n) {
+  int N = 1 << n;
+  for (int i = 0; i < N; i++) {
+    int64_t v = x[i];
+    if (n == 2) x[i] = r12(v * 5793);
+    else if (n == 3) x[i] = (int32_t)(v * 2);
+    else if (n == 4) x[i] = r12(v * 11586);
+    else x[i] = (int32_t)(v * 4);
+  }
+}
+
+void iwht(int32_t* x, int shift) {
+  int32_t a = x[0] >> shift, c = x[1] >> shift, d = x[2] >> shift,
+          b = x[3] >> shift;
+  a += c;
+  d -= b;
+  int32_t e = (a - d) >> 1;
+  b = e - b;
+  c = e - c;
+  a -= b;
+  d += c;
+  x[0] = a; x[1] = b; x[2] = c; x[3] = d;
+}
+
+enum { T_DCT, T_ADST, T_IDN };
+void inverse_1d(int32_t* x, int kind, int n) {
+  if (kind == T_DCT) idct(x, n);
+  else if (kind == T_IDN) iidentity(x, n);
+  else if (n == 2) iadst4(x);
+  else if (n == 3) iadst8(x);
+  else iadst16(x);
+}
+
+// ---------------------------------------------------------------------------
+// The frame.
+
+struct SeqHeader {
+  int profile = 0, still = 0, reduced = 0;
+  int timing_info = 0, decoder_model_info = 0, equal_picture_interval = 0;
+  int buffer_removal_time_len = 0, frame_presentation_time_len = 0;
+  int buffer_delay_len = 0;
+  int op_cnt = 0, op_idc[32] = {0}, decoder_model_present[32] = {0};
+  int frame_width_bits = 0, frame_height_bits = 0, max_w = 0, max_h = 0;
+  int frame_id_numbers = 0, delta_frame_id_len = 0, add_frame_id_len = 0;
+  int sb128 = 0, enable_filter_intra = 0, enable_intra_edge = 0;
+  int enable_order_hint = 0, order_hint_bits = 0;
+  int force_screen_content = 0, force_integer_mv = 0;
+  int enable_superres = 0, enable_cdef = 0, enable_restoration = 0;
+  int bit_depth = 8, mono = 0, cp = 2, tc = 2, mc = 2, full_range = 0;
+  int ssx = 1, ssy = 1, csp = 0, separate_uv_delta_q = 0;
+  int film_grain_present = 0;
+  bool valid = false;
+};
+
+struct Plane {
+  std::vector<uint8_t> px;
+  int stride = 0, rows = 0;
+  uint8_t* at(int y, int x) { return &px[(size_t)y * stride + x]; }
+};
+
+struct Decoder {
+  SeqHeader seq;
+  // Frame header.
+  int frame_w = 0, frame_h = 0, mi_cols = 0, mi_rows = 0;
+  int disable_cdf_update = 0, allow_sct = 0, allow_intrabc = 0;
+  int base_q_idx = 0, dq_ydc = 0, dq_udc = 0, dq_uac = 0, dq_vdc = 0,
+      dq_vac = 0;
+  int using_qm = 0, qm_y = 0, qm_u = 0, qm_v = 0;
+  int seg_enabled = 0, feature_enabled[8][8] = {{0}},
+      feature_data[8][8] = {{0}};
+  int seg_id_pre_skip = 0, last_active_seg_id = 0;
+  int delta_q_present = 0, delta_q_res = 0, delta_lf_present = 0,
+      delta_lf_res = 0, delta_lf_multi = 0;
+  int lossless_array[8] = {0}, coded_lossless = 0, seg_qm_level[3][8];
+  int cdef_bits = 0, tx_mode_select = 0, only_4x4 = 0, reduced_tx_set = 0;
+  int tile_cols = 0, tile_rows = 0, tile_cols_log2 = 0, tile_rows_log2 = 0;
+  int mi_col_starts[65], mi_row_starts[65], tile_size_bytes = 4;
+  int num_planes = 3;
+  bool have_frame = false, frame_done = false;
+
+  // Per-mi state.
+  std::vector<uint8_t> y_modes, uv_modes, skips, tx_sizes, mi_sizes,
+      seg_ids, pal_sizes[2], tx_types;
+  std::vector<uint16_t> pal_colors[2];
+  std::vector<int8_t> cdef_idx;
+  int cdef_stride = 0;
+  Plane planes[3];
+
+  // Tile state.
+  SymbolDecoder sd;
+  Cdfs cdf;
+  int mi_row_start = 0, mi_row_end = 0, mi_col_start = 0, mi_col_end = 0;
+  int current_q = 0, delta_lf[4] = {0}, read_deltas = 0;
+  std::vector<uint8_t> above_level[3], above_dc[3], left_level[3],
+      left_dc[3];
+  uint8_t block_decoded[3][34][34];
+
+  // Block state.
+  int mi_row = 0, mi_col = 0, mi_size = 0, has_chroma = 0;
+  int avail_u = 0, avail_l = 0, avail_u_chroma = 0, avail_l_chroma = 0;
+  int segment_id = 0, skip = 0, lossless = 0;
+  int y_mode = 0, uv_mode = 0, angle_delta_y = 0, angle_delta_uv = 0;
+  int cfl_alpha_u = 0, cfl_alpha_v = 0;
+  int use_filter_intra = 0, filter_intra_mode = 0;
+  int pal_size_y = 0, pal_size_uv = 0;
+  uint16_t pal_y[8], pal_u[8], pal_v[8];
+  uint8_t color_map_y[64][64], color_map_uv[64][64];
+  int tx_size = 0, max_luma_w = 0, max_luma_h = 0;
+  int plane_tx_type = 0;
+  int32_t quant[1024];
+  int32_t resid[64][64];
+  int pred_buf[64][64];
+  int32_t dq_buf[64][64];
+  bool header_only = false;
+  uint32_t tools = 0;  // the block tools met (kTool* bits)
+
+  size_t mi_index(int r, int c) const { return (size_t)r * mi_cols + c; }
+  bool is_inside(int r, int c) const {
+    return c >= mi_col_start && c < mi_col_end && r >= mi_row_start &&
+           r < mi_row_end;
+  }
+  int seg_feature_active(int f) const {
+    return seg_enabled && feature_enabled[segment_id][f];
+  }
+  int get_qindex(int ignore_delta, int seg) const {
+    if (seg_enabled && feature_enabled[seg][0]) {
+      int q = base_q_idx + feature_data[seg][0];
+      if (!ignore_delta && delta_q_present) q = current_q + feature_data[seg][0];
+      return clip3(0, 255, q);
+    }
+    if (!ignore_delta && delta_q_present) return current_q;
+    return base_q_idx;
+  }
+
+  // --- OBU level --------------------------------------------------------
+
+  void sequence_header(BitReader& br) {
+    SeqHeader s;
+    s.profile = br.f(3);
+    s.still = br.f(1);
+    s.reduced = br.f(1);
+    if (s.profile > 2) corrupt("seq_profile");
+    if (s.reduced) {
+      s.op_cnt = 1;
+      s.op_idc[0] = 0;
+      br.f(5);  // seq_level_idx[0]
+    } else {
+      s.timing_info = br.f(1);
+      if (s.timing_info) {
+        br.f(32);
+        br.f(32);
+        s.equal_picture_interval = br.f(1);
+        if (s.equal_picture_interval) br.uvlc();
+        s.decoder_model_info = br.f(1);
+        if (s.decoder_model_info) {
+          int bdl = br.f(5) + 1;
+          br.f(32);
+          s.buffer_removal_time_len = br.f(5) + 1;
+          s.frame_presentation_time_len = br.f(5) + 1;
+          s.buffer_delay_len = bdl;
+        }
+      }
+      int idd_present = br.f(1);
+      s.op_cnt = br.f(5) + 1;
+      int bdl = s.buffer_delay_len;
+      for (int i = 0; i < s.op_cnt; i++) {
+        s.op_idc[i] = br.f(12);
+        if (s.op_idc[i] && (!(s.op_idc[i] & 0xff) || !(s.op_idc[i] & 0xf00)))
+          corrupt("operating_point_idc");  // dav1d refuses it
+        int lvl = br.f(5);
+        if (lvl > 7) br.f(1);
+        if (s.decoder_model_info) {
+          s.decoder_model_present[i] = br.f(1);
+          if (s.decoder_model_present[i]) {
+            br.f(bdl);
+            br.f(bdl);
+            br.f(1);
+          }
+        }
+        if (idd_present && br.f(1)) br.f(4);
+      }
+    }
+    s.frame_width_bits = br.f(4) + 1;
+    s.frame_height_bits = br.f(4) + 1;
+    s.max_w = br.f(s.frame_width_bits) + 1;
+    s.max_h = br.f(s.frame_height_bits) + 1;
+    if (!s.reduced) s.frame_id_numbers = br.f(1);
+    if (s.frame_id_numbers) {
+      s.delta_frame_id_len = br.f(4) + 2;
+      s.add_frame_id_len = br.f(3) + 1;
+    }
+    s.sb128 = br.f(1);
+    s.enable_filter_intra = br.f(1);
+    s.enable_intra_edge = br.f(1);
+    if (s.reduced) {
+      s.force_screen_content = 2;
+      s.force_integer_mv = 2;
+    } else {
+      br.f(1);  // enable_interintra_compound
+      br.f(1);  // enable_masked_compound
+      br.f(1);  // enable_warped_motion
+      br.f(1);  // enable_dual_filter
+      s.enable_order_hint = br.f(1);
+      if (s.enable_order_hint) {
+        br.f(1);  // enable_jnt_comp
+        br.f(1);  // enable_ref_frame_mvs
+      }
+      if (br.f(1))  // seq_choose_screen_content_tools
+        s.force_screen_content = 2;
+      else
+        s.force_screen_content = br.f(1);
+      if (s.force_screen_content > 0) {
+        if (br.f(1)) s.force_integer_mv = 2;
+        else s.force_integer_mv = br.f(1);
+      } else {
+        s.force_integer_mv = 2;
+      }
+      if (s.enable_order_hint) s.order_hint_bits = br.f(3) + 1;
+    }
+    s.enable_superres = br.f(1);
+    s.enable_cdef = br.f(1);
+    s.enable_restoration = br.f(1);
+    // color_config
+    int high_bitdepth = br.f(1);
+    if (s.profile == 2 && high_bitdepth) s.bit_depth = br.f(1) ? 12 : 10;
+    else s.bit_depth = high_bitdepth ? 10 : 8;
+    s.mono = s.profile == 1 ? 0 : br.f(1);
+    if (br.f(1)) {
+      s.cp = br.f(8);
+      s.tc = br.f(8);
+      s.mc = br.f(8);
+    }
+    if (s.mono) {
+      s.full_range = br.f(1);
+      s.ssx = s.ssy = 1;
+      s.separate_uv_delta_q = 0;
+    } else {
+      if (s.cp == 1 && s.tc == 13 && s.mc == 0) {
+        s.full_range = 1;
+        s.ssx = s.ssy = 0;
+      } else {
+        s.full_range = br.f(1);
+        if (s.profile == 0) {
+          s.ssx = s.ssy = 1;
+        } else if (s.profile == 1) {
+          s.ssx = s.ssy = 0;
+        } else if (s.bit_depth == 12) {
+          s.ssx = br.f(1);
+          s.ssy = s.ssx ? br.f(1) : 0;
+        } else {
+          s.ssx = 1;
+          s.ssy = 0;
+        }
+        if (s.ssx && s.ssy) s.csp = br.f(2);
+      }
+      s.separate_uv_delta_q = br.f(1);
+    }
+    s.film_grain_present = br.f(1);
+    if (s.mc == 0 && !s.mono && (s.ssx || s.ssy))
+      corrupt("identity matrix without 4:4:4");  // dav1d refuses it
+    s.valid = true;
+    if (seq.valid && (seq.max_w != s.max_w || seq.max_h != s.max_h ||
+                      seq.bit_depth != s.bit_depth || seq.mono != s.mono ||
+                      seq.ssx != s.ssx || seq.ssy != s.ssy))
+      corrupt("the sequence header changes");
+    seq = s;
+  }
+
+  int read_delta_q(BitReader& br) { return br.f(1) ? br.su(7) : 0; }
+
+  // uncompressed_header (5.9.2) for the frames this decoder takes; header
+  // only: returns after film_grain_params.
+  void frame_header(BitReader& br, int temporal_id, int spatial_id) {
+    if (!seq.valid) corrupt("frame before a sequence header");
+    const SeqHeader& s = seq;
+    if (s.bit_depth != 8)
+      unsupported("high bit depth (10 or 12 bits)");
+    int frame_type = 0, show_frame = 1;
+    if (!s.reduced) {
+      if (br.f(1)) unsupported("show_existing_frame");
+      frame_type = br.f(2);
+      show_frame = br.f(1);
+      if (show_frame && s.decoder_model_info && !s.equal_picture_interval)
+        br.f(s.frame_presentation_time_len);
+      if (!show_frame) br.f(1);                      // showable_frame
+      if (frame_type != 3 && !(frame_type == 0 && show_frame))
+        br.f(1);                                     // error_resilient_mode
+    }
+    if (frame_type != 0 || !show_frame)
+      unsupported("a frame that is not a shown key frame");
+    disable_cdf_update = br.f(1);
+    allow_sct = s.force_screen_content == 2 ? br.f(1) : s.force_screen_content;
+    if (allow_sct && s.force_integer_mv == 2) br.f(1);
+    if (s.frame_id_numbers)
+      br.f(s.add_frame_id_len + s.delta_frame_id_len + 1);
+    int size_override = s.reduced ? 0 : br.f(1);
+    br.f(s.order_hint_bits);
+    // primary_ref_frame: none for an intra frame.
+    if (s.decoder_model_info) {
+      if (br.f(1)) {  // buffer_removal_time_present_flag
+        for (int op = 0; op < s.op_cnt; op++)
+          if (s.decoder_model_present[op]) {
+            int idc = s.op_idc[op];
+            int in_t = (idc >> temporal_id) & 1,
+                in_s = (idc >> (spatial_id + 8)) & 1;
+            if (idc == 0 || (in_t && in_s))
+              br.f(s.buffer_removal_time_len);
+          }
+      }
+    }
+    // frame_size
+    if (size_override) {
+      frame_w = br.f(s.frame_width_bits) + 1;
+      frame_h = br.f(s.frame_height_bits) + 1;
+    } else {
+      frame_w = s.max_w;
+      frame_h = s.max_h;
+    }
+    // libavif gives dav1d its image size limit as frame_size_limit.
+    if ((int64_t)frame_w * frame_h > 16384 * 16384)
+      corrupt("a frame past the size limit");
+    if (s.enable_superres && br.f(1)) unsupported("superres");
+    mi_cols = 2 * ((frame_w + 7) >> 3);
+    mi_rows = 2 * ((frame_h + 7) >> 3);
+    if (br.f(1)) {  // render_and_frame_size_different
+      br.f(16);
+      br.f(16);
+    }
+    allow_intrabc = 0;
+    if (allow_sct) allow_intrabc = br.f(1);
+    if (allow_intrabc) unsupported("intra block copy");
+    // disable_frame_end_update_cdf
+    if (!s.reduced && !disable_cdf_update) br.f(1);
+    tile_info(br);
+    // quantization_params
+    base_q_idx = br.f(8);
+    dq_ydc = read_delta_q(br);
+    dq_udc = dq_uac = dq_vdc = dq_vac = 0;
+    num_planes = s.mono ? 1 : 3;
+    if (num_planes > 1) {
+      int diff_uv = s.separate_uv_delta_q ? br.f(1) : 0;
+      dq_udc = read_delta_q(br);
+      dq_uac = read_delta_q(br);
+      if (diff_uv) {
+        dq_vdc = read_delta_q(br);
+        dq_vac = read_delta_q(br);
+      } else {
+        dq_vdc = dq_udc;
+        dq_vac = dq_uac;
+      }
+    }
+    using_qm = br.f(1);
+    if (using_qm) {
+      qm_y = br.f(4);
+      qm_u = br.f(4);
+      qm_v = s.separate_uv_delta_q ? br.f(4) : qm_u;
+    }
+    // segmentation_params
+    seg_enabled = br.f(1);
+    memset(feature_enabled, 0, sizeof(feature_enabled));
+    memset(feature_data, 0, sizeof(feature_data));
+    if (seg_enabled) {
+      for (int i = 0; i < 8; i++)
+        for (int j = 0; j < 8; j++) {
+          int en = br.f(1), v = 0;
+          feature_enabled[i][j] = en;
+          if (en) {
+            int bits = kSegFeatureBits[j], lim = kSegFeatureMax[j];
+            if (kSegFeatureSigned[j])
+              v = clip3(-lim, lim, br.su(1 + bits));
+            else
+              v = clip3(0, lim, (int)br.f(bits));
+          }
+          feature_data[i][j] = v;
+        }
+    }
+    seg_id_pre_skip = 0;
+    last_active_seg_id = 0;
+    for (int i = 0; i < 8; i++)
+      for (int j = 0; j < 8; j++)
+        if (feature_enabled[i][j]) {
+          last_active_seg_id = i;
+          if (j >= 5) seg_id_pre_skip = 1;
+        }
+    // delta_q_params, delta_lf_params
+    delta_q_res = delta_q_present = 0;
+    if (base_q_idx > 0) delta_q_present = br.f(1);
+    if (delta_q_present) delta_q_res = br.f(2);
+    delta_lf_present = delta_lf_res = delta_lf_multi = 0;
+    if (delta_q_present) {
+      delta_lf_present = br.f(1);
+      if (delta_lf_present) {
+        delta_lf_res = br.f(2);
+        delta_lf_multi = br.f(1);
+      }
+    }
+    coded_lossless = 1;
+    for (int sid = 0; sid < 8; sid++) {
+      int q = get_qindex(1, sid);
+      lossless_array[sid] = q == 0 && dq_ydc == 0 && dq_uac == 0 &&
+                            dq_udc == 0 && dq_vac == 0 && dq_vdc == 0;
+      if (!lossless_array[sid]) coded_lossless = 0;
+      for (int p = 0; p < 3; p++) {
+        int lvl = p == 0 ? qm_y : p == 1 ? qm_u : qm_v;
+        seg_qm_level[p][sid] =
+            (using_qm && !lossless_array[sid]) ? lvl : 15;
+      }
+    }
+    // loop_filter_params
+    if (!coded_lossless) {
+      int l0 = br.f(6), l1 = br.f(6);
+      if (num_planes > 1 && (l0 || l1)) {
+        br.f(6);
+        br.f(6);
+      }
+      if (l0 || l1)
+        unsupported("the deblocking filter (loop_filter_level not 0)");
+      br.f(3);  // sharpness
+      if (br.f(1)) {  // loop_filter_delta_enabled
+        if (br.f(1)) {  // loop_filter_delta_update
+          for (int i = 0; i < 8; i++)
+            if (br.f(1)) br.su(7);
+          for (int i = 0; i < 2; i++)
+            if (br.f(1)) br.su(7);
+        }
+      }
+    }
+    // cdef_params
+    cdef_bits = 0;
+    if (!coded_lossless && s.enable_cdef) {
+      br.f(2);  // cdef_damping_minus_3
+      cdef_bits = br.f(2);
+      bool any = false;
+      for (int i = 0; i < (1 << cdef_bits); i++) {
+        any |= br.f(4) != 0;  // y primary
+        any |= br.f(2) != 0;  // y secondary
+        if (num_planes > 1) {
+          any |= br.f(4) != 0;
+          any |= br.f(2) != 0;
+        }
+      }
+      if (any) unsupported("CDEF (a strength not 0)");
+    }
+    // lr_params
+    if (!coded_lossless && s.enable_restoration) {
+      for (int i = 0; i < num_planes; i++)
+        if (br.f(2) != 0) unsupported("loop restoration (lr_type not NONE)");
+    }
+    // read_tx_mode
+    only_4x4 = coded_lossless;
+    tx_mode_select = coded_lossless ? 0 : br.f(1);
+    // frame_reference_mode, skip_mode_params: nothing for an intra frame.
+    // allow_warped_motion: not read for an intra frame.
+    reduced_tx_set = br.f(1);
+    // global_motion_params: nothing for an intra frame.
+    if (s.film_grain_present && br.f(1))
+      unsupported("film grain (apply_grain)");
+    have_frame = true;
+  }
+
+  int tile_log2(int blk, int target) {
+    int k = 0;
+    while ((blk << k) < target) k++;
+    return k;
+  }
+
+  void tile_info(BitReader& br) {
+    int sb_cols = seq.sb128 ? (mi_cols + 31) >> 5 : (mi_cols + 15) >> 4;
+    int sb_rows = seq.sb128 ? (mi_rows + 31) >> 5 : (mi_rows + 15) >> 4;
+    int sb_shift = seq.sb128 ? 5 : 4, sb_size = sb_shift + 2;
+    int max_tile_w_sb = 4096 >> sb_size;
+    int max_tile_area_sb = (4096 * 2304) >> (2 * sb_size);
+    int min_log2_cols = tile_log2(max_tile_w_sb, sb_cols);
+    int max_log2_cols = tile_log2(1, imin(sb_cols, 64));
+    int max_log2_rows = tile_log2(1, imin(sb_rows, 64));
+    int min_log2_tiles =
+        imax(min_log2_cols, tile_log2(max_tile_area_sb, sb_rows * sb_cols));
+    int uniform = br.f(1);
+    if (uniform) {
+      tile_cols_log2 = min_log2_cols;
+      while (tile_cols_log2 < max_log2_cols && br.f(1)) tile_cols_log2++;
+      int tw = (sb_cols + (1 << tile_cols_log2) - 1) >> tile_cols_log2;
+      int i = 0;
+      for (int st = 0; st < sb_cols; st += tw) mi_col_starts[i++] = st << sb_shift;
+      mi_col_starts[i] = mi_cols;
+      tile_cols = i;
+      int min_log2_rows = imax(min_log2_tiles - tile_cols_log2, 0);
+      tile_rows_log2 = min_log2_rows;
+      while (tile_rows_log2 < max_log2_rows && br.f(1)) tile_rows_log2++;
+      int th = (sb_rows + (1 << tile_rows_log2) - 1) >> tile_rows_log2;
+      i = 0;
+      for (int st = 0; st < sb_rows; st += th) mi_row_starts[i++] = st << sb_shift;
+      mi_row_starts[i] = mi_rows;
+      tile_rows = i;
+    } else {
+      int widest = 0, st = 0, i = 0;
+      for (; st < sb_cols; i++) {
+        if (i >= 64) corrupt("tile columns");
+        mi_col_starts[i] = st << sb_shift;
+        int mw = imin(sb_cols - st, max_tile_w_sb);
+        int sz = br.ns(mw) + 1;
+        widest = imax(sz, widest);
+        st += sz;
+      }
+      mi_col_starts[i] = mi_cols;
+      tile_cols = i;
+      tile_cols_log2 = tile_log2(1, tile_cols);
+      if (min_log2_tiles > 0)
+        max_tile_area_sb = (sb_rows * sb_cols) >> (min_log2_tiles + 1);
+      else
+        max_tile_area_sb = sb_rows * sb_cols;
+      int max_th = imax(max_tile_area_sb / widest, 1);
+      st = 0;
+      for (i = 0; st < sb_rows; i++) {
+        if (i >= 64) corrupt("tile rows");
+        mi_row_starts[i] = st << sb_shift;
+        int mh = imin(sb_rows - st, max_th);
+        st += br.ns(mh) + 1;
+      }
+      mi_row_starts[i] = mi_rows;
+      tile_rows = i;
+      tile_rows_log2 = tile_log2(1, tile_rows);
+    }
+    if (tile_cols_log2 > 0 || tile_rows_log2 > 0) {
+      br.f(tile_rows_log2 + tile_cols_log2);  // context_update_tile_id
+      tile_size_bytes = br.f(2) + 1;
+    }
+  }
+
+  void alloc_frame() {
+    size_t n = (size_t)mi_rows * mi_cols;
+    y_modes.assign(n, 0);
+    uv_modes.assign(n, 0);
+    skips.assign(n, 0);
+    tx_sizes.assign(n, 0);
+    mi_sizes.assign(n, 0);
+    seg_ids.assign(n, 0);
+    tx_types.assign(n, 0);
+    for (int p = 0; p < 2; p++) {
+      pal_sizes[p].assign(n, 0);
+      pal_colors[p].assign(n * 8, 0);
+    }
+    cdef_stride = (mi_cols >> 4) + 3;
+    cdef_idx.assign((size_t)((mi_rows >> 4) + 3) * cdef_stride, -1);
+    int aw = ((mi_cols * 4 + 127) & ~127) + 160;
+    int ah = ((mi_rows * 4 + 127) & ~127) + 160;
+    for (int p = 0; p < num_planes; p++) {
+      int sx = p ? seq.ssx : 0, sy = p ? seq.ssy : 0;
+      planes[p].stride = (aw >> sx) + 64;
+      planes[p].rows = (ah >> sy) + 64;
+      planes[p].px.assign((size_t)planes[p].stride * planes[p].rows, 0);
+    }
+    for (int p = 0; p < 3; p++) {
+      above_level[p].assign(mi_cols + 64, 0);
+      above_dc[p].assign(mi_cols + 64, 0);
+      left_level[p].assign(mi_rows + 64, 0);
+      left_dc[p].assign(mi_rows + 64, 0);
+    }
+  }
+
+  void tile_group(const uint8_t* d, size_t sz) {
+    if (!have_frame) corrupt("tile group before a frame header");
+    BitReader br(d, sz);
+    int num_tiles = tile_cols * tile_rows;
+    int tg_start = 0, tg_end = num_tiles - 1;
+    if (num_tiles > 1 && br.f(1)) {
+      int bits = tile_cols_log2 + tile_rows_log2;
+      tg_start = br.f(bits);
+      tg_end = br.f(bits);
+    }
+    br.byte_align();
+    size_t off = br.pos / 8;
+    if (tg_start == 0) alloc_frame();
+    if (tg_end < tg_start || tg_end >= num_tiles) corrupt("tile group range");
+    for (int t = tg_start; t <= tg_end; t++) {
+      int tr = t / tile_cols, tc = t % tile_cols;
+      size_t tsize;
+      if (t == tg_end) {
+        if (off > sz) corrupt("tile data");
+        tsize = sz - off;
+      } else {
+        if (off + tile_size_bytes > sz) corrupt("tile size");
+        tsize = 0;
+        for (int i = 0; i < tile_size_bytes; i++)
+          tsize |= (size_t)d[off + i] << (8 * i);
+        tsize += 1;
+        off += tile_size_bytes;
+        if (off + tsize > sz) corrupt("tile size");
+      }
+      mi_row_start = mi_row_starts[tr];
+      mi_row_end = mi_row_starts[tr + 1];
+      mi_col_start = mi_col_starts[tc];
+      mi_col_end = mi_col_starts[tc + 1];
+      current_q = base_q_idx;
+      cdf.init(base_q_idx);
+      sd.init(d + off, tsize, disable_cdf_update);
+      decode_tile();
+      off += tsize;
+    }
+    if (tg_end == num_tiles - 1) frame_done = true;
+  }
+
+  // --- Tiles and blocks (5.11) ------------------------------------------
+
+  void decode_tile() {
+    for (int p = 0; p < 3; p++) {
+      std::fill(above_level[p].begin(), above_level[p].end(), 0);
+      std::fill(above_dc[p].begin(), above_dc[p].end(), 0);
+    }
+    for (int i = 0; i < 4; i++) delta_lf[i] = 0;
+    int sb_size = seq.sb128 ? BLOCK_128X128 : BLOCK_64X64;
+    int sb4 = kNum4x4W[sb_size];
+    for (int r = mi_row_start; r < mi_row_end; r += sb4) {
+      for (int p = 0; p < 3; p++) {
+        std::fill(left_level[p].begin(), left_level[p].end(), 0);
+        std::fill(left_dc[p].begin(), left_dc[p].end(), 0);
+      }
+      for (int c = mi_col_start; c < mi_col_end; c += sb4) {
+        read_deltas = delta_q_present;
+        clear_cdef(r, c);
+        clear_block_decoded(r, c, sb4);
+        decode_partition(r, c, sb_size);
+      }
+      // dav1d refuses a tile whose symbol decoder read more than 14
+      // bits past its data (SymbolMaxBits < -14).
+      if (sd.max_bits < -14) corrupt("the symbol decoder read past a tile");
+    }
+  }
+
+  int8_t& cdef_at(int r, int c) {
+    return cdef_idx[(size_t)(r >> 4) * cdef_stride + (c >> 4)];
+  }
+  void clear_cdef(int r, int c) {
+    cdef_at(r, c) = -1;
+    if (seq.sb128) {
+      cdef_at(r, c + 16) = -1;
+      cdef_at(r + 16, c) = -1;
+      cdef_at(r + 16, c + 16) = -1;
+    }
+  }
+
+  void clear_block_decoded(int r, int c, int sb4) {
+    for (int p = 0; p < num_planes; p++) {
+      int sx = p ? seq.ssx : 0, sy = p ? seq.ssy : 0;
+      int sbw4 = (mi_col_end - c) >> sx, sbh4 = (mi_row_end - r) >> sy;
+      for (int y = -1; y <= (sb4 >> sy); y++)
+        for (int x = -1; x <= (sb4 >> sx); x++) {
+          uint8_t v;
+          if (y < 0 && x < sbw4) v = 1;
+          else if (x < 0 && y < sbh4) v = 1;
+          else v = 0;
+          block_decoded[p][y + 1][x + 1] = v;
+        }
+      block_decoded[p][(sb4 >> sy) + 1][0] = 0;
+    }
+  }
+
+  uint16_t* partition_cdf(int bsize, int ctx, int* n) {
+    switch (bsize) {
+      case BLOCK_8X8: *n = 4; return cdf.part8[ctx];
+      case BLOCK_16X16: *n = 10; return cdf.part16[ctx];
+      case BLOCK_32X32: *n = 10; return cdf.part32[ctx];
+      case BLOCK_64X64: *n = 10; return cdf.part64[ctx];
+      default: *n = 8; return cdf.part128[ctx];
+    }
+  }
+
+  void decode_partition(int r, int c, int bsize) {
+    if (r >= mi_rows || c >= mi_cols) return;
+    int avu = is_inside(r - 1, c), avl = is_inside(r, c - 1);
+    int num4 = kNum4x4W[bsize], half = num4 >> 1, quarter = half >> 1;
+    int has_rows = (r + half) < mi_rows, has_cols = (c + half) < mi_cols;
+    int partition;
+    if (bsize < BLOCK_8X8) {
+      partition = PARTITION_NONE;
+    } else {
+      int bsl = kMiWLog2[bsize];
+      int above = avu && kMiWLog2[mi_sizes[mi_index(r - 1, c)]] < bsl;
+      int left = avl && kMiHLog2[mi_sizes[mi_index(r, c - 1)]] < bsl;
+      int ctx = left * 2 + above, n;
+      uint16_t* pc = partition_cdf(bsize, ctx, &n);
+      auto prob = [&](int p) {  // probability of partition p, in 1/32768
+        return (int)pc[p] - (p ? (int)pc[p - 1] : 0);
+      };
+      if (has_rows && has_cols) {
+        partition = sd.symbol(pc, n);
+      } else if (has_cols) {
+        int psum = prob(PARTITION_VERT) + prob(PARTITION_SPLIT);
+        if (bsize != BLOCK_8X8)
+          psum += prob(PARTITION_HORZ_A) + prob(PARTITION_VERT_A) +
+                  prob(PARTITION_VERT_B);
+        if (bsize != BLOCK_8X8 && bsize != BLOCK_128X128)
+          psum += prob(PARTITION_VERT_4);
+        uint16_t bc[3] = {(uint16_t)(32768 - psum), 32768, 0};
+        bool saved = sd.no_update;
+        sd.no_update = true;
+        partition = sd.symbol(bc, 2) ? PARTITION_SPLIT : PARTITION_HORZ;
+        sd.no_update = saved;
+      } else if (has_rows) {
+        int psum = prob(PARTITION_HORZ) + prob(PARTITION_SPLIT);
+        if (bsize != BLOCK_8X8)
+          psum += prob(PARTITION_HORZ_A) + prob(PARTITION_HORZ_B) +
+                  prob(PARTITION_VERT_A);
+        if (bsize != BLOCK_8X8 && bsize != BLOCK_128X128)
+          psum += prob(PARTITION_HORZ_4);
+        uint16_t bc[3] = {(uint16_t)(32768 - psum), 32768, 0};
+        bool saved = sd.no_update;
+        sd.no_update = true;
+        partition = sd.symbol(bc, 2) ? PARTITION_SPLIT : PARTITION_VERT;
+        sd.no_update = saved;
+      } else {
+        partition = PARTITION_SPLIT;
+      }
+    }
+    if (partition > PARTITION_SPLIT) tools |= kToolExtPartition;
+    int sub = partition_subsize(partition, bsize);
+    int split = partition_subsize(PARTITION_SPLIT, bsize);
+    if (sub == BLOCK_INVALID) corrupt("partition");
+    switch (partition) {
+      case PARTITION_NONE: decode_block(r, c, sub); break;
+      case PARTITION_HORZ:
+        decode_block(r, c, sub);
+        if (has_rows) decode_block(r + half, c, sub);
+        break;
+      case PARTITION_VERT:
+        decode_block(r, c, sub);
+        if (has_cols) decode_block(r, c + half, sub);
+        break;
+      case PARTITION_SPLIT:
+        decode_partition(r, c, sub);
+        decode_partition(r, c + half, sub);
+        decode_partition(r + half, c, sub);
+        decode_partition(r + half, c + half, sub);
+        break;
+      case PARTITION_HORZ_A:
+        decode_block(r, c, split);
+        decode_block(r, c + half, split);
+        decode_block(r + half, c, sub);
+        break;
+      case PARTITION_HORZ_B:
+        decode_block(r, c, sub);
+        decode_block(r + half, c, split);
+        decode_block(r + half, c + half, split);
+        break;
+      case PARTITION_VERT_A:
+        decode_block(r, c, split);
+        decode_block(r + half, c, split);
+        decode_block(r, c + half, sub);
+        break;
+      case PARTITION_VERT_B:
+        decode_block(r, c, sub);
+        decode_block(r, c + half, split);
+        decode_block(r + half, c + half, split);
+        break;
+      case PARTITION_HORZ_4:
+        for (int i = 0; i < 4; i++)
+          if (i < 3 || r + quarter * 3 < mi_rows)
+            decode_block(r + quarter * i, c, sub);
+        break;
+      case PARTITION_VERT_4:
+        for (int i = 0; i < 4; i++)
+          if (i < 3 || c + quarter * 3 < mi_cols)
+            decode_block(r, c + quarter * i, sub);
+        break;
+    }
+  }
+
+  void decode_block(int r, int c, int bsize) {
+    mi_row = r;
+    mi_col = c;
+    mi_size = bsize;
+    int bw4 = kNum4x4W[bsize], bh4 = kNum4x4H[bsize];
+    if (bh4 == 1 && seq.ssy && (r & 1) == 0) has_chroma = 0;
+    else if (bw4 == 1 && seq.ssx && (c & 1) == 0) has_chroma = 0;
+    else has_chroma = num_planes > 1;
+    avail_u = is_inside(r - 1, c);
+    avail_l = is_inside(r, c - 1);
+    avail_u_chroma = avail_u;
+    avail_l_chroma = avail_l;
+    if (has_chroma) {
+      if (seq.ssy && bh4 == 1) avail_u_chroma = is_inside(r - 2, c);
+      if (seq.ssx && bw4 == 1) avail_l_chroma = is_inside(r, c - 2);
+    } else {
+      avail_u_chroma = avail_l_chroma = 0;
+    }
+    if (has_chroma &&
+        subsampled_size(bsize, seq.ssx, seq.ssy) == BLOCK_INVALID)
+      corrupt("block size for the subsampling");
+    intra_frame_mode_info();
+    palette_tokens();
+    read_block_tx_size();
+    if (skip) reset_block_context(bw4, bh4);
+    for (int y = 0; y < bh4; y++) {
+      if (r + y >= mi_rows) break;
+      for (int x = 0; x < bw4; x++) {
+        if (c + x >= mi_cols) break;
+        size_t i = mi_index(r + y, c + x);
+        y_modes[i] = (uint8_t)y_mode;
+        uv_modes[i] = (uint8_t)uv_mode;
+        skips[i] = (uint8_t)skip;
+        tx_sizes[i] = (uint8_t)tx_size;
+        mi_sizes[i] = (uint8_t)bsize;
+        seg_ids[i] = (uint8_t)segment_id;
+        pal_sizes[0][i] = (uint8_t)pal_size_y;
+        pal_sizes[1][i] = (uint8_t)pal_size_uv;
+        for (int k = 0; k < 8; k++) {
+          pal_colors[0][i * 8 + k] = pal_y[k];
+          pal_colors[1][i * 8 + k] = pal_u[k];
+        }
+      }
+    }
+    residual();
+  }
+
+  void intra_frame_mode_info() {
+    skip = 0;
+    if (seg_id_pre_skip) intra_segment_id();
+    read_skip();
+    if (!seg_id_pre_skip) intra_segment_id();
+    read_cdef();
+    read_delta_qindex();
+    read_delta_lf();
+    read_deltas = 0;
+    int above = kIntraModeContext[avail_u ? y_modes[mi_index(mi_row - 1,
+                                                             mi_col)]
+                                          : 0];   // DC_PRED
+    int left = kIntraModeContext[avail_l ? y_modes[mi_index(mi_row,
+                                                            mi_col - 1)]
+                                         : 0];
+    y_mode = sd.symbol(cdf.y_mode[above][left], 13);
+    angle_delta_y = 0;
+    if (mi_size >= BLOCK_8X8 && y_mode >= V_PRED && y_mode <= D67_PRED)
+      angle_delta_y = sd.symbol(cdf.angle_delta[y_mode - V_PRED], 7) - 3;
+    uv_mode = DC_PRED;
+    angle_delta_uv = 0;
+    cfl_alpha_u = cfl_alpha_v = 0;
+    if (has_chroma) {
+      int cfl_allowed;
+      int bw = 4 * kNum4x4W[mi_size], bh = 4 * kNum4x4H[mi_size];
+      if (lossless && subsampled_size(mi_size, seq.ssx, seq.ssy) == BLOCK_4X4)
+        cfl_allowed = 1;
+      else if (!lossless && imax(bw, bh) <= 32)
+        cfl_allowed = 1;
+      else
+        cfl_allowed = 0;
+      if (cfl_allowed)
+        uv_mode = sd.symbol(cdf.uv_cfl[y_mode], 14);
+      else
+        uv_mode = sd.symbol(cdf.uv_nocfl[y_mode], 13);
+      if (uv_mode == UV_CFL_PRED) {
+        read_cfl_alphas();
+        tools |= kToolCfl;
+      }
+      if (mi_size >= BLOCK_8X8 && uv_mode >= V_PRED && uv_mode <= D67_PRED)
+        angle_delta_uv = sd.symbol(cdf.angle_delta[uv_mode - V_PRED], 7) - 3;
+    }
+    pal_size_y = pal_size_uv = 0;
+    memset(pal_y, 0, sizeof(pal_y));
+    memset(pal_u, 0, sizeof(pal_u));
+    if (mi_size >= BLOCK_8X8 && 4 * kNum4x4W[mi_size] <= 64 &&
+        4 * kNum4x4H[mi_size] <= 64 && allow_sct)
+      palette_mode_info();
+    use_filter_intra = 0;
+    if (seq.enable_filter_intra && y_mode == DC_PRED && pal_size_y == 0 &&
+        imax(4 * kNum4x4W[mi_size], 4 * kNum4x4H[mi_size]) <= 32) {
+      use_filter_intra = sd.symbol(cdf.filter_intra[mi_size], 2);
+      if (use_filter_intra) {
+        filter_intra_mode = sd.symbol(cdf.filter_intra_mode, 5);
+        tools |= kToolFilterIntra;
+      }
+    }
+  }
+
+  void intra_segment_id() {
+    if (seg_enabled) read_segment_id();
+    else segment_id = 0;
+    lossless = lossless_array[segment_id];
+  }
+
+  void read_segment_id() {
+    int prev_ul = -1, prev_u = -1, prev_l = -1;
+    if (avail_u && avail_l)
+      prev_ul = seg_ids[mi_index(mi_row - 1, mi_col - 1)];
+    if (avail_u) prev_u = seg_ids[mi_index(mi_row - 1, mi_col)];
+    if (avail_l) prev_l = seg_ids[mi_index(mi_row, mi_col - 1)];
+    int pred;
+    if (prev_u == -1) pred = prev_l == -1 ? 0 : prev_l;
+    else if (prev_l == -1) pred = prev_u;
+    else pred = prev_ul == prev_u ? prev_u : prev_l;
+    if (skip) {
+      segment_id = pred;
+      return;
+    }
+    int ctx;
+    if (prev_ul < 0) ctx = 0;
+    else if (prev_ul == prev_u && prev_ul == prev_l) ctx = 2;
+    else if (prev_ul == prev_u || prev_ul == prev_l || prev_u == prev_l) ctx = 1;
+    else ctx = 0;
+    tools |= kToolSegments;
+    int s = sd.symbol(cdf.segment_id[ctx], 8);
+    int mx = last_active_seg_id + 1;
+    segment_id = clip3(0, last_active_seg_id, neg_deinterleave(s, pred, mx));
+  }
+
+  static int neg_deinterleave(int diff, int ref, int max) {
+    if (!ref) return diff;
+    if (ref >= max - 1) return max - diff - 1;
+    if (2 * ref < max) {
+      if (diff <= 2 * ref) {
+        if (diff & 1) return ref + ((diff + 1) >> 1);
+        return ref - (diff >> 1);
+      }
+      return diff;
+    }
+    if (diff <= 2 * (max - ref - 1)) {
+      if (diff & 1) return ref + ((diff + 1) >> 1);
+      return ref - (diff >> 1);
+    }
+    return max - (diff + 1);
+  }
+
+  void read_skip() {
+    if (seg_id_pre_skip && seg_feature_active(6)) {
+      skip = 1;
+      return;
+    }
+    int ctx = 0;
+    if (avail_u) ctx += skips[mi_index(mi_row - 1, mi_col)];
+    if (avail_l) ctx += skips[mi_index(mi_row, mi_col - 1)];
+    skip = sd.symbol(cdf.skip[ctx], 2);
+  }
+
+  void read_cdef() {
+    if (skip || coded_lossless || !seq.enable_cdef || allow_intrabc) return;
+    int r = mi_row & ~15, c = mi_col & ~15;
+    if (cdef_at(r, c) == -1) {
+      int v = sd.literal(cdef_bits);
+      int w4 = kNum4x4W[mi_size], h4 = kNum4x4H[mi_size];
+      for (int y = r; y < r + h4; y += 16)
+        for (int x = c; x < c + w4; x += 16) cdef_at(y, x) = (int8_t)v;
+    }
+  }
+
+  void read_delta_qindex() {
+    int sb = seq.sb128 ? BLOCK_128X128 : BLOCK_64X64;
+    if (mi_size == sb && skip) return;
+    if (read_deltas) {
+      int a = sd.symbol(cdf.delta_q, 4);
+      if (a == 3) {
+        int rb = sd.literal(3) + 1;
+        a = sd.literal(rb) + (1 << rb) + 1;
+      }
+      if (a) {
+        tools |= kToolDeltaQ;
+        int sign = sd.literal(1);
+        int red = sign ? -a : a;
+        current_q = clip3(1, 255, current_q + (red << delta_q_res));
+      }
+    }
+  }
+
+  void read_delta_lf() {
+    int sb = seq.sb128 ? BLOCK_128X128 : BLOCK_64X64;
+    if (mi_size == sb && skip) return;
+    if (read_deltas && delta_lf_present) {
+      int cnt = 1;
+      if (delta_lf_multi) cnt = num_planes > 1 ? 4 : 2;
+      for (int i = 0; i < cnt; i++) {
+        uint16_t* c = delta_lf_multi ? cdf.delta_lf_multi[i] : cdf.delta_lf;
+        int a = sd.symbol(c, 4);
+        if (a == 3) {
+          int n = sd.literal(3) + 1;
+          a = sd.literal(n) + (1 << n) + 1;
+        }
+        if (a) {
+          int sign = sd.literal(1);
+          int red = sign ? -a : a;
+          delta_lf[i] = clip3(-63, 63, delta_lf[i] + (red << delta_lf_res));
+        }
+      }
+    }
+  }
+
+  void read_cfl_alphas() {
+    int signs = sd.symbol(cdf.cfl_sign, 8);
+    int su = (signs + 1) / 3, sv = (signs + 1) % 3;
+    if (su) {
+      int ctx = (su - 1) * 3 + sv;
+      cfl_alpha_u = 1 + sd.symbol(cdf.cfl_alpha[ctx], 16);
+      if (su == 1) cfl_alpha_u = -cfl_alpha_u;
+    } else {
+      cfl_alpha_u = 0;
+    }
+    if (sv) {
+      int ctx = (sv - 1) * 3 + su;
+      cfl_alpha_v = 1 + sd.symbol(cdf.cfl_alpha[ctx], 16);
+      if (sv == 1) cfl_alpha_v = -cfl_alpha_v;
+    } else {
+      cfl_alpha_v = 0;
+    }
+  }
+
+  int get_palette_cache(int plane, uint16_t* cache) {
+    int above_n = 0, left_n = 0;
+    if (((mi_row * 4) % 64) && avail_u)
+      above_n = pal_sizes[plane][mi_index(mi_row - 1, mi_col)];
+    if (avail_l) left_n = pal_sizes[plane][mi_index(mi_row, mi_col - 1)];
+    const uint16_t* ac =
+        above_n ? &pal_colors[plane][mi_index(mi_row - 1, mi_col) * 8] : nullptr;
+    const uint16_t* lc =
+        left_n ? &pal_colors[plane][mi_index(mi_row, mi_col - 1) * 8] : nullptr;
+    int ai = 0, li = 0, n = 0;
+    while (ai < above_n && li < left_n) {
+      int a = ac[ai], l = lc[li];
+      if (l < a) {
+        if (n == 0 || l != cache[n - 1]) cache[n++] = (uint16_t)l;
+        li++;
+      } else {
+        if (n == 0 || a != cache[n - 1]) cache[n++] = (uint16_t)a;
+        ai++;
+        if (l == a) li++;
+      }
+    }
+    while (ai < above_n) {
+      int v = ac[ai++];
+      if (n == 0 || v != cache[n - 1]) cache[n++] = (uint16_t)v;
+    }
+    while (li < left_n) {
+      int v = lc[li++];
+      if (n == 0 || v != cache[n - 1]) cache[n++] = (uint16_t)v;
+    }
+    return n;
+  }
+
+  void palette_mode_info() {
+    int bsize_ctx = kMiWLog2[mi_size] + kMiHLog2[mi_size] - 2;
+    const int bd = 8;
+    if (y_mode == DC_PRED) {
+      int ctx = 0;
+      if (avail_u && pal_sizes[0][mi_index(mi_row - 1, mi_col)] > 0) ctx++;
+      if (avail_l && pal_sizes[0][mi_index(mi_row, mi_col - 1)] > 0) ctx++;
+      if (sd.symbol(cdf.pal_y_mode[bsize_ctx][ctx], 2)) {
+        pal_size_y = sd.symbol(cdf.pal_y_size[bsize_ctx], 7) + 2;
+        uint16_t cache[16];
+        int cn = get_palette_cache(0, cache), idx = 0;
+        for (int i = 0; i < cn && idx < pal_size_y; i++)
+          if (sd.literal(1)) pal_y[idx++] = cache[i];
+        if (idx < pal_size_y) pal_y[idx++] = (uint16_t)sd.literal(bd);
+        int bits = 0;
+        if (idx < pal_size_y) bits = bd - 3 + sd.literal(2);
+        while (idx < pal_size_y) {
+          int delta = sd.literal(bits) + 1;
+          pal_y[idx] = (uint16_t)imin(pal_y[idx - 1] + delta, 255);
+          int range = (1 << bd) - pal_y[idx] - 1;
+          bits = imin(bits, ceil_log2(range));
+          idx++;
+        }
+        std::sort(pal_y, pal_y + pal_size_y);
+      }
+    }
+    if (has_chroma && uv_mode == DC_PRED) {
+      int ctx = pal_size_y > 0;
+      if (sd.symbol(cdf.pal_uv_mode[ctx], 2)) {
+        pal_size_uv = sd.symbol(cdf.pal_uv_size[bsize_ctx], 7) + 2;
+        uint16_t cache[16];
+        int cn = get_palette_cache(1, cache), idx = 0;
+        for (int i = 0; i < cn && idx < pal_size_uv; i++)
+          if (sd.literal(1)) pal_u[idx++] = cache[i];
+        if (idx < pal_size_uv) pal_u[idx++] = (uint16_t)sd.literal(bd);
+        int bits = 0;
+        if (idx < pal_size_uv) bits = bd - 3 + sd.literal(2);
+        while (idx < pal_size_uv) {
+          int delta = sd.literal(bits);
+          pal_u[idx] = (uint16_t)imin(pal_u[idx - 1] + delta, 255);
+          int range = (1 << bd) - pal_u[idx];
+          bits = imin(bits, ceil_log2(range));
+          idx++;
+        }
+        std::sort(pal_u, pal_u + pal_size_uv);
+        if (sd.literal(1)) {
+          int maxv = 1 << bd;
+          int vbits = bd - 4 + sd.literal(2);
+          pal_v[0] = (uint16_t)sd.literal(bd);
+          for (idx = 1; idx < pal_size_uv; idx++) {
+            int delta = sd.literal(vbits);
+            if (delta && sd.literal(1)) delta = -delta;
+            int val = pal_v[idx - 1] + delta;
+            if (val < 0) val += maxv;
+            if (val >= maxv) val -= maxv;
+            pal_v[idx] = (uint16_t)clip3(0, 255, val);
+          }
+        } else {
+          for (idx = 0; idx < pal_size_uv; idx++)
+            pal_v[idx] = (uint16_t)sd.literal(bd);
+        }
+      }
+    }
+  }
+
+  void palette_color_context(uint8_t map[64][64], int r, int c, int n,
+                             int* order, int* ctx) {
+    int scores[8] = {0};
+    for (int i = 0; i < 8; i++) order[i] = i;
+    if (c > 0) scores[map[r][c - 1]] += 2;
+    if (r > 0 && c > 0) scores[map[r - 1][c - 1]] += 1;
+    if (r > 0) scores[map[r - 1][c]] += 2;
+    for (int i = 0; i < 3; i++) {
+      int mx = scores[i], mi = i;
+      for (int j = i + 1; j < n; j++)
+        if (scores[j] > mx) {
+          mx = scores[j];
+          mi = j;
+        }
+      if (mi != i) {
+        int ms = scores[mi], mo = order[mi];
+        for (int k = mi; k > i; k--) {
+          scores[k] = scores[k - 1];
+          order[k] = order[k - 1];
+        }
+        scores[i] = ms;
+        order[i] = mo;
+      }
+    }
+    int hash = scores[0] * 1 + scores[1] * 2 + scores[2] * 2;
+    *ctx = kPaletteColorContext[hash];
+    if (*ctx == 255) corrupt("palette colour context");
+  }
+
+  void read_color_map(uint8_t map[64][64], int n, int plane, int bw, int bh,
+                      int onw, int onh) {
+    map[0][0] = (uint8_t)sd.ns(n);
+    int order[8], ctx;
+    for (int i = 1; i < onh + onw - 1; i++)
+      for (int j = imin(i, onw - 1); j >= imax(0, i - onh + 1); j--) {
+        palette_color_context(map, i - j, j, n, order, &ctx);
+        int s = sd.symbol(cdf.pal_color[plane][n - 2][ctx], n);
+        map[i - j][j] = (uint8_t)order[s];
+      }
+    for (int i = 0; i < onh; i++)
+      for (int j = onw; j < bw; j++) map[i][j] = map[i][onw - 1];
+    for (int i = onh; i < bh; i++)
+      for (int j = 0; j < bw; j++) map[i][j] = map[onh - 1][j];
+  }
+
+  void palette_tokens() {
+    int bh = 4 * kNum4x4H[mi_size], bw = 4 * kNum4x4W[mi_size];
+    int onh = imin(bh, (mi_rows - mi_row) * 4);
+    int onw = imin(bw, (mi_cols - mi_col) * 4);
+    if (pal_size_y) read_color_map(color_map_y, pal_size_y, 0, bw, bh, onw, onh);
+    if (pal_size_uv) {
+      bh >>= seq.ssy;
+      bw >>= seq.ssx;
+      onh >>= seq.ssy;
+      onw >>= seq.ssx;
+      if (bw < 4) {
+        bw += 2;
+        onw += 2;
+      }
+      if (bh < 4) {
+        bh += 2;
+        onh += 2;
+      }
+      read_color_map(color_map_uv, pal_size_uv, 1, bw, bh, onw, onh);
+    }
+  }
+
+  void read_block_tx_size() {
+    if (lossless) {
+      tx_size = TX_4X4;
+      return;
+    }
+    int max_rect = max_tx_rect(mi_size);
+    tx_size = max_rect;
+    if (mi_size > BLOCK_4X4 && tx_mode_select) {
+      int max_depth = kMaxTxDepth[mi_size];
+      int mw = kTxW[max_rect], mh = kTxH[max_rect];
+      int above_w = 0, left_h = 0;
+      if (avail_u) above_w = kTxW[tx_sizes[mi_index(mi_row - 1, mi_col)]];
+      if (avail_l) left_h = kTxH[tx_sizes[mi_index(mi_row, mi_col - 1)]];
+      int ctx = (above_w >= mw) + (left_h >= mh);
+      int depth;
+      switch (max_depth) {
+        case 1: depth = sd.symbol(cdf.tx8[ctx], 2); break;
+        case 2: depth = sd.symbol(cdf.tx16[ctx], 3); break;
+        case 3: depth = sd.symbol(cdf.tx32[ctx], 3); break;
+        default: depth = sd.symbol(cdf.tx64[ctx], 3); break;
+      }
+      for (int i = 0; i < depth; i++) tx_size = kSplitTx[tx_size];
+    }
+  }
+
+  void reset_block_context(int bw4, int bh4) {
+    for (int p = 0; p < 1 + 2 * has_chroma; p++) {
+      int sx = p ? seq.ssx : 0, sy = p ? seq.ssy : 0;
+      for (int i = mi_col >> sx; i < ((mi_col + bw4) >> sx); i++) {
+        above_level[p][i] = 0;
+        above_dc[p][i] = 0;
+      }
+      for (int i = mi_row >> sy; i < ((mi_row + bh4) >> sy); i++) {
+        left_level[p][i] = 0;
+        left_dc[p][i] = 0;
+      }
+    }
+  }
+
+  // --- Residual (5.11.34-39) and reconstruction --------------------------
+
+  int get_tx_size(int plane, int txsz) {
+    if (plane == 0) return txsz;
+    int uvtx = max_tx_rect(subsampled_size(mi_size, seq.ssx, seq.ssy));
+    if (kTxW[uvtx] == 64 || kTxH[uvtx] == 64) {
+      if (kTxW[uvtx] == 16) return TX_16X32;
+      if (kTxH[uvtx] == 16) return TX_32X16;
+      return TX_32X32;
+    }
+    return uvtx;
+  }
+
+  void residual() {
+    int wchunks = imax(1, (4 * kNum4x4W[mi_size]) >> 6);
+    int hchunks = imax(1, (4 * kNum4x4H[mi_size]) >> 6);
+    int size_chunk = (wchunks > 1 || hchunks > 1) ? BLOCK_64X64 : mi_size;
+    for (int cy = 0; cy < hchunks; cy++)
+      for (int cx = 0; cx < wchunks; cx++) {
+        for (int p = 0; p < 1 + has_chroma * 2; p++) {
+          int txsz = lossless ? TX_4X4 : get_tx_size(p, tx_size);
+          int stepx = kTxW[txsz] >> 2, stepy = kTxH[txsz] >> 2;
+          int sx = p ? seq.ssx : 0, sy = p ? seq.ssy : 0;
+          int psz = subsampled_size(size_chunk, sx, sy);
+          int n4w = kNum4x4W[psz], n4h = kNum4x4H[psz];
+          int bx = (mi_col >> sx) * 4, by = (mi_row >> sy) * 4;
+          for (int y = 0; y < n4h; y += stepy)
+            for (int x = 0; x < n4w; x += stepx)
+              transform_block(p, bx, by, txsz, x + ((cx << 4) >> sx),
+                              y + ((cy << 4) >> sy));
+        }
+      }
+  }
+
+  void transform_block(int plane, int base_x, int base_y, int txsz, int x,
+                       int y) {
+    int start_x = base_x + 4 * x, start_y = base_y + 4 * y;
+    int sx = plane ? seq.ssx : 0, sy = plane ? seq.ssy : 0;
+    int row = (start_y << sy) >> 2, col = (start_x << sx) >> 2;
+    int sb_mask = seq.sb128 ? 31 : 15;
+    int sbr = row & sb_mask, sbc = col & sb_mask;
+    int stepx = kTxW[txsz] >> 2, stepy = kTxH[txsz] >> 2;
+    int max_x = (mi_cols * 4) >> sx, max_y = (mi_rows * 4) >> sy;
+    if (start_x >= max_x || start_y >= max_y) return;
+    if ((plane == 0 && pal_size_y) || (plane != 0 && pal_size_uv)) {
+      tools |= kToolPalette;
+      predict_palette(plane, start_x, start_y, x, y, txsz);
+    } else {
+      int is_cfl = plane > 0 && uv_mode == UV_CFL_PRED;
+      int mode = plane == 0 ? y_mode : (is_cfl ? DC_PRED : uv_mode);
+      int have_left = (plane == 0 ? avail_l : avail_l_chroma) || x > 0;
+      int have_above = (plane == 0 ? avail_u : avail_u_chroma) || y > 0;
+      int above_rt = block_decoded[plane][(sbr >> sy) - 1 + 1]
+                                  [(sbc >> sx) + stepx + 1];
+      int below_lt = block_decoded[plane][(sbr >> sy) + stepy + 1]
+                                  [(sbc >> sx) - 1 + 1];
+      predict_intra(plane, start_x, start_y, have_left, have_above, above_rt,
+                    below_lt, mode, kTxWLog2[txsz], kTxHLog2[txsz]);
+      if (is_cfl) predict_cfl(plane, start_x, start_y, txsz);
+    }
+    if (plane == 0) {
+      max_luma_w = start_x + stepx * 4;
+      max_luma_h = start_y + stepy * 4;
+    }
+    if (!skip) {
+      int eob = coeffs(plane, start_x, start_y, txsz);
+      if (eob > 0) reconstruct(plane, start_x, start_y, txsz);
+    }
+    for (int i = 0; i < stepy; i++)
+      for (int j = 0; j < stepx; j++) {
+        int rr = (sbr >> sy) + i + 1, cc = (sbc >> sx) + j + 1;
+        if (rr < 34 && cc < 34) block_decoded[plane][rr][cc] = 1;
+      }
+  }
+
+  // --- Prediction (7.11.2) ----------------------------------------------
+
+  void predict_palette(int plane, int sx0, int sy0, int x, int y, int txsz) {
+    int w = kTxW[txsz], h = kTxH[txsz];
+    const uint16_t* pal = plane == 0 ? pal_y : plane == 1 ? pal_u : pal_v;
+    uint8_t(*map)[64] = plane == 0 ? color_map_y : color_map_uv;
+    Plane& P = planes[plane];
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++)
+        *P.at(sy0 + i, sx0 + j) = (uint8_t)pal[map[y * 4 + i][x * 4 + j]];
+  }
+
+  int is_smooth(int r, int c, int plane) {
+    int mode = plane == 0 ? y_modes[mi_index(r, c)] : uv_modes[mi_index(r, c)];
+    return mode == SMOOTH_PRED || mode == SMOOTH_V_PRED ||
+           mode == SMOOTH_H_PRED;
+  }
+
+  int get_filter_type(int plane) {
+    int as = 0, ls = 0;
+    if (plane == 0 ? avail_u : avail_u_chroma) {
+      int r = mi_row - 1, c = mi_col;
+      if (plane > 0) {
+        if (seq.ssx && !(mi_col & 1)) c++;
+        if (seq.ssy && (mi_row & 1)) r--;
+      }
+      as = is_smooth(r, c, plane);
+    }
+    if (plane == 0 ? avail_l : avail_l_chroma) {
+      int r = mi_row, c = mi_col - 1;
+      if (plane > 0) {
+        if (seq.ssx && (mi_col & 1)) c--;
+        if (seq.ssy && !(mi_row & 1)) r++;
+      }
+      ls = is_smooth(r, c, plane);
+    }
+    return as || ls;
+  }
+
+  static int edge_strength(int w, int h, int type, int delta) {
+    int d = delta < 0 ? -delta : delta, wh = w + h, s = 0;
+    if (type == 0) {
+      if (wh <= 8) {
+        if (d >= 56) s = 1;
+      } else if (wh <= 12) {
+        if (d >= 40) s = 1;
+      } else if (wh <= 16) {
+        if (d >= 40) s = 1;
+      } else if (wh <= 24) {
+        if (d >= 8) s = 1;
+        if (d >= 16) s = 2;
+        if (d >= 32) s = 3;
+      } else if (wh <= 32) {
+        if (d >= 1) s = 1;
+        if (d >= 4) s = 2;
+        if (d >= 32) s = 3;
+      } else {
+        if (d >= 1) s = 3;
+      }
+    } else {
+      if (wh <= 8) {
+        if (d >= 40) s = 1;
+        if (d >= 64) s = 2;
+      } else if (wh <= 16) {
+        if (d >= 20) s = 1;
+        if (d >= 48) s = 2;
+      } else if (wh <= 24) {
+        if (d >= 4) s = 3;
+      } else {
+        if (d >= 1) s = 3;
+      }
+    }
+    return s;
+  }
+
+  static int use_upsample(int w, int h, int type, int delta) {
+    int d = delta < 0 ? -delta : delta, wh = w + h;
+    if (d <= 0 || d >= 40) return 0;
+    return type == 0 ? wh <= 16 : wh <= 8;
+  }
+
+  // buf points at index 0 of an edge with index -1 (and -2) valid.
+  void edge_filter(int* buf, int sz, int strength) {
+    if (!strength) return;
+    tools |= kToolEdgeFilter;
+    int edge[300];
+    for (int i = 0; i < sz; i++) edge[i] = buf[i - 1];
+    for (int i = 1; i < sz; i++) {
+      int s = 0;
+      for (int j = 0; j < 5; j++) {
+        int k = clip3(0, sz - 1, i - 2 + j);
+        s += kIntraEdgeKernel[strength - 1][j] * edge[k];
+      }
+      buf[i - 1] = (s + 8) >> 4;
+    }
+  }
+
+  static void edge_upsample(int* buf, int num_px) {
+    int dup[300];
+    dup[0] = buf[-1];
+    for (int i = -1; i < num_px; i++) dup[i + 2] = buf[i];
+    dup[num_px + 2] = buf[num_px - 1];
+    buf[-2] = dup[0];
+    for (int i = 0; i < num_px; i++) {
+      int s = -dup[i] + 9 * dup[i + 1] + 9 * dup[i + 2] - dup[i + 3];
+      s = clip3(0, 255, round2(s, 4));
+      buf[2 * i - 1] = s;
+      buf[2 * i] = dup[i + 2];
+    }
+  }
+
+  void predict_intra(int plane, int x, int y, int have_left, int have_above,
+                     int above_rt, int below_lt, int mode, int log2w,
+                     int log2h) {
+    Plane& P = planes[plane];
+    int w = 1 << log2w, h = 1 << log2h;
+    int sx = plane ? seq.ssx : 0, sy = plane ? seq.ssy : 0;
+    int max_x = ((mi_cols * 4) >> sx) - 1, max_y = ((mi_rows * 4) >> sy) - 1;
+    int above_buf[300], left_buf[300];
+    int* above = above_buf + 16;
+    int* left = left_buf + 16;
+    for (int i = 0; i < w + h; i++) {
+      if (!have_above && have_left) above[i] = *P.at(y, x - 1);
+      else if (!have_above && !have_left) above[i] = 127;
+      else {
+        int lim = imin(max_x, x + (above_rt ? 2 * w : w) - 1);
+        above[i] = *P.at(y - 1, imin(lim, x + i));
+      }
+    }
+    for (int i = 0; i < w + h; i++) {
+      if (!have_left && have_above) left[i] = *P.at(y - 1, x);
+      else if (!have_left && !have_above) left[i] = 129;
+      else {
+        int lim = imin(max_y, y + (below_lt ? 2 * h : h) - 1);
+        left[i] = *P.at(imin(lim, y + i), x - 1);
+      }
+    }
+    if (have_above && have_left) above[-1] = *P.at(y - 1, x - 1);
+    else if (have_above) above[-1] = *P.at(y - 1, x);
+    else if (have_left) above[-1] = *P.at(y, x - 1);
+    else above[-1] = 128;
+    left[-1] = above[-1];
+    int (*pred)[64] = pred_buf;
+    if (plane == 0 && use_filter_intra) {
+      filter_intra(above, left, w, h, pred);
+    } else if (mode >= V_PRED && mode <= D67_PRED) {
+      directional(plane, x, y, have_left, have_above, mode, w, h, max_x,
+                  max_y, above, left, pred);
+    } else if (mode == SMOOTH_PRED) {
+      tools |= kToolSmooth;
+      const uint8_t* wx = sm_weights(log2w);
+      const uint8_t* wy = sm_weights(log2h);
+      for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) {
+          int s = wy[i] * above[j] + (256 - wy[i]) * left[h - 1] +
+                  wx[j] * left[i] + (256 - wx[j]) * above[w - 1];
+          pred[i][j] = round2(s, 9);
+        }
+    } else if (mode == SMOOTH_V_PRED) {
+      const uint8_t* wy = sm_weights(log2h);
+      for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++)
+          pred[i][j] =
+              round2(wy[i] * above[j] + (256 - wy[i]) * left[h - 1], 8);
+    } else if (mode == SMOOTH_H_PRED) {
+      const uint8_t* wx = sm_weights(log2w);
+      for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++)
+          pred[i][j] =
+              round2(wx[j] * left[i] + (256 - wx[j]) * above[w - 1], 8);
+    } else if (mode == DC_PRED) {
+      int avg;
+      if (have_left && have_above) {
+        int sum = 0;
+        for (int k = 0; k < w; k++) sum += above[k];
+        for (int k = 0; k < h; k++) sum += left[k];
+        avg = (sum + ((w + h) >> 1)) / (w + h);
+      } else if (have_left) {
+        int sum = 0;
+        for (int k = 0; k < h; k++) sum += left[k];
+        avg = clip3(0, 255, (sum + (h >> 1)) >> log2h);
+      } else if (have_above) {
+        int sum = 0;
+        for (int k = 0; k < w; k++) sum += above[k];
+        avg = clip3(0, 255, (sum + (w >> 1)) >> log2w);
+      } else {
+        avg = 128;
+      }
+      for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) pred[i][j] = avg;
+    } else {  // PAETH
+      tools |= kToolPaeth;
+      for (int i = 0; i < h; i++)
+        for (int j = 0; j < w; j++) {
+          int base = above[j] + left[i] - above[-1];
+          int pl = abs(base - left[i]), pt = abs(base - above[j]),
+              ptl = abs(base - above[-1]);
+          if (pl <= pt && pl <= ptl) pred[i][j] = left[i];
+          else if (pt <= ptl) pred[i][j] = above[j];
+          else pred[i][j] = above[-1];
+        }
+    }
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) *P.at(y + i, x + j) = (uint8_t)pred[i][j];
+  }
+
+  static const uint8_t* sm_weights(int log2) {
+    static const int off[7] = {0, 0, 0, 4, 12, 28, 60};
+    return Sm_Weights + off[log2];
+  }
+
+  void filter_intra(const int* above, const int* left, int w, int h,
+                    int pred[64][64]) {
+    int w4 = w >> 2, h2 = h >> 1;
+    for (int i2 = 0; i2 < h2; i2++)
+      for (int j4 = 0; j4 < w4; j4++) {
+        int p[7];
+        for (int i = 0; i < 7; i++) {
+          if (i < 5) {
+            if (i2 == 0) p[i] = above[(j4 << 2) + i - 1];
+            else if (j4 == 0 && i == 0) p[i] = left[(i2 << 1) - 1];
+            else p[i] = pred[(i2 << 1) - 1][(j4 << 2) + i - 1];
+          } else {
+            if (j4 == 0) p[i] = left[(i2 << 1) + i - 5];
+            else p[i] = pred[(i2 << 1) + i - 5][(j4 << 2) - 1];
+          }
+        }
+        for (int i = 0; i < 8; i++) {
+          int pr = 0;
+          for (int j = 0; j < 7; j++)
+            pr += Filter_Intra_Taps[filter_intra_mode][i][j] * p[j];
+          pred[(i2 << 1) + (i >> 2)][(j4 << 2) + (i & 3)] =
+              clip3(0, 255, round2signed(pr, 4));
+        }
+      }
+  }
+
+  void directional(int plane, int x, int y, int have_left, int have_above,
+                   int mode, int w, int h, int max_x, int max_y, int* above,
+                   int* left, int pred[64][64]) {
+    int delta = plane == 0 ? angle_delta_y : angle_delta_uv;
+    int p_angle = kModeToAngle[mode] + delta * 3;
+    tools |= kToolDirectional | (delta ? kToolAngleDelta : 0);
+    int up_above = 0, up_left = 0;
+    if (seq.enable_intra_edge) {
+      if (p_angle != 90 && p_angle != 180) {
+        if (p_angle > 90 && p_angle < 180 && (w + h) >= 24) {
+          int v = round2(left[0] * 5 + above[-1] * 6 + above[0] * 5, 4);
+          left[-1] = above[-1] = v;
+        }
+        int ft = get_filter_type(plane);
+        if (have_above) {
+          int st = edge_strength(w, h, ft, p_angle - 90);
+          int num = imin(w, max_x - x + 1) + (p_angle < 90 ? h : 0) + 1;
+          edge_filter(above, num, st);
+        }
+        if (have_left) {
+          int st = edge_strength(w, h, ft, p_angle - 180);
+          int num = imin(h, max_y - y + 1) + (p_angle > 180 ? w : 0) + 1;
+          edge_filter(left, num, st);
+        }
+      }
+      int ft = get_filter_type(plane);
+      up_above = use_upsample(w, h, ft, p_angle - 90);
+      int num = w + (p_angle < 90 ? h : 0);
+      if (up_above) edge_upsample(above, num);
+      if (up_above) tools |= kToolUpsample;
+      up_left = use_upsample(w, h, ft, p_angle - 180);
+      num = h + (p_angle > 180 ? w : 0);
+      if (up_left) edge_upsample(left, num);
+    }
+    int dx = 0, dy = 0;
+    if (p_angle < 90) dx = Dr_Intra_Derivative[p_angle];
+    else if (p_angle > 90 && p_angle < 180)
+      dx = Dr_Intra_Derivative[180 - p_angle];
+    if (p_angle > 90 && p_angle < 180) dy = Dr_Intra_Derivative[p_angle - 90];
+    else if (p_angle > 180) dy = Dr_Intra_Derivative[270 - p_angle];
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) {
+        int v;
+        if (p_angle < 90) {
+          int idx = (i + 1) * dx;
+          int base = (idx >> (6 - up_above)) + (j << up_above);
+          int shift = ((idx << up_above) >> 1) & 0x1f;
+          int max_base = (w + h - 1) << up_above;
+          if (base < max_base)
+            v = round2(above[base] * (32 - shift) + above[base + 1] * shift, 5);
+          else
+            v = above[max_base];
+        } else if (p_angle > 90 && p_angle < 180) {
+          int idx = (j << 6) - (i + 1) * dx;
+          int base = idx >> (6 - up_above);
+          if (base >= -(1 << up_above)) {
+            int shift = ((idx * (1 << up_above)) >> 1) & 0x1f;
+            v = round2(above[base] * (32 - shift) + above[base + 1] * shift, 5);
+          } else {
+            idx = (i << 6) - (j + 1) * dy;
+            base = idx >> (6 - up_left);
+            int shift = ((idx * (1 << up_left)) >> 1) & 0x1f;
+            v = round2(left[base] * (32 - shift) + left[base + 1] * shift, 5);
+          }
+        } else if (p_angle > 180) {
+          int idx = (j + 1) * dy;
+          int base = (idx >> (6 - up_left)) + (i << up_left);
+          int shift = ((idx << up_left) >> 1) & 0x1f;
+          v = round2(left[base] * (32 - shift) + left[base + 1] * shift, 5);
+        } else if (p_angle == 90) {
+          v = above[j];
+        } else {
+          v = left[i];
+        }
+        pred[i][j] = v;
+      }
+  }
+
+  void predict_cfl(int plane, int sx0, int sy0, int txsz) {
+    int w = kTxW[txsz], h = kTxH[txsz];
+    int ssx = seq.ssx, ssy = seq.ssy;
+    int alpha = plane == 1 ? cfl_alpha_u : cfl_alpha_v;
+    int (*L)[64] = pred_buf;
+    int64_t sum = 0;
+    Plane& Y = planes[0];
+    for (int i = 0; i < h; i++) {
+      int ly = imin((sy0 + i) << ssy, max_luma_h - (1 << ssy));
+      for (int j = 0; j < w; j++) {
+        int lx = imin((sx0 + j) << ssx, max_luma_w - (1 << ssx));
+        int t = 0;
+        for (int dy = 0; dy <= ssy; dy++)
+          for (int dx = 0; dx <= ssx; dx++) t += *Y.at(ly + dy, lx + dx);
+        int v = t << (3 - ssx - ssy);
+        L[i][j] = v;
+        sum += v;
+      }
+    }
+    int avg = round2(sum, kTxWLog2[txsz] + kTxHLog2[txsz]);
+    Plane& P = planes[plane];
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) {
+        uint8_t* px = P.at(sy0 + i, sx0 + j);
+        int scaled = round2signed((int64_t)alpha * (L[i][j] - avg), 6);
+        *px = (uint8_t)clip3(0, 255, *px + scaled);
+      }
+  }
+
+  // --- Coefficients (5.11.39) -------------------------------------------
+
+  int get_tx_set(int txsz) {
+    int sqr = kTxSqr[txsz], up = kTxSqrUp[txsz];
+    if (up > TX_32X32) return 0;
+    if (up == TX_32X32) return 0;
+    if (reduced_tx_set) return 2;
+    if (sqr == TX_16X16) return 2;
+    return 1;
+  }
+
+  static bool in_set_intra(int set, int t) {
+    static const uint8_t in[3][16] = {
+        {1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+        {1, 1, 1, 1, 0, 0, 0, 0, 0, 1, 1, 1, 0, 0, 0, 0},
+        {1, 1, 1, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0}};
+    return in[set][t];
+  }
+
+  void read_tx_type(int x4, int y4, int txsz) {
+    int set = get_tx_set(txsz);
+    int t = DCT_DCT;
+    int q = seg_enabled ? get_qindex(1, segment_id) : base_q_idx;
+    if (set > 0 && q > 0) {
+      int dir = use_filter_intra ? kFilterIntraModeToDir[filter_intra_mode]
+                                 : y_mode;
+      int sqr = kTxSqr[txsz];
+      if (set == 1) t = kTxInv1[sd.symbol(cdf.tx_set1[sqr][dir], 7)];
+      else t = kTxInv2[sd.symbol(cdf.tx_set2[sqr][dir], 5)];
+    }
+    for (int i = 0; i < (kTxW[txsz] >> 2); i++)
+      for (int j = 0; j < (kTxH[txsz] >> 2); j++)
+        if (y4 + j < mi_rows && x4 + i < mi_cols)
+          tx_types[mi_index(y4 + j, x4 + i)] = (uint8_t)t;
+  }
+
+  int compute_tx_type(int plane, int txsz, int x4, int y4) {
+    if (lossless || kTxSqrUp[txsz] > TX_32X32) return DCT_DCT;
+    int set = get_tx_set(txsz);
+    if (plane == 0) return tx_types[mi_index(y4, x4)];
+    int t = kModeToTxfm[uv_mode];
+    if (!in_set_intra(set, t)) return DCT_DCT;
+    return t;
+  }
+
+  const uint16_t* get_scan(int txsz) {
+    if (txsz == TX_16X64) return Default_Scan_16x32;
+    if (txsz == TX_64X16) return Default_Scan_32x16;
+    if (kTxSqrUp[txsz] == TX_64X64) return Default_Scan_32x32;
+    int cls = tx_class(plane_tx_type);
+    if (plane_tx_type != IDTX && cls != TX_CLASS_2D) {
+      static const struct Scans1D {
+        uint16_t mrow[256], mcol[TX_SIZES_ALL][256];
+        Scans1D() {
+          for (int i = 0; i < 256; i++) mrow[i] = (uint16_t)i;
+          for (int t = 0; t < TX_SIZES_ALL; t++) {
+            int w = kTxW[t], h = kTxH[t];
+            if (w > 16 || h > 16) continue;
+            for (int c = 0; c < w * h; c++)
+              mcol[t][c] = (uint16_t)((c % h) * w + c / h);
+          }
+        }
+      } scans;
+      if (kTxW[txsz] > 16 || kTxH[txsz] > 16) corrupt("1D transform size");
+      if (cls == TX_CLASS_VERT) return scans.mrow;
+      return scans.mcol[txsz];
+    }
+    switch (txsz) {
+      case TX_4X4: return Default_Scan_4x4;
+      case TX_8X8: return Default_Scan_8x8;
+      case TX_16X16: return Default_Scan_16x16;
+      case TX_32X32: return Default_Scan_32x32;
+      case TX_4X8: return Default_Scan_4x8;
+      case TX_8X4: return Default_Scan_8x4;
+      case TX_8X16: return Default_Scan_8x16;
+      case TX_16X8: return Default_Scan_16x8;
+      case TX_16X32: return Default_Scan_16x32;
+      case TX_32X16: return Default_Scan_32x16;
+      case TX_4X16: return Default_Scan_4x16;
+      case TX_16X4: return Default_Scan_16x4;
+      case TX_8X32: return Default_Scan_8x32;
+      default: return Default_Scan_32x8;
+    }
+  }
+
+  int coeff_base_ctx(int txsz, int bwl, int txh, int pos, int cls) {
+    int row = pos >> bwl, col = pos - (row << bwl), mag = 0;
+    int txw = 1 << bwl;
+    for (int k = 0; k < 5; k++) {
+      int rr = row + kSigRefDiffOffset[cls][k][0];
+      int cc = col + kSigRefDiffOffset[cls][k][1];
+      if (rr >= 0 && cc >= 0 && rr < txh && cc < txw)
+        mag += imin(abs(quant[(rr << bwl) + cc]), 3);
+    }
+    int ctx = imin((mag + 1) >> 1, 4);
+    if (cls == TX_CLASS_2D) {
+      if (row == 0 && col == 0) return 0;
+      return ctx + Coeff_Base_Ctx_Offset[txsz][imin(row, 4)][imin(col, 4)];
+    }
+    int idx = cls == TX_CLASS_VERT ? row : col;
+    static const int pos_off[3] = {26, 31, 36};
+    return ctx + pos_off[imin(idx, 2)];
+  }
+
+  int coeff_br_ctx(int bwl, int txh, int pos, int cls) {
+    int row = pos >> bwl, col = pos - (row << bwl), mag = 0;
+    int txw = 1 << bwl;
+    for (int k = 0; k < 3; k++) {
+      int rr = row + kMagRefOffset[cls][k][0];
+      int cc = col + kMagRefOffset[cls][k][1];
+      if (rr >= 0 && cc >= 0 && rr < txh && cc < txw)
+        mag += imin(quant[rr * txw + cc], 15);
+    }
+    mag = imin((mag + 1) >> 1, 6);
+    if (pos == 0) return mag;
+    if (cls == TX_CLASS_2D) {
+      if (row < 2 && col < 2) return mag + 7;
+    } else if (cls == TX_CLASS_HORIZ) {
+      if (col == 0) return mag + 7;
+    } else {
+      if (row == 0) return mag + 7;
+    }
+    return mag + 14;
+  }
+
+  int coeffs(int plane, int sx0, int sy0, int txsz) {
+    int x4 = sx0 >> 2, y4 = sy0 >> 2;
+    int w4 = kTxW[txsz] >> 2, h4 = kTxH[txsz] >> 2;
+    int ctx_sz = (kTxSqr[txsz] + kTxSqrUp[txsz] + 1) >> 1;
+    int ptype = plane > 0;
+    int seg_eob = (txsz == TX_16X64 || txsz == TX_64X16)
+                      ? 512
+                      : imin(1024, kTxW[txsz] * kTxH[txsz]);
+    memset(quant, 0, sizeof(int32_t) * seg_eob);
+    int eob = 0, cul = 0, dc_cat = 0;
+    // all_zero context
+    int sx = plane ? seq.ssx : 0, sy = plane ? seq.ssy : 0;
+    int max_x4 = mi_cols >> sx, max_y4 = mi_rows >> sy;
+    if (plane == 0) { max_x4 = mi_cols; max_y4 = mi_rows; }
+    int w = kTxW[txsz], h = kTxH[txsz];
+    int ctx;
+    int bsize = subsampled_size(mi_size, sx, sy);
+    if (plane == 0) {
+      int top = 0, left = 0;
+      for (int k = 0; k < w4; k++)
+        if (x4 + k < max_x4) top = imax(top, above_level[plane][x4 + k]);
+      for (int k = 0; k < h4; k++)
+        if (y4 + k < max_y4) left = imax(left, left_level[plane][y4 + k]);
+      top = imin(top, 255);
+      left = imin(left, 255);
+      if (4 * kNum4x4W[bsize] == w && 4 * kNum4x4H[bsize] == h) ctx = 0;
+      else if (top == 0 && left == 0) ctx = 1;
+      else if (top == 0 || left == 0) ctx = 2 + (imax(top, left) > 3);
+      else if (imax(top, left) <= 3) ctx = 4;
+      else if (imin(top, left) <= 3) ctx = 5;
+      else ctx = 6;
+    } else {
+      int above = 0, left = 0;
+      for (int k = 0; k < w4; k++)
+        if (x4 + k < max_x4)
+          above |= above_level[plane][x4 + k] | above_dc[plane][x4 + k];
+      for (int k = 0; k < h4; k++)
+        if (y4 + k < max_y4)
+          left |= left_level[plane][y4 + k] | left_dc[plane][y4 + k];
+      ctx = (above != 0) + (left != 0) + 7;
+      if (16 * kNum4x4W[bsize] * kNum4x4H[bsize] > w * h) ctx += 3;
+    }
+    int all_zero = sd.symbol(cdf.txb_skip[ctx_sz][ctx], 2);
+    if (all_zero) {
+      if (plane == 0)
+        for (int i = 0; i < w4; i++)
+          for (int j = 0; j < h4; j++)
+            if (y4 + j < mi_rows && x4 + i < mi_cols)
+              tx_types[mi_index(y4 + j, x4 + i)] = DCT_DCT;
+    } else {
+      if (plane == 0) read_tx_type(x4, y4, txsz);
+      plane_tx_type = compute_tx_type(plane, txsz, x4, y4);
+      int cls = tx_class(plane_tx_type);
+      const uint16_t* scan = get_scan(txsz);
+      int multi = imin(kTxWLog2[txsz], 5) + imin(kTxHLog2[txsz], 5) - 4;
+      int c2 = cls == TX_CLASS_2D ? 0 : 1;
+      int eob_pt;
+      switch (multi) {
+        case 0: eob_pt = sd.symbol(cdf.eob16[ptype][c2], 5); break;
+        case 1: eob_pt = sd.symbol(cdf.eob32[ptype][c2], 6); break;
+        case 2: eob_pt = sd.symbol(cdf.eob64[ptype][c2], 7); break;
+        case 3: eob_pt = sd.symbol(cdf.eob128[ptype][c2], 8); break;
+        case 4: eob_pt = sd.symbol(cdf.eob256[ptype][c2], 9); break;
+        case 5: eob_pt = sd.symbol(cdf.eob512[ptype], 10); break;
+        default: eob_pt = sd.symbol(cdf.eob1024[ptype], 11); break;
+      }
+      eob_pt += 1;
+      eob = eob_pt < 2 ? eob_pt : (1 << (eob_pt - 2)) + 1;
+      int eob_shift = eob_pt - 3;
+      if (eob_shift >= 0) {
+        if (sd.symbol(cdf.eob_extra[ctx_sz][ptype][eob_pt - 3], 2))
+          eob += 1 << eob_shift;
+        for (int i = 1; i < imax(eob_pt - 2, 1); i++) {
+          eob_shift = imax(eob_pt - 2, 1) - 1 - i;
+          if (sd.literal(1)) eob += 1 << eob_shift;
+        }
+      }
+      if (eob > seg_eob) corrupt("end of block");
+      int adj = kAdjustedTx[txsz];
+      int bwl = kTxWLog2[adj], txh = kTxH[adj];
+      for (int c = eob - 1; c >= 0; c--) {
+        int pos = scan[c], level;
+        if (c == eob - 1) {
+          int cx;
+          if (c == 0) cx = 0;
+          else if (c <= (txh << bwl) / 8) cx = 1;
+          else if (c <= (txh << bwl) / 4) cx = 2;
+          else cx = 3;
+          level = sd.symbol(cdf.base_eob[ctx_sz][ptype][cx], 3) + 1;
+        } else {
+          int cx = coeff_base_ctx(txsz, bwl, txh, pos, cls);
+          level = sd.symbol(cdf.base[ctx_sz][ptype][cx], 4);
+        }
+        if (level > 2) {
+          int bctx = coeff_br_ctx(bwl, txh, pos, cls);
+          for (int idx = 0; idx < 4; idx++) {
+            int br = sd.symbol(cdf.br[imin(ctx_sz, 3)][ptype][bctx], 4);
+            level += br;
+            if (br < 3) break;
+          }
+        }
+        quant[pos] = level;
+      }
+      for (int c = 0; c < eob; c++) {
+        int pos = scan[c], sign = 0;
+        if (quant[pos] != 0) {
+          if (c == 0) {
+            int dcs = 0;
+            for (int k = 0; k < w4; k++)
+              if (x4 + k < max_x4) {
+                int s = above_dc[plane][x4 + k];
+                if (s == 1) dcs--;
+                else if (s == 2) dcs++;
+              }
+            for (int k = 0; k < h4; k++)
+              if (y4 + k < max_y4) {
+                int s = left_dc[plane][y4 + k];
+                if (s == 1) dcs--;
+                else if (s == 2) dcs++;
+              }
+            int dctx = dcs < 0 ? 1 : dcs > 0 ? 2 : 0;
+            sign = sd.symbol(cdf.dc_sign[ptype][dctx], 2);
+          } else {
+            sign = sd.literal(1);
+          }
+        }
+        if (quant[pos] > 14) {
+          int length = 0, bit;
+          do {
+            length++;
+            bit = sd.literal(1);
+            if (length > 32) corrupt("golomb");
+          } while (!bit);
+          int x = 1;
+          for (int i = length - 2; i >= 0; i--) x = (x << 1) | sd.literal(1);
+          quant[pos] = x + 14;
+        }
+        if (pos == 0 && quant[pos] > 0) dc_cat = sign ? 1 : 2;
+        quant[pos] &= 0xfffff;
+        cul += quant[pos];
+        if (sign) quant[pos] = -quant[pos];
+      }
+      cul = imin(63, cul);
+    }
+    for (int i = 0; i < w4; i++) {
+      above_level[plane][x4 + i] = (uint8_t)cul;
+      above_dc[plane][x4 + i] = (uint8_t)dc_cat;
+    }
+    for (int i = 0; i < h4; i++) {
+      left_level[plane][y4 + i] = (uint8_t)cul;
+      left_dc[plane][y4 + i] = (uint8_t)dc_cat;
+    }
+    return eob;
+  }
+
+  int dc_q(int b) { return Dc_Qlookup[clip3(0, 255, b)]; }
+  int ac_q(int b) { return Ac_Qlookup[clip3(0, 255, b)]; }
+
+  void reconstruct(int plane, int x, int y, int txsz) {
+    int dq_shift = 0;
+    int pels = kTxW[txsz] * kTxH[txsz];
+    if (pels > 256) dq_shift = 1;
+    if (pels > 1024) dq_shift = 2;
+    int log2w = kTxWLog2[txsz], log2h = kTxHLog2[txsz];
+    int w = 1 << log2w, h = 1 << log2h;
+    int tw = imin(32, w), th = imin(32, h);
+    int t = plane_tx_type;
+    int flip_ud = t == FLIPADST_DCT || t == FLIPADST_ADST || t == V_FLIPADST ||
+                  t == FLIPADST_FLIPADST;
+    int flip_lr = t == DCT_FLIPADST || t == ADST_FLIPADST || t == H_FLIPADST ||
+                  t == FLIPADST_FLIPADST;
+    int qi = get_qindex(0, segment_id);
+    int dcq, acq;
+    if (plane == 0) {
+      dcq = dc_q(qi + dq_ydc);
+      acq = ac_q(qi);
+    } else if (plane == 1) {
+      dcq = dc_q(qi + dq_udc);
+      acq = ac_q(qi + dq_uac);
+    } else {
+      dcq = dc_q(qi + dq_vdc);
+      acq = ac_q(qi + dq_vac);
+    }
+    int qml = seg_qm_level[plane][segment_id];
+    const uint8_t* qm = nullptr;
+    if (!lossless && qml < 15 && t < IDTX)
+      qm = &Quantizer_Matrix[(qml * 2 + (plane > 0)) * 3344 + kQmOffset[txsz]];
+    int32_t (*dq)[64] = dq_buf;
+    for (int i = 0; i < th; i++)
+      for (int j = 0; j < tw; j++) {
+        int32_t v = quant[i * tw + j];
+        if (!v) {
+          dq[i][j] = 0;
+          continue;
+        }
+        int q = (i == 0 && j == 0) ? dcq : acq;
+        if (qm) q = round2((int64_t)q * qm[i * tw + j], 5);
+        int64_t mag = (int64_t)(v < 0 ? -v : v) * q;
+        mag &= 0xffffff;
+        mag >>= dq_shift;
+        int32_t d = (int32_t)(v < 0 ? -mag : mag);
+        dq[i][j] = clip3(-(1 << 15), (1 << 15) - 1, d);
+      }
+    // 2D inverse transform (7.13.3).
+    int row_kind, col_kind;
+    switch (t) {
+      case DCT_DCT: case ADST_DCT: case FLIPADST_DCT: case H_DCT:
+        row_kind = T_DCT; break;
+      case DCT_ADST: case ADST_ADST: case DCT_FLIPADST: case FLIPADST_FLIPADST:
+      case ADST_FLIPADST: case FLIPADST_ADST: case H_ADST: case H_FLIPADST:
+        row_kind = T_ADST; break;
+      default: row_kind = T_IDN;
+    }
+    switch (t) {
+      case DCT_DCT: case DCT_ADST: case DCT_FLIPADST: case V_DCT:
+        col_kind = T_DCT; break;
+      case ADST_DCT: case ADST_ADST: case FLIPADST_DCT: case FLIPADST_FLIPADST:
+      case ADST_FLIPADST: case FLIPADST_ADST: case V_ADST: case V_FLIPADST:
+        col_kind = T_ADST; break;
+      default: col_kind = T_IDN;
+    }
+    if (lossless) tools |= kToolWht;
+    if (w == 64 || h == 64) tools |= kToolTx64;
+    if (tx_class(t) != TX_CLASS_2D) tools |= kTool1D;
+    if (row_kind == T_ADST || col_kind == T_ADST) tools |= kToolAdst;
+    if (qm) tools |= kToolQm;
+    int row_shift = lossless ? 0 : kRowShift[txsz];
+    int col_shift = lossless ? 0 : 4;
+    int32_t tmp[64];
+    for (int i = 0; i < h; i++) {
+      if (i >= 32) {
+        for (int j = 0; j < w; j++) resid[i][j] = 0;
+        continue;
+      }
+      for (int j = 0; j < w; j++) tmp[j] = (i < th && j < tw) ? dq[i][j] : 0;
+      if (abs(log2w - log2h) == 1)
+        for (int j = 0; j < w; j++) tmp[j] = r12((int64_t)tmp[j] * 2896);
+      if (lossless) iwht(tmp, 2);
+      else inverse_1d(tmp, row_kind, log2w);
+      for (int j = 0; j < w; j++)
+        resid[i][j] = c16(round2(tmp[j], row_shift));
+    }
+    for (int j = 0; j < w; j++) {
+      for (int i = 0; i < h; i++) tmp[i] = resid[i][j];
+      if (lossless) iwht(tmp, 0);
+      else inverse_1d(tmp, col_kind, log2h);
+      for (int i = 0; i < h; i++) resid[i][j] = round2(tmp[i], col_shift);
+    }
+    Plane& P = planes[plane];
+    for (int i = 0; i < h; i++)
+      for (int j = 0; j < w; j++) {
+        int xp = x + (flip_lr ? w - j - 1 : j);
+        int yp = y + (flip_ud ? h - i - 1 : i);
+        uint8_t* px = P.at(yp, xp);
+        *px = (uint8_t)clip3(0, 255, *px + resid[i][j]);
+      }
+  }
+
+  // --- The temporal unit ------------------------------------------------
+
+  // The OBUs of one temporal unit, until the first frame is complete;
+  // the OBU headers after it are still read, and a sequence header among
+  // them parsed, up to the next frame (dav1d, with frame threads, parses
+  // ahead: an OBU past the data or a sequence header that changes fails
+  // the decode).
+  void decode(const uint8_t* d, size_t n) {
+    size_t pos = 0;
+    while (pos < n) {
+      BitReader hb(d + pos, n - pos);
+      hb.f(1);  // obu_forbidden_bit, ignored as dav1d ignores it
+      int type = hb.f(4), ext = hb.f(1), has_size = hb.f(1);
+      hb.f(1);
+      int tid = 0, sid = 0;
+      if (ext) {
+        tid = hb.f(3);
+        sid = hb.f(2);
+        hb.f(3);
+      }
+      size_t hdr = hb.pos / 8, size;
+      if (has_size) {
+        uint64_t s = hb.leb128();
+        hdr = hb.pos / 8;
+        if (s > n - pos - hdr) corrupt("obu_size past the end of the data");
+        size = (size_t)s;
+      } else {
+        size = n - pos - hdr;
+      }
+      const uint8_t* body = d + pos + hdr;
+      pos += hdr + size;
+      if (frame_done) {
+        if (type == 3 || type == 6) break;
+        if (type == 1) {
+          BitReader br(body, size);
+          sequence_header(br);
+        }
+        continue;
+      }
+      if (type != 1 && type != 2 && ext && seq.valid) {
+        int idc = seq.op_idc[0];
+        if (idc && (!((idc >> tid) & 1) || !((idc >> (sid + 8)) & 1)))
+          continue;
+      }
+      switch (type) {
+        case 1: {  // OBU_SEQUENCE_HEADER
+          BitReader br(body, size);
+          sequence_header(br);
+          br.f(1);  // trailing_one_bit: must be there (dav1d)
+          break;
+        }
+        case 3:   // OBU_FRAME_HEADER
+        case 6: {  // OBU_FRAME
+          BitReader br(body, size);
+          frame_header(br, tid, sid);
+          if (type == 3) br.f(1);  // trailing_one_bit (dav1d)
+          if (header_only) {
+            frame_done = true;
+            break;
+          }
+          if (type == 6) {
+            br.byte_align();
+            size_t off = br.pos / 8;
+            tile_group(body + off, size - off);
+          }
+          break;
+        }
+        case 4:  // OBU_TILE_GROUP
+          tile_group(body, size);
+          break;
+        case 7:  // OBU_REDUNDANT_FRAME_HEADER
+          break;
+        default:  // temporal delimiter, metadata, tile list, padding,
+          break;  // reserved: skipped, as dav1d skips them
+      }
+    }
+    if (!frame_done) corrupt("no complete frame in the data");
+  }
+};
+
+// ---------------------------------------------------------------------------
+// YUV to RGB(A) as Pillow gets it from libavif 1.3 (avifImageYUVToRGB with
+// Pillow's defaults: 8-bit RGB or RGBA, automatic chroma upsampling,
+// alpha not premultiplied), which hands 8-bit images to the libyuv built
+// into Pillow's wheel:
+// - the matrix: BT.601 (libyuv's I601 and JPEG constants) for matrix
+//   coefficients 2 (unspecified), 5 and 6, BT.709 (H709, F709) for 1,
+//   BT.2020 (2020, V2020) for 9; 12 (chroma-derived) takes the one its
+//   colour primaries name (1 and 2: BT.709, 5 and 6: BT.601, 9: BT.2020).
+//   The range is the colr box's full_range_flag, else the sequence
+//   header's color_range. Each pixel is libyuv's YuvPixel (row_common.cc):
+//   y1 = (y * 0x0101 * YG) >> 16, then (y1 + u * UB - BB) >> 6 and so on,
+//   clamped; libyuv built without LIBYUV_UNLIMITED_DATA (UB <= 128).
+// - chroma: libyuv's bilinear 2x upsampling (I420ToRGB24MatrixFilter and
+//   kin, kFilterBilinear): rows (3a + b + 2) >> 2, interior 2x2 cells
+//   (9a + 3b + 3c + d + 8) >> 4, the first and last output row and column
+//   taken from the nearest chroma row alone, and the last output column
+//   from chroma column (w - 1) / 2 alone (libyuv's _Any rows), which at
+//   an odd width is not the blend.
+// - 4:0:0: Y alone, through YuvPixel with u = v = 128: with an alpha
+//   plane the matrix's constants, without one (I400ToARGB) the BT.2020
+//   ones whatever the matrix (YG 19003 at limited range).
+// - identity (0), 4:4:4 only: G = Y, B = U, R = V; at limited range each
+//   channel (c - 16) * 255 / 219, rounded and clamped.
+// - alpha: the alpha item's Y plane as it is (libavif 1.x treats alpha as
+//   full range). Premultiplied alpha (a prem reference) is undone by
+//   libyuv's ARGBUnattenuate as its SIMD rows compute it:
+//   ((c | c << 8) * ia) >> 16, ia = 65536 / a (0 for a = 0, 0xffff for
+//   a = 1, 0x100 for a = 255), packed with signed saturation: 255 above
+//   255, 0 above 32767.
+// Other matrix coefficients go through libavif's own float path, which
+// the port leaves out (core/avif.py refuses them).
+
+struct YuvConstants {
+  int ub, ug, vg, vr, yg, yb;
+};
+const YuvConstants kYuv[2][3] = {
+    // limited: I601, H709, 2020
+    {{128, 25, 52, 102, 18997, -1160},
+     {128, 14, 34, 115, 18997, -1160},
+     {128, 12, 42, 107, 19003, -1160}},
+    // full: JPEG, F709, V2020
+    {{113, 22, 46, 90, 16320, 32},
+     {119, 12, 30, 101, 16320, 32},
+     {120, 11, 37, 94, 16320, 32}}};
+
+inline uint8_t clamp255(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+void yuv_pixel(int y, int u, int v, const YuvConstants& c, uint8_t* rgb) {
+  int y1 = (int)(((uint32_t)(y * 0x0101) * (uint32_t)c.yg) >> 16);
+  int bb = c.ub * 128 - c.yb, bg = c.ug * 128 + c.vg * 128 + c.yb,
+      br = c.vr * 128 - c.yb;
+  rgb[2] = clamp255((y1 + u * c.ub - bb) >> 6);
+  rgb[1] = clamp255((y1 + bg - (u * c.ug + v * c.vg)) >> 6);
+  rgb[0] = clamp255((y1 + v * c.vr - br) >> 6);
+}
+
+// One chroma row upsampled 2x horizontally to w samples (w <= 2 cw).
+void up_row(const uint8_t* s, int cw, int w, int* out) {
+  if (cw == 1) {
+    for (int x = 0; x < w; x++) out[x] = s[0];
+    return;
+  }
+  out[0] = s[0];
+  for (int k = 0; k + 1 < cw; k++) {
+    if (2 * k + 1 < w) out[2 * k + 1] = (s[k] * 3 + s[k + 1] + 2) >> 2;
+    if (2 * k + 2 < w) out[2 * k + 2] = (s[k] + s[k + 1] * 3 + 2) >> 2;
+  }
+  out[w - 1] = s[(w - 1) / 2];
+}
+
+// Two chroma rows s (near) and t (far) upsampled 2x2 into one output row.
+void up_row2(const uint8_t* s, const uint8_t* t, int cw, int w, int* out) {
+  if (cw == 1) {
+    for (int x = 0; x < w; x++) out[x] = (s[0] * 3 + t[0] + 2) >> 2;
+    return;
+  }
+  out[0] = (s[0] * 3 + t[0] + 2) >> 2;
+  for (int k = 0; k + 1 < cw; k++) {
+    int a = s[k], b = s[k + 1], c = t[k], d = t[k + 1];
+    if (2 * k + 1 < w) out[2 * k + 1] = (a * 9 + b * 3 + c * 3 + d + 8) >> 4;
+    if (2 * k + 2 < w) out[2 * k + 2] = (a * 3 + b * 9 + c + d * 3 + 8) >> 4;
+  }
+  out[w - 1] = (s[(w - 1) / 2] * 3 + t[(w - 1) / 2] + 2) >> 2;
+}
+
+// The chroma of output row yy of plane p (cw x ch) at w samples.
+void chroma_row(const uint8_t* p, int cw, int ch, int ssx, int ssy, int yy,
+                int w, int* out) {
+  if (!ssy) {
+    const uint8_t* s = p + (size_t)yy * cw;
+    if (ssx) up_row(s, cw, w, out);
+    else for (int x = 0; x < w; x++) out[x] = s[x];
+    return;
+  }
+  if (yy == 0 || yy >= 2 * ch - 1 || ch == 1) {
+    up_row(p + (size_t)(yy == 0 ? 0 : ch - 1) * cw, cw, w, out);
+    return;
+  }
+  int k = (yy - 1) / 2;  // rows k, k + 1
+  const uint8_t* a = p + (size_t)k * cw;
+  const uint8_t* b = p + (size_t)(k + 1) * cw;
+  if (yy % 2 == 1) up_row2(a, b, cw, w, out);
+  else up_row2(b, a, cw, w, out);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Parse and decode one AV1 temporal unit (an AVIF item's data).
+// info (int64[16]) out: width, height, mono, ssx, ssy, full_range, cp, tc,
+// mc, bit_depth, chroma_sample_position, coded_lossless, tiles, 128x128
+// superblocks, header flags (using_qmatrix 1, segmentation 2, delta q 4,
+// screen content tools 8, delta lf 16, reduced tx set 32, tx mode select
+// 64, disable_cdf_update 128) and the tools the blocks used (kTool*
+// bits; 0 when only the headers are read). With planes == null only the
+// headers are read (through the first frame header; film grain included)
+// and the frame is not decoded. planes: Y then U then V, each
+// (height >> ss) x (width >> ss) rounded up, tightly packed. msg: the
+// reason of a failure (cap bytes). Returns 0, kCorrupt (-1),
+// kUnsupported (-2) or kSmall (-3: planes too small).
+int64_t tb_av1_decode(const uint8_t* data, int64_t n, uint8_t* planes,
+                      int64_t planes_cap, int64_t* info, char* msg,
+                      int64_t cap) {
+  Decoder* dec = new Decoder();
+  dec->header_only = planes == nullptr;
+  int64_t rc = kOk;
+  try {
+    dec->decode(data, (size_t)n);
+    const SeqHeader& s = dec->seq;
+    int64_t flags = dec->using_qm | dec->seg_enabled << 1 |
+                    dec->delta_q_present << 2 | dec->allow_sct << 3 |
+                    dec->delta_lf_present << 4 | dec->reduced_tx_set << 5 |
+                    dec->tx_mode_select << 6 | dec->disable_cdf_update << 7;
+    int64_t v[16] = {dec->frame_w, dec->frame_h, s.mono, s.ssx, s.ssy,
+                     s.full_range, s.cp, s.tc, s.mc, s.bit_depth, s.csp,
+                     dec->coded_lossless, dec->tile_cols * dec->tile_rows,
+                     s.sb128, flags, dec->tools};
+    for (int i = 0; i < 16; i++) info[i] = v[i];
+    if (planes) {
+      int w = dec->frame_w, h = dec->frame_h;
+      int cw = (w + s.ssx) >> s.ssx, ch = (h + s.ssy) >> s.ssy;
+      int64_t need = (int64_t)w * h + (s.mono ? 0 : 2 * (int64_t)cw * ch);
+      if (need > planes_cap) {
+        rc = kSmall;
+      } else {
+        uint8_t* o = planes;
+        for (int p = 0; p < (s.mono ? 1 : 3); p++) {
+          int pw = p ? cw : w, ph = p ? ch : h;
+          for (int y = 0; y < ph; y++) {
+            memcpy(o, dec->planes[p].at(y, 0), pw);
+            o += pw;
+          }
+        }
+      }
+    }
+  } catch (const Error& e) {
+    rc = e.code;
+    if (msg && cap > 0) {
+      strncpy(msg, e.what, (size_t)cap - 1);
+      msg[cap - 1] = 0;
+    }
+  } catch (const std::exception& e) {
+    rc = kCorrupt;
+    if (msg && cap > 0) {
+      strncpy(msg, e.what(), (size_t)cap - 1);
+      msg[cap - 1] = 0;
+    }
+  }
+  delete dec;
+  return rc;
+}
+
+// Y, U, V (U and V null for 4:0:0) of a w x h image to RGB, or RGBA with
+// alpha (an h x w plane) not null. kind: 0 BT.601, 1 BT.709, 2 BT.2020,
+// 3 identity. Returns 0, or -1 for a kind or layout it does not take.
+int64_t tb_avif_to_rgb(const uint8_t* y, const uint8_t* u, const uint8_t* v,
+                       int64_t w, int64_t h, int64_t ssx, int64_t ssy,
+                       int64_t kind, int64_t full, const uint8_t* alpha,
+                       int64_t premultiplied, uint8_t* out) {
+  if (kind < 0 || kind > 3 || (kind == 3 && (ssx || ssy || !u)))
+    return -1;
+  int ch_n = alpha ? 4 : 3;
+  int cw = (int)((w + ssx) >> ssx), chh = (int)((h + ssy) >> ssy);
+  std::vector<int> ur(w), vr(w);
+  const YuvConstants& c = kYuv[full ? 1 : 0][kind == 3 ? 0 : kind];
+  for (int64_t yy = 0; yy < h; yy++) {
+    const uint8_t* yrow = y + yy * w;
+    uint8_t* o = out + yy * w * ch_n;
+    if (u && kind != 3) {
+      chroma_row(u, cw, chh, (int)ssx, (int)ssy, (int)yy, (int)w, ur.data());
+      chroma_row(v, cw, chh, (int)ssx, (int)ssy, (int)yy, (int)w, vr.data());
+    }
+    for (int64_t x = 0; x < w; x++) {
+      uint8_t* px = o + x * ch_n;
+      if (kind == 3) {
+        int g = yrow[x], b = u[yy * w + x], r = v[yy * w + x];
+        if (!full) {
+          auto lf = [](int q) {
+            int n = (q - 16) * 255, d = 219;
+            int r2 = n >= 0 ? (n + d / 2) / d : -((-n + d / 2) / d);
+            return clamp255(r2);
+          };
+          r = lf(r); g = lf(g); b = lf(b);
+        }
+        px[0] = (uint8_t)r; px[1] = (uint8_t)g; px[2] = (uint8_t)b;
+      } else if (u) {
+        yuv_pixel(yrow[x], ur[x], vr[x], c, px);
+      } else {
+        yuv_pixel(yrow[x], 128, 128, c, px);
+      }
+      if (alpha) {
+        int a = alpha[yy * w + x];
+        px[3] = (uint8_t)a;
+        if (premultiplied) {
+          uint32_t ia = a == 0 ? 0 : a == 1 ? 0xffff : a == 255 ? 0x100
+                                                     : 65536 / a;
+          for (int k = 0; k < 3; k++) {
+            uint32_t f = px[k];
+            uint32_t r2 = ((f | (f << 8)) * ia) >> 16;
+            // packuswb reads the 16-bit product as signed: past 32767
+            // (c >= 128 at a = 1) it saturates to 0.
+            px[k] = (uint8_t)(r2 > 32767 ? 0 : r2 > 255 ? 255 : r2);
+          }
+        }
+      }
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"
