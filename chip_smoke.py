@@ -234,17 +234,20 @@ Phases, each fatal on failure:
  27. the port's AVIF reader (avif_phase): every fixture of
      tests/data/avif (Pillow's AVIF of every save option with aom's
      in-loop filters off, aom's tool switches, the box rewrites, the
-     scene's textures) decoded to the sha256 of PIL's array in its
-     manifest; the 1024x1024 albedo's host decode as a 4:2:0 AVIF and as
-     a 4:4:4 AVIF coded lossless (the Walsh-Hadamard path); the CLI on
-     textured_lit.pbrt with the 4:2:0 AVIF albedo and the RGBA AVIF leaf
-     whose alpha item makes the cutouts, as in 22;
+     scene's textures; Pillow's default saves and each in-loop filter on:
+     deblocking, CDEF, Wiener, self-guided and switchable restoration)
+     decoded to the sha256 of PIL's array in its manifest; the 1024x1024
+     albedo's host decode as a 4:2:0 AVIF, as a 4:4:4 AVIF coded
+     lossless (the Walsh-Hadamard path) and as Pillow's default save (the
+     deblocking filter on); the CLI on textured_lit.pbrt with the
+     default-save albedo and the default-save RGBA leaf whose deblocked
+     alpha item makes the cutouts, as in 22;
  28. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
      2 also by the volume run's, the adaptive residual wave's, the
      animation phase's, the ML dataset's, the sharded runs' and the JPEG,
-     DDS, TIFF, WebP, JPEG 2000 and AVIF scenes' launches), then the
+     DDS, TIFF, WebP, JPEG 2000 and filtered-AVIF scenes' launches), then the
      result line {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX or the JAX package (the UNet weights and the JPEG
@@ -4318,27 +4321,30 @@ def avif_runs(torch, tmp):
     AV1 library. (a) Every committed fixture of tests/data/avif decoded
     by image_io.decode_ldr, its shape, dtype and sha256 equal to
     manifest.json's (written by tests/make_avif_fixtures.py). (b)
-    utils/demo_scene's 1024x1024 albedo decoded as the 4:2:0 AVIF fixture
-    and as the 4:4:4 one coded lossless (the Walsh-Hadamard path); each
+    utils/demo_scene's 1024x1024 albedo decoded as the 4:2:0 AVIF fixture,
+    as the 4:4:4 one coded lossless (the Walsh-Hadamard path) and as
+    Pillow's default save (the in-loop filters on: deblocked); each
     decode 5 runs, host seconds, with the host's CPU and the card line.
-    (c) The CLI on textured_lit.pbrt with its albedo the 4:2:0 AVIF and
-    its leaf the RGBA AVIF whose alpha item makes the cutouts, so the
-    alpha re-fires of kernel 1 run on the AVIF reader's texels
-    (textured_swap_cli). Returns (results, launches of (c))."""
+    (c) The CLI on textured_lit.pbrt with its albedo and its RGBA leaf
+    Pillow's default saves, whose deblocked alpha item makes the cutouts,
+    so the alpha re-fires of kernel 1 run on texels the in-loop filters
+    produced (textured_swap_cli). Returns (results, launches of (c))."""
     from tracerboy_tpu_torch.core.image_io import decode_ldr
 
     set_opt_in()
     results = {"fixtures": fixture_hashes("avif", AVIF_DIR, decode_ldr)}
     card = card_line()
     for key, path in (("420", AVIF_DIR / "albedo.avif"),
-                      ("lossless", AVIF_DIR / "albedo_lossless.avif")):
+                      ("lossless", AVIF_DIR / "albedo_lossless.avif"),
+                      ("default", AVIF_DIR / "albedo_default.avif")):
         results[f"decode_1024_{key}"] = dict(host_decode(decode_ldr, path),
                                              card=card)
         print(f"avif decode 1024x1024 {key} (host):",
               json.dumps(results[f"decode_1024_{key}"]))
     cli_res, launches = textured_swap_cli(
-        torch, tmp, "avif", {"albedo.png": str(AVIF_DIR / "albedo.avif"),
-                             "leaf.png": str(AVIF_DIR / "leaf.avif")})
+        torch, tmp, "avif",
+        {"albedo.png": str(AVIF_DIR / "albedo_default.avif"),
+         "leaf.png": str(AVIF_DIR / "leaf_default.avif")})
     results.update(cli_res)
     return results, launches
 
@@ -4711,7 +4717,7 @@ def main() -> int:
              **{f"j2k_decode_1024_{key}": j2k_res[f"decode_1024_{key}"]
                 for key in ("lossless", "97")},
              **{f"avif_decode_1024_{key}": avif_res[f"decode_1024_{key}"]
-                for key in ("420", "lossless")},
+                for key in ("420", "lossless", "default")},
              volume_run=vol_res["run"],
              volume_control=vol_res["control"],
              estimators={k: {kk: vv for kk, vv in v.items()

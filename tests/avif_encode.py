@@ -35,7 +35,8 @@ def pil_avif(img, advanced=None, **kw) -> bytes:
 
 
 def pil_default(img, **kw) -> bytes:
-    """Pillow's AVIF with aom's defaults (the in-loop filters on)."""
+    """Pillow's AVIF with aom's defaults (the in-loop filters on); an
+    `advanced` keyword adds aom options."""
     from PIL import Image
 
     if isinstance(img, np.ndarray):

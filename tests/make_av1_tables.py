@@ -35,6 +35,13 @@ the first two columns of wide ones); the generator builds them and checks
 each against libgav1, which keeps the specification's layout, and the
 wheel.
 
+The in-loop filters' tables (FILTER_TABLES: the self-guided parameter
+sets, the CDEF directions and chroma directions, the Wiener and
+self-guided coefficient ranges) are small arrays each read from the one
+library that keeps it in a layout of its own, turned into the
+specification's and looked for in the layouts of the others; the
+restoration CDFs are walked like the others.
+
     PYTHONPATH=. python tests/make_av1_tables.py          # rewrite the .inc
     PYTHONPATH=. python tests/make_av1_tables.py --check  # compare
 
@@ -106,6 +113,10 @@ CDF_TABLES = [
     ("Default_Coeff_Base_Eob_Cdf", (4, 5, 2, 4), 3, (17837, 29055)),
     ("Default_Coeff_Base_Cdf", (4, 5, 2, 42), 4, (4034, 8930, 12727)),
     ("Default_Coeff_Br_Cdf", (4, 5, 2, 21), 4, (14298, 20718, 24174)),
+    # The loop restoration unit types (read_lr_unit).
+    ("Default_Restoration_Type_Cdf", (1,), 3, (9413, 22581)),
+    ("Default_Use_Wiener_Cdf", (1,), 2, (11570,)),
+    ("Default_Use_Sgrproj_Cdf", (1,), 2, (16855,)),
 ]
 TAKE_FIRST = ("Default_Eob_Pt_512_Cdf", "Default_Eob_Pt_1024_Cdf")
 # Walks that must also meet a later row: the set-2 tx types are uniform
@@ -344,6 +355,140 @@ def check_rules(libs):
     return missing
 
 
+# The in-loop filters' small tables, each read from one library in that
+# library's layout and turned into the specification's, then looked for
+# in the layouts of the others. Sgr_Params is aom's av1_sgr_params
+# ({r0, r1}, {s0, s1} a set; the specification's rows are {r0, s0, r1,
+# s1}); dav1d and libgav1 keep only the s pairs, 0 where r is 0.
+# Cdef_Uv_Dir is aom's conv440 and conv422 with the identity rows of
+# 4:2:0 and 4:4:4; dav1d keeps the identity and the 4:2:2 row; libgav1
+# the whole [subX][subY][dir] table. Cdef_Directions is dav1d's
+# dav1d_cdef_directions (offsets in a block 12 wide, directions 6, 7,
+# 0-7, 0, 1), decoded into {dy, dx}; aom keeps the offsets in a block
+# 144 wide, libgav1 the specification's table. The Wiener tap limits are
+# libgav1's (max then min), the Wiener tap midpoints aom's default
+# filter (3, -7, 15, then 106 = 128 - 2 (3 - 7 + 15)), the self-guided
+# projection limits aom 3.6's (min then max) and midpoints its reference
+# SgrprojInfo. Wiener_Taps_K is a run too short to find: written from the
+# specification.
+
+
+def aligned(data, arr, lo=0):
+    """The offsets of arr's bytes in data at the alignment of its type."""
+    b, size = arr.tobytes(), arr.dtype.itemsize
+    out, i = [], data.find(b, lo)
+    while i >= 0:
+        if i % size == 0:
+            out.append(i)
+        i = data.find(b, i + 1)
+    return out
+
+
+def sgr_from_aom(t):
+    t = t.reshape(16, 2, 2)
+    return np.stack([t[:, 0, 0], t[:, 1, 0], t[:, 0, 1], t[:, 1, 1]], 1)
+
+
+def sgr_s_only(s):
+    return np.where(s[:, [0, 2]] == 0, 0, s[:, [1, 3]])
+
+
+def uvdir_from_aom(t):
+    ident = np.arange(8)
+    return np.array([[ident, t[:8]], [t[8:], ident]])
+
+
+def dirs_from_dav1d(t):
+    o = t.reshape(12, 2)[2:10]
+    dy = np.round(o / 12).astype(np.int64)
+    return np.stack([dy, o - 12 * dy], -1)
+
+
+def dirs_as_offsets(s, stride, pad):
+    o = s[..., 0] * stride + s[..., 1]
+    return np.concatenate([o[8 - pad:], o, o[:pad]]) if pad else o
+
+
+# (C name, C type, source library, its layout's first values, dtype,
+# index of the table in the run, count, to the specification's layout,
+# [(library, dtype, the specification's table in its layout)]).
+FILTER_TABLES = [
+    ("Sgr_Params", "int16_t", "wheel", (2, 1, 140, 3236), "<i4", 0, 64,
+     sgr_from_aom,
+     [("libaom.so.3", "<i4", lambda s: s[:, [0, 2, 1, 3]]),
+      ("wheel", "<u2", sgr_s_only), ("libdav1d.so.6", "<u2", sgr_s_only),
+      ("libgav1.so.1", "<u2", sgr_s_only)]),
+    ("Cdef_Uv_Dir", "uint8_t", "wheel", (1, 2, 2, 2, 3, 4, 6, 0, 7), "<i4",
+     0, 16, uvdir_from_aom,
+     [("libaom.so.3", "<i4", lambda s: np.concatenate([s[0, 1], s[1, 0]])),
+      ("wheel", "u1", lambda s: np.concatenate([s[0, 0], s[1, 0]])),
+      ("libdav1d.so.6", "u1", lambda s: np.concatenate([s[0, 0], s[1, 0]])),
+      ("libgav1.so.1", "u1", lambda s: s)]),
+    ("Cdef_Directions", "int8_t", "wheel", (12, 24, 12, 23, -11, -22), "i1",
+     0, 24, dirs_from_dav1d,
+     [("libdav1d.so.6", "i1", lambda s: dirs_as_offsets(s, 12, 2)),
+      ("wheel", "<i4", lambda s: dirs_as_offsets(s, 144, 0)),
+      ("libaom.so.3", "<i4", lambda s: dirs_as_offsets(s, 144, 0)),
+      ("libgav1.so.1", "i1", lambda s: s)]),
+    ("Wiener_Taps_Min", "int8_t", "libgav1.so.1", (10, 8, 46, -5), "i1", 3,
+     3, None, []),
+    ("Wiener_Taps_Max", "int8_t", "libgav1.so.1", (10, 8, 46, -5), "i1", 0,
+     3, None, []),
+    ("Wiener_Taps_Mid", "int8_t", "wheel", (3, -7, 15, 106), "<i4", 0, 3,
+     None, [("libaom.so.3", "<i4",
+             lambda s: np.append(s, 128 - 2 * s.sum()))]),
+    ("Sgrproj_Xqd_Min", "int8_t", "libaom.so.3", (-96, -32, 31, 95), "<i4",
+     0, 2, None, []),
+    ("Sgrproj_Xqd_Max", "int8_t", "libaom.so.3", (-96, -32, 31, 95), "<i4",
+     2, 2, None, []),
+    ("Sgrproj_Xqd_Mid", "int8_t", "libaom.so.3", (-32, 31), "<i4", 0, 2,
+     None, [("libgav1.so.1", "<i4", lambda s: s)]),
+]
+SPEC_ONLY = {"Wiener_Taps_K": ("int8_t", np.array([1, 2, 3]))}
+
+
+def read_filter_tables(libs):
+    """{name: (where, offset, values)} of FILTER_TABLES."""
+    got = {}
+    for name, ctype, lib, first, dtype, start, count, conv, _ in \
+            FILTER_TABLES:
+        if lib not in libs:
+            raise SystemExit(f"{name}: {lib} is absent")
+        size = np.dtype(dtype).itemsize
+        for off in aligned(libs[lib], np.array(first, dtype)):
+            t = np.frombuffer(libs[lib][off:off + (start + count) * size],
+                              dtype).astype(np.int64)[start:]
+            if len(t) == count:
+                got[name] = (lib, off + start * size,
+                             conv(t) if conv else t)
+                break
+        else:
+            raise SystemExit(f"{name}: not found in {lib}")
+    return got
+
+
+def check_filter_tables(libs, got):
+    """Each table in the other layouts: prints where it is found; returns
+    the names of those whose first values are found with other values
+    after them."""
+    bad = []
+    for name, ctype, lib, first, dtype, start, count, conv, views in \
+            FILTER_TABLES:
+        for where, vtype, fn in views:
+            if where not in libs:
+                continue
+            want = np.asarray(fn(got[name][2])).astype(vtype)
+            head = aligned(libs[where], want.reshape(-1)[:4])
+            full = aligned(libs[where], want)
+            state = ("equal" if full else "differs" if head
+                     else "laid out otherwise")
+            print(f"  {name} in {where} ({np.dtype(vtype).name}): {state}"
+                  + (f" at {hex(full[0])}" if full else ""))
+            if head and not full:
+                bad.append(f"{name} in {where}")
+    return bad
+
+
 def cross_check(got, data, lo=0, hi=None, wheel=None):
     """(compared, disagreeing, unrecognised) table names of one library
     (or one copy in the wheel, data[lo:hi]) against the tables read: a
@@ -385,7 +530,7 @@ def cdf_array(cdfs, shape, n):
     return np.array([list(c) + [0] for c in cdfs]).reshape(*shape, n + 1)
 
 
-def render(got):
+def render(got, got_filters):
     head = [
         "// Generated by tests/make_av1_tables.py; do not edit. CDFs are the",
         "// specification's (not inverted), each followed by 32768 and a",
@@ -415,6 +560,14 @@ def render(got):
                                 t.reshape(5, 8, 8)[:, :, :7]))
             continue
         body.append(c_array(name, ctype, t, 32 if count > 1000 else 16))
+    for name, (lib, off, t) in got_filters.items():
+        ctype = next(f[1] for f in FILTER_TABLES if f[0] == name)
+        head.append(f"//   {name}: {lib} {hex(off)}")
+        body.append(c_array(name, ctype, np.asarray(t)))
+    for name, (ctype, t) in SPEC_ONLY.items():
+        head.append(f"//   {name}: from the specification (in no library "
+                    "as an array)")
+        body.append(c_array(name, ctype, t))
     scans, offs = rule_tables()
     head.append("// Default scans and Coeff_Base_Ctx_Offset: built by rule "
                 "and found in libgav1.so.1.")
@@ -439,7 +592,8 @@ def main(argv=None):
         else:
             print(f"{lib}: absent, not checked")
     got = read_tables(libs)
-    text = render(got)
+    got_filters = read_filter_tables(libs)
+    text = render(got, got_filters)
     failed = False
     places = [(f"wheel@{hex(h)}", libs["wheel"], lo, hi)
               for h, lo, hi in wheel_copies(libs["wheel"])]
@@ -454,6 +608,11 @@ def main(argv=None):
         if unknown:
             print("    not compared:", ", ".join(unknown))
         failed |= bool(bad)
+    print("in-loop filter tables:")
+    bad = check_filter_tables(libs, got_filters)
+    for b in bad:
+        print("    differs:", b)
+    failed |= bool(bad)
     print("rule-built tables:")
     failed |= bool(check_rules(libs))
     if args.check:

@@ -4,8 +4,8 @@
 
 Writes into tests/data/avif/ (or OUT_DIR) a small file of each layout the
 port's reader (core/avif.py, csrc/av1_decode.cpp) takes, every AV1 frame
-aom's through Pillow with the in-loop filters off
-(tests/avif_encode.FILTERS_OFF):
+aom's through Pillow. The files of AVIF part 1 have the in-loop filters
+off (tests/avif_encode.FILTERS_OFF):
 - Pillow's save options: speeds 0-10; qualities 0-100 and lossless;
   4:2:0, 4:2:2, 4:4:4 and 4:0:0 at full and limited range; sizes 1x1,
   1x37, 37x1, odd sizes and sizes past one 128x128 superblock; tiles
@@ -29,6 +29,22 @@ aom's through Pillow with the in-loop filters off
   4:2:0 AVIF and as a 4:4:4 AVIF coded lossless (the Walsh-Hadamard
   path), and its 512x512 leaf as an RGBA AVIF whose alpha makes the
   cutouts.
+Those of part 2 (named filt_*, and the scene's albedo_default and
+leaf_default) have them on:
+- Pillow's default save (aom's defaults) at a few qualities, and the
+  scene's albedo (quality 80, speed 8: at slower speeds aom codes the
+  flat procedural albedo with intra block copy, which turns the filters
+  off and which the port leaves out) and RGBA leaf, whose 4:0:0 alpha
+  item is filtered too;
+- each filter alone (deblocking, CDEF, loop restoration) at three
+  qualities; loop filter sharpness 0 and 7; delta LF (aom writes one
+  value a block: its delta_lf_multi is always 0);
+- every filter on at 4:2:0, 4:2:2, 4:4:4 and 4:0:0, at odd sizes, with
+  64x64 and 128x128 superblocks, with 2x2 and 4x4 tiles, with alpha;
+- half-noisy, half-flat frames at slow speeds, where aom picks
+  switchable restoration and self-guided sets with r0 = 0 and r1 = 0;
+- a default save at quality 100, coded lossless, where the
+  specification keeps every filter off.
 manifest.json holds, for each file, the shape, dtype and sha256 of
 np.asarray of what the JAX read_ldr decodes through PIL, and the
 versions of Pillow, libavif, dav1d and aom. The machine with the card
@@ -54,6 +70,17 @@ from make_dds_fixtures import array_digest, pil_pixels  # noqa: E402
 FIXTURE_DIR = os.path.join(HERE, "data", "avif")
 ALBEDO, ALBEDO_LOSSLESS, LEAF = ("albedo.avif", "albedo_lossless.avif",
                                  "leaf.avif")
+# The scene's textures as Pillow's default saves, the in-loop filters on.
+ALBEDO_DEFAULT, LEAF_DEFAULT = "albedo_default.avif", "leaf_default.avif"
+# Every filter on (aom turns CDEF and restoration off at some speeds).
+ALL_ON = {"enable-cdef": "1", "enable-restoration": "1",
+          "loopfilter-control": "1", "enable-intrabc": "0"}
+
+
+def filtered(name: str) -> bool:
+    """A fixture of part 2: its frame written with the filters on."""
+    return name.startswith("filt_") or name in (ALBEDO_DEFAULT,
+                                                LEAF_DEFAULT)
 TOOLS_OFF = ("enable-filter-intra", "enable-cfl-intra", "enable-smooth-intra",
              "enable-paeth-intra", "enable-angle-delta",
              "enable-directional-intra", "enable-diagonal-intra",
@@ -187,6 +214,66 @@ def pil_files(rng) -> dict:
     return out
 
 
+def mixed(rng, h: int, w: int) -> np.ndarray:
+    """A smooth field, its right half under heavy noise, its lower left
+    quarter screen content: restoration units that want different
+    filters."""
+    img = sample(rng, h, w)
+    noisy = np.clip(sample(rng, h, w).astype(int)
+                    + rng.normal(0, 30, (h, w, 3)), 0, 255)
+    img[:, w // 2:] = noisy[:, w // 2:].astype(np.uint8)
+    img[h // 2:, :w // 2] = screen(rng, h - h // 2, w // 2)
+    return img
+
+
+def filter_files(rng) -> dict:
+    """Pillow's files with the in-loop filters on (part 2)."""
+    out = {}
+    default, save = ae.pil_default, ae.pil_avif
+    mid = sample(rng, 72, 96)
+    for q in (10, 40, 75):
+        out[f"filt_default_q{q}.avif"] = default(mid, quality=q)
+    for tag, opt, speed in (("deblocking", "loopfilter-control", 6),
+                            ("cdef", "enable-cdef", 6),
+                            ("restoration", "enable-restoration", 4)):
+        for q in (15, 40, 70):
+            out[f"filt_{tag}_only_q{q}.avif"] = save(
+                mid, quality=q, speed=speed, advanced={opt: "1"})
+    for sharp in (0, 7):
+        out[f"filt_sharpness_{sharp}.avif"] = default(
+            mid, quality=30, advanced={"sharpness": str(sharp)})
+    big = sample(rng, 200, 260)
+    out["filt_delta_lf.avif"] = default(big, quality=35, speed=4, advanced={
+        "deltaq-mode": "2", "delta-lf-mode": "1"})
+    for sub in ("4:2:0", "4:2:2", "4:4:4", "4:0:0"):
+        out[f"filt_sub_{sub.replace(':', '')}.avif"] = default(
+            sample(rng, 60, 90), quality=35, speed=4, subsampling=sub,
+            advanced=ALL_ON)
+    for h, w in ((1, 1), (2, 3), (65, 33), (130, 141), (9, 200)):
+        out[f"filt_size_{w}x{h}.avif"] = default(
+            sample(rng, h, w), quality=35, speed=4, advanced=ALL_ON)
+    for sb in ("64", "128"):
+        out[f"filt_sb_{sb}.avif"] = default(big, quality=35, speed=4,
+                                            advanced={**ALL_ON,
+                                                      "sb-size": sb})
+    out["filt_tiles_2x2.avif"] = default(big, quality=35, speed=4,
+                                         tile_rows=1, tile_cols=1,
+                                         advanced=ALL_ON)
+    out["filt_tiles_4x4.avif"] = default(big, quality=35, speed=4,
+                                         tile_rows=2, tile_cols=2,
+                                         advanced=ALL_ON)
+    out["filt_rgba.avif"] = default(sample(rng, 50, 70, 4), quality=35,
+                                    speed=4, advanced=ALL_ON)
+    # Their own seeds: aom's choice of unit types is fragile.
+    for name, seed in (("switchable", 1), ("sgrproj", 2)):
+        out[f"filt_{name}.avif"] = default(
+            mixed(np.random.default_rng(seed), 384, 384), quality=50,
+            speed=1, advanced={"enable-restoration": "1",
+                               "enable-intrabc": "0"})
+    out["filt_lossless.avif"] = default(mid, quality=100)
+    return out
+
+
 def box_files(rng) -> dict:
     """tests/avif_encode.py's rewrites of Pillow's files."""
     out = {}
@@ -227,7 +314,9 @@ def scene_textures() -> dict:
     return {ALBEDO: ae.pil_avif(albedo, quality=80, speed=6),
             ALBEDO_LOSSLESS: ae.pil_avif(albedo, quality=100, speed=6,
                                          subsampling="4:4:4"),
-            LEAF: ae.pil_avif(leaf, quality=90, speed=6)}
+            LEAF: ae.pil_avif(leaf, quality=90, speed=6),
+            ALBEDO_DEFAULT: ae.pil_default(albedo, quality=80, speed=8),
+            LEAF_DEFAULT: ae.pil_default(leaf)}
 
 
 def versions() -> dict:
@@ -244,7 +333,8 @@ def versions() -> dict:
 def main(out_dir: str = FIXTURE_DIR) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(20261021)
-    files = {**pil_files(rng), **box_files(rng), **scene_textures()}
+    files = {**pil_files(rng), **box_files(rng), **scene_textures(),
+             **filter_files(np.random.default_rng(20261022))}
     manifest = {**versions(), "files": {}}
     for name, data in files.items():
         path = os.path.join(out_dir, name)

@@ -5,21 +5,27 @@ equal bit for bit (np.array_equal of read_ldr's float32, with and
 without gamma_to_linear).
 
 The committed fixtures (tests/data/avif, written by
-tests/make_avif_fixtures.py) are held against PIL and their manifest,
-and each is checked to have its in-loop filters off (the headers alone
-decide it) and, together, to use every block tool of the decoder.
+tests/make_avif_fixtures.py) are held against PIL and their manifest.
+Those of part 1 are checked to have their in-loop filters off and,
+together, to use every block tool of the decoder; those of part 2
+(filt_*, albedo_default, leaf_default), written with the filters on, to
+use, together, every filter the decoder follows: deblocking (its 13-tap
+luma filter and chroma edges, sharpness 0 and 7, delta LF), CDEF (luma
+and chroma), and Wiener, self-guided (sets with r0 = 0 and with r1 = 0)
+and switchable restoration units, reported by the decoder itself.
 Hypothesis sweeps random images and animations through Pillow's encoder
 (subsampling, range, speed, quality, alpha, tool switches, all with the
-filters off),
-truncated files and replaced bytes. Where PIL refuses a file the port
-raises: ValueError where PIL raises OSError, ValueError, SyntaxError,
-RuntimeError or AssertionError, NotImplementedError where PIL cannot
-identify it. Files that need what this part of the port leaves out (an
-in-loop filter, intra block copy) raise NotImplementedError naming
-ROADMAP item 22b, AVIF part 2. The AV1 tables in csrc/av1_tables.inc
-equal those of the libraries present (tests/make_av1_tables.py
---check). A PBRT scene whose albedo is an AVIF and whose leaf an RGBA
-AVIF compiles in both packages to the same leaves, bit for bit.
+filters off), Pillow's default saves (the filters on), truncated files
+and replaced bytes. Where PIL refuses a file the port raises: ValueError
+where PIL raises OSError, ValueError, SyntaxError, RuntimeError or
+AssertionError, NotImplementedError where PIL cannot identify it. Files
+that need what the port still leaves out (film grain, intra block copy,
+the matrices libavif converts in floating point) raise
+NotImplementedError naming ROADMAP item 22b, AVIF part 2. The AV1 tables
+in csrc/av1_tables.inc equal those of the libraries present
+(tests/make_av1_tables.py --check). A PBRT scene whose albedo is an AVIF
+and whose leaf an RGBA AVIF compiles in both packages to the same
+leaves, bit for bit.
 """
 
 import json
@@ -36,10 +42,13 @@ from PIL import Image, UnidentifiedImageError
 import avif_encode as ae
 from make_avif_fixtures import (
     ALBEDO,
+    ALBEDO_DEFAULT,
     ALBEDO_LOSSLESS,
     FIXTURE_DIR,
     LEAF,
+    LEAF_DEFAULT,
     TOOLS_OFF,
+    filtered,
     sample,
     screen,
 )
@@ -131,17 +140,23 @@ def test_manifest_matches_the_files():
 
 
 def test_fixtures_have_the_filters_off_and_cover_the_decoder():
-    """The headers alone (up to the first frame header) find every
-    fixture's in-loop filters off; together the fixtures use every block
-    tool of csrc/av1_decode.cpp but segmentation (aom writes none on a key
-    frame), every header flag, all four subsamplings, tiles, both
-    superblock sizes and a frame coded lossless."""
+    """The fixtures of part 1: the headers alone (up to the first frame
+    header) find every one's in-loop filters off (no deblocking level,
+    CDEF strength or restoration type), and its decode uses none;
+    together they use every block tool of csrc/av1_decode.cpp but
+    segmentation (aom writes none on a key frame), every header flag, all
+    four subsamplings, tiles, both superblock sizes and a frame coded
+    lossless."""
     tools, flags, layouts = set(), set(), set()
     lossless = tiles = sb128 = 0
-    for name in FIXTURES:
+    part1 = [name for name in FIXTURES if not filtered(name)]
+    for name in part1:
         data = open(os.path.join(FIXTURE_DIR, name), "rb").read()
-        avif.frame_info(data, name, headers_only=True)
+        head = avif.frame_info(data, name, headers_only=True)
+        assert head["lf_sharpness"] == head["cdef_bits"] == 0, name
+        assert set(head["lr_types"]) == {"none"}, name
         info = avif.frame_info(data, name)
+        assert info["filters"] == set(), name
         tools |= info["tools"]
         flags |= info["flags"]
         layouts.add((info["mono"], *info["subsampling"]))
@@ -152,7 +167,64 @@ def test_fixtures_have_the_filters_off_and_cover_the_decoder():
     assert flags >= set(avif.HEADER_FLAGS) - {"segmentation", "delta_lf"}
     assert layouts == {(False, 1, 1), (False, 1, 0), (False, 0, 0),
                        (True, 1, 1)}
-    assert lossless >= 2 and tiles >= 3 and 0 < sb128 < len(FIXTURES)
+    assert lossless >= 2 and tiles >= 3 and 0 < sb128 < len(part1)
+
+
+def test_filtered_fixtures_cover_the_filters():
+    """The fixtures of part 2, written with the in-loop filters on: the
+    decoder reports, together, deblocking (the 13-tap luma filter and
+    chroma edges among it, sharpness 0 and 7, a delta LF), CDEF on luma
+    and chroma, and Wiener, self-guided and switchable restoration units
+    with self-guided sets whose r0 and whose r1 are 0 (every filter the
+    decoder reports; aom never writes delta_lf_multi, so the delta LF
+    seen is one a block), at all four subsamplings,
+    with several tiles and both superblock sizes, frame restoration types
+    Wiener, self-guided and switchable, units of 128 and 256 samples;
+    and a default save at quality 100, coded lossless, with none."""
+    filters, layouts, sharp, lr, units = set(), set(), set(), set(), set()
+    tiles = sb = 0
+    names = [name for name in FIXTURES if filtered(name)]
+    assert len(names) >= 30
+    for name in names:
+        info = avif.frame_info(
+            open(os.path.join(FIXTURE_DIR, name), "rb").read(), name)
+        filters |= info["filters"]
+        layouts.add((info["mono"], *info["subsampling"]))
+        if "deblocking" in info["filters"]:
+            sharp.add(info["lf_sharpness"])
+        lr |= set(info["lr_types"])
+        if set(info["lr_types"]) != {"none"}:
+            units.add(info["lr_unit_size"][0])
+        on = {"deblocking", "cdef", "wiener"} <= info["filters"]
+        tiles += on and info["tiles"] > 1
+        sb |= 1 << info["sb128"] if on else 0
+        if name == "filt_lossless.avif":
+            assert info["lossless"] and info["filters"] == set()
+    assert filters == set(avif.FILTERS)
+    assert layouts == {(False, 1, 1), (False, 1, 0), (False, 0, 0),
+                       (True, 1, 1)}
+    assert sharp >= {0, 7} and lr >= {"wiener", "sgrproj", "switchable"}
+    assert units >= {128, 256} and tiles >= 2 and sb == 3
+
+
+def test_default_scene_textures_have_the_filters_on():
+    """The scene's albedo and RGBA leaf as Pillow's default saves
+    (aom's defaults): 1024x1024 and 512x512, deblocked with the 13-tap
+    filter on luma and chroma edges; the leaf's alpha cuts about half the
+    texels, its 4:0:0 alpha item deblocked too."""
+    for name, size in ((ALBEDO_DEFAULT, 1024), (LEAF_DEFAULT, 512)):
+        data = open(os.path.join(FIXTURE_DIR, name), "rb").read()
+        info = avif.frame_info(data)
+        assert info["size"] == (size, size)
+        assert {"deblocking", "deblocking_13_tap",
+                "deblocking_chroma"} <= info["filters"]
+    data = open(os.path.join(FIXTURE_DIR, LEAF_DEFAULT), "rb").read()
+    alpha = avif._parse(data)[1]
+    _, info = avif._decode_av1(avif.av1_library(), alpha, LEAF_DEFAULT)
+    assert info[2] == 1 and info[15] >> len(avif.TOOLS) & 1
+    leaf = image_io.decode_ldr(os.path.join(FIXTURE_DIR, LEAF_DEFAULT))
+    assert leaf.shape == (512, 512, 4)
+    assert 0.3 < (leaf[..., 3] == 0).mean() < 0.7
 
 
 def test_scene_textures_are_what_the_scene_needs():
@@ -197,6 +269,20 @@ def test_pil_encoder_sweep(scratch, seed, w, h, sub, full, speed, quality,
                        alpha_premultiplied=premultiplied, advanced=adv,
                        append_images=more if animated else [])
     assert assert_as_jax(scratch / "s.avif", data) is not None
+
+
+@settings(max_examples=30, deadline=None, derandomize=True)
+@given(seed=st.integers(0, 2**31 - 1), w=st.integers(1, 64),
+       h=st.integers(1, 64), sub=st.sampled_from(SUBSAMPLINGS),
+       speed=st.integers(0, 10), quality=st.integers(0, 100),
+       rgba=st.booleans())
+def test_default_save_sweep(scratch, seed, w, h, sub, speed, quality, rgba):
+    """Pillow's default save (aom's defaults: the in-loop filters on as
+    aom picks them) of random images: read as PIL reads them."""
+    img = sample(np.random.default_rng(seed), h, w, 4 if rgba else 3)
+    data = ae.pil_default(img, quality=quality, speed=speed,
+                          subsampling=sub)
+    assert assert_as_jax(scratch / "d.avif", data) is not None
 
 
 @settings(max_examples=30, deadline=None, derandomize=True)
@@ -246,9 +332,9 @@ def _sources(rng):
 
 
 def _refused_by_design(data: bytes) -> bool:
-    """A replaced byte that made the frame ask for a feature part 1
-    leaves out (an in-loop filter, say), which the port refuses by
-    design where dav1d decodes it."""
+    """A replaced byte that made the frame ask for a feature the port
+    still leaves out (film grain, superres, intra block copy, say),
+    which the port refuses by design where dav1d decodes it."""
     try:
         avif.read_avif(data)
     except NotImplementedError as e:
@@ -259,17 +345,11 @@ def _refused_by_design(data: bytes) -> bool:
 
 
 def _refused():
-    """Files PIL reads whose features the port leaves to part 2."""
+    """Files PIL reads whose features the port still leaves to part 2."""
     img = sample(np.random.default_rng(7), 64, 64)
     scr = screen(np.random.default_rng(5), 128, 160)
     return {
-        "default_save": ae.pil_default(img, quality=50),
-        "deblocking_only": ae.pil_avif(img, quality=30, advanced={
-            "loopfilter-control": "1"}),
-        "cdef_only": ae.pil_avif(img, quality=20, advanced={
-            "enable-cdef": "1"}),
-        "restoration_only": ae.pil_avif(img, quality=20, speed=4, advanced={
-            "enable-restoration": "1"}),
+        "film_grain": ae.pil_default(img, advanced={"film-grain-test": "1"}),
         "intrabc": ae.pil_avif(scr, quality=40, speed=6, advanced={
             "tune-content": "screen", "enable-intrabc": "1",
             "enable-palette": "1"}),
@@ -280,8 +360,7 @@ def _refused():
 
 @pytest.mark.parametrize("case", sorted(_refused()))
 def test_refused_features_name_avif_part_2(tmp_path, case):
-    """Pillow's default save (deblocking and CDEF on), each in-loop
-    filter on alone, intra block copy, and matrix coefficients libavif
+    """Film grain, intra block copy, and matrix coefficients libavif
     converts in its own float path: PIL reads each file, the port raises
     NotImplementedError naming ROADMAP item 22b, AVIF part 2, from the
     headers."""
@@ -291,6 +370,34 @@ def test_refused_features_name_avif_part_2(tmp_path, case):
     assert jax_read_ldr(path).shape[:2] in ((64, 64), (128, 160))
     with pytest.raises(NotImplementedError, match=ITEM):
         image_io.read_ldr(str(path))
+
+
+def _filtered_saves():
+    """Pillow's default save and each in-loop filter on alone (the cases
+    part 1 refused), with the filter each must use."""
+    img = sample(np.random.default_rng(7), 64, 64)
+    return {
+        "default_save": (ae.pil_default(img, quality=50), "deblocking"),
+        "deblocking_only": (ae.pil_avif(img, quality=30, advanced={
+            "loopfilter-control": "1"}), "deblocking"),
+        "cdef_only": (ae.pil_avif(img, quality=20, advanced={
+            "enable-cdef": "1"}), "cdef"),
+        "restoration_only": (ae.pil_avif(img, quality=20, speed=4, advanced={
+            "enable-restoration": "1"}), "wiener"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_filtered_saves()))
+def test_filtered_saves_read_as_the_jax_read_ldr(tmp_path, case):
+    """Pillow's default save (deblocking on) and deblocking, CDEF or loop
+    restoration on alone: the frame uses the filter, and the port reads
+    the file as the JAX read_ldr reads it."""
+    data, used = _filtered_saves()[case]
+    assert used in avif.frame_info(data)["filters"]
+    assert assert_as_jax(tmp_path / "f.avif", data) is not None
+    path = tmp_path / "f.avif"
+    assert np.array_equal(image_io.read_ldr(str(path), gamma_to_linear=True),
+                          jax_read_ldr(path, gamma_to_linear=True))
 
 
 def _containers():
@@ -427,6 +534,26 @@ def test_avif_textured_scene_compiles_as_jax(tmp_path):
                                     leaves=8, albedo=8, normal=8, leaf=8)
     retexture(tex, {"albedo.png": os.path.join(FIXTURE_DIR, ALBEDO),
                     "leaf.png": os.path.join(FIXTURE_DIR, LEAF)})
+    got = compile_scene(parse_pbrt(lit))
+    assert_same(jax_tree(jax_compile(lit)), got.as_numpy())
+
+
+def test_filtered_avif_scene_compiles_as_jax(tmp_path):
+    """The same scene with its albedo and leaf Pillow's default saves
+    (the in-loop filters on; what chip_smoke.py renders on the card):
+    the same leaves in both packages, bit for bit."""
+    from test_torch_instanced import assert_same, jax_compile, jax_tree
+    from tracerboy_tpu_torch.scene.compile import compile_scene
+    from tracerboy_tpu_torch.scene.pbrt_parser import parse_pbrt
+    from tracerboy_tpu_torch.utils.demo_scene import (
+        retexture,
+        write_textured_scene,
+    )
+
+    tex, lit = write_textured_scene(str(tmp_path), grid=8, sky=(16, 8),
+                                    leaves=8, albedo=8, normal=8, leaf=8)
+    retexture(tex, {"albedo.png": os.path.join(FIXTURE_DIR, ALBEDO_DEFAULT),
+                    "leaf.png": os.path.join(FIXTURE_DIR, LEAF_DEFAULT)})
     got = compile_scene(parse_pbrt(lit))
     assert_same(jax_tree(jax_compile(lit)), got.as_numpy())
 

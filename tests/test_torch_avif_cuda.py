@@ -1,9 +1,10 @@
 """The port's AVIF reader on the card's machine, which has no PIL, no
 libavif and no AV1 library: every fixture of tests/data/avif decodes to
 the shape, dtype and sha256 of PIL's array in its manifest
-(tests/make_avif_fixtures.py wrote both), and the textured demo scene
-with the 4:2:0 AVIF albedo and the RGBA AVIF leaf, whose alpha item
-makes the cutouts, renders on the card with every closest-hit launch of
+(tests/make_avif_fixtures.py wrote both; the in-loop filters' fixtures
+among them), and the textured demo scene with its albedo and RGBA leaf
+Pillow's default saves (the in-loop filters on), whose deblocked alpha
+item makes the cutouts, renders on the card with every closest-hit launch of
 kernel 1 (main waves, alpha re-fires, shadow-BVH rounds) held against its
 plain version: hits equal, t to 1e-6 relative, ids equal but on at most
 1e-4 of the hit lanes (ties), no stack overflow.
@@ -62,8 +63,9 @@ def test_avif_scene_launches_equal_their_plain_version(cuda_device, tmp_path,
     tex, lit = write_textured_scene(str(tmp_path), grid=64, sky=(64, 32),
                                     leaves=512, albedo=8, normal=64,
                                     leaf=8)
-    retexture(tex, {"albedo.png": os.path.join(FIXTURES, "albedo.avif"),
-                    "leaf.png": os.path.join(FIXTURES, "leaf.avif")})
+    retexture(tex, {"albedo.png": os.path.join(FIXTURES,
+                                               "albedo_default.avif"),
+                    "leaf.png": os.path.join(FIXTURES, "leaf_default.avif")})
     calls = []
     real = traverse.closest_hit
 

@@ -31,19 +31,21 @@ original does it:
   repeats was read off PIL's answers to one-byte edits of every box;
   the moov box is checked as far as a first frame needs it, so a
   damaged track box that libavif refuses may still be read here.
-- the AV1 frame: csrc/av1_decode.cpp, which decodes an intra frame with
-  its in-loop filters off and converts YUV to RGB(A) as libavif hands it
-  to libyuv (bilinear chroma upsampling, libyuv's fixed-point matrices,
-  libyuv's un-premultiply where a prem reference marks the alpha).
+- the AV1 frame: csrc/av1_decode.cpp, which decodes an 8-bit intra
+  frame, its in-loop filters included (deblocking with delta LF, CDEF,
+  loop restoration with Wiener and self-guided units: av1_filters.inc),
+  and converts YUV to RGB(A) as libavif hands it to libyuv (bilinear
+  chroma upsampling, libyuv's fixed-point matrices, libyuv's
+  un-premultiply where a prem reference marks the alpha).
 
 Refused with NotImplementedError naming ROADMAP item 22b, AVIF part 2,
-where PIL reads the file: any in-loop filter (deblocking, CDEF, loop
-restoration), superres, intra block copy, high bit depth, film grain, a
-frame that is not a shown key frame, grid and iovl items, and the matrix
-coefficients libavif converts without libyuv (4 FCC, 7 SMPTE 240M, 8
-YCgCo, 12 with primaries other than BT.709, BT.601 or BT.2020, and 15 to
-254). The matrices libavif refuses (3, 10, 11, 13, 14, 255; identity
-unless 4:4:4; YCgCo at limited range) raise ValueError, as PIL raises.
+where PIL reads the file: superres, intra block copy, high bit depth (10
+and 12 bits), film grain, a frame that is not a shown key frame, grid
+and iovl items, and the matrix coefficients libavif converts without
+libyuv (4 FCC, 7 SMPTE 240M, 8 YCgCo, 12 with primaries other than
+BT.709, BT.601 or BT.2020, and 15 to 254). The matrices libavif refuses
+(3, 10, 11, 13, 14, 255; identity unless 4:4:4; YCgCo at limited range)
+raise ValueError, as PIL raises.
 So does an ispe that disagrees with the AV1 frame, where Pillow lays
 the frame's pixels out at the ispe's size and returns what lies past
 them.
@@ -61,8 +63,10 @@ from tracerboy_tpu_torch.core.image_io import (
     check_image_size,
 )
 
-ITEM = ("ROADMAP.md, Queue 1: item 22b, AVIF part 2 (in-loop filters and "
-        "the other AVIF features part 1 leaves out)")
+ITEM = ("ROADMAP.md, Queue 1: item 22b, AVIF part 2 (superres, intra "
+        "block copy, high bit depth, film grain, grid and iovl items, "
+        "frames that are not shown key frames, libavif's float-path "
+        "matrices)")
 BRANDS = (b"avif", b"avis", b"mif1", b"msf1")
 ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
               b"urn:mpeg:hevc:2015:auxid:1")
@@ -769,6 +773,12 @@ TOOLS = ("palette", "filter_intra", "cfl", "angle_delta", "tx64", "tx1d",
          "wht", "directional", "smooth", "paeth", "edge_upsample",
          "edge_filter", "adst", "segments", "delta_q", "qm",
          "ext_partition")
+# info[15]'s bits above the block tools: the in-loop filters the frame
+# used (csrc/av1_decode.cpp's kFilter*).
+FILTERS = ("deblocking", "deblocking_13_tap", "deblocking_chroma",
+           "delta_lf", "cdef", "cdef_chroma", "wiener", "sgrproj",
+           "sgrproj_r0_zero", "sgrproj_r1_zero", "switchable")
+LR_TYPES = ("none", "wiener", "sgrproj", "switchable")
 HEADER_FLAGS = ("qm", "segmentation", "delta_q", "screen_content",
                 "delta_lf", "reduced_tx_set", "tx_mode_select",
                 "disable_cdf_update")
@@ -776,10 +786,11 @@ HEADER_FLAGS = ("qm", "segmentation", "delta_q", "screen_content",
 
 def frame_info(data: bytes, path: str = "<avif>",
                headers_only: bool = False) -> dict:
-    """What the colour frame's headers say and (unless headers_only,
-    which reads the OBUs up to the first frame header, the in-loop
-    filter and feature checks included) which block tools its decode
-    used."""
+    """What the colour frame's headers say (its loop filter sharpness,
+    CDEF bits, restoration types and unit sizes among it)
+    and (unless headers_only, which reads the OBUs up to the first frame
+    header, the feature checks included) which block tools and in-loop
+    filters its decode used."""
     try:
         color = _parse(data)[0]
     except (_Unidentified, _Failed) as e:
@@ -808,4 +819,13 @@ def frame_info(data: bytes, path: str = "<avif>",
             "sb128": bool(info[13]),
             "flags": {f for k, f in enumerate(HEADER_FLAGS)
                       if info[14] >> k & 1},
-            "tools": {t for k, t in enumerate(TOOLS) if info[15] >> k & 1}}
+            "lf_sharpness": int(info[14] >> 8 & 7),
+            "lr_unit_size": (64 << int(info[14] >> 11 & 3),
+                             64 << int(info[14] >> 11 & 3)
+                             >> int(info[14] >> 13 & 1)),
+            "cdef_bits": int(info[14] >> 14 & 3),
+            "lr_types": tuple(LR_TYPES[int(info[14] >> (16 + 2 * p) & 3)]
+                              for p in range(1 if info[2] else 3)),
+            "tools": {t for k, t in enumerate(TOOLS) if info[15] >> k & 1},
+            "filters": {f for k, f in enumerate(FILTERS)
+                        if info[15] >> (len(TOOLS) + k) & 1}}

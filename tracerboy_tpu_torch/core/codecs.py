@@ -102,7 +102,8 @@ def av1_library():
     import ctypes
 
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    return _load("tbav1", "av1_decode.cpp", ("av1_tables.inc",), (
+    return _load("tbav1", "av1_decode.cpp",
+                 ("av1_tables.inc", "av1_filters.inc"), (
         ("tb_av1_decode", [p, i64, p, i64, p, ctypes.c_char_p, i64]),
         ("tb_avif_to_rgb", [p, p, p, i64, i64, i64, i64, i64, i64, p, i64,
                             p])))

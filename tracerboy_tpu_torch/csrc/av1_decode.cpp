@@ -3,26 +3,32 @@
 // gives Pillow's pixels. Host code, compiled with g++ at first use into the
 // port's build directory (core/codecs.av1_library) and called through
 // ctypes. The constant tables (default CDFs, quantizer lookups, matrices,
-// weights, scans) are in av1_tables.inc, read out of the AV1 libraries by
-// tests/make_av1_tables.py.
+// weights, scans, the CDEF directions, the self-guided parameter sets, the
+// Wiener and self-guided coefficient ranges) are in av1_tables.inc, read
+// out of the AV1 libraries by tests/make_av1_tables.py; the in-loop
+// filters are in av1_filters.inc.
 //
 // The decoding process is the AV1 specification's (version 1.0.0 with
-// errata 1), section by section: the OBU syntax (5.3-5.12), the symbol
-// decoder (8.2), block decoding (5.11, 6.10) and prediction,
-// reconstruction and the inverse transforms (7.11.2, 7.12, 7.13). It is
-// normative, so a decoder that follows it gives dav1d's samples bit for
-// bit. The 1D inverse DCT is written as its recursive butterfly (the even
-// half a DCT of half the size, the odd half's rotations and Hadamard
-// stages in libaom's order, av1_inv_txfm1d.c), which is the
-// specification's flow graph; every Hadamard output is clamped to 16
-// bits, as libaom and dav1d clamp their 8-bit intermediates.
+// errata 1), section by section: the OBU syntax (5.3-5.12, the loop filter,
+// CDEF and loop restoration parameters 5.9.11, 5.9.19 and 5.9.20 and the
+// restoration units 5.11.57-58 among it), the symbol decoder (8.2), block
+// decoding (5.11, 6.10) and prediction, reconstruction and the inverse
+// transforms (7.11.2, 7.12, 7.13), then the in-loop filters in their
+// order: the deblocking filter (7.14), CDEF (7.15) and loop restoration
+// (7.17). It is normative, so a decoder that follows it gives dav1d's
+// samples bit for bit. The 1D inverse DCT is written as its recursive
+// butterfly (the even half a DCT of half the size, the odd half's
+// rotations and Hadamard stages in libaom's order, av1_inv_txfm1d.c),
+// which is the specification's flow graph; every Hadamard output is
+// clamped to 16 bits, as libaom and dav1d clamp their 8-bit
+// intermediates.
 //
-// What this part of the port leaves out raises (kUnsupported, with the
-// feature named): any in-loop filter (loop_filter_level[0] or [1] not 0,
-// CDEF strengths not all 0 where CDEF is enabled and the frame not coded
-// lossless, a plane's lr_type not RESTORE_NONE), superres, intra block
-// copy, film grain, high bit depth, and a frame that is not a shown key
-// frame. These are checked in the headers before any block is decoded.
+// What the port still leaves out raises (kUnsupported, with the feature
+// named): superres, intra block copy, film grain (apply_grain), high bit
+// depth, and a frame that is not a shown key frame. These are checked in
+// the headers before any block is decoded. Where the frame is coded
+// lossless the filters are off, as the specification says (and with
+// intra block copy, which is refused).
 //
 // Departures from the specification: none in the decoding. A sequence
 // with several operating points decodes operating point 0, as libavif
@@ -57,6 +63,21 @@ enum {
   kToolEdgeFilter = 2048, kToolAdst = 4096, kToolSegments = 8192,
   kToolDeltaQ = 16384, kToolQm = 32768, kToolExtPartition = 65536
 };
+// The in-loop filters a frame used, in the bits above them: deblocking
+// (any edge filtered), its 13-tap luma filter, a chroma edge, a block's
+// delta LF not 0, CDEF (an 8x8 filtered), on a chroma plane, Wiener and
+// self-guided restoration units,
+// self-guided sets with r0 = 0 and with r1 = 0, and units of a plane whose
+// restoration type is switchable.
+enum {
+  kFilterDeblock = 1 << 17, kFilterDeblock14 = 1 << 18,
+  kFilterDeblockChroma = 1 << 19, kFilterDeltaLf = 1 << 20,
+  kFilterCdef = 1 << 21, kFilterCdefChroma = 1 << 22,
+  kFilterWiener = 1 << 23, kFilterSgrproj = 1 << 24,
+  kFilterSgrR0Zero = 1 << 25, kFilterSgrR1Zero = 1 << 26,
+  kFilterSwitchable = 1 << 27
+};
+enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
 
 struct Error {
   int code;
@@ -373,6 +394,7 @@ struct Cdfs {
   uint16_t base_eob[5][2][4][4];
   uint16_t base[5][2][42][5];
   uint16_t br[5][2][21][5];
+  uint16_t restoration_type[4], use_wiener[3], use_sgrproj[3];
 
   void init(int base_q_idx) {
 #define CP(dst, src) \
@@ -406,6 +428,9 @@ struct Cdfs {
     CP(tx64, Default_Tx_64x64_Cdf);
     CP(tx_set1, Default_Intra_Tx_Type_Set1_Cdf);
     CP(tx_set2, Default_Intra_Tx_Type_Set2_Cdf);
+    CP(restoration_type, Default_Restoration_Type_Cdf[0]);
+    CP(use_wiener, Default_Use_Wiener_Cdf[0]);
+    CP(use_sgrproj, Default_Use_Sgrproj_Cdf[0]);
     memset(pal_color, 0, sizeof(pal_color));
     const uint16_t* ys[7] = {
         &Default_Palette_Size_2_Y_Color_Cdf[0][0],
@@ -729,6 +754,12 @@ struct Decoder {
       delta_lf_res = 0, delta_lf_multi = 0;
   int lossless_array[8] = {0}, coded_lossless = 0, seg_qm_level[3][8];
   int cdef_bits = 0, tx_mode_select = 0, only_4x4 = 0, reduced_tx_set = 0;
+  // loop_filter_params, cdef_params and lr_params.
+  int lf_level[4] = {0}, lf_sharpness = 0, lf_delta_enabled = 0;
+  int lf_ref_deltas[8] = {0};
+  int cdef_damping = 3, cdef_y_pri[8] = {0}, cdef_y_sec[8] = {0},
+      cdef_uv_pri[8] = {0}, cdef_uv_sec[8] = {0};
+  int lr_type[3] = {0}, lr_size[3] = {0};
   int tile_cols = 0, tile_rows = 0, tile_cols_log2 = 0, tile_rows_log2 = 0;
   int mi_col_starts[65], mi_row_starts[65], tile_size_bytes = 4;
   int num_planes = 3;
@@ -738,8 +769,19 @@ struct Decoder {
   std::vector<uint8_t> y_modes, uv_modes, skips, tx_sizes, mi_sizes,
       seg_ids, pal_sizes[2], tx_types;
   std::vector<uint16_t> pal_colors[2];
-  std::vector<int8_t> cdef_idx;
+  std::vector<int8_t> cdef_idx, delta_lfs;  // delta_lfs: 4 a mi
   int cdef_stride = 0;
+  // LoopfilterTxSizes: each plane's transform size at each of its 4x4s.
+  std::vector<uint8_t> lf_tx[3];
+  int lf_tx_stride = 0;
+  // Each plane's restoration units (5.11.58).
+  struct LrUnit {
+    uint8_t type = RESTORE_NONE, sgr_set = 0;
+    int8_t wiener[2][3] = {{0}};
+    int8_t xqd[2] = {0};
+  };
+  std::vector<LrUnit> lr_units[3];
+  int lr_unit_rows[3] = {0}, lr_unit_cols[3] = {0};
   Plane planes[3];
 
   // Tile state.
@@ -747,6 +789,7 @@ struct Decoder {
   Cdfs cdf;
   int mi_row_start = 0, mi_row_end = 0, mi_col_start = 0, mi_col_end = 0;
   int current_q = 0, delta_lf[4] = {0}, read_deltas = 0;
+  int ref_lr_wiener[3][2][3], ref_sgr_xqd[3][2];
   std::vector<uint8_t> above_level[3], above_dc[3], left_level[3],
       left_dc[3];
   uint8_t block_decoded[3][34][34];
@@ -1062,45 +1105,73 @@ struct Decoder {
             (using_qm && !lossless_array[sid]) ? lvl : 15;
       }
     }
-    // loop_filter_params
-    if (!coded_lossless) {
-      int l0 = br.f(6), l1 = br.f(6);
-      if (num_planes > 1 && (l0 || l1)) {
-        br.f(6);
-        br.f(6);
+    // loop_filter_params (5.9.11), the deltas from
+    // setup_past_independence: a key frame has no reference to load
+    // them from. An intra frame reads only the INTRA_FRAME delta; the
+    // mode deltas are for inter blocks.
+    bool filters = !coded_lossless && !allow_intrabc;
+    static const int kRefDeltas[8] = {1, 0, 0, 0, -1, 0, -1, -1};
+    memcpy(lf_ref_deltas, kRefDeltas, sizeof(lf_ref_deltas));
+    for (int i = 0; i < 4; i++) lf_level[i] = 0;
+    lf_sharpness = lf_delta_enabled = 0;
+    if (filters) {
+      lf_level[0] = br.f(6);
+      lf_level[1] = br.f(6);
+      if (num_planes > 1 && (lf_level[0] || lf_level[1])) {
+        lf_level[2] = br.f(6);
+        lf_level[3] = br.f(6);
       }
-      if (l0 || l1)
-        unsupported("the deblocking filter (loop_filter_level not 0)");
-      br.f(3);  // sharpness
-      if (br.f(1)) {  // loop_filter_delta_enabled
-        if (br.f(1)) {  // loop_filter_delta_update
-          for (int i = 0; i < 8; i++)
-            if (br.f(1)) br.su(7);
-          for (int i = 0; i < 2; i++)
-            if (br.f(1)) br.su(7);
-        }
+      lf_sharpness = br.f(3);
+      lf_delta_enabled = br.f(1);
+      if (lf_delta_enabled && br.f(1)) {  // loop_filter_delta_update
+        for (int i = 0; i < 8; i++)
+          if (br.f(1)) lf_ref_deltas[i] = br.su(7);
+        for (int i = 0; i < 2; i++)
+          if (br.f(1)) br.su(7);
       }
     }
-    // cdef_params
+    // cdef_params (5.9.19): a secondary strength of 3 means 4.
     cdef_bits = 0;
-    if (!coded_lossless && s.enable_cdef) {
-      br.f(2);  // cdef_damping_minus_3
+    cdef_damping = 3;
+    memset(cdef_y_pri, 0, sizeof(cdef_y_pri));
+    memset(cdef_y_sec, 0, sizeof(cdef_y_sec));
+    memset(cdef_uv_pri, 0, sizeof(cdef_uv_pri));
+    memset(cdef_uv_sec, 0, sizeof(cdef_uv_sec));
+    if (filters && s.enable_cdef) {
+      cdef_damping = br.f(2) + 3;
       cdef_bits = br.f(2);
-      bool any = false;
       for (int i = 0; i < (1 << cdef_bits); i++) {
-        any |= br.f(4) != 0;  // y primary
-        any |= br.f(2) != 0;  // y secondary
+        cdef_y_pri[i] = br.f(4);
+        cdef_y_sec[i] = br.f(2);
+        if (cdef_y_sec[i] == 3) cdef_y_sec[i] = 4;
         if (num_planes > 1) {
-          any |= br.f(4) != 0;
-          any |= br.f(2) != 0;
+          cdef_uv_pri[i] = br.f(4);
+          cdef_uv_sec[i] = br.f(2);
+          if (cdef_uv_sec[i] == 3) cdef_uv_sec[i] = 4;
         }
       }
-      if (any) unsupported("CDEF (a strength not 0)");
     }
-    // lr_params
-    if (!coded_lossless && s.enable_restoration) {
-      for (int i = 0; i < num_planes; i++)
-        if (br.f(2) != 0) unsupported("loop restoration (lr_type not NONE)");
+    // lr_params (5.9.20): Remap_Lr_Type, and LoopRestorationSize.
+    for (int i = 0; i < 3; i++) lr_type[i] = RESTORE_NONE, lr_size[i] = 0;
+    if (filters && s.enable_restoration) {
+      static const int kRemap[4] = {RESTORE_NONE, RESTORE_SWITCHABLE,
+                                    RESTORE_WIENER, RESTORE_SGRPROJ};
+      bool uses_lr = false, chroma_lr = false;
+      for (int i = 0; i < num_planes; i++) {
+        lr_type[i] = kRemap[br.f(2)];
+        if (lr_type[i] != RESTORE_NONE) {
+          uses_lr = true;
+          chroma_lr |= i > 0;
+        }
+      }
+      if (uses_lr) {
+        int shift = br.f(1);
+        if (s.sb128) shift++;
+        else if (shift) shift += br.f(1);
+        lr_size[0] = 256 >> (2 - shift);
+        int uv_shift = (s.ssx && s.ssy && chroma_lr) ? br.f(1) : 0;
+        lr_size[1] = lr_size[2] = lr_size[0] >> uv_shift;
+      }
     }
     // read_tx_mode
     only_4x4 = coded_lossless;
@@ -1196,6 +1267,17 @@ struct Decoder {
       pal_sizes[p].assign(n, 0);
       pal_colors[p].assign(n * 8, 0);
     }
+    delta_lfs.assign(n * 4, 0);
+    lf_tx_stride = mi_cols + 17;
+    for (int p = 0; p < 3; p++)
+      lf_tx[p].assign((size_t)(mi_rows + 17) * lf_tx_stride, 0);
+    for (int p = 0; p < num_planes; p++) {
+      int sx = p ? seq.ssx : 0, sy = p ? seq.ssy : 0;
+      if (lr_type[p] == RESTORE_NONE) continue;
+      lr_unit_rows[p] = count_units(lr_size[p], (frame_h + sy) >> sy);
+      lr_unit_cols[p] = count_units(lr_size[p], (frame_w + sx) >> sx);
+      lr_units[p].assign((size_t)lr_unit_rows[p] * lr_unit_cols[p], LrUnit());
+    }
     cdef_stride = (mi_cols >> 4) + 3;
     cdef_idx.assign((size_t)((mi_rows >> 4) + 3) * cdef_stride, -1);
     int aw = ((mi_cols * 4 + 127) & ~127) + 160;
@@ -1253,7 +1335,10 @@ struct Decoder {
       decode_tile();
       off += tsize;
     }
-    if (tg_end == num_tiles - 1) frame_done = true;
+    if (tg_end == num_tiles - 1) {
+      frame_done = true;
+      apply_filters();
+    }
   }
 
   // --- Tiles and blocks (5.11) ------------------------------------------
@@ -1264,6 +1349,12 @@ struct Decoder {
       std::fill(above_dc[p].begin(), above_dc[p].end(), 0);
     }
     for (int i = 0; i < 4; i++) delta_lf[i] = 0;
+    for (int p = 0; p < num_planes; p++)
+      for (int pass = 0; pass < 2; pass++) {
+        ref_sgr_xqd[p][pass] = Sgrproj_Xqd_Mid[pass];
+        for (int i = 0; i < 3; i++)
+          ref_lr_wiener[p][pass][i] = Wiener_Taps_Mid[i];
+      }
     int sb_size = seq.sb128 ? BLOCK_128X128 : BLOCK_64X64;
     int sb4 = kNum4x4W[sb_size];
     for (int r = mi_row_start; r < mi_row_end; r += sb4) {
@@ -1275,6 +1366,7 @@ struct Decoder {
         read_deltas = delta_q_present;
         clear_cdef(r, c);
         clear_block_decoded(r, c, sb4);
+        read_lr(r, c, sb_size);
         decode_partition(r, c, sb_size);
       }
       // dav1d refuses a tile whose symbol decoder read more than 14
@@ -1282,6 +1374,116 @@ struct Decoder {
       if (sd.max_bits < -14) corrupt("the symbol decoder read past a tile");
     }
   }
+
+  // --- Loop restoration units (5.11.57-58) ------------------------------
+
+  static int count_units(int unit_size, int frame_size) {
+    return imax((frame_size + (unit_size >> 1)) / unit_size, 1);
+  }
+
+  void read_lr(int r, int c, int bsize) {
+    if (allow_intrabc) return;
+    int w = kNum4x4W[bsize], h = kNum4x4H[bsize];
+    for (int p = 0; p < num_planes; p++) {
+      if (lr_type[p] == RESTORE_NONE) continue;
+      int sx = p ? seq.ssx : 0, sy = p ? seq.ssy : 0;
+      int unit = lr_size[p];
+      int rows = lr_unit_rows[p], cols = lr_unit_cols[p];
+      int row0 = (r * (4 >> sy) + unit - 1) / unit;
+      int row1 = imin(rows, ((r + h) * (4 >> sy) + unit - 1) / unit);
+      int col0 = (c * (4 >> sx) + unit - 1) / unit;
+      int col1 = imin(cols, ((c + w) * (4 >> sx) + unit - 1) / unit);
+      for (int ur = row0; ur < row1; ur++)
+        for (int uc = col0; uc < col1; uc++) read_lr_unit(p, ur, uc);
+    }
+  }
+
+  void read_lr_unit(int p, int ur, int uc) {
+    LrUnit& u = lr_units[p][(size_t)ur * lr_unit_cols[p] + uc];
+    int t;
+    if (lr_type[p] == RESTORE_WIENER) {
+      t = sd.symbol(cdf.use_wiener, 2) ? RESTORE_WIENER : RESTORE_NONE;
+    } else if (lr_type[p] == RESTORE_SGRPROJ) {
+      t = sd.symbol(cdf.use_sgrproj, 2) ? RESTORE_SGRPROJ : RESTORE_NONE;
+    } else {
+      t = sd.symbol(cdf.restoration_type, 3);
+      tools |= kFilterSwitchable;
+    }
+    u.type = (uint8_t)t;
+    if (t == RESTORE_WIENER) {
+      tools |= kFilterWiener;
+      for (int pass = 0; pass < 2; pass++) {
+        int first = p ? 1 : 0;
+        u.wiener[pass][0] = 0;
+        for (int j = first; j < 3; j++) {
+          int v = signed_subexp_with_ref(Wiener_Taps_Min[j],
+                                         Wiener_Taps_Max[j] + 1,
+                                         Wiener_Taps_K[j],
+                                         ref_lr_wiener[p][pass][j]);
+          u.wiener[pass][j] = (int8_t)v;
+          ref_lr_wiener[p][pass][j] = v;
+        }
+      }
+    } else if (t == RESTORE_SGRPROJ) {
+      tools |= kFilterSgrproj;
+      int set = sd.literal(4);
+      u.sgr_set = (uint8_t)set;
+      if (Sgr_Params[set][0] == 0) tools |= kFilterSgrR0Zero;
+      if (Sgr_Params[set][2] == 0) tools |= kFilterSgrR1Zero;
+      for (int i = 0; i < 2; i++) {
+        int radius = Sgr_Params[set][i * 2];
+        int mn = Sgrproj_Xqd_Min[i], mx = Sgrproj_Xqd_Max[i], v = 0;
+        if (radius)
+          v = signed_subexp_with_ref(mn, mx + 1, 4, ref_sgr_xqd[p][i]);
+        else if (i == 1)
+          v = clip3(mn, mx, 128 - ref_sgr_xqd[p][0]);
+        u.xqd[i] = (int8_t)v;
+        ref_sgr_xqd[p][i] = v;
+      }
+    }
+  }
+
+  int signed_subexp_with_ref(int low, int high, int k, int r) {
+    int mx = high - low, ref = r - low;
+    int v = subexp(mx, k);
+    int x = (ref << 1) <= mx ? inverse_recenter(ref, v)
+                             : mx - 1 - inverse_recenter(mx - 1 - ref, v);
+    return x + low;
+  }
+
+  int subexp(int num_syms, int k) {
+    int i = 0, mk = 0;
+    while (true) {
+      int b2 = i ? k + i - 1 : k, a = 1 << b2;
+      if (num_syms <= mk + 3 * a) return sd.ns(num_syms - mk) + mk;
+      if (!sd.literal(1)) return sd.literal(b2) + mk;
+      i++;
+      mk += a;
+    }
+  }
+
+  static int inverse_recenter(int r, int v) {
+    if (v > 2 * r) return v;
+    if (v & 1) return r - ((v + 1) >> 1);
+    return r + (v >> 1);
+  }
+
+  // --- The in-loop filters (av1_filters.inc) -----------------------------
+
+  void apply_filters();
+  void loop_filter_frame();
+  void edge_loop_filter(int plane, int pass, int row, int col);
+  void filter_level(int row, int col, int plane, int pass, int* lvl,
+                    int* limit, int* blimit, int* thresh);
+  void sample_filtering(uint8_t* px, int step, int plane, int limit,
+                        int blimit, int thresh, int filter_size);
+  void cdef_frame(Plane* out);
+  int cdef_direction(int r, int c, int* var);
+  void cdef_filter(Plane* out, int plane, int r, int c, int pri, int sec,
+                   int damping, int dir);
+  void lr_frame(const Plane* cdef, Plane* out);
+  void lr_rect(int plane, const LrUnit& u, const Plane& cdef, Plane& out,
+               int x0, int x1, int y0, int y1, int stripe0, int stripe1);
 
   int8_t& cdef_at(int r, int c) {
     return cdef_idx[(size_t)(r >> 4) * cdef_stride + (c >> 4)];
@@ -1457,6 +1659,7 @@ struct Decoder {
         tx_sizes[i] = (uint8_t)tx_size;
         mi_sizes[i] = (uint8_t)bsize;
         seg_ids[i] = (uint8_t)segment_id;
+        for (int k = 0; k < 4; k++) delta_lfs[i * 4 + k] = (int8_t)delta_lf[k];
         pal_sizes[0][i] = (uint8_t)pal_size_y;
         pal_sizes[1][i] = (uint8_t)pal_size_uv;
         for (int k = 0; k < 8; k++) {
@@ -1631,7 +1834,8 @@ struct Decoder {
         if (a) {
           int sign = sd.literal(1);
           int red = sign ? -a : a;
-          delta_lf[i] = clip3(-63, 63, delta_lf[i] + (red << delta_lf_res));
+          delta_lf[i] = clip3(-63, 63, delta_lf[i] + red * (1 << delta_lf_res));
+          tools |= kFilterDeltaLf;
         }
       }
     }
@@ -1929,6 +2133,8 @@ struct Decoder {
     }
     for (int i = 0; i < stepy; i++)
       for (int j = 0; j < stepx; j++) {
+        lf_tx[plane][(size_t)((row >> sy) + i) * lf_tx_stride + (col >> sx) +
+                     j] = (uint8_t)txsz;
         int rr = (sbr >> sy) + i + 1, cc = (sbc >> sx) + j + 1;
         if (rr < 34 && cc < 34) block_decoded[plane][rr][cc] = 1;
       }
@@ -2847,6 +3053,8 @@ void chroma_row(const uint8_t* p, int cw, int ch, int ssx, int ssy, int yy,
   else up_row2(b, a, cw, w, out);
 }
 
+#include "av1_filters.inc"
+
 }  // namespace
 
 extern "C" {
@@ -2856,8 +3064,12 @@ extern "C" {
 // mc, bit_depth, chroma_sample_position, coded_lossless, tiles, 128x128
 // superblocks, header flags (using_qmatrix 1, segmentation 2, delta q 4,
 // screen content tools 8, delta lf 16, reduced tx set 32, tx mode select
-// 64, disable_cdf_update 128) and the tools the blocks used (kTool*
-// bits; 0 when only the headers are read). With planes == null only the
+// 64, disable_cdf_update 128; above them loop_filter_sharpness at bit 8,
+// lr_unit_shift (LoopRestorationSize[0] = 64 << it) at 11, lr_uv_shift
+// at 13, cdef_bits at 14 and each plane's FrameRestorationType, 2 bits
+// from bit 16) and the tools the blocks and
+// the in-loop filters used (kTool* and kFilter* bits; 0 when only the
+// headers are read). With planes == null only the
 // headers are read (through the first frame header; film grain included)
 // and the frame is not decoded. planes: Y then U then V, each
 // (height >> ss) x (width >> ss) rounded up, tightly packed. msg: the
@@ -2876,6 +3088,14 @@ int64_t tb_av1_decode(const uint8_t* data, int64_t n, uint8_t* planes,
                     dec->delta_q_present << 2 | dec->allow_sct << 3 |
                     dec->delta_lf_present << 4 | dec->reduced_tx_set << 5 |
                     dec->tx_mode_select << 6 | dec->disable_cdf_update << 7;
+    int lr_shift = 0;
+    while (dec->lr_size[0] && (64 << lr_shift) < dec->lr_size[0]) lr_shift++;
+    flags |= (int64_t)dec->lf_sharpness << 8 | (int64_t)lr_shift << 11 |
+             (int64_t)(dec->lr_size[0] != dec->lr_size[1] &&
+                       dec->lr_size[1]) << 13 |
+             (int64_t)dec->cdef_bits << 14;
+    for (int p = 0; p < 3; p++)
+      flags |= (int64_t)dec->lr_type[p] << (16 + 2 * p);
     int64_t v[16] = {dec->frame_w, dec->frame_h, s.mono, s.ssx, s.ssy,
                      s.full_range, s.cp, s.tc, s.mc, s.bit_depth, s.csp,
                      dec->coded_lossless, dec->tile_cols * dec->tile_rows,
