@@ -238,10 +238,13 @@ Phases, each fatal on failure:
      deblocking, CDEF, Wiener, self-guided and switchable restoration)
      decoded to the sha256 of PIL's array in its manifest; the 1024x1024
      albedo's host decode as a 4:2:0 AVIF, as a 4:4:4 AVIF coded
-     lossless (the Walsh-Hadamard path) and as Pillow's default save (the
-     deblocking filter on); the CLI on textured_lit.pbrt with the
-     default-save albedo and the default-save RGBA leaf whose deblocked
-     alpha item makes the cutouts, as in 22;
+     lossless (the Walsh-Hadamard path), as Pillow's default save (the
+     deblocking filter on), as a plain Image.save (intra block copy) and
+     as a default save with film grain; the CLI on textured_lit.pbrt with
+     the default-save albedo and the default-save RGBA leaf whose
+     deblocked alpha item makes the cutouts, as in 22, and again with the
+     plain-save albedo and the RGBA leaf saved with film grain, on its
+     alpha item too;
  28. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
@@ -4322,13 +4325,17 @@ def avif_runs(torch, tmp):
     by image_io.decode_ldr, its shape, dtype and sha256 equal to
     manifest.json's (written by tests/make_avif_fixtures.py). (b)
     utils/demo_scene's 1024x1024 albedo decoded as the 4:2:0 AVIF fixture,
-    as the 4:4:4 one coded lossless (the Walsh-Hadamard path) and as
-    Pillow's default save (the in-loop filters on: deblocked); each
-    decode 5 runs, host seconds, with the host's CPU and the card line.
-    (c) The CLI on textured_lit.pbrt with its albedo and its RGBA leaf
-    Pillow's default saves, whose deblocked alpha item makes the cutouts,
-    so the alpha re-fires of kernel 1 run on texels the in-loop filters
-    produced (textured_swap_cli). Returns (results, launches of (c))."""
+    as the 4:4:4 one coded lossless (the Walsh-Hadamard path), as
+    Pillow's default save (the in-loop filters on: deblocked), as a plain
+    Image.save (intra block copy) and as a default save with film grain;
+    each decode 5 runs, host seconds, with the host's CPU and the card
+    line. (c) The CLI on textured_lit.pbrt with its albedo and its RGBA
+    leaf Pillow's default saves, whose deblocked alpha item makes the
+    cutouts, so the alpha re-fires of kernel 1 run on texels the in-loop
+    filters produced (textured_swap_cli); (d) the same with the
+    plain-save albedo and the RGBA leaf saved with film grain (its alpha
+    item's grain moves the cutouts' edges). Returns (results, launches of
+    (c) and (d) together)."""
     from tracerboy_tpu_torch.core.image_io import decode_ldr
 
     set_opt_in()
@@ -4336,7 +4343,9 @@ def avif_runs(torch, tmp):
     card = card_line()
     for key, path in (("420", AVIF_DIR / "albedo.avif"),
                       ("lossless", AVIF_DIR / "albedo_lossless.avif"),
-                      ("default", AVIF_DIR / "albedo_default.avif")):
+                      ("default", AVIF_DIR / "albedo_default.avif"),
+                      ("plain", AVIF_DIR / "albedo_plain.avif"),
+                      ("grain", AVIF_DIR / "albedo_grain.avif")):
         results[f"decode_1024_{key}"] = dict(host_decode(decode_ldr, path),
                                              card=card)
         print(f"avif decode 1024x1024 {key} (host):",
@@ -4346,7 +4355,15 @@ def avif_runs(torch, tmp):
         {"albedo.png": str(AVIF_DIR / "albedo_default.avif"),
          "leaf.png": str(AVIF_DIR / "leaf_default.avif")})
     results.update(cli_res)
-    return results, launches
+    t0 = time.perf_counter()
+    cg_res, cg_launches = textured_swap_cli(
+        torch, tmp, "avif_copy_grain",
+        {"albedo.png": str(AVIF_DIR / "albedo_plain.avif"),
+         "leaf.png": str(AVIF_DIR / "leaf_grain.avif")})
+    results["copy_grain_cli"] = dict(cg_res["cli"],
+                                     run_s=time.perf_counter() - t0)
+    results["copy_grain_kinds"] = cg_res["kinds"]
+    return results, {k: launches[k] + cg_launches[k] for k in launches}
 
 
 def main() -> int:
@@ -4589,7 +4606,9 @@ def main() -> int:
     j2k_kinds = j2k_res["kinds"]
     lap("j2k")
     avif_res, avif_launches = avif_phase(torch)
-    avif_kinds = avif_res["kinds"]
+    avif_kinds = {**avif_res["kinds"],
+                  **{f"copy_grain_{k}": v
+                     for k, v in avif_res["copy_grain_kinds"].items()}}
     lap("avif")
     print("phase seconds:", json.dumps(laps))
 
@@ -4717,7 +4736,8 @@ def main() -> int:
              **{f"j2k_decode_1024_{key}": j2k_res[f"decode_1024_{key}"]
                 for key in ("lossless", "97")},
              **{f"avif_decode_1024_{key}": avif_res[f"decode_1024_{key}"]
-                for key in ("420", "lossless", "default")},
+                for key in ("420", "lossless", "default", "plain", "grain")},
+             avif_copy_grain_cli=avif_res["copy_grain_cli"],
              volume_run=vol_res["run"],
              volume_control=vol_res["control"],
              estimators={k: {kk: vv for kk, vv in v.items()

@@ -1,9 +1,9 @@
 """AVIF files for the port's AVIF reader's tests: Pillow's encoder (aom
-3.12 through libavif 1.3) with the in-loop filters off, and rewrites of
-the HEIF box tree where Pillow has no option: the colr nclx values, a
-colr box dropped, the items' data moved into an idat box (iloc
-construction method 1), iloc versions and field sizes, the ftyp's
-brands, a 64-bit box size. No AV1 stream is written here: every frame
+3.12 through libavif 1.3) with the in-loop filters off, aom's film grain
+tables, and rewrites of the HEIF box tree where Pillow has no option:
+the colr nclx values, a colr box dropped, the items' data moved into an
+idat box (iloc construction method 1), iloc versions and field sizes,
+the ftyp's brands, a 64-bit box size. No AV1 stream is written here: every frame
 is aom's.
 """
 
@@ -44,6 +44,49 @@ def pil_default(img, **kw) -> bytes:
     out = io.BytesIO()
     img.save(out, "AVIF", **kw)
     return out.getvalue()
+
+
+def grain_table(seed=7391, lag=0, ar_shift=7, scale_shift=0,
+                scaling_shift=8, from_luma=0, overlap=0, y_points=(),
+                cb_points=(), cr_points=(), cb=(128, 192, 256),
+                cr=(128, 192, 256), ar_y=(), ar_cb=(), ar_cr=()) -> str:
+    """aom's film grain table (grain_table.c's "filmgrn1" text) of one
+    entry for every time stamp: its field order, with the AR coefficients
+    signed and cb/cr as (mult, luma mult, offset) as coded (128 and 256
+    are 0). ar_cb and ar_cr hold 2 lag (lag + 1) + 1 values (aom writes
+    the last, the luma term, even without luma points)."""
+    n = 2 * lag * (lag + 1)
+    ar_cb = list(ar_cb) + [0] * (n + 1 - len(ar_cb))
+    ar_cr = list(ar_cr) + [0] * (n + 1 - len(ar_cr))
+    ar_y = list(ar_y) + [0] * (n - len(ar_y))
+
+    def points(tag, pts):
+        return f"\t{tag} {len(pts)}" + "".join(f" {x} {y}" for x, y in pts)
+
+    return "\n".join([
+        "filmgrn1", f"E 0 9223372036854775807 1 {seed} 1",
+        f"\tp {lag} {ar_shift} {scale_shift} {scaling_shift} {from_luma} "
+        f"{overlap} {cb[0]} {cb[1]} {cb[2]} {cr[0]} {cr[1]} {cr[2]}",
+        points("sY", y_points), points("sCb", cb_points),
+        points("sCr", cr_points),
+        "\tcY" + "".join(f" {v}" for v in ar_y[:n]),
+        "\tcCb" + "".join(f" {v}" for v in ar_cb),
+        "\tcCr" + "".join(f" {v}" for v in ar_cr), ""])
+
+
+def pil_grain(img, table: str, **kw) -> bytes:
+    """Pillow's default save with aom's film-grain-table option pointing
+    at `table` (grain_table's text), written to a temporary file."""
+    import os
+    import tempfile
+
+    adv = dict(kw.pop("advanced", {}))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "grain.tbl")
+        with open(path, "w") as f:
+            f.write(table)
+        adv["film-grain-table"] = path
+        return pil_default(img, advanced=adv, **kw)
 
 
 def box(typ: bytes, payload: bytes) -> bytes:

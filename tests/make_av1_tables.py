@@ -15,9 +15,9 @@ The source is the copy of aom 3.12.1 inside Pillow's wheel
 Its block of CDFs is found from Default_Intra_Frame_Y_Mode_Cdf's first
 row (15588, 17027, ...): the hit followed by a zero (0x479a80; the hit
 at 0x445000 is dav1d's padded copy). Tables are looked for from 0x10000
-before that hit to 0x8000 after it, where aom keeps its mode and
-coefficient CDFs. Each table is then looked up the same way in the
-system's libdav1d.so.6, libaom.so.3 and libgav1.so.1: where the walk
+before that hit to 0x14000 after it, where aom keeps its mode,
+coefficient and motion vector CDFs. Each table is then looked up the
+same way in the system's libdav1d.so.6, libaom.so.3 and libgav1.so.1: where the walk
 holds there, every value must agree; where a library lays the table out
 otherwise, every CDF of more than two symbols must still occur in it.
 
@@ -41,6 +41,15 @@ self-guided coefficient ranges) are small arrays each read from the one
 library that keeps it in a layout of its own, turned into the
 specification's and looked for in the layouts of the others; the
 restoration CDFs are walked like the others.
+
+Intra block copy's CDFs (the motion vector's joint, class, sign, class0
+bit and bits, the var-tx split, the inter transform type sets) are
+walked like the others; the sign, class0 hp, hp, class0 bit and ten bit
+CDFs as the one run aom keeps them in, split after the walk. Film grain's
+Gaussian sequence is dav1d's int16 array (libgav1 keeps it alike, aom
+as int32), its overlap weights dav1d's SSE constants; the grain
+templates' sizes are macros in every library and are written from the
+specification.
 
     PYTHONPATH=. python tests/make_av1_tables.py          # rewrite the .inc
     PYTHONPATH=. python tests/make_av1_tables.py --check  # compare
@@ -117,6 +126,17 @@ CDF_TABLES = [
     ("Default_Restoration_Type_Cdf", (1,), 3, (9413, 22581)),
     ("Default_Use_Wiener_Cdf", (1,), 2, (11570,)),
     ("Default_Use_Sgrproj_Cdf", (1,), 2, (16855,)),
+    # Intra block copy: the motion vector's CDFs (both MV contexts start
+    # from one default, aom's default_nmv_context: sign, class0 hp, hp,
+    # the class0 bit and the ten bits lie in one run, taken whole), the
+    # var-tx split, and the inter transform type sets.
+    ("Default_Mv_Joint_Cdf", (1,), 4, (4096, 11264, 19328)),
+    ("Default_Mv_Class_Cdf", (1,), 11, (28672, 30976, 31858)),
+    ("Default_Mv_Sign_To_Bits_Cdf", (14,), 2, (16384,)),
+    ("Default_Txfm_Split_Cdf", (21,), 2, (28581,)),
+    ("Default_Inter_Tx_Type_Set1_Cdf", (2,), 16, (4458, 5560, 7695)),
+    ("Default_Inter_Tx_Type_Set2_Cdf", (1,), 12, (770, 2421, 5225)),
+    ("Default_Inter_Tx_Type_Set3_Cdf", (4,), 2, (16384,)),
 ]
 TAKE_FIRST = ("Default_Eob_Pt_512_Cdf", "Default_Eob_Pt_1024_Cdf")
 # Walks that must also meet a later row: the set-2 tx types are uniform
@@ -132,7 +152,13 @@ LATER_ROWS = {
     "Default_Txb_Skip_Cdf": (1, (5892,)),
     "Default_Eob_Extra_Cdf": (1, (17223,)),
     "Default_Dc_Sign_Cdf": (1, (13056,)),
+    "Default_Mv_Sign_To_Bits_Cdf": (3, (27648,)),
+    "Default_Txfm_Split_Cdf": (1, (23846,)),
+    "Default_Inter_Tx_Type_Set3_Cdf": (1, (4167,)),
 }
+# Default_Mv_Sign_To_Bits_Cdf's rows as the specification names them.
+MV_BITS = {"Default_Mv_Sign_Cdf": 0, "Default_Mv_Class0_Bit_Cdf": 3,
+           "Default_Mv_Bit_Cdf": slice(4, 14)}
 # The palette colour-index CDFs, by palette size: 5 contexts each, the
 # first CDF of each table.
 PALETTE = {
@@ -159,6 +185,14 @@ PLAIN = [
     ("Quantizer_Matrix", "uint8_t", 15 * 2 * 3344, "u1",
      (32, 43, 73, 97, 43, 67, 94, 110, 73, 94, 137, 150),
      lambda t: np.all(t >= 16) and np.all(t[-3344:] <= 32)),
+    # Film grain (7.18.3): the Gaussian sequence (dav1d's int16 copy), and
+    # the overlap weights (27, 17), (17, 27) and (23, 22) as dav1d's SSE
+    # constants hold them (pb_27_17_17_27, then pb_23_22 8 bytes on).
+    ("Gaussian_Sequence", "int16_t", 2048, "<i2",
+     (56, 568, -180, 172, 124, -84, 172, -64, -900),
+     lambda t: np.all(t % 4 == 0) and t[-1] == -484),
+    ("Grain_Overlap_Weights", "uint8_t", 10, "u1",
+     (27, 17, 17, 27, 0, 32, 0, 32, 23, 22), lambda t: True),
 ]
 TX_DIMS = [(4, 4), (8, 8), (16, 16), (32, 32), (4, 8), (8, 4), (8, 16),
            (16, 8), (16, 32), (32, 16), (4, 16), (16, 4), (8, 32), (32, 8)]
@@ -240,11 +274,11 @@ def all_tables():
 def wheel_copies(data):
     """[(offset, lo, hi)]: the wheel's copies of the CDFs, found from the
     kf y-mode row, the later one (aom's) first; each spans 0x10000 bytes
-    before its hit to 0x8000 after."""
+    before its hit to 0x14000 after."""
     pat = np.array([32768 - v for v in KF_ANCHOR], dtype="<u2").tobytes()
     hits, i = [], data.find(pat)
     while i >= 0:
-        hits.append((i, i - 0x10000, i + 0x8000))
+        hits.append((i, i - 0x10000, i + 0x14000))
         i = data.find(pat, i + 1)
     if not hits:
         raise SystemExit("the wheel holds no kf y-mode CDFs")
@@ -444,7 +478,11 @@ FILTER_TABLES = [
     ("Sgrproj_Xqd_Mid", "int8_t", "libaom.so.3", (-32, 31), "<i4", 0, 2,
      None, [("libgav1.so.1", "<i4", lambda s: s)]),
 ]
-SPEC_ONLY = {"Wiener_Taps_K": ("int8_t", np.array([1, 2, 3]))}
+SPEC_ONLY = {"Wiener_Taps_K": ("int8_t", np.array([1, 2, 3])),
+             # The grain templates' heights and widths, whole and
+             # subsampled (dav1d's GRAIN_HEIGHT, GRAIN_WIDTH and their SUB_
+             # twins are macros).
+             "Grain_Block_Size": ("uint8_t", np.array([[73, 82], [38, 44]]))}
 
 
 def read_filter_tables(libs):
@@ -546,6 +584,10 @@ def render(got, got_filters):
         if name in TAKE_FIRST:
             arr = arr[:, :, 0]
         head.append(f"//   {name}: {lib} {hex(off)}")
+        if name == "Default_Mv_Sign_To_Bits_Cdf":
+            for part, rows in MV_BITS.items():
+                body.append(c_array(part, "uint16_t", arr[rows]))
+            continue
         if name == "Default_Palette_Uv_Mode_Intrabc_Cdf":
             body.append(c_array("Default_Palette_Uv_Mode_Cdf", "uint16_t",
                                 arr[:2]))
@@ -558,6 +600,10 @@ def render(got, got_filters):
         if name == "Filter_Intra_Taps8":
             body.append(c_array("Filter_Intra_Taps", "int8_t",
                                 t.reshape(5, 8, 8)[:, :, :7]))
+            continue
+        if name == "Grain_Overlap_Weights":
+            body.append(c_array(name, ctype, t[[0, 1, 2, 3, 8, 9]]
+                                .reshape(3, 2)))
             continue
         body.append(c_array(name, ctype, t, 32 if count > 1000 else 16))
     for name, (lib, off, t) in got_filters.items():

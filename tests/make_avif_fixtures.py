@@ -34,8 +34,7 @@ leaf_default) have them on:
 - Pillow's default save (aom's defaults) at a few qualities, and the
   scene's albedo (quality 80, speed 8: at slower speeds aom codes the
   flat procedural albedo with intra block copy, which turns the filters
-  off and which the port leaves out) and RGBA leaf, whose 4:0:0 alpha
-  item is filtered too;
+  off) and RGBA leaf, whose 4:0:0 alpha item is filtered too;
 - each filter alone (deblocking, CDEF, loop restoration) at three
   qualities; loop filter sharpness 0 and 7; delta LF (aom writes one
   value a block: its delta_lf_multi is always 0);
@@ -45,6 +44,15 @@ leaf_default) have them on:
   switchable restoration and self-guided sets with r0 = 0 and r1 = 0;
 - a default save at quality 100, coded lossless, where the
   specification keeps every filter off.
+Those of intra block copy and film grain (ibc_*, grain_*, and the scene's
+albedo_plain, albedo_grain and leaf_grain):
+- screen content saved with intra block copy on at 4:2:0, 4:2:2, 4:4:4,
+  4:0:0, with alpha, with 128x128 superblocks, at 1x1, 3x2 and 33x65;
+- each of aom's 16 film-grain-test vectors, one vector at the other
+  subsamplings and an odd size, and aom film grain tables (AR lags 0
+  and 1, chroma grain alone, chroma scaling from luma);
+- the scene's albedo as a plain Image.save (intra block copy), and its
+  albedo and RGBA leaf with film grain.
 manifest.json holds, for each file, the shape, dtype and sha256 of
 np.asarray of what the JAX read_ldr decodes through PIL, and the
 versions of Pillow, libavif, dav1d and aom. The machine with the card
@@ -72,6 +80,17 @@ ALBEDO, ALBEDO_LOSSLESS, LEAF = ("albedo.avif", "albedo_lossless.avif",
                                  "leaf.avif")
 # The scene's textures as Pillow's default saves, the in-loop filters on.
 ALBEDO_DEFAULT, LEAF_DEFAULT = "albedo_default.avif", "leaf_default.avif"
+# The albedo as a plain Image.save (speed 6: aom codes the flat albedo
+# with intra block copy), and the albedo and RGBA leaf as default saves
+# with film grain (aom's film-grain-test vector GRAIN_VECTOR: luma and
+# chroma grain, AR lag 3, overlap; libavif hands the option to the alpha
+# item's encoder too, so the leaf's alpha carries grain).
+ALBEDO_PLAIN, ALBEDO_GRAIN, LEAF_GRAIN = ("albedo_plain.avif",
+                                          "albedo_grain.avif",
+                                          "leaf_grain.avif")
+GRAIN_VECTOR = "2"
+# Screen content with intra block copy on.
+SCREEN = {"tune-content": "screen", "enable-intrabc": "1"}
 # Every filter on (aom turns CDEF and restoration off at some speeds).
 ALL_ON = {"enable-cdef": "1", "enable-restoration": "1",
           "loopfilter-control": "1", "enable-intrabc": "0"}
@@ -81,6 +100,13 @@ def filtered(name: str) -> bool:
     """A fixture of part 2: its frame written with the filters on."""
     return name.startswith("filt_") or name in (ALBEDO_DEFAULT,
                                                 LEAF_DEFAULT)
+
+
+def copy_or_grain(name: str) -> bool:
+    """A fixture of intra block copy or film grain (ibc_*, grain_*, and the
+    scene's plain-save albedo and grain albedo and leaf)."""
+    return name.startswith(("ibc_", "grain_")) or name in (
+        ALBEDO_PLAIN, ALBEDO_GRAIN, LEAF_GRAIN)
 TOOLS_OFF = ("enable-filter-intra", "enable-cfl-intra", "enable-smooth-intra",
              "enable-paeth-intra", "enable-angle-delta",
              "enable-directional-intra", "enable-diagonal-intra",
@@ -117,6 +143,19 @@ def screen(rng, h: int, w: int) -> np.ndarray:
         y, x = rng.integers(0, h), rng.integers(0, w)
         img[y:y + rng.integers(2, 20), x:x + rng.integers(2, 40)] = \
             colours[rng.integers(0, 6)]
+    return img
+
+
+def text(rng, h: int, w: int) -> np.ndarray:
+    """Rows of 5x3 two-colour glyphs, twelve of them, in four inks on
+    white: text, whose repeats aom codes with intra block copy."""
+    img = np.full((h, w, 3), 255, np.uint8)
+    glyphs = rng.integers(0, 2, (12, 5, 3)).astype(bool)
+    inks = rng.integers(0, 200, (4, 3))
+    for y in range(1, h - 5, 7):
+        ink = inks[rng.integers(0, 4)]
+        for x in range(1, w - 3, 4):
+            img[y:y + 5, x:x + 3][glyphs[rng.integers(0, 12)]] = ink
     return img
 
 
@@ -274,6 +313,66 @@ def filter_files(rng) -> dict:
     return out
 
 
+def intrabc_files(rng) -> dict:
+    """Screen content saved with intra block copy on (Pillow's default
+    save otherwise): text at every subsampling, with an alpha of
+    rectangles and with 128x128 superblocks, small and odd sizes."""
+    out = {}
+    save = ae.pil_default
+    txt = text(rng, 192, 256)
+    for sub in ("4:2:0", "4:2:2", "4:4:4", "4:0:0"):
+        out[f"ibc_sub_{sub.replace(':', '')}.avif"] = save(
+            txt, quality=50, speed=4, subsampling=sub, advanced=SCREEN)
+    rgba = np.concatenate([text(rng, 192, 256),
+                           screen(rng, 192, 256)[..., :1]], -1)
+    out["ibc_rgba.avif"] = save(rgba, quality=50, speed=4, advanced=SCREEN)
+    out["ibc_sb_128.avif"] = save(text(rng, 200, 260), quality=50,
+                                  speed=4, advanced={**SCREEN,
+                                                     "sb-size": "128"})
+    for h, w in ((1, 1), (2, 3), (65, 33)):
+        out[f"ibc_size_{w}x{h}.avif"] = save(screen(rng, h, w), quality=50,
+                                             speed=4, advanced=SCREEN)
+    return out
+
+
+def grain_files(rng) -> dict:
+    """Film grain: each of aom's 16 film-grain-test vectors (odd ones at
+    limited range, where the vectors that ask for it clip to the
+    restricted range), vector GRAIN_VECTOR at the other subsamplings and
+    an odd size, and tables of aom's own text format for what the vectors
+    leave out: AR lags 0 and 1, chroma grain without luma grain, chroma
+    scaling from luma at 4:2:2."""
+    out = {}
+    save = ae.pil_default
+    img = sample(rng, 40, 48)
+    for k in range(1, 17):
+        out[f"grain_test_{k}.avif"] = save(
+            img, quality=60, range="limited" if k % 2 else "full",
+            advanced={"film-grain-test": str(k)})
+    for sub in ("4:2:2", "4:4:4", "4:0:0"):
+        out[f"grain_sub_{sub.replace(':', '')}.avif"] = save(
+            sample(rng, 30, 44), quality=60, subsampling=sub,
+            advanced={"film-grain-test": GRAIN_VECTOR})
+    out["grain_size_33x65.avif"] = save(
+        sample(rng, 65, 33), quality=60,
+        advanced={"film-grain-test": GRAIN_VECTOR})
+    out["grain_table_lag0.avif"] = ae.pil_grain(img, ae.grain_table(
+        seed=4321, lag=0, overlap=1, y_points=((0, 20), (128, 60), (255, 30)),
+        cb_points=((0, 40), (255, 40)), cr_points=((64, 20), (192, 70)),
+        cb=(100, 160, 300), cr=(150, 90, 220), ar_cb=(12,), ar_cr=(-20,)),
+        quality=60)
+    out["grain_table_lag1_444.avif"] = ae.pil_grain(img, ae.grain_table(
+        seed=99, lag=1, scale_shift=1, cb_points=((16, 64), (200, 90)),
+        cr_points=((0, 50),), ar_cb=(10, -20, 30, 5), ar_cr=(-8, 4, 0, 12)),
+        quality=60, subsampling="4:4:4")
+    out["grain_table_cfl_422.avif"] = ae.pil_grain(img, ae.grain_table(
+        seed=17, lag=1, ar_shift=8, scaling_shift=10, from_luma=1,
+        overlap=1, y_points=((10, 90), (240, 120)), ar_y=(6, -12, 20, 30),
+        ar_cb=(3, 5, -7, 9, 40), ar_cr=(-3, 8, 2, -1, -30)),
+        quality=60, subsampling="4:2:2")
+    return out
+
+
 def box_files(rng) -> dict:
     """tests/avif_encode.py's rewrites of Pillow's files."""
     out = {}
@@ -311,12 +410,16 @@ def scene_textures() -> dict:
 
     albedo = _to_uint8(albedo_image(1024))
     leaf = _to_uint8(leaf_image(512))
+    grain = {"film-grain-test": GRAIN_VECTOR}
     return {ALBEDO: ae.pil_avif(albedo, quality=80, speed=6),
             ALBEDO_LOSSLESS: ae.pil_avif(albedo, quality=100, speed=6,
                                          subsampling="4:4:4"),
             LEAF: ae.pil_avif(leaf, quality=90, speed=6),
             ALBEDO_DEFAULT: ae.pil_default(albedo, quality=80, speed=8),
-            LEAF_DEFAULT: ae.pil_default(leaf)}
+            LEAF_DEFAULT: ae.pil_default(leaf),
+            ALBEDO_PLAIN: ae.pil_default(albedo),
+            ALBEDO_GRAIN: ae.pil_default(albedo, advanced=grain),
+            LEAF_GRAIN: ae.pil_default(leaf, advanced=grain)}
 
 
 def versions() -> dict:
@@ -334,7 +437,9 @@ def main(out_dir: str = FIXTURE_DIR) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     rng = np.random.default_rng(20261021)
     files = {**pil_files(rng), **box_files(rng), **scene_textures(),
-             **filter_files(np.random.default_rng(20261022))}
+             **filter_files(np.random.default_rng(20261022)),
+             **intrabc_files(np.random.default_rng(20261023)),
+             **grain_files(np.random.default_rng(20261024))}
     manifest = {**versions(), "files": {}}
     for name, data in files.items():
         path = os.path.join(out_dir, name)

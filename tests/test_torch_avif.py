@@ -12,20 +12,27 @@ together, to use every block tool of the decoder; those of part 2
 use, together, every filter the decoder follows: deblocking (its 13-tap
 luma filter and chroma edges, sharpness 0 and 7, delta LF), CDEF (luma
 and chroma), and Wiener, self-guided (sets with r0 = 0 and with r1 = 0)
-and switchable restoration units, reported by the decoder itself.
+and switchable restoration units, reported by the decoder itself; those
+of intra block copy and film grain (ibc_*, grain_*, albedo_plain,
+albedo_grain, leaf_grain) to use, together, a vector from the stack and
+the default one, var-tx splits, the three inter transform sets and a
+sub-8x8 block's chroma, and grain of every AR lag, with and without
+overlap, chroma scaling from luma, the restricted clip, luma grain alone
+and chroma grain alone. A plain Image.save of the scene's albedo uses
+intra block copy.
 Hypothesis sweeps random images and animations through Pillow's encoder
 (subsampling, range, speed, quality, alpha, tool switches, all with the
-filters off), Pillow's default saves (the filters on), truncated files
-and replaced bytes. Where PIL refuses a file the port raises: ValueError
+filters off), Pillow's default saves (the filters on), screen content
+with intra block copy on, aom film grain tables, truncated files and
+replaced bytes. Where PIL refuses a file the port raises: ValueError
 where PIL raises OSError, ValueError, SyntaxError, RuntimeError or
 AssertionError, NotImplementedError where PIL cannot identify it. Files
-that need what the port still leaves out (film grain, intra block copy,
-the matrices libavif converts in floating point) raise
-NotImplementedError naming ROADMAP item 22b, AVIF part 2. The AV1 tables
-in csrc/av1_tables.inc equal those of the libraries present
-(tests/make_av1_tables.py --check). A PBRT scene whose albedo is an AVIF
-and whose leaf an RGBA AVIF compiles in both packages to the same
-leaves, bit for bit.
+that need what the port still leaves out (the matrices libavif converts
+in floating point, say) raise NotImplementedError naming ROADMAP item
+22b, AVIF part 2. The AV1 tables in csrc/av1_tables.inc equal those of
+the libraries present (tests/make_av1_tables.py --check). PBRT scenes
+whose albedo is an AVIF and whose leaf an RGBA AVIF compile in both
+packages to the same leaves, bit for bit.
 """
 
 import json
@@ -44,10 +51,14 @@ from make_avif_fixtures import (
     ALBEDO,
     ALBEDO_DEFAULT,
     ALBEDO_LOSSLESS,
+    ALBEDO_PLAIN,
     FIXTURE_DIR,
     LEAF,
     LEAF_DEFAULT,
+    LEAF_GRAIN,
+    SCREEN,
     TOOLS_OFF,
+    copy_or_grain,
     filtered,
     sample,
     screen,
@@ -149,7 +160,8 @@ def test_fixtures_have_the_filters_off_and_cover_the_decoder():
     lossless."""
     tools, flags, layouts = set(), set(), set()
     lossless = tiles = sb128 = 0
-    part1 = [name for name in FIXTURES if not filtered(name)]
+    part1 = [name for name in FIXTURES
+             if not filtered(name) and not copy_or_grain(name)]
     for name in part1:
         data = open(os.path.join(FIXTURE_DIR, name), "rb").read()
         head = avif.frame_info(data, name, headers_only=True)
@@ -205,6 +217,50 @@ def test_filtered_fixtures_cover_the_filters():
                        (True, 1, 1)}
     assert sharp >= {0, 7} and lr >= {"wiener", "sgrproj", "switchable"}
     assert units >= {128, 256} and tiles >= 2 and sb == 3
+
+
+def test_copy_and_grain_fixtures_cover_the_decoder():
+    """The fixtures of intra block copy and film grain: by the decoder's
+    own report, together they use a vector from the stack and the default
+    one, var-tx splits, inter transform sets 1, 2 and 3 and a sub-8x8
+    block's chroma, and grain of AR lags 0-3 with and without overlap,
+    chroma scaling from luma, the restricted clip, luma grain alone and
+    chroma grain alone; each tool at all four subsamplings. No other
+    fixture uses either."""
+    ibc, grain, layouts, overlap_off = set(), set(), set(), 0
+    for name in FIXTURES:
+        info = avif.frame_info(
+            open(os.path.join(FIXTURE_DIR, name), "rb").read(), name)
+        if not copy_or_grain(name):
+            assert info["intrabc"] == info["grain"] == set(), name
+            continue
+        ibc |= info["intrabc"]
+        grain |= info["grain"]
+        layout = (info["mono"], *info["subsampling"])
+        layouts |= {(layout, k) for k in ("intrabc", "grain") if info[k]}
+        overlap_off += "grain" in info["grain"] and (
+            "overlap" not in info["grain"])
+    assert ibc == set(avif.INTRABC) and grain == set(avif.GRAIN)
+    assert overlap_off >= 1
+    assert layouts == {(layout, k) for layout in (
+        (False, 1, 1), (False, 1, 0), (False, 0, 0), (True, 1, 1))
+        for k in ("intrabc", "grain")}
+
+
+def test_plain_save_albedo_uses_intra_block_copy():
+    """The scene's 1024x1024 albedo as a plain Image.save (Pillow's and
+    aom's defaults: speed 6): aom codes the flat procedural texture with
+    intra block copy (vectors from the stack and the default one, var-tx
+    splits, all three inter transform sets), and the port reads it as
+    the JAX read_ldr reads it, with and without gamma_to_linear."""
+    path = os.path.join(FIXTURE_DIR, ALBEDO_PLAIN)
+    info = avif.frame_info(open(path, "rb").read(), ALBEDO_PLAIN)
+    assert info["size"] == (1024, 1024)
+    assert {"intrabc", "stack_dv", "default_dv", "var_tx", "inter_tx_set_1",
+            "inter_tx_set_2", "inter_tx_set_3"} <= info["intrabc"]
+    assert np.array_equal(image_io.read_ldr(path), jax_read_ldr(path))
+    assert np.array_equal(image_io.read_ldr(path, gamma_to_linear=True),
+                          jax_read_ldr(path, gamma_to_linear=True))
 
 
 def test_default_scene_textures_have_the_filters_on():
@@ -333,26 +389,24 @@ def _sources(rng):
 
 def _refused_by_design(data: bytes) -> bool:
     """A replaced byte that made the frame ask for a feature the port
-    still leaves out (film grain, superres, intra block copy, say),
-    which the port refuses by design where dav1d decodes it."""
+    still leaves out (superres or high bit depth, say), or an intra block
+    copy vector that points outside what is decoded (which dav1d copies
+    from whatever its frame buffer holds, so PIL's pixels there are not
+    repeatable): the port refuses these by design where dav1d decodes
+    them, and for no other reason."""
     try:
         avif.read_avif(data)
     except NotImplementedError as e:
         return ITEM in str(e)
-    except ValueError:
-        pass
+    except ValueError as e:
+        return avif.INVALID_DV in str(e)
     return False
 
 
 def _refused():
     """Files PIL reads whose features the port still leaves to part 2."""
     img = sample(np.random.default_rng(7), 64, 64)
-    scr = screen(np.random.default_rng(5), 128, 160)
     return {
-        "film_grain": ae.pil_default(img, advanced={"film-grain-test": "1"}),
-        "intrabc": ae.pil_avif(scr, quality=40, speed=6, advanced={
-            "tune-content": "screen", "enable-intrabc": "1",
-            "enable-palette": "1"}),
         "matrix_fcc": ae.set_nclx(ae.pil_avif(img), mc=4),
         "matrix_ycgco": ae.set_nclx(ae.pil_avif(img), mc=8, full=1),
     }
@@ -360,16 +414,116 @@ def _refused():
 
 @pytest.mark.parametrize("case", sorted(_refused()))
 def test_refused_features_name_avif_part_2(tmp_path, case):
-    """Film grain, intra block copy, and matrix coefficients libavif
-    converts in its own float path: PIL reads each file, the port raises
-    NotImplementedError naming ROADMAP item 22b, AVIF part 2, from the
-    headers."""
+    """Matrix coefficients libavif converts in its own float path: PIL
+    reads each file, the port raises NotImplementedError naming ROADMAP
+    item 22b, AVIF part 2."""
     data = _refused()[case]
     path = tmp_path / "r.avif"
     path.write_bytes(data)
     assert jax_read_ldr(path).shape[:2] in ((64, 64), (128, 160))
     with pytest.raises(NotImplementedError, match=ITEM):
         image_io.read_ldr(str(path))
+
+
+def _copy_and_grain_saves():
+    """The two cases the port refused before it read intra block copy and
+    film grain, with what each must use."""
+    img = sample(np.random.default_rng(7), 64, 64)
+    scr = screen(np.random.default_rng(5), 128, 160)
+    return {
+        "film_grain": (ae.pil_default(img, advanced={
+            "film-grain-test": "1"}), "grain"),
+        "intrabc": (ae.pil_avif(scr, quality=40, speed=6, advanced={
+            **SCREEN, "enable-palette": "1"}), "intrabc"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_copy_and_grain_saves()))
+def test_copy_and_grain_saves_read_as_the_jax_read_ldr(tmp_path, case):
+    """Film grain (aom's film-grain-test 1) and screen content with intra
+    block copy: the frame uses the tool, and the port reads the file as
+    the JAX read_ldr reads it, with and without gamma_to_linear."""
+    data, tool = _copy_and_grain_saves()[case]
+    assert tool in avif.frame_info(data)[tool]
+    assert assert_as_jax(tmp_path / "c.avif", data) is not None
+    path = tmp_path / "c.avif"
+    assert np.array_equal(image_io.read_ldr(str(path), gamma_to_linear=True),
+                          jax_read_ldr(path, gamma_to_linear=True))
+
+
+# Screen content aom codes with intra block copy at 128x160 (aom keeps it
+# only where it pays, which in frames this small it seldom does).
+SCREEN_128X160 = screen(np.random.default_rng(5), 128, 160)
+
+
+@settings(max_examples=15, deadline=None, derandomize=True)
+@given(seed=st.integers(0, 2**31 - 1))
+def test_intrabc_sweep(scratch, seed):
+    """128x160 screen content recoloured (its channels permuted and
+    XORed with a byte), saved with tune-content screen and intra block
+    copy on at a speed 0-7, quality 30-100 and subsampling drawn
+    uniformly from the seed, with or without alpha, Pillow's default
+    save otherwise: read as PIL reads it (aom turns the tool off again on
+    more than half of them, which then read with the in-loop filters
+    on)."""
+    rng = np.random.default_rng(seed)
+
+    def recolour():
+        return (SCREEN_128X160[..., rng.permutation(3)]
+                ^ np.uint8(rng.integers(0, 256)))
+
+    img = recolour()
+    if rng.integers(0, 2):
+        img = np.concatenate([img, recolour()[..., :1]], -1)
+    data = ae.pil_default(img, quality=int(rng.integers(30, 101)),
+                          speed=int(rng.integers(0, 8)),
+                          subsampling=SUBSAMPLINGS[rng.integers(0, 4)],
+                          advanced=SCREEN)
+    assert assert_as_jax(scratch / "b.avif", data) is not None
+
+
+@settings(max_examples=30, deadline=None, derandomize=True)
+@given(seed=st.integers(0, 2**31 - 1), w=st.integers(1, 64),
+       h=st.integers(1, 64), sub=st.sampled_from(SUBSAMPLINGS),
+       lag=st.integers(0, 3), ar_shift=st.integers(6, 9),
+       scale_shift=st.integers(0, 3), scaling_shift=st.integers(8, 11),
+       from_luma=st.booleans(), overlap=st.booleans(), full=st.booleans(),
+       grain_seed=st.integers(0, 65535), rgba=st.booleans())
+def test_grain_table_sweep(scratch, seed, w, h, sub, lag, ar_shift,
+                           scale_shift, scaling_shift, from_luma, overlap,
+                           full, grain_seed, rgba):
+    """Film grain from aom's own table format (grain_table.c's filmgrn1
+    text): random scaling points (none too), AR coefficients of every
+    lag, chroma multipliers, chroma scaling from luma, overlap, seeds, at
+    every subsampling and range: read as PIL reads it (with the grain
+    dav1d adds)."""
+    rng = np.random.default_rng(seed)
+
+    def points(most):
+        n = int(rng.integers(0, most + 1))
+        xs = np.sort(rng.choice(256, n, replace=False))
+        return [(int(x), int(y)) for x, y in zip(xs, rng.integers(0, 256, n))]
+
+    y_pts, cb_pts, cr_pts = points(14), points(10), points(10)
+    if sub == "4:2:0" and bool(cb_pts) != bool(cr_pts):
+        cr_pts = cb_pts                 # dav1d refuses one without the other
+    n = 2 * lag * (lag + 1)
+    table = ae.grain_table(
+        seed=grain_seed, lag=lag, ar_shift=ar_shift, scale_shift=scale_shift,
+        scaling_shift=scaling_shift, from_luma=int(from_luma),
+        overlap=int(overlap), y_points=y_pts, cb_points=cb_pts,
+        cr_points=cr_pts, cb=(int(rng.integers(0, 256)),
+                              int(rng.integers(0, 256)),
+                              int(rng.integers(0, 512))),
+        cr=(int(rng.integers(0, 256)), int(rng.integers(0, 256)),
+            int(rng.integers(0, 512))),
+        ar_y=rng.integers(-128, 128, n).tolist(),
+        ar_cb=rng.integers(-128, 128, n + 1).tolist(),
+        ar_cr=rng.integers(-128, 128, n + 1).tolist())
+    img = sample(rng, h, w, 4 if rgba else 3)
+    data = ae.pil_grain(img, table, quality=int(rng.integers(20, 90)),
+                        subsampling=sub, range="full" if full else "limited")
+    assert assert_as_jax(scratch / "g.avif", data) is not None
 
 
 def _filtered_saves():
@@ -554,6 +708,27 @@ def test_filtered_avif_scene_compiles_as_jax(tmp_path):
                                     leaves=8, albedo=8, normal=8, leaf=8)
     retexture(tex, {"albedo.png": os.path.join(FIXTURE_DIR, ALBEDO_DEFAULT),
                     "leaf.png": os.path.join(FIXTURE_DIR, LEAF_DEFAULT)})
+    got = compile_scene(parse_pbrt(lit))
+    assert_same(jax_tree(jax_compile(lit)), got.as_numpy())
+
+
+def test_copy_and_grain_avif_scene_compiles_as_jax(tmp_path):
+    """The same scene with its albedo a plain Image.save (intra block
+    copy) and its RGBA leaf a default save with film grain, on its alpha
+    item too (what chip_smoke.py renders on the card): the same leaves in
+    both packages, bit for bit."""
+    from test_torch_instanced import assert_same, jax_compile, jax_tree
+    from tracerboy_tpu_torch.scene.compile import compile_scene
+    from tracerboy_tpu_torch.scene.pbrt_parser import parse_pbrt
+    from tracerboy_tpu_torch.utils.demo_scene import (
+        retexture,
+        write_textured_scene,
+    )
+
+    tex, lit = write_textured_scene(str(tmp_path), grid=8, sky=(16, 8),
+                                    leaves=8, albedo=8, normal=8, leaf=8)
+    retexture(tex, {"albedo.png": os.path.join(FIXTURE_DIR, ALBEDO_PLAIN),
+                    "leaf.png": os.path.join(FIXTURE_DIR, LEAF_GRAIN)})
     got = compile_scene(parse_pbrt(lit))
     assert_same(jax_tree(jax_compile(lit)), got.as_numpy())
 

@@ -4,10 +4,12 @@ the shape, dtype and sha256 of PIL's array in its manifest
 (tests/make_avif_fixtures.py wrote both; the in-loop filters' fixtures
 among them), and the textured demo scene with its albedo and RGBA leaf
 Pillow's default saves (the in-loop filters on), whose deblocked alpha
-item makes the cutouts, renders on the card with every closest-hit launch of
-kernel 1 (main waves, alpha re-fires, shadow-BVH rounds) held against its
-plain version: hits equal, t to 1e-6 relative, ids equal but on at most
-1e-4 of the hit lanes (ties), no stack overflow.
+item makes the cutouts, and again with its albedo a plain Image.save
+(intra block copy) and its leaf a save with film grain (its alpha item's
+too), renders on the card with every closest-hit launch of kernel 1
+(main waves, alpha re-fires, shadow-BVH rounds) held against its plain
+version: hits equal, t to 1e-6 relative, ids equal but on at most 1e-4
+of the hit lanes (ties), no stack overflow.
 
 Under the `cuda` marker (skipped without a card). This module imports no
 jax and no PIL: `python -m pytest --noconftest -m cuda
@@ -53,6 +55,18 @@ def test_fixture_hash_matches_pil(cuda_device, name):
 @pytest.mark.cuda
 def test_avif_scene_launches_equal_their_plain_version(cuda_device, tmp_path,
                                                       monkeypatch):
+    scene_launches_check(tmp_path, monkeypatch, "albedo_default.avif",
+                         "leaf_default.avif")
+
+
+@pytest.mark.cuda
+def test_copy_grain_scene_launches_equal_their_plain_version(
+        cuda_device, tmp_path, monkeypatch):
+    scene_launches_check(tmp_path, monkeypatch, "albedo_plain.avif",
+                         "leaf_grain.avif")
+
+
+def scene_launches_check(tmp_path, monkeypatch, albedo, leaf):
     from tracerboy_tpu_torch import Renderer
     from tracerboy_tpu_torch.trace import kernels, traverse
     from tracerboy_tpu_torch.utils.demo_scene import (
@@ -63,9 +77,8 @@ def test_avif_scene_launches_equal_their_plain_version(cuda_device, tmp_path,
     tex, lit = write_textured_scene(str(tmp_path), grid=64, sky=(64, 32),
                                     leaves=512, albedo=8, normal=64,
                                     leaf=8)
-    retexture(tex, {"albedo.png": os.path.join(FIXTURES,
-                                               "albedo_default.avif"),
-                    "leaf.png": os.path.join(FIXTURES, "leaf_default.avif")})
+    retexture(tex, {"albedo.png": os.path.join(FIXTURES, albedo),
+                    "leaf.png": os.path.join(FIXTURES, leaf)})
     calls = []
     real = traverse.closest_hit
 

@@ -16,12 +16,12 @@ whose first frame lies inside a larger canvas, truncated files and
 corrupted bitstreams. Where PIL refuses a file the port raises:
 ValueError where PIL raises OSError, ValueError, EOFError, KeyError or
 IndexError, NotImplementedError where PIL cannot identify it. AVIF files
-whose AV1 frame carries film grain, which PIL reads, raise
-NotImplementedError naming ROADMAP item 22b; AVIF files as Pillow saves
-them by default (the in-loop filters on) and with the filters off
-(core/avif.py, tests/test_torch_avif.py) and JPEG 2000 files read as the
-JAX read_ldr reads them (core/jpeg2000.py,
-tests/test_torch_jpeg2000.py). A PBRT scene whose albedo and leaf are
+whose matrix coefficients libavif converts in its own float path, which
+PIL reads, raise NotImplementedError naming ROADMAP item 22b; AVIF files
+as Pillow saves them by default (the in-loop filters on), with the
+filters off and with film grain (core/avif.py, tests/test_torch_avif.py)
+and JPEG 2000 files read as the JAX read_ldr reads them
+(core/jpeg2000.py, tests/test_torch_jpeg2000.py). A PBRT scene whose albedo and leaf are
 WebPs and whose environment map is a QOI compiles in both packages to the
 same leaves, bit for bit.
 """
@@ -38,6 +38,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 from PIL import Image, UnidentifiedImageError
 
+import avif_encode as ae
 import webp_encode as we
 from make_dds_fixtures import array_digest, pil_pixels
 from make_webp_fixtures import ALBEDO, ALBEDO_LOSSLESS, FIXTURE_DIR, LEAF
@@ -339,19 +340,23 @@ def test_alpha_stream_cut_short(scratch, seed, quality, alpha_quality,
 
 
 def test_unported_formats_name_item_22b(tmp_path):
-    """AVIF with film grain (aom's film-grain-test), which PIL reads (the
-    JAX read_ldr renders it), is not ported yet: NotImplementedError
-    naming ROADMAP item 22b. AVIF as Pillow saves it by default (the
-    in-loop filters on) and with the filters off, and JPEG 2000, which
-    PIL reads too, read as the JAX read_ldr reads them."""
+    """AVIF whose colr box names matrix coefficients 4 (FCC), which
+    libavif converts in its own float path and PIL reads (the JAX
+    read_ldr renders it), is not ported yet: NotImplementedError naming
+    ROADMAP item 22b. AVIF as Pillow saves it by default (the in-loop
+    filters on), with film grain (aom's film-grain-test) and with the
+    filters off, and JPEG 2000, which PIL reads too, read as the JAX
+    read_ldr reads them."""
     img = Image.fromarray(sample_image(np.random.default_rng(13), 16, 16)[
         ..., :3])
     path = tmp_path / "x.avif"
-    img.save(path, "AVIF", advanced={"film-grain-test": "1"})
+    path.write_bytes(ae.set_nclx(ae.pil_default(img), mc=4))
     assert jax_read_ldr(path).shape == (16, 16, 3)
     with pytest.raises(NotImplementedError, match=ITEM):
         image_io.read_ldr(str(path))
     img.save(path, "AVIF")
+    assert np.array_equal(image_io.read_ldr(str(path)), jax_read_ldr(path))
+    img.save(path, "AVIF", advanced={"film-grain-test": "1"})
     assert np.array_equal(image_io.read_ldr(str(path)), jax_read_ldr(path))
     img.save(path, "AVIF", advanced={"enable-cdef": "0",
                                      "enable-restoration": "0",

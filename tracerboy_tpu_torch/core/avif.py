@@ -32,23 +32,27 @@ original does it:
   the moov box is checked as far as a first frame needs it, so a
   damaged track box that libavif refuses may still be read here.
 - the AV1 frame: csrc/av1_decode.cpp, which decodes an 8-bit intra
-  frame, its in-loop filters included (deblocking with delta LF, CDEF,
-  loop restoration with Wiener and self-guided units: av1_filters.inc),
-  and converts YUV to RGB(A) as libavif hands it to libyuv (bilinear
-  chroma upsampling, libyuv's fixed-point matrices, libyuv's
-  un-premultiply where a prem reference marks the alpha).
+  frame, intra block copy and its in-loop filters included (deblocking
+  with delta LF, CDEF, loop restoration with Wiener and self-guided
+  units: av1_filters.inc), applies its film grain to the planes it hands
+  out as dav1d does (av1_grain.inc; the alpha item's too, where its
+  frame carries grain), and converts YUV to RGB(A) as libavif hands it
+  to libyuv (bilinear chroma upsampling, libyuv's fixed-point matrices,
+  libyuv's un-premultiply where a prem reference marks the alpha).
 
 Refused with NotImplementedError naming ROADMAP item 22b, AVIF part 2,
-where PIL reads the file: superres, intra block copy, high bit depth (10
-and 12 bits), film grain, a frame that is not a shown key frame, grid
-and iovl items, and the matrix coefficients libavif converts without
-libyuv (4 FCC, 7 SMPTE 240M, 8 YCgCo, 12 with primaries other than
-BT.709, BT.601 or BT.2020, and 15 to 254). The matrices libavif refuses
-(3, 10, 11, 13, 14, 255; identity unless 4:4:4; YCgCo at limited range)
-raise ValueError, as PIL raises.
-So does an ispe that disagrees with the AV1 frame, where Pillow lays
-the frame's pixels out at the ispe's size and returns what lies past
-them.
+where PIL reads the file: the matrix coefficients libavif converts
+without libyuv (4 FCC, 7 SMPTE 240M, 8 YCgCo, 12 with primaries other
+than BT.709, BT.601 or BT.2020, and 15 to 254), grid and iovl items, a
+frame that is not a shown key frame, superres and high bit depth (10
+and 12 bits); libavif's moov checks are followed only as far as a first
+frame needs them. The matrices libavif refuses (3, 10, 11, 13, 14, 255;
+identity unless 4:4:4; YCgCo at limited range) raise ValueError, as PIL
+raises. So does an ispe that disagrees with the AV1 frame, where Pillow
+lays the frame's pixels out at the ispe's size and returns what lies
+past them, and an intra block copy vector that points outside what is
+decoded (INVALID_DV), which dav1d copies from whatever its frame buffer
+holds there.
 """
 
 from __future__ import annotations
@@ -63,10 +67,12 @@ from tracerboy_tpu_torch.core.image_io import (
     check_image_size,
 )
 
-ITEM = ("ROADMAP.md, Queue 1: item 22b, AVIF part 2 (superres, intra "
-        "block copy, high bit depth, film grain, grid and iovl items, "
-        "frames that are not shown key frames, libavif's float-path "
-        "matrices)")
+ITEM = ("ROADMAP.md, Queue 1: item 22b, AVIF part 2 (libavif's float-path "
+        "matrices, grid and iovl items, frames that are not shown key "
+        "frames, libavif's moov checks, superres, high bit depth)")
+# The decoder's refusal of an intra block copy vector outside the decoded
+# area (ValueError: corrupt).
+INVALID_DV = "an intra block copy vector outside the decoded area"
 BRANDS = (b"avif", b"avis", b"mif1", b"msf1")
 ALPHA_URNS = (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
               b"urn:mpeg:hevc:2015:auxid:1")
@@ -779,6 +785,16 @@ FILTERS = ("deblocking", "deblocking_13_tap", "deblocking_chroma",
            "delta_lf", "cdef", "cdef_chroma", "wiener", "sgrproj",
            "sgrproj_r0_zero", "sgrproj_r1_zero", "switchable")
 LR_TYPES = ("none", "wiener", "sgrproj", "switchable")
+# info[15]'s bits above the filters: intra block copy (a block that used
+# it, its vector from the stack or the default one, a var-tx split, the
+# inter transform type sets read, a sub-8x8 block's chroma), then film
+# grain (applied, the AR lag, overlap, chroma scaling from luma, the
+# restricted clip, luma grain alone, chroma grain alone).
+INTRABC = ("intrabc", "stack_dv", "default_dv", "var_tx", "inter_tx_set_1",
+           "inter_tx_set_2", "inter_tx_set_3", "sub8x8_chroma")
+GRAIN = ("grain", "ar_lag_0", "ar_lag_1", "ar_lag_2", "ar_lag_3",
+         "overlap", "chroma_from_luma", "restricted_clip", "luma_only",
+         "chroma_only")
 HEADER_FLAGS = ("qm", "segmentation", "delta_q", "screen_content",
                 "delta_lf", "reduced_tx_set", "tx_mode_select",
                 "disable_cdf_update")
@@ -789,8 +805,8 @@ def frame_info(data: bytes, path: str = "<avif>",
     """What the colour frame's headers say (its loop filter sharpness,
     CDEF bits, restoration types and unit sizes among it)
     and (unless headers_only, which reads the OBUs up to the first frame
-    header, the feature checks included) which block tools and in-loop
-    filters its decode used."""
+    header, the feature checks included) which block tools, in-loop
+    filters, intra block copy paths and film grain its decode used."""
     try:
         color = _parse(data)[0]
     except (_Unidentified, _Failed) as e:
@@ -828,4 +844,9 @@ def frame_info(data: bytes, path: str = "<avif>",
                               for p in range(1 if info[2] else 3)),
             "tools": {t for k, t in enumerate(TOOLS) if info[15] >> k & 1},
             "filters": {f for k, f in enumerate(FILTERS)
-                        if info[15] >> (len(TOOLS) + k) & 1}}
+                        if info[15] >> (len(TOOLS) + k) & 1},
+            "intrabc": {f for k, f in enumerate(INTRABC)
+                        if info[15] >> (len(TOOLS) + len(FILTERS) + k) & 1},
+            "grain": {f for k, f in enumerate(GRAIN)
+                      if info[15] >> (len(TOOLS) + len(FILTERS)
+                                      + len(INTRABC) + k) & 1}}

@@ -16,8 +16,9 @@ ctypes:
   -ffp-contract=off: no fused multiply-add may change a 9/7 or ICT
   result;
 - av1_library(): csrc/av1_decode.cpp (an AV1 intra frame's OBUs to its
-  planes, with csrc/av1_tables.inc, and libavif's YUV-to-RGB), for
-  core/avif.py.
+  planes, with csrc/av1_tables.inc, its in-loop filters in
+  csrc/av1_filters.inc and its film grain in csrc/av1_grain.inc, and
+  libavif's YUV-to-RGB), for core/avif.py.
 """
 
 from __future__ import annotations
@@ -103,7 +104,7 @@ def av1_library():
 
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     return _load("tbav1", "av1_decode.cpp",
-                 ("av1_tables.inc", "av1_filters.inc"), (
+                 ("av1_tables.inc", "av1_filters.inc", "av1_grain.inc"), (
         ("tb_av1_decode", [p, i64, p, i64, p, ctypes.c_char_p, i64]),
         ("tb_avif_to_rgb", [p, p, p, i64, i64, i64, i64, i64, i64, p, i64,
                             p])))

@@ -45,10 +45,10 @@ Formats:
   bit as OpenJPEG and Pillow's decoder give them.
 - AVIF (core/avif.py: the HEIF box tree as libavif walks it, alpha and
   premultiplied alpha, an animation's first frame; csrc/av1_decode.cpp
-  decodes the AV1 intra frame, deblocking, CDEF and loop restoration
-  included, and converts YUV to RGB as libavif and libyuv do), PIL's
-  pixels bit for bit as dav1d and libavif give them; the rest of AVIF
-  part 2 (film grain, intra block copy, superres, high bit depth, ...)
+  decodes the AV1 intra frame, intra block copy, deblocking, CDEF, loop
+  restoration and film grain included, and converts YUV to RGB as
+  libavif and libyuv do), PIL's pixels bit for bit as dav1d and libavif
+  give them; the rest of AVIF part 2 (superres, high bit depth, ...)
   raises NotImplementedError (ROADMAP item 22b).
 - Radiance HDR (RGBE, RLE): from the published file format spec.
 - PFM: trivial float format (the reference renames .pfm -> .hdr as a hack;

@@ -4,9 +4,10 @@
 // port's build directory (core/codecs.av1_library) and called through
 // ctypes. The constant tables (default CDFs, quantizer lookups, matrices,
 // weights, scans, the CDEF directions, the self-guided parameter sets, the
-// Wiener and self-guided coefficient ranges) are in av1_tables.inc, read
-// out of the AV1 libraries by tests/make_av1_tables.py; the in-loop
-// filters are in av1_filters.inc.
+// Wiener and self-guided coefficient ranges, the Gaussian sequence and the
+// grain overlap weights) are in av1_tables.inc, read out of the AV1
+// libraries by tests/make_av1_tables.py; the in-loop filters are in
+// av1_filters.inc, film grain synthesis in av1_grain.inc.
 //
 // The decoding process is the AV1 specification's (version 1.0.0 with
 // errata 1), section by section: the OBU syntax (5.3-5.12, the loop filter,
@@ -15,20 +16,24 @@
 // decoding (5.11, 6.10) and prediction, reconstruction and the inverse
 // transforms (7.11.2, 7.12, 7.13), then the in-loop filters in their
 // order: the deblocking filter (7.14), CDEF (7.15) and loop restoration
-// (7.17). It is normative, so a decoder that follows it gives dav1d's
-// samples bit for bit. The 1D inverse DCT is written as its recursive
-// butterfly (the even half a DCT of half the size, the odd half's
-// rotations and Hadamard stages in libaom's order, av1_inv_txfm1d.c),
-// which is the specification's flow graph; every Hadamard output is
-// clamped to 16 bits, as libaom and dav1d clamp their 8-bit
+// (7.17). Intra block copy (use_intrabc) follows the inter syntax an
+// intra frame can hold: find_mv_stack's spatial scans (7.10.2), read_mv
+// under MV_INTRABC_CONTEXT, the var-tx tree, the inter transform sets and
+// transform_tree (5.11.15-17, 5.11.36, 5.11.47-48), and the prediction
+// from the frame being decoded (7.11.3). It is normative, so a decoder that
+// follows it gives dav1d's samples bit for bit. The 1D inverse DCT is
+// written as its recursive butterfly (the even half a DCT of half the size,
+// the odd half's rotations and Hadamard stages in libaom's order,
+// av1_inv_txfm1d.c), which is the specification's flow graph; every Hadamard
+// output is clamped to 16 bits, as libaom and dav1d clamp their 8-bit
 // intermediates.
 //
 // What the port still leaves out raises (kUnsupported, with the feature
-// named): superres, intra block copy, film grain (apply_grain), high bit
-// depth, and a frame that is not a shown key frame. These are checked in
-// the headers before any block is decoded. Where the frame is coded
-// lossless the filters are off, as the specification says (and with
-// intra block copy, which is refused).
+// named): superres, high bit depth, and a frame that is not a shown key
+// frame. These are checked in the headers before any block is decoded.
+// Where the frame is coded lossless or allows intra block copy the
+// filters are off, as the specification says. Film grain is applied to
+// the planes handed out, not to the frame (av1_grain.inc).
 //
 // Departures from the specification: none in the decoding. A sequence
 // with several operating points decodes operating point 0, as libavif
@@ -36,10 +41,13 @@
 // stream does follows dav1d 1.5, which Pillow's libavif decodes with:
 // obu_forbidden_bit, tile list and reserved OBUs are ignored; a
 // sequence header or frame header OBU must hold its trailing one bit; an
-// operating_point_idc naming layers of one kind only, and identity
-// matrix coefficients without 4:4:4, are refused; a tile whose symbol
-// decoder reads more than 14 bits past its data is refused (SymbolMaxBits
-// < -14, dav1d's check after each superblock row); and after the frame,
+// operating_point_idc naming layers of one kind only, identity matrix
+// coefficients without 4:4:4, and film grain points dav1d's parser
+// refuses, are refused; an intra block copy vector outside the decoded
+// area (is_mv_valid, which dav1d does not check) is refused as corrupt;
+// a tile whose symbol decoder reads more than 14 bits past its data is
+// refused (SymbolMaxBits < -14, dav1d's check after each superblock
+// row); and after the frame,
 // the OBU headers up to the next frame are still read (an OBU past the
 // data, or a sequence header that changes, fails the decode).
 
@@ -77,6 +85,19 @@ enum {
   kFilterSgrR0Zero = 1 << 25, kFilterSgrR1Zero = 1 << 26,
   kFilterSwitchable = 1 << 27
 };
+// Intra block copy, above them: a block that used it, its vector from the
+// stack or the default one, a var-tx split, each inter transform type set
+// read, and a chroma block of a block under 8 samples wide or high at
+// subsampling. Film grain (av1_grain.inc): applied, its AR lag (one bit
+// each), overlap, chroma scaling from luma, the restricted clip, luma
+// grain without chroma grain, chroma grain without luma grain.
+const uint64_t kIntrabc = 1ull << 28, kIntrabcStackDv = 1ull << 29,
+               kIntrabcDefaultDv = 1ull << 30, kIntrabcVarTx = 1ull << 31,
+               kIntrabcTxSet1 = 1ull << 32, kIntrabcSub8x8Chroma = 1ull << 35;
+const uint64_t kGrain = 1ull << 36, kGrainLag0 = 1ull << 37,
+               kGrainOverlap = 1ull << 41, kGrainFromLuma = 1ull << 42,
+               kGrainClip = 1ull << 43, kGrainLumaOnly = 1ull << 44,
+               kGrainChromaOnly = 1ull << 45;
 enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
 
 struct Error {
@@ -193,6 +214,14 @@ const uint8_t kModeToTxfm[14] = {DCT_DCT, ADST_DCT, DCT_ADST, DCT_DCT,
 const uint8_t kTxInv1[7] = {IDTX, DCT_DCT, V_DCT, H_DCT, ADST_ADST,
                             ADST_DCT, DCT_ADST};
 const uint8_t kTxInv2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
+const uint8_t kTxInterInv1[16] = {
+    IDTX, V_DCT, H_DCT, V_ADST, H_ADST, V_FLIPADST, H_FLIPADST, DCT_DCT,
+    ADST_DCT, DCT_ADST, FLIPADST_DCT, DCT_FLIPADST, ADST_ADST,
+    FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST};
+const uint8_t kTxInterInv2[12] = {
+    IDTX, V_DCT, H_DCT, DCT_DCT, ADST_DCT, DCT_ADST, FLIPADST_DCT,
+    DCT_FLIPADST, ADST_ADST, FLIPADST_FLIPADST, ADST_FLIPADST,
+    FLIPADST_ADST};
 const uint8_t kFilterIntraModeToDir[5] = {DC_PRED, V_PRED, H_PRED, D157_PRED,
                                           DC_PRED};
 const uint8_t kSegFeatureBits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
@@ -395,6 +424,13 @@ struct Cdfs {
   uint16_t base[5][2][42][5];
   uint16_t br[5][2][21][5];
   uint16_t restoration_type[4], use_wiener[3], use_sgrproj[3];
+  // Intra block copy: use_intrabc, its vector's CDFs (MV_INTRABC_CONTEXT;
+  // the other context is for inter frames), txfm_split and the inter
+  // transform type sets.
+  uint16_t intrabc[3], mv_joint[5], mv_class[2][12], mv_sign[2][3],
+      mv_class0[2][3], mv_bits[2][10][3];
+  uint16_t txfm_split[21][3], inter_set1[2][17], inter_set2[13],
+      inter_set3[4][3];
 
   void init(int base_q_idx) {
 #define CP(dst, src) \
@@ -431,6 +467,18 @@ struct Cdfs {
     CP(restoration_type, Default_Restoration_Type_Cdf[0]);
     CP(use_wiener, Default_Use_Wiener_Cdf[0]);
     CP(use_sgrproj, Default_Use_Sgrproj_Cdf[0]);
+    CP(intrabc, Default_Intrabc_Cdf);
+    CP(mv_joint, Default_Mv_Joint_Cdf[0]);
+    for (int c = 0; c < 2; c++) {
+      CP(mv_class[c], Default_Mv_Class_Cdf[0]);
+      CP(mv_sign[c], Default_Mv_Sign_Cdf);
+      CP(mv_class0[c], Default_Mv_Class0_Bit_Cdf);
+      CP(mv_bits[c], Default_Mv_Bit_Cdf);
+    }
+    CP(txfm_split, Default_Txfm_Split_Cdf);
+    CP(inter_set1, Default_Inter_Tx_Type_Set1_Cdf);
+    CP(inter_set2, Default_Inter_Tx_Type_Set2_Cdf[0]);
+    CP(inter_set3, Default_Inter_Tx_Type_Set3_Cdf);
     memset(pal_color, 0, sizeof(pal_color));
     const uint16_t* ys[7] = {
         &Default_Palette_Size_2_Y_Color_Cdf[0][0],
@@ -733,6 +781,18 @@ struct SeqHeader {
   bool valid = false;
 };
 
+// film_grain_params (5.9.30), as read: the AR coefficients and the chroma
+// multipliers without their +128 (+256) offsets.
+struct GrainParams {
+  int apply = 0, seed = 0, num_y = 0, from_luma = 0, num_cb = 0, num_cr = 0;
+  int y_pts[16][2], cb_pts[16][2], cr_pts[16][2];
+  int scaling_shift = 8, lag = 0, ar_shift = 6, scale_shift = 0;
+  int ar_y[24], ar_cb[25], ar_cr[25];
+  int cb_mult = 0, cb_luma_mult = 0, cb_offset = 0, cr_mult = 0,
+      cr_luma_mult = 0, cr_offset = 0;
+  int overlap = 0, clip = 0;
+};
+
 struct Plane {
   std::vector<uint8_t> px;
   int stride = 0, rows = 0;
@@ -763,11 +823,14 @@ struct Decoder {
   int tile_cols = 0, tile_rows = 0, tile_cols_log2 = 0, tile_rows_log2 = 0;
   int mi_col_starts[65], mi_row_starts[65], tile_size_bytes = 4;
   int num_planes = 3;
+  GrainParams grain;
   bool have_frame = false, frame_done = false;
 
-  // Per-mi state.
+  // Per-mi state. tx_sizes holds InterTxSizes (an intra block's TxSize,
+  // an inter block's transform sizes); mvs two a mi (row, column).
   std::vector<uint8_t> y_modes, uv_modes, skips, tx_sizes, mi_sizes,
-      seg_ids, pal_sizes[2], tx_types;
+      seg_ids, pal_sizes[2], tx_types, is_inters, decoded;
+  std::vector<int16_t> mvs;
   std::vector<uint16_t> pal_colors[2];
   std::vector<int8_t> cdef_idx, delta_lfs;  // delta_lfs: 4 a mi
   int cdef_stride = 0;
@@ -801,6 +864,7 @@ struct Decoder {
   int y_mode = 0, uv_mode = 0, angle_delta_y = 0, angle_delta_uv = 0;
   int cfl_alpha_u = 0, cfl_alpha_v = 0;
   int use_filter_intra = 0, filter_intra_mode = 0;
+  int use_intrabc = 0, is_inter = 0, mv[2] = {0, 0};
   int pal_size_y = 0, pal_size_uv = 0;
   uint16_t pal_y[8], pal_u[8], pal_v[8];
   uint8_t color_map_y[64][64], color_map_uv[64][64];
@@ -811,7 +875,7 @@ struct Decoder {
   int pred_buf[64][64];
   int32_t dq_buf[64][64];
   bool header_only = false;
-  uint32_t tools = 0;  // the block tools met (kTool* bits)
+  uint64_t tools = 0;  // what the frame used (kTool*, kFilter*, ... bits)
 
   size_t mi_index(int r, int c) const { return (size_t)r * mi_cols + c; }
   bool is_inside(int r, int c) const {
@@ -1027,7 +1091,6 @@ struct Decoder {
     }
     allow_intrabc = 0;
     if (allow_sct) allow_intrabc = br.f(1);
-    if (allow_intrabc) unsupported("intra block copy");
     // disable_frame_end_update_cdf
     if (!s.reduced && !disable_cdf_update) br.f(1);
     tile_info(br);
@@ -1087,7 +1150,7 @@ struct Decoder {
     if (delta_q_present) delta_q_res = br.f(2);
     delta_lf_present = delta_lf_res = delta_lf_multi = 0;
     if (delta_q_present) {
-      delta_lf_present = br.f(1);
+      if (!allow_intrabc) delta_lf_present = br.f(1);
       if (delta_lf_present) {
         delta_lf_res = br.f(2);
         delta_lf_multi = br.f(1);
@@ -1180,9 +1243,69 @@ struct Decoder {
     // allow_warped_motion: not read for an intra frame.
     reduced_tx_set = br.f(1);
     // global_motion_params: nothing for an intra frame.
-    if (s.film_grain_present && br.f(1))
-      unsupported("film grain (apply_grain)");
+    grain = GrainParams();
+    if (s.film_grain_present) film_grain_params(br);
     have_frame = true;
+  }
+
+  // film_grain_params (5.9.30) of a shown key frame: update_grain is 1,
+  // so nothing is loaded from a reference. What dav1d refuses is corrupt:
+  // more than 14 luma or 10 chroma points, points whose values do not
+  // increase, and at 4:2:0 one chroma plane with points and not the other.
+  void film_grain_params(BitReader& br) {
+    GrainParams& g = grain;
+    g.apply = br.f(1);
+    if (!g.apply) return;
+    g.seed = br.f(16);
+    auto points = [&](int (*pts)[2], int max) {
+      int n = br.f(4);
+      if (n > max) corrupt("film grain scaling points");
+      for (int i = 0; i < n; i++) {
+        pts[i][0] = br.f(8);
+        if (i && pts[i - 1][0] >= pts[i][0])
+          corrupt("film grain scaling points");
+        pts[i][1] = br.f(8);
+      }
+      return n;
+    };
+    g.num_y = points(g.y_pts, 14);
+    g.from_luma = seq.mono ? 0 : br.f(1);
+    if (!seq.mono && !g.from_luma &&
+        !(seq.ssx && seq.ssy && g.num_y == 0)) {
+      g.num_cb = points(g.cb_pts, 10);
+      g.num_cr = points(g.cr_pts, 10);
+      if (seq.ssx && seq.ssy && !g.num_cb != !g.num_cr)
+        corrupt("film grain chroma points");
+    }
+    g.scaling_shift = br.f(2) + 8;
+    g.lag = br.f(2);
+    int num_pos_luma = 2 * g.lag * (g.lag + 1);
+    int num_pos_chroma = num_pos_luma + (g.num_y > 0);
+    memset(g.ar_y, 0, sizeof(g.ar_y));
+    memset(g.ar_cb, 0, sizeof(g.ar_cb));
+    memset(g.ar_cr, 0, sizeof(g.ar_cr));
+    if (g.num_y)
+      for (int i = 0; i < num_pos_luma; i++) g.ar_y[i] = (int)br.f(8) - 128;
+    if (g.from_luma || g.num_cb)
+      for (int i = 0; i < num_pos_chroma; i++)
+        g.ar_cb[i] = (int)br.f(8) - 128;
+    if (g.from_luma || g.num_cr)
+      for (int i = 0; i < num_pos_chroma; i++)
+        g.ar_cr[i] = (int)br.f(8) - 128;
+    g.ar_shift = br.f(2) + 6;
+    g.scale_shift = br.f(2);
+    if (g.num_cb) {
+      g.cb_mult = (int)br.f(8) - 128;
+      g.cb_luma_mult = (int)br.f(8) - 128;
+      g.cb_offset = (int)br.f(9) - 256;
+    }
+    if (g.num_cr) {
+      g.cr_mult = (int)br.f(8) - 128;
+      g.cr_luma_mult = (int)br.f(8) - 128;
+      g.cr_offset = (int)br.f(9) - 256;
+    }
+    g.overlap = br.f(1);
+    g.clip = br.f(1);
   }
 
   int tile_log2(int blk, int target) {
@@ -1263,6 +1386,9 @@ struct Decoder {
     mi_sizes.assign(n, 0);
     seg_ids.assign(n, 0);
     tx_types.assign(n, 0);
+    is_inters.assign(n, 0);
+    decoded.assign(n, 0);
+    mvs.assign(n * 2, 0);
     for (int p = 0; p < 2; p++) {
       pal_sizes[p].assign(n, 0);
       pal_colors[p].assign(n * 8, 0);
@@ -1485,6 +1611,11 @@ struct Decoder {
   void lr_rect(int plane, const LrUnit& u, const Plane& cdef, Plane& out,
                int x0, int x1, int y0, int y1, int stripe0, int stripe1);
 
+  // --- Film grain (av1_grain.inc), on the planes handed out --------------
+
+  int grain_tmpl[3][73][82];
+  void apply_grain(uint8_t* const out[3]);
+
   int8_t& cdef_at(int r, int c) {
     return cdef_idx[(size_t)(r >> 4) * cdef_stride + (c >> 4)];
   }
@@ -1656,8 +1787,11 @@ struct Decoder {
         y_modes[i] = (uint8_t)y_mode;
         uv_modes[i] = (uint8_t)uv_mode;
         skips[i] = (uint8_t)skip;
-        tx_sizes[i] = (uint8_t)tx_size;
         mi_sizes[i] = (uint8_t)bsize;
+        is_inters[i] = (uint8_t)is_inter;
+        decoded[i] = 1;
+        mvs[2 * i] = (int16_t)mv[0];
+        mvs[2 * i + 1] = (int16_t)mv[1];
         seg_ids[i] = (uint8_t)segment_id;
         for (int k = 0; k < 4; k++) delta_lfs[i * 4 + k] = (int8_t)delta_lf[k];
         pal_sizes[0][i] = (uint8_t)pal_size_y;
@@ -1668,6 +1802,7 @@ struct Decoder {
         }
       }
     }
+    if (is_inter) predict_intrabc();
     residual();
   }
 
@@ -1680,6 +1815,24 @@ struct Decoder {
     read_delta_qindex();
     read_delta_lf();
     read_deltas = 0;
+    use_intrabc = allow_intrabc ? sd.symbol(cdf.intrabc, 2) : 0;
+    is_inter = use_intrabc;
+    mv[0] = mv[1] = 0;
+    if (use_intrabc) {
+      // is_inter, SIMPLE motion, BILINEAR filters and no palette; the
+      // modes later blocks read as context are DC_PRED, as libaom and
+      // dav1d store them.
+      tools |= kIntrabc;
+      y_mode = uv_mode = DC_PRED;
+      angle_delta_y = angle_delta_uv = 0;
+      cfl_alpha_u = cfl_alpha_v = 0;
+      pal_size_y = pal_size_uv = 0;
+      memset(pal_y, 0, sizeof(pal_y));
+      memset(pal_u, 0, sizeof(pal_u));
+      use_filter_intra = 0;
+      assign_dv();
+      return;
+    }
     int above = kIntraModeContext[avail_u ? y_modes[mi_index(mi_row - 1,
                                                              mi_col)]
                                           : 0];   // DC_PRED
@@ -1860,6 +2013,256 @@ struct Decoder {
     }
   }
 
+  // --- Intra block copy (5.11.23-5.11.32, 7.10.2, 7.11.3) ---------------
+
+  // find_mv_stack(0) (7.10.2) for an intra block copy: the spatial scans
+  // only (an intra frame has no motion field to scan). Every block of an
+  // intra frame has RefFrame[0] = INTRA_FRAME and RefFrame[1] = NONE, so a
+  // candidate is any decoded intra-block-copy block, GlobalMvs[0] is 0,
+  // and the extra search (add_extra_mv_candidate takes only candidates
+  // whose reference lies past INTRA_FRAME) adds none.
+  int num_mv_found = 0, stack_mv[8][2], weight_stack[8];
+  int ibc_tmp[128 + 7][128];  // predict_intrabc's horizontal pass
+
+  // lower_mv_precision: allow_high_precision_mv is 0 and force_integer_mv
+  // 1 in an intra frame.
+  static void lower_mv_precision(int* v) {
+    for (int i = 0; i < 2; i++) {
+      int a = (abs(v[i]) + 3) >> 3;
+      v[i] = v[i] > 0 ? a << 3 : -(a << 3);
+    }
+  }
+
+  void add_ref_mv_candidate(int r, int c, int weight) {
+    size_t i = mi_index(r, c);
+    if (!is_inters[i]) return;
+    int cand[2] = {mvs[2 * i], mvs[2 * i + 1]};
+    lower_mv_precision(cand);
+    int idx = 0;
+    while (idx < num_mv_found &&
+           (stack_mv[idx][0] != cand[0] || stack_mv[idx][1] != cand[1]))
+      idx++;
+    if (idx < num_mv_found) {
+      weight_stack[idx] += weight;
+    } else if (num_mv_found < 8) {
+      stack_mv[idx][0] = cand[0];
+      stack_mv[idx][1] = cand[1];
+      weight_stack[idx] = weight;
+      num_mv_found++;
+    }
+  }
+
+  void scan_row(int delta_row) {
+    int bw4 = kNum4x4W[mi_size];
+    int end4 = imin(imin(bw4, mi_cols - mi_col), 16);
+    int delta_col = 0, far = abs(delta_row) > 1;
+    if (far) {
+      delta_row += mi_row & 1;
+      delta_col = 1 - (mi_col & 1);
+    }
+    for (int i = 0; i < end4;) {
+      int r = mi_row + delta_row, c = mi_col + delta_col + i;
+      if (!is_inside(r, c)) break;
+      int len = imin(bw4, kNum4x4W[mi_sizes[mi_index(r, c)]]);
+      if (far) len = imax(2, len);
+      if (bw4 >= 16) len = imax(4, len);
+      add_ref_mv_candidate(r, c, 2 * len);
+      i += len;
+    }
+  }
+
+  void scan_col(int delta_col) {
+    int bh4 = kNum4x4H[mi_size];
+    int end4 = imin(imin(bh4, mi_rows - mi_row), 16);
+    int delta_row = 0, far = abs(delta_col) > 1;
+    if (far) {
+      delta_row = 1 - (mi_row & 1);
+      delta_col += mi_col & 1;
+    }
+    for (int i = 0; i < end4;) {
+      int r = mi_row + delta_row + i, c = mi_col + delta_col;
+      if (!is_inside(r, c)) break;
+      int len = imin(bh4, kNum4x4H[mi_sizes[mi_index(r, c)]]);
+      if (far) len = imax(2, len);
+      if (bh4 >= 16) len = imax(4, len);
+      add_ref_mv_candidate(r, c, 2 * len);
+      i += len;
+    }
+  }
+
+  // scan_point: the candidate must already be decoded (the top right
+  // often is not).
+  void scan_point(int delta_row, int delta_col) {
+    int r = mi_row + delta_row, c = mi_col + delta_col;
+    if (is_inside(r, c) && decoded[mi_index(r, c)])
+      add_ref_mv_candidate(r, c, 4);
+  }
+
+  void sort_stack(int start, int end) {
+    while (end > start) {
+      int new_end = start;
+      for (int idx = start + 1; idx < end; idx++)
+        if (weight_stack[idx - 1] < weight_stack[idx]) {
+          std::swap(weight_stack[idx - 1], weight_stack[idx]);
+          std::swap(stack_mv[idx - 1][0], stack_mv[idx][0]);
+          std::swap(stack_mv[idx - 1][1], stack_mv[idx][1]);
+          new_end = idx;
+        }
+      end = new_end;
+    }
+  }
+
+  void find_mv_stack() {
+    int bw4 = kNum4x4W[mi_size], bh4 = kNum4x4H[mi_size];
+    num_mv_found = 0;
+    scan_row(-1);
+    scan_col(-1);
+    if (imax(bw4, bh4) <= 16) scan_point(-1, bw4);
+    int num_nearest = num_mv_found;
+    for (int idx = 0; idx < num_nearest; idx++)
+      weight_stack[idx] += 640;  // REF_CAT_LEVEL
+    scan_point(-1, -1);
+    scan_row(-3);
+    scan_col(-3);
+    if (bh4 > 1) scan_row(-5);
+    if (bw4 > 1) scan_col(-5);
+    sort_stack(0, num_nearest);
+    sort_stack(num_nearest, num_mv_found);
+    for (int idx = num_mv_found; idx < 2; idx++)
+      stack_mv[idx][0] = stack_mv[idx][1] = 0;
+    // context_and_clamping: within MV_BORDER (16 samples) plus the
+    // block's size of the frame.
+    int top = -mi_row * 32, bottom = (mi_rows - bh4 - mi_row) * 32;
+    int left = -mi_col * 32, right = (mi_cols - bw4 - mi_col) * 32;
+    for (int idx = 0; idx < num_mv_found; idx++) {
+      stack_mv[idx][0] = clip3(top - 128 - bh4 * 32, bottom + 128 + bh4 * 32,
+                               stack_mv[idx][0]);
+      stack_mv[idx][1] = clip3(left - 128 - bw4 * 32, right + 128 + bw4 * 32,
+                               stack_mv[idx][1]);
+    }
+  }
+
+  // assign_mv(0) for use_intrabc (5.11.26): the first non-zero vector of
+  // the stack, else the default one superblock up (or, in the tile's first
+  // superblock row, one superblock and INTRABC_DELAY_PIXELS to the left),
+  // rounded to whole samples as libaom rounds it, plus read_mv.
+  void assign_dv() {
+    find_mv_stack();
+    int pred[2] = {stack_mv[0][0], stack_mv[0][1]};
+    if (!pred[0] && !pred[1]) {
+      pred[0] = stack_mv[1][0];
+      pred[1] = stack_mv[1][1];
+    }
+    if (!pred[0] && !pred[1]) {
+      tools |= kIntrabcDefaultDv;
+      int sb4 = seq.sb128 ? 32 : 16;
+      if (mi_row - sb4 < mi_row_start) {
+        pred[1] = -(sb4 * 4 + 256) * 8;
+      } else {
+        pred[0] = -(sb4 * 4 * 8);
+      }
+    } else {
+      tools |= kIntrabcStackDv;
+    }
+    for (int k = 0; k < 2; k++) pred[k] = (pred[k] >> 3) * 8;
+    // read_mv under MV_INTRABC_CONTEXT: whole samples only.
+    int joint = sd.symbol(cdf.mv_joint, 4);
+    mv[0] = pred[0] + (joint == 2 || joint == 3 ? read_mv_component(0) : 0);
+    mv[1] = pred[1] + (joint == 1 || joint == 3 ? read_mv_component(1) : 0);
+    if (!dv_valid())
+      corrupt("an intra block copy vector outside the decoded area");
+  }
+
+  int read_mv_component(int comp) {
+    int sign = sd.symbol(cdf.mv_sign[comp], 2);
+    int cls = sd.symbol(cdf.mv_class[comp], 11);
+    int mag;
+    if (cls == 0) {
+      mag = ((sd.symbol(cdf.mv_class0[comp], 2) << 3) | 7) + 1;
+    } else {
+      int d = 0;
+      for (int i = 0; i < cls; i++)
+        d |= sd.symbol(cdf.mv_bits[comp][i], 2) << i;
+      mag = (2 << (cls + 2)) + ((d << 3) | 7) + 1;
+    }
+    return sign ? -mag : mag;
+  }
+
+  // is_mv_valid for an intra block copy (the specification's, which is
+  // libaom's av1_is_dv_valid): whole samples, the source inside the tile
+  // (a sub-8x8 chroma block's 4 more samples too), in a superblock decoded
+  // INTRABC_DELAY_SB64 64-sample columns before this one, inside the
+  // wavefront. dav1d does not check it and copies what its frame buffer
+  // holds there, which no decoder repeats: the port refuses it.
+  bool dv_valid() const {
+    if (abs(mv[0]) >= (1 << 14) || abs(mv[1]) >= (1 << 14)) return false;
+    if ((mv[0] & 7) || (mv[1] & 7)) return false;
+    int bw = 4 * kNum4x4W[mi_size], bh = 4 * kNum4x4H[mi_size];
+    int top = mi_row * 4 + (mv[0] >> 3), left = mi_col * 4 + (mv[1] >> 3);
+    int bottom = top + bh, right = left + bw;
+    int t_top = mi_row_start * 4, t_left = mi_col_start * 4;
+    if (top < t_top || left < t_left || bottom > mi_row_end * 4 ||
+        right > mi_col_end * 4)
+      return false;
+    if (has_chroma) {
+      if (bw < 8 && seq.ssx && left < t_left + 4) return false;
+      if (bh < 8 && seq.ssy && top < t_top + 4) return false;
+    }
+    int sb_log2 = seq.sb128 ? 5 : 4, sb_size = 4 << sb_log2;
+    int active_row = mi_row >> sb_log2, active_col64 = (mi_col * 4) >> 6;
+    int src_row = (bottom - 1) / sb_size, src_col64 = (right - 1) >> 6;
+    int per_row = ((mi_col_end - mi_col_start - 1) >> 4) + 1;
+    if (src_row * per_row + src_col64 >=
+        active_row * per_row + active_col64 - 4)
+      return false;
+    int wf_offset = (5 + (sb_size > 64)) * (active_row - src_row);
+    return src_row <= active_row && src_col64 < active_col64 - 4 + wf_offset;
+  }
+
+  // compute_prediction for an intra block copy (7.11.3): someUseIntra is
+  // always 1 in an intra frame (every block's RefFrame[0] is INTRA_FRAME),
+  // so each plane is predicted whole with this block's vector, the chroma
+  // of a sub-8x8 block over the 4x4 chroma block it shares. The reference
+  // is the frame being decoded, before any filter, clamped to MiCols x
+  // MiRows; BILINEAR taps, InterRound0 3 and InterRound1 11 at 8 bits.
+  void predict_intrabc() {
+    for (int p = 0; p < 1 + 2 * has_chroma; p++) {
+      int sx = p ? seq.ssx : 0, sy = p ? seq.ssy : 0;
+      int psz = subsampled_size(mi_size, sx, sy);
+      int w = 4 * kNum4x4W[psz], h = 4 * kNum4x4H[psz];
+      if (p && ((sx && kNum4x4W[mi_size] == 1) ||
+                (sy && kNum4x4H[mi_size] == 1)))
+        tools |= kIntrabcSub8x8Chroma;
+      int x = (mi_col >> sx) * 4, y = (mi_row >> sy) * 4;
+      // motion_vector_scaling with a reference of the frame's own size
+      int start_x = (((x << 4) + ((2 * mv[1]) >> sx)) << 6) + 32;
+      int start_y = (((y << 4) + ((2 * mv[0]) >> sy)) << 6) + 32;
+      int last_x = ((mi_cols * 4 + sx) >> sx) - 1;
+      int last_y = ((mi_rows * 4 + sy) >> sy) - 1;
+      Plane& P = planes[p];
+      int (*inter)[128] = ibc_tmp;
+      for (int r = 0; r < h + 7; r++) {
+        int ry = clip3(0, last_y, (start_y >> 10) + r - 3);
+        for (int c = 0; c < w; c++) {
+          int pos = start_x + 1024 * c, f = (pos >> 6) & 15;
+          int x0 = (pos >> 10) - 3;
+          int a = *P.at(ry, clip3(0, last_x, x0 + 3));
+          int b = *P.at(ry, clip3(0, last_x, x0 + 4));
+          inter[r][c] = round2((128 - 8 * f) * a + 8 * f * b, 3);
+        }
+      }
+      for (int r = 0; r < h; r++) {
+        int pos = (start_y & 1023) + 1024 * r, f = (pos >> 6) & 15;
+        int r0 = (pos >> 10) + 3;
+        for (int c = 0; c < w; c++) {
+          int v = round2((128 - 8 * f) * inter[r0][c] +
+                         8 * f * inter[r0 + 1][c], 11);
+          *P.at(y + r, x + c) = (uint8_t)clip3(0, 255, v);
+        }
+      }
+    }
+  }
+
   int get_palette_cache(int plane, uint16_t* cache) {
     int above_n = 0, left_n = 0;
     if (((mi_row * 4) % 64) && avail_u)
@@ -2024,19 +2427,94 @@ struct Decoder {
     }
   }
 
+  // read_block_tx_size (5.11.15-17): an inter block (an intra block copy)
+  // that is not skipped takes the var-tx tree; every other block one
+  // TxSize, which is also its InterTxSizes.
   void read_block_tx_size() {
+    int bw4 = kNum4x4W[mi_size], bh4 = kNum4x4H[mi_size];
+    if (tx_mode_select && mi_size > BLOCK_4X4 && is_inter && !skip &&
+        !lossless) {
+      int max_tx = max_tx_rect(mi_size);
+      int tw4 = kTxW[max_tx] >> 2, th4 = kTxH[max_tx] >> 2;
+      for (int r = mi_row; r < mi_row + bh4; r += th4)
+        for (int c = mi_col; c < mi_col + bw4; c += tw4)
+          read_var_tx_size(r, c, max_tx, 0);
+      return;
+    }
+    read_tx_size(!skip || !is_inter);
+    for (int r = mi_row; r < imin(mi_rows, mi_row + bh4); r++)
+      for (int c = mi_col; c < imin(mi_cols, mi_col + bw4); c++)
+        tx_sizes[mi_index(r, c)] = (uint8_t)tx_size;
+  }
+
+  // get_above_tx_width and get_left_tx_height (5.11.17): a skipped inter
+  // neighbour counts by its block size, an unavailable one as 64.
+  int above_tx_width(int row, int col) {
+    if (row == mi_row) {
+      if (!avail_u) return 64;
+      size_t a = mi_index(row - 1, col);
+      if (skips[a] && is_inters[a]) return 4 * kNum4x4W[mi_sizes[a]];
+    }
+    return kTxW[tx_sizes[mi_index(row - 1, col)]];
+  }
+  int left_tx_height(int row, int col) {
+    if (col == mi_col) {
+      if (!avail_l) return 64;
+      size_t l = mi_index(row, col - 1);
+      if (skips[l] && is_inters[l]) return 4 * kNum4x4H[mi_sizes[l]];
+    }
+    return kTxH[tx_sizes[mi_index(row, col - 1)]];
+  }
+
+  void read_var_tx_size(int row, int col, int txsz, int depth) {
+    if (row >= mi_rows || col >= mi_cols) return;
+    int split = 0;
+    if (txsz != TX_4X4 && depth < 2) {  // MAX_VARTX_DEPTH
+      int above = above_tx_width(row, col) < kTxW[txsz];
+      int left = left_tx_height(row, col) < kTxH[txsz];
+      int size = imin(64, 4 * imax(kNum4x4W[mi_size], kNum4x4H[mi_size]));
+      int max_sq = tx_of(size, size);
+      int ctx = (kTxSqrUp[txsz] != max_sq) * 3 + (TX_64X64 - max_sq) * 6 +
+                above + left;
+      split = sd.symbol(cdf.txfm_split[ctx], 2);
+      if (split) tools |= kIntrabcVarTx;
+    }
+    int w4 = kTxW[txsz] >> 2, h4 = kTxH[txsz] >> 2;
+    if (split) {
+      int sub = kSplitTx[txsz];
+      int sw = kTxW[sub] >> 2, sh = kTxH[sub] >> 2;
+      for (int i = 0; i < h4; i += sh)
+        for (int j = 0; j < w4; j += sw)
+          read_var_tx_size(row + i, col + j, sub, depth + 1);
+      return;
+    }
+    for (int i = 0; i < h4 && row + i < mi_rows; i++)
+      for (int j = 0; j < w4 && col + j < mi_cols; j++)
+        tx_sizes[mi_index(row + i, col + j)] = (uint8_t)txsz;
+    tx_size = txsz;
+  }
+
+  void read_tx_size(int allow_select) {
     if (lossless) {
       tx_size = TX_4X4;
       return;
     }
     int max_rect = max_tx_rect(mi_size);
     tx_size = max_rect;
-    if (mi_size > BLOCK_4X4 && tx_mode_select) {
+    if (mi_size > BLOCK_4X4 && allow_select && tx_mode_select) {
       int max_depth = kMaxTxDepth[mi_size];
       int mw = kTxW[max_rect], mh = kTxH[max_rect];
       int above_w = 0, left_h = 0;
-      if (avail_u) above_w = kTxW[tx_sizes[mi_index(mi_row - 1, mi_col)]];
-      if (avail_l) left_h = kTxH[tx_sizes[mi_index(mi_row, mi_col - 1)]];
+      if (avail_u) {
+        size_t a = mi_index(mi_row - 1, mi_col);
+        above_w = is_inters[a] ? 4 * kNum4x4W[mi_sizes[a]]
+                               : above_tx_width(mi_row, mi_col);
+      }
+      if (avail_l) {
+        size_t l = mi_index(mi_row, mi_col - 1);
+        left_h = is_inters[l] ? 4 * kNum4x4H[mi_sizes[l]]
+                              : left_tx_height(mi_row, mi_col);
+      }
       int ctx = (above_w >= mw) + (left_h >= mh);
       int depth;
       switch (max_depth) {
@@ -2088,6 +2566,11 @@ struct Decoder {
           int sx = p ? seq.ssx : 0, sy = p ? seq.ssy : 0;
           int psz = subsampled_size(size_chunk, sx, sy);
           int n4w = kNum4x4W[psz], n4h = kNum4x4H[psz];
+          if (is_inter && !lossless && p == 0) {
+            transform_tree((mi_col + (cx << 4)) * 4, (mi_row + (cy << 4)) * 4,
+                           n4w * 4, n4h * 4);
+            continue;
+          }
           int bx = (mi_col >> sx) * 4, by = (mi_row >> sy) * 4;
           for (int y = 0; y < n4h; y += stepy)
             for (int x = 0; x < n4w; x += stepx)
@@ -2095,6 +2578,27 @@ struct Decoder {
                               y + ((cy << 4) >> sy));
         }
       }
+  }
+
+  // transform_tree (5.11.36): an inter block's luma transforms, as its
+  // InterTxSizes lay them out.
+  void transform_tree(int x, int y, int w, int h) {
+    if (x >= mi_cols * 4 || y >= mi_rows * 4) return;
+    int txsz = tx_sizes[mi_index(y >> 2, x >> 2)];
+    if (w <= kTxW[txsz] && h <= kTxH[txsz]) {
+      transform_block(0, x, y, txsz, 0, 0);
+    } else if (w > h) {
+      transform_tree(x, y, w / 2, h);
+      transform_tree(x + w / 2, y, w / 2, h);
+    } else if (w < h) {
+      transform_tree(x, y, w, h / 2);
+      transform_tree(x, y + h / 2, w, h / 2);
+    } else {
+      transform_tree(x, y, w / 2, h / 2);
+      transform_tree(x + w / 2, y, w / 2, h / 2);
+      transform_tree(x, y + h / 2, w / 2, h / 2);
+      transform_tree(x + w / 2, y + h / 2, w / 2, h / 2);
+    }
   }
 
   void transform_block(int plane, int base_x, int base_y, int txsz, int x,
@@ -2107,10 +2611,13 @@ struct Decoder {
     int stepx = kTxW[txsz] >> 2, stepy = kTxH[txsz] >> 2;
     int max_x = (mi_cols * 4) >> sx, max_y = (mi_rows * 4) >> sy;
     if (start_x >= max_x || start_y >= max_y) return;
-    if ((plane == 0 && pal_size_y) || (plane != 0 && pal_size_uv)) {
+    // An inter block (an intra block copy) was predicted whole before
+    // its residual (predict_intrabc).
+    if (!is_inter && ((plane == 0 && pal_size_y) ||
+                      (plane != 0 && pal_size_uv))) {
       tools |= kToolPalette;
       predict_palette(plane, start_x, start_y, x, y, txsz);
-    } else {
+    } else if (!is_inter) {
       int is_cfl = plane > 0 && uv_mode == UV_CFL_PRED;
       int mode = plane == 0 ? y_mode : (is_cfl ? DC_PRED : uv_mode);
       int have_left = (plane == 0 ? avail_l : avail_l_chroma) || x > 0;
@@ -2486,9 +2993,14 @@ struct Decoder {
 
   // --- Coefficients (5.11.39) -------------------------------------------
 
+  // get_tx_set (5.11.48): TX_SET_INTER_1-3 for an inter block.
   int get_tx_set(int txsz) {
     int sqr = kTxSqr[txsz], up = kTxSqrUp[txsz];
     if (up > TX_32X32) return 0;
+    if (is_inter) {
+      if (reduced_tx_set || up == TX_32X32) return 3;
+      return sqr == TX_16X16 ? 2 : 1;
+    }
     if (up == TX_32X32) return 0;
     if (reduced_tx_set) return 2;
     if (sqr == TX_16X16) return 2;
@@ -2502,12 +3014,26 @@ struct Decoder {
         {1, 1, 1, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0}};
     return in[set][t];
   }
+  static bool in_set_inter(int set, int t) {
+    static const uint8_t in[4][16] = {
+        {1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
+        {1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1},
+        {1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0},
+        {1, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0}};
+    return in[set][t];
+  }
 
   void read_tx_type(int x4, int y4, int txsz) {
     int set = get_tx_set(txsz);
     int t = DCT_DCT;
     int q = seg_enabled ? get_qindex(1, segment_id) : base_q_idx;
-    if (set > 0 && q > 0) {
+    if (set > 0 && q > 0 && is_inter) {
+      int sqr = kTxSqr[txsz];
+      if (set == 1) t = kTxInterInv1[sd.symbol(cdf.inter_set1[sqr], 16)];
+      else if (set == 2) t = kTxInterInv2[sd.symbol(cdf.inter_set2, 12)];
+      else t = sd.symbol(cdf.inter_set3[sqr], 2) ? DCT_DCT : IDTX;
+      tools |= kIntrabcTxSet1 << (set - 1);
+    } else if (set > 0 && q > 0) {
       int dir = use_filter_intra ? kFilterIntraModeToDir[filter_intra_mode]
                                  : y_mode;
       int sqr = kTxSqr[txsz];
@@ -2524,6 +3050,11 @@ struct Decoder {
     if (lossless || kTxSqrUp[txsz] > TX_32X32) return DCT_DCT;
     int set = get_tx_set(txsz);
     if (plane == 0) return tx_types[mi_index(y4, x4)];
+    if (is_inter) {  // the co-located luma transform's type
+      int t = tx_types[mi_index(imax(mi_row, y4 << seq.ssy),
+                                imax(mi_col, x4 << seq.ssx))];
+      return in_set_inter(set, t) ? t : DCT_DCT;
+    }
     int t = kModeToTxfm[uv_mode];
     if (!in_set_intra(set, t)) return DCT_DCT;
     return t;
@@ -3054,6 +3585,7 @@ void chroma_row(const uint8_t* p, int cw, int ch, int ssx, int ssy, int yy,
 }
 
 #include "av1_filters.inc"
+#include "av1_grain.inc"
 
 }  // namespace
 
@@ -3096,11 +3628,6 @@ int64_t tb_av1_decode(const uint8_t* data, int64_t n, uint8_t* planes,
              (int64_t)dec->cdef_bits << 14;
     for (int p = 0; p < 3; p++)
       flags |= (int64_t)dec->lr_type[p] << (16 + 2 * p);
-    int64_t v[16] = {dec->frame_w, dec->frame_h, s.mono, s.ssx, s.ssy,
-                     s.full_range, s.cp, s.tc, s.mc, s.bit_depth, s.csp,
-                     dec->coded_lossless, dec->tile_cols * dec->tile_rows,
-                     s.sb128, flags, dec->tools};
-    for (int i = 0; i < 16; i++) info[i] = v[i];
     if (planes) {
       int w = dec->frame_w, h = dec->frame_h;
       int cw = (w + s.ssx) >> s.ssx, ch = (h + s.ssy) >> s.ssy;
@@ -3109,15 +3636,23 @@ int64_t tb_av1_decode(const uint8_t* data, int64_t n, uint8_t* planes,
         rc = kSmall;
       } else {
         uint8_t* o = planes;
+        uint8_t* out[3] = {nullptr, nullptr, nullptr};
         for (int p = 0; p < (s.mono ? 1 : 3); p++) {
           int pw = p ? cw : w, ph = p ? ch : h;
+          out[p] = o;
           for (int y = 0; y < ph; y++) {
             memcpy(o, dec->planes[p].at(y, 0), pw);
             o += pw;
           }
         }
+        dec->apply_grain(out);
       }
     }
+    int64_t v[16] = {dec->frame_w, dec->frame_h, s.mono, s.ssx, s.ssy,
+                     s.full_range, s.cp, s.tc, s.mc, s.bit_depth, s.csp,
+                     dec->coded_lossless, dec->tile_cols * dec->tile_rows,
+                     s.sb128, flags, (int64_t)dec->tools};
+    for (int i = 0; i < 16; i++) info[i] = v[i];
   } catch (const Error& e) {
     rc = e.code;
     if (msg && cap > 0) {
