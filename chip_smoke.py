@@ -217,9 +217,9 @@ Phases, each fatal on failure:
      JPEG-YCbCr TIFF albedo and the RGBA Zstandard TIFF leaf whose alpha
      makes the cutouts, as in 22;
  25. the port's WebP, QOI, PNM and PSD readers (webp_phase): every
-     fixture of tests/data/webp (WebP layouts, animations, QOI, PNM, PSD,
-     the WebP scene's textures) decoded to the sha256 of PIL's array in
-     its manifest; the 1024x1024 albedo's host decode as a lossy WebP, a
+     fixture of tests/data/webp (WebP layouts, animations, QOI, PNM, PSD
+     with Lab among them, the WebP scene's textures) decoded to the
+     sha256 of PIL's array in its manifest; the 1024x1024 albedo's host decode as a lossy WebP, a
      lossless WebP and a QOI written by core/qoi.write_qoi (read back
      equal); the CLI on textured_lit.pbrt with the lossy WebP albedo and
      the VP8X + ALPH WebP leaf whose alpha makes the cutouts, as in 22;
@@ -242,9 +242,12 @@ Phases, each fatal on failure:
      deblocking filter on), as a plain Image.save (intra block copy) and
      as a default save with film grain; the CLI on textured_lit.pbrt with
      the default-save albedo and the default-save RGBA leaf whose
-     deblocked alpha item makes the cutouts, as in 22, and again with the
+     deblocked alpha item makes the cutouts, as in 22, again with the
      plain-save albedo and the RGBA leaf saved with film grain, on its
-     alpha item too;
+     alpha item too, and again with the albedo as a 3x3 grid image
+     through libavif's float routines and the leaf as colour and alpha
+     grids (YCgCo), whose stitched alpha makes the cutouts; the grid
+     albedo's and an FCC (float-matrix) albedo's host decodes;
  28. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
@@ -4329,13 +4332,18 @@ def avif_runs(torch, tmp):
     Pillow's default save (the in-loop filters on: deblocked), as a plain
     Image.save (intra block copy) and as a default save with film grain;
     each decode 5 runs, host seconds, with the host's CPU and the card
-    line. (c) The CLI on textured_lit.pbrt with its albedo and its RGBA
-    leaf Pillow's default saves, whose deblocked alpha item makes the
-    cutouts, so the alpha re-fires of kernel 1 run on texels the in-loop
-    filters produced (textured_swap_cli); (d) the same with the
-    plain-save albedo and the RGBA leaf saved with film grain (its alpha
-    item's grain moves the cutouts' edges). Returns (results, launches of
-    (c) and (d) together)."""
+    line; also as a 3x3 grid of 384x384 tiles through libavif's float
+    routines (matrix 12 under primaries 12) and as the default save with
+    matrix 4 (FCC, the float routines). (c) The CLI on textured_lit.pbrt
+    with its albedo and its RGBA leaf Pillow's default saves, whose
+    deblocked alpha item makes the cutouts, so the alpha re-fires of
+    kernel 1 run on texels the in-loop filters produced
+    (textured_swap_cli); (d) the same with the plain-save albedo and the
+    RGBA leaf saved with film grain (its alpha item's grain moves the
+    cutouts' edges); (e) the same with the grid albedo and the leaf as a
+    2x2 colour grid and a 2x2 alpha grid (YCgCo at full range), whose
+    stitched alpha makes the cutouts. Returns (results, launches of (c),
+    (d) and (e) together)."""
     from tracerboy_tpu_torch.core.image_io import decode_ldr
 
     set_opt_in()
@@ -4345,7 +4353,9 @@ def avif_runs(torch, tmp):
                       ("lossless", AVIF_DIR / "albedo_lossless.avif"),
                       ("default", AVIF_DIR / "albedo_default.avif"),
                       ("plain", AVIF_DIR / "albedo_plain.avif"),
-                      ("grain", AVIF_DIR / "albedo_grain.avif")):
+                      ("grain", AVIF_DIR / "albedo_grain.avif"),
+                      ("grid", AVIF_DIR / "albedo_grid.avif"),
+                      ("fcc", AVIF_DIR / "albedo_fcc.avif")):
         results[f"decode_1024_{key}"] = dict(host_decode(decode_ldr, path),
                                              card=card)
         print(f"avif decode 1024x1024 {key} (host):",
@@ -4363,7 +4373,16 @@ def avif_runs(torch, tmp):
     results["copy_grain_cli"] = dict(cg_res["cli"],
                                      run_s=time.perf_counter() - t0)
     results["copy_grain_kinds"] = cg_res["kinds"]
-    return results, {k: launches[k] + cg_launches[k] for k in launches}
+    t0 = time.perf_counter()
+    grid_res, grid_launches = textured_swap_cli(
+        torch, tmp, "avif_grid",
+        {"albedo.png": str(AVIF_DIR / "albedo_grid.avif"),
+         "leaf.png": str(AVIF_DIR / "leaf_grid.avif")})
+    results["grid_cli"] = dict(grid_res["cli"],
+                               run_s=time.perf_counter() - t0)
+    results["grid_kinds"] = grid_res["kinds"]
+    return results, {k: launches[k] + cg_launches[k] + grid_launches[k]
+                     for k in launches}
 
 
 def main() -> int:
@@ -4607,8 +4626,8 @@ def main() -> int:
     lap("j2k")
     avif_res, avif_launches = avif_phase(torch)
     avif_kinds = {**avif_res["kinds"],
-                  **{f"copy_grain_{k}": v
-                     for k, v in avif_res["copy_grain_kinds"].items()}}
+                  **{f"{pre}_{k}": v for pre in ("copy_grain", "grid")
+                     for k, v in avif_res[f"{pre}_kinds"].items()}}
     lap("avif")
     print("phase seconds:", json.dumps(laps))
 
@@ -4736,8 +4755,10 @@ def main() -> int:
              **{f"j2k_decode_1024_{key}": j2k_res[f"decode_1024_{key}"]
                 for key in ("lossless", "97")},
              **{f"avif_decode_1024_{key}": avif_res[f"decode_1024_{key}"]
-                for key in ("420", "lossless", "default", "plain", "grain")},
+                for key in ("420", "lossless", "default", "plain", "grain",
+                            "grid", "fcc")},
              avif_copy_grain_cli=avif_res["copy_grain_cli"],
+             avif_grid_cli=avif_res["grid_cli"],
              volume_run=vol_res["run"],
              volume_control=vol_res["control"],
              estimators={k: {kk: vv for kk, vv in v.items()

@@ -260,3 +260,163 @@ def relocate(data: bytes, idat: bool = False, version: int = 0,
     mdat = (struct.pack(">I4sQ", 1, b"mdat", 16 + len(blob)) if big_mdat
             else struct.pack(">I4s", 8 + len(blob), b"mdat")) + blob
     return ftyp + meta + b"".join(rest) + mdat
+
+
+def item_properties(data: bytes) -> dict:
+    """{item ID: [(type, payload, essential)]} of a file's meta, in ipma
+    order."""
+    t = boxes(data)
+    ms, me = next((s, e) for typ, s, e in t if typ == b"meta")
+    kids = {typ: (s, e) for typ, s, e in boxes(data, ms + 4, me)}
+    s, e = kids[b"iprp"]
+    sub = {typ: (a, b) for typ, a, b in boxes(data, s, e)}
+    props = [(typ, data[a:b]) for typ, a, b in boxes(data, *sub[b"ipco"])]
+    a, b = sub[b"ipma"]
+    v, flags = data[a], int.from_bytes(data[a + 1:a + 4], "big")
+    pos, out = a + 8, {}
+    for _ in range(int.from_bytes(data[a + 4:a + 8], "big")):
+        n = 2 if v == 0 else 4
+        iid = int.from_bytes(data[pos:pos + n], "big")
+        pos += n
+        count, pos = data[pos], pos + 1
+        out[iid] = []
+        for _ in range(count):
+            k = 2 if flags & 1 else 1
+            x = int.from_bytes(data[pos:pos + k], "big")
+            pos += k
+            ess = bool(x >> (8 * k - 1))
+            idx = x & ((1 << (8 * k - 1)) - 1)
+            out[iid].append((*props[idx - 1], ess))
+    return out
+
+
+def grid_payload(rows: int, cols: int, width: int, height: int,
+                 big: bool = False, version: int = 0) -> bytes:
+    """An ImageGrid (HEIF 6.6.2.3.2): version, flags (bit 0: 32-bit
+    output sizes), rows - 1, columns - 1, output width and height."""
+    n = 4 if big else 2
+    return (bytes([version, int(big), rows - 1, cols - 1])
+            + width.to_bytes(n, "big") + height.to_bytes(n, "big"))
+
+
+def ispe(width: int, height: int) -> tuple:
+    return (b"ispe", b"\0\0\0\0" + struct.pack(">II", width, height), False)
+
+
+def make_grid(tiles, rows: int, cols: int, width: int, height: int,
+              big: bool = False, alpha: bool = False, prem: bool = False,
+              payload: bytes | None = None,
+              alpha_payload: bytes | None = None,
+              grid_props=None, alpha_grid_props=None, in_idat: bool = True,
+              primary_type: bytes = b"grid",
+              hidden: bool = True, tile_props=None, tile_types=None,
+              dimg=None) -> bytes:
+    """A grid image assembled from Pillow's AVIFs of its tiles (in raster
+    order): one grid item (the primary) with a dimg reference to each
+    tile's colour item, and with alpha an alpha grid item (auxl to the
+    grid, auxC alpha, a prem reference where prem) with dimg references to
+    each tile's alpha item. The grid items take an ispe of the output
+    size and the first tile's pixi and colr (or grid_props and
+    alpha_grid_props: [(type, payload, essential)]); each tile item keeps
+    its own properties. The ImageGrid payloads (or `payload` and
+    `alpha_payload`) lie in an idat (construction method 1) or the mdat;
+    tile items are hidden as avifenc writes them. tile_props and
+    tile_types ({tile index: properties or item type}) replace a tile's
+    own, dimg (a list of tile indices) the grid's references."""
+    parts = [(item_properties(t), _meta_parts(t)[2]) for t in tiles]
+    n = len(tiles)
+    grid_id, alpha_id = 1, n + 2
+    first_props = parts[0][0]
+
+    def pick(props, kinds):
+        return [p for p in props if p[0] in kinds]
+
+    if grid_props is None:
+        grid_props = [ispe(width, height)] + pick(first_props[1],
+                                                  (b"pixi", b"colr"))
+    if alpha_grid_props is None and alpha:
+        alpha_grid_props = [ispe(width, height)] + pick(
+            first_props[2], (b"pixi", b"auxC"))
+    payload = payload or grid_payload(rows, cols, width, height, big)
+    alpha_payload = alpha_payload or payload
+    items = [(grid_id, primary_type, b"Color", grid_props, payload, False)]
+    for k, (props, data) in enumerate(parts):
+        items.append((2 + k, (tile_types or {}).get(k, b"av01"), b"Tile",
+                      (tile_props or {}).get(k, props[1]), data[1], hidden))
+    if alpha:
+        items.append((alpha_id, b"grid", b"Alpha", alpha_grid_props,
+                      alpha_payload, False))
+        for k, (props, data) in enumerate(parts):
+            items.append((alpha_id + 1 + k, b"av01", b"Tile", props[2],
+                          data[2], hidden))
+    ipco, index = [], {}
+    for it in items:
+        for typ, p, _ in it[3]:
+            if (typ, p) not in index:
+                ipco.append(box(typ, p))
+                index[typ, p] = len(ipco)
+    ipma = struct.pack(">I", len(items))
+    for iid, _, _, props, _, _ in items:
+        ipma += struct.pack(">HB", iid, len(props))
+        ipma += bytes((0x80 if ess else 0) | index[typ, p]
+                      for typ, p, ess in props)
+    infe = b"".join(full_box(b"infe", 2, int(hid),
+                             struct.pack(">HH", iid, 0) + typ + name + b"\0")
+                    for iid, typ, name, _, _, hid in items)
+    refs = [(b"dimg", grid_id, [2 + k for k in (
+        range(n) if dimg is None else dimg)])]
+    if alpha:
+        refs += [(b"auxl", alpha_id, [grid_id]),
+                 (b"dimg", alpha_id, list(range(alpha_id + 1,
+                                                alpha_id + 1 + n)))]
+        if prem:
+            refs.append((b"prem", grid_id, [alpha_id]))
+    iref = full_box(b"iref", 0, 0, b"".join(
+        box(t, struct.pack(">HH", src, len(dst))
+            + b"".join(struct.pack(">H", d) for d in dst))
+        for t, src, dst in refs))
+    grids = [it for it in items if it[1] == b"grid" or it[0] == grid_id]
+    stored = [it for it in items if it not in grids or not in_idat]
+
+    def iloc(base):
+        out = bytes([0x44, 0x00]) + struct.pack(">H", len(items))
+        pos_idat, pos = 0, base
+        for iid, _, _, _, data, _ in items:
+            if in_idat and any(iid == g[0] for g in grids):
+                out += struct.pack(">HHHHII", iid, 1, 0, 1, pos_idat,
+                                   len(data))
+                pos_idat += len(data)
+            else:
+                out += struct.pack(">HHHHII", iid, 0, 0, 1, pos, len(data))
+                pos += len(data)
+        return full_box(b"iloc", 1, 0, out)
+
+    hdlr = full_box(b"hdlr", 0, 0, b"\0" * 4 + b"pict" + b"\0" * 13)
+    pitm = full_box(b"pitm", 0, 0, struct.pack(">H", grid_id))
+    iinf = full_box(b"iinf", 0, 0, struct.pack(">H", len(items)) + infe)
+    iprp = box(b"iprp", box(b"ipco", b"".join(ipco))
+               + full_box(b"ipma", 0, 0, ipma))
+    idat = (box(b"idat", b"".join(g[4] for g in grids)) if in_idat
+            else b"")
+    ftyp = box(b"ftyp", b"avif\0\0\0\0avifmif1miafMA1B")
+
+    def meta(base):
+        return full_box(b"meta", 0, 0, hdlr + pitm + iloc(base) + iinf
+                        + iref + iprp + idat)
+
+    base = len(ftyp) + len(meta(0)) + 8
+    blob = b"".join(it[4] for it in stored)
+    return ftyp + meta(base) + box(b"mdat", blob)
+
+
+def split_tiles(img: np.ndarray, rows: int, cols: int, tw: int, th: int,
+                **kw) -> list:
+    """Pillow's AVIFs (pil_default with kw) of the tiles of img, padded
+    by repeating its last row and column to rows x cols tiles of tw x th,
+    in raster order."""
+    h, w = img.shape[:2]
+    pad = np.pad(img, ((0, max(rows * th - h, 0)), (0, max(cols * tw - w, 0)))
+                 + ((0, 0),) * (img.ndim - 2), mode="edge")
+    return [pil_default(np.ascontiguousarray(
+        pad[r * th:(r + 1) * th, c * tw:(c + 1) * tw]), **kw)
+            for r in range(rows) for c in range(cols)]

@@ -53,6 +53,15 @@ albedo_plain, albedo_grain and leaf_grain):
   and 1, chroma grain alone, chroma scaling from luma);
 - the scene's albedo as a plain Image.save (intra block copy), and its
   albedo and RGBA leaf with film grain.
+Those of libavif's float routines and of grid images (float_*, grid_*,
+and the scene's albedo_grid, leaf_grid and albedo_fcc; default saves):
+- the colr nclx of Pillow's files rewritten to each of FLOAT_MATRICES at
+  every subsampling, with alpha and premultiplied alpha;
+- grids assembled by tests/avif_encode.make_grid from Pillow's saves of
+  their tiles: every subsampling, 32-bit output sizes, the ImageGrid in
+  the mdat, 64-sample tiles, 1x1 grids (one cropped), alpha grids,
+  premultiplied too, a float-path matrix; the scene's albedo as a 3x3
+  grid and its leaf as colour and alpha grids.
 manifest.json holds, for each file, the shape, dtype and sha256 of
 np.asarray of what the JAX read_ldr decodes through PIL, and the
 versions of Pillow, libavif, dav1d and aom. The machine with the card
@@ -89,6 +98,14 @@ ALBEDO_PLAIN, ALBEDO_GRAIN, LEAF_GRAIN = ("albedo_plain.avif",
                                           "albedo_grain.avif",
                                           "leaf_grain.avif")
 GRAIN_VECTOR = "2"
+# The scene's textures as grid images (AVIF part 2, step 3): the albedo a
+# 3x3 grid of 384x384 default-saved tiles cropped to 1024, its colr
+# rewritten to matrix 12 under primaries 12 (libavif's float routines);
+# the RGBA leaf a 2x2 colour grid and a 2x2 alpha grid of 256x256 tiles,
+# YCgCo (matrix 8) at full range; and the default-save albedo with
+# matrix 4 (FCC, the float routines) for a host decode time.
+ALBEDO_GRID, LEAF_GRID, ALBEDO_FCC = ("albedo_grid.avif", "leaf_grid.avif",
+                                      "albedo_fcc.avif")
 # Screen content with intra block copy on.
 SCREEN = {"tune-content": "screen", "enable-intrabc": "1"}
 # Every filter on (aom turns CDEF and restoration off at some speeds).
@@ -100,6 +117,13 @@ def filtered(name: str) -> bool:
     """A fixture of part 2: its frame written with the filters on."""
     return name.startswith("filt_") or name in (ALBEDO_DEFAULT,
                                                 LEAF_DEFAULT)
+
+
+def grid_or_float(name: str) -> bool:
+    """A fixture of grid images or of libavif's float routines (grid_*,
+    float_*, and the scene's albedo_grid, leaf_grid and albedo_fcc)."""
+    return name.startswith(("grid_", "float_")) or name in (
+        ALBEDO_GRID, LEAF_GRID, ALBEDO_FCC)
 
 
 def copy_or_grain(name: str) -> bool:
@@ -422,6 +446,105 @@ def scene_textures() -> dict:
             LEAF_GRAIN: ae.pil_default(leaf, advanced=grain)}
 
 
+# (matrix coefficients, colour primaries, full range) of the float-path
+# fixtures: FCC, SMPTE 240M, YCgCo (full range only), chroma-derived under
+# BT.470M, SMPTE 240M and P3 primaries, and 15, which libavif's table
+# lacks (BT.601's Kr and Kb).
+FLOAT_MATRICES = {"mc4": (4, 1, 0), "mc7": (7, 1, 1), "mc8": (8, 1, 1),
+                  "mc12_cp4": (12, 4, 0), "mc12_cp7": (12, 7, 1),
+                  "mc12_cp12": (12, 12, 0), "mc15": (15, 1, 1)}
+
+
+def float_files(rng) -> dict:
+    """libavif's float routines (part 2, step 3): Pillow's files (33x27,
+    odd sizes for chroma's edges) with their colr nclx rewritten to each
+    of FLOAT_MATRICES at every subsampling; RGBA, premultiplied RGBA at
+    4:2:0 (the slow routine's float un-premultiply) and 4:4:4 (libyuv's),
+    4:0:0 with alpha, premultiplied too, and identity at limited range
+    premultiplied (the slow routine's too)."""
+    out = {}
+    save = ae.pil_default
+    for sub in ("4:2:0", "4:2:2", "4:4:4", "4:0:0"):
+        data = save(sample(rng, 27, 33), quality=70, speed=8,
+                    subsampling=sub)
+        for tag, (mc, cp, full) in FLOAT_MATRICES.items():
+            out[f"float_{tag}_{sub.replace(':', '')}.avif"] = ae.set_nclx(
+                data, cp=cp, mc=mc, full=full)
+    rgba = sample(rng, 27, 33, 4)
+    for name, sub, prem, mc, cp, full in (
+            ("rgba_420", "4:2:0", False, 4, 1, 1),
+            ("rgba_prem_420", "4:2:0", True, 12, 12, 0),
+            ("rgba_prem_444", "4:4:4", True, 7, 1, 0),
+            ("ycgco_prem_444", "4:4:4", True, 8, 1, 1),
+            ("gray_alpha", "4:0:0", False, 15, 1, 0),
+            ("gray_alpha_prem", "4:0:0", True, 4, 1, 1),
+            ("identity_limited_prem", "4:4:4", True, 0, 1, 0)):
+        out[f"float_{name}.avif"] = ae.set_nclx(save(
+            rgba, quality=70, speed=8, subsampling=sub,
+            alpha_premultiplied=prem), cp=cp, mc=mc, full=full)
+    return out
+
+
+def grid_files(rng) -> dict:
+    """Grid images (part 2, step 3) assembled by tests/avif_encode.make_grid
+    from Pillow's default saves of their tiles: 2x3 grids of 72x80 tiles
+    at 4:2:0, 4:2:2 (200x150), 4:4:4 and 4:0:0 (199x149: odd sizes where
+    nothing is subsampled), with 32-bit output sizes, with the ImageGrid
+    in the mdat rather than an idat, tiles of exactly 64, 1x1 grids (one
+    cropped), RGBA with an alpha grid, premultiplied too, and a float-path
+    matrix."""
+    out = {}
+    save = dict(quality=60, speed=9)
+    img = sample(rng, 160, 216, 4)
+    for sub, (w, h) in (("4:2:0", (200, 150)), ("4:2:2", (200, 150)),
+                        ("4:4:4", (199, 149)), ("4:0:0", (199, 149))):
+        tiles = ae.split_tiles(img[..., :3], 2, 3, 72, 80, subsampling=sub,
+                               **save)
+        out[f"grid_{sub.replace(':', '')}.avif"] = ae.make_grid(
+            tiles, 2, 3, w, h)
+    tiles = ae.split_tiles(img[..., :3], 2, 3, 72, 80, **save)
+    out["grid_32bit_sizes.avif"] = ae.make_grid(tiles, 2, 3, 200, 150,
+                                                big=True)
+    out["grid_mdat.avif"] = ae.make_grid(tiles, 2, 3, 200, 150,
+                                         in_idat=False)
+    out["grid_float_mc12_cp12.avif"] = ae.set_nclx(
+        ae.make_grid(tiles, 2, 3, 200, 150), cp=12, mc=12, full=1)
+    out["grid_3x3_64.avif"] = ae.make_grid(ae.split_tiles(
+        img[..., :3], 3, 3, 64, 64, **save), 3, 3, 180, 150)
+    one = ae.split_tiles(img[:90, :100, :3], 1, 1, 100, 90, **save)
+    out["grid_1x1.avif"] = ae.make_grid(one, 1, 1, 100, 90)
+    out["grid_1x1_cropped.avif"] = ae.make_grid(one, 1, 1, 96, 74)
+    rgba = ae.split_tiles(img, 2, 3, 72, 80, **save)
+    out["grid_rgba.avif"] = ae.make_grid(rgba, 2, 3, 200, 150, alpha=True)
+    prem = ae.split_tiles(img, 2, 3, 72, 80, alpha_premultiplied=True,
+                          **save)
+    out["grid_rgba_prem.avif"] = ae.make_grid(prem, 2, 3, 200, 150,
+                                              alpha=True, prem=True)
+    prem444 = ae.split_tiles(img, 2, 3, 72, 80, alpha_premultiplied=True,
+                             subsampling="4:4:4", **save)
+    out["grid_rgba_prem_444_ycgco.avif"] = ae.set_nclx(ae.make_grid(
+        prem444, 2, 3, 199, 149, alpha=True, prem=True), mc=8, full=1)
+    return out
+
+
+def grid_scene_textures() -> dict:
+    """The scene's albedo and leaf as grids, and the albedo with matrix 4
+    (ALBEDO_GRID, LEAF_GRID, ALBEDO_FCC)."""
+    from tracerboy_tpu_torch.core.image_io import _to_uint8
+    from tracerboy_tpu_torch.utils.demo_scene import albedo_image, leaf_image
+
+    albedo = _to_uint8(albedo_image(1024))
+    leaf = _to_uint8(leaf_image(512))
+    grid = ae.make_grid(ae.split_tiles(albedo, 3, 3, 384, 384), 3, 3,
+                        1024, 1024)
+    leaf_grid = ae.make_grid(ae.split_tiles(leaf, 2, 2, 256, 256), 2, 2,
+                             512, 512, alpha=True)
+    default = ae.pil_default(albedo, quality=80, speed=8)
+    return {ALBEDO_GRID: ae.set_nclx(grid, cp=12, mc=12),
+            LEAF_GRID: ae.set_nclx(leaf_grid, mc=8, full=1),
+            ALBEDO_FCC: ae.set_nclx(default, mc=4)}
+
+
 def versions() -> dict:
     import PIL
     from PIL import _avif, features
@@ -439,7 +562,10 @@ def main(out_dir: str = FIXTURE_DIR) -> dict:
     files = {**pil_files(rng), **box_files(rng), **scene_textures(),
              **filter_files(np.random.default_rng(20261022)),
              **intrabc_files(np.random.default_rng(20261023)),
-             **grain_files(np.random.default_rng(20261024))}
+             **grain_files(np.random.default_rng(20261024)),
+             **float_files(np.random.default_rng(20261025)),
+             **grid_files(np.random.default_rng(20261026)),
+             **grid_scene_textures()}
     manifest = {**versions(), "files": {}}
     for name, data in files.items():
         path = os.path.join(out_dir, name)

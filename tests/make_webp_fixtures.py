@@ -210,6 +210,15 @@ def qoi_pnm_psd(rng) -> dict:
                 colour_data=colours,
                 resources=[(1005, b"res", bytes(5)), (1039, b"", b"icc")],
                 layer_block=bytes(12) if comp else b"")
+    # Lab with 3, 4 and 5 channels (PIL reads three), raw and PackBits:
+    # their own generator, so the files above keep their bytes.
+    lab = np.random.default_rng(20261027)
+    for c in (3, 4, 5):
+        planes = lab.integers(0, 256, (c, H, W), dtype=np.uint8)
+        planes[:, H // 3:, :W // 2] = 200
+        for comp in (0, 1):
+            out[f"lab_{c}ch_{'rle' if comp else 'raw'}.psd"] = pe.psd_file(
+                planes, 9, 8, comp)
     return out
 
 

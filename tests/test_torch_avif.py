@@ -27,14 +27,25 @@ with intra block copy on, aom film grain tables, truncated files and
 replaced bytes. Where PIL refuses a file the port raises: ValueError
 where PIL raises OSError, ValueError, SyntaxError, RuntimeError or
 AssertionError, NotImplementedError where PIL cannot identify it. Files
-that need what the port still leaves out (the matrices libavif converts
-in floating point, say) raise NotImplementedError naming ROADMAP item
-22b, AVIF part 2. The AV1 tables in csrc/av1_tables.inc equal those of
-the libraries present (tests/make_av1_tables.py --check). PBRT scenes
+that need what the port still leaves out (superres or high bit depth, say)
+raise NotImplementedError naming ROADMAP item 22b, AVIF part 2. The
+fixtures of grids (grid_*, albedo_grid, leaf_grid) and of libavif's
+float routines (float_*, albedo_fcc) are checked to cover every
+subsampling, alpha grids, premultiplied alpha and each float matrix;
+flat frames over every value hold the float routines to PIL's, and
+hypothesis sweeps grids of 1-3 rows and columns of 64-160 sample tiles.
+libavif's grid refusals (ImageGrid version and size, dimensions, tile
+count and types, essential properties, the first tile's av1C, tiles
+under 64 samples, odd sizes under subsampled chroma, mismatched tiles,
+tiles that do not cover the canvas or whose last row or column does not
+overlap it) raise ValueError as PIL raises. The AV1 tables in
+csrc/av1_tables.inc equal those of the libraries present
+(tests/make_av1_tables.py --check). PBRT scenes
 whose albedo is an AVIF and whose leaf an RGBA AVIF compile in both
 packages to the same leaves, bit for bit.
 """
 
+import functools
 import json
 import os
 import struct
@@ -50,16 +61,21 @@ import avif_encode as ae
 from make_avif_fixtures import (
     ALBEDO,
     ALBEDO_DEFAULT,
+    ALBEDO_FCC,
+    ALBEDO_GRID,
     ALBEDO_LOSSLESS,
     ALBEDO_PLAIN,
     FIXTURE_DIR,
+    FLOAT_MATRICES,
     LEAF,
     LEAF_DEFAULT,
     LEAF_GRAIN,
+    LEAF_GRID,
     SCREEN,
     TOOLS_OFF,
     copy_or_grain,
     filtered,
+    grid_or_float,
     sample,
     screen,
 )
@@ -160,8 +176,8 @@ def test_fixtures_have_the_filters_off_and_cover_the_decoder():
     lossless."""
     tools, flags, layouts = set(), set(), set()
     lossless = tiles = sb128 = 0
-    part1 = [name for name in FIXTURES
-             if not filtered(name) and not copy_or_grain(name)]
+    part1 = [name for name in FIXTURES if not filtered(name)
+             and not copy_or_grain(name) and not grid_or_float(name)]
     for name in part1:
         data = open(os.path.join(FIXTURE_DIR, name), "rb").read()
         head = avif.frame_info(data, name, headers_only=True)
@@ -232,7 +248,8 @@ def test_copy_and_grain_fixtures_cover_the_decoder():
         info = avif.frame_info(
             open(os.path.join(FIXTURE_DIR, name), "rb").read(), name)
         if not copy_or_grain(name):
-            assert info["intrabc"] == info["grain"] == set(), name
+            assert grid_or_float(name) or (
+                info["intrabc"] == info["grain"] == set()), name
             continue
         ibc |= info["intrabc"]
         grain |= info["grain"]
@@ -404,7 +421,7 @@ def _refused_by_design(data: bytes) -> bool:
 
 
 def _refused():
-    """Files PIL reads whose features the port still leaves to part 2."""
+    """Files the port refused before it read libavif's float routines."""
     img = sample(np.random.default_rng(7), 64, 64)
     return {
         "matrix_fcc": ae.set_nclx(ae.pil_avif(img), mc=4),
@@ -414,15 +431,48 @@ def _refused():
 
 @pytest.mark.parametrize("case", sorted(_refused()))
 def test_refused_features_name_avif_part_2(tmp_path, case):
-    """Matrix coefficients libavif converts in its own float path: PIL
-    reads each file, the port raises NotImplementedError naming ROADMAP
-    item 22b, AVIF part 2."""
+    """Matrix coefficients libavif converts in its own float path: the
+    port reads each file as the JAX read_ldr reads it, with and without
+    gamma_to_linear."""
     data = _refused()[case]
     path = tmp_path / "r.avif"
-    path.write_bytes(data)
-    assert jax_read_ldr(path).shape[:2] in ((64, 64), (128, 160))
-    with pytest.raises(NotImplementedError, match=ITEM):
+    assert assert_as_jax(path, data).shape[:2] == (64, 64)
+    assert np.array_equal(image_io.read_ldr(str(path), gamma_to_linear=True),
+                          jax_read_ldr(path, gamma_to_linear=True))
+
+
+@pytest.mark.parametrize("mc", (16, 17, 18, 100, 254))
+def test_matrices_libavif_refuses_raise_value_error(tmp_path, mc):
+    """Matrix coefficients 16-254, which libavif refuses ("Reformat
+    failed": PIL's RuntimeError), raise ValueError, not
+    NotImplementedError."""
+    img = sample(np.random.default_rng(mc), 20, 24)
+    for sub in ("4:2:0", "4:0:0"):
+        data = ae.set_nclx(ae.pil_avif(img, subsampling=sub, speed=9), mc=mc)
+        path = tmp_path / "m.avif"
+        path.write_bytes(data)
+        with pytest.raises(RuntimeError, match="Reformat failed"):
+            jax_read_ldr(path)
+        with pytest.raises(ValueError, match="Reformat failed"):
+            image_io.read_ldr(str(path))
+
+
+def test_primary_iovl_item_raises_value_error(tmp_path):
+    """A primary item of type iovl, which libavif 1.3 does not read
+    ("missing or empty image item": PIL's RuntimeError), raises
+    ValueError; an iovl alpha item is no alpha, as in PIL."""
+    tiles = ae.split_tiles(sample(np.random.default_rng(3), 128, 128, 4),
+                           1, 2, 64, 128, speed=9)
+    path = tmp_path / "o.avif"
+    path.write_bytes(ae.make_grid(tiles, 1, 2, 128, 128,
+                                  primary_type=b"iovl"))
+    with pytest.raises(RuntimeError, match="Missing or empty image item"):
+        jax_read_ldr(path)
+    with pytest.raises(ValueError, match="missing or empty image item"):
         image_io.read_ldr(str(path))
+    data = ae.make_grid(tiles, 1, 2, 128, 128, alpha=True).replace(
+        b"gridAlpha", b"iovlAlpha")
+    assert assert_as_jax(path, data).shape == (128, 128, 3)
 
 
 def _copy_and_grain_saves():
@@ -496,7 +546,12 @@ def test_grain_table_sweep(scratch, seed, w, h, sub, lag, ar_shift,
     text): random scaling points (none too), AR coefficients of every
     lag, chroma multipliers, chroma scaling from luma, overlap, seeds, at
     every subsampling and range: read as PIL reads it (with the grain
-    dav1d adds)."""
+    dav1d adds). Where the syntax reads no chroma points (chroma scaling
+    from luma, 4:0:0, 4:2:0 without luma points), or at 4:0:0 no chroma
+    scaling from luma, aom writes the table's fields all the same, and
+    the tile data is read from the wrong bit: such a stream reads as PIL
+    reads it, or is refused where PIL refuses it. An RGBA image's alpha
+    item, 4:0:0, takes the same table."""
     rng = np.random.default_rng(seed)
 
     def points(most):
@@ -507,6 +562,10 @@ def test_grain_table_sweep(scratch, seed, w, h, sub, lag, ar_shift,
     y_pts, cb_pts, cr_pts = points(14), points(10), points(10)
     if sub == "4:2:0" and bool(cb_pts) != bool(cr_pts):
         cr_pts = cb_pts                 # dav1d refuses one without the other
+    mono = sub == "4:0:0" or rgba
+    no_chroma = from_luma or mono or (sub == "4:2:0" and not y_pts)
+    conforming = (not (mono and from_luma)
+                  and not (no_chroma and (cb_pts or cr_pts)))
     n = 2 * lag * (lag + 1)
     table = ae.grain_table(
         seed=grain_seed, lag=lag, ar_shift=ar_shift, scale_shift=scale_shift,
@@ -523,7 +582,34 @@ def test_grain_table_sweep(scratch, seed, w, h, sub, lag, ar_shift,
     img = sample(rng, h, w, 4 if rgba else 3)
     data = ae.pil_grain(img, table, quality=int(rng.integers(20, 90)),
                         subsampling=sub, range="full" if full else "limited")
-    assert assert_as_jax(scratch / "g.avif", data) is not None
+    got = assert_as_jax(scratch / "g.avif", data)
+    assert got is not None or not conforming
+
+
+def test_grain_stream_aom_misaligns_reads_as_pil(tmp_path):
+    """A grain table with chroma points and chroma scaling from luma: aom
+    writes the chroma multipliers the syntax does not read, so the tile
+    data is read from the wrong bit. The port reads what dav1d reads of
+    it and refuses what dav1d refuses: at 4:2:2 a vertical partition,
+    whose halves have no chroma size (PIL's RuntimeError, the port's
+    ValueError)."""
+    refused = 0
+    for seed in range(6):
+        rng = np.random.default_rng(seed)
+        h, w = int(rng.integers(30, 70)), int(rng.integers(30, 70))
+        table = ae.grain_table(
+            seed=seed, scale_shift=2, scaling_shift=11, from_luma=1,
+            y_points=((59, 3), (127, 150), (196, 199)),
+            cb_points=((17, 225), (94, 13)), cr_points=((45, 59), (90, 63)),
+            cb=(100, 160, 300), cr=(150, 90, 220))
+        data = ae.pil_grain(sample(rng, h, w), table,
+                            quality=int(rng.integers(20, 90)),
+                            subsampling="4:2:2")
+        if assert_as_jax(tmp_path / "m.avif", data) is None:
+            refused += 1
+            with pytest.raises(ValueError, match="partition at 4:2:2"):
+                image_io.read_ldr(str(tmp_path / "m.avif"))
+    assert refused == 1
 
 
 def _filtered_saves():
@@ -747,3 +833,321 @@ def test_ispe_and_frame_sizes(scratch):
         assert jax_read_ldr(path).shape[:2] == (h, w)
         with pytest.raises(ValueError, match="the frame is 16x12"):
             image_io.read_ldr(str(path))
+
+
+def test_grid_and_float_fixtures_cover_the_reader():
+    """The fixtures of grids and of libavif's float routines: by the
+    reader's own report, grids at all four subsamplings, 1x1 (one cropped
+    below its tile) to 3x3, alpha grids with and without premultiplied
+    alpha, a grid taking the float routines; each float matrix of
+    FLOAT_MATRICES at all four subsamplings, with alpha, premultiplied
+    alpha at 4:2:0 (the slow routine), 4:4:4 and 4:0:0."""
+    grid_layouts, shapes, float_layouts, alpha = set(), set(), set(), set()
+    for name in FIXTURES:
+        if not grid_or_float(name):
+            continue
+        data = open(os.path.join(FIXTURE_DIR, name), "rb").read()
+        color, a, size, nclx, prem = avif._parse(data)
+        info = avif.frame_info(data, name)
+        layout = (info["mono"], *info["subsampling"])
+        mc = nclx[2] if nclx else 2
+        if info["grid"]:
+            rows, cols, tw, th = info["grid"]
+            assert isinstance(color, avif._Grid) and size == info["size"]
+            grid_layouts.add(layout)
+            shapes.add((rows, cols, size[0] < tw))
+            alpha.add(("grid", isinstance(a, avif._Grid), prem))
+        if mc in (4, 7, 8, 12, 15) and (mc != 12 or nclx[0] not in (
+                1, 2, 5, 6, 9)):
+            float_layouts.add((mc, nclx[0], layout))
+            alpha.add(("float", a is not None, prem, layout))
+    every = {(False, 1, 1), (False, 1, 0), (False, 0, 0), (True, 1, 1)}
+    assert grid_layouts == every
+    assert {(1, 1, False), (1, 1, True), (3, 3, False)} <= shapes
+    assert {("grid", True, False), ("grid", True, True)} <= alpha
+    assert {(mc, cp, layout) for mc, cp, _ in FLOAT_MATRICES.values()
+            for layout in every} <= float_layouts
+    assert {("float", True, False, (False, 1, 1)),
+            ("float", True, True, (False, 1, 1)),
+            ("float", True, True, (False, 0, 0)),
+            ("float", True, True, (True, 1, 1))} <= alpha
+
+
+def test_float_routines_are_libavifs_on_every_value(tmp_path):
+    """Flat frames over the whole Y range and the chroma corners (each
+    value four samples wide, so subsampled chroma holds it too), at both
+    ranges and every subsampling, through each float matrix: the port's
+    RGB is PIL's on every value (libavif's single-precision steps and
+    rounding); YCgCo at limited range raises ValueError as PIL raises.
+    Premultiplied RGBA ramps through libavif's float un-premultiply
+    (4:2:0) and libyuv's (4:4:4)."""
+    ys = np.repeat(np.arange(256, dtype=np.uint8), 4)
+    img = np.stack([ys, np.roll(ys, 85), np.roll(ys, 170)], -1)
+    img = np.tile(img[None], (8, 1, 1))
+    for sub in SUBSAMPLINGS:
+        data = ae.pil_avif(img, quality=100, speed=8, subsampling=sub)
+        for mc, cp, _ in FLOAT_MATRICES.values():
+            for full in (0, 1):
+                got = assert_as_jax(tmp_path / "f.avif",
+                                    ae.set_nclx(data, cp=cp, mc=mc,
+                                                full=full))
+                assert (got is None) == (mc == 8 and not full)
+    rgba = np.concatenate([img, np.tile(np.arange(256, dtype=np.uint8)
+                                        .repeat(4)[None, :, None],
+                                        (8, 1, 1))], -1)
+    for sub in ("4:2:0", "4:4:4"):
+        data = ae.pil_avif(rgba, quality=100, speed=8, subsampling=sub,
+                           alpha_premultiplied=True)
+        for mc, full in ((4, 1), (8, 1), (12, 0)):
+            assert assert_as_jax(tmp_path / "p.avif", ae.set_nclx(
+                data, cp=12, mc=mc, full=full)) is not None
+
+
+@settings(max_examples=15, deadline=None, derandomize=True)
+@given(seed=st.integers(0, 2**31 - 1), rows=st.integers(1, 3),
+       cols=st.integers(1, 3), tw=st.integers(32, 80),
+       th=st.integers(32, 80), sub=st.sampled_from(SUBSAMPLINGS),
+       rgba=st.booleans(), prem=st.booleans(), cut_w=st.integers(0, 159),
+       cut_h=st.integers(0, 159), mc=st.sampled_from((6, 4, 8)))
+def test_grid_sweep(scratch, seed, rows, cols, tw, th, sub, rgba, prem,
+                    cut_w, cut_h, mc):
+    """Grids of 1-3 rows and columns of 64-160 sample tiles (even), at
+    every subsampling, with an alpha grid (premultiplied or not) or
+    none, cropped anywhere in the last row and column, through libyuv's
+    matrix or a float one: read as PIL reads them."""
+    tw, th = 2 * tw, 2 * th
+    w = (cols - 1) * tw + 1 + cut_w % tw
+    h = (rows - 1) * th + 1 + cut_h % th
+    if sub != "4:0:0":
+        w += w % 2
+        h += h % 2 if sub == "4:2:0" else 0
+    img = sample(np.random.default_rng(seed), rows * th, cols * tw,
+                 4 if rgba else 3)
+    tiles = ae.split_tiles(img, rows, cols, tw, th, subsampling=sub,
+                           quality=50, speed=10,
+                           alpha_premultiplied=rgba and prem)
+    data = ae.set_nclx(ae.make_grid(tiles, rows, cols, w, h, alpha=rgba,
+                                    prem=rgba and prem), mc=mc, full=1)
+    got = assert_as_jax(scratch / "g.avif", data)
+    assert got is not None and got.shape == (h, w, 4 if rgba else 3)
+
+
+@functools.lru_cache(maxsize=None)
+def _tiles(**kw):
+    """Pillow's saves of a 216x160 RGBA sample as 2x3 tiles of 72x80 (or
+    as kw says)."""
+    kw = dict(kw)
+    shape = kw.pop("shape", (2, 3, 72, 80))
+    rgba = kw.pop("rgba", True)
+    img = sample(np.random.default_rng(31), 160, 216, 4 if rgba else 3)
+    return tuple(ae.split_tiles(img, *shape, quality=60, speed=10, **kw))
+
+
+def _grid(**kw):
+    tiles = list(_tiles())
+    return ae.make_grid(tiles, 2, 3, kw.pop("width", 200),
+                        kw.pop("height", 150), **kw)
+
+
+def _tile_props(k: int, drop=(), add=()):
+    props = [p for p in ae.item_properties(_tiles()[k])[1]
+             if p[0] not in drop]
+    return {k: props + list(add)}
+
+
+def _grid_props(drop=(), add=()):
+    props = [p for p in ae.item_properties(_tiles()[0])[1]
+             if p[0] in (b"pixi", b"colr") and p[0] not in drop]
+    return [ae.ispe(200, 150)] + props + list(add)
+
+
+def _alpha_props(drop=(), add=()):
+    props = [p for p in ae.item_properties(_tiles()[0])[2]
+             if p[0] in (b"pixi", b"auxC") and p[0] not in drop]
+    return [ae.ispe(200, 150)] + props + list(add)
+
+
+PIXI_10 = (b"pixi", b"\0\0\0\0\x03\x0a\x0a\x0a", False)
+UNKNOWN = (b"abcd", b"", True)
+
+
+def _grid_reads():
+    """Grid variants PIL reads, and what each shows: tiles in dimg order,
+    colour from the grid item alone (no colr: the AV1 sequence header's),
+    the grid's pixi optional and its plane count free, tiles' pixi and
+    unknown non-essential properties ignored, an alpha grid without auxC
+    or with an unsupported essential property ignored."""
+    nclx4 = [(t, ae.set_nclx(b"colrnclx" + p[4:] if t == b"colr" else p,
+                             mc=4)[4:] if t == b"colr" else p, e)
+             for t, p, e in ae.item_properties(_tiles()[0])[1]]
+    return {
+        "dimg_order": _grid(dimg=[1, 0, 2, 5, 4, 3]),
+        "flags_bit_1": _grid(payload=b"\0\2" + ae.grid_payload(
+            2, 3, 200, 150)[2:]),
+        "grid_no_colr": _grid(grid_props=_grid_props(drop=(b"colr",))),
+        "grid_no_pixi": _grid(grid_props=_grid_props(drop=(b"pixi",))),
+        "grid_pixi_2_planes": _grid(grid_props=_grid_props(
+            drop=(b"pixi",), add=((b"pixi", b"\0" * 4 + b"\2\x08\x08",
+                                   False),))),
+        "tile_colr_ignored": _grid(tile_props={0: nclx4, 3: nclx4}),
+        "tile_pixi_10": _grid(tile_props=_tile_props(
+            3, drop=(b"pixi",), add=(PIXI_10,))),
+        "tile_unknown_property": _grid(tile_props=_tile_props(
+            1, add=((b"abcd", b"", False),))),
+        "tiles_shown": _grid(hidden=False),
+        "alpha_no_auxc": _grid(alpha=True, alpha_grid_props=_alpha_props(
+            drop=(b"auxC",))),
+        "alpha_essential_unknown": _grid(
+            alpha=True, alpha_grid_props=_alpha_props(add=(UNKNOWN,))),
+        "limited_range": ae.make_grid(list(_tiles(range="limited")), 2, 3,
+                                      200, 150),
+        "rgb_tiles_of_rgba": ae.make_grid(list(_tiles(rgba=False)), 2, 3,
+                                          200, 150),
+    }
+
+
+def _grid_refusals():
+    """libavif's grid refusals (PIL's RuntimeError "Invalid image grid"
+    or "Missing or empty image item", or not identified), each from a
+    one-field edit of a grid PIL reads."""
+    big = ae.grid_payload
+    return {
+        "version_1": _grid(payload=big(2, 3, 200, 150, version=1)),
+        "payload_short": _grid(payload=big(2, 3, 200, 150)[:7]),
+        "payload_long": _grid(payload=big(2, 3, 200, 150) + b"\0"),
+        "width_0": _grid(payload=big(2, 3, 0, 150)),
+        "width_past_32768": _grid(payload=big(2, 3, 40000, 150, big=True)),
+        "past_16384_squared": _grid(payload=big(2, 3, 20000, 20000,
+                                                big=True)),
+        "rows_past_tiles": _grid(payload=big(3, 3, 200, 150)),
+        "dimg_fewer": _grid(dimg=[0, 1, 2, 3, 4]),
+        "tile_type_hvc1": _grid(tile_types={2: b"hvc1"}),
+        "tile_type_grid": _grid(tile_types={0: b"grid"}),
+        "tile_essential_unknown": _grid(tile_props=_tile_props(
+            1, add=(UNKNOWN,))),
+        "first_tile_no_av1c": _grid(tile_props=_tile_props(
+            0, drop=(b"av1C",))),
+        "tile_no_av1c": _grid(tile_props=_tile_props(3, drop=(b"av1C",))),
+        "tile_no_ispe": _grid(tile_props=_tile_props(3, drop=(b"ispe",))),
+        "grid_no_ispe": _grid(grid_props=_grid_props()[1:]),
+        "grid_pixi_10": _grid(grid_props=_grid_props(drop=(b"pixi",),
+                                                     add=(PIXI_10,))),
+        "grid_essential_unknown": _grid(grid_props=_grid_props(
+            add=(UNKNOWN,))),
+        "not_covered": _grid(payload=big(2, 3, 220, 150)),
+        "last_column_outside": _grid(payload=big(2, 3, 144, 150)),
+        "last_row_outside": _grid(payload=big(2, 3, 200, 80)),
+        "odd_width_420": _grid(payload=big(2, 3, 199, 150)),
+        "odd_height_420": _grid(payload=big(2, 3, 200, 149)),
+        "tiles_under_64": ae.make_grid(list(_tiles(shape=(3, 4, 50, 50))),
+                                       3, 4, 200, 150),
+        "mismatched_range": ae.make_grid(
+            list(_tiles()[:3] + _tiles(range="limited")[3:]), 2, 3, 200,
+            150),
+        "mismatched_size": ae.make_grid(
+            list(_tiles()[:5] + _tiles(shape=(2, 3, 64, 80))[5:]), 2, 3,
+            200, 150),
+        "mismatched_subsampling": ae.make_grid(
+            list(_tiles()[:3] + _tiles(subsampling="4:4:4")[3:]), 2, 3,
+            200, 150),
+        "mismatched_mono": ae.make_grid(
+            list(_tiles()[:3] + _tiles(subsampling="4:0:0")[3:]), 2, 3,
+            200, 150),
+        "alpha_version_1": _grid(alpha=True, alpha_payload=big(
+            2, 3, 200, 150, version=1)),
+        "alpha_size_differs": _grid(alpha=True, alpha_payload=big(
+            2, 3, 210, 150)),
+        "alpha_no_ispe": _grid(alpha=True, alpha_grid_props=_alpha_props()[
+            1:]),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_grid_reads()))
+def test_grids_as_libavif_reads_them(scratch, case):
+    """Grid variants libavif reads: the port reads each as PIL does."""
+    assert assert_as_jax(scratch / f"{case}.avif",
+                         _grid_reads()[case]) is not None
+
+
+@pytest.mark.parametrize("case", sorted(_grid_refusals()))
+def test_grid_refusals_as_libavifs(scratch, case):
+    """Each of libavif's grid checks: PIL refuses the file, and the port
+    raises ValueError where PIL raises, NotImplementedError where PIL
+    cannot identify it."""
+    assert assert_as_jax(scratch / f"{case}.avif",
+                         _grid_refusals()[case]) is None
+
+
+def test_grid_layout_is_checked_before_any_tile_is_decoded(scratch,
+                                                           monkeypatch):
+    """Flat 2048x2048 tiles, cheap in bytes, as a 2x2 grid over a 200x200
+    output: PIL refuses it (the last row and column lie outside), and the
+    port refuses it from the tiles' headers, decoding none of them."""
+    tile = ae.pil_default(np.full((2048, 2048, 3), 90, np.uint8), speed=10)
+    data = ae.make_grid([tile] * 4, 2, 2, 200, 200)
+    assert assert_as_jax(scratch / "large.avif", data) is None
+
+    def decode(*args):
+        raise AssertionError("a tile was decoded")
+
+    monkeypatch.setattr(avif, "_decode_av1", decode)
+    with pytest.raises(ValueError, match="does not overlap"):
+        image_io.read_ldr(str(scratch / "large.avif"))
+
+
+def test_grid_ispe_and_tile_sizes(scratch):
+    """A grid whose ispe differs from its output size (Pillow lays the
+    grid's pixels out at the ispe's size) and tiles whose ispe differs
+    from their frames (libavif scales each tile to its ispe with libyuv):
+    PIL reads both, the port refuses them (ValueError)."""
+    for data, match in (
+            (_grid(grid_props=[ae.ispe(190, 150)] + _grid_props()[1:]),
+             "the frame is 200x150, the item 190x150"),
+            (_grid(tile_props={k: [ae.ispe(70, 80) if p[0] == b"ispe" else p
+                                   for p in ae.item_properties(t)[1]]
+                               for k, t in enumerate(_tiles())}),
+             "its ispe 70x80")):
+        path = scratch / "i.avif"
+        path.write_bytes(data)
+        assert jax_read_ldr(path).shape[2] == 3
+        with pytest.raises(ValueError, match=match):
+            image_io.read_ldr(str(path))
+
+
+def test_grid_scene_textures_are_what_the_scene_needs():
+    """The scene's albedo as a 3x3 grid of 384x384 tiles cropped to 1024
+    (matrix 12 under primaries 12: the float routines) and its leaf as
+    2x2 colour and alpha grids of 256x256 tiles (YCgCo at full range),
+    whose alpha cuts about half the texels; the FCC albedo takes the
+    float routines too."""
+    for name, grid, nclx in ((ALBEDO_GRID, (3, 3, 384, 384), (12, 13, 12, 1)),
+                             (LEAF_GRID, (2, 2, 256, 256), (1, 13, 8, 1)),
+                             (ALBEDO_FCC, None, (1, 13, 4, 1))):
+        data = open(os.path.join(FIXTURE_DIR, name), "rb").read()
+        info = avif.frame_info(data, name, headers_only=True)
+        assert info["grid"] == grid and avif._parse(data)[3] == nclx
+    leaf = image_io.decode_ldr(os.path.join(FIXTURE_DIR, LEAF_GRID))
+    assert leaf.shape == (512, 512, 4)
+    assert 0.3 < (leaf[..., 3] == 0).mean() < 0.7
+    assert isinstance(avif._parse(open(os.path.join(
+        FIXTURE_DIR, LEAF_GRID), "rb").read())[1], avif._Grid)
+
+
+def test_grid_avif_scene_compiles_as_jax(tmp_path):
+    """The textured scene with its albedo and RGBA leaf as grid images
+    (what chip_smoke.py renders on the card): the same leaves in both
+    packages, bit for bit."""
+    from test_torch_instanced import assert_same, jax_compile, jax_tree
+    from tracerboy_tpu_torch.scene.compile import compile_scene
+    from tracerboy_tpu_torch.scene.pbrt_parser import parse_pbrt
+    from tracerboy_tpu_torch.utils.demo_scene import (
+        retexture,
+        write_textured_scene,
+    )
+
+    tex, lit = write_textured_scene(str(tmp_path), grid=8, sky=(16, 8),
+                                    leaves=8, albedo=8, normal=8, leaf=8)
+    retexture(tex, {"albedo.png": os.path.join(FIXTURE_DIR, ALBEDO_GRID),
+                    "leaf.png": os.path.join(FIXTURE_DIR, LEAF_GRID)})
+    got = compile_scene(parse_pbrt(lit))
+    assert_same(jax_tree(jax_compile(lit)), got.as_numpy())

@@ -4,9 +4,11 @@ the shape, dtype and sha256 of PIL's array in its manifest
 (tests/make_avif_fixtures.py wrote both; the in-loop filters' fixtures
 among them), and the textured demo scene with its albedo and RGBA leaf
 Pillow's default saves (the in-loop filters on), whose deblocked alpha
-item makes the cutouts, and again with its albedo a plain Image.save
-(intra block copy) and its leaf a save with film grain (its alpha item's
-too), renders on the card with every closest-hit launch of kernel 1
+item makes the cutouts, again with its albedo a plain Image.save (intra
+block copy) and its leaf a save with film grain (its alpha item's too),
+and again with its albedo a grid image through libavif's float routines
+and its leaf colour and alpha grids (also through the CLI), renders on
+the card with every closest-hit launch of kernel 1
 (main waves, alpha re-fires, shadow-BVH rounds) held against its plain
 version: hits equal, t to 1e-6 relative, ids equal but on at most 1e-4
 of the hit lanes (ties), no stack overflow.
@@ -64,6 +66,43 @@ def test_copy_grain_scene_launches_equal_their_plain_version(
         cuda_device, tmp_path, monkeypatch):
     scene_launches_check(tmp_path, monkeypatch, "albedo_plain.avif",
                          "leaf_grain.avif")
+
+
+@pytest.mark.cuda
+def test_grid_scene_launches_equal_their_plain_version(
+        cuda_device, tmp_path, monkeypatch):
+    scene_launches_check(tmp_path, monkeypatch, "albedo_grid.avif",
+                         "leaf_grid.avif")
+
+
+@pytest.mark.cuda
+def test_grid_scene_cli_run(cuda_device, tmp_path):
+    """The CLI on the grid scene (albedo a 3x3 grid through libavif's
+    float routines, leaf colour and alpha grids) at 320x180, 2 spp: exit
+    0, a finite image in [0, 1], closest-hit launches of kernel 1 and no
+    any-hit launch (the cutouts make every shadow wave a closest-hit
+    march)."""
+    from tracerboy_tpu_torch.app import cli
+    from tracerboy_tpu_torch.trace import kernels
+    from tracerboy_tpu_torch.utils.demo_scene import (
+        retexture,
+        write_textured_scene,
+    )
+
+    tex, lit = write_textured_scene(str(tmp_path), grid=64, sky=(64, 32),
+                                    leaves=512, albedo=8, normal=64,
+                                    leaf=8)
+    retexture(tex, {"albedo.png": os.path.join(FIXTURES, "albedo_grid.avif"),
+                    "leaf.png": os.path.join(FIXTURES, "leaf_grid.avif")})
+    out = str(tmp_path / "grid.png")
+    kernels.reset_counters()
+    assert cli.main([lit, "--size", "320x180", "--spp", "2", "--out", out,
+                     "--quiet"]) == 0
+    assert kernels.LAUNCHES["closest"] > 0
+    assert kernels.LAUNCHES["anyhit"] == 0
+    img = image_io.read_ldr(out)
+    assert img.shape[:2] == (180, 320) and np.isfinite(img).all()
+    assert 0.0 < img[..., :3].mean() < 1.0
 
 
 def scene_launches_check(tmp_path, monkeypatch, albedo, leaf):

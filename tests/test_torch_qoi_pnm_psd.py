@@ -8,12 +8,13 @@ The committed fixtures of tests/data/webp that are not WebP are held
 against the JAX read_ldr. Hypothesis sweeps random images through PIL's
 QOI encoder, random QOI op streams (Pillow's index quirks), PNMs of every
 header at random maxvals, plain or raw, with comments, and PSDs of every
-colour mode PIL converts without LittleCMS, raw or PackBits, with
-resources, a layer block and extra channels; truncated files of each.
+colour mode PIL reads (Lab through LittleCMS among them), raw or
+PackBits, with resources, a layer block and extra channels; truncated
+files of each.
 Where PIL refuses a file the port raises: ValueError where PIL raises
 OSError, ValueError, EOFError, KeyError or IndexError,
-NotImplementedError where PIL cannot identify it. A Lab PSD names ROADMAP
-item 22b. core/qoi.write_qoi writes PIL's bytes.
+NotImplementedError where PIL cannot identify it. The Lab transform is
+PIL's on all 2^24 inputs. core/qoi.write_qoi writes PIL's bytes.
 """
 
 import io
@@ -188,7 +189,7 @@ def test_pnm_16_bit_grey_clips_at_255(tmp_path):
 
 PSD_MODES = [(0, 1, 1), (1, 8, 1), (1, 8, 2), (2, 8, 1), (3, 8, 3),
              (3, 8, 4), (3, 8, 5), (4, 8, 4), (4, 8, 5), (7, 8, 3),
-             (8, 8, 1)]
+             (8, 8, 1), (9, 8, 3), (9, 8, 4), (9, 8, 5)]
 
 
 @settings(max_examples=60, deadline=None, derandomize=True)
@@ -198,7 +199,7 @@ PSD_MODES = [(0, 1, 1), (1, 8, 1), (1, 8, 2), (2, 8, 1), (3, 8, 3),
        layer=st.booleans(), cut=st.sampled_from([0, 0, 0, 1, 7, 60]))
 def test_psd_modes(scratch, seed, mode, compression, w, h, resources,
                    layer, cut):
-    """Every (colour mode, depth) PIL converts without LittleCMS, raw or
+    """Every (colour mode, depth) PIL reads, Lab among them, raw or
     PackBits, with resources and a layer block to skip, more channels
     than PIL reads (PackBits then reads PIL's misplaced offsets), whole
     or cut short."""
@@ -257,8 +258,10 @@ def test_psd_quirks_and_refusals(tmp_path, case):
 
 def test_lab_psd_names_item_22b(tmp_path):
     """A Lab PSD, which PIL converts through LittleCMS (to RGBA: the JAX
-    read_ldr sees an "A" in "LAB"), decodes (core/psd.decode_psd) but
-    read_ldr raises NotImplementedError naming ROADMAP item 22b."""
+    read_ldr sees an "A" in "LAB"), decodes (core/psd.decode_psd) to the
+    file's planes, and read_ldr reads it as the JAX read_ldr reads it,
+    alpha 0 included (Pillow copies the LAB image's extra byte, which its
+    PSD band unpackers leave at 0, into the alpha)."""
     planes = np.random.default_rng(17).integers(0, 256, (3, 5, 7),
                                                 dtype=np.uint8)
     path = tmp_path / "lab.psd"
@@ -266,8 +269,23 @@ def test_lab_psd_names_item_22b(tmp_path):
     assert jax_read_ldr(path).shape == (5, 7, 4)
     img, mode, _ = psd.decode_psd(path.read_bytes())
     assert mode == "LAB" and np.array_equal(np.moveaxis(img, -1, 0), planes)
-    with pytest.raises(NotImplementedError, match="item 22b"):
-        image_io.read_ldr(str(path))
+    assert assert_as_jax(path, path.read_bytes()) is not None
+    assert not image_io.read_ldr(str(path))[..., 3].any()
+    assert np.array_equal(image_io.read_ldr(str(path), gamma_to_linear=True),
+                          jax_read_ldr(path, gamma_to_linear=True))
+
+
+def test_lab_transform_is_pils_on_every_input(tmp_path):
+    """All 2^24 (L, a, b) bytes as one 4096x4096 Lab PSD: the port's RGBA
+    is PIL's convert("RGBA") (LittleCMS 2.17's Lab to sRGB transform with
+    its 8-bit optimisation) on every input."""
+    v = np.arange(1 << 24, dtype=np.uint32)
+    planes = np.stack([v >> 16, v >> 8 & 255, v & 255]).astype(
+        np.uint8).reshape(3, 4096, 4096)
+    data = pe.psd_file(planes, 9)
+    del v, planes
+    ref = np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+    assert np.array_equal(psd.read_psd(data), ref)
 
 
 def test_formats_are_known_by_their_headers(tmp_path):

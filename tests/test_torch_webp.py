@@ -15,11 +15,11 @@ and 15), ALPH chunks of both methods under every filter, animations
 whose first frame lies inside a larger canvas, truncated files and
 corrupted bitstreams. Where PIL refuses a file the port raises:
 ValueError where PIL raises OSError, ValueError, EOFError, KeyError or
-IndexError, NotImplementedError where PIL cannot identify it. AVIF files
-whose matrix coefficients libavif converts in its own float path, which
-PIL reads, raise NotImplementedError naming ROADMAP item 22b; AVIF files
-as Pillow saves them by default (the in-loop filters on), with the
-filters off and with film grain (core/avif.py, tests/test_torch_avif.py)
+IndexError, NotImplementedError where PIL cannot identify it. SGI files,
+which PIL reads, raise NotImplementedError naming ROADMAP item 22b; AVIF
+files as Pillow saves them by default (the in-loop filters on), with the
+filters off, with film grain and with the matrix coefficients libavif
+converts in its own float path (core/avif.py, tests/test_torch_avif.py)
 and JPEG 2000 files read as the JAX read_ldr reads them
 (core/jpeg2000.py, tests/test_torch_jpeg2000.py). A PBRT scene whose albedo and leaf are
 WebPs and whose environment map is a QOI compiles in both packages to the
@@ -340,20 +340,23 @@ def test_alpha_stream_cut_short(scratch, seed, quality, alpha_quality,
 
 
 def test_unported_formats_name_item_22b(tmp_path):
-    """AVIF whose colr box names matrix coefficients 4 (FCC), which
-    libavif converts in its own float path and PIL reads (the JAX
-    read_ldr renders it), is not ported yet: NotImplementedError naming
-    ROADMAP item 22b. AVIF as Pillow saves it by default (the in-loop
-    filters on), with film grain (aom's film-grain-test) and with the
-    filters off, and JPEG 2000, which PIL reads too, read as the JAX
-    read_ldr reads them."""
+    """An SGI image, which PIL reads (the JAX read_ldr renders it), is not
+    ported yet: NotImplementedError naming ROADMAP item 22b. AVIF whose
+    colr box names matrix coefficients 4 (FCC), which libavif converts
+    in its own float path, AVIF as Pillow saves it by default (the
+    in-loop filters on), with film grain (aom's film-grain-test) and
+    with the filters off, and JPEG 2000, which PIL reads too, read as
+    the JAX read_ldr reads them."""
     img = Image.fromarray(sample_image(np.random.default_rng(13), 16, 16)[
         ..., :3])
-    path = tmp_path / "x.avif"
-    path.write_bytes(ae.set_nclx(ae.pil_default(img), mc=4))
+    path = tmp_path / "x.sgi"
+    img.save(path, "SGI")
     assert jax_read_ldr(path).shape == (16, 16, 3)
     with pytest.raises(NotImplementedError, match=ITEM):
         image_io.read_ldr(str(path))
+    path = tmp_path / "x.avif"
+    path.write_bytes(ae.set_nclx(ae.pil_default(img), mc=4))
+    assert np.array_equal(image_io.read_ldr(str(path)), jax_read_ldr(path))
     img.save(path, "AVIF")
     assert np.array_equal(image_io.read_ldr(str(path)), jax_read_ldr(path))
     img.save(path, "AVIF", advanced={"film-grain-test": "1"})

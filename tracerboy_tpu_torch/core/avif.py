@@ -18,41 +18,64 @@ original does it:
   pict; pitm, iloc (versions 0-2, construction methods 0 and 1 with
   idat), iinf (infe versions 2 and 3), iref (auxl, prem, thmb, cdsc,
   dimg), iprp with ipco and ipma; the colour item is the primary item,
-  which needs av1C, ispe and pixi (libavif's default strict flags); the
-  alpha item is the av01 item with an auxl reference to it and an auxC
-  of urn:mpeg:mpegB:cicp:systems:auxiliary:alpha (or the HEVC URN).
-  With major brand avis the first sample of the first av01 track is the
-  frame, and the alpha is the track whose auxl tref names it. Colour
-  primaries, transfer and matrix come from the colr nclx property, and
-  the range from its full_range_flag; without one, from the AV1 sequence
-  header. irot, imir and clap do not move pixels (PIL reports
-  orientation in info). A grid or overlay item, and the features below,
-  raise NotImplementedError. Each rule of libavif's that the parser
-  repeats was read off PIL's answers to one-byte edits of every box;
-  the moov box is checked as far as a first frame needs it, so a
-  damaged track box that libavif refuses may still be read here.
+  an av01 item, which needs av1C, ispe and pixi (libavif's default
+  strict flags), or a grid item; the alpha item is the av01 or grid item
+  with an auxl reference to it and an auxC of
+  urn:mpeg:mpegB:cicp:systems:auxiliary:alpha (or the HEVC URN). A grid
+  (HEIF 6.6.2.3, MIAF 7.3.11.4.2) is read as libavif 1.3 reads it: its
+  ImageGrid (version 0, flags bit 0 for 32-bit output sizes, exactly
+  that long; an output size not 0 and within libavif's limits), its
+  tiles the av01 items whose dimg references it names, in the order it
+  names them, rows x columns of them, none with an unsupported essential
+  property; the grid takes the first tile's av1C (every tile's must
+  agree with it, and each tile needs an ispe), its pixi is optional and
+  checked against that av1C, and colour comes from the grid's own nclx
+  (the tiles' colr boxes are not read) or else the first tile's AV1
+  sequence header. Every tile is decoded; the tiles must agree in size,
+  depth, subsampling, range and CICP, be at least 64 samples a side,
+  even where chroma is subsampled, cover the output and overlap it with
+  their last row and column; their planes are stitched into one frame
+  (chroma at the tiles' chroma offsets) and cropped to the output size,
+  and that frame is converted whole, so chroma upsampling crosses tile
+  borders as in libavif. With major brand avis the first sample of the
+  first av01 track is the frame, and the alpha is the track whose auxl
+  tref names it. Colour primaries, transfer and matrix come from the
+  colr nclx property, and the range from its full_range_flag; without
+  one, from the AV1 sequence header. irot, imir and clap do not move
+  pixels (PIL reports orientation in info). Each rule of libavif's that
+  the parser repeats was read off PIL's answers to one-byte edits of
+  every box; the moov box is checked as far as a first frame needs it,
+  so a damaged track box that libavif refuses may still be read here.
 - the AV1 frame: csrc/av1_decode.cpp, which decodes an 8-bit intra
   frame, intra block copy and its in-loop filters included (deblocking
   with delta LF, CDEF, loop restoration with Wiener and self-guided
   units: av1_filters.inc), applies its film grain to the planes it hands
   out as dav1d does (av1_grain.inc; the alpha item's too, where its
-  frame carries grain), and converts YUV to RGB(A) as libavif hands it
-  to libyuv (bilinear chroma upsampling, libyuv's fixed-point matrices,
-  libyuv's un-premultiply where a prem reference marks the alpha).
+  frame carries grain), and converts YUV to RGB(A) as libavif does:
+  where the libyuv in Pillow's wheel has the matrix, as libavif hands
+  it to libyuv (bilinear chroma upsampling, libyuv's fixed-point
+  matrices, libyuv's un-premultiply where a prem reference marks the
+  alpha); else in libavif's own float routines (avif_reformat.inc: 4
+  FCC, 7 SMPTE 240M, 8 YCgCo at full range, 12 with primaries other
+  than BT.709, unspecified, BT.601 or BT.2020, 15, identity at limited
+  range; bilinear chroma upsampling in float, its un-premultiply in
+  float, or libyuv's after its 4:4:4 and 4:0:0 routines).
 
 Refused with NotImplementedError naming ROADMAP item 22b, AVIF part 2,
-where PIL reads the file: the matrix coefficients libavif converts
-without libyuv (4 FCC, 7 SMPTE 240M, 8 YCgCo, 12 with primaries other
-than BT.709, BT.601 or BT.2020, and 15 to 254), grid and iovl items, a
-frame that is not a shown key frame, superres and high bit depth (10
-and 12 bits); libavif's moov checks are followed only as far as a first
-frame needs them. The matrices libavif refuses (3, 10, 11, 13, 14, 255;
-identity unless 4:4:4; YCgCo at limited range) raise ValueError, as PIL
-raises. So does an ispe that disagrees with the AV1 frame, where Pillow
-lays the frame's pixels out at the ispe's size and returns what lies
-past them, and an intra block copy vector that points outside what is
-decoded (INVALID_DV), which dav1d copies from whatever its frame buffer
-holds there.
+where PIL reads the file: a frame that is not a shown key frame,
+superres and high bit depth (10 and 12 bits); libavif's moov checks are
+followed only as far as a first frame needs them. The matrices libavif
+refuses ("Reformat failed": 3, 10, 11, 13, 14 and 16-255; identity
+unless 4:4:4; YCgCo at limited range), a primary item of a type other
+than av01 and grid (iovl among them: "missing or empty image item";
+an iovl alpha item is no alpha) and each of libavif's grid checks above
+raise ValueError, as PIL raises. So does an ispe that disagrees with the
+AV1 frame, where Pillow lays the frame's pixels out at the ispe's size
+and returns what lies past them (a grid's ispe against its output size
+too), a tile whose ispe disagrees with its frame, which libavif scales
+to the ispe with libyuv, and an intra block copy vector that points
+outside what is decoded (INVALID_DV), which dav1d copies from whatever
+its frame buffer holds there.
 """
 
 from __future__ import annotations
@@ -67,9 +90,9 @@ from tracerboy_tpu_torch.core.image_io import (
     check_image_size,
 )
 
-ITEM = ("ROADMAP.md, Queue 1: item 22b, AVIF part 2 (libavif's float-path "
-        "matrices, grid and iovl items, frames that are not shown key "
-        "frames, libavif's moov checks, superres, high bit depth)")
+ITEM = ("ROADMAP.md, Queue 1: item 22b, AVIF part 2 (frames that are not "
+        "shown key frames, libavif's moov checks, superres, high bit "
+        "depth)")
 # The decoder's refusal of an intra block copy vector outside the decoded
 # area (ValueError: corrupt).
 INVALID_DV = "an intra block copy vector outside the decoded area"
@@ -164,6 +187,7 @@ class _Item:
         self.extents = None          # (construction method, [(off, len)])
         self.aux_for = None          # auxl target
         self.prem_by: list[int] = []
+        self.dimg_for = None         # (grid item, index among its tiles)
         self.unsupported_essential = False
 
 
@@ -266,6 +290,9 @@ def _parse_meta(data: bytes, start: int, end: int):
                     item(src).aux_for = dsts[0]
                 elif t2 == b"prem":
                     item(src).prem_by += dsts
+                elif t2 == b"dimg":     # derived images point the other way
+                    for k, d in enumerate(dsts):
+                        item(d).dimg_for = (src, k)
         elif typ == b"iprp":
             for t2, s2, e2 in _boxes(data, s, e):
                 if t2 == b"ipco":
@@ -320,16 +347,19 @@ def _prop(item: _Item, typ: bytes):
     return None
 
 
-def _item_props(data: bytes, item: _Item, depth_check: bool = True) -> dict:
-    """ispe, pixi and nclx of an item, as avifDecoderItemValidateProperties
-    wants them."""
-    out = {}
+def _ispe(data: bytes, item: _Item) -> tuple[int, int]:
     ispe = _prop(item, b"ispe")
     if ispe is None:
         raise _Unidentified(f"item {item.id} has no ispe")
     r = _Reader(data, *ispe)
     r.full((0,))
-    out["size"] = (r.u(4), r.u(4))
+    return r.u(4), r.u(4)
+
+
+def _item_props(data: bytes, item: _Item, depth_check: bool = True) -> dict:
+    """ispe, pixi and nclx of an item, as avifDecoderItemValidateProperties
+    wants them."""
+    out = {"size": _ispe(data, item)}
     av1c = _prop(item, b"av1C")
     out["av1C"] = av1c is not None
     if av1c is None:
@@ -600,6 +630,77 @@ def _parse(data: bytes):
     return _from_items(data, meta)
 
 
+class _Grid:
+    """A grid item (HEIF 6.6.2.3): rows x cols tiles, their AV1 payloads
+    in raster order, cropped to width x height."""
+
+    def __init__(self, rows, cols, width, height, tiles, sizes):
+        self.rows, self.cols = rows, cols
+        self.width, self.height = width, height
+        self.tiles, self.sizes = tiles, sizes      # payloads, tiles' ispe
+
+
+def _grid(data: bytes, items: dict, it: _Item, idat):
+    """The tiles of grid item `it` as libavif 1.3 reads them
+    (avifParseImageGridBox, avifDecoderGenerateImageGridTiles), with its
+    checks: (grid item, its tiles in dimg order)."""
+    p = _item_data(data, it, idat)
+    n = 4 if p[1:2] and p[1] & 1 else 2
+    if p[0] != 0 or len(p) != 4 + 2 * n:
+        raise _Failed("invalid image grid (version or payload size)")
+    rows, cols = p[2] + 1, p[3] + 1
+    w, h = (int.from_bytes(p[4 + k * n:4 + (k + 1) * n], "big")
+            for k in (0, 1))
+    if (not w or not h or w * h > SIZE_LIMIT or w > DIMENSION_LIMIT
+            or h > DIMENSION_LIMIT):
+        raise _Failed(f"invalid image grid (illegal or too large "
+                      f"dimensions {w}x{h})")
+    found = {t.dimg_for[1]: t for t in items.values()
+             if t.dimg_for and t.dimg_for[0] == it.id}
+    if sorted(found) != list(range(rows * cols)):
+        raise _Failed(f"invalid image grid ({rows}x{cols} needs "
+                      f"{rows * cols} tiles, {len(found)} were found)")
+    tiles = [found[k] for k in range(rows * cols)]
+    for t in tiles:
+        if t.type != b"av01":
+            raise _Failed("invalid image grid (a tile of unknown type)")
+        if t.unsupported_essential:
+            raise _Failed("invalid image grid (a tile with an unsupported "
+                          "essential property)")
+    if _prop(tiles[0], b"av1C") is None:
+        raise _Failed("invalid image grid (the first tile is missing an "
+                      "av1C property)")
+    return rows, cols, w, h, tiles
+
+
+def _av1c_fields(data: bytes, item: _Item) -> bytes:
+    """An av1C's fields libavif compares between a grid's tiles (profile,
+    level, tier, depth, monochrome, subsampling, sample position)."""
+    s, e = _prop(item, b"av1C")
+    if e - s < 4:
+        raise _Unidentified("short av1C")
+    return data[s + 1:s + 3]
+
+
+def _grid_spec(data: bytes, items: dict, it: _Item, idat):
+    """(_Grid, properties) of a grid item: libavif gives the grid the
+    first tile's av1C and validates the grid's pixi against it; every
+    tile needs an ispe and the first tile's av1C fields (the tiles' pixi
+    and colr boxes are not read: nclx comes from the grid item alone)."""
+    rows, cols, w, h, tiles = _grid(data, items, it, idat)
+    first = _av1c_fields(data, tiles[0])
+    for t in tiles:
+        if _prop(t, b"av1C") is None or _av1c_fields(data, t) != first:
+            raise _Unidentified("a tile's av1C differs from the first's")
+    sizes = [_ispe(data, t) for t in tiles]
+    adopted = _Item(it.id)
+    adopted.props = [p for p in it.props if p[0] != b"av1C"] + [
+        p for p in tiles[0].props if p[0] == b"av1C"][:1]
+    props = _item_props(data, adopted)
+    return (_Grid(rows, cols, w, h, [_item_data(data, t, idat)
+                                     for t in tiles], sizes), props)
+
+
 def _from_items(data: bytes, meta, props_only: bool = False):
     items, primary, idat = meta
     if primary is None or primary not in items or not items[primary].type:
@@ -611,13 +712,15 @@ def _from_items(data: bytes, meta, props_only: bool = False):
         if color.type == b"av01":
             _item_props(data, color, depth_check=False)
         return None
-    if color.type in (b"grid", b"iovl"):
-        raise NotImplementedError(f"a {color.type.decode()} item: {ITEM}")
-    if color.type != b"av01" or color.unsupported_essential:
+    if color.type not in (b"av01", b"grid") or color.unsupported_essential:
         raise _Failed("missing or empty image item")
-    cp = _item_props(data, color)
-    if not cp["av1C"]:
-        raise _Failed("missing or empty image item")
+    if color.type == b"grid":
+        color_data, cp = _grid_spec(data, items, color, idat)
+    else:
+        cp = _item_props(data, color)
+        if not cp["av1C"]:
+            raise _Failed("missing or empty image item")
+        color_data = None
     alpha = None
     for it in items.values():
         if it.aux_for != primary or it.type not in (b"av01", b"grid"):
@@ -626,6 +729,8 @@ def _from_items(data: bytes, meta, props_only: bool = False):
                                     or not it.extents
                                     or not sum(n for _, n in it.extents[1]))):
             continue                    # libavif sees no alpha
+        if it.type == b"grid" and it.unsupported_essential:
+            continue
         auxc = _prop(it, b"auxC")
         if auxc is None:
             continue
@@ -633,17 +738,18 @@ def _from_items(data: bytes, meta, props_only: bool = False):
         r.full((0,))
         if r.string() not in ALPHA_URNS:
             continue
-        if it.type == b"grid":
-            raise NotImplementedError(f"a grid alpha item: {ITEM}")
         alpha = it
         break
     alpha_data = None
-    if alpha is not None:
+    if alpha is not None and alpha.type == b"grid":
+        alpha_data = _grid_spec(data, items, alpha, idat)[0]
+    elif alpha is not None:
         _item_props(data, alpha)
         alpha_data = _item_data(data, alpha, idat)
     prem = alpha is not None and alpha.id in color.prem_by
-    return (_item_data(data, color, idat), alpha_data, cp["size"],
-            cp.get("nclx"), prem)
+    if color_data is None:
+        color_data = _item_data(data, color, idat)
+    return color_data, alpha_data, cp["size"], cp.get("nclx"), prem
 
 
 def _from_tracks(data: bytes, tracks):
@@ -668,24 +774,34 @@ def _from_tracks(data: bytes, tracks):
 _ERRORS = {-1: "corrupt AV1 data", -2: "unsupported", -3: "buffer"}
 
 
-def _decode_av1(lib, payload: bytes, path: str):
+def _av1_call(lib, payload: bytes, buf, info, path: str):
     import ctypes
 
-    info = np.zeros(16, np.int64)
     msg = ctypes.create_string_buffer(256)
-    rc = lib.tb_av1_decode(payload, len(payload), None, 0,
-                           info.ctypes.data, msg, 256)
-    if rc == 0:
-        w, h, mono, ssx, ssy = (int(v) for v in info[:5])
-        cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
-        n = w * h + (0 if mono else 2 * cw * ch)
-        buf = np.zeros(n, np.uint8)
-        rc = lib.tb_av1_decode(payload, len(payload), buf.ctypes.data, n,
-                               info.ctypes.data, msg, 256)
+    rc = lib.tb_av1_decode(payload, len(payload),
+                           None if buf is None else buf.ctypes.data,
+                           0 if buf is None else buf.size, info.ctypes.data,
+                           msg, 256)
     if rc == -2:
         raise NotImplementedError(f"{path}: {msg.value.decode()}: {ITEM}")
     if rc:
         raise _Failed(f"{msg.value.decode()} ({_ERRORS.get(rc, rc)})")
+
+
+def _av1_header(lib, payload: bytes, path: str):
+    """info of a payload from its headers alone (the frame not decoded)."""
+    info = np.zeros(16, np.int64)
+    _av1_call(lib, payload, None, info, path)
+    return info
+
+
+def _decode_av1(lib, payload: bytes, path: str):
+    w, h, mono, ssx, ssy = (int(v) for v in _av1_header(lib, payload,
+                                                        path)[:5])
+    cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
+    buf = np.zeros(w * h + (0 if mono else 2 * cw * ch), np.uint8)
+    info = np.zeros(16, np.int64)
+    _av1_call(lib, payload, buf, info, path)
     planes = [buf[:w * h].reshape(h, w)]
     if not mono:
         planes += [buf[w * h:w * h + cw * ch].reshape(ch, cw),
@@ -693,13 +809,70 @@ def _decode_av1(lib, payload: bytes, path: str):
     return planes, info
 
 
+def _decode_grid(lib, g: _Grid, path: str):
+    """Every tile decoded and stitched into one frame's planes, cropped to
+    the grid's output size, with libavif's checks of the tiles
+    (avifDecoderDataFillImageGrid): tiles alike in size, depth,
+    subsampling, range and CICP, covering the canvas with the last row
+    and column overlapping it, at least 64 samples a side, even where
+    chroma is subsampled. A tile whose ispe differs from its frame, which
+    libavif scales to the ispe, is refused. The checks read every tile's
+    headers before any tile is decoded."""
+    heads = [_av1_header(lib, t, path) for t in g.tiles]
+    for tile, size in zip(heads, g.sizes):
+        if (int(tile[0]), int(tile[1])) != size:
+            raise _Failed(f"a tile's frame is {tile[0]}x{tile[1]}, its "
+                          f"ispe {size[0]}x{size[1]}")
+    if any(not np.array_equal(h[:10], heads[0][:10]) for h in heads):
+        raise _Failed("invalid image grid (mismatched tiles)")
+    tw, th, mono, ssx, ssy = (int(v) for v in heads[0][:5])
+    W, H = g.width, g.height
+    if tw * g.cols < W or th * g.rows < H:
+        raise _Failed("invalid image grid (the tiles do not cover it)")
+    if tw * (g.cols - 1) >= W or th * (g.rows - 1) >= H:
+        raise _Failed("invalid image grid (the last row or column does "
+                      "not overlap it)")
+    if tw < 64 or th < 64:
+        raise _Failed("invalid image grid (tile width or height cannot be "
+                      "smaller than 64)")
+    if not mono and ((ssx and (W % 2 or tw % 2))
+                     or (ssy and (H % 2 or th % 2))):
+        raise _Failed("invalid image grid (odd sizes where chroma is "
+                      "subsampled)")
+    frames = [_decode_av1(lib, t, path) for t in g.tiles]
+    shapes = [(H, W)] + ([] if mono else 2 * [((H + ssy) >> ssy,
+                                               (W + ssx) >> ssx)])
+    out = [np.empty(shape, np.uint8) for shape in shapes]
+    for k, (planes, _) in enumerate(frames):
+        r, c = divmod(k, g.cols)
+        for p, plane in enumerate(planes):
+            sx, sy = (ssx, ssy) if p else (0, 0)
+            x0, y0 = (c * tw) >> sx, (r * th) >> sy
+            dst = out[p][y0:y0 + (th >> sy), x0:x0 + (tw >> sx)]
+            dst[...] = plane[:dst.shape[0], :dst.shape[1]]
+    info = frames[0][1].copy()
+    info[0], info[1] = W, H
+    info[15] = np.bitwise_or.reduce([f[1][15] for f in frames])
+    return out, info
+
+
+def _decode(lib, spec, path: str):
+    """(planes, info) of an item's payload or of a _Grid."""
+    if isinstance(spec, _Grid):
+        return _decode_grid(lib, spec, path)
+    return _decode_av1(lib, spec, path)
+
+
 def _matrix(cp: int, mc: int, full: int, mono: bool, alpha: bool,
             ssx: int, ssy: int):
-    """csrc's conversion kind for libavif's choice (0 BT.601, 1 BT.709,
-    2 BT.2020, 3 identity). 4:0:0 without alpha goes through libyuv's
+    """csrc's conversion kind for libavif's choice: libyuv's 0 BT.601, 1
+    BT.709, 2 BT.2020 and 3 identity at full range, libavif's own float
+    routines 4 (Kr and Kb of mc under cp), 5 (YCgCo) and 6 (identity at
+    limited range). 4:0:0 without alpha goes through libyuv's
     I400ToARGB, whose constants are BT.2020's whatever the matrix."""
-    if mc in (3, 10, 11, 13, 14, 255) or (mc == 8 and not full):
-        raise _Failed(f"libavif cannot convert matrix coefficients {mc}")
+    if mc in (3, 10, 11, 13, 14) or mc > 15 or (mc == 8 and not full):
+        raise _Failed(f"libavif cannot convert matrix coefficients {mc} "
+                      "(Reformat failed)")
     if mono and not alpha:
         return 2
     if mc == 0 and mono:
@@ -707,22 +880,14 @@ def _matrix(cp: int, mc: int, full: int, mono: bool, alpha: bool,
     if mc == 0:
         if ssx or ssy:
             raise _Failed("identity matrix coefficients need 4:4:4")
-        return 3
-    if mc in (2, 5, 6):
+        return 3 if full else 6
+    if mc in (2, 5, 6) or (mc == 12 and cp in (5, 6)):
         return 0
-    if mc == 1:
+    if mc == 1 or (mc == 12 and cp in (1, 2)):
         return 1
-    if mc == 9:
+    if mc == 9 or (mc == 12 and cp == 9):
         return 2
-    if mc == 12 and cp in (1, 2):
-        return 1
-    if mc == 12 and cp in (5, 6):
-        return 0
-    if mc == 12 and cp == 9:
-        return 2
-    raise NotImplementedError(
-        f"matrix coefficients {mc} (primaries {cp}), which libavif converts "
-        f"without libyuv: {ITEM}")
+    return 5 if mc == 8 else 4
 
 
 def read_avif(data: bytes, path: str = "<avif>") -> np.ndarray:
@@ -741,10 +906,10 @@ def read_avif(data: bytes, path: str = "<avif>") -> np.ndarray:
     check_image_size(w, h, path)
     lib = av1_library()
     try:
-        planes, info = _decode_av1(lib, color, path)
+        planes, info = _decode(lib, color, path)
         a_planes = None
         if alpha is not None:
-            a_planes, _ = _decode_av1(lib, alpha, path)
+            a_planes, _ = _decode(lib, alpha, path)
         fw, fh, mono, ssx, ssy, seq_full, cp, tc, mc = (int(v)
                                                         for v in info[:9])
         if (fw, fh) != (w, h):
@@ -768,7 +933,8 @@ def read_avif(data: bytes, path: str = "<avif>") -> np.ndarray:
     rc = lib.tb_avif_to_rgb(
         y.ctypes.data, None if u is None else u.ctypes.data,
         None if v is None else v.ctypes.data, w, h, ssx, ssy, kind, full,
-        None if a is None else a.ctypes.data, int(prem), out.ctypes.data)
+        None if a is None else a.ctypes.data, int(prem), out.ctypes.data,
+        cp, mc)
     if rc:
         raise ValueError(f"{path}: libavif cannot convert this YUV layout")
     return out
@@ -806,29 +972,34 @@ def frame_info(data: bytes, path: str = "<avif>",
     CDEF bits, restoration types and unit sizes among it)
     and (unless headers_only, which reads the OBUs up to the first frame
     header, the feature checks included) which block tools, in-loop
-    filters, intra block copy paths and film grain its decode used."""
+    filters, intra block copy paths and film grain its decode used. For a
+    grid, "grid" is (rows, columns, tile width, tile height), the headers
+    are the first tile's, "size" is the grid's output size and the tools
+    are those of every tile."""
     try:
         color = _parse(data)[0]
     except (_Unidentified, _Failed) as e:
         raise ValueError(f"{path}: {e}") from None
-    import ctypes
-
     lib = av1_library()
+    grid = None
     if headers_only:
-        info = np.zeros(16, np.int64)
-        msg = ctypes.create_string_buffer(256)
-        rc = lib.tb_av1_decode(color, len(color), None, 0, info.ctypes.data,
-                               msg, 256)
-        if rc == -2:
-            raise NotImplementedError(f"{path}: {msg.value.decode()}: {ITEM}")
-        if rc:
-            raise ValueError(f"{path}: {msg.value.decode()}")
-    else:
+        first = color.tiles[0] if isinstance(color, _Grid) else color
         try:
-            info = _decode_av1(lib, color, path)[1]
+            info = _av1_header(lib, first, path)
         except _Failed as e:
             raise ValueError(f"{path}: {e}") from None
-    return {"size": (int(info[0]), int(info[1])), "mono": bool(info[2]),
+        if isinstance(color, _Grid):
+            grid = (color.rows, color.cols, int(info[0]), int(info[1]))
+            info[:2] = color.width, color.height
+    else:
+        try:
+            info = _decode(lib, color, path)[1]
+        except _Failed as e:
+            raise ValueError(f"{path}: {e}") from None
+        if isinstance(color, _Grid):
+            grid = (color.rows, color.cols, *color.sizes[0])
+    return {"size": (int(info[0]), int(info[1])), "grid": grid,
+            "mono": bool(info[2]),
             "subsampling": (int(info[3]), int(info[4])),
             "full_range": bool(info[5]), "cicp": tuple(map(int, info[6:9])),
             "lossless": bool(info[11]), "tiles": int(info[12]),

@@ -18,7 +18,9 @@ ctypes:
 - av1_library(): csrc/av1_decode.cpp (an AV1 intra frame's OBUs to its
   planes, with csrc/av1_tables.inc, its in-loop filters in
   csrc/av1_filters.inc and its film grain in csrc/av1_grain.inc, and
-  libavif's YUV-to-RGB), for core/avif.py.
+  libavif's YUV-to-RGB, its float routines in csrc/avif_reformat.inc),
+  for core/avif.py, with -ffp-contract=off: the float routines repeat
+  libavif's single-precision steps.
 """
 
 from __future__ import annotations
@@ -104,7 +106,8 @@ def av1_library():
 
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     return _load("tbav1", "av1_decode.cpp",
-                 ("av1_tables.inc", "av1_filters.inc", "av1_grain.inc"), (
+                 ("av1_tables.inc", "av1_filters.inc", "av1_grain.inc",
+                  "avif_reformat.inc"), (
         ("tb_av1_decode", [p, i64, p, i64, p, ctypes.c_char_p, i64]),
         ("tb_avif_to_rgb", [p, p, p, i64, i64, i64, i64, i64, i64, p, i64,
-                            p])))
+                            p, i64, i64])), flags=("-ffp-contract=off",))

@@ -18,9 +18,18 @@ only (layers are PIL's later frames). The file is read as PIL reads it:
   each decoded by Pillow's PackBitsDecode (csrc/lzw_codecs.cpp
   tb_pil_packbits_rows: packets cut at each row's end) from its
   offset on.
-read_ldr converts as PIL's convert("RGB") does (core/tiff.to_read_ldr);
-Lab, which PIL converts through LittleCMS, is decoded but not converted
-(ROADMAP.md item 22b): read_psd raises NotImplementedError for it.
+read_ldr converts as PIL's convert("RGB") does (core/tiff.to_read_ldr).
+Lab goes to RGBA (the JAX read_ldr sees an "A" in "LAB") through
+LittleCMS 2.17's transform as Pillow builds it (createProfile("LAB") to
+createProfile("sRGB"), PT_LabV2 with one extra byte to TYPE_RGBA_8, the
+default intent and flags): its RGB is core/tiff's (csrc/tiff_codecs.cpp
+tb_lab_to_rgb, which equals PIL's on all 2^24 inputs), since PIL holds
+the file's a and b bytes as they are (its PSD unpackers are band copies,
+not the LAB unpacker's XOR of TIFF's signed a and b). Its alpha is 0:
+Pillow's transform copies the image's fourth (extra) byte into the
+output's alpha (pyCMScopyAux), and the PSD plugin's band unpackers leave
+that byte as the new image holds it, 0 (a TIFF's LAB unpacker writes
+255).
 
 Refused as PIL refuses: NotImplementedError (unidentified: ImageFile
 turns the plugin's KeyError and struct.error into SyntaxError) for a
@@ -169,8 +178,7 @@ def read_psd(data: bytes, path: str = "<psd>") -> np.ndarray:
     from tracerboy_tpu_torch.core.tiff import to_read_ldr
 
     img, mode, palette = decode_psd(data, path)
+    out = to_read_ldr(img, mode, palette)
     if mode == "LAB":
-        raise NotImplementedError(
-            f"{path}: a Lab PSD, which PIL converts to RGB through "
-            "LittleCMS, is not ported (ROADMAP.md, Queue 1: item 22b)")
-    return to_read_ldr(img, mode, palette)
+        out[..., 3] = 0             # the image's extra byte, copied
+    return out

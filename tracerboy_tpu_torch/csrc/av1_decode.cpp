@@ -1,6 +1,8 @@
 // The AV1 decoder of the port's AVIF reader (core/avif.py): one intra frame
-// from its OBUs to 8-bit Y, U and V planes, and the YUV-to-RGB(A) step that
-// gives Pillow's pixels. Host code, compiled with g++ at first use into the
+// from its OBUs to 8-bit Y, U and V planes (a grid's tiles each, stitched
+// by core/avif.py), and the YUV-to-RGB(A) step that gives Pillow's
+// pixels: libyuv's routines here, libavif's float routines in
+// avif_reformat.inc. Host code, compiled with g++ at first use into the
 // port's build directory (core/codecs.av1_library) and called through
 // ctypes. The constant tables (default CDFs, quantizer lookups, matrices,
 // weights, scans, the CDEF directions, the self-guided parameter sets, the
@@ -35,11 +37,16 @@
 // filters are off, as the specification says. Film grain is applied to
 // the planes handed out, not to the frame (av1_grain.inc).
 //
+// Departures from libavif's conversion: none in the values; 8-bit RGB(A)
+// output only (what Pillow asks for), and no libyuv scaling of a tile
+// whose frame differs from its ispe (core/avif.py refuses it).
+//
 // Departures from the specification: none in the decoding. A sequence
 // with several operating points decodes operating point 0, as libavif
 // asks dav1d to (all layers); OBUs outside it are dropped. What a damaged
 // stream does follows dav1d 1.5, which Pillow's libavif decodes with:
-// obu_forbidden_bit, tile list and reserved OBUs are ignored; a
+// obu_forbidden_bit, tile list and reserved OBUs are ignored; a vertical
+// partition at 4:2:2 (whose chroma has no block size) is refused; a
 // sequence header or frame header OBU must hold its trailing one bit; an
 // operating_point_idc naming layers of one kind only, identity matrix
 // coefficients without 4:4:4, and film grain points dav1d's parser
@@ -1702,6 +1709,13 @@ struct Decoder {
       }
     }
     if (partition > PARTITION_SPLIT) tools |= kToolExtPartition;
+    // At 4:2:2 a vertical split's halves (w/2 x h) have no chroma size
+    // (Subsampled_Size is BLOCK_INVALID: a conformance requirement of
+    // 5.11.4), and dav1d refuses the stream.
+    if (num_planes > 1 && seq.ssx && !seq.ssy &&
+        (partition == PARTITION_VERT || partition == PARTITION_VERT_A ||
+         partition == PARTITION_VERT_B || partition == PARTITION_VERT_4))
+      corrupt("a vertical partition at 4:2:2");
     int sub = partition_subsize(partition, bsize);
     int split = partition_subsize(PARTITION_SPLIT, bsize);
     if (sub == BLOCK_INVALID) corrupt("partition");
@@ -3500,16 +3514,17 @@ struct Decoder {
 // - 4:0:0: Y alone, through YuvPixel with u = v = 128: with an alpha
 //   plane the matrix's constants, without one (I400ToARGB) the BT.2020
 //   ones whatever the matrix (YG 19003 at limited range).
-// - identity (0), 4:4:4 only: G = Y, B = U, R = V; at limited range each
-//   channel (c - 16) * 255 / 219, rounded and clamped.
+// - identity (0), 4:4:4 only: G = Y, B = U, R = V at full range (libavif's
+//   avifImageIdentity8ToRGB8ColorFullRange); at limited range libavif's
+//   float routine (avif_reformat.inc).
 // - alpha: the alpha item's Y plane as it is (libavif 1.x treats alpha as
 //   full range). Premultiplied alpha (a prem reference) is undone by
 //   libyuv's ARGBUnattenuate as its SIMD rows compute it:
 //   ((c | c << 8) * ia) >> 16, ia = 65536 / a (0 for a = 0, 0xffff for
 //   a = 1, 0x100 for a = 255), packed with signed saturation: 255 above
 //   255, 0 above 32767.
-// Other matrix coefficients go through libavif's own float path, which
-// the port leaves out (core/avif.py refuses them).
+// Other matrix coefficients go through libavif's own float routines
+// (avif_reformat.inc).
 
 struct YuvConstants {
   int ub, ug, vg, vr, yg, yb;
@@ -3586,6 +3601,7 @@ void chroma_row(const uint8_t* p, int cw, int ch, int ssx, int ssy, int yy,
 
 #include "av1_filters.inc"
 #include "av1_grain.inc"
+#include "avif_reformat.inc"
 
 }  // namespace
 
@@ -3672,13 +3688,26 @@ int64_t tb_av1_decode(const uint8_t* data, int64_t n, uint8_t* planes,
 
 // Y, U, V (U and V null for 4:0:0) of a w x h image to RGB, or RGBA with
 // alpha (an h x w plane) not null. kind: 0 BT.601, 1 BT.709, 2 BT.2020,
-// 3 identity. Returns 0, or -1 for a kind or layout it does not take.
+// 3 identity at full range (libyuv's routines and libavif's copy), 4
+// libavif's float routines with the Kr and Kb of matrix coefficients mc
+// under colour primaries cp, 5 its float YCgCo, 6 its float identity
+// (avif_reformat.inc). Returns 0, or -1 for a kind or layout it
+// does not take.
 int64_t tb_avif_to_rgb(const uint8_t* y, const uint8_t* u, const uint8_t* v,
                        int64_t w, int64_t h, int64_t ssx, int64_t ssy,
                        int64_t kind, int64_t full, const uint8_t* alpha,
-                       int64_t premultiplied, uint8_t* out) {
-  if (kind < 0 || kind > 3 || (kind == 3 && (ssx || ssy || !u)))
+                       int64_t premultiplied, uint8_t* out, int64_t cp,
+                       int64_t mc) {
+  if (kind < 0 || kind > kFloatIdentity ||
+      ((kind == 3 || kind == kFloatIdentity) && (ssx || ssy || !u)) ||
+      (kind == 3 && !full))
     return -1;
+  if (kind >= kFloatCoeffs) {
+    float_to_rgb(y, u, v, (int)w, (int)h, (int)ssx, (int)ssy, (int)kind,
+                 (int)full, (int)cp, (int)mc, alpha, (int)premultiplied,
+                 out);
+    return 0;
+  }
   int ch_n = alpha ? 4 : 3;
   int cw = (int)((w + ssx) >> ssx), chh = (int)((h + ssy) >> ssy);
   std::vector<int> ur(w), vr(w);
@@ -3693,35 +3722,17 @@ int64_t tb_avif_to_rgb(const uint8_t* y, const uint8_t* u, const uint8_t* v,
     for (int64_t x = 0; x < w; x++) {
       uint8_t* px = o + x * ch_n;
       if (kind == 3) {
-        int g = yrow[x], b = u[yy * w + x], r = v[yy * w + x];
-        if (!full) {
-          auto lf = [](int q) {
-            int n = (q - 16) * 255, d = 219;
-            int r2 = n >= 0 ? (n + d / 2) / d : -((-n + d / 2) / d);
-            return clamp255(r2);
-          };
-          r = lf(r); g = lf(g); b = lf(b);
-        }
-        px[0] = (uint8_t)r; px[1] = (uint8_t)g; px[2] = (uint8_t)b;
+        px[0] = v[yy * w + x];
+        px[1] = yrow[x];
+        px[2] = u[yy * w + x];
       } else if (u) {
         yuv_pixel(yrow[x], ur[x], vr[x], c, px);
       } else {
         yuv_pixel(yrow[x], 128, 128, c, px);
       }
       if (alpha) {
-        int a = alpha[yy * w + x];
-        px[3] = (uint8_t)a;
-        if (premultiplied) {
-          uint32_t ia = a == 0 ? 0 : a == 1 ? 0xffff : a == 255 ? 0x100
-                                                     : 65536 / a;
-          for (int k = 0; k < 3; k++) {
-            uint32_t f = px[k];
-            uint32_t r2 = ((f | (f << 8)) * ia) >> 16;
-            // packuswb reads the 16-bit product as signed: past 32767
-            // (c >= 128 at a = 1) it saturates to 0.
-            px[k] = (uint8_t)(r2 > 32767 ? 0 : r2 > 255 ? 255 : r2);
-          }
-        }
+        px[3] = alpha[yy * w + x];
+        if (premultiplied) unattenuate(px);
       }
     }
   }

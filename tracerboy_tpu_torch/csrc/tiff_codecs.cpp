@@ -2,9 +2,10 @@
 // the common ones write (GDAL's GeoTIFF and COG writers, fax software,
 // old scanners), for core/tiff.py: Zstandard, CCITT fax (modified
 // Huffman, Group 3, Group 4), ThunderScan, libtiff's YCbCr-to-RGB route
-// and Pillow's CIELab-to-RGB conversion. Host code, compiled with g++ at
-// first use (core/codecs.py tiff_library, -ffp-contract=off) and called
-// through ctypes. Each returns the bytes written, or a negative code.
+// and Pillow's CIELab-to-RGB conversion (TIFF's and PSD's). Host code,
+// compiled with g++ at first use (core/codecs.py tiff_library,
+// -ffp-contract=off) and called through ctypes. Each returns the bytes
+// written, or a negative code.
 //
 // Zstandard (RFC 8878) as libtiff's tif_zstd.c feeds a strip or tile to
 // libzstd 1.5 (ZSTD_decompressStream until the strip is full):
@@ -53,6 +54,10 @@
 // tetrahedrally in 16.16 fixed point. Every float step keeps littleCMS's
 // types (float32 between stages, double inside them), and the 16-bit
 // quantiser is its _cmsQuickSaturateWord (a floor at 2^-16 resolution).
+// core/psd.py takes the same conversion for Lab PSDs (its RGB is PIL's on
+// all 2^24 inputs; the alpha Pillow copies from the image's extra byte is
+// set there). Departures from littleCMS: none in the values; only the
+// 8-bit Lab-to-RGB path Pillow builds is repeated.
 
 #include <algorithm>
 #include <cmath>
