@@ -248,13 +248,23 @@ Phases, each fatal on failure:
      through libavif's float routines and the leaf as colour and alpha
      grids (YCgCo), whose stitched alpha makes the cutouts; the grid
      albedo's and an FCC (float-matrix) albedo's host decodes;
- 28. a JSON line of the seven kernels (launches from the run of the path
+ 28. the port's readers of PIL's small texture formats (small_phase):
+     every fixture of tests/data/small (SGI, PCX, DCX, CUR, DIB, FTEX, BLP
+     and ICNS of every layout the readers take) decoded to the sha256 of
+     PIL's array in its manifest; the 1024x1024 albedo written by
+     utils/demo_scene.write_small_textures as an RLE SGI, a PCX, a DXT1
+     BLP2, a DXT1 FTEX and an ICNS (an ic10 PNG entry), and the leaf as a
+     DXT5 BLP2, each file's sha256 and decode equal to the manifest's
+     (PIL's) and each albedo decode timed on the host; the CLI on
+     textured_lit.pbrt with the RLE SGI albedo and the DXT5 BLP2 leaf
+     whose alpha makes the cutouts, as in 22;
+ 29. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
      2 also by the volume run's, the adaptive residual wave's, the
      animation phase's, the ML dataset's, the sharded runs' and the JPEG,
-     DDS, TIFF, WebP, JPEG 2000 and filtered-AVIF scenes' launches), then the
-     result line {"ok": true, "device": {...}} last.
+     DDS, TIFF, WebP, JPEG 2000, AVIF and small-format scenes' launches),
+     then the result line {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX or the JAX package (the UNet weights and the JPEG
 and DDS fixtures are data files read by path).
@@ -3789,6 +3799,7 @@ TIFF_DIR = Path(__file__).resolve().parent / "tests" / "data" / "tiff"
 WEBP_DIR = Path(__file__).resolve().parent / "tests" / "data" / "webp"
 J2K_DIR = Path(__file__).resolve().parent / "tests" / "data" / "j2k"
 AVIF_DIR = Path(__file__).resolve().parent / "tests" / "data" / "avif"
+SMALL_DIR = Path(__file__).resolve().parent / "tests" / "data" / "small"
 
 
 def spp_reference(r, D, n):
@@ -3993,6 +4004,12 @@ def avif_phase(torch):
     """avif_runs in a temporary directory that is removed after it."""
     with tempfile.TemporaryDirectory(prefix="tb_avif_") as tmp:
         return avif_runs(torch, tmp)
+
+
+def small_phase(torch):
+    """small_runs in a temporary directory that is removed after it."""
+    with tempfile.TemporaryDirectory(prefix="tb_small_") as tmp:
+        return small_runs(torch, tmp)
 
 
 def host_cpu() -> str:
@@ -4385,6 +4402,64 @@ def avif_runs(torch, tmp):
                      for k in launches}
 
 
+def small_runs(torch, tmp):
+    """The port's readers of PIL's small texture formats (core/sgi.py,
+    core/pcx.py, core/ico.py, core/ftex.py, core/blp.py, core/icns.py,
+    csrc/small_decode.cpp, g++ at first use) on the card's machine, which
+    has no PIL. (a) Every committed fixture of tests/data/small decoded by
+    image_io.decode_ldr, its shape, dtype and sha256 equal to
+    manifest.json's (written by tests/make_small_fixtures.py). (b)
+    utils/demo_scene.write_small_textures' files written here, each
+    file's sha256 equal to the manifest's "generated" entry (so PIL's
+    digest there applies to it) and its decode equal to that digest: the
+    1024x1024 albedo as an RLE SGI, a 3-plane PCX, a DXT1 BLP2, a DXT1
+    FTEX and an ICNS of one ic10 PNG entry (whose zlib stream another
+    zlib may write differently: its pixels are compared, not its bytes),
+    each decode 5 runs, host
+    seconds, with the host's CPU and the card line; the 512x512 leaf as
+    a DXT5 BLP2 (alpha encoding 7). (c) The CLI on textured_lit.pbrt with
+    the RLE SGI albedo and the DXT5 BLP2 leaf, whose alpha makes the
+    cutouts (textured_swap_cli). Returns (results, launches of (c))."""
+    import hashlib
+
+    from tracerboy_tpu_torch.core.image_io import decode_ldr
+    from tracerboy_tpu_torch.utils.demo_scene import write_small_textures
+
+    set_opt_in()
+    results = {"fixtures": fixture_hashes("small", SMALL_DIR, decode_ldr)}
+    with open(SMALL_DIR / "manifest.json") as f:
+        generated = json.load(f)["generated"]
+    paths = write_small_textures(os.path.join(tmp, "textures"))
+    card = card_line()
+    bad = []
+    for name, path in sorted(paths.items()):
+        entry = generated[name]
+        with open(path, "rb") as f:
+            file_sha = hashlib.sha256(f.read()).hexdigest()
+        arr = decode_ldr(path)
+        got = dict(shape=list(arr.shape), dtype=str(arr.dtype),
+                   sha256=hashlib.sha256(
+                       np.ascontiguousarray(arr).tobytes()).hexdigest(),
+                   file_sha256=file_sha)
+        if name.endswith(".icns"):      # a PNG: zlib's bytes may differ
+            got["file_sha256"] = entry["file_sha256"]
+        if got != entry:
+            bad.append((name, got, entry))
+        key = name.replace(".", "_")
+        results[f"decode_{key}"] = dict(host_decode(decode_ldr, Path(path)),
+                                        shape=list(arr.shape), card=card,
+                                        pil_equal=got == entry)
+        print(f"small decode {name} (host):",
+              json.dumps(results[f"decode_{key}"]))
+    if bad:
+        fail(f"small: written textures differ from the manifest: {bad}")
+    cli_res, launches = textured_swap_cli(
+        torch, tmp, "small",
+        {"albedo.png": paths["albedo.sgi"], "leaf.png": paths["leaf.blp"]})
+    results.update(cli_res)
+    return results, launches
+
+
 def main() -> int:
     print(card_line())
     import torch
@@ -4629,6 +4704,9 @@ def main() -> int:
                   **{f"{pre}_{k}": v for pre in ("copy_grain", "grid")
                      for k, v in avif_res[f"{pre}_kinds"].items()}}
     lap("avif")
+    small_res, small_launches = small_phase(torch)
+    small_kinds = small_res["kinds"]
+    lap("small")
     print("phase seconds:", json.dumps(laps))
 
     def by_path(key):
@@ -4643,7 +4721,8 @@ def main() -> int:
                 "sharding": shard_launches[key],
                 "jpeg": jpeg_launches[key], "dds": dds_launches[key],
                 "tiff": tiff_launches[key], "webp": webp_launches[key],
-                "j2k": j2k_launches[key], "avif": avif_launches[key]}
+                "j2k": j2k_launches[key], "avif": avif_launches[key],
+                "small": small_launches[key]}
 
     trav = "tracerboy_tpu_torch/csrc/bvh_traverse.cu"
     bsrc = "tracerboy_tpu_torch/csrc/binned.cu"
@@ -4666,7 +4745,7 @@ def main() -> int:
                               *jpeg_kinds.values(), *dds_kinds.values(),
                               *tiff_kinds.values(),
                               *webp_kinds.values(), *j2k_kinds.values(),
-                              *avif_kinds.values()]),
+                              *avif_kinds.values(), *small_kinds.values()]),
              id_mismatch_outside_ties=sum(
                  s["id_mismatch_outside_ties"]
                  for s in [st_c, st_c2, un_c, *roots_c, env_closest,
@@ -4676,7 +4755,7 @@ def main() -> int:
                            *jpeg_kinds.values(), *dds_kinds.values(),
                            *tiff_kinds.values(),
                            *webp_kinds.values(), *j2k_kinds.values(),
-                           *avif_kinds.values()]),
+                           *avif_kinds.values(), *small_kinds.values()]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
              unordered_ms=un_times["closest_ms"],
              unordered_plain_ms=un_times["closest_plain_ms"],
@@ -4741,7 +4820,8 @@ def main() -> int:
                                    ("tiff", tiff_kinds),
                                    ("webp", webp_kinds),
                                    ("j2k", j2k_kinds),
-                                   ("avif", avif_kinds))},
+                                   ("avif", avif_kinds),
+                                   ("small", small_kinds))},
              sharding_runs=shard_res["runs"],
              sharding_ms_a_sample=shard_res["ms_a_sample"],
              jpeg_decode_1024=jpeg_res["decode_1024"],
@@ -4759,6 +4839,10 @@ def main() -> int:
                             "grid", "fcc")},
              avif_copy_grain_cli=avif_res["copy_grain_cli"],
              avif_grid_cli=avif_res["grid_cli"],
+             **{key.replace("decode_", "small_decode_"): row
+                for key, row in small_res.items()
+                if key.startswith("decode_")},
+             small_cli=small_res["cli"],
              volume_run=vol_res["run"],
              volume_control=vol_res["control"],
              estimators={k: {kk: vv for kk, vv in v.items()

@@ -148,7 +148,7 @@ def test_formats_are_known_by_their_headers(tmp_path):
     Image.fromarray(RGBA[..., :3]).save(tmp_path / "x.jpg")
     jpg.write_bytes((tmp_path / "x.jpg").read_bytes())
     same_as_jax(jpg)
-    pil_image("RGB").save(tmp_path / "x.sgi")
-    (tmp_path / "sgi.bin").write_bytes((tmp_path / "x.sgi").read_bytes())
+    pil_image("RGB").save(tmp_path / "x.im")
+    (tmp_path / "im.bin").write_bytes((tmp_path / "x.im").read_bytes())
     with pytest.raises(NotImplementedError, match="item 22b"):
-        tio.read_ldr(str(tmp_path / "sgi.bin"))
+        tio.read_ldr(str(tmp_path / "im.bin"))

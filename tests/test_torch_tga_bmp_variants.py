@@ -277,10 +277,10 @@ def test_bmp_rle_quirks(tmp_path, case):
 
 
 def test_refusal_names_what_is_not_ported(tmp_path):
-    """A format PIL reads that the port does not (SGI) raises
+    """A format PIL reads that the port does not (IM) raises
     NotImplementedError naming its ROADMAP item."""
     from PIL import Image
 
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(tmp_path / "g.sgi")
-    with pytest.raises(NotImplementedError, match="SGI.*item 22b"):
-        image_io.read_ldr(str(tmp_path / "g.sgi"))
+    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(tmp_path / "g.im")
+    with pytest.raises(NotImplementedError, match="IM.*item 22b"):
+        image_io.read_ldr(str(tmp_path / "g.im"))

@@ -15,7 +15,7 @@ and 15), ALPH chunks of both methods under every filter, animations
 whose first frame lies inside a larger canvas, truncated files and
 corrupted bitstreams. Where PIL refuses a file the port raises:
 ValueError where PIL raises OSError, ValueError, EOFError, KeyError or
-IndexError, NotImplementedError where PIL cannot identify it. SGI files,
+IndexError, NotImplementedError where PIL cannot identify it. IM files,
 which PIL reads, raise NotImplementedError naming ROADMAP item 22b; AVIF
 files as Pillow saves them by default (the in-loop filters on), with the
 filters off, with film grain and with the matrix coefficients libavif
@@ -340,7 +340,7 @@ def test_alpha_stream_cut_short(scratch, seed, quality, alpha_quality,
 
 
 def test_unported_formats_name_item_22b(tmp_path):
-    """An SGI image, which PIL reads (the JAX read_ldr renders it), is not
+    """An IM image, which PIL reads (the JAX read_ldr renders it), is not
     ported yet: NotImplementedError naming ROADMAP item 22b. AVIF whose
     colr box names matrix coefficients 4 (FCC), which libavif converts
     in its own float path, AVIF as Pillow saves it by default (the
@@ -349,8 +349,8 @@ def test_unported_formats_name_item_22b(tmp_path):
     the JAX read_ldr reads them."""
     img = Image.fromarray(sample_image(np.random.default_rng(13), 16, 16)[
         ..., :3])
-    path = tmp_path / "x.sgi"
-    img.save(path, "SGI")
+    path = tmp_path / "x.im"
+    img.save(path, "IM")
     assert jax_read_ldr(path).shape == (16, 16, 3)
     with pytest.raises(NotImplementedError, match=ITEM):
         image_io.read_ldr(str(path))

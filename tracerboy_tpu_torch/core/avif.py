@@ -44,8 +44,8 @@ original does it:
   one, from the AV1 sequence header. irot, imir and clap do not move
   pixels (PIL reports orientation in info). Each rule of libavif's that
   the parser repeats was read off PIL's answers to one-byte edits of
-  every box; the moov box is checked as far as a first frame needs it,
-  so a damaged track box that libavif refuses may still be read here.
+  every box, the moov box's too (every trak's tkhd, the sample tables of
+  the tracks libavif decodes, the alpha track's auxi URN and size).
 - the AV1 frame: csrc/av1_decode.cpp, which decodes an 8-bit intra
   frame, intra block copy and its in-loop filters included (deblocking
   with delta LF, CDEF, loop restoration with Wiener and self-guided
@@ -63,17 +63,16 @@ original does it:
 
 Refused with NotImplementedError naming ROADMAP item 22b, AVIF part 2,
 where PIL reads the file: a frame that is not a shown key frame,
-superres and high bit depth (10 and 12 bits); libavif's moov checks are
-followed only as far as a first frame needs them. The matrices libavif
+superres and high bit depth (10 and 12 bits). The matrices libavif
 refuses ("Reformat failed": 3, 10, 11, 13, 14 and 16-255; identity
 unless 4:4:4; YCgCo at limited range), a primary item of a type other
 than av01 and grid (iovl among them: "missing or empty image item";
 an iovl alpha item is no alpha) and each of libavif's grid checks above
-raise ValueError, as PIL raises. So does an ispe that disagrees with the
-AV1 frame, where Pillow lays the frame's pixels out at the ispe's size
-and returns what lies past them (a grid's ispe against its output size
-too), a tile whose ispe disagrees with its frame, which libavif scales
-to the ispe with libyuv, and an intra block copy vector that points
+raise ValueError, as PIL raises. So does an ispe (or a colour track's
+tkhd size) that disagrees with the AV1 frame, where Pillow lays the
+frame's pixels out at the ispe's size and returns what lies past them (a
+grid's ispe against its output size too), a tile whose ispe disagrees
+with its frame, which libavif scales to the ispe with libyuv, and an intra block copy vector that points
 outside what is decoded (INVALID_DV), which dav1d copies from whatever
 its frame buffer holds there.
 """
@@ -81,6 +80,7 @@ its frame buffer holds there.
 from __future__ import annotations
 
 import struct
+from typing import NamedTuple
 
 import numpy as np
 
@@ -91,8 +91,7 @@ from tracerboy_tpu_torch.core.image_io import (
 )
 
 ITEM = ("ROADMAP.md, Queue 1: item 22b, AVIF part 2 (frames that are not "
-        "shown key frames, libavif's moov checks, superres, high bit "
-        "depth)")
+        "shown key frames, superres, high bit depth)")
 # The decoder's refusal of an intra block copy vector outside the decoded
 # area (ValueError: corrupt).
 INVALID_DV = "an intra block copy vector outside the decoded area"
@@ -441,16 +440,16 @@ def _hdlr(data: bytes, s: int, e: int) -> bytes:
 
 
 def _parse_tracks(data: bytes, start: int, end: int):
-    """[(track id, handler, aux for, first sample's (offset, size),
-    (width, height), av01, nclx, timescale, prem track ids)] of a moov
-    box, with libavif's checks of
-    the boxes it reads (avifParseTrackBox and its children)."""
+    """The _Tracks of a moov box, with libavif's checks of the boxes it
+    reads (avifParseTrackBox and its children): every trak needs a tkhd
+    of version 0 or 1 and a size within libavif's limits, an auxi is a
+    full box of version 0 with a terminated URN."""
     tracks = []
     for typ, s, e in _boxes(data, start, end):
         if typ != b"trak":
             continue
-        tid, handler, aux_for, size, av01 = 0, b"", 0, (0, 0), False
-        nclx, prem = None, []
+        tid, handler, aux_for, size, av01 = 0, b"", 0, None, False
+        nclx, prem, urn, has_av1c = None, [], None, False
         timescale = 0
         chunk_offsets, sizes, stsc = [], [], []
         for t2, s2, e2 in _boxes(data, s, e):
@@ -461,6 +460,10 @@ def _parse_tracks(data: bytes, start: int, end: int):
                 tid = r.u(4)
                 r.take(4 + (4 if v == 0 else 8) + 52)
                 size = (r.u(4) >> 16, r.u(4) >> 16)
+                w, h = size
+                if not w or not h or w * h > SIZE_LIMIT \
+                        or w > DIMENSION_LIMIT or h > DIMENSION_LIMIT:
+                    raise _Unidentified(f"a track of {w}x{h}")
             elif t2 == b"tref":
                 for t3, s3, e3 in _boxes(data, s2, e2):
                     ids = [int.from_bytes(data[k:k + 4], "big")
@@ -517,10 +520,12 @@ def _parse_tracks(data: bytes, start: int, end: int):
                                                             e6))
                                         for t7, s7, e7 in props:
                                             _check_property(data, t7, s7, e7)
-                                        if not any(p[0] == b"av1C"
-                                                   for p in props):
-                                            raise _Unidentified(
-                                                "an av01 entry without av1C")
+                                            if t7 == b"auxi":
+                                                r7 = _Reader(data, s7, e7)
+                                                r7.full((0,))
+                                                urn = r7.string()
+                                        has_av1c = any(p[0] == b"av1C"
+                                                       for p in props)
                                         nclx = _nclx(props, data)
                                 elif t5 in (b"stco", b"co64"):
                                     r.full((0,))
@@ -546,20 +551,43 @@ def _parse_tracks(data: bytes, start: int, end: int):
                                     count = r.u(4)
                                     r.take(count * (4 if t5 == b"stss"
                                                     else 8))
-        first = None
-        samples = _samples(chunk_offsets, sizes, stsc)
+        if size is None:
+            raise _Unidentified("a trak without tkhd")
+        tracks.append(_Track(tid, handler, aux_for, size, av01 and has_av1c,
+                             av01, nclx, timescale, prem, urn,
+                             (chunk_offsets, sizes, stsc)))
+    return tracks
+
+
+class _Track(NamedTuple):
+    id: int
+    handler: bytes
+    aux_for: int
+    size: tuple
+    av1c: bool          # its av01 sample entry has an av1C
+    av01: bool          # an av01 sample entry
+    nclx: tuple | None
+    timescale: int
+    prem: list
+    urn: bytes | None   # its av01 entry's auxi URN
+    table: tuple        # (chunk offsets, sample sizes, stsc entries)
+
+    def first_sample(self, data: bytes):
+        """(offset, size) of the first sample, None without chunks, with
+        libavif's checks of the sample table (avifCodecDecodeInputFill...
+        FromSampleTable), made only for a track libavif decodes."""
+        chunk_offsets, sizes, stsc = self.table
+        if not chunk_offsets:
+            return None
         declared = sum(next((n for f, n, _ in reversed(stsc) if f <= c), 0)
                        for c in range(1, len(chunk_offsets) + 1))
-        if av01 and declared != len(sizes):
+        if declared != len(sizes):
             raise _Unidentified("stsc and stsz disagree")
+        samples = _samples(chunk_offsets, sizes, stsc)
         for off, n in samples:
             if n == 0 or off + n > len(data):
                 raise _Unidentified("a sample past the end of the file")
-        if samples:
-            first = samples[0]
-        tracks.append((tid, handler, aux_for, first, size, av01, nclx,
-                       timescale, prem))
-    return tracks
+        return samples[0] if samples else None
 
 
 def _samples(chunk_offsets, sizes, stsc):
@@ -753,22 +781,34 @@ def _from_items(data: bytes, meta, props_only: bool = False):
 
 
 def _from_tracks(data: bytes, tracks):
-    color = next((t for t in tracks if t[0] and t[5] and not t[2]), None)
-    if color is None or color[3] is None:
+    """libavif's choice of tracks: the colour track is the first av01
+    track with an id, chunks and no auxl; the alpha track an av01 track
+    with chunks whose auxl names it and whose sample entry has no auxi or
+    one with an alpha URN (its av1C is not needed)."""
+    color = next((t for t in tracks if t.id and t.av01 and not t.aux_for
+                  and t.table[0]), None)
+    if color is None or not color.av1c:
         raise _Unidentified("no AV1 track")
-    if color[7] == 0:                   # Pillow divides by it
+    first = color.first_sample(data)
+    if first is None:
+        raise _Unidentified("no AV1 track")
+    if color.timescale == 0:            # Pillow divides by it
         raise _Failed("a track timescale of 0")
-    alpha = next((t for t in tracks if t[0] and t[5] and t[2] == color[0]
-                  and t[3] is not None), None)
+    alpha = next((t for t in tracks if t.id and t.av01 and t.table[0]
+                  and t.aux_for == color.id
+                  and (t.urn is None or t.urn in ALPHA_URNS)), None)
+    alpha_first = alpha.first_sample(data) if alpha else None
+    if alpha is not None and alpha.size != color.size:
+        raise _Failed("the alpha track's size differs (Decoding of alpha "
+                      "plane failed)")
 
-    def sample(t):
-        off, size = t[3]
-        if off + size > len(data):
-            raise _Failed("sample past the end of the file")
+    def sample(first):
+        off, size = first
         return data[off:off + size]
 
-    return (sample(color), sample(alpha) if alpha else None, color[4],
-            color[6], alpha is not None and alpha[0] in color[8])
+    return (sample(first), sample(alpha_first) if alpha_first else None,
+            color.size, color.nclx, alpha is not None
+            and alpha.id in color.prem)
 
 
 _ERRORS = {-1: "corrupt AV1 data", -2: "unsupported", -3: "buffer"}
@@ -863,33 +903,6 @@ def _decode(lib, spec, path: str):
     return _decode_av1(lib, spec, path)
 
 
-def _matrix(cp: int, mc: int, full: int, mono: bool, alpha: bool,
-            ssx: int, ssy: int):
-    """csrc's conversion kind for libavif's choice: libyuv's 0 BT.601, 1
-    BT.709, 2 BT.2020 and 3 identity at full range, libavif's own float
-    routines 4 (Kr and Kb of mc under cp), 5 (YCgCo) and 6 (identity at
-    limited range). 4:0:0 without alpha goes through libyuv's
-    I400ToARGB, whose constants are BT.2020's whatever the matrix."""
-    if mc in (3, 10, 11, 13, 14) or mc > 15 or (mc == 8 and not full):
-        raise _Failed(f"libavif cannot convert matrix coefficients {mc} "
-                      "(Reformat failed)")
-    if mono and not alpha:
-        return 2
-    if mc == 0 and mono:
-        return 0
-    if mc == 0:
-        if ssx or ssy:
-            raise _Failed("identity matrix coefficients need 4:4:4")
-        return 3 if full else 6
-    if mc in (2, 5, 6) or (mc == 12 and cp in (5, 6)):
-        return 0
-    if mc == 1 or (mc == 12 and cp in (1, 2)):
-        return 1
-    if mc == 9 or (mc == 12 and cp == 9):
-        return 2
-    return 5 if mc == 8 else 4
-
-
 def read_avif(data: bytes, path: str = "<avif>") -> np.ndarray:
     """The (H, W, 3|4) uint8 pixels PIL gives for an AVIF file."""
     try:
@@ -919,8 +932,6 @@ def read_avif(data: bytes, path: str = "<avif>") -> np.ndarray:
         full = seq_full
         if nclx is not None:
             cp, tc, mc, full = nclx
-        kind = _matrix(cp, mc, full, bool(mono), a_planes is not None, ssx,
-                       ssy)
     except _Failed as e:
         raise ValueError(f"{path}: {e}") from None
     channels = 4 if a_planes is not None else 3
@@ -932,12 +943,19 @@ def read_avif(data: bytes, path: str = "<avif>") -> np.ndarray:
     a = np.ascontiguousarray(a_planes[0]) if a_planes is not None else None
     rc = lib.tb_avif_to_rgb(
         y.ctypes.data, None if u is None else u.ctypes.data,
-        None if v is None else v.ctypes.data, w, h, ssx, ssy, kind, full,
+        None if v is None else v.ctypes.data, w, h, ssx, ssy, full,
         None if a is None else a.ctypes.data, int(prem), out.ctypes.data,
         cp, mc)
     if rc:
-        raise ValueError(f"{path}: libavif cannot convert this YUV layout")
+        raise ValueError(f"{path}: {_ROUTE_ERRORS[rc]} (matrix coefficients "
+                         f"{mc}, colour primaries {cp}; Reformat failed)")
     return out
+
+
+# csrc/avif_reformat.inc's avif_route, which alone picks libavif's
+# conversion from the matrix coefficients and primaries: its refusals.
+_ROUTE_ERRORS = {-1: "libavif cannot convert these matrix coefficients",
+                 -2: "identity matrix coefficients need 4:4:4"}
 
 
 # info[15]'s bits (csrc/av1_decode.cpp's kTool*) and info[14]'s.

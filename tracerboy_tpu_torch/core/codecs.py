@@ -15,6 +15,8 @@ ctypes:
   wavelets, colour transform and DC shift), for core/jpeg2000.py, with
   -ffp-contract=off: no fused multiply-add may change a 9/7 or ICT
   result;
+- small_library(): csrc/small_decode.cpp (PCX run lengths, SGI RLE rows,
+  ICNS RLE channels), for core/pcx.py, core/sgi.py and core/icns.py;
 - av1_library(): csrc/av1_decode.cpp (an AV1 intra frame's OBUs to its
   planes, with csrc/av1_tables.inc, its in-loop filters in
   csrc/av1_filters.inc and its film grain in csrc/av1_grain.inc, and
@@ -109,5 +111,15 @@ def av1_library():
                  ("av1_tables.inc", "av1_filters.inc", "av1_grain.inc",
                   "avif_reformat.inc"), (
         ("tb_av1_decode", [p, i64, p, i64, p, ctypes.c_char_p, i64]),
-        ("tb_avif_to_rgb", [p, p, p, i64, i64, i64, i64, i64, i64, p, i64,
-                            p, i64, i64])), flags=("-ffp-contract=off",))
+        ("tb_avif_to_rgb", [p, p, p, i64, i64, i64, i64, i64, p, i64, p,
+                            i64, i64])), flags=("-ffp-contract=off",))
+
+
+def small_library():
+    import ctypes
+
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    return _load("tbsmall", "small_decode.cpp", (), (
+        ("tb_pcx_decode", [p, i64, p, i64, i64, i64, i64]),
+        ("tb_sgi_rle_decode", [p, i64, p, i64, i64, i64, i64]),
+        ("tb_icns_rle_decode", [p, i64, p, i64])))

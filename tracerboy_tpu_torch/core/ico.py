@@ -27,7 +27,10 @@ import struct
 
 import numpy as np
 
-from tracerboy_tpu_torch.core.image_io import UnidentifiedImageError
+from tracerboy_tpu_torch.core.image_io import (
+    _BMP_HEADER_SIZES,
+    UnidentifiedImageError,
+)
 
 ICO_MAGIC = b"\0\0\1\0"
 
@@ -57,20 +60,22 @@ def ico_entries(data: bytes, path: str = "<ico>") -> list:
     return entries
 
 
-def _dib_as_bmp(data: bytes, offset: int, path: str):
+def _dib_as_bmp(data: bytes, offset: int, path: str, halve: bool = True):
     """The DIB at `offset` as a BMP file for image_io.read_bmp, its height
-    halved (the XOR image), the pixel offset where PIL's DIB reader finds
-    the rows (after the header, bit-field masks and palette). Returns
-    (bmp bytes, width, height, pixel offset in data)."""
+    halved where `halve` (an icon's or cursor's XOR image), the pixel
+    offset where PIL's DIB reader finds the rows (after the header,
+    bit-field masks and palette). Returns (bmp bytes, width, height,
+    pixel offset in data)."""
     head = data[offset:offset + 40]
     if len(head) < 16:
-        raise ValueError(f"{path}: Truncated File Read (ICO bitmap header)")
+        raise ValueError(f"{path}: Truncated File Read (bitmap header)")
     (hsize,) = struct.unpack_from("<I", head, 0)
     dib = bytearray(data[offset:])
     if hsize == 12:
-        w, h2, _, bits = struct.unpack_from("<HHHH", dib, 4)
-        h = int(h2 / 2)
-        struct.pack_into("<H", dib, 6, h)
+        w, h, _, bits = struct.unpack_from("<HHHH", dib, 4)
+        if halve:
+            h = int(h / 2)
+            struct.pack_into("<H", dib, 6, h)
         compression, colors, pad = 0, 0, 3
     else:
         w, raw_h = struct.unpack_from("<iI", dib, 4)
@@ -79,11 +84,15 @@ def _dib_as_bmp(data: bytes, offset: int, path: str):
             else (0,)
         pad = 4
         if dib[11] == 0xFF:                 # top-down: height negative
-            h = int((2**32 - raw_h) / 2)
-            struct.pack_into("<i", dib, 8, -h)
+            h = 2**32 - raw_h
+            if halve:
+                h = int(h / 2)
+                struct.pack_into("<i", dib, 8, -h)
         else:
-            h = int(raw_h / 2)
-            struct.pack_into("<I", dib, 8, h)
+            h = raw_h
+            if halve:
+                h = int(h / 2)
+                struct.pack_into("<I", dib, 8, h)
     pixels = hsize
     if compression == 3 and hsize == 40:
         pixels += 12
@@ -138,3 +147,90 @@ def read_ico(data: bytes, path: str = "<ico>") -> np.ndarray:
         bits = np.unpackbits(rows, axis=1)[:, :w]
         alpha = np.where(bits == 1, 0, 255).astype(np.uint8)
     return np.concatenate([rgb, alpha[..., None]], -1)
+
+
+CUR_MAGIC = b"\0\0\2\0"
+
+
+def is_dib(data: bytes) -> bool:
+    """BmpImagePlugin._dib_accept (a file shorter than 4 bytes is passed
+    on: PIL's struct.error)."""
+    return len(data) >= 4 and struct.unpack_from("<I", data)[0] in \
+        _BMP_HEADER_SIZES
+
+
+def is_cur(data: bytes) -> bool:
+    """CurImagePlugin._accept."""
+    return data.startswith(CUR_MAGIC)
+
+
+def _bitmap_at(data: bytes, pos: int, path: str, halve: bool):
+    """BmpImageFile._bitmap's header reads at `pos`, then the bitmap as a
+    BMP file for read_bmp: (bmp bytes, width, height, pixel offset)."""
+    if len(data) < pos + 4:
+        raise UnidentifiedImageError(f"{path}: cannot identify image file "
+                                     "(bitmap header size cut short)")
+    (hsize,) = struct.unpack_from("<I", data, pos)
+    if len(data) < pos + max(hsize, 4):
+        raise ValueError(f"{path}: Truncated File Read (bitmap header)")
+    if hsize not in _BMP_HEADER_SIZES:
+        raise ValueError(f"{path}: Unsupported BMP header type ({hsize})")
+    return _dib_as_bmp(data, pos, path, halve)
+
+
+def read_dib(data: bytes, path: str = "<dib>") -> np.ndarray:
+    """A DIB file (a BMP without its file header) as the JAX read_ldr gets
+    it through PIL: read as a BMP whose pixels follow the header, masks
+    and palette."""
+    from tracerboy_tpu_torch.core.image_io import read_bmp
+
+    return read_bmp(_bitmap_at(data, 0, path, False)[0], path)
+
+
+def read_cur(data: bytes, path: str = "<cur>") -> np.ndarray:
+    """A Windows cursor as the JAX read_ldr gets it through PIL
+    (CurImagePlugin): the entry whose width and height bytes both exceed
+    those of the one held so far (the first to start with; a 256-pixel
+    entry, byte 0, never wins), its bitmap read by BmpImageFile._bitmap
+    with the height halved and no AND mask; at 32 bits without bit fields
+    the fourth byte is alpha only for the bitmap at offset 22 (PIL's
+    single-entry cursor test), else dropped. An entry offset of 0 reads
+    the bitmap after the directory. No entry, or a directory cut short,
+    passes the file on (PIL's TypeError, IndexError and struct.error)."""
+    from tracerboy_tpu_torch.core.image_io import read_bmp
+
+    if len(data) < 6:
+        raise UnidentifiedImageError(f"{path}: cannot identify image file "
+                                     "(CUR header cut short)")
+    (count,) = struct.unpack_from("<H", data, 4)
+    best = b""
+    for i in range(count):
+        s = data[6 + 16 * i:22 + 16 * i]
+        if not best:
+            best = s
+            continue
+        # PIL's s[0] > m[0] and s[1] > m[1], IndexError where a short
+        # entry is indexed.
+        if not s or (s[0] > best[0] and min(len(s), len(best)) < 2):
+            raise UnidentifiedImageError(f"{path}: cannot identify image "
+                                         "file (CUR directory cut short)")
+        if s[0] > best[0] and s[1] > best[1]:
+            best = s
+    if not best or len(best) < 16:
+        raise UnidentifiedImageError(f"{path}: cannot identify image file "
+                                     "(No cursors were found)")
+    (offset,) = struct.unpack_from("<I", best, 12)
+    pos = offset if offset else min(len(data), 6 + 16 * count)
+    bmp, w, h, pixels = _bitmap_at(data, pos, path, True)
+    rgb = read_bmp(bmp, path)
+    hsize, = struct.unpack_from("<I", data, pos)
+    bits = struct.unpack_from("<H", data, pos + (10 if hsize == 12 else 14))[0]
+    compression = 0 if hsize == 12 else struct.unpack_from(
+        "<I", data, pos + 16)[0]
+    if offset == 22 and bits == 32 and compression == 0:
+        raw = data[pixels:pixels + w * h * 4]
+        alpha = np.frombuffer(raw, np.uint8)[3::4].reshape(h, w)
+        if data[pos + 11] != 0xFF:
+            alpha = alpha[::-1]
+        return np.concatenate([rgb[..., :3], alpha[..., None]], -1)
+    return rgb

@@ -50,6 +50,14 @@ Formats:
   libavif and libyuv do), PIL's pixels bit for bit as dav1d and libavif
   give them; the rest of AVIF part 2 (superres, high bit depth, ...)
   raises NotImplementedError (ROADMAP item 22b).
+- PIL's small texture formats: SGI (core/sgi.py), PCX and DCX
+  (core/pcx.py), CUR and DIB (core/ico.py), FTEX (core/ftex.py), BLP
+  (core/blp.py) and ICNS (core/icns.py), their RLE loops in
+  csrc/small_decode.cpp; PIL's pixels bit for bit. decode_ldr tries
+  every reader in PIL's Image.open order (readers()); PIL's stub plugins
+  (BUFR, GRIB, HDF5, MPEG, WMF: core/stubs.py) are refused as PIL
+  refuses them, and its other formats (core/unported.py) raise
+  NotImplementedError (ROADMAP item 22b).
 - Radiance HDR (RGBE, RLE): from the published file format spec.
 - PFM: trivial float format (the reference renames .pfm -> .hdr as a hack;
   we read it natively).
@@ -86,75 +94,134 @@ def decode_ldr(path: str) -> np.ndarray:
     """An LDR image file's pixels as (H, W, 3|4) uint8, as the JAX
     read_ldr gets them from PIL before its / 255 (grey and palette images
     become RGB, grey with alpha RGBA; PNG: 16-bit samples keep their high
-    byte, 16-bit grey is clipped at 255, a tRNS chunk is ignored; BMP:
-    32-bit pixels without an alpha mask lose their fourth byte; JPEG:
+    byte, 16-bit grey is clipped at 255, a tRNS chunk is ignored; BMP and
+    DIB: 32-bit pixels without an alpha mask lose their fourth byte; JPEG:
     core/jpeg.py, grey replicated to RGB; DDS: core/dds.py; TIFF:
     core/tiff.py, the first image, 16-bit grey clipped at 255, float
-    clipped and truncated, CMYK converted, CIELab to RGBA; GIF: core/gif.py, the first
-    frame, its transparency dropped; ICO: core/ico.py, the largest entry,
-    a DIB's AND mask or fourth byte as alpha; JPEG 2000: core/jpeg2000.py,
-    16-bit grey clipped at 255, a palette expanded, CMYK converted; PNM:
-    core/pnm.py, 16-bit grey clipped at 255; PSD: core/psd.py, the merged
-    image; QOI: core/qoi.py; WebP: core/webp.py, an animation's first
-    frame on its canvas; AVIF: core/avif.py, an animation's first frame,
-    alpha un-premultiplied). AVIF, PNG, BMP, JPEG, PNM, DDS, ICO, JPEG
-    2000, PSD, QOI, TGA, TIFF, GIF and WebP, recognised by their headers
-    in PIL's order (AVIF, its first plugin; its preinit
-    plugins first; TGA, which has no signature, after the signed formats
-    it could be mistaken for); a header a reader then cannot identify
-    passes the file on, as PIL's SyntaxError does."""
+    clipped and truncated, CMYK converted, CIELab to RGBA; GIF:
+    core/gif.py, the first frame, its transparency dropped; ICO and CUR: core/ico.py, the largest
+    entry (an ICO's DIB with its AND mask or fourth byte as alpha, a CUR's
+    without); JPEG 2000: core/jpeg2000.py, 16-bit grey clipped at 255, a
+    palette expanded, CMYK converted; PNM: core/pnm.py, 16-bit grey
+    clipped at 255; PSD: core/psd.py, the merged image; QOI: core/qoi.py;
+    WebP: core/webp.py, an animation's first frame on its canvas; AVIF:
+    core/avif.py, an animation's first frame, alpha un-premultiplied; PCX
+    and DCX's first page: core/pcx.py; SGI: core/sgi.py, 16-bit samples'
+    high byte; FTEX: core/ftex.py, mipmap 0; BLP: core/blp.py, mipmap 0;
+    ICNS: core/icns.py, its best entry, a PNG entry in its own mode;
+    BUFR, GRIB, HDF5, MPEG and WMF: core/stubs.py, refused, as PIL has
+    no loader for them).
+    The readers are tried in PIL's order (READERS); a reader that cannot
+    identify the file passes it on, as PIL's SyntaxError does, and a file
+    that one of PIL's plugins the port has not ported would take raises
+    NotImplementedError (ROADMAP item 22b)."""
     with open(path, "rb") as f:
         data = f.read()
-    from tracerboy_tpu_torch.core import avif
-
     unidentified = None
-    if avif.is_avif(data):      # PIL's first plugin
+    for name, accepts, read in readers():
+        if not accepts(data):
+            continue
+        if read is None:
+            raise NotImplementedError(
+                f"{path}: PIL reads this file as {name}, which the port "
+                f"does not read: {SMALL_FORMATS_ITEM}")
         try:
-            return avif.read_avif(data, path)
+            return read(data, path)
         except UnidentifiedImageError as e:   # PIL tries the next
-            unidentified = e
-    if data.startswith(PNG_SIGNATURE):
-        return png_to_8bit(*decode_png(data, path))
-    if data.startswith(b"BM"):
-        return read_bmp(data, path)
-    if data.startswith(b"\xff\xd8\xff"):
-        from tracerboy_tpu_torch.core.jpeg import decode_jpeg
-
-        return decode_jpeg(data, path)
-    from tracerboy_tpu_torch.core import (
-        dds,
-        gif,
-        ico,
-        jpeg2000,
-        pnm,
-        psd,
-        qoi,
-        tiff,
-        webp,
-    )
-
-    readers = ((pnm.is_pnm, pnm.read_pnm),
-               (lambda d: d.startswith(DDS_MAGIC), dds.read_dds),
-               (ico.is_ico, ico.read_ico),
-               (jpeg2000.is_jpeg2000, jpeg2000.read_jpeg2000),
-               (psd.is_psd, psd.read_psd),
-               (qoi.is_qoi, qoi.read_qoi), (_tga_header, read_tga),
-               (tiff.is_tiff, tiff.read_tiff), (gif.is_gif, gif.read_gif),
-               (webp.is_webp, webp.read_webp))
-    for accepts, read in readers:
-        if accepts(data):
-            try:
-                return read(data, path)
-            except UnidentifiedImageError as e:   # PIL tries the next
-                unidentified = unidentified or e
+            unidentified = unidentified or e
     if unidentified is not None:
         raise unidentified
     raise NotImplementedError(
-        f"{path}: not an AVIF, PNG, BMP, JPEG, PNM, DDS, ICO, JPEG 2000, "
-        "PSD, QOI, TGA, TIFF, GIF or WebP file; PIL's small formats "
-        "(SGI, PCX, DCX, CUR, ICNS, BLP, FTEX, IM, MSP, SUN, XBM, XPM, "
-        "...) are not ported (ROADMAP.md, Queue 1: item 22b, the image "
-        "formats neither the reference nor texture tools use)")
+        f"{path}: no reader of the port nor of PIL takes this file "
+        f"(PIL's UnidentifiedImageError; {SMALL_FORMATS_ITEM})")
+
+
+SMALL_FORMATS_ITEM = (
+    "ROADMAP.md, Queue 1: item 22b, PIL's formats the port does not read "
+    "(IM, MSP, SUN, XBM, XPM, EPS, FITS, FLI, GBR, IMT, IPTC, MCIDAS, PCD, "
+    "PIXAR, SPIDER and XVTHUMB)")
+
+_READERS = None
+
+
+def readers():
+    """PIL 12.1's Image.open order as (format, accepts, read) triples:
+    the plugins preinit() registers (BMP, DIB, GIF, JPEG, PPM, PNG), then
+    the rest in Image.ID's order after init(). read is the port's reader
+    of the format, None for a format the port does not read (accepts then
+    says whether PIL's plugin would identify the file: core/unported.py).
+    TGA, which has no signature, is taken where its header fields are
+    ones PIL's plugin reads."""
+    global _READERS
+    if _READERS is None:
+        from tracerboy_tpu_torch.core import (
+            avif,
+            blp,
+            dds,
+            ftex,
+            gif,
+            icns,
+            ico,
+            jpeg2000,
+            pcx,
+            pnm,
+            psd,
+            qoi,
+            sgi,
+            stubs,
+            tiff,
+            unported,
+            webp,
+        )
+        from tracerboy_tpu_torch.core.jpeg import decode_jpeg
+
+        _READERS = (
+            ("BMP", lambda d: d.startswith(b"BM"), read_bmp),
+            ("DIB", ico.is_dib, ico.read_dib),
+            ("GIF", gif.is_gif, gif.read_gif),
+            ("JPEG", lambda d: d.startswith(b"\xff\xd8\xff"), decode_jpeg),
+            ("PPM", pnm.is_pnm, pnm.read_pnm),
+            ("PNG", lambda d: d.startswith(PNG_SIGNATURE),
+             lambda d, p: png_to_8bit(*decode_png(d, p))),
+            ("AVIF", avif.is_avif, avif.read_avif),
+            ("BLP", blp.is_blp, blp.read_blp),
+            ("BUFR", stubs.is_bufr, stubs.read_bufr),
+            ("CUR", ico.is_cur, ico.read_cur),
+            ("PCX", pcx.is_pcx, pcx.read_pcx),
+            ("DCX", pcx.is_dcx, pcx.read_dcx),
+            ("DDS", lambda d: d.startswith(DDS_MAGIC), dds.read_dds),
+            ("EPS", unported.eps, None),
+            ("FITS", unported.fits, None),
+            ("FLI", unported.fli, None),
+            ("FTEX", ftex.is_ftex, ftex.read_ftex),
+            ("GBR", unported.gbr, None),
+            ("GRIB", stubs.is_grib, stubs.read_grib),
+            ("HDF5", stubs.is_hdf5, stubs.read_hdf5),
+            ("JPEG2000", jpeg2000.is_jpeg2000, jpeg2000.read_jpeg2000),
+            ("ICNS", icns.is_icns, icns.read_icns),
+            ("ICO", ico.is_ico, ico.read_ico),
+            ("IM", unported.im, None),
+            ("IMT", unported.imt, None),
+            ("IPTC", unported.iptc, None),
+            ("MCIDAS", unported.mcidas, None),
+            ("MPEG", stubs.is_mpeg, stubs.read_mpeg),
+            ("TIFF", tiff.is_tiff, tiff.read_tiff),
+            ("MSP", unported.msp, None),
+            ("PCD", unported.pcd, None),
+            ("PIXAR", unported.pixar, None),
+            ("PSD", psd.is_psd, psd.read_psd),
+            ("QOI", qoi.is_qoi, qoi.read_qoi),
+            ("SGI", sgi.is_sgi, sgi.read_sgi),
+            ("SPIDER", unported.spider, None),
+            ("SUN", unported.sun, None),
+            ("TGA", lambda d: _tga_header(d) is not None, read_tga),
+            ("WEBP", webp.is_webp, webp.read_webp),
+            ("WMF", stubs.is_wmf, stubs.read_wmf),
+            ("XBM", unported.xbm, None),
+            ("XPM", unported.xpm, None),
+            ("XVTHUMB", unported.xvthumb, None),
+        )
+    return _READERS
 
 
 # PIL's Image.MAX_IMAGE_PIXELS: Image.open refuses twice as many.
@@ -348,6 +415,12 @@ def write_png(path: str, img: np.ndarray) -> None:
     """Write a float image in [0,1] (H, W), (H, W, 3|4) or uint8 as an
     8-bit PNG, quantised as the JAX package does (clip, then x*255+0.5
     truncated): IHDR, one IDAT of filter-0 rows, IEND."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """write_png's file as bytes."""
     img = _to_uint8(img)
     if img.ndim == 2:
         img = img[..., None]
@@ -357,11 +430,9 @@ def write_png(path: str, img: np.ndarray) -> None:
     rows = np.zeros((h, 1 + w * c), np.uint8)   # filter byte 0 per row
     rows[:, 1:] = np.ascontiguousarray(img).reshape(h, w * c)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, _PNG_COLOR_TYPES[c], 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(PNG_SIGNATURE)
-        f.write(png_chunk(b"IHDR", ihdr))
-        f.write(png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(png_chunk(b"IEND", b""))
+    return (PNG_SIGNATURE + png_chunk(b"IHDR", ihdr)
+            + png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + png_chunk(b"IEND", b""))
 
 
 # ----------------------------------------------------------------------------

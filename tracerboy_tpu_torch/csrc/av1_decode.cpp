@@ -3415,10 +3415,10 @@ struct Decoder {
   // --- The temporal unit ------------------------------------------------
 
   // The OBUs of one temporal unit, until the first frame is complete;
-  // the OBU headers after it are still read, and a sequence header among
-  // them parsed, up to the next frame (dav1d, with frame threads, parses
-  // ahead: an OBU past the data or a sequence header that changes fails
-  // the decode).
+  // the OBU headers after it are still read to the end of the sample, and
+  // each sequence header among them parsed (dav1d, with frame threads,
+  // parses ahead: an OBU past the data or a sequence header that changes
+  // fails the decode, also past a later frame).
   void decode(const uint8_t* d, size_t n) {
     size_t pos = 0;
     while (pos < n) {
@@ -3444,7 +3444,6 @@ struct Decoder {
       const uint8_t* body = d + pos + hdr;
       pos += hdr + size;
       if (frame_done) {
-        if (type == 3 || type == 6) break;
         if (type == 1) {
           BitReader br(body, size);
           sequence_header(br);
@@ -3695,13 +3694,12 @@ int64_t tb_av1_decode(const uint8_t* data, int64_t n, uint8_t* planes,
 // does not take.
 int64_t tb_avif_to_rgb(const uint8_t* y, const uint8_t* u, const uint8_t* v,
                        int64_t w, int64_t h, int64_t ssx, int64_t ssy,
-                       int64_t kind, int64_t full, const uint8_t* alpha,
+                       int64_t full, const uint8_t* alpha,
                        int64_t premultiplied, uint8_t* out, int64_t cp,
                        int64_t mc) {
-  if (kind < 0 || kind > kFloatIdentity ||
-      ((kind == 3 || kind == kFloatIdentity) && (ssx || ssy || !u)) ||
-      (kind == 3 && !full))
-    return -1;
+  const int kind = avif_route((int)cp, (int)mc, (int)full, !u, alpha != nullptr,
+                              (int)ssx, (int)ssy);
+  if (kind < 0) return kind;
   if (kind >= kFloatCoeffs) {
     float_to_rgb(y, u, v, (int)w, (int)h, (int)ssx, (int)ssy, (int)kind,
                  (int)full, (int)cp, (int)mc, alpha, (int)premultiplied,

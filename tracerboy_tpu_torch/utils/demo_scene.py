@@ -23,7 +23,10 @@ and adds a distant light. It returns the paths of both. retexture(scene,
 swaps) points such a scene's image textures at other files (a JPEG or
 DDS albedo, a DXT1 leaf); write_tiff_textures(directory) writes the
 albedo as a tiled Deflate TIFF and the leaf as an RGBA LZW TIFF with
-unassociated alpha, and returns the swaps that put them in.
+unassociated alpha, and returns the swaps that put them in;
+write_small_textures(directory) writes the albedo in PIL's small texture
+formats (an RLE SGI, a PCX, a BLP2 and an FTEX in DXT1, an ICNS of one
+PNG entry) and the leaf as a BLP2 in DXT5 (alpha encoding 7).
 
 write_forest_scene(directory, grid, sky, trees, rocks, seed) writes
 forest.pbrt: the height field, and two objects in ObjectBegin blocks, a
@@ -44,7 +47,8 @@ baseColorTexture is tree.png beside it.
 The other scenes depend on the arguments only (no random numbers). Run as
   python -m tracerboy_tpu_torch.utils.demo_scene DIR [KIND]
 with KIND textured, tiff (the textured scene with its albedo and leaf
-swapped for TIFFs), forest or meshes.
+swapped for TIFFs), small (swapped for an RLE SGI and a DXT5 BLP2),
+forest or meshes.
 """
 
 from __future__ import annotations
@@ -312,6 +316,34 @@ def write_tiff_textures(directory: str) -> dict:
     write_tiff(paths["albedo.png"], albedo_image(1024), "deflate",
                tile=(160, 160))
     write_tiff(paths["leaf.png"], leaf_image(512), "lzw")
+    return paths
+
+
+def write_small_textures(directory: str) -> dict:
+    """The textured scene's albedo (1024x1024 RGB) and leaf (512x512 RGBA)
+    in PIL's small texture formats, in `directory`: albedo.sgi (RLE,
+    core/sgi.write_sgi), albedo.pcx (3 planes, core/pcx.write_pcx),
+    albedo_dxt1.blp (BLP2, DXT1, core/blp.write_blp2), albedo.ftex (DXT1,
+    core/ftex.write_ftex), albedo.icns (one ic10 PNG entry, RGBA with
+    alpha 255, core/icns.write_icns) and leaf.blp (BLP2, DXT5 with alpha
+    encoding 7, its alpha the cutouts). Returns {file name: path}; the retexture
+    swaps are {"albedo.png": paths["albedo.sgi"], "leaf.png":
+    paths["leaf.blp"]}."""
+    from tracerboy_tpu_torch.core import blp, ftex, icns, pcx, sgi
+    from tracerboy_tpu_torch.core.image_io import _to_uint8
+
+    os.makedirs(directory, exist_ok=True)
+    paths = {name: os.path.join(directory, name) for name in (
+        "albedo.sgi", "albedo.pcx", "albedo_dxt1.blp", "albedo.ftex",
+        "albedo.icns", "leaf.blp")}
+    albedo = _to_uint8(albedo_image(1024))
+    sgi.write_sgi(paths["albedo.sgi"], albedo)
+    pcx.write_pcx(paths["albedo.pcx"], albedo)
+    blp.write_blp2(paths["albedo_dxt1.blp"], albedo, 1)
+    ftex.write_ftex(paths["albedo.ftex"], albedo)
+    icns.write_icns(paths["albedo.icns"], {b"ic10": np.concatenate(
+        [albedo, np.full((1024, 1024, 1), 255, np.uint8)], -1)})
+    blp.write_blp2(paths["leaf.blp"], leaf_image(512), 5)
     return paths
 
 
@@ -671,6 +703,12 @@ if __name__ == "__main__":
     elif kind == "tiff":
         scenes = write_textured_scene(out)
         retexture(scenes[0], write_tiff_textures(os.path.join(out, "tif")))
+        print(scenes)
+    elif kind == "small":
+        scenes = write_textured_scene(out)
+        paths = write_small_textures(os.path.join(out, "small"))
+        retexture(scenes[0], {"albedo.png": paths["albedo.sgi"],
+                              "leaf.png": paths["leaf.blp"]})
         print(scenes)
     elif kind == "forest":
         print(write_forest_scene(out))
