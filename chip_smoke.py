@@ -250,14 +250,18 @@ Phases, each fatal on failure:
      albedo's and an FCC (float-matrix) albedo's host decodes;
  28. the port's readers of PIL's small texture formats (small_phase):
      every fixture of tests/data/small (SGI, PCX, DCX, CUR, DIB, FTEX, BLP
-     and ICNS of every layout the readers take) decoded to the sha256 of
-     PIL's array in its manifest; the 1024x1024 albedo written by
-     utils/demo_scene.write_small_textures as an RLE SGI, a PCX, a DXT1
-     BLP2, a DXT1 FTEX and an ICNS (an ic10 PNG entry), and the leaf as a
-     DXT5 BLP2, each file's sha256 and decode equal to the manifest's
-     (PIL's) and each albedo decode timed on the host; the CLI on
+     and ICNS of every layout the readers take) and tests/data/small2 (IM,
+     Sun, XBM, XPM, MSP, PIXAR, GBR, IMT, McIdas, SPIDER and XVThumb)
+     decoded to the sha256 of PIL's array in its manifest; the 1024x1024
+     albedo written by utils/demo_scene.write_small_textures as an RLE
+     SGI, a PCX, a DXT1 BLP2, a DXT1 FTEX and an ICNS (an ic10 PNG
+     entry), and by write_small2_textures as a Sun RLE, a raw Sun, a
+     planar IM and a 256-colour XPM, and the leaf as a DXT5 BLP2 and an
+     RGBA IM, each file's sha256 and decode equal to the manifest's
+     (PIL's) and each decode timed on the host; the CLI on
      textured_lit.pbrt with the RLE SGI albedo and the DXT5 BLP2 leaf
-     whose alpha makes the cutouts, as in 22;
+     whose alpha makes the cutouts, as in 22, and again with the Sun RLE
+     albedo and the RGBA IM leaf;
  29. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
@@ -3800,6 +3804,7 @@ WEBP_DIR = Path(__file__).resolve().parent / "tests" / "data" / "webp"
 J2K_DIR = Path(__file__).resolve().parent / "tests" / "data" / "j2k"
 AVIF_DIR = Path(__file__).resolve().parent / "tests" / "data" / "avif"
 SMALL_DIR = Path(__file__).resolve().parent / "tests" / "data" / "small"
+SMALL2_DIR = Path(__file__).resolve().parent / "tests" / "data" / "small2"
 
 
 def spp_reference(r, D, n):
@@ -4402,35 +4407,16 @@ def avif_runs(torch, tmp):
                      for k in launches}
 
 
-def small_runs(torch, tmp):
-    """The port's readers of PIL's small texture formats (core/sgi.py,
-    core/pcx.py, core/ico.py, core/ftex.py, core/blp.py, core/icns.py,
-    csrc/small_decode.cpp, g++ at first use) on the card's machine, which
-    has no PIL. (a) Every committed fixture of tests/data/small decoded by
-    image_io.decode_ldr, its shape, dtype and sha256 equal to
-    manifest.json's (written by tests/make_small_fixtures.py). (b)
-    utils/demo_scene.write_small_textures' files written here, each
-    file's sha256 equal to the manifest's "generated" entry (so PIL's
-    digest there applies to it) and its decode equal to that digest: the
-    1024x1024 albedo as an RLE SGI, a 3-plane PCX, a DXT1 BLP2, a DXT1
-    FTEX and an ICNS of one ic10 PNG entry (whose zlib stream another
-    zlib may write differently: its pixels are compared, not its bytes),
-    each decode 5 runs, host
-    seconds, with the host's CPU and the card line; the 512x512 leaf as
-    a DXT5 BLP2 (alpha encoding 7). (c) The CLI on textured_lit.pbrt with
-    the RLE SGI albedo and the DXT5 BLP2 leaf, whose alpha makes the
-    cutouts (textured_swap_cli). Returns (results, launches of (c))."""
+def written_textures(label, paths, generated, card, results):
+    """Each written texture's sha256 and decode against the manifest's
+    "generated" entry (PIL's digest applies to those bytes), each decode
+    timed on the host (5 runs) under results["decode_<name>"]; a PNG
+    inside an ICNS is compared by its pixels (another zlib may write
+    other bytes). Returns the names that differ."""
     import hashlib
 
     from tracerboy_tpu_torch.core.image_io import decode_ldr
-    from tracerboy_tpu_torch.utils.demo_scene import write_small_textures
 
-    set_opt_in()
-    results = {"fixtures": fixture_hashes("small", SMALL_DIR, decode_ldr)}
-    with open(SMALL_DIR / "manifest.json") as f:
-        generated = json.load(f)["generated"]
-    paths = write_small_textures(os.path.join(tmp, "textures"))
-    card = card_line()
     bad = []
     for name, path in sorted(paths.items()):
         entry = generated[name]
@@ -4441,7 +4427,7 @@ def small_runs(torch, tmp):
                    sha256=hashlib.sha256(
                        np.ascontiguousarray(arr).tobytes()).hexdigest(),
                    file_sha256=file_sha)
-        if name.endswith(".icns"):      # a PNG: zlib's bytes may differ
+        if name.endswith(".icns"):
             got["file_sha256"] = entry["file_sha256"]
         if got != entry:
             bad.append((name, got, entry))
@@ -4449,15 +4435,70 @@ def small_runs(torch, tmp):
         results[f"decode_{key}"] = dict(host_decode(decode_ldr, Path(path)),
                                         shape=list(arr.shape), card=card,
                                         pil_equal=got == entry)
-        print(f"small decode {name} (host):",
+        print(f"{label} decode {name} (host):",
               json.dumps(results[f"decode_{key}"]))
+    return bad
+
+
+def small_runs(torch, tmp):
+    """The port's readers of PIL's small texture formats (core/sgi.py,
+    core/pcx.py, core/ico.py, core/ftex.py, core/blp.py, core/icns.py,
+    and part 2's core/im.py, core/sun.py, core/xbm.py, core/xpm.py,
+    core/msp.py, core/rawformats.py; csrc/small_decode.cpp, g++ at first
+    use) on the card's machine, which has no PIL. (a) Every committed
+    fixture of tests/data/small and tests/data/small2 decoded by
+    image_io.decode_ldr, its shape, dtype and sha256 equal to its
+    manifest.json's (written by tests/make_small_fixtures.py and
+    tests/make_small2_fixtures.py). (b) utils/demo_scene's
+    write_small_textures' and write_small2_textures' files written here,
+    each file's sha256 equal to its manifest's "generated" entry (so
+    PIL's digest there applies to it) and its decode equal to that
+    digest, each decode 5 runs, host seconds, with the host's CPU and the
+    card line: the 1024x1024 albedo as an RLE SGI, a 3-plane PCX, a DXT1
+    BLP2, a DXT1 FTEX, an ICNS of one ic10 PNG entry (whose zlib stream
+    another zlib may write differently: its pixels are compared, not its
+    bytes), a Sun RLE, a raw Sun, a planar IM and a 256-colour XPM; the
+    512x512 leaf as a DXT5 BLP2 (alpha encoding 7) and as an RGBA IM.
+    (c) The CLI on textured_lit.pbrt with the RLE SGI albedo and the DXT5
+    BLP2 leaf, whose alpha makes the cutouts (textured_swap_cli); (d) the
+    same with the Sun RLE albedo and the RGBA IM leaf. Returns (results,
+    launches of (c) and (d) together)."""
+    from tracerboy_tpu_torch.core.image_io import decode_ldr
+    from tracerboy_tpu_torch.utils.demo_scene import (
+        write_small2_textures,
+        write_small_textures,
+    )
+
+    set_opt_in()
+    results = {"fixtures": fixture_hashes("small", SMALL_DIR, decode_ldr),
+               "fixtures2": fixture_hashes("small2", SMALL2_DIR,
+                                           decode_ldr)}
+    card = card_line()
+    bad = []
+    for label, directory, write in (("small", SMALL_DIR,
+                                     write_small_textures),
+                                    ("small2", SMALL2_DIR,
+                                     write_small2_textures)):
+        with open(directory / "manifest.json") as f:
+            generated = json.load(f)["generated"]
+        paths = write(os.path.join(tmp, label))
+        bad += written_textures(label, paths, generated, card, results)
+        if label == "small":
+            swaps = {"albedo.png": paths["albedo.sgi"],
+                     "leaf.png": paths["leaf.blp"]}
+        else:
+            swaps2 = {"albedo.png": paths["albedo.ras"],
+                      "leaf.png": paths["leaf.im"]}
     if bad:
         fail(f"small: written textures differ from the manifest: {bad}")
-    cli_res, launches = textured_swap_cli(
-        torch, tmp, "small",
-        {"albedo.png": paths["albedo.sgi"], "leaf.png": paths["leaf.blp"]})
+    cli_res, launches = textured_swap_cli(torch, tmp, "small", swaps)
     results.update(cli_res)
-    return results, launches
+    t0 = time.perf_counter()
+    res2, launches2 = textured_swap_cli(torch, tmp, "small2", swaps2)
+    results["small2_cli"] = dict(res2["cli"],
+                                 run_s=time.perf_counter() - t0)
+    results["small2_kinds"] = res2["kinds"]
+    return results, {k: launches[k] + launches2[k] for k in launches}
 
 
 def main() -> int:
@@ -4705,7 +4746,9 @@ def main() -> int:
                      for k, v in avif_res[f"{pre}_kinds"].items()}}
     lap("avif")
     small_res, small_launches = small_phase(torch)
-    small_kinds = small_res["kinds"]
+    small_kinds = {**small_res["kinds"],
+                   **{f"small2_{k}": v
+                      for k, v in small_res["small2_kinds"].items()}}
     lap("small")
     print("phase seconds:", json.dumps(laps))
 
@@ -4843,6 +4886,7 @@ def main() -> int:
                 for key, row in small_res.items()
                 if key.startswith("decode_")},
              small_cli=small_res["cli"],
+             small2_cli=small_res["small2_cli"],
              volume_run=vol_res["run"],
              volume_control=vol_res["control"],
              estimators={k: {kk: vv for kk, vv in v.items()

@@ -16,7 +16,12 @@ data, a BLP2 in raw BGRA).
 - blp1_jpeg, blp1_palette, blp2: BLP files in every encoding the header
   can name;
 - icns: an icns file of raw entries; icns_rle: the PackBits-like code of
-  the 24-bit entries.
+  the 24-bit entries;
+- im: an IM header of any lines (a Lut, a NUL-ended header) over any
+  rows; sun and sun_rle: a Sun raster of any depth, type and colour map,
+  and Sun's byte RLE with given run and literal choices; msp_lins: a
+  LinS MSP of given rows; pixar, gbr, imt, mcidas, spider, xvthumb and
+  xpm: the headers of those formats over any pixel bytes.
 """
 
 from __future__ import annotations
@@ -285,3 +290,176 @@ def png_bytes(img: np.ndarray) -> bytes:
     buf = io.BytesIO()
     Image.fromarray(img).save(buf, "PNG")
     return buf.getvalue()
+
+
+# ----------------------------------------------------------------------------
+# Part 2: IM, SUN, MSP, PIXAR, GBR, IMT, McIdas, SPIDER, XVThumb, XPM
+
+
+def im(kind: str | None, w: int, h: int, body: bytes, lines=(),
+       lut: bytes | None = None, end: bytes = b"\0") -> bytes:
+    """An IM file: "Image type: <kind>" (none where kind is None), the
+    size, any further "Key: value" lines, a Lut line where lut is given,
+    the header ended by `end` and padded with NULs to a 0x1A at byte
+    511, the Lut's 768 bytes, then body."""
+    head = [f"Image type: {kind}"] if kind is not None else []
+    head += [f"Image size (x*y): {w}*{h}", *lines]
+    if lut is not None:
+        head.append("Lut: 1")
+    text = "".join(f"{line}\r\n" for line in head).encode("latin-1") + end
+    return text.ljust(511, b"\0") + b"\x1a" + (lut or b"") + body
+
+
+def im_rows(img: np.ndarray, planar: bool = True) -> bytes:
+    """An image's rows bottom-up, each row's channels planar (IM's ;L
+    raw modes) or interleaved."""
+    rows = img[::-1]
+    if img.ndim == 3 and planar:
+        rows = rows.transpose(0, 2, 1)
+    return np.ascontiguousarray(rows).tobytes()
+
+
+def sun(w: int, h: int, depth: int, kind: int, body: bytes,
+        cmap: bytes = b"", map_type: int = 1) -> bytes:
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), kind,
+                       map_type if cmap else 0, len(cmap)) + cmap + body
+
+
+def sun_rows(lines: np.ndarray) -> bytes:
+    """Rows of (H, linebytes) uint8 padded to 16 bits, the raw layout."""
+    pad = lines.shape[1] % 2
+    return np.pad(lines, ((0, 0), (0, pad))).tobytes()
+
+
+def sun_rle(stream: bytes, rng=None) -> bytes:
+    """Sun's byte RLE of a stream: runs of 3 or more as 0x80, n - 1, v
+    (at most 256; where rng is given, some runs of 2 too), a 0x80 as
+    0x80 0 (or a run of 1, 0x80 0x00 being a literal), the rest
+    literal."""
+    out = bytearray()
+    i, n = 0, len(stream)
+    while i < n:
+        j = i
+        while j + 1 < n and stream[j + 1] == stream[i] and j - i < 255:
+            j += 1
+        run = j - i + 1
+        if run >= 3 or (run == 2 and rng is not None and rng.random() < .5):
+            out += bytes((0x80, run - 1, stream[i]))
+            i = j + 1
+        elif stream[i] == 0x80:
+            out += b"\x80\x00"
+            i += 1
+        else:
+            out.append(stream[i])
+            i += 1
+    return bytes(out)
+
+
+def msp_lins(w: int, h: int, rows: list[bytes]) -> bytes:
+    """A LinS MSP file: the header (its checksum word set), the row map
+    and the rows' bytes."""
+    words = [*struct.unpack("<2H", b"LinS"), w, h] + [0] * 12
+    check = 0
+    for v in words[:15]:
+        check ^= v
+    words[15] = check
+    return (struct.pack("<16H", *words)
+            + struct.pack(f"<{len(rows)}H", *map(len, rows))
+            + b"".join(rows))
+
+
+def msp_row(line: bytes, rng) -> bytes:
+    """One LinS row of a line's bytes: runs of equal bytes as
+    (0, count, value), the rest in literal blocks of random length."""
+    out = bytearray()
+    i, n = 0, len(line)
+    while i < n:
+        j = i
+        while j + 1 < n and line[j + 1] == line[i] and j - i < 254:
+            j += 1
+        if j > i:
+            out += bytes((0, j - i + 1, line[i]))
+            i = j + 1
+            continue
+        k = min(n, i + int(rng.integers(1, 6)))
+        out += bytes((k - i,)) + line[i:k]
+        i = k
+    return bytes(out)
+
+
+def pixar(w: int, h: int, rgb: bytes, layout=(14, 2)) -> bytes:
+    head = bytearray(1024)
+    head[:4] = b"\200\350\000\000"
+    struct.pack_into("<2H", head, 416, h, w)
+    struct.pack_into("<2H", head, 424, *layout)
+    return bytes(head) + rgb
+
+
+def gbr(w: int, h: int, depth: int, body: bytes, version: int = 2,
+        comment: bytes = b"brush\0") -> bytes:
+    size = (20 if version == 1 else 28) + len(comment)
+    head = struct.pack(">5I", size, version, w, h, depth)
+    if version == 2:
+        head += b"GIMP" + struct.pack(">I", 10)
+    return head + comment + body
+
+
+def imt(w: int, h: int, body: bytes, comment: bool = True) -> bytes:
+    lines = [f"width {w}", f"height {h}", "pixel n8"]
+    if comment:
+        lines.insert(1, "* IM Tools image")
+    return "".join(f"{x}\n" for x in lines).encode() + b"\x0c" + body
+
+
+def mcidas(w: int, h: int, bpp: int, body: bytes, prefix: int = 0,
+           bands: int = 1, data_offset: int = 256) -> bytes:
+    """A McIdas area: the directory's words 9-11 (height, width, bytes a
+    sample), 14 (bands), 15 (line prefix bytes) and 34 (data offset)."""
+    words = [0] * 64
+    words[1] = 4
+    words[8], words[9], words[10] = h, w, bpp
+    words[13], words[14], words[33] = bands, prefix, data_offset
+    head = struct.pack(">64i", *words)
+    return head + bytes(max(0, data_offset - 256)) + body
+
+
+def spider(img: np.ndarray, big: bool = True, stack: int = 0) -> bytes:
+    """A SPIDER image of float32 samples, one header record of 1024
+    bytes (labrec 1, lenbyt 1024); with stack > 0 a stack header (istack
+    `stack`, maxim 1) before the image's own header."""
+    h, w = img.shape
+    order = ">" if big else "<"
+
+    def header(istack, imgnumber, maxim):
+        t = [0.0] * 256
+        t[0], t[1], t[4], t[11], t[12] = 1, h, 1, w, 1
+        t[21], t[22] = 1024, 1024
+        t[23], t[25], t[26] = istack, maxim, imgnumber
+        return struct.pack(f"{order}256f", *t)
+
+    body = img.astype(order + "f4").tobytes()
+    if stack:
+        return header(stack, 0, 1) + header(0, 1, 0) + body
+    return header(0, 0, 0) + body
+
+
+def xvthumb(w: int, h: int, body: bytes, comments=("#XVVERSION:Version "
+                                                   "3.10", "#END_OF_"
+                                                   "COMMENTS")) -> bytes:
+    lines = ["P7 332", *comments, f"{w} {h} 255"]
+    return "".join(f"{x}\n" for x in lines).encode() + body
+
+
+def xpm(w: int, h: int, colours: list[tuple[bytes, bytes]],
+        rows: list[bytes], pixels_comment: bool = False) -> bytes:
+    """An XPM: the values line, one line a colour (key, colour spec),
+    then the quoted rows."""
+    bpp = len(colours[0][0]) if colours else 1
+    lines = [b"/* XPM */", b"static char *image[] = {",
+             b"/* columns rows colors chars-per-pixel */",
+             f'"{w} {h} {len(colours)} {bpp}",'.encode()]
+    lines += [b'"' + k + b" c " + c + b'",' for k, c in colours]
+    if pixels_comment:
+        lines.append(b"/* pixels */")
+    lines += [b'"' + r + b'",' for r in rows]
+    return b"\n".join(lines) + b"\n};\n"

@@ -4,8 +4,9 @@ Image.open tries them (preinit's plugins, then the rest of Image.ID after
 init), each ported format's test is PIL's _accept on the file's first
 16 bytes, and files that two plugins accept reach the same reader in both
 packages (or the same refusal). A file that one of PIL's plugins the port
-has not ported identifies raises NotImplementedError naming ROADMAP item
-22b; one that a stub plugin identifies is refused as PIL refuses it.
+has not ported (FITS, FLI, IPTC, PCD) identifies raises NotImplementedError
+naming ROADMAP item 22b; one that a stub plugin or EPS (no Ghostscript)
+identifies is refused as PIL refuses it.
 """
 
 import glob
@@ -56,9 +57,9 @@ def _pil_accept(name: str, data: bytes) -> bool | None:
 # ones whose predicate is only that.
 ACCEPT_ONLY = ("BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "AVIF", "BLP",
                "BUFR", "CUR", "PCX", "DCX", "DDS", "EPS", "FITS", "FTEX",
-               "GRIB", "HDF5", "JPEG2000", "ICNS", "ICO", "MCIDAS", "MPEG",
-               "TIFF", "MSP", "PIXAR", "PSD", "QOI", "SGI", "SUN", "WEBP",
-               "WMF", "XBM", "XPM", "XVTHUMB")
+               "GBR", "GRIB", "HDF5", "JPEG2000", "ICNS", "ICO", "MCIDAS",
+               "MPEG", "TIFF", "MSP", "PIXAR", "PSD", "QOI", "SGI", "SUN",
+               "WEBP", "WMF", "XBM", "XPM", "XVTHUMB")
 
 
 def _probes():
@@ -143,14 +144,12 @@ def _pil_saved(fmt, mode, **kw):
     return buf.getvalue()
 
 
-def _unported():
+def _ported_now():
+    """Files of the formats PIL's small formats part 2 ported, as the
+    item-22b test wrote them before."""
     sun = struct.pack(">8I", 0x59A66A95, 4, 2, 8, 8, 1, 0, 0) + bytes(8)
     xpm = (b'/* XPM */\nstatic char *x[] = {\n"2 1 1 1",\n"a c #ff0000",\n'
            b'"aa"\n};\n')
-    cards = [b"SIMPLE  = T", b"BITPIX  = 8", b"NAXIS   = 2",
-             b"NAXIS1  = 2", b"NAXIS2  = 1", b"END"]
-    fits = b"".join(c.replace(b"= ", b"=" + b" " * 20).ljust(80)
-                    for c in cards).ljust(2880) + bytes(2880)
     return {
         "IM": _pil_saved("IM", "RGB"),
         "MSP": _pil_saved("MSP", "1"),
@@ -158,8 +157,61 @@ def _unported():
         "SPIDER": _pil_saved("SPIDER", "F"),
         "SUN": sun,
         "XPM": xpm,
-        "FITS": fits,
     }
+
+
+@pytest.mark.parametrize("fmt", sorted(_ported_now()))
+def test_formats_ported_from_item_22b_read_as_jax(tmp_path, fmt):
+    """PIL identifies the file as `fmt`; the port, which now reads it,
+    gives the JAX read_ldr's pixels."""
+    path = tmp_path / f"x.{fmt.lower()}"
+    path.write_bytes(_ported_now()[fmt])
+    with Image.open(path) as im:
+        assert im.format == fmt
+    assert assert_as_jax(path) is not None
+
+
+def _fli(w=6, h=4):
+    """An FLI of one frame: a COLOR_64 chunk of 256 entries and a COPY
+    chunk of w x h indices."""
+    rng = np.random.default_rng(5)
+    colour = struct.pack("<H", 1) + bytes(2) + rng.integers(
+        0, 64, 768).astype(np.uint8).tobytes()
+    px = rng.integers(0, 256, w * h).astype(np.uint8).tobytes()
+    chunks = (struct.pack("<IH", 6 + len(colour), 11) + colour
+              + struct.pack("<IH", 6 + len(px), 16) + px)
+    frame = struct.pack("<IHH8x", 16 + len(chunks), 0xF1FA, 2) + chunks
+    return struct.pack("<IHHHHHHI", 128 + len(frame), 0xAF11, 1, w, h, 8,
+                       3, 5).ljust(128, b"\0") + frame
+
+
+def _iptc(w=5, h=3):
+    """IPTC records of an L image (layers 1), raw, its pixels in one
+    (8, 10) record."""
+    def rec(r, t, data):
+        return bytes((0x1C, r, t)) + struct.pack(">H", len(data)) + data
+
+    px = np.random.default_rng(6).integers(0, 256, w * h).astype(np.uint8)
+    return (rec(3, 60, b"\x01\x00") + rec(3, 20, bytes((w,)))
+            + rec(3, 30, bytes((h,))) + rec(3, 120, b"\x01")
+            + rec(8, 10, px.tobytes()))
+
+
+def _pcd():
+    """A PCD: "PCD_" at 2048, the base image's planes at sector 96."""
+    data = bytearray(96 * 2048 + 768 * 512 * 3 // 2)
+    data[2048:2052] = b"PCD_"
+    data[96 * 2048:] = np.random.default_rng(7).integers(
+        0, 256, len(data) - 96 * 2048).astype(np.uint8).tobytes()
+    return bytes(data)
+
+
+def _unported():
+    cards = [b"SIMPLE  = T", b"BITPIX  = 8", b"NAXIS   = 2",
+             b"NAXIS1  = 2", b"NAXIS2  = 1", b"END"]
+    fits = b"".join(c.replace(b"= ", b"=" + b" " * 20).ljust(80)
+                    for c in cards).ljust(2880) + bytes(2880)
+    return {"FITS": fits, "FLI": _fli(), "IPTC": _iptc(), "PCD": _pcd()}
 
 
 @pytest.mark.parametrize("fmt", sorted(_unported()))
@@ -186,7 +238,18 @@ def _emf(box=(0, 0, 10, 8), frame=(0, 0, 2540, 2032)):
         + b" EMF" + bytes(40)
 
 
-# PIL's stub plugins: (identified as, file); None where PIL passes it on.
+EPS_OK = (b"%!PS-Adobe-3.0 EPSF-3.0\n%%BoundingBox: 0 0 10 20\n"
+          b"%%EndComments\nshowpage\n%%EOF\n")
+
+
+def _eps_dos(ps: bytes) -> bytes:
+    """A DOS EPS binary header (magic, PostScript offset and length)
+    before `ps`."""
+    return struct.pack("<III", 0xC6D3D0C5, 30, len(ps)) + bytes(18) + ps
+
+
+# PIL's stub plugins and EPS: (identified as, file); None where PIL passes
+# it on.
 STUBS = {
     "bufr": ("BUFR", b"BUFR" + bytes(60)),
     "bufr_zczc": ("BUFR", b"ZCZC" + bytes(60)),
@@ -205,6 +268,37 @@ STUBS = {
     "emf_empty_frame": ("WMF", _emf(frame=(0, 0, 0, 2032))),
     "emf_negative_box": (None, _emf(box=(10, 0, 0, 8))),
     "emf_no_signature": (None, b"\x01\0\0\0" + bytes(60)),
+    # EPS: PIL identifies these and cannot load them without Ghostscript.
+    "eps": ("EPS", EPS_OK),
+    "eps_dos": ("EPS", _eps_dos(EPS_OK)),
+    "eps_imagedata": ("EPS", EPS_OK.replace(b"%%EndComments\n", b"")
+                      + b"%ImageData: 7 3 8 3 0 1 1 \"x\"\n"),
+    # PIL keeps the line that ends the header and reads the next one on
+    # after it: an empty line clears it, so %%Trailer is seen.
+    "eps_atend": ("EPS", b"%!PS-Adobe-3.0\n%%BoundingBox: (atend)\n"
+                  b"%%EndComments\n\n%%Trailer\n%%BoundingBox: 1 2 30 "
+                  b"40\n"),
+    # ... and refuses these with OSError in _open (no bounding box; here
+    # %%Trailer is read as "%%EndComments%%Trailer").
+    "eps_atend_trailer_unseen": ("EPS", b"%!PS-Adobe-3.0\n%%BoundingBox: "
+                                 b"(atend)\n%%EndComments\n%%Trailer\n"
+                                 b"%%BoundingBox: 1 2 30 40\n"),
+    "eps_no_box_value": ("EPS", b"%!PS-Adobe-3.0\n%%BoundingBox: x\n"),
+    "eps_dos_no_box_value": ("EPS", _eps_dos(
+        b"%!PS-Adobe-3.0\n%%BoundingBox: x\n")),
+    # ... and a %%BeginBinary seek before the file's start (OSError).
+    "eps_binary_seek_back": ("EPS", b"%!PS-Adobe-3.0\n%%BoundingBox: 0 0 1 "
+                             b"1\n%%EndComments\n\n%%BeginBinary: -500\n"),
+    # _open's SyntaxError (and the IndexError ImageFile turns into one):
+    # passed on.
+    "eps_no_adobe": (None, b"%!PS\n%%BoundingBox: 0 0 10 20\n"),
+    "eps_no_box": (None, b"%!PS-Adobe-3.0\n%%Creator: x\n\nfoo\n"),
+    "eps_long_comment": (None, b"%!PS-Adobe-3.0\n%%BoundingBox: 0 0 1 1\n%"
+                         + b"a" * 300 + b"\n"),
+    "eps_short_box": (None, b"%!PS-Adobe-3.0\n%%BoundingBox: 0 0 10\n"),
+    "eps_empty_box": (None, b"%!PS-Adobe-3.0\n%%BoundingBox: 5 5 5 20\n"),
+    "eps_dos_cut": (None, struct.pack("<II", 0xC6D3D0C5, 30)),
+    "eps_dos_no_adobe": (None, _eps_dos(b"%!PS\n%%BoundingBox: 0 0 1 1\n")),
 }
 
 
@@ -219,7 +313,9 @@ def test_stub_formats_refuse_as_pil_refuses(tmp_path, case):
     if fmt is None:
         with pytest.raises(UnidentifiedImageError):
             Image.open(path)
-    elif case not in ("wmf_inch_0", "emf_empty_frame"):  # _open raises
+    elif case not in ("wmf_inch_0", "emf_empty_frame", "eps_no_box_value",
+                      "eps_dos_no_box_value", "eps_binary_seek_back",
+                      "eps_atend_trailer_unseen"):  # _open raises
         with Image.open(path) as im:
             assert im.format == fmt
     assert assert_as_jax(path) is None
@@ -227,10 +323,12 @@ def test_stub_formats_refuse_as_pil_refuses(tmp_path, case):
 
 def test_unidentified_names_what_is_left(tmp_path):
     """A file no plugin takes raises NotImplementedError naming item 22b
-    and only the formats still left (not the eight read now)."""
+    and only the formats still left (FITS, FLI, IPTC, PCD)."""
     path = tmp_path / "junk.bin"
     path.write_bytes(b"\x7f" * 40)
     with pytest.raises(NotImplementedError, match="item 22b") as e:
         image_io.decode_ldr(str(path))
-    for done in ("SGI", "PCX", "DCX", "CUR", "ICNS", "BLP", "FTEX"):
+    for done in ("SGI", "PCX", "DCX", "CUR", "ICNS", "BLP", "FTEX", "IM",
+                 "MSP", "SUN", "XBM", "XPM", "EPS", "GBR", "IMT", "MCIDAS",
+                 "PIXAR", "SPIDER", "XVTHUMB"):
         assert done not in str(e.value)

@@ -133,9 +133,10 @@ def test_gamma_and_texture_dispatch(tmp_path):
 
 
 def test_formats_are_known_by_their_headers(tmp_path):
-    """A TGA named .png, a BMP named .tga and a JPEG named .bmp decode by
-    content as the JAX read_ldr decodes them; an unknown file raises
-    NotImplementedError naming item 22b."""
+    """A TGA named .png, a BMP named .tga, a JPEG named .bmp and an IM
+    named .bin decode by content as the JAX read_ldr decodes them; a
+    format the port does not read (FITS) raises NotImplementedError
+    naming item 22b."""
     tga = tmp_path / "is_tga.png"
     pil_image("RGB").save(tmp_path / "x.tga")
     tga.write_bytes((tmp_path / "x.tga").read_bytes())
@@ -150,5 +151,11 @@ def test_formats_are_known_by_their_headers(tmp_path):
     same_as_jax(jpg)
     pil_image("RGB").save(tmp_path / "x.im")
     (tmp_path / "im.bin").write_bytes((tmp_path / "x.im").read_bytes())
+    same_as_jax(tmp_path / "im.bin")
+    cards = [b"SIMPLE  = T", b"BITPIX  = 8", b"NAXIS   = 2",
+             b"NAXIS1  = 4", b"NAXIS2  = 4", b"END"]
+    fits = b"".join(c.replace(b"= ", b"=" + b" " * 20).ljust(80)
+                    for c in cards).ljust(2880) + bytes(2880)
+    (tmp_path / "fits.bin").write_bytes(fits)
     with pytest.raises(NotImplementedError, match="item 22b"):
-        tio.read_ldr(str(tmp_path / "im.bin"))
+        tio.read_ldr(str(tmp_path / "fits.bin"))

@@ -277,10 +277,12 @@ def test_bmp_rle_quirks(tmp_path, case):
 
 
 def test_refusal_names_what_is_not_ported(tmp_path):
-    """A format PIL reads that the port does not (IM) raises
+    """A format PIL reads that the port does not (FITS) raises
     NotImplementedError naming its ROADMAP item."""
-    from PIL import Image
-
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(tmp_path / "g.im")
-    with pytest.raises(NotImplementedError, match="IM.*item 22b"):
-        image_io.read_ldr(str(tmp_path / "g.im"))
+    cards = [b"SIMPLE  = T", b"BITPIX  = 8", b"NAXIS   = 2",
+             b"NAXIS1  = 4", b"NAXIS2  = 4", b"END"]
+    fits = b"".join(c.replace(b"= ", b"=" + b" " * 20).ljust(80)
+                    for c in cards).ljust(2880) + bytes(2880)
+    (tmp_path / "g.fits").write_bytes(fits)
+    with pytest.raises(NotImplementedError, match="FITS.*item 22b"):
+        image_io.read_ldr(str(tmp_path / "g.fits"))

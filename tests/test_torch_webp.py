@@ -15,7 +15,7 @@ and 15), ALPH chunks of both methods under every filter, animations
 whose first frame lies inside a larger canvas, truncated files and
 corrupted bitstreams. Where PIL refuses a file the port raises:
 ValueError where PIL raises OSError, ValueError, EOFError, KeyError or
-IndexError, NotImplementedError where PIL cannot identify it. IM files,
+IndexError, NotImplementedError where PIL cannot identify it. FITS files,
 which PIL reads, raise NotImplementedError naming ROADMAP item 22b; AVIF
 files as Pillow saves them by default (the in-loop filters on), with the
 filters off, with film grain and with the matrix coefficients libavif
@@ -340,8 +340,9 @@ def test_alpha_stream_cut_short(scratch, seed, quality, alpha_quality,
 
 
 def test_unported_formats_name_item_22b(tmp_path):
-    """An IM image, which PIL reads (the JAX read_ldr renders it), is not
-    ported yet: NotImplementedError naming ROADMAP item 22b. AVIF whose
+    """A FITS image, which PIL reads (the JAX read_ldr renders it), is not
+    ported yet: NotImplementedError naming ROADMAP item 22b; an IM image
+    reads as the JAX read_ldr reads it. AVIF whose
     colr box names matrix coefficients 4 (FCC), which libavif converts
     in its own float path, AVIF as Pillow saves it by default (the
     in-loop filters on), with film grain (aom's film-grain-test) and
@@ -352,6 +353,14 @@ def test_unported_formats_name_item_22b(tmp_path):
     path = tmp_path / "x.im"
     img.save(path, "IM")
     assert jax_read_ldr(path).shape == (16, 16, 3)
+    assert np.array_equal(image_io.read_ldr(str(path)), jax_read_ldr(path))
+    cards = [b"SIMPLE  = T", b"BITPIX  = 8", b"NAXIS   = 2",
+             b"NAXIS1  = 4", b"NAXIS2  = 4", b"END"]
+    fits = b"".join(c.replace(b"= ", b"=" + b" " * 20).ljust(80)
+                    for c in cards).ljust(2880) + bytes(2880)
+    path = tmp_path / "x.fits"
+    path.write_bytes(fits)
+    assert jax_read_ldr(path).shape == (4, 4, 3)
     with pytest.raises(NotImplementedError, match=ITEM):
         image_io.read_ldr(str(path))
     path = tmp_path / "x.avif"

@@ -16,7 +16,9 @@ ctypes:
   -ffp-contract=off: no fused multiply-add may change a 9/7 or ICT
   result;
 - small_library(): csrc/small_decode.cpp (PCX run lengths, SGI RLE rows,
-  ICNS RLE channels), for core/pcx.py, core/sgi.py and core/icns.py;
+  ICNS RLE channels, Sun RLE, MSP LinS rows, XBM hex bytes, IM's packed
+  float samples), for core/pcx.py, core/sgi.py, core/icns.py,
+  core/sun.py, core/msp.py, core/xbm.py and core/im.py;
 - av1_library(): csrc/av1_decode.cpp (an AV1 intra frame's OBUs to its
   planes, with csrc/av1_tables.inc, its in-loop filters in
   csrc/av1_filters.inc and its film grain in csrc/av1_grain.inc, and
@@ -122,4 +124,8 @@ def small_library():
     return _load("tbsmall", "small_decode.cpp", (), (
         ("tb_pcx_decode", [p, i64, p, i64, i64, i64, i64]),
         ("tb_sgi_rle_decode", [p, i64, p, i64, i64, i64, i64]),
-        ("tb_icns_rle_decode", [p, i64, p, i64])))
+        ("tb_icns_rle_decode", [p, i64, p, i64]),
+        ("tb_sun_rle_decode", [p, i64, p, i64, i64]),
+        ("tb_msp_decode", [p, i64, p, i64, i64, p, i64]),
+        ("tb_xbm_decode", [p, i64, p, i64, i64]),
+        ("tb_bit_decode", [p, i64, p, i64, i64, i64])))

@@ -52,11 +52,15 @@ Formats:
   raises NotImplementedError (ROADMAP item 22b).
 - PIL's small texture formats: SGI (core/sgi.py), PCX and DCX
   (core/pcx.py), CUR and DIB (core/ico.py), FTEX (core/ftex.py), BLP
-  (core/blp.py) and ICNS (core/icns.py), their RLE loops in
+  (core/blp.py), ICNS (core/icns.py), IM (core/im.py), Sun raster
+  (core/sun.py), XBM (core/xbm.py), XPM (core/xpm.py), MSP
+  (core/msp.py), PIXAR, GBR, IMT, McIdas, SPIDER and XVThumb
+  (core/rawformats.py), their RLE, hex and bit loops in
   csrc/small_decode.cpp; PIL's pixels bit for bit. decode_ldr tries
   every reader in PIL's Image.open order (readers()); PIL's stub plugins
-  (BUFR, GRIB, HDF5, MPEG, WMF: core/stubs.py) are refused as PIL
-  refuses them, and its other formats (core/unported.py) raise
+  (BUFR, GRIB, HDF5, MPEG, WMF: core/stubs.py) and EPS (core/eps.py:
+  rendered only by Ghostscript) are refused as PIL refuses them, and its
+  other formats (FITS, FLI, IPTC, PCD: core/unported.py) raise
   NotImplementedError (ROADMAP item 22b).
 - Radiance HDR (RGBE, RLE): from the published file format spec.
 - PFM: trivial float format (the reference renames .pfm -> .hdr as a hack;
@@ -109,12 +113,19 @@ def decode_ldr(path: str) -> np.ndarray:
     and DCX's first page: core/pcx.py; SGI: core/sgi.py, 16-bit samples'
     high byte; FTEX: core/ftex.py, mipmap 0; BLP: core/blp.py, mipmap 0;
     ICNS: core/icns.py, its best entry, a PNG entry in its own mode;
-    BUFR, GRIB, HDF5, MPEG and WMF: core/stubs.py, refused, as PIL has
-    no loader for them).
+    IM: core/im.py, the first frame, every type PIL reads, a colour Lut
+    as a palette; Sun raster: core/sun.py, raw and RLE; XBM:
+    core/xbm.py; XPM: core/xpm.py, P or RGB, "None" dropped; MSP:
+    core/msp.py, DanM and LinS; PIXAR, GBR, IMT, McIdas, SPIDER (float
+    truncated and clipped, a stack's first image) and XVThumb:
+    core/rawformats.py; BUFR, GRIB, HDF5, MPEG and WMF: core/stubs.py,
+    refused, as PIL has no loader for them; EPS: core/eps.py, refused
+    where PIL identifies it, as PIL renders it only through
+    Ghostscript).
     The readers are tried in PIL's order (READERS); a reader that cannot
     identify the file passes it on, as PIL's SyntaxError does, and a file
-    that one of PIL's plugins the port has not ported would take raises
-    NotImplementedError (ROADMAP item 22b)."""
+    that one of PIL's plugins the port has not ported (FITS, FLI, IPTC,
+    PCD) would take raises NotImplementedError (ROADMAP item 22b)."""
     with open(path, "rb") as f:
         data = f.read()
     unidentified = None
@@ -138,8 +149,7 @@ def decode_ldr(path: str) -> np.ndarray:
 
 SMALL_FORMATS_ITEM = (
     "ROADMAP.md, Queue 1: item 22b, PIL's formats the port does not read "
-    "(IM, MSP, SUN, XBM, XPM, EPS, FITS, FLI, GBR, IMT, IPTC, MCIDAS, PCD, "
-    "PIXAR, SPIDER and XVTHUMB)")
+    "(FITS, FLI, IPTC and PCD)")
 
 _READERS = None
 
@@ -158,20 +168,27 @@ def readers():
             avif,
             blp,
             dds,
+            eps,
             ftex,
             gif,
             icns,
             ico,
+            im,
             jpeg2000,
+            msp,
             pcx,
             pnm,
             psd,
             qoi,
+            rawformats,
             sgi,
             stubs,
+            sun,
             tiff,
             unported,
             webp,
+            xbm,
+            xpm,
         )
         from tracerboy_tpu_torch.core.jpeg import decode_jpeg
 
@@ -190,36 +207,36 @@ def readers():
             ("PCX", pcx.is_pcx, pcx.read_pcx),
             ("DCX", pcx.is_dcx, pcx.read_dcx),
             ("DDS", lambda d: d.startswith(DDS_MAGIC), dds.read_dds),
-            ("EPS", unported.eps, None),
+            ("EPS", eps.is_eps, eps.read_eps),
             ("FITS", unported.fits, None),
             ("FLI", unported.fli, None),
             ("FTEX", ftex.is_ftex, ftex.read_ftex),
-            ("GBR", unported.gbr, None),
+            ("GBR", rawformats.is_gbr, rawformats.read_gbr),
             ("GRIB", stubs.is_grib, stubs.read_grib),
             ("HDF5", stubs.is_hdf5, stubs.read_hdf5),
             ("JPEG2000", jpeg2000.is_jpeg2000, jpeg2000.read_jpeg2000),
             ("ICNS", icns.is_icns, icns.read_icns),
             ("ICO", ico.is_ico, ico.read_ico),
-            ("IM", unported.im, None),
-            ("IMT", unported.imt, None),
+            ("IM", im.is_im, im.read_im),
+            ("IMT", rawformats.is_imt, rawformats.read_imt),
             ("IPTC", unported.iptc, None),
-            ("MCIDAS", unported.mcidas, None),
+            ("MCIDAS", rawformats.is_mcidas, rawformats.read_mcidas),
             ("MPEG", stubs.is_mpeg, stubs.read_mpeg),
             ("TIFF", tiff.is_tiff, tiff.read_tiff),
-            ("MSP", unported.msp, None),
+            ("MSP", msp.is_msp, msp.read_msp),
             ("PCD", unported.pcd, None),
-            ("PIXAR", unported.pixar, None),
+            ("PIXAR", rawformats.is_pixar, rawformats.read_pixar),
             ("PSD", psd.is_psd, psd.read_psd),
             ("QOI", qoi.is_qoi, qoi.read_qoi),
             ("SGI", sgi.is_sgi, sgi.read_sgi),
-            ("SPIDER", unported.spider, None),
-            ("SUN", unported.sun, None),
+            ("SPIDER", rawformats.is_spider, rawformats.read_spider),
+            ("SUN", sun.is_sun, sun.read_sun),
             ("TGA", lambda d: _tga_header(d) is not None, read_tga),
             ("WEBP", webp.is_webp, webp.read_webp),
             ("WMF", stubs.is_wmf, stubs.read_wmf),
-            ("XBM", unported.xbm, None),
-            ("XPM", unported.xpm, None),
-            ("XVTHUMB", unported.xvthumb, None),
+            ("XBM", xbm.is_xbm, xbm.read_xbm),
+            ("XPM", xpm.is_xpm, xpm.read_xpm),
+            ("XVTHUMB", rawformats.is_xvthumb, rawformats.read_xvthumb),
         )
     return _READERS
 
@@ -438,25 +455,51 @@ def encode_png(img: np.ndarray) -> bytes:
 # ----------------------------------------------------------------------------
 # TGA and BMP (the readers follow PIL's TgaImagePlugin and BmpImagePlugin)
 
-# Bits a pixel of each PIL raw mode the TGA and BMP readers unpack.
-_RAW_BITS = {"1": 1, "P;1": 1, "P;4": 4, "P": 8, "L": 8, "LA": 16,
-             "BGR;15": 16, "BGR;16": 16, "BGRA;15Z": 16, "BGR": 24,
-             "BGRX": 32, "XBGR": 32, "BGXR": 32, "ABGR": 32, "RGBA": 32,
-             "BGRA": 32, "BGAR": 32}
+# Bits a pixel of each PIL raw mode the readers unpack (TGA, BMP, PCX,
+# SGI and PIL's other small formats).
+_RAW_BITS = {"1": 1, "1;I": 1, "P;1": 1, "P;2": 2, "P;4": 4, "L;4": 4,
+             "P": 8, "L": 8, "LA": 16, "BGR;15": 16, "BGR;16": 16,
+             "BGRA;15Z": 16, "RGB": 24, "BGR": 24, "RGBX": 32, "BGRX": 32,
+             "XBGR": 32, "BGXR": 32, "ABGR": 32, "RGBA": 32, "BGRA": 32,
+             "BGAR": 32, "LA;L": 16, "PA;L": 16, "RGB;L": 24, "YCbCr;L": 24,
+             "RGBA;L": 32, "RGBX;L": 32, "CMYK;L": 32}
+# One-band raw modes of wider samples: their numpy layout (PIL's I;16*,
+# I;32* and F;* unpackers; F;32 is unsigned).
+_RAW_SAMPLES = {"I;16": "<u2", "I;16L": "<u2", "I;16B": ">u2", "I;32": "<i4",
+                "I;32S": "<i4", "I;32B": ">i4", "F;8": "u1", "F;8S": "i1",
+                "F;16": "<u2", "F;16S": "<i2", "F;32": "<u4", "F;32F": "<f4",
+                "F;32BF": ">f4"}
+_RAW_BITS.update({k: 8 * int(v[-1]) for k, v in _RAW_SAMPLES.items()})
 
 
 def unpack_raw(rows: np.ndarray, width: int, rawmode: str) -> np.ndarray:
     """PIL's unpacker for `rawmode` on (H, rowbytes) uint8 rows: (H, W, C)
-    uint8 in the image's mode: bi-level 0/255 ("1"), indices (P), L, LA,
-    RGB or RGBA. 5- and 6-bit fields scale as v * 255 // 31 (// 63); the
-    1-bit alpha of BGRA;15Z is inverted (set bit: alpha 0)."""
+    in the image's mode: bi-level 0/255 ("1"; 1;I with set bits black),
+    indices (P), L (L;4 scaled by 17), LA, RGB, RGBA, CMYK and YCbCr
+    uint8; I;16* as uint16, I as int32, F as float32. 5- and 6-bit fields
+    scale as v * 255 // 31 (// 63); the 1-bit alpha of BGRA;15Z is
+    inverted (set bit: alpha 0). The ";L" modes are planar rows: each
+    band's samples of the row in turn."""
     bits = _RAW_BITS[rawmode]
+    h = rows.shape[0]
     if bits < 8:
         shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
         v = (rows[..., None] >> shifts) & ((1 << bits) - 1)
-        v = v.reshape(rows.shape[0], -1)[:, :width, None]
-        return v * np.uint8(255) if rawmode == "1" else v
-    px = rows[:, :width * bits // 8].reshape(rows.shape[0], width, bits // 8)
+        v = v.reshape(h, -1)[:, :width, None]
+        scale = {"1": 255, "1;I": 255, "L;4": 17}.get(rawmode)
+        if rawmode == "1;I":
+            v = 1 - v
+        return v * np.uint8(scale) if scale else v
+    px = rows[:, :width * bits // 8]
+    if rawmode in _RAW_SAMPLES:
+        v = np.ascontiguousarray(px).view(_RAW_SAMPLES[rawmode])
+        kind = (np.float32 if rawmode[0] == "F" else np.uint16
+                if rawmode.startswith("I;16") else np.int32)
+        return v.reshape(h, width, 1).astype(kind)
+    if rawmode.endswith(";L"):
+        return np.ascontiguousarray(
+            px.reshape(h, bits // 8, width).transpose(0, 2, 1))
+    px = px.reshape(h, width, bits // 8)
     if bits == 16 and ";" in rawmode:
         v = px[..., 0].astype(np.int32) | (px[..., 1].astype(np.int32) << 8)
         g_bits = 6 if rawmode == "BGR;16" else 5
@@ -473,9 +516,24 @@ def unpack_raw(rows: np.ndarray, width: int, rawmode: str) -> np.ndarray:
     return np.ascontiguousarray(px[..., order])
 
 
+# Convert.c's ycbcr2rgb tables: (i - 128) x 1.402, -0.34414, -0.71414 and
+# 1.772, scaled by 64, rounded as int(x + 0.5) (towards zero).
+_YCC = {name: np.trunc(c * (np.arange(256) - 128) * 64 + 0.5).astype(
+    np.int32) for name, c in (("R_Cr", 1.402), ("G_Cb", -0.34414),
+                              ("G_Cr", -0.71414), ("B_Cb", 1.772))}
+
+
 def as_read_ldr(px: np.ndarray, mode: str, palette=None) -> np.ndarray:
-    """Pixels in a PIL mode as the JAX read_ldr converts them: "1", L and
-    P (through the (256, 3+) palette) to RGB, LA and PA to RGBA."""
+    """Pixels in a PIL mode, (H, W, C), as the JAX read_ldr converts
+    them: "1", L and P (through the (256, 3+) palette) to RGB, LA and PA
+    to RGBA, RGB's padding byte dropped; I;16* clipped at 255, I to 0-255, F truncated and clipped
+    (NaN as 0) and repeated as L; CMYK and YCbCr as Convert.c converts
+    them (YCbCr by its fixed-point tables, not libjpeg's)."""
+    if mode.startswith("I;16") or mode == "I":
+        px, mode = np.clip(px, 0, 255).astype(np.uint8), "L"
+    elif mode == "F":
+        px, mode = np.where(np.isnan(px), 0, np.clip(px, 0, 255)).astype(
+            np.uint8), "L"
     if mode in ("1", "L"):
         return np.repeat(px, 3, axis=2)
     if mode == "LA":
@@ -484,7 +542,18 @@ def as_read_ldr(px: np.ndarray, mode: str, palette=None) -> np.ndarray:
         return np.ascontiguousarray(palette[px[..., 0], :3])
     if mode == "PA":
         return np.concatenate([palette[px[..., 0], :3], px[..., 1:]], -1)
-    return np.ascontiguousarray(px)
+    if mode == "CMYK":
+        c = px.astype(np.int32)
+        nk = 255 - c[..., 3:]
+        t = c[..., :3] * nk + 128
+        return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+    if mode == "YCbCr":
+        y, cb, cr = (px[..., k].astype(np.int32) for k in range(3))
+        rgb = np.stack([y + (_YCC["R_Cr"][cr] >> 6),
+                        y + ((_YCC["G_Cb"][cb] + _YCC["G_Cr"][cr]) >> 6),
+                        y + (_YCC["B_Cb"][cb] >> 6)], -1)
+        return np.clip(rgb, 0, 255).astype(np.uint8)
+    return np.ascontiguousarray(px[..., :3] if mode == "RGB" else px)
 
 
 def _raw_rows(data: bytes, offset: int, rows: int, stride: int, width: int,

@@ -1,6 +1,8 @@
 // The byte-serial loops of the port's readers of PIL's small formats
-// (core/pcx.py, core/sgi.py, core/icns.py, loaded by core/codecs.py):
-// PCX run lengths, SGI RLE rows and the ICNS PackBits-like channels.
+// (core/pcx.py, core/sgi.py, core/icns.py, core/sun.py, core/msp.py,
+// core/xbm.py and core/im.py, loaded by core/codecs.py): PCX run
+// lengths, SGI RLE rows, the ICNS PackBits-like channels, Sun's RLE,
+// MSP's LinS rows, XBM's hex bytes and IM's packed float samples.
 // Host code, compiled with g++ at first use into the port's build
 // directory (utils/build.py) and called through ctypes; numpy unpacks
 // the rows.
@@ -37,6 +39,29 @@
 //   is passed, or the data ends first, PIL raises SyntaxError; where the
 //   count is met but reads at the end of the data came up short, the
 //   channel's buffer is too small (ValueError).
+// - tb_sun_rle_decode: Pillow's SunRleDecode.c. A byte 0x80 followed by
+//   0 is one literal 0x80; 0x80, n, v (n > 0) is a run of n + 1 bytes of
+//   v, which carries on into the next lines where it is longer than what
+//   is left of its line; any other byte is a literal. Lines are the
+//   unpacker's (w x bits + 7) / 8 bytes, not padded to 16 bits as the
+//   raw layout's are. Data that ends before the last line is truncated.
+// - tb_msp_decode: MspImagePlugin.MspDecoder's loop on the LinS rows
+//   after the row map: a row of length 0 is a line of 0xFF bytes; else
+//   its bytes are runs (0, count, value) and literal blocks (count, then
+//   count bytes, fewer where the row ends first). Every row's output is
+//   appended to one stream, which PIL then cuts into lines: rows do not
+//   have to make lines. A row past the data, or a run cut by the row's
+//   end, is refused (PIL's OSError).
+// - tb_xbm_decode: Pillow's XbmDecode.c. Skip to the next 'x', take the
+//   two bytes after it as hex digits (a byte that is not one counts as
+//   0), (w + 7) / 8 bytes a line; data that ends first is truncated.
+// - tb_bit_decode: Pillow's BitDecode.c with ImImagePlugin's arguments
+//   (bits, pad 8, fill 3, no sign, bottom-up): samples of `bits` bits
+//   taken from the low end of a bit buffer that each byte fills from
+//   above, as floats. At the end of a line the bit count is reset but
+//   the buffer is not: its leftover bits are OR'd into the next line's
+//   first byte, and where the count passes 32 the buffer is rebuilt from
+//   the last byte, as BitDecode.c does.
 
 #include <cstdint>
 #include <cstring>
@@ -214,6 +239,150 @@ int64_t tb_icns_rle_decode(const uint8_t* src, int64_t n, uint8_t* out,
     if (got < sizesq) return kShort;
   }
   return kOk;
+}
+
+// Sun RLE: `lines` lines of `bytes` bytes from src[0, n) into out.
+int64_t tb_sun_rle_decode(const uint8_t* src, int64_t n, uint8_t* out,
+                          int64_t bytes, int64_t lines) {
+  int64_t pos = 0, x = 0, y = 0;
+  uint8_t* line = out;
+  while (pos < n) {
+    int64_t count;
+    uint8_t extra_data = 0;
+    uint8_t extra_bytes = 0;
+    if (src[pos] == 0x80) {
+      if (pos + 2 > n) break;
+      count = src[pos + 1];
+      if (count == 0) {
+        count = 1;
+        line[x] = 0x80;
+        pos += 2;
+      } else {
+        if (pos + 3 > n) break;
+        count += 1;
+        if (x + count > bytes) {
+          extra_bytes = (uint8_t)count;
+          count = bytes - x;
+          extra_bytes = (uint8_t)(extra_bytes - count);
+          extra_data = src[pos + 2];
+        }
+        std::memset(line + x, src[pos + 2], count);
+        pos += 3;
+      }
+    } else {
+      count = 1;
+      line[x] = src[pos];
+      pos += 1;
+    }
+    for (;;) {
+      x += count;
+      if (x >= bytes) {
+        x = 0;
+        if (++y >= lines) return kOk;
+        line = out + y * bytes;
+      }
+      if (extra_bytes == 0 || x > 0) break;
+      count = extra_bytes >= bytes ? bytes : extra_bytes;
+      std::memset(line + x, extra_data, count);
+      extra_bytes = (uint8_t)(extra_bytes - count);
+    }
+  }
+  return kTruncated;
+}
+
+// MSP LinS: the rows (lengths rowlen[0, rows)) at src[0, n) into out,
+// which holds `cap` bytes; returns the stream's whole length, or
+// kTruncated for a row past the data, kOverrun for a run cut short.
+int64_t tb_msp_decode(const uint8_t* src, int64_t n, const uint16_t* rowlen,
+                      int64_t rows, int64_t linebytes, uint8_t* out,
+                      int64_t cap) {
+  int64_t pos = 0, got = 0;
+  auto put = [&](const uint8_t* p, int64_t k) {
+    if (got < cap) std::memcpy(out + got, p, k < cap - got ? k : cap - got);
+    got += k;
+  };
+  auto fill = [&](uint8_t v, int64_t k) {
+    if (got < cap) std::memset(out + got, v, k < cap - got ? k : cap - got);
+    got += k;
+  };
+  for (int64_t r = 0; r < rows; r++) {
+    int64_t len = rowlen[r];
+    if (len == 0) {
+      fill(0xFF, linebytes);
+      continue;
+    }
+    if (pos + len > n) return kTruncated;
+    const uint8_t* row = src + pos;
+    pos += len;
+    int64_t i = 0;
+    while (i < len) {
+      int type = row[i++];
+      if (type == 0) {
+        if (i + 2 > len) return kOverrun;
+        fill(row[i + 1], row[i]);
+        i += 2;
+      } else {
+        int64_t take = len - i < type ? len - i : type;
+        put(row + i, take);
+        i += type;
+      }
+    }
+  }
+  return got;
+}
+
+namespace {
+
+int hex_digit(uint8_t v) {
+  if (v >= '0' && v <= '9') return v - '0';
+  if (v >= 'a' && v <= 'f') return v - 'a' + 10;
+  if (v >= 'A' && v <= 'F') return v - 'A' + 10;
+  return 0;
+}
+
+}  // namespace
+
+// XBM: `lines` lines of `bytes` bytes from src[0, n) into out.
+int64_t tb_xbm_decode(const uint8_t* src, int64_t n, uint8_t* out,
+                      int64_t bytes, int64_t lines) {
+  int64_t pos = 0, total = bytes * lines;
+  for (int64_t k = 0; k < total; k++) {
+    while (pos < n && src[pos] != 'x') pos++;
+    if (n - pos < 3) return kTruncated;
+    out[k] = (uint8_t)((hex_digit(src[pos + 1]) << 4) +
+                       hex_digit(src[pos + 2]));
+    pos += 3;
+  }
+  return kOk;
+}
+
+// IM's packed samples: xsize x ysize floats into out, bottom-up; returns
+// kTruncated where src[0, n) ends first.
+int64_t tb_bit_decode(const uint8_t* src, int64_t n, float* out,
+                      int64_t xsize, int64_t ysize, int64_t bits) {
+  const unsigned long mask = (unsigned long)((1ull << bits) - 1);
+  unsigned long buffer = 0;
+  int64_t count = 0, x = 0, y = ysize - 1;
+  for (int64_t pos = 0; pos < n; pos++) {
+    uint8_t byte = src[pos];
+    buffer |= (unsigned long)byte << count;
+    count += 8;
+    while (count >= bits) {
+      unsigned long data = buffer & mask;
+      if (count > 32)
+        buffer = byte >> (8 - (count - bits));
+      else
+        buffer >>= bits;
+      count -= bits;
+      out[y * xsize + x] = (float)data;
+      if (++x >= xsize) {
+        if (--y < 0) return kOk;
+        x = 0;
+        count = 0;
+      }
+    }
+  }
+  return kTruncated;
 }
 
 }  // extern "C"

@@ -26,7 +26,9 @@ albedo as a tiled Deflate TIFF and the leaf as an RGBA LZW TIFF with
 unassociated alpha, and returns the swaps that put them in;
 write_small_textures(directory) writes the albedo in PIL's small texture
 formats (an RLE SGI, a PCX, a BLP2 and an FTEX in DXT1, an ICNS of one
-PNG entry) and the leaf as a BLP2 in DXT5 (alpha encoding 7).
+PNG entry) and the leaf as a BLP2 in DXT5 (alpha encoding 7);
+write_small2_textures(directory) the albedo as a Sun raster (RLE and
+raw), a planar IM and a 256-colour XPM, and the leaf as an RGBA IM.
 
 write_forest_scene(directory, grid, sky, trees, rocks, seed) writes
 forest.pbrt: the height field, and two objects in ObjectBegin blocks, a
@@ -48,7 +50,8 @@ The other scenes depend on the arguments only (no random numbers). Run as
   python -m tracerboy_tpu_torch.utils.demo_scene DIR [KIND]
 with KIND textured, tiff (the textured scene with its albedo and leaf
 swapped for TIFFs), small (swapped for an RLE SGI and a DXT5 BLP2),
-forest or meshes.
+small2 (swapped for an RLE Sun raster and an RGBA IM), forest or
+meshes.
 """
 
 from __future__ import annotations
@@ -344,6 +347,32 @@ def write_small_textures(directory: str) -> dict:
     icns.write_icns(paths["albedo.icns"], {b"ic10": np.concatenate(
         [albedo, np.full((1024, 1024, 1), 255, np.uint8)], -1)})
     blp.write_blp2(paths["leaf.blp"], leaf_image(512), 5)
+    return paths
+
+
+def write_small2_textures(directory: str) -> dict:
+    """The textured scene's albedo (1024x1024 RGB) and leaf (512x512 RGBA)
+    in more of PIL's small formats, in `directory`: albedo.ras (24-bit
+    Sun RLE, core/sun.write_sun), albedo_raw.ras (24-bit raw Sun),
+    albedo.im (IM, planar RGB rows, core/im.write_im), albedo.xpm (the
+    albedo cut to 3-3-2 bits, 256 colours, two chars a pixel,
+    core/xpm.write_xpm) and leaf.im (IM, planar RGBA rows, its alpha the
+    cutouts). Returns {file name: path}; the retexture swaps are
+    {"albedo.png": paths["albedo.ras"], "leaf.png": paths["leaf.im"]}."""
+    from tracerboy_tpu_torch.core import im, sun, xpm
+    from tracerboy_tpu_torch.core.image_io import _to_uint8
+
+    os.makedirs(directory, exist_ok=True)
+    paths = {name: os.path.join(directory, name) for name in (
+        "albedo.ras", "albedo_raw.ras", "albedo.im", "albedo.xpm",
+        "leaf.im")}
+    albedo = _to_uint8(albedo_image(1024))
+    sun.write_sun(paths["albedo.ras"], albedo)
+    sun.write_sun(paths["albedo_raw.ras"], albedo, rle=False)
+    im.write_im(paths["albedo.im"], albedo)
+    xpm.write_xpm(paths["albedo.xpm"], albedo & np.array([0xE0, 0xE0, 0xC0],
+                                                         np.uint8))
+    im.write_im(paths["leaf.im"], leaf_image(512))
     return paths
 
 
@@ -709,6 +738,12 @@ if __name__ == "__main__":
         paths = write_small_textures(os.path.join(out, "small"))
         retexture(scenes[0], {"albedo.png": paths["albedo.sgi"],
                               "leaf.png": paths["leaf.blp"]})
+        print(scenes)
+    elif kind == "small2":
+        scenes = write_textured_scene(out)
+        paths = write_small2_textures(os.path.join(out, "small2"))
+        retexture(scenes[0], {"albedo.png": paths["albedo.ras"],
+                              "leaf.png": paths["leaf.im"]})
         print(scenes)
     elif kind == "forest":
         print(write_forest_scene(out))
