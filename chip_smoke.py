@@ -258,10 +258,15 @@ Phases, each fatal on failure:
      entry), and by write_small2_textures as a Sun RLE, a raw Sun, a
      planar IM and a 256-colour XPM, and the leaf as a DXT5 BLP2 and an
      RGBA IM, each file's sha256 and decode equal to the manifest's
-     (PIL's) and each decode timed on the host; the CLI on
-     textured_lit.pbrt with the RLE SGI albedo and the DXT5 BLP2 leaf
-     whose alpha makes the cutouts, as in 22, and again with the Sun RLE
-     albedo and the RGBA IM leaf;
+     (PIL's) and each decode timed on the host; part 3: every fixture of
+     tests/data/small3 (FITS, FLI, IPTC, CMYK and YCCK JPEGs, BLP1s of
+     them), the albedo written by write_small3_textures as an FLC, a
+     PhotoCD, raw and gzip FITS and a raw IPTC image, and the committed
+     BLP1 of the albedo as a CMYK JPEG, checked and timed the same way;
+     the CLI on textured_lit.pbrt with the RLE SGI albedo and the DXT5
+     BLP2 leaf whose alpha makes the cutouts, as in 22, again with the
+     Sun RLE albedo and the RGBA IM leaf, and again with the BLP1-CMYK
+     albedo and the PNG leaf;
  29. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
@@ -3805,6 +3810,7 @@ J2K_DIR = Path(__file__).resolve().parent / "tests" / "data" / "j2k"
 AVIF_DIR = Path(__file__).resolve().parent / "tests" / "data" / "avif"
 SMALL_DIR = Path(__file__).resolve().parent / "tests" / "data" / "small"
 SMALL2_DIR = Path(__file__).resolve().parent / "tests" / "data" / "small2"
+SMALL3_DIR = Path(__file__).resolve().parent / "tests" / "data" / "small3"
 
 
 def spp_reference(r, D, n):
@@ -4411,8 +4417,8 @@ def written_textures(label, paths, generated, card, results):
     """Each written texture's sha256 and decode against the manifest's
     "generated" entry (PIL's digest applies to those bytes), each decode
     timed on the host (5 runs) under results["decode_<name>"]; a PNG
-    inside an ICNS is compared by its pixels (another zlib may write
-    other bytes). Returns the names that differ."""
+    inside an ICNS and a gzip FITS are compared by their pixels (another
+    zlib may write other bytes). Returns the names that differ."""
     import hashlib
 
     from tracerboy_tpu_torch.core.image_io import decode_ldr
@@ -4427,7 +4433,7 @@ def written_textures(label, paths, generated, card, results):
                    sha256=hashlib.sha256(
                        np.ascontiguousarray(arr).tobytes()).hexdigest(),
                    file_sha256=file_sha)
-        if name.endswith(".icns"):
+        if name.endswith(".icns") or name == "albedo_gzip.fits":
             got["file_sha256"] = entry["file_sha256"]
         if got != entry:
             bad.append((name, got, entry))
@@ -4458,27 +4464,38 @@ def small_runs(torch, tmp):
     BLP2, a DXT1 FTEX, an ICNS of one ic10 PNG entry (whose zlib stream
     another zlib may write differently: its pixels are compared, not its
     bytes), a Sun RLE, a raw Sun, a planar IM and a 256-colour XPM; the
-    512x512 leaf as a DXT5 BLP2 (alpha encoding 7) and as an RGBA IM.
-    (c) The CLI on textured_lit.pbrt with the RLE SGI albedo and the DXT5
-    BLP2 leaf, whose alpha makes the cutouts (textured_swap_cli); (d) the
-    same with the Sun RLE albedo and the RGBA IM leaf. Returns (results,
-    launches of (c) and (d) together)."""
+    512x512 leaf as a DXT5 BLP2 (alpha encoding 7) and as an RGBA IM;
+    part 3's tests/data/small3 (FITS, FLI, IPTC, CMYK and YCCK JPEGs and
+    their BLP1s) the same way, write_small3_textures' albedo as an FLC,
+    a PhotoCD, raw and gzip FITS (pixels compared) and a raw IPTC image,
+    and the committed BLP1 whose JPEG is the albedo as a CMYK JPEG,
+    timed the same way. (c) The CLI on textured_lit.pbrt with the RLE
+    SGI albedo and the DXT5 BLP2 leaf, whose alpha makes the cutouts
+    (textured_swap_cli); (d) the same with the Sun RLE albedo and the
+    RGBA IM leaf; (e) the same with the BLP1-CMYK albedo and the PNG
+    leaf. Returns (results, launches of (c), (d) and (e) together)."""
     from tracerboy_tpu_torch.core.image_io import decode_ldr
     from tracerboy_tpu_torch.utils.demo_scene import (
+        SMALL3_ALBEDO,
         write_small2_textures,
+        write_small3_textures,
         write_small_textures,
     )
 
     set_opt_in()
     results = {"fixtures": fixture_hashes("small", SMALL_DIR, decode_ldr),
                "fixtures2": fixture_hashes("small2", SMALL2_DIR,
+                                           decode_ldr),
+               "fixtures3": fixture_hashes("small3", SMALL3_DIR,
                                            decode_ldr)}
     card = card_line()
     bad = []
     for label, directory, write in (("small", SMALL_DIR,
                                      write_small_textures),
                                     ("small2", SMALL2_DIR,
-                                     write_small2_textures)):
+                                     write_small2_textures),
+                                    ("small3", SMALL3_DIR,
+                                     write_small3_textures)):
         with open(directory / "manifest.json") as f:
             generated = json.load(f)["generated"]
         paths = write(os.path.join(tmp, label))
@@ -4486,11 +4503,17 @@ def small_runs(torch, tmp):
         if label == "small":
             swaps = {"albedo.png": paths["albedo.sgi"],
                      "leaf.png": paths["leaf.blp"]}
-        else:
+        elif label == "small2":
             swaps2 = {"albedo.png": paths["albedo.ras"],
                       "leaf.png": paths["leaf.im"]}
     if bad:
         fail(f"small: written textures differ from the manifest: {bad}")
+    arr = decode_ldr(SMALL3_ALBEDO)
+    results["decode_albedo_blp1_cmyk_blp"] = dict(
+        host_decode(decode_ldr, Path(SMALL3_ALBEDO)), shape=list(arr.shape),
+        card=card)
+    print("small3 decode albedo_blp1_cmyk.blp (host):",
+          json.dumps(results["decode_albedo_blp1_cmyk_blp"]))
     cli_res, launches = textured_swap_cli(torch, tmp, "small", swaps)
     results.update(cli_res)
     t0 = time.perf_counter()
@@ -4498,7 +4521,14 @@ def small_runs(torch, tmp):
     results["small2_cli"] = dict(res2["cli"],
                                  run_s=time.perf_counter() - t0)
     results["small2_kinds"] = res2["kinds"]
-    return results, {k: launches[k] + launches2[k] for k in launches}
+    t0 = time.perf_counter()
+    res3, launches3 = textured_swap_cli(torch, tmp, "small3",
+                                        {"albedo.png": SMALL3_ALBEDO})
+    results["small3_cli"] = dict(res3["cli"],
+                                 run_s=time.perf_counter() - t0)
+    results["small3_kinds"] = res3["kinds"]
+    return results, {k: launches[k] + launches2[k] + launches3[k]
+                     for k in launches}
 
 
 def main() -> int:
@@ -4747,8 +4777,8 @@ def main() -> int:
     lap("avif")
     small_res, small_launches = small_phase(torch)
     small_kinds = {**small_res["kinds"],
-                   **{f"small2_{k}": v
-                      for k, v in small_res["small2_kinds"].items()}}
+                   **{f"{pre}_{k}": v for pre in ("small2", "small3")
+                      for k, v in small_res[f"{pre}_kinds"].items()}}
     lap("small")
     print("phase seconds:", json.dumps(laps))
 
@@ -4887,6 +4917,7 @@ def main() -> int:
                 if key.startswith("decode_")},
              small_cli=small_res["cli"],
              small2_cli=small_res["small2_cli"],
+             small3_cli=small_res["small3_cli"],
              volume_run=vol_res["run"],
              volume_control=vol_res["control"],
              estimators={k: {kk: vv for kk, vv in v.items()

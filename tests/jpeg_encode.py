@@ -7,9 +7,12 @@ quantisation tables, restart interval and JFIF/Adobe markers, so that
 tests/test_torch_jpeg.py can reach the layouts libjpeg accepts beyond
 PIL's (h1v2, 4:1:1, 4x2 luma, ...) and out-of-range coefficients, and hold
 the port's decoder against PIL's reading of the same file. encode_image
-makes the blocks from an RGB or grey image (float YCbCr, box
-downsampling, float DCT). The Huffman tables are flat: every DC category
-a 4-bit code, every AC run/size symbol an 8-bit code.
+makes the blocks from an RGB, CMYK or grey image (float YCbCr, or YCCK
+for a 4-channel image under an Adobe transform other than 0, box
+downsampling, float DCT). Four components are written as any other
+count: with or without an Adobe marker of any transform, and under any
+sampling factors. The Huffman tables are flat: every DC category a 4-bit
+code, every AC run/size symbol an 8-bit code.
 """
 
 from __future__ import annotations
@@ -71,7 +74,7 @@ def encode_coefficients(blocks, width, height, sampling, qtables,
       order, covering the MCU grid (mcu_rows * v, mcus_per_row * h)
       blocks of an interleaved scan (one scan of every component).
     sampling: per component (h, v). qtables: per component 64 quantisers
-      in natural order (1-255). ids: component ids (default 1, 2, 3).
+      in natural order (1-255). ids: component ids (default 1, 2, ...).
     adobe: None, or the APP14 transform flag to write."""
     nc = len(blocks)
     ids = list(ids or range(1, nc + 1))
@@ -156,13 +159,24 @@ def _dct_matrix():
 
 
 def encode_image(img, sampling, qtables, **kwargs):
-    """encode_coefficients of an (H, W, 3) or (H, W) uint8 image: JFIF
+    """encode_coefficients of an (H, W, 3|4) or (H, W) uint8 image: JFIF
     YCbCr (RGB when kwargs asks for adobe=0), each component box-averaged
-    down to its sampling factors, edge-replicated to the MCU grid."""
+    down to its sampling factors, edge-replicated to the MCU grid. A
+    4-channel image is written as its samples (CMYK: no Adobe marker, or
+    transform 0) or as YCCK (another transform): the YCbCr of 255 less
+    C, M and Y, and K."""
     img = np.asarray(img, np.float64)
     H, W = img.shape[:2]
     if img.ndim == 2:
         planes = [img]
+    elif img.shape[2] == 4 and kwargs.get("adobe") in (None, 0):
+        planes = [img[..., k] for k in range(4)]
+    elif img.shape[2] == 4:
+        r, g, b = 255 - img[..., 0], 255 - img[..., 1], 255 - img[..., 2]
+        planes = [0.299 * r + 0.587 * g + 0.114 * b,
+                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+                  0.5 * r - 0.418688 * g - 0.081312 * b + 128,
+                  img[..., 3]]
     elif kwargs.get("adobe") == 0:
         planes = [img[..., k] for k in range(3)]
     else:

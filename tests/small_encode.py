@@ -21,7 +21,15 @@ data, a BLP2 in raw BGRA).
   rows; sun and sun_rle: a Sun raster of any depth, type and colour map,
   and Sun's byte RLE with given run and literal choices; msp_lins: a
   LinS MSP of given rows; pixar, gbr, imt, mcidas, spider, xvthumb and
-  xpm: the headers of those formats over any pixel bytes.
+  xpm: the headers of those formats over any pixel bytes;
+- fits_card and fits: FITS header units of any cards over any data;
+  fits_gzip_words: FitsGzipDecoder's 4-byte words of a sample array;
+- fli_chunk, fli_frame and fli: an FLI/FLC header, frames and chunks of
+  any type and body (fli_colour, fli_brun, fli_lc, fli_ss2 lay out
+  those chunks' packets, fli_brun_packets a line's BRUN packets);
+- iptc_record and iptc: IPTC/NAA fields (extended sizes too) of an image
+  record set;
+- pcd: a PhotoCD of given base-image chunks and orientation byte.
 """
 
 from __future__ import annotations
@@ -463,3 +471,186 @@ def xpm(w: int, h: int, colours: list[tuple[bytes, bytes]],
         lines.append(b"/* pixels */")
     lines += [b'"' + r + b'",' for r in rows]
     return b"\n".join(lines) + b"\n};\n"
+
+
+# ----------------------------------------------------------------------------
+# FITS
+
+
+def fits_card(key: str | bytes, value=None) -> bytes:
+    """One 80-byte card: `key` padded to 8, then "= " and the value
+    right-aligned to 20 (bytes are written as they are)."""
+    card = key.encode() if isinstance(key, str) else key
+    card = card.ljust(8)
+    if value is not None:
+        v = value if isinstance(value, bytes) else str(value).encode()
+        card += b"= " + v.rjust(20)
+    return card.ljust(80)[:80]
+
+
+def fits(units: list[tuple[list, bytes]], pad: bool = True) -> bytes:
+    """FITS units: each a list of cards ((key, value) pairs or raw 80-byte
+    cards), an END card and padding to 2880 bytes, then its data (padded
+    to 2880 bytes with zeros where `pad`)."""
+    out = bytearray()
+    for cards, data in units:
+        head = b"".join(c if isinstance(c, bytes) else fits_card(*c)
+                        for c in cards) + fits_card("END")
+        out += head.ljust(-(-len(head) // 2880) * 2880, b" ")
+        out += data.ljust(-(-len(data) // 2880) * 2880, b"\0") if pad \
+            else data
+    return bytes(out)
+
+
+def fits_gzip_words(samples: np.ndarray, bits: int) -> bytes:
+    """A (H, W) sample array as FitsGzipDecoder reads it before gzip:
+    4-byte words, the sample's min(bits // 8, 4) bytes (little-endian, as
+    PIL's raw modes read them) at the word's end, the rows bottom-up."""
+    keep = max(min(bits // 8, 4), 1)
+    h, w = samples.shape
+    dtype = {1: "u1", 2: "<u2", 4: "<f4" if bits < 0 else "<i4"}[keep]
+    raw = np.ascontiguousarray(samples[::-1]).astype(dtype).view(
+        np.uint8).reshape(h, w, keep)
+    words = np.zeros((h, w, 4), np.uint8)
+    words[..., 4 - keep:] = raw
+    return words.tobytes()
+
+
+# ----------------------------------------------------------------------------
+# FLI
+
+
+def fli_chunk(kind: int, body: bytes, size: int | None = None) -> bytes:
+    return struct.pack("<IH", 6 + len(body) if size is None else size,
+                       kind) + body
+
+
+def fli_frame(chunks: list[bytes], magic: int = 0xF1FA,
+              size: int | None = None, count: int | None = None) -> bytes:
+    body = b"".join(chunks)
+    return struct.pack("<IHH8x", 16 + len(body) if size is None else size,
+                       magic, len(chunks) if count is None else count) + body
+
+
+def fli(w: int, h: int, frames: list[bytes], magic: int = 0xAF12,
+        flags: int = 3, prefix: bytes = b"") -> bytes:
+    """An FLI (0xAF11) or FLC (0xAF12) header, then an optional prefix
+    chunk's bytes, then the frames."""
+    body = prefix + b"".join(frames)
+    head = struct.pack("<IHHHHHHI", 128 + len(body), magic, len(frames), w,
+                       h, 8, flags, 5)
+    return head.ljust(128, b"\0") + body
+
+
+def fli_colour(packets: list[tuple[int, bytes]]) -> bytes:
+    """A COLOR_256/COLOR_64 body: (skip, entry bytes) packets, the count
+    byte 0 for 256 entries."""
+    out = struct.pack("<H", len(packets))
+    for skip, entries in packets:
+        n = len(entries) // 3
+        out += bytes((skip, n & 255)) + entries
+    return out
+
+
+def fli_brun_packets(line: np.ndarray, rng) -> bytes:
+    """One line's BRUN packets, split at random: a run (count, value)
+    where the piece is one value, else a literal (256 - count, bytes)."""
+    out = bytearray()
+    x, w = 0, len(line)
+    while x < w:
+        n = int(rng.integers(1, min(w - x, 127) + 1))
+        piece = line[x:x + n]
+        if (piece == piece[0]).all():
+            out += bytes((n, int(piece[0])))
+        else:
+            out += bytes((256 - n,)) + piece.tobytes()
+        x += n
+    return bytes(out)
+
+
+def fli_brun(idx: np.ndarray, rng) -> bytes:
+    return b"".join(bytes((int(rng.integers(0, 256)),)) + fli_brun_packets(
+        line, rng) for line in idx)
+
+
+def fli_lc(first: int, lines: list[list[tuple]]) -> bytes:
+    """An LC body: the first line, the line count, then each line's
+    packets: (skip, bytes) literals or (skip, count, value) runs."""
+    out = bytearray(struct.pack("<HH", first, len(lines)))
+    for packets in lines:
+        out.append(len(packets) & 255)
+        for p in packets:
+            if len(p) == 2:
+                out += bytes((p[0], len(p[1]))) + p[1]
+            else:
+                out += bytes((p[0], 256 - p[1], p[2]))
+    return bytes(out)
+
+
+def fli_ss2(lines: list[tuple[list[int], list[tuple]]]) -> bytes:
+    """An SS2 body: per line its flag words (0xC000 | ... skips, 0x8000 |
+    byte sets the last byte), then word packets: (skip, bytes) literals
+    of an even length or (skip, count, two bytes) runs."""
+    out = bytearray(struct.pack("<H", len(lines)))
+    for flags, packets in lines:
+        for f in flags:
+            out += struct.pack("<H", f)
+        out += struct.pack("<H", len(packets))
+        for p in packets:
+            if len(p) == 2:
+                out += bytes((p[0], len(p[1]) // 2)) + p[1]
+            else:
+                out += bytes((p[0], 256 - p[1])) + p[2]
+    return bytes(out)
+
+
+# ----------------------------------------------------------------------------
+# IPTC
+
+
+def iptc_record(rec: int, tag: int, data: bytes, extended: int = 0) -> bytes:
+    """One field: 0x1C, record, tag and a 16-bit size, or (extended n) an
+    extended size: 0x80 + n, a byte, then the size in n bytes."""
+    if extended:
+        return bytes((0x1C, rec, tag, 0x80 + extended, 0)) + len(
+            data).to_bytes(extended, "big") + data
+    return bytes((0x1C, rec, tag)) + struct.pack(">H", len(data)) + data
+
+
+def iptc(w: int, h: int, payload: bytes, layers: int = 1,
+         component: int = 0, compression: int = 1, band: int | None = None,
+         pieces: int = 1, extra: bytes = b"") -> bytes:
+    """IPTC fields of an image: (3, 60) layers and component, the size
+    (4 bytes each), compression, an optional (3, 65) band byte, any
+    extra fields, then the payload in `pieces` (8, 10) records."""
+    out = (iptc_record(3, 60, bytes((layers, component)))
+           + iptc_record(3, 20, struct.pack(">I", w))
+           + iptc_record(3, 30, struct.pack(">I", h))
+           + iptc_record(3, 120, bytes((compression,))))
+    if band is not None:
+        out += iptc_record(3, 65, bytes((band,)))
+    out += extra
+    step = -(-len(payload) // pieces) or 1
+    return out + b"".join(iptc_record(8, 10, payload[k:k + step])
+                          for k in range(0, max(len(payload), 1), step))
+
+
+# ----------------------------------------------------------------------------
+# PCD
+
+
+def pcd(chunks: bytes, orientation: int = 0) -> bytes:
+    """A PhotoCD: "PCD_" at 2048, the orientation byte at 2048 + 1538,
+    the base image's chunks at sector 96."""
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    return bytes(head) + chunks
+
+
+def gzip_bytes(data: bytes) -> bytes:
+    """gzip of `data` with a zero mtime (the same bytes on each run with
+    one zlib)."""
+    import gzip
+
+    return gzip.compress(data, 6, mtime=0)

@@ -205,15 +205,20 @@ def _drop_last_scans(data: bytes, keep: int) -> bytes:
             return data[:pos] + b"\xff\xd9"
 
 
-@pytest.mark.parametrize("kind", ["cmyk", "arithmetic", "lossless",
-                                  "hierarchical", "incomplete"])
+def test_cmyk_variant_reads_as_pil():
+    """A CMYK JPEG as PIL saves it (Adobe transform 0), once refused as
+    out of scope, decodes to PIL's pixels (tests/test_torch_jpeg_cmyk.py
+    covers YCCK, sampling and BLP1)."""
+    b = io.BytesIO()
+    Image.fromarray(small_image(8)).convert("CMYK").save(b, "JPEG")
+    assert np.array_equal(decode_jpeg(b.getvalue()), pil_rgb(b.getvalue()))
+
+
+@pytest.mark.parametrize("kind", ["arithmetic", "lossless", "hierarchical",
+                                  "incomplete"])
 def test_out_of_scope_variants_raise(kind):
     img = small_image(8)
-    if kind == "cmyk":
-        b = io.BytesIO()
-        Image.fromarray(img).convert("CMYK").save(b, "JPEG")
-        data = b.getvalue()
-    elif kind == "incomplete":
+    if kind == "incomplete":
         data = _drop_last_scans(pil_bytes(img, progressive=True), 3)
         pil_rgb(data)      # PIL reads it, block-smoothed
     else:

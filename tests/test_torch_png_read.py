@@ -128,12 +128,25 @@ def _good_file():
 
 
 def test_truncated_file_is_refused(tmp_path):
+    """A file cut short in its image data is refused (ValueError); one
+    cut in a chunk header or CRC before the first IDAT is not
+    identified, as PIL's PNG plugin gives it up (NotImplementedError,
+    PIL's UnidentifiedImageError), and one cut in the IHDR chunk's body
+    is refused as PIL's Truncated File Read."""
+    from test_torch_small_sgi_pcx import assert_as_jax
+
     data = _good_file()
-    for cut in (len(data) - 12, len(data) // 2, 40):
+    for cut in (len(data) - 12, len(data) // 2):
         p = tmp_path / f"cut{cut}.png"
         p.write_bytes(data[:cut])
         with pytest.raises(ValueError, match="truncated"):
             image_io.read_ldr(str(p))
+    for cut in (40, 30, 20, 12):
+        assert assert_as_jax(tmp_path / f"cut{cut}.png", data[:cut]) is None
+    with pytest.raises(NotImplementedError):
+        image_io.read_ldr(str(tmp_path / "cut40.png"))
+    with pytest.raises(ValueError):
+        image_io.read_ldr(str(tmp_path / "cut20.png"))
 
 
 def test_bad_crc_is_refused(tmp_path):

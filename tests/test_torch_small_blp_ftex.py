@@ -84,22 +84,23 @@ def test_ftex_sweep(scratch, seed, w, h, fmt, cut):
 
 @settings(max_examples=20, deadline=None)
 @given(seed=st.integers(0, 2**32 - 1), w=st.integers(1, 40),
-       h=st.integers(1, 40), grey=st.booleans(), alpha=st.booleans(),
-       split=st.integers(0, 3), size=st.sampled_from(["same", "larger",
-                                                       "smaller"]))
-def test_blp1_jpeg_sweep(scratch, seed, w, h, grey, alpha, split, size):
-    """BLP1 JPEGs: the shared header cut at each marker boundary, grey
-    and colour, with and without alpha, the BLP size equal to, smaller
-    and larger than the JPEG's (PIL lays the JPEG's pixels out at the
-    BLP's size)."""
+       h=st.integers(1, 40), mode=st.sampled_from(["L", "RGB", "CMYK"]),
+       alpha=st.booleans(), split=st.integers(0, 3),
+       size=st.sampled_from(["same", "larger", "smaller"]))
+def test_blp1_jpeg_sweep(scratch, seed, w, h, mode, alpha, split, size):
+    """BLP1 JPEGs: the shared header cut at each marker boundary, grey,
+    colour and CMYK (PIL's save: Adobe transform 0), with and without
+    alpha, the BLP size equal to, smaller and larger than the JPEG's
+    (PIL lays the JPEG's pixels out at the BLP's size)."""
     import io
 
     from PIL import Image
 
     rng = np.random.default_rng(seed)
-    img = Image.fromarray(texture(rng, h, w, 3))
+    img = Image.fromarray(texture(rng, h, w, 4 if mode == "CMYK" else 3),
+                          "CMYK" if mode == "CMYK" else "RGB")
     buf = io.BytesIO()
-    (img.convert("L") if grey else img).save(buf, "JPEG", quality=85)
+    img.convert(mode).save(buf, "JPEG", quality=85)
     jpeg = buf.getvalue()
     cuts = [k for k in range(2, len(jpeg) - 1)
             if jpeg[k] == 0xFF and jpeg[k + 1] not in (0, 0xFF)]

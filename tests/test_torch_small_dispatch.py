@@ -3,10 +3,11 @@ reader table (image_io.readers()) names PIL 12.1's formats in the order
 Image.open tries them (preinit's plugins, then the rest of Image.ID after
 init), each ported format's test is PIL's _accept on the file's first
 16 bytes, and files that two plugins accept reach the same reader in both
-packages (or the same refusal). A file that one of PIL's plugins the port
-has not ported (FITS, FLI, IPTC, PCD) identifies raises NotImplementedError
-naming ROADMAP item 22b; one that a stub plugin or EPS (no Ghostscript)
-identifies is refused as PIL refuses it.
+packages (or the same refusal). Every plugin PIL opens files with has its
+reader (FITS, FLI, IPTC and PCD, PIL's small formats part 3, the last);
+a file that a stub plugin or EPS (no Ghostscript) identifies is refused
+as PIL refuses it, and one that no plugin identifies raises
+NotImplementedError, PIL's UnidentifiedImageError.
 """
 
 import glob
@@ -53,10 +54,10 @@ def _pil_accept(name: str, data: bytes) -> bool | None:
         return False
 
 
-# The ported formats whose test is PIL's own _accept, and the unported
-# ones whose predicate is only that.
+# The formats whose test is PIL's own _accept.
 ACCEPT_ONLY = ("BMP", "DIB", "GIF", "JPEG", "PPM", "PNG", "AVIF", "BLP",
-               "BUFR", "CUR", "PCX", "DCX", "DDS", "EPS", "FITS", "FTEX",
+               "BUFR", "CUR", "PCX", "DCX", "DDS", "EPS", "FITS", "FLI",
+               "FTEX",
                "GBR", "GRIB", "HDF5", "JPEG2000", "ICNS", "ICO", "MCIDAS",
                "MPEG", "TIFF", "MSP", "PIXAR", "PSD", "QOI", "SGI", "SUN",
                "WEBP", "WMF", "XBM", "XPM", "XVTHUMB")
@@ -144,33 +145,6 @@ def _pil_saved(fmt, mode, **kw):
     return buf.getvalue()
 
 
-def _ported_now():
-    """Files of the formats PIL's small formats part 2 ported, as the
-    item-22b test wrote them before."""
-    sun = struct.pack(">8I", 0x59A66A95, 4, 2, 8, 8, 1, 0, 0) + bytes(8)
-    xpm = (b'/* XPM */\nstatic char *x[] = {\n"2 1 1 1",\n"a c #ff0000",\n'
-           b'"aa"\n};\n')
-    return {
-        "IM": _pil_saved("IM", "RGB"),
-        "MSP": _pil_saved("MSP", "1"),
-        "XBM": _pil_saved("XBM", "1"),
-        "SPIDER": _pil_saved("SPIDER", "F"),
-        "SUN": sun,
-        "XPM": xpm,
-    }
-
-
-@pytest.mark.parametrize("fmt", sorted(_ported_now()))
-def test_formats_ported_from_item_22b_read_as_jax(tmp_path, fmt):
-    """PIL identifies the file as `fmt`; the port, which now reads it,
-    gives the JAX read_ldr's pixels."""
-    path = tmp_path / f"x.{fmt.lower()}"
-    path.write_bytes(_ported_now()[fmt])
-    with Image.open(path) as im:
-        assert im.format == fmt
-    assert assert_as_jax(path) is not None
-
-
 def _fli(w=6, h=4):
     """An FLI of one frame: a COLOR_64 chunk of 256 entries and a COPY
     chunk of w x h indices."""
@@ -206,7 +180,7 @@ def _pcd():
     return bytes(data)
 
 
-def _unported():
+def _part3():
     cards = [b"SIMPLE  = T", b"BITPIX  = 8", b"NAXIS   = 2",
              b"NAXIS1  = 2", b"NAXIS2  = 1", b"END"]
     fits = b"".join(c.replace(b"= ", b"=" + b" " * 20).ljust(80)
@@ -214,18 +188,32 @@ def _unported():
     return {"FITS": fits, "FLI": _fli(), "IPTC": _iptc(), "PCD": _pcd()}
 
 
-@pytest.mark.parametrize("fmt", sorted(_unported()))
-def test_unported_formats_name_item_22b(tmp_path, fmt):
-    """PIL identifies the file as `fmt` and the JAX read_ldr reads it;
-    the port, which does not read it, raises NotImplementedError naming
-    item 22b (and that format)."""
+def _ported_now():
+    """Files of the formats PIL's small formats parts 2 and 3 ported, as
+    the item-22b test wrote them before."""
+    sun = struct.pack(">8I", 0x59A66A95, 4, 2, 8, 8, 1, 0, 0) + bytes(8)
+    xpm = (b'/* XPM */\nstatic char *x[] = {\n"2 1 1 1",\n"a c #ff0000",\n'
+           b'"aa"\n};\n')
+    return {
+        "IM": _pil_saved("IM", "RGB"),
+        "MSP": _pil_saved("MSP", "1"),
+        "XBM": _pil_saved("XBM", "1"),
+        "SPIDER": _pil_saved("SPIDER", "F"),
+        "SUN": sun,
+        "XPM": xpm,
+        **_part3(),
+    }
+
+
+@pytest.mark.parametrize("fmt", sorted(_ported_now()))
+def test_formats_ported_from_item_22b_read_as_jax(tmp_path, fmt):
+    """PIL identifies the file as `fmt`; the port, which now reads it,
+    gives the JAX read_ldr's pixels."""
     path = tmp_path / f"x.{fmt.lower()}"
-    path.write_bytes(_unported()[fmt])
+    path.write_bytes(_ported_now()[fmt])
     with Image.open(path) as im:
         assert im.format == fmt
-    assert jax_read_ldr(path).ndim == 3
-    with pytest.raises(NotImplementedError, match=f"{fmt}.*item 22b"):
-        image_io.decode_ldr(str(path))
+    assert assert_as_jax(path) is not None
 
 
 def _wmf(kind=WMF_PLACEABLE, inch=1440, box=(0, 0, 200, 100), std=True):
@@ -322,13 +310,18 @@ def test_stub_formats_refuse_as_pil_refuses(tmp_path, case):
 
 
 def test_unidentified_names_what_is_left(tmp_path):
-    """A file no plugin takes raises NotImplementedError naming item 22b
-    and only the formats still left (FITS, FLI, IPTC, PCD)."""
+    """A file no plugin takes raises NotImplementedError that says only
+    that, as PIL's UnidentifiedImageError does: no format is left to
+    name (the JAX read_ldr raises UnidentifiedImageError on it)."""
     path = tmp_path / "junk.bin"
     path.write_bytes(b"\x7f" * 40)
-    with pytest.raises(NotImplementedError, match="item 22b") as e:
+    with pytest.raises(UnidentifiedImageError):
+        jax_read_ldr(path)
+    with pytest.raises(NotImplementedError, match="cannot identify") as e:
         image_io.decode_ldr(str(path))
+    assert "item" not in str(e.value)
     for done in ("SGI", "PCX", "DCX", "CUR", "ICNS", "BLP", "FTEX", "IM",
                  "MSP", "SUN", "XBM", "XPM", "EPS", "GBR", "IMT", "MCIDAS",
-                 "PIXAR", "SPIDER", "XVTHUMB"):
+                 "PIXAR", "SPIDER", "XVTHUMB", "FITS", "FLI", "IPTC",
+                 "PCD"):
         assert done not in str(e.value)

@@ -134,9 +134,8 @@ def test_gamma_and_texture_dispatch(tmp_path):
 
 def test_formats_are_known_by_their_headers(tmp_path):
     """A TGA named .png, a BMP named .tga, a JPEG named .bmp and an IM
-    named .bin decode by content as the JAX read_ldr decodes them; a
-    format the port does not read (FITS) raises NotImplementedError
-    naming item 22b."""
+    named .bin decode by content as the JAX read_ldr decodes them, and
+    so does a FITS named .bin (PIL's small formats part 3)."""
     tga = tmp_path / "is_tga.png"
     pil_image("RGB").save(tmp_path / "x.tga")
     tga.write_bytes((tmp_path / "x.tga").read_bytes())
@@ -157,5 +156,4 @@ def test_formats_are_known_by_their_headers(tmp_path):
     fits = b"".join(c.replace(b"= ", b"=" + b" " * 20).ljust(80)
                     for c in cards).ljust(2880) + bytes(2880)
     (tmp_path / "fits.bin").write_bytes(fits)
-    with pytest.raises(NotImplementedError, match="item 22b"):
-        tio.read_ldr(str(tmp_path / "fits.bin"))
+    same_as_jax(tmp_path / "fits.bin")

@@ -15,13 +15,13 @@ and 15), ALPH chunks of both methods under every filter, animations
 whose first frame lies inside a larger canvas, truncated files and
 corrupted bitstreams. Where PIL refuses a file the port raises:
 ValueError where PIL raises OSError, ValueError, EOFError, KeyError or
-IndexError, NotImplementedError where PIL cannot identify it. FITS files,
-which PIL reads, raise NotImplementedError naming ROADMAP item 22b; AVIF
-files as Pillow saves them by default (the in-loop filters on), with the
-filters off, with film grain and with the matrix coefficients libavif
-converts in its own float path (core/avif.py, tests/test_torch_avif.py)
-and JPEG 2000 files read as the JAX read_ldr reads them
-(core/jpeg2000.py, tests/test_torch_jpeg2000.py). A PBRT scene whose albedo and leaf are
+IndexError, NotImplementedError where PIL cannot identify it. FITS files
+(PIL's small formats part 3), AVIF files as Pillow saves them by default
+(the in-loop filters on), with the filters off, with film grain and with
+the matrix coefficients libavif converts in its own float path
+(core/avif.py, tests/test_torch_avif.py) and JPEG 2000 files read as the
+JAX read_ldr reads them (core/jpeg2000.py, tests/test_torch_jpeg2000.py).
+A PBRT scene whose albedo and leaf are
 WebPs and whose environment map is a QOI compiles in both packages to the
 same leaves, bit for bit.
 """
@@ -49,7 +49,6 @@ torch.set_num_threads(2)
 with open(os.path.join(FIXTURE_DIR, "manifest.json")) as f:
     MANIFEST = json.load(f)
 WEBP_FIXTURES = sorted(n for n in MANIFEST["files"] if n.endswith(".webp"))
-ITEM = "item 22b"
 
 
 @pytest.fixture(scope="module")
@@ -340,9 +339,8 @@ def test_alpha_stream_cut_short(scratch, seed, quality, alpha_quality,
 
 
 def test_unported_formats_name_item_22b(tmp_path):
-    """A FITS image, which PIL reads (the JAX read_ldr renders it), is not
-    ported yet: NotImplementedError naming ROADMAP item 22b; an IM image
-    reads as the JAX read_ldr reads it. AVIF whose
+    """A FITS image (PIL's small formats part 3) and an IM image read as
+    the JAX read_ldr reads them. AVIF whose
     colr box names matrix coefficients 4 (FCC), which libavif converts
     in its own float path, AVIF as Pillow saves it by default (the
     in-loop filters on), with film grain (aom's film-grain-test) and
@@ -361,8 +359,7 @@ def test_unported_formats_name_item_22b(tmp_path):
     path = tmp_path / "x.fits"
     path.write_bytes(fits)
     assert jax_read_ldr(path).shape == (4, 4, 3)
-    with pytest.raises(NotImplementedError, match=ITEM):
-        image_io.read_ldr(str(path))
+    assert np.array_equal(image_io.read_ldr(str(path)), jax_read_ldr(path))
     path = tmp_path / "x.avif"
     path.write_bytes(ae.set_nclx(ae.pil_default(img), mc=4))
     assert np.array_equal(image_io.read_ldr(str(path)), jax_read_ldr(path))

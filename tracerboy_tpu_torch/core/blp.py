@@ -7,7 +7,10 @@ read, as PIL reads it:
 - BLP1, compression 0: a JPEG; the shared header (its size at byte 156)
   is put in front of the mipmap (at offsets[0], lengths[0] bytes) and
   the whole decoded by core/jpeg.py; PIL hands its RGB bytes to the
-  image as BGR, so red and blue change places (grey stays grey);
+  image as BGR, so red and blue change places (grey stays grey); a
+  4-component JPEG is read as CMYK whatever its Adobe marker says (PIL
+  sets the decoder's JPEG colour space to CMYK, so a YCCK file's
+  samples are not converted), then as a plain CMYK JPEG;
 - BLP1, compression 1, encoding 4 or 5: the 256-entry BGRA palette after
   the mipmap tables, then lengths[0] index bytes read straight after the
   palette (offsets[0] is not looked at);
@@ -29,9 +32,7 @@ struct.error (a header cut short) or a side of 0 (passing the file on);
 NotImplementedError (PIL's BLPFormatError) for the encodings and
 compressions PIL does not decode, BLP2's raw BGRA (encoding 3) among
 them; ValueError where PIL raises otherwise (a file cut short in the
-tables, palette or mipmap, too few pixels, a broken JPEG). A CMYK JPEG
-inside a BLP1 raises NotImplementedError (core/jpeg.py's UNSUPPORTED) where
-PIL reads it.
+tables, palette or mipmap, too few pixels, a broken JPEG).
 
 encode_dxt writes DXT1 or DXT5 blocks (each block's colour endpoints its
 darkest and brightest texels, each texel the nearest of the four colours
@@ -226,14 +227,18 @@ def read_blp(data: bytes, path: str = "<blp>") -> np.ndarray:
 
 
 def _blp1_jpeg(data, s: _Stream, offsets, lengths, h, path) -> np.ndarray:
-    from tracerboy_tpu_torch.core.jpeg import decode_jpeg
+    """BLP1Decoder._decode_jpeg_stream: the JPEG's RGB (a 4-component
+    one's colour space forced to CMYK), laid out as BGR."""
+    from tracerboy_tpu_torch.core.jpeg import decode_jpeg, frame_header
 
     (header_size,) = struct.unpack("<I", s.read(4))
     header = s.read(header_size)
     s.read(offsets[0] - s.pos)
     jpeg = header + s.read(lengths[0])
     try:
-        rgb = decode_jpeg(jpeg, path)
+        head = frame_header(jpeg, path)
+        cmyk = head is not None and len(head[3]) == 4
+        rgb = decode_jpeg(jpeg, path, color=3 if cmyk else None)
     except OSError as e:                # core/jpeg.py's corrupt data
         raise ValueError(str(e)) from None
     check_image_size(rgb.shape[1], rgb.shape[0], path)

@@ -17,8 +17,9 @@ ctypes:
   result;
 - small_library(): csrc/small_decode.cpp (PCX run lengths, SGI RLE rows,
   ICNS RLE channels, Sun RLE, MSP LinS rows, XBM hex bytes, IM's packed
-  float samples), for core/pcx.py, core/sgi.py, core/icns.py,
-  core/sun.py, core/msp.py, core/xbm.py and core/im.py;
+  float samples, FLI frames), for core/pcx.py, core/sgi.py,
+  core/icns.py, core/sun.py, core/msp.py, core/xbm.py, core/im.py and
+  core/fli.py;
 - av1_library(): csrc/av1_decode.cpp (an AV1 intra frame's OBUs to its
   planes, with csrc/av1_tables.inc, its in-loop filters in
   csrc/av1_filters.inc and its film grain in csrc/av1_grain.inc, and
@@ -128,4 +129,5 @@ def small_library():
         ("tb_sun_rle_decode", [p, i64, p, i64, i64]),
         ("tb_msp_decode", [p, i64, p, i64, i64, p, i64]),
         ("tb_xbm_decode", [p, i64, p, i64, i64]),
-        ("tb_bit_decode", [p, i64, p, i64, i64, i64])))
+        ("tb_bit_decode", [p, i64, p, i64, i64, i64]),
+        ("tb_fli_decode", [p, i64, p, i64, i64, p])))

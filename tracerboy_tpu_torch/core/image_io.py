@@ -55,13 +55,13 @@ Formats:
   (core/blp.py), ICNS (core/icns.py), IM (core/im.py), Sun raster
   (core/sun.py), XBM (core/xbm.py), XPM (core/xpm.py), MSP
   (core/msp.py), PIXAR, GBR, IMT, McIdas, SPIDER and XVThumb
-  (core/rawformats.py), their RLE, hex and bit loops in
-  csrc/small_decode.cpp; PIL's pixels bit for bit. decode_ldr tries
-  every reader in PIL's Image.open order (readers()); PIL's stub plugins
-  (BUFR, GRIB, HDF5, MPEG, WMF: core/stubs.py) and EPS (core/eps.py:
-  rendered only by Ghostscript) are refused as PIL refuses them, and its
-  other formats (FITS, FLI, IPTC, PCD: core/unported.py) raise
-  NotImplementedError (ROADMAP item 22b).
+  (core/rawformats.py), FITS (core/fits.py), FLI (core/fli.py), IPTC
+  (core/iptc.py) and PCD (core/pcd.py), their RLE, hex, bit and FLI
+  chunk loops in csrc/small_decode.cpp; PIL's pixels bit for bit.
+  decode_ldr tries every reader in PIL's Image.open order (readers());
+  PIL's stub plugins (BUFR, GRIB, HDF5, MPEG, WMF: core/stubs.py) and
+  EPS (core/eps.py: rendered only by Ghostscript) are refused as PIL
+  refuses them.
 - Radiance HDR (RGBE, RLE): from the published file format spec.
 - PFM: trivial float format (the reference renames .pfm -> .hdr as a hack;
   we read it natively).
@@ -73,6 +73,7 @@ Formats:
 from __future__ import annotations
 
 import os
+import re
 import struct
 import zlib
 
@@ -121,35 +122,34 @@ def decode_ldr(path: str) -> np.ndarray:
     core/rawformats.py; BUFR, GRIB, HDF5, MPEG and WMF: core/stubs.py,
     refused, as PIL has no loader for them; EPS: core/eps.py, refused
     where PIL identifies it, as PIL renders it only through
-    Ghostscript).
-    The readers are tried in PIL's order (READERS); a reader that cannot
-    identify the file passes it on, as PIL's SyntaxError does, and a file
-    that one of PIL's plugins the port has not ported (FITS, FLI, IPTC,
-    PCD) would take raises NotImplementedError (ROADMAP item 22b)."""
+    Ghostscript;
+    FITS: core/fits.py, raw and gzip tiles, PIL's little-endian raw modes
+    on its big-endian samples; FLI: core/fli.py, the first frame; IPTC:
+    core/iptc.py, raw or any file Image.open takes, a band merged; PCD:
+    core/pcd.py, the base image, rotated).
+    The readers are tried in PIL's order (readers()); a reader that
+    cannot identify the file passes it on, as PIL's SyntaxError does, and
+    a file no reader identifies raises NotImplementedError, as PIL raises
+    UnidentifiedImageError."""
     with open(path, "rb") as f:
         data = f.read()
+    return decode_named(data, path)[1]
+
+
+def decode_named(data: bytes, path: str = "<bytes>"):
+    """decode_ldr on a file's bytes: (the format PIL's Image.open would
+    read it as, its pixels)."""
     unidentified = None
     for name, accepts, read in readers():
         if not accepts(data):
             continue
-        if read is None:
-            raise NotImplementedError(
-                f"{path}: PIL reads this file as {name}, which the port "
-                f"does not read: {SMALL_FORMATS_ITEM}")
         try:
-            return read(data, path)
+            return name, read(data, path)
         except UnidentifiedImageError as e:   # PIL tries the next
             unidentified = unidentified or e
-    if unidentified is not None:
-        raise unidentified
-    raise NotImplementedError(
-        f"{path}: no reader of the port nor of PIL takes this file "
-        f"(PIL's UnidentifiedImageError; {SMALL_FORMATS_ITEM})")
+    raise UnidentifiedImageError(f"{path}: cannot identify image file") \
+        from unidentified
 
-
-SMALL_FORMATS_ITEM = (
-    "ROADMAP.md, Queue 1: item 22b, PIL's formats the port does not read "
-    "(FITS, FLI, IPTC and PCD)")
 
 _READERS = None
 
@@ -157,11 +157,11 @@ _READERS = None
 def readers():
     """PIL 12.1's Image.open order as (format, accepts, read) triples:
     the plugins preinit() registers (BMP, DIB, GIF, JPEG, PPM, PNG), then
-    the rest in Image.ID's order after init(). read is the port's reader
-    of the format, None for a format the port does not read (accepts then
-    says whether PIL's plugin would identify the file: core/unported.py).
-    TGA, which has no signature, is taken where its header fields are
-    ones PIL's plugin reads."""
+    the rest in Image.ID's order after init(). accepts is the plugin's
+    _accept where it has one (PCD, which has none, takes _open's check;
+    IPTC, neither: its reader identifies the file), read the port's
+    reader of the format. TGA, which has no signature, is taken where
+    its header fields are ones PIL's plugin reads."""
     global _READERS
     if _READERS is None:
         from tracerboy_tpu_torch.core import (
@@ -169,13 +169,17 @@ def readers():
             blp,
             dds,
             eps,
+            fits,
+            fli,
             ftex,
             gif,
             icns,
             ico,
             im,
+            iptc,
             jpeg2000,
             msp,
+            pcd,
             pcx,
             pnm,
             psd,
@@ -185,7 +189,6 @@ def readers():
             stubs,
             sun,
             tiff,
-            unported,
             webp,
             xbm,
             xpm,
@@ -198,8 +201,7 @@ def readers():
             ("GIF", gif.is_gif, gif.read_gif),
             ("JPEG", lambda d: d.startswith(b"\xff\xd8\xff"), decode_jpeg),
             ("PPM", pnm.is_pnm, pnm.read_pnm),
-            ("PNG", lambda d: d.startswith(PNG_SIGNATURE),
-             lambda d, p: png_to_8bit(*decode_png(d, p))),
+            ("PNG", lambda d: d.startswith(PNG_SIGNATURE), read_png_file),
             ("AVIF", avif.is_avif, avif.read_avif),
             ("BLP", blp.is_blp, blp.read_blp),
             ("BUFR", stubs.is_bufr, stubs.read_bufr),
@@ -208,8 +210,8 @@ def readers():
             ("DCX", pcx.is_dcx, pcx.read_dcx),
             ("DDS", lambda d: d.startswith(DDS_MAGIC), dds.read_dds),
             ("EPS", eps.is_eps, eps.read_eps),
-            ("FITS", unported.fits, None),
-            ("FLI", unported.fli, None),
+            ("FITS", fits.is_fits, fits.read_fits),
+            ("FLI", fli.is_fli, fli.read_fli),
             ("FTEX", ftex.is_ftex, ftex.read_ftex),
             ("GBR", rawformats.is_gbr, rawformats.read_gbr),
             ("GRIB", stubs.is_grib, stubs.read_grib),
@@ -219,12 +221,12 @@ def readers():
             ("ICO", ico.is_ico, ico.read_ico),
             ("IM", im.is_im, im.read_im),
             ("IMT", rawformats.is_imt, rawformats.read_imt),
-            ("IPTC", unported.iptc, None),
+            ("IPTC", lambda d: True, iptc.read_iptc),
             ("MCIDAS", rawformats.is_mcidas, rawformats.read_mcidas),
             ("MPEG", stubs.is_mpeg, stubs.read_mpeg),
             ("TIFF", tiff.is_tiff, tiff.read_tiff),
             ("MSP", msp.is_msp, msp.read_msp),
-            ("PCD", unported.pcd, None),
+            ("PCD", pcd.is_pcd, pcd.read_pcd),
             ("PIXAR", rawformats.is_pixar, rawformats.read_pixar),
             ("PSD", psd.is_psd, psd.read_psd),
             ("QOI", qoi.is_qoi, qoi.read_qoi),
@@ -396,6 +398,40 @@ def decode_png(data: bytes, path: str = "<png>"):
                 ph, rowbytes * per)
         out[y0::dy, x0::dx] = s[:, :pw * chans].reshape(ph, pw, chans)
     return out, ctype, depth, palette
+
+
+_CHUNK_TYPE = re.compile(rb"\w\w\w\w")
+
+
+def read_png_file(data: bytes, path: str = "<png>") -> np.ndarray:
+    """A PNG file as the JAX read_ldr gets it through PIL: PngImageFile's
+    _open walks the chunks up to the first IDAT, and gives a file up
+    (PIL's SyntaxError or struct.error: UnidentifiedImageError here, the
+    file passed on) where a chunk's header or CRC is cut short, its type
+    is not four word characters or its CRC does not match; a chunk's body
+    cut short there is refused (PIL's OSError: ValueError). Then
+    png_to_8bit of decode_png."""
+    pos = len(PNG_SIGNATURE)
+    while True:
+        head = data[pos:pos + 8]
+        if len(head) < 8 or not _CHUNK_TYPE.match(head[4:]):
+            raise UnidentifiedImageError(f"{path}: cannot identify image "
+                                         "file (broken PNG chunk header)")
+        (n,) = struct.unpack_from(">I", head)
+        if head[4:] == b"IDAT":
+            break
+        body = data[pos + 8:pos + 8 + n]
+        if len(body) < n:
+            raise ValueError(f"{path}: truncated PNG ({head[4:]!r} chunk "
+                             "cut short: Truncated File Read)")
+        crc = data[pos + 8 + n:pos + 12 + n]
+        if len(crc) < 4 or struct.unpack(">I", crc)[0] != zlib.crc32(
+                head[4:] + body) & 0xFFFFFFFF:
+            raise UnidentifiedImageError(f"{path}: cannot identify image "
+                                         f"file (broken PNG: {head[4:]!r} "
+                                         "checksum)")
+        pos += 12 + n
+    return png_to_8bit(*decode_png(data, path))
 
 
 def png_to_8bit(samples, ctype, depth, palette) -> np.ndarray:

@@ -14,17 +14,23 @@ tables from one datastream to the next), and libtiff, not the markers,
 chooses the colour transform (decode_jpeg's `color`).
 
 Read: baseline and extended sequential and progressive Huffman files of
-8-bit samples, 1 component (grey) or 3 (YCbCr or RGB, chosen by the JFIF,
-Adobe and component-id rules of libjpeg's default_decompress_parms), any
-integral sampling factors, restart intervals. EXIF orientation is not
-applied (PIL's Image.open does not apply it). The variants that texture
-tools do not write raise NotImplementedError naming their ROADMAP.md item:
-4-component CMYK/YCCK, arithmetic coding, 12-bit samples, lossless and
-hierarchical files, progressive files whose scans leave one of the first
-10 coefficients incomplete (libjpeg smooths those blocks, jdcoefct.c),
-and coefficients beyond the 16-bit range of the SIMD IDCT PIL runs (no
-8-bit encoder writes them; csrc/jpeg_decode.cpp kMaxDequant). Truncated or
-corrupt data raises OSError, as PIL's load does.
+8-bit samples, 1 component (grey), 3 (YCbCr or RGB, chosen by the JFIF,
+Adobe and component-id rules of libjpeg's default_decompress_parms) or 4
+(CMYK, or YCCK where an Adobe marker's transform is not 0: libjpeg
+hands PIL CMYK either way), any integral sampling factors, restart
+intervals. A 4-component file is read as PIL reads it, its samples
+inverted (the CMYK;I raw mode) and converted to RGB; a BLP1 texture's
+JPEG is read as CMYK whatever its Adobe marker says (decode_jpeg's
+`color` 3: PIL's BLP plugin sets the JPEG's colour space to CMYK).
+EXIF orientation is not applied (PIL's Image.open does not apply it).
+The variants that texture tools do not write raise NotImplementedError
+naming their ROADMAP.md item: arithmetic coding, 12-bit samples,
+lossless and hierarchical files, progressive files whose scans leave one
+of the first 10 coefficients incomplete (libjpeg smooths those blocks,
+jdcoefct.c), and coefficients beyond the 16-bit range of the SIMD IDCT
+PIL runs (no 8-bit encoder writes them; csrc/jpeg_decode.cpp
+kMaxDequant). Truncated or corrupt data raises OSError, as PIL's load
+does.
 """
 
 from __future__ import annotations
@@ -99,9 +105,7 @@ class _Frame:
         prec, self.H, self.W, nc = struct.unpack_from(">BHHB", seg)
         if prec != 8:
             raise _unsupported(path, f"{prec}-bit")
-        if nc == 4:
-            raise _unsupported(path, "4-component (CMYK/YCCK)")
-        if nc not in (1, 3):
+        if nc not in (1, 3, 4):
             raise _unsupported(path, f"{nc}-component")
         if self.W == 0 or self.H == 0 or len(seg) < 6 + 3 * nc:
             raise _corrupt(path, "bad SOF segment")
@@ -311,9 +315,11 @@ def decode_jpeg(data: bytes, path: str = "<bytes>", tables=None,
                 color=None) -> np.ndarray:
     """Decode a JPEG file's bytes to (H, W, 3) uint8 RGB: what
     np.asarray(Image.open(path).convert("RGB")) gives (a grey file is
-    replicated to RGB). tables: a JpegTables the datastream reads its
-    tables from and leaves its own in; color: the transform to apply
-    whatever the markers say (0 grey, 1 YCbCr to RGB, 2 none)."""
+    replicated to RGB, a 4-component one inverted and converted from
+    CMYK). tables: a JpegTables the datastream reads its tables from and
+    leaves its own in; color: the transform to apply whatever the
+    markers say (0 grey, 1 YCbCr to RGB, 2 none; for 4 components 3
+    CMYK, 4 YCCK to CMYK)."""
     import ctypes
 
     if not data.startswith(b"\xff\xd8"):
@@ -367,13 +373,15 @@ def decode_jpeg(data: bytes, path: str = "<bytes>", tables=None,
     if color is None:         # jdapimin.c default_decompress_parms
         if nc == 1:
             color = 0
+        elif nc == 4:         # CMYK; YCCK for any Adobe transform but 0
+            color = 3 if adobe in (None, 0) else 4
         elif jfif:
             color = 1
         elif adobe is not None:
             color = 2 if adobe == 0 else 1
         else:
             color = 2 if frame.ids == [82, 71, 66] else 1
-    out = np.empty((frame.H, frame.W, 3), np.uint8)
+    out = np.empty((frame.H, frame.W, 4 if color >= 3 else 3), np.uint8)
     geom = np.array(frame.geom, np.int64)
     quant = np.ascontiguousarray(np.stack(frame.quant), np.uint16)
     msg = ctypes.create_string_buffer(256)
@@ -384,6 +392,10 @@ def decode_jpeg(data: bytes, path: str = "<bytes>", tables=None,
         raise _corrupt(path, msg.value.decode())
     if err:
         raise _unsupported(path, msg.value.decode())
+    if out.shape[2] == 4:     # PIL's CMYK;I raw mode, then convert("RGB")
+        from tracerboy_tpu_torch.core.image_io import as_read_ldr
+
+        return as_read_ldr(255 - out, "CMYK")
     return out
 
 

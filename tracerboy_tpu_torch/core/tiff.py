@@ -739,6 +739,9 @@ def _jpeg_segment(raw, need, path, seg):
         if len(comps) != st.spp:
             raise ValueError(f"{path}: decoder error -2 (Improper JPEG "
                              "component count)")
+        if len(comps) == 4:
+            raise NotImplementedError(f"{path}: a 4-component JPEG strip "
+                                      f"or tile ({ITEM})")
         if st.sampling is None:          # JPEGFixupTagsSubsampling
             hs, vs = comps[0][1:]
             st.sampling = ((hs, vs) if hs in (1, 2, 4) and vs in (1, 2, 4)

@@ -28,7 +28,9 @@
 //   downsampled width is above 2, every other integral ratio replicates
 //   (int_upsample);
 // - jdcolor.c ycc_rgb_convert: SCALEBITS 16 fixed-point tables and the
-//   sample range limit;
+//   sample range limit; ycck_cmyk_convert: the same on Y, Cb and Cr,
+//   then 255 less each clamped value (255 - clamp(v) equals libjpeg's
+//   range_limit[255 - v]), K passed through;
 // - jdphuff.c: DC first/refine, AC first with EOBRUN, the AC refinement
 //   scan's correction bits; a restart resets the DC predictors and
 //   EOBRUN; a non-interleaved scan covers ceil(component width / 8)
@@ -634,13 +636,16 @@ void upsample(const uint8_t* src, int64_t stride, int64_t dw, int64_t dh,
 extern "C" {
 
 // Dequantise and inverse-transform every component, upsample it to the
-// W x H image and convert the colours into out (H, W, 3) uint8.
+// W x H image and convert the colours into out: (H, W, 3) uint8, or
+// (H, W, 4) for the four-component spaces.
 //   geom: per component, 8 int64: element offset of its blocks in coef,
 //     blocks a row of the array, width and height in blocks, h, v, and
 //     the downsampled width and height.
 //   quant: per component, 64 uint16 in natural order.
 //   color: 0 grey (one component, replicated to RGB as PIL's convert
-//     does), 1 YCbCr, 2 RGB.
+//     does), 1 YCbCr, 2 RGB; 3 CMYK and 4 YCCK, both out as CMYK (the
+//     samples libjpeg hands PIL, before its CMYK;I unpacker inverts
+//     them).
 // Returns 0, or with msg filled 1 (a sampling ratio that is not
 // integral, which libjpeg refuses too) or 2 (coefficients beyond the SIMD
 // IDCT's range: see kMaxDequant).
@@ -683,7 +688,7 @@ int64_t tb_jpeg_pixels(const int16_t* coef, int64_t ncomp,
              full[c].data());
   }
   const int64_t n = W * H;
-  if (color == 1) {  // jdcolor.c ycc_rgb_convert
+  if (color == 1 || color == 4) {  // jdcolor.c ycc_rgb_convert
     int cr_r[256], cb_b[256];
     int64_t cr_g[256], cb_g[256];
     const int64_t one_half = int64_t{1} << 15;
@@ -696,12 +701,21 @@ int64_t tb_jpeg_pixels(const int16_t* coef, int64_t ncomp,
       cr_g[i] = -fix(0.71414) * x;
       cb_g[i] = -fix(0.34414) * x + one_half;
     }
+    const int ch = color == 4 ? 4 : 3;
     for (int64_t i = 0; i < n; ++i) {
       const int y = full[0][i], cb = full[1][i], cr = full[2][i];
-      out[3 * i] = limit(y + cr_r[cr]);
-      out[3 * i + 1] = limit(y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> 16));
-      out[3 * i + 2] = limit(y + cb_b[cb]);
+      uint8_t* o = out + ch * i;
+      o[0] = limit(y + cr_r[cr]);
+      o[1] = limit(y + static_cast<int>((cb_g[cb] + cr_g[cr]) >> 16));
+      o[2] = limit(y + cb_b[cb]);
+      if (color == 4) {  // ycck_cmyk_convert: C, M, Y inverted, K kept
+        for (int k = 0; k < 3; ++k) o[k] = static_cast<uint8_t>(255 - o[k]);
+        o[3] = full[3][i];
+      }
     }
+  } else if (color == 3) {  // CMYK: null_convert
+    for (int64_t i = 0; i < n; ++i)
+      for (int k = 0; k < 4; ++k) out[4 * i + k] = full[k][i];
   } else {
     for (int64_t i = 0; i < n; ++i)
       for (int k = 0; k < 3; ++k)

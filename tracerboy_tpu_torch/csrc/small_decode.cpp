@@ -1,8 +1,9 @@
 // The byte-serial loops of the port's readers of PIL's small formats
 // (core/pcx.py, core/sgi.py, core/icns.py, core/sun.py, core/msp.py,
-// core/xbm.py and core/im.py, loaded by core/codecs.py): PCX run
-// lengths, SGI RLE rows, the ICNS PackBits-like channels, Sun's RLE,
-// MSP's LinS rows, XBM's hex bytes and IM's packed float samples.
+// core/xbm.py, core/im.py and core/fli.py, loaded by core/codecs.py):
+// PCX run lengths, SGI RLE rows, the ICNS PackBits-like channels, Sun's
+// RLE, MSP's LinS rows, XBM's hex bytes, IM's packed float samples and
+// an FLI frame's chunks.
 // Host code, compiled with g++ at first use into the port's build
 // directory (utils/build.py) and called through ctypes; numpy unpacks
 // the rows.
@@ -62,6 +63,19 @@
 //   the buffer is not: its leftover bits are OR'd into the next line's
 //   first byte, and where the count passes 32 the buffer is rebuilt from
 //   the last byte, as BitDecode.c does.
+// - tb_fli_decode: Pillow's FliDecode.c on the bytes ImageFile.load has
+//   read so far of one frame (core/fli.py repeats load's reads). It
+//   returns 0 (more data wanted) while the buffer is shorter than the
+//   frame's size (a pad byte allowed), else walks the frame's chunks:
+//   4 and 11 (colours) and 18 (postage stamp) skipped; 7 (SS2: lines of
+//   word packets, flag words that skip lines or set a line's last byte);
+//   12 (LC: byte packets from a first line); 13 (BLACK); 15 (BRUN: each
+//   line's packet-count byte ignored, runs and literals to the line's
+//   end); 16 (COPY; short data returns the bytes walked, as FliDecode.c
+//   does); any other type is unknown. Reads are bounded by the buffer,
+//   not by the chunk, as FliDecode.c bounds them; a packet that would
+//   write past its line ends the line's packets, and a chunk whose
+//   lines are not all done overruns.
 
 #include <cstdint>
 #include <cstring>
@@ -383,6 +397,167 @@ int64_t tb_bit_decode(const uint8_t* src, int64_t n, float* out,
     }
   }
   return kTruncated;
+}
+
+// FLI: one frame from buf[0, n) into im (ysize lines of xsize indices,
+// zero or the frame before). Returns the bytes taken (>= 0: more data
+// wanted) or -1 with *err set: 0 for the frame's end, else
+// kFliOverrun, kFliBroken or kFliUnknown (Pillow's IMAGING_CODEC_*).
+int64_t tb_fli_decode(const uint8_t* buf, int64_t n, uint8_t* im,
+                      int64_t xsize, int64_t ysize, int64_t* err) {
+  constexpr int64_t kFliOverrun = -1, kFliBroken = -2, kFliUnknown = -3;
+  auto i16 = [](const uint8_t* p) { return (int)p[0] | (int)p[1] << 8; };
+  auto i32 = [](const uint8_t* p) {
+    return (int32_t)((uint32_t)p[0] | (uint32_t)p[1] << 8 |
+                     (uint32_t)p[2] << 16 | (uint32_t)p[3] << 24);
+  };
+  *err = 0;
+  if (n < 4) return 0;
+  const uint8_t* ptr = buf;
+  int64_t bytes = n;
+  const uint32_t framesize = (uint32_t)i32(ptr);  // unsigned, as Pillow's
+  if (bytes + (bytes % 2) < (int64_t)framesize) return 0;
+  auto fail = [&](int64_t code) {
+    *err = code;
+    return (int64_t)-1;
+  };
+  if (bytes < 8) return fail(kFliOverrun);
+  if (i16(ptr + 4) != 0xF1FA) return fail(kFliUnknown);
+  const int chunks = i16(ptr + 6);
+  ptr += 16;
+  bytes -= 16;
+  for (int c = 0; c < chunks; c++) {
+    if (bytes < 10) return fail(kFliOverrun);
+    const uint8_t* data = ptr + 6;
+    const uint8_t* end = ptr + bytes;
+#define FLI_OOB(k) \
+  if (data + (k) > end) return fail(kFliOverrun)
+    int64_t x = 0, y, i = 0;
+    switch (i16(ptr + 4)) {
+      case 4:
+      case 11:
+      case 18:
+        break;
+      case 7: {  // SS2
+        const int lines = i16(data);
+        data += 2;
+        int l;
+        for (l = 0, y = 0; l < lines && y < ysize; l++, y++) {
+          uint8_t* line = im + y * xsize;
+          FLI_OOB(2);
+          int packets = i16(data);
+          data += 2;
+          while (packets & 0x8000) {
+            if (packets & 0x4000) {
+              y += 65536 - packets;
+              if (y >= ysize) return fail(kFliOverrun);
+              line = im + y * xsize;
+            } else {
+              line[xsize - 1] = (uint8_t)packets;
+            }
+            FLI_OOB(2);
+            packets = i16(data);
+            data += 2;
+          }
+          int p;
+          for (p = 0, x = 0; p < packets; p++) {
+            FLI_OOB(2);
+            x += data[0];
+            if (data[1] >= 128) {
+              FLI_OOB(4);
+              i = 256 - data[1];
+              if (x + i + i > xsize) break;
+              for (int64_t j = 0; j < i; j++) {
+                line[x++] = data[2];
+                line[x++] = data[3];
+              }
+              data += 4;
+            } else {
+              i = 2 * (int64_t)data[1];
+              if (x + i > xsize) break;
+              FLI_OOB(2 + i);
+              std::memcpy(line + x, data + 2, i);
+              data += 2 + i;
+              x += i;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (l < lines) return fail(kFliOverrun);
+        break;
+      }
+      case 12: {  // LC
+        y = i16(data);
+        const int64_t ymax = y + i16(data + 2);
+        data += 4;
+        for (; y < ymax && y < ysize; y++) {
+          uint8_t* line = im + y * xsize;
+          FLI_OOB(1);
+          const int packets = *data++;
+          int p;
+          for (p = 0, x = 0; p < packets; p++, x += i) {
+            FLI_OOB(2);
+            x += data[0];
+            if (data[1] & 0x80) {
+              i = 256 - data[1];
+              if (x + i > xsize) break;
+              FLI_OOB(3);
+              std::memset(line + x, data[2], i);
+              data += 3;
+            } else {
+              i = data[1];
+              if (x + i > xsize) break;
+              FLI_OOB(2 + i);
+              std::memcpy(line + x, data + 2, i);
+              data += i + 2;
+            }
+          }
+          if (p < packets) break;
+        }
+        if (y < ymax) return fail(kFliOverrun);
+        break;
+      }
+      case 13:  // BLACK
+        std::memset(im, 0, xsize * ysize);
+        break;
+      case 15:  // BRUN
+        for (y = 0; y < ysize; y++) {
+          uint8_t* line = im + y * xsize;
+          data += 1;
+          for (x = 0; x < xsize; x += i) {
+            FLI_OOB(2);
+            if (data[0] & 0x80) {
+              i = 256 - data[0];
+              if (x + i > xsize) break;
+              FLI_OOB(i + 1);
+              std::memcpy(line + x, data + 1, i);
+              data += i + 1;
+            } else {
+              i = data[0];
+              if (x + i > xsize) break;
+              std::memset(line + x, data[1], i);
+              data += 2;
+            }
+          }
+          if (x != xsize) return fail(kFliOverrun);
+        }
+        break;
+      case 16:  // COPY
+        if (INT32_MAX / xsize < ysize) return fail(kFliOverrun);
+        if (data + xsize * ysize > end) return ptr - buf;
+        std::memcpy(im, data, xsize * ysize);
+        break;
+      default:
+        return fail(kFliUnknown);
+    }
+#undef FLI_OOB
+    const int32_t advance = i32(ptr);
+    if (advance == 0) return fail(kFliBroken);
+    if (advance < 0 || advance > bytes) return fail(kFliOverrun);
+    ptr += advance;
+    bytes -= advance;
+  }
+  return -1;
 }
 
 }  // extern "C"

@@ -28,7 +28,11 @@ write_small_textures(directory) writes the albedo in PIL's small texture
 formats (an RLE SGI, a PCX, a BLP2 and an FTEX in DXT1, an ICNS of one
 PNG entry) and the leaf as a BLP2 in DXT5 (alpha encoding 7);
 write_small2_textures(directory) the albedo as a Sun raster (RLE and
-raw), a planar IM and a 256-colour XPM, and the leaf as an RGBA IM.
+raw), a planar IM and a 256-colour XPM, and the leaf as an RGBA IM;
+write_small3_textures(directory) the albedo as a 256-colour FLC, a
+PhotoCD of a 768x512 crop, and its grey as FITS (raw and gzip tiles) and
+a raw IPTC image; SMALL3_ALBEDO is the committed BLP1 texture whose
+JPEG is the albedo as a CMYK JPEG.
 
 write_forest_scene(directory, grid, sky, trees, rocks, seed) writes
 forest.pbrt: the height field, and two objects in ObjectBegin blocks, a
@@ -50,8 +54,8 @@ The other scenes depend on the arguments only (no random numbers). Run as
   python -m tracerboy_tpu_torch.utils.demo_scene DIR [KIND]
 with KIND textured, tiff (the textured scene with its albedo and leaf
 swapped for TIFFs), small (swapped for an RLE SGI and a DXT5 BLP2),
-small2 (swapped for an RLE Sun raster and an RGBA IM), forest or
-meshes.
+small2 (swapped for an RLE Sun raster and an RGBA IM), small3 (the
+albedo swapped for the BLP1 of a CMYK JPEG), forest or meshes.
 """
 
 from __future__ import annotations
@@ -373,6 +377,55 @@ def write_small2_textures(directory: str) -> dict:
     xpm.write_xpm(paths["albedo.xpm"], albedo & np.array([0xE0, 0xE0, 0xC0],
                                                          np.uint8))
     im.write_im(paths["leaf.im"], leaf_image(512))
+    return paths
+
+
+# The BLP1 texture of the albedo (in BLP's BGR order, so that it reads as
+# the albedo) as PIL's CMYK JPEG save at quality 75, alpha depth 0
+# (tests/make_small3_fixtures.py; the port has no JPEG encoder).
+SMALL3_ALBEDO = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), "tests", "data", "small3",
+    "albedo_blp1_cmyk.blp")
+
+
+def albedo_grey(size: int) -> np.ndarray:
+    """The albedo's grey, (size, size) uint8: PIL's L weights (299, 587,
+    114) / 1000 on the 8-bit albedo, truncated."""
+    from tracerboy_tpu_torch.core.image_io import _to_uint8
+
+    rgb = _to_uint8(albedo_image(size)).astype(np.int64)
+    return ((rgb @ np.array([299, 587, 114])) // 1000).astype(np.uint8)
+
+
+def write_small3_textures(directory: str) -> dict:
+    """The textured scene's albedo (1024x1024 RGB) in PIL's small formats
+    of part 3, in `directory`: albedo.fli (an FLC of one BRUN frame, the
+    albedo cut to 3-3-2 bits as indices into that palette,
+    core/fli.write_fli), albedo.pcd (its top-left 768x512 as a PhotoCD,
+    core/pcd.write_pcd), albedo.fits and albedo_gzip.fits (its grey,
+    8-bit, raw and in one gzip tile, core/fits.write_fits) and
+    albedo.iptc (its grey as a raw IPTC image, core/iptc.write_iptc).
+    Returns {file name: path}; the retexture swap is {"albedo.png":
+    paths["albedo.fli"]} (or SMALL3_ALBEDO, the committed BLP1)."""
+    from tracerboy_tpu_torch.core import fits, fli, iptc, pcd
+    from tracerboy_tpu_torch.core.image_io import _to_uint8
+
+    os.makedirs(directory, exist_ok=True)
+    paths = {name: os.path.join(directory, name) for name in (
+        "albedo.fli", "albedo.pcd", "albedo.fits", "albedo_gzip.fits",
+        "albedo.iptc")}
+    albedo = _to_uint8(albedo_image(1024))
+    idx = ((albedo[..., 0] >> 5 << 5) | (albedo[..., 1] >> 5 << 2)
+           | (albedo[..., 2] >> 6)).astype(np.uint8)
+    k = np.arange(256)
+    palette = np.stack([k >> 5 << 5, (k >> 2 & 7) << 5, (k & 3) << 6],
+                       -1).astype(np.uint8)
+    fli.write_fli(paths["albedo.fli"], idx, palette)
+    pcd.write_pcd(paths["albedo.pcd"], albedo[:512, :768])
+    grey = albedo_grey(1024)
+    fits.write_fits(paths["albedo.fits"], grey)
+    fits.write_fits(paths["albedo_gzip.fits"], grey, compress=True)
+    iptc.write_iptc(paths["albedo.iptc"], grey)
     return paths
 
 
@@ -744,6 +797,11 @@ if __name__ == "__main__":
         paths = write_small2_textures(os.path.join(out, "small2"))
         retexture(scenes[0], {"albedo.png": paths["albedo.ras"],
                               "leaf.png": paths["leaf.im"]})
+        print(scenes)
+    elif kind == "small3":
+        scenes = write_textured_scene(out)
+        write_small3_textures(os.path.join(out, "small3"))
+        retexture(scenes[0], {"albedo.png": SMALL3_ALBEDO})
         print(scenes)
     elif kind == "forest":
         print(write_forest_scene(out))
