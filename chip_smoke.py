@@ -195,11 +195,16 @@ Phases, each fatal on failure:
      CLI with --shard spp --devices 1 on env.pbrt at 640x360; ms a
      sample of the unsharded, tiled and spp runs (host time);
  22. the port's JPEG decoder (jpeg_phase): every fixture of
-     tests/data/jpeg decoded to the sha256 of PIL's array in its
-     manifest; the 1024x1024 progressive 4:2:0 albedo's decode timed on
-     the host; the CLI on textured_lit.pbrt with that JPEG as its albedo,
-     1280x720, 2 spp, a finite image, its closest-hit launches held
-     against the plain version by kind (main, re-fire, shadow-BVH);
+     tests/data/jpeg (PIL's saves; arithmetic-coded sequential and
+     progressive files with DAC conditioning and restarts; lossless files
+     of every predictor; progressive files cut short, which libjpeg
+     block-smooths) decoded to the sha256 of PIL's array in its
+     manifest; the 1024x1024 albedo's decode timed on the host, as PIL's
+     progressive 4:2:0 file and as an arithmetic-coded progressive 4:2:0
+     one; the CLI on textured_lit.pbrt with each as its albedo, 1280x720,
+     2 spp, a finite image, its closest-hit launches held against the
+     plain version by kind (main, re-fire, shadow-BVH; the second run's
+     kinds prefixed arith_);
  23. the port's DDS reader and TGA/BMP variant readers (dds_phase):
      every fixture of tests/data/dds (DDS of every format PIL reads, the
      TGA and BMP variants) decoded to the sha256 of PIL's array in its
@@ -4168,11 +4173,15 @@ def jpeg_runs(torch, tmp):
     first use) on the card's machine, which has no PIL. (a) Every
     committed fixture of tests/data/jpeg decoded, its shape, dtype and
     sha256 equal to manifest.json's (PIL's arrays, written by
-    tests/make_jpeg_fixtures.py). (b) The 1024x1024 progressive 4:2:0
-    albedo's decode, 5 runs, host seconds, with the host's CPU. (c) The
-    CLI on utils/demo_scene's textured_lit.pbrt with its albedo pointed
-    at that JPEG (textured_swap_cli). Returns (results, launches of
-    (c))."""
+    tests/make_jpeg_fixtures.py: PIL's saves, arithmetic-coded and
+    lossless files and block-smoothed cut progressive files among them).
+    (b) The 1024x1024 albedo's decode as PIL's progressive 4:2:0 file and
+    as an arithmetic-coded progressive 4:2:0 one, 5 runs each, host
+    seconds, with the host's CPU (and the card line). (c) The CLI on
+    utils/demo_scene's textured_lit.pbrt with its albedo pointed at the
+    Huffman JPEG (textured_swap_cli); (d) the same with the
+    arithmetic-coded albedo. Returns (results, launches of (c) and (d)
+    together)."""
     from tracerboy_tpu_torch.core.jpeg import read_jpeg
 
     set_opt_in()
@@ -4181,10 +4190,20 @@ def jpeg_runs(torch, tmp):
     results["decode_1024"] = host_decode(read_jpeg, albedo)
     print("jpeg decode 1024x1024 progressive 4:2:0 (host):",
           json.dumps(results["decode_1024"]))
+    arith = JPEG_DIR / "albedo_1024_arith.jpg"
+    results["decode_1024_arith"] = dict(host_decode(read_jpeg, arith),
+                                        card=card_line())
+    print("jpeg decode 1024x1024 arithmetic progressive 4:2:0 (host):",
+          json.dumps(results["decode_1024_arith"]))
     cli_res, launches = textured_swap_cli(torch, tmp, "jpeg",
                                           {"albedo.png": str(albedo)})
     results.update(cli_res)
-    return results, launches
+    t0 = time.perf_counter()
+    res2, launches2 = textured_swap_cli(torch, tmp, "jpeg_arith",
+                                        {"albedo.png": str(arith)})
+    results["arith_cli"] = dict(res2["cli"], run_s=time.perf_counter() - t0)
+    results["arith_kinds"] = res2["kinds"]
+    return results, {k: launches[k] + launches2[k] for k in launches}
 
 
 def dds_runs(torch, tmp):
@@ -4756,7 +4775,9 @@ def main() -> int:
     work.cleanup()
     lap("sharding")
     jpeg_res, jpeg_launches = jpeg_phase(torch)
-    jpeg_kinds = jpeg_res["kinds"]
+    jpeg_kinds = {**jpeg_res["kinds"],
+                  **{f"arith_{k}": v
+                     for k, v in jpeg_res["arith_kinds"].items()}}
     lap("jpeg")
     dds_res, dds_launches = dds_phase(torch)
     dds_kinds = dds_res["kinds"]
@@ -4898,6 +4919,8 @@ def main() -> int:
              sharding_runs=shard_res["runs"],
              sharding_ms_a_sample=shard_res["ms_a_sample"],
              jpeg_decode_1024=jpeg_res["decode_1024"],
+             jpeg_decode_1024_arith=jpeg_res["decode_1024_arith"],
+             jpeg_arith_cli=jpeg_res["arith_cli"],
              dds_decode_512_bc7=dds_res["decode_512_bc7"],
              tiff_decode_1024_lzw=tiff_res["decode_1024_lzw"],
              tiff_decode_1024_deflate=tiff_res["decode_1024_deflate"],

@@ -13,6 +13,7 @@ arithmetic is easy to lose has a case of its own.
 import io
 import json
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 from PIL import Image
 
-from jpeg_encode import encode_coefficients, encode_image
+from jpeg_encode import encode_coefficients, encode_image, encode_lossless
 from make_jpeg_fixtures import FIXTURE_DIR, array_digest, small_image
 from tracerboy_tpu_torch.core import image_io
 from tracerboy_tpu_torch.core.jpeg import UNSUPPORTED, decode_jpeg
@@ -214,20 +215,71 @@ def test_cmyk_variant_reads_as_pil():
     assert np.array_equal(decode_jpeg(b.getvalue()), pil_rgb(b.getvalue()))
 
 
-@pytest.mark.parametrize("kind", ["arithmetic", "lossless", "hierarchical",
-                                  "incomplete"])
-def test_out_of_scope_variants_raise(kind):
+@pytest.mark.parametrize("kind", ["arithmetic", "lossless", "incomplete"])
+def test_variants_read_as_pil(kind):
+    """Once refused as out of scope, now read as PIL reads them: a PIL
+    file whose SOF0 says SOF9 (its Huffman-coded data decoded as
+    arithmetic-coded, as libjpeg decodes it), a lossless file, and a
+    progressive file cut after 3 scans (block-smoothed).
+    tests/test_torch_jpeg_variants.py covers each in depth."""
     img = small_image(8)
     if kind == "incomplete":
         data = _drop_last_scans(pil_bytes(img, progressive=True), 3)
-        pil_rgb(data)      # PIL reads it, block-smoothed
+    elif kind == "lossless":
+        data = encode_lossless([img[..., k] for k in range(3)], 97, 61,
+                               [(1, 1)] * 3, psv=4)
     else:
-        data = pil_bytes(img)
-        sof = {"arithmetic": b"\xff\xc9", "lossless": b"\xff\xc3",
-               "hierarchical": b"\xff\xc5"}[kind]
-        data = data.replace(b"\xff\xc0", sof, 1)
-    with pytest.raises(NotImplementedError, match=UNSUPPORTED):
-        decode_jpeg(data)
+        data = pil_bytes(img).replace(b"\xff\xc0", b"\xff\xc9", 1)
+    assert_as_pil(data)
+
+
+def _patch_sof(data: bytes, code=None, precision=None, height=None):
+    i = data.index(b"\xff\xc0")
+    d = bytearray(data)
+    if code is not None:
+        d[i + 1] = code
+    if precision is not None:
+        d[i + 4] = precision
+    if height is not None:
+        d[i + 5:i + 7] = struct.pack(">H", height)
+    return bytes(d)
+
+
+@pytest.mark.parametrize("kind", ["hierarchical", "12-bit", "dnl"])
+def test_out_of_scope_variants_raise(kind, tmp_path):
+    """Refused as PIL refuses them, through decode_ldr: a hierarchical
+    frame (SOF5-7, SOF13-15) or a lossless arithmetic-coded one (SOF11)
+    raises OSError at load; a frame of a precision other than 8 bits, or
+    of height 0 (a DNL-sized frame, with its DNL segment), is not
+    identified (UnidentifiedImageError, "cannot identify image file")."""
+    from PIL import UnidentifiedImageError as PilUnidentified
+
+    from tracerboy_tpu_torch.core.image_io import UnidentifiedImageError
+
+    data = pil_bytes(small_image(8)[:16, :16])
+    if kind == "hierarchical":
+        files = [_patch_sof(data, code=c)
+                 for c in (0xC5, 0xC6, 0xC7, 0xCB, 0xCD, 0xCE, 0xCF)]
+        want, port = OSError, OSError
+    elif kind == "12-bit":
+        files = [_patch_sof(data, precision=p) for p in (12, 16, 7)]
+        files.append(_patch_sof(data, code=0xC1, precision=12))
+        want, port = PilUnidentified, UnidentifiedImageError
+    else:
+        end = data.rindex(b"\xff\xd9")
+        dnl = data[:end] + b"\xff\xdc\x00\x04\x00\x10" + data[end:]
+        files = [_patch_sof(dnl, height=0), _patch_sof(data, height=0)]
+        want, port = PilUnidentified, UnidentifiedImageError
+    for n, f in enumerate(files):
+        path = os.path.join(tmp_path, f"{n}.jpg")
+        with open(path, "wb") as fh:
+            fh.write(f)
+        with pytest.raises(want):
+            with Image.open(path) as im:
+                im.convert("RGB")
+        with pytest.raises(port, match="cannot identify image file"
+                           if port is not OSError else "corrupt JPEG"):
+            image_io.decode_ldr(path)
 
 
 def test_corrupt_data_raises():

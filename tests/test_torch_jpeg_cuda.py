@@ -1,7 +1,10 @@
 """The port's JPEG decoder on the card's machine, which has no PIL: every
-fixture of tests/data/jpeg decodes to the shape, dtype and sha256 of
-PIL's array in its manifest (tests/make_jpeg_fixtures.py wrote both), and
-a decoded texture uploads to the card unchanged; so does every CMYK and
+fixture of tests/data/jpeg (PIL's saves, arithmetic-coded sequential and
+progressive files, lossless files of every predictor, block-smoothed
+cut progressive files, the arithmetic-coded albedo) decodes to the
+shape, dtype and sha256 of PIL's array in its manifest
+(tests/make_jpeg_fixtures.py wrote both), and a decoded texture uploads
+to the card unchanged; so does every CMYK and
 YCCK JPEG of tests/data/small3 and every BLP1 there whose JPEG has four
 components (tests/make_small3_fixtures.py).
 

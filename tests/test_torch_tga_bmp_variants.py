@@ -277,20 +277,27 @@ def test_bmp_rle_quirks(tmp_path, case):
 
 
 def test_refusal_names_what_is_not_ported(tmp_path):
-    """A variant PIL reads that the port does not (an arithmetic-coded
-    JPEG) raises NotImplementedError naming its ROADMAP item; FITS, which
-    the port now reads (PIL's small formats part 3), reads as the JAX
-    read_ldr reads it."""
+    """A variant PIL reads that the port does not (a JPEG whose
+    coefficients pass the 16-bit range of PIL's SIMD IDCT) raises
+    NotImplementedError naming its ROADMAP item; an arithmetic-coded JPEG
+    and FITS, which the port now reads (PIL's small formats part 3, the
+    JPEG variants), read as the JAX read_ldr reads them."""
     import io
 
     from PIL import Image
 
+    from jpeg_encode import encode_coefficients
+
+    block = np.zeros((1, 1, 64), np.int64)
+    block[0, 0, 0] = 1500
+    (tmp_path / "big.jpg").write_bytes(encode_coefficients(
+        [block], 8, 8, [(1, 1)], [np.full(64, 8)]))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        image_io.read_ldr(str(tmp_path / "big.jpg"))
     buf = io.BytesIO()
     Image.fromarray(np.full((8, 8, 3), 90, np.uint8)).save(buf, "JPEG")
-    (tmp_path / "a.jpg").write_bytes(buf.getvalue().replace(
-        b"\xff\xc0", b"\xff\xc9", 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        image_io.read_ldr(str(tmp_path / "a.jpg"))
+    assert assert_as_jax(tmp_path / "a.jpg", buf.getvalue().replace(
+        b"\xff\xc0", b"\xff\xc9", 1)) is not None
     cards = [b"SIMPLE  = T", b"BITPIX  = 8", b"NAXIS   = 2",
              b"NAXIS1  = 4", b"NAXIS2  = 4", b"END"]
     fits = b"".join(c.replace(b"= ", b"=" + b" " * 20).ljust(80)

@@ -193,13 +193,13 @@ def readers():
             xbm,
             xpm,
         )
-        from tracerboy_tpu_torch.core.jpeg import decode_jpeg
+        from tracerboy_tpu_torch.core.jpeg import open_jpeg
 
         _READERS = (
             ("BMP", lambda d: d.startswith(b"BM"), read_bmp),
             ("DIB", ico.is_dib, ico.read_dib),
             ("GIF", gif.is_gif, gif.read_gif),
-            ("JPEG", lambda d: d.startswith(b"\xff\xd8\xff"), decode_jpeg),
+            ("JPEG", lambda d: d.startswith(b"\xff\xd8\xff"), open_jpeg),
             ("PPM", pnm.is_pnm, pnm.read_pnm),
             ("PNG", lambda d: d.startswith(PNG_SIGNATURE), read_png_file),
             ("AVIF", avif.is_avif, avif.read_avif),

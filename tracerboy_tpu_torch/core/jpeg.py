@@ -1,9 +1,10 @@
 """The port's JPEG decoder: the pixels PIL returns for a JPEG file (on
-libjpeg-turbo, default decompression settings), bit for bit, without an
-imaging library.
+libjpeg-turbo 3.1, default decompression settings), bit for bit, without
+an imaging library.
 
-Markers are parsed here; entropy decoding, the islow inverse DCT, fancy
-chroma upsampling and the YCbCr conversion run in csrc/jpeg_decode.cpp
+Markers are parsed here; entropy decoding (Huffman and arithmetic), the
+lossless frame's undifferencing, block smoothing, the islow inverse DCT,
+chroma upsampling and the colour conversion run in csrc/jpeg_decode.cpp
 (g++ at first use, ctypes), whose header lists where libjpeg's integer
 arithmetic is easy to lose.
 
@@ -13,22 +14,37 @@ JpegTables (libjpeg's decompressor keeps its quantisation and Huffman
 tables from one datastream to the next), and libtiff, not the markers,
 chooses the colour transform (decode_jpeg's `color`).
 
-Read: baseline and extended sequential and progressive Huffman files of
-8-bit samples, 1 component (grey), 3 (YCbCr or RGB, chosen by the JFIF,
-Adobe and component-id rules of libjpeg's default_decompress_parms) or 4
-(CMYK, or YCCK where an Adobe marker's transform is not 0: libjpeg
-hands PIL CMYK either way), any integral sampling factors, restart
-intervals. A 4-component file is read as PIL reads it, its samples
-inverted (the CMYK;I raw mode) and converted to RGB; a BLP1 texture's
-JPEG is read as CMYK whatever its Adobe marker says (decode_jpeg's
-`color` 3: PIL's BLP plugin sets the JPEG's colour space to CMYK).
-EXIF orientation is not applied (PIL's Image.open does not apply it).
-The variants that texture tools do not write raise NotImplementedError
-naming their ROADMAP.md item: arithmetic coding, 12-bit samples,
-lossless and hierarchical files, progressive files whose scans leave one
-of the first 10 coefficients incomplete (libjpeg smooths those blocks,
-jdcoefct.c), and coefficients beyond the 16-bit range of the SIMD IDCT
-PIL runs (no 8-bit encoder writes them; csrc/jpeg_decode.cpp
+Read: every frame libjpeg-turbo reads through PIL's 8-bit API, 1
+component (grey), 3 (YCbCr or RGB, chosen by the JFIF, Adobe and
+component-id rules of libjpeg's default_decompress_parms) or 4 (CMYK, or
+YCCK where an Adobe marker's transform is not 0: libjpeg hands PIL CMYK
+either way), any integral sampling factors, restart intervals:
+- sequential and progressive DCT frames, Huffman-coded (SOF0-2) or
+  arithmetic-coded (SOF9-10, jdarith.c, with the DAC conditioning each
+  SOI resets); a progressive file whose scans leave one of the first 10
+  coefficients incomplete is block-smoothed as libjpeg smooths it at its
+  final output pass (jdcoefct.c decompress_smooth_data);
+- lossless frames (SOF3: predictors 1-7, the point transform, restarts;
+  jdlhuff.c, jddiffct.c, jdlossls.c), which libjpeg upsamples by
+  replication and whose colour it does not convert (a YCbCr or YCCK
+  lossless frame raises OSError, as PIL's load does; one with neither a
+  JFIF nor an Adobe marker is RGB).
+A 4-component file is read as PIL reads it, its samples inverted (the
+CMYK;I raw mode) and converted to RGB; a BLP1 texture's JPEG is read as
+CMYK whatever its Adobe marker says (decode_jpeg's `color` 3: PIL's BLP
+plugin sets the JPEG's colour space to CMYK). EXIF orientation is not
+applied (PIL's Image.open does not apply it). DNL segments are skipped,
+as libjpeg skips them.
+
+Refused as PIL refuses them: a frame of a precision other than 8 bits
+(12-bit among them), of a component count other than 1, 3 or 4, or of
+height or width 0 (a DNL-sized frame) is not identified by PIL's JPEG
+plugin (open_jpeg: decode_ldr goes on to the formats after JPEG, then
+raises "cannot identify image file"); hierarchical frames (SOF5-7,
+SOF13-15) and lossless arithmetic-coded ones (SOF11) raise OSError, as
+libjpeg's errors do in PIL's load. Coefficients beyond the 16-bit range
+of the SIMD IDCT PIL runs raise NotImplementedError naming their
+ROADMAP.md item (no 8-bit encoder writes them; csrc/jpeg_decode.cpp
 kMaxDequant). Truncated or corrupt data raises OSError, as PIL's load
 does.
 """
@@ -40,8 +56,8 @@ import struct
 
 import numpy as np
 
-UNSUPPORTED = ("ROADMAP.md, Queue 1: JPEG: the variants texture tools do "
-               "not write")
+UNSUPPORTED = ("ROADMAP.md, Queue 1: item 4, JPEG coefficients beyond the "
+               "SIMD IDCT's range")
 # The zigzag scan order: index k of a DQT table is natural index
 # ZIGZAG[k] (row-major within the 8x8 block).
 ZIGZAG = np.array([
@@ -52,12 +68,16 @@ ZIGZAG = np.array([
 # The entropy-coded segment ends at the first marker that is not a
 # stuffed 0xFF00 or a restart marker (fill bytes 0xFF may precede it).
 _SEGMENT_END = re.compile(rb"\xff+[^\x00\xd0-\xd7\xff]")
-_SOF_NAMES = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
-              0xC7: "hierarchical", 0xC9: "arithmetic-coded",
-              0xCA: "arithmetic-coded", 0xCB: "arithmetic-coded",
-              0xCD: "arithmetic-coded hierarchical",
-              0xCE: "arithmetic-coded hierarchical",
-              0xCF: "arithmetic-coded hierarchical"}
+# The frame types libjpeg reads: (progressive, coding). jdmarker.c
+# refuses the hierarchical ones (SOF5-7, SOF13-15), the decoder's master
+# lossless arithmetic coding (SOF11).
+_SOF_KINDS = {0xC0: (False, "huffman"), 0xC1: (False, "huffman"),
+              0xC2: (True, "huffman"), 0xC3: (False, "lossless"),
+              0xC9: (False, "arithmetic"), 0xCA: (True, "arithmetic")}
+_SOF_REFUSED = {0xC5: "hierarchical", 0xC6: "hierarchical",
+                0xC7: "hierarchical", 0xCB: "lossless arithmetic-coded",
+                0xCD: "hierarchical", 0xCE: "hierarchical",
+                0xCF: "hierarchical"}
 
 _lib = None
 
@@ -79,9 +99,13 @@ def _library():
         p, i64 = ctypes.c_void_p, ctypes.c_int64
         lib.tb_jpeg_scan.restype = i64
         lib.tb_jpeg_scan.argtypes = [p, i64, p, i64, p, p, p, i64, i64, i64,
-                                     i64, i64, i64, i64, i64, p]
+                                     i64, i64, i64, i64, i64, p, p]
+        lib.tb_jpeg_lossless_scan.restype = i64
+        lib.tb_jpeg_lossless_scan.argtypes = [p, i64, p, i64, p, p, p, i64,
+                                              i64, i64, i64, i64, p]
         lib.tb_jpeg_pixels.restype = i64
-        lib.tb_jpeg_pixels.argtypes = [p, i64, p, p, i64, i64, i64, p, p]
+        lib.tb_jpeg_pixels.argtypes = [p, p, i64, p, p, p, i64, i64, i64,
+                                       i64, p, p]
         _lib = lib
     return _lib
 
@@ -97,19 +121,21 @@ def _corrupt(path, what):
 
 class _Frame:
     """SOF: the image size and each component's id, sampling factors and
-    quantisation table; the coefficient arrays of every component."""
+    quantisation table; the coefficient arrays of every component (a
+    lossless frame's sample planes)."""
 
-    def __init__(self, seg, progressive, path):
+    def __init__(self, seg, code, path):
         if len(seg) < 6:
             raise _corrupt(path, "short SOF segment")
         prec, self.H, self.W, nc = struct.unpack_from(">BHHB", seg)
-        if prec != 8:
-            raise _unsupported(path, f"{prec}-bit")
-        if nc not in (1, 3, 4):
-            raise _unsupported(path, f"{nc}-component")
+        if prec != 8:         # libjpeg's 8-bit API (PIL does not open one)
+            raise _corrupt(path, f"unsupported data precision {prec}")
+        if nc not in (1, 3, 4):   # PIL does not open one
+            raise _corrupt(path, f"{nc}-component frame")
         if self.W == 0 or self.H == 0 or len(seg) < 6 + 3 * nc:
             raise _corrupt(path, "bad SOF segment")
-        self.progressive = progressive
+        self.progressive, self.coding = _SOF_KINDS[code]
+        self.lossless = self.coding == "lossless"
         self.ids, self.hv, self.tq = [], [], []
         for c in range(nc):
             cid, hv, tq = seg[6 + 3 * c:9 + 3 * c]
@@ -121,28 +147,39 @@ class _Frame:
             self.tq.append(tq)
         self.hmax = max(h for h, _ in self.hv)
         self.vmax = max(v for _, v in self.hv)
-        self.mcus_per_row = -(-self.W // (8 * self.hmax))
-        self.mcu_rows = -(-self.H // (8 * self.vmax))
-        # Per component: element offset, blocks a row of its array, width
-        # and height in blocks, h, v, downsampled width and height
-        # (jdinput.c initial_setup).
+        # A lossless frame's data unit is one sample, a DCT frame's a block
+        # of 8x8 (jdinput.c initial_setup).
+        unit = 1 if self.lossless else 8
+        self.mcus_per_row = -(-self.W // (unit * self.hmax))
+        self.mcu_rows = -(-self.H // (unit * self.vmax))
+        # Per component: element offset, blocks a row of its array (a
+        # lossless plane's row stride), width and height in blocks (in
+        # samples), h, v, downsampled width and height.
         self.geom = []
         off = 0
         for h, v in self.hv:
             dw = -(-self.W * h // self.hmax)
             dh = -(-self.H * v // self.vmax)
+            if self.lossless:
+                self.geom.append([off, dw, dw, dh, h, v, dw, dh])
+                off += dw * dh
+                continue
             bw, bh = self.mcus_per_row * h, self.mcu_rows * v
             self.geom.append([off, bw, -(-dw // 8), -(-dh // 8), h, v, dw,
                               dh])
             off += bw * bh * 64
-        self.coef = np.zeros(off, np.int16)
+        if self.lossless:
+            self.samples = np.zeros(off, np.uint8)
+        else:
+            self.coef = np.zeros(off, np.int16)
         self.quant = [None] * nc    # latched at the component's first scan
-        # jdphuff.c coef_bits: per component and coefficient, the Al still
-        # to refine (-1: never seen, 0: complete).
+        # jdphuff.c / jdarith.c coef_bits: per component and coefficient,
+        # the Al still to refine (-1: never seen, 0: complete).
         self.coef_bits = np.full((nc, 64), -1, np.int64)
+        self.scans = 0
 
 
-def _scan(frame, seg, data, pos, qt, ht, restart, path):
+def _scan(frame, seg, data, pos, tables, restart, path):
     """Decode the scan whose SOS header is seg and whose entropy-coded
     segment starts at data[pos]; returns the position of the marker that
     ends it."""
@@ -156,13 +193,20 @@ def _scan(frame, seg, data, pos, qt, ht, restart, path):
         cid, tt = seg[1 + 2 * j:3 + 2 * j]
         if cid not in frame.ids:
             raise _corrupt(path, f"scan names an unknown component {cid}")
-        if tt >> 4 > 3 or tt & 15 > 3:
+        # Huffman tables 0-3 (a lossless scan names no AC table); the
+        # arithmetic coder's statistics tables 0-15.
+        if frame.coding == "huffman" and (tt >> 4 > 3 or tt & 15 > 3) or (
+                frame.lossless and tt >> 4 > 3):
             raise _corrupt(path, "bad Huffman table selector")
         comps.append(frame.ids.index(cid))
         slots.append(tt)
     ss, se, a = seg[1 + 2 * ns:4 + 2 * ns]
     ah, al = a >> 4, a & 15
-    if frame.progressive:    # jdphuff.c start_pass_phuff's checks
+    frame.scans += 1
+    if frame.lossless:      # jdlossls.c start_pass's checks
+        if not 1 <= ss <= 7 or se != 0 or ah != 0 or al >= 8:
+            raise _corrupt(path, "bad progression parameters")
+    elif frame.progressive:  # start_pass_phuff / jdarith.c start_pass
         bad = (se != 0) if ss == 0 else (ss > se or se > 63 or ns != 1)
         if (ah != 0 and al != ah - 1) or al > 13 or bad:
             raise _corrupt(path, "bad progression parameters")
@@ -170,18 +214,19 @@ def _scan(frame, seg, data, pos, qt, ht, restart, path):
             frame.coef_bits[c, ss:se + 1] = al
     if ns > 1 and sum(frame.hv[c][0] * frame.hv[c][1] for c in comps) > 10:
         raise _corrupt(path, "MCU of more than 10 blocks")
-    for c in comps:           # jdinput.c latch_quant_tables
-        if frame.quant[c] is None:
-            if frame.tq[c] not in qt:
-                raise _corrupt(path, "undefined quantisation table")
-            frame.quant[c] = qt[frame.tq[c]].copy()
+    if not frame.lossless:
+        for c in comps:       # jdinput.c latch_quant_tables
+            if frame.quant[c] is None:
+                if frame.tq[c] not in tables.qt:
+                    raise _corrupt(path, "undefined quantisation table")
+                frame.quant[c] = tables.qt[frame.tq[c]].copy()
     m = _SEGMENT_END.search(data, pos)
     end = m.start() if m else len(data)
-    tables = np.zeros((8, 273), np.uint8)
+    huff = np.zeros((8, 273), np.uint8)
     present = np.zeros(8, np.uint8)
-    for slot, (bits, vals) in ht.items():
-        tables[slot, 1:17] = bits
-        tables[slot, 17:17 + len(vals)] = np.frombuffer(vals, np.uint8)
+    for slot, (bits, vals) in tables.ht.items():
+        huff[slot, 1:17] = bits
+        huff[slot, 17:17 + len(vals)] = np.frombuffer(vals, np.uint8)
         present[slot] = 1
     # Per component: offset, blocks a row of its array, h, v, width and
     # height in blocks, table slots. A non-interleaved scan covers the
@@ -191,21 +236,41 @@ def _scan(frame, seg, data, pos, qt, ht, restart, path):
                     np.int64)
     seg_bytes = np.frombuffer(data, np.uint8, end - pos, pos)
     msg = ctypes.create_string_buffer(256)
-    if _library().tb_jpeg_scan(
+    if frame.lossless:
+        # jddiffct.c start_input_pass: restarts come at whole MCU rows.
+        mpr = frame.mcus_per_row if ns > 1 else frame.geom[comps[0]][2]
+        if restart % mpr:
+            raise _corrupt(path, f"restart interval {restart} is not a "
+                           f"multiple of the {mpr} MCUs of a row")
+        err = _library().tb_jpeg_lossless_scan(
+            seg_bytes.ctypes.data, end - pos, frame.samples.ctypes.data, ns,
+            geom.ctypes.data, huff.ctypes.data, present.ctypes.data,
+            frame.mcus_per_row, frame.mcu_rows, ss, al, restart, msg)
+    else:
+        cond = (tables.dac.ctypes.data if frame.coding == "arithmetic"
+                else None)
+        err = _library().tb_jpeg_scan(
             seg_bytes.ctypes.data, end - pos, frame.coef.ctypes.data, ns,
-            geom.ctypes.data, tables.ctypes.data, present.ctypes.data,
+            geom.ctypes.data, huff.ctypes.data, present.ctypes.data,
             frame.mcus_per_row, frame.mcu_rows, ss, se, ah, al,
-            int(frame.progressive), restart, msg):
+            int(frame.progressive), restart, cond, msg)
+    if err:
         raise _corrupt(path, msg.value.decode())
     return end
 
 
 class JpegTables:
     """The quantisation and Huffman tables a libjpeg decompressor holds
-    between datastreams: {slot: table} as each DQT and DHT defines them."""
+    between datastreams: {slot: table} as each DQT and DHT defines them;
+    and the arithmetic conditioning, which each SOI resets (dac: L, U and
+    K of tables 0-15, jdmarker.c get_soi's defaults 0, 1 and 5)."""
 
     def __init__(self):
         self.qt, self.ht = {}, {}
+        self.reset_dac()
+
+    def reset_dac(self):
+        self.dac = np.repeat(np.array([0, 1, 5], np.uint8), 16)
 
 
 # Messages of tb_jpeg_scan for damaged entropy-coded data: libjpeg warns
@@ -311,6 +376,23 @@ def _read_dht(seg, ht, path):
         i += 17 + count
 
 
+def _read_dac(seg, dac, path):
+    """jdmarker.c get_dac: (index, value) pairs, DC tables 0-15 taking L
+    (low nibble) and U, AC tables 16-31 taking K."""
+    if len(seg) % 2:
+        raise _corrupt(path, "bad DAC segment")
+    for i in range(0, len(seg), 2):
+        index, val = seg[i], seg[i + 1]
+        if index >= 32:
+            raise _corrupt(path, f"bad DAC index {index}")
+        if index >= 16:
+            dac[32 + index - 16] = val
+        else:
+            if val & 15 > val >> 4:
+                raise _corrupt(path, f"bad DAC value {val}")
+            dac[index], dac[16 + index] = val & 15, val >> 4
+
+
 def decode_jpeg(data: bytes, path: str = "<bytes>", tables=None,
                 color=None) -> np.ndarray:
     """Decode a JPEG file's bytes to (H, W, 3) uint8 RGB: what
@@ -327,25 +409,28 @@ def decode_jpeg(data: bytes, path: str = "<bytes>", tables=None,
     pos = 2
     frame = None
     tables = tables if tables is not None else JpegTables()
+    tables.reset_dac()
     qt, ht = tables.qt, tables.ht
     restart = 0
     jfif = False
     adobe = None
-    scans = 0
     while True:
         code, seg, pos = _next_marker(data, pos, path)
         if code == 0xD9:      # EOI
             break
-        if code in (0xC0, 0xC1, 0xC2):
+        if code in _SOF_KINDS:
             if frame is not None:
                 raise _corrupt(path, "more than one frame")
-            frame = _Frame(seg, code == 0xC2, path)
-        elif code in _SOF_NAMES or code == 0xCC:
-            raise _unsupported(path, _SOF_NAMES.get(code, "arithmetic-coded"))
+            frame = _Frame(seg, code, path)
+        elif code in _SOF_REFUSED:   # libjpeg's "unsupported marker"
+            raise _corrupt(path, f"{_SOF_REFUSED[code]} frames (SOF"
+                           f"{code - 0xC0}) are not supported")
         elif code == 0xDB:    # DQT
             _read_dqt(seg, qt, path)
         elif code == 0xC4:    # DHT
             _read_dht(seg, ht, path)
+        elif code == 0xCC:    # DAC
+            _read_dac(seg, tables.dac, path)
         elif code == 0xDD:    # DRI
             if len(seg) < 2:
                 raise _corrupt(path, "bad DRI segment")
@@ -358,18 +443,18 @@ def decode_jpeg(data: bytes, path: str = "<bytes>", tables=None,
         elif code == 0xDA:    # SOS
             if frame is None:
                 raise _corrupt(path, "scan before the frame header")
-            pos = _scan(frame, seg, data, pos, qt, ht, restart, path)
-            scans += 1
-        elif code == 0xDC:
-            raise _unsupported(path, "DNL-sized")
-    if frame is None or scans == 0:
+            pos = _scan(frame, seg, data, pos, tables, restart, path)
+        # Any other segment, DNL among them, is skipped, as libjpeg skips
+        # it (a frame of height 0 is refused above, and PIL does not open
+        # one).
+    if frame is None or frame.scans == 0:
         raise _corrupt(path, "no image data")
     nc = len(frame.ids)
-    if frame.progressive:
-        _check_no_smoothing(frame, path)
-    for c in range(nc):       # a component no scan named reads as zeros
-        if frame.quant[c] is None:
-            frame.quant[c] = qt.get(frame.tq[c], np.zeros(64, np.uint16))
+    smooth = _smoothing_bits(frame) if frame.progressive else None
+    if not frame.lossless:
+        for c in range(nc):   # a component no scan named reads as zeros
+            if frame.quant[c] is None:
+                frame.quant[c] = qt.get(frame.tq[c], np.zeros(64, np.uint16))
     if color is None:         # jdapimin.c default_decompress_parms
         if nc == 1:
             color = 0
@@ -379,15 +464,26 @@ def decode_jpeg(data: bytes, path: str = "<bytes>", tables=None,
             color = 1
         elif adobe is not None:
             color = 2 if adobe == 0 else 1
+        elif frame.ids == [82, 71, 66] or frame.lossless:
+            color = 2         # 'R', 'G', 'B'; a lossless frame's guess
         else:
-            color = 2 if frame.ids == [82, 71, 66] else 1
+            color = 1
+    if frame.lossless and color in (1, 4):   # jdcolor.c: no lossy
+        raise _corrupt(path, "colour conversion in a lossless frame")
     out = np.empty((frame.H, frame.W, 4 if color >= 3 else 3), np.uint8)
     geom = np.array(frame.geom, np.int64)
-    quant = np.ascontiguousarray(np.stack(frame.quant), np.uint16)
     msg = ctypes.create_string_buffer(256)
-    err = _library().tb_jpeg_pixels(
-        frame.coef.ctypes.data, nc, geom.ctypes.data, quant.ctypes.data,
-        frame.W, frame.H, color, out.ctypes.data, msg)
+    if frame.lossless:
+        err = _library().tb_jpeg_pixels(
+            None, frame.samples.ctypes.data, nc, geom.ctypes.data, None,
+            None, frame.mcu_rows, frame.W, frame.H, color, out.ctypes.data,
+            msg)
+    else:
+        quant = np.ascontiguousarray(np.stack(frame.quant), np.uint16)
+        err = _library().tb_jpeg_pixels(
+            frame.coef.ctypes.data, None, nc, geom.ctypes.data,
+            quant.ctypes.data, None if smooth is None else smooth.ctypes.data,
+            frame.mcu_rows, frame.W, frame.H, color, out.ctypes.data, msg)
     if err == 1:
         raise _corrupt(path, msg.value.decode())
     if err:
@@ -399,22 +495,54 @@ def decode_jpeg(data: bytes, path: str = "<bytes>", tables=None,
     return out
 
 
-def _check_no_smoothing(frame, path):
-    """jdcoefct.c smoothing_ok: libjpeg smooths the blocks of a
-    progressive file (at its final output pass) when every component's DC
-    is at least partly known, some coefficient 1-9 is incomplete, and no
-    quantiser of the first 10 coefficients is zero. That filter is not
-    ported."""
+def _smoothing_bits(frame):
+    """jdcoefct.c smoothing_ok at the final output pass: libjpeg smooths
+    the blocks of a progressive file when every component's quantisation
+    table is latched with its first 10 quantisers nonzero, every
+    component's DC is at least partly known, and some coefficient 1-9 of
+    some component is incomplete. Returns the coef_bits latch of the first
+    10 coefficients, (components, 10) int64, or None. (libjpeg reads the
+    bits from before the last scan in rows past the last complete one of
+    a scan cut short; every scan here is complete, as PIL's load of a
+    truncated file fails.)"""
     first10 = ZIGZAG[:10]
-    if (frame.coef_bits[:, 0] < 0).any():
-        return
     for c in range(len(frame.ids)):
         q = frame.quant[c]
-        if q is None or (q[first10] == 0).any():
-            return
-    if (frame.coef_bits[:, 1:10] != 0).any():
-        raise _unsupported(path, "progressive (with coefficients 0-9 left "
-                           "incomplete, which libjpeg block-smooths)")
+        if q is None or (q[first10] == 0).any() or frame.coef_bits[c, 0] < 0:
+            return None
+    latch = np.ascontiguousarray(frame.coef_bits[:, :10])
+    if not (latch[:, 1:] != 0).any():
+        return None
+    return latch
+
+
+def open_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """decode_jpeg of a file PIL's JPEG plugin identifies. Its _open reads
+    the markers up to the first SOS; a frame header of a precision other
+    than 8 bits or of a component count other than 1, 3 or 4 raises
+    SyntaxError there, and so does a file with no frame header or one of
+    width or height 0 (ImageFile's own SyntaxError, "not identified"): the
+    port's UnidentifiedImageError, which lets decode_ldr try the formats
+    after JPEG, as Image.open does."""
+    from tracerboy_tpu_torch.core.image_io import UnidentifiedImageError
+
+    size = None
+    for code, seg in _segments(data, path):
+        if code in _SOF_KINDS or code in _SOF_REFUSED:
+            if len(seg) < 6:
+                raise UnidentifiedImageError(f"{path}: short SOF segment")
+            prec, h, w, nc = struct.unpack_from(">BHHB", seg)
+            if prec != 8 or nc not in (1, 3, 4):
+                raise UnidentifiedImageError(
+                    f"{path}: cannot handle a {prec}-bit, {nc}-component "
+                    "frame")
+            size = (w, h)
+        if code == 0xD9:
+            break
+    if size is None or 0 in size:
+        raise UnidentifiedImageError(f"{path}: not identified as JPEG "
+                                     f"(frame size {size})")
+    return decode_jpeg(data, path)
 
 
 def read_jpeg(path: str) -> np.ndarray:
