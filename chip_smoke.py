@@ -272,13 +272,26 @@ Phases, each fatal on failure:
      BLP2 leaf whose alpha makes the cutouts, as in 22, again with the
      Sun RLE albedo and the RGBA IM leaf, and again with the BLP1-CMYK
      albedo and the PNG leaf;
- 29. a JSON line of the seven kernels (launches from the run of the path
+ 29. the port's image writer (writers_phase: core/image_save.py behind
+     image_io.write_png, JPEG's pixel stages and entropy coder in
+     csrc/jpeg_encode.cpp): every committed input of tests/data/write in
+     L, LA, RGB and RGBA written under every extension PIL saves, each
+     file's sha256 equal to the manifest's (PIL's; a PNG by its inflated
+     stream and other chunks where zlib differs), PIL's error class where
+     PIL refuses, ROADMAP item 25 where the encoder is not ported yet; the
+     CLI on "shadertoy" at 1280x720, 2 spp, --out w.jpg --capture-every
+     2: two byte-identical JPEG files, read back at 1280x720, its
+     closest- and any-hit launches held against the plain version on at
+     most CHECK_LANES live lanes each; write_png of its image as .jpg,
+     .png, .bmp and .tif timed on the host;
+ 30. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
      2 also by the volume run's, the adaptive residual wave's, the
-     animation phase's, the ML dataset's, the sharded runs' and the JPEG,
-     DDS, TIFF, WebP, JPEG 2000, AVIF and small-format scenes' launches),
-     then the result line {"ok": true, "device": {...}} last.
+     animation phase's, the ML dataset's, the sharded runs', the JPEG,
+     DDS, TIFF, WebP, JPEG 2000, AVIF and small-format scenes' and the
+     writers phase's launches), then the result line {"ok": true,
+     "device": {...}} last.
 
 Imports nothing of JAX or the JAX package (the UNet weights and the JPEG
 and DDS fixtures are data files read by path).
@@ -1968,7 +1981,7 @@ def textured_launch_check(calls, kinds, rng, chunk=1 << 20, measure=True):
     dead lanes must miss), and with measure timed on the card alone
     (time_runs, ahead=True) beside its bound (bench_traverse.walk_bound
     of the walk of every lane, live rays only, counted in chunks of
-    `chunk` rays); sums by kind."""
+    `chunk` rays); sums by kind (ms and bound_ms None unmeasured)."""
     from tracerboy_tpu_torch.trace import kernels, traverse
     from tracerboy_tpu_torch.utils.bench_traverse import (
         time_runs,
@@ -2018,6 +2031,8 @@ def textured_launch_check(calls, kinds, rng, chunk=1 << 20, measure=True):
         del k, p
     for row in by_kind.values():
         row["live_share"] = row["live"] / max(row["lanes"], 1)
+        if not measure:
+            row["ms"] = row["bound_ms"] = None
     return by_kind, bad
 
 
@@ -2502,11 +2517,12 @@ VOLUME_DENSITY_SCALE = 0.25
 SPLAT_LOSS_RTOL = 0.05
 
 
-def anyhit_launch_check(calls, rng, chunk=1 << 20):
+def anyhit_launch_check(calls, rng, chunk=1 << 20, measure=True):
     """Each recorded any-hit launch (o, d, t_max, nodes, tris_bw) through
     the kernel, held against anyhit_plain on at most CHECK_LANES of its
-    live lanes (0 occlusion mismatches; dead lanes unoccluded), timed on
-    the card alone beside its bound (walk_bound, live rays only); sums."""
+    live lanes (0 occlusion mismatches; dead lanes unoccluded), with
+    measure timed on the card alone beside its bound (walk_bound, live
+    rays only); sums (ms and bound_ms None unmeasured)."""
     import functools
 
     from tracerboy_tpu_torch.trace import kernels, traverse
@@ -2528,11 +2544,14 @@ def anyhit_launch_check(calls, rng, chunk=1 << 20):
             lambda: traverse.anyhit_plain(o[sel], d[sel], tm[sel], nodes,
                                           tris))
         _, st = check_anyhit(k[sel], p)
-        ms = float(np.median(time_runs(
-            lambda: traverse.any_hit(o, d, tm, nodes, tris), 5, o.device,
-            ahead=True)))
-        b_ms, b_by, _, _ = walk_bound(o, d, tm, nodes, tris, footprint, 1,
-                                      chunk=chunk, live_rays_only=True)
+        ms, b_ms, b_by = 0.0, 0.0, "not measured"
+        if measure:
+            ms = float(np.median(time_runs(
+                lambda: traverse.any_hit(o, d, tm, nodes, tris), 5,
+                o.device, ahead=True)))
+            b_ms, b_by, _, _ = walk_bound(o, d, tm, nodes, tris, footprint,
+                                          1, chunk=chunk,
+                                          live_rays_only=True)
         tot["launches"] += 1
         tot["lanes"] += o.shape[0]
         tot["live"] += live_idx.numel()
@@ -2548,6 +2567,8 @@ def anyhit_launch_check(calls, rng, chunk=1 << 20):
         tot["max_abs_err"] = max(tot["max_abs_err"], st["max_abs_err"])
         del k, p
     tot["live_share"] = tot["live"] / max(tot["lanes"], 1)
+    if not measure:
+        tot["ms"] = tot["bound_ms"] = None
     return tot
 
 
@@ -3816,6 +3837,7 @@ AVIF_DIR = Path(__file__).resolve().parent / "tests" / "data" / "avif"
 SMALL_DIR = Path(__file__).resolve().parent / "tests" / "data" / "small"
 SMALL2_DIR = Path(__file__).resolve().parent / "tests" / "data" / "small2"
 SMALL3_DIR = Path(__file__).resolve().parent / "tests" / "data" / "small3"
+WRITE_DIR = Path(__file__).resolve().parent / "tests" / "data" / "write"
 
 
 def spp_reference(r, D, n):
@@ -4550,6 +4572,203 @@ def small_runs(torch, tmp):
                      for k in launches}
 
 
+def writers_phase(torch):
+    """writers_runs in a temporary directory that is removed after it."""
+    with tempfile.TemporaryDirectory(prefix="tb_write_") as tmp:
+        return writers_runs(torch, tmp)
+
+
+def write_fixtures_module():
+    """tests/make_write_fixtures.py loaded by path (it imports only numpy
+    when loaded): its image_of and png_parts make each mode's image and
+    split a PNG as the manifest made and split PIL's."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_write_fixtures", WRITE_DIR.parent.parent
+        / "make_write_fixtures.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def written_hashes(tmp) -> dict:
+    """Every committed input x mode x extension of tests/data/write
+    through core/image_save.save (what write_png writes), held against
+    manifest.json (PIL's Image.save, written by
+    tests/make_write_fixtures.py; the card's machine has no PIL): the
+    file's sha256; for a PNG where this machine's zlib is not the
+    manifest's, the inflated stream and the chunks other than IDAT, and
+    IDAT chunks of PIL's 65,536-byte buffer but the last; PIL's error
+    class; NotImplementedError naming ROADMAP item 25 for the encoders
+    not ported yet. Returns the counts by kind of check."""
+    import hashlib
+    import zlib
+
+    from tracerboy_tpu_torch.core import image_save
+
+    fixtures = write_fixtures_module()
+    with open(WRITE_DIR / "manifest.json") as f:
+        manifest = json.load(f)
+    with np.load(WRITE_DIR / "inputs.npz") as npz:
+        inputs = {k: npz[k] for k in npz.files}
+    same_zlib = zlib.ZLIB_RUNTIME_VERSION == manifest["zlib"]
+    counts = dict(bytes=0, png_stream=0, error=0, later=0)
+    bad = []
+    for key, entry in sorted(manifest["entries"].items()):
+        name, mode, ext = key.split("/")
+        img = fixtures.image_of(inputs[name], mode)
+        path = os.path.join(tmp, "img" + ext)
+        data, err = None, None
+        try:
+            image_save.save(path, img)
+            data = Path(path).read_bytes()
+        except Exception as e:
+            err = e
+        if "later" in entry:
+            kind = "later"
+            ok = (isinstance(err, NotImplementedError)
+                  and image_save.ITEM in str(err))
+        elif "error" in entry:
+            kind = "error"
+            ok = type(err).__name__ == entry["error"]
+        elif data is None:
+            kind, ok = "bytes", False
+        elif "stream_sha256" in entry and not same_zlib:
+            kind = "png_stream"
+            got = fixtures.png_parts(data)
+            ok = (got["stream_sha256"] == entry["stream_sha256"]
+                  and got["frame_sha256"] == entry["frame_sha256"]
+                  and all(n == manifest["bufsize"] for n in got["idat"][:-1]))
+        else:
+            kind = "bytes"
+            ok = hashlib.sha256(data).hexdigest() == entry["sha256"]
+        counts[kind] += 1
+        if not ok:
+            bad.append((key, entry, repr(err)))
+    counts["zlib"] = zlib.ZLIB_RUNTIME_VERSION
+    counts["manifest_zlib"] = manifest["zlib"]
+    print("writers files against PIL's hashes:", json.dumps(counts))
+    if bad or not counts["bytes"]:
+        fail(f"writers: {len(bad)} files differ from PIL's: {bad[:10]}")
+    return counts
+
+
+def writers_runs(torch, tmp):
+    """The port's image writer (core/image_save.py behind
+    image_io.write_png; JPEG's pixel stages and entropy coder in
+    csrc/jpeg_encode.cpp, g++ at first use), on the card's machine, which
+    has no PIL. (a) written_hashes. (b) The CLI on "shadertoy" at
+    1280x720, 2 spp, --out w.jpg --capture-every 2: w.jpg and
+    w_00002.jpg JPEG files, byte for byte the same, read back by the
+    port's JPEG decoder at 1280x720; its closest- and any-hit launches
+    recorded and held against the plain version on at most CHECK_LANES
+    live lanes each (textured_launch_check, anyhit_launch_check: 0
+    mismatches outside ties, 0 occlusion mismatches, no overflow). (c)
+    write_png of that image as .jpg, .png, .bmp and .tif: host ms,
+    medians of 5, with the host's CPU and the card line. Returns
+    (results, launches of (b))."""
+    from tracerboy_tpu_torch.app import cli
+    from tracerboy_tpu_torch.core import image_io
+    from tracerboy_tpu_torch.trace import kernels, traverse
+
+    set_opt_in()
+    os.makedirs(os.path.join(tmp, "hashes"))
+    results = {"files": written_hashes(os.path.join(tmp, "hashes"))}
+    tmp = os.path.join(tmp, "cli")
+    os.makedirs(tmp)
+    recorded = {"any_hit": [], "closest_hit": []}
+    real = {key: getattr(traverse, key) for key in recorded}
+    real_write = image_io.write_png
+    images = []
+
+    def recorder(key):
+        def recording(o, d, t_max, nodes, tris_bw, roots=None):
+            if roots is not None:
+                fail(f"writers CLI: a {key} launch with per-ray roots")
+            recorded[key].append((o.clone(), d.clone(), t_max.clone(),
+                                  nodes, tris_bw))
+            return real[key](o, d, t_max, nodes, tris_bw)
+        return recording
+
+    def keep_image(path, img):
+        images.append(np.array(img))
+        real_write(path, img)
+
+    out = os.path.join(tmp, "w.jpg")
+    kernels.reset_counters()
+    for key in recorded:
+        setattr(traverse, key, recorder(key))
+    image_io.write_png = keep_image
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["shadertoy", "--size", "x".join(map(str, FULL_WAVE)),
+                       "--spp", "2", "--out", out, "--capture-every", "2",
+                       "--quiet"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        for key, fn in real.items():
+            setattr(traverse, key, fn)
+        image_io.write_png = real_write
+    launches = dict(kernels.LAUNCHES)
+    overflows = kernels.stack_overflows()
+    if rc != 0:
+        fail(f"writers CLI: exit {rc}")
+    if launches["closest"] <= 0 or launches["anyhit"] <= 0 or overflows:
+        fail(f"writers CLI: launches {launches}, {overflows} overflows")
+    final, capture = Path(out), Path(tmp) / "w_00002.jpg"
+    files = sorted(os.listdir(tmp))
+    if not (capture.exists() and final.read_bytes() == capture.read_bytes()
+            and final.read_bytes()[:4] == b"\xff\xd8\xff\xe0"):
+        fail(f"writers CLI: w.jpg and w_00002.jpg are not one JPEG "
+             f"({files})")
+    back = image_io.decode_ldr(out)
+    if back.shape != (FULL_WAVE[1], FULL_WAVE[0], 3):
+        fail(f"writers CLI: w.jpg reads back as {back.shape}")
+    check_image("writers CLI", images[-1])
+    rng = np.random.default_rng(20261018)
+    calls = recorded["closest_hit"]
+    by_kind, bad = textured_launch_check(calls, ["writers"] * len(calls),
+                                         rng, measure=False)
+    closest = by_kind.get("writers")
+    anyhit = anyhit_launch_check(recorded["any_hit"], rng, measure=False)
+    del calls, recorded
+    if (bad or closest is None or closest["id_mismatch_outside_ties"]
+            or closest["overflows"] or closest["dead_lane_hits"]
+            or anyhit["occ_mismatch"] or anyhit["overflows"]
+            or anyhit["dead_lane_hits"]):
+        fail(f"writers CLI launches disagree with the plain version: "
+             f"{closest}, {anyhit}, {bad}")
+    results["cli"] = dict(rc=rc, seconds=seconds, launches=launches,
+                          files=files, jpeg_bytes=final.stat().st_size,
+                          read_back=list(back.shape))
+    results["closest"], results["anyhit"] = closest, anyhit
+    print("writers CLI shadertoy 1280x720 2 spp --out w.jpg "
+          "--capture-every 2:", json.dumps(results["cli"]))
+    print("writers closest-hit launches vs plain:", json.dumps(closest))
+    print("writers any-hit launches vs plain:", json.dumps(anyhit))
+    img = images[-1]
+    times = {}
+    for ext in ("jpg", "png", "bmp", "tif"):
+        path = os.path.join(tmp, f"t.{ext}")
+        secs = []
+        for _ in range(5):
+            t = time.perf_counter()
+            image_io.write_png(path, img)
+            secs.append(time.perf_counter() - t)
+        times[ext] = dict(ms=[1e3 * x for x in secs],
+                          median_ms=float(np.median(secs)) * 1e3,
+                          bytes=os.path.getsize(path))
+    results["write_1280x720"] = dict(times, cpu=host_cpu(),
+                                     cpu_count=os.cpu_count(),
+                                     card=card_line())
+    print("writers write_png 1280x720 (host ms, medians of 5):",
+          json.dumps(results["write_1280x720"]))
+    torch.cuda.empty_cache()
+    return results, launches
+
+
 def main() -> int:
     print(card_line())
     import torch
@@ -4801,6 +5020,9 @@ def main() -> int:
                    **{f"{pre}_{k}": v for pre in ("small2", "small3")
                       for k, v in small_res[f"{pre}_kinds"].items()}}
     lap("small")
+    writers_res, writers_launches = writers_phase(torch)
+    writers_c, writers_a = writers_res["closest"], writers_res["anyhit"]
+    lap("writers")
     print("phase seconds:", json.dumps(laps))
 
     def by_path(key):
@@ -4816,7 +5038,8 @@ def main() -> int:
                 "jpeg": jpeg_launches[key], "dds": dds_launches[key],
                 "tiff": tiff_launches[key], "webp": webp_launches[key],
                 "j2k": j2k_launches[key], "avif": avif_launches[key],
-                "small": small_launches[key]}
+                "small": small_launches[key],
+                "writers": writers_launches[key]}
 
     trav = "tracerboy_tpu_torch/csrc/bvh_traverse.cu"
     bsrc = "tracerboy_tpu_torch/csrc/binned.cu"
@@ -4839,7 +5062,8 @@ def main() -> int:
                               *jpeg_kinds.values(), *dds_kinds.values(),
                               *tiff_kinds.values(),
                               *webp_kinds.values(), *j2k_kinds.values(),
-                              *avif_kinds.values(), *small_kinds.values()]),
+                              *avif_kinds.values(), *small_kinds.values(),
+                              writers_c]),
              id_mismatch_outside_ties=sum(
                  s["id_mismatch_outside_ties"]
                  for s in [st_c, st_c2, un_c, *roots_c, env_closest,
@@ -4849,7 +5073,8 @@ def main() -> int:
                            *jpeg_kinds.values(), *dds_kinds.values(),
                            *tiff_kinds.values(),
                            *webp_kinds.values(), *j2k_kinds.values(),
-                           *avif_kinds.values(), *small_kinds.values()]),
+                           *avif_kinds.values(), *small_kinds.values(),
+                           writers_c]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
              unordered_ms=un_times["closest_ms"],
              unordered_plain_ms=un_times["closest_plain_ms"],
@@ -4899,7 +5124,8 @@ def main() -> int:
                  "hit_mismatch", "id_mismatch_outside_ties", "ties",
                  "max_abs_err", "overflows")},
              **{f"{pre}_{key}": row[key]
-                for pre, row in (("ml", ml_c), ("sharding", shard_c))
+                for pre, row in (("ml", ml_c), ("sharding", shard_c),
+                                 ("writers", writers_c))
                 for key in (
                  "launches", "lanes", "live", "live_share", "checked",
                  "hit_mismatch", "id_mismatch_outside_ties", "ties",
@@ -4941,6 +5167,9 @@ def main() -> int:
              small_cli=small_res["cli"],
              small2_cli=small_res["small2_cli"],
              small3_cli=small_res["small3_cli"],
+             writers_cli=writers_res["cli"],
+             writers_files=writers_res["files"],
+             writers_write_1280x720=writers_res["write_1280x720"],
              volume_run=vol_res["run"],
              volume_control=vol_res["control"],
              estimators={k: {kk: vv for kk, vv in v.items()
@@ -4970,10 +5199,10 @@ def main() -> int:
              launches_by_path=by_path("anyhit"),
              occ_mismatch=sum(s["occ_mismatch"]
                               for s in [st_a, st_a2, un_a, *roots_a,
-                                        anim_a, ml_a, shard_a]),
+                                        anim_a, ml_a, shard_a, writers_a]),
              max_abs_err=max(s["max_abs_err"]
                              for s in [st_a, st_a2, un_a, *roots_a,
-                                       anim_a, ml_a, shard_a]),
+                                       anim_a, ml_a, shard_a, writers_a]),
              ms=times["anyhit_ms"], plain_ms=times["anyhit_plain_ms"],
              unordered_ms=un_times["anyhit_ms"],
              unordered_plain_ms=un_times["anyhit_plain_ms"],
@@ -4991,7 +5220,8 @@ def main() -> int:
                  "ms", "plain_ms", "bound_ms", "bound_by", "occ_mismatch",
                  "occluded", "max_abs_err", "overflows")},
              **{f"{pre}_{key}": row[key]
-                for pre, row in (("ml", ml_a), ("sharding", shard_a))
+                for pre, row in (("ml", ml_a), ("sharding", shard_a),
+                                 ("writers", writers_a))
                 for key in (
                  "launches", "lanes", "live", "live_share", "checked",
                  "occ_mismatch", "occluded", "max_abs_err", "overflows")}),

@@ -1,0 +1,148 @@
+"""Write the inputs of the port's image writer tests and PIL's hashes of
+what Image.save writes for them.
+
+    PYTHONPATH=. python tests/make_write_fixtures.py [OUT_DIR]
+
+Writes into tests/data/write/ (or OUT_DIR):
+- inputs.npz: three RGBA uint8 images made from a seed, named W x H:
+  1x1, 37x53 and 257x131 (odd widths: BMP's and PCX's row padding, a
+  JPEG's partial MCUs), each a flat block (QOI runs, PNG's Up and Sub
+  rows), a gradient of small steps (QOI's DIFF and LUMA ops) and noise;
+  an input's L, LA and RGB images are its first 1, 2 and 3 channels
+  (L the first channel alone);
+- manifest.json: for each input, mode and extension of PIL 12.1's
+  EXTENSION table with a save handler, what
+  Image.fromarray(img).save("img" + ext) gave: the sha256 and size of
+  the file, or the class of PIL's error; for PNG also the sha256 of the
+  inflated IDAT stream and of the file without its IDAT chunks, and the
+  IDAT lengths (another zlib writes other deflate bytes); for the formats
+  the port does not write yet (LATER) only whether PIL wrote one. PIL's
+  and zlib's versions are recorded.
+
+tests/test_torch_image_write.py holds the port's image_save against the
+manifest and checks the manifest against PIL on this machine;
+chip_smoke.py's writers phase holds it against the manifest on the card's
+machine, which has no PIL.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import struct
+import sys
+import tempfile
+import zlib
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+FIXTURE_DIR = os.path.join(HERE, "data", "write")
+SIZES = ((1, 1), (37, 53), (257, 131))          # (width, height)
+MODES = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}
+# The formats whose encoders the port has not ported (ROADMAP item 25).
+LATER = ("WEBP", "AVIF", "JPEG2000", "GIF", "ICO", "ICNS", "EPS", "PDF")
+
+
+def make_input(width: int, height: int, seed: int) -> np.ndarray:
+    """(H, W, 4) uint8: noise, a flat block at the top left, small steps
+    at the bottom left, alpha 255 outside the noise."""
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (height, width, 4), dtype=np.uint8)
+    hh, hw = (height + 1) // 2, (width + 1) // 2
+    img[:hh, :hw] = (200, 120, 40, 255)
+    y, x = np.mgrid[hh:height, 0:hw]
+    img[hh:, :hw, 0] = (2 * x + y) % 256
+    img[hh:, :hw, 1] = (x + 3 * y) % 256
+    img[hh:, :hw, 2] = (5 * x) % 256
+    img[hh:, :hw, 3] = 255
+    return img
+
+
+def inputs() -> dict:
+    return {f"{w}x{h}": make_input(w, h, 20261018 + k)
+            for k, (w, h) in enumerate(SIZES)}
+
+
+def image_of(rgba: np.ndarray, mode: str) -> np.ndarray:
+    c = MODES[mode]
+    return rgba[..., 0] if c == 1 else np.ascontiguousarray(rgba[..., :c])
+
+
+def png_parts(data: bytes) -> dict:
+    """The sha256 of a PNG's inflated IDAT stream and of its chunks other
+    than IDAT, and its IDAT lengths."""
+    pos, idat, frame, lengths = 8, b"", data[:8], []
+    while pos < len(data):
+        n, kind = struct.unpack_from(">I4s", data, pos)
+        chunk = data[pos:pos + 12 + n]
+        if kind == b"IDAT":
+            idat += chunk[8:8 + n]
+            lengths.append(n)
+        else:
+            frame += chunk
+        pos += 12 + n
+    return dict(stream_sha256=hashlib.sha256(zlib.decompress(idat))
+                .hexdigest(),
+                frame_sha256=hashlib.sha256(frame).hexdigest(),
+                idat=lengths)
+
+
+def pil_entry(img: np.ndarray, ext: str, directory: str) -> dict:
+    """What PIL's Image.fromarray(img).save(directory/"img" + ext) gives."""
+    from PIL import Image
+
+    path = os.path.join(directory, "img" + ext)
+    fmt = Image.EXTENSION[ext]
+    try:
+        Image.fromarray(img).save(path)
+    except Exception as e:
+        return dict(error=type(e).__name__)
+    with open(path, "rb") as f:
+        data = f.read()
+    os.remove(path)
+    if fmt in LATER:
+        return dict(later=True)
+    entry = dict(sha256=hashlib.sha256(data).hexdigest(), size=len(data))
+    if fmt == "PNG":
+        entry.update(png_parts(data))
+    return entry
+
+
+def save_extensions() -> list:
+    """The extensions of PIL's EXTENSION table whose format has a save
+    handler, in the table's order."""
+    from PIL import Image
+
+    Image.init()
+    return [e for e, f in Image.EXTENSION.items() if f in Image.SAVE]
+
+
+def manifest(images: dict) -> dict:
+    import PIL
+    from PIL import features
+
+    entries = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, rgba in images.items():
+            for mode in MODES:
+                for ext in save_extensions():
+                    entries[f"{name}/{mode}/{ext}"] = pil_entry(
+                        image_of(rgba, mode), ext, tmp)
+    return dict(pil=PIL.__version__, zlib=features.version("zlib"),
+                libjpeg_turbo=features.version("libjpeg_turbo"),
+                bufsize=65536, entries=entries)
+
+
+def main(out_dir: str = FIXTURE_DIR) -> None:
+    os.makedirs(out_dir, exist_ok=True)
+    images = inputs()
+    np.savez_compressed(os.path.join(out_dir, "inputs.npz"), **images)
+    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+        json.dump(manifest(images), f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:])

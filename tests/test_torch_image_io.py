@@ -78,14 +78,11 @@ def test_png_pixels_equal_the_jax_writer(tmp_path, kind):
                                       jio.read_ldr(str(tmp_path / "j.png")))
 
 
-def test_png_chunks(tmp_path):
-    """IHDR of an 8-bit RGB image, one IDAT of filter-0 rows, IEND, each
-    chunk's CRC."""
+def _png_idat(data):
+    """A PNG's chunk types and its concatenated IDAT bodies, each chunk's
+    CRC checked."""
     import zlib
 
-    img = np.linspace(0, 1, 5 * 7 * 3, dtype=np.float32).reshape(5, 7, 3)
-    tio.write_png(str(tmp_path / "t.png"), img)
-    data = (tmp_path / "t.png").read_bytes()
     assert data[:8] == b"\x89PNG\r\n\x1a\n"
     pos, kinds, idat = 8, [], b""
     while pos < len(data):
@@ -93,16 +90,29 @@ def test_png_chunks(tmp_path):
         body = data[pos + 8:pos + 8 + n]
         crc = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0]
         assert crc == zlib.crc32(kind + body) & 0xFFFFFFFF
-        if kind == b"IHDR":
-            assert struct.unpack(">IIBBBBB", body) == (7, 5, 8, 2, 0, 0, 0)
         idat += body if kind == b"IDAT" else b""
         kinds.append(kind)
         pos += 12 + n
+    return kinds, idat
+
+
+def test_png_chunks(tmp_path):
+    """IHDR of an 8-bit RGB image, one IDAT, IEND, each chunk's CRC; the
+    rows filtered as PIL's encoder filters them (the JAX writer's inflated
+    stream), unfiltered to the quantised pixels."""
+    import zlib
+
+    img = np.linspace(0, 1, 5 * 7 * 3, dtype=np.float32).reshape(5, 7, 3)
+    tio.write_png(str(tmp_path / "t.png"), img)
+    jio.write_png(str(tmp_path / "j.png"), img)
+    data = (tmp_path / "t.png").read_bytes()
+    kinds, idat = _png_idat(data)
+    assert struct.unpack(">IIBBBBB", data[16:29]) == (7, 5, 8, 2, 0, 0, 0)
+    _, ref_idat = _png_idat((tmp_path / "j.png").read_bytes())
     assert kinds == [b"IHDR", b"IDAT", b"IEND"]
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(5, 22)
-    assert (rows[:, 0] == 0).all()
+    assert zlib.decompress(idat) == zlib.decompress(ref_idat)
     q = (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)
-    assert np.array_equal(rows[:, 1:].reshape(5, 7, 3), q)
+    assert np.array_equal(tio.read_png(str(tmp_path / "t.png"))[0], q)
 
 
 def _write_rle_hdr(path, rgbe):

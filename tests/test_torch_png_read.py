@@ -116,7 +116,7 @@ def test_tiny_interlaced_images(tmp_path, size):
 
 
 def test_written_pngs_read_back(tmp_path):
-    """The port's own writer (filter 0, one IDAT) round-trips."""
+    """The port's own writer (PIL's row filters) round-trips."""
     img = RGBA[..., :3] / np.float32(255.0)
     image_io.write_png(str(tmp_path / "w.png"), img)
     np.testing.assert_array_equal(

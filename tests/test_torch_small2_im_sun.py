@@ -71,7 +71,7 @@ def test_fixtures_cover_the_readers():
 @pytest.mark.parametrize("name", ("albedo.ras", "albedo_raw.ras",
                                   "albedo.im", "leaf.im"))
 def test_writers_round_trip_through_pil(tmp_path, name):
-    """write_sun (RLE and raw) and write_im (RGB, RGBA) write what PIL
+    """write_sun (RLE and raw) and write_png to .im (RGB, RGBA) write what PIL
     reads back as the image written, and the port reads it the same."""
     rng = np.random.default_rng(len(name))
     img = (rng.integers(0, 4, (9, 12, 4 if "leaf" in name else 3))
@@ -81,7 +81,7 @@ def test_writers_round_trip_through_pil(tmp_path, name):
     if name.endswith(".ras"):
         sun.write_sun(str(path), img, rle="raw" not in name)
     else:
-        im.write_im(str(path), img)
+        image_io.write_png(str(path), img)
     assert np.array_equal(pil_pixels(str(path)), img)
     assert np.array_equal(image_io.decode_ldr(str(path)), img)
 

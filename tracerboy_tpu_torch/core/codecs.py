@@ -25,7 +25,10 @@ ctypes:
   csrc/av1_filters.inc and its film grain in csrc/av1_grain.inc, and
   libavif's YUV-to-RGB, its float routines in csrc/avif_reformat.inc),
   for core/avif.py, with -ffp-contract=off: the float routines repeat
-  libavif's single-precision steps.
+  libavif's single-precision steps;
+- jpeg_encode_library(): csrc/jpeg_encode.cpp (the pixel stages and the
+  entropy coder of libjpeg-turbo's baseline writer), for
+  core/image_save.py.
 """
 
 from __future__ import annotations
@@ -131,3 +134,11 @@ def small_library():
         ("tb_xbm_decode", [p, i64, p, i64, i64]),
         ("tb_bit_decode", [p, i64, p, i64, i64, i64]),
         ("tb_fli_decode", [p, i64, p, i64, i64, p])))
+
+
+def jpeg_encode_library():
+    import ctypes
+
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    return _load("tbjpegenc", "jpeg_encode.cpp", (), (
+        ("tb_jpeg_encode_scan", [p, i64, i64, i64, p, p, p, i64]),))

@@ -29,8 +29,8 @@ not two positive numbers; ValueError where PIL lets another error out
 (a size field that is no number, an unknown type or one without an
 unpacker, RLB and PA without a colour Lut, data cut short).
 
-write_im writes an RGB or RGBA image as PIL's writer does (RGB;L or
-RGBA;L rows, bottom-up, the header padded to 512 bytes).
+The writer is core/image_save.save_im, reached by image_io.write_png on
+a path ending in .im.
 """
 
 from __future__ import annotations
@@ -214,23 +214,3 @@ def read_im(data: bytes, path: str = "<im>") -> np.ndarray:
     lines = raw_lines(data, offset, h, w, rawmode, path)[::-1]
     return as_read_ldr(unpack_raw(lines, w, rawmode), mode, palette)
 
-
-def write_im(path: str, img: np.ndarray) -> None:
-    """Write an RGB or RGBA image, (H, W, 3|4) uint8 (or floats in [0,1],
-    quantised as write_png quantises them), as an IM file: PIL's header
-    (type, name, size, frame count; NUL-padded to 511 bytes, then 0x1A)
-    and the planar rows bottom-up."""
-    from tracerboy_tpu_torch.core.image_io import _to_uint8
-
-    img = _to_uint8(img)
-    h, w, c = img.shape
-    if c not in (3, 4):
-        raise ValueError(f"write_im takes RGB or RGBA, not {c} channels")
-    kind = "RGBA" if c == 4 else "RGB"
-    name = path.replace("\\", "/").rsplit("/", 1)[-1][-92:]
-    header = (f"Image type: {kind} image\r\nName: {name}\r\n"
-              f"Image size (x*y): {w}*{h}\r\nFile size (no of images): 1"
-              "\r\n").encode("latin-1")
-    rows = np.ascontiguousarray(img[::-1].transpose(0, 2, 1))
-    with open(path, "wb") as f:
-        f.write(header.ljust(511, b"\0") + b"\x1a" + rows.tobytes())

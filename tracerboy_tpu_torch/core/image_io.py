@@ -12,8 +12,9 @@ codec below, on zlib and struct.
 Formats:
 - PNG: read by read_png (every colour type and bit depth, palettes,
   Adam7; row filters undone by csrc/png_unfilter.cpp) and converted as
-  the JAX read_ldr's PIL calls convert it; written by write_png (8-bit
-  gray/RGB/RGBA, filter 0, one zlib stream).
+  the JAX read_ldr's PIL calls convert it. write_png writes the format
+  the path's extension names, byte for byte as PIL's Image.save writes
+  it (core/image_save.py).
 - TGA (read_tga: uncompressed and RLE; colour-mapped with 16- and
   24-bit maps, grey at 1, 8 and 16 bits, colour at 16, 24 and 32 bits;
   either origin) and BMP (read_bmp: OS/2 to V5 headers; 1-, 4- and
@@ -260,11 +261,12 @@ def check_image_size(width: int, height: int, path: str) -> None:
                          "PIL opens (decompression bomb)")
 
 
-class UnidentifiedImageError(NotImplementedError):
+class UnidentifiedImageError(NotImplementedError, OSError):
     """A file whose header names a format that its reader then cannot
     identify (where PIL's plugin raises SyntaxError, IndexError, TypeError
     or struct.error): PIL passes such a file on to the formats it tries
-    later, and raises UnidentifiedImageError where none takes it."""
+    later, and raises UnidentifiedImageError where none takes it. An
+    OSError, as PIL's is."""
 
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -276,15 +278,14 @@ PNG_FORMATS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)),
 ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
           (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
-_unfilter_lib = None
+_png_lib = None
 
 
-def _unfilter(raw: np.ndarray, rows: int, rowbytes: int, bpp: int,
-              path: str) -> np.ndarray:
-    """Undo the row filters of one image or Adam7 pass
-    (csrc/png_unfilter.cpp); (rows, rowbytes) uint8."""
-    global _unfilter_lib
-    if _unfilter_lib is None:
+def png_library():
+    """csrc/png_unfilter.cpp (tb_png_unfilter for the reader, tb_png_filter
+    for core/image_save.py's writer), built with g++ at first use."""
+    global _png_lib
+    if _png_lib is None:
         import ctypes
 
         from tracerboy_tpu_torch.utils.build import (
@@ -296,14 +297,21 @@ def _unfilter(raw: np.ndarray, rows: int, rowbytes: int, bpp: int,
             "tbpng", [REPO_ROOT / "tracerboy_tpu_torch" / "csrc"
                       / "png_unfilter.cpp"],
             ["g++", "-O2", "-shared", "-fPIC"])))
-        lib.tb_png_unfilter.restype = ctypes.c_int64
-        lib.tb_png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                        ctypes.c_int64, ctypes.c_int64,
-                                        ctypes.c_int64]
-        _unfilter_lib = lib
+        for fn in (lib.tb_png_unfilter, lib.tb_png_filter):
+            fn.restype = ctypes.c_int64
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                           ctypes.c_int64, ctypes.c_int64]
+        _png_lib = lib
+    return _png_lib
+
+
+def _unfilter(raw: np.ndarray, rows: int, rowbytes: int, bpp: int,
+              path: str) -> np.ndarray:
+    """Undo the row filters of one image or Adam7 pass
+    (csrc/png_unfilter.cpp); (rows, rowbytes) uint8."""
     src = np.ascontiguousarray(raw, np.uint8)
     out = np.empty((rows, rowbytes), np.uint8)
-    bad = _unfilter_lib.tb_png_unfilter(src.ctypes.data, out.ctypes.data,
+    bad = png_library().tb_png_unfilter(src.ctypes.data, out.ctypes.data,
                                         rows, rowbytes, bpp)
     if bad:
         raise ValueError(f"{path}: unknown PNG filter type "
@@ -465,15 +473,20 @@ def png_chunk(kind: bytes, data: bytes) -> bytes:
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """Write a float image in [0,1] (H, W), (H, W, 3|4) or uint8 as an
-    8-bit PNG, quantised as the JAX package does (clip, then x*255+0.5
-    truncated): IHDR, one IDAT of filter-0 rows, IEND."""
-    with open(path, "wb") as f:
-        f.write(encode_png(img))
+    """Write a float image in [0,1] or a uint8 one, quantised as the JAX
+    write_png quantises it (clip, then x*255+0.5 truncated), in the format
+    its path's extension names, as the JAX write_png's PIL Image.save
+    writes it (core/image_save.py: PNG, JPEG, BMP, TGA, TIFF, ...; an
+    extension PIL does not know raises ValueError)."""
+    from tracerboy_tpu_torch.core.image_save import save
+
+    save(path, _to_uint8(img))
 
 
 def encode_png(img: np.ndarray) -> bytes:
-    """write_png's file as bytes."""
+    """A float image in [0,1] (H, W), (H, W, 3|4) or uint8 as an 8-bit
+    PNG, quantised as write_png quantises it: IHDR, one IDAT of filter-0
+    rows, IEND (the layout of the demo ICNS entries, core/icns.py)."""
     img = _to_uint8(img)
     if img.ndim == 2:
         img = img[..., None]

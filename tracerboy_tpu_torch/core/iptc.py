@@ -101,6 +101,8 @@ def iptc_layout(data: bytes, path: str = "<iptc>") -> dict:
     except (SyntaxError, IndexError, TypeError, KeyError,
             struct.error) as e:
         raise unidentified(path, f"IPTC: {e!r}") from None
+    except UnidentifiedImageError:
+        raise
     except OSError as e:
         raise ValueError(f"{path}: {e}") from None
 
@@ -191,6 +193,8 @@ def read_iptc(data: bytes, path: str = "<iptc>") -> np.ndarray:
             if tag != (8, 10):
                 break
             inner.append(f.read(size))
+    except UnidentifiedImageError:
+        raise
     except (SyntaxError, OSError, IndexError, struct.error) as e:
         raise ValueError(f"{path}: IPTC image records: {e}") from None
     inner = b"".join(inner)

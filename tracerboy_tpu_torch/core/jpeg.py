@@ -39,10 +39,12 @@ as libjpeg skips them.
 Refused as PIL refuses them: a frame of a precision other than 8 bits
 (12-bit among them), of a component count other than 1, 3 or 4, or of
 height or width 0 (a DNL-sized frame) is not identified by PIL's JPEG
-plugin (open_jpeg: decode_ldr goes on to the formats after JPEG, then
-raises "cannot identify image file"); hierarchical frames (SOF5-7,
-SOF13-15) and lossless arithmetic-coded ones (SOF11) raise OSError, as
-libjpeg's errors do in PIL's load. Coefficients beyond the 16-bit range
+plugin, nor is a file cut inside a header marker or a segment's length,
+a bad DQT segment or a marker PIL does not know (open_jpeg's walk of the
+header as JpegImageFile._open walks it: decode_ldr goes on to the
+formats after JPEG, then raises "cannot identify image file");
+hierarchical frames (SOF5-7, SOF13-15) and lossless arithmetic-coded
+ones (SOF11) raise OSError, as libjpeg's errors do in PIL's load. Coefficients beyond the 16-bit range
 of the SIMD IDCT PIL runs raise NotImplementedError naming their
 ROADMAP.md item (no 8-bit encoder writes them; csrc/jpeg_decode.cpp
 kMaxDequant). Truncated or corrupt data raises OSError, as PIL's load
@@ -516,32 +518,103 @@ def _smoothing_bits(frame):
     return latch
 
 
-def open_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
-    """decode_jpeg of a file PIL's JPEG plugin identifies. Its _open reads
-    the markers up to the first SOS; a frame header of a precision other
-    than 8 bits or of a component count other than 1, 3 or 4 raises
-    SyntaxError there, and so does a file with no frame header or one of
-    width or height 0 (ImageFile's own SyntaxError, "not identified"): the
-    port's UnidentifiedImageError, which lets decode_ldr try the formats
-    after JPEG, as Image.open does."""
+# The markers PIL's JpegImagePlugin knows (MARKER) and how its _open
+# reads each: "sof", "dqt", "app", or "skip" (a segment read past);
+# None for the markers without a segment.
+_PIL_MARKERS = {
+    **{c: "sof" for c in (0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9,
+                          0xCA, 0xCB, 0xCD, 0xCE, 0xCF, 0xDE)},
+    **{c: "skip" for c in (0xC4, 0xCC, 0xDA, 0xDC, 0xDD, 0xDF, 0xFE)},
+    **{c: "app" for c in range(0xE0, 0xF0)},
+    0xDB: "dqt",
+    **{c: None for c in (0xC8, *range(0xD0, 0xDA), *range(0xF0, 0xFE))},
+}
+
+
+def _pil_open(data: bytes, path: str):
+    """PIL's JpegImageFile._open on a file that starts FF D8 FF: its
+    marker walk up to the first SOS, past any EOI. Where PIL's walk
+    raises SyntaxError, IndexError or struct.error (a file cut inside a
+    marker or a segment's length, a bad DQT, SOF or ICC segment, a marker
+    PIL does not know, a frame of a precision other than 8 bits or of a
+    component count other than 1, 3 or 4, no frame or one of width or
+    height 0), the file is not identified: the port's
+    UnidentifiedImageError. A segment cut short raises OSError, as
+    ImageFile._safe_read does."""
     from tracerboy_tpu_torch.core.image_io import UnidentifiedImageError
 
-    size = None
-    for code, seg in _segments(data, path):
-        if code in _SOF_KINDS or code in _SOF_REFUSED:
-            if len(seg) < 6:
-                raise UnidentifiedImageError(f"{path}: short SOF segment")
-            prec, h, w, nc = struct.unpack_from(">BHHB", seg)
-            if prec != 8 or nc not in (1, 3, 4):
-                raise UnidentifiedImageError(
-                    f"{path}: cannot handle a {prec}-bit, {nc}-component "
-                    "frame")
-            size = (w, h)
-        if code == 0xD9:
-            break
+    def unidentified(why):
+        return UnidentifiedImageError(f"{path}: cannot identify image file "
+                                      f"({why})")
+
+    pos, s = 3, b"\xff"
+    size, icc = None, []
+    while True:
+        if not s:
+            raise unidentified("no SOS before the end of the file")
+        if s[0] != 0xFF:
+            s, pos = data[pos:pos + 1], pos + 1
+            continue
+        if pos >= len(data):
+            raise unidentified("file cut inside a marker")
+        code, pos = data[pos], pos + 1
+        if code in _PIL_MARKERS:
+            kind = _PIL_MARKERS[code]
+            if kind is not None:
+                if pos + 2 > len(data):
+                    raise unidentified("file cut inside a segment length")
+                n = (data[pos] << 8 | data[pos + 1]) - 2
+                pos += 2
+                seg = data[pos:pos + max(n, 0)]
+                if len(seg) < n:
+                    raise _corrupt(path, "Truncated File Read")
+                pos += len(seg)
+                if kind == "app" and (
+                        (code == 0xE0 and seg.startswith(b"JFIF"))
+                        or (code == 0xEE and seg.startswith(b"Adobe"))) \
+                        and len(seg) < 7:
+                    raise unidentified("short JFIF or Adobe segment")
+                if code == 0xE2 and seg.startswith(b"ICC_PROFILE\0"):
+                    icc.append(seg)
+                if kind == "dqt":
+                    rest = seg
+                    while rest:
+                        length = 65 if rest[0] < 16 else 129
+                        if len(rest) < length:
+                            raise unidentified("bad quantization table "
+                                               "marker")
+                        rest = rest[length:]
+                if kind == "sof":
+                    if len(seg) < 6:
+                        raise unidentified("short SOF segment")
+                    prec, h, w, nc = struct.unpack_from(">BHHB", seg)
+                    if prec != 8 or nc not in (1, 3, 4):
+                        raise unidentified(f"a {prec}-bit, {nc}-component "
+                                           "frame")
+                    if icc and len(sorted(icc)[0]) < 14:
+                        raise unidentified("short ICC_PROFILE segment")
+                    icc = []
+                    if len(seg) > 6 and (len(seg) - 6) % 3:
+                        raise unidentified("SOF component cut short")
+                    size = (w, h)
+            if code == 0xDA:
+                break
+            s, pos = data[pos:pos + 1], pos + 1
+        elif code == 0xFF:
+            s = b"\xff"
+        elif code == 0x00:
+            s, pos = data[pos:pos + 1], pos + 1
+        else:
+            raise unidentified(f"no marker found (FF {code:02X})")
     if size is None or 0 in size:
-        raise UnidentifiedImageError(f"{path}: not identified as JPEG "
-                                     f"(frame size {size})")
+        raise unidentified(f"frame size {size}")
+
+
+def open_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """decode_jpeg of a file PIL's JPEG plugin identifies: _pil_open's
+    walk first, whose unidentified files decode_ldr passes on to the
+    formats after JPEG, as Image.open does."""
+    _pil_open(data, path)
     return decode_jpeg(data, path)
 
 

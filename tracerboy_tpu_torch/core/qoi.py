@@ -54,16 +54,22 @@ def read_qoi(data: bytes, path: str = "<qoi>") -> np.ndarray:
 
 def write_qoi(path: str, img: np.ndarray) -> None:
     """Write an 8-bit RGB or RGBA image, (H, W, 3|4) uint8 (or floats in
-    [0,1], quantised as write_png quantises them), as QOI with the
-    specification's encoder (csrc/webp_decode.cpp tb_qoi_encode)."""
+    [0,1], quantised as write_png quantises them), as QOI (encode_qoi)."""
     from tracerboy_tpu_torch.core.image_io import _to_uint8
 
-    img = np.ascontiguousarray(_to_uint8(img))
+    with open(path, "wb") as f:
+        f.write(encode_qoi(_to_uint8(img)))
+
+
+def encode_qoi(img: np.ndarray) -> bytes:
+    """An (H, W, 3|4) uint8 image as QOI with the specification's encoder,
+    which Pillow's QoiEncoder follows (colourspace byte 1, as Pillow
+    writes it): csrc/webp_decode.cpp tb_qoi_encode."""
+    img = np.ascontiguousarray(img)
     h, w, c = img.shape
     if c not in (3, 4):
         raise ValueError(f"QOI needs 3 or 4 channels, got {c}")
     out = np.empty(14 + h * w * (c + 1) + 8, np.uint8)
     n = webp_library().tb_qoi_encode(img.ctypes.data, h * w, c, w, h,
                                      out.ctypes.data)
-    with open(path, "wb") as f:
-        f.write(out[:n].tobytes())
+    return out[:n].tobytes()

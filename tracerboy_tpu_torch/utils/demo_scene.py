@@ -358,13 +358,13 @@ def write_small2_textures(directory: str) -> dict:
     """The textured scene's albedo (1024x1024 RGB) and leaf (512x512 RGBA)
     in more of PIL's small formats, in `directory`: albedo.ras (24-bit
     Sun RLE, core/sun.write_sun), albedo_raw.ras (24-bit raw Sun),
-    albedo.im (IM, planar RGB rows, core/im.write_im), albedo.xpm (the
+    albedo.im (IM, planar RGB rows, image_io.write_png), albedo.xpm (the
     albedo cut to 3-3-2 bits, 256 colours, two chars a pixel,
     core/xpm.write_xpm) and leaf.im (IM, planar RGBA rows, its alpha the
     cutouts). Returns {file name: path}; the retexture swaps are
     {"albedo.png": paths["albedo.ras"], "leaf.png": paths["leaf.im"]}."""
-    from tracerboy_tpu_torch.core import im, sun, xpm
-    from tracerboy_tpu_torch.core.image_io import _to_uint8
+    from tracerboy_tpu_torch.core import sun, xpm
+    from tracerboy_tpu_torch.core.image_io import _to_uint8, write_png
 
     os.makedirs(directory, exist_ok=True)
     paths = {name: os.path.join(directory, name) for name in (
@@ -373,10 +373,10 @@ def write_small2_textures(directory: str) -> dict:
     albedo = _to_uint8(albedo_image(1024))
     sun.write_sun(paths["albedo.ras"], albedo)
     sun.write_sun(paths["albedo_raw.ras"], albedo, rle=False)
-    im.write_im(paths["albedo.im"], albedo)
+    write_png(paths["albedo.im"], albedo)
     xpm.write_xpm(paths["albedo.xpm"], albedo & np.array([0xE0, 0xE0, 0xC0],
                                                          np.uint8))
-    im.write_im(paths["leaf.im"], leaf_image(512))
+    write_png(paths["leaf.im"], leaf_image(512))
     return paths
 
 
