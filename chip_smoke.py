@@ -274,16 +274,19 @@ Phases, each fatal on failure:
      albedo and the PNG leaf;
  29. the port's image writer (writers_phase: core/image_save.py behind
      image_io.write_png, JPEG's pixel stages and entropy coder in
-     csrc/jpeg_encode.cpp): every committed input of tests/data/write in
-     L, LA, RGB and RGBA written under every extension PIL saves, each
-     file's sha256 equal to the manifest's (PIL's; a PNG by its inflated
-     stream and other chunks where zlib differs), PIL's error class where
-     PIL refuses, ROADMAP item 25 where the encoder is not ported yet; the
-     CLI on "shadertoy" at 1280x720, 2 spp, --out w.jpg --capture-every
-     2: two byte-identical JPEG files, read back at 1280x720, its
-     closest- and any-hit launches held against the plain version on at
-     most CHECK_LANES live lanes each; write_png of its image as .jpg,
-     .png, .bmp and .tif timed on the host;
+     csrc/jpeg_encode.cpp, the JPEG 2000 tile coder in
+     csrc/j2k_encode.cpp, GIF's palettes and LZW in csrc/gif_encode.cpp):
+     every committed input of tests/data/write in L, LA, RGB and RGBA
+     written under every extension PIL saves, each file's sha256 equal to
+     the manifest's (PIL's; a PNG by its inflated stream and other chunks
+     where zlib differs; a PDF with its two dates masked), PIL's error
+     class where PIL refuses, ROADMAP item 25 where the encoder is not
+     ported yet (WebP, AVIF, ICO, ICNS only); the CLI on "shadertoy" at
+     1280x720, 2 spp, --out w.jpg --capture-every 2: two byte-identical
+     JPEG files, read back at 1280x720, its closest- and any-hit launches
+     held against the plain version on at most CHECK_LANES live lanes
+     each; write_png of its image as .jpg, .png, .bmp, .tif, .jp2, .gif,
+     .pdf and .eps timed on the host, the .jp2 read back equal;
  30. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
@@ -4599,9 +4602,11 @@ def written_hashes(tmp) -> dict:
     tests/make_write_fixtures.py; the card's machine has no PIL): the
     file's sha256; for a PNG where this machine's zlib is not the
     manifest's, the inflated stream and the chunks other than IDAT, and
-    IDAT chunks of PIL's 65,536-byte buffer but the last; PIL's error
-    class; NotImplementedError naming ROADMAP item 25 for the encoders
-    not ported yet. Returns the counts by kind of check."""
+    IDAT chunks of PIL's 65,536-byte buffer but the last; for a PDF, the
+    sha256 of its bytes with both dates masked; PIL's error class;
+    NotImplementedError naming ROADMAP item 25 for the encoders not
+    ported yet (never for JPEG 2000, GIF, EPS/PS or PDF). Returns the
+    counts by kind of check."""
     import hashlib
     import zlib
 
@@ -4613,8 +4618,10 @@ def written_hashes(tmp) -> dict:
     with np.load(WRITE_DIR / "inputs.npz") as npz:
         inputs = {k: npz[k] for k in npz.files}
     same_zlib = zlib.ZLIB_RUNTIME_VERSION == manifest["zlib"]
-    counts = dict(bytes=0, png_stream=0, error=0, later=0)
+    counts = dict(bytes=0, png_stream=0, pdf_masked=0, error=0, later=0)
     bad = []
+    ported = {".jp2", ".j2k", ".jpc", ".jpf", ".jpx", ".j2c", ".gif", ".eps",
+              ".ps", ".pdf"}
     for key, entry in sorted(manifest["entries"].items()):
         name, mode, ext = key.split("/")
         img = fixtures.image_of(inputs[name], mode)
@@ -4628,7 +4635,7 @@ def written_hashes(tmp) -> dict:
         if "later" in entry:
             kind = "later"
             ok = (isinstance(err, NotImplementedError)
-                  and image_save.ITEM in str(err))
+                  and image_save.ITEM in str(err) and ext not in ported)
         elif "error" in entry:
             kind = "error"
             ok = type(err).__name__ == entry["error"]
@@ -4640,6 +4647,10 @@ def written_hashes(tmp) -> dict:
             ok = (got["stream_sha256"] == entry["stream_sha256"]
                   and got["frame_sha256"] == entry["frame_sha256"]
                   and all(n == manifest["bufsize"] for n in got["idat"][:-1]))
+        elif entry.get("dates") == "masked":
+            kind = "pdf_masked"
+            ok = hashlib.sha256(fixtures.mask_pdf_dates(data)).hexdigest() \
+                == entry["sha256"]
         else:
             kind = "bytes"
             ok = hashlib.sha256(data).hexdigest() == entry["sha256"]
@@ -4665,9 +4676,10 @@ def writers_runs(torch, tmp):
     recorded and held against the plain version on at most CHECK_LANES
     live lanes each (textured_launch_check, anyhit_launch_check: 0
     mismatches outside ties, 0 occlusion mismatches, no overflow). (c)
-    write_png of that image as .jpg, .png, .bmp and .tif: host ms,
-    medians of 5, with the host's CPU and the card line. Returns
-    (results, launches of (b))."""
+    write_png of that image as .jpg, .png, .bmp, .tif, .jp2, .gif, .pdf
+    and .eps: host ms, medians of 5, with the host's CPU and the card
+    line; the .jp2 decoded by core/jpeg2000.py equal to the image.
+    Returns (results, launches of (b))."""
     from tracerboy_tpu_torch.app import cli
     from tracerboy_tpu_torch.core import image_io
     from tracerboy_tpu_torch.trace import kernels, traverse
@@ -4750,7 +4762,7 @@ def writers_runs(torch, tmp):
     print("writers any-hit launches vs plain:", json.dumps(anyhit))
     img = images[-1]
     times = {}
-    for ext in ("jpg", "png", "bmp", "tif"):
+    for ext in ("jpg", "png", "bmp", "tif", "jp2", "gif", "pdf", "eps"):
         path = os.path.join(tmp, f"t.{ext}")
         secs = []
         for _ in range(5):
@@ -4760,6 +4772,12 @@ def writers_runs(torch, tmp):
         times[ext] = dict(ms=[1e3 * x for x in secs],
                           median_ms=float(np.median(secs)) * 1e3,
                           bytes=os.path.getsize(path))
+    from tracerboy_tpu_torch.core.image_io import _to_uint8
+    from tracerboy_tpu_torch.core.jpeg2000 import decode_jpeg2000
+
+    back, _, _ = decode_jpeg2000(Path(tmp, "t.jp2").read_bytes())
+    if not np.array_equal(back[..., :img.shape[-1]], _to_uint8(img)):
+        fail("writers: the 1280x720 .jp2 does not decode to its image")
     results["write_1280x720"] = dict(times, cpu=host_cpu(),
                                      cpu_count=os.cpu_count(),
                                      card=card_line())

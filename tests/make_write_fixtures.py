@@ -15,9 +15,11 @@ Writes into tests/data/write/ (or OUT_DIR):
   Image.fromarray(img).save("img" + ext) gave: the sha256 and size of
   the file, or the class of PIL's error; for PNG also the sha256 of the
   inflated IDAT stream and of the file without its IDAT chunks, and the
-  IDAT lengths (another zlib writes other deflate bytes); for the formats
-  the port does not write yet (LATER) only whether PIL wrote one. PIL's
-  and zlib's versions are recorded.
+  IDAT lengths (another zlib writes other deflate bytes); for PDF the
+  sha256 of the file with its two dates masked (mask_pdf_dates: PIL
+  writes the time of the save); for the formats the port does not write
+  yet (LATER) only whether PIL wrote one. PIL's and zlib's versions are
+  recorded.
 
 tests/test_torch_image_write.py holds the port's image_save against the
 manifest and checks the manifest against PIL on this machine;
@@ -30,6 +32,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import struct
 import sys
 import tempfile
@@ -42,7 +45,16 @@ FIXTURE_DIR = os.path.join(HERE, "data", "write")
 SIZES = ((1, 1), (37, 53), (257, 131))          # (width, height)
 MODES = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}
 # The formats whose encoders the port has not ported (ROADMAP item 25).
-LATER = ("WEBP", "AVIF", "JPEG2000", "GIF", "ICO", "ICNS", "EPS", "PDF")
+LATER = ("WEBP", "AVIF", "ICO", "ICNS")
+# A PDF date as PdfParser writes a time.struct_time, and its mask.
+PDF_DATE = re.compile(rb"\(D:\d{14}Z\)")
+PDF_DATE_MASK = b"(D:00000000000000Z)"
+
+
+def mask_pdf_dates(data: bytes) -> bytes:
+    """A PDF with every /CreationDate and /ModDate value masked (the
+    masked file keeps its length, so its xref offsets hold)."""
+    return PDF_DATE.sub(PDF_DATE_MASK, data)
 
 
 def make_input(width: int, height: int, seed: int) -> np.ndarray:
@@ -104,7 +116,11 @@ def pil_entry(img: np.ndarray, ext: str, directory: str) -> dict:
     os.remove(path)
     if fmt in LATER:
         return dict(later=True)
+    if fmt == "PDF":
+        data = mask_pdf_dates(data)
     entry = dict(sha256=hashlib.sha256(data).hexdigest(), size=len(data))
+    if fmt == "PDF":
+        entry["dates"] = "masked"
     if fmt == "PNG":
         entry.update(png_parts(data))
     return entry

@@ -7,12 +7,15 @@ For every extension of PIL 12.1's EXTENSION table with a save handler
 and every mode write_png can make (L, LA, RGB, RGBA), in uint8 and float,
 on the committed inputs of tests/data/write (1x1, 37x53, 257x131): the
 same bytes (a PNG's bytes where this machine's zlib is PIL's, else its
-chunks and inflated stream), or the same exception class, or, for the
-encoders not ported yet (WebP, AVIF, JPEG 2000, GIF, ICO, ICNS, EPS/PS,
-PDF) only, NotImplementedError naming ROADMAP item 25. The committed
-manifest is checked against PIL here, so that it cannot drift from what
-chip_smoke.py's writers phase holds the port to on the card's machine.
-Hypothesis sweeps JPEG and PNG sizes and contents; both CLIs write
+chunks and inflated stream; a PDF's with both writers run under one
+patched time.gmtime, so its dates are equal too), or the same exception
+class, or, for the encoders not ported yet (WebP, AVIF, ICO, ICNS) only,
+NotImplementedError naming ROADMAP item 25. The committed manifest
+(PDFs by their bytes with both dates masked) is checked against PIL
+here, so that it cannot drift from what chip_smoke.py's writers phase
+holds the port to on the card's machine. Hypothesis sweeps JPEG and PNG
+sizes and contents (JPEG 2000, GIF, EPS and PDF in
+tests/test_torch_image_write_formats.py); both CLIs write
 --out x.jpg and its --capture-every frames as JPEG. JPEG files cut inside
 their headers are not identified by the port's reader where PIL does
 not identify them (core/jpeg.py _pil_open).
@@ -26,7 +29,9 @@ import os
 import subprocess
 import sys
 import textwrap
+import time
 import zlib
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -39,6 +44,7 @@ from make_write_fixtures import (
     LATER,
     MODES,
     image_of,
+    mask_pdf_dates,
     pil_entry,
     png_parts,
 )
@@ -71,11 +77,16 @@ def jax_write_png(path, img):
     write_png(path, img)
 
 
+# The one clock both writers read a PDF's dates from.
+CLOCK = time.struct_time((2026, 10, 18, 12, 34, 56, 6, 291, 0))
+
+
 def outcome(write, path, img):
     """The bytes write(path, img) wrote, or the exception it raised (and
-    whether it left a file)."""
+    whether it left a file); time.gmtime patched to CLOCK."""
     try:
-        write(path, img)
+        with mock.patch("time.gmtime", return_value=CLOCK):
+            write(path, img)
     except Exception as e:
         return e, os.path.exists(path)
     with open(path, "rb") as f:
@@ -231,7 +242,8 @@ def test_port_matches_the_manifest(tmp_path):
     """The check chip_smoke.py's writers phase makes on the card's
     machine: each input x mode x extension through image_save.save, its
     sha256 (a PNG's stream and chunks where zlib differs) or PIL's error
-    class; NotImplementedError naming item 25 for LATER formats."""
+    class (a PDF's with its dates masked); NotImplementedError naming
+    item 25 for LATER formats."""
     for key, entry in _entries():
         name, mode, ext = key.split("/")
         path = str(tmp_path / ("img" + ext))
@@ -246,6 +258,9 @@ def test_port_matches_the_manifest(tmp_path):
             parts = png_parts(got)
             assert parts["stream_sha256"] == entry["stream_sha256"], key
             assert parts["frame_sha256"] == entry["frame_sha256"], key
+        elif entry.get("dates") == "masked":
+            assert hashlib.sha256(mask_pdf_dates(got)).hexdigest() == entry[
+                "sha256"], key
         else:
             assert hashlib.sha256(got).hexdigest() == entry["sha256"], key
 

@@ -28,7 +28,11 @@ ctypes:
   libavif's single-precision steps;
 - jpeg_encode_library(): csrc/jpeg_encode.cpp (the pixel stages and the
   entropy coder of libjpeg-turbo's baseline writer), for
-  core/image_save.py.
+  core/image_save.py;
+- j2k_encode_library(): csrc/j2k_encode.cpp (OpenJPEG's lossless 5/3
+  tile coder: wavelet, tier 1, tier 2), for core/image_save.py;
+- gif_encode_library(): csrc/gif_encode.cpp (Pillow's median-cut and
+  octree quantisers and its GIF LZW coder), for core/image_save.py.
 """
 
 from __future__ import annotations
@@ -104,7 +108,7 @@ def j2k_library():
     import ctypes
 
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    return _load("tbj2k", "j2k_decode.cpp", (), (
+    return _load("tbj2k", "j2k_decode.cpp", ("j2k_mq.inc",), (
         ("tb_j2k_decode_tile", [p, i64, p, i64, p, i64, p, p, p, i64,
                                 i64]),), flags=("-ffp-contract=off",))
 
@@ -142,3 +146,21 @@ def jpeg_encode_library():
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     return _load("tbjpegenc", "jpeg_encode.cpp", (), (
         ("tb_jpeg_encode_scan", [p, i64, i64, i64, p, p, p, i64]),))
+
+
+def j2k_encode_library():
+    import ctypes
+
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    return _load("tbj2kenc", "j2k_encode.cpp", ("j2k_mq.inc",), (
+        ("tb_j2k_encode_tile", [p, i64, i64, i64, i64, p, i64]),))
+
+
+def gif_encode_library():
+    import ctypes
+
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    return _load("tbgifenc", "gif_encode.cpp", (), (
+        ("tb_quantize_median", [p, i64, p, p]),
+        ("tb_quantize_octree", [p, i64, p, p]),
+        ("tb_gif_lzw", [p, i64, i64, i64, p, i64])))

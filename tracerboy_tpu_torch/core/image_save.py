@@ -13,15 +13,22 @@ the PIL plugin's _save named at its head:
 - PNG (PngImagePlugin._save and ZipEncode.c: PIL's filter a row, zlib at
   level 6 with PIL's strategy, IDAT chunks as PIL's buffer splits them);
 - BMP, DIB, TGA, PPM, TIFF, SGI, IM, QOI, DDS and PCX, uncompressed or
-  run-length coded as PIL writes them.
+  run-length coded as PIL writes them;
+- JPEG 2000 (Jpeg2KImagePlugin._save: OpenJPEG 2.5.4's lossless 5/3
+  codestream, the tile coder in csrc/j2k_encode.cpp, in JP2 boxes unless
+  the name ends in .j2k);
+- GIF (GifImagePlugin._save: PIL's median-cut or octree palette and
+  GifEncode.c's LZW, in csrc/gif_encode.cpp);
+- EPS/PS (EpsImagePlugin._save and EpsEncode.c's hex lines) and PDF
+  (PdfImagePlugin._save and PdfParser: the JPEG or JPEG 2000 writer's
+  bytes in one page; its two dates are the current time).
 
 What PIL refuses is refused with PIL's class and message: an extension
 PIL does not know (ValueError), a format without a save handler
 (KeyError), a mode the format cannot hold (OSError or ValueError, as the
 plugin raises), the stub formats (OSError, "save handler not
-installed"). PIL's other encoders (WebP, AVIF, JPEG 2000, GIF, ICO,
-ICNS, EPS/PS and PDF) are not ported yet: they raise NotImplementedError
-naming ITEM, after the mode checks PIL makes first.
+installed"). PIL's other encoders (WebP, AVIF, ICO and ICNS) are not
+ported yet: they raise NotImplementedError naming ITEM.
 
 As Image.save does, the file is opened (created or emptied) before the
 writer runs, and removed again where the writer fails on a file that was
@@ -30,8 +37,11 @@ not there before.
 
 from __future__ import annotations
 
+import codecs
+import math
 import os
 import struct
+import time
 import zlib
 
 import numpy as np
@@ -504,6 +514,276 @@ def save_pcx(px: np.ndarray, mode: str, filename: str) -> bytes:
 
 
 # ----------------------------------------------------------------------------
+# JPEG 2000
+
+_J2K_COMMENT = b"Created by OpenJPEG version 2.5.4"
+
+
+def j2k_codestream(px: np.ndarray) -> bytes:
+    """OpenJPEG 2.5.4's codestream at PIL's defaults (Jpeg2KImagePlugin
+    _save and Jpeg2KEncode.c): one tile, 6 resolutions or as many as the
+    smaller side allows (2^(n-1) <= it), the reversible 5/3 wavelet, no
+    component transform, 64x64 code-blocks, one lossless layer, LRCP;
+    SOC, SIZ, COD, QCD (no quantisation, 2 guard bits, each band's
+    exponent 8 + its gain), OpenJPEG's COM, SOT, SOD, the packets
+    (csrc/j2k_encode.cpp), EOC."""
+    from tracerboy_tpu_torch.core.codecs import j2k_encode_library
+
+    h, w, c = px.shape
+    _check_size(px)
+    numres = 6
+    while numres > 1 and 1 << (numres - 1) > min(w, h):
+        numres -= 1
+    levels = numres - 1
+    siz = struct.pack(">HIIIIIIIIH", 0, w, h, 0, 0, w, h, 0, 0, c) + (
+        b"\x07\x01\x01" * c)
+    cod = struct.pack(">BBHBBBBBB", 0, 0, 1, 0, levels, 4, 4, 0, 1)
+    qcd = bytes([0x40, 8 << 3] + [9 << 3, 9 << 3, 10 << 3] * levels)
+    cap = 4096 + 2 * px.size
+    body = np.empty(cap, np.uint8)
+    n = j2k_encode_library().tb_j2k_encode_tile(
+        px.ctypes.data, h, w, c, numres, body.ctypes.data, cap)
+    if n < 0:
+        raise RuntimeError("JPEG 2000 tile larger than its buffer")
+    sot = struct.pack(">HIBB", 0, 12 + 2 + n, 0, 1)
+    return (b"\xff\x4f" + _segment(0x51, siz) + _segment(0x52, cod)
+            + _segment(0x5C, qcd) + _segment(0x64, b"\0\x01" + _J2K_COMMENT)
+            + _segment(0x90, sot) + b"\xff\x93" + body[:n].tobytes()
+            + b"\xff\xd9")
+
+
+def _box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def save_jpeg2000(px: np.ndarray, mode: str, filename: str) -> bytes:
+    """Jpeg2KImagePlugin._save at its defaults: the bare codestream where
+    the name ends in ".j2k" (as PIL tests it, case and all), else
+    OpenJPEG's JP2 boxes around it: the signature, ftyp (jp2), jp2h with
+    ihdr (8 bits, unknown colour space 0, no IPR), colr (sRGB or grey)
+    and, for LA and RGBA, cdef naming the last channel opacity; jp2c."""
+    stream = j2k_codestream(px)
+    if filename.endswith(".j2k"):
+        return stream
+    h, w, c = px.shape
+    header = (_box(b"ihdr", struct.pack(">IIHBBBB", h, w, c, 7, 7, 0, 0))
+              + _box(b"colr", struct.pack(">BBBI", 1, 0, 0,
+                                          16 if c >= 3 else 17)))
+    if mode in ("LA", "RGBA"):
+        channels = [(k, 0, k + 1) for k in range(c - 1)] + [(c - 1, 1, 0)]
+        header += _box(b"cdef", struct.pack(">H", c) + b"".join(
+            struct.pack(">HHH", *ch) for ch in channels))
+    return (_box(b"jP  ", b"\r\n\x87\n") + _box(b"ftyp", b"jp2 \0\0\0\0jp2 ")
+            + _box(b"jp2h", header) + _box(b"jp2c", stream))
+
+
+# ----------------------------------------------------------------------------
+# GIF
+
+
+def _quantize(px: np.ndarray):
+    """(indices (H, W), palette (n, bands)) as PIL's Image.convert("P",
+    palette=ADAPTIVE) makes them: RGB by median cut, RGBA by the fast
+    octree (csrc/gif_encode.cpp); no entry for an empty image."""
+    from tracerboy_tpu_torch.core.codecs import gif_encode_library
+
+    h, w, c = px.shape
+    index = np.empty((h, w), np.uint8)
+    palette = np.zeros((256, c), np.uint8)
+    if not index.size:
+        return index, palette[:0]
+    lib = gif_encode_library()
+    quantize = lib.tb_quantize_median if c == 3 else lib.tb_quantize_octree
+    n = quantize(px.ctypes.data, h * w, index.ctypes.data,
+                 palette.ctypes.data)
+    return index, palette[:n]
+
+
+def save_gif(px: np.ndarray, mode: str, filename: str) -> bytes:
+    """GifImagePlugin._save of one frame at its defaults: L as it is and
+    LA through convert("L") with a grey palette; RGB and RGBA quantised
+    (_quantize; an RGBA palette's first entry of alpha 0 is the
+    transparency). _get_optimize's palette, as optimize is on: an L
+    image's used greys always; a quantised image's used entries under
+    512 x 512 pixels where some entry is unused or the palette could be
+    half its power-of-two size (an RGBA palette of more than 768 bytes
+    kept with its alpha). GIF87a (89a with a transparency, which then
+    gets a graphic control extension), the colour table padded to a
+    power of two, the image descriptor (interlaced unless a side is below
+    16), LZW minimum code size 8, the data sub-blocks
+    (csrc/gif_encode.cpp), the block terminator and the trailer."""
+    from tracerboy_tpu_torch.core.codecs import gif_encode_library
+
+    h, w, c = px.shape
+    transparency = None
+    if mode in ("L", "LA"):
+        index = px[..., 0]
+        source = bytes(i // 3 for i in range(768))      # PIL's grey ramp
+        alpha, optimise = False, True
+    else:
+        index, quantized = _quantize(px)
+        source, alpha, optimise = quantized.tobytes(), c == 4, False
+        if alpha:
+            zero = np.flatnonzero(quantized[:, 3] == 0)
+            transparency = int(zero[0]) if len(zero) else None
+    palette = source
+    used = np.flatnonzero(np.bincount(index.ravel(), minlength=256))
+    if optimise or w * h < 512 * 512:
+        remap = optimise
+        if not optimise:
+            if not len(used):
+                raise ValueError("max() iterable argument is empty")
+            size = 1 << (len(source) // (4 if alpha else 3) - 1).bit_length()
+            remap = (used[-1] >= len(used)
+                     or (len(used) <= size // 2 and size > 2))
+        if remap:
+            # Image.remap_palette: entries of 4 bytes where the palette
+            # holds more than 768.
+            bands = 4 if len(source) > 768 else 3
+            palette = b"".join(source[k * bands:(k + 1) * bands] for k in used)
+            alpha = bands == 4
+            lut = np.zeros(256, np.uint8)
+            lut[used] = np.arange(len(used))
+            index = lut[index]
+            if transparency is not None:
+                hit = np.flatnonzero(used == transparency)
+                transparency = int(hit[0]) if len(hit) else None
+    rgb = b"".join(palette[i * 4:i * 4 + 3] for i in range(len(palette) // 3)
+                   ) if alpha else palette
+    size = 0 if not rgb else 1 if len(rgb) < 9 else (
+        math.ceil(math.log(len(rgb) // 3, 2)) - 1)
+    rgb += b"\0" * 3 * max((2 << size) - len(rgb) // 3, 0)
+    out = [b"GIF" + (b"89a" if transparency is not None else b"87a")
+           + struct.pack("<HHBBB", w, h, size + 128, 0, 0) + rgb]
+    if transparency is not None:
+        out.append(b"!\xf9\x04\x01\0\0" + bytes([transparency]) + b"\0")
+    interlace = 1 if min(w, h) >= 16 else 0
+    out.append(b"," + struct.pack("<HHHHB", 0, 0, w, h, 64 * interlace)
+               + b"\x08")
+    _check_size(px)
+    index = np.ascontiguousarray(index, np.uint8)
+    cap = 64 + 2 * index.size + index.size // 128
+    data = np.empty(cap, np.uint8)
+    n = gif_encode_library().tb_gif_lzw(index.ctypes.data, h, w, interlace,
+                                        data.ctypes.data, cap)
+    if n < 0:
+        raise RuntimeError("GIF data larger than its buffer")
+    return b"".join(out) + data[:n].tobytes() + b"\0;"
+
+
+# ----------------------------------------------------------------------------
+# EPS/PS and PDF
+
+
+def save_eps(px: np.ndarray, mode: str, filename: str) -> bytes:
+    """EpsImagePlugin._save (EPS header, then the image operator) and
+    EpsEncode.c: L as `image`, RGB as `false 3 colorimage`, the samples
+    as lowercase hex, a newline before each run of 39 more bytes."""
+    try:
+        bands, operator = {"L": (1, b"image"),
+                           "RGB": (3, b"false 3 colorimage")}[mode]
+    except KeyError as e:
+        raise ValueError("image mode is not supported") from e
+    h, w, _ = px.shape
+    head = (b"%!PS-Adobe-3.0 EPSF-3.0\n%%Creator: PIL 0.1 EpsEncode\n"
+            + b"%%%%BoundingBox: 0 0 %d %d\n" % (w, h)
+            + b"%%Pages: 1\n%%EndComments\n%%Page: 1 1\n"
+            + b"%%ImageData: %d %d " % (w, h)
+            + b'%d %d 0 1 1 "%s"\n' % (8, bands, operator)
+            + b"gsave\n10 dict begin\n/buf %d string def\n" % (w * bands)
+            + b"%d %d scale\n%d %d 8\n" % (w, h, w, h)
+            + b"[%d 0 0 -%d 0 %d]\n" % (w, h, h)
+            + b"{ currentfile buf readhexstring pop } bind\n"
+            + operator + b"\n")
+    _check_size(px)
+    hexed = px.tobytes().hex().encode("ascii")
+    lines = b"\n".join(hexed[i:i + 78] for i in range(0, len(hexed), 78))
+    # PIL writes this line unformatted: four percent signs.
+    return head + lines + b"\n%%%%EndBinary\ngrestore end\n"
+
+
+def _pdf_repr(x) -> bytes:
+    """PdfParser.pdf_repr of the values PdfImagePlugin writes: names
+    (str starting "/"), references (tuples), dicts, lists, numbers,
+    struct_time dates and byte strings."""
+    if isinstance(x, str):
+        return x.encode("ascii")
+    if isinstance(x, time.struct_time):
+        stamp = time.strftime("%Y%m%d%H%M%SZ", x).encode("ascii")
+        return b"(D:" + stamp + b")"
+    if isinstance(x, tuple):
+        return b"%d %d R" % x
+    if isinstance(x, dict):
+        return b"<<" + b"".join(
+            b"\n/" + k.encode("ascii") + b" " + _pdf_repr(v)
+            for k, v in x.items()) + b"\n>>"
+    if isinstance(x, list):
+        return b"[ " + b" ".join(_pdf_repr(v) for v in x) + b" ]"
+    if isinstance(x, (int, float)):
+        return str(x).encode("ascii")
+    x = x.replace(b"\\", b"\\\\").replace(b"(", b"\\(").replace(b")", b"\\)")
+    return b"(" + x + b")"
+
+
+def save_pdf(px: np.ndarray, mode: str, filename: str) -> bytes:
+    """PdfImagePlugin._save of one image at its defaults through
+    PdfParser: the header and comment, the catalog (4) and pages (5)
+    objects, the image XObject (1: L and RGB as DCTDecode through
+    save_jpeg, LA and RGBA as JPXDecode through save_jpeg2000 with
+    SMaskInData), the page (2, 72 dpi) and its contents (3), the info
+    dictionary (6: the title, the file's name without its extension as
+    UTF-16; the creation and modification dates from two time.gmtime()
+    calls), the xref table and the trailer."""
+    h, w, _ = px.shape
+    info = {"Title": os.path.splitext(os.path.basename(filename))[0],
+            "CreationDate": time.gmtime(), "ModDate": time.gmtime()}
+    info = {k: v for k, v in info.items() if v}
+    if mode in ("L", "RGB"):
+        image = dict(Type="/XObject", Subtype="/Image", Width=w, Height=h,
+                     Filter="/DCTDecode", BitsPerComponent=8,
+                     ColorSpace="/DeviceGray" if mode == "L"
+                     else "/DeviceRGB")
+        stream = save_jpeg(px, mode, filename)
+    else:
+        image = dict(Type="/XObject", Subtype="/Image", Width=w, Height=h,
+                     Filter="/JPXDecode", SMaskInData=1)
+        stream = save_jpeg2000(px, mode, filename)
+    procset = "/ImageB" if mode in ("L", "LA") else "/ImageC"
+    out = [b"%PDF-1.4\n% created by Pillow PDF driver\n"]
+    offsets = {}
+
+    def obj(ref: int, body: dict, stream: bytes | None = None) -> None:
+        offsets[ref] = sum(map(len, out))
+        if stream is not None:
+            body = dict(body, Length=len(stream))
+        out.append(b"%d 0 obj" % ref + _pdf_repr(body))
+        if stream is not None:
+            out.append(b"stream\n" + stream + b"\nendstream\n")
+        out.append(b"endobj\n")
+
+    obj(4, dict(Type="/Catalog", Pages=(5, 0)))
+    obj(5, dict(Type="/Pages", Count=1, Kids=[(2, 0)]))
+    obj(1, image, stream)
+    size = (w * 72.0 / 72.0, h * 72.0 / 72.0)
+    obj(2, dict(Resources=dict(ProcSet=["/PDF", procset],
+                               XObject=dict(image=(1, 0))),
+                MediaBox=[0, 0, *size], Contents=(3, 0), Type="/Page",
+                Parent=(5, 0)))
+    obj(3, {}, b"q %f 0 0 %f 0 0 cm /image Do Q\n" % size)
+    if "Title" in info:
+        info["Title"] = codecs.BOM_UTF16_BE + info["Title"].encode(
+            "utf_16_be")
+    obj(6, info)
+    xref = sum(map(len, out))
+    out.append(b"xref\n0 7\n0000000000 65536 f \n" + b"".join(
+        b"%010d %05d n \n" % (offsets[k], 0) for k in range(1, 7)))
+    out.append(b"trailer\n" + _pdf_repr(dict(Root=(4, 0), Size=7,
+                                             Info=(6, 0)))
+               + b"\nstartxref\n%d\n%%%%EOF" % xref)
+    return b"".join(out)
+
+
+# ----------------------------------------------------------------------------
 # What PIL refuses, and what is not ported yet
 
 
@@ -519,10 +799,8 @@ def _stub(fmt):
     return save_stub
 
 
-def _later(fmt, refused_modes=()):
+def _later(fmt):
     def save_later(px, mode, filename):
-        if mode in refused_modes:
-            raise ValueError("image mode is not supported")
         raise NotImplementedError(f"writing {fmt}: {ITEM}")
     return save_later
 
@@ -538,9 +816,8 @@ SAVE = {
     "PALM": _refuse_mode(OSError, "cannot write mode {mode} as Palm"),
     "BLP": _refuse_mode(ValueError, "Unsupported BLP image mode"),
     **{fmt: _stub(fmt) for fmt in ("BUFR", "GRIB", "HDF5", "WMF")},
+    "JPEG2000": save_jpeg2000, "GIF": save_gif, "EPS": save_eps,
+    "PDF": save_pdf,
     "WEBP": _later("WebP"), "AVIF": _later("AVIF"),
-    "JPEG2000": _later("JPEG 2000"), "GIF": _later("GIF"),
     "ICO": _later("ICO"), "ICNS": _later("ICNS"),
-    "EPS": _later("EPS/PS", refused_modes=("LA", "RGBA")),
-    "PDF": _later("PDF"),
 }

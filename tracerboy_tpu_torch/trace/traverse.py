@@ -220,9 +220,19 @@ def any_hit(o, d, t_max, nodes, tris_bw, roots=None):
 # Plain twins: every (ray, cluster) pair whose cluster box the ray enters
 # within t_max gets the kernel's Baldwin-Weber test. The cluster boxes are
 # the leaf boxes stored in the node rows, so this tests a superset of what
-# the kernel's traversal reaches and needs no stack.
+# the kernel's traversal reaches and needs no stack. The pairs are found
+# top-down from node 0: a ray goes on into an inner slot only where it
+# enters that slot's box by the same slab test. That culls no pair the
+# cluster boxes alone would give, because each slab bound (lo - o) * inv
+# is monotone in lo and hi under round-to-nearest: a box that contains
+# another gives a t_near no later and a t_far no earlier, so _box_hit
+# holds for the container wherever it holds for the box inside.
+# check_table asserts what that needs of a table, once a table: every
+# inner slot's box contains the boxes of its child's slots, and each
+# cluster sits in one leaf slot of a node reachable from node 0.
 
 PAIR_BUDGET = 1 << 22   # (ray, cluster) slab tests per chunk
+RAY_CHUNK = 1 << 16     # rays a chunk of the top-down pairing
 
 
 def cluster_boxes(nodes, n_clusters):
@@ -240,6 +250,62 @@ def cluster_boxes(nodes, n_clusters):
     lo[cl] = b[:, 0:3, :].permute(0, 2, 1)[leaf]
     hi[cl] = b[:, 3:6, :].permute(0, 2, 1)[leaf]
     return lo, hi
+
+
+def slot_boxes(nodes):
+    """(lo, hi) of every node's 8 slots, each (W, 8, 3) float32, and the
+    slots' child ids (W, 8) int64."""
+    W = nodes.shape[0]
+    b = nodes[:, :48].contiguous().view(torch.float32).reshape(W, 6, 8)
+    return (b[:, 0:3, :].permute(0, 2, 1), b[:, 3:6, :].permute(0, 2, 1),
+            nodes[:, 48:56].to(torch.int64))
+
+
+_CHECKED: dict = {}     # (id(nodes), clusters) -> weakref of a table passed
+
+
+def check_table(nodes, n_clusters):
+    """Raises ValueError unless the top-down pairing of a table finds the
+    pairs the cluster boxes give: each inner slot's float32 box contains
+    every valid slot box of its child node, no node is reached twice, and
+    each of the n_clusters clusters is in exactly one leaf slot of the
+    nodes reachable from node 0. Checked once a table."""
+    key = (id(nodes), int(n_clusters))
+    ref = _CHECKED.get(key)
+    if ref is not None and ref() is nodes:
+        return
+    lo, hi, child = slot_boxes(nodes)
+    valid = child != int(INVALID)
+    inner = valid & (child >= 0)
+    p, s = inner.nonzero(as_tuple=True)
+    c = child[p, s]
+    cv = valid[c][..., None]
+    big = torch.tensor(BIG, dtype=torch.float32, device=nodes.device)
+    c_lo = torch.where(cv, lo[c], big).amin(1)
+    c_hi = torch.where(cv, hi[c], -big).amax(1)
+    bad = ((lo[p, s] > c_lo) | (hi[p, s] < c_hi)).any(1)
+    if bad.any():
+        k = int(bad.nonzero()[0, 0])
+        raise ValueError(
+            f"node table: slot {int(s[k])} of node {int(p[k])} does not "
+            f"contain its child {int(c[k])}'s boxes ({int(bad.sum())} "
+            "such slots); the top-down plain pairing needs it")
+    seen = torch.zeros(nodes.shape[0], dtype=torch.int64, device=nodes.device)
+    clusters = []
+    frontier = torch.zeros(1, dtype=torch.int64, device=nodes.device)
+    while frontier.numel():
+        seen.index_add_(0, frontier, torch.ones_like(frontier))
+        ch = child[frontier]
+        clusters.append(-ch[valid[frontier] & (ch < 0)] - 1)
+        frontier = ch[inner[frontier]]
+    counts = torch.bincount(torch.cat(clusters), minlength=n_clusters)
+    if (seen > 1).any() or counts.shape[0] != n_clusters or (
+            counts != 1).any():
+        raise ValueError(
+            "node table: a node reached twice or a cluster not in exactly "
+            "one reachable leaf slot; the top-down plain pairing needs a "
+            "tree over every cluster")
+    _CHECKED[key] = weakref.ref(nodes, lambda _, k=key: _CHECKED.pop(k, None))
 
 
 def fix_dir(v):
@@ -269,11 +335,24 @@ def _box_hit(o, inv, tmax, lo, hi):
     return (t_far >= torch.clamp_min(t_near, 0.0)) & (t_near < tmax)
 
 
-def _pairs(o, inv, tmax, lo, hi):
-    """(ray, cluster) index pairs whose box the ray enters in t_max."""
-    hit = _box_hit(o[:, None], inv[:, None], tmax[:, None], lo[None],
-                   hi[None])
-    return hit.nonzero(as_tuple=True)
+def _pairs(o, inv, tmax, lo, hi, child):
+    """(ray, cluster) index pairs whose cluster box the ray enters in
+    t_max, found top-down from node 0 through the slots (lo, hi, child of
+    slot_boxes) whose boxes the ray enters."""
+    ray = torch.arange(o.shape[0], device=o.device)
+    node = torch.zeros_like(ray)
+    rays, clusters = [], []
+    while ray.numel():
+        hit = _box_hit(o[ray][:, None], inv[ray][:, None],
+                       tmax[ray][:, None], lo[node], hi[node])
+        ch = child[node]
+        p, s = (hit & (ch < 0)).nonzero(as_tuple=True)
+        rays.append(ray[p])
+        clusters.append(-ch[p, s] - 1)
+        p, s = (hit & (ch >= 0) & (ch != int(INVALID))).nonzero(
+            as_tuple=True)
+        ray, node = ray[p], ch[p, s]
+    return torch.cat(rays), torch.cat(clusters)
 
 
 def _bw_tests(o, d, rows):
@@ -303,15 +382,14 @@ def _bw_tests(o, d, rows):
 def _chunks(o, d, t_max, nodes, tris_bw):
     """Yield per chunk of live rays: (ray ids, pair ray index into the
     chunk, pair cluster, t, u, v, ok & t < t_max), all pairs (P, 8)."""
-    C = tris_bw.shape[0]
-    lo, hi = cluster_boxes(nodes, C)
+    check_table(nodes, tris_bw.shape[0])
+    lo, hi, child = slot_boxes(nodes)
     live = (t_max > 0).nonzero(as_tuple=True)[0]
-    step = max(1, PAIR_BUDGET // max(C, 1))
-    for s in range(0, live.shape[0], step):
-        ids = live[s:s + step]
+    for s in range(0, live.shape[0], RAY_CHUNK):
+        ids = live[s:s + RAY_CHUNK]
         oc, dc, tc = o[ids], d[ids], t_max[ids]
         inv = 1.0 / fix_dir(dc)
-        ri, ci = _pairs(oc, inv, tc, lo, hi)
+        ri, ci = _pairs(oc, inv, tc, lo, hi, child)
         if ri.numel() == 0:
             continue
         t, u, v, ok = _bw_tests(oc[ri], dc[ri], tris_bw[ci])
