@@ -275,18 +275,21 @@ Phases, each fatal on failure:
  29. the port's image writer (writers_phase: core/image_save.py behind
      image_io.write_png, JPEG's pixel stages and entropy coder in
      csrc/jpeg_encode.cpp, the JPEG 2000 tile coder in
-     csrc/j2k_encode.cpp, GIF's palettes and LZW in csrc/gif_encode.cpp):
+     csrc/j2k_encode.cpp, GIF's palettes and LZW in csrc/gif_encode.cpp,
+     ICO's and ICNS's resampler in csrc/resample.cpp):
      every committed input of tests/data/write in L, LA, RGB and RGBA
      written under every extension PIL saves, each file's sha256 equal to
      the manifest's (PIL's; a PNG by its inflated stream and other chunks
-     where zlib differs; a PDF with its two dates masked), PIL's error
-     class where PIL refuses, ROADMAP item 25 where the encoder is not
-     ported yet (WebP, AVIF, ICO, ICNS only); the CLI on "shadertoy" at
-     1280x720, 2 spp, --out w.jpg --capture-every 2: two byte-identical
-     JPEG files, read back at 1280x720, its closest- and any-hit launches
-     held against the plain version on at most CHECK_LANES live lanes
-     each; write_png of its image as .jpg, .png, .bmp, .tif, .jp2, .gif,
-     .pdf and .eps timed on the host, the .jp2 read back equal;
+     where zlib differs, an ICO or ICNS by its container and embedded
+     PNGs likewise; a PDF with its two dates masked), PIL's error class
+     where PIL refuses, ROADMAP item 25 where the encoder is not ported
+     yet (WebP and AVIF only); the CLI on "shadertoy" at 1280x720, 2 spp,
+     --out w.jpg --capture-every 2: two byte-identical JPEG files, read
+     back at 1280x720; at 1 spp --out w.icns, read back at 1024x1024;
+     each run's closest- and any-hit launches held against the plain
+     version on at most CHECK_LANES live lanes each; write_png of its
+     image as .jpg, .png, .bmp, .tif, .jp2, .gif, .pdf, .eps, .ico and
+     .icns timed on the host, the .jp2, .ico and .icns read back;
  30. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
@@ -4602,11 +4605,13 @@ def written_hashes(tmp) -> dict:
     tests/make_write_fixtures.py; the card's machine has no PIL): the
     file's sha256; for a PNG where this machine's zlib is not the
     manifest's, the inflated stream and the chunks other than IDAT, and
-    IDAT chunks of PIL's 65,536-byte buffer but the last; for a PDF, the
+    IDAT chunks of PIL's 65,536-byte buffer but the last; for an ICO or
+    ICNS there, the container with its PNGs and their lengths taken out
+    and each embedded PNG held as a PNG is (icon_parts); for a PDF, the
     sha256 of its bytes with both dates masked; PIL's error class;
     NotImplementedError naming ROADMAP item 25 for the encoders not
-    ported yet (never for JPEG 2000, GIF, EPS/PS or PDF). Returns the
-    counts by kind of check."""
+    ported yet (never for JPEG 2000, GIF, EPS/PS, PDF, ICO or ICNS).
+    Returns the counts by kind of check."""
     import hashlib
     import zlib
 
@@ -4618,10 +4623,17 @@ def written_hashes(tmp) -> dict:
     with np.load(WRITE_DIR / "inputs.npz") as npz:
         inputs = {k: npz[k] for k in npz.files}
     same_zlib = zlib.ZLIB_RUNTIME_VERSION == manifest["zlib"]
-    counts = dict(bytes=0, png_stream=0, pdf_masked=0, error=0, later=0)
+    counts = dict(bytes=0, png_stream=0, icon_parts=0, pdf_masked=0,
+                  error=0, later=0)
     bad = []
     ported = {".jp2", ".j2k", ".jpc", ".jpf", ".jpx", ".j2c", ".gif", ".eps",
-              ".ps", ".pdf"}
+              ".ps", ".pdf", ".ico", ".icns"}
+
+    def png_held(got, want):
+        return (got["stream_sha256"] == want["stream_sha256"]
+                and got["frame_sha256"] == want["frame_sha256"]
+                and all(n == manifest["bufsize"] for n in got["idat"][:-1]))
+
     for key, entry in sorted(manifest["entries"].items()):
         name, mode, ext = key.split("/")
         img = fixtures.image_of(inputs[name], mode)
@@ -4643,10 +4655,14 @@ def written_hashes(tmp) -> dict:
             kind, ok = "bytes", False
         elif "stream_sha256" in entry and not same_zlib:
             kind = "png_stream"
-            got = fixtures.png_parts(data)
-            ok = (got["stream_sha256"] == entry["stream_sha256"]
-                  and got["frame_sha256"] == entry["frame_sha256"]
-                  and all(n == manifest["bufsize"] for n in got["idat"][:-1]))
+            ok = png_held(fixtures.png_parts(data), entry)
+        elif "pngs" in entry and not same_zlib:
+            kind = "icon_parts"
+            got = fixtures.icon_parts(data)
+            ok = (got["container_sha256"] == entry["container_sha256"]
+                  and len(got["pngs"]) == len(entry["pngs"])
+                  and all(png_held(g, w)
+                          for g, w in zip(got["pngs"], entry["pngs"])))
         elif entry.get("dates") == "masked":
             kind = "pdf_masked"
             ok = hashlib.sha256(fixtures.mask_pdf_dates(data)).hexdigest() \
@@ -4665,30 +4681,17 @@ def written_hashes(tmp) -> dict:
     return counts
 
 
-def writers_runs(torch, tmp):
-    """The port's image writer (core/image_save.py behind
-    image_io.write_png; JPEG's pixel stages and entropy coder in
-    csrc/jpeg_encode.cpp, g++ at first use), on the card's machine, which
-    has no PIL. (a) written_hashes. (b) The CLI on "shadertoy" at
-    1280x720, 2 spp, --out w.jpg --capture-every 2: w.jpg and
-    w_00002.jpg JPEG files, byte for byte the same, read back by the
-    port's JPEG decoder at 1280x720; its closest- and any-hit launches
-    recorded and held against the plain version on at most CHECK_LANES
-    live lanes each (textured_launch_check, anyhit_launch_check: 0
-    mismatches outside ties, 0 occlusion mismatches, no overflow). (c)
-    write_png of that image as .jpg, .png, .bmp, .tif, .jp2, .gif, .pdf
-    and .eps: host ms, medians of 5, with the host's CPU and the card
-    line; the .jp2 decoded by core/jpeg2000.py equal to the image.
-    Returns (results, launches of (b))."""
+def writers_cli_run(torch, args):
+    """The port's CLI on "shadertoy" at 1280x720 with `args`, its closest- and any-hit launches recorded and held
+    against the plain version on at most CHECK_LANES live lanes each
+    (textured_launch_check, anyhit_launch_check: 0 mismatches outside
+    ties, 0 occlusion mismatches, no overflow). Returns (exit code,
+    seconds, launches, the last image write_png was given, closest-hit
+    and any-hit check rows)."""
     from tracerboy_tpu_torch.app import cli
     from tracerboy_tpu_torch.core import image_io
     from tracerboy_tpu_torch.trace import kernels, traverse
 
-    set_opt_in()
-    os.makedirs(os.path.join(tmp, "hashes"))
-    results = {"files": written_hashes(os.path.join(tmp, "hashes"))}
-    tmp = os.path.join(tmp, "cli")
-    os.makedirs(tmp)
     recorded = {"any_hit": [], "closest_hit": []}
     real = {key: getattr(traverse, key) for key in recorded}
     real_write = image_io.write_png
@@ -4707,7 +4710,6 @@ def writers_runs(torch, tmp):
         images.append(np.array(img))
         real_write(path, img)
 
-    out = os.path.join(tmp, "w.jpg")
     kernels.reset_counters()
     for key in recorded:
         setattr(traverse, key, recorder(key))
@@ -4715,8 +4717,7 @@ def writers_runs(torch, tmp):
     try:
         t0 = time.perf_counter()
         rc = cli.main(["shadertoy", "--size", "x".join(map(str, FULL_WAVE)),
-                       "--spp", "2", "--out", out, "--capture-every", "2",
-                       "--quiet"])
+                       *args, "--quiet"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     finally:
@@ -4726,19 +4727,11 @@ def writers_runs(torch, tmp):
     launches = dict(kernels.LAUNCHES)
     overflows = kernels.stack_overflows()
     if rc != 0:
-        fail(f"writers CLI: exit {rc}")
+        fail(f"writers CLI {args}: exit {rc}")
     if launches["closest"] <= 0 or launches["anyhit"] <= 0 or overflows:
-        fail(f"writers CLI: launches {launches}, {overflows} overflows")
-    final, capture = Path(out), Path(tmp) / "w_00002.jpg"
-    files = sorted(os.listdir(tmp))
-    if not (capture.exists() and final.read_bytes() == capture.read_bytes()
-            and final.read_bytes()[:4] == b"\xff\xd8\xff\xe0"):
-        fail(f"writers CLI: w.jpg and w_00002.jpg are not one JPEG "
-             f"({files})")
-    back = image_io.decode_ldr(out)
-    if back.shape != (FULL_WAVE[1], FULL_WAVE[0], 3):
-        fail(f"writers CLI: w.jpg reads back as {back.shape}")
-    check_image("writers CLI", images[-1])
+        fail(f"writers CLI {args}: launches {launches}, {overflows} "
+             "overflows")
+    check_image(f"writers CLI {args}", images[-1])
     rng = np.random.default_rng(20261018)
     calls = recorded["closest_hit"]
     by_kind, bad = textured_launch_check(calls, ["writers"] * len(calls),
@@ -4750,8 +4743,53 @@ def writers_runs(torch, tmp):
             or closest["overflows"] or closest["dead_lane_hits"]
             or anyhit["occ_mismatch"] or anyhit["overflows"]
             or anyhit["dead_lane_hits"]):
-        fail(f"writers CLI launches disagree with the plain version: "
-             f"{closest}, {anyhit}, {bad}")
+        fail(f"writers CLI {args}: launches disagree with the plain "
+             f"version: {closest}, {anyhit}, {bad}")
+    return rc, seconds, launches, images[-1], closest, anyhit
+
+
+def writers_runs(torch, tmp):
+    """The port's image writer (core/image_save.py behind
+    image_io.write_png; JPEG's pixel stages and entropy coder in
+    csrc/jpeg_encode.cpp, ICO's and ICNS's resampler in
+    csrc/resample.cpp, g++ at first use), on the card's machine, which
+    has no PIL. (a) written_hashes. (b) The CLI on "shadertoy" at
+    1280x720, 2 spp, --out w.jpg --capture-every 2: w.jpg and
+    w_00002.jpg JPEG files, byte for byte the same, read back by the
+    port's JPEG decoder at 1280x720. (b2) The CLI at 1280x720, 1 spp,
+    --out w.icns: read back through core/icns.py at 1024x1024, its
+    1024x1024 entry the BICUBIC resize (core/resample.py) of the image.
+    Each run's launches held by writers_cli_run. (c) write_png of (b)'s
+    image as .jpg, .png, .bmp, .tif, .jp2, .gif, .pdf, .eps, .ico and
+    .icns: host ms, medians of 5, with the host's CPU and the card line;
+    the .jp2 decoded by core/jpeg2000.py equal to the image, the .ico's
+    256x144 entry (core/ico.py) its LANCZOS thumbnail and the .icns's
+    entry as (b2)'s. Returns (results, launches of (b) and (b2))."""
+    from tracerboy_tpu_torch.core import image_io
+    from tracerboy_tpu_torch.core.icns import icns_entries, read_icns
+    from tracerboy_tpu_torch.core.ico import read_ico
+    from tracerboy_tpu_torch.core.image_io import _to_uint8
+    from tracerboy_tpu_torch.core.resample import BICUBIC, LANCZOS, resize
+
+    set_opt_in()
+    os.makedirs(os.path.join(tmp, "hashes"))
+    results = {"files": written_hashes(os.path.join(tmp, "hashes"))}
+    icns_dir = os.path.join(tmp, "icns")
+    tmp = os.path.join(tmp, "cli")
+    os.makedirs(tmp)
+    os.makedirs(icns_dir)
+    out = os.path.join(tmp, "w.jpg")
+    rc, seconds, launches, img, closest, anyhit = writers_cli_run(
+        torch, ["--spp", "2", "--out", out, "--capture-every", "2"])
+    final, capture = Path(out), Path(tmp) / "w_00002.jpg"
+    files = sorted(os.listdir(tmp))
+    if not (capture.exists() and final.read_bytes() == capture.read_bytes()
+            and final.read_bytes()[:4] == b"\xff\xd8\xff\xe0"):
+        fail(f"writers CLI: w.jpg and w_00002.jpg are not one JPEG "
+             f"({files})")
+    back = image_io.decode_ldr(out)
+    if back.shape != (FULL_WAVE[1], FULL_WAVE[0], 3):
+        fail(f"writers CLI: w.jpg reads back as {back.shape}")
     results["cli"] = dict(rc=rc, seconds=seconds, launches=launches,
                           files=files, jpeg_bytes=final.stat().st_size,
                           read_back=list(back.shape))
@@ -4760,9 +4798,40 @@ def writers_runs(torch, tmp):
           "--capture-every 2:", json.dumps(results["cli"]))
     print("writers closest-hit launches vs plain:", json.dumps(closest))
     print("writers any-hit launches vs plain:", json.dumps(anyhit))
-    img = images[-1]
+
+    def icns_check(label, path, u8):
+        """The icns file's read-back shape and its ic10 entry against the
+        image's BICUBIC resize."""
+        from tracerboy_tpu_torch.core.image_io import decode_png, png_to_8bit
+
+        data = Path(path).read_bytes()
+        shape = read_icns(data, path).shape
+        start, _ = icns_entries(data, path)[b"ic10"]
+        entry = png_to_8bit(*decode_png(data[start:], path))
+        want = resize(u8, "RGB", (1024, 1024), BICUBIC)
+        if shape[:2] != (1024, 1024) or not np.array_equal(entry, want):
+            fail(f"writers: {label} reads back as {shape}, its 1024x1024 "
+                 f"entry {'equal' if np.array_equal(entry, want) else 'not'}"
+                 " to the resize")
+        return list(shape)
+
+    icns_out = os.path.join(icns_dir, "w.icns")
+    rc2, seconds2, launches2, img2, closest2, anyhit2 = writers_cli_run(
+        torch, ["--spp", "1", "--out", icns_out])
+    results["icns_cli"] = dict(
+        rc=rc2, seconds=seconds2, launches=launches2,
+        files=sorted(os.listdir(icns_dir)),
+        icns_bytes=os.path.getsize(icns_out),
+        read_back=icns_check("w.icns", icns_out, _to_uint8(img2)))
+    results["icns_closest"], results["icns_anyhit"] = closest2, anyhit2
+    print("writers CLI shadertoy 1280x720 1 spp --out w.icns:",
+          json.dumps(results["icns_cli"]))
+    print("writers icns closest-hit launches vs plain:",
+          json.dumps(closest2))
+    print("writers icns any-hit launches vs plain:", json.dumps(anyhit2))
     times = {}
-    for ext in ("jpg", "png", "bmp", "tif", "jp2", "gif", "pdf", "eps"):
+    for ext in ("jpg", "png", "bmp", "tif", "jp2", "gif", "pdf", "eps",
+                "ico", "icns"):
         path = os.path.join(tmp, f"t.{ext}")
         secs = []
         for _ in range(5):
@@ -4772,19 +4841,26 @@ def writers_runs(torch, tmp):
         times[ext] = dict(ms=[1e3 * x for x in secs],
                           median_ms=float(np.median(secs)) * 1e3,
                           bytes=os.path.getsize(path))
-    from tracerboy_tpu_torch.core.image_io import _to_uint8
     from tracerboy_tpu_torch.core.jpeg2000 import decode_jpeg2000
 
+    u8 = _to_uint8(img)
     back, _, _ = decode_jpeg2000(Path(tmp, "t.jp2").read_bytes())
-    if not np.array_equal(back[..., :img.shape[-1]], _to_uint8(img)):
+    if not np.array_equal(back[..., :img.shape[-1]], u8):
         fail("writers: the 1280x720 .jp2 does not decode to its image")
+    ico = read_ico(Path(tmp, "t.ico").read_bytes())
+    if not np.array_equal(ico, resize(u8, "RGB", (256, 144), LANCZOS)):
+        fail(f"writers: the 1280x720 .ico reads back as {ico.shape}, not "
+             "its 256x144 LANCZOS thumbnail")
+    times["ico"]["read_back"] = list(ico.shape)
+    times["icns"]["read_back"] = icns_check("t.icns",
+                                            os.path.join(tmp, "t.icns"), u8)
     results["write_1280x720"] = dict(times, cpu=host_cpu(),
                                      cpu_count=os.cpu_count(),
                                      card=card_line())
     print("writers write_png 1280x720 (host ms, medians of 5):",
           json.dumps(results["write_1280x720"]))
     torch.cuda.empty_cache()
-    return results, launches
+    return results, {k: launches[k] + launches2[k] for k in launches}
 
 
 def main() -> int:
@@ -5040,6 +5116,7 @@ def main() -> int:
     lap("small")
     writers_res, writers_launches = writers_phase(torch)
     writers_c, writers_a = writers_res["closest"], writers_res["anyhit"]
+    icns_c, icns_a = writers_res["icns_closest"], writers_res["icns_anyhit"]
     lap("writers")
     print("phase seconds:", json.dumps(laps))
 
@@ -5081,7 +5158,7 @@ def main() -> int:
                               *tiff_kinds.values(),
                               *webp_kinds.values(), *j2k_kinds.values(),
                               *avif_kinds.values(), *small_kinds.values(),
-                              writers_c]),
+                              writers_c, icns_c]),
              id_mismatch_outside_ties=sum(
                  s["id_mismatch_outside_ties"]
                  for s in [st_c, st_c2, un_c, *roots_c, env_closest,
@@ -5092,7 +5169,7 @@ def main() -> int:
                            *tiff_kinds.values(),
                            *webp_kinds.values(), *j2k_kinds.values(),
                            *avif_kinds.values(), *small_kinds.values(),
-                           writers_c]),
+                           writers_c, icns_c]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
              unordered_ms=un_times["closest_ms"],
              unordered_plain_ms=un_times["closest_plain_ms"],
@@ -5143,7 +5220,8 @@ def main() -> int:
                  "max_abs_err", "overflows")},
              **{f"{pre}_{key}": row[key]
                 for pre, row in (("ml", ml_c), ("sharding", shard_c),
-                                 ("writers", writers_c))
+                                 ("writers", writers_c),
+                                 ("writers_icns", icns_c))
                 for key in (
                  "launches", "lanes", "live", "live_share", "checked",
                  "hit_mismatch", "id_mismatch_outside_ties", "ties",
@@ -5186,6 +5264,7 @@ def main() -> int:
              small2_cli=small_res["small2_cli"],
              small3_cli=small_res["small3_cli"],
              writers_cli=writers_res["cli"],
+             writers_icns_cli=writers_res["icns_cli"],
              writers_files=writers_res["files"],
              writers_write_1280x720=writers_res["write_1280x720"],
              volume_run=vol_res["run"],
@@ -5217,10 +5296,12 @@ def main() -> int:
              launches_by_path=by_path("anyhit"),
              occ_mismatch=sum(s["occ_mismatch"]
                               for s in [st_a, st_a2, un_a, *roots_a,
-                                        anim_a, ml_a, shard_a, writers_a]),
+                                        anim_a, ml_a, shard_a, writers_a,
+                                        icns_a]),
              max_abs_err=max(s["max_abs_err"]
                              for s in [st_a, st_a2, un_a, *roots_a,
-                                       anim_a, ml_a, shard_a, writers_a]),
+                                       anim_a, ml_a, shard_a, writers_a,
+                                       icns_a]),
              ms=times["anyhit_ms"], plain_ms=times["anyhit_plain_ms"],
              unordered_ms=un_times["anyhit_ms"],
              unordered_plain_ms=un_times["anyhit_plain_ms"],
@@ -5239,7 +5320,8 @@ def main() -> int:
                  "occluded", "max_abs_err", "overflows")},
              **{f"{pre}_{key}": row[key]
                 for pre, row in (("ml", ml_a), ("sharding", shard_a),
-                                 ("writers", writers_a))
+                                 ("writers", writers_a),
+                                 ("writers_icns", icns_a))
                 for key in (
                  "launches", "lanes", "live", "live_share", "checked",
                  "occ_mismatch", "occluded", "max_abs_err", "overflows")}),

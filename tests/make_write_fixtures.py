@@ -15,7 +15,9 @@ Writes into tests/data/write/ (or OUT_DIR):
   Image.fromarray(img).save("img" + ext) gave: the sha256 and size of
   the file, or the class of PIL's error; for PNG also the sha256 of the
   inflated IDAT stream and of the file without its IDAT chunks, and the
-  IDAT lengths (another zlib writes other deflate bytes); for PDF the
+  IDAT lengths (another zlib writes other deflate bytes); for ICO and
+  ICNS also icon_parts (the container without its PNGs and their
+  lengths, and each embedded PNG's parts); for PDF the
   sha256 of the file with its two dates masked (mask_pdf_dates: PIL
   writes the time of the save); for the formats the port does not write
   yet (LATER) only whether PIL wrote one. PIL's and zlib's versions are
@@ -45,7 +47,7 @@ FIXTURE_DIR = os.path.join(HERE, "data", "write")
 SIZES = ((1, 1), (37, 53), (257, 131))          # (width, height)
 MODES = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}
 # The formats whose encoders the port has not ported (ROADMAP item 25).
-LATER = ("WEBP", "AVIF", "ICO", "ICNS")
+LATER = ("WEBP", "AVIF")
 # A PDF date as PdfParser writes a time.struct_time, and its mask.
 PDF_DATE = re.compile(rb"\(D:\d{14}Z\)")
 PDF_DATE_MASK = b"(D:00000000000000Z)"
@@ -101,6 +103,38 @@ def png_parts(data: bytes) -> dict:
                 idat=lengths)
 
 
+def icon_parts(data: bytes) -> dict:
+    """An ICO's or ICNS's embedded PNGs taken apart: the sha256 of the
+    file with each PNG cut out and each field that holds a PNG's length or
+    offset (or the file's length) zeroed, and each PNG's png_parts in file
+    order (ICNS's 256 and 512 twice)."""
+    buf, spans = bytearray(data), []
+    if data[:4] == b"icns":
+        buf[4:8] = bytes(4)
+        pos = 8
+        while pos < len(data):
+            kind, n = struct.unpack_from(">4si", data, pos)
+            if kind == b"TOC ":
+                for q in range(pos + 8, pos + n, 8):
+                    buf[q + 4:q + 8] = bytes(4)
+            else:
+                buf[pos + 4:pos + 8] = bytes(4)
+                spans.append((pos + 8, pos + n))
+            pos += n
+    else:
+        for k in range(struct.unpack_from("<H", data, 4)[0]):
+            n, offset = struct.unpack_from("<II", data, 6 + 16 * k + 8)
+            buf[6 + 16 * k + 8:6 + 16 * k + 16] = bytes(8)
+            spans.append((offset, offset + n))
+    container, last = b"", 0
+    for start, end in sorted(spans):
+        container += bytes(buf[last:start])
+        last = end
+    container += bytes(buf[last:])
+    return dict(container_sha256=hashlib.sha256(container).hexdigest(),
+                pngs=[png_parts(data[start:end]) for start, end in spans])
+
+
 def pil_entry(img: np.ndarray, ext: str, directory: str) -> dict:
     """What PIL's Image.fromarray(img).save(directory/"img" + ext) gives."""
     from PIL import Image
@@ -123,6 +157,8 @@ def pil_entry(img: np.ndarray, ext: str, directory: str) -> dict:
         entry["dates"] = "masked"
     if fmt == "PNG":
         entry.update(png_parts(data))
+    if fmt in ("ICO", "ICNS"):
+        entry.update(icon_parts(data))
     return entry
 
 

@@ -6,11 +6,12 @@ and so picks the format from the path's extension.
 For every extension of PIL 12.1's EXTENSION table with a save handler
 and every mode write_png can make (L, LA, RGB, RGBA), in uint8 and float,
 on the committed inputs of tests/data/write (1x1, 37x53, 257x131): the
-same bytes (a PNG's bytes where this machine's zlib is PIL's, else its
-chunks and inflated stream; a PDF's with both writers run under one
-patched time.gmtime, so its dates are equal too), or the same exception
-class, or, for the encoders not ported yet (WebP, AVIF, ICO, ICNS) only,
-NotImplementedError naming ROADMAP item 25. The committed manifest
+same bytes (a PNG's, ICO's or ICNS's bytes where this machine's zlib is
+PIL's, else its chunks and inflated streams; a PDF's with both writers
+run under one patched time.gmtime, so its dates are equal too), or the
+same exception class, or, for the encoders not ported yet (WebP, AVIF)
+only, NotImplementedError naming ROADMAP item 25 (ICO and ICNS, with
+their resampler, in tests/test_torch_image_write_icons.py too). The committed manifest
 (PDFs by their bytes with both dates masked) is checked against PIL
 here, so that it cannot drift from what chip_smoke.py's writers phase
 holds the port to on the card's machine. Hypothesis sweeps JPEG and PNG
@@ -42,6 +43,7 @@ from PIL import Image, features
 from make_write_fixtures import (
     FIXTURE_DIR,
     LATER,
+    icon_parts,
     MODES,
     image_of,
     mask_pdf_dates,
@@ -93,8 +95,17 @@ def outcome(write, path, img):
         return f.read(), True
 
 
+def without_idat_lengths(parts: dict) -> dict:
+    """icon_parts without the IDAT lengths another zlib changes."""
+    return dict(parts, pngs=[{k: v for k, v in p.items() if k != "idat"}
+                             for p in parts["pngs"]])
+
+
 def assert_same_file(got: bytes, ref: bytes, fmt: str):
-    if fmt == "PNG" and not SAME_ZLIB:
+    if fmt in ("ICO", "ICNS") and not SAME_ZLIB:
+        assert without_idat_lengths(icon_parts(got)) == without_idat_lengths(
+            icon_parts(ref))
+    elif fmt == "PNG" and not SAME_ZLIB:
         assert png_parts(got)["stream_sha256"] == png_parts(ref)[
             "stream_sha256"]
         assert png_parts(got)["frame_sha256"] == png_parts(ref)[
@@ -235,15 +246,20 @@ def test_manifest_is_pils(tmp_path):
         if "stream_sha256" in entry and not SAME_ZLIB:
             got = {k: got[k] for k in ("stream_sha256", "frame_sha256")}
             entry = {k: entry[k] for k in got}
+        elif "pngs" in entry and not SAME_ZLIB:
+            got, entry = (without_idat_lengths(
+                {k: e[k] for k in ("container_sha256", "pngs")})
+                for e in (got, entry))
         assert got == entry, key
 
 
 def test_port_matches_the_manifest(tmp_path):
     """The check chip_smoke.py's writers phase makes on the card's
     machine: each input x mode x extension through image_save.save, its
-    sha256 (a PNG's stream and chunks where zlib differs) or PIL's error
-    class (a PDF's with its dates masked); NotImplementedError naming
-    item 25 for LATER formats."""
+    sha256 (a PNG's stream and chunks where zlib differs, an ICO's or
+    ICNS's container and embedded PNGs' streams and chunks) or PIL's
+    error class (a PDF's with its dates masked); NotImplementedError
+    naming item 25 for LATER formats."""
     for key, entry in _entries():
         name, mode, ext = key.split("/")
         path = str(tmp_path / ("img" + ext))
@@ -258,6 +274,10 @@ def test_port_matches_the_manifest(tmp_path):
             parts = png_parts(got)
             assert parts["stream_sha256"] == entry["stream_sha256"], key
             assert parts["frame_sha256"] == entry["frame_sha256"], key
+        elif "pngs" in entry and not SAME_ZLIB:
+            assert without_idat_lengths(icon_parts(got)) == \
+                without_idat_lengths({k: entry[k] for k in (
+                    "container_sha256", "pngs")}), key
         elif entry.get("dates") == "masked":
             assert hashlib.sha256(mask_pdf_dates(got)).hexdigest() == entry[
                 "sha256"], key

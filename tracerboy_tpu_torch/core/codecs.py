@@ -32,7 +32,11 @@ ctypes:
 - j2k_encode_library(): csrc/j2k_encode.cpp (OpenJPEG's lossless 5/3
   tile coder: wavelet, tier 1, tier 2), for core/image_save.py;
 - gif_encode_library(): csrc/gif_encode.cpp (Pillow's median-cut and
-  octree quantisers and its GIF LZW coder), for core/image_save.py.
+  octree quantisers and its GIF LZW coder), for core/image_save.py;
+- resample_library(): csrc/resample.cpp (Pillow's BICUBIC and LANCZOS
+  resampling of 8-bit images and the premultiplication around it), for
+  core/resample.py, with -ffp-contract=off: the coefficients are doubles
+  rounded to 22-bit fixed point, which a fused multiply-add could move.
 """
 
 from __future__ import annotations
@@ -164,3 +168,14 @@ def gif_encode_library():
         ("tb_quantize_median", [p, i64, p, p]),
         ("tb_quantize_octree", [p, i64, p, p]),
         ("tb_gif_lzw", [p, i64, i64, i64, p, i64])))
+
+
+def resample_library():
+    import ctypes
+
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    return _load("tbresample", "resample.cpp", (), (
+        ("tb_resample", [p, i64, i64, i64, p, i64, i64, i64]),
+        ("tb_premultiply", [p, i64, i64]),
+        ("tb_unpremultiply", [p, i64, i64])),
+        flags=("-ffp-contract=off",))

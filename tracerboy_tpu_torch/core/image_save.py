@@ -21,14 +21,17 @@ the PIL plugin's _save named at its head:
   GifEncode.c's LZW, in csrc/gif_encode.cpp);
 - EPS/PS (EpsImagePlugin._save and EpsEncode.c's hex lines) and PDF
   (PdfImagePlugin._save and PdfParser: the JPEG or JPEG 2000 writer's
-  bytes in one page; its two dates are the current time).
+  bytes in one page; its two dates are the current time);
+- ICO and ICNS (IcoImagePlugin._save and IcnsImagePlugin._save: PNG
+  entries of the image's LANCZOS thumbnails or BICUBIC resizes, by
+  core/resample.py and csrc/resample.cpp).
 
 What PIL refuses is refused with PIL's class and message: an extension
 PIL does not know (ValueError), a format without a save handler
 (KeyError), a mode the format cannot hold (OSError or ValueError, as the
 plugin raises), the stub formats (OSError, "save handler not
-installed"). PIL's other encoders (WebP, AVIF, ICO and ICNS) are not
-ported yet: they raise NotImplementedError naming ITEM.
+installed"). PIL's other encoders (WebP and AVIF) are not ported yet:
+they raise NotImplementedError naming ITEM.
 
 As Image.save does, the file is opened (created or emptied) before the
 writer runs, and removed again where the writer fails on a file that was
@@ -784,6 +787,65 @@ def save_pdf(px: np.ndarray, mode: str, filename: str) -> bytes:
 
 
 # ----------------------------------------------------------------------------
+# ICO and ICNS
+
+_ICO_SIZES = (16, 24, 32, 48, 64, 128, 256)
+# IcnsImagePlugin._save's types and sizes, in its dict's order.
+_ICNS_TYPES = ((b"ic07", 128), (b"ic08", 256), (b"ic09", 512),
+               (b"ic10", 1024), (b"ic11", 32), (b"ic12", 64), (b"ic13", 256),
+               (b"ic14", 512))
+
+
+def save_ico(px: np.ndarray, mode: str, filename: str) -> bytes:
+    """IcoImagePlugin._save at its defaults: for each of the seven
+    sizes (16-256) that fits in the image, the image's LANCZOS thumbnail
+    of that box (the image itself where it is that size) as a PNG; the
+    header, 16-byte entries (width and height, 256 as 0; 32 bits; the
+    PNG's length and offset), the PNGs. An image under 16 pixels a side
+    has no entry."""
+    from tracerboy_tpu_torch.core.resample import (
+        LANCZOS,
+        resize,
+        thumbnail_size,
+    )
+
+    h, w, _ = px.shape
+    frames = [resize(px, mode, thumbnail_size(w, h, (side, side)), LANCZOS)
+              for side in _ICO_SIZES if side <= w and side <= h]
+    pngs = [save_png(frame, mode, filename) for frame in frames]
+    offset = 6 + 16 * len(frames)
+    entries = []
+    for frame, png in zip(frames, pngs):
+        fh, fw = frame.shape[:2]
+        entries.append(struct.pack("<BBBBHHII", fw % 256, fh % 256, 0, 0, 0,
+                                   32, len(png), offset))
+        offset += len(png)
+    return (b"\0\0\1\0" + struct.pack("<H", len(frames)) + b"".join(entries)
+            + b"".join(pngs))
+
+
+def save_icns(px: np.ndarray, mode: str, filename: str) -> bytes:
+    """IcnsImagePlugin._save: the image's BICUBIC resize to each of its
+    six sizes (32-1024, an empty image's all zeros) as a PNG; the icns
+    magic and total length, the TOC of the eight types and their entry
+    lengths, then each type's entry (256 and 512 each written twice)."""
+    from tracerboy_tpu_torch.core.resample import BICUBIC, resize
+
+    streams = {}
+    for _, side in _ICNS_TYPES:
+        if side not in streams:
+            streams[side] = save_png(resize(px, mode, (side, side), BICUBIC),
+                                     mode, filename)
+    entries = [(kind, 8 + len(streams[side]), streams[side])
+               for kind, side in _ICNS_TYPES]
+    toc = b"TOC " + struct.pack(">i", 8 + 8 * len(entries)) + b"".join(
+        kind + struct.pack(">i", n) for kind, n, _ in entries)
+    total = 8 + len(toc) + sum(n for _, n, _ in entries)
+    return b"icns" + struct.pack(">i", total) + toc + b"".join(
+        kind + struct.pack(">i", n) + stream for kind, n, stream in entries)
+
+
+# ----------------------------------------------------------------------------
 # What PIL refuses, and what is not ported yet
 
 
@@ -817,7 +879,6 @@ SAVE = {
     "BLP": _refuse_mode(ValueError, "Unsupported BLP image mode"),
     **{fmt: _stub(fmt) for fmt in ("BUFR", "GRIB", "HDF5", "WMF")},
     "JPEG2000": save_jpeg2000, "GIF": save_gif, "EPS": save_eps,
-    "PDF": save_pdf,
+    "PDF": save_pdf, "ICO": save_ico, "ICNS": save_icns,
     "WEBP": _later("WebP"), "AVIF": _later("AVIF"),
-    "ICO": _later("ICO"), "ICNS": _later("ICNS"),
 }
