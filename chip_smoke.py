@@ -276,20 +276,25 @@ Phases, each fatal on failure:
      image_io.write_png, JPEG's pixel stages and entropy coder in
      csrc/jpeg_encode.cpp, the JPEG 2000 tile coder in
      csrc/j2k_encode.cpp, GIF's palettes and LZW in csrc/gif_encode.cpp,
-     ICO's and ICNS's resampler in csrc/resample.cpp):
+     ICO's and ICNS's resampler in csrc/resample.cpp, libwebp's lossy
+     VP8 encoder in csrc/webp_encode.cpp):
      every committed input of tests/data/write in L, LA, RGB and RGBA
      written under every extension PIL saves, each file's sha256 equal to
      the manifest's (PIL's; a PNG by its inflated stream and other chunks
      where zlib differs, an ICO or ICNS by its container and embedded
      PNGs likewise; a PDF with its two dates masked), PIL's error class
      where PIL refuses, ROADMAP item 25 where the encoder is not ported
-     yet (WebP and AVIF only); the CLI on "shadertoy" at 1280x720, 2 spp,
-     --out w.jpg --capture-every 2: two byte-identical JPEG files, read
-     back at 1280x720; at 1 spp --out w.icns, read back at 1024x1024;
-     each run's closest- and any-hit launches held against the plain
-     version on at most CHECK_LANES live lanes each; write_png of its
-     image as .jpg, .png, .bmp, .tif, .jp2, .gif, .pdf, .eps, .ico and
-     .icns timed on the host, the .jp2, .ico and .icns read back;
+     yet (AVIF, and WebP with alpha below 255, only); the opaque images
+     of tests/data/write/webp_extra.json (up to 1280x720) made from their
+     seeds and written as WebP, each equal to PIL's; the CLI on
+     "shadertoy" at 1280x720, 2 spp, --out w.jpg --capture-every 2: two
+     byte-identical JPEG files, read back at 1280x720; at 1 spp --out
+     w.icns, read back at 1024x1024; at 1 spp --out w.webp, read back at
+     1280x720 (its PSNR printed); each run's closest- and any-hit
+     launches held against the plain version on at most CHECK_LANES live
+     lanes each; write_png of its image as .jpg, .png, .bmp, .tif, .jp2,
+     .gif, .pdf, .eps, .ico, .icns and .webp timed on the host, the .jp2,
+     .ico, .icns and .webp read back;
  30. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
@@ -4609,9 +4614,11 @@ def written_hashes(tmp) -> dict:
     ICNS there, the container with its PNGs and their lengths taken out
     and each embedded PNG held as a PNG is (icon_parts); for a PDF, the
     sha256 of its bytes with both dates masked; PIL's error class;
-    NotImplementedError naming ROADMAP item 25 for the encoders not
-    ported yet (never for JPEG 2000, GIF, EPS/PS, PDF, ICO or ICNS).
-    Returns the counts by kind of check."""
+    NotImplementedError naming ROADMAP item 25 for what is not ported
+    yet, which make_write_fixtures.ported says (AVIF, a WebP with alpha
+    below 255: never an opaque WebP, and never another format). Returns
+    the counts by kind of check (webp: the opaque WebP files held by
+    their bytes)."""
     import hashlib
     import zlib
 
@@ -4624,10 +4631,8 @@ def written_hashes(tmp) -> dict:
         inputs = {k: npz[k] for k in npz.files}
     same_zlib = zlib.ZLIB_RUNTIME_VERSION == manifest["zlib"]
     counts = dict(bytes=0, png_stream=0, icon_parts=0, pdf_masked=0,
-                  error=0, later=0)
+                  error=0, later=0, webp=0)
     bad = []
-    ported = {".jp2", ".j2k", ".jpc", ".jpf", ".jpx", ".j2c", ".gif", ".eps",
-              ".ps", ".pdf", ".ico", ".icns"}
 
     def png_held(got, want):
         return (got["stream_sha256"] == want["stream_sha256"]
@@ -4647,7 +4652,8 @@ def written_hashes(tmp) -> dict:
         if "later" in entry:
             kind = "later"
             ok = (isinstance(err, NotImplementedError)
-                  and image_save.ITEM in str(err) and ext not in ported)
+                  and image_save.ITEM in str(err)
+                  and not fixtures.ported(image_save.EXTENSION[ext], img))
         elif "error" in entry:
             kind = "error"
             ok = type(err).__name__ == entry["error"]
@@ -4670,15 +4676,49 @@ def written_hashes(tmp) -> dict:
         else:
             kind = "bytes"
             ok = hashlib.sha256(data).hexdigest() == entry["sha256"]
+            counts["webp"] += ext == ".webp"
         counts[kind] += 1
         if not ok:
             bad.append((key, entry, repr(err)))
     counts["zlib"] = zlib.ZLIB_RUNTIME_VERSION
     counts["manifest_zlib"] = manifest["zlib"]
     print("writers files against PIL's hashes:", json.dumps(counts))
-    if bad or not counts["bytes"]:
+    if bad or not counts["bytes"] or not counts["webp"]:
         fail(f"writers: {len(bad)} files differ from PIL's: {bad[:10]}")
     return counts
+
+
+def written_webp_extra() -> dict:
+    """Each image of tests/data/write/webp_extra.json made from its seed
+    (make_write_fixtures.webp_extra_image: integer arithmetic alone) and
+    written by core/image_save.py's WebP writer, held against the sha256
+    of PIL's file. Returns the count, the largest image and the host
+    seconds."""
+    import hashlib
+
+    from tracerboy_tpu_torch.core import image_save
+
+    fixtures = write_fixtures_module()
+    with open(WRITE_DIR / "webp_extra.json") as f:
+        extra = json.load(f)
+    bad, t0 = [], time.perf_counter()
+    for e in extra["entries"]:
+        img = fixtures.webp_extra_image(e["kind"], e["width"], e["height"],
+                                        e["seed"])
+        data = image_save.webp_encode(img)
+        if hashlib.sha256(data).hexdigest() != e["sha256"]:
+            bad.append((e["kind"], e["width"], e["height"], len(data),
+                        e["size"]))
+    res = dict(held=len(extra["entries"]) - len(bad),
+               images=len(extra["entries"]),
+               largest=max((e["width"] * e["height"], f"{e['width']}x"
+                            f"{e['height']}") for e in extra["entries"])[1],
+               seconds=time.perf_counter() - t0)
+    print("writers webp_extra.json against PIL's hashes:", json.dumps(res))
+    if bad or not extra["entries"]:
+        fail(f"writers: {len(bad)} WebP files of webp_extra.json differ "
+             f"from PIL's: {bad[:10]}")
+    return res
 
 
 def writers_cli_run(torch, args):
@@ -4759,21 +4799,29 @@ def writers_runs(torch, tmp):
     port's JPEG decoder at 1280x720. (b2) The CLI at 1280x720, 1 spp,
     --out w.icns: read back through core/icns.py at 1024x1024, its
     1024x1024 entry the BICUBIC resize (core/resample.py) of the image.
-    Each run's launches held by writers_cli_run. (c) write_png of (b)'s
-    image as .jpg, .png, .bmp, .tif, .jp2, .gif, .pdf, .eps, .ico and
-    .icns: host ms, medians of 5, with the host's CPU and the card line;
-    the .jp2 decoded by core/jpeg2000.py equal to the image, the .ico's
-    256x144 entry (core/ico.py) its LANCZOS thumbnail and the .icns's
-    entry as (b2)'s. Returns (results, launches of (b) and (b2))."""
+    (b3) The CLI at 1280x720, 1 spp, --out w.webp: read back through
+    core/webp.py at 1280x720, its PSNR against the image written printed
+    (not gated). Each run's launches held by writers_cli_run. (a2)
+    written_webp_extra. (c) write_png of (b)'s image as .jpg, .png,
+    .bmp, .tif, .jp2, .gif, .pdf, .eps, .ico, .icns and .webp: host ms,
+    medians of 5, with the host's CPU and the card line; the .jp2
+    decoded by core/jpeg2000.py equal to the image, the .ico's 256x144
+    entry (core/ico.py) its LANCZOS thumbnail, the .icns's entry as
+    (b2)'s, the .webp read back at 1280x720. Returns (results, launches
+    of (b), (b2) and (b3))."""
     from tracerboy_tpu_torch.core import image_io
     from tracerboy_tpu_torch.core.icns import icns_entries, read_icns
     from tracerboy_tpu_torch.core.ico import read_ico
     from tracerboy_tpu_torch.core.image_io import _to_uint8
     from tracerboy_tpu_torch.core.resample import BICUBIC, LANCZOS, resize
+    from tracerboy_tpu_torch.core.webp import read_webp
 
     set_opt_in()
     os.makedirs(os.path.join(tmp, "hashes"))
-    results = {"files": written_hashes(os.path.join(tmp, "hashes"))}
+    results = {"files": written_hashes(os.path.join(tmp, "hashes")),
+               "webp_extra": written_webp_extra()}
+    webp_dir = os.path.join(tmp, "webp")
+    os.makedirs(webp_dir)
     icns_dir = os.path.join(tmp, "icns")
     tmp = os.path.join(tmp, "cli")
     os.makedirs(tmp)
@@ -4829,9 +4877,35 @@ def writers_runs(torch, tmp):
     print("writers icns closest-hit launches vs plain:",
           json.dumps(closest2))
     print("writers icns any-hit launches vs plain:", json.dumps(anyhit2))
+
+    def webp_check(label, path, u8):
+        """The WebP file read back through core/webp.py at 1280x720, and
+        its PSNR (dB) against the image written."""
+        back = read_webp(Path(path).read_bytes(), path)
+        if back.shape != (FULL_WAVE[1], FULL_WAVE[0], 3):
+            fail(f"writers: {label} reads back as {back.shape}")
+        mse = float(np.mean((back.astype(np.float64) - u8) ** 2))
+        return list(back.shape), (10 * np.log10(255.0 ** 2 / mse)
+                                  if mse else float("inf"))
+
+    webp_out = os.path.join(webp_dir, "w.webp")
+    rc3, seconds3, launches3, img3, closest3, anyhit3 = writers_cli_run(
+        torch, ["--spp", "1", "--out", webp_out])
+    shape3, psnr3 = webp_check("w.webp", webp_out, _to_uint8(img3))
+    results["webp_cli"] = dict(
+        rc=rc3, seconds=seconds3, launches=launches3,
+        files=sorted(os.listdir(webp_dir)),
+        webp_bytes=os.path.getsize(webp_out), read_back=shape3,
+        psnr_db=psnr3)
+    results["webp_closest"], results["webp_anyhit"] = closest3, anyhit3
+    print("writers CLI shadertoy 1280x720 1 spp --out w.webp:",
+          json.dumps(results["webp_cli"]))
+    print("writers webp closest-hit launches vs plain:",
+          json.dumps(closest3))
+    print("writers webp any-hit launches vs plain:", json.dumps(anyhit3))
     times = {}
     for ext in ("jpg", "png", "bmp", "tif", "jp2", "gif", "pdf", "eps",
-                "ico", "icns"):
+                "ico", "icns", "webp"):
         path = os.path.join(tmp, f"t.{ext}")
         secs = []
         for _ in range(5):
@@ -4854,13 +4928,16 @@ def writers_runs(torch, tmp):
     times["ico"]["read_back"] = list(ico.shape)
     times["icns"]["read_back"] = icns_check("t.icns",
                                             os.path.join(tmp, "t.icns"), u8)
+    times["webp"]["read_back"], times["webp"]["psnr_db"] = webp_check(
+        "t.webp", os.path.join(tmp, "t.webp"), u8)
     results["write_1280x720"] = dict(times, cpu=host_cpu(),
                                      cpu_count=os.cpu_count(),
                                      card=card_line())
     print("writers write_png 1280x720 (host ms, medians of 5):",
           json.dumps(results["write_1280x720"]))
     torch.cuda.empty_cache()
-    return results, {k: launches[k] + launches2[k] for k in launches}
+    return results, {k: launches[k] + launches2[k] + launches3[k]
+                     for k in launches}
 
 
 def main() -> int:
@@ -5117,6 +5194,8 @@ def main() -> int:
     writers_res, writers_launches = writers_phase(torch)
     writers_c, writers_a = writers_res["closest"], writers_res["anyhit"]
     icns_c, icns_a = writers_res["icns_closest"], writers_res["icns_anyhit"]
+    wwebp_c, wwebp_a = (writers_res["webp_closest"],
+                        writers_res["webp_anyhit"])
     lap("writers")
     print("phase seconds:", json.dumps(laps))
 
@@ -5158,7 +5237,7 @@ def main() -> int:
                               *tiff_kinds.values(),
                               *webp_kinds.values(), *j2k_kinds.values(),
                               *avif_kinds.values(), *small_kinds.values(),
-                              writers_c, icns_c]),
+                              writers_c, icns_c, wwebp_c]),
              id_mismatch_outside_ties=sum(
                  s["id_mismatch_outside_ties"]
                  for s in [st_c, st_c2, un_c, *roots_c, env_closest,
@@ -5169,7 +5248,7 @@ def main() -> int:
                            *tiff_kinds.values(),
                            *webp_kinds.values(), *j2k_kinds.values(),
                            *avif_kinds.values(), *small_kinds.values(),
-                           writers_c, icns_c]),
+                           writers_c, icns_c, wwebp_c]),
              ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
              unordered_ms=un_times["closest_ms"],
              unordered_plain_ms=un_times["closest_plain_ms"],
@@ -5221,7 +5300,8 @@ def main() -> int:
              **{f"{pre}_{key}": row[key]
                 for pre, row in (("ml", ml_c), ("sharding", shard_c),
                                  ("writers", writers_c),
-                                 ("writers_icns", icns_c))
+                                 ("writers_icns", icns_c),
+                                 ("writers_webp", wwebp_c))
                 for key in (
                  "launches", "lanes", "live", "live_share", "checked",
                  "hit_mismatch", "id_mismatch_outside_ties", "ties",
@@ -5265,7 +5345,9 @@ def main() -> int:
              small3_cli=small_res["small3_cli"],
              writers_cli=writers_res["cli"],
              writers_icns_cli=writers_res["icns_cli"],
+             writers_webp_cli=writers_res["webp_cli"],
              writers_files=writers_res["files"],
+             writers_webp_extra=writers_res["webp_extra"],
              writers_write_1280x720=writers_res["write_1280x720"],
              volume_run=vol_res["run"],
              volume_control=vol_res["control"],
@@ -5297,11 +5379,11 @@ def main() -> int:
              occ_mismatch=sum(s["occ_mismatch"]
                               for s in [st_a, st_a2, un_a, *roots_a,
                                         anim_a, ml_a, shard_a, writers_a,
-                                        icns_a]),
+                                        icns_a, wwebp_a]),
              max_abs_err=max(s["max_abs_err"]
                              for s in [st_a, st_a2, un_a, *roots_a,
                                        anim_a, ml_a, shard_a, writers_a,
-                                       icns_a]),
+                                       icns_a, wwebp_a]),
              ms=times["anyhit_ms"], plain_ms=times["anyhit_plain_ms"],
              unordered_ms=un_times["anyhit_ms"],
              unordered_plain_ms=un_times["anyhit_plain_ms"],
@@ -5321,7 +5403,8 @@ def main() -> int:
              **{f"{pre}_{key}": row[key]
                 for pre, row in (("ml", ml_a), ("sharding", shard_a),
                                  ("writers", writers_a),
-                                 ("writers_icns", icns_a))
+                                 ("writers_icns", icns_a),
+                                 ("writers_webp", wwebp_a))
                 for key in (
                  "launches", "lanes", "live", "live_share", "checked",
                  "occ_mismatch", "occluded", "max_abs_err", "overflows")}),

@@ -19,19 +19,27 @@ Writes into tests/data/write/ (or OUT_DIR):
   ICNS also icon_parts (the container without its PNGs and their
   lengths, and each embedded PNG's parts); for PDF the
   sha256 of the file with its two dates masked (mask_pdf_dates: PIL
-  writes the time of the save); for the formats the port does not write
-  yet (LATER) only whether PIL wrote one. PIL's and zlib's versions are
-  recorded.
+  writes the time of the save); for what the port does not write yet
+  (ported() false: AVIF, and a WebP whose converted image has alpha
+  below 255, which libwebp codes with its lossless encoder) only whether
+  PIL wrote one. PIL's and zlib's versions are recorded;
+- webp_extra.json: PIL's sha256 and size of the WebP of each image of
+  WEBP_EXTRA, opaque images of 1x1 to 1280x720 (flat, ramps, smooth
+  gradients, noise, blocks and tiles of them mixed) that webp_extra_image
+  makes from a seed with numpy integer arithmetic alone, so that any
+  machine makes the same pixels.
 
 tests/test_torch_image_write.py holds the port's image_save against the
-manifest and checks the manifest against PIL on this machine;
-chip_smoke.py's writers phase holds it against the manifest on the card's
-machine, which has no PIL.
+manifest and checks the manifest against PIL on this machine (and
+tests/test_torch_image_write_webp.py webp_extra.json); chip_smoke.py's
+writers phase holds it against both on the card's machine, which has no
+PIL.
 """
 
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import os
 import re
@@ -46,8 +54,20 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE_DIR = os.path.join(HERE, "data", "write")
 SIZES = ((1, 1), (37, 53), (257, 131))          # (width, height)
 MODES = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}
-# The formats whose encoders the port has not ported (ROADMAP item 25).
+# The formats whose encoders the port has not ported, or not wholly
+# (ROADMAP item 25): AVIF, and WebP's alpha (see ported).
 LATER = ("WEBP", "AVIF")
+# webp_extra.json's images: (kind, width, height, seed).
+WEBP_EXTRA = (
+    ("flat", 1, 1, 1), ("noise", 1, 1, 2), ("ramp", 2, 3, 3),
+    ("noise", 3, 2, 4), ("mixed", 5, 17, 5), ("blocky", 17, 5, 6),
+    ("smooth", 16, 16, 7), ("noise", 17, 17, 8), ("ramp", 1, 40, 9),
+    ("noise", 40, 1, 10), ("flat", 64, 48, 11), ("blocky", 100, 75, 12),
+    ("mixed", 16, 300, 13), ("smooth", 300, 16, 14), ("noise", 131, 257, 15),
+    ("ramp", 255, 3, 16), ("mixed", 320, 240, 17), ("blocky", 640, 480, 18),
+    ("noise", 16383, 1, 19), ("smooth", 641, 479, 20),
+    ("mixed", 1280, 720, 21), ("smooth", 1280, 720, 22))
+WEBP_KINDS = ("flat", "ramp", "smooth", "noise", "blocky")
 # A PDF date as PdfParser writes a time.struct_time, and its mask.
 PDF_DATE = re.compile(rb"\(D:\d{14}Z\)")
 PDF_DATE_MASK = b"(D:00000000000000Z)"
@@ -72,6 +92,82 @@ def make_input(width: int, height: int, seed: int) -> np.ndarray:
     img[hh:, :hw, 2] = (5 * x) % 256
     img[hh:, :hw, 3] = 255
     return img
+
+
+def ported(fmt: str, img: np.ndarray) -> bool:
+    """Whether the port writes format fmt for image img (as write_png
+    makes it): every format but AVIF, and WebP only where the image
+    WebPImagePlugin codes is opaque (L, RGB, or LA and RGBA whose alpha is
+    255 throughout), which libwebp codes with its lossy encoder alone."""
+    img = np.asarray(img)
+    if fmt == "AVIF":
+        return False
+    if fmt == "WEBP" and img.ndim == 3 and img.shape[2] in (2, 4):
+        return bool((img[..., -1] == 255).all())
+    return True
+
+
+def _splitmix64(seed: int, n: int) -> np.ndarray:
+    """n pseudo-random uint64 from seed: SplitMix64 of seed's n next
+    states, in numpy's wrapping uint64 arithmetic."""
+    gamma = 0x9E3779B97F4A7C15
+    z = (np.arange(1, n + 1, dtype=np.uint64) * np.uint64(gamma)
+         + np.uint64(seed * gamma % 2**64))
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return z ^ (z >> np.uint64(31))
+
+
+def webp_extra_image(kind: str, width: int, height: int,
+                     seed: int) -> np.ndarray:
+    """(H, W, 3) uint8 of one kind, from seed, in integer arithmetic:
+    flat (one colour), ramp (steps of 0-7 a pixel, wrapping at 256),
+    smooth (a gradient plus noise of 0-7), noise, blocky (blocks of 2-16
+    pixels), mixed (16x16 tiles, each of one of the other kinds)."""
+    h, w = height, width
+    rnd = _splitmix64(seed, 16 + 3 * h * w)
+    par = (rnd[:16] % np.uint64(256)).astype(np.int64)
+    noise = (rnd[16:] >> np.uint64(24)).astype(np.int64).reshape(h, w, 3)
+    y, x = np.mgrid[:h, :w]
+    x, y = x[..., None], y[..., None]
+    if kind == "flat":
+        img = np.broadcast_to(par[:3], (h, w, 3))
+    elif kind == "ramp":
+        img = (x * (par[:3] % 8) + y * (par[3:6] % 8) + par[6:9]) % 256
+    elif kind == "smooth":
+        span = max(w + h - 2, 1)
+        img = (x * par[:3] + y * par[3:6]) // span + noise % 8
+        img = np.minimum(img, 255)
+    elif kind == "noise":
+        img = noise % 256
+    elif kind == "blocky":
+        b = 2 + int(par[9] % 15)
+        img = noise[(y // b * b)[..., 0], (x // b * b)[..., 0]] % 256
+    else:
+        tiles = _splitmix64(seed + 1, ((h + 15) // 16) * ((w + 15) // 16))
+        pick = (tiles % np.uint64(len(WEBP_KINDS))).astype(np.int64).reshape(
+            (h + 15) // 16, (w + 15) // 16)[y[..., 0] // 16, x[..., 0] // 16]
+        img = np.zeros((h, w, 3), np.int64)
+        for k, other in enumerate(WEBP_KINDS):
+            img = np.where((pick == k)[..., None],
+                           webp_extra_image(other, w, h, seed + 2 + k), img)
+    return np.ascontiguousarray(img, dtype=np.uint8)
+
+
+def webp_extra() -> list:
+    """PIL's WebP of each WEBP_EXTRA image: kind, width, height, seed,
+    the file's sha256 and size."""
+    from PIL import Image
+
+    entries = []
+    for kind, w, h, seed in WEBP_EXTRA:
+        b = io.BytesIO()
+        Image.fromarray(webp_extra_image(kind, w, h, seed)).save(b, "WEBP")
+        data = b.getvalue()
+        entries.append(dict(kind=kind, width=w, height=h, seed=seed,
+                            sha256=hashlib.sha256(data).hexdigest(),
+                            size=len(data)))
+    return entries
 
 
 def inputs() -> dict:
@@ -148,7 +244,7 @@ def pil_entry(img: np.ndarray, ext: str, directory: str) -> dict:
     with open(path, "rb") as f:
         data = f.read()
     os.remove(path)
-    if fmt in LATER:
+    if not ported(fmt, img):
         return dict(later=True)
     if fmt == "PDF":
         data = mask_pdf_dates(data)
@@ -193,6 +289,13 @@ def main(out_dir: str = FIXTURE_DIR) -> None:
     np.savez_compressed(os.path.join(out_dir, "inputs.npz"), **images)
     with open(os.path.join(out_dir, "manifest.json"), "w") as f:
         json.dump(manifest(images), f, indent=1, sort_keys=True)
+        f.write("\n")
+    import PIL
+    from PIL import features
+
+    with open(os.path.join(out_dir, "webp_extra.json"), "w") as f:
+        json.dump(dict(pil=PIL.__version__, libwebp=features.version("webp"),
+                       entries=webp_extra()), f, indent=1, sort_keys=True)
         f.write("\n")
 
 

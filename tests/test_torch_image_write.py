@@ -9,9 +9,11 @@ on the committed inputs of tests/data/write (1x1, 37x53, 257x131): the
 same bytes (a PNG's, ICO's or ICNS's bytes where this machine's zlib is
 PIL's, else its chunks and inflated streams; a PDF's with both writers
 run under one patched time.gmtime, so its dates are equal too), or the
-same exception class, or, for the encoders not ported yet (WebP, AVIF)
-only, NotImplementedError naming ROADMAP item 25 (ICO and ICNS, with
-their resampler, in tests/test_torch_image_write_icons.py too). The committed manifest
+same exception class, or, for what is not ported yet (AVIF, and a WebP
+whose alpha is below 255 somewhere) only, NotImplementedError naming
+ROADMAP item 25 (opaque WebP in tests/test_torch_image_write_webp.py
+too; ICO and ICNS, with their resampler, in
+tests/test_torch_image_write_icons.py too). The committed manifest
 (PDFs by their bytes with both dates masked) is checked against PIL
 here, so that it cannot drift from what chip_smoke.py's writers phase
 holds the port to on the card's machine. Hypothesis sweeps JPEG and PNG
@@ -49,6 +51,7 @@ from make_write_fixtures import (
     mask_pdf_dates,
     pil_entry,
     png_parts,
+    ported,
 )
 from tracerboy_tpu_torch.core import image_io, image_save
 
@@ -118,8 +121,9 @@ def assert_as_jax(img, ext, tmp_path, name="img"):
     """write_png of the port and of the JAX package on one image, into
     files of one name in two directories: equal bytes, or the same
     exception class (and the same file left or not); NotImplementedError
-    naming item 25 only for a LATER format PIL writes (or an empty
-    image in one)."""
+    naming item 25 only for what the port does not write yet (ported()
+    false for the quantised image: AVIF, a WebP with alpha below 255)
+    where PIL writes it (or for an empty image in AVIF)."""
     fmt = image_save.EXTENSION.get(ext.lower())
     (tmp_path / "j").mkdir(exist_ok=True)
     (tmp_path / "t").mkdir(exist_ok=True)
@@ -129,9 +133,11 @@ def assert_as_jax(img, ext, tmp_path, name="img"):
                             str(tmp_path / "t" / (name + ext)), img)
     if isinstance(got, NotImplementedError) and (
             not isinstance(ref, Exception) or np.asarray(img).size == 0):
-        # The encoders not ported yet are refused after PIL's mode checks,
-        # and before the checks of an empty image inside their encoders.
+        # What is not ported yet is refused after PIL's mode checks, and
+        # AVIF before the checks of an empty image inside its encoder.
+        u8 = image_io._to_uint8(img)
         assert fmt in LATER and image_save.ITEM in str(got), (ext, got)
+        assert not ported(fmt, u8) and (u8.size or fmt == "AVIF"), (ext, got)
         return
     if isinstance(ref, Exception):
         assert type(got) is type(ref), (ext, ref, got)
@@ -162,9 +168,9 @@ def test_extension_table_is_pils():
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("ext", EXTENSIONS)
 def test_write_matches_jax(ext, mode, tmp_path):
-    """Every committed input in uint8 and as floats (a LATER format's
-    floats at 1x1 only: the port refuses it before quantising matters)."""
-    later = image_save.EXTENSION[ext] in LATER
+    """Every committed input in uint8 and as floats (AVIF's floats at 1x1
+    only: the port refuses it before quantising matters)."""
+    later = image_save.EXTENSION[ext] == "AVIF"
     for k, (name, rgba) in enumerate(INPUTS.items()):
         assert_as_jax(image_of(rgba, mode), ext, tmp_path, f"u{name}")
         if not later or name == "1x1":
@@ -234,13 +240,14 @@ def _entries():
 
 def test_manifest_is_pils(tmp_path):
     """The committed hashes are what PIL on this machine writes (the
-    LATER formats' entries are held by test_write_matches_jax)."""
+    entries of what is not ported yet are held by
+    test_write_matches_jax)."""
     import PIL
 
     assert MANIFEST["pil"] == PIL.__version__
     for key, entry in _entries():
         name, mode, ext = key.split("/")
-        if FRESH_EXTENSION[ext] in LATER:
+        if "later" in entry:
             continue
         got = pil_entry(image_of(INPUTS[name], mode), ext, str(tmp_path))
         if "stream_sha256" in entry and not SAME_ZLIB:
@@ -259,7 +266,7 @@ def test_port_matches_the_manifest(tmp_path):
     sha256 (a PNG's stream and chunks where zlib differs, an ICO's or
     ICNS's container and embedded PNGs' streams and chunks) or PIL's
     error class (a PDF's with its dates masked); NotImplementedError
-    naming item 25 for LATER formats."""
+    naming item 25 for what is not ported yet."""
     for key, entry in _entries():
         name, mode, ext = key.split("/")
         path = str(tmp_path / ("img" + ext))

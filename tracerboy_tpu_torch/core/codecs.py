@@ -36,7 +36,12 @@ ctypes:
 - resample_library(): csrc/resample.cpp (Pillow's BICUBIC and LANCZOS
   resampling of 8-bit images and the premultiplication around it), for
   core/resample.py, with -ffp-contract=off: the coefficients are doubles
-  rounded to 22-bit fixed point, which a fused multiply-add could move.
+  rounded to 22-bit fixed point, which a fused multiply-add could move;
+- webp_encode_library(): csrc/webp_encode.cpp (libwebp's lossy VP8
+  encoder as PIL's WebP writer runs it, with the decoder's tables in
+  csrc/webp_vp8_tables.inc and its own in csrc/webp_enc_tables.inc), for
+  core/image_save.py, with -ffp-contract=off: the gamma tables and the
+  segment quantisers come from pow in double.
 """
 
 from __future__ import annotations
@@ -178,4 +183,16 @@ def resample_library():
         ("tb_resample", [p, i64, i64, i64, p, i64, i64, i64]),
         ("tb_premultiply", [p, i64, i64]),
         ("tb_unpremultiply", [p, i64, i64])),
+        flags=("-ffp-contract=off",))
+
+
+def webp_encode_library():
+    import ctypes
+
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    return _load("tbwebpenc", "webp_encode.cpp",
+                 ("webp_vp8_tables.inc", "webp_enc_tables.inc"), (
+        ("tb_webp_encode", [p, i64, i64, p, i64]),
+        ("tb_webp_yuv", [p, i64, i64, p, p, p]),
+        ("tb_webp_mb_info", [p, i64, i64, p])),
         flags=("-ffp-contract=off",))

@@ -24,14 +24,17 @@ the PIL plugin's _save named at its head:
   bytes in one page; its two dates are the current time);
 - ICO and ICNS (IcoImagePlugin._save and IcnsImagePlugin._save: PNG
   entries of the image's LANCZOS thumbnails or BICUBIC resizes, by
-  core/resample.py and csrc/resample.cpp).
+  core/resample.py and csrc/resample.cpp);
+- WebP of an opaque image (WebPImagePlugin._save: libwebp 1.6's lossy
+  VP8 encoder at quality 80, method 4, in csrc/webp_encode.cpp).
 
 What PIL refuses is refused with PIL's class and message: an extension
 PIL does not know (ValueError), a format without a save handler
 (KeyError), a mode the format cannot hold (OSError or ValueError, as the
 plugin raises), the stub formats (OSError, "save handler not
-installed"). PIL's other encoders (WebP and AVIF) are not ported yet:
-they raise NotImplementedError naming ITEM.
+installed"). What is not ported yet raises NotImplementedError naming
+ITEM: a WebP whose alpha is below 255 somewhere (libwebp codes that
+plane with its lossless VP8L encoder) and AVIF.
 
 As Image.save does, the file is opened (created or emptied) before the
 writer runs, and removed again where the writer fails on a file that was
@@ -846,6 +849,61 @@ def save_icns(px: np.ndarray, mode: str, filename: str) -> bytes:
 
 
 # ----------------------------------------------------------------------------
+# WebP
+
+_WEBP_MAX = 16383
+
+
+def webp_encode(px: np.ndarray) -> bytes:
+    """The .webp file libwebp's WebPEncodeRGB writes for an (H, W, 3)
+    uint8 image at quality 80 (csrc/webp_encode.cpp): a RIFF "VP8 "
+    chunk."""
+    import ctypes
+
+    from tracerboy_tpu_torch.core.codecs import webp_encode_library
+
+    px = np.ascontiguousarray(px, np.uint8)
+    h, w, _ = px.shape
+    lib = webp_encode_library()
+
+    def encode(cap):
+        out = np.empty(cap, np.uint8)
+        return out, lib.tb_webp_encode(px.ctypes.data_as(ctypes.c_void_p), w,
+                                       h, out.ctypes.data_as(ctypes.c_void_p),
+                                       cap)
+
+    out, n = encode(4096 + 4 * h * w)
+    if n < -2:    # -(the file's size): more room than that is needed
+        out, n = encode(-n)
+    if n == -2:   # VP8_ENC_ERROR_PARTITION0_OVERFLOW, as _webp reports it
+        raise ValueError("encoding error 6")
+    if n < 0:
+        raise RuntimeError(f"webp_encode.cpp failed ({n})")
+    return out[:n].tobytes()
+
+
+def save_webp(px: np.ndarray, mode: str, filename: str) -> bytes:
+    """WebPImagePlugin._save at its defaults (lossy, quality 80,
+    method 4): L as RGB and LA as RGBA (_convert_frame); an empty image
+    raises MemoryError and a side over 16383 ValueError, as _webp does;
+    an image whose alpha is 255 throughout is coded as its RGB, which is
+    what libwebp does with it; an image with alpha below 255 is not
+    ported (ITEM)."""
+    h, w, c = px.shape
+    if c < 3:
+        px = np.concatenate([np.repeat(px[..., :1], 3, axis=2), px[..., 1:]],
+                            axis=2)
+    if not px.size:
+        raise MemoryError("can't allocate picture frame")
+    if w > _WEBP_MAX or h > _WEBP_MAX:
+        raise ValueError("encoding error 5: Image size exceeds WebP limit "
+                         f"of {_WEBP_MAX} pixels")
+    if px.shape[2] == 4 and (px[..., 3] != 255).any():
+        raise NotImplementedError(f"writing WebP with alpha: {ITEM}")
+    return webp_encode(px[..., :3])
+
+
+# ----------------------------------------------------------------------------
 # What PIL refuses, and what is not ported yet
 
 
@@ -880,5 +938,5 @@ SAVE = {
     **{fmt: _stub(fmt) for fmt in ("BUFR", "GRIB", "HDF5", "WMF")},
     "JPEG2000": save_jpeg2000, "GIF": save_gif, "EPS": save_eps,
     "PDF": save_pdf, "ICO": save_ico, "ICNS": save_icns,
-    "WEBP": _later("WebP"), "AVIF": _later("AVIF"),
+    "WEBP": save_webp, "AVIF": _later("AVIF"),
 }

@@ -737,41 +737,8 @@ int64_t DecodeVP8L(const uint8_t* data, int64_t size, int width, int height,
 // ---------------------------------------------------------------------------
 // VP8
 
-constexpr uint8_t kDcTable[128] = {
-    4,   5,   6,   7,   8,   9,   10,  10,  11,  12,  13,  14,  15,
-    16,  17,  17,  18,  19,  20,  20,  21,  21,  22,  22,  23,  23,
-    24,  25,  25,  26,  27,  28,  29,  30,  31,  32,  33,  34,  35,
-    36,  37,  37,  38,  39,  40,  41,  42,  43,  44,  45,  46,  46,
-    47,  48,  49,  50,  51,  52,  53,  54,  55,  56,  57,  58,  59,
-    60,  61,  62,  63,  64,  65,  66,  67,  68,  69,  70,  71,  72,
-    73,  74,  75,  76,  76,  77,  78,  79,  80,  81,  82,  83,  84,
-    85,  86,  87,  88,  89,  91,  93,  95,  96,  98,  100, 101, 102,
-    104, 106, 108, 110, 112, 114, 116, 118, 122, 124, 126, 128, 130,
-    132, 134, 136, 138, 140, 143, 145, 148, 151, 154, 157};
-
-constexpr uint16_t kAcTable[128] = {
-    4,   5,   6,   7,   8,   9,   10,  11,  12,  13,  14,  15,  16,
-    17,  18,  19,  20,  21,  22,  23,  24,  25,  26,  27,  28,  29,
-    30,  31,  32,  33,  34,  35,  36,  37,  38,  39,  40,  41,  42,
-    43,  44,  45,  46,  47,  48,  49,  50,  51,  52,  53,  54,  55,
-    56,  57,  58,  60,  62,  64,  66,  68,  70,  72,  74,  76,  78,
-    80,  82,  84,  86,  88,  90,  92,  94,  96,  98,  100, 102, 104,
-    106, 108, 110, 112, 114, 116, 119, 122, 125, 128, 131, 134, 137,
-    140, 143, 146, 149, 152, 155, 158, 161, 164, 167, 170, 173, 177,
-    181, 185, 189, 193, 197, 201, 205, 209, 213, 217, 221, 225, 229,
-    234, 239, 245, 249, 254, 259, 264, 269, 274, 279, 284};
-
 #include "webp_vp8_tables.inc"
 
-constexpr uint8_t kZigzag[16] = {0, 1, 4, 8, 5, 2, 3, 6,
-                                 9, 12, 13, 10, 7, 11, 14, 15};
-constexpr uint8_t kBands[17] = {0, 1, 2, 3, 6, 4, 5, 6, 6,
-                                6, 6, 6, 6, 6, 6, 7, 0};
-constexpr uint8_t kCat3[] = {173, 148, 140, 0};
-constexpr uint8_t kCat4[] = {176, 155, 140, 135, 0};
-constexpr uint8_t kCat5[] = {180, 157, 141, 134, 130, 0};
-constexpr uint8_t kCat6[] = {254, 254, 243, 230, 196, 177,
-                             153, 140, 133, 130, 129, 0};
 constexpr const uint8_t* kCat3456[4] = {kCat3, kCat4, kCat5, kCat6};
 
 // libwebp's mode numbers.
