@@ -277,24 +277,29 @@ Phases, each fatal on failure:
      csrc/jpeg_encode.cpp, the JPEG 2000 tile coder in
      csrc/j2k_encode.cpp, GIF's palettes and LZW in csrc/gif_encode.cpp,
      ICO's and ICNS's resampler in csrc/resample.cpp, libwebp's lossy
-     VP8 encoder in csrc/webp_encode.cpp):
+     VP8 encoder in csrc/webp_encode.cpp and its ALPH plane's lossless
+     VP8L encoder in csrc/webp_alpha_encode.cpp):
      every committed input of tests/data/write in L, LA, RGB and RGBA
      written under every extension PIL saves, each file's sha256 equal to
      the manifest's (PIL's; a PNG by its inflated stream and other chunks
      where zlib differs, an ICO or ICNS by its container and embedded
      PNGs likewise; a PDF with its two dates masked), PIL's error class
      where PIL refuses, ROADMAP item 25 where the encoder is not ported
-     yet (AVIF, and WebP with alpha below 255, only); the opaque images
-     of tests/data/write/webp_extra.json (up to 1280x720) made from their
-     seeds and written as WebP, each equal to PIL's; the CLI on
+     yet (AVIF only; every WebP by its bytes); the opaque images of
+     tests/data/write/webp_extra.json (up to 1280x720) and the images
+     with alpha of webp_alpha.json (1x1 to 16383x1 and 1280x720) made
+     from their seeds and written as WebP, each equal to PIL's; the CLI on
      "shadertoy" at 1280x720, 2 spp, --out w.jpg --capture-every 2: two
      byte-identical JPEG files, read back at 1280x720; at 1 spp --out
      w.icns, read back at 1024x1024; at 1 spp --out w.webp, read back at
-     1280x720 (its PSNR printed); each run's closest- and any-hit
-     launches held against the plain version on at most CHECK_LANES live
-     lanes each; write_png of its image as .jpg, .png, .bmp, .tif, .jp2,
-     .gif, .pdf, .eps, .ico, .icns and .webp timed on the host, the .jp2,
-     .ico, .icns and .webp read back;
+     1280x720 (its PSNR printed), and its image with a soft alpha plane
+     written as .webp (VP8X, ALPH, VP8) and read back, the alpha exact
+     and the opaque pixels' PSNR at least RGBA_WEBP_PSNR_DB; each run's
+     closest- and any-hit launches held against the plain version on at
+     most CHECK_LANES live lanes each; write_png of its image as .jpg,
+     .png, .bmp, .tif, .jp2, .gif, .pdf, .eps, .ico, .icns and .webp, and
+     of the RGBA image as .webp, timed on the host, the .jp2, .ico, .icns
+     and both .webp read back;
  30. a JSON line of the seven kernels (launches from the run of the path
      each serves, error statistics, ms against plain_ms, the bound the
      card could reach on the same inputs and what sets it; kernels 1 and
@@ -346,6 +351,11 @@ TOLERANCE = dict(hit_mismatch_frac=1e-4, t_rel=1e-6, uv_abs=1e-6,
 # on a seeded draw of at most this many of its live lanes: the plain
 # version walks each ray on its own, so a subset is checked exactly.
 CHECK_LANES = 16_384
+# The least PSNR (dB) of the opaque pixels of the writers phase's RGBA
+# .webp (the 1-spp render with a soft alpha ellipse) read back: the opaque
+# file of the same image reads back at 32.21 dB on an NVIDIA H100 80GB
+# HBM3 at 700 W.
+RGBA_WEBP_PSNR_DB = 28.0
 OPT_IN = ("TB_CUT", "TB_BINNED", "TB_CUT_K", "TB_CUT_TRIS")
 # Path parity: the CPU tests' bound between the port and the JAX package.
 PARITY = dict(pixel_atol=1e-3, pixel_frac=0.99, mean_rel=1e-4)
@@ -4615,10 +4625,10 @@ def written_hashes(tmp) -> dict:
     and each embedded PNG held as a PNG is (icon_parts); for a PDF, the
     sha256 of its bytes with both dates masked; PIL's error class;
     NotImplementedError naming ROADMAP item 25 for what is not ported
-    yet, which make_write_fixtures.ported says (AVIF, a WebP with alpha
-    below 255: never an opaque WebP, and never another format). Returns
-    the counts by kind of check (webp: the opaque WebP files held by
-    their bytes)."""
+    yet, which make_write_fixtures.ported says (AVIF alone). Returns the
+    counts by kind of check (webp: the WebP files held by their bytes,
+    every .webp entry of the manifest PIL wrote; later: the item-25
+    refusals, all AVIF)."""
     import hashlib
     import zlib
 
@@ -4653,6 +4663,7 @@ def written_hashes(tmp) -> dict:
             kind = "later"
             ok = (isinstance(err, NotImplementedError)
                   and image_save.ITEM in str(err)
+                  and image_save.EXTENSION[ext] == "AVIF"
                   and not fixtures.ported(image_save.EXTENSION[ext], img))
         elif "error" in entry:
             kind = "error"
@@ -4682,9 +4693,12 @@ def written_hashes(tmp) -> dict:
             bad.append((key, entry, repr(err)))
     counts["zlib"] = zlib.ZLIB_RUNTIME_VERSION
     counts["manifest_zlib"] = manifest["zlib"]
+    webp_written = sum(k.endswith("/.webp") and "sha256" in e
+                       for k, e in manifest["entries"].items())
     print("writers files against PIL's hashes:", json.dumps(counts))
-    if bad or not counts["bytes"] or not counts["webp"]:
-        fail(f"writers: {len(bad)} files differ from PIL's: {bad[:10]}")
+    if bad or not counts["bytes"] or counts["webp"] != webp_written:
+        fail(f"writers: {len(bad)} files differ from PIL's ("
+             f"{counts['webp']} of {webp_written} WebP): {bad[:10]}")
     return counts
 
 
@@ -4719,6 +4733,50 @@ def written_webp_extra() -> dict:
         fail(f"writers: {len(bad)} WebP files of webp_extra.json differ "
              f"from PIL's: {bad[:10]}")
     return res
+
+
+def written_webp_alpha() -> dict:
+    """Each image of tests/data/write/webp_alpha.json (RGBA, alpha below
+    255 somewhere) made from its seed (make_write_fixtures.
+    webp_alpha_image: integer arithmetic alone) and written by
+    core/image_save.py's WebP writer, held against the sha256 of PIL's
+    file. Returns the count, the ALPH header bytes of the files (method |
+    filter << 2) and the host seconds."""
+    import hashlib
+
+    from tracerboy_tpu_torch.core import image_save
+
+    fixtures = write_fixtures_module()
+    with open(WRITE_DIR / "webp_alpha.json") as f:
+        alpha = json.load(f)
+    bad, headers, t0 = [], set(), time.perf_counter()
+    for e in alpha["entries"]:
+        img = fixtures.webp_alpha_image(e["kind"], e["alpha"], e["width"],
+                                        e["height"], e["seed"])
+        data = image_save.webp_encode(img)
+        if data[12:16] == b"VP8X" and data[30:34] == b"ALPH":
+            headers.add(data[38])
+        if hashlib.sha256(data).hexdigest() != e["sha256"]:
+            bad.append((e["kind"], e["alpha"], e["width"], e["height"],
+                        len(data), e["size"]))
+    res = dict(held=len(alpha["entries"]) - len(bad),
+               images=len(alpha["entries"]), alph_headers=sorted(headers),
+               seconds=time.perf_counter() - t0)
+    print("writers webp_alpha.json against PIL's hashes:", json.dumps(res))
+    if bad or not alpha["entries"]:
+        fail(f"writers: {len(bad)} WebP files of webp_alpha.json differ "
+             f"from PIL's: {bad[:10]}")
+    return res
+
+
+def with_alpha(img: np.ndarray) -> np.ndarray:
+    """An (H, W, 3) float image with a fourth channel: a soft ellipse
+    (1 inside, falling to 0 over a tenth of the radius, 0 outside)."""
+    h, w = img.shape[:2]
+    y, x = np.mgrid[:h, :w]
+    r = np.hypot((x + 0.5) / w - 0.5, (y + 0.5) / h - 0.5) / 0.45
+    alpha = np.clip((1.0 - r) * 10.0, 0.0, 1.0).astype(img.dtype)
+    return np.concatenate([img[..., :3], alpha[..., None]], axis=-1)
 
 
 def writers_cli_run(torch, args):
@@ -4819,7 +4877,8 @@ def writers_runs(torch, tmp):
     set_opt_in()
     os.makedirs(os.path.join(tmp, "hashes"))
     results = {"files": written_hashes(os.path.join(tmp, "hashes")),
-               "webp_extra": written_webp_extra()}
+               "webp_extra": written_webp_extra(),
+               "webp_alpha": written_webp_alpha()}
     webp_dir = os.path.join(tmp, "webp")
     os.makedirs(webp_dir)
     icns_dir = os.path.join(tmp, "icns")
@@ -4903,6 +4962,36 @@ def writers_runs(torch, tmp):
     print("writers webp closest-hit launches vs plain:",
           json.dumps(closest3))
     print("writers webp any-hit launches vs plain:", json.dumps(anyhit3))
+
+    # The same render with an alpha plane: VP8X, ALPH and VP8 chunks; the
+    # alpha is coded losslessly, the colours where it is 255 at about the
+    # opaque file's PSNR.
+    rgba_img = with_alpha(img3)
+    rgba_u8 = _to_uint8(rgba_img)
+    rgba_out = os.path.join(webp_dir, "w_rgba.webp")
+    image_io.write_png(rgba_out, rgba_img)
+    rgba_data = Path(rgba_out).read_bytes()
+    rgba_back = read_webp(rgba_data, rgba_out)
+    opaque = rgba_u8[..., 3] == 255
+    mse = float(np.mean((rgba_back[..., :3][opaque].astype(np.float64)
+                         - rgba_u8[..., :3][opaque]) ** 2))
+    results["webp_rgba"] = dict(
+        chunks=[rgba_data[12:16].decode(), rgba_data[30:34].decode()],
+        webp_bytes=len(rgba_data), read_back=list(rgba_back.shape),
+        alpha_exact=bool(rgba_back.shape == rgba_u8.shape and np.array_equal(
+            rgba_back[..., 3], rgba_u8[..., 3])),
+        alph_header=rgba_data[38], opaque_pixels=int(opaque.sum()),
+        transparent_pixels=int((rgba_u8[..., 3] == 0).sum()),
+        psnr_db_opaque=(10 * np.log10(255.0 ** 2 / mse) if mse
+                        else float("inf")),
+        psnr_db_floor=RGBA_WEBP_PSNR_DB)
+    print("writers 1280x720 RGBA .webp of the w.webp render:",
+          json.dumps(results["webp_rgba"]))
+    if not (results["webp_rgba"]["alpha_exact"]
+            and results["webp_rgba"]["chunks"] == ["VP8X", "ALPH"]
+            and results["webp_rgba"]["psnr_db_opaque"] >= RGBA_WEBP_PSNR_DB):
+        fail(f"writers: the RGBA .webp does not read back: "
+             f"{results['webp_rgba']}")
     times = {}
     for ext in ("jpg", "png", "bmp", "tif", "jp2", "gif", "pdf", "eps",
                 "ico", "icns", "webp"):
@@ -4915,6 +5004,17 @@ def writers_runs(torch, tmp):
         times[ext] = dict(ms=[1e3 * x for x in secs],
                           median_ms=float(np.median(secs)) * 1e3,
                           bytes=os.path.getsize(path))
+    rgba_path = os.path.join(tmp, "t_rgba.webp")
+    secs = []
+    for _ in range(5):
+        t = time.perf_counter()
+        image_io.write_png(rgba_path, rgba_img)
+        secs.append(time.perf_counter() - t)
+    if Path(rgba_path).read_bytes() != rgba_data:
+        fail("writers: the RGBA .webp is not the same file twice")
+    times["webp_rgba"] = dict(ms=[1e3 * x for x in secs],
+                              median_ms=float(np.median(secs)) * 1e3,
+                              bytes=os.path.getsize(rgba_path))
     from tracerboy_tpu_torch.core.jpeg2000 import decode_jpeg2000
 
     u8 = _to_uint8(img)
@@ -5348,6 +5448,8 @@ def main() -> int:
              writers_webp_cli=writers_res["webp_cli"],
              writers_files=writers_res["files"],
              writers_webp_extra=writers_res["webp_extra"],
+             writers_webp_alpha=writers_res["webp_alpha"],
+             writers_webp_rgba=writers_res["webp_rgba"],
              writers_write_1280x720=writers_res["write_1280x720"],
              volume_run=vol_res["run"],
              volume_control=vol_res["control"],

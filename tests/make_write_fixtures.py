@@ -27,11 +27,16 @@ Writes into tests/data/write/ (or OUT_DIR):
   WEBP_EXTRA, opaque images of 1x1 to 1280x720 (flat, ramps, smooth
   gradients, noise, blocks and tiles of them mixed) that webp_extra_image
   makes from a seed with numpy integer arithmetic alone, so that any
-  machine makes the same pixels.
+  machine makes the same pixels;
+- webp_alpha.json: the same for each image of WEBP_ALPHA, RGBA images of
+  1x1 to 1280x720 whose alpha is below 255 somewhere (cutouts, soft
+  edges, few and many levels, all transparent, one transparent pixel,
+  transparent 8x8 blocks), which webp_alpha_image makes the same way.
 
 tests/test_torch_image_write.py holds the port's image_save against the
 manifest and checks the manifest against PIL on this machine (and
-tests/test_torch_image_write_webp.py webp_extra.json); chip_smoke.py's
+tests/test_torch_image_write_webp.py webp_extra.json,
+tests/test_torch_image_write_webp_alpha.py webp_alpha.json); chip_smoke.py's
 writers phase holds it against both on the card's machine, which has no
 PIL.
 """
@@ -54,9 +59,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE_DIR = os.path.join(HERE, "data", "write")
 SIZES = ((1, 1), (37, 53), (257, 131))          # (width, height)
 MODES = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}
-# The formats whose encoders the port has not ported, or not wholly
-# (ROADMAP item 25): AVIF, and WebP's alpha (see ported).
-LATER = ("WEBP", "AVIF")
+# The formats whose encoders the port has not ported (ROADMAP item 25).
+LATER = ("AVIF",)
 # webp_extra.json's images: (kind, width, height, seed).
 WEBP_EXTRA = (
     ("flat", 1, 1, 1), ("noise", 1, 1, 2), ("ramp", 2, 3, 3),
@@ -68,6 +72,17 @@ WEBP_EXTRA = (
     ("noise", 16383, 1, 19), ("smooth", 641, 479, 20),
     ("mixed", 1280, 720, 21), ("smooth", 1280, 720, 22))
 WEBP_KINDS = ("flat", "ramp", "smooth", "noise", "blocky")
+# webp_alpha.json's images: each alpha kind at each size (width, height),
+# the RGB kinds in turn, and a 1280x720 soft cutout of mixed content.
+WEBP_ALPHA_KINDS = ("cutout", "soft", "few", "some", "many", "zero", "one",
+                    "blocks")
+WEBP_ALPHA_SIZES = ((1, 1), (2, 3), (7, 9), (37, 53), (257, 131),
+                    (16383, 1))
+WEBP_ALPHA = tuple(
+    ((("mixed",) + WEBP_KINDS)[(i + j) % 6], alpha, w, h, 100 + 8 * i + j)
+    for i, (w, h) in enumerate(WEBP_ALPHA_SIZES)
+    for j, alpha in enumerate(WEBP_ALPHA_KINDS)) + (
+    ("mixed", "soft", 1280, 720, 200),)
 # A PDF date as PdfParser writes a time.struct_time, and its mask.
 PDF_DATE = re.compile(rb"\(D:\d{14}Z\)")
 PDF_DATE_MASK = b"(D:00000000000000Z)"
@@ -96,15 +111,8 @@ def make_input(width: int, height: int, seed: int) -> np.ndarray:
 
 def ported(fmt: str, img: np.ndarray) -> bool:
     """Whether the port writes format fmt for image img (as write_png
-    makes it): every format but AVIF, and WebP only where the image
-    WebPImagePlugin codes is opaque (L, RGB, or LA and RGBA whose alpha is
-    255 throughout), which libwebp codes with its lossy encoder alone."""
-    img = np.asarray(img)
-    if fmt == "AVIF":
-        return False
-    if fmt == "WEBP" and img.ndim == 3 and img.shape[2] in (2, 4):
-        return bool((img[..., -1] == 255).all())
-    return True
+    makes it): every format but AVIF."""
+    return fmt != "AVIF"
 
 
 def _splitmix64(seed: int, n: int) -> np.ndarray:
@@ -166,6 +174,74 @@ def webp_extra() -> list:
         data = b.getvalue()
         entries.append(dict(kind=kind, width=w, height=h, seed=seed,
                             sha256=hashlib.sha256(data).hexdigest(),
+                            size=len(data)))
+    return entries
+
+
+def webp_alpha_image(kind: str, alpha: str, width: int, height: int,
+                     seed: int) -> np.ndarray:
+    """(H, W, 4) uint8: webp_extra_image's RGB of kind, and an alpha of
+    one of WEBP_ALPHA_KINDS, in integer arithmetic: cutout (0 or 255, an
+    ellipse), soft (an ellipse whose edge falls from 255 to 0 over about
+    a fifth of it), few (2-16 levels in blocks), some (17-192 levels of a
+    gradient), many (noise over 0-255), zero (0 throughout), one (255
+    but at one pixel), blocks (8x8 blocks transparent or opaque, the
+    right and bottom leftovers half transparent); the first pixel 0 where
+    all would be 255."""
+    h, w = height, width
+    rgb = webp_extra_image(kind, w, h, seed)
+    rnd = _splitmix64(seed + 7, 8 + h * w)
+    par = (rnd[:8] % np.uint64(65536)).astype(np.int64)
+    noise = (rnd[8:] >> np.uint64(24)).astype(np.int64).reshape(h, w)
+    y, x = np.mgrid[:h, :w].astype(np.int64)
+    # squared distance from the centre, in units of (w*h)^2 / 4
+    d2 = (2 * x + 1 - w) ** 2 * h * h + (2 * y + 1 - h) ** 2 * w * w
+    r2 = (w * h) ** 2 * 36 // 100
+    if alpha == "cutout":
+        a = np.where(d2 <= r2, 255, 0)
+    elif alpha == "soft":
+        a = np.clip((r2 - d2) * 255 * 5 // max(r2, 1) + 128, 0, 255)
+    elif alpha == "few":
+        levels = 2 + int(par[0] % 15)
+        b = 1 + int(par[1] % 8)
+        a = noise[y // b * b, x // b * b] % levels * (255 // (levels - 1))
+    elif alpha == "some":
+        levels = 17 + int(par[0] % 176)
+        a = (x * 3 + y * 2) * levels // max(3 * w + 2 * h, 1) * 255 // (
+            levels - 1)
+        a = np.minimum(a, 255)
+    elif alpha == "many":
+        a = noise % 256
+    elif alpha == "zero":
+        a = np.zeros((h, w), np.int64)
+    elif alpha == "one":
+        a = np.full((h, w), 255)
+        a[int(par[0] % h), int(par[1] % w)] = int(par[2] % 255)
+    else:   # blocks
+        cells = _splitmix64(seed + 8, ((h + 7) // 8) * ((w + 7) // 8))
+        cells = (cells % np.uint64(2)).astype(np.int64).reshape(
+            (h + 7) // 8, (w + 7) // 8)
+        a = cells[y // 8, x // 8] * 255
+        a = np.where((x >= w // 8 * 8) | (y >= h // 8 * 8),
+                     np.where(noise % 2 == 1, 0, a), a)
+    if (a == 255).all():   # a tiny cutout, soft edge or level set
+        a.flat[0] = 0
+    return np.ascontiguousarray(np.dstack([rgb, a]), dtype=np.uint8)
+
+
+def webp_alpha() -> list:
+    """PIL's WebP of each WEBP_ALPHA image: kind, alpha, width, height,
+    seed, the file's sha256 and size."""
+    from PIL import Image
+
+    entries = []
+    for kind, alpha, w, h, seed in WEBP_ALPHA:
+        b = io.BytesIO()
+        Image.fromarray(webp_alpha_image(kind, alpha, w, h, seed)).save(
+            b, "WEBP")
+        data = b.getvalue()
+        entries.append(dict(kind=kind, alpha=alpha, width=w, height=h,
+                            seed=seed, sha256=hashlib.sha256(data).hexdigest(),
                             size=len(data)))
     return entries
 
@@ -296,6 +372,10 @@ def main(out_dir: str = FIXTURE_DIR) -> None:
     with open(os.path.join(out_dir, "webp_extra.json"), "w") as f:
         json.dump(dict(pil=PIL.__version__, libwebp=features.version("webp"),
                        entries=webp_extra()), f, indent=1, sort_keys=True)
+        f.write("\n")
+    with open(os.path.join(out_dir, "webp_alpha.json"), "w") as f:
+        json.dump(dict(pil=PIL.__version__, libwebp=features.version("webp"),
+                       entries=webp_alpha()), f, indent=1, sort_keys=True)
         f.write("\n")
 
 

@@ -9,10 +9,10 @@ on the committed inputs of tests/data/write (1x1, 37x53, 257x131): the
 same bytes (a PNG's, ICO's or ICNS's bytes where this machine's zlib is
 PIL's, else its chunks and inflated streams; a PDF's with both writers
 run under one patched time.gmtime, so its dates are equal too), or the
-same exception class, or, for what is not ported yet (AVIF, and a WebP
-whose alpha is below 255 somewhere) only, NotImplementedError naming
-ROADMAP item 25 (opaque WebP in tests/test_torch_image_write_webp.py
-too; ICO and ICNS, with their resampler, in
+same exception class, or, for what is not ported yet (AVIF) only,
+NotImplementedError naming ROADMAP item 25 (WebP in
+tests/test_torch_image_write_webp.py and, with alpha,
+tests/test_torch_image_write_webp_alpha.py too; ICO and ICNS, with their resampler, in
 tests/test_torch_image_write_icons.py too). The committed manifest
 (PDFs by their bytes with both dates masked) is checked against PIL
 here, so that it cannot drift from what chip_smoke.py's writers phase
@@ -122,8 +122,7 @@ def assert_as_jax(img, ext, tmp_path, name="img"):
     files of one name in two directories: equal bytes, or the same
     exception class (and the same file left or not); NotImplementedError
     naming item 25 only for what the port does not write yet (ported()
-    false for the quantised image: AVIF, a WebP with alpha below 255)
-    where PIL writes it (or for an empty image in AVIF)."""
+    false: AVIF) where PIL writes it (or for an empty image in AVIF)."""
     fmt = image_save.EXTENSION.get(ext.lower())
     (tmp_path / "j").mkdir(exist_ok=True)
     (tmp_path / "t").mkdir(exist_ok=True)

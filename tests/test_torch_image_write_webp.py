@@ -9,9 +9,9 @@ sizes where macroblocks are cut (sides 1-17, one macroblock row or
 column, 16383 x 1); on a 1280x720 image; and on tests/data/write's
 webp_extra.json, which is checked against PIL here as chip_smoke.py's
 writers phase holds the port to it on the card's machine. PIL's errors
-for empty and oversized images are raised with PIL's class and message;
-an image with alpha below 255 is refused (ROADMAP item 25). The written
-files are read back by the port's read_ldr as the JAX read_ldr reads
+for empty and oversized images are raised with PIL's class and message
+(an image with alpha below 255: tests/test_torch_image_write_webp_alpha.py).
+The written files are read back by the port's read_ldr as the JAX read_ldr reads
 PIL's, and both CLIs write --out x.webp and its --capture-every frames.
 
 The stages are held to PIL's own libwebp through ctypes (the advanced
@@ -153,19 +153,6 @@ def test_errors_are_pils(shape, tmp_path):
     assert not (tmp_path / "j.webp").exists()
 
 
-@pytest.mark.parametrize("mode", ["LA", "RGBA"])
-def test_alpha_below_255_is_refused(mode, tmp_path):
-    """One alpha value of 254 makes libwebp code an ALPH plane with its
-    lossless encoder (PIL writes a VP8X file): not ported yet."""
-    img = content("noise", np.random.default_rng(4), 20, 30, MODES[mode])
-    img[7, 11, -1] = 254
-    assert pil_webp(img)[12:16] == b"VP8X"
-    with pytest.raises(NotImplementedError) as e:
-        image_io.write_png(str(tmp_path / "a.webp"), img)
-    assert image_save.ITEM in str(e.value)
-    assert not (tmp_path / "a.webp").exists()
-
-
 @pytest.mark.parametrize("mode", list(MODES))
 def test_written_files_read_back_as_jax_reads_pils(mode, tmp_path):
     """write_png of a float image (alpha 1.0); the port's read_ldr of its
@@ -297,19 +284,26 @@ class _MemoryWriter(C.Structure):
 
 
 def _picture(img: np.ndarray) -> _Picture:
-    h, w, _ = img.shape
+    """A WebPPicture of an (H, W, 3) or (H, W, 4) uint8 image, imported as
+    YUV(A) (WebPPictureImportRGB or WebPPictureImportRGBA)."""
+    h, w, c = img.shape
     pic = _Picture()
     assert LIBWEBP.WebPPictureInitInternal(C.byref(pic), ABI)
     pic.width, pic.height = w, h
-    assert LIBWEBP.WebPPictureImportRGB(
-        C.byref(pic), C.c_void_p(img.ctypes.data), 3 * w)
+    importer = (LIBWEBP.WebPPictureImportRGB if c == 3
+                else LIBWEBP.WebPPictureImportRGBA)
+    assert importer(C.byref(pic), C.c_void_p(img.ctypes.data), c * w)
     return pic
 
 
-def libwebp_yuv(img: np.ndarray):
-    """The Y, U and V planes WebPPictureImportRGB makes."""
-    h, w, _ = img.shape
+def libwebp_yuv(img: np.ndarray, cleanup: bool = False):
+    """The Y, U and V planes WebPPictureImportRGB makes of an RGB image, or
+    the Y, U, V and A planes WebPPictureImportRGBA makes of an RGBA one,
+    after WebPCleanupTransparentArea where cleanup is set."""
+    h, w, c = img.shape
     pic = _picture(img)
+    if cleanup:
+        LIBWEBP.WebPCleanupTransparentArea(C.byref(pic))
 
     def plane(ptr, stride, pw, ph):
         return np.array([np.frombuffer(C.string_at(ptr + r * stride, pw),
@@ -319,6 +313,8 @@ def libwebp_yuv(img: np.ndarray):
     planes = (plane(pic.y, pic.y_stride, w, h),
               plane(pic.u, pic.uv_stride, uw, uh),
               plane(pic.v, pic.uv_stride, uw, uh))
+    if c == 4 and pic.a:
+        planes += (plane(pic.a, pic.a_stride, w, h),)
     LIBWEBP.WebPPictureFree(C.byref(pic))
     return planes
 

@@ -9,7 +9,7 @@ ctypes:
   core/tiff.py, with -ffp-contract=off: the LAB conversion repeats
   littleCMS's float steps;
 - webp_library(): csrc/webp_decode.cpp (VP8L, VP8, the ALPH plane, QOI
-  decode and encode),
+  decode and encode; the VP8L tables in csrc/webp_vp8l_tables.inc),
   for core/webp.py and core/qoi.py;
 - j2k_library(): csrc/j2k_decode.cpp (a JPEG 2000 tile's packets, tier 1,
   wavelets, colour transform and DC shift), for core/jpeg2000.py, with
@@ -41,7 +41,12 @@ ctypes:
   encoder as PIL's WebP writer runs it, with the decoder's tables in
   csrc/webp_vp8_tables.inc and its own in csrc/webp_enc_tables.inc), for
   core/image_save.py, with -ffp-contract=off: the gamma tables and the
-  segment quantisers come from pow in double.
+  segment quantisers come from pow in double;
+- webp_alpha_library(): csrc/webp_alpha_encode.cpp (libwebp's ALPH
+  plane: alpha_enc.c's filters and its lossless VP8L encoder, with the
+  decoder's VP8L tables in csrc/webp_vp8l_tables.inc), for
+  core/image_save.py, with -ffp-contract=off: its costs above 65,535
+  come from log in double.
 """
 
 from __future__ import annotations
@@ -105,7 +110,8 @@ def webp_library():
     import ctypes
 
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    return _load("tbwebp", "webp_decode.cpp", ("webp_vp8_tables.inc",), (
+    return _load("tbwebp", "webp_decode.cpp",
+                 ("webp_vp8_tables.inc", "webp_vp8l_tables.inc"), (
         ("tb_webp_vp8l_decode", [p, i64, i64, i64, p]),
         ("tb_webp_vp8_decode", [p, i64, i64, i64, p]),
         ("tb_webp_alpha_decode", [p, i64, i64, i64, p]),
@@ -193,6 +199,19 @@ def webp_encode_library():
     return _load("tbwebpenc", "webp_encode.cpp",
                  ("webp_vp8_tables.inc", "webp_enc_tables.inc"), (
         ("tb_webp_encode", [p, i64, i64, p, i64]),
+        ("tb_webp_encode_rgba", [p, i64, i64, p, i64]),
         ("tb_webp_yuv", [p, i64, i64, p, p, p]),
+        ("tb_webp_yuva", [p, i64, i64, i64, p, p, p, p]),
         ("tb_webp_mb_info", [p, i64, i64, p])),
+        flags=("-ffp-contract=off",))
+
+
+def webp_alpha_library():
+    import ctypes
+
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    return _load("tbwebpalpha", "webp_alpha_encode.cpp",
+                 ("webp_vp8l_tables.inc",), (
+        ("tb_webp_alpha_encode", [p, i64, i64, p, i64]),
+        ("tb_vp8l_encode_green", [p, i64, i64, p, i64])),
         flags=("-ffp-contract=off",))

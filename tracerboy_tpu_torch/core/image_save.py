@@ -25,16 +25,17 @@ the PIL plugin's _save named at its head:
 - ICO and ICNS (IcoImagePlugin._save and IcnsImagePlugin._save: PNG
   entries of the image's LANCZOS thumbnails or BICUBIC resizes, by
   core/resample.py and csrc/resample.cpp);
-- WebP of an opaque image (WebPImagePlugin._save: libwebp 1.6's lossy
-  VP8 encoder at quality 80, method 4, in csrc/webp_encode.cpp).
+- WebP (WebPImagePlugin._save: libwebp 1.6's lossy VP8 encoder at
+  quality 80, method 4, in csrc/webp_encode.cpp; an alpha below 255
+  somewhere as libwebp's ALPH chunk, its lossless VP8L encoder in
+  csrc/webp_alpha_encode.cpp).
 
 What PIL refuses is refused with PIL's class and message: an extension
 PIL does not know (ValueError), a format without a save handler
 (KeyError), a mode the format cannot hold (OSError or ValueError, as the
 plugin raises), the stub formats (OSError, "save handler not
 installed"). What is not ported yet raises NotImplementedError naming
-ITEM: a WebP whose alpha is below 255 somewhere (libwebp codes that
-plane with its lossless VP8L encoder) and AVIF.
+ITEM: AVIF.
 
 As Image.save does, the file is opened (created or emptied) before the
 writer runs, and removed again where the writer fails on a file that was
@@ -52,7 +53,7 @@ import zlib
 
 import numpy as np
 
-ITEM = "ROADMAP Queue 1 item 25 — PIL's encoders not yet ported"
+ITEM = "ROADMAP Queue 1 item 25 — PIL's AVIF encoder not yet ported"
 
 # PIL 12.1's Image.EXTENSION after Image.init(): extension -> format.
 EXTENSION = {
@@ -854,41 +855,62 @@ def save_icns(px: np.ndarray, mode: str, filename: str) -> bytes:
 _WEBP_MAX = 16383
 
 
-def webp_encode(px: np.ndarray) -> bytes:
-    """The .webp file libwebp's WebPEncodeRGB writes for an (H, W, 3)
-    uint8 image at quality 80 (csrc/webp_encode.cpp): a RIFF "VP8 "
-    chunk."""
+def _call_encoder(fn, px, w, h, cap):
+    """fn(px, w, h, out, cap) of a libwebp port: the bytes it writes, with
+    more room where it asks for it (a return below -3 is -(the size); -1
+    to -3 are errors)."""
     import ctypes
-
-    from tracerboy_tpu_torch.core.codecs import webp_encode_library
-
-    px = np.ascontiguousarray(px, np.uint8)
-    h, w, _ = px.shape
-    lib = webp_encode_library()
 
     def encode(cap):
         out = np.empty(cap, np.uint8)
-        return out, lib.tb_webp_encode(px.ctypes.data_as(ctypes.c_void_p), w,
-                                       h, out.ctypes.data_as(ctypes.c_void_p),
-                                       cap)
+        return out, fn(px.ctypes.data_as(ctypes.c_void_p), w, h,
+                       out.ctypes.data_as(ctypes.c_void_p), cap)
 
-    out, n = encode(4096 + 4 * h * w)
-    if n < -2:    # -(the file's size): more room than that is needed
+    out, n = encode(cap)
+    if n < -3:
         out, n = encode(-n)
     if n == -2:   # VP8_ENC_ERROR_PARTITION0_OVERFLOW, as _webp reports it
         raise ValueError("encoding error 6")
     if n < 0:
-        raise RuntimeError(f"webp_encode.cpp failed ({n})")
+        raise RuntimeError(f"{fn.__name__} failed ({n})")
     return out[:n].tobytes()
+
+
+def webp_encode(px: np.ndarray) -> bytes:
+    """The .webp file libwebp's WebPEncode writes at quality 80 for an
+    (H, W, 3) uint8 image, or an (H, W, 4) one whose alpha is below 255
+    somewhere: a RIFF "VP8 " chunk (csrc/webp_encode.cpp); with alpha, a
+    "VP8X" chunk with the alpha flag, the "ALPH" chunk of the alpha plane
+    (csrc/webp_alpha_encode.cpp) and the "VP8 " chunk of the colours
+    weighted by alpha, transparent blocks flattened (syntax_enc.c)."""
+    from tracerboy_tpu_torch.core.codecs import (
+        webp_alpha_library,
+        webp_encode_library,
+    )
+
+    px = np.ascontiguousarray(px, np.uint8)
+    h, w, c = px.shape
+    lib = webp_encode_library()
+    if c == 3:
+        return _call_encoder(lib.tb_webp_encode, px, w, h, 4096 + 4 * h * w)
+    vp8 = _call_encoder(lib.tb_webp_encode_rgba, px, w, h, 4096 + 4 * h * w)
+    alpha = np.ascontiguousarray(px[..., 3])
+    alph = _call_encoder(webp_alpha_library().tb_webp_alpha_encode, alpha, w,
+                         h, 64 + h * w)
+    chunk = (b"ALPH" + struct.pack("<I", len(alph)) + alph
+             + b"\0" * (len(alph) & 1))
+    vp8x = (b"VP8X" + struct.pack("<II", 10, 0x10)
+            + (w - 1).to_bytes(3, "little") + (h - 1).to_bytes(3, "little"))
+    body = b"WEBP" + vp8x + chunk + vp8[12:]
+    return b"RIFF" + struct.pack("<I", len(body)) + body
 
 
 def save_webp(px: np.ndarray, mode: str, filename: str) -> bytes:
     """WebPImagePlugin._save at its defaults (lossy, quality 80,
-    method 4): L as RGB and LA as RGBA (_convert_frame); an empty image
-    raises MemoryError and a side over 16383 ValueError, as _webp does;
-    an image whose alpha is 255 throughout is coded as its RGB, which is
-    what libwebp does with it; an image with alpha below 255 is not
-    ported (ITEM)."""
+    alpha_quality 100, method 4): L as RGB and LA as RGBA
+    (_convert_frame); an empty image raises MemoryError and a side over
+    16383 ValueError, as _webp does; an image whose alpha is 255
+    throughout is coded as its RGB, which is what libwebp does with it."""
     h, w, c = px.shape
     if c < 3:
         px = np.concatenate([np.repeat(px[..., :1], 3, axis=2), px[..., 1:]],
@@ -899,7 +921,7 @@ def save_webp(px: np.ndarray, mode: str, filename: str) -> bytes:
         raise ValueError("encoding error 5: Image size exceeds WebP limit "
                          f"of {_WEBP_MAX} pixels")
     if px.shape[2] == 4 and (px[..., 3] != 255).any():
-        raise NotImplementedError(f"writing WebP with alpha: {ITEM}")
+        return webp_encode(px)
     return webp_encode(px[..., :3])
 
 

@@ -46,6 +46,8 @@
 
 namespace {
 
+#include "webp_vp8l_tables.inc"
+
 // ---------------------------------------------------------------------------
 // VP8L
 
@@ -174,8 +176,6 @@ struct Huffman {
   }
 };
 
-constexpr int kCodeLengthOrder[19] = {17, 18, 0, 1, 2, 3, 4, 5, 16, 6,
-                                      7, 8, 9, 10, 11, 12, 13, 14, 15};
 constexpr int kAlphabet[5] = {256 + 24, 256, 256, 256, 40};
 
 bool ReadCodeLengths(LBits& br, const int* cl_lengths, int num_symbols,
@@ -231,74 +231,6 @@ struct Group {
   Huffman codes[5];
 };
 
-inline uint32_t Average2(uint32_t a, uint32_t b) {
-  return (((a ^ b) & 0xfefefefeu) >> 1) + (a & b);
-}
-
-inline uint32_t AddPixels(uint32_t a, uint32_t b) {
-  const uint32_t ag = (a & 0xff00ff00u) + (b & 0xff00ff00u);
-  const uint32_t rb = (a & 0x00ff00ffu) + (b & 0x00ff00ffu);
-  return (ag & 0xff00ff00u) | (rb & 0x00ff00ffu);
-}
-
-inline int Clip255(int v) { return v < 0 ? 0 : v > 255 ? 255 : v; }
-
-inline uint32_t ClampedAddSubtractFull(uint32_t c0, uint32_t c1,
-                                       uint32_t c2) {
-  uint32_t out = 0;
-  for (int s = 0; s < 32; s += 8) {
-    const int v = int((c0 >> s) & 0xff) + int((c1 >> s) & 0xff) -
-                  int((c2 >> s) & 0xff);
-    out |= uint32_t(Clip255(v)) << s;
-  }
-  return out;
-}
-
-inline uint32_t ClampedAddSubtractHalf(uint32_t c0, uint32_t c1,
-                                       uint32_t c2) {
-  const uint32_t ave = Average2(c0, c1);
-  uint32_t out = 0;
-  for (int s = 0; s < 32; s += 8) {
-    const int a = int((ave >> s) & 0xff);
-    const int b = int((c2 >> s) & 0xff);
-    out |= uint32_t(Clip255(a + (a - b) / 2)) << s;
-  }
-  return out;
-}
-
-inline int Sub3(int a, int b, int c) {
-  const int pb = b - c;
-  const int pa = a - c;
-  return std::abs(pb) - std::abs(pa);
-}
-
-inline uint32_t Select(uint32_t a, uint32_t b, uint32_t c) {
-  const int d = Sub3(a >> 24, b >> 24, c >> 24) +
-                Sub3((a >> 16) & 0xff, (b >> 16) & 0xff, (c >> 16) & 0xff) +
-                Sub3((a >> 8) & 0xff, (b >> 8) & 0xff, (c >> 8) & 0xff) +
-                Sub3(a & 0xff, b & 0xff, c & 0xff);
-  return d <= 0 ? a : b;
-}
-
-uint32_t Predict(int mode, uint32_t L, uint32_t T, uint32_t TR,
-                 uint32_t TL) {
-  switch (mode) {
-    case 1: return L;
-    case 2: return T;
-    case 3: return TR;
-    case 4: return TL;
-    case 5: return Average2(Average2(L, TR), T);
-    case 6: return Average2(L, TL);
-    case 7: return Average2(L, T);
-    case 8: return Average2(TL, T);
-    case 9: return Average2(T, TR);
-    case 10: return Average2(Average2(L, TL), Average2(T, TR));
-    case 11: return Select(T, L, TL);
-    case 12: return ClampedAddSubtractFull(L, T, TL);
-    case 13: return ClampedAddSubtractHalf(L, T, TL);
-    default: return 0xff000000u;     // 0, and libwebp's 14 and 15
-  }
-}
 
 inline int SubSample(int size, int bits) {
   return (size + (1 << bits) - 1) >> bits;
@@ -310,24 +242,6 @@ struct Transform {
   int xsize;           // width of the image the transform produces
   std::vector<uint32_t> data;
 };
-
-// RFC 9649's distance map, (dx, dy) per distance code 1..120.
-constexpr int8_t kDistanceMap[120][2] = {
-    {0, 1}, {1, 0}, {1, 1}, {-1, 1}, {0, 2}, {2, 0}, {1, 2}, {-1, 2},
-    {2, 1}, {-2, 1}, {2, 2}, {-2, 2}, {0, 3}, {3, 0}, {1, 3}, {-1, 3},
-    {3, 1}, {-3, 1}, {2, 3}, {-2, 3}, {3, 2}, {-3, 2}, {0, 4}, {4, 0},
-    {1, 4}, {-1, 4}, {4, 1}, {-4, 1}, {3, 3}, {-3, 3}, {2, 4}, {-2, 4},
-    {4, 2}, {-4, 2}, {0, 5}, {3, 4}, {-3, 4}, {4, 3}, {-4, 3}, {5, 0},
-    {1, 5}, {-1, 5}, {5, 1}, {-5, 1}, {2, 5}, {-2, 5}, {5, 2}, {-5, 2},
-    {4, 4}, {-4, 4}, {3, 5}, {-3, 5}, {5, 3}, {-5, 3}, {0, 6}, {6, 0},
-    {1, 6}, {-1, 6}, {6, 1}, {-6, 1}, {2, 6}, {-2, 6}, {6, 2}, {-6, 2},
-    {4, 5}, {-4, 5}, {5, 4}, {-5, 4}, {3, 6}, {-3, 6}, {6, 3}, {-6, 3},
-    {0, 7}, {7, 0}, {1, 7}, {-1, 7}, {5, 5}, {-5, 5}, {7, 1}, {-7, 1},
-    {4, 6}, {-4, 6}, {6, 4}, {-6, 4}, {2, 7}, {-2, 7}, {7, 2}, {-7, 2},
-    {3, 7}, {-3, 7}, {7, 3}, {-7, 3}, {5, 6}, {-5, 6}, {6, 5}, {-6, 5},
-    {8, 0}, {4, 7}, {-4, 7}, {7, 4}, {-7, 4}, {8, 1}, {8, 2}, {6, 6},
-    {-6, 6}, {8, 3}, {5, 7}, {-5, 7}, {7, 5}, {-7, 5}, {8, 4}, {6, 7},
-    {-6, 7}, {7, 6}, {-7, 6}, {8, 5}, {7, 7}, {-7, 7}, {8, 6}, {8, 7}};
 
 inline int64_t PlaneCodeToDistance(int xsize, int code) {
   if (code > 120) return code - 120;

@@ -1,5 +1,5 @@
 // The lossy WebP writer of core/image_save.py: libwebp 1.6's VP8 encoder
-// as PIL 12.1's Image.save runs it for an opaque image (WebPEncode with
+// as PIL 12.1's Image.save runs it (WebPEncode with
 // lossy coding, quality 80, method 4, the default preset otherwise: 4
 // segments, sns_strength 50, filter_strength 60 with the normal filter
 // and sharpness 0, one token partition, one pass, no preprocessing, no
@@ -14,7 +14,13 @@
 //   dithering): Y by VP8RGBToY in 16-bit fixed point, U and V from the
 //   2x2 average of each channel taken through the gamma tables
 //   (pow(x, 0.8) in 12 bits, the inverse interpolated from 33 entries),
-//   an odd last column or row averaged with itself;
+//   an odd last column or row averaged with itself; with alpha below 255
+//   somewhere (ImportYUVAFromRGBA), each 2x2 chroma sample whose alphas
+//   are neither all 0 nor all 255 weighted by them (AccumulateRGBA,
+//   libwebp's kInvAlpha division), then WebPCleanupTransparentArea
+//   (picture_tools_enc.c, as exact is 0): wholly transparent 8x8 blocks
+//   flattened to the first of their run, transparent pixels of the others
+//   set to the mean luma of the visible ones;
 // - analysis (analysis_enc.c): per macroblock the DCT histogram's
 //   "alpha" of the I16 and UV modes DC and TM, mixed 3:1, then
 //   k-means of the alphas into 4 segments and SetSegmentAlphas;
@@ -51,7 +57,12 @@
 // - tb_webp_encode(rgb, w, h, out, cap): an RGB image to its .webp file;
 //   returns the file's size, or -(its size) when cap is too small, -1
 //   for a side outside 1-16383, -2 where partition 0 would overflow;
+// - tb_webp_encode_rgba(rgba, w, h, out, cap): the same for an RGBA image
+//   with alpha below 255 somewhere: its colours as above (the ALPH chunk
+//   is webp_alpha_encode.cpp's, the container core/image_save.py's);
 // - tb_webp_yuv(rgb, w, h, y, u, v): the YUV 4:2:0 planes of stage 1;
+// - tb_webp_yuva(rgba, w, h, clean, y, u, v, a): the YUVA planes of an
+//   RGBA image, after the cleanup where clean is set;
 // - tb_webp_mb_info(rgb, w, h, info): per macroblock (raster order) six
 //   bytes, libwebp's WebPPicture.extra_info types 1-5 and 7: type (1 =
 //   I16), segment, quantiser, I16 mode (0xff for I4), UV mode, alpha (the
@@ -180,6 +191,123 @@ void ImportRGB(const uint8_t* rgb, int width, int height, Picture* pic) {
     const uint8_t* r1 = (2 * j + 1 < height) ? r0 + stride : r0;
     RowsToUV(r0, r1, width, &pic->u[size_t(j) * pic->uv_stride],
              &pic->v[size_t(j) * pic->uv_stride]);
+  }
+}
+
+// AccumulateRGBA's weighted average (LinearToGammaWeighted): sum is the
+// alpha-weighted sum of four linear values, total_a their alphas' sum;
+// kInvAlpha[a] = (1 << 19) / a stands for the division by a, with the
+// factor 4 LinearToGamma expects folded into the shift.
+inline int DivideByAlpha(uint32_t sum, uint32_t total_a) {
+  const uint32_t inv = total_a ? (1u << 19) / total_a : 0;
+  return int((sum * inv) >> (19 - 2));
+}
+
+// An RGBA image with some alpha below 255 to YUVA 4:2:0, as
+// ImportYUVAFromRGBA does it: Y as for RGB, the A plane copied, and each
+// 2x2 chroma sample whose alphas are neither all 0 nor all 255 averaged
+// with the alphas as weights in the linear domain (AccumulateRGBA); an
+// odd last column or row stands for two, as in RowsToUV.
+void ImportRGBA(const uint8_t* rgba, int width, int height, Picture* pic,
+                std::vector<uint8_t>* a) {
+  const uint16_t* g2l = Gamma().gamma_to_linear;
+  std::vector<uint8_t> rgb(size_t(3) * width * height);
+  a->resize(size_t(width) * height);
+  for (size_t n = 0; n < a->size(); ++n) {
+    std::memcpy(&rgb[3 * n], rgba + 4 * n, 3);
+    (*a)[n] = rgba[4 * n + 3];
+  }
+  ImportRGB(rgb.data(), width, height, pic);
+  const size_t stride = size_t(4) * width;
+  for (int j = 0; j < (height + 1) >> 1; ++j) {
+    const uint8_t* r0 = rgba + size_t(2 * j) * stride;
+    const uint8_t* r1 = (2 * j + 1 < height) ? r0 + stride : r0;
+    for (int i = 0; i < (width + 1) >> 1; ++i) {
+      const int x0 = 8 * i, x1 = (2 * i + 1 < width) ? x0 + 4 : x0;
+      const uint32_t al[4] = {r0[x0 + 3], r0[x1 + 3], r1[x0 + 3], r1[x1 + 3]};
+      const uint32_t total = al[0] + al[1] + al[2] + al[3];
+      if (total == 4 * 255 || total == 0) continue;   // RowsToUV's value
+      int c[3];
+      for (int k = 0; k < 3; ++k) {
+        const uint32_t sum = al[0] * g2l[r0[x0 + k]] + al[1] * g2l[r0[x1 + k]]
+            + al[2] * g2l[r1[x0 + k]] + al[3] * g2l[r1[x1 + k]];
+        c[k] = LinearToGamma(uint32_t(DivideByAlpha(sum, total)), 0);
+      }
+      const size_t o = size_t(j) * pic->uv_stride + i;
+      pic->u[o] = uint8_t(RGBToU(c[0], c[1], c[2], YUV_HALF << 2));
+      pic->v[o] = uint8_t(RGBToV(c[0], c[1], c[2], YUV_HALF << 2));
+    }
+  }
+}
+
+// WebPCleanupTransparentArea on a YUVA picture (picture_tools_enc.c), which
+// WebPEncode runs because exact is 0. Over whole 8x8 luma blocks in raster
+// order: a block whose alphas are all 0 is flattened, luma and its 4x4
+// chroma, to the values of the first block of its run of such blocks in
+// the row; a block partly transparent gets the mean luma of its visible
+// pixels in its transparent ones (SmoothenBlock). The leftovers at the
+// right and bottom are only smoothened.
+bool SmoothenBlock(const uint8_t* a, int a_stride, uint8_t* y, int y_stride,
+                   int width, int height) {
+  int sum = 0, count = 0;
+  for (int j = 0; j < height; ++j)
+    for (int i = 0; i < width; ++i)
+      if (a[j * a_stride + i] != 0) {
+        ++count;
+        sum += y[j * y_stride + i];
+      }
+  if (count > 0 && count < width * height) {
+    const uint8_t avg = uint8_t(sum / count);
+    for (int j = 0; j < height; ++j)
+      for (int i = 0; i < width; ++i)
+        if (a[j * a_stride + i] == 0) y[j * y_stride + i] = avg;
+  }
+  return count == 0;
+}
+
+void Flatten(uint8_t* p, int v, int stride, int size) {
+  for (int j = 0; j < size; ++j) std::memset(p + j * stride, v, size);
+}
+
+void CleanupTransparentArea(Picture* pic, const std::vector<uint8_t>& alpha) {
+  const int width = pic->width, height = pic->height;
+  const int ys = pic->y_stride, uvs = pic->uv_stride, as = width;
+  const uint8_t* a = alpha.data();
+  uint8_t* y = pic->y.data();
+  uint8_t* u = pic->u.data();
+  uint8_t* v = pic->v.data();
+  int values[3] = {0, 0, 0};
+  int row = 0;
+  for (; row + 8 <= height; row += 8) {
+    bool need_reset = true;
+    int x = 0;
+    for (; x + 8 <= width; x += 8) {
+      if (SmoothenBlock(a + x, as, y + x, ys, 8, 8)) {
+        if (need_reset) {
+          values[0] = y[x];
+          values[1] = u[x >> 1];
+          values[2] = v[x >> 1];
+          need_reset = false;
+        }
+        Flatten(y + x, values[0], ys, 8);
+        Flatten(u + (x >> 1), values[1], uvs, 4);
+        Flatten(v + (x >> 1), values[2], uvs, 4);
+      } else {
+        need_reset = true;
+      }
+    }
+    if (x < width) SmoothenBlock(a + x, as, y + x, ys, width - x, 8);
+    a += 8 * as;
+    y += 8 * ys;
+    u += 4 * uvs;
+    v += 4 * uvs;
+  }
+  if (row < height) {
+    const int sub_height = height - row;
+    int x = 0;
+    for (; x + 8 <= width; x += 8)
+      SmoothenBlock(a + x, as, y + x, ys, 8, sub_height);
+    if (x < width) SmoothenBlock(a + x, as, y + x, ys, width - x, sub_height);
   }
 }
 
@@ -2267,6 +2395,36 @@ int64_t tb_webp_encode(const uint8_t* rgb, int64_t w, int64_t h, uint8_t* out,
   if (n > cap) return -n;
   std::memcpy(out, data.data(), data.size());
   return n;
+}
+
+int64_t tb_webp_encode_rgba(const uint8_t* rgba, int64_t w, int64_t h,
+                            uint8_t* out, int64_t cap) {
+  if (w < 1 || h < 1 || w > 16383 || h > 16383) return -1;
+  Picture pic;
+  std::vector<uint8_t> alpha;
+  ImportRGBA(rgba, int(w), int(h), &pic, &alpha);
+  CleanupTransparentArea(&pic, alpha);
+  Encoder enc;
+  std::vector<uint8_t> data;
+  if (!Encode(pic, &enc, &data)) return -2;
+  const int64_t n = int64_t(data.size());
+  if (n > cap) return -n;
+  std::memcpy(out, data.data(), data.size());
+  return n;
+}
+
+int64_t tb_webp_yuva(const uint8_t* rgba, int64_t w, int64_t h, int64_t clean,
+                     uint8_t* y, uint8_t* u, uint8_t* v, uint8_t* a) {
+  if (w < 1 || h < 1) return -1;
+  Picture pic;
+  std::vector<uint8_t> alpha;
+  ImportRGBA(rgba, int(w), int(h), &pic, &alpha);
+  if (clean) CleanupTransparentArea(&pic, alpha);
+  std::memcpy(y, pic.y.data(), pic.y.size());
+  std::memcpy(u, pic.u.data(), pic.u.size());
+  std::memcpy(v, pic.v.data(), pic.v.size());
+  std::memcpy(a, alpha.data(), alpha.size());
+  return 0;
 }
 
 int64_t tb_webp_yuv(const uint8_t* rgb, int64_t w, int64_t h, uint8_t* y,
