@@ -252,7 +252,11 @@ Phases, each fatal on failure:
      alpha item too, and again with the albedo as a 3x3 grid image
      through libavif's float routines and the leaf as colour and alpha
      grids (YCgCo), whose stitched alpha makes the cutouts; the grid
-     albedo's and an FCC (float-matrix) albedo's host decodes;
+     albedo's and an FCC (float-matrix) albedo's host decodes; and part
+     1 of the AVIF writer (avif_rewrites): every fixture's AV1 payloads
+     decoded to their decision records and written back by
+     csrc/av1_encode.cpp equal to the fixtures' bytes, the 1024x1024
+     default-save albedo's rewrite timed on the host;
  28. the port's readers of PIL's small texture formats (small_phase):
      every fixture of tests/data/small (SGI, PCX, DCX, CUR, DIB, FTEX, BLP
      and ICNS of every layout the readers take) and tests/data/small2 (IM,
@@ -4411,6 +4415,53 @@ def j2k_runs(torch, tmp):
     return results, launches
 
 
+def avif_rewrites(card) -> dict:
+    """Part 1 of the port's AVIF writer (core/avif_save.py, the decision
+    record of csrc/av1_decode.cpp and the AV1 writer csrc/av1_encode.cpp,
+    g++ at first use) on the card's host, which has no PIL and no libavif:
+    every AV1 payload of every committed fixture of tests/data/avif
+    (colour and alpha items, grid tiles) decoded to its record and written
+    back must equal the fixture's bytes; the 1024x1024 albedo_default.avif
+    (Pillow's default save) rewritten 5 times, host ms of the record, the
+    write and both, with the card line."""
+    from tracerboy_tpu_torch.core import avif, avif_save
+
+    files = sorted(AVIF_DIR.glob("*.avif"))
+    equal, total, bad = 0, 0, []
+    for path in files:
+        specs = avif._parse(path.read_bytes())[:2]
+        for spec in specs:
+            tiles = spec.tiles if isinstance(spec, avif._Grid) else [spec]
+            for payload in tiles if spec is not None else ():
+                total += 1
+                if avif_save.write(avif_save.record(payload)) == payload:
+                    equal += 1
+                else:
+                    bad.append(path.name)
+    payload = avif._parse((AVIF_DIR / "albedo_default.avif").read_bytes())[0]
+    rec_ms, write_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        rec = avif_save.record(payload)
+        t1 = time.perf_counter()
+        out = avif_save.write(rec)
+        t2 = time.perf_counter()
+        rec_ms.append(1e3 * (t1 - t0))
+        write_ms.append(1e3 * (t2 - t1))
+    res = dict(files=len(files), payloads=total, equal=equal,
+               albedo_default_bytes=len(payload),
+               albedo_default_equal=out == payload,
+               record_ms=rec_ms, write_ms=write_ms,
+               median_record_ms=float(np.median(rec_ms)),
+               median_write_ms=float(np.median(write_ms)),
+               median_rewrite_ms=float(np.median(np.add(rec_ms, write_ms))),
+               cpu=host_cpu(), card=card)
+    print("avif rewrite of every fixture payload (host):", json.dumps(res))
+    if bad or equal != total or not total or out != payload:
+        fail(f"avif: rewritten payloads differ from the fixtures: {bad}")
+    return res
+
+
 def avif_runs(torch, tmp):
     """The port's AVIF reader (core/avif.py, csrc/av1_decode.cpp, g++ at
     first use) on the card's machine, which has no PIL, no libavif and no
@@ -4422,7 +4473,7 @@ def avif_runs(torch, tmp):
     Pillow's default save (the in-loop filters on: deblocked), as a plain
     Image.save (intra block copy) and as a default save with film grain;
     each decode 5 runs, host seconds, with the host's CPU and the card
-    line; also as a 3x3 grid of 384x384 tiles through libavif's float
+    line; before them every fixture's payloads rewritten (avif_rewrites); also as a 3x3 grid of 384x384 tiles through libavif's float
     routines (matrix 12 under primaries 12) and as the default save with
     matrix 4 (FCC, the float routines). (c) The CLI on textured_lit.pbrt
     with its albedo and its RGBA leaf Pillow's default saves, whose
@@ -4439,6 +4490,7 @@ def avif_runs(torch, tmp):
     set_opt_in()
     results = {"fixtures": fixture_hashes("avif", AVIF_DIR, decode_ldr)}
     card = card_line()
+    results["rewrite"] = avif_rewrites(card)
     for key, path in (("420", AVIF_DIR / "albedo.avif"),
                       ("lossless", AVIF_DIR / "albedo_lossless.avif"),
                       ("default", AVIF_DIR / "albedo_default.avif"),

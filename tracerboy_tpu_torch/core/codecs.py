@@ -25,7 +25,12 @@ ctypes:
   csrc/av1_filters.inc and its film grain in csrc/av1_grain.inc, and
   libavif's YUV-to-RGB, its float routines in csrc/avif_reformat.inc),
   for core/avif.py, with -ffp-contract=off: the float routines repeat
-  libavif's single-precision steps;
+  libavif's single-precision steps; also the decision record of a frame
+  (tb_av1_record, the layout in csrc/av1_syntax.inc, which both AV1
+  files share);
+- av1_encode_library(): csrc/av1_encode.cpp (libaom's AV1 bitstream
+  writer: OBUs, headers, the entropy coder, block and coefficient syntax,
+  all from a frame's decision record), for core/avif_save.py;
 - jpeg_encode_library(): csrc/jpeg_encode.cpp (the pixel stages and the
   entropy coder of libjpeg-turbo's baseline writer), for
   core/image_save.py;
@@ -133,11 +138,21 @@ def av1_library():
 
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     return _load("tbav1", "av1_decode.cpp",
-                 ("av1_tables.inc", "av1_filters.inc", "av1_grain.inc",
-                  "avif_reformat.inc"), (
+                 ("av1_tables.inc", "av1_syntax.inc", "av1_filters.inc",
+                  "av1_grain.inc", "avif_reformat.inc"), (
         ("tb_av1_decode", [p, i64, p, i64, p, ctypes.c_char_p, i64]),
+        ("tb_av1_record", [p, i64, p, i64, ctypes.c_char_p, i64]),
         ("tb_avif_to_rgb", [p, p, p, i64, i64, i64, i64, i64, p, i64, p,
                             i64, i64])), flags=("-ffp-contract=off",))
+
+
+def av1_encode_library():
+    import ctypes
+
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    return _load("tbav1enc", "av1_encode.cpp",
+                 ("av1_tables.inc", "av1_syntax.inc"), (
+        ("tb_av1_write", [p, i64, p, i64, ctypes.c_char_p, i64]),))
 
 
 def small_library():

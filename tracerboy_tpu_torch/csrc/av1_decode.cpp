@@ -9,7 +9,10 @@
 // Wiener and self-guided coefficient ranges, the Gaussian sequence and the
 // grain overlap weights) are in av1_tables.inc, read out of the AV1
 // libraries by tests/make_av1_tables.py; the in-loop filters are in
-// av1_filters.inc, film grain synthesis in av1_grain.inc.
+// av1_filters.inc, film grain synthesis in av1_grain.inc. What the AV1
+// writer (av1_encode.cpp) shares with the syntax walk here, the symbol
+// contexts among it, is in av1_syntax.inc; tb_av1_record hands the writer
+// a frame's decisions as this walk reads them.
 //
 // The decoding process is the AV1 specification's (version 1.0.0 with
 // errata 1), section by section: the OBU syntax (5.3-5.12, the loop filter,
@@ -68,7 +71,6 @@ namespace {
 
 #include "av1_tables.inc"
 
-enum { kOk = 0, kCorrupt = -1, kUnsupported = -2, kSmall = -3 };
 // The tools a frame's blocks use, reported in info[15] for the tests'
 // coverage checks.
 enum {
@@ -105,427 +107,8 @@ const uint64_t kGrain = 1ull << 36, kGrainLag0 = 1ull << 37,
                kGrainOverlap = 1ull << 41, kGrainFromLuma = 1ull << 42,
                kGrainClip = 1ull << 43, kGrainLumaOnly = 1ull << 44,
                kGrainChromaOnly = 1ull << 45;
-enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
 
-struct Error {
-  int code;
-  const char* what;
-};
-
-[[noreturn]] void corrupt(const char* what) { throw Error{kCorrupt, what}; }
-[[noreturn]] void unsupported(const char* what) {
-  throw Error{kUnsupported, what};
-}
-
-inline int imin(int a, int b) { return a < b ? a : b; }
-inline int imax(int a, int b) { return a > b ? a : b; }
-inline int clip3(int lo, int hi, int x) { return x < lo ? lo : x > hi ? hi : x; }
-inline int floor_log2(uint32_t x) { return 31 - __builtin_clz(x); }
-inline int ceil_log2(int x) {
-  if (x < 2) return 0;
-  int i = 1, p = 2;
-  while (p < x) { i++; p <<= 1; }
-  return i;
-}
-inline int round2(int64_t x, int n) {
-  if (n == 0) return (int)x;
-  return (int)((x + ((int64_t)1 << (n - 1))) >> n);
-}
-inline int round2signed(int64_t x, int n) {
-  return x >= 0 ? round2(x, n) : -round2(-x, n);
-}
-
-// ---------------------------------------------------------------------------
-// Block and transform sizes.
-
-enum {
-  BLOCK_4X4, BLOCK_4X8, BLOCK_8X4, BLOCK_8X8, BLOCK_8X16, BLOCK_16X8,
-  BLOCK_16X16, BLOCK_16X32, BLOCK_32X16, BLOCK_32X32, BLOCK_32X64,
-  BLOCK_64X32, BLOCK_64X64, BLOCK_64X128, BLOCK_128X64, BLOCK_128X128,
-  BLOCK_4X16, BLOCK_16X4, BLOCK_8X32, BLOCK_32X8, BLOCK_16X64, BLOCK_64X16,
-  BLOCK_SIZES, BLOCK_INVALID = 255
-};
-const uint8_t kNum4x4W[BLOCK_SIZES] = {1, 1, 2, 2, 2, 4, 4, 4, 8, 8, 8,
-                                       16, 16, 16, 32, 32, 1, 4, 2, 8, 4, 16};
-const uint8_t kNum4x4H[BLOCK_SIZES] = {1, 2, 1, 2, 4, 2, 4, 8, 4, 8, 16,
-                                       8, 16, 32, 16, 32, 4, 1, 8, 2, 16, 4};
-const uint8_t kMiWLog2[BLOCK_SIZES] = {0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3,
-                                       4, 4, 4, 5, 5, 0, 2, 1, 3, 2, 4};
-const uint8_t kMiHLog2[BLOCK_SIZES] = {0, 1, 0, 1, 2, 1, 2, 3, 2, 3, 4,
-                                       3, 4, 5, 4, 5, 2, 0, 3, 1, 4, 2};
-const uint8_t kMaxTxDepth[BLOCK_SIZES] = {0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4,
-                                          4, 4, 4, 4, 4, 2, 2, 3, 3, 4, 4};
-
-int block_of(int w4, int h4) {  // block size of w4 x h4 4x4 units
-  for (int b = 0; b < BLOCK_SIZES; b++)
-    if (kNum4x4W[b] == w4 && kNum4x4H[b] == h4) return b;
-  return BLOCK_INVALID;
-}
-
-enum {
-  TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_64X64, TX_4X8, TX_8X4, TX_8X16,
-  TX_16X8, TX_16X32, TX_32X16, TX_32X64, TX_64X32, TX_4X16, TX_16X4,
-  TX_8X32, TX_32X8, TX_16X64, TX_64X16, TX_SIZES_ALL
-};
-const uint8_t kTxW[TX_SIZES_ALL] = {4, 8, 16, 32, 64, 4, 8, 8, 16, 16,
-                                    32, 32, 64, 4, 16, 8, 32, 16, 64};
-const uint8_t kTxH[TX_SIZES_ALL] = {4, 8, 16, 32, 64, 8, 4, 16, 8, 32,
-                                    16, 64, 32, 16, 4, 32, 8, 64, 16};
-const uint8_t kTxWLog2[TX_SIZES_ALL] = {2, 3, 4, 5, 6, 2, 3, 3, 4, 4,
-                                        5, 5, 6, 2, 4, 3, 5, 4, 6};
-const uint8_t kTxHLog2[TX_SIZES_ALL] = {2, 3, 4, 5, 6, 3, 2, 4, 3, 5,
-                                        4, 6, 5, 4, 2, 5, 3, 6, 4};
-const uint8_t kTxSqr[TX_SIZES_ALL] = {0, 1, 2, 3, 4, 0, 0, 1, 1, 2,
-                                      2, 3, 3, 0, 0, 1, 1, 2, 2};
-const uint8_t kTxSqrUp[TX_SIZES_ALL] = {0, 1, 2, 3, 4, 1, 1, 2, 2, 3,
-                                        3, 4, 4, 2, 2, 3, 3, 4, 4};
-const uint8_t kSplitTx[TX_SIZES_ALL] = {
-    TX_4X4, TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_4X4, TX_4X4,
-    TX_8X8, TX_8X8, TX_16X16, TX_16X16, TX_32X32, TX_32X32, TX_4X8,
-    TX_8X4, TX_8X16, TX_16X8, TX_16X32, TX_32X16};
-const uint8_t kAdjustedTx[TX_SIZES_ALL] = {
-    TX_4X4, TX_8X8, TX_16X16, TX_32X32, TX_32X32, TX_4X8, TX_8X4,
-    TX_8X16, TX_16X8, TX_16X32, TX_32X16, TX_32X32, TX_32X32, TX_4X16,
-    TX_16X4, TX_8X32, TX_32X8, TX_16X32, TX_32X16};
-const uint8_t kRowShift[TX_SIZES_ALL] = {0, 1, 2, 2, 2, 0, 0, 1, 1, 1,
-                                         1, 1, 1, 1, 1, 2, 2, 2, 2};
-// Offsets of the (adjusted) sizes in a 3344-byte quantizer matrix.
-const int16_t kQmOffset[TX_SIZES_ALL] = {
-    0, 16, 80, 336, 336, 1360, 1392, 1424, 1552, 1680, 2192, 336, 336,
-    2704, 2768, 2832, 3088, 1680, 2192};
-
-int tx_of(int w, int h) {
-  for (int t = 0; t < TX_SIZES_ALL; t++)
-    if (kTxW[t] == w && kTxH[t] == h) return t;
-  return -1;
-}
-int max_tx_rect(int bsize) {
-  return tx_of(imin(64, 4 * kNum4x4W[bsize]), imin(64, 4 * kNum4x4H[bsize]));
-}
-
-enum {
-  DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST,
-  FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST, IDTX, V_DCT, H_DCT,
-  V_ADST, H_ADST, V_FLIPADST, H_FLIPADST
-};
-enum { DC_PRED, V_PRED, H_PRED, D45_PRED, D135_PRED, D113_PRED, D157_PRED,
-       D203_PRED, D67_PRED, SMOOTH_PRED, SMOOTH_V_PRED, SMOOTH_H_PRED,
-       PAETH_PRED, UV_CFL_PRED };
-const uint8_t kIntraModeContext[13] = {0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1, 2, 0};
-const uint8_t kModeToAngle[13] = {0, 90, 180, 45, 135, 113, 157, 203, 67,
-                                  0, 0, 0, 0};
-const uint8_t kModeToTxfm[14] = {DCT_DCT, ADST_DCT, DCT_ADST, DCT_DCT,
-                                 ADST_ADST, ADST_DCT, DCT_ADST, DCT_ADST,
-                                 ADST_DCT, ADST_ADST, ADST_DCT, DCT_ADST,
-                                 ADST_ADST, DCT_DCT};
-const uint8_t kTxInv1[7] = {IDTX, DCT_DCT, V_DCT, H_DCT, ADST_ADST,
-                            ADST_DCT, DCT_ADST};
-const uint8_t kTxInv2[5] = {IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST};
-const uint8_t kTxInterInv1[16] = {
-    IDTX, V_DCT, H_DCT, V_ADST, H_ADST, V_FLIPADST, H_FLIPADST, DCT_DCT,
-    ADST_DCT, DCT_ADST, FLIPADST_DCT, DCT_FLIPADST, ADST_ADST,
-    FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST};
-const uint8_t kTxInterInv2[12] = {
-    IDTX, V_DCT, H_DCT, DCT_DCT, ADST_DCT, DCT_ADST, FLIPADST_DCT,
-    DCT_FLIPADST, ADST_ADST, FLIPADST_FLIPADST, ADST_FLIPADST,
-    FLIPADST_ADST};
-const uint8_t kFilterIntraModeToDir[5] = {DC_PRED, V_PRED, H_PRED, D157_PRED,
-                                          DC_PRED};
-const uint8_t kSegFeatureBits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
-const uint8_t kSegFeatureSigned[8] = {1, 1, 1, 1, 1, 0, 0, 0};
-const int kSegFeatureMax[8] = {255, 63, 63, 63, 63, 7, 0, 0};
-const uint8_t kPaletteColorContext[9] = {255, 255, 0, 255, 255, 4, 3, 2, 1};
-const int8_t kSigRefDiffOffset[3][5][2] = {
-    {{0, 1}, {1, 0}, {1, 1}, {0, 2}, {2, 0}},
-    {{0, 1}, {1, 0}, {0, 2}, {0, 3}, {0, 4}},
-    {{0, 1}, {1, 0}, {2, 0}, {3, 0}, {4, 0}}};
-const int8_t kMagRefOffset[3][3][2] = {{{0, 1}, {1, 0}, {1, 1}},
-                                       {{0, 1}, {1, 0}, {0, 2}},
-                                       {{0, 1}, {1, 0}, {2, 0}}};
-const uint8_t kIntraEdgeKernel[3][5] = {
-    {0, 4, 8, 4, 0}, {0, 5, 6, 5, 0}, {2, 4, 4, 4, 2}};
-enum { TX_CLASS_2D, TX_CLASS_HORIZ, TX_CLASS_VERT };
-enum { PARTITION_NONE, PARTITION_HORZ, PARTITION_VERT, PARTITION_SPLIT,
-       PARTITION_HORZ_A, PARTITION_HORZ_B, PARTITION_VERT_A,
-       PARTITION_VERT_B, PARTITION_HORZ_4, PARTITION_VERT_4 };
-
-int tx_class(int t) {
-  if (t == V_DCT || t == V_ADST || t == V_FLIPADST) return TX_CLASS_VERT;
-  if (t == H_DCT || t == H_ADST || t == H_FLIPADST) return TX_CLASS_HORIZ;
-  return TX_CLASS_2D;
-}
-
-int subsampled_size(int bsize, int ssx, int ssy) {
-  int w = 4 * kNum4x4W[bsize], h = 4 * kNum4x4H[bsize];
-  return block_of(imax(4, w >> ssx) / 4, imax(4, h >> ssy) / 4);
-}
-
-int partition_subsize(int p, int bsize) {
-  int w4 = kNum4x4W[bsize], h4 = kNum4x4H[bsize];
-  switch (p) {
-    case PARTITION_NONE: return bsize;
-    case PARTITION_HORZ: case PARTITION_HORZ_A: case PARTITION_HORZ_B:
-      return block_of(w4, h4 / 2);
-    case PARTITION_VERT: case PARTITION_VERT_A: case PARTITION_VERT_B:
-      return block_of(w4 / 2, h4);
-    case PARTITION_SPLIT: return block_of(w4 / 2, h4 / 2);
-    case PARTITION_HORZ_4: return block_of(w4, h4 / 4);
-    case PARTITION_VERT_4: return block_of(w4 / 4, h4);
-  }
-  return BLOCK_INVALID;
-}
-
-// ---------------------------------------------------------------------------
-// Bit reader for headers, and the symbol decoder (8.2).
-
-struct BitReader {
-  const uint8_t* d;
-  size_t n;
-  size_t pos = 0;  // in bits
-  BitReader(const uint8_t* d_, size_t n_) : d(d_), n(n_) {}
-  uint32_t f(int k) {
-    uint32_t x = 0;
-    for (int i = 0; i < k; i++) {
-      if (pos >= 8 * n) corrupt("header past the end of its OBU");
-      x = (x << 1) | ((d[pos >> 3] >> (7 - (pos & 7))) & 1);
-      pos++;
-    }
-    return x;
-  }
-  int su(int k) {
-    int v = (int)f(k), m = 1 << (k - 1);
-    return (v & m) ? v - 2 * m : v;
-  }
-  uint32_t uvlc() {
-    int lz = 0;
-    while (!f(1)) {
-      if (++lz >= 32) corrupt("uvlc");
-    }
-    return lz ? f(lz) + ((1u << lz) - 1) : 0;
-  }
-  uint32_t ns(uint32_t nv) {
-    int w = floor_log2(nv) + 1;
-    uint32_t m = (1u << w) - nv, v = f(w - 1);
-    if (v < m) return v;
-    return (v << 1) - m + f(1);
-  }
-  uint64_t leb128() {
-    uint64_t v = 0;
-    for (int i = 0; i < 8; i++) {
-      uint32_t b = f(8);
-      v |= (uint64_t)(b & 0x7f) << (7 * i);
-      if (!(b & 0x80)) return v;
-    }
-    return v;
-  }
-  void byte_align() { pos = (pos + 7) & ~(size_t)7; }
-};
-
-struct SymbolDecoder {
-  const uint8_t* buf = nullptr;
-  size_t size = 0, bitpos = 0;
-  uint32_t value = 0, range = 0;
-  int64_t max_bits = 0;
-  bool no_update = false;
-
-  uint32_t bits(int k) {
-    uint32_t x = 0;
-    for (int i = 0; i < k; i++, bitpos++) {
-      uint32_t b = bitpos < 8 * size
-                       ? (buf[bitpos >> 3] >> (7 - (bitpos & 7))) & 1
-                       : 0;
-      x = (x << 1) | b;
-    }
-    return x;
-  }
-  void init(const uint8_t* d, size_t sz, bool disable_update) {
-    if (sz < 1) corrupt("empty tile");
-    buf = d;
-    size = sz;
-    bitpos = 0;
-    no_update = disable_update;
-    int nb = (int)std::min<size_t>(8 * sz, 15);
-    uint32_t b = bits(nb);
-    value = ((1u << 15) - 1) ^ (b << (15 - nb));
-    range = 1u << 15;
-    max_bits = 8 * (int64_t)sz - 15;
-  }
-  int symbol(uint16_t* cdf, int n) {
-    uint32_t cur = range, prev;
-    int s = -1;
-    do {
-      s++;
-      prev = cur;
-      uint32_t f = (1u << 15) - cdf[s];
-      cur = ((range >> 8) * (f >> 6) >> 1) + 4 * (uint32_t)(n - s - 1);
-    } while (value < cur);
-    range = prev - cur;
-    value -= cur;
-    int b = 15 - floor_log2(range);
-    range <<= b;
-    int nb = (int)std::min<int64_t>(b, std::max<int64_t>(0, max_bits));
-    uint32_t nd = bits(nb) << (b - nb);
-    value = nd ^ (((value + 1) << b) - 1);
-    max_bits -= b;
-    if (!no_update) {
-      int rate = 3 + (cdf[n] > 15) + (cdf[n] > 31) + imin(floor_log2(n), 2);
-      uint32_t tmp = 0;
-      for (int i = 0; i < n - 1; i++) {
-        tmp = (i == s) ? (1u << 15) : tmp;
-        if (tmp < cdf[i])
-          cdf[i] -= (uint16_t)((cdf[i] - tmp) >> rate);
-        else
-          cdf[i] += (uint16_t)((tmp - cdf[i]) >> rate);
-      }
-      cdf[n] += (cdf[n] < 32);
-    }
-    return s;
-  }
-  int boolean() {
-    uint16_t cdf[3] = {1 << 14, 1 << 15, 0};
-    bool saved = no_update;
-    no_update = true;
-    int b = symbol(cdf, 2);
-    no_update = saved;
-    return b;
-  }
-  int literal(int n) {
-    int x = 0;
-    for (int i = 0; i < n; i++) x = 2 * x + boolean();
-    return x;
-  }
-  int ns(int nv) {
-    int w = floor_log2(nv) + 1;
-    int m = (1 << w) - nv, v = literal(w - 1);
-    if (v < m) return v;
-    return (v << 1) - m + literal(1);
-  }
-};
-
-// ---------------------------------------------------------------------------
-// The CDFs a tile adapts.
-
-struct Cdfs {
-  uint16_t y_mode[5][5][14];
-  uint16_t uv_nocfl[13][14];
-  uint16_t uv_cfl[13][15];
-  uint16_t part8[4][5], part16[4][11], part32[4][11], part64[4][11],
-      part128[4][9];
-  uint16_t skip[3][3];
-  uint16_t segment_id[3][9];
-  uint16_t delta_q[5], delta_lf[5], delta_lf_multi[4][5];
-  uint16_t cfl_sign[9], cfl_alpha[6][17];
-  uint16_t pal_y_mode[7][3][3], pal_uv_mode[2][3];
-  uint16_t pal_y_size[7][8], pal_uv_size[7][8];
-  uint16_t pal_color[2][7][5][9];
-  uint16_t filter_intra[22][3], filter_intra_mode[6];
-  uint16_t angle_delta[8][8];
-  uint16_t tx8[3][3], tx16[3][4], tx32[3][4], tx64[3][4];
-  uint16_t tx_set1[2][13][8], tx_set2[3][13][6];
-  uint16_t txb_skip[5][13][3];
-  uint16_t eob16[2][2][6], eob32[2][2][7], eob64[2][2][8],
-      eob128[2][2][9], eob256[2][2][10], eob512[2][11], eob1024[2][12];
-  uint16_t eob_extra[5][2][9][3];
-  uint16_t dc_sign[2][3][3];
-  uint16_t base_eob[5][2][4][4];
-  uint16_t base[5][2][42][5];
-  uint16_t br[5][2][21][5];
-  uint16_t restoration_type[4], use_wiener[3], use_sgrproj[3];
-  // Intra block copy: use_intrabc, its vector's CDFs (MV_INTRABC_CONTEXT;
-  // the other context is for inter frames), txfm_split and the inter
-  // transform type sets.
-  uint16_t intrabc[3], mv_joint[5], mv_class[2][12], mv_sign[2][3],
-      mv_class0[2][3], mv_bits[2][10][3];
-  uint16_t txfm_split[21][3], inter_set1[2][17], inter_set2[13],
-      inter_set3[4][3];
-
-  void init(int base_q_idx) {
-#define CP(dst, src) \
-  static_assert(sizeof(dst) == sizeof(src), #src); \
-  memcpy(dst, src, sizeof(dst))
-    CP(y_mode, Default_Intra_Frame_Y_Mode_Cdf);
-    CP(uv_nocfl, Default_Uv_Mode_Cfl_Not_Allowed_Cdf);
-    CP(uv_cfl, Default_Uv_Mode_Cfl_Allowed_Cdf);
-    CP(part8, Default_Partition_W8_Cdf);
-    CP(part16, Default_Partition_W16_Cdf);
-    CP(part32, Default_Partition_W32_Cdf);
-    CP(part64, Default_Partition_W64_Cdf);
-    CP(part128, Default_Partition_W128_Cdf);
-    CP(skip, Default_Skip_Cdf);
-    CP(segment_id, Default_Segment_Id_Cdf);
-    CP(delta_q, Default_Delta_Q_Cdf[0]);
-    CP(delta_lf, Default_Delta_Lf_Cdf[0]);
-    CP(delta_lf_multi, Default_Delta_Lf_Multi_Cdf);
-    CP(cfl_sign, Default_Cfl_Sign_Cdf[0]);
-    CP(cfl_alpha, Default_Cfl_Alpha_Cdf);
-    CP(pal_y_mode, Default_Palette_Y_Mode_Cdf);
-    CP(pal_uv_mode, Default_Palette_Uv_Mode_Cdf);
-    CP(pal_y_size, Default_Palette_Y_Size_Cdf);
-    CP(pal_uv_size, Default_Palette_Uv_Size_Cdf);
-    CP(filter_intra, Default_Filter_Intra_Cdfs);
-    CP(filter_intra_mode, Default_Filter_Intra_Mode_Cdf[0]);
-    CP(angle_delta, Default_Angle_Delta_Cdf);
-    CP(tx8, Default_Tx_8x8_Cdf);
-    CP(tx16, Default_Tx_16x16_Cdf);
-    CP(tx32, Default_Tx_32x32_Cdf);
-    CP(tx64, Default_Tx_64x64_Cdf);
-    CP(tx_set1, Default_Intra_Tx_Type_Set1_Cdf);
-    CP(tx_set2, Default_Intra_Tx_Type_Set2_Cdf);
-    CP(restoration_type, Default_Restoration_Type_Cdf[0]);
-    CP(use_wiener, Default_Use_Wiener_Cdf[0]);
-    CP(use_sgrproj, Default_Use_Sgrproj_Cdf[0]);
-    CP(intrabc, Default_Intrabc_Cdf);
-    CP(mv_joint, Default_Mv_Joint_Cdf[0]);
-    for (int c = 0; c < 2; c++) {
-      CP(mv_class[c], Default_Mv_Class_Cdf[0]);
-      CP(mv_sign[c], Default_Mv_Sign_Cdf);
-      CP(mv_class0[c], Default_Mv_Class0_Bit_Cdf);
-      CP(mv_bits[c], Default_Mv_Bit_Cdf);
-    }
-    CP(txfm_split, Default_Txfm_Split_Cdf);
-    CP(inter_set1, Default_Inter_Tx_Type_Set1_Cdf);
-    CP(inter_set2, Default_Inter_Tx_Type_Set2_Cdf[0]);
-    CP(inter_set3, Default_Inter_Tx_Type_Set3_Cdf);
-    memset(pal_color, 0, sizeof(pal_color));
-    const uint16_t* ys[7] = {
-        &Default_Palette_Size_2_Y_Color_Cdf[0][0],
-        &Default_Palette_Size_3_Y_Color_Cdf[0][0],
-        &Default_Palette_Size_4_Y_Color_Cdf[0][0],
-        &Default_Palette_Size_5_Y_Color_Cdf[0][0],
-        &Default_Palette_Size_6_Y_Color_Cdf[0][0],
-        &Default_Palette_Size_7_Y_Color_Cdf[0][0],
-        &Default_Palette_Size_8_Y_Color_Cdf[0][0]};
-    const uint16_t* uvs[7] = {
-        &Default_Palette_Size_2_Uv_Color_Cdf[0][0],
-        &Default_Palette_Size_3_Uv_Color_Cdf[0][0],
-        &Default_Palette_Size_4_Uv_Color_Cdf[0][0],
-        &Default_Palette_Size_5_Uv_Color_Cdf[0][0],
-        &Default_Palette_Size_6_Uv_Color_Cdf[0][0],
-        &Default_Palette_Size_7_Uv_Color_Cdf[0][0],
-        &Default_Palette_Size_8_Uv_Color_Cdf[0][0]};
-    for (int s = 0; s < 7; s++)
-      for (int c = 0; c < 5; c++) {
-        memcpy(pal_color[0][s][c], ys[s] + c * (s + 3), 2 * (s + 3));
-        memcpy(pal_color[1][s][c], uvs[s] + c * (s + 3), 2 * (s + 3));
-      }
-    int q = base_q_idx <= 20 ? 0 : base_q_idx <= 60 ? 1
-            : base_q_idx <= 120 ? 2 : 3;
-    CP(txb_skip, Default_Txb_Skip_Cdf[q]);
-    CP(eob16, Default_Eob_Pt_16_Cdf[q]);
-    CP(eob32, Default_Eob_Pt_32_Cdf[q]);
-    CP(eob64, Default_Eob_Pt_64_Cdf[q]);
-    CP(eob128, Default_Eob_Pt_128_Cdf[q]);
-    CP(eob256, Default_Eob_Pt_256_Cdf[q]);
-    CP(eob512, Default_Eob_Pt_512_Cdf[q]);
-    CP(eob1024, Default_Eob_Pt_1024_Cdf[q]);
-    CP(eob_extra, Default_Eob_Extra_Cdf[q]);
-    CP(dc_sign, Default_Dc_Sign_Cdf[q]);
-    CP(base_eob, Default_Coeff_Base_Eob_Cdf[q]);
-    CP(base, Default_Coeff_Base_Cdf[q]);
-    CP(br, Default_Coeff_Br_Cdf[q]);
-#undef CP
-  }
-};
+#include "av1_syntax.inc"
 
 // ---------------------------------------------------------------------------
 // Inverse transforms (7.13.2).
@@ -770,77 +353,34 @@ void inverse_1d(int32_t* x, int kind, int n) {
 // ---------------------------------------------------------------------------
 // The frame.
 
-struct SeqHeader {
-  int profile = 0, still = 0, reduced = 0;
-  int timing_info = 0, decoder_model_info = 0, equal_picture_interval = 0;
-  int buffer_removal_time_len = 0, frame_presentation_time_len = 0;
-  int buffer_delay_len = 0;
-  int op_cnt = 0, op_idc[32] = {0}, decoder_model_present[32] = {0};
-  int frame_width_bits = 0, frame_height_bits = 0, max_w = 0, max_h = 0;
-  int frame_id_numbers = 0, delta_frame_id_len = 0, add_frame_id_len = 0;
-  int sb128 = 0, enable_filter_intra = 0, enable_intra_edge = 0;
-  int enable_order_hint = 0, order_hint_bits = 0;
-  int force_screen_content = 0, force_integer_mv = 0;
-  int enable_superres = 0, enable_cdef = 0, enable_restoration = 0;
-  int bit_depth = 8, mono = 0, cp = 2, tc = 2, mc = 2, full_range = 0;
-  int ssx = 1, ssy = 1, csp = 0, separate_uv_delta_q = 0;
-  int film_grain_present = 0;
-  bool valid = false;
-};
-
-// film_grain_params (5.9.30), as read: the AR coefficients and the chroma
-// multipliers without their +128 (+256) offsets.
-struct GrainParams {
-  int apply = 0, seed = 0, num_y = 0, from_luma = 0, num_cb = 0, num_cr = 0;
-  int y_pts[16][2], cb_pts[16][2], cr_pts[16][2];
-  int scaling_shift = 8, lag = 0, ar_shift = 6, scale_shift = 0;
-  int ar_y[24], ar_cb[25], ar_cr[25];
-  int cb_mult = 0, cb_luma_mult = 0, cb_offset = 0, cr_mult = 0,
-      cr_luma_mult = 0, cr_offset = 0;
-  int overlap = 0, clip = 0;
-};
-
 struct Plane {
   std::vector<uint8_t> px;
   int stride = 0, rows = 0;
   uint8_t* at(int y, int x) { return &px[(size_t)y * stride + x]; }
 };
 
-struct Decoder {
-  SeqHeader seq;
-  // Frame header.
-  int frame_w = 0, frame_h = 0, mi_cols = 0, mi_rows = 0;
-  int disable_cdf_update = 0, allow_sct = 0, allow_intrabc = 0;
-  int base_q_idx = 0, dq_ydc = 0, dq_udc = 0, dq_uac = 0, dq_vdc = 0,
-      dq_vac = 0;
+struct Decoder : FrameState {
+  // Frame header (the fields contexts read are FrameState's).
+  int frame_w = 0, frame_h = 0;
+  int disable_cdf_update = 0;
+  int dq_ydc = 0, dq_udc = 0, dq_uac = 0, dq_vdc = 0, dq_vac = 0;
   int using_qm = 0, qm_y = 0, qm_u = 0, qm_v = 0;
-  int seg_enabled = 0, feature_enabled[8][8] = {{0}},
-      feature_data[8][8] = {{0}};
-  int seg_id_pre_skip = 0, last_active_seg_id = 0;
-  int delta_q_present = 0, delta_q_res = 0, delta_lf_present = 0,
-      delta_lf_res = 0, delta_lf_multi = 0;
-  int lossless_array[8] = {0}, coded_lossless = 0, seg_qm_level[3][8];
-  int cdef_bits = 0, tx_mode_select = 0, only_4x4 = 0, reduced_tx_set = 0;
+  int seg_qm_level[3][8];
+  int only_4x4 = 0;
   // loop_filter_params, cdef_params and lr_params.
   int lf_level[4] = {0}, lf_sharpness = 0, lf_delta_enabled = 0;
   int lf_ref_deltas[8] = {0};
   int cdef_damping = 3, cdef_y_pri[8] = {0}, cdef_y_sec[8] = {0},
       cdef_uv_pri[8] = {0}, cdef_uv_sec[8] = {0};
-  int lr_type[3] = {0}, lr_size[3] = {0};
   int tile_cols = 0, tile_rows = 0, tile_cols_log2 = 0, tile_rows_log2 = 0;
   int mi_col_starts[65], mi_row_starts[65], tile_size_bytes = 4;
-  int num_planes = 3;
   GrainParams grain;
+  FrameHeader fh;
   bool have_frame = false, frame_done = false;
 
-  // Per-mi state. tx_sizes holds InterTxSizes (an intra block's TxSize,
-  // an inter block's transform sizes); mvs two a mi (row, column).
-  std::vector<uint8_t> y_modes, uv_modes, skips, tx_sizes, mi_sizes,
-      seg_ids, pal_sizes[2], tx_types, is_inters, decoded;
-  std::vector<int16_t> mvs;
-  std::vector<uint16_t> pal_colors[2];
-  std::vector<int8_t> cdef_idx, delta_lfs;  // delta_lfs: 4 a mi
-  int cdef_stride = 0;
+  // Per-mi state beyond FrameState's.
+  std::vector<uint8_t> uv_modes;
+  std::vector<int8_t> delta_lfs;  // 4 a mi
   // LoopfilterTxSizes: each plane's transform size at each of its 4x4s.
   std::vector<uint8_t> lf_tx[3];
   int lf_tx_stride = 0;
@@ -851,55 +391,40 @@ struct Decoder {
     int8_t xqd[2] = {0};
   };
   std::vector<LrUnit> lr_units[3];
-  int lr_unit_rows[3] = {0}, lr_unit_cols[3] = {0};
   Plane planes[3];
 
   // Tile state.
   SymbolDecoder sd;
-  Cdfs cdf;
-  int mi_row_start = 0, mi_row_end = 0, mi_col_start = 0, mi_col_end = 0;
-  int current_q = 0, delta_lf[4] = {0}, read_deltas = 0;
+  int delta_lf[4] = {0}, read_deltas = 0;
   int ref_lr_wiener[3][2][3], ref_sgr_xqd[3][2];
-  std::vector<uint8_t> above_level[3], above_dc[3], left_level[3],
-      left_dc[3];
   uint8_t block_decoded[3][34][34];
 
   // Block state.
-  int mi_row = 0, mi_col = 0, mi_size = 0, has_chroma = 0;
-  int avail_u = 0, avail_l = 0, avail_u_chroma = 0, avail_l_chroma = 0;
-  int segment_id = 0, skip = 0, lossless = 0;
-  int y_mode = 0, uv_mode = 0, angle_delta_y = 0, angle_delta_uv = 0;
+  int avail_u_chroma = 0, avail_l_chroma = 0;
+  int skip = 0;
+  int y_mode = 0, angle_delta_y = 0, angle_delta_uv = 0;
   int cfl_alpha_u = 0, cfl_alpha_v = 0;
   int use_filter_intra = 0, filter_intra_mode = 0;
-  int use_intrabc = 0, is_inter = 0, mv[2] = {0, 0};
+  int use_intrabc = 0, mv[2] = {0, 0};
   int pal_size_y = 0, pal_size_uv = 0;
   uint16_t pal_y[8], pal_u[8], pal_v[8];
   uint8_t color_map_y[64][64], color_map_uv[64][64];
   int tx_size = 0, max_luma_w = 0, max_luma_h = 0;
-  int plane_tx_type = 0;
-  int32_t quant[1024];
   int32_t resid[64][64];
   int pred_buf[64][64];
   int32_t dq_buf[64][64];
   bool header_only = false;
   uint64_t tools = 0;  // what the frame used (kTool*, kFilter*, ... bits)
+  // The decision record (tb_av1_record), when one is asked for, and an
+  // intra block copy's var-tx leaves (mi row, mi column, TX_*).
+  std::vector<int32_t>* rec = nullptr;
+  std::vector<int32_t> var_leaves;
 
-  size_t mi_index(int r, int c) const { return (size_t)r * mi_cols + c; }
-  bool is_inside(int r, int c) const {
-    return c >= mi_col_start && c < mi_col_end && r >= mi_row_start &&
-           r < mi_row_end;
-  }
-  int seg_feature_active(int f) const {
-    return seg_enabled && feature_enabled[segment_id][f];
-  }
-  int get_qindex(int ignore_delta, int seg) const {
-    if (seg_enabled && feature_enabled[seg][0]) {
-      int q = base_q_idx + feature_data[seg][0];
-      if (!ignore_delta && delta_q_present) q = current_q + feature_data[seg][0];
-      return clip3(0, 255, q);
-    }
-    if (!ignore_delta && delta_q_present) return current_q;
-    return base_q_idx;
+  void emit(int tag, const void* v, size_t n) {
+    rec->push_back(tag);
+    rec->push_back((int32_t)n);
+    const int32_t* p = (const int32_t*)v;
+    rec->insert(rec->end(), p, p + n);
   }
 
   // --- OBU level --------------------------------------------------------
@@ -913,24 +438,25 @@ struct Decoder {
     if (s.reduced) {
       s.op_cnt = 1;
       s.op_idc[0] = 0;
-      br.f(5);  // seq_level_idx[0]
+      s.op_level[0] = br.f(5);  // seq_level_idx[0]
     } else {
       s.timing_info = br.f(1);
       if (s.timing_info) {
-        br.f(32);
-        br.f(32);
+        s.num_units_in_display_tick = (int)br.f(32);
+        s.time_scale = (int)br.f(32);
         s.equal_picture_interval = br.f(1);
-        if (s.equal_picture_interval) br.uvlc();
+        if (s.equal_picture_interval)
+          s.num_ticks_per_picture = (int)(br.uvlc() + 1);
         s.decoder_model_info = br.f(1);
         if (s.decoder_model_info) {
           int bdl = br.f(5) + 1;
-          br.f(32);
+          s.num_units_in_decoding_tick = (int)br.f(32);
           s.buffer_removal_time_len = br.f(5) + 1;
           s.frame_presentation_time_len = br.f(5) + 1;
           s.buffer_delay_len = bdl;
         }
       }
-      int idd_present = br.f(1);
+      s.idd_present = br.f(1);
       s.op_cnt = br.f(5) + 1;
       int bdl = s.buffer_delay_len;
       for (int i = 0; i < s.op_cnt; i++) {
@@ -938,16 +464,18 @@ struct Decoder {
         if (s.op_idc[i] && (!(s.op_idc[i] & 0xff) || !(s.op_idc[i] & 0xf00)))
           corrupt("operating_point_idc");  // dav1d refuses it
         int lvl = br.f(5);
-        if (lvl > 7) br.f(1);
+        s.op_level[i] = lvl;
+        if (lvl > 7) s.op_tier[i] = br.f(1);
         if (s.decoder_model_info) {
           s.decoder_model_present[i] = br.f(1);
           if (s.decoder_model_present[i]) {
-            br.f(bdl);
-            br.f(bdl);
-            br.f(1);
+            s.op_decoder_delay[i] = br.f(bdl);
+            s.op_encoder_delay[i] = br.f(bdl);
+            s.op_low_delay[i] = br.f(1);
           }
         }
-        if (idd_present && br.f(1)) br.f(4);
+        if (s.idd_present && (s.op_idd_present[i] = br.f(1)))
+          s.op_idd[i] = br.f(4);
       }
     }
     s.frame_width_bits = br.f(4) + 1;
@@ -966,14 +494,14 @@ struct Decoder {
       s.force_screen_content = 2;
       s.force_integer_mv = 2;
     } else {
-      br.f(1);  // enable_interintra_compound
-      br.f(1);  // enable_masked_compound
-      br.f(1);  // enable_warped_motion
-      br.f(1);  // enable_dual_filter
+      s.enable_interintra = br.f(1);
+      s.enable_masked = br.f(1);
+      s.enable_warped = br.f(1);
+      s.enable_dual_filter = br.f(1);
       s.enable_order_hint = br.f(1);
       if (s.enable_order_hint) {
-        br.f(1);  // enable_jnt_comp
-        br.f(1);  // enable_ref_frame_mvs
+        s.enable_jnt_comp = br.f(1);
+        s.enable_ref_frame_mvs = br.f(1);
       }
       if (br.f(1))  // seq_choose_screen_content_tools
         s.force_screen_content = 2;
@@ -995,7 +523,7 @@ struct Decoder {
     if (s.profile == 2 && high_bitdepth) s.bit_depth = br.f(1) ? 12 : 10;
     else s.bit_depth = high_bitdepth ? 10 : 8;
     s.mono = s.profile == 1 ? 0 : br.f(1);
-    if (br.f(1)) {
+    if ((s.color_description = br.f(1))) {
       s.cp = br.f(8);
       s.tc = br.f(8);
       s.mc = br.f(8);
@@ -1042,6 +570,7 @@ struct Decoder {
   // only: returns after film_grain_params.
   void frame_header(BitReader& br, int temporal_id, int spatial_id) {
     if (!seq.valid) corrupt("frame before a sequence header");
+    fh = FrameHeader();
     const SeqHeader& s = seq;
     if (s.bit_depth != 8)
       unsupported("high bit depth (10 or 12 bits)");
@@ -1051,7 +580,7 @@ struct Decoder {
       frame_type = br.f(2);
       show_frame = br.f(1);
       if (show_frame && s.decoder_model_info && !s.equal_picture_interval)
-        br.f(s.frame_presentation_time_len);
+        fh.frame_presentation_time = br.f(s.frame_presentation_time_len);
       if (!show_frame) br.f(1);                      // showable_frame
       if (frame_type != 3 && !(frame_type == 0 && show_frame))
         br.f(1);                                     // error_resilient_mode
@@ -1060,21 +589,22 @@ struct Decoder {
       unsupported("a frame that is not a shown key frame");
     disable_cdf_update = br.f(1);
     allow_sct = s.force_screen_content == 2 ? br.f(1) : s.force_screen_content;
-    if (allow_sct && s.force_integer_mv == 2) br.f(1);
+    if (allow_sct && s.force_integer_mv == 2) fh.force_integer_mv = br.f(1);
     if (s.frame_id_numbers)
-      br.f(s.add_frame_id_len + s.delta_frame_id_len + 1);
+      fh.frame_id = br.f(s.add_frame_id_len + s.delta_frame_id_len + 1);
     int size_override = s.reduced ? 0 : br.f(1);
-    br.f(s.order_hint_bits);
+    fh.size_override = size_override;
+    fh.order_hint = br.f(s.order_hint_bits);
     // primary_ref_frame: none for an intra frame.
     if (s.decoder_model_info) {
-      if (br.f(1)) {  // buffer_removal_time_present_flag
+      if ((fh.buffer_removal_present = br.f(1))) {
         for (int op = 0; op < s.op_cnt; op++)
           if (s.decoder_model_present[op]) {
             int idc = s.op_idc[op];
             int in_t = (idc >> temporal_id) & 1,
                 in_s = (idc >> (spatial_id + 8)) & 1;
             if (idc == 0 || (in_t && in_s))
-              br.f(s.buffer_removal_time_len);
+              fh.buffer_removal[op] = br.f(s.buffer_removal_time_len);
           }
       }
     }
@@ -1092,14 +622,16 @@ struct Decoder {
     if (s.enable_superres && br.f(1)) unsupported("superres");
     mi_cols = 2 * ((frame_w + 7) >> 3);
     mi_rows = 2 * ((frame_h + 7) >> 3);
-    if (br.f(1)) {  // render_and_frame_size_different
-      br.f(16);
-      br.f(16);
+    if ((fh.render_diff = br.f(1))) {  // render_and_frame_size_different
+      fh.render_w = br.f(16);
+      fh.render_h = br.f(16);
     }
     allow_intrabc = 0;
     if (allow_sct) allow_intrabc = br.f(1);
     // disable_frame_end_update_cdf
-    if (!s.reduced && !disable_cdf_update) br.f(1);
+    fh.disable_frame_end_update_cdf = 1;
+    if (!s.reduced && !disable_cdf_update)
+      fh.disable_frame_end_update_cdf = br.f(1);
     tile_info(br);
     // quantization_params
     base_q_idx = br.f(8);
@@ -1193,11 +725,11 @@ struct Decoder {
       }
       lf_sharpness = br.f(3);
       lf_delta_enabled = br.f(1);
-      if (lf_delta_enabled && br.f(1)) {  // loop_filter_delta_update
+      if (lf_delta_enabled && (fh.lf_delta_update = br.f(1))) {
         for (int i = 0; i < 8; i++)
           if (br.f(1)) lf_ref_deltas[i] = br.su(7);
         for (int i = 0; i < 2; i++)
-          if (br.f(1)) br.su(7);
+          if (br.f(1)) fh.lf_mode_deltas[i] = br.su(7);
       }
     }
     // cdef_params (5.9.19): a secondary strength of 3 means 4.
@@ -1253,6 +785,55 @@ struct Decoder {
     grain = GrainParams();
     if (s.film_grain_present) film_grain_params(br);
     have_frame = true;
+    header_record();
+  }
+
+  // The FrameHeader of the decision record from what frame_header read.
+  void header_record() {
+    FrameHeader& h = fh;
+    h.disable_cdf_update = disable_cdf_update;
+    h.allow_sct = allow_sct;
+    h.frame_w = frame_w;
+    h.frame_h = frame_h;
+    h.allow_intrabc = allow_intrabc;
+    h.tile_cols_log2 = tile_cols_log2;
+    h.tile_rows_log2 = tile_rows_log2;
+    h.tile_cols = tile_cols;
+    h.tile_rows = tile_rows;
+    memcpy(h.mi_col_starts, mi_col_starts, sizeof(mi_col_starts));
+    memcpy(h.mi_row_starts, mi_row_starts, sizeof(mi_row_starts));
+    h.base_q_idx = base_q_idx;
+    h.dq_ydc = dq_ydc;
+    h.dq_udc = dq_udc;
+    h.dq_uac = dq_uac;
+    h.dq_vdc = dq_vdc;
+    h.dq_vac = dq_vac;
+    h.using_qm = using_qm;
+    h.qm_y = qm_y;
+    h.qm_u = qm_u;
+    h.qm_v = qm_v;
+    h.seg_enabled = seg_enabled;
+    memcpy(h.feature_enabled, feature_enabled, sizeof(feature_enabled));
+    memcpy(h.feature_data, feature_data, sizeof(feature_data));
+    h.delta_q_present = delta_q_present;
+    h.delta_q_res = delta_q_res;
+    h.delta_lf_present = delta_lf_present;
+    h.delta_lf_res = delta_lf_res;
+    h.delta_lf_multi = delta_lf_multi;
+    memcpy(h.lf_level, lf_level, sizeof(lf_level));
+    h.lf_sharpness = lf_sharpness;
+    h.lf_delta_enabled = lf_delta_enabled;
+    memcpy(h.lf_ref_deltas, lf_ref_deltas, sizeof(lf_ref_deltas));
+    h.cdef_damping = cdef_damping;
+    h.cdef_bits = cdef_bits;
+    memcpy(h.cdef_y_pri, cdef_y_pri, sizeof(cdef_y_pri));
+    memcpy(h.cdef_y_sec, cdef_y_sec, sizeof(cdef_y_sec));
+    memcpy(h.cdef_uv_pri, cdef_uv_pri, sizeof(cdef_uv_pri));
+    memcpy(h.cdef_uv_sec, cdef_uv_sec, sizeof(cdef_uv_sec));
+    memcpy(h.lr_type, lr_type, sizeof(lr_type));
+    memcpy(h.lr_size, lr_size, sizeof(lr_size));
+    h.tx_mode_select = tx_mode_select;
+    h.reduced_tx_set = reduced_tx_set;
   }
 
   // film_grain_params (5.9.30) of a shown key frame: update_grain is 1,
@@ -1333,6 +914,7 @@ struct Decoder {
     int min_log2_tiles =
         imax(min_log2_cols, tile_log2(max_tile_area_sb, sb_rows * sb_cols));
     int uniform = br.f(1);
+    fh.uniform_tiles = uniform;
     if (uniform) {
       tile_cols_log2 = min_log2_cols;
       while (tile_cols_log2 < max_log2_cols && br.f(1)) tile_cols_log2++;
@@ -1385,21 +967,9 @@ struct Decoder {
   }
 
   void alloc_frame() {
+    alloc_state();
     size_t n = (size_t)mi_rows * mi_cols;
-    y_modes.assign(n, 0);
     uv_modes.assign(n, 0);
-    skips.assign(n, 0);
-    tx_sizes.assign(n, 0);
-    mi_sizes.assign(n, 0);
-    seg_ids.assign(n, 0);
-    tx_types.assign(n, 0);
-    is_inters.assign(n, 0);
-    decoded.assign(n, 0);
-    mvs.assign(n * 2, 0);
-    for (int p = 0; p < 2; p++) {
-      pal_sizes[p].assign(n, 0);
-      pal_colors[p].assign(n * 8, 0);
-    }
     delta_lfs.assign(n * 4, 0);
     lf_tx_stride = mi_cols + 17;
     for (int p = 0; p < 3; p++)
@@ -1411,8 +981,6 @@ struct Decoder {
       lr_unit_cols[p] = count_units(lr_size[p], (frame_w + sx) >> sx);
       lr_units[p].assign((size_t)lr_unit_rows[p] * lr_unit_cols[p], LrUnit());
     }
-    cdef_stride = (mi_cols >> 4) + 3;
-    cdef_idx.assign((size_t)((mi_rows >> 4) + 3) * cdef_stride, -1);
     int aw = ((mi_cols * 4 + 127) & ~127) + 160;
     int ah = ((mi_rows * 4 + 127) & ~127) + 160;
     for (int p = 0; p < num_planes; p++) {
@@ -1420,12 +988,6 @@ struct Decoder {
       planes[p].stride = (aw >> sx) + 64;
       planes[p].rows = (ah >> sy) + 64;
       planes[p].px.assign((size_t)planes[p].stride * planes[p].rows, 0);
-    }
-    for (int p = 0; p < 3; p++) {
-      above_level[p].assign(mi_cols + 64, 0);
-      above_dc[p].assign(mi_cols + 64, 0);
-      left_level[p].assign(mi_rows + 64, 0);
-      left_dc[p].assign(mi_rows + 64, 0);
     }
   }
 
@@ -1465,6 +1027,7 @@ struct Decoder {
       current_q = base_q_idx;
       cdf.init(base_q_idx);
       sd.init(d + off, tsize, disable_cdf_update);
+      if (rec) emit(kRecTile, &t, 1);
       decode_tile();
       off += tsize;
     }
@@ -1510,22 +1073,12 @@ struct Decoder {
 
   // --- Loop restoration units (5.11.57-58) ------------------------------
 
-  static int count_units(int unit_size, int frame_size) {
-    return imax((frame_size + (unit_size >> 1)) / unit_size, 1);
-  }
-
   void read_lr(int r, int c, int bsize) {
     if (allow_intrabc) return;
-    int w = kNum4x4W[bsize], h = kNum4x4H[bsize];
     for (int p = 0; p < num_planes; p++) {
       if (lr_type[p] == RESTORE_NONE) continue;
-      int sx = p ? seq.ssx : 0, sy = p ? seq.ssy : 0;
-      int unit = lr_size[p];
-      int rows = lr_unit_rows[p], cols = lr_unit_cols[p];
-      int row0 = (r * (4 >> sy) + unit - 1) / unit;
-      int row1 = imin(rows, ((r + h) * (4 >> sy) + unit - 1) / unit);
-      int col0 = (c * (4 >> sx) + unit - 1) / unit;
-      int col1 = imin(cols, ((c + w) * (4 >> sx) + unit - 1) / unit);
+      int row0, row1, col0, col1;
+      lr_units_of(p, r, c, bsize, &row0, &row1, &col0, &col1);
       for (int ur = row0; ur < row1; ur++)
         for (int uc = col0; uc < col1; uc++) read_lr_unit(p, ur, uc);
     }
@@ -1572,6 +1125,20 @@ struct Decoder {
           v = clip3(mn, mx, 128 - ref_sgr_xqd[p][0]);
         u.xqd[i] = (int8_t)v;
         ref_sgr_xqd[p][i] = v;
+      }
+    }
+    if (rec) {
+      int32_t e[10] = {p, ur, uc, t};
+      if (t == RESTORE_WIENER) {
+        for (int k = 0; k < 6; k++) e[4 + k] = u.wiener[k / 3][k % 3];
+        emit(kRecLr, e, 10);
+      } else if (t == RESTORE_SGRPROJ) {
+        e[4] = u.sgr_set;
+        e[5] = u.xqd[0];
+        e[6] = u.xqd[1];
+        emit(kRecLr, e, 7);
+      } else {
+        emit(kRecLr, e, 4);
       }
     }
   }
@@ -1623,18 +1190,6 @@ struct Decoder {
   int grain_tmpl[3][73][82];
   void apply_grain(uint8_t* const out[3]);
 
-  int8_t& cdef_at(int r, int c) {
-    return cdef_idx[(size_t)(r >> 4) * cdef_stride + (c >> 4)];
-  }
-  void clear_cdef(int r, int c) {
-    cdef_at(r, c) = -1;
-    if (seq.sb128) {
-      cdef_at(r, c + 16) = -1;
-      cdef_at(r + 16, c) = -1;
-      cdef_at(r + 16, c + 16) = -1;
-    }
-  }
-
   void clear_block_decoded(int r, int c, int sb4) {
     for (int p = 0; p < num_planes; p++) {
       int sx = p ? seq.ssx : 0, sy = p ? seq.ssy : 0;
@@ -1651,64 +1206,35 @@ struct Decoder {
     }
   }
 
-  uint16_t* partition_cdf(int bsize, int ctx, int* n) {
-    switch (bsize) {
-      case BLOCK_8X8: *n = 4; return cdf.part8[ctx];
-      case BLOCK_16X16: *n = 10; return cdf.part16[ctx];
-      case BLOCK_32X32: *n = 10; return cdf.part32[ctx];
-      case BLOCK_64X64: *n = 10; return cdf.part64[ctx];
-      default: *n = 8; return cdf.part128[ctx];
-    }
-  }
-
   void decode_partition(int r, int c, int bsize) {
     if (r >= mi_rows || c >= mi_cols) return;
-    int avu = is_inside(r - 1, c), avl = is_inside(r, c - 1);
     int num4 = kNum4x4W[bsize], half = num4 >> 1, quarter = half >> 1;
     int has_rows = (r + half) < mi_rows, has_cols = (c + half) < mi_cols;
     int partition;
     if (bsize < BLOCK_8X8) {
       partition = PARTITION_NONE;
     } else {
-      int bsl = kMiWLog2[bsize];
-      int above = avu && kMiWLog2[mi_sizes[mi_index(r - 1, c)]] < bsl;
-      int left = avl && kMiHLog2[mi_sizes[mi_index(r, c - 1)]] < bsl;
-      int ctx = left * 2 + above, n;
-      uint16_t* pc = partition_cdf(bsize, ctx, &n);
-      auto prob = [&](int p) {  // probability of partition p, in 1/32768
-        return (int)pc[p] - (p ? (int)pc[p - 1] : 0);
-      };
+      int n;
+      uint16_t* pc = partition_cdf(r, c, bsize, &n);
       if (has_rows && has_cols) {
         partition = sd.symbol(pc, n);
-      } else if (has_cols) {
-        int psum = prob(PARTITION_VERT) + prob(PARTITION_SPLIT);
-        if (bsize != BLOCK_8X8)
-          psum += prob(PARTITION_HORZ_A) + prob(PARTITION_VERT_A) +
-                  prob(PARTITION_VERT_B);
-        if (bsize != BLOCK_8X8 && bsize != BLOCK_128X128)
-          psum += prob(PARTITION_VERT_4);
-        uint16_t bc[3] = {(uint16_t)(32768 - psum), 32768, 0};
+      } else if (has_cols || has_rows) {
+        uint16_t bc[3];
+        edge_split_cdf(pc, bsize, has_cols, bc);
         bool saved = sd.no_update;
         sd.no_update = true;
-        partition = sd.symbol(bc, 2) ? PARTITION_SPLIT : PARTITION_HORZ;
-        sd.no_update = saved;
-      } else if (has_rows) {
-        int psum = prob(PARTITION_HORZ) + prob(PARTITION_SPLIT);
-        if (bsize != BLOCK_8X8)
-          psum += prob(PARTITION_HORZ_A) + prob(PARTITION_HORZ_B) +
-                  prob(PARTITION_VERT_A);
-        if (bsize != BLOCK_8X8 && bsize != BLOCK_128X128)
-          psum += prob(PARTITION_HORZ_4);
-        uint16_t bc[3] = {(uint16_t)(32768 - psum), 32768, 0};
-        bool saved = sd.no_update;
-        sd.no_update = true;
-        partition = sd.symbol(bc, 2) ? PARTITION_SPLIT : PARTITION_VERT;
+        partition = sd.symbol(bc, 2) ? PARTITION_SPLIT
+                    : has_cols ? PARTITION_HORZ : PARTITION_VERT;
         sd.no_update = saved;
       } else {
         partition = PARTITION_SPLIT;
       }
     }
     if (partition > PARTITION_SPLIT) tools |= kToolExtPartition;
+    if (rec && bsize >= BLOCK_8X8) {
+      int32_t e[4] = {r, c, bsize, partition};
+      emit(kRecPart, e, 4);
+    }
     // At 4:2:2 a vertical split's halves (w/2 x h) have no chroma size
     // (Subsampled_Size is BLOCK_INVALID: a conformance requirement of
     // 5.11.4), and dav1d refuses the stream.
@@ -1769,15 +1295,8 @@ struct Decoder {
   }
 
   void decode_block(int r, int c, int bsize) {
-    mi_row = r;
-    mi_col = c;
-    mi_size = bsize;
+    start_block(r, c, bsize);
     int bw4 = kNum4x4W[bsize], bh4 = kNum4x4H[bsize];
-    if (bh4 == 1 && seq.ssy && (r & 1) == 0) has_chroma = 0;
-    else if (bw4 == 1 && seq.ssx && (c & 1) == 0) has_chroma = 0;
-    else has_chroma = num_planes > 1;
-    avail_u = is_inside(r - 1, c);
-    avail_l = is_inside(r, c - 1);
     avail_u_chroma = avail_u;
     avail_l_chroma = avail_l;
     if (has_chroma) {
@@ -1791,33 +1310,72 @@ struct Decoder {
       corrupt("block size for the subsampling");
     intra_frame_mode_info();
     palette_tokens();
+    var_leaves.clear();
     read_block_tx_size();
+    if (rec) block_record();
     if (skip) reset_block_context(bw4, bh4);
-    for (int y = 0; y < bh4; y++) {
-      if (r + y >= mi_rows) break;
-      for (int x = 0; x < bw4; x++) {
-        if (c + x >= mi_cols) break;
+    store_block(y_mode, skip, mv[0], mv[1], pal_size_y, pal_size_uv, pal_y,
+                pal_u);
+    for (int y = 0; y < bh4 && r + y < mi_rows; y++)
+      for (int x = 0; x < bw4 && c + x < mi_cols; x++) {
         size_t i = mi_index(r + y, c + x);
-        y_modes[i] = (uint8_t)y_mode;
         uv_modes[i] = (uint8_t)uv_mode;
-        skips[i] = (uint8_t)skip;
-        mi_sizes[i] = (uint8_t)bsize;
-        is_inters[i] = (uint8_t)is_inter;
-        decoded[i] = 1;
-        mvs[2 * i] = (int16_t)mv[0];
-        mvs[2 * i + 1] = (int16_t)mv[1];
-        seg_ids[i] = (uint8_t)segment_id;
         for (int k = 0; k < 4; k++) delta_lfs[i * 4 + k] = (int8_t)delta_lf[k];
-        pal_sizes[0][i] = (uint8_t)pal_size_y;
-        pal_sizes[1][i] = (uint8_t)pal_size_uv;
-        for (int k = 0; k < 8; k++) {
-          pal_colors[0][i * 8 + k] = pal_y[k];
-          pal_colors[1][i * 8 + k] = pal_u[k];
-        }
       }
-    }
     if (is_inter) predict_intrabc();
     residual();
+  }
+
+  // The block's kRecBlock entry, and its colour maps' kRecMap entries.
+  void block_record() {
+    std::vector<int32_t> e(kBFixed, 0);
+    e[kBRow] = mi_row;
+    e[kBCol] = mi_col;
+    e[kBSize] = mi_size;
+    e[kBSkip] = skip;
+    e[kBSegment] = segment_id;
+    e[kBCdef] = cdef_idx.empty() ? -1 : cdef_at(mi_row, mi_col);
+    e[kBQindex] = current_q;
+    for (int k = 0; k < 4; k++) e[kBDeltaLf + k] = delta_lf[k];
+    e[kBIntrabc] = use_intrabc;
+    e[kBMv] = mv[0];
+    e[kBMv + 1] = mv[1];
+    e[kBYMode] = y_mode;
+    e[kBAngleY] = angle_delta_y;
+    e[kBUvMode] = uv_mode;
+    e[kBAngleUv] = angle_delta_uv;
+    e[kBCflU] = cfl_alpha_u;
+    e[kBCflV] = cfl_alpha_v;
+    e[kBFilterIntra] = use_filter_intra;
+    e[kBFilterMode] = use_filter_intra ? filter_intra_mode : 0;
+    e[kBPalY] = pal_size_y;
+    e[kBPalUv] = pal_size_uv;
+    for (int k = 0; k < 8; k++) {
+      e[kBPalColors + k] = k < pal_size_y ? pal_y[k] : 0;
+      e[kBPalColors + 8 + k] = k < pal_size_uv ? pal_u[k] : 0;
+      e[kBPalColors + 16 + k] = k < pal_size_uv ? pal_v[k] : 0;
+    }
+    e[kBTxSize] = tx_size;
+    e.push_back((int32_t)var_leaves.size() / 3);
+    e.insert(e.end(), var_leaves.begin(), var_leaves.end());
+    emit(kRecBlock, e.data(), e.size());
+    for (int p = 0; p < 2; p++) {
+      int n = p ? pal_size_uv : pal_size_y;
+      if (!n) continue;
+      int onh = imin(4 * kNum4x4H[mi_size], (mi_rows - mi_row) * 4);
+      int onw = imin(4 * kNum4x4W[mi_size], (mi_cols - mi_col) * 4);
+      if (p) {
+        onh >>= seq.ssy;
+        onw >>= seq.ssx;
+        if ((4 * kNum4x4W[mi_size]) >> seq.ssx < 4) onw += 2;
+        if ((4 * kNum4x4H[mi_size]) >> seq.ssy < 4) onh += 2;
+      }
+      std::vector<int32_t> m = {p, onw, onh};
+      uint8_t(*map)[64] = p ? color_map_uv : color_map_y;
+      for (int i = 0; i < onh; i++)
+        for (int j = 0; j < onw; j++) m.push_back(map[i][j]);
+      emit(kRecMap, m.data(), m.size());
+    }
   }
 
   void intra_frame_mode_info() {
@@ -1847,13 +1405,7 @@ struct Decoder {
       assign_dv();
       return;
     }
-    int above = kIntraModeContext[avail_u ? y_modes[mi_index(mi_row - 1,
-                                                             mi_col)]
-                                          : 0];   // DC_PRED
-    int left = kIntraModeContext[avail_l ? y_modes[mi_index(mi_row,
-                                                            mi_col - 1)]
-                                         : 0];
-    y_mode = sd.symbol(cdf.y_mode[above][left], 13);
+    y_mode = sd.symbol(y_mode_cdf(), 13);
     angle_delta_y = 0;
     if (mi_size >= BLOCK_8X8 && y_mode >= V_PRED && y_mode <= D67_PRED)
       angle_delta_y = sd.symbol(cdf.angle_delta[y_mode - V_PRED], 7) - 3;
@@ -1861,15 +1413,7 @@ struct Decoder {
     angle_delta_uv = 0;
     cfl_alpha_u = cfl_alpha_v = 0;
     if (has_chroma) {
-      int cfl_allowed;
-      int bw = 4 * kNum4x4W[mi_size], bh = 4 * kNum4x4H[mi_size];
-      if (lossless && subsampled_size(mi_size, seq.ssx, seq.ssy) == BLOCK_4X4)
-        cfl_allowed = 1;
-      else if (!lossless && imax(bw, bh) <= 32)
-        cfl_allowed = 1;
-      else
-        cfl_allowed = 0;
-      if (cfl_allowed)
+      if (cfl_allowed())
         uv_mode = sd.symbol(cdf.uv_cfl[y_mode], 14);
       else
         uv_mode = sd.symbol(cdf.uv_nocfl[y_mode], 13);
@@ -1904,24 +1448,11 @@ struct Decoder {
   }
 
   void read_segment_id() {
-    int prev_ul = -1, prev_u = -1, prev_l = -1;
-    if (avail_u && avail_l)
-      prev_ul = seg_ids[mi_index(mi_row - 1, mi_col - 1)];
-    if (avail_u) prev_u = seg_ids[mi_index(mi_row - 1, mi_col)];
-    if (avail_l) prev_l = seg_ids[mi_index(mi_row, mi_col - 1)];
-    int pred;
-    if (prev_u == -1) pred = prev_l == -1 ? 0 : prev_l;
-    else if (prev_l == -1) pred = prev_u;
-    else pred = prev_ul == prev_u ? prev_u : prev_l;
+    int ctx, pred = segment_pred(&ctx);
     if (skip) {
       segment_id = pred;
       return;
     }
-    int ctx;
-    if (prev_ul < 0) ctx = 0;
-    else if (prev_ul == prev_u && prev_ul == prev_l) ctx = 2;
-    else if (prev_ul == prev_u || prev_ul == prev_l || prev_u == prev_l) ctx = 1;
-    else ctx = 0;
     tools |= kToolSegments;
     int s = sd.symbol(cdf.segment_id[ctx], 8);
     int mx = last_active_seg_id + 1;
@@ -1950,10 +1481,7 @@ struct Decoder {
       skip = 1;
       return;
     }
-    int ctx = 0;
-    if (avail_u) ctx += skips[mi_index(mi_row - 1, mi_col)];
-    if (avail_l) ctx += skips[mi_index(mi_row, mi_col - 1)];
-    skip = sd.symbol(cdf.skip[ctx], 2);
+    skip = sd.symbol(cdf.skip[skip_ctx()], 2);
   }
 
   void read_cdef() {
@@ -2029,156 +1557,13 @@ struct Decoder {
 
   // --- Intra block copy (5.11.23-5.11.32, 7.10.2, 7.11.3) ---------------
 
-  // find_mv_stack(0) (7.10.2) for an intra block copy: the spatial scans
-  // only (an intra frame has no motion field to scan). Every block of an
-  // intra frame has RefFrame[0] = INTRA_FRAME and RefFrame[1] = NONE, so a
-  // candidate is any decoded intra-block-copy block, GlobalMvs[0] is 0,
-  // and the extra search (add_extra_mv_candidate takes only candidates
-  // whose reference lies past INTRA_FRAME) adds none.
-  int num_mv_found = 0, stack_mv[8][2], weight_stack[8];
   int ibc_tmp[128 + 7][128];  // predict_intrabc's horizontal pass
 
-  // lower_mv_precision: allow_high_precision_mv is 0 and force_integer_mv
-  // 1 in an intra frame.
-  static void lower_mv_precision(int* v) {
-    for (int i = 0; i < 2; i++) {
-      int a = (abs(v[i]) + 3) >> 3;
-      v[i] = v[i] > 0 ? a << 3 : -(a << 3);
-    }
-  }
-
-  void add_ref_mv_candidate(int r, int c, int weight) {
-    size_t i = mi_index(r, c);
-    if (!is_inters[i]) return;
-    int cand[2] = {mvs[2 * i], mvs[2 * i + 1]};
-    lower_mv_precision(cand);
-    int idx = 0;
-    while (idx < num_mv_found &&
-           (stack_mv[idx][0] != cand[0] || stack_mv[idx][1] != cand[1]))
-      idx++;
-    if (idx < num_mv_found) {
-      weight_stack[idx] += weight;
-    } else if (num_mv_found < 8) {
-      stack_mv[idx][0] = cand[0];
-      stack_mv[idx][1] = cand[1];
-      weight_stack[idx] = weight;
-      num_mv_found++;
-    }
-  }
-
-  void scan_row(int delta_row) {
-    int bw4 = kNum4x4W[mi_size];
-    int end4 = imin(imin(bw4, mi_cols - mi_col), 16);
-    int delta_col = 0, far = abs(delta_row) > 1;
-    if (far) {
-      delta_row += mi_row & 1;
-      delta_col = 1 - (mi_col & 1);
-    }
-    for (int i = 0; i < end4;) {
-      int r = mi_row + delta_row, c = mi_col + delta_col + i;
-      if (!is_inside(r, c)) break;
-      int len = imin(bw4, kNum4x4W[mi_sizes[mi_index(r, c)]]);
-      if (far) len = imax(2, len);
-      if (bw4 >= 16) len = imax(4, len);
-      add_ref_mv_candidate(r, c, 2 * len);
-      i += len;
-    }
-  }
-
-  void scan_col(int delta_col) {
-    int bh4 = kNum4x4H[mi_size];
-    int end4 = imin(imin(bh4, mi_rows - mi_row), 16);
-    int delta_row = 0, far = abs(delta_col) > 1;
-    if (far) {
-      delta_row = 1 - (mi_row & 1);
-      delta_col += mi_col & 1;
-    }
-    for (int i = 0; i < end4;) {
-      int r = mi_row + delta_row + i, c = mi_col + delta_col;
-      if (!is_inside(r, c)) break;
-      int len = imin(bh4, kNum4x4H[mi_sizes[mi_index(r, c)]]);
-      if (far) len = imax(2, len);
-      if (bh4 >= 16) len = imax(4, len);
-      add_ref_mv_candidate(r, c, 2 * len);
-      i += len;
-    }
-  }
-
-  // scan_point: the candidate must already be decoded (the top right
-  // often is not).
-  void scan_point(int delta_row, int delta_col) {
-    int r = mi_row + delta_row, c = mi_col + delta_col;
-    if (is_inside(r, c) && decoded[mi_index(r, c)])
-      add_ref_mv_candidate(r, c, 4);
-  }
-
-  void sort_stack(int start, int end) {
-    while (end > start) {
-      int new_end = start;
-      for (int idx = start + 1; idx < end; idx++)
-        if (weight_stack[idx - 1] < weight_stack[idx]) {
-          std::swap(weight_stack[idx - 1], weight_stack[idx]);
-          std::swap(stack_mv[idx - 1][0], stack_mv[idx][0]);
-          std::swap(stack_mv[idx - 1][1], stack_mv[idx][1]);
-          new_end = idx;
-        }
-      end = new_end;
-    }
-  }
-
-  void find_mv_stack() {
-    int bw4 = kNum4x4W[mi_size], bh4 = kNum4x4H[mi_size];
-    num_mv_found = 0;
-    scan_row(-1);
-    scan_col(-1);
-    if (imax(bw4, bh4) <= 16) scan_point(-1, bw4);
-    int num_nearest = num_mv_found;
-    for (int idx = 0; idx < num_nearest; idx++)
-      weight_stack[idx] += 640;  // REF_CAT_LEVEL
-    scan_point(-1, -1);
-    scan_row(-3);
-    scan_col(-3);
-    if (bh4 > 1) scan_row(-5);
-    if (bw4 > 1) scan_col(-5);
-    sort_stack(0, num_nearest);
-    sort_stack(num_nearest, num_mv_found);
-    for (int idx = num_mv_found; idx < 2; idx++)
-      stack_mv[idx][0] = stack_mv[idx][1] = 0;
-    // context_and_clamping: within MV_BORDER (16 samples) plus the
-    // block's size of the frame.
-    int top = -mi_row * 32, bottom = (mi_rows - bh4 - mi_row) * 32;
-    int left = -mi_col * 32, right = (mi_cols - bw4 - mi_col) * 32;
-    for (int idx = 0; idx < num_mv_found; idx++) {
-      stack_mv[idx][0] = clip3(top - 128 - bh4 * 32, bottom + 128 + bh4 * 32,
-                               stack_mv[idx][0]);
-      stack_mv[idx][1] = clip3(left - 128 - bw4 * 32, right + 128 + bw4 * 32,
-                               stack_mv[idx][1]);
-    }
-  }
-
-  // assign_mv(0) for use_intrabc (5.11.26): the first non-zero vector of
-  // the stack, else the default one superblock up (or, in the tile's first
-  // superblock row, one superblock and INTRABC_DELAY_PIXELS to the left),
-  // rounded to whole samples as libaom rounds it, plus read_mv.
+  // assign_mv(0) for use_intrabc (5.11.26): FrameState's dv_ref, plus
+  // read_mv.
   void assign_dv() {
-    find_mv_stack();
-    int pred[2] = {stack_mv[0][0], stack_mv[0][1]};
-    if (!pred[0] && !pred[1]) {
-      pred[0] = stack_mv[1][0];
-      pred[1] = stack_mv[1][1];
-    }
-    if (!pred[0] && !pred[1]) {
-      tools |= kIntrabcDefaultDv;
-      int sb4 = seq.sb128 ? 32 : 16;
-      if (mi_row - sb4 < mi_row_start) {
-        pred[1] = -(sb4 * 4 + 256) * 8;
-      } else {
-        pred[0] = -(sb4 * 4 * 8);
-      }
-    } else {
-      tools |= kIntrabcStackDv;
-    }
-    for (int k = 0; k < 2; k++) pred[k] = (pred[k] >> 3) * 8;
+    int pred[2];
+    tools |= dv_ref(pred) ? kIntrabcStackDv : kIntrabcDefaultDv;
     // read_mv under MV_INTRABC_CONTEXT: whole samples only.
     int joint = sd.symbol(cdf.mv_joint, 4);
     mv[0] = pred[0] + (joint == 2 || joint == 3 ? read_mv_component(0) : 0);
@@ -2277,46 +1662,11 @@ struct Decoder {
     }
   }
 
-  int get_palette_cache(int plane, uint16_t* cache) {
-    int above_n = 0, left_n = 0;
-    if (((mi_row * 4) % 64) && avail_u)
-      above_n = pal_sizes[plane][mi_index(mi_row - 1, mi_col)];
-    if (avail_l) left_n = pal_sizes[plane][mi_index(mi_row, mi_col - 1)];
-    const uint16_t* ac =
-        above_n ? &pal_colors[plane][mi_index(mi_row - 1, mi_col) * 8] : nullptr;
-    const uint16_t* lc =
-        left_n ? &pal_colors[plane][mi_index(mi_row, mi_col - 1) * 8] : nullptr;
-    int ai = 0, li = 0, n = 0;
-    while (ai < above_n && li < left_n) {
-      int a = ac[ai], l = lc[li];
-      if (l < a) {
-        if (n == 0 || l != cache[n - 1]) cache[n++] = (uint16_t)l;
-        li++;
-      } else {
-        if (n == 0 || a != cache[n - 1]) cache[n++] = (uint16_t)a;
-        ai++;
-        if (l == a) li++;
-      }
-    }
-    while (ai < above_n) {
-      int v = ac[ai++];
-      if (n == 0 || v != cache[n - 1]) cache[n++] = (uint16_t)v;
-    }
-    while (li < left_n) {
-      int v = lc[li++];
-      if (n == 0 || v != cache[n - 1]) cache[n++] = (uint16_t)v;
-    }
-    return n;
-  }
-
   void palette_mode_info() {
     int bsize_ctx = kMiWLog2[mi_size] + kMiHLog2[mi_size] - 2;
     const int bd = 8;
     if (y_mode == DC_PRED) {
-      int ctx = 0;
-      if (avail_u && pal_sizes[0][mi_index(mi_row - 1, mi_col)] > 0) ctx++;
-      if (avail_l && pal_sizes[0][mi_index(mi_row, mi_col - 1)] > 0) ctx++;
-      if (sd.symbol(cdf.pal_y_mode[bsize_ctx][ctx], 2)) {
+      if (sd.symbol(cdf.pal_y_mode[bsize_ctx][palette_mode_ctx()], 2)) {
         pal_size_y = sd.symbol(cdf.pal_y_size[bsize_ctx], 7) + 2;
         uint16_t cache[16];
         int cn = get_palette_cache(0, cache), idx = 0;
@@ -2374,42 +1724,14 @@ struct Decoder {
     }
   }
 
-  void palette_color_context(uint8_t map[64][64], int r, int c, int n,
-                             int* order, int* ctx) {
-    int scores[8] = {0};
-    for (int i = 0; i < 8; i++) order[i] = i;
-    if (c > 0) scores[map[r][c - 1]] += 2;
-    if (r > 0 && c > 0) scores[map[r - 1][c - 1]] += 1;
-    if (r > 0) scores[map[r - 1][c]] += 2;
-    for (int i = 0; i < 3; i++) {
-      int mx = scores[i], mi = i;
-      for (int j = i + 1; j < n; j++)
-        if (scores[j] > mx) {
-          mx = scores[j];
-          mi = j;
-        }
-      if (mi != i) {
-        int ms = scores[mi], mo = order[mi];
-        for (int k = mi; k > i; k--) {
-          scores[k] = scores[k - 1];
-          order[k] = order[k - 1];
-        }
-        scores[i] = ms;
-        order[i] = mo;
-      }
-    }
-    int hash = scores[0] * 1 + scores[1] * 2 + scores[2] * 2;
-    *ctx = kPaletteColorContext[hash];
-    if (*ctx == 255) corrupt("palette colour context");
-  }
-
   void read_color_map(uint8_t map[64][64], int n, int plane, int bw, int bh,
                       int onw, int onh) {
     map[0][0] = (uint8_t)sd.ns(n);
     int order[8], ctx;
     for (int i = 1; i < onh + onw - 1; i++)
       for (int j = imin(i, onw - 1); j >= imax(0, i - onh + 1); j--) {
-        palette_color_context(map, i - j, j, n, order, &ctx);
+        ctx = color_context(&map[0][0], 64, i - j, j, n, order);
+        if (ctx == 255) corrupt("palette colour context");
         int s = sd.symbol(cdf.pal_color[plane][n - 2][ctx], n);
         map[i - j][j] = (uint8_t)order[s];
       }
@@ -2461,39 +1783,15 @@ struct Decoder {
         tx_sizes[mi_index(r, c)] = (uint8_t)tx_size;
   }
 
-  // get_above_tx_width and get_left_tx_height (5.11.17): a skipped inter
-  // neighbour counts by its block size, an unavailable one as 64.
-  int above_tx_width(int row, int col) {
-    if (row == mi_row) {
-      if (!avail_u) return 64;
-      size_t a = mi_index(row - 1, col);
-      if (skips[a] && is_inters[a]) return 4 * kNum4x4W[mi_sizes[a]];
-    }
-    return kTxW[tx_sizes[mi_index(row - 1, col)]];
-  }
-  int left_tx_height(int row, int col) {
-    if (col == mi_col) {
-      if (!avail_l) return 64;
-      size_t l = mi_index(row, col - 1);
-      if (skips[l] && is_inters[l]) return 4 * kNum4x4H[mi_sizes[l]];
-    }
-    return kTxH[tx_sizes[mi_index(row, col - 1)]];
-  }
-
   void read_var_tx_size(int row, int col, int txsz, int depth) {
     if (row >= mi_rows || col >= mi_cols) return;
     int split = 0;
     if (txsz != TX_4X4 && depth < 2) {  // MAX_VARTX_DEPTH
-      int above = above_tx_width(row, col) < kTxW[txsz];
-      int left = left_tx_height(row, col) < kTxH[txsz];
-      int size = imin(64, 4 * imax(kNum4x4W[mi_size], kNum4x4H[mi_size]));
-      int max_sq = tx_of(size, size);
-      int ctx = (kTxSqrUp[txsz] != max_sq) * 3 + (TX_64X64 - max_sq) * 6 +
-                above + left;
-      split = sd.symbol(cdf.txfm_split[ctx], 2);
+      split = sd.symbol(cdf.txfm_split[var_tx_ctx(row, col, txsz)], 2);
       if (split) tools |= kIntrabcVarTx;
     }
     int w4 = kTxW[txsz] >> 2, h4 = kTxH[txsz] >> 2;
+    if (rec && !split) var_leaves.insert(var_leaves.end(), {row, col, txsz});
     if (split) {
       int sub = kSplitTx[txsz];
       int sw = kTxW[sub] >> 2, sh = kTxH[sub] >> 2;
@@ -2516,103 +1814,20 @@ struct Decoder {
     int max_rect = max_tx_rect(mi_size);
     tx_size = max_rect;
     if (mi_size > BLOCK_4X4 && allow_select && tx_mode_select) {
-      int max_depth = kMaxTxDepth[mi_size];
-      int mw = kTxW[max_rect], mh = kTxH[max_rect];
-      int above_w = 0, left_h = 0;
-      if (avail_u) {
-        size_t a = mi_index(mi_row - 1, mi_col);
-        above_w = is_inters[a] ? 4 * kNum4x4W[mi_sizes[a]]
-                               : above_tx_width(mi_row, mi_col);
-      }
-      if (avail_l) {
-        size_t l = mi_index(mi_row, mi_col - 1);
-        left_h = is_inters[l] ? 4 * kNum4x4H[mi_sizes[l]]
-                              : left_tx_height(mi_row, mi_col);
-      }
-      int ctx = (above_w >= mw) + (left_h >= mh);
-      int depth;
-      switch (max_depth) {
-        case 1: depth = sd.symbol(cdf.tx8[ctx], 2); break;
-        case 2: depth = sd.symbol(cdf.tx16[ctx], 3); break;
-        case 3: depth = sd.symbol(cdf.tx32[ctx], 3); break;
-        default: depth = sd.symbol(cdf.tx64[ctx], 3); break;
-      }
+      int n;
+      uint16_t* c = tx_depth_cdf(max_rect, &n);
+      int depth = sd.symbol(c, n);
       for (int i = 0; i < depth; i++) tx_size = kSplitTx[tx_size];
-    }
-  }
-
-  void reset_block_context(int bw4, int bh4) {
-    for (int p = 0; p < 1 + 2 * has_chroma; p++) {
-      int sx = p ? seq.ssx : 0, sy = p ? seq.ssy : 0;
-      for (int i = mi_col >> sx; i < ((mi_col + bw4) >> sx); i++) {
-        above_level[p][i] = 0;
-        above_dc[p][i] = 0;
-      }
-      for (int i = mi_row >> sy; i < ((mi_row + bh4) >> sy); i++) {
-        left_level[p][i] = 0;
-        left_dc[p][i] = 0;
-      }
     }
   }
 
   // --- Residual (5.11.34-39) and reconstruction --------------------------
 
-  int get_tx_size(int plane, int txsz) {
-    if (plane == 0) return txsz;
-    int uvtx = max_tx_rect(subsampled_size(mi_size, seq.ssx, seq.ssy));
-    if (kTxW[uvtx] == 64 || kTxH[uvtx] == 64) {
-      if (kTxW[uvtx] == 16) return TX_16X32;
-      if (kTxH[uvtx] == 16) return TX_32X16;
-      return TX_32X32;
-    }
-    return uvtx;
-  }
-
   void residual() {
-    int wchunks = imax(1, (4 * kNum4x4W[mi_size]) >> 6);
-    int hchunks = imax(1, (4 * kNum4x4H[mi_size]) >> 6);
-    int size_chunk = (wchunks > 1 || hchunks > 1) ? BLOCK_64X64 : mi_size;
-    for (int cy = 0; cy < hchunks; cy++)
-      for (int cx = 0; cx < wchunks; cx++) {
-        for (int p = 0; p < 1 + has_chroma * 2; p++) {
-          int txsz = lossless ? TX_4X4 : get_tx_size(p, tx_size);
-          int stepx = kTxW[txsz] >> 2, stepy = kTxH[txsz] >> 2;
-          int sx = p ? seq.ssx : 0, sy = p ? seq.ssy : 0;
-          int psz = subsampled_size(size_chunk, sx, sy);
-          int n4w = kNum4x4W[psz], n4h = kNum4x4H[psz];
-          if (is_inter && !lossless && p == 0) {
-            transform_tree((mi_col + (cx << 4)) * 4, (mi_row + (cy << 4)) * 4,
-                           n4w * 4, n4h * 4);
-            continue;
-          }
-          int bx = (mi_col >> sx) * 4, by = (mi_row >> sy) * 4;
-          for (int y = 0; y < n4h; y += stepy)
-            for (int x = 0; x < n4w; x += stepx)
-              transform_block(p, bx, by, txsz, x + ((cx << 4) >> sx),
-                              y + ((cy << 4) >> sy));
-        }
-      }
-  }
-
-  // transform_tree (5.11.36): an inter block's luma transforms, as its
-  // InterTxSizes lay them out.
-  void transform_tree(int x, int y, int w, int h) {
-    if (x >= mi_cols * 4 || y >= mi_rows * 4) return;
-    int txsz = tx_sizes[mi_index(y >> 2, x >> 2)];
-    if (w <= kTxW[txsz] && h <= kTxH[txsz]) {
-      transform_block(0, x, y, txsz, 0, 0);
-    } else if (w > h) {
-      transform_tree(x, y, w / 2, h);
-      transform_tree(x + w / 2, y, w / 2, h);
-    } else if (w < h) {
-      transform_tree(x, y, w, h / 2);
-      transform_tree(x, y + h / 2, w, h / 2);
-    } else {
-      transform_tree(x, y, w / 2, h / 2);
-      transform_tree(x + w / 2, y, w / 2, h / 2);
-      transform_tree(x, y + h / 2, w / 2, h / 2);
-      transform_tree(x + w / 2, y + h / 2, w / 2, h / 2);
-    }
+    residual_blocks(tx_size, [&](int p, int bx, int by, int txsz, int x,
+                                 int y) {
+      transform_block(p, bx, by, txsz, x, y);
+    });
   }
 
   void transform_block(int plane, int base_x, int base_y, int txsz, int x,
@@ -3007,36 +2222,6 @@ struct Decoder {
 
   // --- Coefficients (5.11.39) -------------------------------------------
 
-  // get_tx_set (5.11.48): TX_SET_INTER_1-3 for an inter block.
-  int get_tx_set(int txsz) {
-    int sqr = kTxSqr[txsz], up = kTxSqrUp[txsz];
-    if (up > TX_32X32) return 0;
-    if (is_inter) {
-      if (reduced_tx_set || up == TX_32X32) return 3;
-      return sqr == TX_16X16 ? 2 : 1;
-    }
-    if (up == TX_32X32) return 0;
-    if (reduced_tx_set) return 2;
-    if (sqr == TX_16X16) return 2;
-    return 1;
-  }
-
-  static bool in_set_intra(int set, int t) {
-    static const uint8_t in[3][16] = {
-        {1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
-        {1, 1, 1, 1, 0, 0, 0, 0, 0, 1, 1, 1, 0, 0, 0, 0},
-        {1, 1, 1, 1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0}};
-    return in[set][t];
-  }
-  static bool in_set_inter(int set, int t) {
-    static const uint8_t in[4][16] = {
-        {1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0},
-        {1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1},
-        {1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0},
-        {1, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0}};
-    return in[set][t];
-  }
-
   void read_tx_type(int x4, int y4, int txsz) {
     int set = get_tx_set(txsz);
     int t = DCT_DCT;
@@ -3054,109 +2239,11 @@ struct Decoder {
       if (set == 1) t = kTxInv1[sd.symbol(cdf.tx_set1[sqr][dir], 7)];
       else t = kTxInv2[sd.symbol(cdf.tx_set2[sqr][dir], 5)];
     }
-    for (int i = 0; i < (kTxW[txsz] >> 2); i++)
-      for (int j = 0; j < (kTxH[txsz] >> 2); j++)
-        if (y4 + j < mi_rows && x4 + i < mi_cols)
-          tx_types[mi_index(y4 + j, x4 + i)] = (uint8_t)t;
-  }
-
-  int compute_tx_type(int plane, int txsz, int x4, int y4) {
-    if (lossless || kTxSqrUp[txsz] > TX_32X32) return DCT_DCT;
-    int set = get_tx_set(txsz);
-    if (plane == 0) return tx_types[mi_index(y4, x4)];
-    if (is_inter) {  // the co-located luma transform's type
-      int t = tx_types[mi_index(imax(mi_row, y4 << seq.ssy),
-                                imax(mi_col, x4 << seq.ssx))];
-      return in_set_inter(set, t) ? t : DCT_DCT;
-    }
-    int t = kModeToTxfm[uv_mode];
-    if (!in_set_intra(set, t)) return DCT_DCT;
-    return t;
-  }
-
-  const uint16_t* get_scan(int txsz) {
-    if (txsz == TX_16X64) return Default_Scan_16x32;
-    if (txsz == TX_64X16) return Default_Scan_32x16;
-    if (kTxSqrUp[txsz] == TX_64X64) return Default_Scan_32x32;
-    int cls = tx_class(plane_tx_type);
-    if (plane_tx_type != IDTX && cls != TX_CLASS_2D) {
-      static const struct Scans1D {
-        uint16_t mrow[256], mcol[TX_SIZES_ALL][256];
-        Scans1D() {
-          for (int i = 0; i < 256; i++) mrow[i] = (uint16_t)i;
-          for (int t = 0; t < TX_SIZES_ALL; t++) {
-            int w = kTxW[t], h = kTxH[t];
-            if (w > 16 || h > 16) continue;
-            for (int c = 0; c < w * h; c++)
-              mcol[t][c] = (uint16_t)((c % h) * w + c / h);
-          }
-        }
-      } scans;
-      if (kTxW[txsz] > 16 || kTxH[txsz] > 16) corrupt("1D transform size");
-      if (cls == TX_CLASS_VERT) return scans.mrow;
-      return scans.mcol[txsz];
-    }
-    switch (txsz) {
-      case TX_4X4: return Default_Scan_4x4;
-      case TX_8X8: return Default_Scan_8x8;
-      case TX_16X16: return Default_Scan_16x16;
-      case TX_32X32: return Default_Scan_32x32;
-      case TX_4X8: return Default_Scan_4x8;
-      case TX_8X4: return Default_Scan_8x4;
-      case TX_8X16: return Default_Scan_8x16;
-      case TX_16X8: return Default_Scan_16x8;
-      case TX_16X32: return Default_Scan_16x32;
-      case TX_32X16: return Default_Scan_32x16;
-      case TX_4X16: return Default_Scan_4x16;
-      case TX_16X4: return Default_Scan_16x4;
-      case TX_8X32: return Default_Scan_8x32;
-      default: return Default_Scan_32x8;
-    }
-  }
-
-  int coeff_base_ctx(int txsz, int bwl, int txh, int pos, int cls) {
-    int row = pos >> bwl, col = pos - (row << bwl), mag = 0;
-    int txw = 1 << bwl;
-    for (int k = 0; k < 5; k++) {
-      int rr = row + kSigRefDiffOffset[cls][k][0];
-      int cc = col + kSigRefDiffOffset[cls][k][1];
-      if (rr >= 0 && cc >= 0 && rr < txh && cc < txw)
-        mag += imin(abs(quant[(rr << bwl) + cc]), 3);
-    }
-    int ctx = imin((mag + 1) >> 1, 4);
-    if (cls == TX_CLASS_2D) {
-      if (row == 0 && col == 0) return 0;
-      return ctx + Coeff_Base_Ctx_Offset[txsz][imin(row, 4)][imin(col, 4)];
-    }
-    int idx = cls == TX_CLASS_VERT ? row : col;
-    static const int pos_off[3] = {26, 31, 36};
-    return ctx + pos_off[imin(idx, 2)];
-  }
-
-  int coeff_br_ctx(int bwl, int txh, int pos, int cls) {
-    int row = pos >> bwl, col = pos - (row << bwl), mag = 0;
-    int txw = 1 << bwl;
-    for (int k = 0; k < 3; k++) {
-      int rr = row + kMagRefOffset[cls][k][0];
-      int cc = col + kMagRefOffset[cls][k][1];
-      if (rr >= 0 && cc >= 0 && rr < txh && cc < txw)
-        mag += imin(quant[rr * txw + cc], 15);
-    }
-    mag = imin((mag + 1) >> 1, 6);
-    if (pos == 0) return mag;
-    if (cls == TX_CLASS_2D) {
-      if (row < 2 && col < 2) return mag + 7;
-    } else if (cls == TX_CLASS_HORIZ) {
-      if (col == 0) return mag + 7;
-    } else {
-      if (row == 0) return mag + 7;
-    }
-    return mag + 14;
+    set_tx_type(x4, y4, txsz, t);
   }
 
   int coeffs(int plane, int sx0, int sy0, int txsz) {
     int x4 = sx0 >> 2, y4 = sy0 >> 2;
-    int w4 = kTxW[txsz] >> 2, h4 = kTxH[txsz] >> 2;
     int ctx_sz = (kTxSqr[txsz] + kTxSqrUp[txsz] + 1) >> 1;
     int ptype = plane > 0;
     int seg_eob = (txsz == TX_16X64 || txsz == TX_64X16)
@@ -3164,63 +2251,18 @@ struct Decoder {
                       : imin(1024, kTxW[txsz] * kTxH[txsz]);
     memset(quant, 0, sizeof(int32_t) * seg_eob);
     int eob = 0, cul = 0, dc_cat = 0;
-    // all_zero context
-    int sx = plane ? seq.ssx : 0, sy = plane ? seq.ssy : 0;
-    int max_x4 = mi_cols >> sx, max_y4 = mi_rows >> sy;
-    if (plane == 0) { max_x4 = mi_cols; max_y4 = mi_rows; }
-    int w = kTxW[txsz], h = kTxH[txsz];
-    int ctx;
-    int bsize = subsampled_size(mi_size, sx, sy);
-    if (plane == 0) {
-      int top = 0, left = 0;
-      for (int k = 0; k < w4; k++)
-        if (x4 + k < max_x4) top = imax(top, above_level[plane][x4 + k]);
-      for (int k = 0; k < h4; k++)
-        if (y4 + k < max_y4) left = imax(left, left_level[plane][y4 + k]);
-      top = imin(top, 255);
-      left = imin(left, 255);
-      if (4 * kNum4x4W[bsize] == w && 4 * kNum4x4H[bsize] == h) ctx = 0;
-      else if (top == 0 && left == 0) ctx = 1;
-      else if (top == 0 || left == 0) ctx = 2 + (imax(top, left) > 3);
-      else if (imax(top, left) <= 3) ctx = 4;
-      else if (imin(top, left) <= 3) ctx = 5;
-      else ctx = 6;
-    } else {
-      int above = 0, left = 0;
-      for (int k = 0; k < w4; k++)
-        if (x4 + k < max_x4)
-          above |= above_level[plane][x4 + k] | above_dc[plane][x4 + k];
-      for (int k = 0; k < h4; k++)
-        if (y4 + k < max_y4)
-          left |= left_level[plane][y4 + k] | left_dc[plane][y4 + k];
-      ctx = (above != 0) + (left != 0) + 7;
-      if (16 * kNum4x4W[bsize] * kNum4x4H[bsize] > w * h) ctx += 3;
-    }
-    int all_zero = sd.symbol(cdf.txb_skip[ctx_sz][ctx], 2);
+    int all_zero =
+        sd.symbol(cdf.txb_skip[ctx_sz][txb_skip_ctx(plane, x4, y4, txsz)], 2);
     if (all_zero) {
-      if (plane == 0)
-        for (int i = 0; i < w4; i++)
-          for (int j = 0; j < h4; j++)
-            if (y4 + j < mi_rows && x4 + i < mi_cols)
-              tx_types[mi_index(y4 + j, x4 + i)] = DCT_DCT;
+      if (plane == 0) set_tx_type(x4, y4, txsz, DCT_DCT);
     } else {
       if (plane == 0) read_tx_type(x4, y4, txsz);
       plane_tx_type = compute_tx_type(plane, txsz, x4, y4);
       int cls = tx_class(plane_tx_type);
       const uint16_t* scan = get_scan(txsz);
-      int multi = imin(kTxWLog2[txsz], 5) + imin(kTxHLog2[txsz], 5) - 4;
-      int c2 = cls == TX_CLASS_2D ? 0 : 1;
-      int eob_pt;
-      switch (multi) {
-        case 0: eob_pt = sd.symbol(cdf.eob16[ptype][c2], 5); break;
-        case 1: eob_pt = sd.symbol(cdf.eob32[ptype][c2], 6); break;
-        case 2: eob_pt = sd.symbol(cdf.eob64[ptype][c2], 7); break;
-        case 3: eob_pt = sd.symbol(cdf.eob128[ptype][c2], 8); break;
-        case 4: eob_pt = sd.symbol(cdf.eob256[ptype][c2], 9); break;
-        case 5: eob_pt = sd.symbol(cdf.eob512[ptype], 10); break;
-        default: eob_pt = sd.symbol(cdf.eob1024[ptype], 11); break;
-      }
-      eob_pt += 1;
+      int n;
+      uint16_t* eob_cdf = eob_pt_cdf(txsz, ptype, cls, &n);
+      int eob_pt = sd.symbol(eob_cdf, n) + 1;
       eob = eob_pt < 2 ? eob_pt : (1 << (eob_pt - 2)) + 1;
       int eob_shift = eob_pt - 3;
       if (eob_shift >= 0) {
@@ -3237,11 +2279,7 @@ struct Decoder {
       for (int c = eob - 1; c >= 0; c--) {
         int pos = scan[c], level;
         if (c == eob - 1) {
-          int cx;
-          if (c == 0) cx = 0;
-          else if (c <= (txh << bwl) / 8) cx = 1;
-          else if (c <= (txh << bwl) / 4) cx = 2;
-          else cx = 3;
+          int cx = coeff_base_eob_ctx(c, bwl, txh);
           level = sd.symbol(cdf.base_eob[ctx_sz][ptype][cx], 3) + 1;
         } else {
           int cx = coeff_base_ctx(txsz, bwl, txh, pos, cls);
@@ -3261,20 +2299,7 @@ struct Decoder {
         int pos = scan[c], sign = 0;
         if (quant[pos] != 0) {
           if (c == 0) {
-            int dcs = 0;
-            for (int k = 0; k < w4; k++)
-              if (x4 + k < max_x4) {
-                int s = above_dc[plane][x4 + k];
-                if (s == 1) dcs--;
-                else if (s == 2) dcs++;
-              }
-            for (int k = 0; k < h4; k++)
-              if (y4 + k < max_y4) {
-                int s = left_dc[plane][y4 + k];
-                if (s == 1) dcs--;
-                else if (s == 2) dcs++;
-              }
-            int dctx = dcs < 0 ? 1 : dcs > 0 ? 2 : 0;
+            int dctx = dc_sign_ctx(plane, x4, y4, txsz);
             sign = sd.symbol(cdf.dc_sign[ptype][dctx], 2);
           } else {
             sign = sd.literal(1);
@@ -3298,14 +2323,16 @@ struct Decoder {
       }
       cul = imin(63, cul);
     }
-    for (int i = 0; i < w4; i++) {
-      above_level[plane][x4 + i] = (uint8_t)cul;
-      above_dc[plane][x4 + i] = (uint8_t)dc_cat;
+    if (rec) {
+      std::vector<int32_t> e = {plane, sx0, sy0, txsz,
+                                all_zero ? DCT_DCT : plane_tx_type, eob};
+      if (eob) {
+        const uint16_t* scan = get_scan(txsz);
+        for (int c = 0; c < eob; c++) e.push_back(quant[scan[c]]);
+      }
+      emit(kRecTxb, e.data(), e.size());
     }
-    for (int i = 0; i < h4; i++) {
-      left_level[plane][y4 + i] = (uint8_t)cul;
-      left_dc[plane][y4 + i] = (uint8_t)dc_cat;
-    }
+    set_coeff_context(plane, x4, y4, txsz, cul, dc_cat);
     return eob;
   }
 
@@ -3460,6 +2487,7 @@ struct Decoder {
           BitReader br(body, size);
           sequence_header(br);
           br.f(1);  // trailing_one_bit: must be there (dav1d)
+          if (rec) emit(kRecSeq, &seq, sizeof(seq) / 4);
           break;
         }
         case 3:   // OBU_FRAME_HEADER
@@ -3467,6 +2495,13 @@ struct Decoder {
           BitReader br(body, size);
           frame_header(br, tid, sid);
           if (type == 3) br.f(1);  // trailing_one_bit (dav1d)
+          if (rec) {
+            emit(kRecFrame, &fh, sizeof(fh) / 4);
+            size_t n = rec->size();
+            rec->insert(rec->end(), (const int32_t*)&grain,
+                        (const int32_t*)&grain + sizeof(grain) / 4);
+            (*rec)[n - 1 - sizeof(fh) / 4] += sizeof(grain) / 4;
+          }
           if (header_only) {
             frame_done = true;
             break;
@@ -3679,6 +2714,32 @@ int64_t tb_av1_decode(const uint8_t* data, int64_t n, uint8_t* planes,
     if (msg && cap > 0) {
       strncpy(msg, e.what(), (size_t)cap - 1);
       msg[cap - 1] = 0;
+    }
+  }
+  delete dec;
+  return rc;
+}
+
+// The decision record (av1_syntax.inc) of one AV1 temporal unit: what its
+// sequence header, frame header and tiles decided, as the decoder read
+// them. out (int32[cap]) gets the record; returns its length (more than
+// cap: nothing useful was written, call again with that much room), or
+// kCorrupt or kUnsupported with the reason in msg (cap bytes).
+int64_t tb_av1_record(const uint8_t* data, int64_t n, int32_t* out,
+                      int64_t cap, char* msg, int64_t msg_cap) {
+  Decoder* dec = new Decoder();
+  std::vector<int32_t> rec;
+  dec->rec = &rec;
+  int64_t rc;
+  try {
+    dec->decode(data, (size_t)n);
+    rc = (int64_t)rec.size();
+    if (rc <= cap) memcpy(out, rec.data(), rec.size() * 4);
+  } catch (const Error& e) {
+    rc = e.code;
+    if (msg && msg_cap > 0) {
+      strncpy(msg, e.what, (size_t)msg_cap - 1);
+      msg[msg_cap - 1] = 0;
     }
   }
   delete dec;
